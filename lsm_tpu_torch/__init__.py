@@ -1,0 +1,56 @@
+"""lsm_tpu_torch — the PyTorch + CUDA port of :mod:`lsm_tpu`.
+
+A second package beside the JAX one, with the same layout (``core``, ``ops``,
+``terms``, ``integrators``, ``geometry``, ``models``, ``utils``) and the same
+semantics. Plain tensor code is PyTorch; each TPU kernel on a ported path is a
+hand-written CUDA kernel for Hopper (``csrc/``, built with nvcc on first use).
+
+This first slice is the dense 3D WENO5 advection path: ``Grid``, BCs,
+``MeshField`` / ``sample``, ``AdvectionTerm``, FE/RK2/RK3, and
+``LevelSetEquation.integrate``, which on a CUDA state runs the fused stepper
+through the stage kernel (K1) and the ghost-refresh kernel (K2).
+"""
+
+from .core.grid import Grid
+from .core.bc import (
+    BoundaryCondition,
+    Periodic,
+    Extrapolation,
+    Neumann,
+    LinearExtrapolation,
+    Symmetry,
+    normalize_bcs,
+)
+from .core.field import MeshField, sample
+from .terms.terms import AdvectionTerm, compute_cfl
+from .integrators.explicit import ForwardEuler, RK2, RK3, TimeIntegrator
+from .integrators.loop import step
+from .equation import LevelSetEquation
+from .geometry.queries import volume, perimeter, smooth_heaviside, smooth_delta
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Grid",
+    "BoundaryCondition",
+    "Periodic",
+    "Extrapolation",
+    "Neumann",
+    "LinearExtrapolation",
+    "Symmetry",
+    "normalize_bcs",
+    "MeshField",
+    "sample",
+    "AdvectionTerm",
+    "compute_cfl",
+    "ForwardEuler",
+    "RK2",
+    "RK3",
+    "TimeIntegrator",
+    "step",
+    "LevelSetEquation",
+    "volume",
+    "perimeter",
+    "smooth_heaviside",
+    "smooth_delta",
+]

@@ -1,0 +1,114 @@
+"""Node-centered fields on a Cartesian grid (port of :mod:`lsm_tpu.core.field`).
+
+``values`` is a dense tensor of shape ``grid.shape`` (scalar field) or
+``(ndim, *grid.shape)`` (vector field, leading component axis); the grid and
+the normalized boundary conditions ride beside it.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from .bc import bcs_str, normalize_bcs, pad_ghost
+from .grid import Grid
+
+__all__ = ["MeshField", "sample"]
+
+
+class MeshField:
+    """Dense node-centered field: ``values`` + ``grid`` and ``bcs``."""
+
+    def __init__(self, values: torch.Tensor, grid: Grid, bcs=None, _normalized=False):
+        if not _normalized:
+            bcs = normalize_bcs(bcs, grid.ndim)
+        self.values = values
+        self.grid = grid
+        self.bcs = bcs
+
+    @property
+    def ndim(self) -> int:
+        return self.grid.ndim
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.grid.shape
+
+    @property
+    def is_vector(self) -> bool:
+        return self.values.ndim == self.grid.ndim + 1
+
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+    @property
+    def device(self):
+        return self.values.device
+
+    @property
+    def spacing(self) -> Tuple[float, ...]:
+        return self.grid.spacing
+
+    def has_bcs(self) -> bool:
+        return self.bcs is not None
+
+    def with_bcs(self, bc, *, replace: bool = False) -> "MeshField":
+        """Return a copy with boundary conditions attached."""
+        if self.bcs is not None and not replace:
+            raise ValueError("field already has boundary conditions")
+        return MeshField(self.values, self.grid, normalize_bcs(bc, self.ndim), _normalized=True)
+
+    def with_values(self, values: torch.Tensor) -> "MeshField":
+        return MeshField(values, self.grid, self.bcs, _normalized=True)
+
+    def pad(self, width: int) -> torch.Tensor:
+        """Ghost-padded values with ``width`` layers on every side (vector
+        fields pad the spatial axes only)."""
+        if self.bcs is None:
+            raise ValueError(
+                "field has no boundary conditions; stencils reaching off-grid need them"
+            )
+        if self.is_vector:
+            bcs = ((None, None),) + self.bcs  # axis 0 is the component axis
+            return pad_ghost(self.values, bcs, width, axes=range(1, self.values.ndim))
+        return pad_ghost(self.values, self.bcs, width)
+
+    def __repr__(self) -> str:
+        kind = "vector" if self.is_vector else "scalar"
+        nodes = " x ".join(str(n) for n in self.shape)
+        return (
+            f"MeshField ({kind}, {self.values.dtype}, {self.values.device})\n"
+            f"  |- grid: {nodes} nodes in R^{self.ndim}\n"
+            f"  `- bcs:  {bcs_str(self.bcs)}"
+        )
+
+
+def sample(
+    fn: Callable,
+    grid: Grid,
+    bc=None,
+    dtype=None,
+    device=None,
+    vector: bool = False,
+) -> MeshField:
+    """Sample ``fn(*coords)`` at the grid nodes into a :class:`MeshField`.
+
+    ``fn`` receives the broadcastable coordinate tensors and returns one tensor
+    (scalar field) or a length-``ndim`` sequence (vector field). ``dtype``
+    defaults to ``torch.get_default_dtype()`` and ``device`` to the CPU.
+    """
+    dtype = dtype or torch.get_default_dtype()
+    xs = grid.coords(dtype=dtype, device=device)
+    out = fn(*xs)
+
+    def full(c):
+        c = torch.as_tensor(c, dtype=dtype, device=xs[0].device)
+        return torch.broadcast_to(c, grid.shape)
+
+    if vector or isinstance(out, (tuple, list)):
+        values = torch.stack([full(c) for c in out], dim=0)
+    else:
+        values = full(out).contiguous()
+    return MeshField(values, grid, bc)

@@ -1,0 +1,65 @@
+/* C interface of the hand-written Hopper kernels of lsm_tpu_torch.
+ *
+ * Built by lsm_tpu_torch/ops/_build.py into one shared library (nvcc, sm_90a)
+ * and bound with ctypes. Every pointer argument is a device pointer unless
+ * stated; `stream` is a cudaStream_t. Each entry point launches on `stream`,
+ * does not synchronise, allocates nothing, and returns cudaGetLastError()
+ * (0 on success).
+ *
+ * Layout: a padded buffer holds a 3D field of n0 x n1 x n2 interior nodes with
+ * LSM_GHOST ghost layers on both sides of every axis, contiguous, last axis
+ * fastest: shape (n0+6, n1+6, n2+6).
+ */
+#ifndef LSM_KERNELS_H
+#define LSM_KERNELS_H
+
+#include <stdint.h>
+
+#define LSM_GHOST 3
+#define LSM_MAX_DEGREE 7
+
+/* Boundary-condition codes of the ghost refresh. */
+#define LSM_BC_PERIODIC 0
+#define LSM_BC_SYMMETRY 1
+#define LSM_BC_EXTRAPOLATION 2
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+/* K1: out_interior = alpha*aux + beta*phi - gamma * sum_d u_d * WENO5_d(phi).
+ * P, aux, out: padded buffers (aux may be NULL: the alpha term is dropped).
+ * u0, u1, u2: interior-shaped (n0, n1, n2) velocity components.
+ * inv_h*: reciprocal node spacing per axis. out's ghost shells are not written. */
+int lsm_weno_stage_f32(const void* P, const void* u0, const void* u1, const void* u2,
+                       const void* aux, void* out, int64_t n0, int64_t n1, int64_t n2,
+                       double inv_h0, double inv_h1, double inv_h2,
+                       double alpha, double beta, double gamma, void* stream);
+int lsm_weno_stage_f64(const void* P, const void* u0, const void* u1, const void* u2,
+                       const void* aux, void* out, int64_t n0, int64_t n1, int64_t n2,
+                       double inv_h0, double inv_h1, double inv_h2,
+                       double alpha, double beta, double gamma, void* stream);
+
+/* K2: rewrite every ghost shell of the padded buffer P from its interior, in
+ * place: axis 0, then axis 1 (over axis 0's full padded extent), then axis 2
+ * (over the full padded extents of axes 0 and 1). Three launches, in order.
+ * Host arrays, index a = 2*axis + side (side 0 = left, 1 = right):
+ *   kinds[6]    LSM_BC_* code;
+ *   degrees[6]  extrapolation degree (<= LSM_MAX_DEGREE);
+ *   weights[6 * LSM_GHOST * (LSM_MAX_DEGREE+1)]  weight of node j (from the
+ *     boundary inward) for the ghost at distance k: weights[(a*3 + k-1)*8 + j]. */
+int lsm_refresh_ghosts_f32(void* P, int64_t n0, int64_t n1, int64_t n2,
+                           const int* kinds, const int* degrees, const double* weights,
+                           void* stream);
+int lsm_refresh_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n2,
+                           const int* kinds, const int* degrees, const double* weights,
+                           void* stream);
+
+/* Human-readable name of a CUDA error code returned above. */
+const char* lsm_error_string(int code);
+
+#ifdef __cplusplus
+}
+#endif
+
+#endif /* LSM_KERNELS_H */

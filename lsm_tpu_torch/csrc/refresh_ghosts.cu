@@ -1,0 +1,146 @@
+// K2: in-place refresh of the ghost shells of a padded 3D buffer.
+//
+// Replaces the TPU kernel lsm_tpu/ops/weno_v2.py `refresh_ghosts_fast`
+// (helpers `_dim0_shell`, `_dim1_ghost_cols`). Semantics are those of
+// lsm_tpu/core/bc.py `_ghost_block`, per side of each axis:
+//   periodic (shared endpoint): ghost -k <- node n-1-k, ghost n-1+k <- node k;
+//   symmetry (mirror without the boundary node): ghost -k <- node k,
+//     ghost n-1+k <- node n-1-k;
+//   extrapolation of degree P <= 7: sum_j w[k][j] * node j from the boundary
+//     inward (left: nodes 0..P; right: nodes n-1..n-1-P).
+//
+// Design: three launches, axis 0, then axis 1, then axis 2, on one stream. A
+// launch's blocks run in no order on Hopper, so the composition order that
+// makes corner ghosts equal pad_ghost's (axis 1 reads the fresh axis-0
+// ghosts, axis 2 reads both) comes from the launch order. Each thread writes
+// one ghost node from at most 8 source nodes along its axis. For axes 0 and 1
+// the contiguous axis 2 is the thread's fastest index (coalesced rows); for
+// axis 2 the six ghost slots of one row are.
+//
+// Bound: it touches only the shells, O(N^2): about 6 * 518^2 nodes per axis at
+// 512^3, a few MB of traffic, so launch latency dominates.
+
+#include <cuda_runtime.h>
+
+#include "lsm_kernels.h"
+
+namespace {
+
+struct AxisBC {
+  int kind[2];
+  int degree[2];
+  double w[2][LSM_GHOST][LSM_MAX_DEGREE + 1];  // [side][k-1][j]
+};
+
+constexpr int kThreads = 256;
+
+// acc + w * x with both operations rounded separately (no FMA contraction),
+// as the plain torch version computes it: the kernel then matches it bit for bit
+__device__ __forceinline__ float mul_add_rn(float acc, float w, float x) {
+  return __fadd_rn(acc, __fmul_rn(w, x));
+}
+__device__ __forceinline__ double mul_add_rn(double acc, double w, double x) {
+  return __dadd_rn(acc, __dmul_rn(w, x));
+}
+
+// Ghost slots of one axis: g6 in [0, 6): side = g6 / 3, layer = g6 % 3.
+// Left layer l sits at padded index l (distance k = 3 - l); right layer l at
+// padded index 3 + n + l (distance k = l + 1). Node m sits at 3 + m.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    refresh_axis_kernel(T* __restrict__ P, int64_t n, int64_t stride,
+                        int64_t a_lo, int64_t a_cnt, int64_t a_stride, int64_t b_lo,
+                        int64_t b_cnt, int64_t b_stride, int ghost_fastest, AxisBC bc) {
+  const int64_t total = 2 * LSM_GHOST * a_cnt * b_cnt;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= total) return;
+  int g6;
+  int64_t a, b;
+  if (ghost_fastest) {
+    g6 = static_cast<int>(t % (2 * LSM_GHOST));
+    const int64_t r = t / (2 * LSM_GHOST);
+    b = r % b_cnt;
+    a = r / b_cnt;
+  } else {
+    b = t % b_cnt;
+    const int64_t r = t / b_cnt;
+    a = r % a_cnt;
+    g6 = static_cast<int>(r / a_cnt);
+  }
+  const int side = g6 / LSM_GHOST;
+  const int layer = g6 % LSM_GHOST;
+  const int64_t base = (a_lo + a) * a_stride + (b_lo + b) * b_stride;
+  const int64_t pos = side == 0 ? layer : LSM_GHOST + n + layer;
+  const int k = side == 0 ? LSM_GHOST - layer : layer + 1;
+  const T* line = P + base + LSM_GHOST * stride;  // node 0 of this line
+  T val;
+  switch (bc.kind[side]) {
+    case LSM_BC_PERIODIC:
+      val = line[(side == 0 ? n - 1 - k : k) * stride];
+      break;
+    case LSM_BC_SYMMETRY:
+      val = line[(side == 0 ? k : n - 1 - k) * stride];
+      break;
+    default: {  // LSM_BC_EXTRAPOLATION
+      const double* w = bc.w[side][k - 1];
+      const int P_deg = bc.degree[side];
+      const int64_t step = side == 0 ? stride : -stride;
+      const T* node = line + (side == 0 ? 0 : (n - 1) * stride);
+      val = mul_add_rn(T(0), T(w[0]), node[0]);
+      for (int j = 1; j <= P_deg; ++j) val = mul_add_rn(val, T(w[j]), node[j * step]);
+      break;
+    }
+  }
+  P[base + pos * stride] = val;
+}
+
+template <typename T>
+int launch_refresh(void* P_, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
+                   const int* degrees, const double* weights, void* stream_) {
+  T* P = static_cast<T*>(P_);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const int64_t n[3] = {n0, n1, n2};
+  const int64_t S[3] = {n0 + 2 * LSM_GHOST, n1 + 2 * LSM_GHOST, n2 + 2 * LSM_GHOST};
+  const int64_t stride[3] = {S[1] * S[2], S[2], 1};
+  for (int axis = 0; axis < 3; ++axis) {
+    AxisBC bc;
+    for (int side = 0; side < 2; ++side) {
+      const int a = 2 * axis + side;
+      bc.kind[side] = kinds[a];
+      bc.degree[side] = degrees[a];
+      for (int k = 0; k < LSM_GHOST; ++k)
+        for (int j = 0; j <= LSM_MAX_DEGREE; ++j)
+          bc.w[side][k][j] = weights[(a * LSM_GHOST + k) * (LSM_MAX_DEGREE + 1) + j];
+    }
+    // the two other axes, in order; earlier axes span their padded extent
+    // (ghosts already fresh), later ones their interior
+    const int oa = axis == 0 ? 1 : 0;
+    const int ob = axis == 2 ? 1 : 2;
+    const int64_t a_lo = oa < axis ? 0 : LSM_GHOST;
+    const int64_t a_cnt = oa < axis ? S[oa] : n[oa];
+    const int64_t b_lo = ob < axis ? 0 : LSM_GHOST;
+    const int64_t b_cnt = ob < axis ? S[ob] : n[ob];
+    const int64_t total = 2 * LSM_GHOST * a_cnt * b_cnt;
+    const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+    refresh_axis_kernel<T><<<blocks, kThreads, 0, stream>>>(
+        P, n[axis], stride[axis], a_lo, a_cnt, stride[oa], b_lo, b_cnt, stride[ob],
+        axis == 2 ? 1 : 0, bc);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" int lsm_refresh_ghosts_f32(void* P, int64_t n0, int64_t n1, int64_t n2,
+                                      const int* kinds, const int* degrees,
+                                      const double* weights, void* stream) {
+  return launch_refresh<float>(P, n0, n1, n2, kinds, degrees, weights, stream);
+}
+
+extern "C" int lsm_refresh_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n2,
+                                      const int* kinds, const int* degrees,
+                                      const double* weights, void* stream) {
+  return launch_refresh<double>(P, n0, n1, n2, kinds, degrees, weights, stream);
+}

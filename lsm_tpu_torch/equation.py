@@ -1,0 +1,200 @@
+"""User-facing evolution API (port of :mod:`lsm_tpu.equation`).
+
+``LevelSetEquation`` holds the terms, integrator, current state and time and
+exposes ``integrate(tf)``: a host loop that recomputes the CFL bound every
+accepted step (read back with ``.item()``) and advances the state.
+
+Routing by the state's device:
+
+- CUDA: the fused stepper with the hand-written kernels, or
+  ``NotImplementedError`` naming the ROADMAP item for a configuration outside
+  this slice (hooks, ``fast="off"``, 2D, other terms, ``update_func``, ...).
+  Nothing on CUDA drops to plain torch.
+- CPU: the same fused stepper with the kernels' plain versions when the
+  configuration qualifies and there are no hooks and ``fast != "off"``;
+  otherwise the general path (``rhs`` + RK stages, :func:`loop.step`).
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from typing import Callable, Optional
+
+import torch
+
+from .core.field import MeshField
+from .geometry import queries as geo
+from .integrators import loop as _loop
+from .integrators.explicit import RK3, TimeIntegrator
+from .integrators.fused import FusedStepper, unsupported_reason
+from .terms.terms import compute_cfl as _compute_cfl, update_terms
+
+__all__ = ["LevelSetEquation"]
+
+Hook = Optional[Callable[["LevelSetEquation"], None]]
+
+
+class LevelSetEquation:
+    """``phi_t + sum_n term_n = 0``: terms, integrator, state and time.
+
+    ``terms`` (one term or a sequence), ``ic`` (initial :class:`MeshField`,
+    never mutated), ``bc`` (optional; wins over BCs already attached to
+    ``ic``, with a warning when both are given; an error when neither is),
+    ``integrator`` (default :class:`RK3`), ``t``.
+    """
+
+    def __init__(self, *, terms, ic: MeshField, bc=None,
+                 integrator: TimeIntegrator = RK3(), t: float = 0.0):
+        if not isinstance(ic, MeshField):
+            raise TypeError("ic must be a MeshField")
+        self.terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)
+        if len(self.terms) == 0:
+            raise ValueError("at least one term is required")
+        if bc is not None:
+            if ic.has_bcs():
+                warnings.warn(
+                    "both `bc` and boundary conditions on `ic` were provided; using `bc`")
+            state = ic.with_bcs(bc, replace=True)
+        elif ic.has_bcs():
+            state = ic
+        else:
+            raise ValueError("no boundary conditions: provide `bc` or attach them to `ic`")
+        self.state = state
+        self.integrator = integrator
+        self.t = float(t)
+        #: which fast path the last integrate() took: "fused" or None
+        self.last_fast_path = None
+        #: how many accepted steps the last integrate() took
+        self.last_nsteps = 0
+
+    @property
+    def current_state(self) -> MeshField:
+        return self.state
+
+    @property
+    def current_time(self) -> float:
+        return self.t
+
+    @property
+    def grid(self):
+        return self.state.grid
+
+    @property
+    def boundary_conditions(self):
+        return self.state.bcs
+
+    def volume(self):
+        return geo.volume(self.state)
+
+    def perimeter(self):
+        return geo.perimeter(self.state)
+
+    # -- evolution -----------------------------------------------------------------
+
+    def integrate(self, tf: float, dt_max: float = math.inf, *, prehook: Hook = None,
+                  posthook: Hook = None, max_steps: Optional[int] = None,
+                  fast: str = "auto") -> "LevelSetEquation":
+        """Advance the state to exactly ``tf``, or by at most ``max_steps``
+        accepted steps. Hooks run once per accepted step and may mutate
+        ``self.state`` / ``self.terms``. ``fast="off"`` forces the general
+        path (CPU only)."""
+        tf = float(tf)
+        if tf < self.t:
+            raise ValueError(f"tf = {tf} is before current time t = {self.t}")
+        if fast not in ("auto", "off"):
+            raise ValueError(f"fast must be 'auto' or 'off', got {fast!r}")
+        self.last_fast_path = None
+        self.last_nsteps = 0
+        hooks = prehook is not None or posthook is not None
+        if self.state.values.is_cuda:
+            return self._integrate_fast(self._cuda_stepper(hooks, fast), tf, dt_max,
+                                        max_steps)
+        if not hooks and fast != "off" and unsupported_reason(
+                self.terms, self.state, self.integrator) is None:
+            stepper = FusedStepper(self.terms, self.state, self.integrator)
+            return self._integrate_fast(stepper, tf, dt_max, max_steps)
+        return self._integrate_general(tf, dt_max, prehook, posthook, max_steps)
+
+    def _cuda_stepper(self, hooks: bool, fast: str) -> FusedStepper:
+        """The fused stepper for a CUDA state, or ``NotImplementedError``
+        naming the ROADMAP item the configuration waits for."""
+        if hooks:
+            raise NotImplementedError(
+                "prehook/posthook on CUDA are not ported yet (ROADMAP.md queue 2, hooks on CUDA)")
+        if fast == "off":
+            raise NotImplementedError(
+                'fast="off" on CUDA needs the general path, which is not ported yet '
+                "(ROADMAP.md queue 2, general path (K10/K11))")
+        return FusedStepper(self.terms, self.state, self.integrator)
+
+    def _eps(self, tf):
+        return torch.finfo(self.state.dtype).eps * max(abs(tf), 1.0)
+
+    @staticmethod
+    def _checked_dt(cfl_dt: float) -> float:
+        if not (cfl_dt > 0) or math.isnan(cfl_dt):
+            raise ValueError(
+                f"invalid time-step based on CFL condition: dt = {cfl_dt} "
+                "(check for NaN/Inf in velocity or speed)")
+        return cfl_dt
+
+    def _check_finite(self):
+        if not bool(torch.isfinite(self.state.values).all()):
+            raise ArithmeticError(
+                "non-finite state after integrate(); check for NaN/Inf velocities "
+                "or an invalid CFL time step")
+
+    def _integrate_fast(self, stepper: FusedStepper, tf, dt_max, max_steps):
+        """Host adaptive-CFL loop over the fused stepper: the CFL bound is
+        recomputed (and read back) every accepted step."""
+        P = stepper.pack(self.state.values)
+        alpha = self.integrator.cfl
+        eps = self._eps(tf)
+        while self.t <= tf - eps:
+            if max_steps is not None and self.last_nsteps >= max_steps:
+                break
+            cfl_dt = self._checked_dt(stepper.cfl(P, self.t).item())
+            dt = min(dt_max, alpha * cfl_dt, tf - self.t)
+            P = stepper.step(P, self.t, dt)
+            self.t += dt
+            self.last_nsteps += 1
+        self.state = self.state.with_values(stepper.unpack(P).contiguous())
+        self._check_finite()
+        if self.t > tf - eps:
+            self.t = tf
+        self.last_fast_path = "fused"
+        return self
+
+    def _integrate_general(self, tf, dt_max, prehook, posthook, max_steps):
+        """Host loop over the general path (``rhs`` + RK stages)."""
+        alpha = self.integrator.cfl
+        eps = self._eps(tf)
+        while self.t <= tf - eps:
+            if max_steps is not None and self.last_nsteps >= max_steps:
+                break
+            if prehook is not None:
+                prehook(self)
+            self.terms = update_terms(self.terms, self.state, self.t)
+            cfl_dt = self._checked_dt(_compute_cfl(self.terms, self.state, self.t).item())
+            dt = min(dt_max, alpha * cfl_dt, tf - self.t)
+            self.state, self.terms = _loop.step(
+                self.integrator, self.terms, self.state, self.t, dt)
+            self.t += dt
+            self.last_nsteps += 1
+            if posthook is not None:
+                posthook(self)
+        self._check_finite()
+        if self.t > tf - eps:
+            self.t = tf
+        return self
+
+    def __repr__(self):
+        term_strs = " + ".join(type(t).__name__ for t in self.terms)
+        return (
+            "LevelSetEquation:\n"
+            f"  |- phi_t + {term_strs} = 0\n"
+            f"  |- integrator: {self.integrator.describe()}\n"
+            f"  |- t: {self.t}\n"
+            f"  `- state: {self.state.shape} {self.state.dtype} {self.state.device}"
+        )

@@ -1,0 +1,1 @@
+"""Stencils, the padded layout and the CUDA kernel wrappers."""
