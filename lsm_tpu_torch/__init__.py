@@ -5,10 +5,14 @@ A second package beside the JAX one, with the same layout (``core``, ``ops``,
 semantics. Plain tensor code is PyTorch; each TPU kernel on a ported path is a
 hand-written CUDA kernel for Hopper (``csrc/``, built with nvcc on first use).
 
-This first slice is the dense 3D WENO5 advection path: ``Grid``, BCs,
+The ported slices are the dense 3D WENO5 advection path (``Grid``, BCs,
 ``MeshField`` / ``sample``, ``AdvectionTerm``, FE/RK2/RK3, and
 ``LevelSetEquation.integrate``, which on a CUDA state runs the fused stepper
-through the stage kernel (K1) and the ghost-refresh kernel (K2).
+through the stage kernel K1 and the ghost-refresh kernel K2) and its
+gradient: ``rollout`` differentiates through the same stepper, whose
+backward runs the stage-adjoint kernel K3, the ghost-cotangent fold K4 and
+the shell zeroing K5. Tensors go to the card unless the caller asks for the
+CPU (``device="cpu"``).
 """
 
 from .core.grid import Grid
@@ -24,7 +28,7 @@ from .core.bc import (
 from .core.field import MeshField, sample
 from .terms.terms import AdvectionTerm, compute_cfl
 from .integrators.explicit import ForwardEuler, RK2, RK3, TimeIntegrator
-from .integrators.loop import step
+from .integrators.loop import evolve, rollout, step
 from .equation import LevelSetEquation
 from .geometry.queries import volume, perimeter, smooth_heaviside, smooth_delta
 
@@ -48,6 +52,8 @@ __all__ = [
     "RK3",
     "TimeIntegrator",
     "step",
+    "evolve",
+    "rollout",
     "LevelSetEquation",
     "volume",
     "perimeter",

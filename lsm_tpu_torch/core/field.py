@@ -12,6 +12,7 @@ from typing import Callable, Tuple
 import torch
 
 from .bc import bcs_str, normalize_bcs, pad_ghost
+from .device import resolve_device
 from .grid import Grid
 
 __all__ = ["MeshField", "sample"]
@@ -97,10 +98,12 @@ def sample(
 
     ``fn`` receives the broadcastable coordinate tensors and returns one tensor
     (scalar field) or a length-``ndim`` sequence (vector field). ``dtype``
-    defaults to ``torch.get_default_dtype()`` and ``device`` to the CPU.
+    defaults to ``torch.get_default_dtype()`` and ``device`` to the card
+    (:func:`~lsm_tpu_torch.core.device.resolve_device`: the CPU only when
+    asked for with ``device="cpu"``).
     """
     dtype = dtype or torch.get_default_dtype()
-    xs = grid.coords(dtype=dtype, device=device)
+    xs = grid.coords(dtype=dtype, device=resolve_device(device))
     out = fn(*xs)
 
     def full(c):

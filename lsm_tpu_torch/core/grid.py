@@ -14,6 +14,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 __all__ = ["Grid"]
 
 
@@ -56,12 +58,15 @@ class Grid:
         return float(np.prod(self.spacing))
 
     def axis_coords(self, dim: int, dtype=torch.float64, device=None) -> torch.Tensor:
-        """1-D tensor of node coordinates along dimension ``dim``."""
+        """1-D tensor of node coordinates along dimension ``dim``; ``device``
+        defaults to the card (:func:`~lsm_tpu_torch.core.device.resolve_device`)."""
         return torch.linspace(self.lo[dim], self.hi[dim], self.shape[dim],
-                              dtype=dtype, device=device)
+                              dtype=dtype, device=resolve_device(device))
 
     def coords(self, dtype=torch.float64, device=None):
-        """Tuple of N broadcastable coordinate tensors (sparse, ij-indexing)."""
+        """Tuple of N broadcastable coordinate tensors (sparse, ij-indexing),
+        on the card unless ``device`` says otherwise."""
+        device = resolve_device(device)
         out = []
         for d in range(self.ndim):
             view = [1] * self.ndim

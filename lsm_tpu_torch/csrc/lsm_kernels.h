@@ -18,7 +18,7 @@
 #define LSM_GHOST 3
 #define LSM_MAX_DEGREE 7
 
-/* Boundary-condition codes of the ghost refresh. */
+/* Boundary-condition codes of the ghost refresh and its transpose. */
 #define LSM_BC_PERIODIC 0
 #define LSM_BC_SYMMETRY 1
 #define LSM_BC_EXTRAPOLATION 2
@@ -54,6 +54,38 @@ int lsm_refresh_ghosts_f32(void* P, int64_t n0, int64_t n1, int64_t n2,
 int lsm_refresh_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n2,
                            const int* kinds, const int* degrees, const double* weights,
                            void* stream);
+
+/* K3: cotangents of one K1 stage (csrc/stage_backward.cu). g is the padded
+ * cotangent of the stage output, already folded (K4): only its interior is
+ * read. Writes dP (padded, every element), du0..du2 (interior-shaped; each
+ * may be NULL), daux = alpha*g on the interior of a padded buffer (NULL when
+ * aux is NULL or not wanted; its shells are left for K5) and dcoef[3] =
+ * (dalpha, dbeta, dgamma). aux may be NULL (dalpha is then 0). part is
+ * device scratch of lsm_stage_bwd_scratch(n0, n1, n2) doubles. Four
+ * launches: one per axis, then one that sums the per-block partials. */
+int64_t lsm_stage_bwd_scratch(int64_t n0, int64_t n1, int64_t n2);
+int lsm_stage_bwd_f32(const void* P, const void* g, const void* u0, const void* u1,
+                      const void* u2, const void* aux, void* dP, void* du0, void* du1,
+                      void* du2, void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
+                      int64_t n2, double inv_h0, double inv_h1, double inv_h2, double alpha,
+                      double beta, double gamma, void* stream);
+int lsm_stage_bwd_f64(const void* P, const void* g, const void* u0, const void* u1,
+                      const void* u2, const void* aux, void* dP, void* du0, void* du1,
+                      void* du2, void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
+                      int64_t n2, double inv_h0, double inv_h1, double inv_h2, double alpha,
+                      double beta, double gamma, void* stream);
+
+/* K4: fold the ghost-shell cotangents of the padded buffer g into its
+ * interior and zero the shells, in place: the transpose of K2. Three
+ * launches, axis 2, then 1, then 0. kinds, degrees, weights as for K2. */
+int lsm_fold_ghosts_f32(void* g, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
+                        const int* degrees, const double* weights, void* stream);
+int lsm_fold_ghosts_f64(void* g, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
+                        const int* degrees, const double* weights, void* stream);
+
+/* K5: zero the six ghost slabs of a padded buffer in place. */
+int lsm_zero_shells_f32(void* buf, int64_t n0, int64_t n1, int64_t n2, void* stream);
+int lsm_zero_shells_f64(void* buf, int64_t n0, int64_t n1, int64_t n2, void* stream);
 
 /* Human-readable name of a CUDA error code returned above. */
 const char* lsm_error_string(int code);

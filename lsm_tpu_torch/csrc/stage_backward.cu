@@ -1,0 +1,490 @@
+// K3: cotangents of one fused RK stage (K1) of WENO5 advection.
+//
+// Replaces the TPU kernel lsm_tpu/ops/weno_v2_bwd.py `stage_backward` (body
+// `_make_bwd_kernel`). Given the folded cotangent g of the stage output (only
+// its interior is read; K4 has already folded the ghost-shell cotangents
+// into it), P, the three streamed velocity components u_a and the optional
+// aux buffer, it writes
+//   dP  (padded, every element): beta*g on the interior plus, per axis a,
+//       (c_a[x] - c_a[x+e_a]) * inv_h_a, where the edge cotangent
+//       c_a[z] = sum_k ddm_k(y = z - (k-2) e_a) gathers the six difference
+//       cotangents of the <= 6 interior outputs y whose stencil uses the
+//       difference D-(z). dP is nonzero on the face ghosts within reach 3 of
+//       the interior (the stage reads stored ghosts) and 0 on edge and corner
+//       ghosts;
+//   du_a = core_a * (-gamma*g) on the interior (optional);
+//   daux = alpha*g on the interior (optional; K5 zeroes its shells);
+//   dcoef = (dalpha, dbeta, dgamma) = (sum g*aux, sum g*phi, -sum g*H).
+// ddm and core come from the hand-derived WENO5 adjoint, the arithmetic of
+// lsm_tpu_torch/ops/stencils.py `weno5_upwind_fwd_bwd` term by term. Every
+// product, sum and quotient is rounded on its own (__fmul_rn etc., no FMA
+// contraction, IEEE division), because at WENO-symmetric cells the
+// cotangent of eps multiplies a cancelled sum dr by r^2 ~ 1e21: the plain
+// association is what keeps float32 right there.
+//
+// Design. The TPU kernel accumulated each tile's +-3 overhang into dP by
+// read-modify-write and carried the scalar partials across grid steps, both
+// relying on an in-order grid. Blocks run in no order on Hopper, so this is
+// the gather form: every dP element is written by one thread. One launch per
+// axis a (0, 1, 2, in order on the stream). A block owns a tile of LA
+// consecutive positions along a (and, for a = 0 or 1, 32 lanes along the
+// contiguous axis 2); it first evaluates the per-axis adjoint of the LA + 6
+// outputs within reach of the tile into shared memory, once each, then every
+// thread gathers c_a for its positions from there. The axis-0 launch writes
+// dP, daux and the phi/aux partial sums; the axis-1 and axis-2 launches add
+// their term to dP. Redundancy factor: (LA + 6) / LA evaluations of the
+// adjoint per output and axis, 24/18 = 1.33 for axes 0 and 1 and 128/122 =
+// 1.05 for axis 2. Scalar sums: each block writes its partial (in double) to
+// a scratch slot; a fourth launch of one block sums the slots in a fixed
+// order. No atomics: every run gives the same bits.
+//
+// Bound at 512^3 f32: it must read P, g (interior) and the 3 streams and
+// write dP and the 3 du: 36 B/cell, 44 with aux and daux, 4.9-6.0 GB,
+// 1.45-1.78 ms at 3.35 TB/s. Its arithmetic is 607 FP32 operations per cell
+// (202 per axis, counting each of the 2 IEEE divisions per axis as one),
+// 8.1e10 at 512^3, 1.2 ms at 67 TFLOP/s: bytes bind, barely. Measured on an
+// H100 80GB HBM3 at 700 W (PERF.md): 10.6 ms, each axis launch 3.4 ms
+// whether its axis is contiguous or strided, so instruction issue binds,
+// not DRAM: the halo recomputation, no FMA, int64 index arithmetic and the
+// division sequences. Fusing the three axes into one pass, contracting FMAs
+// outside the s/b/dr chain and int32 indexing are later work.
+
+#include <cuda_runtime.h>
+
+#include "lsm_kernels.h"
+
+namespace {
+
+template <typename T>
+struct Rn;
+template <>
+struct Rn<float> {
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+  static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
+  static __device__ __forceinline__ float floor_eps() { return 1.0e-12f; }
+};
+template <>
+struct Rn<double> {
+  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+  static __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
+  static __device__ __forceinline__ double floor_eps() { return 1.0e-36; }
+};
+
+// cotangents (ga, gb) of ans = max(a, b) for the cotangent gm of ans; an
+// exact tie splits 0.5 / 0.5
+template <typename T>
+__device__ __forceinline__ void max_bwd(T a, T b, T ans, T gm, T& ga, T& gb) {
+  using R = Rn<T>;
+  const bool ta = a == ans, tb = b == ans;
+  ga = R::mul(gm, ta ? (tb ? T(0.5) : T(1)) : T(0));
+  gb = R::mul(gm, tb ? (ta ? T(0.5) : T(1)) : T(0));
+}
+
+// Hand-derived WENO5 upwind adjoint for one output along one axis: from the
+// six backward differences dm (D- at y-2 .. y+3), the velocity u and the
+// cotangent g of H = u * core, the six cotangents ddm and core.
+template <typename T>
+__device__ __forceinline__ void weno5_fwd_bwd(const T* dm, T u, T g, T* ddm, T& core) {
+  using R = Rn<T>;
+  const bool cond = u > T(0);
+  const T v1 = cond ? dm[0] : dm[5];
+  const T v2 = cond ? dm[1] : dm[4];
+  const T v3 = cond ? dm[2] : dm[3];
+  const T v4 = cond ? dm[3] : dm[2];
+  const T v5 = cond ? dm[4] : dm[1];
+  // forward
+  const T e2 = R::sub(v3, v2);
+  const T e3 = R::sub(v4, v3);
+  const T c1 = R::sub(e2, R::sub(v2, v1));
+  const T c2 = R::sub(e3, e2);
+  const T c3 = R::sub(R::sub(v5, v4), e3);
+  const T d1 = R::add(R::add(v3, R::mul(T(0.5), e2)), R::mul(T(1.0 / 3.0), c1));
+  const T d2 = R::sub(R::add(v3, R::mul(T(0.5), e3)), R::mul(T(1.0 / 6.0), c2));
+  const T d3 = R::sub(R::add(v3, R::mul(T(0.5), e3)), R::mul(T(1.0 / 6.0), c3));
+  const T c13 = T(13.0 / 12.0);
+  const T t1 = R::add(c1, R::mul(T(2), e2));
+  const T t2 = R::add(e2, e3);
+  const T t3 = R::sub(c3, R::mul(T(2), e3));
+  const T s1 = R::add(R::mul(c13, R::mul(c1, c1)), R::mul(T(0.25), R::mul(t1, t1)));
+  const T s2 = R::add(R::mul(c13, R::mul(c2, c2)), R::mul(T(0.25), R::mul(t2, t2)));
+  const T s3 = R::add(R::mul(c13, R::mul(c3, c3)), R::mul(T(0.25), R::mul(t3, t3)));
+  const T sq1 = R::mul(v1, v1), sq2 = R::mul(v2, v2), sq3 = R::mul(v3, v3);
+  const T sq4 = R::mul(v4, v4), sq5 = R::mul(v5, v5);
+  const T m12 = sq1 > sq2 ? sq1 : sq2;  // torch.maximum (no NaN here)
+  const T m34 = sq3 > sq4 ? sq3 : sq4;
+  const T m14 = m12 > m34 ? m12 : m34;
+  const T vmax = m14 > sq5 ? m14 : sq5;
+  const T eps = R::add(R::mul(T(1.0e-6), vmax), R::floor_eps());
+  const T r = R::div(T(1), eps);
+  const T b1 = R::add(R::mul(s1, r), T(1));
+  const T b2 = R::add(R::mul(s2, r), T(1));
+  const T b3 = R::add(R::mul(s3, r), T(1));
+  const T p1 = R::mul(b2, b3);
+  const T p2 = R::mul(b1, b3);
+  const T p3 = R::mul(b1, b2);
+  const T q1 = R::mul(T(0.1), R::mul(p1, p1));
+  const T q2 = R::mul(T(0.6), R::mul(p2, p2));
+  const T q3 = R::mul(T(0.3), R::mul(p3, p3));
+  const T qsum = R::add(R::add(q1, q2), q3);
+  const T w = R::div(T(1), qsum);
+  core = R::mul(R::add(R::add(R::mul(q1, d1), R::mul(q2, d2)), R::mul(q3, d3)), w);
+  // backward
+  const T gc = R::mul(u, g);
+  const T wgc = R::mul(w, gc);
+  const T dd1 = R::mul(q1, wgc);
+  const T dd2 = R::mul(q2, wgc);
+  const T dd3 = R::mul(q3, wgc);
+  const T dq1 = R::mul(R::sub(d1, core), wgc);
+  const T dq2 = R::mul(R::sub(d2, core), wgc);
+  const T dq3 = R::mul(R::sub(d3, core), wgc);
+  const T dp1 = R::mul(R::mul(T(0.2), p1), dq1);
+  const T dp2 = R::mul(R::mul(T(1.2), p2), dq2);
+  const T dp3 = R::mul(R::mul(T(0.6), p3), dq3);
+  const T db1 = R::add(R::mul(b3, dp2), R::mul(b2, dp3));
+  const T db2 = R::add(R::mul(b3, dp1), R::mul(b1, dp3));
+  const T db3 = R::add(R::mul(b2, dp1), R::mul(b1, dp2));
+  const T ds1 = R::mul(r, db1);
+  const T ds2 = R::mul(r, db2);
+  const T ds3 = R::mul(r, db3);
+  const T dr = R::add(R::add(R::mul(s1, db1), R::mul(s2, db2)), R::mul(s3, db3));
+  const T dvmax = R::mul(R::mul(T(-1.0e-6), R::mul(r, r)), dr);
+  T dm14, dsq5, dm12, dm34, dsq1, dsq2, dsq3, dsq4;
+  max_bwd(m14, sq5, vmax, dvmax, dm14, dsq5);
+  max_bwd(m12, m34, m14, dm14, dm12, dm34);
+  max_bwd(sq1, sq2, m12, dm12, dsq1, dsq2);
+  max_bwd(sq3, sq4, m34, dm34, dsq3, dsq4);
+  T dv1 = R::mul(R::mul(T(2), v1), dsq1);
+  T dv2 = R::mul(R::mul(T(2), v2), dsq2);
+  T dv3 = R::mul(R::mul(T(2), v3), dsq3);
+  T dv4 = R::mul(R::mul(T(2), v4), dsq4);
+  T dv5 = R::mul(R::mul(T(2), v5), dsq5);
+  const T c13x2 = T(2.0 * (13.0 / 12.0));
+  T dc1 = R::mul(R::mul(c13x2, c1), ds1);
+  T dc2 = R::mul(R::mul(c13x2, c2), ds2);
+  T dc3 = R::mul(R::mul(c13x2, c3), ds3);
+  const T dt1 = R::mul(R::mul(T(0.5), t1), ds1);
+  const T dt2 = R::mul(R::mul(T(0.5), t2), ds2);
+  const T dt3 = R::mul(R::mul(T(0.5), t3), ds3);
+  dc1 = R::add(dc1, dt1);
+  T de2 = R::add(R::mul(T(2), dt1), dt2);
+  T de3 = R::sub(dt2, R::mul(T(2), dt3));
+  dc3 = R::add(dc3, dt3);
+  dv3 = R::add(R::add(R::add(dv3, dd1), dd2), dd3);
+  de2 = R::add(de2, R::mul(T(0.5), dd1));
+  de3 = R::add(de3, R::mul(T(0.5), R::add(dd2, dd3)));
+  dc1 = R::add(dc1, R::mul(T(1.0 / 3.0), dd1));
+  dc2 = R::sub(dc2, R::mul(T(1.0 / 6.0), dd2));
+  dc3 = R::sub(dc3, R::mul(T(1.0 / 6.0), dd3));
+  de2 = R::sub(R::add(de2, dc1), dc2);
+  de3 = R::sub(R::add(de3, dc2), dc3);
+  dv1 = R::add(dv1, dc1);
+  dv2 = R::sub(dv2, dc1);
+  dv4 = R::sub(dv4, dc3);
+  dv5 = R::add(dv5, dc3);
+  dv3 = R::sub(R::add(dv3, de2), de3);
+  dv2 = R::sub(dv2, de2);
+  dv4 = R::add(dv4, de3);
+  // undo the input selection
+  ddm[0] = cond ? dv1 : T(0);
+  ddm[1] = cond ? dv2 : dv5;
+  ddm[2] = cond ? dv3 : dv4;
+  ddm[3] = cond ? dv4 : dv3;
+  ddm[4] = cond ? dv5 : dv2;
+  ddm[5] = cond ? T(0) : dv1;
+}
+
+// Tile of one axis launch: LA positions along the axis (rows) times LX lanes
+// along axis 2 (axes 0 and 1 only), NT threads. (LA + 6) * LX is a multiple
+// of NT, so every thread evaluates the same number of outputs.
+template <int AXIS>
+struct Tile {
+  static constexpr int LX = 32, LA = 18, NT = 256;
+};
+template <>
+struct Tile<2> {
+  static constexpr int LX = 1, LA = 122, NT = 128;
+};
+
+struct Geom {
+  int64_t n[3], S[3], s[3];
+};
+
+__host__ __device__ inline Geom make_geom(int64_t n0, int64_t n1, int64_t n2) {
+  Geom g;
+  g.n[0] = n0;
+  g.n[1] = n1;
+  g.n[2] = n2;
+  for (int d = 0; d < 3; ++d) g.S[d] = g.n[d] + 2 * LSM_GHOST;
+  g.s[2] = 1;
+  g.s[1] = g.S[2];
+  g.s[0] = g.S[1] * g.S[2];
+  return g;
+}
+
+template <int AXIS>
+__host__ __device__ inline dim3 bwd_grid(const Geom& g) {
+  using TL = Tile<AXIS>;
+  const unsigned rows = static_cast<unsigned>((g.S[AXIS] + TL::LA - 1) / TL::LA);
+  if constexpr (AXIS == 2) {
+    return dim3(rows, static_cast<unsigned>(g.S[1]), static_cast<unsigned>(g.S[0]));
+  } else {
+    return dim3(rows, static_cast<unsigned>((g.S[2] + TL::LX - 1) / TL::LX),
+                static_cast<unsigned>(g.S[1 - AXIS]));
+  }
+}
+
+inline int64_t nblocks(dim3 d) { return int64_t(d.x) * d.y * d.z; }
+
+__device__ __forceinline__ bool inside(int64_t c, int64_t n) {
+  return c >= LSM_GHOST && c < n + LSM_GHOST;
+}
+
+template <typename T>
+struct BwdArgs {
+  const T* P;
+  const T* g;
+  const T* u;    // this axis's velocity component (interior-shaped)
+  const T* aux;  // axis-0 launch only, may be null
+  T* dP;
+  T* du;    // this axis's, may be null
+  T* daux;  // axis-0 launch only, may be null
+  double* part;
+  Geom geo;
+  T inv_h, alpha, beta, gamma;
+};
+
+// deterministic sum over the block (result in thread 0)
+template <int NT>
+__device__ __forceinline__ double block_sum(double v, double* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = 0.0;
+  if (threadIdx.x == 0)
+    for (int k = 0; k < NT / 32; ++k) v += red[k];
+  return v;
+}
+
+template <typename T, int AXIS>
+__global__ void __launch_bounds__(Tile<AXIS>::NT) stage_bwd_axis_kernel(BwdArgs<T> a) {
+  using R = Rn<T>;
+  using TL = Tile<AXIS>;
+  constexpr int LX = TL::LX, LA = TL::LA, NT = TL::NT, ROWS = LA + 2 * LSM_GHOST;
+  __shared__ T D[6][ROWS * LX];
+  __shared__ double red[3][NT / 32];
+  const Geom& G = a.geo;
+  const int64_t m0 = int64_t(blockIdx.x) * LA;
+  // the two coordinates this block holds fixed (or its lane base)
+  int64_t fix_i = 0, fix_j = 0, l0 = 0;
+  if constexpr (AXIS == 2) {
+    fix_j = blockIdx.y;
+    fix_i = blockIdx.z;
+  } else {
+    l0 = int64_t(blockIdx.y) * LX;
+    if constexpr (AXIS == 0) fix_j = blockIdx.z;
+    else fix_i = blockIdx.z;
+  }
+  const int64_t sa = G.s[AXIS];
+  auto coords = [&](int64_t m, int64_t l, int64_t& i, int64_t& j, int64_t& k) {
+    if constexpr (AXIS == 0) {
+      i = m, j = fix_j, k = l;
+    } else if constexpr (AXIS == 1) {
+      i = fix_i, j = m, k = l;
+    } else {
+      i = fix_i, j = fix_j, k = m;
+    }
+  };
+  const T neg_gamma = -a.gamma;
+  double sg = 0.0, sb = 0.0, sa_ = 0.0;
+
+  // phase 1: the adjoint of every output within reach of the tile, once each
+  for (int idx = threadIdx.x; idx < ROWS * LX; idx += NT) {
+    const int lane = idx % LX, r = idx / LX;
+    const int64_t m = m0 - LSM_GHOST + r, l = l0 + lane;
+    int64_t i, j, k;
+    coords(m, l, i, j, k);
+    const bool valid = inside(i, G.n[0]) && inside(j, G.n[1]) && inside(k, G.n[2]);
+    if (!valid) {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) D[q][idx] = T(0);
+      continue;
+    }
+    const int64_t c = i * G.s[0] + j * G.s[1] + k;
+    T sv[7];
+#pragma unroll
+    for (int q = 0; q < 7; ++q) sv[q] = a.P[c + (q - 3) * sa];
+    T dm[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) dm[q] = R::mul(R::sub(sv[q + 1], sv[q]), a.inv_h);
+    const int64_t qi = ((i - LSM_GHOST) * G.n[1] + (j - LSM_GHOST)) * G.n[2] + (k - LSM_GHOST);
+    const T gv = a.g[c];
+    const T uv = a.u[qi];
+    const T gup = R::mul(neg_gamma, gv);
+    T ddm[6], core;
+    weno5_fwd_bwd(dm, uv, gup, ddm, core);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) D[q][idx] = ddm[q];
+    if (r >= LSM_GHOST && r < LSM_GHOST + LA) {  // an output this block owns
+      if (a.du != nullptr) a.du[qi] = R::mul(core, gup);
+      sg += double(gv) * double(R::mul(uv, core));
+    }
+  }
+  __syncthreads();
+
+  // phase 2: gather the edge cotangents for the tile's positions
+  for (int idx = threadIdx.x; idx < LA * LX; idx += NT) {
+    const int lane = idx % LX, rr = idx / LX, r = rr + LSM_GHOST;
+    const int64_t m = m0 + rr, l = l0 + lane;
+    if (m >= G.S[AXIS] || (AXIS != 2 && l >= G.S[2])) continue;
+    int64_t i, j, k;
+    coords(m, l, i, j, k);
+    T cx = D[0][(r + 2) * LX + lane];
+    T cx1 = D[0][(r + 3) * LX + lane];
+#pragma unroll
+    for (int q = 1; q < 6; ++q) {
+      cx = R::add(cx, D[q][(r + 2 - q) * LX + lane]);
+      cx1 = R::add(cx1, D[q][(r + 3 - q) * LX + lane]);
+    }
+    const T contrib = R::mul(R::sub(cx, cx1), a.inv_h);
+    const int64_t x = i * G.s[0] + j * G.s[1] + k;
+    if (AXIS == 0) {
+      const bool in_x = inside(i, G.n[0]) && inside(j, G.n[1]) && inside(k, G.n[2]);
+      if (in_x) {
+        const T gv = a.g[x];
+        a.dP[x] = R::add(R::mul(a.beta, gv), contrib);
+        if (a.daux != nullptr) a.daux[x] = R::mul(a.alpha, gv);
+        sb += double(gv) * double(a.P[x]);
+        if (a.aux != nullptr) sa_ += double(gv) * double(a.aux[x]);
+      } else {
+        a.dP[x] = contrib;
+      }
+    } else {
+      a.dP[x] = R::add(a.dP[x], contrib);
+    }
+  }
+
+  const int64_t bid = int64_t(blockIdx.x) + int64_t(gridDim.x) *
+                      (int64_t(blockIdx.y) + int64_t(gridDim.y) * blockIdx.z);
+  sg = block_sum<NT>(sg, red[0]);
+  if (AXIS == 0) {
+    sb = block_sum<NT>(sb, red[1]);
+    sa_ = block_sum<NT>(sa_, red[2]);
+    if (threadIdx.x == 0) {
+      a.part[3 * bid] = sg;
+      a.part[3 * bid + 1] = sb;
+      a.part[3 * bid + 2] = sa_;
+    }
+  } else if (threadIdx.x == 0) {
+    a.part[bid] = sg;
+  }
+}
+
+constexpr int kReduceThreads = 1024;
+
+// sum of part[off + stride*b + field] over b < count, in a fixed order
+__device__ double strided_sum(const double* part, int64_t count, int stride, int field,
+                              double* red) {
+  double v = 0.0;
+  for (int64_t b = threadIdx.x; b < count; b += kReduceThreads) v += part[b * stride + field];
+  return block_sum<kReduceThreads>(v, red);
+}
+
+// out = (dalpha, dbeta, dgamma) from the three launches' partials
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+    stage_bwd_reduce_kernel(const double* part, int64_t nb0, int64_t nb1, int64_t nb2,
+                            T* out) {
+  __shared__ double red[5][kReduceThreads / 32];
+  const double g0 = strided_sum(part, nb0, 3, 0, red[0]);
+  const double sb = strided_sum(part, nb0, 3, 1, red[1]);
+  const double sa = strided_sum(part, nb0, 3, 2, red[2]);
+  const double g1 = strided_sum(part + 3 * nb0, nb1, 1, 0, red[3]);
+  const double g2 = strided_sum(part + 3 * nb0 + nb1, nb2, 1, 0, red[4]);
+  if (threadIdx.x == 0) {
+    out[0] = T(sa);
+    out[1] = T(sb);
+    out[2] = T(-((g0 + g1) + g2));
+  }
+}
+
+template <typename T, int AXIS>
+cudaError_t launch_axis(BwdArgs<T> args, cudaStream_t stream) {
+  stage_bwd_axis_kernel<T, AXIS><<<bwd_grid<AXIS>(args.geo), Tile<AXIS>::NT, 0, stream>>>(args);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_stage_bwd(const void* P, const void* g, const void* u0, const void* u1,
+                     const void* u2, const void* aux, void* dP, void* du0, void* du1,
+                     void* du2, void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
+                     int64_t n2, double inv_h0, double inv_h1, double inv_h2, double alpha,
+                     double beta, double gamma, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const Geom geo = make_geom(n0, n1, n2);
+  const int64_t nb[3] = {nblocks(bwd_grid<0>(geo)), nblocks(bwd_grid<1>(geo)),
+                         nblocks(bwd_grid<2>(geo))};
+  const void* u[3] = {u0, u1, u2};
+  void* du[3] = {du0, du1, du2};
+  const double inv_h[3] = {inv_h0, inv_h1, inv_h2};
+  double* parts = static_cast<double*>(part);
+  double* part_at[3] = {parts, parts + 3 * nb[0], parts + 3 * nb[0] + nb[1]};
+  cudaError_t err = cudaSuccess;
+  for (int axis = 0; axis < 3 && err == cudaSuccess; ++axis) {
+    BwdArgs<T> a;
+    a.P = static_cast<const T*>(P);
+    a.g = static_cast<const T*>(g);
+    a.u = static_cast<const T*>(u[axis]);
+    a.aux = axis == 0 ? static_cast<const T*>(aux) : nullptr;
+    a.dP = static_cast<T*>(dP);
+    a.du = static_cast<T*>(du[axis]);
+    a.daux = axis == 0 ? static_cast<T*>(daux) : nullptr;
+    a.part = part_at[axis];
+    a.geo = geo;
+    a.inv_h = T(inv_h[axis]);
+    a.alpha = T(alpha);
+    a.beta = T(beta);
+    a.gamma = T(gamma);
+    if (axis == 0) err = launch_axis<T, 0>(a, stream);
+    else if (axis == 1) err = launch_axis<T, 1>(a, stream);
+    else err = launch_axis<T, 2>(a, stream);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stage_bwd_reduce_kernel<T><<<1, kReduceThreads, 0, stream>>>(parts, nb[0], nb[1], nb[2],
+                                                                static_cast<T*>(dcoef));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int64_t lsm_stage_bwd_scratch(int64_t n0, int64_t n1, int64_t n2) {
+  const Geom geo = make_geom(n0, n1, n2);
+  return 3 * nblocks(bwd_grid<0>(geo)) + nblocks(bwd_grid<1>(geo)) +
+         nblocks(bwd_grid<2>(geo));
+}
+
+extern "C" int lsm_stage_bwd_f32(const void* P, const void* g, const void* u0, const void* u1,
+                                 const void* u2, const void* aux, void* dP, void* du0,
+                                 void* du1, void* du2, void* daux, void* part, void* dcoef,
+                                 int64_t n0, int64_t n1, int64_t n2, double inv_h0,
+                                 double inv_h1, double inv_h2, double alpha, double beta,
+                                 double gamma, void* stream) {
+  return launch_stage_bwd<float>(P, g, u0, u1, u2, aux, dP, du0, du1, du2, daux, part, dcoef,
+                                 n0, n1, n2, inv_h0, inv_h1, inv_h2, alpha, beta, gamma,
+                                 stream);
+}
+
+extern "C" int lsm_stage_bwd_f64(const void* P, const void* g, const void* u0, const void* u1,
+                                 const void* u2, const void* aux, void* dP, void* du0,
+                                 void* du1, void* du2, void* daux, void* part, void* dcoef,
+                                 int64_t n0, int64_t n1, int64_t n2, double inv_h0,
+                                 double inv_h1, double inv_h2, double alpha, double beta,
+                                 double gamma, void* stream) {
+  return launch_stage_bwd<double>(P, g, u0, u1, u2, aux, dP, du0, du1, du2, daux, part,
+                                  dcoef, n0, n1, n2, inv_h0, inv_h1, inv_h2, alpha, beta,
+                                  gamma, stream);
+}

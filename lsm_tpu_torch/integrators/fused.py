@@ -3,9 +3,11 @@
 
 The level set lives in the padded buffer between steps; each RK stage is one
 K1 pass (:func:`~lsm_tpu_torch.ops.weno_v2.fused_stage`) plus one K2 shell
-refresh (:func:`~lsm_tpu_torch.ops.weno_v2.refresh_ghosts_fast`). On CUDA
-tensors those are the hand-written kernels; on CPU tensors their plain
-versions, which drive the same control flow.
+refresh (:func:`~lsm_tpu_torch.ops.weno_v2.refresh_ghosts_fast`), wrapped in
+:func:`~lsm_tpu_torch.ops.weno_v2.fused_step_stage` so that a step is
+differentiable (backward: K4, K3, K5). On CUDA tensors those are the
+hand-written kernels; on CPU tensors their plain versions, which drive the
+same control flow. One stepper serves ``integrate`` and ``rollout``.
 
 This slice covers dense 3D fields with one WENO5 :class:`AdvectionTerm`
 without ``update_func``, whose velocity is a vector ``MeshField`` or tensor
@@ -133,19 +135,24 @@ class FusedStepper:
         return v2.eval_components(spec.coef_static(xs, t), self.shape, self.dtype,
                                   self.device)
 
-    def stage(self, P, coeffs, t_stage, aux):
-        """One stage: K1 into a fresh buffer, then K2 on its shells."""
-        out = v2.fused_stage(P, self.velocity(t_stage), coeffs, aux, self.spacing,
-                             self.shape)
-        return v2.refresh_ghosts_fast(out, self.bcs, self.shape)
+    def stage(self, P, coeffs, t_stage, aux, coeff_values=None):
+        """One stage: K1 into a fresh buffer, then K2 on its shells; through
+        :func:`~lsm_tpu_torch.ops.weno_v2.fused_step_stage`, so gradients
+        flow when an input requires them (backward K4, K3, K5)."""
+        return v2.fused_step_stage(P, self.velocity(t_stage), coeffs, aux, self.bcs,
+                                   self.spacing, self.shape, coeff_values)
 
-    def step(self, P: torch.Tensor, t: float, dt: float) -> torch.Tensor:
+    def step(self, P: torch.Tensor, t, dt, dt_value=None) -> torch.Tensor:
         """One accepted step; returns a new padded buffer (``P`` is kept as
-        the aux input of the later stages and not modified)."""
+        the aux input of the later stages and not modified). ``t`` and ``dt``
+        may be tensors (then the stage coefficients and a callable velocity
+        carry their gradients); the kernels take ``dt_value`` (default
+        ``float(dt)``) as the host number."""
+        dtv = float(dt) if dt_value is None else float(dt_value)
         cur = P
         for s, (alpha, beta, g, off) in enumerate(self.stages):
             cur = self.stage(cur, (alpha, beta, g * dt), t + off * dt,
-                             None if s == 0 else P)
+                             None if s == 0 else P, coeff_values=(alpha, beta, g * dtv))
         return cur
 
     def cfl(self, P: torch.Tensor, t) -> torch.Tensor:

@@ -1,19 +1,119 @@
-"""Time-loop helpers (port of the ``step`` of :mod:`lsm_tpu.integrators.loop`).
+"""Time-loop drivers (port of :mod:`lsm_tpu.integrators.loop`).
 
-``step`` is one accepted step of the general path, which
-``LevelSetEquation.integrate`` takes on the CPU for configurations outside
-the fused stepper. The device-resident ``evolve`` loop and the
-differentiable ``rollout`` arrive with the gradient slice (ROADMAP.md
-queue 1, slice 2).
+- :func:`step` — one accepted step of the general path.
+- :func:`evolve` — the adaptive CFL-driven host loop that
+  ``LevelSetEquation.integrate`` runs, landing exactly on ``tf``.
+- :func:`rollout` — ``nsteps`` fixed steps, differentiable with
+  ``torch.autograd``: on a configuration the fused stepper takes, every stage
+  is :func:`~lsm_tpu_torch.ops.weno_v2.fused_step_stage` (forward K1 + K2,
+  backward K4, K3, K5), on the card and on the CPU alike.
+
+``remat`` wraps each step in ``torch.utils.checkpoint`` (non-reentrant), so a
+differentiated rollout keeps one step-input buffer per step and recomputes
+the step's stages in the backward; ``remat_chunk=K`` nests a second
+checkpoint over K-step chunks (``nsteps/K + K`` saved buffers). A rollout
+that nothing differentiates pays nothing for either.
 """
 
 from __future__ import annotations
 
-from .explicit import TimeIntegrator
+import math
+from typing import Optional
 
-__all__ = ["step"]
+from torch.utils.checkpoint import checkpoint
+
+from ..core.field import MeshField
+from .explicit import TimeIntegrator
+from .fused import FusedStepper, unsupported_reason
+
+__all__ = ["step", "evolve", "rollout"]
 
 
 def step(integrator: TimeIntegrator, terms, phi, t, dt):
     """One accepted step of ``integrator``: ``(phi_new, terms_new)``."""
     return integrator.advance(terms, phi, t, dt)
+
+
+def _checkpointed(fn, carry):
+    return checkpoint(lambda *c: fn(c), *carry, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _scan_steps(step_fn, carry, nsteps: int, remat: bool, remat_chunk: Optional[int]):
+    """``carry = step_fn(carry)`` ``nsteps`` times; each step checkpointed
+    when ``remat``, and chunks of ``remat_chunk`` steps checkpointed around
+    those (port of ``lsm_tpu.integrators.loop._scan_steps``)."""
+    def one(c):
+        return _checkpointed(step_fn, c) if remat else step_fn(c)
+
+    def run(c, n):
+        for _ in range(n):
+            c = one(c)
+        return c
+
+    if remat and remat_chunk and nsteps > remat_chunk:
+        chunk = int(remat_chunk)
+        nchunks, rem = divmod(nsteps, chunk)
+        for _ in range(nchunks):
+            carry = _checkpointed(lambda c: run(c, chunk), carry)
+        return run(carry, rem)
+    return run(carry, nsteps)
+
+
+def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: int,
+            remat: bool = True, remat_chunk: Optional[int] = None, fast: str = "auto"):
+    """``nsteps`` steps of size ``dt`` from ``t0``; returns ``(phi, terms)``.
+
+    Differentiable: gradients flow to ``phi.values``, a streamed velocity,
+    and ``t0``/``dt`` when they are tensors that require them (through the
+    stage coefficients and a callable velocity's own graph). A tensor ``dt``
+    is read back once per call, for the kernels' coefficients.
+
+    ``fast="auto"`` takes the fused stepper when the configuration qualifies
+    (dense 3D, one WENO5 ``AdvectionTerm``, FE/RK2/RK3), on the card and on
+    the CPU; ``fast="off"`` takes the general path, which runs on the CPU
+    only: on CUDA it raises ``NotImplementedError``. ``remat`` and
+    ``remat_chunk`` as in the module docstring.
+    """
+    if fast not in ("auto", "off"):
+        raise ValueError(f"fast must be 'auto' or 'off', got {fast!r}")
+    terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)
+    nsteps = int(nsteps)
+    reason = unsupported_reason(terms, phi, integrator) if fast == "auto" else 'fast="off"'
+    if reason is None:
+        stepper = FusedStepper(terms, phi, integrator)
+        dt_value = float(dt)
+
+        def fused_step(c):
+            P, t = c
+            return stepper.step(P, t, dt, dt_value), t + dt
+
+        P, _ = _scan_steps(fused_step, (stepper.pack(phi.values), t0), nsteps, remat,
+                           remat_chunk)
+        return phi.with_values(stepper.unpack(P).contiguous()), terms
+    if phi.values.is_cuda:
+        raise NotImplementedError(
+            f"{reason}: on CUDA only the fused stepper is ported; the general path is not "
+            "(ROADMAP.md queue 2, general path (K10/K11))")
+
+    def general_step(c):
+        values, tms, t = c
+        new, tms = integrator.advance(tms, phi.with_values(values), t, dt)
+        return new.values, tms, t + dt
+
+    values, terms, _ = _scan_steps(general_step, (phi.values, terms, t0), nsteps, remat,
+                                   remat_chunk)
+    return phi.with_values(values), terms
+
+
+def evolve(integrator: TimeIntegrator, terms, phi: MeshField, t0, tf, dt_max=math.inf,
+           max_steps: Optional[int] = None):
+    """Evolve ``phi`` from ``t0`` to exactly ``tf`` with adaptive CFL steps
+    (the host loop of ``LevelSetEquation.integrate``, which routes a CUDA
+    state to the kernels). Returns ``(phi, terms, t, nsteps)``, ``t`` the
+    time reached (``tf`` unless ``max_steps`` stopped the loop first)."""
+    from ..equation import LevelSetEquation  # equation.py imports this module
+
+    eq = LevelSetEquation(terms=terms, ic=phi, integrator=integrator, t=float(t0))
+    eq.integrate(tf, dt_max, max_steps=max_steps)
+    return eq.state, eq.terms, eq.t, eq.last_nsteps

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-``nvcc`` compiles every ``lsm_tpu_torch/csrc/*.cu`` into one shared library
-with a plain C interface (``csrc/lsm_kernels.h``) for ``sm_90a``; ``ctypes``
+``nvcc`` compiles every ``lsm_tpu_torch/csrc/*.cu`` for ``sm_90a``, one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface (``csrc/lsm_kernels.h``); ``ctypes``
 loads it. The library lands in ``lsm_tpu_torch/_build/`` under a name keyed
 by a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once. Nothing here runs at import time.
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -25,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 CUDA_DEFAULT = "/usr/local/cuda"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -58,53 +60,77 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> str:
+    """Start every command at once and wait for all; returns their joined
+    output. Raises ``RuntimeError`` carrying the output of the first that
+    fails, or when one cannot be started."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    except OSError as e:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise RuntimeError(f"cannot run {cmds[0][0]}: {e}") from e
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {p.returncode}:\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def compile_library(out: Path, nvcc: str) -> str:
-    """Compile the sources into ``out``; returns nvcc's output (with
-    ``-Xptxas -v``: registers, shared memory and spills per kernel). Raises
-    ``RuntimeError`` carrying the compiler's output when the build fails."""
+    """Compile the sources into ``out``: one ``nvcc -c`` per source, run in
+    parallel, then one link. Returns nvcc's output (with ``-Xptxas -v``:
+    registers, shared memory and spills per kernel). Raises ``RuntimeError``
+    carrying the compiler's output when the build fails."""
     out = Path(out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"cannot run {nvcc}: {e}") from e
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as objdir:
+        objs = {src: str(Path(objdir) / f"{src.stem}.o") for src in _sources()}
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+                        for src, obj in objs.items()])
+        tmp = Path(objdir) / out.name
+        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs.values()]])
+        os.replace(tmp, out)
     return log
 
 
 class Library:
     """The loaded kernel library: ``stage_f32/f64`` (K1), ``refresh_f32/f64``
-    (K2), ``error_string``, plus where it came from (``path``), the build's
-    wall time in seconds (``build_seconds``, 0 when it was already built) and
-    nvcc's output (``log``)."""
+    (K2), ``stage_bwd_f32/f64`` and ``stage_bwd_scratch`` (K3),
+    ``fold_f32/f64`` (K4), ``zero_shells_f32/f64`` (K5), ``error_string``,
+    plus where it came from (``path``), the build's wall time in seconds
+    (``build_seconds``, 0 when it was already built) and nvcc's output
+    (``log``)."""
 
     def __init__(self, path: Path, build_seconds: float, log: str):
         self.path, self.build_seconds, self.log = path, build_seconds, log
         lib = ctypes.CDLL(str(path))
         vp, i64, f64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, ctypes.c_int
         stage_args = [vp] * 6 + [i64] * 3 + [f64] * 6 + [vp]
-        refresh_args = [vp] + [i64] * 3 + [vp] * 3 + [vp]
-        for name, args in (("lsm_weno_stage_f32", stage_args),
-                           ("lsm_weno_stage_f64", stage_args),
-                           ("lsm_refresh_ghosts_f32", refresh_args),
-                           ("lsm_refresh_ghosts_f64", refresh_args)):
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ci
+        ghost_args = [vp] + [i64] * 3 + [vp] * 3 + [vp]
+        bwd_args = [vp] * 13 + [i64] * 3 + [f64] * 6 + [vp]
+        zero_args = [vp] + [i64] * 3 + [vp]
+        names = {"stage": ("lsm_weno_stage", stage_args),
+                 "refresh": ("lsm_refresh_ghosts", ghost_args),
+                 "stage_bwd": ("lsm_stage_bwd", bwd_args),
+                 "fold": ("lsm_fold_ghosts", ghost_args),
+                 "zero_shells": ("lsm_zero_shells", zero_args)}
+        for attr, (name, args) in names.items():
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"{name}_{suffix}")
+                fn.argtypes = args
+                fn.restype = ci
+                setattr(self, f"{attr}_{suffix}", fn)
+        lib.lsm_stage_bwd_scratch.argtypes = [i64] * 3
+        lib.lsm_stage_bwd_scratch.restype = i64
+        self.stage_bwd_scratch = lib.lsm_stage_bwd_scratch
         lib.lsm_error_string.argtypes = [ci]
         lib.lsm_error_string.restype = ctypes.c_char_p
         self._lib = lib
-        self.stage_f32 = lib.lsm_weno_stage_f32
-        self.stage_f64 = lib.lsm_weno_stage_f64
-        self.refresh_f32 = lib.lsm_refresh_ghosts_f32
-        self.refresh_f64 = lib.lsm_refresh_ghosts_f64
 
     def error_string(self, code: int) -> str:
         return self._lib.lsm_error_string(int(code)).decode()

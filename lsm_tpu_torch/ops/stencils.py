@@ -22,6 +22,7 @@ __all__ = [
     "dm",
     "weno5_pair_diffs",
     "weno5_upwind",
+    "weno5_upwind_fwd_bwd",
     "safe_sqrt",
 ]
 
@@ -128,6 +129,136 @@ def weno5_upwind(dm, u):
     )
     eps = _weno_eps(vmax, v1.dtype)
     return u * _weno_combine(s1, s2, s3, eps, d1, d2, d3)
+
+
+def _max_bwd(a, b, ans, gm):
+    """Cotangents of ``ans = maximum(a, b)``: an exact tie splits 0.5/0.5
+    (the subgradient JAX's ``max`` takes, and ``torch.maximum``'s too)."""
+    ta, tb = a == ans, b == ans
+    ga = gm * torch.where(ta, torch.where(tb, 0.5, 1.0), 0.0)
+    gb = gm * torch.where(tb, torch.where(ta, 0.5, 1.0), 0.0)
+    return ga, gb
+
+
+def weno5_upwind_fwd_bwd(dm, u, g):
+    """Value and hand-derived cotangents of :func:`weno5_upwind` in one pass
+    (port of ``lsm_tpu.ops.stencils.weno5_upwind_fwd_bwd``): returns ``(H,
+    ddm, du)`` with ``H = u * core``, ``ddm`` the six cotangents of ``dm`` and
+    ``du = core * g``, for the cotangent ``g`` of ``H``.
+
+    The association is the JAX one, term by term, including the ``vmax``
+    maximum tree with 0.5/0.5 tie splitting. It is what keeps float32 right
+    at WENO-symmetric cells, where the mechanical autograd of the forward
+    multiplies a cancelled ``dr`` by ``r**2 ~ 1e21`` and is wrong by O(1).
+    The CUDA backward kernel (``csrc/stage_backward.cu``) repeats it.
+    """
+    cond = u > 0
+    v1 = torch.where(cond, dm[0], dm[5])
+    v2 = torch.where(cond, dm[1], dm[4])
+    v3 = torch.where(cond, dm[2], dm[3])
+    v4 = torch.where(cond, dm[3], dm[2])
+    v5 = torch.where(cond, dm[4], dm[1])
+    # -- forward (the arithmetic of weno5_upwind) --
+    e2 = v3 - v2
+    e3 = v4 - v3
+    c1 = e2 - (v2 - v1)
+    c2 = e3 - e2
+    c3 = (v5 - v4) - e3
+    d1 = v3 + 0.5 * e2 + (1.0 / 3.0) * c1
+    d2 = v3 + 0.5 * e3 - (1.0 / 6.0) * c2
+    d3 = v3 + 0.5 * e3 - (1.0 / 6.0) * c3
+    c13 = 13.0 / 12.0
+    t1 = c1 + 2.0 * e2
+    t2 = e2 + e3
+    t3 = c3 - 2.0 * e3
+    s1 = c13 * (c1 * c1) + 0.25 * (t1 * t1)
+    s2 = c13 * (c2 * c2) + 0.25 * (t2 * t2)
+    s3 = c13 * (c3 * c3) + 0.25 * (t3 * t3)
+    sq1, sq2, sq3, sq4, sq5 = v1 * v1, v2 * v2, v3 * v3, v4 * v4, v5 * v5
+    m12 = torch.maximum(sq1, sq2)
+    m34 = torch.maximum(sq3, sq4)
+    m14 = torch.maximum(m12, m34)
+    vmax = torch.maximum(m14, sq5)
+    eps = _weno_eps(vmax, v1.dtype)
+    r = 1.0 / eps
+    b1 = s1 * r + 1.0
+    b2 = s2 * r + 1.0
+    b3 = s3 * r + 1.0
+    p1 = b2 * b3
+    p2 = b1 * b3
+    p3 = b1 * b2
+    q1 = 0.1 * (p1 * p1)
+    q2 = 0.6 * (p2 * p2)
+    q3 = 0.3 * (p3 * p3)
+    qsum = q1 + q2 + q3
+    w = 1.0 / qsum
+    core = (q1 * d1 + q2 * d2 + q3 * d3) * w
+    H = u * core
+    # -- backward (the chain above in reverse, intermediates reused) --
+    du = core * g
+    gc = u * g
+    wgc = w * gc
+    dd1 = q1 * wgc
+    dd2 = q2 * wgc
+    dd3 = q3 * wgc
+    dq1 = (d1 - core) * wgc
+    dq2 = (d2 - core) * wgc
+    dq3 = (d3 - core) * wgc
+    dp1 = 0.2 * p1 * dq1
+    dp2 = 1.2 * p2 * dq2
+    dp3 = 0.6 * p3 * dq3
+    db1 = b3 * dp2 + b2 * dp3
+    db2 = b3 * dp1 + b1 * dp3
+    db3 = b2 * dp1 + b1 * dp2
+    ds1 = r * db1
+    ds2 = r * db2
+    ds3 = r * db3
+    dr = s1 * db1 + s2 * db2 + s3 * db3
+    dvmax = -1.0e-6 * (r * r) * dr  # through eps = 1e-6 * vmax + floor
+    dm14, dsq5 = _max_bwd(m14, sq5, vmax, dvmax)
+    dm12, dm34 = _max_bwd(m12, m34, m14, dm14)
+    dsq1, dsq2 = _max_bwd(sq1, sq2, m12, dm12)
+    dsq3, dsq4 = _max_bwd(sq3, sq4, m34, dm34)
+    dv1 = 2.0 * v1 * dsq1
+    dv2 = 2.0 * v2 * dsq2
+    dv3 = 2.0 * v3 * dsq3
+    dv4 = 2.0 * v4 * dsq4
+    dv5 = 2.0 * v5 * dsq5
+    dc1 = 2.0 * c13 * c1 * ds1
+    dc2 = 2.0 * c13 * c2 * ds2
+    dc3 = 2.0 * c13 * c3 * ds3
+    dt1 = 0.5 * t1 * ds1
+    dt2 = 0.5 * t2 * ds2
+    dt3 = 0.5 * t3 * ds3
+    dc1 = dc1 + dt1
+    de2 = 2.0 * dt1 + dt2
+    de3 = dt2 - 2.0 * dt3
+    dc3 = dc3 + dt3
+    dv3 = dv3 + dd1 + dd2 + dd3
+    de2 = de2 + 0.5 * dd1
+    de3 = de3 + 0.5 * (dd2 + dd3)
+    dc1 = dc1 + (1.0 / 3.0) * dd1
+    dc2 = dc2 - (1.0 / 6.0) * dd2
+    dc3 = dc3 - (1.0 / 6.0) * dd3
+    de2 = de2 + dc1 - dc2
+    de3 = de3 + dc2 - dc3
+    dv1 = dv1 + dc1
+    dv2 = dv2 - dc1
+    dv4 = dv4 - dc3
+    dv5 = dv5 + dc3
+    dv3 = dv3 + de2 - de3
+    dv2 = dv2 - de2
+    dv4 = dv4 + de3
+    zero = torch.zeros((), dtype=v1.dtype, device=v1.device)
+    ddm = (
+        torch.where(cond, dv1, zero),
+        torch.where(cond, dv2, dv5),
+        torch.where(cond, dv3, dv4),
+        torch.where(cond, dv4, dv3),
+        torch.where(cond, dv5, dv2),
+        torch.where(cond, zero, dv1),
+    )
+    return H, ddm, du
 
 
 def weno5_pair_diffs(p, axis, h, g, shape):

@@ -16,6 +16,9 @@ tests and by the on-card comparison in ``chip_smoke.py``):
   :func:`refresh_ghosts_plain`) rewrites the ghost shells in place from the
   interior: axis 0, then axis 1, then axis 2, so corner ghosts equal
   ``pad_ghost(values, bcs, 3)``.
+- :func:`fused_step_stage` is K1 + K2 as a ``torch.autograd.Function``
+  whose backward runs K4, K3 and K5 (:mod:`.weno_v2_bwd`); its plain
+  counterpart is :func:`stage_refresh_plain`.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises. Each counts its kernel launches in ``launches``.
@@ -44,6 +47,8 @@ __all__ = [
     "stage_plain",
     "stage_reference",
     "fused_stage",
+    "stage_refresh_plain",
+    "fused_step_stage",
     "TermSpec",
 ]
 
@@ -245,8 +250,9 @@ def _advection_ham(P, u, spacing, shape):
 
 def _advection_interior(P, u, coeffs, aux, spacing, shape):
     """``alpha*aux + beta*phi - gamma*H`` on the interior, with the
-    arithmetic order of the JAX oracle."""
-    alpha, beta, gamma = (float(c) for c in coeffs)
+    arithmetic order of the JAX oracle; the coefficients are numbers or
+    0-d tensors."""
+    alpha, beta, gamma = coeffs
     center = st.shift(P, (0,) * len(shape), GHOST, shape)
     res = beta * center - gamma * _advection_ham(P, u, spacing, shape)
     if aux is not None:
@@ -327,3 +333,80 @@ def fused_stage(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs, aux: Optiona
 
 
 fused_stage.launches = 0
+
+
+# -- the differentiable stage --------------------------------------------------------
+
+
+def stage_refresh_plain(P, u, coeffs, aux, bcs, spacing, shape) -> torch.Tensor:
+    """Plain stage plus ghost refresh on the padded layout (counterpart of
+    ``lsm_tpu.ops.weno_v2._stage_refresh_jnp``): the stage reads ``P``'s
+    stored ghosts, as K1 does, and the result is packed with fresh ghosts.
+    ``coeffs`` may be tensors; autograd through this function is the oracle
+    of the stage's backward."""
+    return pack_padded(_advection_interior(P, u, coeffs, aux, spacing, shape), bcs)
+
+
+class _FusedStepStage(torch.autograd.Function):
+    """K1 + K2 forward; backward K4 (fold the output cotangent's shells),
+    K3 (stage cotangents), K5 (zero daux's shells). Saves ``P``, the
+    streams and ``aux`` (references, no copies)."""
+
+    @staticmethod
+    def forward(ctx, P, u0, u1, u2, aux, alpha, beta, gamma, statics):
+        bcs, spacing, shape, values = statics
+        out = fused_stage(P, (u0, u1, u2), values, aux, spacing, shape)
+        refresh_ghosts_fast(out, bcs, shape)
+        ctx.save_for_backward(P, u0, u1, u2, aux)
+        ctx.statics = statics
+        ctx.coef_like = tuple((c.dtype, c.device) if isinstance(c, torch.Tensor) else None
+                              for c in (alpha, beta, gamma))
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        from . import weno_v2_bwd as bwd  # imports this module
+
+        P, u0, u1, u2, aux = ctx.saved_tensors
+        bcs, spacing, shape, values = ctx.statics
+        need = ctx.needs_input_grad
+        # K4 folds in place, so it gets a copy: autograd may hand this node
+        # the caller's grad_outputs, or one buffer shared with another branch
+        g = bwd.fold_ghost_cotangent_fast(g.clone(memory_format=torch.contiguous_format),
+                                          bcs, shape)
+        dP, du, dcoef, daux = bwd.stage_backward(
+            P, (u0, u1, u2), values, aux, g, spacing, shape,
+            need_du=any(need[1:4]), need_daux=need[4])
+        du = du or (None,) * 3
+        dc = tuple(None if like is None or not need[5 + k] else
+                   dcoef[k].to(dtype=like[0], device=like[1])
+                   for k, like in enumerate(ctx.coef_like))
+        return (dP if need[0] else None, *(d if n else None for d, n in zip(du, need[1:4])),
+                daux, *dc, None)
+
+
+def fused_step_stage(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs, aux, bcs, spacing,
+                     shape, coeff_values=None) -> torch.Tensor:
+    """One RK stage plus ghost refresh, differentiable (counterpart of
+    ``lsm_tpu.ops.weno_v2.fused_step_stage``).
+
+    The forward is :func:`fused_stage` (K1) then :func:`refresh_ghosts_fast`
+    (K2). ``coeffs = (alpha, beta, gamma)`` are numbers or 0-d tensors;
+    gradients flow to ``P``, the three streams ``u``, ``aux`` and the tensor
+    coefficients through K4, K3 and K5. The kernels take the coefficients as
+    host numbers: ``coeff_values`` gives them, so a tensor coefficient is not
+    read back here (default: ``float`` of each coefficient). When nothing
+    needs a gradient, the call is K1 + K2 and keeps nothing for a backward.
+    """
+    shape = tuple(shape)
+    values = tuple(float(c) for c in (coeffs if coeff_values is None else coeff_values))
+    tensors = [P, *u, aux, *coeffs]
+    if not (torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)):
+        out = fused_stage(P, u, values, aux, spacing, shape)
+        return refresh_ghosts_fast(out, bcs, shape)
+    if len(u) != 3:
+        raise ValueError("the fused stage is 3D only: u needs 3 entries")
+    return _FusedStepStage.apply(P, *u, aux, *coeffs,
+                                 (bcs, tuple(spacing), shape, values))

@@ -1,0 +1,296 @@
+"""Backward of the fused stage on the padded layout (port of
+:mod:`lsm_tpu.ops.weno_v2_bwd`): three kernels, each beside its plain torch
+version, and the autograd oracle they are held against.
+
+- :func:`fold_ghost_cotangent_fast` (K4, ``csrc/fold_ghosts.cu``; plain
+  :func:`fold_ghost_cotangent_plain`) folds the cotangents on a padded
+  buffer's ghost shells into its interior, in place, and zeroes the shells:
+  the transpose of the ghost refresh K2. :func:`fold_ghost_cotangent` is the
+  same map as the autograd VJP of :func:`~.weno_v2.pack_padded` (the oracle).
+- :func:`zero_pad_shells` (K5, ``csrc/fold_ghosts.cu``; plain
+  :func:`zero_pad_shells_plain`) zeroes the ghost shells in place.
+- :func:`stage_backward` (K3, ``csrc/stage_backward.cu``; plain
+  :func:`stage_backward_plain`) gives the cotangents of one K1 stage for a
+  folded output cotangent: ``dP`` (ghost positions included, the stage reads
+  stored ghosts), the streams' ``du``, ``daux`` and ``(dalpha, dbeta,
+  dgamma)``. The plain version is the hand WENO5 adjoint
+  (:func:`~.stencils.weno5_upwind_fwd_bwd`) plus the transpose of the
+  difference tables, with the kernel's arithmetic.
+- :func:`composite_backward_autograd`: ``torch.autograd.grad`` of
+  :func:`~.weno_v2.stage_refresh_plain` (stage plus refresh), the oracle
+  (counterpart of ``lsm_tpu.ops.weno_v2_bwd._jnp_stage_backward``). In
+  float32 it is wrong at WENO tie cells; hold float32 results against it in
+  float64.
+
+A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
+launches the kernel or raises. Each counts its kernel launches in
+``launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ..core import bc as _bc
+from . import stencils as st
+from . import weno_v2 as v2
+from ._build import load_library
+
+__all__ = [
+    "fold_ghost_cotangent",
+    "fold_ghost_cotangent_plain",
+    "fold_ghost_cotangent_fast",
+    "zero_pad_shells_plain",
+    "zero_pad_shells",
+    "stage_backward_plain",
+    "stage_backward",
+    "composite_backward_autograd",
+]
+
+G = v2.GHOST
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+# -- K4: ghost-cotangent fold --------------------------------------------------------
+
+
+def fold_ghost_cotangent(g: torch.Tensor, bcs, shape) -> torch.Tensor:
+    """Interior-shaped cotangent: ``g``'s interior plus its ghost-shell
+    cotangents folded through the ghost construction, computed as the
+    autograd VJP of :func:`~.weno_v2.pack_padded` (exact by construction; the
+    oracle of K4)."""
+    with torch.enable_grad():
+        v = torch.zeros(tuple(shape), dtype=g.dtype, device=g.device, requires_grad=True)
+        (out,) = torch.autograd.grad(v2.pack_padded(v, bcs), v, grad_outputs=g)
+    return out
+
+
+def _fold_sources(bc, side: int, k: int, n: int):
+    """``(node, weight)`` of each interior node the ghost at distance ``k``
+    on ``side`` (0 left, 1 right) of an axis of ``n`` nodes is built from."""
+    if isinstance(bc, _bc.Periodic):
+        return ((n - 1 - k if side == 0 else k, 1.0),)
+    if isinstance(bc, _bc.Symmetry):
+        return ((k if side == 0 else n - 1 - k, 1.0),)
+    if isinstance(bc, _bc.Extrapolation):
+        W = _bc._lagrange_extrap_weights(G, bc.degree)  # row G - k <-> distance k
+        return tuple((j if side == 0 else n - 1 - j, float(W[G - k, j]))
+                     for j in range(bc.degree + 1))
+    raise TypeError(f"unsupported boundary condition {bc!r}")
+
+
+def fold_ghost_cotangent_plain(g: torch.Tensor, bcs, shape) -> torch.Tensor:
+    """Plain version of K4, in place on the padded ``g``: axis 2, then 1, then
+    0 (the reverse of the refresh), each over the lines the refresh covers for
+    that axis; per line, left then right side, ghost distance 1..3, source
+    node by node: ``src += w * ghost``; then the shells are zeroed. Returns
+    ``g``."""
+    for ax in (2, 1, 0):
+        n = shape[ax]
+        line = g[tuple(slice(None) if d <= ax else slice(G, G + m)
+                       for d, m in enumerate(shape))]
+        for side in (0, 1):
+            for k in range(1, G + 1):
+                ghost = line.narrow(ax, G - k if side == 0 else G + n - 1 + k, 1)
+                for node, w in _fold_sources(bcs[ax][side], side, k, n):
+                    line.narrow(ax, G + node, 1).add_(ghost * w)
+        line.narrow(ax, 0, G).zero_()
+        line.narrow(ax, G + n, G).zero_()
+    return g
+
+
+def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
+    """K4: fold the ghost-shell cotangents of the padded ``g`` into its
+    interior and zero the shells, in place; returns ``g``.
+
+    Replaces ``lsm_tpu.ops.weno_v2_bwd.fold_ghost_cotangent_fast``. CUDA
+    tensors go to ``csrc/fold_ghosts.cu`` (three launches: axis 2, 1, 0), CPU
+    tensors to :func:`fold_ghost_cotangent_plain`. On CUDA the kernel takes
+    what K2 takes (Extrapolation of degree <= 7 on axes of >= 4 and >=
+    degree + 1 nodes) and raises ``NotImplementedError`` otherwise.
+    """
+    shape = tuple(shape)
+    if len(shape) != 3:
+        raise ValueError(f"the ghost fold is 3D only, got shape {shape}")
+    v2._check(g, "g", v2.padded_shape(shape))
+    if g.device.type == "cpu":
+        return fold_ghost_cotangent_plain(g, bcs, shape)
+    try:
+        kinds, degrees, weights = v2._ghost_args(bcs, shape)
+    except ValueError as e:
+        raise NotImplementedError(f"{e} (ROADMAP.md queue 2, K2 degree)") from e
+    lib = load_library()
+    fn = lib.fold_f32 if g.dtype == torch.float32 else lib.fold_f64
+    with torch.cuda.device(g.device):
+        code = fn(g.data_ptr(), *shape, ctypes.addressof(kinds), ctypes.addressof(degrees),
+                  ctypes.addressof(weights), _stream())
+    v2._raise_on(code, lib, "fold_ghosts kernel")
+    fold_ghost_cotangent_fast.launches += 1
+    return g
+
+
+fold_ghost_cotangent_fast.launches = 0
+
+
+# -- K5: shell zeroing -----------------------------------------------------------
+
+
+def zero_pad_shells_plain(buf: torch.Tensor, shape) -> torch.Tensor:
+    """Plain version of K5: zero the six ghost slabs of ``buf`` in place."""
+    for ax, n in enumerate(shape):
+        buf.narrow(ax, 0, G).zero_()
+        buf.narrow(ax, G + n, G).zero_()
+    return buf
+
+
+def zero_pad_shells(buf: torch.Tensor, shape) -> torch.Tensor:
+    """K5: zero the ghost shells of a padded buffer in place; returns ``buf``.
+
+    Replaces ``lsm_tpu.ops.weno_v2_bwd._zero_pad_shells``. CUDA tensors go to
+    ``csrc/fold_ghosts.cu``, CPU tensors to :func:`zero_pad_shells_plain`.
+    """
+    shape = tuple(shape)
+    if len(shape) != 3:
+        raise ValueError(f"the shell zeroing is 3D only, got shape {shape}")
+    v2._check(buf, "buf", v2.padded_shape(shape))
+    if buf.device.type == "cpu":
+        return zero_pad_shells_plain(buf, shape)
+    lib = load_library()
+    fn = lib.zero_shells_f32 if buf.dtype == torch.float32 else lib.zero_shells_f64
+    with torch.cuda.device(buf.device):
+        code = fn(buf.data_ptr(), *shape, _stream())
+    v2._raise_on(code, lib, "zero_shells kernel")
+    zero_pad_shells.launches += 1
+    return buf
+
+
+zero_pad_shells.launches = 0
+
+
+# -- K3: stage backward ---------------------------------------------------------------
+
+
+def _edge_transpose(ddm, ax, inv_h, shape, like):
+    """``(c[x] - c[x + e_ax]) * inv_h`` on the padded grid, where ``c[z]``
+    sums ``ddm[k]`` of the interior output ``z - (k - 2) e_ax`` over ``k`` in
+    order: the transpose of :func:`~.stencils.weno5_pair_diffs`."""
+    c = torch.zeros(tuple(s + (1 if d == ax else 0) for d, s in
+                          enumerate(v2.padded_shape(shape))), dtype=like.dtype,
+                    device=like.device)
+    for k in range(6):
+        st.shift(c, tuple(k - 2 if d == ax else 0 for d in range(3)), G, shape).add_(ddm[k])
+    n = c.shape[ax]
+    return (c.narrow(ax, 0, n - 1) - c.narrow(ax, 1, n - 1)) * inv_h
+
+
+def stage_backward_plain(P, u, coeffs, aux, g, spacing, shape, need_du=True,
+                         need_daux=True):
+    """Plain version of K3, with the kernel's arithmetic: see
+    :func:`stage_backward`."""
+    shape = tuple(shape)
+    alpha, beta, gamma = (float(c) for c in coeffs)
+    gi = v2.unpack_padded(g, shape)
+    gup = -gamma * gi
+    dP = torch.zeros_like(P)
+    v2.unpack_padded(dP, shape).copy_(beta * gi)
+    ham = 0.0
+    du = []
+    for ax, h in enumerate(spacing):
+        inv_h = 1.0 / float(h)
+        dm = st.weno5_pair_diffs(P, ax, float(h), G, shape)
+        H, ddm, du_ax = st.weno5_upwind_fwd_bwd(dm, u[ax], gup)
+        ham = ham + H
+        du.append(du_ax)
+        dP = dP + _edge_transpose(ddm, ax, inv_h, shape, P)
+    center = v2.unpack_padded(P, shape)
+    dalpha = (gi * v2.unpack_padded(aux, shape)).sum() if aux is not None else gi.new_zeros(())
+    dcoef = torch.stack([dalpha, (gi * center).sum(), -(gi * ham).sum()])
+    daux = None
+    if aux is not None and need_daux:
+        daux = torch.empty_like(P)
+        v2.unpack_padded(daux, shape).copy_(alpha * gi)
+        zero_pad_shells_plain(daux, shape)
+    return dP, (tuple(du) if need_du else None), dcoef, daux
+
+
+def stage_backward(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs,
+                   aux: Optional[torch.Tensor], g: torch.Tensor, spacing, shape,
+                   need_du: bool = True, need_daux: bool = True
+                   ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, ...]],
+                              torch.Tensor, Optional[torch.Tensor]]:
+    """K3: cotangents of one K1 stage ``alpha*aux + beta*phi - gamma*u.grad(phi)``.
+
+    ``g`` is the padded cotangent of the stage output after the fold (K4):
+    only its interior is read. Returns ``(dP, du, dcoef, daux)``: ``dP`` on
+    the whole padded layout (ghost positions included, corner ghosts 0), ``du``
+    the three streams' cotangents (``None`` unless ``need_du``), ``dcoef =
+    (dalpha, dbeta, dgamma)`` as a 3-vector, ``daux = alpha*g`` on the
+    interior with zero shells (``None`` without ``aux`` or ``need_daux``; its
+    shells are zeroed by K5). ``coeffs`` are host numbers.
+
+    Replaces ``lsm_tpu.ops.weno_v2_bwd.stage_backward`` (without its
+    ``prefolded``/``origin`` arguments). CUDA tensors go to
+    ``csrc/stage_backward.cu``, CPU tensors to :func:`stage_backward_plain`.
+    """
+    shape = tuple(shape)
+    if len(shape) != 3 or len(u) != 3 or len(spacing) != 3:
+        raise ValueError("the stage backward is 3D only: shape, u and spacing need 3 entries")
+    v2._check(P, "P", v2.padded_shape(shape))
+    v2._check(g, "g", v2.padded_shape(shape), like=P)
+    for d, ud in enumerate(u):
+        v2._check(ud, f"u[{d}]", shape, like=P)
+    if aux is not None:
+        v2._check(aux, "aux", v2.padded_shape(shape), like=P)
+    if P.device.type == "cpu":
+        return stage_backward_plain(P, u, coeffs, aux, g, spacing, shape, need_du, need_daux)
+    lib = load_library()
+    fn = lib.stage_bwd_f32 if P.dtype == torch.float32 else lib.stage_bwd_f64
+    dP = torch.empty_like(P)
+    du = tuple(torch.empty_like(u[0]) for _ in range(3)) if need_du else None
+    daux = torch.empty_like(P) if aux is not None and need_daux else None
+    part = torch.empty(lib.stage_bwd_scratch(*shape), dtype=torch.float64, device=P.device)
+    dcoef = torch.empty(3, dtype=P.dtype, device=P.device)
+    alpha, beta, gamma = (float(c) for c in coeffs)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(P.device):
+        code = fn(P.data_ptr(), g.data_ptr(), *(c.data_ptr() for c in u), ptr(aux),
+                  dP.data_ptr(), *(ptr(d) for d in (du or (None,) * 3)), ptr(daux),
+                  part.data_ptr(), dcoef.data_ptr(), *shape,
+                  *(1.0 / float(h) for h in spacing), alpha, beta, gamma, _stream())
+    v2._raise_on(code, lib, "stage_backward kernel")
+    stage_backward.launches += 1
+    if daux is not None:
+        zero_pad_shells(daux, shape)
+    return dP, du, dcoef, daux
+
+
+stage_backward.launches = 0
+
+
+def composite_backward_autograd(P, u, coeffs, aux, g, bcs, spacing, shape):
+    """``torch.autograd.grad`` of :func:`~.weno_v2.stage_refresh_plain` (stage
+    plus ghost refresh) for the raw, unfolded padded output cotangent ``g``:
+    ``(dP, du, dcoef, daux)`` as :func:`stage_backward` returns them (``daux``
+    ``None`` without ``aux``). The oracle of K4 followed by K3; run it in
+    float64."""
+    with torch.enable_grad():
+        Pv = P.detach().requires_grad_()
+        uv = [c.detach().requires_grad_() for c in u]
+        cv = [torch.tensor(float(c), dtype=P.dtype, device=P.device, requires_grad=True)
+              for c in coeffs]
+        av = None if aux is None else aux.detach().requires_grad_()
+        out = v2.stage_refresh_plain(Pv, uv, cv, av, bcs, spacing, shape)
+        inputs = [Pv, *uv, *cv] + ([] if av is None else [av])
+        grads = torch.autograd.grad(out, inputs, grad_outputs=g, allow_unused=True)
+    dP, du, dc = grads[0], tuple(grads[1:4]), grads[4:7]
+    dcoef = torch.stack([d if d is not None else P.new_zeros(()) for d in dc])
+    return dP, du, dcoef, (grads[7] if av is not None else None)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..core.bc import Extrapolation, Periodic, Symmetry
+from ..core.device import resolve_device
 from ..core.field import MeshField
 from ..core.grid import Grid
 
@@ -56,9 +57,10 @@ def _to_numpy(x) -> np.ndarray:
 
 def field_from_numpy(values, grid: Grid, bcs=None, device=None, dtype=None) -> MeshField:
     """A :class:`MeshField` from a numpy array (for example the values of a
-    JAX ``MeshField``): ``dtype`` defaults to the array's own."""
+    JAX ``MeshField``): ``dtype`` defaults to the array's own, ``device`` to
+    the card (the CPU only when asked for with ``device="cpu"``)."""
     t = torch.from_numpy(np.ascontiguousarray(values))
-    return MeshField(t.to(device=device, dtype=dtype or t.dtype), grid, bcs)
+    return MeshField(t.to(device=resolve_device(device), dtype=dtype or t.dtype), grid, bcs)
 
 
 def save_checkpoint(path, phi: MeshField, t: float = 0.0,
@@ -86,7 +88,8 @@ def save_checkpoint(path, phi: MeshField, t: float = 0.0,
 
 def load_checkpoint(path, device=None) -> Tuple[MeshField, float, Dict[str, np.ndarray], Dict]:
     """Load ``(phi, t, extra_arrays, metadata)`` saved by either package's
-    ``save_checkpoint``; the field's values go to ``device``."""
+    ``save_checkpoint``; the field's values go to ``device`` (default: the
+    card)."""
     with np.load(Path(path), allow_pickle=False) as data:
         manifest = json.loads(str(data["manifest"]))
         if manifest["format"] != _FORMAT_VERSION:

@@ -124,7 +124,7 @@ def test_grid_matches_jax():
     assert tg.spacing == jg.spacing
     assert tg.min_spacing == jg.min_spacing
     assert tg.cell_volume == jg.cell_volume
-    for a, b in zip(tg.coords(torch.float64), jg.coords(jnp.float64)):
+    for a, b in zip(tg.coords(torch.float64, device="cpu"), jg.coords(jnp.float64)):
         assert a.shape == b.shape
         np.testing.assert_allclose(_np(a), np.asarray(b), rtol=0, atol=1e-15)
     with pytest.raises(ValueError):
@@ -140,7 +140,7 @@ def test_sample_and_shapes_match_jax():
     np.testing.assert_allclose(_np(tphi.values), np.asarray(jphi.values), rtol=0, atol=1e-12)
     assert tphi.bcs == T.normalize_bcs(T.Periodic(), 3)
     f = lambda *xs: (xs[0] * 0 + 1.0, xs[1] * 2.0, xs[2] - 0.5)
-    tv = T.sample(f, T.Grid(*args), dtype=torch.float64)
+    tv = T.sample(f, T.Grid(*args), dtype=torch.float64, device="cpu")
     jv = J.sample(f, J.Grid(*args), dtype=jnp.float64)
     assert tv.is_vector and tv.values.shape == (3, 10, 12, 14)
     np.testing.assert_allclose(_np(tv.values), np.asarray(jv.values), rtol=0, atol=1e-15)
@@ -148,10 +148,10 @@ def test_sample_and_shapes_match_jax():
     for name in ("circle", "box"):
         mk = {"circle": lambda s: s.circle((0.1, -0.2), 0.4),
               "box": lambda s: s.box((-0.3, -0.5), (0.2, 0.6))}[name]
-        a = T.sample(mk(tshapes), T.Grid(*g2), dtype=torch.float64).values
+        a = T.sample(mk(tshapes), T.Grid(*g2), dtype=torch.float64, device="cpu").values
         b = J.sample(mk(jshapes), J.Grid(*g2), dtype=jnp.float64).values
         np.testing.assert_allclose(_np(a), np.asarray(b), rtol=0, atol=1e-14)
-    xs_t = T.Grid(*g2).coords(torch.float64)
+    xs_t = T.Grid(*g2).coords(torch.float64, device="cpu")
     xs_j = J.Grid(*g2).coords(jnp.float64)
     for a, b in zip(tshapes.rigid_rotation_velocity((0.2, 0.1), 2.0)(xs_t, 0.0),
                     jshapes.rigid_rotation_velocity((0.2, 0.1), 2.0)(xs_j, 0.0)):
@@ -233,7 +233,7 @@ def test_volume_perimeter_match_jax(bc):
     tb = T.Periodic() if bc == "periodic" else None
     jb = J.Periodic() if bc == "periodic" else None
     tphi = T.sample(tshapes.sphere((0.5, 0.45, 0.5), 0.3), T.Grid(*args), tb,
-                    dtype=torch.float64)
+                    dtype=torch.float64, device="cpu")
     jphi = J.sample(jshapes.sphere((0.5, 0.45, 0.5), 0.3), J.Grid(*args), jb,
                     dtype=jnp.float64)
     assert abs(float(tgeo.volume(tphi)) - float(jgeo.volume(jphi))) < 1e-12
@@ -276,7 +276,7 @@ def test_checkpoint_port_saves_jax_loads(tmp_path):
     assert jphi.bcs == J.normalize_bcs([J.Periodic(), J.Symmetry(), J.Extrapolation(1)], 3)
     assert (t, extra, meta) == (1.5, {}, {"k": "v"})
     # and back again: the port reads its own file bit for bit, into float64 if asked
-    phi2, _, _, _ = tckpt.load_checkpoint(path)
+    phi2, _, _, _ = tckpt.load_checkpoint(path, device="cpu")
     np.testing.assert_array_equal(_np(phi2.values), vals)
-    f64 = tckpt.field_from_numpy(vals, grid, T.Periodic(), dtype=torch.float64)
+    f64 = tckpt.field_from_numpy(vals, grid, T.Periodic(), dtype=torch.float64, device="cpu")
     assert f64.values.dtype == torch.float64

@@ -46,7 +46,8 @@ def _pair(shape, bcs=("periodic",), dtype=(jnp.float64, torch.float64)):
     jb = [make[b](J) for b in bcs] if len(bcs) == 3 else make[bcs[0]](J)
     tb = [make[b](T) for b in bcs] if len(bcs) == 3 else make[bcs[0]](T)
     jphi = J.sample(jshapes.zalesak_sphere(), J.Grid(*args), jb, dtype=dtype[0])
-    tphi = T.sample(tshapes.zalesak_sphere(), T.Grid(*args), tb, dtype=dtype[1])
+    tphi = T.sample(tshapes.zalesak_sphere(), T.Grid(*args), tb, dtype=dtype[1],
+                    device="cpu")
     return jphi, tphi
 
 
@@ -123,7 +124,7 @@ def test_general_path_2d_matches_jax():
     jphi = J.sample(jshapes.circle((0.5, 0.7), 0.2), J.Grid(*args), J.Periodic(),
                     dtype=jnp.float64)
     tphi = T.sample(tshapes.circle((0.5, 0.7), 0.2), T.Grid(*args), T.Periodic(),
-                    dtype=torch.float64)
+                    dtype=torch.float64, device="cpu")
     for scheme in ("weno5", "upwind"):
         jeq = J.LevelSetEquation(terms=J.AdvectionTerm(vel, scheme), ic=jphi)
         teq = T.LevelSetEquation(terms=T.AdvectionTerm(vel, scheme), ic=tphi)
@@ -216,7 +217,8 @@ def test_unsupported_configurations_raise_on_the_cuda_route():
     ROADMAP item (the route is taken by ``_cuda_stepper`` for CUDA states)."""
     _, tphi = _pair((8, 8, 8))
     g2 = T.Grid((0.0, 0.0), (1.0, 1.0), (8, 8))
-    phi2 = T.sample(tshapes.circle((0.5, 0.5), 0.2), g2, T.Periodic(), dtype=torch.float64)
+    phi2 = T.sample(tshapes.circle((0.5, 0.5), 0.2), g2, T.Periodic(), dtype=torch.float64,
+                    device="cpu")
     vel2 = lambda xs, t: (0.0 * xs[0], 0.0 * xs[1])
     cases = [
         (T.AdvectionTerm(_velf), tphi, {"hooks": True}, "hooks"),

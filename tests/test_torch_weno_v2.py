@@ -137,7 +137,8 @@ def test_stage_matches_jax(velocity, with_aux):
     args = ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), SHAPE)
     jg, tg = J.Grid(*args), T.Grid(*args)
     jphi = J.sample(jshapes.zalesak_sphere(), jg, J.Periodic(), dtype=jnp.float64)
-    tphi = T.sample(tshapes.zalesak_sphere(), tg, T.Periodic(), dtype=torch.float64)
+    tphi = T.sample(tshapes.zalesak_sphere(), tg, T.Periodic(), dtype=torch.float64,
+                    device="cpu")
     vel = rng.standard_normal((3, *SHAPE))
     vel[0, :, :, ::4] = 0.0  # tie cells
     aux = rng.standard_normal(SHAPE) if with_aux else None
@@ -173,7 +174,8 @@ def test_stage_plain_float32_matches_float64():
     of the f64 one (the scale the on-card kernel check uses)."""
     args = ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (12, 10, 14))
     g = T.Grid(*args)
-    phi = T.sample(tshapes.zalesak_sphere(), g, T.Periodic(), dtype=torch.float64)
+    phi = T.sample(tshapes.zalesak_sphere(), g, T.Periodic(), dtype=torch.float64,
+                   device="cpu")
     xs = tv2.node_coords(g.shape, g.spacing, g.lo, torch.float64)
     u = tv2.eval_components(_velf(xs, 0.0), g.shape, torch.float64, "cpu")
     P = tv2.pack_padded(phi.values, phi.bcs)
