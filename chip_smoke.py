@@ -19,27 +19,40 @@ exits non-zero):
              vs its plain version.
 6. k3      — stage backward (K3) in f32 vs the f64 autograd oracle of stage +
              refresh, in f64 vs its plain version, in f32 vs its plain version.
-7. k512    — K1 and K2 vs their plain versions at the main path's 512^3
+7. k6k7k8  — the band kernels vs their plain versions at 40x72x136, f32 and
+             f64: the active-tile stage (K6), the gated shell refresh (K7) on
+             five BC cases and three gate settings, the incremental re-tube
+             (K8) and the dispatch rebuilt from it.
+8. k512    — K1 and K2 vs their plain versions at the main path's 512^3
              shape, on its own inputs (Zalesak field, rotation velocity).
-8. k3_512  — K3 at 512^3 on the main path's inputs: a 64^3 sub-box vs the
+9. k3_512  — K3 at 512^3 on the main path's inputs: a 64^3 sub-box vs the
              f64 plain backward, the whole buffer finite; K4 and K5 bit for
              bit vs their plain versions at 512^3, on a random cotangent and
              on K3's dP.
-9. slice   — 64^3 Zalesak RK3 ``integrate``: CPU (plain) vs card (kernels).
-10. main   — the 512^3 Zalesak RK3 main path through
+10. band_512 — the band bench's 512^3 sphere band, a few FE steps through
+             K6-K8 and through their plain versions.
+11. slice  — 64^3 Zalesak RK3 ``integrate``: CPU (plain) vs card (kernels).
+12. main   — the 512^3 Zalesak RK3 main path through
              ``LevelSetEquation.integrate``, counting kernel launches.
-11. grad   — the gradient slice: ``value_and_grad`` of one fused FE step at
+13. grad   — the gradient slice: ``value_and_grad`` of one fused FE step at
              512^3 (streamed and callable velocity) with a 64^3 f64
              central-difference check, and of a 20-step RK3 ``rollout``
              under remat at 512^3, counting K1-K5 launches; remat and
              card-vs-CPU gradient checks at 64^3 (f64 max norm; f32
              relative L2 against the CPU's own 1-ulp spread).
-12. timing — CUDA-event medians at 512^3: K1-K5, the FE and RK3 steps
+14. band   — the band main path: ``integrate`` on the 512^3 sphere
+             ``NarrowBandField``, FE and RK3, counting K6-K8 launches; a
+             forced dispatch-list overflow; 64^3 card vs CPU.
+15. timing — CUDA-event medians at 512^3: K1-K5, the FE and RK3 steps
              through the kernels and through the plain versions, the
              end-to-end ``integrate`` time per step for FE and RK3, the two
              gradient cells, and the plain backward; peak memory of each.
-13. profile — ``torch.profiler`` over 3 RK3 steps of the main path: device
-             busy share of the wall time and device time by kernel.
+16. band_timing — K6-K8 alone, the band FE and RK3 steps (kernels and plain
+             versions), the band ``integrate`` per step at 512^3 and 768^3
+             beside the dense one at 768^3; peak memory of each.
+17. profile — ``torch.profiler`` over 3 RK3 steps of the main path, the two
+             gradient cells and 3 band FE and RK3 steps: device busy share of
+             the wall time and device time by kernel.
 
 The last two lines are the card (``nvidia-smi``) and a JSON verdict; the line
 before them holds the per-kernel JSON record: launches on the main paths,
@@ -61,9 +74,12 @@ import time
 import torch
 
 import lsm_tpu_torch as lsm
-from lsm_tpu_torch.integrators.fused import FusedStepper
+from lsm_tpu_torch.core.narrowband import box_dilate
+from lsm_tpu_torch.integrators.band_fused import FusedBandStepper, default_tiles
+from lsm_tpu_torch.integrators.fused import _STAGES, FusedStepper
 from lsm_tpu_torch.models import shapes
 from lsm_tpu_torch.ops import _build
+from lsm_tpu_torch.ops import band as bd
 from lsm_tpu_torch.ops import stencils as st
 from lsm_tpu_torch.ops import weno_v2 as v2
 from lsm_tpu_torch.ops import weno_v2_bwd as bwd
@@ -78,6 +94,11 @@ K3_TOL = 1e-3  # f32 kernel vs the f64 oracle, relative to max|ref|: the JAX on-
 K4_TOL = 1e-6  # relative to max(|ref|, 1)
 F32_L2_FACTOR = 4.0  # f32 card-vs-CPU rollout gradient, times the CPU's 1-ulp L2 spread
 VOL_TOL = 1e-3  # relative volume change over the main path's 10 RK3 steps
+BAND_SMALL = (40, 72, 136)  # the band kernels' parity grid (ragged last tile on axis 2)
+BAND_STEPS = 10  # the band main path: steps of integrate, FE and RK3
+BAND_CHECK_STEPS = 3  # the 512^3 band: kernels against plain versions
+BAND_TINY = 1024  # a dispatch list too small for the 512^3 band: integrate must regrow it
+N_BAND_XL = 768  # the band's winning regime: band and dense integrate at 768^3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 FP32_OPS_PER_S = 67e12
 # FP32 operations per interior cell, counted from the sources (a division
@@ -87,7 +108,10 @@ K1_OPS_PER_CELL = 3 * 88 + 5
 K3_OPS_PER_CELL = 3 * 202 + 1
 
 COUNTED = {"K1": v2.fused_stage, "K2": v2.refresh_ghosts_fast, "K3": bwd.stage_backward,
-           "K4": bwd.fold_ghost_cotangent_fast, "K5": bwd.zero_pad_shells}
+           "K4": bwd.fold_ghost_cotangent_fast, "K5": bwd.zero_pad_shells,
+           "K6": bd.band_stage, "K7": bd.refresh_band_ghosts_fast,
+           "K8": bd.band_retube_incremental}
+NONE_LAUNCHED = {name: 0 for name in COUNTED}
 
 
 def reset_counts():
@@ -512,7 +536,7 @@ def phase_main(dev, res):
                 f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not (steps == 10 and eq.last_fast_path == "fused" and finite and rel <= VOL_TOL
             and tuple(eq.state.values.shape) == grid.shape
-            and launches == {"K1": 3 * steps, "K2": 3 * steps, "K3": 0, "K4": 0, "K5": 0}):
+            and launches == dict(NONE_LAUNCHED, K1=3 * steps, K2=3 * steps)):
         raise AssertionError("main path check failed")
     res["launches"] = {"K1": launches["K1"], "K2": launches["K2"]}
     del eq, vel
@@ -594,8 +618,8 @@ def phase_grad(dev, res):
     loss_b, g_b = rollout_grad(phi, v, dt, ROLLOUT_STEPS, remat=True)
     torch.cuda.synchronize()
     counts = read_counts()
-    want = {"K1": 2 * 3 * ROLLOUT_STEPS, "K2": 2 * 3 * ROLLOUT_STEPS, "K3": 3 * ROLLOUT_STEPS,
-            "K4": 3 * ROLLOUT_STEPS, "K5": 2 * ROLLOUT_STEPS}
+    want = dict(NONE_LAUNCHED, K1=2 * 3 * ROLLOUT_STEPS, K2=2 * 3 * ROLLOUT_STEPS,
+                K3=3 * ROLLOUT_STEPS, K4=3 * ROLLOUT_STEPS, K5=2 * ROLLOUT_STEPS)
     ok_b = math.isfinite(loss_b.item()) and bool(torch.isfinite(g_b).all())
     log("grad", f"cell (b) {n}^3 f32 RK3 rollout x{ROLLOUT_STEPS} remat: loss={loss_b.item():.6e} "
                 f"max|dphi0|={float(g_b.abs().max()):.3e} finite={ok_b} launches={counts} "
@@ -655,20 +679,422 @@ class PlainStepper(FusedStepper):
         return v2.refresh_ghosts_plain(out, self.bcs, self.shape)
 
 
-def integrate_ms_per_step(term, phi, integrator, steps=10) -> float:
+def integrate_ms_per_step(term, phi, integrator, steps=10, path="fused") -> float:
     """End-to-end ms per accepted step of ``integrate``: the median over 20
-    calls of ``steps`` steps each (CFL bound, ``.item()`` sync, pack and
-    unpack included)."""
+    calls of ``steps`` steps each (CFL bound, its read-back, pack and unpack
+    included), on the fast path ``path``."""
     eq = lsm.LevelSetEquation(terms=term, ic=phi, integrator=integrator)
 
     def run():
         eq.integrate(eq.t + 1.0, max_steps=steps)
-        if eq.last_nsteps != steps or eq.last_fast_path != "fused":
+        if eq.last_nsteps != steps or eq.last_fast_path != path:
             raise AssertionError(f"integrate took {eq.last_nsteps} steps on "
-                                 f"{eq.last_fast_path}, not {steps} on fused")
+                                 f"{eq.last_fast_path}, not {steps} on {path}")
 
     eq.integrate(eq.t + 1.0, max_steps=2)  # warm-up
     return cuda_time(run, warmup=0) / steps
+
+
+# -- the narrow band (K6, K7, K8) ------------------------------------------------------
+
+
+def spin(xs, t):
+    """The band bench's rigid rotation about the z axis: (-y, x, 0)."""
+    x, y, z = xs
+    zero = 0.0 * (x + y + z)
+    return (-y + zero, x + zero, zero)
+
+
+def sphere_band(n, dev, dtype=torch.float32, center=(0.0, 0.0, 0.0), radius=0.5):
+    """The band bench's field: a sphere of radius 0.5 on [-1, 1]^3 with n^3
+    nodes, ``Extrapolation(2)``, a band of 3 layers."""
+    grid = lsm.Grid((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), (n, n, n))
+    phi = lsm.sample(shapes.sphere(center, radius), grid, lsm.Extrapolation(2),
+                     dtype=dtype, device=dev)
+    return lsm.NarrowBandField.from_field(phi)
+
+
+def combined(nb):
+    """The band stepper's uint8 combined mask (0 / 1 compute / 2 active)."""
+    return (nb.compute_mask.to(torch.uint8) + nb.mask.to(torch.uint8)).contiguous()
+
+
+def inside(shape, cells, dev):
+    """A padded-shape bool that is ``cells`` on the interior, False on the
+    shells."""
+    out = torch.zeros(v2.padded_shape(shape), dtype=torch.bool, device=dev)
+    v2.unpack_padded(out, shape).copy_(cells)
+    return out
+
+
+class PlainBandStepper(FusedBandStepper):
+    """The band stepper on the plain versions of K6, K7 and K8, to compare
+    with and to time on the card (``integrate`` never routes a CUDA tensor
+    there)."""
+
+    def stage(self, src, dst, state, coeffs, t_stage, aux):
+        bd.band_stage_plain(src, dst, state.ids, state.band, self.velocity(state, t_stage),
+                            coeffs, aux, self.spacing, self.shape, self.tiles)
+        return bd.refresh_band_ghosts_plain(dst, self.bcs, self.shape, state.flags)
+
+    def retube_tiles(self, cur, band, cids):
+        return bd.band_retube_plain(cur, band, cids, self.nlayers,
+                                    lsm.NarrowBandField.COMPUTE_HALO, self.shape, self.tiles)
+
+
+def phase_k6k7k8(dev, res):
+    """K6, K7 and K8 against their plain versions at BAND_SMALL, f32 and
+    f64, on a band that crosses tile boundaries, the ragged last tile of
+    axis 2 and the faces x = 0 and z = 1. K6: within K1's bound on the
+    compute band, bit for bit elsewhere (the source's value on the rest of a
+    dispatched tile, the target's previous value on every other tile and
+    every shell), streamed and callable, FE and with aux. K7: bit for bit on
+    K2's five BC cases with flags (1,1), (1,0), (0,0). K8: the mask, the
+    flags, the rebuilt activity, dispatch list and count, exactly; the mask
+    also against the full re-tube."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    halo = lsm.NarrowBandField.COMPUTE_HALO
+    worst6 = 0.0
+    for dtype, tol in ((torch.float32, K1_TOL), (torch.float64, 1e-12)):
+        grid = lsm.Grid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), BAND_SMALL)
+        phi = lsm.sample(shapes.sphere((0.1, 0.5, 0.9), 0.35), grid, lsm.Extrapolation(2),
+                         dtype=dtype, device=dev)
+        nb = lsm.NarrowBandField.from_field(phi)
+        shape, sp, tiles = grid.shape, grid.spacing, default_tiles(nb.nlayers)
+        band = combined(nb)
+        act = bd.tile_activity(band, tiles)
+        cap = int(act.sum()) + 5  # a few empty (-1) slots
+        ids, _ = bd.compact_ids(act, cap)
+        P = v2.pack_padded(nb.values, nb.bcs)
+        A = v2.pack_padded(nb.values + 0.01 * torch.randn(shape, generator=gen, device=dev,
+                                                          dtype=dtype), nb.bcs)
+        target = P + torch.randn(P.shape, generator=gen, device=dev, dtype=dtype)
+        disp = bd.dispatched_cells(ids, shape, tiles)
+        cm = band != 0
+        flat, _ = bd.tile_index(ids, shape, tiles)
+        stream = torch.randn((3, *shape), generator=gen, device=dev, dtype=dtype)
+        stream[1, :, ::3] = 0.0  # ties
+        streamed = tuple(stream[d].reshape(-1)[flat].contiguous() for d in range(3))
+        xs = bd.tile_coords(ids, shape, tiles, sp, grid.lo, dtype)
+        called = v2.eval_components(spin(xs, 0.0), (cap, *tiles), dtype, dev)
+        off_list = ~inside(shape, disp, dev)
+        for vname, u in (("streamed", streamed), ("callable", called)):
+            for aux, coeffs in ((None, (0.0, 1.0, 1e-3)), (A, (0.75, 0.25, 2.5e-4))):
+                got = bd.band_stage(P, target.clone(), ids, band, u, coeffs, aux, sp, shape,
+                                    tiles)
+                ref = bd.band_stage_plain(P, target.clone(), ids, band, u, coeffs, aux, sp,
+                                          shape, tiles)
+                torch.cuda.synchronize()
+                g, r = v2.unpack_padded(got, shape), v2.unpack_padded(ref, shape)
+                on = disp & cm
+                err = float((g - r)[on].abs().max())
+                scale = max(float(r[on].abs().max()), 1.0)
+                src_kept = torch.equal(g[disp & ~cm], v2.unpack_padded(P, shape)[disp & ~cm])
+                untouched = torch.equal(got[off_list], target[off_list])
+                ok = (bool(torch.isfinite(g).all()) and err <= tol * scale and src_kept
+                      and untouched)
+                log("k6k7k8", f"K6 {str(dtype)[6:]} {vname:8s} aux={aux is not None!s:5s} "
+                              f"tiles={tiles} slots={cap} max|kernel-plain|={err:.3e} "
+                              f"scale={scale:.3e} tol={tol:g}*scale source kept off the band: "
+                              f"{src_kept}, other tiles and shells untouched: {untouched}")
+                if not ok:
+                    raise AssertionError(f"K6 parity failed ({dtype}, {vname}, aux={aux is not None})")
+                if dtype == torch.float32:
+                    worst6 = max(worst6, err)
+        # K7 on K2's five BC cases
+        for name, bcs in bc_cases().items():
+            Q = v2.pack_padded(torch.randn(shape, generator=gen, device=dev, dtype=dtype), bcs)
+            shell = ~inside(shape, torch.ones(shape, dtype=torch.bool, device=dev), dev)
+            Q[shell] = torch.randn(int(shell.sum()), generator=gen, device=dev, dtype=dtype)
+            for flags in ((1, 1), (1, 0), (0, 0)):
+                f = torch.tensor(flags, dtype=torch.int32, device=dev)
+                got = bd.refresh_band_ghosts_fast(Q.clone(), bcs, shape, f)
+                ref = bd.refresh_band_ghosts_plain(Q.clone(), bcs, shape, f)
+                torch.cuda.synchronize()
+                same = torch.equal(got, ref)
+                kept = flags != (0, 0) or torch.equal(got, Q)
+                if not (same and kept):
+                    raise AssertionError(f"K7 differs from its plain version ({name}, {flags})")
+            log("k6k7k8", f"K7 {str(dtype)[6:]} {name:9s} flags (1,1) (1,0) (0,0): "
+                          f"kernel == plain bit for bit, (0,0) leaves the buffer as it was")
+        # K8 after the interface moved by about a cell
+        moved = lsm.sample(shapes.sphere((0.1 + 1.5 * sp[0], 0.5, 0.9), 0.35), grid,
+                           lsm.Extrapolation(2), dtype=dtype, device=dev)
+        Pm = v2.pack_padded(moved.values, nb.bcs)
+        total = act.numel()
+        cids, _ = bd.compact_ids(box_dilate(act, 1), total)
+        out = {}
+        for label, fn in (("kernel", bd.band_retube_incremental), ("plain", bd.band_retube_plain)):
+            b = band.clone()
+            flags = fn(Pm, b, cids, nb.nlayers, halo, shape, tiles)
+            new_act = bd.scatter_activity(act, cids, flags)
+            ids2, count2 = bd.compact_ids(new_act | act, cap + 64)
+            out[label] = (b, flags, new_act, ids2, count2)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(out["kernel"], out["plain"]))
+        full = bd.retube_full(moved.values, band, nb.nlayers, halo)
+        exact_full = torch.equal(out["kernel"][0], full)
+        changed = int((out["kernel"][0] != band).sum())
+        log("k6k7k8", f"K8 {str(dtype)[6:]} candidates={int((cids >= 0).sum())} of {total} "
+                      f"tiles, nodes changed={changed}: kernel == plain (mask, flags, activity, "
+                      f"ids, count) {same}; == full re-tube {exact_full}")
+        if not (same and exact_full and changed > 0):
+            raise AssertionError(f"K8 parity failed ({dtype})")
+    res["k6_err"], res["k7_err"], res["k8_err"] = worst6, 0.0, 0.0
+
+
+def run_band_stepper(cls, nb, integrator, dt, steps):
+    """``steps`` steps of ``cls`` (re-tubing every step) from ``nb``; the
+    stepper and its last state."""
+    stepper = cls((lsm.AdvectionTerm(spin),), nb, integrator)
+    state, t = stepper.pack(nb), 0.0
+    for _ in range(steps):
+        state = stepper.step(state, t, dt)
+        t += dt
+    if stepper.overflowed(state):
+        raise AssertionError("the band dispatch list overflowed")
+    return stepper, state
+
+
+def band_diff(a, b):
+    """``(max|a - b| where both compute bands agree, scale, active-mask
+    mismatches, compute-mask mismatches)`` of two band fields."""
+    dev = a.values.device
+    agree = a.compute_mask == b.compute_mask.to(dev)
+    d = (a.values.double() - b.values.to(dev).double())[agree]
+    return (float(d.abs().max()), max(float(b.values.abs().max()), 1.0),
+            int((a.mask != b.mask.to(dev)).sum()), int((~agree).sum()))
+
+
+def phase_band_512(dev, res):
+    """The band bench's configuration at 512^3 (f32, FE, dt = 0.25 h,
+    re-tube every step) through the kernels and through their plain
+    versions: values within K1's bound and equal masks after BAND_CHECK_STEPS
+    steps. Twice: the bench's sphere, centred on the rotation's axis (its
+    band does not move), and one off the axis that touches the face x = 1,
+    whose band moves (K8 changes nodes) and whose K7 gates are on."""
+    for label, center in (("centred", (0.0, 0.0, 0.0)), ("off-axis", (0.5, 0.0, 0.0))):
+        nb = sphere_band(N_MAIN, dev, center=center)
+        dt = 0.25 * nb.grid.min_spacing
+        reset_counts()
+        kst, kstate = run_band_stepper(FusedBandStepper, nb, lsm.ForwardEuler(), dt,
+                                       BAND_CHECK_STEPS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        pst, pstate = run_band_stepper(PlainBandStepper, nb, lsm.ForwardEuler(), dt,
+                                       BAND_CHECK_STEPS)
+        got, ref = kst.unpack(kstate), pst.unpack(pstate)
+        err, scale, dmask, dcmask = band_diff(got, ref)
+        finite = bool(torch.isfinite(got.values).all())
+        moved = int((got.mask != nb.mask).sum())
+        flags = kstate.flags.tolist()
+        log("band_512", f"{N_MAIN}^3 f32 sphere band {label} {center} FE x{BAND_CHECK_STEPS} "
+                        f"(dt = 0.25 h): compute-band cells {int(got.compute_mask.sum())}, "
+                        f"dispatched tiles {int(kstate.count)} of {kst.total} (tiles {kst.tiles}), "
+                        f"max|kernels-plain|={err:.3e} scale={scale:.3e} tol={K1_TOL:g}*scale, "
+                        f"mask mismatches {dmask} (compute {dcmask}), active-mask nodes changed "
+                        f"{moved}, launches {counts}, flags {flags}, finite={finite}")
+        want = dict(NONE_LAUNCHED, K6=BAND_CHECK_STEPS, K7=BAND_CHECK_STEPS, K8=BAND_CHECK_STEPS)
+        moving = label == "centred" or (moved > 0 and flags == [1, 1])
+        if not (finite and err <= K1_TOL * scale and dmask == 0 and dcmask == 0 and counts == want
+                and moving):
+            raise AssertionError(f"band kernels and plain versions disagree at 512^3 ({label})")
+        res["k6_err"] = max(res["k6_err"], err)
+        del nb, kst, kstate, pst, pstate, got, ref
+
+
+@contextlib.contextmanager
+def first_capacity(capacity):
+    """The first band stepper built inside the context gets ``capacity``
+    dispatch slots (the ones ``regrow`` builds keep theirs); yields the list
+    of the capacities built."""
+    made, init, first = [], FusedBandStepper.__init__, capacity
+
+    def patched(self, *a, capacity=None, **k):
+        init(self, *a, capacity=capacity if made else first, **k)
+        made.append(self.capacity)
+
+    FusedBandStepper.__init__ = patched
+    try:
+        yield made
+    finally:
+        FusedBandStepper.__init__ = init
+
+
+def band_integrate(nb, integrator, steps=None, tf=1.0):
+    eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(spin), ic=nb, integrator=integrator)
+    eq.integrate(tf, max_steps=steps)
+    return eq
+
+
+def phase_band(dev, res):
+    """The band main path: ``LevelSetEquation.integrate`` on a 512^3
+    ``NarrowBandField``, FE and RK3, BAND_STEPS steps each, counting
+    launches (K6 = K7 = stages x steps, K8 every step, nothing else); the
+    volume drift; a forced dispatch-list overflow that must regrow before
+    stepping and give the run without overflow; a 64^3 card-vs-CPU run."""
+    nb = sphere_band(N_MAIN, dev)
+    vol0 = float(lsm.volume(nb))
+    cells0 = int(nb.compute_mask.sum())
+    runs = {}
+    for name, integ in (("FE", lsm.ForwardEuler()), ("RK3", lsm.RK3())):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        eq = band_integrate(nb, integ, BAND_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        stages, steps = len(_STAGES[type(integ)]), eq.last_nsteps
+        want = dict(NONE_LAUNCHED, K6=stages * steps, K7=stages * steps, K8=steps)
+        finite = bool(torch.isfinite(eq.state.values).all())
+        rel = abs(float(eq.volume()) - vol0) / vol0
+        tiles = int(bd.tile_activity(eq.state.compute_mask, default_tiles()).sum())
+        log("band", f"{N_MAIN}^3 f32 sphere band {name}: steps={steps} t={eq.t:.6f} "
+                    f"path={eq.last_fast_path} launches={counts} compute-band cells "
+                    f"{cells0} -> {int(eq.state.compute_mask.sum())}, active tiles {tiles}, "
+                    f"volume rel change {rel:.2e} finite={finite} wall={wall:.3f}s")
+        if not (steps == BAND_STEPS and eq.last_fast_path == "band" and counts == want
+                and finite and rel <= VOL_TOL and isinstance(eq.state, lsm.NarrowBandField)):
+            raise AssertionError(f"band main path check failed ({name})")
+        runs[name] = eq
+        if name == "RK3":
+            res["launches"].update({k: counts[k] for k in ("K6", "K7", "K8")})
+    # a dispatch list far too small: regrown before the band is stepped
+    with first_capacity(BAND_TINY) as made:
+        eq = band_integrate(nb, lsm.ForwardEuler(), BAND_STEPS)
+    ref = runs["FE"]
+    same = torch.equal(eq.state.values, ref.state.values) and torch.equal(
+        eq.state.mask, ref.state.mask)
+    log("band", f"overflow: capacities built {made}, steps {eq.last_nsteps} vs "
+                f"{ref.last_nsteps}, same state as without overflow: {same}")
+    if not (made[0] == BAND_TINY and len(made) > 1 and same
+            and eq.last_nsteps == ref.last_nsteps):
+        raise AssertionError("the overflowing band run differs from the one without")
+    del runs, eq, ref, nb
+    # 64^3: the card (kernels) against the CPU (plain versions), on a sphere
+    # off the rotation's axis whose band moves, re-tubes and reaches the face
+    # x = 1 (so K7's gates fire)
+    for dtype in (torch.float32, torch.float64):
+        out = {}
+        for where in ("cpu", dev):
+            nb = sphere_band(N_SMALL, where, dtype, center=(0.5, 0.0, 0.0), radius=0.4)
+            eq = band_integrate(nb, lsm.RK3(), tf=0.2)
+            out[str(where)] = eq
+        moved = int((eq.state.mask != nb.mask).sum())
+        a, b = out[str(dev)], out["cpu"]
+        err, scale, dmask, dcmask = band_diff(a.state, b.state)
+        log("band", f"{N_SMALL}^3 {str(dtype)[6:]} RK3 card vs CPU: steps {a.last_nsteps}/"
+                    f"{b.last_nsteps} paths {a.last_fast_path}/{b.last_fast_path} "
+                    f"max|card-cpu|={err:.3e} (tol 1e-4) mask mismatches {dmask} "
+                    f"(compute {dcmask}); the band moved: {moved} nodes changed")
+        masks_ok = dtype == torch.float32 or (dmask == 0 and dcmask == 0)
+        if not (a.last_nsteps == b.last_nsteps and a.last_fast_path == b.last_fast_path == "band"
+                and err <= 1e-4 and masks_ok and moved > 0):
+            raise AssertionError(f"band card-vs-CPU check failed ({dtype})")
+        res[f"band_mask_mismatch_{str(dtype)[6:]}"] = dmask
+    # rollout on a band: the band stepper forward on the card, the general
+    # path on the CPU; a gradient through the card's band rollout is refused
+    term = (lsm.AdvectionTerm(spin),)
+    outs = {}
+    for where in ("cpu", dev):
+        nb = sphere_band(N_SMALL, where, torch.float64, center=(0.5, 0.0, 0.0), radius=0.4)
+        dt = 0.25 * nb.grid.min_spacing
+        outs[str(where)] = lsm.rollout(lsm.RK3(), term, nb, 0.0, dt, 3)[0]
+    err, scale, dmask, dcmask = band_diff(outs[str(dev)], outs["cpu"])
+    try:
+        v = nb.values.clone().requires_grad_()
+        lsm.rollout(lsm.RK3(), term, nb.with_values(v, mask_update=False), 0.0, dt, 3)
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    log("band", f"{N_SMALL}^3 f64 RK3 rollout x3, card (band stepper) vs CPU (general path): "
+                f"max|diff|={err:.3e} scale={scale:.3e} (tol 1e-10*scale) mask mismatches "
+                f"{dmask} (compute {dcmask}); with a gradient: {refused!r}")
+    if not (err <= 1e-10 * scale and dmask == dcmask == 0 and "band backward" in refused):
+        raise AssertionError("band rollout check failed")
+
+
+def phase_band_timing(dev, res):
+    """CUDA-event medians: K6, K7 (flags on and off) and K8 alone at 512^3
+    on the band main path's state, and their plain versions; the band FE
+    and RK3 stepper step (per layer) through the kernels and the plain
+    versions; the end-to-end ``integrate`` ms per step on the band at 512^3
+    (FE, RK3) and at 768^3 (FE) beside the dense FE ``integrate`` at 768^3;
+    peak memory of each."""
+    t, mem, n = res["t"], {}, N_MAIN
+    nb = sphere_band(n, dev)
+    shape, sp, halo = nb.shape, nb.grid.spacing, lsm.NarrowBandField.COMPUTE_HALO
+    dt = 0.25 * nb.grid.min_spacing
+    fe = FusedBandStepper((lsm.AdvectionTerm(spin),), nb, lsm.ForwardEuler())
+    state = fe.pack(nb)
+    P, out = state.bufs
+    u = fe.velocity(state, 0.0)
+    coeffs = (0.0, 1.0, dt)
+    t["K6"] = cuda_time(lambda: bd.band_stage(P, out, state.ids, state.band, u, coeffs, None, sp,
+                                              shape, fe.tiles))
+    t["K6_plain"] = cuda_time(lambda: bd.band_stage_plain(
+        P, out, state.ids, state.band, u, coeffs, None, sp, shape, fe.tiles), warmup=1, reps=5)
+    on = torch.ones(2, dtype=torch.int32, device=dev)
+    off = torch.zeros(2, dtype=torch.int32, device=dev)
+    t["K7"] = cuda_time(lambda: bd.refresh_band_ghosts_fast(P, nb.bcs, shape, on))
+    t["K7_off"] = cuda_time(lambda: bd.refresh_band_ghosts_fast(P, nb.bcs, shape, off))
+    t["K7_plain"] = cuda_time(lambda: bd.refresh_band_ghosts_plain(P, nb.bcs, shape, on))
+    cids, _ = bd.compact_ids(box_dilate(state.act, 1), fe.total)
+    band = state.band.clone()
+    t["K8"] = cuda_time(lambda: bd.band_retube_incremental(P, band, cids, nb.nlayers, halo,
+                                                           shape, fe.tiles))
+    t["K8_plain"] = cuda_time(lambda: bd.band_retube_plain(P, band, cids, nb.nlayers, halo,
+                                                           shape, fe.tiles), warmup=1, reps=5)
+    # what each call must move and compute, from this state
+    flat, valid = bd.tile_index(state.ids, shape, fe.tiles)
+    dispatched = int(valid.sum())
+    ops_cells = int(((state.band.view(-1)[flat] != 0) & valid).sum())
+    cand = bd.dispatched_cells(cids, shape, fe.tiles)
+    reach = lsm.NarrowBandField.COMPUTE_HALO + nb.nlayers + 2
+    res["band_work"] = {"dispatched": dispatched, "ops_cells": ops_cells,
+                        "cand_cells": int(cand.sum()),
+                        "cand_reach_cells": int(box_dilate(cand, reach).sum()),
+                        "ghosts": (n + 6) ** 3 - n ** 3}
+    log("band_timing", f"{n}^3 band state: dispatched tiles {int(state.count)} "
+                       f"({dispatched} nodes), compute-band nodes {ops_cells}, K8 candidates "
+                       f"{int((cids >= 0).sum())} ({res['band_work']['cand_cells']} nodes, "
+                       f"{res['band_work']['cand_reach_cells']} within its reach)")
+    del cand, flat, valid, band
+    for name, integ in (("FE", lsm.ForwardEuler()), ("RK3", lsm.RK3())):
+        for label, cls in (("", FusedBandStepper), ("_plain", PlainBandStepper)):
+            st_ = cls((lsm.AdvectionTerm(spin),), nb, integ)
+            s0 = st_.pack(nb)
+            key = f"band_{name}_step{label}"
+            t[key] = cuda_time(lambda: st_.step(s0, 0.0, dt), **(
+                {"warmup": 1, "reps": 5} if label else {}))
+            mem[key] = peak_gib(lambda: st_.step(s0, 0.0, dt))
+            del st_, s0
+        key = f"band_{name}_integrate@{n}"
+        t[key] = integrate_ms_per_step(lsm.AdvectionTerm(spin), nb, integ, path="band")
+        mem[key] = peak_gib(lambda: band_integrate(nb, integ, 10))
+    del nb, state, P, out, u, fe
+    torch.cuda.empty_cache()
+    # 768^3: the band against the dense path, FE, the same sphere and rotation
+    nx = N_BAND_XL
+    nb = sphere_band(nx, dev)
+    t[f"band_FE_integrate@{nx}"] = integrate_ms_per_step(lsm.AdvectionTerm(spin), nb,
+                                                         lsm.ForwardEuler(), path="band")
+    mem[f"band_FE_integrate@{nx}"] = peak_gib(lambda: band_integrate(nb, lsm.ForwardEuler(), 10))
+    dense = lsm.MeshField(nb.values, nb.grid, nb.bcs)
+    del nb
+    torch.cuda.empty_cache()
+    t[f"dense_FE_integrate@{nx}"] = integrate_ms_per_step(lsm.AdvectionTerm(spin), dense,
+                                                          lsm.ForwardEuler())
+    mem[f"dense_FE_integrate@{nx}"] = peak_gib(lambda: lsm.LevelSetEquation(
+        terms=lsm.AdvectionTerm(spin), ic=dense, integrator=lsm.ForwardEuler()).integrate(
+            1.0, max_steps=10))
+    del dense
+    torch.cuda.empty_cache()
+    for name in [k for k in t if k.startswith(("K6", "K7", "K8", "band", "dense"))]:
+        log("band_timing", f"f32 {name:26s} median {t[name]:.4f} ms")
+    log("band_timing", "peak memory: " + ", ".join(f"{k} {v:.2f} GiB" for k, v in mem.items()))
+    res["mem"].update(mem)
 
 
 def phase_timing(dev, res):
@@ -850,6 +1276,12 @@ def phase_profile(dev, res):
     del velv
     profile_window(f"cell (b), {ROLLOUT_STEPS} steps at {N_MAIN}^3",
                    lambda: rollout_grad(phi, phiv, dt, ROLLOUT_STEPS, remat=True))
+    del phiv, phi, vel
+    nb = sphere_band(N_MAIN, dev)
+    for name, integ in (("FE", lsm.ForwardEuler()), ("RK3", lsm.RK3())):
+        eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(spin), ic=nb, integrator=integ)
+        profile_window(f"3 band {name} steps at {N_MAIN}^3",
+                       lambda: eq.integrate(eq.t + 1.0, max_steps=3))
 
 
 def main() -> int:
@@ -869,9 +1301,11 @@ def main() -> int:
             log("build", line.strip())
     res = {}
     for name, run in (("device", phase_device), ("k2", phase_k2), ("k1", phase_k1),
-                      ("k4k5", phase_k4k5), ("k3", phase_k3), ("k512", phase_k512),
-                      ("k3_512", phase_k3_512), ("slice", phase_slice), ("main", phase_main),
-                      ("grad", phase_grad), ("timing", phase_timing),
+                      ("k4k5", phase_k4k5), ("k3", phase_k3), ("k6k7k8", phase_k6k7k8),
+                      ("k512", phase_k512), ("k3_512", phase_k3_512),
+                      ("band_512", phase_band_512), ("slice", phase_slice),
+                      ("main", phase_main), ("grad", phase_grad), ("band", phase_band),
+                      ("timing", phase_timing), ("band_timing", phase_band_timing),
                       ("profile", phase_profile)):
         t0 = time.perf_counter()
         run(dev, res)
@@ -891,6 +1325,7 @@ def kernel_records(res):
     cells, padded, ghosts = n ** 3, (n + 6) ** 3, (n + 6) ** 3 - n ** 3
     f32 = 4
     k3_plain_n = res["K3_plain_n"]
+    work = res["band_work"]
     rows = [
         ("K1 fused_stage (WENO5 advection RK stage)", "weno_stage.cu",
          "lsm_tpu/ops/weno_v2.py:667", "K1", res["k1_err"], t["K1"], t["K1_plain"],
@@ -912,6 +1347,21 @@ def kernel_records(res):
         ("K5 zero_pad_shells (ghost-shell zeroing)", "fold_ghosts.cu",
          "lsm_tpu/ops/weno_v2_bwd.py:293", "K5", res["k5_err"], t["K5"], t["K5_plain"],
          bound(f32 * ghosts, 0), t["K5_library"]),
+        ("K6 band_stage (WENO5 advection RK stage over the active tiles)", "band_stage.cu",
+         "lsm_tpu/ops/band_pallas.py:612", "K6", res["k6_err"], t["K6"], t["K6_plain"],
+         # per dispatched node: P's centre and the mask read, the output
+         # written; on the compute band only, the 3 tile-packed velocity
+         # components read and WENO5 computed (the timed call has no aux)
+         bound((f32 * 2 + 1) * work["dispatched"] + 3 * f32 * work["ops_cells"],
+               K1_OPS_PER_CELL * work["ops_cells"]), None),
+        ("K7 refresh_band_ghosts_fast (gated ghost-shell refresh, flags on)",
+         "refresh_ghosts.cu", "lsm_tpu/ops/band_pallas.py:187", "K7", res["k7_err"], t["K7"],
+         t["K7_plain"], bound(f32 * 2 * work["ghosts"], 0), None),
+        ("K8 band_retube_incremental (re-tube of the candidate tiles)", "band_retube.cu",
+         "lsm_tpu/ops/band_pallas.py:1185", "K8", res["k8_err"], t["K8"], t["K8_plain"],
+         # phi and the mask read within the re-tube's reach of the
+         # candidate tiles, the new mask written on them
+         bound((f32 + 1) * work["cand_reach_cells"] + work["cand_cells"], 0), None),
     ]
     out = []
     for name, src, replaces, key, err, ms, plain_ms, (bound_ms, bound_by), lib_ms in rows:
@@ -921,6 +1371,8 @@ def kernel_records(res):
                "library_ms": lib_ms}
         if key == "K3":
             rec["plain_grid"] = f"{k3_plain_n}^3"
+        if key == "K7":  # the 512^3 band stays off the faces: the main path's K7 is gated off
+            rec["ms_flags_off"] = t["K7_off"]
         out.append(rec)
     if not all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in out):
         raise AssertionError("a kernel was not measured or not launched on the main path")

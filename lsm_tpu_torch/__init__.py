@@ -11,8 +11,11 @@ The ported slices are the dense 3D WENO5 advection path (``Grid``, BCs,
 through the stage kernel K1 and the ghost-refresh kernel K2) and its
 gradient: ``rollout`` differentiates through the same stepper, whose
 backward runs the stage-adjoint kernel K3, the ghost-cotangent fold K4 and
-the shell zeroing K5. Tensors go to the card unless the caller asks for the
-CPU (``device="cpu"``).
+the shell zeroing K5; and the narrow band: ``integrate`` on a
+``NarrowBandField`` runs the band stepper, whose cost follows the interface,
+through the active-tile stage K6, the gated shell refresh K7 and the
+incremental re-tube K8 (``last_fast_path == "band"``). Tensors go to the
+card unless the caller asks for the CPU (``device="cpu"``).
 """
 
 from .core.grid import Grid
@@ -26,6 +29,7 @@ from .core.bc import (
     normalize_bcs,
 )
 from .core.field import MeshField, sample
+from .core.narrowband import NarrowBandField
 from .terms.terms import AdvectionTerm, compute_cfl
 from .integrators.explicit import ForwardEuler, RK2, RK3, TimeIntegrator
 from .integrators.loop import evolve, rollout, step
@@ -45,6 +49,7 @@ __all__ = [
     "normalize_bcs",
     "MeshField",
     "sample",
+    "NarrowBandField",
     "AdvectionTerm",
     "compute_cfl",
     "ForwardEuler",

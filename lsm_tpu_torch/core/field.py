@@ -55,6 +55,17 @@ class MeshField:
     def has_bcs(self) -> bool:
         return self.bcs is not None
 
+    @property
+    def active_mask(self):
+        """Boolean active-node mask, or ``None`` when every node is active
+        (a dense field; a :class:`~lsm_tpu_torch.core.narrowband.NarrowBandField`
+        returns its band)."""
+        return None
+
+    def update_band(self) -> "MeshField":
+        """Re-tube the narrow band; a no-op on a dense field."""
+        return self
+
     def with_bcs(self, bc, *, replace: bool = False) -> "MeshField":
         """Return a copy with boundary conditions attached."""
         if self.bcs is not None and not replace:

@@ -1,0 +1,115 @@
+// K6: one fused RK stage of WENO5 advection over an active-tile dispatch list.
+//
+// Replaces the TPU kernel lsm_tpu/ops/band_pallas.py `band_stage` (body
+// `_make_band_kernel`). For every node of each dispatched tile it writes,
+// into the ping-pong target `out`,
+//   alpha*aux + beta*phi - gamma*u.grad(phi)   where the combined band mask
+//                                              is nonzero (compute band),
+//   phi (the source's own value)               elsewhere in the tile.
+// Tiles not on the list are left as they are: off-band cells are frozen in
+// every buffer, which is what makes that correct. The per-node stage is
+// lsm::stage_value (weno5.cuh), K1's own, so the two cannot drift.
+//
+// Layout: P, aux and out are padded (n0+6, n1+6, n2+6) buffers; `band` is
+// the interior-shaped uint8 combined mask (0 outside, 1 compute band only, 2
+// active band); the velocity is tile-packed, (capacity, B0, B1, B2), indexed
+// by dispatch slot. `ids` holds flat tile ids (row-major over the tile grid
+// G0 x G1 x G2) or -1 for an empty slot. Ragged edge tiles are masked.
+//
+// Design: one block per dispatch slot (grid = capacity); an empty slot
+// exits at once. Threads walk the tile's nodes with the contiguous axis
+// fastest, so a warp reads and writes neighbouring elements; stencils come
+// from device memory through L1/L2, as in K1. Bound: per dispatched node,
+// phi's centre and the mask byte read and the output written; on the
+// compute band only, the 3 velocity components (and aux on later RK stages)
+// read. Shared-memory tiles and fewer launches per stage are later work.
+
+#include <cuda_runtime.h>
+
+#include "lsm_kernels.h"
+#include "weno5.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    band_stage_kernel(const T* __restrict__ P, const T* __restrict__ u0,
+                      const T* __restrict__ u1, const T* __restrict__ u2,
+                      const T* __restrict__ aux, T* __restrict__ out,
+                      const uint8_t* __restrict__ band, const int32_t* __restrict__ ids,
+                      int64_t n0, int64_t n1, int64_t n2, int B0, int B1, int B2, int G1,
+                      int G2, T inv_h0, T inv_h1, T inv_h2, T alpha, T beta, T gamma) {
+  const int32_t tid = ids[blockIdx.x];
+  if (tid < 0) return;
+  const int64_t ti = tid / (G1 * G2);
+  const int64_t tj = (tid / G2) % G1;
+  const int64_t tk = tid % G2;
+  const int64_t s1 = n2 + 2 * LSM_GHOST;
+  const int64_t s0 = (n1 + 2 * LSM_GHOST) * s1;
+  const int tile = B0 * B1 * B2;
+  const int64_t slot = static_cast<int64_t>(blockIdx.x) * tile;
+  for (int e = threadIdx.x; e < tile; e += kThreads) {
+    const int c2 = e % B2;
+    const int r = e / B2;
+    const int c1 = r % B1;
+    const int c0 = r / B1;
+    const int64_t i = ti * B0 + c0;
+    const int64_t j = tj * B1 + c1;
+    const int64_t k = tk * B2 + c2;
+    if (i >= n0 || j >= n1 || k >= n2) continue;
+    const int64_t c = (i + LSM_GHOST) * s0 + (j + LSM_GHOST) * s1 + (k + LSM_GHOST);
+    const int64_t q = (i * n1 + j) * n2 + k;
+    T v;
+    if (band[q] != 0) {
+      const int64_t p = slot + e;
+      v = lsm::stage_value(P, aux, c, s0, s1, u0[p], u1[p], u2[p], inv_h0, inv_h1, inv_h2,
+                           alpha, beta, gamma);
+    } else {
+      v = P[c];
+    }
+    out[c] = v;
+  }
+}
+
+template <typename T>
+int launch_band_stage(const void* P, const void* u0, const void* u1, const void* u2,
+                      const void* aux, void* out, const void* band, const void* ids,
+                      int64_t capacity, int64_t n0, int64_t n1, int64_t n2, int64_t B0,
+                      int64_t B1, int64_t B2, double inv_h0, double inv_h1, double inv_h2,
+                      double alpha, double beta, double gamma, void* stream) {
+  if (capacity <= 0) return 0;
+  const int G1 = static_cast<int>((n1 + B1 - 1) / B1);
+  const int G2 = static_cast<int>((n2 + B2 - 1) / B2);
+  band_stage_kernel<T><<<static_cast<unsigned>(capacity), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(P), static_cast<const T*>(u0), static_cast<const T*>(u1),
+      static_cast<const T*>(u2), static_cast<const T*>(aux), static_cast<T*>(out),
+      static_cast<const uint8_t*>(band), static_cast<const int32_t*>(ids), n0, n1, n2,
+      static_cast<int>(B0), static_cast<int>(B1), static_cast<int>(B2), G1, G2, T(inv_h0),
+      T(inv_h1), T(inv_h2), T(alpha), T(beta), T(gamma));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int lsm_band_stage_f32(const void* P, const void* u0, const void* u1,
+                                  const void* u2, const void* aux, void* out, const void* band,
+                                  const void* ids, int64_t capacity, int64_t n0, int64_t n1,
+                                  int64_t n2, int64_t B0, int64_t B1, int64_t B2, double inv_h0,
+                                  double inv_h1, double inv_h2, double alpha, double beta,
+                                  double gamma, void* stream) {
+  return launch_band_stage<float>(P, u0, u1, u2, aux, out, band, ids, capacity, n0, n1, n2, B0,
+                                  B1, B2, inv_h0, inv_h1, inv_h2, alpha, beta, gamma, stream);
+}
+
+extern "C" int lsm_band_stage_f64(const void* P, const void* u0, const void* u1,
+                                  const void* u2, const void* aux, void* out, const void* band,
+                                  const void* ids, int64_t capacity, int64_t n0, int64_t n1,
+                                  int64_t n2, int64_t B0, int64_t B1, int64_t B2, double inv_h0,
+                                  double inv_h1, double inv_h2, double alpha, double beta,
+                                  double gamma, void* stream) {
+  return launch_band_stage<double>(P, u0, u1, u2, aux, out, band, ids, capacity, n0, n1, n2, B0,
+                                   B1, B2, inv_h0, inv_h1, inv_h2, alpha, beta, gamma, stream);
+}

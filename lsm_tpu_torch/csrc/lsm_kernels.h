@@ -87,6 +87,49 @@ int lsm_fold_ghosts_f64(void* g, int64_t n0, int64_t n1, int64_t n2, const int* 
 int lsm_zero_shells_f32(void* buf, int64_t n0, int64_t n1, int64_t n2, void* stream);
 int lsm_zero_shells_f64(void* buf, int64_t n0, int64_t n1, int64_t n2, void* stream);
 
+/* K6: K1's stage over an active-tile dispatch list (csrc/band_stage.cu).
+ * P, aux (may be NULL), out: padded buffers; out is written only on the
+ * tiles of the list: where the combined mask `band` (uint8, interior-shaped,
+ * 0/1/2) is nonzero with the stage, elsewhere in the tile with P's value.
+ * ids: int32[capacity] flat tile ids over the tile grid ceil(n/B) (row-major)
+ * or -1. u0..u2: tile-packed velocity (capacity, B0, B1, B2), by slot. One
+ * launch of `capacity` blocks. */
+int lsm_band_stage_f32(const void* P, const void* u0, const void* u1, const void* u2,
+                       const void* aux, void* out, const void* band, const void* ids,
+                       int64_t capacity, int64_t n0, int64_t n1, int64_t n2, int64_t B0,
+                       int64_t B1, int64_t B2, double inv_h0, double inv_h1, double inv_h2,
+                       double alpha, double beta, double gamma, void* stream);
+int lsm_band_stage_f64(const void* P, const void* u0, const void* u1, const void* u2,
+                       const void* aux, void* out, const void* band, const void* ids,
+                       int64_t capacity, int64_t n0, int64_t n1, int64_t n2, int64_t B0,
+                       int64_t B1, int64_t B2, double inv_h0, double inv_h1, double inv_h2,
+                       double alpha, double beta, double gamma, void* stream);
+
+/* K7: K2 gated on the device (csrc/refresh_ghosts.cu). flags: int32[2] in
+ * device memory; flags[0] == 0 skips the axis-0 and axis-1 launches,
+ * flags[1] == 0 the axis-2 launch. Other arguments as for K2. */
+int lsm_refresh_band_ghosts_f32(void* P, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
+                                const int* degrees, const double* weights, const void* flags,
+                                void* stream);
+int lsm_refresh_band_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
+                                const int* degrees, const double* weights, const void* flags,
+                                void* stream);
+
+/* K8: incremental re-tube over a candidate tile list (csrc/band_retube.cu).
+ * P: padded phi; band: the combined uint8 mask, updated in place on the
+ * candidate tiles; cand: int32[ncand] tile ids or -1; stash: uint8
+ * [ncand * B0*B1*B2] device scratch; flags: int32[ncand], set to 1 where the
+ * new tile holds a band node. Two launches (A: recompute into the stash; B:
+ * copy back). lsm_band_retube_smem gives launch A's shared memory in bytes. */
+int64_t lsm_band_retube_smem(int64_t B0, int64_t B1, int64_t B2, int64_t nlayers,
+                             int64_t chalo);
+int lsm_band_retube_f32(const void* P, void* band, const void* cand, void* stash, void* flags,
+                        int64_t ncand, int64_t n0, int64_t n1, int64_t n2, int64_t B0,
+                        int64_t B1, int64_t B2, int64_t nlayers, int64_t chalo, void* stream);
+int lsm_band_retube_f64(const void* P, void* band, const void* cand, void* stash, void* flags,
+                        int64_t ncand, int64_t n0, int64_t n1, int64_t n2, int64_t B0,
+                        int64_t B1, int64_t B2, int64_t nlayers, int64_t chalo, void* stream);
+
 /* Human-readable name of a CUDA error code returned above. */
 const char* lsm_error_string(int code);
 

@@ -19,6 +19,15 @@
 //
 // Bound: it touches only the shells, O(N^2): about 6 * 518^2 nodes per axis at
 // 512^3, a few MB of traffic, so launch latency dominates.
+//
+// K7 (lsm_refresh_band_ghosts_*) replaces the TPU kernel
+// lsm_tpu/ops/band_pallas.py `refresh_band_ghosts_fast` (kernel01, kernel2)
+// on the band path, whose buffers share this uniform 3-ghost layout. It is
+// the same three launches, each gated on the device by an int32 flag: the
+// axis-0 and axis-1 launches return at once when flags[0] == 0, the axis-2
+// launch when flags[1] == 0 (no host read, and a skipped phase leaves the
+// buffer bit-identical). A shell changes only when an active tile touches
+// its face, so a band that stays inside the grid skips the whole refresh.
 
 #include <cuda_runtime.h>
 
@@ -50,7 +59,9 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     refresh_axis_kernel(T* __restrict__ P, int64_t n, int64_t stride,
                         int64_t a_lo, int64_t a_cnt, int64_t a_stride, int64_t b_lo,
-                        int64_t b_cnt, int64_t b_stride, int ghost_fastest, AxisBC bc) {
+                        int64_t b_cnt, int64_t b_stride, int ghost_fastest, AxisBC bc,
+                        const int* __restrict__ gate) {
+  if (gate != nullptr && *gate == 0) return;
   const int64_t total = 2 * LSM_GHOST * a_cnt * b_cnt;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= total) return;
@@ -96,7 +107,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int launch_refresh(void* P_, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
-                   const int* degrees, const double* weights, void* stream_) {
+                   const int* degrees, const double* weights, const int* flags,
+                   void* stream_) {
   T* P = static_cast<T*>(P_);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const int64_t n[3] = {n0, n1, n2};
@@ -124,7 +136,8 @@ int launch_refresh(void* P_, int64_t n0, int64_t n1, int64_t n2, const int* kind
     const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
     refresh_axis_kernel<T><<<blocks, kThreads, 0, stream>>>(
         P, n[axis], stride[axis], a_lo, a_cnt, stride[oa], b_lo, b_cnt, stride[ob],
-        axis == 2 ? 1 : 0, bc);
+        axis == 2 ? 1 : 0, bc,
+        flags == nullptr ? nullptr : flags + (axis == 2 ? 1 : 0));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -136,11 +149,27 @@ int launch_refresh(void* P_, int64_t n0, int64_t n1, int64_t n2, const int* kind
 extern "C" int lsm_refresh_ghosts_f32(void* P, int64_t n0, int64_t n1, int64_t n2,
                                       const int* kinds, const int* degrees,
                                       const double* weights, void* stream) {
-  return launch_refresh<float>(P, n0, n1, n2, kinds, degrees, weights, stream);
+  return launch_refresh<float>(P, n0, n1, n2, kinds, degrees, weights, nullptr, stream);
 }
 
 extern "C" int lsm_refresh_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n2,
                                       const int* kinds, const int* degrees,
                                       const double* weights, void* stream) {
-  return launch_refresh<double>(P, n0, n1, n2, kinds, degrees, weights, stream);
+  return launch_refresh<double>(P, n0, n1, n2, kinds, degrees, weights, nullptr, stream);
+}
+
+extern "C" int lsm_refresh_band_ghosts_f32(void* P, int64_t n0, int64_t n1, int64_t n2,
+                                           const int* kinds, const int* degrees,
+                                           const double* weights, const void* flags,
+                                           void* stream) {
+  return launch_refresh<float>(P, n0, n1, n2, kinds, degrees, weights,
+                               static_cast<const int*>(flags), stream);
+}
+
+extern "C" int lsm_refresh_band_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n2,
+                                           const int* kinds, const int* degrees,
+                                           const double* weights, const void* flags,
+                                           void* stream) {
+  return launch_refresh<double>(P, n0, n1, n2, kinds, degrees, weights,
+                                static_cast<const int*>(flags), stream);
 }

@@ -1,0 +1,103 @@
+// Per-node WENO5 advection stage, shared by K1 (weno_stage.cu) and K6
+// (band_stage.cu) so that the dense and the band stage cannot drift apart.
+//
+// Arithmetic follows lsm_tpu/ops/stencils.py `weno5_upwind` /
+// `_weno_combine` term by term: the five stencil inputs are selected by the
+// sign of u (u == 0 takes the plus branch), one Jiang-Shu core runs, and the
+// weights use the one-division form.
+#ifndef LSM_WENO5_CUH
+#define LSM_WENO5_CUH
+
+#include <stdint.h>
+
+namespace lsm {
+
+template <typename T>
+struct WenoFloor;
+template <>
+struct WenoFloor<float> {
+  static __device__ __forceinline__ float value() { return 1.0e-12f; }
+};
+template <>
+struct WenoFloor<double> {
+  static __device__ __forceinline__ double value() { return 1.0e-36; }
+};
+
+template <typename T>
+__device__ __forceinline__ T max2(T a, T b) {
+  return a > b ? a : b;
+}
+
+// u * WENO5 upwind derivative from the six backward differences dm[0..5]
+// (D- at I-2 .. I+3), as stencils.weno5_upwind.
+template <typename T>
+__device__ __forceinline__ T weno5_upwind(const T* dm, T u) {
+  const bool cond = u > T(0);
+  const T v1 = cond ? dm[0] : dm[5];
+  const T v2 = cond ? dm[1] : dm[4];
+  const T v3 = cond ? dm[2] : dm[3];
+  const T v4 = cond ? dm[3] : dm[2];
+  const T v5 = cond ? dm[4] : dm[1];
+  const T e2 = v3 - v2;
+  const T e3 = v4 - v3;
+  const T c1 = e2 - (v2 - v1);
+  const T c2 = e3 - e2;
+  const T c3 = (v5 - v4) - e3;
+  const T d1 = v3 + T(0.5) * e2 + T(1.0 / 3.0) * c1;
+  const T d2 = v3 + T(0.5) * e3 - T(1.0 / 6.0) * c2;
+  const T d3 = v3 + T(0.5) * e3 - T(1.0 / 6.0) * c3;
+  const T c13 = T(13.0 / 12.0);
+  const T t1 = c1 + T(2.0) * e2;
+  const T t2 = e2 + e3;
+  const T t3 = c3 - T(2.0) * e3;
+  const T s1 = c13 * (c1 * c1) + T(0.25) * (t1 * t1);
+  const T s2 = c13 * (c2 * c2) + T(0.25) * (t2 * t2);
+  const T s3 = c13 * (c3 * c3) + T(0.25) * (t3 * t3);
+  const T vmax = max2(max2(max2(v1 * v1, v2 * v2), max2(v3 * v3, v4 * v4)), v5 * v5);
+  const T eps = T(1.0e-6) * vmax + WenoFloor<T>::value();
+  const T r = T(1.0) / eps;
+  const T b1 = s1 * r + T(1.0);
+  const T b2 = s2 * r + T(1.0);
+  const T b3 = s3 * r + T(1.0);
+  const T p1 = b2 * b3;
+  const T p2 = b1 * b3;
+  const T p3 = b1 * b2;
+  const T q1 = T(0.1) * (p1 * p1);
+  const T q2 = T(0.6) * (p2 * p2);
+  const T q3 = T(0.3) * (p3 * p3);
+  const T w = T(1.0) / (q1 + q2 + q3);
+  return u * ((q1 * d1 + q2 * d2 + q3 * d3) * w);
+}
+
+// u * WENO5 along the axis with element stride `stride`, centred at `c`.
+template <typename T>
+__device__ __forceinline__ T axis_term(const T* __restrict__ P, int64_t c, int64_t stride,
+                                       T inv_h, T u) {
+  T s[7];
+#pragma unroll
+  for (int m = 0; m < 7; ++m) s[m] = P[c + (m - 3) * stride];
+  T dm[6];
+#pragma unroll
+  for (int m = 0; m < 6; ++m) dm[m] = (s[m + 1] - s[m]) * inv_h;
+  return weno5_upwind(dm, u);
+}
+
+// One RK stage at the padded index c of P (strides s0, s1, 1):
+// alpha*aux[c] + beta*P[c] - gamma*(u0*W0 + u1*W1 + u2*W2), the alpha term
+// dropped when aux is null.
+template <typename T>
+__device__ __forceinline__ T stage_value(const T* __restrict__ P, const T* __restrict__ aux,
+                                         int64_t c, int64_t s0, int64_t s1, T u0, T u1, T u2,
+                                         T inv_h0, T inv_h1, T inv_h2, T alpha, T beta,
+                                         T gamma) {
+  T ham = axis_term(P, c, s0, inv_h0, u0);
+  ham = ham + axis_term(P, c, s1, inv_h1, u1);
+  ham = ham + axis_term(P, c, int64_t(1), inv_h2, u2);
+  T res = beta * P[c] - gamma * ham;
+  if (aux != nullptr) res = alpha * aux[c] + res;
+  return res;
+}
+
+}  // namespace lsm
+
+#endif  // LSM_WENO5_CUH

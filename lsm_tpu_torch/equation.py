@@ -2,17 +2,20 @@
 
 ``LevelSetEquation`` holds the terms, integrator, current state and time and
 exposes ``integrate(tf)``: a host loop that recomputes the CFL bound every
-accepted step (read back with ``.item()``) and advances the state.
+accepted step (read back once per step) and advances the state.
 
-Routing by the state's device:
+Routing by the state's device and kind:
 
-- CUDA: the fused stepper with the hand-written kernels, or
-  ``NotImplementedError`` naming the ROADMAP item for a configuration outside
-  this slice (hooks, ``fast="off"``, 2D, other terms, ``update_func``, ...).
-  Nothing on CUDA drops to plain torch.
-- CPU: the same fused stepper with the kernels' plain versions when the
+- CUDA: a dense field takes the fused stepper (kernels K1, K2), a
+  :class:`~lsm_tpu_torch.core.narrowband.NarrowBandField` the band stepper
+  (K6, K7, K8; ``last_fast_path == "band"``); a configuration outside the
+  ported slices (hooks, ``fast="off"``, 2D, other terms, ``update_func``, ...)
+  raises ``NotImplementedError`` naming its ROADMAP item. Nothing on CUDA
+  drops to plain torch.
+- CPU: the same steppers with the kernels' plain versions when the
   configuration qualifies and there are no hooks and ``fast != "off"``;
-  otherwise the general path (``rhs`` + RK stages, :func:`loop.step`).
+  otherwise the general path (``rhs`` + RK stages, :func:`loop.step`, and a
+  re-tube after every step on a band field).
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ from typing import Callable, Optional
 import torch
 
 from .core.field import MeshField
+from .core.narrowband import NarrowBandField
 from .geometry import queries as geo
+from .integrators import band_fused as _band
 from .integrators import loop as _loop
 from .integrators.explicit import RK3, TimeIntegrator
 from .integrators.fused import FusedStepper, unsupported_reason
@@ -63,7 +68,7 @@ class LevelSetEquation:
         self.state = state
         self.integrator = integrator
         self.t = float(t)
-        #: which fast path the last integrate() took: "fused" or None
+        #: which fast path the last integrate() took: "fused", "band" or None
         self.last_fast_path = None
         #: how many accepted steps the last integrate() took
         self.last_nsteps = 0
@@ -107,18 +112,29 @@ class LevelSetEquation:
         self.last_fast_path = None
         self.last_nsteps = 0
         hooks = prehook is not None or posthook is not None
+        band = isinstance(self.state, NarrowBandField)
         if self.state.values.is_cuda:
-            return self._integrate_fast(self._cuda_stepper(hooks, fast), tf, dt_max,
-                                        max_steps)
-        if not hooks and fast != "off" and unsupported_reason(
-                self.terms, self.state, self.integrator) is None:
-            stepper = FusedStepper(self.terms, self.state, self.integrator)
-            return self._integrate_fast(stepper, tf, dt_max, max_steps)
-        return self._integrate_general(tf, dt_max, prehook, posthook, max_steps)
+            stepper = self._cuda_stepper(hooks, fast)
+        elif hooks or fast == "off":
+            stepper = None
+        elif band:
+            stepper = (_band.FusedBandStepper(self.terms, self.state, self.integrator)
+                       if _band.unsupported_reason(self.terms, self.state, self.integrator)
+                       is None else None)
+        else:
+            stepper = (FusedStepper(self.terms, self.state, self.integrator)
+                       if unsupported_reason(self.terms, self.state, self.integrator)
+                       is None else None)
+        if stepper is None:
+            return self._integrate_general(tf, dt_max, prehook, posthook, max_steps)
+        if band:
+            return self._integrate_band(stepper, tf, dt_max, max_steps)
+        return self._integrate_fast(stepper, tf, dt_max, max_steps)
 
-    def _cuda_stepper(self, hooks: bool, fast: str) -> FusedStepper:
-        """The fused stepper for a CUDA state, or ``NotImplementedError``
-        naming the ROADMAP item the configuration waits for."""
+    def _cuda_stepper(self, hooks: bool, fast: str):
+        """The fused or band stepper for a CUDA state, or
+        ``NotImplementedError`` naming the ROADMAP item the configuration
+        waits for."""
         if hooks:
             raise NotImplementedError(
                 "prehook/posthook on CUDA are not ported yet (ROADMAP.md queue 2, hooks on CUDA)")
@@ -126,6 +142,8 @@ class LevelSetEquation:
             raise NotImplementedError(
                 'fast="off" on CUDA needs the general path, which is not ported yet '
                 "(ROADMAP.md queue 2, general path (K10/K11))")
+        if isinstance(self.state, NarrowBandField):
+            return _band.FusedBandStepper(self.terms, self.state, self.integrator)
         return FusedStepper(self.terms, self.state, self.integrator)
 
     def _eps(self, tf):
@@ -166,8 +184,41 @@ class LevelSetEquation:
         self.last_fast_path = "fused"
         return self
 
+    def _integrate_band(self, stepper, tf, dt_max, max_steps):
+        """Host adaptive-CFL loop over the band stepper. One read-back per
+        step brings the CFL bound and the dispatch-list count; a list that
+        has overflowed is regrown before the band is stepped, so no update
+        is lost. The band is re-tubed on the stepper's cadence and always on
+        the step that lands on ``tf``."""
+        state = stepper.pack(self.state)
+        alpha = self.integrator.cfl
+        eps = self._eps(tf)
+        while self.t <= tf - eps:
+            if max_steps is not None and self.last_nsteps >= max_steps:
+                break
+            while True:
+                dt_t, count_t = stepper.cfl(state, self.t)
+                cfl_dt, count = torch.stack([dt_t.double(), count_t.double()]).tolist()
+                if count <= stepper.capacity:
+                    break
+                stepper, state = stepper.regrow(state)
+            dt = min(dt_max, alpha * self._checked_dt(cfl_dt), tf - self.t)
+            retube = ((self.last_nsteps + 1) % stepper.retube_every == 0
+                      or self.t + dt > tf - eps)
+            state = stepper.step(state, self.t, dt, retube)
+            self.t += dt
+            self.last_nsteps += 1
+        # every step above ran with a list that fit, so nothing to warn about
+        self.state = stepper.unpack(state, check=False)
+        self._check_finite()
+        if self.t > tf - eps:
+            self.t = tf
+        self.last_fast_path = "band"
+        return self
+
     def _integrate_general(self, tf, dt_max, prehook, posthook, max_steps):
-        """Host loop over the general path (``rhs`` + RK stages)."""
+        """Host loop over the general path (``rhs`` + RK stages), re-tubing a
+        band field after every step."""
         alpha = self.integrator.cfl
         eps = self._eps(tf)
         while self.t <= tf - eps:
@@ -180,6 +231,7 @@ class LevelSetEquation:
             dt = min(dt_max, alpha * cfl_dt, tf - self.t)
             self.state, self.terms = _loop.step(
                 self.integrator, self.terms, self.state, self.t, dt)
+            self.state = self.state.update_band()  # a no-op on a dense field
             self.t += dt
             self.last_nsteps += 1
             if posthook is not None:

@@ -1,0 +1,324 @@
+"""Band-proportional fused evolution (port of
+:mod:`lsm_tpu.integrators.band_fused`).
+
+For a 3D :class:`~lsm_tpu_torch.core.narrowband.NarrowBandField` the stepper
+keeps the level set in padded buffers and the band in one uint8 combined
+mask (0 outside, 1 compute band only, 2 active band). Each RK stage is one K6
+launch over a dispatch list of tiles (:func:`~lsm_tpu_torch.ops.band.
+band_stage`) and one gated K7 shell refresh; a re-tube step ends with K8 on
+the candidate tiles (the active tiles and their neighbours), after which
+the tile activity, the dispatch list and the K7 gates are rebuilt on the
+device in plain torch. A callable velocity is evaluated at the dispatched
+tiles' nodes only, a streamed one gathered onto them once per re-tube, so a
+step has no pass over the whole grid.
+
+Buffer rotation. Off-band cells are frozen, so a stage writes its tiles
+into the previous buffer of the rotation and leaves the rest alone:
+
+  FE :  A -> B                                  next state (B, A)
+  RK2:  A -> B;  (B, aux A) -> C                next state (C, A, B)
+  RK3:  A -> B;  (B, aux A) -> C; (C, aux A) -> B   next state (B, A, C)
+
+That is right only if every buffer agrees on every tile the stages skip.
+A node updated in one step lies in a tile that was active then; if the band
+leaves that tile at the re-tube, the spare buffers would keep its older
+value. The port therefore dispatches the active tiles of this step and of
+the step before (``disp = act | previous act``): a tile that has just left
+the band is visited once more, where every node is off the compute band, so
+each buffer the step writes takes the current value there.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..core import bc as _bc
+from ..core.field import MeshField
+from ..core.narrowband import NarrowBandField, box_dilate
+from ..ops import band as bd
+from ..ops import weno_v2 as v2
+from .explicit import RK3
+from .fused import _STAGES, _slice_reason
+
+__all__ = ["BandState", "FusedBandStepper", "supports_band_fused", "unsupported_reason",
+           "default_tiles"]
+
+#: the default dispatch capacity: the active tiles times SLACK, plus 32
+SLACK = 1.5
+#: ``regrow`` multiplies the capacity by this
+REGROW = 2
+
+_BAND_BACKWARD = ("a gradient through the narrow-band stepper is not ported yet "
+                  "(ROADMAP.md queue 1, item 11, band backward)")
+
+
+class BandState(NamedTuple):
+    """The band stepper's state (all on the field's device)."""
+
+    bufs: Tuple[torch.Tensor, ...]  # padded phi: (current, spare[, spare])
+    band: torch.Tensor    # uint8 interior-shaped combined mask, 0/1/2
+    act: torch.Tensor     # bool tile grid: tiles holding compute-band nodes
+    ids: torch.Tensor     # int32 (capacity,): dispatch list of act | previous act
+    count: torch.Tensor   # int32 0-d: tiles on the dispatch list (> capacity: overflow)
+    flags: torch.Tensor   # int32 (2,): K7's gates for the dispatched tiles
+    amask: torch.Tensor   # bool (capacity, B0, B1, B2): active-band nodes per slot
+    vel: Tuple[torch.Tensor, ...]  # tile-packed velocity, or a callable's coordinates
+
+
+def unsupported_reason(terms, nb, integrator) -> Optional[str]:
+    """Why ``(terms, nb, integrator)`` cannot take the band stepper, naming
+    the ROADMAP item that would add it; ``None`` when it can."""
+    if not isinstance(nb, NarrowBandField):
+        return "the band stepper takes a NarrowBandField"
+    return _slice_reason(terms, nb, integrator)
+
+
+def supports_band_fused(terms, nb, integrator=None) -> bool:
+    """Whether ``(terms, nb)`` qualifies for :class:`FusedBandStepper`."""
+    return unsupported_reason(terms, nb, integrator or RK3()) is None
+
+
+def default_tiles(nlayers: int = 3) -> Tuple[int, int, int]:
+    """Cubes of 16 nodes, or deeper where the incremental re-tube needs it
+    (every axis at least ``1 + nlayers + COMPUTE_HALO`` nodes). Of the
+    tiles ``tools/band_tile_sweep.py`` tried on the 512^3 sphere band, 16^3
+    gave the fastest step (PERF.md)."""
+    b = max(16, 1 + nlayers + NarrowBandField.COMPUTE_HALO)
+    return (b, b, b)
+
+
+def _face_layers(bcs, shape, tiles):
+    """Per axis, how many tile layers at each face hold the nodes its ghosts
+    are built from: symmetry reads 3 nodes in, extrapolation of degree P
+    reads P + 1."""
+    out = []
+    for ax, (n, b) in enumerate(zip(shape, tiles)):
+        G = -(-n // b)
+        pair = []
+        for side, bcd in enumerate(bcs[ax]):
+            depth = bcd.degree + 1 if isinstance(bcd, _bc.Extrapolation) else v2.GHOST + 1
+            depth = min(depth, n)
+            pair.append(-(-depth // b) if side == 0 else G - (n - depth) // b)
+        out.append(tuple(pair))
+    return tuple(out)
+
+
+class FusedBandStepper:
+    """Active-tile fused stepping for a 3D :class:`NarrowBandField`.
+
+    Usage::
+
+        stepper = FusedBandStepper(terms, nb, integrator)
+        state = stepper.pack(nb)
+        for _ in range(nsteps):
+            state = stepper.step(state, t, dt)
+            t += dt
+        nb_out = stepper.unpack(state)
+
+    ``tiles`` (default :func:`default_tiles`) cut the grid; on CUDA every
+    tile must be at least ``1 + nlayers + COMPUTE_HALO`` nodes deep, which
+    the incremental re-tube (K8) needs; on the CPU shallower tiles take the
+    full re-tube. ``capacity`` bounds the dispatch list (default: the active
+    tiles times ``SLACK``, plus 32). ``state.count > capacity`` means the
+    list overflowed: :meth:`cfl` returns the count with the CFL bound, and
+    ``integrate`` calls :meth:`regrow` before such a band is stepped.
+    ``retube_every`` re-tubes every k-th step, within the CFL safety range.
+    """
+
+    def __init__(self, terms, nb: NarrowBandField, integrator,
+                 tiles: Optional[Tuple[int, int, int]] = None,
+                 capacity: Optional[int] = None, retube_every: int = 1):
+        terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)
+        reason = unsupported_reason(terms, nb, integrator)
+        if reason is not None:
+            raise NotImplementedError(reason)
+        # between re-tubes the interface moves at most `cfl` cells per step
+        # and the compute band reaches COMPUTE_HALO cells past the active
+        # band, so skipping the re-tube for up to margin/cfl steps never
+        # lets the interface outrun the stale band
+        margin = min(nb.nlayers, NarrowBandField.COMPUTE_HALO)
+        max_skip = max(1, int(margin / integrator.cfl))
+        if not 1 <= retube_every <= max_skip:
+            raise ValueError(
+                f"retube_every={retube_every} outside the safe range [1, {max_skip}] for "
+                f"cfl={integrator.cfl} (interface may outrun the stale compute band)")
+        self.retube_every = int(retube_every)
+        self.terms = terms
+        self.integrator = integrator
+        self.grid, self.bcs, self.nlayers = nb.grid, nb.bcs, nb.nlayers
+        self.shape = tuple(nb.shape)
+        self.spacing = tuple(float(h) for h in nb.spacing)
+        self.lo = tuple(float(x) for x in nb.grid.lo)
+        self.dtype, self.device = nb.dtype, nb.device
+        self.stages = _STAGES[type(integrator)]
+        self.tiles = tuple(int(b) for b in (tiles or default_tiles(nb.nlayers)))
+        if len(self.tiles) != 3 or min(self.tiles) < 1:
+            raise ValueError(f"tiles must be 3 positive sizes, got {tiles}")
+        #: the re-tube runs K8 on the candidate tiles when a change can reach
+        #: at most one tile away: every tile at least 1 + nlayers + halo deep
+        reach = 1 + self.nlayers + NarrowBandField.COMPUTE_HALO
+        self.incremental = min(self.tiles) >= reach
+        if not self.incremental and self.device.type == "cuda":
+            raise ValueError(
+                f"tiles {self.tiles} are shallower than the incremental re-tube's reach "
+                f"1 + nlayers + COMPUTE_HALO = {reach} on some axis; on CUDA every tile "
+                f"must be at least {reach} nodes deep")
+        G = bd.tile_grid(self.shape, self.tiles)
+        self.total = G[0] * G[1] * G[2]
+        if capacity is None:
+            n_active = int(bd.tile_activity(nb.compute_mask, self.tiles).sum())
+            capacity = min(self.total, max(64, int(n_active * SLACK) + 32))
+        self.capacity = int(capacity)
+        self._layers = _face_layers(self.bcs, self.shape, self.tiles)
+        vel = terms[0].velocity
+        self._fn = vel if callable(vel) and not isinstance(vel, MeshField) else None
+        if self._fn is None:
+            values = vel.values if isinstance(vel, MeshField) else vel
+            self._streams = tuple(values[d].to(device=self.device, dtype=self.dtype).contiguous()
+                                  for d in range(3))
+        self._ucache = None
+
+    # -- layout -----------------------------------------------------------------------
+
+    def _dispatch(self, band, act, disp, bufs) -> BandState:
+        """The state for dispatch activity ``disp``: the list, its count,
+        K7's gates, and the per-slot active mask and velocity."""
+        ids, count = bd.compact_ids(disp, self.capacity)
+        flags = bd.refresh_flags_from_activity(disp, self._layers)
+        flat, valid = bd.tile_index(ids, self.shape, self.tiles)
+        amask = (band.view(-1)[flat] == bd.ACTIVE) & valid
+        if self._fn is None:
+            vel = tuple(s.view(-1)[flat] for s in self._streams)
+        else:
+            vel = bd.tile_coords(ids, self.shape, self.tiles, self.spacing, self.lo, self.dtype)
+        return BandState(tuple(bufs), band, act, ids, count, flags, amask, vel)
+
+    def pack(self, nb: NarrowBandField) -> BandState:
+        Q = v2.pack_padded(nb.values.to(device=self.device, dtype=self.dtype), self.bcs)
+        bufs = (Q, Q.clone()) if len(self.stages) == 1 else (Q, Q.clone(), Q.clone())
+        band = nb.compute_mask.to(torch.uint8) + nb.mask.to(torch.uint8)
+        act = bd.tile_activity(band, self.tiles)
+        return self._dispatch(band.contiguous(), act, act, bufs)
+
+    def _field(self, state: BandState) -> NarrowBandField:
+        return NarrowBandField(v2.unpack_padded(state.bufs[0], self.shape).contiguous(),
+                               self.grid, self.bcs, state.band == bd.ACTIVE, self.nlayers,
+                               _normalized=True, _cmask=state.band != 0)
+
+    def unpack(self, state: BandState, check: bool = True) -> NarrowBandField:
+        """The band field of ``state``. With ``check`` (one host read) warns
+        when the dispatch list has overflowed: a step taken with it then
+        skipped tiles."""
+        if check and self.overflowed(state):
+            warnings.warn(
+                f"band dispatch list overflowed (count={int(state.count)} > "
+                f"capacity={self.capacity}): some active tiles were never stepped; "
+                "use regrow() and re-run", RuntimeWarning, stacklevel=2)
+        return self._field(state)
+
+    def overflowed(self, state: BandState) -> bool:
+        return int(state.count) > self.capacity
+
+    # -- stepping ---------------------------------------------------------------------
+
+    def velocity(self, state: BandState, t):
+        """The tile-packed velocity at time ``t`` (a callable is evaluated at
+        the dispatched nodes; the last evaluation is kept, so the CFL bound
+        at ``t`` and the step's first stage share one). Raises
+        ``NotImplementedError`` when a component needs a gradient: the
+        stepper's buffers are written in place and carry none."""
+        if self._fn is None:
+            u = state.vel
+        else:
+            c = self._ucache
+            if c is None or c[0] != float(t) or c[1] is not state.vel:
+                packed = (self.capacity, *self.tiles)
+                c = self._ucache = (float(t), state.vel, v2.eval_components(
+                    self._fn(state.vel, t), packed, self.dtype, self.device))
+            u = c[2]
+        if torch.is_grad_enabled() and any(x.requires_grad for x in u):
+            raise NotImplementedError(_BAND_BACKWARD)
+        return u
+
+    def stage(self, src, dst, state, coeffs, t_stage, aux):
+        """K6 from ``src`` into ``dst``, then K7 on ``dst``."""
+        bd.band_stage(src, dst, state.ids, state.band, self.velocity(state, t_stage), coeffs,
+                      aux, self.spacing, self.shape, self.tiles)
+        return bd.refresh_band_ghosts_fast(dst, self.bcs, self.shape, state.flags)
+
+    def step(self, state: BandState, t, dt, retube: bool = True) -> BandState:
+        """One accepted step; ``retube=False`` keeps the band (valid only
+        within ``retube_every``)."""
+        t, dt = float(t), float(dt)
+        bufs = state.bufs
+        A = bufs[0]
+        if len(self.stages) == 1:
+            cur = self.stage(A, bufs[1], state, (0.0, 1.0, dt), t, None)
+            new = (cur, A)
+        else:
+            B, C = bufs[1], bufs[2]
+            cur, spare = B, C
+            src = A
+            for s, (alpha, beta, g, off) in enumerate(self.stages):
+                dst = (B, C)[s % 2]
+                cur = self.stage(src, dst, state, (alpha, beta, g * dt), t + off * dt,
+                                 None if s == 0 else A)
+                src = cur
+            spare = C if cur is B else B
+            new = (cur, A, spare)
+        if not retube:
+            return state._replace(bufs=new)
+        return self._retube(state, new)
+
+    def _retube(self, state: BandState, bufs) -> BandState:
+        """Re-tube after a step (K8 on the candidate tiles, or on the CPU
+        the full re-tube when the tiles are too shallow for it), then
+        rebuild the dispatch for the new activity and the one before."""
+        cur = bufs[0]
+        band = state.band
+        if self.incremental:
+            # the candidate list holds every tile of the grid, so it cannot
+            # overflow (K8's stash: one byte per node of the tile grid)
+            cids, _ = bd.compact_ids(box_dilate(state.act, 1), self.total)
+            act = bd.scatter_activity(state.act, cids, self.retube_tiles(cur, band, cids))
+        else:
+            band = bd.retube_full(v2.unpack_padded(cur, self.shape), band, self.nlayers,
+                                  NarrowBandField.COMPUTE_HALO)
+            act = bd.tile_activity(band, self.tiles)
+        return self._dispatch(band, act, act | state.act, bufs)
+
+    def retube_tiles(self, cur, band, cids):
+        """K8 on the candidate tiles ``cids``: ``band`` re-tubed in place,
+        one activity flag per slot."""
+        return bd.band_retube_incremental(cur, band, cids, self.nlayers,
+                                          NarrowBandField.COMPUTE_HALO, self.shape, self.tiles)
+
+    # -- adaptive CFL and overflow ------------------------------------------------------
+
+    def cfl(self, state: BandState, t):
+        """``(largest stable dt, tiles on the dispatch list)`` as device
+        tensors, for one read-back per step. The bound reduces over the
+        active band only, from the velocity at the dispatched nodes (every
+        active node lies in a dispatched tile while the list has not
+        overflowed)."""
+        u = self.velocity(state, t)
+        s = 0.0
+        for ax, h in enumerate(self.spacing):
+            s = s + torch.abs(u[ax]) / h
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        return 1.0 / torch.max(torch.where(state.amask, s, zero)), state.count
+
+    def regrow(self, state: BandState):
+        """Recover from a dispatch-list overflow: a stepper with ``REGROW``
+        times the capacity and the current state packed into it. Returns
+        ``(stepper, state)``. ``integrate`` calls it before an overflowed band
+        is stepped, so no update is lost."""
+        nb = self._field(state)
+        stepper = FusedBandStepper(
+            self.terms, nb, self.integrator, tiles=self.tiles,
+            capacity=min(self.total, max(self.capacity * REGROW, 64)),
+            retube_every=self.retube_every)
+        return stepper, stepper.pack(nb)

@@ -46,6 +46,16 @@ def _todo(what: str, item: str) -> str:
 def unsupported_reason(terms, phi: MeshField, integrator) -> Optional[str]:
     """Why ``(terms, phi, integrator)`` cannot take the fused stepper, naming
     the ROADMAP item that would add it; ``None`` when it can."""
+    if phi.active_mask is not None:
+        return ("the dense fused stepper takes dense fields only; a NarrowBandField "
+                "goes to the band stepper")
+    return _slice_reason(terms, phi, integrator)
+
+
+def _slice_reason(terms, phi: MeshField, integrator) -> Optional[str]:
+    """The checks the dense and the band stepper share: one WENO5
+    ``AdvectionTerm`` without ``update_func`` on a 3D scalar field with BCs
+    the kernels take, FE/RK2/RK3."""
     if not isinstance(terms, (tuple, list)):
         terms = (terms,)
     if len(terms) != 1 or not isinstance(terms[0], AdvectionTerm):

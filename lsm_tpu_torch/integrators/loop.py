@@ -8,6 +8,12 @@
   is :func:`~lsm_tpu_torch.ops.weno_v2.fused_step_stage` (forward K1 + K2,
   backward K4, K3, K5), on the card and on the CPU alike.
 
+A :class:`~lsm_tpu_torch.core.narrowband.NarrowBandField` re-tubes after
+every step. On the card its rollout runs the band stepper (K6, K7, K8),
+forward only: its buffers are written in place and carry no autograd, so a
+band rollout that needs a gradient on CUDA raises. On the CPU it takes the
+general path, differentiable through torch autograd.
+
 ``remat`` wraps each step in ``torch.utils.checkpoint`` (non-reentrant), so a
 differentiated rollout keeps one step-input buffer per step and recomputes
 the step's stages in the backward; ``remat_chunk=K`` nests a second
@@ -20,9 +26,13 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.field import MeshField
+from ..core.narrowband import NarrowBandField
+from ..ops.band import tile_grid
+from . import band_fused as _band
 from .explicit import TimeIntegrator
 from .fused import FusedStepper, unsupported_reason
 
@@ -79,6 +89,8 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
         raise ValueError(f"fast must be 'auto' or 'off', got {fast!r}")
     terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)
     nsteps = int(nsteps)
+    if isinstance(phi, NarrowBandField) and phi.values.is_cuda:
+        return _band_rollout(integrator, terms, phi, t0, dt, nsteps, fast)
     reason = unsupported_reason(terms, phi, integrator) if fast == "auto" else 'fast="off"'
     if reason is None:
         stepper = FusedStepper(terms, phi, integrator)
@@ -96,6 +108,20 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
             f"{reason}: on CUDA only the fused stepper is ported; the general path is not "
             "(ROADMAP.md queue 2, general path (K10/K11))")
 
+    if isinstance(phi, NarrowBandField):
+        def band_step(c):
+            values, mask, tms, t = c
+            field = NarrowBandField(values, phi.grid, phi.bcs, mask, phi.nlayers,
+                                    _normalized=True)
+            new, tms = integrator.advance(tms, field, t, dt)
+            new = new.update_band()
+            return new.values, new.mask, tms, t + dt
+
+        values, mask, terms, _ = _scan_steps(band_step, (phi.values, phi.mask, terms, t0),
+                                             nsteps, remat, remat_chunk)
+        return NarrowBandField(values, phi.grid, phi.bcs, mask, phi.nlayers,
+                               _normalized=True), terms
+
     def general_step(c):
         values, tms, t = c
         new, tms = integrator.advance(tms, phi.with_values(values), t, dt)
@@ -104,6 +130,29 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
     values, terms, _ = _scan_steps(general_step, (phi.values, terms, t0), nsteps, remat,
                                    remat_chunk)
     return phi.with_values(values), terms
+
+
+def _band_rollout(integrator, terms, phi, t0, dt, nsteps, fast):
+    """A CUDA band rollout: the band stepper, forward only, re-tubing every
+    step with a dispatch list as large as the tile grid (so it cannot
+    overflow and nothing is read back)."""
+    if fast == "off":
+        raise NotImplementedError(
+            'fast="off" on CUDA needs the general path, which is not ported yet '
+            "(ROADMAP.md queue 2, general path (K10/K11))")
+    # the stepper refuses a velocity that needs a gradient where it reads
+    # one (a streamed tensor, or a callable's values, whatever they close over)
+    if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
+                                       for x in (phi.values, t0, dt)):
+        raise NotImplementedError(_band._BAND_BACKWARD)
+    total = math.prod(tile_grid(phi.shape, _band.default_tiles(phi.nlayers)))
+    stepper = _band.FusedBandStepper(terms, phi, integrator, capacity=total)
+    state = stepper.pack(phi)
+    t, dt = float(t0), float(dt)
+    for _ in range(nsteps):
+        state = stepper.step(state, t, dt)
+        t += dt
+    return stepper.unpack(state, check=False), terms
 
 
 def evolve(integrator: TimeIntegrator, terms, phi: MeshField, t0, tf, dt_max=math.inf,

@@ -101,7 +101,9 @@ def compile_library(out: Path, nvcc: str) -> str:
 class Library:
     """The loaded kernel library: ``stage_f32/f64`` (K1), ``refresh_f32/f64``
     (K2), ``stage_bwd_f32/f64`` and ``stage_bwd_scratch`` (K3),
-    ``fold_f32/f64`` (K4), ``zero_shells_f32/f64`` (K5), ``error_string``,
+    ``fold_f32/f64`` (K4), ``zero_shells_f32/f64`` (K5),
+    ``band_stage_f32/f64`` (K6), ``band_refresh_f32/f64`` (K7),
+    ``band_retube_f32/f64`` and ``band_retube_smem`` (K8), ``error_string``,
     plus where it came from (``path``), the build's wall time in seconds
     (``build_seconds``, 0 when it was already built) and nvcc's output
     (``log``)."""
@@ -114,11 +116,17 @@ class Library:
         ghost_args = [vp] + [i64] * 3 + [vp] * 3 + [vp]
         bwd_args = [vp] * 13 + [i64] * 3 + [f64] * 6 + [vp]
         zero_args = [vp] + [i64] * 3 + [vp]
+        band_stage_args = [vp] * 8 + [i64] * 7 + [f64] * 6 + [vp]
+        band_ghost_args = [vp] + [i64] * 3 + [vp] * 4 + [vp]
+        retube_args = [vp] * 5 + [i64] * 9 + [vp]
         names = {"stage": ("lsm_weno_stage", stage_args),
                  "refresh": ("lsm_refresh_ghosts", ghost_args),
                  "stage_bwd": ("lsm_stage_bwd", bwd_args),
                  "fold": ("lsm_fold_ghosts", ghost_args),
-                 "zero_shells": ("lsm_zero_shells", zero_args)}
+                 "zero_shells": ("lsm_zero_shells", zero_args),
+                 "band_stage": ("lsm_band_stage", band_stage_args),
+                 "band_refresh": ("lsm_refresh_band_ghosts", band_ghost_args),
+                 "band_retube": ("lsm_band_retube", retube_args)}
         for attr, (name, args) in names.items():
             for suffix in ("f32", "f64"):
                 fn = getattr(lib, f"{name}_{suffix}")
@@ -128,6 +136,9 @@ class Library:
         lib.lsm_stage_bwd_scratch.argtypes = [i64] * 3
         lib.lsm_stage_bwd_scratch.restype = i64
         self.stage_bwd_scratch = lib.lsm_stage_bwd_scratch
+        lib.lsm_band_retube_smem.argtypes = [i64] * 5
+        lib.lsm_band_retube_smem.restype = i64
+        self.band_retube_smem = lib.lsm_band_retube_smem
         lib.lsm_error_string.argtypes = [ci]
         lib.lsm_error_string.restype = ctypes.c_char_p
         self._lib = lib

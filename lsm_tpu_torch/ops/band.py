@@ -1,0 +1,407 @@
+"""Active-tile narrow-band kernels and their layout helpers (port of
+:mod:`lsm_tpu.ops.band_pallas`).
+
+Layout: the band's phi buffers use the dense path's padded
+``(n0+6, n1+6, n2+6)`` layout (:func:`~lsm_tpu_torch.ops.weno_v2.pack_padded`
+/ ``unpack_padded``); the TPU layout's junk rows, 128-lane pads and pitch fix
+are TPU constraints and are not kept. The band itself is one interior-shaped
+``uint8`` *combined mask*: 0 outside, 1 compute band only, 2 active band.
+The grid is cut into tiles ``(B0, B1, B2)``; the tile grid is
+``ceil(n / B)`` per axis, so a ragged edge tile is allowed. A *dispatch list*
+holds the flat (row-major) ids of the tiles a stage visits, ``-1`` in empty
+slots; per-slot data (the velocity, the active mask the CFL bound reduces
+over) is *tile-packed* as ``(capacity, B0, B1, B2)``.
+
+Kernels, each beside its plain torch version (CPU tensors, the tests, and
+the on-card comparison in ``chip_smoke.py``):
+
+- :func:`band_stage` (K6, ``csrc/band_stage.cu``; plain
+  :func:`band_stage_plain`): K1's stage over the dispatched tiles, into the
+  ping-pong target; cells outside the compute band keep the source's value.
+- :func:`refresh_band_ghosts_fast` (K7, ``csrc/refresh_ghosts.cu``; plain
+  :func:`refresh_band_ghosts_plain`): K2's shell refresh, each phase gated by
+  device flags.
+- :func:`band_retube_incremental` (K8, ``csrc/band_retube.cu``; plain
+  :func:`band_retube_plain`): the re-tube recomputed on candidate tiles only.
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises, and counts its launches in ``launches``. The
+dispatch-list compaction is plain torch on the device (a ``cumsum`` and a
+scatter), with no host synchronisation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..core.narrowband import band_mask_from_values, box_dilate
+from . import weno_v2 as v2
+from ._build import load_library
+
+__all__ = [
+    "tile_grid",
+    "tile_activity",
+    "compact_ids",
+    "active_tile_ids",
+    "scatter_activity",
+    "refresh_flags_from_activity",
+    "tile_index",
+    "tile_coords",
+    "dispatched_cells",
+    "band_stage_plain",
+    "band_stage",
+    "band_stage_reference",
+    "refresh_band_ghosts_plain",
+    "refresh_band_ghosts_fast",
+    "retube_full",
+    "band_retube_plain",
+    "band_retube_incremental",
+]
+
+GHOST = v2.GHOST
+ACTIVE = 2  # the active band's value in the combined mask
+
+
+def tile_grid(shape, tiles) -> Tuple[int, ...]:
+    """Tiles per axis, ``ceil(n / B)``."""
+    return tuple(-(-n // b) for n, b in zip(shape, tiles))
+
+
+def tile_activity(compute_mask: torch.Tensor, tiles) -> torch.Tensor:
+    """``(G0, G1, G2)`` bool: does the tile hold any compute-band node?"""
+    G = tile_grid(compute_mask.shape, tiles)
+    m = (compute_mask != 0).to(torch.uint8)
+    pad = []
+    for n, g, b in reversed(list(zip(compute_mask.shape, G, tiles))):
+        pad += [0, g * b - n]
+    m = F.pad(m, pad)
+    m = m.reshape(G[0], tiles[0], G[1], tiles[1], G[2], tiles[2])
+    return m.amax(dim=(1, 3, 5)) != 0
+
+
+def compact_ids(flags: torch.Tensor, capacity: int):
+    """The flat indices of the set entries of ``flags``, in order, in an
+    ``int32[capacity]`` list padded with -1, and their number (an int32 0-d
+    tensor; more than ``capacity`` means the list overflowed and holds the
+    first ``capacity``). A ``cumsum`` and a scatter on the device: no host
+    synchronisation (``torch.nonzero`` would need one)."""
+    flat = flags.reshape(-1)
+    pos = torch.cumsum(flat.to(torch.int32), 0, dtype=torch.int32)
+    count = pos[-1]
+    keep = flat & (pos <= capacity)
+    target = torch.where(keep, pos - 1, capacity).long()
+    ids = torch.full((capacity + 1,), -1, dtype=torch.int32, device=flat.device)
+    ids.scatter_(0, target, torch.arange(flat.numel(), dtype=torch.int32, device=flat.device))
+    return ids[:capacity], count
+
+
+def active_tile_ids(compute_mask: torch.Tensor, tiles, capacity: int):
+    """``(ids, count)`` of the tiles holding compute-band nodes
+    (:func:`compact_ids` of :func:`tile_activity`)."""
+    return compact_ids(tile_activity(compute_mask, tiles), capacity)
+
+
+def scatter_activity(act: torch.Tensor, cids: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """The tile activity grid ``act`` with the entry of every candidate tile
+    of ``cids`` (-1: an empty slot) replaced by its re-tube flag."""
+    n = act.numel()
+    flat = torch.cat([act.reshape(-1), torch.zeros(1, dtype=torch.bool, device=act.device)])
+    flat[torch.where(cids >= 0, cids, n).long()] = flags != 0
+    return flat[:-1].reshape(act.shape)
+
+
+def refresh_flags_from_activity(act: torch.Tensor, layers=((1, 1),) * 3) -> torch.Tensor:
+    """``int32[2]`` gates for :func:`refresh_band_ghosts_fast` from a tile
+    activity grid: a ghost shell changes only when a visited tile touches its
+    face. ``layers[d] = (lo, hi)`` is how many tile layers at each face of
+    axis ``d`` hold the nodes the ghosts are built from (1 when a tile is at
+    least that deep). ``flags[0]`` gates axes 0 and 1; ``flags[1]`` gates
+    axis 2 and includes ``flags[0]``: the axis-2 ghosts of the axis-0/1 ghost
+    rows read those rows."""
+    a = act != 0
+
+    def face(ax):
+        lo, hi = layers[ax]
+        n = a.shape[ax]
+        return a.narrow(ax, 0, min(lo, n)).any() | a.narrow(ax, n - min(hi, n), min(hi, n)).any()
+
+    f01 = face(0) | face(1)
+    return torch.stack([f01, face(2) | f01]).to(torch.int32)
+
+
+def _tile_axes(ids: torch.Tensor, shape, tiles):
+    """Per axis, the node indices of the dispatched tiles, int64 shaped
+    ``(capacity, B0, 1, 1)``, ``(capacity, 1, B1, 1)``, ``(capacity, 1, 1,
+    B2)`` (an empty slot decodes as tile 0; a ragged edge runs past ``n``)."""
+    G = tile_grid(shape, tiles)
+    safe = ids.clamp(min=0).long()
+    tile = (safe // (G[1] * G[2]), (safe // G[2]) % G[1], safe % G[2])
+    view = ((-1, tiles[0], 1, 1), (-1, 1, tiles[1], 1), (-1, 1, 1, tiles[2]))
+    return [(tile[d][:, None] * tiles[d] + torch.arange(tiles[d], device=ids.device))
+            .reshape(view[d]) for d in range(3)]
+
+
+def tile_index(ids: torch.Tensor, shape, tiles):
+    """Per dispatch slot and tile node: ``(flat, valid)``, both
+    ``(capacity, B0, B1, B2)``; ``flat`` the node's row-major index in the
+    interior (clamped to the grid), ``valid`` false for empty slots and nodes
+    past a ragged edge."""
+    idx, valid = _tile_axes(ids, shape, tiles), (ids >= 0).reshape(-1, 1, 1, 1)
+    for d, i in enumerate(idx):
+        valid = valid & (i < shape[d])
+        idx[d] = i.clamp(max=shape[d] - 1)
+    flat = (idx[0] * shape[1] + idx[1]) * shape[2] + idx[2]
+    return flat, valid
+
+
+def tile_coords(ids: torch.Tensor, shape, tiles, spacing, lo, dtype):
+    """Broadcastable node coordinates ``lo + i*h`` of the dispatched tiles
+    (shapes ``(capacity, B0, 1, 1)``, ``(capacity, 1, B1, 1)``,
+    ``(capacity, 1, 1, B2)``): the coordinates K1 evaluates a callable
+    velocity at (:func:`~lsm_tpu_torch.ops.weno_v2.node_coords`), per slot."""
+    return tuple(lo[d] + i.to(dtype) * float(spacing[d])
+                 for d, i in enumerate(_tile_axes(ids, shape, tiles)))
+
+
+def dispatched_cells(ids: torch.Tensor, shape, tiles) -> torch.Tensor:
+    """Interior-shaped bool: the nodes of the tiles on the dispatch list."""
+    G = tile_grid(shape, tiles)
+    disp = torch.zeros(G[0] * G[1] * G[2] + 1, dtype=torch.bool, device=ids.device)
+    disp[torch.where(ids >= 0, ids, G[0] * G[1] * G[2]).long()] = True
+    cells = disp[:-1].reshape(G)
+    for d in range(3):
+        cells = cells.repeat_interleave(tiles[d], dim=d)
+    return cells[: shape[0], : shape[1], : shape[2]]
+
+
+# -- argument checks ------------------------------------------------------------------
+
+
+def _check_ids(ids: torch.Tensor, name: str, like: torch.Tensor):
+    if ids.dtype != torch.int32 or ids.ndim != 1 or not ids.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D int32 tensor")
+    if ids.device != like.device:
+        raise ValueError(f"{name} lies on {ids.device}, the state on {like.device}")
+
+
+def _check_band(band: torch.Tensor, shape, like: torch.Tensor):
+    if band.dtype != torch.uint8 or tuple(band.shape) != tuple(shape) or not band.is_contiguous():
+        raise ValueError(f"band must be a contiguous uint8 tensor of shape {tuple(shape)}")
+    if band.device != like.device:
+        raise ValueError(f"band lies on {band.device}, the state on {like.device}")
+
+
+def _check_tiles(shape, tiles):
+    if len(shape) != 3 or len(tiles) != 3 or any(int(b) < 1 for b in tiles):
+        raise ValueError(f"the band kernels are 3D with positive tiles, got {shape}, {tiles}")
+
+
+# -- K6: the active-tile stage ---------------------------------------------------------
+
+
+def band_stage_plain(P, out, ids, band, u, coeffs, aux, spacing, shape, tiles) -> torch.Tensor:
+    """Plain version of K6: the dense stage (with the tile-packed velocity
+    scattered onto the grid), then ``torch.where`` to (dispatched tile and
+    compute band); other nodes of a dispatched tile take ``P``'s value, the
+    rest of ``out`` is left as it is. Writes ``out`` in place, returns it."""
+    flat, valid = tile_index(ids, shape, tiles)
+    dense = []
+    for ud in u:
+        d = torch.zeros(shape, dtype=P.dtype, device=P.device)
+        d.view(-1)[flat[valid]] = ud[valid]
+        dense.append(d)
+    stage = v2._advection_interior(P, dense, coeffs, aux, spacing, shape)
+    new = torch.where(band != 0, stage, v2.unpack_padded(P, shape))
+    o = v2.unpack_padded(out, shape)
+    o.copy_(torch.where(dispatched_cells(ids, shape, tiles), new, o))
+    return out
+
+
+def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torch.Tensor,
+               u: Sequence[torch.Tensor], coeffs, aux: Optional[torch.Tensor], spacing, shape,
+               tiles) -> torch.Tensor:
+    """K6: one RK stage of WENO5 advection on the dispatched tiles.
+
+    Replaces ``lsm_tpu.ops.band_pallas.band_stage``. ``P`` the source and
+    ``out`` the ping-pong target (padded buffers, written in place and
+    returned; ghost shells untouched), ``ids`` the int32 dispatch list,
+    ``band`` the uint8 combined mask, ``u`` three tile-packed velocity
+    components ``(capacity, B0, B1, B2)``, ``aux`` a padded buffer or None,
+    ``coeffs`` ``(alpha, beta, gamma)`` as numbers. CUDA tensors go to
+    ``csrc/band_stage.cu``, CPU tensors to :func:`band_stage_plain`.
+    """
+    shape, tiles = tuple(shape), tuple(int(b) for b in tiles)
+    _check_tiles(shape, tiles)
+    v2._check(P, "P", v2.padded_shape(shape))
+    v2._check(out, "out", v2.padded_shape(shape), like=P)
+    if out.data_ptr() == P.data_ptr():
+        raise ValueError("the band stage writes a ping-pong target: out must not be P")
+    _check_ids(ids, "ids", P)
+    _check_band(band, shape, P)
+    packed = (ids.shape[0], *tiles)
+    if len(u) != 3:
+        raise ValueError("the band stage needs 3 velocity components")
+    for d, ud in enumerate(u):
+        v2._check(ud, f"u[{d}]", packed, like=P)
+    if aux is not None:
+        v2._check(aux, "aux", v2.padded_shape(shape), like=P)
+    if P.device.type == "cpu":
+        return band_stage_plain(P, out, ids, band, u, coeffs, aux, spacing, shape, tiles)
+    lib = load_library()
+    fn = lib.band_stage_f32 if P.dtype == torch.float32 else lib.band_stage_f64
+    alpha, beta, gamma = (float(c) for c in coeffs)
+    with torch.cuda.device(P.device):
+        code = fn(P.data_ptr(), u[0].data_ptr(), u[1].data_ptr(), u[2].data_ptr(),
+                  None if aux is None else aux.data_ptr(), out.data_ptr(), band.data_ptr(),
+                  ids.data_ptr(), ids.shape[0], *shape, *tiles,
+                  *(1.0 / float(h) for h in spacing), alpha, beta, gamma,
+                  torch.cuda.current_stream().cuda_stream)
+    v2._raise_on(code, lib, "band_stage kernel")
+    band_stage.launches += 1
+    return out
+
+
+band_stage.launches = 0
+
+
+def band_stage_reference(padded, out_init, compute_mask, term_specs_and_streams, coeffs, t,
+                         aux_padded, bcs, spacing, shape, lo, tiles) -> torch.Tensor:
+    """Plain oracle (counterpart of ``lsm_tpu.ops.band_pallas.
+    band_stage_reference``): the dense stage (ghosts rebuilt from the
+    interior, dense streams or a callable at node coordinates) masked to
+    (compute band and active tile); other nodes of an active tile keep
+    ``padded``'s value, the rest ``out_init``'s. Returns a new padded buffer
+    whose shells are ``out_init``'s."""
+    shape = tuple(shape)
+    dense = v2.stage_reference(padded, term_specs_and_streams, coeffs, t, aux_padded, bcs,
+                               spacing, shape, lo)
+    cm = compute_mask != 0
+    act = dispatched_cells(active_tile_ids(cm, tiles, math.prod(tile_grid(shape, tiles)))[0],
+                           shape, tiles)
+    prev = v2.unpack_padded(padded, shape)
+    new = torch.where(act & cm, dense,
+                      torch.where(act, prev, v2.unpack_padded(out_init, shape)))
+    out = out_init.clone()
+    v2.unpack_padded(out, shape).copy_(new)
+    return out
+
+
+# -- K7: the gated shell refresh --------------------------------------------------------
+
+
+def refresh_band_ghosts_plain(padded: torch.Tensor, bcs, shape, flags) -> torch.Tensor:
+    """Plain version of K7: K2's phases (axis 0, 1, then 2) in place, axes 0
+    and 1 only where ``flags[0]`` is set, axis 2 only where ``flags[1]`` is.
+    Returns ``padded``."""
+    f01, f2 = (int(f) for f in flags.tolist())
+    for ax in range(3):
+        if (f01 if ax < 2 else f2):
+            v2.refresh_axis_plain(padded, bcs, shape, ax)
+    return padded
+
+
+def refresh_band_ghosts_fast(padded: torch.Tensor, bcs, shape, flags: torch.Tensor) -> torch.Tensor:
+    """K7: the gated ghost-shell refresh of a padded band buffer, in place.
+
+    Replaces ``lsm_tpu.ops.band_pallas.refresh_band_ghosts_fast``. ``flags``
+    is an int32 ``(2,)`` tensor on the buffer's device
+    (:func:`refresh_flags_from_activity`); the kernel reads it on the card,
+    so gating needs no host synchronisation. CUDA tensors go to
+    ``csrc/refresh_ghosts.cu`` (three launches, each returning at once when
+    its flag is off), CPU tensors to :func:`refresh_band_ghosts_plain`.
+    Returns ``padded``.
+    """
+    shape = tuple(shape)
+    if len(shape) != 3:
+        raise ValueError(f"the band ghost refresh is 3D only, got shape {shape}")
+    v2._check(padded, "padded", v2.padded_shape(shape))
+    if (flags.dtype != torch.int32 or tuple(flags.shape) != (2,) or not flags.is_contiguous()
+            or flags.device != padded.device):
+        raise ValueError("flags must be a contiguous int32 tensor of shape (2,) on the "
+                         "buffer's device")
+    kinds, degrees, weights = v2._ghost_args(bcs, shape)
+    if padded.device.type == "cpu":
+        return refresh_band_ghosts_plain(padded, bcs, shape, flags)
+    lib = load_library()
+    fn = lib.band_refresh_f32 if padded.dtype == torch.float32 else lib.band_refresh_f64
+    with torch.cuda.device(padded.device):
+        code = fn(padded.data_ptr(), *shape, ctypes.addressof(kinds),
+                  ctypes.addressof(degrees), ctypes.addressof(weights), flags.data_ptr(),
+                  torch.cuda.current_stream().cuda_stream)
+    v2._raise_on(code, lib, "refresh_band_ghosts kernel")
+    refresh_band_ghosts_fast.launches += 1
+    return padded
+
+
+refresh_band_ghosts_fast.launches = 0
+
+
+# -- K8: the incremental re-tube ---------------------------------------------------------
+
+
+def retube_full(values: torch.Tensor, band: torch.Tensor, nlayers: int, chalo: int) -> torch.Tensor:
+    """The full-grid re-tube: the new combined mask (uint8, 0/1/2) from the
+    interior ``values`` and the old combined ``band`` (cut cells among its
+    active nodes, corner stamp, dilated by ``nlayers`` and by
+    ``nlayers + chalo``)."""
+    mask = band_mask_from_values(values, nlayers, band == ACTIVE)
+    return box_dilate(mask, chalo).to(torch.uint8) + mask.to(torch.uint8)
+
+
+def band_retube_plain(P, band, cand, nlayers, chalo, shape, tiles) -> torch.Tensor:
+    """Plain version of K8: the full re-tube, copied into ``band`` (in place)
+    on the candidate tiles only. Returns ``int32[len(cand)]``, 1 where the new
+    candidate tile holds a band node."""
+    new = retube_full(v2.unpack_padded(P, shape), band, nlayers, chalo)
+    flat, valid = tile_index(cand, shape, tiles)
+    packed = new.view(-1)[flat]
+    band.view(-1)[flat[valid]] = packed[valid]
+    return ((packed != 0) & valid).flatten(1).any(dim=1).to(torch.int32)
+
+
+def band_retube_incremental(P: torch.Tensor, band: torch.Tensor, cand: torch.Tensor, nlayers: int,
+                            chalo: int, shape, tiles) -> torch.Tensor:
+    """K8: re-tube the candidate tiles of the combined mask ``band`` in place.
+
+    Replaces ``lsm_tpu.ops.band_pallas.band_retube_incremental``. ``P`` the
+    padded phi, ``band`` the uint8 combined mask, ``cand`` an int32 list of
+    tile ids (-1 for empty slots). Exact against the full re-tube when every
+    tile that can change is a candidate (the active tiles and their
+    neighbours, with tiles at least ``1 + nlayers + chalo`` deep). Returns
+    ``int32[len(cand)]`` activity flags. CUDA tensors go to
+    ``csrc/band_retube.cu`` (two launches: recompute into a stash of
+    ``len(cand) * B0*B1*B2`` bytes, then copy back), CPU tensors to
+    :func:`band_retube_plain`. The band carries no gradient.
+    """
+    shape, tiles = tuple(shape), tuple(int(b) for b in tiles)
+    _check_tiles(shape, tiles)
+    v2._check(P, "P", v2.padded_shape(shape))
+    _check_band(band, shape, P)
+    _check_ids(cand, "cand", P)
+    if P.device.type == "cpu":
+        return band_retube_plain(P, band, cand, nlayers, chalo, shape, tiles)
+    lib = load_library()
+    fn = lib.band_retube_f32 if P.dtype == torch.float32 else lib.band_retube_f64
+    ncand = cand.shape[0]
+    smem = lib.band_retube_smem(*tiles, nlayers, chalo)
+    if smem > 227 * 1024:
+        raise ValueError(f"tiles {tiles} with nlayers={nlayers} need {smem} bytes of shared "
+                         "memory for the re-tube; a block has 232448")
+    stash = torch.empty(ncand * tiles[0] * tiles[1] * tiles[2], dtype=torch.uint8,
+                        device=P.device)
+    flags = torch.empty(ncand, dtype=torch.int32, device=P.device)
+    with torch.cuda.device(P.device):
+        code = fn(P.data_ptr(), band.data_ptr(), cand.data_ptr(), stash.data_ptr(),
+                  flags.data_ptr(), ncand, *shape, *tiles, int(nlayers), int(chalo),
+                  torch.cuda.current_stream().cuda_stream)
+    v2._raise_on(code, lib, "band_retube kernel")
+    band_retube_incremental.launches += 1
+    return flags
+
+
+band_retube_incremental.launches = 0

@@ -41,6 +41,7 @@ __all__ = [
     "pack_padded",
     "unpack_padded",
     "refresh_ghosts",
+    "refresh_axis_plain",
     "refresh_ghosts_plain",
     "refresh_ghosts_fast",
     "node_coords",
@@ -114,17 +115,23 @@ def _shell_slices(ax: int, shape, side: str):
     return tuple(sl)
 
 
+def refresh_axis_plain(padded: torch.Tensor, bcs, shape, ax: int) -> torch.Tensor:
+    """Rewrite the two ghost shells of axis ``ax`` from the lines through
+    them, in place (one of K2's three phases). Returns ``padded``."""
+    src = [slice(None) if d < ax else slice(GHOST, GHOST + m) for d, m in enumerate(shape)]
+    line = padded[tuple(src)]
+    left = _bc._ghost_block(line, bcs[ax][0], ax, GHOST, "left")
+    right = _bc._ghost_block(line, bcs[ax][1], ax, GHOST, "right")
+    padded[_shell_slices(ax, shape, "left")] = left
+    padded[_shell_slices(ax, shape, "right")] = right
+    return padded
+
+
 def refresh_ghosts_plain(padded: torch.Tensor, bcs, shape) -> torch.Tensor:
     """Rewrite every ghost shell of ``padded`` from its interior, in place
     (plain version of K2). Returns ``padded``."""
-    for ax, n in enumerate(shape):
-        src = [slice(None) if d < ax else slice(GHOST, GHOST + m)
-               for d, m in enumerate(shape)]
-        line = padded[tuple(src)]
-        left = _bc._ghost_block(line, bcs[ax][0], ax, GHOST, "left")
-        right = _bc._ghost_block(line, bcs[ax][1], ax, GHOST, "right")
-        padded[_shell_slices(ax, shape, "left")] = left
-        padded[_shell_slices(ax, shape, "right")] = right
+    for ax in range(len(shape)):
+        refresh_axis_plain(padded, bcs, shape, ax)
     return padded
 
 

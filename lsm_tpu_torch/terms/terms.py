@@ -40,6 +40,15 @@ def _eval_vector_field(f, phi: MeshField, t) -> Tuple[torch.Tensor, ...]:
     return tuple(f[d] for d in range(ndim))
 
 
+def _masked_max(x: torch.Tensor, mask) -> torch.Tensor:
+    """Max of a nonnegative quantity over the active nodes (all nodes when
+    ``mask`` is ``None``): off-band coefficients of a narrow band may be
+    stale, so a CFL bound reduces over the band only."""
+    if mask is None:
+        return torch.max(x)
+    return torch.max(torch.where(mask, x, torch.zeros((), dtype=x.dtype, device=x.device)))
+
+
 class AdvectionTerm:
     """``u . grad(phi)`` with sign-of-velocity upwinding per dimension.
     ``scheme`` is ``"weno5"`` (default) or ``"upwind"``.
@@ -85,7 +94,7 @@ class AdvectionTerm:
         s = 0.0
         for ax, h in enumerate(phi.spacing):
             s = s + torch.abs(u[ax]) / h
-        return 1.0 / torch.max(s)
+        return 1.0 / _masked_max(s, phi.active_mask)
 
 
 def update_terms(terms: Sequence, phi: MeshField, t):

@@ -1,7 +1,9 @@
 """Checkpoint / resume of level-set evolutions (port of
 :mod:`lsm_tpu.utils.checkpoint`), in the same format: a compressed ``.npz``
 holding the arrays plus a JSON manifest (``format: 1``) of the grid, BCs and
-time. A dense field saved by either package loads in the other unchanged.
+time. A dense or a narrow-band field (kind ``"narrowband"``: the values, the
+active mask and ``nlayers``) saved by either package loads in the other
+unchanged.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ from ..core.bc import Extrapolation, Periodic, Symmetry
 from ..core.device import resolve_device
 from ..core.field import MeshField
 from ..core.grid import Grid
+from ..core.narrowband import NarrowBandField
 
-__all__ = ["save_checkpoint", "load_checkpoint", "field_from_numpy"]
+__all__ = ["save_checkpoint", "load_checkpoint", "field_from_numpy", "narrowband_from_numpy"]
 
 _FORMAT_VERSION = 1
 
@@ -63,10 +66,22 @@ def field_from_numpy(values, grid: Grid, bcs=None, device=None, dtype=None) -> M
     return MeshField(t.to(device=resolve_device(device), dtype=dtype or t.dtype), grid, bcs)
 
 
+def narrowband_from_numpy(values, mask, grid: Grid, bcs, nlayers: int,
+                          device=None) -> NarrowBandField:
+    """A :class:`NarrowBandField` from numpy arrays (for example the
+    ``values`` and ``mask`` of a JAX ``NarrowBandField``), on ``device``
+    (default: the card); the compute band is recomputed from the mask."""
+    device = resolve_device(device)
+    v = torch.from_numpy(np.ascontiguousarray(values)).to(device)
+    m = torch.from_numpy(np.ascontiguousarray(mask, dtype=bool)).to(device)
+    return NarrowBandField(v, grid, bcs, m, int(nlayers))
+
+
 def save_checkpoint(path, phi: MeshField, t: float = 0.0,
                     extra_arrays: Optional[Dict[str, Any]] = None,
                     metadata: Optional[Dict[str, Any]] = None) -> Path:
-    """Write the resumable state of a dense field to ``path`` (``.npz``).
+    """Write the resumable state of a dense or narrow-band field to ``path``
+    (``.npz``).
     ``extra_arrays`` may carry coefficient fields, ``metadata`` any
     JSON-serializable run info."""
     path = Path(path)
@@ -75,11 +90,13 @@ def save_checkpoint(path, phi: MeshField, t: float = 0.0,
         "t": float(t),
         "grid": {"lo": phi.grid.lo, "hi": phi.grid.hi, "shape": phi.grid.shape},
         "bcs": _bc_to_json(phi.bcs),
-        "kind": "dense",
-        "nlayers": None,
+        "kind": "narrowband" if isinstance(phi, NarrowBandField) else "dense",
+        "nlayers": getattr(phi, "nlayers", None),
         "metadata": metadata or {},
     }
     arrays = {"values": _to_numpy(phi.values)}
+    if isinstance(phi, NarrowBandField):
+        arrays["mask"] = _to_numpy(phi.mask)
     for name, arr in (extra_arrays or {}).items():
         arrays[f"extra.{name}"] = _to_numpy(arr)
     np.savez_compressed(path, manifest=json.dumps(manifest), **arrays)
@@ -94,14 +111,14 @@ def load_checkpoint(path, device=None) -> Tuple[MeshField, float, Dict[str, np.n
         manifest = json.loads(str(data["manifest"]))
         if manifest["format"] != _FORMAT_VERSION:
             raise ValueError(f"unsupported checkpoint format {manifest['format']}")
-        if manifest["kind"] != "dense":
-            raise NotImplementedError(
-                f"{manifest['kind']!r} checkpoints need the narrow band, which is not "
-                "ported yet (ROADMAP.md queue 1, slice 3)")
         g = manifest["grid"]
         grid = Grid(g["lo"], g["hi"], g["shape"])
-        phi = field_from_numpy(data["values"], grid, _bc_from_json(manifest["bcs"]),
-                               device=device)
+        bcs = _bc_from_json(manifest["bcs"])
+        if manifest["kind"] == "narrowband":
+            phi = narrowband_from_numpy(data["values"], data["mask"], grid, bcs,
+                                        manifest["nlayers"], device=device)
+        else:
+            phi = field_from_numpy(data["values"], grid, bcs, device=device)
         extra = {k[len("extra."):]: np.asarray(v) for k, v in data.items()
                  if k.startswith("extra.")}
     return phi, manifest["t"], extra, manifest["metadata"]
