@@ -23,6 +23,12 @@ exits non-zero):
              f64: the active-tile stage (K6), the gated shell refresh (K7) on
              five BC cases and three gate settings, the incremental re-tube
              (K8) and the dispatch rebuilt from it.
+   k1kinds — K1's term-list entry (K1') vs its plain version at 40x72x136
+             on a torus, five BC cases, f32 and f64: normal motion (constant,
+             streamed, callable speed), curvature (constant, streamed),
+             eikonal (recomputed, frozen sign), a 3-term sum with aux.
+   k6kinds — K6's term-list entry (K6') on the same cases over a sphere's
+             dispatch list; the rest of the target bit for bit.
 8. k512    — K1 and K2 vs their plain versions at the main path's 512^3
              shape, on its own inputs (Zalesak field, rotation velocity).
 9. k3_512  — K3 at 512^3 on the main path's inputs: a 64^3 sub-box vs the
@@ -31,6 +37,8 @@ exits non-zero):
              on K3's dP.
 10. band_512 — the band bench's 512^3 sphere band, a few FE steps through
              K6-K8 and through their plain versions.
+    kinds_512 — K1' vs plain at 512^3 on configs A and B's inputs, K6' on
+             config C's and on A's terms over the off-axis sphere band.
 11. slice  — 64^3 Zalesak RK3 ``integrate``: CPU (plain) vs card (kernels).
 12. main   — the 512^3 Zalesak RK3 main path through
              ``LevelSetEquation.integrate``, counting kernel launches.
@@ -43,6 +51,12 @@ exits non-zero):
 14. band   — the band main path: ``integrate`` on the 512^3 sphere
              ``NarrowBandField``, FE and RK3, counting K6-K8 launches; a
              forced dispatch-list overflow; 64^3 card vs CPU.
+    kinds  — configs A (torus, curvature + normal motion, RK3), B (eikonal
+             reinitialization of a torus whose |grad| is not 1, both sign
+             forms) and C (the sphere band under a streamed normal speed, FE
+             and RK3) through ``integrate`` at 512^3, counting launches; A's
+             terms on the off-axis band vs the plain versions; 64^3 card vs
+             CPU; a gradient through the kinds refused on the card.
 15. timing — CUDA-event medians at 512^3: K1-K5, the FE and RK3 steps
              through the kernels and through the plain versions, the
              end-to-end ``integrate`` time per step for FE and RK3, the two
@@ -50,9 +64,12 @@ exits non-zero):
 16. band_timing — K6-K8 alone, the band FE and RK3 steps (kernels and plain
              versions), the band ``integrate`` per step at 512^3 and 768^3
              beside the dense one at 768^3; peak memory of each.
+    kinds_timing — K1' on A's and B's inputs, K6' on C's, their plain
+             versions, ``integrate`` per step of A, B and C; peak memory.
 17. profile — ``torch.profiler`` over 3 RK3 steps of the main path, the two
-             gradient cells and 3 band FE and RK3 steps: device busy share of
-             the wall time and device time by kernel.
+             gradient cells, 3 band FE and RK3 steps, and 3 RK3 steps each of
+             configs A and C: device busy share of the wall time and device
+             time by kernel.
 
 The last two lines are the card (``nvidia-smi``) and a JSON verdict; the line
 before them holds the per-kernel JSON record: launches on the main paths,
@@ -76,6 +93,7 @@ import torch
 import lsm_tpu_torch as lsm
 from lsm_tpu_torch.core.narrowband import box_dilate
 from lsm_tpu_torch.integrators.band_fused import FusedBandStepper, default_tiles
+from lsm_tpu_torch.geometry import queries as geo
 from lsm_tpu_torch.integrators.fused import _STAGES, FusedStepper
 from lsm_tpu_torch.models import shapes
 from lsm_tpu_torch.ops import _build
@@ -106,21 +124,35 @@ FP32_OPS_PER_S = 67e12
 # 202 per axis + 1 (FE form, no aux)
 K1_OPS_PER_CELL = 3 * 88 + 5
 K3_OPS_PER_CELL = 3 * 202 + 1
+# csrc/hamiltonians.cuh per node (a division, square root or pow as one):
+# Godunov norms 3 * 43 + 6 (ENO2 31 per axis), normal motion 140, curvature
+# 69, frozen eikonal 139; the stage adds 3 and one per term
+KINDS_OPS = {"A": 140 + 69 + 2 + 3, "B": 139 + 1 + 3, "C": 140 + 1 + 3}
+KINDS_STEPS = 10  # configs A, B and C at 512^3: steps of integrate
+KINDS_SMALL_STEPS = 5  # their 64^3 card-vs-CPU trajectories
+GATE_ULPS = 4  # curvature: nodes this close to its eps gate are counted, not compared
 
 COUNTED = {"K1": v2.fused_stage, "K2": v2.refresh_ghosts_fast, "K3": bwd.stage_backward,
            "K4": bwd.fold_ghost_cotangent_fast, "K5": bwd.zero_pad_shells,
            "K6": bd.band_stage, "K7": bd.refresh_band_ghosts_fast,
            "K8": bd.band_retube_incremental}
-NONE_LAUNCHED = {name: 0 for name in COUNTED}
+# the term-list entries of K1 and K6, counted apart (``kinds_launches``) as
+# well as in their wrapper's ``launches``
+KIND_ENTRIES = {"K1'": v2.fused_stage, "K6'": bd.band_stage}
+NONE_LAUNCHED = {name: 0 for name in (*COUNTED, *KIND_ENTRIES)}
 
 
 def reset_counts():
     for fn in COUNTED.values():
         fn.launches = 0
+    for fn in KIND_ENTRIES.values():
+        fn.kinds_launches = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in COUNTED.items()}
+    out = {name: fn.launches for name, fn in COUNTED.items()}
+    out.update({name: fn.kinds_launches for name, fn in KIND_ENTRIES.items()})
+    return out
 
 
 def bound(nbytes, ops):
@@ -389,7 +421,7 @@ def phase_k3_512(dev, res):
     shape, sp, bcs, n = grid.shape, grid.spacing, phi.bcs, N_MAIN
     stepper = FusedStepper(lsm.AdvectionTerm(vel), phi, lsm.RK3())
     P = stepper.pack(phi.values)
-    u = stepper.velocity(0.0)
+    u = stepper.stage_terms(0.0)[0][1]
     dt = 0.5 * float(lsm.compute_cfl(stepper.terms, phi, 0.0))
     P1 = v2.fused_step_stage(P, u, (0.0, 1.0, dt), None, bcs, sp, shape)
     G = torch.randn(v2.padded_shape(shape), generator=torch.Generator(device=dev).manual_seed(6),
@@ -459,7 +491,7 @@ def phase_k512(dev, res):
     shape, sp, bcs = grid.shape, grid.spacing, phi.bcs
     stepper = FusedStepper(lsm.AdvectionTerm(vel), phi, lsm.RK3())
     P = stepper.pack(phi.values)
-    u = stepper.velocity(0.0)
+    u = stepper.stage_terms(0.0)[0][1]
     dt = 0.5 * float(lsm.compute_cfl(stepper.terms, phi, 0.0))
     P1 = v2.refresh_ghosts_plain(v2.stage_plain(P, u, (0.0, 1.0, dt), None, sp, shape),
                                  bcs, shape)
@@ -579,7 +611,8 @@ def phase_grad(dev, res):
     gv, gu = torch.autograd.grad(loss, (v, u))
     ok_a = math.isfinite(loss.item()) and bool(torch.isfinite(gv).all()) and bool(
         torch.isfinite(gu).all())
-    stream_c = FusedStepper(lsm.AdvectionTerm(rotation), phi, lsm.ForwardEuler()).velocity(0.0)
+    stream_c = FusedStepper(lsm.AdvectionTerm(rotation), phi,
+                            lsm.ForwardEuler()).stage_terms(0.0)[0][1]
     loss_c = fe_grad_loss(v, stream_c, bcs, sp, shape, dt)
     (gv_c,) = torch.autograd.grad(loss_c, v)
     ok_a = ok_a and math.isfinite(loss_c.item()) and bool(torch.isfinite(gv_c).all())
@@ -675,7 +708,7 @@ class PlainStepper(FusedStepper):
     tensor there)."""
 
     def stage(self, P, coeffs, t_stage, aux, coeff_values=None):
-        out = v2.stage_plain(P, self.velocity(t_stage), coeffs, aux, self.spacing, self.shape)
+        out = v2.stage_plain(P, self.stage_terms(t_stage), coeffs, aux, self.spacing, self.shape)
         return v2.refresh_ghosts_plain(out, self.bcs, self.shape)
 
 
@@ -733,7 +766,7 @@ class PlainBandStepper(FusedBandStepper):
     there)."""
 
     def stage(self, src, dst, state, coeffs, t_stage, aux):
-        bd.band_stage_plain(src, dst, state.ids, state.band, self.velocity(state, t_stage),
+        bd.band_stage_plain(src, dst, state.ids, state.band, self.stage_terms(state, t_stage),
                             coeffs, aux, self.spacing, self.shape, self.tiles)
         return bd.refresh_band_ghosts_plain(dst, self.bcs, self.shape, state.flags)
 
@@ -1029,7 +1062,7 @@ def phase_band_timing(dev, res):
     fe = FusedBandStepper((lsm.AdvectionTerm(spin),), nb, lsm.ForwardEuler())
     state = fe.pack(nb)
     P, out = state.bufs
-    u = fe.velocity(state, 0.0)
+    u = fe.stage_terms(state, 0.0)
     coeffs = (0.0, 1.0, dt)
     t["K6"] = cuda_time(lambda: bd.band_stage(P, out, state.ids, state.band, u, coeffs, None, sp,
                                               shape, fe.tiles))
@@ -1097,6 +1130,480 @@ def phase_band_timing(dev, res):
     res["mem"].update(mem)
 
 
+# -- the term kinds: K1' and K6' (the term-list entries of K1 and K6) -----------------
+
+
+def a_terms():
+    """Config A's terms: curvature plus normal motion, constant coefficients."""
+    return (lsm.CurvatureTerm(-0.05), lsm.NormalMotionTerm(0.2))
+
+
+def torus_field(n, dev, dtype=torch.float32, wavy=False):
+    """Config A's field: the torus (major radius 0.5, minor 0.2) on [-1, 1]^3
+    with n^3 nodes, ``Extrapolation(2)``. ``wavy``: config B's, the torus
+    times (0.5 + |x|^2), whose zero set is the torus but whose |grad| is not 1."""
+    grid = lsm.Grid((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), (n, n, n))
+    tor = shapes.torus((0.0, 0.0, 0.0), 0.5, 0.2)
+    fn = (lambda x, y, z: tor(x, y, z) * (0.5 + x * x + y * y + z * z)) if wavy else tor
+    return lsm.sample(fn, grid, lsm.Extrapolation(2), dtype=dtype, device=dev)
+
+
+def c_term(phi):
+    """Config C's term: normal motion at the streamed speed 0.1 + 0.05 x."""
+    speed = lsm.sample(lambda x, y, z: 0.1 + 0.05 * x + 0.0 * (y + z), phi.grid, phi.bcs,
+                       dtype=phi.dtype, device=phi.device)
+    return lsm.NormalMotionTerm(speed)
+
+
+def kinds_speed(xs, t):
+    """A speed that changes sign across [-1, 1]^3 (both Godunov branches)."""
+    return 0.3 * xs[0] - 0.1 * (xs[1] + xs[2]) + 0.05 + 0.2 * t
+
+
+def gate_nodes(P, sp, shape):
+    """Interior nodes whose plain |grad phi|^2 lies within GATE_ULPS ulps of
+    the curvature's epsilon gate, where one ulp switches the curvature
+    between 0 and its value."""
+    nrmsq = 0.0
+    for c in geo.gradient_from_padded(P, sp, v2.GHOST, shape):
+        nrmsq = nrmsq + c * c
+    eps = torch.finfo(P.dtype).eps
+    return (nrmsq.double() - eps).abs() <= GATE_ULPS * eps * eps
+
+
+def kind_cases(phi, gen, pack, xs, shape):
+    """The term lists of the kinds checks, as ``(name, terms, with_aux)``:
+    every kind with each coefficient kind it takes (a callable evaluated at
+    ``xs`` into tensors of ``shape``) and a 3-term sum with aux. Random
+    streams have exact zeros (ties). ``pack`` maps an interior-shaped
+    stream to the kernel's layout."""
+    dev, dtype = phi.device, phi.dtype
+    a = torch.randn(phi.shape, generator=gen, device=dev, dtype=dtype)
+    a[:, ::4] = 0.0
+    vel = 0.5 * torch.randn((3, *phi.shape), generator=gen, device=dev, dtype=dtype)
+    s0 = lsm.EikonalReinitializationTerm.from_initial(phi).s0.values
+    stream = lambda kind, arrs: (v2.TermSpec(kind, "stream", None, len(arrs)),
+                                 tuple(pack(x) for x in arrs))
+    const = lambda kind, value: (v2.TermSpec(kind, "const", value, 0), ())
+    called = (v2.TermSpec("normal", "stream", None, 1),
+              v2.eval_components(kinds_speed(xs, 0.3), shape, dtype, dev, 1))
+    return [
+        ("normal const", (const("normal", 0.2),), False),
+        ("normal stream", (stream("normal", [a]),), False),
+        ("normal callable", (called,), False),
+        ("curvature const", (const("curvature", -0.05),), False),
+        ("curvature stream", (stream("curvature", [-a.abs()]),), False),
+        ("eikonal none", ((v2.TermSpec("eikonal", "none", None, 0), ()),), False),
+        ("eikonal stream", (stream("eikonal", [s0]),), False),
+        ("3-term sum", (stream("advection", list(vel)), const("curvature", -0.01),
+                        stream("normal", [a])), True),
+    ]
+
+
+def kinds_err(g, r, keep):
+    """``(max|g - r|, max(|r|, 1))`` over ``keep``."""
+    d = (g - r)[keep]
+    return float(d.abs().max()), max(float(r[keep].abs().max()), 1.0)
+
+
+def has_curvature(terms):
+    return any(spec.kind == "curvature" for spec, _ in terms)
+
+
+def phase_k1kinds(dev, res):
+    """K1' (K1's term-list entry) against its plain version at BAND_SMALL on
+    the torus (curvature of both signs), on K2's five BC cases, f32 and
+    f64, for every case of :func:`kind_cases`: the bare operator (alpha,
+    beta, gamma) = (0, 0, 1), so no dt scales an error down, and a stage
+    (with aux for the sum). Curvature nodes at the eps gate are counted and
+    left out."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst = 0.0
+    for dtype, tol in ((torch.float32, K1_TOL), (torch.float64, 1e-12)):
+        grid = lsm.Grid((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), BAND_SMALL)
+        phi = lsm.sample(shapes.torus((0.0, 0.0, 0.0), 0.5, 0.2), grid, lsm.Extrapolation(2),
+                         dtype=dtype, device=dev)
+        shape, sp = grid.shape, grid.spacing
+        xs = v2.node_coords(shape, sp, grid.lo, dtype, dev)
+        for bname, bcs in bc_cases().items():
+            P = v2.pack_padded(phi.values, bcs)
+            A = v2.pack_padded(phi.values + 0.01 * torch.randn(
+                shape, generator=gen, device=dev, dtype=dtype), bcs)
+            gate = gate_nodes(P, sp, shape)
+            errs = {}
+            for name, terms, with_aux in kind_cases(phi, gen, lambda x: x.contiguous(), xs, shape):
+                keep = ~gate if has_curvature(terms) else torch.ones_like(gate)
+                stage = (A, (0.75, 0.25, 2.5e-4)) if with_aux else (None, (0.0, 1.0, 1e-3))
+                for aux, coeffs in ((None, (0.0, 0.0, 1.0)), stage):
+                    got = v2.fused_stage(P, terms, coeffs, aux, sp, shape)
+                    ref = v2.stage_plain(P, terms, coeffs, aux, sp, shape)
+                    torch.cuda.synchronize()
+                    g, r = v2.unpack_padded(got, shape), v2.unpack_padded(ref, shape)
+                    err, scale = kinds_err(g, r, keep)
+                    if not (bool(torch.isfinite(g).all()) and err <= tol * scale):
+                        raise AssertionError(f"K1' parity failed ({dtype}, {bname}, {name}, "
+                                             f"coeffs {coeffs}): {err} > {tol} * {scale}")
+                    errs[name] = max(errs.get(name, 0.0), err / scale)
+                    if dtype == torch.float32:
+                        worst = max(worst, err)
+            log("k1kinds", f"K1' {str(dtype)[6:]} {bname:9s} shape={shape} max|kernel-plain|/scale "
+                           f"(tol {tol:g}): " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+                           + f"; nodes at the curvature gate left out: {int(gate.sum())}")
+    res["k1k_err"] = worst
+
+
+def phase_k6kinds(dev, res):
+    """K6' (K6's term-list entry) against its plain version on the cases of
+    :func:`kind_cases` over the BAND_SMALL sphere's dispatch list, with the
+    ghosts of K2's five BC cases, f32 and f64: within K1's bound on the
+    compute band of the dispatched tiles, bit for bit elsewhere (the
+    source's value on the rest of a dispatched tile, the target's previous
+    value on every other tile and on the shells)."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    worst = 0.0
+    for dtype, tol in ((torch.float32, K1_TOL), (torch.float64, 1e-12)):
+        grid = lsm.Grid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), BAND_SMALL)
+        phi = lsm.sample(shapes.sphere((0.1, 0.5, 0.9), 0.35), grid, lsm.Extrapolation(2),
+                         dtype=dtype, device=dev)
+        nb = lsm.NarrowBandField.from_field(phi)
+        shape, sp, tiles = grid.shape, grid.spacing, default_tiles(nb.nlayers)
+        band = combined(nb)
+        act = bd.tile_activity(band, tiles)
+        cap = int(act.sum()) + 5
+        ids, _ = bd.compact_ids(act, cap)
+        flat, _ = bd.tile_index(ids, shape, tiles)
+        disp = bd.dispatched_cells(ids, shape, tiles)
+        cm = band != 0
+        off_list = ~inside(shape, disp, dev)
+        xs = bd.tile_coords(ids, shape, tiles, sp, grid.lo, dtype)
+        pack = lambda x: x.reshape(-1)[flat].contiguous()
+        for bname, bcs in bc_cases().items():
+            P = v2.pack_padded(nb.values, bcs)
+            A = v2.pack_padded(nb.values + 0.01 * torch.randn(
+                shape, generator=gen, device=dev, dtype=dtype), bcs)
+            target = P + torch.randn(P.shape, generator=gen, device=dev, dtype=dtype)
+            gate = gate_nodes(P, sp, shape)
+            errs, exact = {}, True
+            for name, terms, with_aux in kind_cases(phi, gen, pack, xs, (cap, *tiles)):
+                on = disp & cm & (~gate if has_curvature(terms) else torch.ones_like(gate))
+                aux, coeffs = (A, (0.75, 0.25, 2.5e-4)) if with_aux else (None, (0.0, 1.0, 1e-3))
+                got = bd.band_stage(P, target.clone(), ids, band, terms, coeffs, aux, sp, shape,
+                                    tiles)
+                ref = bd.band_stage_plain(P, target.clone(), ids, band, terms, coeffs, aux, sp,
+                                          shape, tiles)
+                torch.cuda.synchronize()
+                g, r = v2.unpack_padded(got, shape), v2.unpack_padded(ref, shape)
+                err, scale = kinds_err(g, r, on)
+                kept = torch.equal(g[disp & ~cm], v2.unpack_padded(P, shape)[disp & ~cm])
+                untouched = torch.equal(got[off_list], target[off_list])
+                exact = exact and kept and untouched
+                if not (bool(torch.isfinite(g).all()) and err <= tol * scale and kept
+                        and untouched):
+                    raise AssertionError(f"K6' parity failed ({dtype}, {bname}, {name}): err "
+                                         f"{err} scale {scale}, kept {kept}, untouched {untouched}")
+                errs[name] = err / scale
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+            log("k6kinds", f"K6' {str(dtype)[6:]} {bname:9s} tiles={tiles} slots={cap} "
+                           f"max|kernel-plain|/scale (tol {tol:g}): "
+                           + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+                           + f"; off the band and off the list bit for bit: {exact}")
+    res["k6k_err"] = worst
+
+
+def _k1k_512(label, stepper, P, coeff_sets, res):
+    """K1' against its plain version on the 512^3 stepper's term list."""
+    terms = stepper.stage_terms(0.0)
+    shape, sp = stepper.shape, stepper.spacing
+    keep = ~gate_nodes(P, sp, shape) if has_curvature(terms) else None
+    for tag, src, aux, coeffs in coeff_sets:
+        g = v2.unpack_padded(v2.fused_stage(src, terms, coeffs, aux, sp, shape), shape)
+        r = v2.unpack_padded(v2.stage_plain(src, terms, coeffs, aux, sp, shape), shape)
+        err, scale = kinds_err(g, r, keep if keep is not None else torch.ones_like(g, dtype=bool))
+        ok = bool(torch.isfinite(g).all()) and err <= K1_TOL * scale
+        log("kinds_512", f"K1' {label} {tag:8s} {N_MAIN}^3 f32 max|kernel-plain|={err:.3e} "
+                         f"scale={scale:.3e} tol={K1_TOL:g}*scale, gate nodes left out "
+                         f"{0 if keep is None else int((~keep).sum())}")
+        if not ok:
+            raise AssertionError(f"K1' parity at {N_MAIN}^3 failed ({label}, {tag})")
+        res["k1k_err"] = max(res["k1k_err"], err)
+        del g, r
+
+
+def phase_kinds_512(dev, res):
+    """K1' against its plain version at 512^3 on the inputs of config A
+    (stage 1, RK3 stage 2 with aux, the bare operator) and of config B (both
+    eikonal forms); K6' on config C's sphere band (streamed speed) and on
+    curvature plus normal motion on the off-axis sphere that reaches a face."""
+    phi = torus_field(N_MAIN, dev)
+    st_a = FusedStepper(a_terms(), phi, lsm.RK3())
+    P = st_a.pack(phi.values)
+    dt = 0.5 * float(st_a.cfl(P, 0.0))
+    P1 = v2.refresh_ghosts_plain(v2.stage_plain(P, st_a.stage_terms(0.0), (0.0, 1.0, dt), None,
+                                                st_a.spacing, st_a.shape), st_a.bcs, st_a.shape)
+    _k1k_512("A", st_a, P, (("stage 1", P, None, (0.0, 1.0, dt)),
+                            ("stage 2", P1, P, (0.75, 0.25, 0.25 * dt)),
+                            ("-H", P, None, (0.0, 0.0, 1.0))), res)
+    del P1, P, st_a, phi
+    phi = torus_field(N_MAIN, dev, wavy=True)
+    for label, term in (("B frozen", lsm.EikonalReinitializationTerm.from_initial(phi)),
+                        ("B none", lsm.EikonalReinitializationTerm())):
+        st_b = FusedStepper((term,), phi, lsm.RK3())
+        P = st_b.pack(phi.values)
+        dt = 0.5 * float(st_b.cfl(P, 0.0))
+        _k1k_512(label, st_b, P, (("stage 1", P, None, (0.0, 1.0, dt)),
+                                  ("-H", P, None, (0.0, 0.0, 1.0))), res)
+        del P, st_b
+    del phi
+    torch.cuda.empty_cache()
+    for label, center, terms_of in (("C", (0.0, 0.0, 0.0), lambda nb: (c_term(nb),)),
+                                    ("A off-axis", (0.5, 0.0, 0.0), lambda nb: a_terms())):
+        nb = sphere_band(N_MAIN, dev, center=center)
+        stepper = FusedBandStepper(terms_of(nb), nb, lsm.ForwardEuler())
+        state = stepper.pack(nb)
+        P, out = state.bufs
+        terms = stepper.stage_terms(state, 0.0)
+        dt = 0.5 * float(stepper.cfl(state, 0.0)[0])
+        shape, sp = stepper.shape, stepper.spacing
+        got = bd.band_stage(P, out.clone(), state.ids, state.band, terms, (0.0, 1.0, dt), None,
+                            sp, shape, stepper.tiles)
+        ref = bd.band_stage_plain(P, out.clone(), state.ids, state.band, terms, (0.0, 1.0, dt),
+                                  None, sp, shape, stepper.tiles)
+        disp = bd.dispatched_cells(state.ids, shape, stepper.tiles)
+        stage_nodes = disp & (state.band != 0)
+        on = stage_nodes & ~gate_nodes(P, sp, shape) if has_curvature(terms) else stage_nodes
+        g, r = v2.unpack_padded(got, shape), v2.unpack_padded(ref, shape)
+        err, scale = kinds_err(g, r, on)
+        rest = ~inside(shape, stage_nodes, dev)
+        same = torch.equal(got[rest], ref[rest])
+        log("kinds_512", f"K6' {label} {N_MAIN}^3 f32 sphere band {center}: dispatched tiles "
+                         f"{int(state.count)}, gates {state.flags.tolist()}, max|kernel-plain|="
+                         f"{err:.3e} scale={scale:.3e} tol={K1_TOL:g}*scale, the rest bit for "
+                         f"bit: {same}")
+        if not (bool(torch.isfinite(g).all()) and err <= K1_TOL * scale and same):
+            raise AssertionError(f"K6' parity at {N_MAIN}^3 failed ({label})")
+        res["k6k_err"] = max(res["k6k_err"], err)
+        del nb, stepper, state, P, out, got, ref, g, r
+        torch.cuda.empty_cache()
+
+
+def eikonal_error(phi):
+    """``(mean, max)`` of ``| |grad phi| - 1 |`` (central differences) over
+    the nodes with ``|phi| < 3h``."""
+    g = geo.grad_norm_from_padded(phi.pad(1), phi.spacing, 1, phi.shape)
+    near = phi.values.abs() < 3 * phi.grid.min_spacing
+    d = (g[near].double() - 1.0).abs()
+    return float(d.mean()), float(d.max())
+
+
+def counted_integrate(phi, terms, integrator, steps):
+    """``integrate`` of ``steps`` steps with the launch counts reset before
+    it: ``(equation, counts, wall seconds)``."""
+    eq = lsm.LevelSetEquation(terms=terms, ic=phi, integrator=integrator)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    eq.integrate(1.0, max_steps=steps)
+    torch.cuda.synchronize()
+    return eq, read_counts(), time.perf_counter() - t0
+
+
+def phase_kinds(dev, res):
+    """Configs A, B and C through ``LevelSetEquation.integrate`` at 512^3,
+    KINDS_STEPS steps each, counting launches (dense RK3: K1 = K2 = K1' = 3
+    per step; band: K6 = K7 = K6' = stages per step, K8 one per re-tube;
+    nothing else); A's volume change, B's | |grad phi| - 1 | near the
+    interface before and after; C's band against the plain versions with
+    curvature on the off-axis sphere; 64^3 card-vs-CPU trajectories; a
+    gradient through a kinds rollout on the card is refused."""
+    n, steps = N_MAIN, KINDS_STEPS
+    phi = torus_field(n, dev)
+    vol0 = float(lsm.volume(phi))
+    eq, counts, wall = counted_integrate(phi, a_terms(), lsm.RK3(), steps)
+    vol1 = float(eq.volume())
+    finite = bool(torch.isfinite(eq.state.values).all())
+    want = dict(NONE_LAUNCHED, K1=3 * steps, K2=3 * steps, **{"K1'": 3 * steps})
+    log("kinds", f"A {n}^3 f32 curvature(-0.05) + normal(0.2) RK3: steps={eq.last_nsteps} "
+                 f"t={eq.t:.6e} path={eq.last_fast_path} launches={counts} finite={finite} "
+                 f"volume {vol0:.6e} -> {vol1:.6e} (rel {abs(vol1 - vol0) / vol0:.2e}) "
+                 f"wall={wall:.3f}s")
+    if not (eq.last_nsteps == steps and eq.last_fast_path == "fused" and finite
+            and counts == want and tuple(eq.state.values.shape) == phi.shape):
+        raise AssertionError("config A check failed")
+    res["launches"]["K1'"] = counts["K1'"]
+    res["kinds_A_volume"] = (vol0, vol1)
+    del eq, phi
+    phi = torus_field(n, dev, wavy=True)
+    before = eikonal_error(phi)
+    for label, term in (("frozen", lsm.EikonalReinitializationTerm.from_initial(phi)),
+                        ("none", lsm.EikonalReinitializationTerm())):
+        eq, counts, wall = counted_integrate(phi, (term,), lsm.RK3(), steps)
+        after = eikonal_error(eq.state)
+        log("kinds", f"B {n}^3 f32 eikonal ({label} sign) RK3: steps={eq.last_nsteps} "
+                     f"t={eq.t:.6e} path={eq.last_fast_path} launches={counts}; | |grad phi| - 1 | "
+                     f"over |phi| < 3h: mean {before[0]:.4e} -> {after[0]:.4e}, max "
+                     f"{before[1]:.4e} -> {after[1]:.4e}; wall={wall:.3f}s")
+        if not (eq.last_nsteps == steps and eq.last_fast_path == "fused" and counts == want
+                and bool(torch.isfinite(eq.state.values).all()) and after[0] < before[0]):
+            raise AssertionError(f"config B check failed ({label})")
+        res[f"kinds_B_{label}"] = (before, after)
+        del eq
+    del phi
+    torch.cuda.empty_cache()
+    nb = sphere_band(n, dev)
+    vol0 = float(lsm.volume(nb))
+    for name, integ in (("FE", lsm.ForwardEuler()), ("RK3", lsm.RK3())):
+        eq, counts, wall = counted_integrate(nb, (c_term(nb),), integ, steps)
+        stages = len(_STAGES[type(integ)])
+        want_c = dict(NONE_LAUNCHED, K6=stages * steps, K7=stages * steps, K8=steps,
+                      **{"K6'": stages * steps})
+        rel = abs(float(eq.volume()) - vol0) / vol0
+        log("kinds", f"C {n}^3 f32 sphere band, normal motion at 0.1 + 0.05 x (streamed) "
+                     f"{name}: steps={eq.last_nsteps} t={eq.t:.6e} path={eq.last_fast_path} "
+                     f"launches={counts} volume rel change {rel:.3e} wall={wall:.3f}s")
+        if not (eq.last_nsteps == steps and eq.last_fast_path == "band" and counts == want_c
+                and bool(torch.isfinite(eq.state.values).all())):
+            raise AssertionError(f"config C check failed ({name})")
+        if name == "RK3":
+            res["launches"]["K6'"] = counts["K6'"]
+        del eq
+    del nb
+    torch.cuda.empty_cache()
+    # the parity case: curvature plus normal motion on the off-axis sphere,
+    # through the kernels and through their plain versions
+    nb = sphere_band(n, dev, center=(0.5, 0.0, 0.0))
+    kst = FusedBandStepper(a_terms(), nb, lsm.ForwardEuler())
+    dt = 0.5 * float(kst.cfl(kst.pack(nb), 0.0)[0])
+    outs = {}
+    for cls in (FusedBandStepper, PlainBandStepper):
+        st_ = cls(a_terms(), nb, lsm.ForwardEuler())
+        state, t = st_.pack(nb), 0.0
+        for _ in range(BAND_CHECK_STEPS):
+            state = st_.step(state, t, dt)
+            t += dt
+        outs[cls] = (st_.unpack(state), state.flags.tolist())
+    (got, flags), (ref, _) = outs[FusedBandStepper], outs[PlainBandStepper]
+    err, scale, dmask, dcmask = band_diff(got, ref)
+    log("kinds", f"A's terms on the off-axis {n}^3 sphere band, FE x{BAND_CHECK_STEPS}: "
+                 f"max|kernels-plain|={err:.3e} scale={scale:.3e} tol={K1_TOL:g}*scale, mask "
+                 f"mismatches {dmask} (compute {dcmask}), gates {flags}")
+    if not (err <= K1_TOL * scale and dmask == dcmask == 0 and flags == [1, 1]):
+        raise AssertionError("the band kinds disagree with their plain versions at 512^3")
+    del nb, kst, outs, got, ref
+    torch.cuda.empty_cache()
+    kinds_card_vs_cpu(dev)
+    # a gradient through a kinds rollout on the card is refused before any stage runs
+    phi = torus_field(N_SMALL, dev)
+    try:
+        reset_counts()
+        lsm.rollout(lsm.RK3(), a_terms(), phi.with_values(phi.values.clone().requires_grad_()),
+                    0.0, 1e-4, 2)
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    log("kinds", f"gradient through a rollout of A's terms on the card: {refused!r}; "
+                 f"launches before the refusal {read_counts()}")
+    if "K3 term kinds" not in refused or read_counts() != NONE_LAUNCHED:
+        raise AssertionError("a gradient through the kinds was not refused")
+
+
+def kinds_card_vs_cpu(dev):
+    """64^3 trajectories of A, B (frozen sign) and C, card (kernels) against
+    CPU (plain versions): f32 within 1e-4 * scale, f64 within 1e-10 * scale,
+    equal step counts and paths; the band's masks equal in f64 (reported in
+    f32, where a rounding difference may flip a cut cell)."""
+    cases = {
+        "A": (lambda where, dt: torus_field(N_SMALL, where, dt), lambda phi: a_terms()),
+        "B": (lambda where, dt: torus_field(N_SMALL, where, dt, wavy=True),
+              lambda phi: (lsm.EikonalReinitializationTerm.from_initial(phi),)),
+        "C": (lambda where, dt: sphere_band(N_SMALL, where, dt, center=(0.5, 0.0, 0.0),
+                                            radius=0.4), lambda phi: (c_term(phi),)),
+    }
+    for name, (make, terms_of) in cases.items():
+        for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+            out = {}
+            for where in ("cpu", dev):
+                phi = make(where, dtype)
+                eq = lsm.LevelSetEquation(terms=terms_of(phi), ic=phi, integrator=lsm.RK3())
+                eq.integrate(1.0, max_steps=KINDS_SMALL_STEPS)
+                out[str(where)] = eq
+            a, b = out[str(dev)], out["cpu"]
+            scale = max(float(b.state.values.abs().max()), 1.0)
+            if name == "C":
+                err, _, dmask, dcmask = band_diff(a.state, b.state)
+            else:
+                err, dmask, dcmask = float((a.state.values.cpu() - b.state.values).abs().max()), 0, 0
+            log("kinds", f"{name} {N_SMALL}^3 {str(dtype)[6:]} RK3 x{KINDS_SMALL_STEPS} card vs "
+                         f"CPU: paths {a.last_fast_path}/{b.last_fast_path} t {a.t:.6e}/{b.t:.6e} "
+                         f"max|card-cpu|={err:.3e} scale={scale:.3e} (tol {tol:g}*scale) mask "
+                         f"mismatches {dmask} (compute {dcmask})")
+            masks_ok = dtype == torch.float32 or dmask == dcmask == 0
+            if not (a.last_nsteps == b.last_nsteps == KINDS_SMALL_STEPS and masks_ok
+                    and a.last_fast_path == b.last_fast_path and err <= tol * scale):
+                raise AssertionError(f"{name} card-vs-CPU check failed ({dtype})")
+
+
+def phase_kinds_timing(dev, res):
+    """CUDA-event medians at 512^3: K1' on config A's and config B's
+    (frozen and recomputed sign) stage-1 inputs, K6' on config C's, and
+    their plain versions; ``integrate`` ms per step for A (RK3), B (RK3,
+    frozen sign) and C (FE, RK3); peak memory of each."""
+    t, mem, n = res["t"], {}, N_MAIN
+    phi = torus_field(n, dev)
+    st_a = FusedStepper(a_terms(), phi, lsm.RK3())
+    P = st_a.pack(phi.values)
+    dt = 0.5 * float(st_a.cfl(P, 0.0))
+    terms = st_a.stage_terms(0.0)
+    t["K1k_A"] = cuda_time(lambda: v2.fused_stage(P, terms, (0.0, 1.0, dt), None, st_a.spacing,
+                                                  st_a.shape))
+    t["K1k_A_plain"] = cuda_time(lambda: v2.stage_plain(P, terms, (0.0, 1.0, dt), None,
+                                                        st_a.spacing, st_a.shape), warmup=1, reps=5)
+    t["A_integrate"] = integrate_ms_per_step(a_terms(), phi, lsm.RK3())
+    mem["A_integrate"] = peak_gib(lambda: lsm.LevelSetEquation(
+        terms=a_terms(), ic=phi, integrator=lsm.RK3()).integrate(1.0, max_steps=10))
+    del phi, st_a, P, terms
+    phi = torus_field(n, dev, wavy=True)
+    frozen = lsm.EikonalReinitializationTerm.from_initial(phi)
+    for label, term in (("frozen", frozen), ("none", lsm.EikonalReinitializationTerm())):
+        st_b = FusedStepper((term,), phi, lsm.RK3())
+        P = st_b.pack(phi.values)
+        terms = st_b.stage_terms(0.0)
+        t[f"K1k_B_{label}"] = cuda_time(lambda: v2.fused_stage(P, terms, (0.0, 1.0, 1e-3), None,
+                                                               st_b.spacing, st_b.shape))
+        t[f"K1k_B_{label}_plain"] = cuda_time(lambda: v2.stage_plain(
+            P, terms, (0.0, 1.0, 1e-3), None, st_b.spacing, st_b.shape), warmup=1, reps=5)
+        del st_b, P, terms
+    t["B_integrate"] = integrate_ms_per_step((frozen,), phi, lsm.RK3())
+    mem["B_integrate"] = peak_gib(lambda: lsm.LevelSetEquation(
+        terms=(frozen,), ic=phi, integrator=lsm.RK3()).integrate(1.0, max_steps=10))
+    del phi, frozen
+    torch.cuda.empty_cache()
+    nb = sphere_band(n, dev)
+    fe = FusedBandStepper((c_term(nb),), nb, lsm.ForwardEuler())
+    state = fe.pack(nb)
+    P, out = state.bufs
+    terms = fe.stage_terms(state, 0.0)
+    dt = 0.5 * float(fe.cfl(state, 0.0)[0])
+    args = (state.ids, state.band, terms, (0.0, 1.0, dt), None, fe.spacing, fe.shape, fe.tiles)
+    t["K6k_C"] = cuda_time(lambda: bd.band_stage(P, out, *args))
+    t["K6k_C_plain"] = cuda_time(lambda: bd.band_stage_plain(P, out, *args), warmup=1, reps=5)
+    flat, valid = bd.tile_index(state.ids, fe.shape, fe.tiles)
+    res["kinds_band_work"] = {"dispatched": int(valid.sum()),
+                              "ops_cells": int(((state.band.view(-1)[flat] != 0) & valid).sum())}
+    del flat, valid
+    for name, integ in (("FE", lsm.ForwardEuler()), ("RK3", lsm.RK3())):
+        key = f"C_{name}_integrate"
+        t[key] = integrate_ms_per_step((c_term(nb),), nb, integ, path="band")
+        mem[key] = peak_gib(lambda: lsm.LevelSetEquation(
+            terms=(c_term(nb),), ic=nb, integrator=integ).integrate(1.0, max_steps=10))
+    del nb, fe, state, P, out, terms
+    torch.cuda.empty_cache()
+    for name in [k for k in t if k.startswith(("K1k", "K6k", "A_", "B_", "C_"))]:
+        log("kinds_timing", f"{n}^3 f32 {name:24s} median {t[name]:.4f} ms")
+    log("kinds_timing", "peak memory: " + ", ".join(f"{k} {v:.2f} GiB" for k, v in mem.items()))
+    res["mem"].update(mem)
+
+
 def phase_timing(dev, res):
     n = N_MAIN
     grid, phi, vel = zalesak(n, dev)
@@ -1107,7 +1614,7 @@ def phase_timing(dev, res):
     fe = FusedStepper(term, phi, lsm.ForwardEuler())
     rk3 = FusedStepper(term, phi, lsm.RK3())
     P = fe.pack(phi.values)
-    u = fe.velocity(0.0)
+    u = fe.stage_terms(0.0)[0][1]
     torch.cuda.reset_peak_memory_stats()
     t = {}
     t["K1"] = cuda_time(lambda: v2.fused_stage(P, u, (0.0, 1.0, dt), None, sp, shape))
@@ -1187,7 +1694,8 @@ def timing_backward(dev, res, grid, phi, vel, P, u, dt):
     # the 3 components) and callable (w.r.t. phi)
     velv = vel.values.clone().requires_grad_()
     phiv = phi.values.clone().requires_grad_()
-    stream_c = FusedStepper(lsm.AdvectionTerm(rotation), phi, lsm.ForwardEuler()).velocity(0.0)
+    stream_c = FusedStepper(lsm.AdvectionTerm(rotation), phi,
+                            lsm.ForwardEuler()).stage_terms(0.0)[0][1]
     dt_a = 0.25 * grid.min_spacing
 
     def cell_a_streamed():
@@ -1282,6 +1790,14 @@ def phase_profile(dev, res):
         eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(spin), ic=nb, integrator=integ)
         profile_window(f"3 band {name} steps at {N_MAIN}^3",
                        lambda: eq.integrate(eq.t + 1.0, max_steps=3))
+    eq = lsm.LevelSetEquation(terms=(c_term(nb),), ic=nb, integrator=lsm.RK3())
+    profile_window(f"config C: 3 band RK3 steps at {N_MAIN}^3",
+                   lambda: eq.integrate(eq.t + 1.0, max_steps=3))
+    del eq, nb
+    phi = torus_field(N_MAIN, dev)
+    eq = lsm.LevelSetEquation(terms=a_terms(), ic=phi, integrator=lsm.RK3())
+    profile_window(f"config A: 3 RK3 steps at {N_MAIN}^3",
+                   lambda: eq.integrate(eq.t + 1.0, max_steps=3))
 
 
 def main() -> int:
@@ -1302,10 +1818,12 @@ def main() -> int:
     res = {}
     for name, run in (("device", phase_device), ("k2", phase_k2), ("k1", phase_k1),
                       ("k4k5", phase_k4k5), ("k3", phase_k3), ("k6k7k8", phase_k6k7k8),
+                      ("k1kinds", phase_k1kinds), ("k6kinds", phase_k6kinds),
                       ("k512", phase_k512), ("k3_512", phase_k3_512),
-                      ("band_512", phase_band_512), ("slice", phase_slice),
-                      ("main", phase_main), ("grad", phase_grad), ("band", phase_band),
-                      ("timing", phase_timing), ("band_timing", phase_band_timing),
+                      ("band_512", phase_band_512), ("kinds_512", phase_kinds_512),
+                      ("slice", phase_slice), ("main", phase_main), ("grad", phase_grad),
+                      ("band", phase_band), ("kinds", phase_kinds), ("timing", phase_timing),
+                      ("band_timing", phase_band_timing), ("kinds_timing", phase_kinds_timing),
                       ("profile", phase_profile)):
         t0 = time.perf_counter()
         run(dev, res)
@@ -1325,7 +1843,7 @@ def kernel_records(res):
     cells, padded, ghosts = n ** 3, (n + 6) ** 3, (n + 6) ** 3 - n ** 3
     f32 = 4
     k3_plain_n = res["K3_plain_n"]
-    work = res["band_work"]
+    work, kwork = res["band_work"], res["kinds_band_work"]
     rows = [
         ("K1 fused_stage (WENO5 advection RK stage)", "weno_stage.cu",
          "lsm_tpu/ops/weno_v2.py:667", "K1", res["k1_err"], t["K1"], t["K1_plain"],
@@ -1362,6 +1880,18 @@ def kernel_records(res):
          # phi and the mask read within the re-tube's reach of the
          # candidate tiles, the new mask written on them
          bound((f32 + 1) * work["cand_reach_cells"] + work["cand_cells"], 0), None),
+        ("K1' fused_stage, term-list entry (normal, curvature, eikonal kinds and sums; "
+         "config A: curvature + normal motion)", "weno_stage.cu", "lsm_tpu/ops/weno_v2.py:667",
+         "K1'", res["k1k_err"], t["K1k_A"], t["K1k_A_plain"],
+         # reads P, writes the interior (constant coefficients)
+         bound(f32 * (padded + cells), KINDS_OPS["A"] * cells), None),
+        ("K6' band_stage, term-list entry (config C: normal motion, streamed speed)",
+         "band_stage.cu", "lsm_tpu/ops/band_pallas.py:612", "K6'", res["k6k_err"], t["K6k_C"],
+         t["K6k_C_plain"],
+         # per dispatched node: P's centre and the mask read, the output
+         # written; on the compute band only, the tile-packed speed read
+         bound((f32 * 2 + 1) * kwork["dispatched"] + f32 * kwork["ops_cells"],
+               KINDS_OPS["C"] * kwork["ops_cells"]), None),
     ]
     out = []
     for name, src, replaces, key, err, ms, plain_ms, (bound_ms, bound_by), lib_ms in rows:
@@ -1373,6 +1903,11 @@ def kernel_records(res):
             rec["plain_grid"] = f"{k3_plain_n}^3"
         if key == "K7":  # the 512^3 band stays off the faces: the main path's K7 is gated off
             rec["ms_flags_off"] = t["K7_off"]
+        if key == "K1'":  # config B's stage (one streamed sign, 12 B/cell) and the sign recomputed
+            b_ms, (b_bound, _) = t["K1k_B_frozen"], bound(f32 * (padded + 2 * cells),
+                                                          KINDS_OPS["B"] * cells)
+            rec.update(ms_B_frozen=b_ms, plain_ms_B_frozen=t["K1k_B_frozen_plain"],
+                       bound_ms_B_frozen=b_bound, ms_B_none=t["K1k_B_none"])
         out.append(rec)
     if not all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in out):
         raise AssertionError("a kernel was not measured or not launched on the main path")

@@ -14,8 +14,11 @@ backward runs the stage-adjoint kernel K3, the ghost-cotangent fold K4 and
 the shell zeroing K5; and the narrow band: ``integrate`` on a
 ``NarrowBandField`` runs the band stepper, whose cost follows the interface,
 through the active-tile stage K6, the gated shell refresh K7 and the
-incremental re-tube K8 (``last_fast_path == "band"``). Tensors go to the
-card unless the caller asks for the CPU (``device="cpu"``).
+incremental re-tube K8 (``last_fast_path == "band"``); and the other term
+kinds: ``NormalMotionTerm``, ``CurvatureTerm`` and
+``EikonalReinitializationTerm``, and any sum of terms, through the same K1
+and K6 (forward only on the card). Tensors go to the card unless the caller
+asks for the CPU (``device="cpu"``).
 """
 
 from .core.grid import Grid
@@ -30,7 +33,13 @@ from .core.bc import (
 )
 from .core.field import MeshField, sample
 from .core.narrowband import NarrowBandField
-from .terms.terms import AdvectionTerm, compute_cfl
+from .terms.terms import (
+    AdvectionTerm,
+    CurvatureTerm,
+    EikonalReinitializationTerm,
+    NormalMotionTerm,
+    compute_cfl,
+)
 from .integrators.explicit import ForwardEuler, RK2, RK3, TimeIntegrator
 from .integrators.loop import evolve, rollout, step
 from .equation import LevelSetEquation
@@ -51,6 +60,9 @@ __all__ = [
     "sample",
     "NarrowBandField",
     "AdvectionTerm",
+    "NormalMotionTerm",
+    "CurvatureTerm",
+    "EikonalReinitializationTerm",
     "compute_cfl",
     "ForwardEuler",
     "RK2",

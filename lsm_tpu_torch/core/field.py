@@ -75,6 +75,10 @@ class MeshField:
     def with_values(self, values: torch.Tensor) -> "MeshField":
         return MeshField(values, self.grid, self.bcs, _normalized=True)
 
+    def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "MeshField":
+        """A field on the same grid with values ``fn(values)``."""
+        return self.with_values(fn(self.values))
+
     def pad(self, width: int) -> torch.Tensor:
         """Ghost-padded values with ``width`` layers on every side (vector
         fields pad the spatial axes only)."""

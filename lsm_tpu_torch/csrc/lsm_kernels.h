@@ -23,6 +23,35 @@
 #define LSM_BC_SYMMETRY 1
 #define LSM_BC_EXTRAPOLATION 2
 
+/* Term kinds and coefficient kinds of the stage's term table. */
+#define LSM_MAX_TERMS 16
+#define LSM_TERM_ADVECTION 0
+#define LSM_TERM_NORMAL 1
+#define LSM_TERM_CURVATURE 2
+#define LSM_TERM_EIKONAL 3
+#define LSM_COEF_STREAM 0
+#define LSM_COEF_CONST 1
+#define LSM_COEF_NONE 2
+
+/* The term table of K1 and K6 (mirrored by lsm_tpu_torch.ops.weno_v2.StageTerms),
+ * copied into the kernel's parameters. Entry e of n: kind[e] (LSM_TERM_*),
+ * coef[e] (LSM_COEF_*), value[e] (a constant coefficient), stream[e][0..2]
+ * (device pointers of the streamed coefficients: 3 velocity components for
+ * advection, 1 otherwise; interior-shaped for K1, tile-packed by dispatch slot
+ * for K6). The spacing-derived constants are formed in double on the host:
+ * per axis 1/h, h/2, 1/(2h) and 1/(h*h), 1/(4*h_i*h_j) for the axis pairs
+ * (0,1), (0,2), (1,2), and min(h). */
+typedef struct {
+  int n;
+  int kind[LSM_MAX_TERMS];
+  int coef[LSM_MAX_TERMS];
+  double value[LSM_MAX_TERMS];
+  const void* stream[LSM_MAX_TERMS][3];
+  double inv_h[3], half_h[3], inv_two_h[3], inv_hh[3], inv_hmix[3];
+  double dx_min;
+  double alpha, beta, gamma;
+} LsmStageTerms;
+
 #ifdef __cplusplus
 extern "C" {
 #endif
@@ -39,6 +68,15 @@ int lsm_weno_stage_f64(const void* P, const void* u0, const void* u1, const void
                        const void* aux, void* out, int64_t n0, int64_t n1, int64_t n2,
                        double inv_h0, double inv_h1, double inv_h2,
                        double alpha, double beta, double gamma, void* stream);
+
+/* K1 over a term table: out_interior = alpha*aux + beta*phi - gamma*sum_e H_e
+ * with the Hamiltonians of csrc/hamiltonians.cuh summed in table order (the
+ * constants alpha, beta, gamma and the spacing come from *terms, a host
+ * pointer). P, aux (may be NULL), out as for lsm_weno_stage_*. */
+int lsm_weno_stage_terms_f32(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
+                             int64_t n2, const LsmStageTerms* terms, void* stream);
+int lsm_weno_stage_terms_f64(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
+                             int64_t n2, const LsmStageTerms* terms, void* stream);
 
 /* K2: rewrite every ghost shell of the padded buffer P from its interior, in
  * place: axis 0, then axis 1 (over axis 0's full padded extent), then axis 2
@@ -104,6 +142,17 @@ int lsm_band_stage_f64(const void* P, const void* u0, const void* u1, const void
                        int64_t capacity, int64_t n0, int64_t n1, int64_t n2, int64_t B0,
                        int64_t B1, int64_t B2, double inv_h0, double inv_h1, double inv_h2,
                        double alpha, double beta, double gamma, void* stream);
+
+/* K6 over a term table (streams tile-packed by slot): arguments as for
+ * lsm_band_stage_* and lsm_weno_stage_terms_*. */
+int lsm_band_stage_terms_f32(const void* P, const void* aux, void* out, const void* band,
+                             const void* ids, int64_t capacity, int64_t n0, int64_t n1,
+                             int64_t n2, int64_t B0, int64_t B1, int64_t B2,
+                             const LsmStageTerms* terms, void* stream);
+int lsm_band_stage_terms_f64(const void* P, const void* aux, void* out, const void* band,
+                             const void* ids, int64_t capacity, int64_t n0, int64_t n1,
+                             int64_t n2, int64_t B0, int64_t B1, int64_t B2,
+                             const LsmStageTerms* terms, void* stream);
 
 /* K7: K2 gated on the device (csrc/refresh_ghosts.cu). flags: int32[2] in
  * device memory; flags[0] == 0 skips the axis-0 and axis-1 launches,

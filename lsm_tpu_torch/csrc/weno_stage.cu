@@ -1,9 +1,15 @@
-// K1: one fused RK stage of WENO5 advection on the padded layout.
+// K1: one fused RK stage on the padded layout.
 //
 // Replaces the TPU kernel lsm_tpu/ops/weno_v2.py `fused_stage` (body
-// `_make_kernel`) for the "advection" term kind with three streamed velocity
-// components. The per-node arithmetic is lsm::stage_value (weno5.cuh), which
-// the band stage K6 shares.
+// `_make_kernel`). Two entries:
+// - the advection-only stage (one WENO5 advection term, three streamed
+//   velocity components): lsm::stage_value (weno5.cuh);
+// - any term list (advection, normal motion, curvature, eikonal
+//   reinitialization; streamed, constant or no coefficient), summed in list
+//   order: lsm::stage_value_terms (hamiltonians.cuh). The table travels by
+//   value in the kernel's parameters (__grid_constant__, so a loop over it
+//   reads the constant bank without a local copy); its branches are uniform.
+// Both per-node functions are shared with the band stage K6.
 //
 // Design: one thread per interior node, threadIdx.x along the contiguous last
 // axis so a warp reads and writes 32 neighbouring floats. Each thread loads
@@ -14,11 +20,19 @@
 // hold the neighbour planes, 3 velocity components and aux (stages 2-3), and
 // writes phi: 20-24 B/cell, ~1 ms at 3.35 TB/s. It also does a few hundred
 // flops per cell including 6 IEEE divisions (no fast math), comparable time
-// on the FP32 pipes. Shared-memory tiles, marching along an axis in registers
-// and in-kernel analytic coefficients are later work.
+// on the FP32 pipes. The term-list entry reads phi (and per term at most one
+// scalar stream) and writes phi: 8-12 B/cell for the normal, curvature and
+// eikonal kinds, ~0.3-0.5 ms at 512^3 f32; a normal or eikonal term does
+// ~140 operations per cell, a curvature term ~70, so it sits on the FP32
+// pipes as much as on DRAM. Divisions by spacing constants are products by
+// host-computed reciprocals, and a table without advection takes an
+// instantiation without WENO5's registers (more threads resident per SM).
+// Shared-memory tiles, marching along an axis in registers and in-kernel
+// analytic coefficients are later work.
 
 #include <cuda_runtime.h>
 
+#include "hamiltonians.cuh"
 #include "lsm_kernels.h"
 #include "weno5.cuh"
 
@@ -62,7 +76,51 @@ int launch_stage(const void* P, const void* u0, const void* u1, const void* u2,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool kAdvection>
+__global__ void __launch_bounds__(kBlockX* kBlockY)
+    weno_stage_terms_kernel(const T* __restrict__ P, const T* __restrict__ aux,
+                            T* __restrict__ out, int64_t n0, int64_t n1, int64_t n2,
+                            const __grid_constant__ LsmStageTerms terms) {
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * kBlockX + threadIdx.x;
+  const int64_t j = static_cast<int64_t>(blockIdx.y) * kBlockY + threadIdx.y;
+  const int64_t i = blockIdx.z;
+  if (k >= n2 || j >= n1 || i >= n0) return;
+  const int64_t s1 = n2 + 2 * LSM_GHOST;
+  const int64_t s0 = (n1 + 2 * LSM_GHOST) * s1;
+  const int64_t c = (i + LSM_GHOST) * s0 + (j + LSM_GHOST) * s1 + (k + LSM_GHOST);
+  const int64_t q = (i * n1 + j) * n2 + k;
+  out[c] = lsm::stage_value_terms<T, kAdvection>(P, aux, c, s0, s1, q, terms);
+}
+
+template <typename T>
+int launch_stage_terms(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
+                       int64_t n2, const LsmStageTerms* terms, void* stream) {
+  if (terms->n < 1 || terms->n > LSM_MAX_TERMS) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(kBlockX, kBlockY, 1);
+  const dim3 grid(static_cast<unsigned>((n2 + kBlockX - 1) / kBlockX),
+                  static_cast<unsigned>((n1 + kBlockY - 1) / kBlockY),
+                  static_cast<unsigned>(n0));
+  const auto kernel = lsm::has_advection(*terms) ? weno_stage_terms_kernel<T, true>
+                                                 : weno_stage_terms_kernel<T, false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(P), static_cast<const T*>(aux), static_cast<T*>(out), n0, n1, n2,
+      *terms);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int lsm_weno_stage_terms_f32(const void* P, const void* aux, void* out, int64_t n0,
+                                        int64_t n1, int64_t n2, const LsmStageTerms* terms,
+                                        void* stream) {
+  return launch_stage_terms<float>(P, aux, out, n0, n1, n2, terms, stream);
+}
+
+extern "C" int lsm_weno_stage_terms_f64(const void* P, const void* aux, void* out, int64_t n0,
+                                        int64_t n1, int64_t n2, const LsmStageTerms* terms,
+                                        void* stream) {
+  return launch_stage_terms<double>(P, aux, out, n0, n1, n2, terms, stream);
+}
 
 extern "C" int lsm_weno_stage_f32(const void* P, const void* u0, const void* u1,
                                   const void* u2, const void* aux, void* out, int64_t n0,

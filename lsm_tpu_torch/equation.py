@@ -8,10 +8,12 @@ Routing by the state's device and kind:
 
 - CUDA: a dense field takes the fused stepper (kernels K1, K2), a
   :class:`~lsm_tpu_torch.core.narrowband.NarrowBandField` the band stepper
-  (K6, K7, K8; ``last_fast_path == "band"``); a configuration outside the
-  ported slices (hooks, ``fast="off"``, 2D, other terms, ``update_func``, ...)
-  raises ``NotImplementedError`` naming its ROADMAP item. Nothing on CUDA
-  drops to plain torch.
+  (K6, K7, K8; ``last_fast_path == "band"``), for any list of advection,
+  normal-motion, curvature and eikonal terms; a configuration outside the
+  ported slices (hooks, ``fast="off"``, 2D, ``update_func``, the upwind
+  scheme, an object that is no term kind, ...) raises
+  ``NotImplementedError`` naming its ROADMAP item. Nothing on CUDA drops to
+  plain torch.
 - CPU: the same steppers with the kernels' plain versions when the
   configuration qualifies and there are no hooks and ``fast != "off"``;
   otherwise the general path (``rhs`` + RK stages, :func:`loop.step`, and a

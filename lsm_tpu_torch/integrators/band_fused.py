@@ -8,9 +8,11 @@ launch over a dispatch list of tiles (:func:`~lsm_tpu_torch.ops.band.
 band_stage`) and one gated K7 shell refresh; a re-tube step ends with K8 on
 the candidate tiles (the active tiles and their neighbours), after which
 the tile activity, the dispatch list and the K7 gates are rebuilt on the
-device in plain torch. A callable velocity is evaluated at the dispatched
-tiles' nodes only, a streamed one gathered onto them once per re-tube, so a
-step has no pass over the whole grid.
+device in plain torch. The terms are any list the dense stepper takes
+(advection, normal motion, curvature, eikonal reinitialization): a callable
+coefficient is evaluated at the dispatched tiles' nodes only, a streamed one
+gathered onto them once per re-tube, so a step has no pass over the whole
+grid.
 
 Buffer rotation. Off-band cells are frozen, so a stage writes its tiles
 into the previous buffer of the rotation and leaves the rest alone:
@@ -36,12 +38,12 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..core import bc as _bc
-from ..core.field import MeshField
 from ..core.narrowband import NarrowBandField, box_dilate
 from ..ops import band as bd
 from ..ops import weno_v2 as v2
+from ..terms.terms import kind_cfl
 from .explicit import RK3
-from .fused import _STAGES, _slice_reason
+from .fused import _STAGES, _field_reason, _terms_reason, term_entries
 
 __all__ = ["BandState", "FusedBandStepper", "supports_band_fused", "unsupported_reason",
            "default_tiles"]
@@ -65,7 +67,8 @@ class BandState(NamedTuple):
     count: torch.Tensor   # int32 0-d: tiles on the dispatch list (> capacity: overflow)
     flags: torch.Tensor   # int32 (2,): K7's gates for the dispatched tiles
     amask: torch.Tensor   # bool (capacity, B0, B1, B2): active-band nodes per slot
-    vel: Tuple[torch.Tensor, ...]  # tile-packed velocity, or a callable's coordinates
+    coefs: Tuple[Tuple[torch.Tensor, ...], ...]  # per term: its tile-packed streams
+    xs: Optional[Tuple[torch.Tensor, ...]]  # the slots' node coordinates, for callables
 
 
 def unsupported_reason(terms, nb, integrator) -> Optional[str]:
@@ -73,7 +76,7 @@ def unsupported_reason(terms, nb, integrator) -> Optional[str]:
     the ROADMAP item that would add it; ``None`` when it can."""
     if not isinstance(nb, NarrowBandField):
         return "the band stepper takes a NarrowBandField"
-    return _slice_reason(terms, nb, integrator)
+    return _field_reason(nb, integrator) or _terms_reason(terms, nb)
 
 
 def supports_band_fused(terms, nb, integrator=None) -> bool:
@@ -173,28 +176,25 @@ class FusedBandStepper:
             capacity = min(self.total, max(64, int(n_active * SLACK) + 32))
         self.capacity = int(capacity)
         self._layers = _face_layers(self.bcs, self.shape, self.tiles)
-        vel = terms[0].velocity
-        self._fn = vel if callable(vel) and not isinstance(vel, MeshField) else None
-        if self._fn is None:
-            values = vel.values if isinstance(vel, MeshField) else vel
-            self._streams = tuple(values[d].to(device=self.device, dtype=self.dtype).contiguous()
-                                  for d in range(3))
-        self._ucache = None
+        #: per term (TermSpec, dense streams); a callable keeps its function
+        self.entries = term_entries(terms, nb)
+        self._analytic = any(spec.coef_kind == "analytic" for spec, _ in self.entries)
+        self._cache = None
 
     # -- layout -----------------------------------------------------------------------
 
     def _dispatch(self, band, act, disp, bufs) -> BandState:
         """The state for dispatch activity ``disp``: the list, its count,
-        K7's gates, and the per-slot active mask and velocity."""
+        K7's gates, the per-slot active mask, each term's tile-packed streams
+        and, for callable coefficients, the slots' coordinates."""
         ids, count = bd.compact_ids(disp, self.capacity)
         flags = bd.refresh_flags_from_activity(disp, self._layers)
         flat, valid = bd.tile_index(ids, self.shape, self.tiles)
         amask = (band.view(-1)[flat] == bd.ACTIVE) & valid
-        if self._fn is None:
-            vel = tuple(s.view(-1)[flat] for s in self._streams)
-        else:
-            vel = bd.tile_coords(ids, self.shape, self.tiles, self.spacing, self.lo, self.dtype)
-        return BandState(tuple(bufs), band, act, ids, count, flags, amask, vel)
+        coefs = tuple(tuple(a.reshape(-1)[flat] for a in arrs) for _, arrs in self.entries)
+        xs = (bd.tile_coords(ids, self.shape, self.tiles, self.spacing, self.lo, self.dtype)
+              if self._analytic else None)
+        return BandState(tuple(bufs), band, act, ids, count, flags, amask, coefs, xs)
 
     def pack(self, nb: NarrowBandField) -> BandState:
         Q = v2.pack_padded(nb.values.to(device=self.device, dtype=self.dtype), self.bcs)
@@ -224,28 +224,27 @@ class FusedBandStepper:
 
     # -- stepping ---------------------------------------------------------------------
 
-    def velocity(self, state: BandState, t):
-        """The tile-packed velocity at time ``t`` (a callable is evaluated at
-        the dispatched nodes; the last evaluation is kept, so the CFL bound
-        at ``t`` and the step's first stage share one). Raises
-        ``NotImplementedError`` when a component needs a gradient: the
+    def stage_terms(self, state: BandState, t):
+        """K6's term list at time ``t``, every stream tile-packed (a callable
+        is evaluated at the dispatched nodes; the last evaluation is kept, so
+        the CFL bound at ``t`` and the step's first stage share one). Raises
+        ``NotImplementedError`` when a coefficient needs a gradient: the
         stepper's buffers are written in place and carry none."""
-        if self._fn is None:
-            u = state.vel
-        else:
-            c = self._ucache
-            if c is None or c[0] != float(t) or c[1] is not state.vel:
+        terms = tuple((spec, arrs) for (spec, _), arrs in zip(self.entries, state.coefs))
+        if self._analytic:
+            c = self._cache
+            if c is None or c[0] != float(t) or c[1] is not state.xs:
                 packed = (self.capacity, *self.tiles)
-                c = self._ucache = (float(t), state.vel, v2.eval_components(
-                    self._fn(state.vel, t), packed, self.dtype, self.device))
-            u = c[2]
-        if torch.is_grad_enabled() and any(x.requires_grad for x in u):
+                c = self._cache = (float(t), state.xs, v2.resolve_terms(
+                    terms, state.xs, t, packed, self.dtype, self.device))
+            terms = c[2]
+        if torch.is_grad_enabled() and any(a.requires_grad for _, arrs in terms for a in arrs):
             raise NotImplementedError(_BAND_BACKWARD)
-        return u
+        return terms
 
     def stage(self, src, dst, state, coeffs, t_stage, aux):
         """K6 from ``src`` into ``dst``, then K7 on ``dst``."""
-        bd.band_stage(src, dst, state.ids, state.band, self.velocity(state, t_stage), coeffs,
+        bd.band_stage(src, dst, state.ids, state.band, self.stage_terms(state, t_stage), coeffs,
                       aux, self.spacing, self.shape, self.tiles)
         return bd.refresh_band_ghosts_fast(dst, self.bcs, self.shape, state.flags)
 
@@ -300,16 +299,17 @@ class FusedBandStepper:
 
     def cfl(self, state: BandState, t):
         """``(largest stable dt, tiles on the dispatch list)`` as device
-        tensors, for one read-back per step. The bound reduces over the
-        active band only, from the velocity at the dispatched nodes (every
-        active node lies in a dispatched tile while the list has not
-        overflowed)."""
-        u = self.velocity(state, t)
-        s = 0.0
-        for ax, h in enumerate(self.spacing):
-            s = s + torch.abs(u[ax]) / h
-        zero = torch.zeros((), dtype=self.dtype, device=self.device)
-        return 1.0 / torch.max(torch.where(state.amask, s, zero)), state.count
+        tensors, for one read-back per step. The bound is the minimum over
+        the terms, each reduced over the active band only from its
+        coefficients at the dispatched nodes (every active node lies in a
+        dispatched tile while the list has not overflowed); a constant
+        coefficient's bound is a host number."""
+        out = None
+        for spec, arrs in self.stage_terms(state, t):
+            coef = (spec.coef_static,) if spec.coef_kind == "const" else arrs
+            dt = kind_cfl(spec.kind, coef, state.amask, self.spacing, state.bufs[0])
+            out = dt if out is None else torch.minimum(out, dt)
+        return out, state.count
 
     def regrow(self, state: BandState):
         """Recover from a dispatch-list overflow: a stepper with ``REGROW``

@@ -9,10 +9,15 @@ differentiable (backward: K4, K3, K5). On CUDA tensors those are the
 hand-written kernels; on CPU tensors their plain versions, which drive the
 same control flow. One stepper serves ``integrate`` and ``rollout``.
 
-This slice covers dense 3D fields with one WENO5 :class:`AdvectionTerm`
-without ``update_func``, whose velocity is a vector ``MeshField`` or tensor
-(streamed) or a callable ``f(xs, t)`` (evaluated into streamed tensors at
-each stage time, at the kernel's node coordinates ``lo + i*h``).
+The stepper covers dense 3D fields under any list of up to 16 terms of the
+fused stage's kinds: WENO5 :class:`AdvectionTerm`, :class:`NormalMotionTerm`
+(both without ``update_func``), :class:`CurvatureTerm` and
+:class:`EikonalReinitializationTerm`. A coefficient is a ``MeshField`` or
+tensor (streamed), a number (a constant of the kernel) or a callable
+``f(xs, t)`` (evaluated into streamed tensors at each stage time, at the
+kernel's node coordinates ``lo + i*h``). A gradient runs K4, K3, K5 for one
+streamed advection term and autograd through the plain stage on the CPU for
+other lists; on CUDA those raise (:func:`gradient_reason`).
 """
 
 from __future__ import annotations
@@ -24,10 +29,12 @@ import torch
 from ..core import bc as _bc
 from ..core.field import MeshField
 from ..ops import weno_v2 as v2
-from ..terms.terms import AdvectionTerm, compute_cfl
+from ..terms.terms import (AdvectionTerm, CurvatureTerm, EikonalReinitializationTerm,
+                           NormalMotionTerm, compute_cfl, is_number)
 from .explicit import RK2, RK3, ForwardEuler
 
-__all__ = ["FusedStepper", "supports_fused", "unsupported_reason"]
+__all__ = ["FusedStepper", "supports_fused", "unsupported_reason", "term_entry",
+           "gradient_reason"]
 
 # (alpha, beta, gamma / dt, stage-time offset / dt) per stage, SSP form; the
 # aux buffer of every stage after the first is the step's input state
@@ -43,28 +50,88 @@ def _todo(what: str, item: str) -> str:
     return f"{what} is not ported to the fused path yet (ROADMAP.md queue 2, {item})"
 
 
+def _coef_entry(kind: str, coef, phi: MeshField, k: int):
+    """``(TermSpec, streams)`` for a coefficient of ``k`` components (3 for
+    a velocity, 1 for a scalar), or the reason it is not a kernel input."""
+    what = "an advection velocity" if k > 1 else f"a {kind} coefficient"
+    if isinstance(coef, MeshField):
+        vals = coef.values
+        if k > 1 and (not coef.is_vector or vals.shape[0] != k):
+            return f"{what} MeshField must be a {k}-component vector field"
+        if k == 1 and tuple(vals.shape) != tuple(phi.shape):
+            return f"{what} MeshField must be a scalar field on the level set's grid"
+        return (v2.TermSpec(kind, "stream", None, k),
+                tuple(vals[d] for d in range(k)) if k > 1 else (vals,))
+    if callable(coef):
+        return v2.TermSpec(kind, "analytic", coef, 0), ()
+    if is_number(coef) and k == 1:
+        return v2.TermSpec(kind, "const", float(coef), 0), ()
+    if isinstance(coef, torch.Tensor):
+        if k > 1:
+            if tuple(coef.shape) != (k, *phi.shape):
+                return (f"{what} tensor must have shape "
+                        f"({k}, {', '.join(map(str, phi.shape))})")
+            return v2.TermSpec(kind, "stream", None, k), tuple(coef[d] for d in range(k))
+        try:
+            return v2.TermSpec(kind, "stream", None, 1), (torch.broadcast_to(coef, phi.shape),)
+        except RuntimeError:
+            return f"{what} tensor must broadcast to the grid's shape {tuple(phi.shape)}"
+    return f"{what} of type {type(coef).__name__} is not supported"
+
+
+def term_entry(term, phi: MeshField):
+    """``(TermSpec, streams)`` of one term for the fused stage (an analytic
+    coefficient keeps its callable), or the reason, naming its ROADMAP item,
+    why the fused path cannot take it (counterpart of
+    ``lsm_tpu.integrators.fused._term_spec``)."""
+    if isinstance(term, AdvectionTerm):
+        if term.scheme != "weno5":
+            return _todo(f"the {term.scheme!r} advection scheme", "general path (K10/K11)")
+        if term.update_func is not None:
+            return _todo("an AdvectionTerm with update_func", "update_func")
+        return _coef_entry("advection", term.velocity, phi, 3)
+    if isinstance(term, NormalMotionTerm):
+        if term.update_func is not None:
+            return _todo("a NormalMotionTerm with update_func", "update_func")
+        return _coef_entry("normal", term.speed, phi, 1)
+    if isinstance(term, CurvatureTerm):
+        return _coef_entry("curvature", term.b, phi, 1)
+    if isinstance(term, EikonalReinitializationTerm):
+        if term.s0 is None:
+            return v2.TermSpec("eikonal", "none", None, 0), ()
+        return _coef_entry("eikonal", term.s0, phi, 1)
+    return _todo(f"{type(term).__name__}, which is no term kind of the fused stage,",
+                 "general path (K10/K11)")
+
+
 def unsupported_reason(terms, phi: MeshField, integrator) -> Optional[str]:
     """Why ``(terms, phi, integrator)`` cannot take the fused stepper, naming
     the ROADMAP item that would add it; ``None`` when it can."""
     if phi.active_mask is not None:
         return ("the dense fused stepper takes dense fields only; a NarrowBandField "
                 "goes to the band stepper")
-    return _slice_reason(terms, phi, integrator)
+    return _field_reason(phi, integrator) or _terms_reason(terms, phi)
 
 
-def _slice_reason(terms, phi: MeshField, integrator) -> Optional[str]:
-    """The checks the dense and the band stepper share: one WENO5
-    ``AdvectionTerm`` without ``update_func`` on a 3D scalar field with BCs
-    the kernels take, FE/RK2/RK3."""
+def _terms_reason(terms, phi: MeshField) -> Optional[str]:
+    """The term-list check the dense and the band stepper share: every term
+    a kind of the fused stage (WENO5 advection, normal motion, curvature,
+    eikonal reinitialization) without ``update_func``, with a coefficient
+    the stage takes, at most ``MAX_TERMS`` of them."""
     if not isinstance(terms, (tuple, list)):
         terms = (terms,)
-    if len(terms) != 1 or not isinstance(terms[0], AdvectionTerm):
-        return _todo("a term list other than one AdvectionTerm", "K1 term kinds")
-    term = terms[0]
-    if term.scheme != "weno5":
-        return _todo(f"the {term.scheme!r} advection scheme", "general path (K10/K11)")
-    if term.update_func is not None:
-        return _todo("an AdvectionTerm with update_func", "update_func")
+    if not 1 <= len(terms) <= v2.MAX_TERMS:
+        return f"the fused stage takes 1 to {v2.MAX_TERMS} terms, got {len(terms)}"
+    for term in terms:
+        entry = term_entry(term, phi)
+        if isinstance(entry, str):
+            return entry
+    return None
+
+
+def _field_reason(phi: MeshField, integrator) -> Optional[str]:
+    """The field and integrator check the dense and the band stepper share:
+    a 3D scalar field with BCs the kernels take, FE/RK2/RK3."""
     if phi.ndim != 3:
         return _todo(f"a {phi.ndim}D field", "2D embedding")
     if phi.is_vector or phi.bcs is None:
@@ -80,14 +147,28 @@ def _slice_reason(terms, phi: MeshField, integrator) -> Optional[str]:
             if isinstance(b, _bc.Extrapolation) and (b.degree > 7 or b.degree + 1 > n):
                 return _todo(f"Extrapolation({b.degree}) on an axis of {n} nodes",
                              "K2 degree")
-    vel = term.velocity
-    if isinstance(vel, MeshField):
-        if not vel.is_vector or vel.values.shape[0] != 3:
-            return "an advection velocity MeshField must be a 3-component vector field"
-    elif not callable(vel):
-        if not isinstance(vel, torch.Tensor) or tuple(vel.shape) != (3, *phi.shape):
-            return f"an advection velocity tensor must have shape (3, {', '.join(map(str, phi.shape))})"
     return None
+
+
+def term_entries(terms, phi: MeshField):
+    """The fused stage's ``(TermSpec, streams)`` of every term, streams
+    contiguous in the field's dtype and on its device (``terms`` passed
+    :func:`_terms_reason`)."""
+    out = []
+    for term in terms:
+        spec, arrs = term_entry(term, phi)
+        out.append((spec, tuple(a.to(device=phi.device, dtype=phi.dtype).contiguous()
+                                for a in arrs)))
+    return tuple(out)
+
+
+def gradient_reason(terms, phi: MeshField) -> Optional[str]:
+    """Why a gradient through the fused stepper of ``terms`` cannot run on
+    CUDA, naming the ROADMAP item; ``None`` when it can (one WENO5
+    advection term, streamed or callable: K4, K3, K5)."""
+    terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)
+    return _terms_reason(terms, phi) or v2.gradient_reason(
+        tuple(term_entry(t, phi) for t in terms))
 
 
 def supports_fused(terms, phi: MeshField, integrator=None) -> bool:
@@ -96,7 +177,7 @@ def supports_fused(terms, phi: MeshField, integrator=None) -> bool:
 
 
 class FusedStepper:
-    """Padded-state stepping for ``phi_t + u . grad(phi) = 0``.
+    """Padded-state stepping for ``phi_t + sum_n H_n(phi) = 0``.
 
     Usage::
 
@@ -121,14 +202,7 @@ class FusedStepper:
         self.lo = tuple(float(x) for x in phi.grid.lo)
         self.dtype, self.device = phi.dtype, phi.device
         self.stages = _STAGES[type(integrator)]
-        vel = terms[0].velocity
-        if callable(vel) and not isinstance(vel, MeshField):
-            self.spec = (v2.TermSpec("advection", "analytic", vel), ())
-        else:
-            values = vel.values if isinstance(vel, MeshField) else vel
-            streams = tuple(values[d].to(device=self.device, dtype=self.dtype).contiguous()
-                            for d in range(3))
-            self.spec = (v2.TermSpec("advection", "stream", None, 3), streams)
+        self.entries = term_entries(terms, phi)
 
     def pack(self, values: torch.Tensor) -> torch.Tensor:
         return v2.pack_padded(values, self.bcs)
@@ -136,20 +210,19 @@ class FusedStepper:
     def unpack(self, padded: torch.Tensor) -> torch.Tensor:
         return v2.unpack_padded(padded, self.shape)
 
-    def velocity(self, t):
-        """The three streamed velocity components at time ``t``."""
-        spec, streams = self.spec
-        if spec.coef_kind == "stream":
-            return streams
+    def stage_terms(self, t):
+        """The stage's term list at time ``t``: a callable coefficient is
+        evaluated into streams at the kernel's node coordinates."""
+        if all(spec.coef_kind != "analytic" for spec, _ in self.entries):
+            return self.entries
         xs = v2.node_coords(self.shape, self.spacing, self.lo, self.dtype, self.device)
-        return v2.eval_components(spec.coef_static(xs, t), self.shape, self.dtype,
-                                  self.device)
+        return v2.resolve_terms(self.entries, xs, t, self.shape, self.dtype, self.device)
 
     def stage(self, P, coeffs, t_stage, aux, coeff_values=None):
         """One stage: K1 into a fresh buffer, then K2 on its shells; through
         :func:`~lsm_tpu_torch.ops.weno_v2.fused_step_stage`, so gradients
         flow when an input requires them (backward K4, K3, K5)."""
-        return v2.fused_step_stage(P, self.velocity(t_stage), coeffs, aux, self.bcs,
+        return v2.fused_step_stage(P, self.stage_terms(t_stage), coeffs, aux, self.bcs,
                                    self.spacing, self.shape, coeff_values)
 
     def step(self, P: torch.Tensor, t, dt, dt_value=None) -> torch.Tensor:
@@ -166,6 +239,8 @@ class FusedStepper:
         return cur
 
     def cfl(self, P: torch.Tensor, t) -> torch.Tensor:
-        """Largest stable ``dt`` for the current padded state (0-d tensor)."""
+        """Largest stable ``dt`` for the current padded state (0-d tensor):
+        the minimum over the terms (a constant coefficient's bound is a host
+        number)."""
         field = MeshField(self.unpack(P), self.grid, self.bcs, _normalized=True)
         return compute_cfl(self.terms, field, t)

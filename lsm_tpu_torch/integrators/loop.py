@@ -6,7 +6,9 @@
 - :func:`rollout` — ``nsteps`` fixed steps, differentiable with
   ``torch.autograd``: on a configuration the fused stepper takes, every stage
   is :func:`~lsm_tpu_torch.ops.weno_v2.fused_step_stage` (forward K1 + K2,
-  backward K4, K3, K5), on the card and on the CPU alike.
+  backward K4, K3, K5 for one WENO5 advection term), on the card and on the
+  CPU alike. Other term lists differentiate through the plain stage on the
+  CPU; on CUDA their gradient raises (ROADMAP queue 2, K3 term kinds).
 
 A :class:`~lsm_tpu_torch.core.narrowband.NarrowBandField` re-tubes after
 every step. On the card its rollout runs the band stepper (K6, K7, K8),
@@ -34,7 +36,7 @@ from ..core.narrowband import NarrowBandField
 from ..ops.band import tile_grid
 from . import band_fused as _band
 from .explicit import TimeIntegrator
-from .fused import FusedStepper, unsupported_reason
+from .fused import FusedStepper, gradient_reason, unsupported_reason
 
 __all__ = ["step", "evolve", "rollout"]
 
@@ -80,9 +82,10 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
     is read back once per call, for the kernels' coefficients.
 
     ``fast="auto"`` takes the fused stepper when the configuration qualifies
-    (dense 3D, one WENO5 ``AdvectionTerm``, FE/RK2/RK3), on the card and on
-    the CPU; ``fast="off"`` takes the general path, which runs on the CPU
-    only: on CUDA it raises ``NotImplementedError``. ``remat`` and
+    (dense 3D, terms of the fused stage's kinds, FE/RK2/RK3), on the card and
+    on the CPU; ``fast="off"`` takes the general path, which runs on the CPU
+    only: on CUDA it raises ``NotImplementedError``, as does a gradient
+    through a term list other than one WENO5 advection term. ``remat`` and
     ``remat_chunk`` as in the module docstring.
     """
     if fast not in ("auto", "off"):
@@ -94,6 +97,12 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
     reason = unsupported_reason(terms, phi, integrator) if fast == "auto" else 'fast="off"'
     if reason is None:
         stepper = FusedStepper(terms, phi, integrator)
+        if phi.values.is_cuda and _needs_grad(stepper, phi, t0, dt):
+            # refused before any stage runs (a callable that closes over a
+            # parameter is caught at its first stage)
+            why = gradient_reason(terms, phi)
+            if why is not None:
+                raise NotImplementedError(why)
         dt_value = float(dt)
 
         def fused_step(c):
@@ -130,6 +139,12 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
     values, terms, _ = _scan_steps(general_step, (phi.values, terms, t0), nsteps, remat,
                                    remat_chunk)
     return phi.with_values(values), terms
+
+
+def _needs_grad(stepper, phi, t0, dt) -> bool:
+    streams = [a for _, arrs in stepper.entries for a in arrs]
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in (phi.values, t0, dt, *streams))
 
 
 def _band_rollout(integrator, terms, phi, t0, dt, nsteps, fast):

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["circle", "sphere", "box", "zalesak_sphere", "rigid_rotation_velocity"]
+__all__ = ["circle", "sphere", "box", "zalesak_sphere", "torus", "rigid_rotation_velocity"]
 
 
 def circle(center=(0.0, 0.0), radius=0.5):
@@ -50,6 +50,16 @@ def zalesak_sphere(center=(0.5, 0.75, 0.5), radius=0.15, slot_width=0.05, slot_d
 
     def f(x, y, z):
         return torch.maximum(ball(x, y, z), -slot(x, y, z))
+
+    return f
+
+
+def torus(center=(0.0, 0.0, 0.0), major=0.5, minor=0.2):
+    """Exact SDF of a torus around the z-axis through ``center`` (3D)."""
+
+    def f(x, y, z):
+        qx = torch.sqrt((x - center[0]) ** 2 + (y - center[1]) ** 2) - major
+        return torch.sqrt(qx ** 2 + (z - center[2]) ** 2) - minor
 
     return f
 

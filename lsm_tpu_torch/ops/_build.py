@@ -99,10 +99,12 @@ def compile_library(out: Path, nvcc: str) -> str:
 
 
 class Library:
-    """The loaded kernel library: ``stage_f32/f64`` (K1), ``refresh_f32/f64``
+    """The loaded kernel library: ``stage_f32/f64`` and ``stage_terms_f32/f64``
+    (K1, advection-only and term-list entries), ``refresh_f32/f64``
     (K2), ``stage_bwd_f32/f64`` and ``stage_bwd_scratch`` (K3),
     ``fold_f32/f64`` (K4), ``zero_shells_f32/f64`` (K5),
-    ``band_stage_f32/f64`` (K6), ``band_refresh_f32/f64`` (K7),
+    ``band_stage_f32/f64`` and ``band_stage_terms_f32/f64`` (K6),
+    ``band_refresh_f32/f64`` (K7),
     ``band_retube_f32/f64`` and ``band_retube_smem`` (K8), ``error_string``,
     plus where it came from (``path``), the build's wall time in seconds
     (``build_seconds``, 0 when it was already built) and nvcc's output
@@ -119,12 +121,16 @@ class Library:
         band_stage_args = [vp] * 8 + [i64] * 7 + [f64] * 6 + [vp]
         band_ghost_args = [vp] + [i64] * 3 + [vp] * 4 + [vp]
         retube_args = [vp] * 5 + [i64] * 9 + [vp]
+        terms_args = [vp] * 3 + [i64] * 3 + [vp, vp]
+        band_terms_args = [vp] * 5 + [i64] * 7 + [vp, vp]
         names = {"stage": ("lsm_weno_stage", stage_args),
+                 "stage_terms": ("lsm_weno_stage_terms", terms_args),
                  "refresh": ("lsm_refresh_ghosts", ghost_args),
                  "stage_bwd": ("lsm_stage_bwd", bwd_args),
                  "fold": ("lsm_fold_ghosts", ghost_args),
                  "zero_shells": ("lsm_zero_shells", zero_args),
                  "band_stage": ("lsm_band_stage", band_stage_args),
+                 "band_stage_terms": ("lsm_band_stage_terms", band_terms_args),
                  "band_refresh": ("lsm_refresh_band_ghosts", band_ghost_args),
                  "band_retube": ("lsm_band_retube", retube_args)}
         for attr, (name, args) in names.items():

@@ -9,15 +9,16 @@ are TPU constraints and are not kept. The band itself is one interior-shaped
 The grid is cut into tiles ``(B0, B1, B2)``; the tile grid is
 ``ceil(n / B)`` per axis, so a ragged edge tile is allowed. A *dispatch list*
 holds the flat (row-major) ids of the tiles a stage visits, ``-1`` in empty
-slots; per-slot data (the velocity, the active mask the CFL bound reduces
-over) is *tile-packed* as ``(capacity, B0, B1, B2)``.
+slots; per-slot data (each term's streamed coefficients, the active mask
+the CFL bound reduces over) is *tile-packed* as ``(capacity, B0, B1, B2)``.
 
 Kernels, each beside its plain torch version (CPU tensors, the tests, and
 the on-card comparison in ``chip_smoke.py``):
 
 - :func:`band_stage` (K6, ``csrc/band_stage.cu``; plain
-  :func:`band_stage_plain`): K1's stage over the dispatched tiles, into the
-  ping-pong target; cells outside the compute band keep the source's value.
+  :func:`band_stage_plain`): K1's stage, any term list, over the dispatched
+  tiles, into the ping-pong target; cells outside the compute band keep the
+  source's value.
 - :func:`refresh_band_ghosts_fast` (K7, ``csrc/refresh_ghosts.cu``; plain
   :func:`refresh_band_ghosts_plain`): K2's shell refresh, each phase gated by
   device flags.
@@ -25,7 +26,8 @@ the on-card comparison in ``chip_smoke.py``):
   :func:`band_retube_plain`): the re-tube recomputed on candidate tiles only.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises, and counts its launches in ``launches``. The
+launches the kernel or raises, and counts its launches in ``launches`` (K6
+also those of its term-list entry in ``kinds_launches``). The
 dispatch-list compaction is plain torch on the device (a ``cumsum`` and a
 scatter), with no host synchronisation.
 """
@@ -34,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -204,18 +206,20 @@ def _check_tiles(shape, tiles):
 # -- K6: the active-tile stage ---------------------------------------------------------
 
 
-def band_stage_plain(P, out, ids, band, u, coeffs, aux, spacing, shape, tiles) -> torch.Tensor:
-    """Plain version of K6: the dense stage (with the tile-packed velocity
+def band_stage_plain(P, out, ids, band, terms, coeffs, aux, spacing, shape, tiles) -> torch.Tensor:
+    """Plain version of K6: the dense stage (each tile-packed stream
     scattered onto the grid), then ``torch.where`` to (dispatched tile and
     compute band); other nodes of a dispatched tile take ``P``'s value, the
     rest of ``out`` is left as it is. Writes ``out`` in place, returns it."""
     flat, valid = tile_index(ids, shape, tiles)
-    dense = []
-    for ud in u:
+
+    def dense(packed):
         d = torch.zeros(shape, dtype=P.dtype, device=P.device)
-        d.view(-1)[flat[valid]] = ud[valid]
-        dense.append(d)
-    stage = v2._advection_interior(P, dense, coeffs, aux, spacing, shape)
+        d.view(-1)[flat[valid]] = packed[valid]
+        return d
+
+    terms = tuple((spec, tuple(dense(a) for a in arrs)) for spec, arrs in v2.as_terms(terms))
+    stage = v2._stage_interior(P, terms, coeffs, aux, spacing, shape)
     new = torch.where(band != 0, stage, v2.unpack_padded(P, shape))
     o = v2.unpack_padded(out, shape)
     o.copy_(torch.where(dispatched_cells(ids, shape, tiles), new, o))
@@ -223,17 +227,19 @@ def band_stage_plain(P, out, ids, band, u, coeffs, aux, spacing, shape, tiles) -
 
 
 def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torch.Tensor,
-               u: Sequence[torch.Tensor], coeffs, aux: Optional[torch.Tensor], spacing, shape,
+               terms, coeffs, aux: Optional[torch.Tensor], spacing, shape,
                tiles) -> torch.Tensor:
-    """K6: one RK stage of WENO5 advection on the dispatched tiles.
+    """K6: one RK stage on the dispatched tiles.
 
     Replaces ``lsm_tpu.ops.band_pallas.band_stage``. ``P`` the source and
     ``out`` the ping-pong target (padded buffers, written in place and
     returned; ghost shells untouched), ``ids`` the int32 dispatch list,
-    ``band`` the uint8 combined mask, ``u`` three tile-packed velocity
-    components ``(capacity, B0, B1, B2)``, ``aux`` a padded buffer or None,
-    ``coeffs`` ``(alpha, beta, gamma)`` as numbers. CUDA tensors go to
-    ``csrc/band_stage.cu``, CPU tensors to :func:`band_stage_plain`.
+    ``band`` the uint8 combined mask, ``terms`` K1's term list (or three
+    velocity tensors) with every stream tile-packed ``(capacity, B0, B1,
+    B2)``, ``aux`` a padded buffer or None, ``coeffs`` ``(alpha, beta,
+    gamma)`` as numbers. CUDA tensors go to ``csrc/band_stage.cu`` (the
+    advection-only stage to its own entry), CPU tensors to
+    :func:`band_stage_plain`.
     """
     shape, tiles = tuple(shape), tuple(int(b) for b in tiles)
     _check_tiles(shape, tiles)
@@ -243,30 +249,40 @@ def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torc
         raise ValueError("the band stage writes a ping-pong target: out must not be P")
     _check_ids(ids, "ids", P)
     _check_band(band, shape, P)
-    packed = (ids.shape[0], *tiles)
-    if len(u) != 3:
+    terms = tuple(terms)
+    if all(isinstance(x, torch.Tensor) for x in terms) and len(terms) != 3:
         raise ValueError("the band stage needs 3 velocity components")
-    for d, ud in enumerate(u):
-        v2._check(ud, f"u[{d}]", packed, like=P)
+    terms = v2.as_terms(terms)
+    v2.check_terms(terms, P, (ids.shape[0], *tiles))
     if aux is not None:
         v2._check(aux, "aux", v2.padded_shape(shape), like=P)
     if P.device.type == "cpu":
-        return band_stage_plain(P, out, ids, band, u, coeffs, aux, spacing, shape, tiles)
+        return band_stage_plain(P, out, ids, band, terms, coeffs, aux, spacing, shape, tiles)
     lib = load_library()
-    fn = lib.band_stage_f32 if P.dtype == torch.float32 else lib.band_stage_f64
-    alpha, beta, gamma = (float(c) for c in coeffs)
+    f32 = P.dtype == torch.float32
+    aux_ptr = None if aux is None else aux.data_ptr()
     with torch.cuda.device(P.device):
-        code = fn(P.data_ptr(), u[0].data_ptr(), u[1].data_ptr(), u[2].data_ptr(),
-                  None if aux is None else aux.data_ptr(), out.data_ptr(), band.data_ptr(),
-                  ids.data_ptr(), ids.shape[0], *shape, *tiles,
-                  *(1.0 / float(h) for h in spacing), alpha, beta, gamma,
-                  torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if v2.is_advection_only(terms):
+            u = terms[0][1]
+            alpha, beta, gamma = (float(c) for c in coeffs)
+            code = (lib.band_stage_f32 if f32 else lib.band_stage_f64)(
+                P.data_ptr(), u[0].data_ptr(), u[1].data_ptr(), u[2].data_ptr(), aux_ptr,
+                out.data_ptr(), band.data_ptr(), ids.data_ptr(), ids.shape[0], *shape, *tiles,
+                *(1.0 / float(h) for h in spacing), alpha, beta, gamma, stream)
+        else:
+            tab = v2.stage_table(terms, spacing, coeffs)
+            code = (lib.band_stage_terms_f32 if f32 else lib.band_stage_terms_f64)(
+                P.data_ptr(), aux_ptr, out.data_ptr(), band.data_ptr(), ids.data_ptr(),
+                ids.shape[0], *shape, *tiles, ctypes.addressof(tab), stream)
     v2._raise_on(code, lib, "band_stage kernel")
     band_stage.launches += 1
+    band_stage.kinds_launches += not v2.is_advection_only(terms)
     return out
 
 
 band_stage.launches = 0
+band_stage.kinds_launches = 0  # of the launches, those of the term-list entry
 
 
 def band_stage_reference(padded, out_init, compute_mask, term_specs_and_streams, coeffs, t,

@@ -1,5 +1,5 @@
-"""Whole-array finite-difference and WENO5 stencils (port of the parts of
-:mod:`lsm_tpu.ops.stencils` the advection path needs).
+"""Whole-array finite-difference, WENO5 and ENO2/Godunov stencils (port of
+the parts of :mod:`lsm_tpu.ops.stencils` the fused stage's term kinds need).
 
 Every operator maps a ghost-padded tensor ``p`` (pad width ``g`` on each side
 of every spatial axis) to an interior-shaped tensor, as shifted slices. These
@@ -15,6 +15,7 @@ import torch
 
 __all__ = [
     "PAD_D0",
+    "PAD_ENO2",
     "PAD_WENO5",
     "shift",
     "d0",
@@ -24,9 +25,19 @@ __all__ = [
     "weno5_upwind",
     "weno5_upwind_fwd_bwd",
     "safe_sqrt",
+    "d2c",
+    "d2pp",
+    "d2mm",
+    "d2_mixed",
+    "minmod",
+    "eno2_onesided",
+    "godunov_norms",
+    "pos",
+    "neg",
 ]
 
 PAD_D0 = 1
+PAD_ENO2 = 2
 PAD_WENO5 = 3
 
 
@@ -273,3 +284,84 @@ def safe_sqrt(x):
     ``torch.sqrt`` for ``x >= 0``."""
     safe = x > 0
     return torch.where(safe, torch.sqrt(torch.where(safe, x, 1.0)), 0.0)
+
+
+# -- second derivatives --------------------------------------------------------------
+
+
+def d2c(p, axis, h, g, shape):
+    """Centered second derivative along ``axis``."""
+    return (_s(p, axis, 1, g, shape) - 2.0 * _s(p, axis, 0, g, shape)
+            + _s(p, axis, -1, g, shape)) / (h * h)
+
+
+def d2pp(p, axis, h, g, shape):
+    """One-sided (forward) second derivative along ``axis``."""
+    return (_s(p, axis, 0, g, shape) - 2.0 * _s(p, axis, 1, g, shape)
+            + _s(p, axis, 2, g, shape)) / (h * h)
+
+
+def d2mm(p, axis, h, g, shape):
+    """One-sided (backward) second derivative along ``axis``."""
+    return (_s(p, axis, -2, g, shape) - 2.0 * _s(p, axis, -1, g, shape)
+            + _s(p, axis, 0, g, shape)) / (h * h)
+
+
+def d2_mixed(p, ax1, ax2, h1, h2, g, shape):
+    """Mixed second derivative ``d^2 / dx_ax1 dx_ax2`` from the four edge
+    neighbours."""
+    n = len(shape)
+
+    def two(a_k, b_k):
+        off = [0] * n
+        off[ax1] += a_k
+        off[ax2] += b_k
+        return shift(p, tuple(off), g, shape)
+
+    return (two(1, 1) - two(1, -1) - two(-1, 1) + two(-1, -1)) / (4.0 * h1 * h2)
+
+
+# -- ENO2 / Godunov ------------------------------------------------------------------
+
+
+def minmod(x, y):
+    """Minmod limiter: zero unless ``x * y > 0`` (a product that underflows
+    to 0 counts as a sign change), else the smaller magnitude (``x`` on a
+    tie)."""
+    same = x * y > 0.0
+    pick = torch.where(torch.abs(x) <= torch.abs(y), x, y)
+    return torch.where(same, pick, 0.0)
+
+
+def eno2_onesided(p, axis, h, g, shape):
+    """Second-order ENO one-sided derivatives ``(A, B)`` along ``axis``:
+    ``A = D- + 0.5 h minmod(D2--, D2_0)``, ``B = D+ - 0.5 h minmod(D2++,
+    D2_0)``. Needs ``g >= 2``."""
+    c = d2c(p, axis, h, g, shape)
+    A = dm(p, axis, h, g, shape) + 0.5 * h * minmod(d2mm(p, axis, h, g, shape), c)
+    B = dp(p, axis, h, g, shape) - 0.5 * h * minmod(d2pp(p, axis, h, g, shape), c)
+    return A, B
+
+
+def godunov_norms(p, spacing, g, shape):
+    """Godunov upwind gradient magnitudes ``(|grad+|, |grad-|)`` with ENO2
+    one-sided derivatives: ``|grad+|^2 = sum_d max(A,0)^2 + min(B,0)^2`` (for
+    outward motion), ``|grad-|^2 = sum_d min(A,0)^2 + max(B,0)^2``."""
+    gp2 = 0.0
+    gm2 = 0.0
+    for ax, h in enumerate(spacing):
+        A, B = eno2_onesided(p, ax, h, g, shape)
+        gp2 = gp2 + pos(A) ** 2 + neg(B) ** 2
+        gm2 = gm2 + neg(A) ** 2 + pos(B) ** 2
+    return safe_sqrt(gp2), safe_sqrt(gm2)
+
+
+def pos(x):
+    """``maximum(x, 0)``; an exact tie splits a cotangent 0.5/0.5, as JAX's
+    ``maximum`` does (``clamp`` would pass all of it)."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
+def neg(x):
+    """``minimum(x, 0)``, with :func:`pos`'s tie rule."""
+    return torch.minimum(x, x.new_zeros(()))

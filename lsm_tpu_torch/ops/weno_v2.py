@@ -10,28 +10,35 @@ Kernels, each beside its plain torch version (used for CPU tensors, by the
 tests and by the on-card comparison in ``chip_smoke.py``):
 
 - :func:`fused_stage` (K1, ``csrc/weno_stage.cu``; plain :func:`stage_plain`)
-  writes ``alpha*aux + beta*phi - gamma*u.grad(phi)`` (WENO5 upwind) into the
-  interior of a fresh padded buffer, ghost shells left stale.
+  writes ``alpha*aux + beta*phi - gamma*sum_n H_n`` into the interior of a
+  fresh padded buffer, ghost shells left stale. The terms ``H_n`` are WENO5
+  advection, Godunov/ENO2 normal motion, mean-curvature motion and eikonal
+  reinitialization (frozen or recomputed sign), summed in list order; the
+  per-node Hamiltonians are ``csrc/hamiltonians.cuh``, shared with K6.
 - :func:`refresh_ghosts_fast` (K2, ``csrc/refresh_ghosts.cu``; plain
   :func:`refresh_ghosts_plain`) rewrites the ghost shells in place from the
   interior: axis 0, then axis 1, then axis 2, so corner ghosts equal
   ``pad_ghost(values, bcs, 3)``.
 - :func:`fused_step_stage` is K1 + K2 as a ``torch.autograd.Function``
-  whose backward runs K4, K3 and K5 (:mod:`.weno_v2_bwd`); its plain
-  counterpart is :func:`stage_refresh_plain`.
+  whose backward runs K4, K3 and K5 (:mod:`.weno_v2_bwd`) for one advection
+  term and, on the CPU, autograd through its plain counterpart
+  :func:`stage_refresh_plain` for other term lists.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
-launches the kernel or raises. Each counts its kernel launches in ``launches``.
+launches the kernel or raises. Each counts its kernel launches in
+``launches``; K1 also counts those of its term-list entry in
+``kinds_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..core import bc as _bc
+from ..geometry import queries as geo
 from . import stencils as st
 from ._build import load_library
 
@@ -51,6 +58,13 @@ __all__ = [
     "stage_refresh_plain",
     "fused_step_stage",
     "TermSpec",
+    "KINDS",
+    "MAX_TERMS",
+    "ADVECTION",
+    "as_terms",
+    "resolve_terms",
+    "ham_contribution",
+    "gradient_reason",
 ]
 
 GHOST = st.PAD_WENO5  # 3 ghost layers on every axis
@@ -204,12 +218,24 @@ refresh_ghosts_fast.launches = 0
 
 # -- K1: fused RK stage -------------------------------------------------------------
 
+KINDS = ("advection", "normal", "curvature", "eikonal")
+MAX_TERMS = 16  # the kernels' term table (a by-value kernel parameter)
+_KIND_CODES = {k: i for i, k in enumerate(KINDS)}
+_COEF_CODES = {"stream": 0, "const": 1, "none": 2}
+
 
 class TermSpec:
-    """Description of one fused term: ``kind`` (``"advection"`` in this port)
-    and ``coef_kind``, one of ``("stream", n)`` — ``n`` coefficient tensors —
-    or ``("analytic", fn)`` — a coordinate callable ``fn(xs, t)`` that the
-    stepper evaluates into streamed tensors at each stage time."""
+    """Description of one fused term: ``kind`` (one of :data:`KINDS`) and
+    ``coef_kind``, one of
+
+    - ``"stream"``: ``n_streams`` coefficient tensors (3 velocity components
+      for advection, 1 for a scalar coefficient or a frozen eikonal sign),
+    - ``"const"``: the number ``coef_static``,
+    - ``"analytic"``: a coordinate callable ``coef_static(xs, t)``, which the
+      steppers evaluate into streamed tensors at each stage time
+      (:func:`resolve_terms`),
+    - ``"none"``: the eikonal term with its sign recomputed from phi.
+    """
 
     __slots__ = ("kind", "coef_kind", "coef_static", "n_streams")
 
@@ -221,6 +247,26 @@ class TermSpec:
 
     def __repr__(self):
         return f"TermSpec({self.kind}, {self.coef_kind})"
+
+
+#: the advection-only stage: one WENO5 advection term with 3 streamed components
+ADVECTION = TermSpec("advection", "stream", None, 3)
+
+
+def as_terms(terms):
+    """A stage's term list as ``((TermSpec, streams), ...)``; three tensors
+    stand for one streamed advection term."""
+    terms = tuple(terms)
+    if len(terms) == 3 and all(isinstance(x, torch.Tensor) for x in terms):
+        return ((ADVECTION, terms),)
+    return tuple((spec, tuple(arrs)) for spec, arrs in terms)
+
+
+def is_advection_only(terms) -> bool:
+    """Whether a normalised term list is the advection-only stage (one
+    streamed advection term), which keeps its own kernel entry and K3."""
+    return len(terms) == 1 and terms[0][0].kind == "advection" and \
+        terms[0][0].coef_kind == "stream"
 
 
 def node_coords(shape, spacing, lo, dtype, device=None):
@@ -237,13 +283,31 @@ def node_coords(shape, spacing, lo, dtype, device=None):
 
 
 def eval_components(value, shape, dtype, device, k=3) -> Tuple[torch.Tensor, ...]:
-    """A coefficient as ``k`` contiguous interior-shaped tensors."""
-    comps = value if isinstance(value, (tuple, list)) else [value[d] for d in range(k)]
+    """A coefficient as ``k`` contiguous tensors of ``shape`` (a scalar
+    coefficient, ``k = 1``, may be one tensor or number)."""
+    if isinstance(value, (tuple, list)):
+        comps = value
+    else:
+        comps = [value] if k == 1 else [value[d] for d in range(k)]
     if len(comps) != k:
-        raise ValueError(f"expected {k} velocity components, got {len(comps)}")
+        raise ValueError(f"expected {k} coefficient components, got {len(comps)}")
     return tuple(
         torch.broadcast_to(torch.as_tensor(c, dtype=dtype, device=device), shape).contiguous()
         for c in comps)
+
+
+def resolve_terms(terms, xs, t, shape, dtype, device):
+    """The term list with every analytic coefficient evaluated at the
+    coordinates ``xs`` and time ``t`` into streamed tensors of ``shape``."""
+    out = []
+    for spec, arrs in terms:
+        if spec.coef_kind == "analytic":
+            k = 3 if spec.kind == "advection" else 1
+            comps = eval_components(spec.coef_static(xs, t), shape, dtype, device, k)
+            out.append((TermSpec(spec.kind, "stream", None, k), comps))
+        else:
+            out.append((spec, arrs))
+    return tuple(out)
 
 
 def _advection_ham(P, u, spacing, shape):
@@ -255,23 +319,70 @@ def _advection_ham(P, u, spacing, shape):
     return ham
 
 
-def _advection_interior(P, u, coeffs, aux, spacing, shape):
-    """``alpha*aux + beta*phi - gamma*H`` on the interior, with the
-    arithmetic order of the JAX oracle; the coefficients are numbers or
-    0-d tensors."""
+def ham_contribution(spec: TermSpec, P, coef, center, spacing, shape):
+    """One term's Hamiltonian on the interior of the padded buffer ``P``
+    (counterpart of ``lsm_tpu.ops.weno_v2._ham_contribution``): ``coef`` the
+    streamed tensors, ``(value,)`` for a constant, ``()`` for none;
+    ``center`` the interior of ``P``."""
+    spacing = tuple(float(h) for h in spacing)
+    if spec.kind == "advection":
+        return _advection_ham(P, coef, spacing, shape)
+    if spec.kind == "normal":
+        gp, gm = st.godunov_norms(P, spacing, GHOST, shape)
+        v = coef[0]
+        return st.pos(v) * gp + st.neg(v) * gm
+    if spec.kind == "curvature":
+        kap = geo.curvature_from_padded(P, spacing, GHOST, shape)
+        nrm = geo.grad_norm_from_padded(P, spacing, GHOST, shape)
+        return coef[0] * kap * nrm
+    if spec.kind == "eikonal":
+        gp, gm = st.godunov_norms(P, spacing, GHOST, shape)
+        if spec.coef_kind == "none":
+            # the sign recomputed from phi, with gradient-aware smoothing
+            dx_min = min(spacing)
+            norm = torch.where(torch.sign(center) > 0, gp, gm)
+            denom = torch.sqrt(center ** 2 + norm ** 2 * dx_min * dx_min)
+            s = torch.where(denom == 0, 0.0, center / torch.where(denom == 0, 1.0, denom))
+        else:
+            s = coef[0]
+            norm = torch.where(torch.sign(s) > 0, gp, gm)
+        return s * (norm - 1.0)
+    raise ValueError(f"unknown term kind {spec.kind!r}")
+
+
+def _coef_values(spec: TermSpec, arrs, like: torch.Tensor):
+    if spec.coef_kind == "stream":
+        return tuple(arrs)
+    if spec.coef_kind == "const":
+        return (torch.full((), float(spec.coef_static), dtype=like.dtype, device=like.device),)
+    if spec.coef_kind == "none":
+        return ()
+    raise ValueError(f"{spec!r}: evaluate an analytic coefficient first (resolve_terms)")
+
+
+def _stage_interior(P, terms, coeffs, aux, spacing, shape):
+    """``alpha*aux + beta*phi - gamma*sum_n H_n`` on the interior, with the
+    arithmetic order of the JAX oracle; the coefficients are numbers or 0-d
+    tensors, ``terms`` a normalised list without analytic coefficients."""
     alpha, beta, gamma = coeffs
     center = st.shift(P, (0,) * len(shape), GHOST, shape)
-    res = beta * center - gamma * _advection_ham(P, u, spacing, shape)
+    ham = 0.0
+    for spec, arrs in terms:
+        ham = ham + ham_contribution(spec, P, _coef_values(spec, arrs, P), center, spacing,
+                                     shape)
+    res = beta * center - gamma * ham
     if aux is not None:
         res = alpha * unpack_padded(aux, shape) + res
     return res
 
 
-def stage_plain(P, u, coeffs, aux, spacing, shape) -> torch.Tensor:
+def stage_plain(P, terms, coeffs, aux, spacing, shape) -> torch.Tensor:
     """Plain version of K1: a fresh padded buffer holding the stage result in
-    its interior; its ghost shells are left unset, as the kernel leaves them."""
+    its interior; its ghost shells are left unset, as the kernel leaves them.
+    ``terms`` as for :func:`fused_stage`."""
     out = torch.empty_like(P)
-    unpack_padded(out, shape).copy_(_advection_interior(P, u, coeffs, aux, spacing, shape))
+    unpack_padded(out, shape).copy_(
+        _stage_interior(P, as_terms(terms), coeffs, aux, spacing, shape))
     return out
 
 
@@ -282,89 +393,174 @@ def stage_reference(padded, term_specs_and_streams, coeffs, t, aux_padded, bcs,
     and analytic coefficients are evaluated at :func:`node_coords`."""
     shape = tuple(shape)
     full = pack_padded(unpack_padded(padded, shape), bcs)
-    out = None
-    for spec, arrs in term_specs_and_streams:
-        if spec.kind != "advection":
-            raise NotImplementedError(
-                f"term kind {spec.kind!r}: only advection is ported "
-                "(ROADMAP.md queue 2, K1 term kinds)")
-        if spec.coef_kind == "analytic":
-            xs = node_coords(shape, spacing, lo, padded.dtype, padded.device)
-            u = eval_components(spec.coef_static(xs, t), shape, padded.dtype, padded.device)
-        else:
-            u = tuple(arrs)
-        term = _advection_ham(full, u, spacing, shape)
-        out = term if out is None else out + term
-    alpha, beta, gamma = coeffs
-    res = beta * unpack_padded(full, shape) - gamma * out
-    if aux_padded is not None:
-        res = alpha * unpack_padded(aux_padded, shape) + res
-    return res
+    xs = node_coords(shape, spacing, lo, padded.dtype, padded.device)
+    terms = resolve_terms(as_terms(term_specs_and_streams), xs, t, shape, padded.dtype,
+                          padded.device)
+    return _stage_interior(full, terms, coeffs, aux_padded, spacing, shape)
 
 
-def fused_stage(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs, aux: Optional[torch.Tensor],
+def check_terms(terms, P, stream_shape, name="terms"):
+    """Validate a normalised term list for the kernels: known kinds, a
+    coefficient kind each kind takes, streams of ``stream_shape`` like
+    ``P``, at most :data:`MAX_TERMS` entries."""
+    if not 1 <= len(terms) <= MAX_TERMS:
+        raise ValueError(f"the stage kernels take 1 to {MAX_TERMS} terms, got {len(terms)}")
+    for n, (spec, arrs) in enumerate(terms):
+        if spec.kind not in KINDS:
+            raise ValueError(f"unknown term kind {spec.kind!r}")
+        allowed = {"advection": ("stream",), "normal": ("stream", "const"),
+                   "curvature": ("stream", "const"), "eikonal": ("stream", "none")}[spec.kind]
+        if spec.coef_kind not in allowed:
+            raise ValueError(
+                f"term {n}: a {spec.kind} term with a {spec.coef_kind!r} coefficient is not a "
+                f"kernel input (takes {allowed}); an analytic one is evaluated into streams "
+                "first (in-kernel analytic coefficients: ROADMAP.md queue 2, item 2)")
+        want = (3 if spec.kind == "advection" else 1) if spec.coef_kind == "stream" else 0
+        if len(arrs) != want:
+            raise ValueError(f"term {n} ({spec.kind}) needs {want} streams, got {len(arrs)}")
+        for d, a in enumerate(arrs):
+            _check(a, f"{name}[{n}] stream {d}", stream_shape, like=P)
+
+
+class StageTerms(ctypes.Structure):
+    """The kernels' term table and stage constants (``LsmStageTerms`` in
+    ``csrc/lsm_kernels.h``), passed to K1 and K6 by value."""
+
+    _fields_ = [("n", ctypes.c_int), ("kind", ctypes.c_int * MAX_TERMS),
+                ("coef", ctypes.c_int * MAX_TERMS), ("value", ctypes.c_double * MAX_TERMS),
+                ("stream", ctypes.c_void_p * (3 * MAX_TERMS))] + [
+        (name, ctypes.c_double * 3)
+        for name in ("inv_h", "half_h", "inv_two_h", "inv_hh", "inv_hmix")
+    ] + [(name, ctypes.c_double) for name in ("dx_min", "alpha", "beta", "gamma")]
+
+
+def stage_table(terms, spacing, coeffs) -> StageTerms:
+    """The :class:`StageTerms` of a checked term list. The spacing-derived
+    constants are the reciprocals of what the plain version divides by
+    (``h``, ``2h``, ``h*h``, ``4*h1*h2``), formed in float64; the kernel
+    rounds each to its dtype and multiplies."""
+    tab = StageTerms()
+    tab.n = len(terms)
+    for n, (spec, arrs) in enumerate(terms):
+        tab.kind[n] = _KIND_CODES[spec.kind]
+        tab.coef[n] = _COEF_CODES[spec.coef_kind]
+        tab.value[n] = float(spec.coef_static) if spec.coef_kind == "const" else 0.0
+        for d, a in enumerate(arrs):
+            tab.stream[3 * n + d] = a.data_ptr()
+    h = [float(x) for x in spacing]
+    for d in range(3):
+        tab.inv_h[d], tab.half_h[d] = 1.0 / h[d], 0.5 * h[d]
+        tab.inv_two_h[d], tab.inv_hh[d] = 1.0 / (2.0 * h[d]), 1.0 / (h[d] * h[d])
+    for k, (i, j) in enumerate(((0, 1), (0, 2), (1, 2))):
+        tab.inv_hmix[k] = 1.0 / (4.0 * h[i] * h[j])
+    tab.dx_min = min(h)
+    tab.alpha, tab.beta, tab.gamma = (float(c) for c in coeffs)
+    return tab
+
+
+def fused_stage(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
                 spacing, shape) -> torch.Tensor:
-    """K1: one RK stage of WENO5 advection on the padded layout.
+    """K1: one RK stage on the padded layout.
 
-    ``out = alpha*aux + beta*phi - gamma*sum_d u_d * dphi/dx_d`` (upwind
-    WENO5) in the interior of a fresh padded buffer; its ghost shells are
-    stale until :func:`refresh_ghosts_fast`. ``u`` is three contiguous
-    interior-shaped tensors, ``aux`` a padded buffer or ``None``, ``coeffs``
-    ``(alpha, beta, gamma)`` as Python numbers (a new ``dt`` rebuilds
-    nothing). Replaces ``lsm_tpu.ops.weno_v2.fused_stage`` for the advection
-    kind with streamed velocity. CUDA tensors go to ``csrc/weno_stage.cu``,
-    CPU tensors to :func:`stage_plain`.
+    ``out = alpha*aux + beta*phi - gamma*sum_n H_n`` in the interior of a
+    fresh padded buffer; its ghost shells are stale until
+    :func:`refresh_ghosts_fast`. ``terms`` is a list of ``(TermSpec,
+    streams)`` (kinds advection, normal, curvature, eikonal; coefficients
+    streamed, constant or none; streams contiguous and interior-shaped), or
+    three velocity tensors for the advection-only stage. ``aux`` a padded
+    buffer or ``None``, ``coeffs`` ``(alpha, beta, gamma)`` as Python
+    numbers (a new ``dt`` rebuilds nothing). Replaces
+    ``lsm_tpu.ops.weno_v2.fused_stage`` (an analytic coefficient is
+    evaluated into streams first, :func:`resolve_terms`). CUDA tensors go to
+    ``csrc/weno_stage.cu`` (the advection-only stage to its own entry), CPU
+    tensors to :func:`stage_plain`.
     """
     shape = tuple(shape)
-    if len(shape) != 3 or len(u) != 3 or len(spacing) != 3:
-        raise ValueError("the fused stage is 3D only: shape, u and spacing need 3 entries")
+    if len(shape) != 3 or len(spacing) != 3:
+        raise ValueError("the fused stage is 3D only: shape and spacing need 3 entries")
+    terms = tuple(terms)
+    if all(isinstance(x, torch.Tensor) for x in terms) and len(terms) != 3:
+        raise ValueError("the fused stage is 3D only: u needs 3 entries")
+    terms = as_terms(terms)
     _check(P, "P", padded_shape(shape))
-    for d, ud in enumerate(u):
-        _check(ud, f"u[{d}]", shape, like=P)
+    check_terms(terms, P, shape)
     if aux is not None:
         _check(aux, "aux", padded_shape(shape), like=P)
     if P.device.type == "cpu":
-        return stage_plain(P, u, coeffs, aux, spacing, shape)
+        return stage_plain(P, terms, coeffs, aux, spacing, shape)
     lib = load_library()
-    fn = lib.stage_f32 if P.dtype == torch.float32 else lib.stage_f64
+    f32 = P.dtype == torch.float32
     out = torch.empty_like(P)
-    alpha, beta, gamma = (float(c) for c in coeffs)
+    aux_ptr = None if aux is None else aux.data_ptr()
     with torch.cuda.device(P.device):
-        code = fn(P.data_ptr(), u[0].data_ptr(), u[1].data_ptr(), u[2].data_ptr(),
-                  None if aux is None else aux.data_ptr(), out.data_ptr(), *shape,
-                  *(1.0 / float(h) for h in spacing), alpha, beta, gamma,
-                  torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if is_advection_only(terms):
+            u = terms[0][1]
+            alpha, beta, gamma = (float(c) for c in coeffs)
+            code = (lib.stage_f32 if f32 else lib.stage_f64)(
+                P.data_ptr(), u[0].data_ptr(), u[1].data_ptr(), u[2].data_ptr(), aux_ptr,
+                out.data_ptr(), *shape, *(1.0 / float(h) for h in spacing), alpha, beta, gamma,
+                stream)
+        else:
+            tab = stage_table(terms, spacing, coeffs)
+            code = (lib.stage_terms_f32 if f32 else lib.stage_terms_f64)(
+                P.data_ptr(), aux_ptr, out.data_ptr(), *shape, ctypes.addressof(tab), stream)
     _raise_on(code, lib, "weno_stage kernel")
     fused_stage.launches += 1
+    fused_stage.kinds_launches += not is_advection_only(terms)
     return out
 
 
 fused_stage.launches = 0
+fused_stage.kinds_launches = 0  # of the launches, those of the term-list entry
 
 
 # -- the differentiable stage --------------------------------------------------------
 
 
-def stage_refresh_plain(P, u, coeffs, aux, bcs, spacing, shape) -> torch.Tensor:
+def stage_refresh_plain(P, terms, coeffs, aux, bcs, spacing, shape) -> torch.Tensor:
     """Plain stage plus ghost refresh on the padded layout (counterpart of
     ``lsm_tpu.ops.weno_v2._stage_refresh_jnp``): the stage reads ``P``'s
     stored ghosts, as K1 does, and the result is packed with fresh ghosts.
-    ``coeffs`` may be tensors; autograd through this function is the oracle
-    of the stage's backward."""
-    return pack_padded(_advection_interior(P, u, coeffs, aux, spacing, shape), bcs)
+    ``terms`` as for :func:`fused_stage`; ``coeffs`` may be tensors. Autograd
+    through this function is the oracle of the stage's backward, and the
+    CPU's backward of term lists K3 does not take."""
+    return pack_padded(_stage_interior(P, as_terms(terms), coeffs, aux, spacing, shape), bcs)
+
+
+def gradient_reason(terms) -> Optional[str]:
+    """Why a gradient through a stage of ``terms`` (normalised) cannot run
+    on CUDA, naming the ROADMAP item; ``None`` for one advection term (its
+    coefficient streamed, or a callable the stepper evaluates into streams),
+    whose backward is K4, K3 and K5."""
+    if len(terms) == 1 and terms[0][0].kind == "advection":
+        return None
+    kinds = " + ".join(spec.kind for spec, _ in terms)
+    return (f"a gradient through a stage of {kinds} is not ported to CUDA yet "
+            "(ROADMAP.md queue 2, K3 term kinds)")
+
+
+def _unflatten(specs, counts, streams):
+    """The term list of ``specs``, each taking its ``counts`` streams in turn."""
+    it = iter(streams)
+    return tuple((spec, tuple(next(it) for _ in range(k))) for spec, k in zip(specs, counts))
 
 
 class _FusedStepStage(torch.autograd.Function):
-    """K1 + K2 forward; backward K4 (fold the output cotangent's shells),
-    K3 (stage cotangents), K5 (zero daux's shells). Saves ``P``, the
-    streams and ``aux`` (references, no copies)."""
+    """K1 + K2 forward over a term list whose streams are the trailing
+    arguments. Backward for one advection term: K4 (fold the output
+    cotangent's shells), K3 (stage cotangents), K5 (zero daux's shells); for
+    any other list (the CPU; CUDA refuses it before the forward): autograd
+    through :func:`stage_refresh_plain` from the saved inputs, the plain
+    version of what a K3 for the other kinds would compute. Saves ``P``,
+    ``aux`` and the streams (references, no copies)."""
 
     @staticmethod
-    def forward(ctx, P, u0, u1, u2, aux, alpha, beta, gamma, statics):
-        bcs, spacing, shape, values = statics
-        out = fused_stage(P, (u0, u1, u2), values, aux, spacing, shape)
+    def forward(ctx, P, aux, alpha, beta, gamma, statics, *streams):
+        specs, counts, bcs, spacing, shape, values = statics
+        out = fused_stage(P, _unflatten(specs, counts, streams), values, aux, spacing, shape)
         refresh_ghosts_fast(out, bcs, shape)
-        ctx.save_for_backward(P, u0, u1, u2, aux)
+        ctx.save_for_backward(P, aux, *streams)
         ctx.statics = statics
         ctx.coef_like = tuple((c.dtype, c.device) if isinstance(c, torch.Tensor) else None
                               for c in (alpha, beta, gamma))
@@ -375,45 +571,62 @@ class _FusedStepStage(torch.autograd.Function):
     def backward(ctx, g):
         from . import weno_v2_bwd as bwd  # imports this module
 
-        P, u0, u1, u2, aux = ctx.saved_tensors
-        bcs, spacing, shape, values = ctx.statics
-        need = ctx.needs_input_grad
-        # K4 folds in place, so it gets a copy: autograd may hand this node
-        # the caller's grad_outputs, or one buffer shared with another branch
-        g = bwd.fold_ghost_cotangent_fast(g.clone(memory_format=torch.contiguous_format),
-                                          bcs, shape)
-        dP, du, dcoef, daux = bwd.stage_backward(
-            P, (u0, u1, u2), values, aux, g, spacing, shape,
-            need_du=any(need[1:4]), need_daux=need[4])
-        du = du or (None,) * 3
-        dc = tuple(None if like is None or not need[5 + k] else
+        P, aux, *streams = ctx.saved_tensors
+        specs, counts, bcs, spacing, shape, values = ctx.statics
+        terms = _unflatten(specs, counts, streams)
+        need = ctx.needs_input_grad  # P, aux, alpha, beta, gamma, statics, *streams
+        if is_advection_only(terms):
+            # K4 folds in place, so it gets a copy: autograd may hand this
+            # node the caller's grad_outputs, or one buffer shared with
+            # another branch
+            gf = bwd.fold_ghost_cotangent_fast(g.clone(memory_format=torch.contiguous_format),
+                                               bcs, shape)
+            dP, dstreams, dcoef, daux = bwd.stage_backward(
+                P, streams, values, aux, gf, spacing, shape,
+                need_du=any(need[6:]), need_daux=need[1])
+        else:
+            dP, dstreams, dcoef, daux = bwd.composite_backward_autograd(
+                P, terms, values, aux, g, bcs, spacing, shape)
+        dstreams = dstreams or (None,) * len(streams)
+        dc = tuple(None if like is None or not need[2 + k] else
                    dcoef[k].to(dtype=like[0], device=like[1])
                    for k, like in enumerate(ctx.coef_like))
-        return (dP if need[0] else None, *(d if n else None for d, n in zip(du, need[1:4])),
-                daux, *dc, None)
+        return (dP if need[0] else None, daux if need[1] else None, *dc, None,
+                *(d if n else None for d, n in zip(dstreams, need[6:])))
 
 
-def fused_step_stage(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs, aux, bcs, spacing,
-                     shape, coeff_values=None) -> torch.Tensor:
+def fused_step_stage(P: torch.Tensor, terms, coeffs, aux, bcs, spacing, shape,
+                     coeff_values=None) -> torch.Tensor:
     """One RK stage plus ghost refresh, differentiable (counterpart of
     ``lsm_tpu.ops.weno_v2.fused_step_stage``).
 
     The forward is :func:`fused_stage` (K1) then :func:`refresh_ghosts_fast`
-    (K2). ``coeffs = (alpha, beta, gamma)`` are numbers or 0-d tensors;
-    gradients flow to ``P``, the three streams ``u``, ``aux`` and the tensor
-    coefficients through K4, K3 and K5. The kernels take the coefficients as
-    host numbers: ``coeff_values`` gives them, so a tensor coefficient is not
-    read back here (default: ``float`` of each coefficient). When nothing
-    needs a gradient, the call is K1 + K2 and keeps nothing for a backward.
+    (K2); ``terms`` as for :func:`fused_stage`. ``coeffs = (alpha, beta,
+    gamma)`` are numbers or 0-d tensors. The kernels take the coefficients
+    as host numbers: ``coeff_values`` gives them, so a tensor coefficient is
+    not read back here (default: ``float`` of each coefficient). When
+    nothing needs a gradient, the call is K1 + K2 and keeps nothing for a
+    backward. Otherwise gradients flow to ``P``, the streams, ``aux`` and
+    the tensor coefficients: for one advection term through K4, K3, K5; for
+    any other term list through autograd of :func:`stage_refresh_plain` on
+    the CPU, while CUDA raises ``NotImplementedError``
+    (:func:`gradient_reason`).
     """
     shape = tuple(shape)
+    terms = tuple(terms)
+    if all(isinstance(x, torch.Tensor) for x in terms) and len(terms) != 3:
+        raise ValueError("the fused stage is 3D only: u needs 3 entries")
+    terms = as_terms(terms)
     values = tuple(float(c) for c in (coeffs if coeff_values is None else coeff_values))
-    tensors = [P, *u, aux, *coeffs]
+    streams = [a for _, arrs in terms for a in arrs]
+    tensors = [P, *streams, aux, *coeffs]
     if not (torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)):
-        out = fused_stage(P, u, values, aux, spacing, shape)
+        out = fused_stage(P, terms, values, aux, spacing, shape)
         return refresh_ghosts_fast(out, bcs, shape)
-    if len(u) != 3:
-        raise ValueError("the fused stage is 3D only: u needs 3 entries")
-    return _FusedStepStage.apply(P, *u, aux, *coeffs,
-                                 (bcs, tuple(spacing), shape, values))
+    reason = gradient_reason(terms)
+    if reason is not None and P.device.type != "cpu":
+        raise NotImplementedError(reason)
+    statics = (tuple(spec for spec, _ in terms), tuple(len(arrs) for _, arrs in terms), bcs,
+               tuple(spacing), shape, values)
+    return _FusedStepStage.apply(P, aux, *coeffs, statics, *streams)

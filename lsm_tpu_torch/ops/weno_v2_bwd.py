@@ -276,21 +276,27 @@ def stage_backward(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs,
 stage_backward.launches = 0
 
 
-def composite_backward_autograd(P, u, coeffs, aux, g, bcs, spacing, shape):
+def composite_backward_autograd(P, terms, coeffs, aux, g, bcs, spacing, shape):
     """``torch.autograd.grad`` of :func:`~.weno_v2.stage_refresh_plain` (stage
     plus ghost refresh) for the raw, unfolded padded output cotangent ``g``:
-    ``(dP, du, dcoef, daux)`` as :func:`stage_backward` returns them (``daux``
-    ``None`` without ``aux``). The oracle of K4 followed by K3; run it in
-    float64."""
+    ``(dP, dstreams, dcoef, daux)`` as :func:`stage_backward` returns them
+    (``dstreams`` one per stream of ``terms``, a term list or three velocity
+    tensors; ``daux`` ``None`` without ``aux``). The oracle of K4 followed by
+    K3, and the CPU's backward of term lists K3 does not take; run it in
+    float64 as an oracle."""
+    terms = v2.as_terms(terms)
     with torch.enable_grad():
         Pv = P.detach().requires_grad_()
-        uv = [c.detach().requires_grad_() for c in u]
+        tv = tuple((spec, tuple(a.detach().requires_grad_() for a in arrs))
+                   for spec, arrs in terms)
+        sv = [a for _, arrs in tv for a in arrs]
         cv = [torch.tensor(float(c), dtype=P.dtype, device=P.device, requires_grad=True)
               for c in coeffs]
         av = None if aux is None else aux.detach().requires_grad_()
-        out = v2.stage_refresh_plain(Pv, uv, cv, av, bcs, spacing, shape)
-        inputs = [Pv, *uv, *cv] + ([] if av is None else [av])
+        out = v2.stage_refresh_plain(Pv, tv, cv, av, bcs, spacing, shape)
+        inputs = [Pv, *sv, *cv] + ([] if av is None else [av])
         grads = torch.autograd.grad(out, inputs, grad_outputs=g, allow_unused=True)
-    dP, du, dc = grads[0], tuple(grads[1:4]), grads[4:7]
+    ns = len(sv)
+    dP, dstreams, dc = grads[0], tuple(grads[1:1 + ns]), grads[1 + ns:4 + ns]
     dcoef = torch.stack([d if d is not None else P.new_zeros(()) for d in dc])
-    return dP, du, dcoef, (grads[7] if av is not None else None)
+    return dP, dstreams, dcoef, (grads[4 + ns] if av is not None else None)

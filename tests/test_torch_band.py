@@ -482,8 +482,13 @@ def test_dense_stepper_refuses_a_band_field():
 def test_band_routing_names_roadmap_items():
     _, tnb = _pair((16, 16, 16))
     vel = T.AdvectionTerm(_velf)
+    # a sum of two advection terms now routes to the band stepper; an object
+    # that is no term kind is refused with a reason that says so
+    assert tband.unsupported_reason((vel, vel), tnb, T.RK3()) is None
+    assert isinstance(T.LevelSetEquation(terms=(vel, vel), ic=tnb)._cuda_stepper(False, "auto"),
+                      tband.FusedBandStepper)
     cases = [
-        ((vel, vel), tnb, "K1 term kinds"),
+        ((vel, object()), tnb, "no term kind"),
         ((T.AdvectionTerm(_velf, "upwind"),), tnb, "general path (K10/K11)"),
         ((vel,), tnb.with_bcs(T.Extrapolation(8), replace=True), "K2 degree"),
     ]

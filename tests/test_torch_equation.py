@@ -226,13 +226,19 @@ def test_unsupported_configurations_raise_on_the_cuda_route():
         (T.AdvectionTerm(vel2), phi2, {}, "2D embedding"),
         (T.AdvectionTerm(_velf, "upwind"), tphi, {}, "general path"),
         (T.AdvectionTerm(_velf, update_func=lambda v, p, t: v), tphi, {}, "update_func"),
-        ((T.AdvectionTerm(_velf), T.AdvectionTerm(_velf)), tphi, {}, "K1 term kinds"),
-        (_OtherTerm(), tphi, {}, "K1 term kinds"),
+        (_OtherTerm(), tphi, {}, "general path"),
     ]
     for terms, phi, kw, item in cases:
         eq = T.LevelSetEquation(terms=terms, ic=phi)
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 2, {item}"):
             eq._cuda_stepper(kw.get("hooks", False), kw.get("fast", "auto"))
+    # an object that is no term kind is refused with a reason that says so;
+    # a sum of two advection terms now routes to the fused stepper
+    assert "no term kind" in tfused.unsupported_reason((_OtherTerm(),), tphi, T.RK3())
+    two = (T.AdvectionTerm(_velf), T.AdvectionTerm(_velf))
+    assert tfused.unsupported_reason(two, tphi, T.RK3()) is None
+    stepper = T.LevelSetEquation(terms=two, ic=tphi)._cuda_stepper(False, "auto")
+    assert isinstance(stepper, tfused.FusedStepper) and len(stepper.entries) == 2
     # an Extrapolation(7) axis of 6 nodes cannot be refreshed: named, not run
     g = T.Grid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (8, 8, 6))
     phi = T.MeshField(torch.zeros(8, 8, 6, dtype=torch.float64), g, T.Extrapolation(7))

@@ -204,8 +204,8 @@ def test_fused_stage_checks():
         tv2.fused_stage(P, u, (0, 1, 1), P[1:], sp, shape)
     with pytest.raises(TypeError, match="dtype"):
         tv2.fused_stage(P.to(torch.int32), u, (0, 1, 1), None, sp, shape)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tv2.stage_reference(P, ((tv2.TermSpec("normal", "stream", None, 1), (u[0],)),),
+    with pytest.raises(ValueError, match="unknown term kind"):
+        tv2.stage_reference(P, ((tv2.TermSpec("bogus", "stream", None, 1), (u[0],)),),
                             (0, 1, 1), 0.0, None, T.normalize_bcs(T.Periodic(), 3), sp,
                             shape, (0.0, 0.0, 0.0))
 

@@ -1,8 +1,12 @@
 #!/usr/bin/env bash
-# A/B of the end-to-end `integrate` step time of two trees of this repository
-# on one card, in turns: first, second, second, first. Each tree runs its own
-# chip_smoke.integrate_ms_per_step (512^3 Zalesak, streamed rotation, FE and
-# RK3, 10 steps per call, median of 20 calls) in a process of its own.
+# A/B of two trees of this repository on one card, in turns: first, second,
+# second, first. Each tree runs its own chip_smoke helpers in a process of its
+# own and prints one line: the end-to-end `integrate` ms per step of the
+# 512^3 Zalesak main path (streamed rotation, FE and RK3, 10 steps per call,
+# median of 20 calls), and the CUDA-event medians of the advection-only K1 on
+# its stage-1 inputs and of the advection-only K6 on the 512^3 sphere band.
+# A tree that has the term kinds also times K1' on configs A and B (frozen
+# sign) and K6' on config C.
 #
 # From the repository root, on a machine with one H100:
 #   git archive <parent> | tar -x -C _archive/parent
@@ -12,12 +16,56 @@ first=${1:?first tree}
 second=${2:?second tree}
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 for tree in "$first" "$second" "$second" "$first"; do
-  (cd "$tree" && python3 -c "
-import sys, torch, chip_smoke as cs, lsm_tpu_torch as lsm
-grid, phi, vel = cs.zalesak(512, torch.device('cuda', 0))
+  (cd "$tree" && python3 - "$tree" <<'EOF'
+import sys
+import torch
+import chip_smoke as cs
+import lsm_tpu_torch as lsm
+from lsm_tpu_torch.integrators.band_fused import FusedBandStepper
+from lsm_tpu_torch.integrators.fused import FusedStepper
+from lsm_tpu_torch.ops import band as bd
+from lsm_tpu_torch.ops import weno_v2 as v2
+
+dev = torch.device("cuda", 0)
+out = {}
+grid, phi, vel = cs.zalesak(512, dev)
 term = lsm.AdvectionTerm(vel)
-fe = cs.integrate_ms_per_step(term, phi, lsm.ForwardEuler())
-rk3 = cs.integrate_ms_per_step(term, phi, lsm.RK3())
-print('AB', sys.argv[1], 'FE_integrate_ms', fe, 'RK3_integrate_ms', rk3, flush=True)
-" "$tree")
+out["FE_integrate_ms"] = cs.integrate_ms_per_step(term, phi, lsm.ForwardEuler())
+out["RK3_integrate_ms"] = cs.integrate_ms_per_step(term, phi, lsm.RK3())
+P = v2.pack_padded(phi.values, phi.bcs)
+u = tuple(vel.values[d].contiguous() for d in range(3))
+dt = 0.25 * grid.min_spacing
+out["K1_ms"] = cs.cuda_time(lambda: v2.fused_stage(P, u, (0.0, 1.0, dt), None, grid.spacing,
+                                                   grid.shape))
+del P, u, phi, vel
+nb = cs.sphere_band(512, dev)
+st = FusedBandStepper((lsm.AdvectionTerm(cs.spin),), nb, lsm.ForwardEuler())
+s = st.pack(nb)
+xs = bd.tile_coords(s.ids, st.shape, st.tiles, st.spacing, st.lo, st.dtype)
+ub = v2.eval_components(cs.spin(xs, 0.0), (st.capacity, *st.tiles), st.dtype, dev)
+band_args = (s.ids, s.band)
+out["K6_ms"] = cs.cuda_time(lambda: bd.band_stage(s.bufs[0], s.bufs[1], *band_args, ub,
+                                                  (0.0, 1.0, dt), None, st.spacing, st.shape,
+                                                  st.tiles))
+if hasattr(cs, "a_terms"):  # a tree with the term kinds
+    for key, field, terms_of in (
+            ("K1'_A_ms", lambda: cs.torus_field(512, dev), lambda f: cs.a_terms()),
+            ("K1'_B_frozen_ms", lambda: cs.torus_field(512, dev, wavy=True),
+             lambda f: (lsm.EikonalReinitializationTerm.from_initial(f),))):
+        f = field()
+        sk = FusedStepper(terms_of(f), f, lsm.RK3())
+        Pk = sk.pack(f.values)
+        tk = sk.stage_terms(0.0)
+        out[key] = cs.cuda_time(lambda: v2.fused_stage(Pk, tk, (0.0, 1.0, 1e-4), None,
+                                                       sk.spacing, sk.shape))
+        del f, sk, Pk, tk
+    sc = FusedBandStepper((cs.c_term(nb),), nb, lsm.ForwardEuler())
+    sc_state = sc.pack(nb)
+    tc = sc.stage_terms(sc_state, 0.0)
+    out["K6'_C_ms"] = cs.cuda_time(lambda: bd.band_stage(
+        sc_state.bufs[0], sc_state.bufs[1], sc_state.ids, sc_state.band, tc, (0.0, 1.0, dt),
+        None, sc.spacing, sc.shape, sc.tiles))
+print("AB", sys.argv[1], " ".join(f"{k} {v}" for k, v in out.items()), flush=True)
+EOF
+  )
 done

@@ -41,7 +41,7 @@ def main():
         st = FusedBandStepper((lsm.AdvectionTerm(cs.spin),), nb, lsm.ForwardEuler(), tiles=tiles)
         state = st.pack(nb)
         P, out = state.bufs
-        u = st.velocity(state, 0.0)
+        u = st.stage_terms(state, 0.0)
         _, valid = bd.tile_index(state.ids, shape, tiles)
         cids, _ = bd.compact_ids(box_dilate(state.act, 1), st.total)
         band = state.band.clone()
