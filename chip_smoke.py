@@ -29,6 +29,12 @@ exits non-zero):
              eikonal (recomputed, frozen sign), a 3-term sum with aux.
    k6kinds — K6's term-list entry (K6') on the same cases over a sphere's
              dispatch list; the rest of the target bit for bit.
+   k10k11  — the general path's WENO5 stage, K10 (3D, 40x72x136) and K11
+             (2D, 67x131), vs their plain versions, five BC cases, f32 and
+             f64, the bare Hamiltonian and stages with and without aux; a
+             flat field.
+   k2_small — K2 on the 2D embedding's (1, n0, n1) layout (the length-1
+             axis's Extrapolation(0)), bit for bit vs its plain version.
 8. k512    — K1 and K2 vs their plain versions at the main path's 512^3
              shape, on its own inputs (Zalesak field, rotation velocity).
 9. k3_512  — K3 at 512^3 on the main path's inputs: a 64^3 sub-box vs the
@@ -57,6 +63,17 @@ exits non-zero):
              and RK3) through ``integrate`` at 512^3, counting launches; A's
              terms on the off-axis band vs the plain versions; 64^3 card vs
              CPU; a gradient through the kinds refused on the card.
+    general_512 — H: the 512^3 Zalesak RK3 configuration through
+             ``integrate`` with a posthook (the general path: K10 = 30, K1 = 0
+             over 10 steps), with ``fast="off"``, and with a posthook that
+             calls ``reinitialize`` every 5 steps; K10 vs plain on H's inputs.
+    twod   — D1-D4 (configurations 1-4 of ``models.benchmarks``) at 4096^2
+             through ``integrate`` (D2-D4 on the 2D embedding: K1, K1', K2;
+             D2h, D2 with a posthook: K11; D1, upwind: no kernel); K11 and K2
+             vs plain at 4096^2; 256^2 card vs CPU; a 2D gradient refused.
+    general_small — card vs CPU: H and a band with hooks at 64^3,
+             ``reinitialize`` at 64^3 f64, the general path's rollout
+             gradient at 32^3 f64 (K10 launches in its forward).
 15. timing — CUDA-event medians at 512^3: K1-K5, the FE and RK3 steps
              through the kernels and through the plain versions, the
              end-to-end ``integrate`` time per step for FE and RK3, the two
@@ -66,10 +83,15 @@ exits non-zero):
              beside the dense one at 768^3; peak memory of each.
     kinds_timing — K1' on A's and B's inputs, K6' on C's, their plain
              versions, ``integrate`` per step of A, B and C; peak memory.
+    general_timing — K10 at 512^3 and K11 at 4096^2 with their plain
+             versions, ``integrate`` per step of H (posthook, ``fast="off"``,
+             fused) and of D1-D4, D2h; peak memory of each.
 17. profile — ``torch.profiler`` over 3 RK3 steps of the main path, the two
              gradient cells, 3 band FE and RK3 steps, and 3 RK3 steps each of
-             configs A and C: device busy share of the wall time and device
-             time by kernel.
+             configs A and C, H, D2 and D2h: device busy share of the wall
+             time and device time by kernel.
+18. revolution — D2 at 256^2 through one full revolution on the card and on
+             the CPU: the area loss of each.
 
 The last two lines are the card (``nvidia-smi``) and a JSON verdict; the line
 before them holds the per-kernel JSON record: launches on the main paths,
@@ -91,14 +113,17 @@ import time
 import torch
 
 import lsm_tpu_torch as lsm
+from lsm_tpu_torch.core.bc import pad_ghost
 from lsm_tpu_torch.core.narrowband import box_dilate
 from lsm_tpu_torch.integrators.band_fused import FusedBandStepper, default_tiles
 from lsm_tpu_torch.geometry import queries as geo
 from lsm_tpu_torch.integrators.fused import _STAGES, FusedStepper
+from lsm_tpu_torch.models import benchmarks as bench
 from lsm_tpu_torch.models import shapes
 from lsm_tpu_torch.ops import _build
 from lsm_tpu_torch.ops import band as bd
 from lsm_tpu_torch.ops import stencils as st
+from lsm_tpu_torch.ops import weno_general as wg
 from lsm_tpu_torch.ops import weno_v2 as v2
 from lsm_tpu_torch.ops import weno_v2_bwd as bwd
 
@@ -131,11 +156,21 @@ KINDS_OPS = {"A": 140 + 69 + 2 + 3, "B": 139 + 1 + 3, "C": 140 + 1 + 3}
 KINDS_STEPS = 10  # configs A, B and C at 512^3: steps of integrate
 KINDS_SMALL_STEPS = 5  # their 64^3 card-vs-CPU trajectories
 GATE_ULPS = 4  # curvature: nodes this close to its eps gate are counted, not compared
+N_2D = 4096  # D1-D4, the canonical 2D configurations: a 4K frame
+N_2D_SMALL = 256  # their card-vs-CPU trajectories and the revolution
+GENERAL_STEPS = 10  # H and D1-D4: steps of integrate
+GRAD_GENERAL_N = 32  # the general path's card-vs-CPU gradient, f64
+REINIT_EVERY = 5  # H's reinitializing posthook runs every this many steps
+# card vs CPU: the times reached, each the sum of steps from a CFL bound that
+# both reduce in the field's dtype, in another order
+T_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+# csrc/weno_general.cu runs K1's per-node code (weno5.cuh): 88 per axis + 5
+K11_OPS_PER_CELL = 2 * 88 + 5
 
 COUNTED = {"K1": v2.fused_stage, "K2": v2.refresh_ghosts_fast, "K3": bwd.stage_backward,
            "K4": bwd.fold_ghost_cotangent_fast, "K5": bwd.zero_pad_shells,
            "K6": bd.band_stage, "K7": bd.refresh_band_ghosts_fast,
-           "K8": bd.band_retube_incremental}
+           "K8": bd.band_retube_incremental, "K10": wg.weno_stage_3d, "K11": wg.weno_stage_2d}
 # the term-list entries of K1 and K6, counted apart (``kinds_launches``) as
 # well as in their wrapper's ``launches``
 KIND_ENTRIES = {"K1'": v2.fused_stage, "K6'": bd.band_stage}
@@ -712,19 +747,20 @@ class PlainStepper(FusedStepper):
         return v2.refresh_ghosts_plain(out, self.bcs, self.shape)
 
 
-def integrate_ms_per_step(term, phi, integrator, steps=10, path="fused") -> float:
+def integrate_ms_per_step(term, phi, integrator, steps=10, path="fused", **kw) -> float:
     """End-to-end ms per accepted step of ``integrate``: the median over 20
     calls of ``steps`` steps each (CFL bound, its read-back, pack and unpack
-    included), on the fast path ``path``."""
+    included), on the fast path ``path`` (``None``: the general path);
+    ``kw`` go to ``integrate`` (hooks, ``fast``)."""
     eq = lsm.LevelSetEquation(terms=term, ic=phi, integrator=integrator)
 
     def run():
-        eq.integrate(eq.t + 1.0, max_steps=steps)
+        eq.integrate(eq.t + 1.0, max_steps=steps, **kw)
         if eq.last_nsteps != steps or eq.last_fast_path != path:
             raise AssertionError(f"integrate took {eq.last_nsteps} steps on "
                                  f"{eq.last_fast_path}, not {steps} on {path}")
 
-    eq.integrate(eq.t + 1.0, max_steps=2)  # warm-up
+    eq.integrate(eq.t + 1.0, max_steps=2, **kw)  # warm-up
     return cuda_time(run, warmup=0) / steps
 
 
@@ -1604,6 +1640,461 @@ def phase_kinds_timing(dev, res):
     res["mem"].update(mem)
 
 
+# -- the general path (K10, K11) and 2D fields ------------------------------------------
+
+
+def general_bcs(ndim):
+    """:func:`bc_cases` on the first ``ndim`` axes."""
+    return {name: bcs[:ndim] for name, bcs in bc_cases().items()}
+
+
+def general_compare(label, got, ref, tol):
+    """``(max|got - ref|, max(|ref|, 1))``; raises beyond ``tol * scale`` or
+    on a non-finite value."""
+    err = float((got.double() - ref.double()).abs().max())
+    scale = max(float(ref.abs().max()), 1.0)
+    if not (bool(torch.isfinite(got).all()) and err <= tol * scale):
+        raise AssertionError(f"{label}: {err} > {tol} * {scale}")
+    return err, scale
+
+
+def phase_k10k11(dev, res):
+    """K10 (3D) and K11 (2D) against their plain versions at 40x72x136 and
+    67x131, five BC cases, f32 and f64: the bare Hamiltonian and a stage
+    with and without aux, on a random field with a random velocity that is
+    exactly 0 on every 7th node (the upwind tie); a flat field gives 0."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    worst = {"K10": 0.0, "K11": 0.0}
+    for shape in ((40, 72, 136), (67, 131)):
+        key = "K10" if len(shape) == 3 else "K11"
+        sp = tuple(1.0 / (n - 1) for n in shape)
+        for dtype, tol in ((torch.float32, K1_TOL), (torch.float64, 1e-12)):
+            rel = 0.0
+            for name, bcs in general_bcs(len(shape)).items():
+                vals = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                P = pad_ghost(vals, bcs, v2.GHOST).contiguous()
+                u = [torch.randn(shape, generator=gen, device=dev, dtype=dtype) for _ in shape]
+                u[0].view(-1)[::7] = 0.0
+                aux = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                for coeffs, a in ((None, None), ((0.0, 1.0, 1e-3), None),
+                                  ((0.75, 0.25, 2.5e-4), aux)):
+                    got = wg.weno_stage_general(P, u, sp, shape, coeffs, a)
+                    ref = wg._stage_plain(P, u, a, coeffs or wg._BARE, sp, shape)
+                    torch.cuda.synchronize()
+                    err, scale = general_compare(f"{key} {name} {dtype} {coeffs}", got, ref, tol)
+                    rel = max(rel, err / scale)
+                    if dtype == torch.float32:
+                        worst[key] = max(worst[key], err)
+            log("k10k11", f"{key} {str(dtype):13s} shape={shape} five BC cases, H / stage / "
+                          f"stage+aux: max|kernel-plain|/scale={rel:.3e} (tol {tol:g})")
+        flat = torch.ones(tuple(n + 6 for n in shape), device=dev)
+        uf = [torch.full(shape, v, device=dev) for v in (1.0, -1.0, 0.0)[:len(shape)]]
+        hf = wg.weno_hamiltonian(flat, uf, sp, shape)
+        torch.cuda.synchronize()
+        mx = float(hf.abs().max())
+        log("k10k11", f"{key} flat field f32: finite={bool(torch.isfinite(hf).all())} "
+                      f"max|H|={mx:.3e}")
+        if not (bool(torch.isfinite(hf).all()) and mx < 1e-6):
+            raise AssertionError(f"{key} on a flat field: {mx}")
+    res["k10_err"], res["k11_err"] = worst["K10"], worst["K11"]
+
+
+def phase_k2_small(dev, res):
+    """K2 on the 2D embedding's ``(1, n0, n1)`` layout: the length-1 axis
+    under ``Extrapolation(0)`` (its ghosts copies of the node), the other two
+    under the five BC cases, scribbled shells: bit for bit against its plain
+    version."""
+    shape = (1, 67, 131)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for name, bcs2 in general_bcs(2).items():
+        bcs = ((lsm.Extrapolation(0), lsm.Extrapolation(0)), *bcs2)  # the dummy axis 0
+        vals = torch.randn(shape, generator=gen, device=dev)
+        P = v2.pack_padded(vals, bcs)
+        shell = shell_mask(shape, dev)
+        P[shell] = torch.randn(int(shell.sum()), generator=gen, device=dev)  # scribble
+        got = v2.refresh_ghosts_fast(P.clone(), bcs, shape)
+        ref = v2.refresh_ghosts_plain(P.clone(), bcs, shape)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        err_pad = float((got - v2.pack_padded(vals, bcs)).abs().max())
+        copies = bool((got[:3] == got[3]).all() and (got[4:] == got[3]).all())
+        log("k2_small", f"{name:9s} shape={shape} max|kernel-plain|={err:.3e} "
+                        f"max|kernel-pad_ghost|={err_pad:.3e} dummy ghosts copies={copies}")
+        if not (err == 0.0 and err_pad <= K2_TOL and copies):
+            raise AssertionError(f"K2 on a length-1 axis failed for {name}: {err} / {err_pad}")
+    res["k2_err"] = max(res["k2_err"], 0.0)
+
+
+def general_run(term, phi, integrator, steps, **kw):
+    """``integrate`` of ``steps`` steps on the general path (``kw``: a hook;
+    by default one that records ``eq.t``; or ``fast="off"``), counting
+    launches: ``(equation, counts, wall s, peak GiB)``."""
+    seen = []
+    if "posthook" not in kw and kw.get("fast") != "off":
+        kw = dict(kw, posthook=lambda e: seen.append(e.t))
+    eq = lsm.LevelSetEquation(terms=term, ic=phi, integrator=integrator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    eq.integrate(1.0, max_steps=steps, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if seen and not (len(seen) == eq.last_nsteps and seen[-1] == eq.t):
+        raise AssertionError("the posthook did not run once per accepted step")
+    return eq, read_counts(), wall, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_general_512(dev, res):
+    """H: the 512^3 Zalesak RK3 configuration through ``integrate`` with a
+    posthook that records ``eq.t``, GENERAL_STEPS steps, counting launches
+    (K10 = 3 per step, nothing else); once with ``fast="off"``; once with a
+    posthook that reinitializes (band 5h) every REINIT_EVERY steps, timed,
+    with | |grad phi| - 1 | near the interface before and after; K10 against
+    its plain version on H's inputs (stages 1 and 2, the bare operator)."""
+    grid, phi, vel = zalesak(N_MAIN, dev)
+    shape, sp, h = grid.shape, grid.spacing, grid.min_spacing
+    vol0 = float(lsm.volume(phi))
+    term = lsm.AdvectionTerm(vel)
+    want = dict(NONE_LAUNCHED, K10=3 * GENERAL_STEPS)
+    for label, kw in (("posthook", {}), ('fast="off"', {"fast": "off"})):
+        eq, counts, wall, peak = general_run(term, phi, lsm.RK3(), GENERAL_STEPS, **kw)
+        rel = abs(float(eq.volume()) - vol0) / vol0
+        finite = bool(torch.isfinite(eq.state.values).all())
+        log("general_512", f"H {N_MAIN}^3 RK3 {label}: steps={eq.last_nsteps} t={eq.t:.6f} "
+                           f"path={eq.last_fast_path} launches={counts} finite={finite} volume "
+                           f"rel change {rel:.2e} wall={wall:.3f}s peak_mem={peak:.2f} GiB")
+        if not (eq.last_nsteps == GENERAL_STEPS and eq.last_fast_path is None and finite
+                and counts == want and rel <= VOL_TOL and tuple(eq.state.values.shape) == shape):
+            raise AssertionError(f"H check failed ({label})")
+        res.setdefault("general_mem", {})[f"H {label}"] = peak
+        del eq
+    res["launches"]["K10"] = counts["K10"]
+    hooks = []
+
+    def reinit_hook(e):
+        if e.last_nsteps % REINIT_EVERY:
+            return
+        before = eikonal_error(e.state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.state = lsm.reinitialize(e.state, band_width=5 * h)
+        torch.cuda.synchronize()
+        hooks.append((1e3 * (time.perf_counter() - t0), before, eikonal_error(e.state)))
+
+    eq, counts, wall, peak = general_run(term, phi, lsm.RK3(), GENERAL_STEPS,
+                                         posthook=reinit_hook)
+    for ms, before, after in hooks:
+        log("general_512", f"H + reinitialize(band 5h) every {REINIT_EVERY} steps: hook "
+                           f"{ms:.1f} ms; | |grad phi| - 1 | over |phi| < 3h: mean "
+                           f"{before[0]:.4e} -> {after[0]:.4e}, max {before[1]:.4e} -> "
+                           f"{after[1]:.4e}")
+    log("general_512", f"H + reinitialize: steps={eq.last_nsteps} launches={counts} "
+                       f"wall={wall:.3f}s peak_mem={peak:.2f} GiB")
+    if not (len(hooks) == GENERAL_STEPS // REINIT_EVERY and counts == want
+            and bool(torch.isfinite(eq.state.values).all())
+            and all(math.isfinite(b[0]) and math.isfinite(a[0]) for _, b, a in hooks)):
+        raise AssertionError("H with a reinitializing posthook failed")
+    res["reinit_hook"] = hooks
+    res["general_mem"]["H reinit"] = peak
+    del eq
+    torch.cuda.empty_cache()
+    P = phi.pad(v2.GHOST)
+    u = tuple(vel.values[d] for d in range(3))
+    dt = 0.5 * float(lsm.compute_cfl((term,), phi, 0.0))
+    phi1 = phi.with_values(wg._stage_plain(P, u, None, (0.0, 1.0, dt), sp, shape))
+    worst = 0.0
+    for label, src, aux, coeffs in (("stage 1", P, None, (0.0, 1.0, dt)),
+                                    ("stage 2", phi1.pad(v2.GHOST), phi.values,
+                                     (0.75, 0.25, 0.25 * dt)),
+                                    ("-u.grad(phi)", P, None, (0.0, 0.0, 1.0))):
+        got = wg.weno_stage_3d(src, u, sp, shape, coeffs, aux)
+        ref = wg._stage_plain(src, u, aux, coeffs, sp, shape)
+        err, scale = general_compare(f"K10 {label} at {N_MAIN}^3", got, ref, K1_TOL)
+        log("general_512", f"K10 {label:12s} {N_MAIN}^3 f32 max|kernel-plain|={err:.3e} "
+                           f"scale={scale:.3e} tol={K1_TOL:g}*scale")
+        worst = max(worst, err)
+        del got, ref
+    res["k10_err"] = max(res["k10_err"], worst)
+
+
+def config(name, n, dev, dtype=torch.float32):
+    """D1-D4 (configurations 1-4 of ``models.benchmarks``) at ``n^2``; D2h
+    is D2."""
+    eq = {"D1": lambda: bench.config1_circle_advection(n, dtype=dtype, device=dev)[0],
+          "D2": lambda: bench.config2_zalesak(n, dtype=dtype, device=dev),
+          "D2h": lambda: bench.config2_zalesak(n, dtype=dtype, device=dev),
+          "D3": lambda: bench.config3_vortex_spiral(n, dtype=dtype, device=dev),
+          "D4": lambda: bench.config4_curvature_normal(n, dtype=dtype, device=dev)}[name]()
+    return eq.terms, eq.state, eq.integrator
+
+
+TWOD = {  # name: (path, launches per stage, integrate's keyword arguments)
+    "D1": (None, {}, {}),
+    "D2": ("fused", {"K1": 1, "K2": 1}, {}),
+    "D3": ("fused", {"K1": 1, "K2": 1}, {}),
+    "D4": ("fused", {"K1": 1, "K2": 1, "K1'": 1}, {}),
+    "D2h": (None, {"K11": 1}, {"posthook": True}),
+}
+
+
+def twod_integrate(name, n, dev, dtype=torch.float32, steps=GENERAL_STEPS):
+    """``integrate`` of D1-D4 or D2h, counting launches: ``(equation,
+    counts, wall s)``."""
+    terms, phi, integ = config(name, n, dev, dtype)
+    path, _, kw = TWOD[name]
+    seen = []
+    kw = {"posthook": lambda e: seen.append(e.t)} if kw else {}
+    eq = lsm.LevelSetEquation(terms=terms, ic=phi, integrator=integ)
+    if str(dev) != "cpu":
+        torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    eq.integrate(1.0, max_steps=steps, **kw)
+    if str(dev) != "cpu":
+        torch.cuda.synchronize()
+    if eq.last_fast_path != path or (kw and len(seen) != eq.last_nsteps):
+        raise AssertionError(f"{name} took {eq.last_fast_path}, not {path}")
+    return eq, read_counts(), time.perf_counter() - t0
+
+
+def phase_twod(dev, res):
+    """D1-D4 and D2h at N_2D^2 f32 through ``integrate``, GENERAL_STEPS steps
+    each, counting launches (D2, D3: K1 = K2 = 3 per step, the 2D
+    embedding; D4: K1' too; D2h, D2 with a posthook: K11 = 3 per step; D1,
+    upwind FE: none); K11 and K2 (the length-1 axis) against their plain
+    versions on D2's inputs at N_2D^2; card-vs-CPU trajectories at
+    N_2D_SMALL^2; a gradient through the 2D embedding on the card refused."""
+    n, steps = N_2D, GENERAL_STEPS
+    for name, (path, per_stage, _) in TWOD.items():
+        stages = (1 if name == "D1" else 3) * steps
+        eq, counts, wall = twod_integrate(name, n, dev)
+        want = dict(NONE_LAUNCHED, **{k: v * stages for k, v in per_stage.items()})
+        finite = bool(torch.isfinite(eq.state.values).all())
+        log("twod", f"{name} {n}^2 f32: steps={eq.last_nsteps} t={eq.t:.6e} "
+                    f"path={eq.last_fast_path} launches={counts} finite={finite} "
+                    f"wall={wall:.3f}s")
+        if not (eq.last_nsteps == steps and counts == want and finite
+                and tuple(eq.state.values.shape) == (n, n)):
+            raise AssertionError(f"{name} check failed")
+        if name == "D2h":
+            res["launches"]["K11"] = counts["K11"]
+        del eq
+    # K11 and K2 at N_2D^2 on D2's inputs
+    terms, phi, _ = config("D2", n, dev)
+    sp, shape = phi.spacing, phi.shape
+    u = wg._components(terms[0].velocity(phi.grid.coords(dtype=phi.dtype, device=dev), 0.0),
+                       shape, phi.values)
+    dt = 0.5 * float(lsm.compute_cfl(terms, phi, 0.0))
+    P = phi.pad(v2.GHOST)
+    phi1 = phi.with_values(wg._stage_plain(P, u, None, (0.0, 1.0, dt), sp, shape))
+    worst = 0.0
+    for label, src, aux, coeffs in (("stage 1", P, None, (0.0, 1.0, dt)),
+                                    ("stage 2", phi1.pad(v2.GHOST), phi.values,
+                                     (0.75, 0.25, 0.25 * dt)),
+                                    ("-u.grad(phi)", P, None, (0.0, 0.0, 1.0))):
+        got = wg.weno_stage_2d(src, u, sp, shape, coeffs, aux)
+        ref = wg._stage_plain(src, u, aux, coeffs, sp, shape)
+        err, scale = general_compare(f"K11 {label} at {n}^2", got, ref, K1_TOL)
+        log("twod", f"K11 {label:12s} {n}^2 f32 max|kernel-plain|={err:.3e} "
+                    f"scale={scale:.3e} tol={K1_TOL:g}*scale")
+        worst = max(worst, err)
+    res["k11_err"] = max(res["k11_err"], worst)
+    stepper = FusedStepper(terms, phi, lsm.RK3())
+    Q = v2.fused_stage(stepper.pack(phi.values), stepper.stage_terms(0.0), (0.0, 1.0, dt), None,
+                       stepper.spacing, stepper.shape)
+    got = v2.refresh_ghosts_fast(Q.clone(), stepper.bcs, stepper.shape)
+    ref = v2.refresh_ghosts_plain(Q.clone(), stepper.bcs, stepper.shape)
+    err = float((got - ref).abs().max())
+    log("twod", f"K2 on (1, {n}, {n}) periodic, the dummy axis Extrapolation(0): "
+                f"max|kernel-plain|={err:.3e}")
+    if err != 0.0:
+        raise AssertionError(f"K2 on the 2D embedding at {n}^2: {err}")
+    del stepper, Q, got, ref, P, phi1, u
+    torch.cuda.empty_cache()
+    twod_card_vs_cpu(dev)
+    # a gradient through the 2D embedding on the card is refused before any stage runs
+    terms, phi, _ = config("D2", N_SMALL, dev)
+    try:
+        reset_counts()
+        lsm.rollout(lsm.RK3(), terms, phi.with_values(phi.values.clone().requires_grad_()),
+                    0.0, 1e-4, 2)
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    log("twod", f"gradient through a 2D rollout on the card: {refused!r}; launches before the "
+                f"refusal {read_counts()}")
+    if "2D gradient (K4 length-1 axis)" not in refused or read_counts() != NONE_LAUNCHED:
+        raise AssertionError("a gradient through the 2D embedding was not refused")
+
+
+def twod_card_vs_cpu(dev):
+    """N_2D_SMALL^2 trajectories of D2, D3, D4 and D2h, card (kernels)
+    against CPU (plain versions), KINDS_SMALL_STEPS steps: f32 within 1e-4 *
+    scale, f64 within 1e-10 * scale, equal step counts and paths."""
+    for name in ("D2", "D3", "D4", "D2h"):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+            out = {where: twod_integrate(name, N_2D_SMALL, where, dtype, KINDS_SMALL_STEPS)[0]
+                   for where in ("cpu", dev)}
+            a, b = out[dev], out["cpu"]
+            scale = max(float(b.state.values.abs().max()), 1.0)
+            err = float((a.state.values.cpu() - b.state.values).abs().max())
+            log("twod", f"{name} {N_2D_SMALL}^2 {str(dtype)[6:]} x{KINDS_SMALL_STEPS} card vs "
+                        f"CPU: paths {a.last_fast_path}/{b.last_fast_path} t {a.t:.6e}/{b.t:.6e} "
+                        f"max|card-cpu|={err:.3e} scale={scale:.3e} (tol {tol:g}*scale)")
+            if not (a.last_nsteps == b.last_nsteps == KINDS_SMALL_STEPS
+                    and math.isclose(a.t, b.t, rel_tol=T_TOL[dtype]) and err <= tol * scale):
+                raise AssertionError(f"{name} card-vs-CPU check failed ({dtype})")
+
+
+def phase_general_small(dev, res):
+    """Card (kernels) against CPU (plain versions): H at N_SMALL^3 with a
+    posthook, and the off-axis sphere band with a posthook (the general path,
+    re-tubed every step), f32 within 1e-4 * scale and f64 within 1e-10 *
+    scale, band masks equal in f64; ``reinitialize`` (band 5h) on config B's
+    torus in f64; the general path's gradient, ``rollout(RK3,
+    fast="off")`` at GRAD_GENERAL_N^3 f64 w.r.t. phi and the streamed
+    velocity, K10 launches counted in its forward."""
+    cases = {
+        "H": (lambda where, dt: zalesak(N_SMALL, where, dt)[1],
+              lambda phi: lsm.AdvectionTerm(rotation)),
+        "band": (lambda where, dt: sphere_band(N_SMALL, where, dt, center=(0.5, 0.0, 0.0),
+                                               radius=0.4), lambda phi: lsm.AdvectionTerm(spin)),
+    }
+    for name, (make, term_of) in cases.items():
+        for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+            out = {}
+            for where in ("cpu", dev):
+                phi = make(where, dtype)
+                eq = lsm.LevelSetEquation(terms=term_of(phi), ic=phi, integrator=lsm.RK3())
+                eq.integrate(1.0, max_steps=KINDS_SMALL_STEPS, posthook=lambda e: None)
+                out[where] = eq
+            a, b = out[dev], out["cpu"]
+            if name == "band":
+                err, scale, dmask, dcmask = band_diff(a.state, b.state)
+            else:
+                err, dmask, dcmask = float((a.state.values.cpu() - b.state.values).abs().max()), 0, 0
+                scale = max(float(b.state.values.abs().max()), 1.0)
+            log("general_small", f"{name} {N_SMALL}^3 {str(dtype)[6:]} RK3 x{KINDS_SMALL_STEPS} "
+                                 f"posthook, card vs CPU: paths {a.last_fast_path}/"
+                                 f"{b.last_fast_path} max|card-cpu|={err:.3e} scale={scale:.3e} "
+                                 f"(tol {tol:g}*scale) mask mismatches {dmask} (compute {dcmask})")
+            masks_ok = dtype == torch.float32 or dmask == dcmask == 0
+            if not (a.last_nsteps == b.last_nsteps == KINDS_SMALL_STEPS
+                    and math.isclose(a.t, b.t, rel_tol=T_TOL[dtype])
+                    and a.last_fast_path is None and masks_ok and err <= tol * scale):
+                raise AssertionError(f"{name} card-vs-CPU check failed ({dtype})")
+    outs = {}
+    for where in ("cpu", dev):
+        phi = torus_field(N_SMALL, where, torch.float64, wavy=True)
+        outs[where] = lsm.reinitialize(phi, band_width=5 * phi.grid.min_spacing).values
+    err = float((outs[dev].cpu() - outs["cpu"]).abs().max())
+    scale = max(float(outs["cpu"].abs().max()), 1.0)
+    log("general_small", f"reinitialize(band 5h) {N_SMALL}^3 f64 card vs CPU: "
+                         f"max|diff|={err:.3e} scale={scale:.3e} (tol 1e-10*scale)")
+    if not err <= 1e-10 * scale:
+        raise AssertionError("reinitialize card-vs-CPU check failed")
+    grads, counts = {}, None
+    for where in ("cpu", dev):
+        grid, phi, vel = zalesak(GRAD_GENERAL_N, where, torch.float64)
+        v = phi.values.clone().requires_grad_()
+        u = vel.values.clone().requires_grad_()
+        dt = 0.25 * grid.min_spacing
+        reset_counts()
+        out, _ = lsm.rollout(lsm.RK3(), (lsm.AdvectionTerm(lsm.MeshField(u, grid)),),
+                             phi.with_values(v), 0.0, dt, 3, remat=False, fast="off")
+        if where != "cpu":
+            torch.cuda.synchronize()
+            counts = read_counts()
+        grads[where] = torch.autograd.grad((out.values ** 2).sum(), (v, u))
+    errs = [(float((g.cpu() - c).abs().max()), max(float(c.abs().max()), 1.0))
+            for g, c in zip(grads[dev], grads["cpu"])]
+    want = dict(NONE_LAUNCHED, K10=9)
+    log("general_small", f"rollout(RK3, fast='off') x3 {GRAD_GENERAL_N}^3 f64 gradient card vs "
+                         f"CPU: dphi {errs[0][0]:.3e} (scale {errs[0][1]:.3e}), du {errs[1][0]:.3e} "
+                         f"(scale {errs[1][1]:.3e}), tol 1e-10*scale; forward launches {counts}")
+    if not (counts == want and all(e <= 1e-10 * s for e, s in errs)):
+        raise AssertionError("the general path's gradient check failed")
+    res["general_grad"] = errs
+
+
+def phase_general_timing(dev, res):
+    """CUDA-event medians: K10 at 512^3 on H's stage inputs (with and
+    without aux) and its plain version, K11 at N_2D^2 on D2's; ``integrate``
+    ms per step of H with a light posthook, with ``fast="off"`` and on the
+    fused path, and of D1-D4 and D2h; peak memory of each."""
+    t, mem, n = res["t"], {}, N_MAIN
+    grid, phi, vel = zalesak(n, dev)
+    sp, shape = grid.spacing, grid.shape
+    term = lsm.AdvectionTerm(vel)
+    P = phi.pad(v2.GHOST)
+    u = tuple(vel.values[d] for d in range(3))
+    dt = 0.5 * float(lsm.compute_cfl((term,), phi, 0.0))
+    t["K10"] = cuda_time(lambda: wg.weno_stage_3d(P, u, sp, shape, (0.0, 1.0, dt)))
+    t["K10_aux"] = cuda_time(lambda: wg.weno_stage_3d(P, u, sp, shape, (0.75, 0.25, dt),
+                                                      phi.values))
+    t["K10_plain"] = cuda_time(lambda: wg._stage_plain(P, u, None, (0.0, 1.0, dt), sp, shape),
+                               warmup=1, reps=5)
+    del P
+    for key, kw, path in (("H_integrate", {"posthook": lambda e: None}, None),
+                          ("H_off_integrate", {"fast": "off"}, None),
+                          ("H_fused_integrate", {}, "fused")):
+        t[key] = integrate_ms_per_step(term, phi, lsm.RK3(), path=path, **kw)
+        mem[key] = peak_gib(lambda: lsm.LevelSetEquation(
+            terms=term, ic=phi, integrator=lsm.RK3()).integrate(1.0, max_steps=10, **kw))
+    del grid, phi, vel, term, u
+    torch.cuda.empty_cache()
+    terms, phi2, _ = config("D2", N_2D, dev)
+    sp2, shape2 = phi2.spacing, phi2.shape
+    u2 = wg._components(terms[0].velocity(phi2.grid.coords(dtype=phi2.dtype, device=dev), 0.0),
+                        shape2, phi2.values)
+    P2 = phi2.pad(v2.GHOST)
+    dt2 = 0.5 * float(lsm.compute_cfl(terms, phi2, 0.0))
+    t["K11"] = cuda_time(lambda: wg.weno_stage_2d(P2, u2, sp2, shape2, (0.0, 1.0, dt2)))
+    t["K11_aux"] = cuda_time(lambda: wg.weno_stage_2d(P2, u2, sp2, shape2, (0.75, 0.25, dt2),
+                                                      phi2.values))
+    t["K11_plain"] = cuda_time(lambda: wg._stage_plain(P2, u2, None, (0.0, 1.0, dt2), sp2,
+                                                       shape2), warmup=1, reps=5)
+    del P2, u2, phi2, terms
+    for name, (path, _, kw) in TWOD.items():
+        terms, phi, integ = config(name, N_2D, dev)
+        kw = {"posthook": lambda e: None} if kw else {}
+        t[f"{name}_integrate"] = integrate_ms_per_step(terms, phi, integ, path=path, **kw)
+        mem[f"{name}_integrate"] = peak_gib(lambda: lsm.LevelSetEquation(
+            terms=terms, ic=phi, integrator=integ).integrate(1.0, max_steps=10, **kw))
+    for name in [k for k in t if k.startswith(("K10", "K11", "H_", "D"))]:
+        where = f"{N_2D}^2" if name.startswith(("K11", "D")) else f"{n}^3"
+        log("general_timing", f"{where} f32 {name:18s} median {t[name]:.4f} ms")
+    log("general_timing", "peak memory: " + ", ".join(f"{k} {v:.2f} GiB" for k, v in mem.items()))
+    res["mem"].update(mem)
+
+
+def phase_revolution(dev, res):
+    """D2 at N_2D_SMALL^2 f32 through one full revolution (t = 1), on the
+    card and on the CPU: the relative area loss of each, equal step counts,
+    and the two losses within 1e-3 of each other."""
+    out = {}
+    threads = torch.get_num_threads()
+    for where in (dev, "cpu"):
+        # at 256^2 the CPU's steps are many small ops: one thread runs them fastest
+        torch.set_num_threads(1 if where == "cpu" else threads)
+        terms, phi, integ = config("D2", N_2D_SMALL, where)
+        eq = lsm.LevelSetEquation(terms=terms, ic=phi, integrator=integ)
+        a0 = float(eq.volume())
+        t0 = time.perf_counter()
+        eq.integrate(1.0)
+        wall = time.perf_counter() - t0
+        out[where] = ((a0 - float(eq.volume())) / a0, eq.last_nsteps, wall,
+                      bool(torch.isfinite(eq.state.values).all()))
+    torch.set_num_threads(threads)
+    (lc, nc, wc, fc), (lp, np_, wp, fp) = out[dev], out["cpu"]
+    log("revolution", f"D2 {N_2D_SMALL}^2 f32 one revolution: area loss card {lc:.6e} "
+                      f"({nc} steps, {wc:.1f} s) CPU {lp:.6e} ({np_} steps, {wp:.1f} s)")
+    if not (fc and fp and nc == np_ and abs(lc - lp) <= 1e-3):
+        raise AssertionError("the revolution check failed")
+    res["revolution"] = (lc, lp, nc)
+
+
 def phase_timing(dev, res):
     n = N_MAIN
     grid, phi, vel = zalesak(n, dev)
@@ -1770,7 +2261,9 @@ def profile_window(label, fn):
 
 def phase_profile(dev, res):
     """``torch.profiler`` over 3 RK3 steps of the 512^3 main path, one
-    ``value_and_grad`` of cell (a) (streamed) and one of cell (b): the device
+    ``value_and_grad`` of cell (a) (streamed) and one of cell (b), 3 band FE
+    and RK3 steps, 3 RK3 steps of configs C and A, of H (the general path,
+    K10) and of D2 (the 2D embedding) and D2h (K11) at N_2D^2: the device
     busy share and the device time by kernel."""
     grid, phi, vel = zalesak(N_MAIN, dev)
     eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(vel), ic=phi, integrator=lsm.RK3())
@@ -1798,6 +2291,18 @@ def phase_profile(dev, res):
     eq = lsm.LevelSetEquation(terms=a_terms(), ic=phi, integrator=lsm.RK3())
     profile_window(f"config A: 3 RK3 steps at {N_MAIN}^3",
                    lambda: eq.integrate(eq.t + 1.0, max_steps=3))
+    del eq, phi
+    _, phi, vel = zalesak(N_MAIN, dev)
+    eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(vel), ic=phi, integrator=lsm.RK3())
+    profile_window(f"H: 3 RK3 steps with a posthook at {N_MAIN}^3 (the general path)",
+                   lambda: eq.integrate(eq.t + 1.0, max_steps=3, posthook=lambda e: None))
+    del eq, phi, vel
+    for name in ("D2", "D2h"):
+        terms, phi, integ = config(name, N_2D, dev)
+        eq = lsm.LevelSetEquation(terms=terms, ic=phi, integrator=integ)
+        kw = {"posthook": lambda e: None} if name == "D2h" else {}
+        profile_window(f"{name}: 3 RK3 steps at {N_2D}^2",
+                       lambda: eq.integrate(eq.t + 1.0, max_steps=3, **kw))
 
 
 def main() -> int:
@@ -1819,15 +2324,20 @@ def main() -> int:
     for name, run in (("device", phase_device), ("k2", phase_k2), ("k1", phase_k1),
                       ("k4k5", phase_k4k5), ("k3", phase_k3), ("k6k7k8", phase_k6k7k8),
                       ("k1kinds", phase_k1kinds), ("k6kinds", phase_k6kinds),
+                      ("k10k11", phase_k10k11), ("k2_small", phase_k2_small),
                       ("k512", phase_k512), ("k3_512", phase_k3_512),
                       ("band_512", phase_band_512), ("kinds_512", phase_kinds_512),
                       ("slice", phase_slice), ("main", phase_main), ("grad", phase_grad),
-                      ("band", phase_band), ("kinds", phase_kinds), ("timing", phase_timing),
+                      ("band", phase_band), ("kinds", phase_kinds),
+                      ("general_512", phase_general_512), ("twod", phase_twod),
+                      ("general_small", phase_general_small), ("timing", phase_timing),
                       ("band_timing", phase_band_timing), ("kinds_timing", phase_kinds_timing),
-                      ("profile", phase_profile)):
+                      ("general_timing", phase_general_timing), ("profile", phase_profile),
+                      ("revolution", phase_revolution)):
         t0 = time.perf_counter()
         run(dev, res)
         log(name, f"phase done in {time.perf_counter() - t0:.1f} s")
+    unported_bounds()
     print(json.dumps({"kernels": kernel_records(res)}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1836,9 +2346,26 @@ def main() -> int:
     return 0
 
 
+def unported_bounds():
+    """The bounds of the TPU kernels still to port, at the sizes their paths
+    would run: K9 writes the four halo/BC shell blocks of a 512^3 grid's
+    local shard on 4 shards along axis 0 (blocks read once and written once);
+    K1'' is K1 with in-kernel coefficients (phi read, the interior written,
+    K1's operations; the coefficient's own are not counted)."""
+    f32, n = 4, N_MAIN
+    n0, n1, n2 = n // 4, n, n
+    blocks = 2 * 3 * n1 * n2 + 2 * (n0 + 6) * 3 * n2
+    k9 = bound(2 * f32 * blocks, 0)
+    k1a = bound(f32 * ((n + 6) ** 3 + n ** 3), K1_OPS_PER_CELL * n ** 3)
+    log("bounds", f"K9 write_shell_blocks, one shard of {n}^3 on 4: {2 * f32 * blocks / 1e6:.2f} "
+                  f"MB, bound {k9[0]:.4f} ms ({k9[1]}); K1'' analytic coefficients at {n}^3: "
+                  f"bound {k1a[0]:.4f} ms ({k1a[1]})")
+
+
 def kernel_records(res):
     """One record per kernel for the JSON line; each bound counts what the
-    timed call must move and compute at the main path's 512^3 f32 shape."""
+    timed call must move and compute at the main path's 512^3 f32 shape (K11
+    at D2's N_2D^2)."""
     t, n = res["t"], N_MAIN
     cells, padded, ghosts = n ** 3, (n + 6) ** 3, (n + 6) ** 3 - n ** 3
     f32 = 4
@@ -1892,6 +2419,14 @@ def kernel_records(res):
          # written; on the compute band only, the tile-packed speed read
          bound((f32 * 2 + 1) * kwork["dispatched"] + f32 * kwork["ops_cells"],
                KINDS_OPS["C"] * kwork["ops_cells"]), None),
+        ("K10 weno_stage_pallas 3D (the general path's WENO5 advection stage)",
+         "weno_general.cu", "lsm_tpu/ops/weno_pallas.py:263", "K10", res["k10_err"], t["K10"],
+         t["K10_plain"],
+         # reads the padded phi and 3 streams, writes the interior (no aux)
+         bound(f32 * (padded + 4 * cells), K1_OPS_PER_CELL * cells), None),
+        (f"K11 weno_stage_pallas 2D (the same in 2D, at {N_2D}^2)", "weno_general.cu",
+         "lsm_tpu/ops/weno_pallas.py:294", "K11", res["k11_err"], t["K11"], t["K11_plain"],
+         bound(f32 * ((N_2D + 6) ** 2 + 3 * N_2D ** 2), K11_OPS_PER_CELL * N_2D ** 2), None),
     ]
     out = []
     for name, src, replaces, key, err, ms, plain_ms, (bound_ms, bound_by), lib_ms in rows:
@@ -1903,6 +2438,12 @@ def kernel_records(res):
             rec["plain_grid"] = f"{k3_plain_n}^3"
         if key == "K7":  # the 512^3 band stays off the faces: the main path's K7 is gated off
             rec["ms_flags_off"] = t["K7_off"]
+        if key == "K10":  # with aux (RK3 stages 2 and 3): one more interior read
+            rec.update(ms_aux=t["K10_aux"],
+                       bound_ms_aux=bound(f32 * (padded + 5 * cells), K1_OPS_PER_CELL * cells)[0])
+        if key == "K11":
+            rec.update(ms_aux=t["K11_aux"], bound_ms_aux=bound(
+                f32 * ((N_2D + 6) ** 2 + 4 * N_2D ** 2), K11_OPS_PER_CELL * N_2D ** 2)[0])
         if key == "K1'":  # config B's stage (one streamed sign, 12 B/cell) and the sign recomputed
             b_ms, (b_bound, _) = t["K1k_B_frozen"], bound(f32 * (padded + 2 * cells),
                                                           KINDS_OPS["B"] * cells)

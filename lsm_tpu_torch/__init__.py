@@ -17,8 +17,13 @@ through the active-tile stage K6, the gated shell refresh K7 and the
 incremental re-tube K8 (``last_fast_path == "band"``); and the other term
 kinds: ``NormalMotionTerm``, ``CurvatureTerm`` and
 ``EikonalReinitializationTerm``, and any sum of terms, through the same K1
-and K6 (forward only on the card). Tensors go to the card unless the caller
-asks for the CPU (``device="cpu"``).
+and K6 (forward only on the card); and the general path and 2D fields:
+hooks, ``fast="off"`` and the term lists the steppers do not take run the
+WENO5 advection stage through K10 (3D) and K11 (2D), a dense 2D field rides
+K1 and K2 as ``(1, n0, n1)``, ``reinitialize`` is PDE reinitialization in
+plain torch, and ``models.benchmarks`` builds the canonical 2D
+configurations 1 to 4. Tensors go to the card unless the caller asks for
+the CPU (``device="cpu"``).
 """
 
 from .core.grid import Grid
@@ -43,6 +48,7 @@ from .terms.terms import (
 from .integrators.explicit import ForwardEuler, RK2, RK3, TimeIntegrator
 from .integrators.loop import evolve, rollout, step
 from .equation import LevelSetEquation
+from .reinit.eikonal import reinitialize
 from .geometry.queries import volume, perimeter, smooth_heaviside, smooth_delta
 
 __version__ = "0.1.0"
@@ -72,6 +78,7 @@ __all__ = [
     "evolve",
     "rollout",
     "LevelSetEquation",
+    "reinitialize",
     "volume",
     "perimeter",
     "smooth_heaviside",

@@ -179,6 +179,28 @@ int lsm_band_retube_f64(const void* P, void* band, const void* cand, void* stash
                         int64_t ncand, int64_t n0, int64_t n1, int64_t n2, int64_t B0,
                         int64_t B1, int64_t B2, int64_t nlayers, int64_t chalo, void* stream);
 
+/* K10: the general path's 3D WENO5 advection stage (csrc/weno_general.cu):
+ * out = alpha*aux + beta*phi - gamma * sum_d u_d * WENO5_d(phi). P: the field
+ * padded by LSM_GHOST on every side, (n0+6, n1+6, n2+6); u0..u2, aux (may be
+ * NULL: the alpha term is dropped) and out: interior-shaped (n0, n1, n2).
+ * inv_h*: reciprocal node spacing per axis. One launch. */
+int lsm_weno_general_3d_f32(const void* P, const void* u0, const void* u1, const void* u2,
+                            const void* aux, void* out, int64_t n0, int64_t n1, int64_t n2,
+                            double inv_h0, double inv_h1, double inv_h2,
+                            double alpha, double beta, double gamma, void* stream);
+int lsm_weno_general_3d_f64(const void* P, const void* u0, const void* u1, const void* u2,
+                            const void* aux, void* out, int64_t n0, int64_t n1, int64_t n2,
+                            double inv_h0, double inv_h1, double inv_h2,
+                            double alpha, double beta, double gamma, void* stream);
+
+/* K11: the same in 2D; P (n0+6, n1+6), u0, u1, aux, out (n0, n1). */
+int lsm_weno_general_2d_f32(const void* P, const void* u0, const void* u1, const void* aux,
+                            void* out, int64_t n0, int64_t n1, double inv_h0, double inv_h1,
+                            double alpha, double beta, double gamma, void* stream);
+int lsm_weno_general_2d_f64(const void* P, const void* u0, const void* u1, const void* aux,
+                            void* out, int64_t n0, int64_t n1, double inv_h0, double inv_h1,
+                            double alpha, double beta, double gamma, void* stream);
+
 /* Human-readable name of a CUDA error code returned above. */
 const char* lsm_error_string(int code);
 

@@ -1,5 +1,6 @@
-// Per-node WENO5 advection stage, shared by K1 (weno_stage.cu) and K6
-// (band_stage.cu) so that the dense and the band stage cannot drift apart.
+// Per-node WENO5 advection stage, shared by K1 (weno_stage.cu), K6
+// (band_stage.cu) and the general path's K10/K11 (weno_general.cu) so that
+// the stages cannot drift apart.
 //
 // Arithmetic follows lsm_tpu/ops/stencils.py `weno5_upwind` /
 // `_weno_combine` term by term: the five stencil inputs are selected by the
@@ -82,20 +83,35 @@ __device__ __forceinline__ T axis_term(const T* __restrict__ P, int64_t c, int64
   return weno5_upwind(dm, u);
 }
 
-// One RK stage at the padded index c of P (strides s0, s1, 1):
-// alpha*aux[c] + beta*P[c] - gamma*(u0*W0 + u1*W1 + u2*W2), the alpha term
-// dropped when aux is null.
+// One RK stage over N axes at the padded index c of P (element strides
+// stride[0..N-1]): alpha*aux[a] + beta*P[c] - gamma*(u[0]*W0 + ... ), the
+// axes summed in order and the alpha term dropped when aux is null. The
+// caller names aux's index a: K1 and K6 keep aux on P's padded layout
+// (a = c), K10 and K11 on the interior.
+template <typename T, int N>
+__device__ __forceinline__ T stage_value_at(const T* __restrict__ P, const T* __restrict__ aux,
+                                            int64_t c, int64_t a, const int64_t (&stride)[N],
+                                            const T (&u)[N], const T (&inv_h)[N], T alpha,
+                                            T beta, T gamma) {
+  T ham = axis_term(P, c, stride[0], inv_h[0], u[0]);
+#pragma unroll
+  for (int d = 1; d < N; ++d) ham = ham + axis_term(P, c, stride[d], inv_h[d], u[d]);
+  T res = beta * P[c] - gamma * ham;
+  if (aux != nullptr) res = alpha * aux[a] + res;
+  return res;
+}
+
+// The 3D stage of K1 and K6 at the padded index c of P (strides s0, s1, 1),
+// aux on the same layout.
 template <typename T>
 __device__ __forceinline__ T stage_value(const T* __restrict__ P, const T* __restrict__ aux,
                                          int64_t c, int64_t s0, int64_t s1, T u0, T u1, T u2,
                                          T inv_h0, T inv_h1, T inv_h2, T alpha, T beta,
                                          T gamma) {
-  T ham = axis_term(P, c, s0, inv_h0, u0);
-  ham = ham + axis_term(P, c, s1, inv_h1, u1);
-  ham = ham + axis_term(P, c, int64_t(1), inv_h2, u2);
-  T res = beta * P[c] - gamma * ham;
-  if (aux != nullptr) res = alpha * aux[c] + res;
-  return res;
+  const int64_t stride[3] = {s0, s1, 1};
+  const T u[3] = {u0, u1, u2};
+  const T inv_h[3] = {inv_h0, inv_h1, inv_h2};
+  return stage_value_at<T, 3>(P, aux, c, c, stride, u, inv_h, alpha, beta, gamma);
 }
 
 }  // namespace lsm

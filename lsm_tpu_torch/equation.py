@@ -4,20 +4,24 @@
 exposes ``integrate(tf)``: a host loop that recomputes the CFL bound every
 accepted step (read back once per step) and advances the state.
 
-Routing by the state's device and kind:
+Routing by the state's device and kind, as JAX routes on the TPU:
 
-- CUDA: a dense field takes the fused stepper (kernels K1, K2), a
+- Without hooks and with ``fast="auto"``: a dense 3D or 2D field (2D as
+  ``(1, n0, n1)``) takes the fused stepper (kernels K1, K2;
+  ``last_fast_path == "fused"``), a 3D
   :class:`~lsm_tpu_torch.core.narrowband.NarrowBandField` the band stepper
-  (K6, K7, K8; ``last_fast_path == "band"``), for any list of advection,
-  normal-motion, curvature and eikonal terms; a configuration outside the
-  ported slices (hooks, ``fast="off"``, 2D, ``update_func``, the upwind
-  scheme, an object that is no term kind, ...) raises
-  ``NotImplementedError`` naming its ROADMAP item. Nothing on CUDA drops to
-  plain torch.
-- CPU: the same steppers with the kernels' plain versions when the
-  configuration qualifies and there are no hooks and ``fast != "off"``;
-  otherwise the general path (``rhs`` + RK stages, :func:`loop.step`, and a
-  re-tube after every step on a band field).
+  (K6, K7, K8; ``"band"``), for any list of advection, normal-motion,
+  curvature and eikonal terms.
+- Otherwise the general path (``last_fast_path is None``): hooks,
+  ``fast="off"``, a term list the steppers do not take (the upwind scheme,
+  an object that is no term kind, other integrators). Each RK stage is one
+  K10 (3D) or K11 (2D) pass for a single WENO5 advection term, else the
+  terms' ``rhs`` and an axpy; a band field is re-tubed after every step.
+- On CUDA, a configuration that JAX takes on its fused path and this port
+  does not yet (``update_func`` without hooks, Extrapolation of degree > 7,
+  a 2D band) raises ``NotImplementedError`` naming its ROADMAP item. On the
+  CPU it takes the general path. The kernels' plain versions run on CPU
+  tensors; nothing on CUDA drops to them.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from .geometry import queries as geo
 from .integrators import band_fused as _band
 from .integrators import loop as _loop
 from .integrators.explicit import RK3, TimeIntegrator
-from .integrators.fused import FusedStepper, unsupported_reason
+from .integrators.fused import FusedStepper, pending, unsupported_reason
 from .terms.terms import compute_cfl as _compute_cfl, update_terms
 
 __all__ = ["LevelSetEquation"]
@@ -105,7 +109,7 @@ class LevelSetEquation:
         """Advance the state to exactly ``tf``, or by at most ``max_steps``
         accepted steps. Hooks run once per accepted step and may mutate
         ``self.state`` / ``self.terms``. ``fast="off"`` forces the general
-        path (CPU only)."""
+        path."""
         tf = float(tf)
         if tf < self.t:
             raise ValueError(f"tf = {tf} is before current time t = {self.t}")
@@ -134,19 +138,24 @@ class LevelSetEquation:
         return self._integrate_fast(stepper, tf, dt_max, max_steps)
 
     def _cuda_stepper(self, hooks: bool, fast: str):
-        """The fused or band stepper for a CUDA state, or
-        ``NotImplementedError`` naming the ROADMAP item the configuration
-        waits for."""
-        if hooks:
+        """The fused or band stepper for a CUDA state; ``None`` for the
+        general path (hooks, ``fast="off"``, a configuration JAX sends to
+        its general path); or ``NotImplementedError`` naming the ROADMAP item
+        the configuration waits for (:func:`~.integrators.fused.pending`)."""
+        if self.state.dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(
-                "prehook/posthook on CUDA are not ported yet (ROADMAP.md queue 2, hooks on CUDA)")
-        if fast == "off":
-            raise NotImplementedError(
-                'fast="off" on CUDA needs the general path, which is not ported yet '
-                "(ROADMAP.md queue 2, general path (K10/K11))")
-        if isinstance(self.state, NarrowBandField):
-            return _band.FusedBandStepper(self.terms, self.state, self.integrator)
-        return FusedStepper(self.terms, self.state, self.integrator)
+                f"the CUDA kernels take float32 or float64, not {self.state.dtype}")
+        if hooks or fast == "off":
+            return None
+        band = isinstance(self.state, NarrowBandField)
+        reason = (_band.unsupported_reason if band else unsupported_reason)(
+            self.terms, self.state, self.integrator)
+        if reason is None:
+            return (_band.FusedBandStepper if band else FusedStepper)(
+                self.terms, self.state, self.integrator)
+        if pending(reason):
+            raise NotImplementedError(reason)
+        return None
 
     def _eps(self, tf):
         return torch.finfo(self.state.dtype).eps * max(abs(tf), 1.0)

@@ -9,15 +9,25 @@ differentiable (backward: K4, K3, K5). On CUDA tensors those are the
 hand-written kernels; on CPU tensors their plain versions, which drive the
 same control flow. One stepper serves ``integrate`` and ``rollout``.
 
-The stepper covers dense 3D fields under any list of up to 16 terms of the
-fused stage's kinds: WENO5 :class:`AdvectionTerm`, :class:`NormalMotionTerm`
-(both without ``update_func``), :class:`CurvatureTerm` and
-:class:`EikonalReinitializationTerm`. A coefficient is a ``MeshField`` or
-tensor (streamed), a number (a constant of the kernel) or a callable
-``f(xs, t)`` (evaluated into streamed tensors at each stage time, at the
-kernel's node coordinates ``lo + i*h``). A gradient runs K4, K3, K5 for one
-streamed advection term and autograd through the plain stage on the CPU for
-other lists; on CUDA those raise (:func:`gradient_reason`).
+The stepper covers dense 3D and 2D fields under any list of up to 16 terms
+of the fused stage's kinds: WENO5 :class:`AdvectionTerm`,
+:class:`NormalMotionTerm` (both without ``update_func``),
+:class:`CurvatureTerm` and :class:`EikonalReinitializationTerm`. A
+coefficient is a ``MeshField`` or tensor (streamed), a number (a constant of
+the kernel) or a callable ``f(xs, t)`` (evaluated into streamed tensors at
+each stage time, at the kernel's node coordinates ``lo + i*h``). A gradient
+runs K4, K3, K5 for one streamed advection term and autograd through the
+plain stage on the CPU for other lists; on CUDA those raise
+(:func:`gradient_reason`).
+
+A 2D field rides the 3D kernels as ``(1, n0, n1)``: the dummy axis 0 has
+``Extrapolation(0)`` ghosts (copies of its one node), so every difference
+along it is exactly zero and each 3D Hamiltonian reduces to its 2D form; an
+advection velocity gains a zero component 0, a streamed coefficient a
+leading axis, a callable sees ``(xs[1], xs[2])``. The dummy spacing is the
+field's smallest spacing (any positive value leaves the zero differences
+zero; this one keeps ``min(spacing)``, which the eikonal kind's smoothing
+reads, the field's). The CFL bound is taken on the 2D field and terms.
 """
 
 from __future__ import annotations
@@ -34,7 +44,7 @@ from ..terms.terms import (AdvectionTerm, CurvatureTerm, EikonalReinitialization
 from .explicit import RK2, RK3, ForwardEuler
 
 __all__ = ["FusedStepper", "supports_fused", "unsupported_reason", "term_entry",
-           "gradient_reason"]
+           "gradient_reason", "pending"]
 
 # (alpha, beta, gamma / dt, stage-time offset / dt) per stage, SSP form; the
 # aux buffer of every stage after the first is the step's input state
@@ -46,8 +56,19 @@ _STAGES = {
 }
 
 
+#: ROADMAP items of configurations that JAX's fused path takes and this
+#: port's does not yet: on CUDA they raise rather than take the general path
+PENDING = ("update_func", "K2 degree", "2D band")
+
+
 def _todo(what: str, item: str) -> str:
     return f"{what} is not ported to the fused path yet (ROADMAP.md queue 2, {item})"
+
+
+def pending(reason: Optional[str]) -> bool:
+    """Whether a reason from :func:`unsupported_reason` (or the band
+    stepper's) names one of the :data:`PENDING` items."""
+    return reason is not None and any(f"queue 2, {item})" in reason for item in PENDING)
 
 
 def _coef_entry(kind: str, coef, phi: MeshField, k: int):
@@ -86,10 +107,10 @@ def term_entry(term, phi: MeshField):
     ``lsm_tpu.integrators.fused._term_spec``)."""
     if isinstance(term, AdvectionTerm):
         if term.scheme != "weno5":
-            return _todo(f"the {term.scheme!r} advection scheme", "general path (K10/K11)")
+            return f"the {term.scheme!r} advection scheme takes the general path"
         if term.update_func is not None:
             return _todo("an AdvectionTerm with update_func", "update_func")
-        return _coef_entry("advection", term.velocity, phi, 3)
+        return _coef_entry("advection", term.velocity, phi, phi.ndim)
     if isinstance(term, NormalMotionTerm):
         if term.update_func is not None:
             return _todo("a NormalMotionTerm with update_func", "update_func")
@@ -100,8 +121,8 @@ def term_entry(term, phi: MeshField):
         if term.s0 is None:
             return v2.TermSpec("eikonal", "none", None, 0), ()
         return _coef_entry("eikonal", term.s0, phi, 1)
-    return _todo(f"{type(term).__name__}, which is no term kind of the fused stage,",
-                 "general path (K10/K11)")
+    return (f"{type(term).__name__}, which is no term kind of the fused stage, takes the "
+            "general path")
 
 
 def unsupported_reason(terms, phi: MeshField, integrator) -> Optional[str]:
@@ -110,7 +131,13 @@ def unsupported_reason(terms, phi: MeshField, integrator) -> Optional[str]:
     if phi.active_mask is not None:
         return ("the dense fused stepper takes dense fields only; a NarrowBandField "
                 "goes to the band stepper")
-    return _field_reason(phi, integrator) or _terms_reason(terms, phi)
+    if phi.ndim not in (2, 3):
+        return f"the fused stepper takes 2D and 3D fields, not {phi.ndim}D"
+    reason = _kind_reason(phi, integrator)
+    if reason is None:
+        shape, bcs = (phi.shape, phi.bcs) if phi.ndim == 3 else embed_2d(phi)[:2]
+        reason = _axes_reason(shape, bcs)
+    return reason or _terms_reason(terms, phi)
 
 
 def _terms_reason(terms, phi: MeshField) -> Optional[str]:
@@ -129,25 +156,77 @@ def _terms_reason(terms, phi: MeshField) -> Optional[str]:
     return None
 
 
-def _field_reason(phi: MeshField, integrator) -> Optional[str]:
-    """The field and integrator check the dense and the band stepper share:
-    a 3D scalar field with BCs the kernels take, FE/RK2/RK3."""
-    if phi.ndim != 3:
-        return _todo(f"a {phi.ndim}D field", "2D embedding")
+def _kind_reason(phi: MeshField, integrator) -> Optional[str]:
+    """A scalar field with boundary conditions, float32 or float64, and
+    FE/RK2/RK3."""
     if phi.is_vector or phi.bcs is None:
         return "the fused path needs a scalar field with boundary conditions"
     if phi.dtype not in (torch.float32, torch.float64):
         return f"the fused kernels take float32 or float64, not {phi.dtype}"
     if type(integrator) not in _STAGES:
-        return _todo(f"the integrator {type(integrator).__name__}", "general path (K10/K11)")
-    for ax, n in enumerate(phi.shape):
-        if n < v2.GHOST + 1:
-            return f"axis {ax} has {n} nodes; the fused path needs >= {v2.GHOST + 1}"
-        for b in phi.bcs[ax]:
-            if isinstance(b, _bc.Extrapolation) and (b.degree > 7 or b.degree + 1 > n):
-                return _todo(f"Extrapolation({b.degree}) on an axis of {n} nodes",
-                             "K2 degree")
+        return f"the integrator {type(integrator).__name__} takes the general path"
     return None
+
+
+def _axes_reason(shape, bcs) -> Optional[str]:
+    """K2's rule per axis and side: ``Extrapolation(d)`` needs ``d <= 7`` and
+    ``n >= d + 1`` nodes, Periodic and Symmetry ``n >= 4``."""
+    for ax, n in enumerate(shape):
+        for b in bcs[ax]:
+            if isinstance(b, _bc.Extrapolation):
+                if b.degree > 7 or b.degree + 1 > n:
+                    return _todo(f"Extrapolation({b.degree}) on an axis of {n} nodes",
+                                 "K2 degree")
+            elif n < v2.GHOST + 1:
+                return (f"axis {ax} has {n} nodes; the ghost refresh needs >= {v2.GHOST + 1} "
+                        f"for {b} ghosts")
+    return None
+
+
+def _field_reason(phi: MeshField, integrator) -> Optional[str]:
+    """The band stepper's field and integrator check: a 3D scalar field with
+    BCs the kernels take, every axis at least 4 nodes deep, FE/RK2/RK3."""
+    if phi.ndim != 3:
+        return _todo(f"a {phi.ndim}D NarrowBandField", "2D band")
+    reason = _kind_reason(phi, integrator)
+    if reason is None and min(phi.shape) < v2.GHOST + 1:
+        return f"the band stepper needs >= {v2.GHOST + 1} nodes per axis, got {phi.shape}"
+    return reason or _axes_reason(phi.shape, phi.bcs)
+
+
+def embed_2d(phi: MeshField):
+    """``(shape, bcs, spacing, lo)`` of a 2D field's ``(1, n0, n1)``
+    embedding (see the module docstring)."""
+    spacing = tuple(float(h) for h in phi.spacing)
+    return ((1, *phi.shape), ((_bc.Extrapolation(0), _bc.Extrapolation(0)), *phi.bcs),
+            (min(spacing), *spacing), (0.0, *(float(x) for x in phi.grid.lo)))
+
+
+def _embed_entries_2d(entries):
+    """A 2D term list's ``(TermSpec, streams)`` in the embedding: streamed
+    tensors gain the leading length-1 axis, an advection velocity a zero
+    component 0, and a callable sees the two real coordinates (counterpart
+    of ``lsm_tpu.integrators.fused._embed_specs_2d``)."""
+    out = []
+    for spec, arrs in entries:
+        if spec.coef_kind == "analytic":
+            f2 = spec.coef_static
+            if spec.kind == "advection":
+                def f3(xs, t, _f=f2):
+                    u, v = _f((xs[1], xs[2]), t)
+                    return (0.0 * (xs[0] + xs[1] + xs[2]), u, v)
+            else:
+                def f3(xs, t, _f=f2):
+                    return _f((xs[1], xs[2]), t)
+            out.append((v2.TermSpec(spec.kind, "analytic", f3, 0), ()))
+        elif spec.coef_kind == "stream":
+            arrs3 = tuple(a[None] for a in arrs)
+            if spec.kind == "advection":
+                arrs3 = (torch.zeros_like(arrs3[0]), *arrs3)
+            out.append((v2.TermSpec(spec.kind, "stream", None, len(arrs3)), arrs3))
+        else:
+            out.append((spec, arrs))
+    return tuple(out)
 
 
 def term_entries(terms, phi: MeshField):
@@ -165,8 +244,13 @@ def term_entries(terms, phi: MeshField):
 def gradient_reason(terms, phi: MeshField) -> Optional[str]:
     """Why a gradient through the fused stepper of ``terms`` cannot run on
     CUDA, naming the ROADMAP item; ``None`` when it can (one WENO5
-    advection term, streamed or callable: K4, K3, K5)."""
+    advection term, streamed or callable, on a 3D field whose axes K4 folds:
+    K4, K3, K5)."""
     terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)
+    if phi.ndim != 3 or min(phi.shape) < v2.GHOST + 1:
+        return ("a gradient through the fused stage on an axis of fewer than "
+                f"{v2.GHOST + 1} nodes (the 2D embedding's dummy axis) is not ported to "
+                "CUDA yet (ROADMAP.md queue 2, 2D gradient (K4 length-1 axis))")
     return _terms_reason(terms, phi) or v2.gradient_reason(
         tuple(term_entry(t, phi) for t in terms))
 
@@ -196,19 +280,25 @@ class FusedStepper:
             raise NotImplementedError(reason)
         self.terms = terms
         self.grid = phi.grid
-        self.bcs = phi.bcs
-        self.shape = tuple(phi.shape)
-        self.spacing = tuple(float(h) for h in phi.spacing)
-        self.lo = tuple(float(x) for x in phi.grid.lo)
+        self.field_bcs = phi.bcs  # the field's own (the CFL bound's)
+        self.is2d = phi.ndim == 2
         self.dtype, self.device = phi.dtype, phi.device
         self.stages = _STAGES[type(integrator)]
         self.entries = term_entries(terms, phi)
+        if self.is2d:  # the kernels' view: (1, n0, n1)
+            self.shape, self.bcs, self.spacing, self.lo = embed_2d(phi)
+            self.entries = _embed_entries_2d(self.entries)
+        else:
+            self.shape, self.bcs = tuple(phi.shape), phi.bcs
+            self.spacing = tuple(float(h) for h in phi.spacing)
+            self.lo = tuple(float(x) for x in phi.grid.lo)
 
     def pack(self, values: torch.Tensor) -> torch.Tensor:
-        return v2.pack_padded(values, self.bcs)
+        return v2.pack_padded(values[None] if self.is2d else values, self.bcs)
 
     def unpack(self, padded: torch.Tensor) -> torch.Tensor:
-        return v2.unpack_padded(padded, self.shape)
+        out = v2.unpack_padded(padded, self.shape)
+        return out[0] if self.is2d else out
 
     def stage_terms(self, t):
         """The stage's term list at time ``t``: a callable coefficient is
@@ -241,6 +331,6 @@ class FusedStepper:
     def cfl(self, P: torch.Tensor, t) -> torch.Tensor:
         """Largest stable ``dt`` for the current padded state (0-d tensor):
         the minimum over the terms (a constant coefficient's bound is a host
-        number)."""
-        field = MeshField(self.unpack(P), self.grid, self.bcs, _normalized=True)
+        number), on the field's own grid and terms (2D for a 2D field)."""
+        field = MeshField(self.unpack(P), self.grid, self.field_bcs, _normalized=True)
         return compute_cfl(self.terms, field, t)

@@ -4,16 +4,21 @@
 - :func:`evolve` — the adaptive CFL-driven host loop that
   ``LevelSetEquation.integrate`` runs, landing exactly on ``tf``.
 - :func:`rollout` — ``nsteps`` fixed steps, differentiable with
-  ``torch.autograd``: on a configuration the fused stepper takes, every stage
-  is :func:`~lsm_tpu_torch.ops.weno_v2.fused_step_stage` (forward K1 + K2,
-  backward K4, K3, K5 for one WENO5 advection term), on the card and on the
-  CPU alike. Other term lists differentiate through the plain stage on the
-  CPU; on CUDA their gradient raises (ROADMAP queue 2, K3 term kinds).
+  ``torch.autograd``: on a configuration the fused stepper takes (dense 3D
+  or 2D), every stage is :func:`~lsm_tpu_torch.ops.weno_v2.fused_step_stage`
+  (forward K1 + K2, backward K4, K3, K5 for one WENO5 advection term), on
+  the card and on the CPU alike. Other term lists differentiate through the
+  plain stage on the CPU; on CUDA their gradient raises (ROADMAP queue 2, K3
+  term kinds), as does a gradient through the 2D embedding (2D gradient).
+  ``fast="off"`` and the configurations the steppers do not take run the
+  general path (:meth:`TimeIntegrator.advance`: K10/K11 forward for one
+  WENO5 advection term, the plain VJP backward), differentiable everywhere.
 
 A :class:`~lsm_tpu_torch.core.narrowband.NarrowBandField` re-tubes after
 every step. On the card its rollout runs the band stepper (K6, K7, K8),
 forward only: its buffers are written in place and carry no autograd, so a
-band rollout that needs a gradient on CUDA raises. On the CPU it takes the
+band rollout through it that needs a gradient on CUDA raises; with
+``fast="off"`` it takes the general path. On the CPU a band takes the
 general path, differentiable through torch autograd.
 
 ``remat`` wraps each step in ``torch.utils.checkpoint`` (non-reentrant), so a
@@ -36,7 +41,7 @@ from ..core.narrowband import NarrowBandField
 from ..ops.band import tile_grid
 from . import band_fused as _band
 from .explicit import TimeIntegrator
-from .fused import FusedStepper, gradient_reason, unsupported_reason
+from .fused import FusedStepper, gradient_reason, pending, unsupported_reason
 
 __all__ = ["step", "evolve", "rollout"]
 
@@ -82,47 +87,37 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
     is read back once per call, for the kernels' coefficients.
 
     ``fast="auto"`` takes the fused stepper when the configuration qualifies
-    (dense 3D, terms of the fused stage's kinds, FE/RK2/RK3), on the card and
-    on the CPU; ``fast="off"`` takes the general path, which runs on the CPU
-    only: on CUDA it raises ``NotImplementedError``, as does a gradient
-    through a term list other than one WENO5 advection term. ``remat`` and
-    ``remat_chunk`` as in the module docstring.
+    (dense 3D or 2D, terms of the fused stage's kinds, FE/RK2/RK3), on the
+    card and on the CPU, and the band stepper for a CUDA band; ``fast="off"``
+    and other configurations take the general path. On CUDA a configuration
+    JAX takes on its fused path and this port does not yet raises
+    ``NotImplementedError``, as does a gradient the card cannot run
+    (:func:`~lsm_tpu_torch.integrators.fused.gradient_reason`). ``remat``
+    and ``remat_chunk`` as in the module docstring.
     """
     if fast not in ("auto", "off"):
         raise ValueError(f"fast must be 'auto' or 'off', got {fast!r}")
     terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)
     nsteps = int(nsteps)
-    if isinstance(phi, NarrowBandField) and phi.values.is_cuda:
-        return _band_rollout(integrator, terms, phi, t0, dt, nsteps, fast)
-    reason = unsupported_reason(terms, phi, integrator) if fast == "auto" else 'fast="off"'
-    if reason is None:
-        stepper = FusedStepper(terms, phi, integrator)
-        if phi.values.is_cuda and _needs_grad(stepper, phi, t0, dt):
-            # refused before any stage runs (a callable that closes over a
-            # parameter is caught at its first stage)
-            why = gradient_reason(terms, phi)
-            if why is not None:
-                raise NotImplementedError(why)
-        dt_value = float(dt)
+    band = isinstance(phi, NarrowBandField)
+    cuda = phi.values.is_cuda
+    if fast == "auto" and (cuda or not band):
+        reason = (_band.unsupported_reason if band else unsupported_reason)(terms, phi,
+                                                                           integrator)
+        if reason is None:
+            if band:
+                return _band_rollout(integrator, terms, phi, t0, dt, nsteps)
+            return _fused_rollout(integrator, terms, phi, t0, dt, nsteps, remat, remat_chunk)
+        if cuda and pending(reason):
+            raise NotImplementedError(reason)
+    dt_value = _host(dt)
 
-        def fused_step(c):
-            P, t = c
-            return stepper.step(P, t, dt, dt_value), t + dt
-
-        P, _ = _scan_steps(fused_step, (stepper.pack(phi.values), t0), nsteps, remat,
-                           remat_chunk)
-        return phi.with_values(stepper.unpack(P).contiguous()), terms
-    if phi.values.is_cuda:
-        raise NotImplementedError(
-            f"{reason}: on CUDA only the fused stepper is ported; the general path is not "
-            "(ROADMAP.md queue 2, general path (K10/K11))")
-
-    if isinstance(phi, NarrowBandField):
+    if band:
         def band_step(c):
             values, mask, tms, t = c
             field = NarrowBandField(values, phi.grid, phi.bcs, mask, phi.nlayers,
                                     _normalized=True)
-            new, tms = integrator.advance(tms, field, t, dt)
+            new, tms = integrator.advance(tms, field, t, dt, dt_value)
             new = new.update_band()
             return new.values, new.mask, tms, t + dt
 
@@ -133,12 +128,36 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
 
     def general_step(c):
         values, tms, t = c
-        new, tms = integrator.advance(tms, phi.with_values(values), t, dt)
+        new, tms = integrator.advance(tms, phi.with_values(values), t, dt, dt_value)
         return new.values, tms, t + dt
 
     values, terms, _ = _scan_steps(general_step, (phi.values, terms, t0), nsteps, remat,
                                    remat_chunk)
     return phi.with_values(values), terms
+
+
+def _fused_rollout(integrator, terms, phi, t0, dt, nsteps, remat, remat_chunk):
+    """The fused stepper's rollout; on CUDA a gradient it cannot run is
+    refused before any stage runs (a callable that closes over a parameter
+    is caught at its first stage)."""
+    stepper = FusedStepper(terms, phi, integrator)
+    if phi.values.is_cuda and _needs_grad(stepper, phi, t0, dt):
+        why = gradient_reason(terms, phi)
+        if why is not None:
+            raise NotImplementedError(why)
+    dt_value = _host(dt)
+
+    def fused_step(c):
+        P, t = c
+        return stepper.step(P, t, dt, dt_value), t + dt
+
+    P, _ = _scan_steps(fused_step, (stepper.pack(phi.values), t0), nsteps, remat, remat_chunk)
+    return phi.with_values(stepper.unpack(P).contiguous()), terms
+
+
+def _host(x) -> float:
+    """``x`` as a host number (one read-back for a tensor)."""
+    return float(x.detach()) if isinstance(x, torch.Tensor) else float(x)
 
 
 def _needs_grad(stepper, phi, t0, dt) -> bool:
@@ -147,14 +166,10 @@ def _needs_grad(stepper, phi, t0, dt) -> bool:
         isinstance(x, torch.Tensor) and x.requires_grad for x in (phi.values, t0, dt, *streams))
 
 
-def _band_rollout(integrator, terms, phi, t0, dt, nsteps, fast):
+def _band_rollout(integrator, terms, phi, t0, dt, nsteps):
     """A CUDA band rollout: the band stepper, forward only, re-tubing every
     step with a dispatch list as large as the tile grid (so it cannot
     overflow and nothing is read back)."""
-    if fast == "off":
-        raise NotImplementedError(
-            'fast="off" on CUDA needs the general path, which is not ported yet '
-            "(ROADMAP.md queue 2, general path (K10/K11))")
     # the stepper refuses a velocity that needs a gradient where it reads
     # one (a streamed tensor, or a callable's values, whatever they close over)
     if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad

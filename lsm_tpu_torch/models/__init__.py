@@ -1,1 +1,4 @@
-"""Shapes and velocity fields."""
+"""Shapes, velocity fields and the canonical benchmark configurations."""
+
+from . import shapes
+from . import benchmarks

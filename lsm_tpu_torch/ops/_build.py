@@ -105,7 +105,8 @@ class Library:
     ``fold_f32/f64`` (K4), ``zero_shells_f32/f64`` (K5),
     ``band_stage_f32/f64`` and ``band_stage_terms_f32/f64`` (K6),
     ``band_refresh_f32/f64`` (K7),
-    ``band_retube_f32/f64`` and ``band_retube_smem`` (K8), ``error_string``,
+    ``band_retube_f32/f64`` and ``band_retube_smem`` (K8),
+    ``general_3d_f32/f64`` (K10), ``general_2d_f32/f64`` (K11), ``error_string``,
     plus where it came from (``path``), the build's wall time in seconds
     (``build_seconds``, 0 when it was already built) and nvcc's output
     (``log``)."""
@@ -123,7 +124,10 @@ class Library:
         retube_args = [vp] * 5 + [i64] * 9 + [vp]
         terms_args = [vp] * 3 + [i64] * 3 + [vp, vp]
         band_terms_args = [vp] * 5 + [i64] * 7 + [vp, vp]
+        general_2d_args = [vp] * 5 + [i64] * 2 + [f64] * 5 + [vp]
         names = {"stage": ("lsm_weno_stage", stage_args),
+                 "general_3d": ("lsm_weno_general_3d", stage_args),
+                 "general_2d": ("lsm_weno_general_2d", general_2d_args),
                  "stage_terms": ("lsm_weno_stage_terms", terms_args),
                  "refresh": ("lsm_refresh_ghosts", ghost_args),
                  "stage_bwd": ("lsm_stage_bwd", bwd_args),

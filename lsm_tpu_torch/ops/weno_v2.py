@@ -160,18 +160,22 @@ _BC_CODES = {_bc.Periodic: 0, _bc.Symmetry: 1, _bc.Extrapolation: 2}
 def _ghost_args(bcs, shape):
     """Per axis and side: BC kind code, extrapolation degree, and the weights
     ``w[axis][side][k-1][j]`` of node ``j`` (from the boundary inward) for the
-    ghost at distance ``k``, computed in float64 on the host."""
+    ghost at distance ``k``, computed in float64 on the host. An axis of
+    ``n`` nodes takes ``Extrapolation(d)`` for ``d + 1 <= n`` (so the 2D
+    embedding's one-node axis takes ``Extrapolation(0)``: its ghosts are
+    copies of the node), Periodic and Symmetry for ``n >= 4``."""
     kinds = (ctypes.c_int * 6)()
     degrees = (ctypes.c_int * 6)()
     weights = (ctypes.c_double * (6 * GHOST * (_MAX_DEGREE + 1)))()
     for ax, n in enumerate(shape):
-        if n < GHOST + 1:
-            raise ValueError(f"axis {ax} has {n} nodes; the ghost refresh needs >= {GHOST + 1}")
         for side in range(2):
             b = bcs[ax][side]
             code = _BC_CODES.get(type(b))
             if code is None:
                 raise TypeError(f"unsupported boundary condition {b!r}")
+            if code != 2 and n < GHOST + 1:
+                raise ValueError(f"axis {ax} has {n} nodes; the ghost refresh needs >= "
+                                 f"{GHOST + 1} for {b} ghosts")
             kinds[2 * ax + side] = code
             if code == 2:
                 P = b.degree

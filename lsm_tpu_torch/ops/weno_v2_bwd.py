@@ -112,8 +112,8 @@ def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
     Replaces ``lsm_tpu.ops.weno_v2_bwd.fold_ghost_cotangent_fast``. CUDA
     tensors go to ``csrc/fold_ghosts.cu`` (three launches: axis 2, 1, 0), CPU
     tensors to :func:`fold_ghost_cotangent_plain`. On CUDA the kernel takes
-    what K2 takes (Extrapolation of degree <= 7 on axes of >= 4 and >=
-    degree + 1 nodes) and raises ``NotImplementedError`` otherwise.
+    axes of >= 4 nodes with what K2 takes there (Extrapolation of degree <=
+    7 and <= n - 1) and raises ``NotImplementedError`` otherwise.
     """
     shape = tuple(shape)
     if len(shape) != 3:
@@ -121,6 +121,10 @@ def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
     v2._check(g, "g", v2.padded_shape(shape))
     if g.device.type == "cpu":
         return fold_ghost_cotangent_plain(g, bcs, shape)
+    if min(shape) < G + 1:
+        raise NotImplementedError(
+            f"the ghost fold of an axis of fewer than {G + 1} nodes, shape {shape}, is not "
+            "ported to CUDA yet (ROADMAP.md queue 2, 2D gradient (K4 length-1 axis))")
     try:
         kinds, degrees, weights = v2._ghost_args(bcs, shape)
     except ValueError as e:

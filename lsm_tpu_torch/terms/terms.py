@@ -22,6 +22,7 @@ import torch
 
 from ..core.field import MeshField
 from ..ops import stencils as st
+from ..ops.weno_general import weno_advection_rhs, weno_advection_stage
 
 __all__ = [
     "AdvectionTerm",
@@ -29,6 +30,7 @@ __all__ = [
     "CurvatureTerm",
     "EikonalReinitializationTerm",
     "compute_cfl",
+    "fused_stage_term",
     "total_rhs",
     "update_terms",
     "kind_cfl",
@@ -136,18 +138,30 @@ class AdvectionTerm:
         return AdvectionTerm(self.update_func(self.velocity, phi, t), self.scheme,
                              self.update_func)
 
+    def stage_values(self, phi, t, aux_values, coeffs, coeff_values=None):
+        """The RK stage ``alpha*aux + beta*phi - gamma*(u . grad phi)`` in one
+        kernel pass (K10 in 3D, K11 in 2D on the card): the general path's
+        stage for a single WENO5 advection term. ``coeffs = (alpha, beta,
+        gamma)`` may be tensors; ``coeff_values`` are their host numbers (see
+        :func:`~lsm_tpu_torch.ops.weno_general.weno_advection_stage`). Only
+        valid for ``scheme == 'weno5'``."""
+        p = phi.pad(self.pad_width)
+        u = _eval_vector_field(self.velocity, phi, t)
+        return weno_advection_stage(p, u, aux_values, tuple(coeffs), tuple(phi.spacing),
+                                    tuple(phi.shape), coeff_values)
+
     def rhs(self, phi, t):
         g = self.pad_width
         p = phi.pad(g)
         u = _eval_vector_field(self.velocity, phi, t)
+        if self.scheme == "weno5":
+            return weno_advection_rhs(p, u, tuple(phi.spacing), tuple(phi.shape))
+        # the first-order upwind scheme stays plain torch: JAX has no kernel for it
         out = 0.0
         for ax, h in enumerate(phi.spacing):
-            if self.scheme == "weno5":
-                out = out + st.weno5_upwind(st.weno5_pair_diffs(p, ax, h, g, phi.shape), u[ax])
-            else:
-                dminus = st.dm(p, ax, h, g, phi.shape)
-                dplus = st.dp(p, ax, h, g, phi.shape)
-                out = out + u[ax] * torch.where(u[ax] > 0, dminus, dplus)
+            dminus = st.dm(p, ax, h, g, phi.shape)
+            dplus = st.dp(p, ax, h, g, phi.shape)
+            out = out + u[ax] * torch.where(u[ax] > 0, dminus, dplus)
         return out
 
     def cfl_dt(self, phi, t):
@@ -254,6 +268,15 @@ class EikonalReinitializationTerm:
 
     def cfl_dt(self, phi, t):
         return kind_cfl("eikonal", (), phi.active_mask, phi.spacing, phi.values)
+
+
+def fused_stage_term(terms) -> Optional[AdvectionTerm]:
+    """The single WENO5 :class:`AdvectionTerm` when the term list is one,
+    whose RK stage is one kernel pass (:meth:`AdvectionTerm.stage_values`),
+    else ``None``."""
+    if len(terms) == 1 and isinstance(terms[0], AdvectionTerm) and terms[0].scheme == "weno5":
+        return terms[0]
+    return None
 
 
 def update_terms(terms: Sequence, phi: MeshField, t):

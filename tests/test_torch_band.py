@@ -489,22 +489,34 @@ def test_band_routing_names_roadmap_items():
                       tband.FusedBandStepper)
     cases = [
         ((vel, object()), tnb, "no term kind"),
-        ((T.AdvectionTerm(_velf, "upwind"),), tnb, "general path (K10/K11)"),
+        ((T.AdvectionTerm(_velf, "upwind"),), tnb, "general path"),
         ((vel,), tnb.with_bcs(T.Extrapolation(8), replace=True), "K2 degree"),
     ]
     for terms, nb, item in cases:
         assert item in tband.unsupported_reason(terms, nb, T.RK3())
         with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
             tband.FusedBandStepper(terms, nb, T.RK3())
+    # on CUDA the upwind scheme and an object that is no term kind take the
+    # general path (None); Extrapolation(8) waits for its item, as does a 2D band
+    for terms, nb, item in cases:
+        eq = T.LevelSetEquation(terms=terms, ic=nb)
+        if item == "K2 degree":
+            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2, K2 degree"):
+                eq._cuda_stepper(False, "auto")
+        else:
+            assert eq._cuda_stepper(False, "auto") is None
     grid2 = T.Grid((0.0, 0.0), (1.0, 1.0), (16, 16))
     nb2 = T.NarrowBandField(torch.linspace(-1, 1, 16, dtype=torch.float64)[:, None].expand(16, 16)
                             .contiguous(), grid2, T.Extrapolation(1))
-    assert "2D embedding" in tband.unsupported_reason((vel,), nb2, T.RK3())
+    assert "ROADMAP.md queue 2, 2D band" in tband.unsupported_reason((vel,), nb2, T.RK3())
+    with pytest.raises(NotImplementedError, match="2D band"):
+        T.LevelSetEquation(terms=vel, ic=nb2)._cuda_stepper(False, "auto")
+    # hooks and fast="off" take the general path on CUDA too (K10 over the
+    # band's dense values, then the plain re-tube)
     eq = T.LevelSetEquation(terms=vel, ic=tnb)
-    with pytest.raises(NotImplementedError, match="hooks on CUDA"):
-        eq._cuda_stepper(True, "auto")
-    with pytest.raises(NotImplementedError, match="K10/K11"):
-        eq._cuda_stepper(False, "off")
+    assert eq._cuda_stepper(True, "auto") is None
+    assert eq._cuda_stepper(False, "off") is None
+    assert T.LevelSetEquation(terms=vel, ic=nb2)._cuda_stepper(True, "auto") is None
     # on the CPU, hooks and other configurations take the general path
     seen = []
     eq.integrate(0.01, posthook=lambda e: seen.append(e.t))
@@ -528,11 +540,11 @@ def test_rollout_on_a_band_matches_jax_and_the_band_stepper():
     _assert_band_equal(tout, jout)
     (g,) = torch.autograd.grad((tout.values ** 2).sum(), v)
     assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
-    band_out, _ = tloop._band_rollout(T.RK3(), (T.AdvectionTerm(_velf),), tnb, 0.0, dt, 3, "auto")
+    band_out, _ = tloop._band_rollout(T.RK3(), (T.AdvectionTerm(_velf),), tnb, 0.0, dt, 3)
     _assert_band_equal(band_out, jout)
     with pytest.raises(NotImplementedError, match="band backward"):
         tloop._band_rollout(T.RK3(), (T.AdvectionTerm(_velf),),
-                            tnb.with_values(v, mask_update=False), 0.0, dt, 3, "auto")
+                            tnb.with_values(v, mask_update=False), 0.0, dt, 3)
 
 
 def test_band_stepper_refuses_a_velocity_that_needs_a_gradient():
@@ -548,7 +560,7 @@ def test_band_stepper_refuses_a_velocity_that_needs_a_gradient():
              "streamed": T.AdvectionTerm(stream.requires_grad_())}
     for term in terms.values():
         with pytest.raises(NotImplementedError, match="band backward"):
-            tloop._band_rollout(T.RK3(), (term,), tnb, 0.0, dt, 1, "auto")
+            tloop._band_rollout(T.RK3(), (term,), tnb, 0.0, dt, 1)
         with torch.no_grad():  # nothing needs a gradient: the forward runs
-            out, _ = tloop._band_rollout(T.RK3(), (term,), tnb, 0.0, dt, 1, "auto")
+            out, _ = tloop._band_rollout(T.RK3(), (term,), tnb, 0.0, dt, 1)
         assert bool(torch.isfinite(out.values).all())

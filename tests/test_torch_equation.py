@@ -129,8 +129,8 @@ def test_general_path_2d_matches_jax():
         jeq = J.LevelSetEquation(terms=J.AdvectionTerm(vel, scheme), ic=jphi)
         teq = T.LevelSetEquation(terms=T.AdvectionTerm(vel, scheme), ic=tphi)
         jeq.integrate(0.1, fast="off")
-        teq.integrate(0.1)  # 2D takes the general path on the CPU
-        assert teq.last_fast_path is None
+        teq.integrate(0.1)  # 2D WENO5 takes the fused embedding, upwind the general path
+        assert teq.last_fast_path == ("fused" if scheme == "weno5" else None)
         np.testing.assert_allclose(_np(teq.state.values), np.asarray(jeq.state.values),
                                    rtol=0, atol=1e-10)
 
@@ -213,27 +213,34 @@ class _OtherTerm:
 
 
 def test_unsupported_configurations_raise_on_the_cuda_route():
-    """What a CUDA state cannot run raises NotImplementedError naming the
-    ROADMAP item (the route is taken by ``_cuda_stepper`` for CUDA states)."""
+    """The CUDA route (``_cuda_stepper``, taken for CUDA states): hooks,
+    ``fast="off"``, the upwind scheme and an object that is no term kind take
+    the general path (``None``), a dense 2D field the fused stepper; what JAX
+    takes on its fused path and the card cannot yet run raises
+    NotImplementedError naming the ROADMAP item."""
     _, tphi = _pair((8, 8, 8))
     g2 = T.Grid((0.0, 0.0), (1.0, 1.0), (8, 8))
     phi2 = T.sample(tshapes.circle((0.5, 0.5), 0.2), g2, T.Periodic(), dtype=torch.float64,
                     device="cpu")
     vel2 = lambda xs, t: (0.0 * xs[0], 0.0 * xs[1])
-    cases = [
-        (T.AdvectionTerm(_velf), tphi, {"hooks": True}, "hooks"),
-        (T.AdvectionTerm(_velf), tphi, {"fast": "off"}, "general path"),
-        (T.AdvectionTerm(vel2), phi2, {}, "2D embedding"),
-        (T.AdvectionTerm(_velf, "upwind"), tphi, {}, "general path"),
-        (T.AdvectionTerm(_velf, update_func=lambda v, p, t: v), tphi, {}, "update_func"),
-        (_OtherTerm(), tphi, {}, "general path"),
+    general = [
+        (T.AdvectionTerm(_velf), tphi, {"hooks": True}),
+        (T.AdvectionTerm(_velf), tphi, {"fast": "off"}),
+        (T.AdvectionTerm(vel2), phi2, {"hooks": True}),
+        (T.AdvectionTerm(_velf, "upwind"), tphi, {}),
+        (_OtherTerm(), tphi, {}),
     ]
-    for terms, phi, kw, item in cases:
+    for terms, phi, kw in general:
         eq = T.LevelSetEquation(terms=terms, ic=phi)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 2, {item}"):
-            eq._cuda_stepper(kw.get("hooks", False), kw.get("fast", "auto"))
+        assert eq._cuda_stepper(kw.get("hooks", False), kw.get("fast", "auto")) is None
+    stepper = T.LevelSetEquation(terms=T.AdvectionTerm(vel2), ic=phi2)._cuda_stepper(False, "auto")
+    assert isinstance(stepper, tfused.FusedStepper) and stepper.shape == (1, 8, 8)
+    eq = T.LevelSetEquation(terms=T.AdvectionTerm(_velf, update_func=lambda v, p, t: v), ic=tphi)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2, update_func"):
+        eq._cuda_stepper(False, "auto")
+    assert eq._cuda_stepper(True, "auto") is None  # with hooks: the general path
     # an object that is no term kind is refused with a reason that says so;
-    # a sum of two advection terms now routes to the fused stepper
+    # a sum of two advection terms routes to the fused stepper
     assert "no term kind" in tfused.unsupported_reason((_OtherTerm(),), tphi, T.RK3())
     two = (T.AdvectionTerm(_velf), T.AdvectionTerm(_velf))
     assert tfused.unsupported_reason(two, tphi, T.RK3()) is None
@@ -250,4 +257,4 @@ def test_unsupported_configurations_raise_on_the_cuda_route():
     with pytest.raises(NotImplementedError, match="float32 or float64"):
         T.LevelSetEquation(terms=T.AdvectionTerm(_velf), ic=half)._cuda_stepper(False, "auto")
     assert tfused.supports_fused(T.AdvectionTerm(_velf), tphi)
-    assert not tfused.supports_fused(T.AdvectionTerm(vel2), phi2)
+    assert tfused.supports_fused(T.AdvectionTerm(vel2), phi2)

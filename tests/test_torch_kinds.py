@@ -371,10 +371,11 @@ def test_cuda_refusals_name_their_roadmap_items():
     g2 = T.Grid((0.0, 0.0), (1.0, 1.0), (8, 8))
     phi2 = T.sample(tshapes.circle((0.5, 0.5), 0.2), g2, T.Periodic(), dtype=torch.float64,
                     device="cpu")
-    assert "2D embedding" in tfused.unsupported_reason(kinds, phi2, T.RK3())
+    assert tfused.unsupported_reason(kinds, phi2, T.RK3()) is None  # the 2D embedding
+    assert isinstance(T.LevelSetEquation(terms=kinds, ic=phi2)._cuda_stepper(False, "auto"),
+                      tfused.FusedStepper)
     eq = T.LevelSetEquation(terms=kinds, ic=tphi)
-    with pytest.raises(NotImplementedError, match="hooks on CUDA"):
-        eq._cuda_stepper(True, "auto")
+    assert eq._cuda_stepper(True, "auto") is None  # hooks: the general path
     # every kind routes to the fused stepper and, on a band, to the band stepper
     assert isinstance(eq._cuda_stepper(False, "auto"), tfused.FusedStepper)
     nb = T.NarrowBandField.from_field(tphi)

@@ -213,13 +213,29 @@ class _CudaTyped(torch.Tensor):
 
 
 def test_rollout_general_path_raises_on_cuda():
+    """The CUDA route of ``rollout``: ``fast="off"`` and the upwind scheme
+    run the general path (here on the plain versions, the tensors lying on
+    the CPU), ``update_func`` raises naming its item, and so does a gradient
+    through the 2D embedding, before any stage runs."""
     shape = (6, 7, 8)
     _, tg, _, tphi, _ = _fields(shape, seed=51)
     phi = tphi.with_values(tphi.values.as_subclass(_CudaTyped))
     assert phi.values.is_cuda
-    with pytest.raises(NotImplementedError, match=r"general path \(K10/K11\)"):
-        T.rollout(T.RK3(), (T.AdvectionTerm(_velf),), phi, 0.0, 1e-3, 1, fast="off")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        T.rollout(T.RK3(), (T.AdvectionTerm(_velf, "upwind"),), phi, 0.0, 1e-3, 1)
+    off, _ = T.rollout(T.RK3(), (T.AdvectionTerm(_velf),), phi, 0.0, 1e-3, 1, fast="off")
+    ref, _ = T.rollout(T.RK3(), (T.AdvectionTerm(_velf),), tphi, 0.0, 1e-3, 1)
+    torch.testing.assert_close(off.values.as_subclass(torch.Tensor), ref.values, rtol=0,
+                               atol=1e-13)
+    up, _ = T.rollout(T.RK3(), (T.AdvectionTerm(_velf, "upwind"),), phi, 0.0, 1e-3, 1)
+    assert bool(torch.isfinite(up.values).all())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2, update_func"):
+        T.rollout(T.RK3(), (T.AdvectionTerm(_velf, update_func=lambda v, p, t: v),), phi, 0.0,
+                  1e-3, 1)
+    g2 = T.Grid((0.0, 0.0), (1.0, 1.0), (8, 9))
+    phi2 = T.sample(tshapes.circle((0.5, 0.5), 0.2), g2, T.Periodic(), dtype=torch.float64,
+                    device="cpu")
+    v2 = phi2.values.clone().as_subclass(_CudaTyped).requires_grad_()
+    vel2 = lambda xs, t: (0.5 - xs[1] + 0.0 * xs[0], xs[0] - 0.5 + 0.0 * xs[1])
+    with pytest.raises(NotImplementedError, match=r"2D gradient \(K4 length-1 axis\)"):
+        T.rollout(T.RK3(), (T.AdvectionTerm(vel2),), phi2.with_values(v2), 0.0, 1e-3, 1)
     with pytest.raises(ValueError, match="fast must be"):
         T.rollout(T.RK3(), (T.AdvectionTerm(_velf),), tphi, 0.0, 1e-3, 1, fast="interpret")
