@@ -29,6 +29,11 @@ exits non-zero):
              eikonal (recomputed, frozen sign), a 3-term sum with aux.
    k6kinds — K6's term-list entry (K6') on the same cases over a sphere's
              dispatch list; the rest of the target bit for bit.
+   k3kinds — the term-list stage adjoint (K3') vs its plain version at
+             40x72x136 on a noisy torus, three tie-free BC cases, normal
+             motion, curvature, eikonal (both signs) and sums (one with an
+             advection term), with and without aux: f64 vs plain, f32 vs
+             the f64 autograd oracle.
    k10k11  — the general path's WENO5 stage, K10 (3D, 40x72x136) and K11
              (2D, 67x131), vs their plain versions, five BC cases, f32 and
              f64, the bare Hamiltonian and stages with and without aux; a
@@ -45,6 +50,9 @@ exits non-zero):
              K6-K8 and through their plain versions.
     kinds_512 — K1' vs plain at 512^3 on configs A and B's inputs, K6' on
              config C's and on A's terms over the off-axis sphere band.
+    k3kinds_512 — K3' at 512^3 on config A's and (dense) config C's inputs:
+             a 64^3 sub-box vs the f64 plain K3'; K3' and its plain version
+             timed (the plain at 256^3).
 11. slice  — 64^3 Zalesak RK3 ``integrate``: CPU (plain) vs card (kernels).
 12. main   — the 512^3 Zalesak RK3 main path through
              ``LevelSetEquation.integrate``, counting kernel launches.
@@ -56,13 +64,22 @@ exits non-zero):
              relative L2 against the CPU's own 1-ulp spread).
 14. band   — the band main path: ``integrate`` on the 512^3 sphere
              ``NarrowBandField``, FE and RK3, counting K6-K8 launches; a
-             forced dispatch-list overflow; 64^3 card vs CPU.
+             forced dispatch-list overflow; 64^3 card vs CPU, and a band
+             rollout's gradient card (band stepper) vs CPU.
     kinds  — configs A (torus, curvature + normal motion, RK3), B (eikonal
              reinitialization of a torus whose |grad| is not 1, both sign
              forms) and C (the sphere band under a streamed normal speed, FE
              and RK3) through ``integrate`` at 512^3, counting launches; A's
              terms on the off-axis band vs the plain versions; 64^3 card vs
-             CPU; a gradient through the kinds refused on the card.
+             CPU; a gradient through a rollout of A's terms runs K3'.
+    grad_kinds — the dense kinds gradient (RK3 rollout, remat, curvature +
+             normal motion at a streamed speed): 64^3 card vs CPU (f64 max
+             norm, f32 relative L2), then 512^3 f32: ms per value_and_grad,
+             peak memory, K1'/K2/K4/K3'/K5 launches, a profile.
+    config5 — configuration 5 (shape optimisation through a band rollout) at
+             64^3 x 8 steps, card vs CPU in f64 and f32 vs f64, K6'/K7/K8
+             launched; at 256^3 f32: ms per loss_and_grad, peak memory, a
+             profile.
     general_512 — H: the 512^3 Zalesak RK3 configuration through
              ``integrate`` with a posthook (the general path: K10 = 30, K1 = 0
              over 10 steps), with ``fast="off"``, and with a posthook that
@@ -167,7 +184,33 @@ T_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
 # csrc/weno_general.cu runs K1's per-node code (weno5.cuh): 88 per axis + 5
 K11_OPS_PER_CELL = 2 * 88 + 5
 
+# K3' (csrc/stage_backward.cu), counted from the source (a division, square
+# root or compare-and-select as one): per node one Godunov adjoint (152: ENO2
+# 40 per axis, the norms 4, 6 per normal term, the backward 22) and its 13
+# gather weights (4 each); one curvature adjoint (135) and its 19 weights (3
+# each); the stage terms 4, a stream cotangent 2. The kernel re-evaluates
+# each adjoint at every node whose stencil holds it (13 or 19 times): that
+# is its design's cost, not the function's.
+K3K_OPS = {"A": 152 + 13 * 4 + 135 + 19 * 3 + 4, "C": 152 + 13 * 4 + 4 + 2}
+K3K_BCS = {"periodic": lsm.Periodic, "extrap1": lsm.LinearExtrapolation,
+           "symmetry": lsm.Symmetry}  # tie-free for WENO5: the raw dP compares
+# Linear-extrapolation ghosts make the one-sided second difference at a face
+# exactly 0 in float64 and a rounding residue in float32, so ENO2's minmod
+# takes another branch (another subgradient) in the two precisions there: in
+# that case the f32 kernel is held to its f32 plain version, not the oracle
+K3K_F32_VS_PLAIN = ("extrap1",)
+N_K3K_PLAIN = 256  # the plain K3' is timed at this grid (its autograd does not fit 512^3)
+GRAD_KINDS_STEPS = 3  # the dense kinds gradient at 512^3: RK3 steps
+N_CONFIG5 = 64  # configuration 5's published size: n and steps
+CONFIG5_STEPS = 8
+N_CONFIG5_XL = 256  # its timed size (the plain band backward is O(grid) per stage)
+# configuration 5's sphere is mirror-symmetric: its upwind and minmod
+# comparisons tie exactly, and two paths that round differently take other
+# subgradients there; the card-vs-CPU checks add this much seeded noise
+CONFIG5_NOISE = 1e-6
+
 COUNTED = {"K1": v2.fused_stage, "K2": v2.refresh_ghosts_fast, "K3": bwd.stage_backward,
+           "K3'": bwd.stage_backward_terms,
            "K4": bwd.fold_ghost_cotangent_fast, "K5": bwd.zero_pad_shells,
            "K6": bd.band_stage, "K7": bd.refresh_band_ghosts_fast,
            "K8": bd.band_retube_incremental, "K10": wg.weno_stage_3d, "K11": wg.weno_stage_2d}
@@ -801,7 +844,7 @@ class PlainBandStepper(FusedBandStepper):
     with and to time on the card (``integrate`` never routes a CUDA tensor
     there)."""
 
-    def stage(self, src, dst, state, coeffs, t_stage, aux):
+    def stage(self, src, dst, state, coeffs, t_stage, aux, coeff_values=None):
         bd.band_stage_plain(src, dst, state.ids, state.band, self.stage_terms(state, t_stage),
                             coeffs, aux, self.spacing, self.shape, self.tiles)
         return bd.refresh_band_ghosts_plain(dst, self.bcs, self.shape, state.flags)
@@ -1062,8 +1105,8 @@ def phase_band(dev, res):
                 and err <= 1e-4 and masks_ok and moved > 0):
             raise AssertionError(f"band card-vs-CPU check failed ({dtype})")
         res[f"band_mask_mismatch_{str(dtype)[6:]}"] = dmask
-    # rollout on a band: the band stepper forward on the card, the general
-    # path on the CPU; a gradient through the card's band rollout is refused
+    # rollout on a band: the band stepper on the card, the general path on
+    # the CPU
     term = (lsm.AdvectionTerm(spin),)
     outs = {}
     for where in ("cpu", dev):
@@ -1071,16 +1114,25 @@ def phase_band(dev, res):
         dt = 0.25 * nb.grid.min_spacing
         outs[str(where)] = lsm.rollout(lsm.RK3(), term, nb, 0.0, dt, 3)[0]
     err, scale, dmask, dcmask = band_diff(outs[str(dev)], outs["cpu"])
-    try:
-        v = nb.values.clone().requires_grad_()
-        lsm.rollout(lsm.RK3(), term, nb.with_values(v, mask_update=False), 0.0, dt, 3)
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
+    # the gradient: the card's band stepper (K6-K8 forward, autograd of the
+    # plain band composite backward) against the CPU's general path, on
+    # tie-free data (the sphere plus seeded noise)
+    noise = 1e-6 * torch.randn((N_SMALL,) * 3, generator=torch.Generator().manual_seed(3),
+                               dtype=torch.float64)
+    grads = {}
+    for where in ("cpu", dev):
+        nb = sphere_band(N_SMALL, where, torch.float64, center=(0.5, 0.0, 0.0), radius=0.4)
+        v = (nb.values + noise.to(where)).requires_grad_()
+        out = lsm.rollout(lsm.RK3(), term, nb.with_values(v, mask_update=False), 0.0, dt, 3)[0]
+        grads[str(where)] = torch.autograd.grad((out.values ** 2).sum(), v)[0]
+    gscale = float(grads["cpu"].abs().max())
+    gerr = float((grads[str(dev)].cpu() - grads["cpu"]).abs().max())
     log("band", f"{N_SMALL}^3 f64 RK3 rollout x3, card (band stepper) vs CPU (general path): "
                 f"max|diff|={err:.3e} scale={scale:.3e} (tol 1e-10*scale) mask mismatches "
-                f"{dmask} (compute {dcmask}); with a gradient: {refused!r}")
-    if not (err <= 1e-10 * scale and dmask == dcmask == 0 and "band backward" in refused):
+                f"{dmask} (compute {dcmask}); gradient max|diff|={gerr:.3e} "
+                f"scale={gscale:.3e} (tol 1e-10*scale)")
+    if not (err <= 1e-10 * scale and dmask == dcmask == 0 and gerr <= 1e-10 * gscale
+            and gscale > 0):
         raise AssertionError("band rollout check failed")
 
 
@@ -1451,7 +1503,7 @@ def phase_kinds(dev, res):
     nothing else); A's volume change, B's | |grad phi| - 1 | near the
     interface before and after; C's band against the plain versions with
     curvature on the off-axis sphere; 64^3 card-vs-CPU trajectories; a
-    gradient through a kinds rollout on the card is refused."""
+    gradient through a kinds rollout on the card runs K3'."""
     n, steps = N_MAIN, KINDS_STEPS
     phi = torus_field(n, dev)
     vol0 = float(lsm.volume(phi))
@@ -1528,19 +1580,19 @@ def phase_kinds(dev, res):
     del nb, kst, outs, got, ref
     torch.cuda.empty_cache()
     kinds_card_vs_cpu(dev)
-    # a gradient through a kinds rollout on the card is refused before any stage runs
+    # a gradient through a kinds rollout on the card runs K3' (grad_kinds
+    # measures it): 2 RK3 steps, one K3' per stage
     phi = torus_field(N_SMALL, dev)
-    try:
-        reset_counts()
-        lsm.rollout(lsm.RK3(), a_terms(), phi.with_values(phi.values.clone().requires_grad_()),
-                    0.0, 1e-4, 2)
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    log("kinds", f"gradient through a rollout of A's terms on the card: {refused!r}; "
-                 f"launches before the refusal {read_counts()}")
-    if "K3 term kinds" not in refused or read_counts() != NONE_LAUNCHED:
-        raise AssertionError("a gradient through the kinds was not refused")
+    v = phi.values.clone().requires_grad_()
+    reset_counts()
+    out, _ = lsm.rollout(lsm.RK3(), a_terms(), phi.with_values(v), 0.0, 1e-4, 2)
+    (g,) = torch.autograd.grad((out.values ** 2).sum(), v)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log("kinds", f"gradient through a rollout of A's terms on the card: launches {counts}, "
+                 f"max|dphi0|={float(g.abs().max()):.3e}")
+    if not (counts["K3'"] == 6 and counts["K3"] == 0 and bool(torch.isfinite(g).all())):
+        raise AssertionError("a gradient through the kinds did not run K3'")
 
 
 def kinds_card_vs_cpu(dev):
@@ -1638,6 +1690,328 @@ def phase_kinds_timing(dev, res):
         log("kinds_timing", f"{n}^3 f32 {name:24s} median {t[name]:.4f} ms")
     log("kinds_timing", "peak memory: " + ", ".join(f"{k} {v:.2f} GiB" for k, v in mem.items()))
     res["mem"].update(mem)
+
+
+# -- gradients of the term kinds (K3') and configuration 5 -----------------------------
+
+
+def k3k_cases(shape, dtype, dev, gen):
+    """The term lists of K3''s checks: normal motion (streamed, constant),
+    curvature (constant), eikonal (frozen sign, recomputed), curvature +
+    normal motion, advection + normal motion. Streamed scalars have exact
+    zeros (the normal motion's 0.5 / 0.5 tie)."""
+    s = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    s[:, ::3] = 0.0
+    vel = 0.3 * torch.randn((3, *shape), generator=gen, device=dev, dtype=dtype)
+    stream = lambda kind, arrs: (v2.TermSpec(kind, "stream", None, len(arrs)),
+                                 tuple(a.contiguous() for a in arrs))
+    const = lambda kind, value: (v2.TermSpec(kind, "const", value, 0), ())
+    return {
+        "normal stream": (stream("normal", [s]),),
+        "normal const": (const("normal", 0.2),),
+        "curvature const": (const("curvature", -0.05),),
+        "eikonal stream": (stream("eikonal", [s]),),
+        "eikonal none": ((v2.TermSpec("eikonal", "none", None, 0), ()),),
+        "curvature + normal": (const("curvature", -0.05), stream("normal", [s])),
+        "advection + normal": (stream("advection", list(vel)), stream("normal", [s])),
+    }
+
+
+def cast_terms(terms, dtype):
+    return tuple((spec, tuple(a.to(dtype).contiguous() for a in arrs)) for spec, arrs in terms)
+
+
+def k3k_errs(got, ref, shape):
+    """Worst ``max|got - ref| / max|ref|`` over K3''s outputs (the raw dP,
+    each stream cotangent, dalpha, dbeta, dgamma, daux), and the worst
+    absolute difference of dP and the stream cotangents."""
+    pairs = [(got[0], ref[0])] + list(zip(got[1], ref[1]))
+    pairs += [(got[2][k:k + 1], ref[2][k:k + 1]) for k in range(3)]
+    if ref[3] is not None:
+        pairs.append((v2.unpack_padded(got[3], shape), v2.unpack_padded(ref[3], shape)))
+    rel = max(rel_err(a, b) for a, b in pairs)
+    absolute = max(float((a.double() - b.double()).abs().max())
+                   for a, b in [(got[0], ref[0])] + list(zip(got[1], ref[1])))
+    return rel, absolute
+
+
+def phase_k3kinds(dev, res):
+    """K3' against its plain version at BAND_SMALL on the torus (with a
+    little noise), three BC cases, each term list with and without aux: f64
+    kernel vs f64 plain (tol 1e-10, relative to max|ref|), f32 kernel vs the
+    f64 autograd oracle of stage + refresh (with float32's WENO epsilon
+    floor; tol K3_TOL), or vs its f32 plain version on K3K_F32_VS_PLAIN."""
+    shape = BAND_SMALL
+    gen = torch.Generator(device=dev).manual_seed(13)
+    grid = lsm.Grid((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), shape)
+    sp = grid.spacing
+    torus = lsm.sample(shapes.torus((0.0, 0.0, 0.0), 0.5, 0.2), grid, dtype=torch.float64,
+                       device=dev).values
+    vals = torus + 1e-3 * torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+    aux_vals = torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+    G64 = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=torch.float64)
+    cases = k3k_cases(shape, torch.float64, dev, gen)
+    worst = {"f64": 0.0, "f32": 0.0, "f32_abs": 0.0, "f32_plain": 0.0}
+    for bname, bc in K3K_BCS.items():
+        bcs = lsm.normalize_bcs(bc(), 3)
+        for name, terms64 in cases.items():
+            line = {}
+            for with_aux in (False, True):
+                coeffs = (0.75, 0.25, 2.5e-3) if with_aux else (0.0, 1.0, 1e-2)
+                for dtype in (torch.float64, torch.float32):
+                    P = v2.pack_padded(vals.to(dtype), bcs)
+                    A = v2.pack_padded(aux_vals.to(dtype), bcs) if with_aux else None
+                    G = G64.to(dtype)
+                    terms = cast_terms(terms64, dtype)
+                    gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
+                    got = bwd.stage_backward_terms(P, terms, coeffs, A, gf, sp, shape)
+                    plain = bwd.stage_backward_terms_plain(P, terms, coeffs, A, gf, sp, shape)
+                    torch.cuda.synchronize()
+                    if dtype == torch.float64:
+                        rel, _ = k3k_errs(got, plain, shape)
+                        worst["f64"] = max(worst["f64"], rel)
+                        line["f64"] = max(line.get("f64", 0.0), rel)
+                        continue
+                    d = lambda t: None if t is None else t.double()
+                    with f32_weno_floor():
+                        ref = bwd.composite_backward_autograd(d(P), cast_terms(terms, torch.float64),
+                                                              coeffs, d(A), G.double(), bcs, sp,
+                                                              shape)
+                    rel, absolute = k3k_errs(got, ref, shape)
+                    prel, pabs = k3k_errs(got, plain, shape)
+                    if bname in K3K_F32_VS_PLAIN:
+                        rel, absolute = prel, pabs
+                    worst["f32"] = max(worst["f32"], rel)
+                    worst["f32_abs"] = max(worst["f32_abs"], absolute)
+                    worst["f32_plain"] = max(worst["f32_plain"], pabs)
+                    line["f32"] = max(line.get("f32", 0.0), rel)
+                    finite = all(bool(torch.isfinite(t).all()) for t in (got[0], *got[1]))
+                    if not finite:
+                        raise AssertionError(f"K3' non-finite ({bname}, {name}, aux={with_aux})")
+            ref32 = "f32 plain" if bname in K3K_F32_VS_PLAIN else "f64 oracle"
+            log("k3kinds", f"{bname:9s} {name:20s} f64 kernel vs plain {line['f64']:.2e} "
+                           f"(tol 1e-10), f32 kernel vs {ref32} {line['f32']:.2e} "
+                           f"(tol {K3_TOL:g}), relative to max|ref|")
+    log("k3kinds", f"worst: f64 {worst['f64']:.3e}, f32 {worst['f32']:.3e} "
+                   f"(max abs {worst['f32_abs']:.3e}), f32 kernel vs f32 plain max abs "
+                   f"{worst['f32_plain']:.3e} (reported)")
+    if not (worst["f64"] <= 1e-10 and worst["f32"] <= K3_TOL):
+        raise AssertionError(f"K3' parity failed: {worst}")
+    res["k3k_err"] = worst["f32_abs"]
+    res["k3k_rel"] = (worst["f64"], worst["f32"])
+
+
+def k3k_inputs(label, n, dev):
+    """Config A's stage-1 inputs at n^3 (the torus; curvature + normal
+    motion, constants) or config C's dense one (the sphere; normal motion at
+    the streamed speed 0.1 + 0.05 x): ``(stepper, P, terms, dt)``."""
+    if label == "A":
+        phi = torus_field(n, dev)
+        terms = a_terms()
+    else:
+        grid = lsm.Grid((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), (n, n, n))
+        phi = lsm.sample(shapes.sphere((0.0, 0.0, 0.0), 0.5), grid, lsm.Extrapolation(2),
+                         device=dev)
+        terms = (c_term(phi),)
+    stepper = FusedStepper(terms, phi, lsm.ForwardEuler())
+    P = stepper.pack(phi.values)
+    return stepper, P, stepper.stage_terms(0.0), 0.5 * float(stepper.cfl(P, 0.0))
+
+
+def phase_k3kinds_512(dev, res):
+    """K3' at 512^3 f32 on config A's and config C's (dense) stage-1 inputs:
+    a 64^3 sub-box against the f64 plain K3' of that sub-box (its outputs
+    within reach included; tol K3_TOL), the whole buffer finite; CUDA-event
+    medians of K3' there, and of K3' and its plain version at N_K3K_PLAIN^3."""
+    n, t = N_MAIN, res.setdefault("t_k3k", {})  # by config label
+    B = min(64, n // 8)  # at 512^3 the box spans +-0.125 around its centre
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for label in ("A", "C"):
+        stepper, P, terms, dt = k3k_inputs(label, n, dev)
+        shape, sp, bcs = stepper.shape, stepper.spacing, stepper.bcs
+        G = torch.randn(v2.padded_shape(shape), generator=gen, device=dev)
+        gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
+        coeffs = (0.0, 1.0, dt)
+        dP, ds, dcoef, _ = bwd.stage_backward_terms(P, terms, coeffs, None, gf, sp, shape)
+        finite = all(bool(torch.isfinite(x).all()) for x in (dP, *ds, dcoef))
+        # on the surface: the torus's at y = -0.7, off its core circle
+        # (|grad phi| -> 0 there, and curvature's adjoint with it); the sphere's
+        a = [_sub_box(n, B, c) for c in ((0.5, 0.15, 0.5) if label == "A" else (0.5, 0.25, 0.5))]
+        box = tuple(slice(x - 6, x + B + 6) for x in a)
+        sub = (B + 6,) * 3
+        sub_terms = tuple((spec, tuple(c[tuple(slice(x - 6, x + B) for x in a)].double()
+                                       .contiguous() for c in arrs)) for spec, arrs in terms)
+        ref = bwd.stage_backward_terms_plain(P[box].double().contiguous(), sub_terms, coeffs, None,
+                                             gf[box].double().contiguous(), sp, sub)
+        region = tuple(slice(x, x + B) for x in a)
+        region_i = tuple(slice(x - 3, x - 3 + B) for x in a)
+        inner_p, inner_i = (slice(6, 6 + B),) * 3, (slice(3, 3 + B),) * 3
+        errs = {"dP": rel_err(dP[region], ref[0][inner_p])}
+        for k, (d, r) in enumerate(zip(ds, ref[1])):
+            errs[f"ds{k}"] = rel_err(d[region_i], r[inner_i])
+        log("k3kinds_512", f"config {label} {n}^3 f32 sub-box {B}^3 at {a}: "
+                           + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+                           + f" (tol {K3_TOL:g}) finite={finite}")
+        if not (finite and max(errs.values()) <= K3_TOL):
+            raise AssertionError(f"K3' at {n}^3 failed (config {label}): {errs}")
+        t[label] = cuda_time(lambda: bwd.stage_backward_terms(P, terms, coeffs, None, gf, sp,
+                                                              shape))
+        del stepper, P, terms, G, gf, dP, ds, ref
+        torch.cuda.empty_cache()
+        m = N_K3K_PLAIN
+        stepper, P, terms, dt = k3k_inputs(label, m, dev)
+        G = torch.randn(v2.padded_shape(stepper.shape), generator=gen, device=dev)
+        gf = bwd.fold_ghost_cotangent_fast(G.clone(), stepper.bcs, stepper.shape)
+        args = (P, terms, (0.0, 1.0, dt), None, gf, stepper.spacing, stepper.shape)
+        t[f"{label}@{m}"] = cuda_time(lambda: bwd.stage_backward_terms(*args))
+        t[f"{label}_plain@{m}"] = cuda_time(lambda: bwd.stage_backward_terms_plain(*args),
+                                            warmup=1, reps=5)
+        del stepper, P, terms, G, gf, args
+        torch.cuda.empty_cache()
+    for name, ms in t.items():
+        log("k3kinds_512", f"f32 K3' config {name:12s} median {ms:.4f} ms")
+
+
+def grad_kinds_terms(phi, s):
+    """Config A's curvature with config C's normal motion at the streamed
+    speed ``s``."""
+    return (lsm.CurvatureTerm(-0.05), lsm.NormalMotionTerm(lsm.MeshField(s, phi.grid, phi.bcs)))
+
+
+def grad_kinds(phi, v, s, dt, nsteps):
+    """``sum(phi_final^2)`` of an RK3 rollout (remat) through
+    :func:`grad_kinds_terms`, and its gradients w.r.t. the values ``v`` and
+    the speed ``s``."""
+    out, _ = lsm.rollout(lsm.RK3(), grad_kinds_terms(phi, s), phi.with_values(v), 0.0, dt,
+                         nsteps, remat=True)
+    loss = (out.values ** 2).sum()
+    return (loss,) + torch.autograd.grad(loss, (v, s))
+
+
+def phase_grad_kinds(dev, res):
+    """The dense kinds gradient: an RK3 rollout under remat of curvature
+    (-0.05) plus normal motion at the streamed speed 0.1 + 0.05 x on the
+    torus. 64^3, 3 steps, card against CPU: f64 max norm (tol 1e-10*scale),
+    f32 relative L2 against F32_L2_FACTOR times the CPU's own spread under a
+    1-ulp change of phi0; the torus carries 1e-3 of seeded noise, so no
+    exact tie takes another subgradient. Then 512^3 f32, GRAD_KINDS_STEPS
+    steps: ms per value_and_grad, peak memory, launches."""
+    noise = 1e-3 * torch.randn((N_SMALL,) * 3, generator=torch.Generator().manual_seed(15),
+                               dtype=torch.float64)
+
+    def run(where, dtype, perturb=None):
+        phi = torus_field(N_SMALL, where, dtype)
+        v = phi.values + noise.to(where, dtype)
+        if perturb is not None:
+            v = v * (1 + 2.0 ** -23 * perturb)
+        s = c_term(phi).speed.values
+        dt = 0.5 * float(lsm.compute_cfl(grad_kinds_terms(phi, s), phi.with_values(v), 0.0))
+        return grad_kinds(phi, v.clone().requires_grad_(), s.clone().requires_grad_(), dt, 3)
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for where in ("cpu", dev):
+            out[(str(where), dtype)] = [x.detach().cpu() for x in run(where, dtype)]
+    card, cpu = out[(str(dev), torch.float64)], out[("cpu", torch.float64)]
+    e64 = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(card, cpu)]
+    card, cpu = out[(str(dev), torch.float32)], out[("cpu", torch.float32)]
+    l2_32 = [rel_l2(a, b) for a, b in zip(card[1:], cpu[1:])]
+    pert = torch.randn((N_SMALL,) * 3, generator=torch.Generator().manual_seed(16))
+    ulp = [rel_l2(a.detach(), b) for a, b in zip(run("cpu", torch.float32, pert)[1:], cpu[1:])]
+    log("grad_kinds", f"{N_SMALL}^3 RK3 x3 card vs CPU: f64 max|diff|/max|ref| loss {e64[0]:.2e} "
+                      f"dphi0 {e64[1]:.2e} dspeed {e64[2]:.2e} (tol 1e-10); f32 relative L2 "
+                      f"dphi0 {l2_32[0]:.3e} dspeed {l2_32[1]:.3e} (tol {F32_L2_FACTOR:g}x the "
+                      f"CPU's 1-ulp spread {ulp[0]:.3e}, {ulp[1]:.3e})")
+    if not (max(e64) <= 1e-10 and all(a <= F32_L2_FACTOR * b for a, b in zip(l2_32, ulp))):
+        raise AssertionError("kinds gradient card-vs-CPU check failed")
+    del out, card, cpu
+    # 512^3 f32: one value_and_grad, counting launches, then timed
+    n = N_MAIN
+    phi = torus_field(n, dev)
+    s = c_term(phi).speed.values
+    dt = 0.5 * float(lsm.compute_cfl(grad_kinds_terms(phi, s), phi, 0.0))
+    call = lambda: grad_kinds(phi, phi.values.clone().requires_grad_(), s.clone().requires_grad_(),
+                              dt, GRAD_KINDS_STEPS)
+    torch.cuda.synchronize()
+    reset_counts()
+    loss, gv, gs = call()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    k = GRAD_KINDS_STEPS
+    want = dict(NONE_LAUNCHED, K1=2 * 3 * k, K2=2 * 3 * k, K4=3 * k, K5=2 * k,
+                **{"K1'": 2 * 3 * k, "K3'": 3 * k})
+    finite = bool(torch.isfinite(gv).all()) and bool(torch.isfinite(gs).all())
+    del gv, gs
+    ms = cuda_time(call, warmup=1, reps=3)
+    mem = peak_gib(call)
+    log("grad_kinds", f"{n}^3 f32 RK3 rollout x{k} remat, curvature + normal motion (streamed "
+                      f"speed): loss={loss.item():.6e} finite={finite} launches={counts} "
+                      f"(expected {want}); value_and_grad median {ms:.1f} ms, peak {mem:.2f} GiB")
+    if not (finite and counts == want):
+        raise AssertionError("the kinds gradient at 512^3 failed")
+    profile_window(f"kinds gradient, {k} RK3 steps at {n}^3", call)
+    res["launches"]["K3'"] = counts["K3'"]
+    res["t_grad"] = {"grad_kinds": ms}
+    res["mem_grad"] = {"grad_kinds": mem}
+
+
+def phase_config5(dev, res):
+    """Configuration 5 (``models.benchmarks.config5_shape_opt_3d``): at its
+    published size (64^3, 8 RK3 steps) the card (band stepper: K6', K7, K8
+    forward, autograd of the plain band composite backward) against the CPU
+    (the general band path) in f64, loss and both gradients (tol
+    1e-10*scale), and f32 against f64 on the card (relative L2 of each
+    gradient, tol F32_L2_FACTOR times the CPU's own f32-vs-f64 distance:
+    8 steps of f32 move this gradient by ~4e-3, a 1-ulp change of phi0 by
+    ~9e-4), on phi0 plus CONFIG5_NOISE of seeded noise; then
+    N_CONFIG5_XL^3 f32 on the published phi0: ms per loss_and_grad and peak
+    memory."""
+    out, counts = {}, None
+    shape = (N_CONFIG5,) * 3
+    noise = CONFIG5_NOISE * torch.randn(shape, generator=torch.Generator().manual_seed(5),
+                                        dtype=torch.float64)
+    for label, where, dtype in (("cpu", "cpu", torch.float64), ("card", dev, torch.float64),
+                                ("card32", dev, torch.float32), ("cpu32", "cpu", torch.float32)):
+        fn, phi0, speed0 = bench.config5_shape_opt_3d(n=N_CONFIG5, nsteps=CONFIG5_STEPS,
+                                                      dtype=dtype, device=where)
+        torch.cuda.synchronize()
+        reset_counts()
+        loss, (dphi, dspeed) = fn(phi0.values + noise.to(where, dtype), speed0)
+        torch.cuda.synchronize()
+        if label == "card":
+            counts = read_counts()
+        out[label] = [x.cpu() for x in (loss, dphi, dspeed)]
+    card, cpu = out["card"], out["cpu"]
+    e64 = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(card, cpu)]
+    l2_32 = [rel_l2(a, b) for a, b in zip(out["card32"][1:], card[1:])]
+    l2_cpu = [rel_l2(a, b) for a, b in zip(out["cpu32"][1:], cpu[1:])]
+    stages = CONFIG5_STEPS * 3
+    log("config5", f"{N_CONFIG5}^3 x{CONFIG5_STEPS} RK3 loss_and_grad: loss card "
+                   f"{float(card[0]):.12e} CPU {float(cpu[0]):.12e}; card vs CPU f64 "
+                   f"max|diff|/max|ref| loss {e64[0]:.2e} dphi {e64[1]:.2e} dspeed {e64[2]:.2e} "
+                   f"(tol 1e-10); f32 vs f64 relative L2 dphi {l2_32[0]:.3e} dspeed {l2_32[1]:.3e} "
+                   f"(tol {F32_L2_FACTOR:g}x the CPU's {l2_cpu[0]:.3e}, {l2_cpu[1]:.3e}); "
+                   f"launches {counts}")
+    if not (max(e64) <= 1e-10 and all(a <= F32_L2_FACTOR * b for a, b in zip(l2_32, l2_cpu))
+            and counts["K6'"] >= stages and counts["K7"] >= stages and counts["K8"] > 0
+            and counts["K1"] == counts["K3"] == counts["K3'"] == 0):
+        raise AssertionError("configuration 5 check failed")
+    del out, card, cpu
+    torch.cuda.empty_cache()
+    fn, phi0, speed0 = bench.config5_shape_opt_3d(n=N_CONFIG5_XL, nsteps=CONFIG5_STEPS, device=dev)
+    call = lambda: fn(phi0.values, speed0)
+    loss, (dphi, dspeed) = call()
+    finite = bool(torch.isfinite(dphi).all()) and bool(torch.isfinite(dspeed).all())
+    del dphi, dspeed
+    ms = cuda_time(call, warmup=1, reps=3)
+    mem = peak_gib(call)
+    log("config5", f"{N_CONFIG5_XL}^3 f32 x{CONFIG5_STEPS} RK3 loss_and_grad: loss "
+                   f"{float(loss):.6e} finite={finite}, median {ms:.1f} ms, peak {mem:.2f} GiB")
+    if not finite:
+        raise AssertionError("configuration 5 at 256^3 is not finite")
+    profile_window(f"configuration 5 loss_and_grad at {N_CONFIG5_XL}^3", call)
+    res["t_grad"]["config5_xl"] = ms
+    res["mem_grad"]["config5_xl"] = mem
 
 
 # -- the general path (K10, K11) and 2D fields ------------------------------------------
@@ -2324,11 +2698,14 @@ def main() -> int:
     for name, run in (("device", phase_device), ("k2", phase_k2), ("k1", phase_k1),
                       ("k4k5", phase_k4k5), ("k3", phase_k3), ("k6k7k8", phase_k6k7k8),
                       ("k1kinds", phase_k1kinds), ("k6kinds", phase_k6kinds),
+                      ("k3kinds", phase_k3kinds),
                       ("k10k11", phase_k10k11), ("k2_small", phase_k2_small),
                       ("k512", phase_k512), ("k3_512", phase_k3_512),
                       ("band_512", phase_band_512), ("kinds_512", phase_kinds_512),
+                      ("k3kinds_512", phase_k3kinds_512),
                       ("slice", phase_slice), ("main", phase_main), ("grad", phase_grad),
                       ("band", phase_band), ("kinds", phase_kinds),
+                      ("grad_kinds", phase_grad_kinds), ("config5", phase_config5),
                       ("general_512", phase_general_512), ("twod", phase_twod),
                       ("general_small", phase_general_small), ("timing", phase_timing),
                       ("band_timing", phase_band_timing), ("kinds_timing", phase_kinds_timing),
@@ -2370,6 +2747,7 @@ def kernel_records(res):
     cells, padded, ghosts = n ** 3, (n + 6) ** 3, (n + 6) ** 3 - n ** 3
     f32 = 4
     k3_plain_n = res["K3_plain_n"]
+    tk = res["t_k3k"]
     work, kwork = res["band_work"], res["kinds_band_work"]
     rows = [
         ("K1 fused_stage (WENO5 advection RK stage)", "weno_stage.cu",
@@ -2419,6 +2797,12 @@ def kernel_records(res):
          # written; on the compute band only, the tile-packed speed read
          bound((f32 * 2 + 1) * kwork["dispatched"] + f32 * kwork["ops_cells"],
                KINDS_OPS["C"] * kwork["ops_cells"]), None),
+        ("K3' stage_backward_terms (the adjoint of a term-list stage: normal, curvature, "
+         "eikonal kinds and sums; config A: curvature + normal motion)", "stage_backward.cu",
+         "lsm_tpu/ops/weno_v2_bwd.py:731", "K3'", res["k3k_err"], tk["A"],
+         tk[f"A_plain@{N_K3K_PLAIN}"],
+         # reads P and the folded g (interior), writes dP (constant coefficients)
+         bound(f32 * (2 * padded + cells), K3K_OPS["A"] * cells), None),
         ("K10 weno_stage_pallas 3D (the general path's WENO5 advection stage)",
          "weno_general.cu", "lsm_tpu/ops/weno_pallas.py:263", "K10", res["k10_err"], t["K10"],
          t["K10_plain"],
@@ -2444,6 +2828,15 @@ def kernel_records(res):
         if key == "K11":
             rec.update(ms_aux=t["K11_aux"], bound_ms_aux=bound(
                 f32 * ((N_2D + 6) ** 2 + 4 * N_2D ** 2), K11_OPS_PER_CELL * N_2D ** 2)[0])
+        if key == "K3'":  # plain at its own grid; config C's dense normal motion (streamed
+            # speed: its read and its cotangent's write); the parity against plain and oracle
+            m = N_K3K_PLAIN
+            rec.update(plain_grid=f"{m}^3", ms_at_plain_grid=tk[f"A@{m}"], ms_C=tk["C"],
+                       bound_ms_C=bound(f32 * (2 * padded + 3 * cells), K3K_OPS["C"] * cells)[0],
+                       ms_C_at_plain_grid=tk[f"C@{m}"], plain_ms_C=tk[f"C_plain@{m}"],
+                       rel_err_f64_vs_plain=res["k3k_rel"][0],
+                       rel_err_f32_vs_f64_oracle=res["k3k_rel"][1],
+                       ops_per_cell={"A": K3K_OPS["A"], "C": K3K_OPS["C"]})
         if key == "K1'":  # config B's stage (one streamed sign, 12 B/cell) and the sign recomputed
             b_ms, (b_bound, _) = t["K1k_B_frozen"], bound(f32 * (padded + 2 * cells),
                                                           KINDS_OPS["B"] * cells)

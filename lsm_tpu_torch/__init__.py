@@ -1,28 +1,32 @@
 """lsm_tpu_torch — the PyTorch + CUDA port of :mod:`lsm_tpu`.
 
 A second package beside the JAX one, with the same layout (``core``, ``ops``,
-``terms``, ``integrators``, ``geometry``, ``models``, ``utils``) and the same
-semantics. Plain tensor code is PyTorch; each TPU kernel on a ported path is a
-hand-written CUDA kernel for Hopper (``csrc/``, built with nvcc on first use).
+``terms``, ``integrators``, ``geometry``, ``reinit``, ``models``, ``utils``)
+and the same semantics. Plain tensor code is PyTorch; each TPU kernel on a
+ported path is a hand-written CUDA kernel for Hopper (``csrc/``, built with
+nvcc on first use).
 
 The ported slices are the dense 3D WENO5 advection path (``Grid``, BCs,
 ``MeshField`` / ``sample``, ``AdvectionTerm``, FE/RK2/RK3, and
 ``LevelSetEquation.integrate``, which on a CUDA state runs the fused stepper
 through the stage kernel K1 and the ghost-refresh kernel K2) and its
 gradient: ``rollout`` differentiates through the same stepper, whose
-backward runs the stage-adjoint kernel K3, the ghost-cotangent fold K4 and
-the shell zeroing K5; and the narrow band: ``integrate`` on a
-``NarrowBandField`` runs the band stepper, whose cost follows the interface,
-through the active-tile stage K6, the gated shell refresh K7 and the
-incremental re-tube K8 (``last_fast_path == "band"``); and the other term
-kinds: ``NormalMotionTerm``, ``CurvatureTerm`` and
+backward runs the ghost-cotangent fold K4, the stage adjoint K3 (one
+advection term) or K3' (any other term list) and the shell zeroing K5; the
+narrow band: ``integrate`` on a ``NarrowBandField`` runs the band stepper,
+whose cost follows the interface, through the active-tile stage K6, the
+gated shell refresh K7 and the incremental re-tube K8 (``last_fast_path ==
+"band"``), and ``rollout`` differentiates through it (the backward is
+autograd of the plain band composite, as JAX's is ``jax.vjp`` of its own);
+the other term kinds: ``NormalMotionTerm``, ``CurvatureTerm`` and
 ``EikonalReinitializationTerm``, and any sum of terms, through the same K1
-and K6 (forward only on the card); and the general path and 2D fields:
-hooks, ``fast="off"`` and the term lists the steppers do not take run the
-WENO5 advection stage through K10 (3D) and K11 (2D), a dense 2D field rides
-K1 and K2 as ``(1, n0, n1)``, ``reinitialize`` is PDE reinitialization in
-plain torch, and ``models.benchmarks`` builds the canonical 2D
-configurations 1 to 4. Tensors go to the card unless the caller asks for
+and K6; the general path and 2D fields: hooks, ``fast="off"`` and the term
+lists the steppers do not take run the WENO5 advection stage through K10
+(3D) and K11 (2D), a dense 2D field rides K1 and K2 as ``(1, n0, n1)``;
+``reinitialize`` (PDE reinitialization), ``extend_along_normals`` and the
+geometric queries and CSG in plain torch; and ``models.benchmarks``, the
+canonical configurations 1 to 5 (configuration 5: shape optimisation
+through a band rollout). Tensors go to the card unless the caller asks for
 the CPU (``device="cpu"``).
 """
 
@@ -49,7 +53,22 @@ from .integrators.explicit import ForwardEuler, RK2, RK3, TimeIntegrator
 from .integrators.loop import evolve, rollout, step
 from .equation import LevelSetEquation
 from .reinit.eikonal import reinitialize
-from .geometry.queries import volume, perimeter, smooth_heaviside, smooth_delta
+from .reinit.velocity_extension import extend_along_normals
+from .geometry.queries import (
+    volume,
+    perimeter,
+    curvature,
+    gradient,
+    grad_norm,
+    normal,
+    hessian,
+    union,
+    intersection,
+    complement,
+    difference,
+    smooth_heaviside,
+    smooth_delta,
+)
 
 __version__ = "0.1.0"
 
@@ -79,8 +98,18 @@ __all__ = [
     "rollout",
     "LevelSetEquation",
     "reinitialize",
+    "extend_along_normals",
     "volume",
     "perimeter",
+    "curvature",
+    "gradient",
+    "grad_norm",
+    "normal",
+    "hessian",
+    "union",
+    "intersection",
+    "complement",
+    "difference",
     "smooth_heaviside",
     "smooth_delta",
 ]

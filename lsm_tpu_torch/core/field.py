@@ -106,13 +106,14 @@ def sample(
     grid: Grid,
     bc=None,
     dtype=None,
-    device=None,
     vector: bool = False,
+    device=None,
 ) -> MeshField:
     """Sample ``fn(*coords)`` at the grid nodes into a :class:`MeshField`.
 
     ``fn`` receives the broadcastable coordinate tensors and returns one tensor
-    (scalar field) or a length-``ndim`` sequence (vector field). ``dtype``
+    (scalar field) or a length-``ndim`` sequence (vector field). The
+    parameters are JAX's, in JAX's order, then ``device``. ``dtype``
     defaults to ``torch.get_default_dtype()`` and ``device`` to the card
     (:func:`~lsm_tpu_torch.core.device.resolve_device`: the CPU only when
     asked for with ``device="cpu"``).

@@ -100,18 +100,39 @@ int lsm_refresh_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n2,
  * aux is NULL or not wanted; its shells are left for K5) and dcoef[3] =
  * (dalpha, dbeta, dgamma). aux may be NULL (dalpha is then 0). part is
  * device scratch of lsm_stage_bwd_scratch(n0, n1, n2) doubles. Four
- * launches: one per axis, then one that sums the per-block partials. */
+ * launches: one per axis, then one that sums the per-block partials.
+ * accumulate != 0 (an advection term of a term list, after K3'): dP is added
+ * to instead of written, with no beta*g, no daux and dcoef = (0, 0, dgamma). */
 int64_t lsm_stage_bwd_scratch(int64_t n0, int64_t n1, int64_t n2);
 int lsm_stage_bwd_f32(const void* P, const void* g, const void* u0, const void* u1,
                       const void* u2, const void* aux, void* dP, void* du0, void* du1,
                       void* du2, void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
                       int64_t n2, double inv_h0, double inv_h1, double inv_h2, double alpha,
-                      double beta, double gamma, void* stream);
+                      double beta, double gamma, int accumulate, void* stream);
 int lsm_stage_bwd_f64(const void* P, const void* g, const void* u0, const void* u1,
                       const void* u2, const void* aux, void* dP, void* du0, void* du1,
                       void* du2, void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
                       int64_t n2, double inv_h0, double inv_h1, double inv_h2, double alpha,
-                      double beta, double gamma, void* stream);
+                      double beta, double gamma, int accumulate, void* stream);
+
+/* K3': cotangents of one K1' stage over a term table (csrc/stage_backward.cu):
+ * the normal, curvature and eikonal entries of *terms (a host pointer; its
+ * advection entries are skipped, K3 adds their share in accumulate mode).
+ * g, aux, daux, part as for K3 (part: lsm_stage_bwd_terms_scratch doubles).
+ * Writes dP (padded, every element: beta*g plus the entries' adjoints),
+ * dstreams[e] (a host array of LSM_MAX_TERMS device pointers: the cotangent
+ * of entry e's stream, interior-shaped, or NULL) and dcoef[3] = (dalpha,
+ * dbeta, dgamma of those entries). Two launches: the gather, then the sum of
+ * the per-block partials. */
+int64_t lsm_stage_bwd_terms_scratch(int64_t n0, int64_t n1, int64_t n2);
+int lsm_stage_bwd_terms_f32(const void* P, const void* g, const void* aux, void* dP, void* daux,
+                            void* part, void* dcoef, int64_t n0, int64_t n1, int64_t n2,
+                            const LsmStageTerms* terms, const void* const* dstreams,
+                            void* stream);
+int lsm_stage_bwd_terms_f64(const void* P, const void* g, const void* aux, void* dP, void* daux,
+                            void* part, void* dcoef, int64_t n0, int64_t n1, int64_t n2,
+                            const LsmStageTerms* terms, const void* const* dstreams,
+                            void* stream);
 
 /* K4: fold the ghost-shell cotangents of the padded buffer g into its
  * interior and zero the shells, in place: the transpose of K2. Three

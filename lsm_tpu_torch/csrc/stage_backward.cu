@@ -1,4 +1,5 @@
-// K3: cotangents of one fused RK stage (K1) of WENO5 advection.
+// K3: cotangents of one fused RK stage (K1) of WENO5 advection; K3', further
+// down, those of a term-list stage (K1') of the other kinds.
 //
 // Replaces the TPU kernel lsm_tpu/ops/weno_v2_bwd.py `stage_backward` (body
 // `_make_bwd_kernel`). Given the folded cotangent g of the stage output (only
@@ -48,6 +49,11 @@
 // not DRAM: the halo recomputation, no FMA, int64 index arithmetic and the
 // division sequences. Fusing the three axes into one pass, contracting FMAs
 // outside the s/b/dr chain and int32 indexing are later work.
+//
+// Accumulate mode (an advection term inside a term list, after K3' below has
+// written dP): the axis-0 launch adds its term to dP as the others do, and
+// writes no beta*g, no daux and no phi/aux partial sums, so dcoef is
+// (0, 0, dgamma of this advection term).
 
 #include <cuda_runtime.h>
 
@@ -255,17 +261,20 @@ struct BwdArgs {
   double* part;
   Geom geo;
   T inv_h, alpha, beta, gamma;
+  int accumulate;  // add to dP on the axis-0 launch too (see above)
 };
 
-// deterministic sum over the block (result in thread 0)
+// deterministic sum over the block of NT threads, 1D or 2D (result in
+// thread 0)
 template <int NT>
 __device__ __forceinline__ double block_sum(double v, double* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x + blockDim.x * threadIdx.y;
+  const int lane = tid & 31, warp = tid >> 5;
   if (lane == 0) red[warp] = v;
   __syncthreads();
   v = 0.0;
-  if (threadIdx.x == 0)
+  if (tid == 0)
     for (int k = 0; k < NT / 32; ++k) v += red[k];
   return v;
 }
@@ -352,7 +361,7 @@ __global__ void __launch_bounds__(Tile<AXIS>::NT) stage_bwd_axis_kernel(BwdArgs<
     }
     const T contrib = R::mul(R::sub(cx, cx1), a.inv_h);
     const int64_t x = i * G.s[0] + j * G.s[1] + k;
-    if (AXIS == 0) {
+    if (AXIS == 0 && !a.accumulate) {
       const bool in_x = inside(i, G.n[0]) && inside(j, G.n[1]) && inside(k, G.n[2]);
       if (in_x) {
         const T gv = a.g[x];
@@ -423,7 +432,7 @@ int launch_stage_bwd(const void* P, const void* g, const void* u0, const void* u
                      const void* u2, const void* aux, void* dP, void* du0, void* du1,
                      void* du2, void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
                      int64_t n2, double inv_h0, double inv_h1, double inv_h2, double alpha,
-                     double beta, double gamma, void* stream_) {
+                     double beta, double gamma, int accumulate, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const Geom geo = make_geom(n0, n1, n2);
   const int64_t nb[3] = {nblocks(bwd_grid<0>(geo)), nblocks(bwd_grid<1>(geo)),
@@ -449,6 +458,7 @@ int launch_stage_bwd(const void* P, const void* g, const void* u0, const void* u
     a.alpha = T(alpha);
     a.beta = T(beta);
     a.gamma = T(gamma);
+    a.accumulate = accumulate;
     if (axis == 0) err = launch_axis<T, 0>(a, stream);
     else if (axis == 1) err = launch_axis<T, 1>(a, stream);
     else err = launch_axis<T, 2>(a, stream);
@@ -456,6 +466,459 @@ int launch_stage_bwd(const void* P, const void* g, const void* u0, const void* u
   if (err != cudaSuccess) return static_cast<int>(err);
   stage_bwd_reduce_kernel<T><<<1, kReduceThreads, 0, stream>>>(parts, nb[0], nb[1], nb[2],
                                                                 static_cast<T*>(dcoef));
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------------
+// K3': cotangents of one K1' stage over a term table.
+//
+// Replaces the non-advection parts of the same TPU kernel: inside
+// `_make_bwd_kernel` every normal-motion, curvature and eikonal term ran its
+// own jax.vjp of lsm_tpu/ops/weno_v2.py `_ham_contribution`. Given the folded
+// cotangent g (interior read), P, the optional aux and the table (the
+// LsmStageTerms K1' reads, so forward and backward cannot disagree on a
+// term), it writes
+//   dP  (padded, every element): beta*g on the interior plus, for every
+//       output y within reach of x, the cotangent -gamma*g[y]*dH(y)/dP[x] of
+//       the normal, curvature and eikonal entries (advection entries are
+//       skipped: K3 adds their share afterwards in accumulate mode);
+//   dstream[e] for each streamed coefficient of those entries (optional);
+//   daux = alpha*g on the interior (optional; K5 zeroes its shells);
+//   dcoef = (sum g*aux, sum g*phi, -sum g*H) over those entries.
+// The tie rules are those of autodiff of the plain stage (torch.maximum /
+// minimum split a tie 0.5/0.5, torch.where sends everything to the branch it
+// took, safe_sqrt has derivative 0 at 0, minmod's goes to the argument it
+// picked), so the kernel is held to autograd of the plain version.
+//
+// Design: recompute, in the gather form. One thread per padded node x
+// writes dP[x] once: it re-evaluates, in registers, the adjoint of every
+// output y whose stencil holds x (13 nodes for the Godunov kinds: the centre
+// and +-1, +-2 along each axis; 19 for curvature: the centre, +-1 along each
+// axis and the 12 edge neighbours) and takes the weight of x. Stream
+// cotangents and the scalar partials come from y == x. No shared memory, no
+// atomics; the partials go to per-block slots in double and one fixed-order
+// reduction follows, so every run gives the same bits. This file is built
+// without FMA contraction (ops/_build.py), so each product and sum rounds on
+// its own, as in the plain version.
+//
+// Bound at 512^3 f32 (constant coefficients): read the padded P and the
+// interior g, write the padded dP, 1.65 GB, 0.49 ms at 3.35 TB/s; a streamed
+// speed adds its read and its cotangent's write. The recomputation does 13
+// (Godunov) or 19 (curvature) adjoints per node, ~3.7e3 (normal motion) to
+// ~6e3 (curvature + normal motion) operations per node, 0.5e12-0.8e12 at
+// 512^3, 7-12 ms at 67 TFLOP/s: the operations bind, by ~15-25x. Staging
+// each output's adjoint pieces in shared memory over a tile and its halo
+// (once per output instead of 13-19 times) is the later work.
+
+template <typename T>
+struct TermsBwdArgs {
+  const T* P;
+  const T* g;
+  const T* aux;  // may be null
+  T* dP;
+  T* daux;  // may be null
+  double* part;
+  T* dstream[LSM_MAX_TERMS];  // per table entry, its stream's cotangent or null
+  Geom geo;
+  LsmStageTerms tab;
+  int has_godunov, has_curvature;
+};
+
+template <typename T>
+__device__ __forceinline__ T tmax(T a, T b) {
+  return a > b ? a : b;
+}
+template <typename T>
+__device__ __forceinline__ T tmin(T a, T b) {
+  return a < b ? a : b;
+}
+__device__ __forceinline__ float tsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double tsqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float tabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double tabs(double x) { return fabs(x); }
+
+template <typename T>
+struct EpsOf;
+template <>
+struct EpsOf<float> {
+  static __device__ __forceinline__ float value() { return 1.1920928955078125e-07f; }
+};
+template <>
+struct EpsOf<double> {
+  static __device__ __forceinline__ double value() { return 2.220446049250313e-16; }
+};
+
+// minmod(x, y) and which argument it returned: 0 none (x*y <= 0), 1 x, 2 y
+template <typename T>
+__device__ __forceinline__ T minmod_sel(T x, T y, int& sel) {
+  const bool same = x * y > T(0);
+  const bool first = tabs(x) <= tabs(y);
+  sel = same ? (first ? 1 : 2) : 0;
+  return same ? (first ? x : y) : T(0);
+}
+
+// coefficient of offset k in the second difference centred at `centre`
+template <typename T>
+__device__ __forceinline__ T d2_coef(int centre, int k) {
+  const int r = k - centre;
+  return r == 0 ? T(-2) : ((r == 1 || r == -1) ? T(1) : T(0));
+}
+
+// The Godunov kinds (normal motion, eikonal) at one output: the cotangents
+// of the ENO2 one-sided derivatives A_d, B_d and the minmod branches they
+// took, the direct cotangent of the centre (the recomputed eikonal sign),
+// and at the centre node H and the stream cotangents.
+template <typename T>
+struct GodAdj {
+  T dA[3], dB[3];
+  int sA[3], sB[3];
+  T dc, ham;
+};
+
+template <typename T>
+__device__ void godunov_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q, T gbar,
+                                bool centre, GodAdj<T>& o) {
+  const LsmStageTerms& p = a.tab;
+  const T* P = a.P;
+  const int64_t st[3] = {a.geo.s[0], a.geo.s[1], 1};
+  T A[3], B[3];
+  T gp2 = T(0), gm2 = T(0);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const int64_t s = st[d];
+    const T inv_h = T(p.inv_h[d]), half_h = T(p.half_h[d]), inv_hh = T(p.inv_hh[d]);
+    const T m2 = P[c - 2 * s], m1 = P[c - s], c0 = P[c], p1 = P[c + s], p2 = P[c + 2 * s];
+    const T d2c = (p1 - T(2) * c0 + m1) * inv_hh;
+    const T d2mm = (m2 - T(2) * m1 + c0) * inv_hh;
+    const T d2pp = (c0 - T(2) * p1 + p2) * inv_hh;
+    A[d] = (c0 - m1) * inv_h + half_h * minmod_sel(d2mm, d2c, o.sA[d]);
+    B[d] = (p1 - c0) * inv_h - half_h * minmod_sel(d2pp, d2c, o.sB[d]);
+    const T ap = tmax(A[d], T(0)), an = tmin(A[d], T(0));
+    const T bp = tmax(B[d], T(0)), bn = tmin(B[d], T(0));
+    gp2 = gp2 + ap * ap + bn * bn;
+    gm2 = gm2 + an * an + bp * bp;
+  }
+  const T gp = gp2 > T(0) ? tsqrt(gp2) : T(0);
+  const T gm = gm2 > T(0) ? tsqrt(gm2) : T(0);
+  T dgp = T(0), dgm = T(0), dc = T(0), ham = T(0);
+  for (int e = 0; e < p.n; ++e) {
+    const int kind = p.kind[e], coef = p.coef[e];
+    if (kind != LSM_TERM_NORMAL && kind != LSM_TERM_EIKONAL) continue;
+    T v = T(0);
+    if (coef == LSM_COEF_STREAM) v = static_cast<const T*>(p.stream[e][0])[q];
+    else if (coef == LSM_COEF_CONST) v = T(p.value[e]);
+    T dv = T(0);
+    if (kind == LSM_TERM_NORMAL) {
+      // H = max(v, 0) gp + min(v, 0) gm; a tie at v == 0 splits 0.5 / 0.5
+      dgp = dgp + gbar * tmax(v, T(0));
+      dgm = dgm + gbar * tmin(v, T(0));
+      if (centre) {
+        ham = ham + (tmax(v, T(0)) * gp + tmin(v, T(0)) * gm);
+        dv = v > T(0) ? gbar * gp
+                      : (v < T(0) ? gbar * gm : gbar * gp * T(0.5) + gbar * gm * T(0.5));
+      }
+    } else if (coef == LSM_COEF_NONE) {
+      // s = phi / sqrt(phi^2 + norm^2 dx^2) (0 where that is 0), H = s (norm - 1)
+      const T c0 = P[c], dx = T(p.dx_min);
+      const bool up = c0 > T(0);
+      const T norm = up ? gp : gm;
+      const T denom = tsqrt(c0 * c0 + norm * norm * dx * dx);
+      const T s = denom == T(0) ? T(0) : c0 / denom;
+      const T ds = gbar * (norm - T(1));
+      T dnorm = gbar * s;
+      const T ddenom = denom == T(0) ? T(0) : -ds * c0 / (denom * denom);
+      if (denom != T(0)) dc = dc + ds / denom;
+      const T dX = ddenom / (T(2) * denom);  // 0/0 where denom == 0, as autodiff's
+      dc = dc + dX * (T(2) * c0);
+      dnorm = dnorm + dX * dx * dx * (T(2) * norm);
+      if (up) dgp = dgp + dnorm;
+      else dgm = dgm + dnorm;
+      if (centre) ham = ham + s * (norm - T(1));
+    } else {
+      // frozen sign s = v: H = s (norm - 1), norm = |grad+| where s > 0
+      const bool up = v > T(0);
+      const T norm = up ? gp : gm;
+      if (up) dgp = dgp + gbar * v;
+      else dgm = dgm + gbar * v;
+      if (centre) {
+        ham = ham + v * (norm - T(1));
+        dv = gbar * (norm - T(1));
+      }
+    }
+    if (centre && coef == LSM_COEF_STREAM && a.dstream[e] != nullptr) a.dstream[e][q] = dv;
+  }
+  const T dgp2 = gp2 > T(0) ? dgp / (T(2) * gp) : T(0);
+  const T dgm2 = gm2 > T(0) ? dgm / (T(2) * gm) : T(0);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    o.dA[d] = A[d] > T(0) ? dgp2 * (T(2) * A[d]) : (A[d] < T(0) ? dgm2 * (T(2) * A[d]) : T(0));
+    o.dB[d] = B[d] < T(0) ? dgp2 * (T(2) * B[d]) : (B[d] > T(0) ? dgm2 * (T(2) * B[d]) : T(0));
+  }
+  o.dc = dc;
+  o.ham = ham;
+}
+
+// what the Godunov kinds at y send to P[y + k e_d], k in -2..2 (the centre's
+// direct part excluded)
+template <typename T>
+__device__ __forceinline__ T godunov_weight(const GodAdj<T>& o, const LsmStageTerms& p, int d,
+                                            int k) {
+  const T inv_h = T(p.inv_h[d]), half_h = T(p.half_h[d]), inv_hh = T(p.inv_hh[d]);
+  const T dA = o.dA[d], dB = o.dB[d];
+  T w = T(0);
+  // A = (c0 - m1)/h + h/2 minmod(D2--, D2_0); B = (p1 - c0)/h - h/2 minmod(D2++, D2_0)
+  if (k == 0) w = w + dA * inv_h - dB * inv_h;
+  if (k == -1) w = w - dA * inv_h;
+  if (k == 1) w = w + dB * inv_h;
+  if (o.sA[d] != 0) w = w + dA * half_h * inv_hh * d2_coef<T>(o.sA[d] == 1 ? -1 : 0, k);
+  if (o.sB[d] != 0) w = w - dB * half_h * inv_hh * d2_coef<T>(o.sB[d] == 1 ? 1 : 0, k);
+  return w;
+}
+
+// Curvature b kappa |grad phi| at one output: the cotangents of its 3
+// central first, 3 second and 3 mixed differences, and at the centre node H
+// and the stream cotangents.
+template <typename T>
+struct CurvAdj {
+  T dg[3], dhd[3], dhm[3];
+  T ham;
+};
+
+template <typename T>
+__device__ void curvature_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q, T gbar,
+                                  bool centre, CurvAdj<T>& o) {
+  const LsmStageTerms& p = a.tab;
+  const T* P = a.P;
+  const int64_t st[3] = {a.geo.s[0], a.geo.s[1], 1};
+  const int pair[3][2] = {{0, 1}, {0, 2}, {1, 2}};
+  const T c0 = P[c];
+  T g[3], hd[3], hm[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const T plus = P[c + st[d]], minus = P[c - st[d]];
+    g[d] = (plus - minus) * T(p.inv_two_h[d]);
+    hd[d] = (plus - T(2) * c0 + minus) * T(p.inv_hh[d]);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int64_t sa = st[pair[k][0]], sb = st[pair[k][1]];
+    hm[k] = (P[c + sa + sb] - P[c + sa - sb] - P[c - sa + sb] + P[c - sa - sb]) *
+            T(p.inv_hmix[k]);
+  }
+  const T nrmsq = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
+  const T lap = hd[0] + hd[1] + hd[2];
+  T quad = g[0] * g[0] * hd[0];
+  quad = quad + T(2) * g[0] * g[1] * hm[0];
+  quad = quad + T(2) * g[0] * g[2] * hm[1];
+  quad = quad + g[1] * g[1] * hd[1];
+  quad = quad + T(2) * g[1] * g[2] * hm[2];
+  quad = quad + g[2] * g[2] * hd[2];
+  const bool safe = nrmsq >= EpsOf<T>::value();
+  const T ns = safe ? nrmsq : T(1);
+  const T root = tsqrt(ns);
+  const T D = ns * root;
+  const T N = lap * ns - quad;
+  const T kap = safe ? N / D : T(0);
+  const T nrm = nrmsq > T(0) ? tsqrt(nrmsq) : T(0);
+  T dkap = T(0), dnrm = T(0), ham = T(0);
+  for (int e = 0; e < p.n; ++e) {
+    if (p.kind[e] != LSM_TERM_CURVATURE) continue;
+    const bool stream = p.coef[e] == LSM_COEF_STREAM;
+    const T b = stream ? static_cast<const T*>(p.stream[e][0])[q] : T(p.value[e]);
+    // H = (b kappa) |grad|
+    dkap = dkap + gbar * nrm * b;
+    dnrm = dnrm + gbar * (b * kap);
+    if (centre) {
+      ham = ham + b * kap * nrm;
+      if (stream && a.dstream[e] != nullptr) a.dstream[e][q] = gbar * nrm * kap;
+    }
+  }
+  const T dK = safe ? dkap : T(0);
+  const T dN = dK / D;
+  const T dD = -dK * N / (D * D);
+  const T dns = dN * lap + dD * (T(1.5) * root);
+  const T dlap = dN * ns;
+  const T dquad = -dN;
+  const T dnrmsq = (safe ? dns : T(0)) + (nrmsq > T(0) ? dnrm / (T(2) * nrm) : T(0));
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    o.dhd[d] = dquad * (g[d] * g[d]) + dlap;
+    T dgd = dquad * (T(2) * g[d] * hd[d]);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int i = pair[k][0], j = pair[k][1];
+      if (i == d) dgd = dgd + dquad * (T(2) * g[j] * hm[k]);
+      if (j == d) dgd = dgd + dquad * (T(2) * g[i] * hm[k]);
+    }
+    o.dg[d] = dgd + (T(2) * g[d]) * dnrmsq;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) o.dhm[k] = dquad * (T(2) * g[pair[k][0]] * g[pair[k][1]]);
+  o.ham = ham;
+}
+
+constexpr int kTermsX = 64;
+constexpr int kTermsY = 4;
+
+__host__ __device__ inline dim3 terms_grid(const Geom& g) {
+  return dim3(static_cast<unsigned>((g.S[2] + kTermsX - 1) / kTermsX),
+              static_cast<unsigned>((g.S[1] + kTermsY - 1) / kTermsY),
+              static_cast<unsigned>(g.S[0]));
+}
+
+__device__ __forceinline__ bool inside3(const int64_t* X, const Geom& G) {
+  return inside(X[0], G.n[0]) && inside(X[1], G.n[1]) && inside(X[2], G.n[2]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTermsX* kTermsY)
+    stage_bwd_terms_kernel(const __grid_constant__ TermsBwdArgs<T> a) {
+  const Geom& G = a.geo;
+  const LsmStageTerms& p = a.tab;
+  const int64_t k = int64_t(blockIdx.x) * kTermsX + threadIdx.x;
+  const int64_t j = int64_t(blockIdx.y) * kTermsY + threadIdx.y;
+  const int64_t i = blockIdx.z;
+  const int64_t st[3] = {G.s[0], G.s[1], 1};
+  const int pair[3][2] = {{0, 1}, {0, 2}, {1, 2}};
+  const T neg_gamma = -T(p.gamma);
+  auto qidx = [&](const int64_t* Y) {
+    return ((Y[0] - LSM_GHOST) * G.n[1] + (Y[1] - LSM_GHOST)) * G.n[2] + (Y[2] - LSM_GHOST);
+  };
+  double sg = 0.0, sb = 0.0, sa = 0.0;
+  if (k < G.S[2] && j < G.S[1]) {
+    const int64_t X[3] = {i, j, k};
+    const int64_t x = i * st[0] + j * st[1] + k;
+    T acc = T(0);
+    if (inside3(X, G)) {
+      const int64_t q = qidx(X);
+      const T gv = a.g[x];
+      const T gbar = neg_gamma * gv;
+      acc = T(p.beta) * gv;
+      T ham = T(0);
+      if (a.has_godunov) {
+        GodAdj<T> o;
+        godunov_adjoint(a, x, q, gbar, true, o);
+        acc = acc + (godunov_weight(o, p, 0, 0) + godunov_weight(o, p, 1, 0) +
+                     godunov_weight(o, p, 2, 0) + o.dc);
+        ham = ham + o.ham;
+      }
+      if (a.has_curvature) {
+        CurvAdj<T> o;
+        curvature_adjoint(a, x, q, gbar, true, o);
+        acc = acc - T(2) * (o.dhd[0] * T(p.inv_hh[0]) + o.dhd[1] * T(p.inv_hh[1]) +
+                            o.dhd[2] * T(p.inv_hh[2]));
+        ham = ham + o.ham;
+      }
+      if (a.daux != nullptr) a.daux[x] = T(p.alpha) * gv;
+      sg = double(gv) * double(ham);
+      sb = double(gv) * double(a.P[x]);
+      if (a.aux != nullptr) sa = double(gv) * double(a.aux[x]);
+    }
+    // outputs along each axis: +-1 (both kinds) and +-2 (Godunov kinds)
+    for (int d = 0; d < 3; ++d) {
+      for (int kk = -2; kk <= 2; ++kk) {
+        if (kk == 0) continue;
+        const bool near = kk == 1 || kk == -1;
+        if (!a.has_godunov && !near) continue;
+        int64_t Y[3] = {X[0], X[1], X[2]};
+        Y[d] -= kk;
+        if (!inside3(Y, G)) continue;
+        const int64_t y = x - kk * st[d], q = qidx(Y);
+        const T gbar = neg_gamma * a.g[y];
+        if (a.has_godunov) {
+          GodAdj<T> o;
+          godunov_adjoint(a, y, q, gbar, false, o);
+          acc = acc + godunov_weight(o, p, d, kk);
+        }
+        if (a.has_curvature && near) {
+          CurvAdj<T> o;
+          curvature_adjoint(a, y, q, gbar, false, o);
+          const T dg = o.dg[d] * T(p.inv_two_h[d]);
+          acc = acc + ((kk == 1 ? dg : -dg) + o.dhd[d] * T(p.inv_hh[d]));
+        }
+      }
+    }
+    // curvature's mixed differences: the 12 edge neighbours
+    if (a.has_curvature) {
+      for (int m = 0; m < 3; ++m) {
+        const int da = pair[m][0], db = pair[m][1];
+        for (int sa_ = -1; sa_ <= 1; sa_ += 2) {
+          for (int sb_ = -1; sb_ <= 1; sb_ += 2) {
+            int64_t Y[3] = {X[0], X[1], X[2]};
+            Y[da] -= sa_;
+            Y[db] -= sb_;
+            if (!inside3(Y, G)) continue;
+            const int64_t y = x - sa_ * st[da] - sb_ * st[db];
+            CurvAdj<T> o;
+            curvature_adjoint(a, y, qidx(Y), neg_gamma * a.g[y], false, o);
+            const T w = o.dhm[m] * T(p.inv_hmix[m]);
+            acc = acc + (sa_ * sb_ > 0 ? w : -w);
+          }
+        }
+      }
+    }
+    a.dP[x] = acc;
+  }
+  __shared__ double red[3][kTermsX * kTermsY / 32];
+  sg = block_sum<kTermsX * kTermsY>(sg, red[0]);
+  sb = block_sum<kTermsX * kTermsY>(sb, red[1]);
+  sa = block_sum<kTermsX * kTermsY>(sa, red[2]);
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    const int64_t bid = int64_t(blockIdx.x) + int64_t(gridDim.x) *
+                        (int64_t(blockIdx.y) + int64_t(gridDim.y) * blockIdx.z);
+    a.part[3 * bid] = sg;
+    a.part[3 * bid + 1] = sb;
+    a.part[3 * bid + 2] = sa;
+  }
+}
+
+// out = (dalpha, dbeta, dgamma) from K3''s per-block partials
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+    stage_bwd_terms_reduce_kernel(const double* part, int64_t nb, T* out) {
+  __shared__ double red[3][kReduceThreads / 32];
+  const double sg = strided_sum(part, nb, 3, 0, red[0]);
+  const double sb = strided_sum(part, nb, 3, 1, red[1]);
+  const double sa = strided_sum(part, nb, 3, 2, red[2]);
+  if (threadIdx.x == 0) {
+    out[0] = T(sa);
+    out[1] = T(sb);
+    out[2] = T(-sg);
+  }
+}
+
+template <typename T>
+int launch_stage_bwd_terms(const void* P, const void* g, const void* aux, void* dP, void* daux,
+                           void* part, void* dcoef, int64_t n0, int64_t n1, int64_t n2,
+                           const LsmStageTerms* terms, const void* const* dstreams,
+                           void* stream_) {
+  if (terms->n < 1 || terms->n > LSM_MAX_TERMS) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  TermsBwdArgs<T> a;
+  a.P = static_cast<const T*>(P);
+  a.g = static_cast<const T*>(g);
+  a.aux = static_cast<const T*>(aux);
+  a.dP = static_cast<T*>(dP);
+  a.daux = static_cast<T*>(daux);
+  a.part = static_cast<double*>(part);
+  a.geo = make_geom(n0, n1, n2);
+  a.tab = *terms;
+  a.has_godunov = 0;
+  a.has_curvature = 0;
+  for (int e = 0; e < LSM_MAX_TERMS; ++e) {
+    a.dstream[e] = e < terms->n ? static_cast<T*>(const_cast<void*>(dstreams[e])) : nullptr;
+    if (e >= terms->n) continue;
+    if (terms->kind[e] == LSM_TERM_NORMAL || terms->kind[e] == LSM_TERM_EIKONAL)
+      a.has_godunov = 1;
+    if (terms->kind[e] == LSM_TERM_CURVATURE) a.has_curvature = 1;
+  }
+  const dim3 grid = terms_grid(a.geo);
+  stage_bwd_terms_kernel<T><<<grid, dim3(kTermsX, kTermsY, 1), 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stage_bwd_terms_reduce_kernel<T><<<1, kReduceThreads, 0, stream>>>(
+      a.part, nblocks(grid), static_cast<T*>(dcoef));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -472,10 +935,10 @@ extern "C" int lsm_stage_bwd_f32(const void* P, const void* g, const void* u0, c
                                  void* du1, void* du2, void* daux, void* part, void* dcoef,
                                  int64_t n0, int64_t n1, int64_t n2, double inv_h0,
                                  double inv_h1, double inv_h2, double alpha, double beta,
-                                 double gamma, void* stream) {
+                                 double gamma, int accumulate, void* stream) {
   return launch_stage_bwd<float>(P, g, u0, u1, u2, aux, dP, du0, du1, du2, daux, part, dcoef,
                                  n0, n1, n2, inv_h0, inv_h1, inv_h2, alpha, beta, gamma,
-                                 stream);
+                                 accumulate, stream);
 }
 
 extern "C" int lsm_stage_bwd_f64(const void* P, const void* g, const void* u0, const void* u1,
@@ -483,8 +946,28 @@ extern "C" int lsm_stage_bwd_f64(const void* P, const void* g, const void* u0, c
                                  void* du1, void* du2, void* daux, void* part, void* dcoef,
                                  int64_t n0, int64_t n1, int64_t n2, double inv_h0,
                                  double inv_h1, double inv_h2, double alpha, double beta,
-                                 double gamma, void* stream) {
+                                 double gamma, int accumulate, void* stream) {
   return launch_stage_bwd<double>(P, g, u0, u1, u2, aux, dP, du0, du1, du2, daux, part,
                                   dcoef, n0, n1, n2, inv_h0, inv_h1, inv_h2, alpha, beta,
-                                  gamma, stream);
+                                  gamma, accumulate, stream);
+}
+
+extern "C" int64_t lsm_stage_bwd_terms_scratch(int64_t n0, int64_t n1, int64_t n2) {
+  return 3 * nblocks(terms_grid(make_geom(n0, n1, n2)));
+}
+
+extern "C" int lsm_stage_bwd_terms_f32(const void* P, const void* g, const void* aux, void* dP,
+                                       void* daux, void* part, void* dcoef, int64_t n0,
+                                       int64_t n1, int64_t n2, const LsmStageTerms* terms,
+                                       const void* const* dstreams, void* stream) {
+  return launch_stage_bwd_terms<float>(P, g, aux, dP, daux, part, dcoef, n0, n1, n2, terms,
+                                       dstreams, stream);
+}
+
+extern "C" int lsm_stage_bwd_terms_f64(const void* P, const void* g, const void* aux, void* dP,
+                                       void* daux, void* part, void* dcoef, int64_t n0,
+                                       int64_t n1, int64_t n2, const LsmStageTerms* terms,
+                                       const void* const* dstreams, void* stream) {
+  return launch_stage_bwd_terms<double>(P, g, aux, dP, daux, part, dcoef, n0, n1, n2, terms,
+                                        dstreams, stream);
 }

@@ -229,7 +229,8 @@ class LevelSetEquation:
 
     def _integrate_general(self, tf, dt_max, prehook, posthook, max_steps):
         """Host loop over the general path (``rhs`` + RK stages), re-tubing a
-        band field after every step."""
+        band field after every step. As in JAX, a run without hooks raises on
+        a non-finite state and a hooked run returns it as it is."""
         alpha = self.integrator.cfl
         eps = self._eps(tf)
         while self.t <= tf - eps:
@@ -247,7 +248,8 @@ class LevelSetEquation:
             self.last_nsteps += 1
             if posthook is not None:
                 posthook(self)
-        self._check_finite()
+        if prehook is None and posthook is None:
+            self._check_finite()
         if self.t > tf - eps:
             self.t = tf
         return self

@@ -1,7 +1,9 @@
-"""Geometric queries on level-set fields (port of part of
+"""Geometric queries and CSG on level-set fields (port of
 :mod:`lsm_tpu.geometry.queries`): smoothed Heaviside and delta, volume,
-perimeter, and the centered-difference gradient, gradient norm, Hessian and
-mean curvature on a padded tensor."""
+perimeter, the centered-difference gradient, gradient norm, unit normal,
+Hessian and mean curvature of a field (and of a padded tensor), and min/max
+constructive solid geometry. Plain torch: the JAX package has no kernel
+here."""
 
 from __future__ import annotations
 
@@ -22,6 +24,15 @@ __all__ = [
     "grad_norm_from_padded",
     "hessian_from_padded",
     "curvature_from_padded",
+    "gradient",
+    "grad_norm",
+    "normal",
+    "hessian",
+    "curvature",
+    "union",
+    "intersection",
+    "complement",
+    "difference",
 ]
 
 
@@ -102,6 +113,67 @@ def curvature_from_padded(p, spacing, g, shape) -> torch.Tensor:
     nrmsq_safe = torch.where(safe, nrmsq, 1.0)
     kappa = (lap * nrmsq_safe - quad) / nrmsq_safe ** 1.5
     return torch.where(safe, kappa, 0.0)
+
+
+def _padded(phi: MeshField, width: int):
+    _check_scalar(phi)
+    return phi.pad(width)
+
+
+def gradient(phi: MeshField) -> torch.Tensor:
+    """Centered-difference gradient, stacked on a leading component axis."""
+    p = _padded(phi, st.PAD_D0)
+    return torch.stack(gradient_from_padded(p, phi.spacing, st.PAD_D0, phi.shape))
+
+
+def grad_norm(phi: MeshField) -> torch.Tensor:
+    p = _padded(phi, st.PAD_D0)
+    return grad_norm_from_padded(p, phi.spacing, st.PAD_D0, phi.shape)
+
+
+def normal(phi: MeshField, min_norm: float = 0.0) -> torch.Tensor:
+    """Unit exterior normal ``grad(phi)/|grad(phi)|`` (leading component
+    axis); ``min_norm > 0`` bounds the divisor from below."""
+    g = gradient(phi)
+    nrm = torch.sqrt(torch.sum(g * g, dim=0))
+    if min_norm > 0:
+        nrm = torch.maximum(nrm, nrm.new_tensor(min_norm))
+    return g / nrm
+
+
+def hessian(phi: MeshField) -> torch.Tensor:
+    """Dense symmetric Hessian, shape ``(ndim, ndim, *grid.shape)``."""
+    p = _padded(phi, st.PAD_D0)
+    H = hessian_from_padded(p, phi.spacing, st.PAD_D0, phi.shape)
+    n = phi.ndim
+    return torch.stack([torch.stack([H[(min(i, j), max(i, j))] for j in range(n)])
+                        for i in range(n)])
+
+
+def curvature(phi: MeshField) -> torch.Tensor:
+    """Mean curvature (:func:`curvature_from_padded`)."""
+    p = _padded(phi, st.PAD_D0)
+    return curvature_from_padded(p, phi.spacing, st.PAD_D0, phi.shape)
+
+
+def union(phi1: MeshField, phi2: MeshField) -> MeshField:
+    """Union of the enclosed domains: ``min(phi1, phi2)``."""
+    return phi1.with_values(torch.minimum(phi1.values, phi2.values))
+
+
+def intersection(phi1: MeshField, phi2: MeshField) -> MeshField:
+    """Intersection of the enclosed domains: ``max(phi1, phi2)``."""
+    return phi1.with_values(torch.maximum(phi1.values, phi2.values))
+
+
+def complement(phi: MeshField) -> MeshField:
+    """Complement of the enclosed domain: ``-phi``."""
+    return phi.with_values(-phi.values)
+
+
+def difference(phi1: MeshField, phi2: MeshField) -> MeshField:
+    """Set difference: ``max(phi1, -phi2)``."""
+    return phi1.with_values(torch.maximum(phi1.values, -phi2.values))
 
 
 def _check_scalar(phi: MeshField):

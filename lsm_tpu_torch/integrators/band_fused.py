@@ -28,6 +28,16 @@ value. The port therefore dispatches the active tiles of this step and of
 the step before (``disp = act | previous act``): a tile that has just left
 the band is visited once more, where every node is off the compute band, so
 each buffer the step writes takes the current value there.
+
+Gradients. When the state or a coefficient requires a gradient, every stage
+is :func:`~lsm_tpu_torch.ops.band.band_step_stage`: K6 and K7 into a copy of
+the rotation's target (autograd cannot save a buffer that a later stage
+writes), backward by autograd of the plain band composite. The tile-packed
+streams are gathered from the dense coefficients by tracked indexing, again
+at each re-tube, so a coefficient's gradient reaches its dense tensor. The
+re-tube (K8), the activity, the dispatch list and the K7 gates carry no
+gradient, as in JAX; under a gradient K8 re-tubes a copy of the band, so a
+checkpointed step recomputes the same masks.
 """
 
 from __future__ import annotations
@@ -52,10 +62,6 @@ __all__ = ["BandState", "FusedBandStepper", "supports_band_fused", "unsupported_
 SLACK = 1.5
 #: ``regrow`` multiplies the capacity by this
 REGROW = 2
-
-_BAND_BACKWARD = ("a gradient through the narrow-band stepper is not ported yet "
-                  "(ROADMAP.md queue 1, item 11, band backward)")
-
 
 class BandState(NamedTuple):
     """The band stepper's state (all on the field's device)."""
@@ -226,48 +232,49 @@ class FusedBandStepper:
 
     def stage_terms(self, state: BandState, t):
         """K6's term list at time ``t``, every stream tile-packed (a callable
-        is evaluated at the dispatched nodes; the last evaluation is kept, so
-        the CFL bound at ``t`` and the step's first stage share one). Raises
-        ``NotImplementedError`` when a coefficient needs a gradient: the
-        stepper's buffers are written in place and carry none."""
+        is evaluated at the dispatched nodes; the last evaluation is kept
+        unless it carries a gradient, so the CFL bound at ``t`` and the
+        step's first stage share one)."""
         terms = tuple((spec, arrs) for (spec, _), arrs in zip(self.entries, state.coefs))
-        if self._analytic:
-            c = self._cache
-            if c is None or c[0] != float(t) or c[1] is not state.xs:
-                packed = (self.capacity, *self.tiles)
-                c = self._cache = (float(t), state.xs, v2.resolve_terms(
-                    terms, state.xs, t, packed, self.dtype, self.device))
-            terms = c[2]
-        if torch.is_grad_enabled() and any(a.requires_grad for _, arrs in terms for a in arrs):
-            raise NotImplementedError(_BAND_BACKWARD)
+        if not self._analytic:
+            return terms
+        c = self._cache
+        if c is not None and c[0] == float(t) and c[1] is state.xs:
+            return c[2]
+        terms = v2.resolve_terms(terms, state.xs, t, (self.capacity, *self.tiles), self.dtype,
+                                 self.device)
+        if not any(a.requires_grad for _, arrs in terms for a in arrs):
+            self._cache = (float(t), state.xs, terms)
         return terms
 
-    def stage(self, src, dst, state, coeffs, t_stage, aux):
-        """K6 from ``src`` into ``dst``, then K7 on ``dst``."""
-        bd.band_stage(src, dst, state.ids, state.band, self.stage_terms(state, t_stage), coeffs,
-                      aux, self.spacing, self.shape, self.tiles)
-        return bd.refresh_band_ghosts_fast(dst, self.bcs, self.shape, state.flags)
+    def stage(self, src, dst, state, coeffs, t_stage, aux, coeff_values=None):
+        """K6 from ``src`` into ``dst``, then K7 on ``dst``; in place, or
+        into a copy of ``dst`` when a gradient is needed
+        (:func:`~lsm_tpu_torch.ops.band.band_step_stage`)."""
+        return bd.band_step_stage(src, dst, state.ids, state.band, state.flags,
+                                  self.stage_terms(state, t_stage), coeffs, aux, self.bcs,
+                                  self.spacing, self.shape, self.tiles, coeff_values)
 
-    def step(self, state: BandState, t, dt, retube: bool = True) -> BandState:
+    def step(self, state: BandState, t, dt, retube: bool = True, dt_value=None) -> BandState:
         """One accepted step; ``retube=False`` keeps the band (valid only
-        within ``retube_every``)."""
-        t, dt = float(t), float(dt)
+        within ``retube_every``). ``t`` and ``dt`` may be tensors (the stage
+        coefficients and a callable coefficient then carry their
+        gradients); the kernels take ``dt_value`` (default ``float(dt)``)."""
+        dtv = float(dt) if dt_value is None else float(dt_value)
         bufs = state.bufs
         A = bufs[0]
-        if len(self.stages) == 1:
-            cur = self.stage(A, bufs[1], state, (0.0, 1.0, dt), t, None)
-            new = (cur, A)
-        else:
-            B, C = bufs[1], bufs[2]
-            cur, spare = B, C
-            src = A
-            for s, (alpha, beta, g, off) in enumerate(self.stages):
-                dst = (B, C)[s % 2]
-                cur = self.stage(src, dst, state, (alpha, beta, g * dt), t + off * dt,
-                                 None if s == 0 else A)
-                src = cur
-            spare = C if cur is B else B
-            new = (cur, A, spare)
+        # the rotation's targets; a differentiated stage returns a new tensor
+        # in place of its target, which later stages then write
+        targets = list(bufs[1:])
+        src = A
+        for s, (alpha, beta, g, off) in enumerate(self.stages):
+            k = s % 2
+            targets[k] = self.stage(src, targets[k], state, (alpha, beta, g * dt),
+                                    t + off * dt, None if s == 0 else A,
+                                    coeff_values=(alpha, beta, g * dtv))
+            src = targets[k]
+        last = (len(self.stages) - 1) % 2
+        new = (targets[last], A) + ((targets[1 - last],) if len(targets) == 2 else ())
         if not retube:
             return state._replace(bufs=new)
         return self._retube(state, new)
@@ -278,6 +285,8 @@ class FusedBandStepper:
         rebuild the dispatch for the new activity and the one before."""
         cur = bufs[0]
         band = state.band
+        if torch.is_grad_enabled() and cur.requires_grad:
+            band = band.clone()  # a stage of this step saved it for its backward
         if self.incremental:
             # the candidate list holds every tile of the grid, so it cannot
             # overflow (K8's stash: one byte per node of the tile grid)

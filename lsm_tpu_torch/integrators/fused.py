@@ -5,7 +5,7 @@ The level set lives in the padded buffer between steps; each RK stage is one
 K1 pass (:func:`~lsm_tpu_torch.ops.weno_v2.fused_stage`) plus one K2 shell
 refresh (:func:`~lsm_tpu_torch.ops.weno_v2.refresh_ghosts_fast`), wrapped in
 :func:`~lsm_tpu_torch.ops.weno_v2.fused_step_stage` so that a step is
-differentiable (backward: K4, K3, K5). On CUDA tensors those are the
+differentiable (backward: K4, K3 or K3', K5). On CUDA tensors those are the
 hand-written kernels; on CPU tensors their plain versions, which drive the
 same control flow. One stepper serves ``integrate`` and ``rollout``.
 
@@ -16,9 +16,8 @@ of the fused stage's kinds: WENO5 :class:`AdvectionTerm`,
 coefficient is a ``MeshField`` or tensor (streamed), a number (a constant of
 the kernel) or a callable ``f(xs, t)`` (evaluated into streamed tensors at
 each stage time, at the kernel's node coordinates ``lo + i*h``). A gradient
-runs K4, K3, K5 for one streamed advection term and autograd through the
-plain stage on the CPU for other lists; on CUDA those raise
-(:func:`gradient_reason`).
+runs K4, K3 (one streamed advection term) or K3' (any other list) and K5; on
+CUDA a 2D field's gradient raises (:func:`gradient_reason`).
 
 A 2D field rides the 3D kernels as ``(1, n0, n1)``: the dummy axis 0 has
 ``Extrapolation(0)`` ghosts (copies of its one node), so every difference
@@ -243,9 +242,8 @@ def term_entries(terms, phi: MeshField):
 
 def gradient_reason(terms, phi: MeshField) -> Optional[str]:
     """Why a gradient through the fused stepper of ``terms`` cannot run on
-    CUDA, naming the ROADMAP item; ``None`` when it can (one WENO5
-    advection term, streamed or callable, on a 3D field whose axes K4 folds:
-    K4, K3, K5)."""
+    CUDA, naming the ROADMAP item; ``None`` when it can: any term list the
+    stepper takes (K4, K3 or K3', K5), on a 3D field whose axes K4 folds."""
     terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)
     if phi.ndim != 3 or min(phi.shape) < v2.GHOST + 1:
         return ("a gradient through the fused stage on an axis of fewer than "

@@ -6,20 +6,21 @@
 - :func:`rollout` — ``nsteps`` fixed steps, differentiable with
   ``torch.autograd``: on a configuration the fused stepper takes (dense 3D
   or 2D), every stage is :func:`~lsm_tpu_torch.ops.weno_v2.fused_step_stage`
-  (forward K1 + K2, backward K4, K3, K5 for one WENO5 advection term), on
-  the card and on the CPU alike. Other term lists differentiate through the
-  plain stage on the CPU; on CUDA their gradient raises (ROADMAP queue 2, K3
-  term kinds), as does a gradient through the 2D embedding (2D gradient).
+  (forward K1 + K2, backward K4, then K3 for one WENO5 advection term or K3'
+  for any other term list, then K5), on the card and on the CPU alike. On
+  CUDA a gradient through the 2D embedding raises (2D gradient).
   ``fast="off"`` and the configurations the steppers do not take run the
   general path (:meth:`TimeIntegrator.advance`: K10/K11 forward for one
   WENO5 advection term, the plain VJP backward), differentiable everywhere.
 
 A :class:`~lsm_tpu_torch.core.narrowband.NarrowBandField` re-tubes after
-every step. On the card its rollout runs the band stepper (K6, K7, K8),
-forward only: its buffers are written in place and carry no autograd, so a
-band rollout through it that needs a gradient on CUDA raises; with
-``fast="off"`` it takes the general path. On the CPU a band takes the
-general path, differentiable through torch autograd.
+every step. On the card its rollout runs the band stepper (K6, K7, K8 in the
+forward); under a gradient each stage is
+:func:`~lsm_tpu_torch.ops.band.band_step_stage`, whose backward is autograd
+of the plain band composite (as JAX's is ``jax.vjp`` of its dense
+composite), and the re-tube stays out of the graph. With ``fast="off"`` it
+takes the general path. On the CPU a band takes the general path,
+differentiable through torch autograd.
 
 ``remat`` wraps each step in ``torch.utils.checkpoint`` (non-reentrant), so a
 differentiated rollout keeps one step-input buffer per step and recomputes
@@ -78,20 +79,25 @@ def _scan_steps(step_fn, carry, nsteps: int, remat: bool, remat_chunk: Optional[
 
 
 def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: int,
-            remat: bool = True, remat_chunk: Optional[int] = None, fast: str = "auto"):
+            unroll: int = 1, fast: str = "auto", remat: bool = True,
+            remat_chunk: Optional[int] = None):
     """``nsteps`` steps of size ``dt`` from ``t0``; returns ``(phi, terms)``.
+    The parameters are JAX's, in JAX's order.
 
-    Differentiable: gradients flow to ``phi.values``, a streamed velocity,
-    and ``t0``/``dt`` when they are tensors that require them (through the
-    stage coefficients and a callable velocity's own graph). A tensor ``dt``
-    is read back once per call, for the kernels' coefficients.
+    Differentiable: gradients flow to ``phi.values``, a streamed
+    coefficient, and ``t0``/``dt`` when they are tensors that require them
+    (through the stage coefficients and a callable coefficient's own graph).
+    A tensor ``dt`` is read back once per call, for the kernels'
+    coefficients.
 
-    ``fast="auto"`` takes the fused stepper when the configuration qualifies
-    (dense 3D or 2D, terms of the fused stage's kinds, FE/RK2/RK3), on the
-    card and on the CPU, and the band stepper for a CUDA band; ``fast="off"``
-    and other configurations take the general path. On CUDA a configuration
-    JAX takes on its fused path and this port does not yet raises
-    ``NotImplementedError``, as does a gradient the card cannot run
+    ``unroll`` is accepted and ignored: JAX unrolls its ``lax.scan``; here
+    the steps are a Python loop. ``fast="auto"`` takes the fused stepper
+    when the configuration qualifies (dense 3D or 2D, terms of the fused
+    stage's kinds, FE/RK2/RK3), on the card and on the CPU, and the band
+    stepper for a CUDA band; ``fast="off"`` and other configurations take
+    the general path. On CUDA a configuration JAX takes on its fused path
+    and this port does not yet raises ``NotImplementedError``, as does a
+    gradient the card cannot run
     (:func:`~lsm_tpu_torch.integrators.fused.gradient_reason`). ``remat``
     and ``remat_chunk`` as in the module docstring.
     """
@@ -106,7 +112,7 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
                                                                            integrator)
         if reason is None:
             if band:
-                return _band_rollout(integrator, terms, phi, t0, dt, nsteps)
+                return _band_rollout(integrator, terms, phi, t0, dt, nsteps, remat, remat_chunk)
             return _fused_rollout(integrator, terms, phi, t0, dt, nsteps, remat, remat_chunk)
         if cuda and pending(reason):
             raise NotImplementedError(reason)
@@ -137,9 +143,10 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
 
 
 def _fused_rollout(integrator, terms, phi, t0, dt, nsteps, remat, remat_chunk):
-    """The fused stepper's rollout; on CUDA a gradient it cannot run is
-    refused before any stage runs (a callable that closes over a parameter
-    is caught at its first stage)."""
+    """The fused stepper's rollout; on CUDA a gradient it cannot run (the
+    2D embedding's) is refused before any stage runs (a callable that closes
+    over a parameter reaches K4 in the backward, which refuses the
+    embedding's length-1 axis)."""
     stepper = FusedStepper(terms, phi, integrator)
     if phi.values.is_cuda and _needs_grad(stepper, phi, t0, dt):
         why = gradient_reason(terms, phi)
@@ -166,22 +173,24 @@ def _needs_grad(stepper, phi, t0, dt) -> bool:
         isinstance(x, torch.Tensor) and x.requires_grad for x in (phi.values, t0, dt, *streams))
 
 
-def _band_rollout(integrator, terms, phi, t0, dt, nsteps):
-    """A CUDA band rollout: the band stepper, forward only, re-tubing every
-    step with a dispatch list as large as the tile grid (so it cannot
-    overflow and nothing is read back)."""
-    # the stepper refuses a velocity that needs a gradient where it reads
-    # one (a streamed tensor, or a callable's values, whatever they close over)
-    if torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
-                                       for x in (phi.values, t0, dt)):
-        raise NotImplementedError(_band._BAND_BACKWARD)
+def _band_rollout(integrator, terms, phi, t0, dt, nsteps, remat=True, remat_chunk=None):
+    """A CUDA band rollout: the band stepper, re-tubing every step with a
+    dispatch list as large as the tile grid (so it cannot overflow and
+    nothing is read back). Under a gradient every stage is differentiable
+    and each step is checkpointed when ``remat`` (counterpart of JAX's
+    ``_fused_rollout`` on a band, capacity = all tiles); the re-tube
+    recomputes the same masks in the backward (K8 is bit-equal to its plain
+    version, and the stepper re-tubes a copy of the band). ``t0`` and ``dt``
+    may be tensors."""
     total = math.prod(tile_grid(phi.shape, _band.default_tiles(phi.nlayers)))
     stepper = _band.FusedBandStepper(terms, phi, integrator, capacity=total)
-    state = stepper.pack(phi)
-    t, dt = float(t0), float(dt)
-    for _ in range(nsteps):
-        state = stepper.step(state, t, dt)
-        t += dt
+    dt_value = _host(dt)
+
+    def band_step(c):
+        state, t = c
+        return stepper.step(state, t, dt, dt_value=dt_value), t + dt
+
+    state, _ = _scan_steps(band_step, (stepper.pack(phi), t0), nsteps, remat, remat_chunk)
     return stepper.unpack(state, check=False), terms
 
 

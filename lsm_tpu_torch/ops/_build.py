@@ -20,7 +20,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "find_nvcc", "compile_library", "load_library", "Library"]
+__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "find_nvcc", "compile_library", "load_library", "Library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -30,6 +30,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: flags of one source only: the stage adjoints K3 and K3' round every
+#: product and sum on its own, so nothing there may contract into an FMA
+SOURCE_FLAGS = {"stage_backward.cu": ("-fmad=false",)}
 
 
 def find_nvcc() -> str:
@@ -53,7 +56,7 @@ def _sources():
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(sorted(SOURCE_FLAGS.items())).encode())
     for p in sorted(CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -90,8 +93,8 @@ def compile_library(out: Path, nvcc: str) -> str:
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out.parent) as objdir:
         objs = {src: str(Path(objdir) / f"{src.stem}.o") for src in _sources()}
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
-                        for src, obj in objs.items()])
+        log = _run_all([[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-I", str(CSRC),
+                         "-c", "-o", obj, str(src)] for src, obj in objs.items()])
         tmp = Path(objdir) / out.name
         log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs.values()]])
         os.replace(tmp, out)
@@ -102,6 +105,7 @@ class Library:
     """The loaded kernel library: ``stage_f32/f64`` and ``stage_terms_f32/f64``
     (K1, advection-only and term-list entries), ``refresh_f32/f64``
     (K2), ``stage_bwd_f32/f64`` and ``stage_bwd_scratch`` (K3),
+    ``stage_bwd_terms_f32/f64`` and ``stage_bwd_terms_scratch`` (K3'),
     ``fold_f32/f64`` (K4), ``zero_shells_f32/f64`` (K5),
     ``band_stage_f32/f64`` and ``band_stage_terms_f32/f64`` (K6),
     ``band_refresh_f32/f64`` (K7),
@@ -117,7 +121,8 @@ class Library:
         vp, i64, f64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, ctypes.c_int
         stage_args = [vp] * 6 + [i64] * 3 + [f64] * 6 + [vp]
         ghost_args = [vp] + [i64] * 3 + [vp] * 3 + [vp]
-        bwd_args = [vp] * 13 + [i64] * 3 + [f64] * 6 + [vp]
+        bwd_args = [vp] * 13 + [i64] * 3 + [f64] * 6 + [ci, vp]
+        bwd_terms_args = [vp] * 7 + [i64] * 3 + [vp] * 3
         zero_args = [vp] + [i64] * 3 + [vp]
         band_stage_args = [vp] * 8 + [i64] * 7 + [f64] * 6 + [vp]
         band_ghost_args = [vp] + [i64] * 3 + [vp] * 4 + [vp]
@@ -131,6 +136,7 @@ class Library:
                  "stage_terms": ("lsm_weno_stage_terms", terms_args),
                  "refresh": ("lsm_refresh_ghosts", ghost_args),
                  "stage_bwd": ("lsm_stage_bwd", bwd_args),
+                 "stage_bwd_terms": ("lsm_stage_bwd_terms", bwd_terms_args),
                  "fold": ("lsm_fold_ghosts", ghost_args),
                  "zero_shells": ("lsm_zero_shells", zero_args),
                  "band_stage": ("lsm_band_stage", band_stage_args),
@@ -143,9 +149,11 @@ class Library:
                 fn.argtypes = args
                 fn.restype = ci
                 setattr(self, f"{attr}_{suffix}", fn)
-        lib.lsm_stage_bwd_scratch.argtypes = [i64] * 3
-        lib.lsm_stage_bwd_scratch.restype = i64
-        self.stage_bwd_scratch = lib.lsm_stage_bwd_scratch
+        for name in ("stage_bwd_scratch", "stage_bwd_terms_scratch"):
+            fn = getattr(lib, f"lsm_{name}")
+            fn.argtypes = [i64] * 3
+            fn.restype = i64
+            setattr(self, name, fn)
         lib.lsm_band_retube_smem.argtypes = [i64] * 5
         lib.lsm_band_retube_smem.restype = i64
         self.band_retube_smem = lib.lsm_band_retube_smem

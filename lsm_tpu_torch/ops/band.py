@@ -24,6 +24,11 @@ the on-card comparison in ``chip_smoke.py``):
   device flags.
 - :func:`band_retube_incremental` (K8, ``csrc/band_retube.cu``; plain
   :func:`band_retube_plain`): the re-tube recomputed on candidate tiles only.
+- :func:`band_step_stage` is K6 + K7 as a ``torch.autograd.Function`` into
+  a fresh buffer, whose backward is autograd of the plain composite
+  :func:`band_stage_refresh_plain` (JAX's band stage is a ``custom_vjp``
+  whose backward is ``jax.vjp`` of its dense composite: there is no TPU
+  kernel of the band adjoint).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises, and counts its launches in ``launches`` (K6
@@ -58,6 +63,8 @@ __all__ = [
     "band_stage_plain",
     "band_stage",
     "band_stage_reference",
+    "band_stage_refresh_plain",
+    "band_step_stage",
     "refresh_band_ghosts_plain",
     "refresh_band_ghosts_fast",
     "retube_full",
@@ -286,25 +293,126 @@ band_stage.kinds_launches = 0  # of the launches, those of the term-list entry
 
 
 def band_stage_reference(padded, out_init, compute_mask, term_specs_and_streams, coeffs, t,
-                         aux_padded, bcs, spacing, shape, lo, tiles) -> torch.Tensor:
+                         aux_padded, bcs, spacing, shape, lo, tiles, ids=None) -> torch.Tensor:
     """Plain oracle (counterpart of ``lsm_tpu.ops.band_pallas.
     band_stage_reference``): the dense stage (ghosts rebuilt from the
     interior, dense streams or a callable at node coordinates) masked to
     (compute band and active tile); other nodes of an active tile keep
-    ``padded``'s value, the rest ``out_init``'s. Returns a new padded buffer
-    whose shells are ``out_init``'s."""
+    ``padded``'s value, the rest ``out_init``'s. The active tiles are those
+    holding compute-band nodes, or, given the dispatch list ``ids``, the
+    dispatched ones (the stepper's, which adds the tiles of the step
+    before). Returns a new padded buffer whose shells are ``out_init``'s."""
     shape = tuple(shape)
     dense = v2.stage_reference(padded, term_specs_and_streams, coeffs, t, aux_padded, bcs,
                                spacing, shape, lo)
     cm = compute_mask != 0
-    act = dispatched_cells(active_tile_ids(cm, tiles, math.prod(tile_grid(shape, tiles)))[0],
-                           shape, tiles)
+    if ids is None:
+        ids = active_tile_ids(cm, tiles, math.prod(tile_grid(shape, tiles)))[0]
+    act = dispatched_cells(ids, shape, tiles)
     prev = v2.unpack_padded(padded, shape)
     new = torch.where(act & cm, dense,
                       torch.where(act, prev, v2.unpack_padded(out_init, shape)))
     out = out_init.clone()
     v2.unpack_padded(out, shape).copy_(new)
     return out
+
+
+def band_stage_refresh_plain(P, out_init, ids, band, terms, coeffs, aux, bcs, spacing, shape,
+                             tiles) -> torch.Tensor:
+    """The plain band composite (counterpart of ``lsm_tpu.ops.band_pallas.
+    _band_stage_refresh_jnp``): each tile-packed stream scattered onto the
+    grid, :func:`band_stage_reference` on the dispatch list ``ids``, then the
+    full ghost refresh. A new buffer; differentiable in ``P``, ``out_init``,
+    ``aux``, the streams and tensor ``coeffs``. Its autograd is the backward
+    of :func:`band_step_stage`, on both devices."""
+    shape = tuple(shape)
+    flat, valid = tile_index(ids, shape, tiles)
+    idx = flat[valid]
+
+    def dense(packed):
+        d = torch.zeros(shape, dtype=P.dtype, device=P.device)
+        return d.view(-1).index_put((idx,), packed[valid]).view(shape)
+
+    dense_terms = tuple((spec, tuple(dense(a) for a in arrs)) for spec, arrs in terms)
+    out = band_stage_reference(P, out_init, band, dense_terms, coeffs, 0.0, aux, bcs, spacing,
+                               shape, (0.0,) * len(shape), tiles, ids=ids)
+    return v2.refresh_ghosts(out, bcs, shape)
+
+
+class _BandStepStage(torch.autograd.Function):
+    """K6 then K7 into a copy of ``out_init``; the backward is autograd of
+    :func:`band_stage_refresh_plain` from the saved inputs (the full refresh:
+    a phase K7 skipped left shells that already agree with the interior, so
+    the composite computes the same output), with no cotangent for the
+    dispatch list, the band and the gates, as in JAX's ``_bss_bwd``."""
+
+    @staticmethod
+    def forward(ctx, P, out_init, aux, ids, band, flags, alpha, beta, gamma, statics, *streams):
+        specs, counts, bcs, spacing, shape, tiles, values = statics
+        terms = v2._unflatten(specs, counts, streams)
+        out = out_init.clone()
+        band_stage(P, out, ids, band, terms, values, aux, spacing, shape, tiles)
+        refresh_band_ghosts_fast(out, bcs, shape, flags)
+        ctx.save_for_backward(P, out_init, aux, ids, band, *streams)
+        ctx.statics = statics
+        ctx.coefs = (alpha, beta, gamma)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        P, out_init, aux, ids, band, *streams = ctx.saved_tensors
+        specs, counts, bcs, spacing, shape, tiles, _ = ctx.statics
+        need = ctx.needs_input_grad  # P, out_init, aux, ids, band, flags, alpha, beta, gamma,
+        with torch.enable_grad():    # statics, *streams
+            leaf = lambda t, n: t.detach().requires_grad_(n) if t is not None else None
+            Pv, Ov, Av = leaf(P, need[0]), leaf(out_init, need[1]), leaf(aux, need[2])
+            cv = [c.detach().requires_grad_(need[6 + k]) if isinstance(c, torch.Tensor) else c
+                  for k, c in enumerate(ctx.coefs)]
+            sv = [leaf(a, n) for a, n in zip(streams, need[10:])]
+            out = band_stage_refresh_plain(Pv, Ov, ids, band, v2._unflatten(specs, counts, sv),
+                                           cv, Av, bcs, spacing, shape, tiles)
+            inputs = [t for t in (Pv, Ov, Av, *cv, *sv)
+                      if isinstance(t, torch.Tensor) and t.requires_grad]
+            grads = iter(torch.autograd.grad(out, inputs, grad_outputs=g, allow_unused=True)
+                         if inputs else ())
+
+        def take(t):
+            return next(grads) if isinstance(t, torch.Tensor) and t.requires_grad else None
+
+        dP, dO, dA = take(Pv), take(Ov), take(Av)
+        dc = [take(c) for c in cv]
+        return (dP, dO, dA, None, None, None, *dc, None, *(take(a) for a in sv))
+
+
+def band_step_stage(P, out, ids, band, flags, terms, coeffs, aux, bcs, spacing, shape, tiles,
+                    coeff_values=None) -> torch.Tensor:
+    """One band stage: K6 from ``P`` into ``out``, then K7 on ``out``
+    (counterpart of ``lsm_tpu.ops.band_pallas.band_step_stage``).
+
+    When nothing needs a gradient, ``out`` is written in place and returned
+    (the stepper's buffer rotation). Otherwise the stage writes a copy of
+    ``out`` (JAX's ``out_init`` is functional; autograd cannot save a buffer
+    that is written later) through a ``torch.autograd.Function`` whose
+    backward is autograd of :func:`band_stage_refresh_plain`: gradients flow
+    to ``P``, ``out`` (the nodes the stage leaves), ``aux``, the tile-packed
+    streams and tensor ``coeffs``; the dispatch list, the band and the gates
+    are constants. The kernels take the coefficients as host numbers
+    (``coeff_values``, default ``float`` of each).
+    """
+    shape, tiles = tuple(shape), tuple(int(b) for b in tiles)
+    terms = v2.as_terms(terms)
+    values = tuple(float(c.detach()) if isinstance(c, torch.Tensor) else float(c)
+                   for c in (coeffs if coeff_values is None else coeff_values))
+    streams = [a for _, arrs in terms for a in arrs]
+    tensors = [P, out, aux, *streams, *coeffs]
+    if not (torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)):
+        band_stage(P, out, ids, band, terms, values, aux, spacing, shape, tiles)
+        return refresh_band_ghosts_fast(out, bcs, shape, flags)
+    statics = (tuple(spec for spec, _ in terms), tuple(len(arrs) for _, arrs in terms), bcs,
+               tuple(float(h) for h in spacing), shape, tiles, values)
+    return _BandStepStage.apply(P, out, aux, ids, band, flags, *coeffs, statics, *streams)
 
 
 # -- K7: the gated shell refresh --------------------------------------------------------

@@ -20,9 +20,8 @@ tests and by the on-card comparison in ``chip_smoke.py``):
   interior: axis 0, then axis 1, then axis 2, so corner ghosts equal
   ``pad_ghost(values, bcs, 3)``.
 - :func:`fused_step_stage` is K1 + K2 as a ``torch.autograd.Function``
-  whose backward runs K4, K3 and K5 (:mod:`.weno_v2_bwd`) for one advection
-  term and, on the CPU, autograd through its plain counterpart
-  :func:`stage_refresh_plain` for other term lists.
+  whose backward runs K4, then K3 (one advection term) or K3' (any other
+  term list), then K5 (:mod:`.weno_v2_bwd`).
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises. Each counts its kernel launches in
@@ -226,6 +225,9 @@ KINDS = ("advection", "normal", "curvature", "eikonal")
 MAX_TERMS = 16  # the kernels' term table (a by-value kernel parameter)
 _KIND_CODES = {k: i for i, k in enumerate(KINDS)}
 _COEF_CODES = {"stream": 0, "const": 1, "none": 2}
+#: the coefficient kinds the kernels take, per term kind
+_KERNEL_COEFS = {"advection": ("stream",), "normal": ("stream", "const"),
+                 "curvature": ("stream", "const"), "eikonal": ("stream", "none")}
 
 
 class TermSpec:
@@ -412,8 +414,7 @@ def check_terms(terms, P, stream_shape, name="terms"):
     for n, (spec, arrs) in enumerate(terms):
         if spec.kind not in KINDS:
             raise ValueError(f"unknown term kind {spec.kind!r}")
-        allowed = {"advection": ("stream",), "normal": ("stream", "const"),
-                   "curvature": ("stream", "const"), "eikonal": ("stream", "none")}[spec.kind]
+        allowed = _KERNEL_COEFS[spec.kind]
         if spec.coef_kind not in allowed:
             raise ValueError(
                 f"term {n}: a {spec.kind} term with a {spec.coef_kind!r} coefficient is not a "
@@ -527,21 +528,21 @@ def stage_refresh_plain(P, terms, coeffs, aux, bcs, spacing, shape) -> torch.Ten
     ``lsm_tpu.ops.weno_v2._stage_refresh_jnp``): the stage reads ``P``'s
     stored ghosts, as K1 does, and the result is packed with fresh ghosts.
     ``terms`` as for :func:`fused_stage`; ``coeffs`` may be tensors. Autograd
-    through this function is the oracle of the stage's backward, and the
-    CPU's backward of term lists K3 does not take."""
+    through this function is the oracle of the stage's backward."""
     return pack_padded(_stage_interior(P, as_terms(terms), coeffs, aux, spacing, shape), bcs)
 
 
 def gradient_reason(terms) -> Optional[str]:
-    """Why a gradient through a stage of ``terms`` (normalised) cannot run
-    on CUDA, naming the ROADMAP item; ``None`` for one advection term (its
-    coefficient streamed, or a callable the stepper evaluates into streams),
-    whose backward is K4, K3 and K5."""
-    if len(terms) == 1 and terms[0][0].kind == "advection":
-        return None
-    kinds = " + ".join(spec.kind for spec, _ in terms)
-    return (f"a gradient through a stage of {kinds} is not ported to CUDA yet "
-            "(ROADMAP.md queue 2, K3 term kinds)")
+    """Why a gradient through a stage of ``terms`` (normalised; a callable
+    coefficient counts as the streams the stepper evaluates it into) cannot
+    run on CUDA; ``None`` for every list K1' takes, whose backward is K4, K3
+    or K3', and K5."""
+    if not 1 <= len(terms) <= MAX_TERMS:
+        return f"the stage kernels take 1 to {MAX_TERMS} terms, got {len(terms)}"
+    for spec, _ in terms:
+        if spec.coef_kind not in _KERNEL_COEFS.get(spec.kind, ()) + ("analytic",):
+            return f"{spec!r} is no input of the stage kernels"
+    return None
 
 
 def _unflatten(specs, counts, streams):
@@ -552,12 +553,10 @@ def _unflatten(specs, counts, streams):
 
 class _FusedStepStage(torch.autograd.Function):
     """K1 + K2 forward over a term list whose streams are the trailing
-    arguments. Backward for one advection term: K4 (fold the output
-    cotangent's shells), K3 (stage cotangents), K5 (zero daux's shells); for
-    any other list (the CPU; CUDA refuses it before the forward): autograd
-    through :func:`stage_refresh_plain` from the saved inputs, the plain
-    version of what a K3 for the other kinds would compute. Saves ``P``,
-    ``aux`` and the streams (references, no copies)."""
+    arguments. Backward: K4 (fold the output cotangent's shells), K3 for one
+    advection term or K3' for any other list (stage cotangents), K5 (zero
+    daux's shells); on the CPU their plain versions. Saves ``P``, ``aux`` and
+    the streams (references, no copies)."""
 
     @staticmethod
     def forward(ctx, P, aux, alpha, beta, gamma, statics, *streams):
@@ -579,18 +578,18 @@ class _FusedStepStage(torch.autograd.Function):
         specs, counts, bcs, spacing, shape, values = ctx.statics
         terms = _unflatten(specs, counts, streams)
         need = ctx.needs_input_grad  # P, aux, alpha, beta, gamma, statics, *streams
+        # K4 folds in place, so it gets a copy: autograd may hand this node
+        # the caller's grad_outputs, or one buffer shared with another branch
+        gf = bwd.fold_ghost_cotangent_fast(g.clone(memory_format=torch.contiguous_format),
+                                           bcs, shape)
         if is_advection_only(terms):
-            # K4 folds in place, so it gets a copy: autograd may hand this
-            # node the caller's grad_outputs, or one buffer shared with
-            # another branch
-            gf = bwd.fold_ghost_cotangent_fast(g.clone(memory_format=torch.contiguous_format),
-                                               bcs, shape)
             dP, dstreams, dcoef, daux = bwd.stage_backward(
                 P, streams, values, aux, gf, spacing, shape,
                 need_du=any(need[6:]), need_daux=need[1])
         else:
-            dP, dstreams, dcoef, daux = bwd.composite_backward_autograd(
-                P, terms, values, aux, g, bcs, spacing, shape)
+            dP, dstreams, dcoef, daux = bwd.stage_backward_terms(
+                P, terms, values, aux, gf, spacing, shape,
+                need_dstreams=any(need[6:]), need_daux=need[1])
         dstreams = dstreams or (None,) * len(streams)
         dc = tuple(None if like is None or not need[2 + k] else
                    dcoef[k].to(dtype=like[0], device=like[1])
@@ -611,26 +610,22 @@ def fused_step_stage(P: torch.Tensor, terms, coeffs, aux, bcs, spacing, shape,
     not read back here (default: ``float`` of each coefficient). When
     nothing needs a gradient, the call is K1 + K2 and keeps nothing for a
     backward. Otherwise gradients flow to ``P``, the streams, ``aux`` and
-    the tensor coefficients: for one advection term through K4, K3, K5; for
-    any other term list through autograd of :func:`stage_refresh_plain` on
-    the CPU, while CUDA raises ``NotImplementedError``
-    (:func:`gradient_reason`).
+    the tensor coefficients: through K4, then K3 for one advection term or
+    K3' for any other term list, then K5.
     """
     shape = tuple(shape)
     terms = tuple(terms)
     if all(isinstance(x, torch.Tensor) for x in terms) and len(terms) != 3:
         raise ValueError("the fused stage is 3D only: u needs 3 entries")
     terms = as_terms(terms)
-    values = tuple(float(c) for c in (coeffs if coeff_values is None else coeff_values))
+    values = tuple(float(c.detach()) if isinstance(c, torch.Tensor) else float(c)
+                   for c in (coeffs if coeff_values is None else coeff_values))
     streams = [a for _, arrs in terms for a in arrs]
     tensors = [P, *streams, aux, *coeffs]
     if not (torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)):
         out = fused_stage(P, terms, values, aux, spacing, shape)
         return refresh_ghosts_fast(out, bcs, shape)
-    reason = gradient_reason(terms)
-    if reason is not None and P.device.type != "cpu":
-        raise NotImplementedError(reason)
     statics = (tuple(spec for spec, _ in terms), tuple(len(arrs) for _, arrs in terms), bcs,
                tuple(spacing), shape, values)
     return _FusedStepStage.apply(P, aux, *coeffs, statics, *streams)

@@ -1,5 +1,5 @@
 """Backward of the fused stage on the padded layout (port of
-:mod:`lsm_tpu.ops.weno_v2_bwd`): three kernels, each beside its plain torch
+:mod:`lsm_tpu.ops.weno_v2_bwd`): four kernels, each beside its plain torch
 version, and the autograd oracle they are held against.
 
 - :func:`fold_ghost_cotangent_fast` (K4, ``csrc/fold_ghosts.cu``; plain
@@ -16,6 +16,14 @@ version, and the autograd oracle they are held against.
   dgamma)``. The plain version is the hand WENO5 adjoint
   (:func:`~.stencils.weno5_upwind_fwd_bwd`) plus the transpose of the
   difference tables, with the kernel's arithmetic.
+- :func:`stage_backward_terms` (K3', ``csrc/stage_backward.cu``; plain
+  :func:`stage_backward_terms_plain`) the same for a K1' stage over any term
+  list (advection, normal motion, curvature, eikonal; streamed, constant or
+  no coefficients): K3' for the other kinds, then K3 in accumulate mode for
+  each advection term (the hand WENO5 adjoint, as JAX keeps it inside a
+  mixed list). Its plain version is autograd of the plain stage for the
+  other kinds, which have no float32 tie hazard, and the hand adjoint for
+  advection.
 - :func:`composite_backward_autograd`: ``torch.autograd.grad`` of
   :func:`~.weno_v2.stage_refresh_plain` (stage plus refresh), the oracle
   (counterpart of ``lsm_tpu.ops.weno_v2_bwd._jnp_stage_backward``). In
@@ -47,6 +55,8 @@ __all__ = [
     "zero_pad_shells",
     "stage_backward_plain",
     "stage_backward",
+    "stage_backward_terms_plain",
+    "stage_backward_terms",
     "composite_backward_autograd",
 ]
 
@@ -193,39 +203,50 @@ def _edge_transpose(ddm, ax, inv_h, shape, like):
     return (c.narrow(ax, 0, n - 1) - c.narrow(ax, 1, n - 1)) * inv_h
 
 
+def _advection_backward(P, u, gup, spacing, shape):
+    """The hand WENO5 adjoint of one advection term ``sum_d u_d *
+    WENO5_d(phi)`` for its cotangent ``gup``: ``(H, dP, du)``, ``dP`` on the
+    padded layout."""
+    ham, dP, du = 0.0, 0.0, []
+    for ax, h in enumerate(spacing):
+        dm = st.weno5_pair_diffs(P, ax, float(h), G, shape)
+        H, ddm, du_ax = st.weno5_upwind_fwd_bwd(dm, u[ax], gup)
+        ham = ham + H
+        du.append(du_ax)
+        dP = dP + _edge_transpose(ddm, ax, 1.0 / float(h), shape, P)
+    return ham, dP, tuple(du)
+
+
 def stage_backward_plain(P, u, coeffs, aux, g, spacing, shape, need_du=True,
-                         need_daux=True):
+                         need_daux=True, out=None):
     """Plain version of K3, with the kernel's arithmetic: see
     :func:`stage_backward`."""
     shape = tuple(shape)
     alpha, beta, gamma = (float(c) for c in coeffs)
     gi = v2.unpack_padded(g, shape)
-    gup = -gamma * gi
+    ham, dPa, du = _advection_backward(P, u, -gamma * gi, spacing, shape)
+    dgamma = -(gi * ham).sum()
+    if out is not None:
+        zero = torch.zeros_like(dgamma)
+        return out.add_(dPa), (du if need_du else None), torch.stack([zero, zero, dgamma]), None
     dP = torch.zeros_like(P)
     v2.unpack_padded(dP, shape).copy_(beta * gi)
-    ham = 0.0
-    du = []
-    for ax, h in enumerate(spacing):
-        inv_h = 1.0 / float(h)
-        dm = st.weno5_pair_diffs(P, ax, float(h), G, shape)
-        H, ddm, du_ax = st.weno5_upwind_fwd_bwd(dm, u[ax], gup)
-        ham = ham + H
-        du.append(du_ax)
-        dP = dP + _edge_transpose(ddm, ax, inv_h, shape, P)
+    dP = dP + dPa
     center = v2.unpack_padded(P, shape)
     dalpha = (gi * v2.unpack_padded(aux, shape)).sum() if aux is not None else gi.new_zeros(())
-    dcoef = torch.stack([dalpha, (gi * center).sum(), -(gi * ham).sum()])
+    dcoef = torch.stack([dalpha, (gi * center).sum(), dgamma])
     daux = None
     if aux is not None and need_daux:
         daux = torch.empty_like(P)
         v2.unpack_padded(daux, shape).copy_(alpha * gi)
         zero_pad_shells_plain(daux, shape)
-    return dP, (tuple(du) if need_du else None), dcoef, daux
+    return dP, (du if need_du else None), dcoef, daux
 
 
 def stage_backward(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs,
                    aux: Optional[torch.Tensor], g: torch.Tensor, spacing, shape,
-                   need_du: bool = True, need_daux: bool = True
+                   need_du: bool = True, need_daux: bool = True,
+                   out: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, ...]],
                               torch.Tensor, Optional[torch.Tensor]]:
     """K3: cotangents of one K1 stage ``alpha*aux + beta*phi - gamma*u.grad(phi)``.
@@ -237,6 +258,11 @@ def stage_backward(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs,
     (dalpha, dbeta, dgamma)`` as a 3-vector, ``daux = alpha*g`` on the
     interior with zero shells (``None`` without ``aux`` or ``need_daux``; its
     shells are zeroed by K5). ``coeffs`` are host numbers.
+
+    ``out`` (a padded buffer, the accumulate mode of an advection term inside
+    a term list): the advection term's share of ``dP`` is added to ``out``,
+    which is returned as ``dP``; nothing is written for ``beta*g`` or
+    ``daux`` (``None``), and ``dcoef = (0, 0, dgamma)``.
 
     Replaces ``lsm_tpu.ops.weno_v2_bwd.stage_backward`` (without its
     ``prefolded``/``origin`` arguments). CUDA tensors go to
@@ -251,11 +277,15 @@ def stage_backward(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs,
         v2._check(ud, f"u[{d}]", shape, like=P)
     if aux is not None:
         v2._check(aux, "aux", v2.padded_shape(shape), like=P)
+    if out is not None:
+        v2._check(out, "out", v2.padded_shape(shape), like=P)
+        aux = None
     if P.device.type == "cpu":
-        return stage_backward_plain(P, u, coeffs, aux, g, spacing, shape, need_du, need_daux)
+        return stage_backward_plain(P, u, coeffs, aux, g, spacing, shape, need_du, need_daux,
+                                    out)
     lib = load_library()
     fn = lib.stage_bwd_f32 if P.dtype == torch.float32 else lib.stage_bwd_f64
-    dP = torch.empty_like(P)
+    dP = torch.empty_like(P) if out is None else out
     du = tuple(torch.empty_like(u[0]) for _ in range(3)) if need_du else None
     daux = torch.empty_like(P) if aux is not None and need_daux else None
     part = torch.empty(lib.stage_bwd_scratch(*shape), dtype=torch.float64, device=P.device)
@@ -269,7 +299,8 @@ def stage_backward(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs,
         code = fn(P.data_ptr(), g.data_ptr(), *(c.data_ptr() for c in u), ptr(aux),
                   dP.data_ptr(), *(ptr(d) for d in (du or (None,) * 3)), ptr(daux),
                   part.data_ptr(), dcoef.data_ptr(), *shape,
-                  *(1.0 / float(h) for h in spacing), alpha, beta, gamma, _stream())
+                  *(1.0 / float(h) for h in spacing), alpha, beta, gamma, int(out is not None),
+                  _stream())
     v2._raise_on(code, lib, "stage_backward kernel")
     stage_backward.launches += 1
     if daux is not None:
@@ -280,14 +311,148 @@ def stage_backward(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs,
 stage_backward.launches = 0
 
 
+# -- K3': the stage backward of a term list -------------------------------------------
+
+
+def _stream_slices(terms):
+    """Per term, the slice of the flat stream list its streams take."""
+    out, k = [], 0
+    for _, arrs in terms:
+        out.append(slice(k, k + len(arrs)))
+        k += len(arrs)
+    return out
+
+
+def stage_backward_terms_plain(P, terms, coeffs, aux, g, spacing, shape, need_dstreams=True,
+                               need_daux=True):
+    """Plain version of K3': see :func:`stage_backward_terms`. The
+    normal-motion, curvature and eikonal terms take ``torch.autograd.grad``
+    of their plain Hamiltonians (:func:`~.weno_v2.ham_contribution`) for the
+    cotangent ``-gamma*g``; each advection term the hand WENO5 adjoint of
+    :func:`stage_backward_plain`."""
+    shape = tuple(shape)
+    terms = v2.as_terms(terms)
+    alpha, beta, gamma = (float(c) for c in coeffs)
+    gi = v2.unpack_padded(g, shape)
+    gup = -gamma * gi
+    dP = torch.zeros_like(P)
+    v2.unpack_padded(dP, shape).copy_(beta * gi)
+    flat = [a for _, arrs in terms for a in arrs]
+    dstreams = [None] * len(flat)
+    ham = 0.0
+    others = [(spec, sl) for (spec, _), sl in zip(terms, _stream_slices(terms))
+              if spec.kind != "advection"]
+    if others:
+        with torch.enable_grad():
+            Pv = P.detach().requires_grad_()
+            sv = [a.detach().requires_grad_() for a in flat]
+            center = v2.unpack_padded(Pv, shape)
+            H = 0.0
+            for spec, sl in others:
+                H = H + v2.ham_contribution(spec, Pv, v2._coef_values(spec, sv[sl], Pv), center,
+                                            spacing, shape)
+            used = [sv[k] for _, sl in others for k in range(sl.start, sl.stop)]
+            grads = torch.autograd.grad(H, [Pv, *used], grad_outputs=gup, allow_unused=True)
+        dP = dP + grads[0]
+        ham = ham + H.detach()
+        it = iter(grads[1:])
+        for _, sl in others:
+            for k in range(sl.start, sl.stop):
+                d = next(it)
+                dstreams[k] = torch.zeros_like(flat[k]) if d is None else d
+    for (spec, arrs), sl in zip(terms, _stream_slices(terms)):
+        if spec.kind == "advection":
+            H, dPa, du = _advection_backward(P, arrs, gup, spacing, shape)
+            ham = ham + H
+            dP = dP + dPa
+            dstreams[sl] = du
+    center = v2.unpack_padded(P, shape)
+    dalpha = (gi * v2.unpack_padded(aux, shape)).sum() if aux is not None else gi.new_zeros(())
+    dcoef = torch.stack([dalpha, (gi * center).sum(), -(gi * ham).sum()])
+    daux = None
+    if aux is not None and need_daux:
+        daux = torch.empty_like(P)
+        v2.unpack_padded(daux, shape).copy_(alpha * gi)
+        zero_pad_shells_plain(daux, shape)
+    return dP, (tuple(dstreams) if need_dstreams else None), dcoef, daux
+
+
+def stage_backward_terms(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
+                         g: torch.Tensor, spacing, shape, need_dstreams: bool = True,
+                         need_daux: bool = True):
+    """K3': cotangents of one K1' stage ``alpha*aux + beta*phi - gamma*sum_n
+    H_n`` over the term list ``terms`` (any list :func:`~.weno_v2.fused_stage`
+    takes: kinds advection, normal, curvature, eikonal; coefficients
+    streamed, constant or none; up to 16 terms).
+
+    ``g`` as for :func:`stage_backward` (folded by K4, interior read).
+    Returns ``(dP, dstreams, dcoef, daux)`` in K3's layout, ``dstreams`` one
+    cotangent per stream of the list in order (``None`` unless
+    ``need_dstreams``); constant coefficients get none.
+
+    Replaces the term-kind branch of ``lsm_tpu.ops.weno_v2_bwd.stage_backward``
+    (its per-part ``jax.vjp``). CUDA tensors go to ``csrc/stage_backward.cu``:
+    one K3' launch (and its reduction) for the normal, curvature and eikonal
+    terms, ``beta*g`` and ``daux``, then K3 in accumulate mode for each
+    advection term; K5 zeroes ``daux``'s shells. CPU tensors go to
+    :func:`stage_backward_terms_plain`.
+    """
+    shape = tuple(shape)
+    if len(shape) != 3 or len(spacing) != 3:
+        raise ValueError("the stage backward is 3D only: shape and spacing need 3 entries")
+    terms = v2.as_terms(terms)
+    v2._check(P, "P", v2.padded_shape(shape))
+    v2._check(g, "g", v2.padded_shape(shape), like=P)
+    v2.check_terms(terms, P, shape)
+    if aux is not None:
+        v2._check(aux, "aux", v2.padded_shape(shape), like=P)
+    if P.device.type == "cpu":
+        return stage_backward_terms_plain(P, terms, coeffs, aux, g, spacing, shape,
+                                          need_dstreams, need_daux)
+    lib = load_library()
+    fn = lib.stage_bwd_terms_f32 if P.dtype == torch.float32 else lib.stage_bwd_terms_f64
+    dP = torch.empty_like(P)
+    daux = torch.empty_like(P) if aux is not None and need_daux else None
+    part = torch.empty(lib.stage_bwd_terms_scratch(*shape), dtype=torch.float64,
+                       device=P.device)
+    dcoef = torch.empty(3, dtype=P.dtype, device=P.device)
+    flat = [a for _, arrs in terms for a in arrs]
+    dstreams = [None] * len(flat)
+    outs = (ctypes.c_void_p * v2.MAX_TERMS)()
+    for e, ((spec, arrs), sl) in enumerate(zip(terms, _stream_slices(terms))):
+        if spec.kind != "advection" and arrs and need_dstreams:
+            dstreams[sl.start] = torch.empty_like(arrs[0])
+            outs[e] = dstreams[sl.start].data_ptr()
+    tab = v2.stage_table(terms, spacing, coeffs)
+    with torch.cuda.device(P.device):
+        code = fn(P.data_ptr(), g.data_ptr(), None if aux is None else aux.data_ptr(),
+                  dP.data_ptr(), None if daux is None else daux.data_ptr(), part.data_ptr(),
+                  dcoef.data_ptr(), *shape, ctypes.addressof(tab), ctypes.addressof(outs),
+                  _stream())
+    v2._raise_on(code, lib, "stage_backward_terms kernel")
+    stage_backward_terms.launches += 1
+    for (spec, arrs), sl in zip(terms, _stream_slices(terms)):
+        if spec.kind == "advection":
+            _, du, dc, _ = stage_backward(P, arrs, coeffs, None, g, spacing, shape,
+                                          need_du=need_dstreams, out=dP)
+            dcoef = dcoef + dc
+            if need_dstreams:
+                dstreams[sl] = du
+    if daux is not None:
+        zero_pad_shells(daux, shape)
+    return dP, (tuple(dstreams) if need_dstreams else None), dcoef, daux
+
+
+stage_backward_terms.launches = 0
+
+
 def composite_backward_autograd(P, terms, coeffs, aux, g, bcs, spacing, shape):
     """``torch.autograd.grad`` of :func:`~.weno_v2.stage_refresh_plain` (stage
     plus ghost refresh) for the raw, unfolded padded output cotangent ``g``:
     ``(dP, dstreams, dcoef, daux)`` as :func:`stage_backward` returns them
     (``dstreams`` one per stream of ``terms``, a term list or three velocity
     tensors; ``daux`` ``None`` without ``aux``). The oracle of K4 followed by
-    K3, and the CPU's backward of term lists K3 does not take; run it in
-    float64 as an oracle."""
+    K3 or K3'; run it in float64."""
     terms = v2.as_terms(terms)
     with torch.enable_grad():
         Pv = P.detach().requires_grad_()

@@ -529,7 +529,7 @@ def test_band_routing_names_roadmap_items():
 def test_rollout_on_a_band_matches_jax_and_the_band_stepper():
     """CPU: the general path under autograd, re-tubing each step (JAX's
     general rollout); the card's band rollout (the band stepper, here on its
-    plain versions) gives the same band, and refuses a gradient."""
+    plain versions) gives the same band and the same gradient."""
     jnb, tnb = _pair((24, 24, 32), radius=0.25)
     dt = 0.2 * jnb.grid.min_spacing
     jout, _ = J.rollout(J.RK3(), (J.AdvectionTerm(_velf),), jnb, 0.0, dt, 3, fast="off")
@@ -542,25 +542,37 @@ def test_rollout_on_a_band_matches_jax_and_the_band_stepper():
     assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
     band_out, _ = tloop._band_rollout(T.RK3(), (T.AdvectionTerm(_velf),), tnb, 0.0, dt, 3)
     _assert_band_equal(band_out, jout)
-    with pytest.raises(NotImplementedError, match="band backward"):
-        tloop._band_rollout(T.RK3(), (T.AdvectionTerm(_velf),),
-                            tnb.with_values(v, mask_update=False), 0.0, dt, 3)
+    w = tnb.values.clone().requires_grad_()
+    bout, _ = tloop._band_rollout(T.RK3(), (T.AdvectionTerm(_velf),),
+                                  tnb.with_values(w, mask_update=False), 0.0, dt, 3)
+    _assert_band_equal(bout, jout)
+    (gb,) = torch.autograd.grad((bout.values ** 2).sum(), w)
+    assert float((gb - g).abs().max()) <= 1e-12 * max(float(g.abs().max()), 1.0)
 
 
 def test_band_stepper_refuses_a_velocity_that_needs_a_gradient():
-    """The band stepper's buffers carry no autograd: a streamed velocity or
-    a callable closing over a parameter that requires a gradient raises
-    where the stepper reads it, so no gradient is silently dropped."""
+    """A streamed velocity or a callable closing over a parameter that
+    requires a gradient is no longer refused: the band stepper's stages are
+    differentiable (``band_step_stage``) and the gradient reaches the dense
+    velocity and the parameter, as the general band path's does; without a
+    gradient the same rollout writes its buffers in place."""
     _, tnb = _pair((24, 24, 32), radius=0.25)
     dt = 0.2 * tnb.grid.min_spacing
     theta = torch.tensor(1.0, dtype=torch.float64, requires_grad=True)
     stream = torch.zeros((3, 24, 24, 32), dtype=torch.float64)
     stream[0] = 1.0
-    terms = {"callable": T.AdvectionTerm(lambda xs, t: tuple(theta * c for c in _velf(xs, t))),
-             "streamed": T.AdvectionTerm(stream.requires_grad_())}
-    for term in terms.values():
-        with pytest.raises(NotImplementedError, match="band backward"):
-            tloop._band_rollout(T.RK3(), (term,), tnb, 0.0, dt, 1)
+    stream[2] = 0.1
+    stream.requires_grad_()
+    terms = {"callable": (T.AdvectionTerm(lambda xs, t: tuple(theta * c for c in _velf(xs, t))),
+                          theta),
+             "streamed": (T.AdvectionTerm(stream), stream)}
+    for term, param in terms.values():
+        out, _ = tloop._band_rollout(T.RK3(), (term,), tnb, 0.0, dt, 1)
+        (g,) = torch.autograd.grad((out.values ** 2).sum(), param)
+        ref, _ = T.rollout(T.RK3(), (term,), tnb, 0.0, dt, 1)  # the CPU's general path
+        (gr,) = torch.autograd.grad((ref.values ** 2).sum(), param)
+        assert float(gr.abs().max()) > 0
+        assert float((g - gr).abs().max()) <= 1e-12 * max(float(gr.abs().max()), 1.0)
         with torch.no_grad():  # nothing needs a gradient: the forward runs
             out, _ = tloop._band_rollout(T.RK3(), (term,), tnb, 0.0, dt, 1)
         assert bool(torch.isfinite(out.values).all())

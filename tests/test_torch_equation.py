@@ -205,6 +205,14 @@ def test_error_paths():
         eq = T.LevelSetEquation(terms=T.AdvectionTerm(_velf), ic=bad)
         with pytest.raises(ArithmeticError, match="non-finite"):
             eq.integrate(0.01, fast=fast)
+    # with a hook the run returns the non-finite state, as JAX's hooked loop does
+    jphi, _ = _pair((8, 8, 8))
+    jbad = jphi.with_values(jnp.asarray(_np(bad.values)))
+    for pkg, phi in ((J, jbad), (T, bad)):
+        seen = []
+        eq = pkg.LevelSetEquation(terms=pkg.AdvectionTerm(_velf), ic=phi)
+        eq.integrate(0.01, posthook=lambda e: seen.append(e.t))
+        assert seen and not bool(np.isfinite(np.asarray(eq.state.values)).all())
 
 
 class _OtherTerm:

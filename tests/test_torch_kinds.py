@@ -351,13 +351,14 @@ def test_cuda_refusals_name_their_roadmap_items():
     _, tphi = _field((8, 8, 8), lambda m: m.sphere((0.0, 0.0, 0.0), 0.5),
                      lambda pkg: pkg.Extrapolation(2))
     kinds = (T.CurvatureTerm(-0.05), T.NormalMotionTerm(0.2))
-    # a gradient through any term list other than one advection term
+    # a gradient through any term list the stepper takes runs on the card
+    # (K4, K3 or K3', K5): nothing names a ROADMAP item any more
     for terms in (kinds, (T.EikonalReinitializationTerm(),),
-                  (T.AdvectionTerm(_velf), T.AdvectionTerm(_velf))):
-        assert "ROADMAP.md queue 2, K3 term kinds" in tfused.gradient_reason(terms, tphi)
-    assert tfused.gradient_reason((T.AdvectionTerm(_velf),), tphi) is None
-    assert "K3 term kinds" in tv2.gradient_reason(
-        ((tv2.TermSpec("normal", "const", 0.2, 0), ()),))
+                  (T.AdvectionTerm(_velf), T.AdvectionTerm(_velf)), (T.AdvectionTerm(_velf),)):
+        assert tfused.gradient_reason(terms, tphi) is None
+    assert tv2.gradient_reason(((tv2.TermSpec("normal", "const", 0.2, 0), ()),)) is None
+    assert "no input of the stage kernels" in tv2.gradient_reason(
+        ((tv2.TermSpec("eikonal", "const", 1.0, 0), ()),))
     # update_func on the fused path: refused on CUDA, honoured on the CPU
     seen = []
     upd = T.NormalMotionTerm(0.2, update_func=lambda s, phi, t: seen.append(t) or s)

@@ -8,6 +8,8 @@ tests drive the same autograd graph the card runs. Inputs are made with numpy
 from a seed and handed to both packages.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -173,6 +175,31 @@ def test_gradient_flows_through_the_integrate_stepper():
     assert tv2.fused_stage.launches == tv2.refresh_ghosts_fast.launches == 0
     assert tbwd.stage_backward.launches == tbwd.fold_ghost_cotangent_fast.launches == 0
     assert tbwd.zero_pad_shells.launches == 0
+
+
+def test_rollout_and_sample_take_jax_positional_order():
+    """``rollout(integrator, terms, phi, t0, dt, nsteps, unroll, fast, remat,
+    remat_chunk)`` and ``sample(fn, grid, bc, dtype, vector)`` as JAX has
+    them (``sample``'s ``device`` last): both packages called positionally
+    with the same arguments agree, and ``unroll`` is accepted."""
+    names = lambda f: list(inspect.signature(f).parameters)
+    assert names(T.rollout) == names(J.rollout)
+    assert names(T.sample) == names(J.sample) + ["device"]
+    shape = (10, 12, 14)
+    _, _, jphi, tphi, _ = _fields(shape, seed=13)
+    dt = 0.2 * jphi.grid.min_spacing
+    jout, _ = J.rollout(J.RK3(), (J.AdvectionTerm(_velf),), jphi, 0.0, dt, 2, 2, "off", True, 1)
+    for args in ((2, "off", True, 1), (2, "auto", False, None), (1, "off", False, None)):
+        tout, _ = T.rollout(T.RK3(), (T.AdvectionTerm(_velf),), tphi, 0.0, dt, 2, *args)
+        assert _rel(tout.values, jout.values) < 1e-12
+    grid = T.Grid((0.0, 0.0), (1.0, 1.0), (6, 7))
+    vec = T.sample(lambda x, y: (x + 0.0 * y, y + 0.0 * x), grid, None, torch.float64, True,
+                   "cpu")
+    jvec = J.sample(lambda x, y: (x + 0.0 * y, y + 0.0 * x), J.Grid(*((0.0, 0.0), (1.0, 1.0),
+                                                                     (6, 7))), None,
+                    jnp.float64, True)
+    assert vec.is_vector and vec.values.dtype == torch.float64
+    assert _rel(vec.values, jvec.values) < 1e-15
 
 
 def test_evolve_matches_jax():
