@@ -5,7 +5,8 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 Phases, each printing one line of results (any failure raises and the script
-exits non-zero):
+exits non-zero); ``python3 chip_smoke.py PHASE ...`` runs only the named
+phases (a partial run: no kernel record):
 
 1. device  — ``nvidia-smi`` name and power limit; no CUDA device is an error;
              ``lsm.sample`` with no ``device`` lands on the card.
@@ -34,20 +35,30 @@ exits non-zero):
              motion, curvature, eikonal (both signs) and sums (one with an
              advection term), with and without aux: f64 vs plain, f32 vs
              the f64 autograd oracle.
+   k1analytic — K1'' (in-kernel coefficient programs) vs its plain version
+             at 40x72x136, f32 and f64: the rotation, the time-dependent
+             vortex, a program normal speed beside a constant curvature
+             with aux; origin 0 and a nonzero origin; the programs' tables
+             (csrc/coef_tables.cu) vs their plain version.
+   k3analytic — K3'' vs its plain version in f64 and vs the f64 autograd
+             oracle in f32, the stage time's cotangent included.
+   k6analytic — K6'' vs its plain version over the sphere's dispatch list.
    k10k11  — the general path's WENO5 stage, K10 (3D, 40x72x136) and K11
              (2D, 67x131), vs their plain versions, five BC cases, f32 and
              f64, the bare Hamiltonian and stages with and without aux; a
              flat field.
    k2_small — K2 on the 2D embedding's (1, n0, n1) layout (the length-1
              axis's Extrapolation(0)), bit for bit vs its plain version.
-8. k512    — K1 and K2 vs their plain versions at the main path's 512^3
-             shape, on its own inputs (Zalesak field, rotation velocity).
-9. k3_512  — K3 at 512^3 on the main path's inputs: a 64^3 sub-box vs the
-             f64 plain backward, the whole buffer finite; K4 and K5 bit for
-             bit vs their plain versions at 512^3, on a random cotangent and
-             on K3's dP.
+8. k512    — K1, K1'' (the rotation in-kernel, and its tables) and K2 vs
+             their plain versions at the main path's 512^3 shape, on its own
+             inputs (Zalesak field, rotation velocity).
+9. k3_512  — K3 and K3'' (the rotation in-kernel) at 512^3 on the main
+             path's inputs: a 64^3 sub-box vs the f64 plain backward, the
+             whole buffer finite; K4 and K5 bit for bit vs their plain
+             versions at 512^3, on a random cotangent and on K3's dP.
 10. band_512 — the band bench's 512^3 sphere band, a few FE steps through
-             K6-K8 and through their plain versions.
+             K6-K8 and through their plain versions, the rotation in-kernel
+             (K6'') and on the stream route (K6).
     kinds_512 — K1' vs plain at 512^3 on configs A and B's inputs, K6' on
              config C's and on A's terms over the off-axis sphere band.
     k3kinds_512 — K3' at 512^3 on config A's and (dense) config C's inputs:
@@ -55,7 +66,10 @@ exits non-zero):
              timed (the plain at 256^3).
 11. slice  — 64^3 Zalesak RK3 ``integrate``: CPU (plain) vs card (kernels).
 12. main   — the 512^3 Zalesak RK3 main path through
-             ``LevelSetEquation.integrate``, counting kernel launches.
+             ``LevelSetEquation.integrate`` as the JAX bench runs it, the
+             rotation a callable evaluated in-kernel (K1''), then with the
+             velocity streamed; launches counted, ms per step of both; then
+             2 steps with a callable that does not trace (the stream route).
 13. grad   — the gradient slice: ``value_and_grad`` of one fused FE step at
              512^3 (streamed and callable velocity) with a 64^3 f64
              central-difference check, and of a 20-step RK3 ``rollout``
@@ -72,6 +86,8 @@ exits non-zero):
              and RK3) through ``integrate`` at 512^3, counting launches; A's
              terms on the off-axis band vs the plain versions; 64^3 card vs
              CPU; a gradient through a rollout of A's terms runs K3'.
+    update — ``update_func`` terms on the dense fused stepper:
+             ``integrate`` at 64^3 on the card against the CPU.
     grad_kinds — the dense kinds gradient (RK3 rollout, remat, curvature +
              normal motion at a streamed speed): 64^3 card vs CPU (f64 max
              norm, f32 relative L2), then 512^3 f32: ms per value_and_grad,
@@ -103,6 +119,9 @@ exits non-zero):
     general_timing — K10 at 512^3 and K11 at 4096^2 with their plain
              versions, ``integrate`` per step of H (posthook, ``fast="off"``,
              fused) and of D1-D4, D2h; peak memory of each.
+    analytic_timing — K1'', K3'', K6'' and the program tables at 512^3
+             beside their plain versions; the flagship RK3 ``integrate`` per step with the
+             rotation in-kernel and streamed, in turns.
 17. profile — ``torch.profiler`` over 3 RK3 steps of the main path, the two
              gradient cells, 3 band FE and RK3 steps, and 3 RK3 steps each of
              configs A and C, H, D2 and D2h: device busy share of the wall
@@ -120,7 +139,9 @@ the same function, that call's time.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
 import math
 import subprocess
@@ -139,6 +160,7 @@ from lsm_tpu_torch.models import benchmarks as bench
 from lsm_tpu_torch.models import shapes
 from lsm_tpu_torch.ops import _build
 from lsm_tpu_torch.ops import band as bd
+from lsm_tpu_torch.ops import coef_program
 from lsm_tpu_torch.ops import stencils as st
 from lsm_tpu_torch.ops import weno_general as wg
 from lsm_tpu_torch.ops import weno_v2 as v2
@@ -217,19 +239,30 @@ COUNTED = {"K1": v2.fused_stage, "K2": v2.refresh_ghosts_fast, "K3": bwd.stage_b
 # the term-list entries of K1 and K6, counted apart (``kinds_launches``) as
 # well as in their wrapper's ``launches``
 KIND_ENTRIES = {"K1'": v2.fused_stage, "K6'": bd.band_stage}
-NONE_LAUNCHED = {name: 0 for name in (*COUNTED, *KIND_ENTRIES)}
+# the launches with an in-kernel coefficient program (``program_launches``):
+# K1'' and K6'' of the stage wrappers, K3'' of K3's and K3''s
+PROGRAM_ENTRIES = {"K1''": (v2.fused_stage,), "K3''": (bwd.stage_backward,
+                                                     bwd.stage_backward_terms),
+                   "K6''": (bd.band_stage,)}
+NONE_LAUNCHED = {name: 0 for name in (*COUNTED, *KIND_ENTRIES, *PROGRAM_ENTRIES)}
 
 
 def reset_counts():
+    v2.program_tables.launches = 0
     for fn in COUNTED.values():
         fn.launches = 0
     for fn in KIND_ENTRIES.values():
         fn.kinds_launches = 0
+    for fns in PROGRAM_ENTRIES.values():
+        for fn in fns:
+            fn.program_launches = 0
 
 
 def read_counts():
     out = {name: fn.launches for name, fn in COUNTED.items()}
     out.update({name: fn.kinds_launches for name, fn in KIND_ENTRIES.items()})
+    out.update({name: sum(fn.program_launches for fn in fns)
+                for name, fns in PROGRAM_ENTRIES.items()})
     return out
 
 
@@ -286,6 +319,16 @@ def rotation(xs, t):
     x, y, z = xs
     zero = 0.0 * (x + y + z)
     return (0.5 - y + zero, x - 0.5 + zero, zero)
+
+
+def rotation_polar(xs, t):
+    """:func:`rotation` in polar form, ``r (-sin th, cos th)`` about the axis
+    x = y = 0.5: the same field, kept on the stream route (``torch.hypot``
+    and ``torch.atan2`` are not among a program's functions), so a stepper
+    evaluates it into streams at every stage."""
+    x, y, z = xs
+    r, th = torch.hypot(x - 0.5, y - 0.5), torch.atan2(y - 0.5, x - 0.5)
+    return (-r * torch.sin(th), r * torch.cos(th), 0.0 * (x + y + z))
 
 
 def bc_cases():
@@ -541,6 +584,37 @@ def phase_k3_512(dev, res):
         k4k5_512(dP, bcs, shape, f"K3's dP of {label}", res)
         del dP, du, daux, gf
     res["k3_512_rel"] = worst
+    # K3'' on the same inputs with the rotation in-kernel, as cell (b) runs
+    # it: the plain sub-box evaluates the program from the box's first node
+    prog = program_term("advection", rotation)[0].coef_static
+    origin = tuple(x - 6 for x in a)
+    worst = worst_abs = 0.0
+    for label, src, aux, coeffs in (("stage 1", P, None, (0.0, 1.0, dt)),
+                                    ("RK3 stage 2", P1, P, (0.75, 0.25, 0.25 * dt))):
+        gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
+        dP, du, dcoef, daux = bwd.stage_backward(src, prog, coeffs, aux, gf, sp, shape,
+                                                 where=v2.Where(grid.lo))
+        finite = all(bool(torch.isfinite(t).all()) for t in (dP, dcoef)) and (
+            daux is None or bool(torch.isfinite(daux).all()))
+        d = lambda t: None if t is None else t[box].double().contiguous()
+        with f32_weno_floor():
+            ref = bwd.stage_backward_plain(d(src), prog, coeffs, d(aux), d(gf), sp, (B + 6,) * 3,
+                                           where=v2.Where(grid.lo, origin))
+        region = tuple(slice(x, x + B) for x in a)
+        errs = {"dP": rel_err(dP[region], ref[0][inner_p])}
+        if daux is not None:
+            errs["daux"] = rel_err(daux[region], ref[3][inner_p])
+        w = max(errs.values())
+        log("k3_512", f"K3'' {label:11s} {n}^3 f32 rotation in-kernel, sub-box {B}^3 at {a} "
+                      f"(origin {origin}): " + " ".join(f"{k}={v:.2e}" for k, v in errs.items())
+                      + f" (tol {K3_TOL:g}) du={du} finite={finite}")
+        if not (finite and w <= K3_TOL and du is None and dcoef.numel() == 4):
+            raise AssertionError(f"K3'' at {n}^3 failed ({label}): {errs}, finite={finite}")
+        worst = max(worst, w)
+        worst_abs = max(worst_abs, float((dP[region].double() - ref[0][inner_p]).abs().max()))
+        del dP, daux, gf
+    res["k3a_512_rel"] = worst
+    res["k3a_err"] = max(res["k3a_err"], worst_abs)
 
 
 def k4k5_512(G, bcs, shape, label, res):
@@ -589,6 +663,27 @@ def phase_k512(dev, res):
                                  f"{err} > {K1_TOL} * {scale}")
         worst = max(worst, err)
         del g, r
+    # K1'' on the same inputs with the rotation in-kernel, as the main path
+    # runs it (the program and its tables at the grid's lo)
+    terms, where = (program_term("advection", rotation),), v2.Where(grid.lo)
+    res["tables_err"] = max(res.get("tables_err", 0.0), check_tables(
+        [terms[0][0].coef_static], shape, sp, where, P, "k512"))
+    worst_p = 0.0
+    for label, src, aux, coeffs in (("stage 1", P, None, (0.0, 1.0, dt)),
+                                    ("stage 2", P1, P, (0.75, 0.25, 0.25 * dt)),
+                                    ("-u.grad(phi)", P, None, (0.0, 0.0, 1.0))):
+        g = v2.unpack_padded(v2.fused_stage(src, terms, coeffs, aux, sp, shape, where), shape)
+        r = v2.unpack_padded(v2.stage_plain(src, terms, coeffs, aux, sp, shape, where), shape)
+        err = float((g - r).abs().max())
+        scale = max(float(r.abs().max()), 1.0)
+        log("k512", f"K1'' {label:12s} {N_MAIN}^3 f32 rotation in-kernel max|kernel-plain|="
+                    f"{err:.3e} scale={scale:.3e} tol={K1_TOL:g}*scale")
+        if not (bool(torch.isfinite(g).all()) and err <= K1_TOL * scale):
+            raise AssertionError(f"K1'' parity at {N_MAIN}^3 failed ({label}): "
+                                 f"{err} > {K1_TOL} * {scale}")
+        worst_p = max(worst_p, err)
+        del g, r
+    res["k1a_err"] = max(res["k1a_err"], worst_p)
     gen = torch.Generator(device=dev).manual_seed(3)
     shell = torch.ones_like(P1, dtype=torch.bool)
     v2.unpack_padded(shell, shape).fill_(False)
@@ -625,46 +720,78 @@ def phase_slice(dev, res):
 
 
 def phase_main(dev, res):
-    torch.cuda.reset_peak_memory_stats()
+    """The flagship as the JAX bench runs it: the 512^3 Zalesak RK3
+    ``integrate`` with the rotation a callable, traced and evaluated in-kernel
+    (K1'' and its tables), then the same with the velocity streamed (K1),
+    each counted; both ms per step (host clock, CFL read-back included).
+    Then two steps with the rotation a callable that does not trace
+    (:func:`rotation_polar`): the stream route, evaluated into streams at
+    every stage and run by K1."""
     grid, phi, vel = zalesak(N_MAIN, dev)
     vol0 = float(lsm.volume(phi))
-    eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(vel), ic=phi, integrator=lsm.RK3())
+    for label, velocity in (("in-kernel (program)", rotation), ("streamed", vel)):
+        torch.cuda.reset_peak_memory_stats()
+        eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(velocity), ic=phi,
+                                  integrator=lsm.RK3())
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        eq.integrate(1.0, max_steps=10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, tables = read_counts(), v2.program_tables.launches
+        steps = eq.last_nsteps
+        vol1 = float(eq.volume())
+        finite = bool(torch.isfinite(eq.state.values).all())
+        rel = abs(vol1 - vol0) / vol0
+        program = velocity is rotation
+        routes = FusedStepper(eq.terms, phi, lsm.RK3()).routes
+        log("main", f"{N_MAIN}^3 RK3 velocity {label}: steps={steps} t={eq.t:.6f} "
+                    f"path={eq.last_fast_path} routes={routes} "
+                    f"launches={launches} table fills={tables} finite={finite} volume "
+                    f"{vol0:.6e} -> {vol1:.6e} (rel {rel:.2e}) wall={wall:.3f}s = "
+                    f"{1e3 * wall / steps:.4f} ms/step "
+                    f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        want = dict(NONE_LAUNCHED, K1=3 * steps, K2=3 * steps,
+                    **{"K1''": 3 * steps if program else 0})
+        if not (steps == 10 and eq.last_fast_path == "fused" and finite and rel <= VOL_TOL
+                and tuple(eq.state.values.shape) == grid.shape and launches == want
+                and tables == (3 * steps if program else 0)
+                and routes == ((("program", None) if program else ("stream", None)),)):
+            raise AssertionError(f"main path check failed ({label})")
+        if program:
+            res["launches"].update({"K1''": launches["K1''"], "tables": tables})
+            res["main_program_ms"] = 1e3 * wall / steps
+        else:
+            res["launches"].update({"K1": launches["K1"], "K2": launches["K2"]})
+        del eq
+    eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(rotation_polar), ic=phi,
+                              integrator=lsm.RK3())
+    routes = FusedStepper(eq.terms, phi, lsm.RK3()).routes
     torch.cuda.synchronize()
     reset_counts()
-    t0 = time.perf_counter()
-    eq.integrate(1.0, max_steps=10)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    steps = eq.last_nsteps
-    vol1 = float(eq.volume())
-    finite = bool(torch.isfinite(eq.state.values).all())
-    rel = abs(vol1 - vol0) / vol0
-    log("main", f"{N_MAIN}^3 RK3 streamed velocity: steps={steps} t={eq.t:.6f} "
-                f"path={eq.last_fast_path} launches={launches} finite={finite} "
-                f"volume {vol0:.6e} -> {vol1:.6e} (rel {rel:.2e}) wall={wall:.3f}s "
-                f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if not (steps == 10 and eq.last_fast_path == "fused" and finite and rel <= VOL_TOL
-            and tuple(eq.state.values.shape) == grid.shape
-            and launches == dict(NONE_LAUNCHED, K1=3 * steps, K2=3 * steps)):
-        raise AssertionError("main path check failed")
-    res["launches"] = {"K1": launches["K1"], "K2": launches["K2"]}
-    del eq, vel
-    eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(rotation), ic=phi, integrator=lsm.RK3())
     eq.integrate(1.0, max_steps=2)
+    torch.cuda.synchronize()
+    launches, steps = read_counts(), eq.last_nsteps
     finite = bool(torch.isfinite(eq.state.values).all())
     rel = abs(float(eq.volume()) - vol0) / vol0
-    log("main", f"{N_MAIN}^3 RK3 callable velocity: steps={eq.last_nsteps} "
-                f"path={eq.last_fast_path} finite={finite} volume rel change {rel:.2e}")
-    if not (eq.last_nsteps == 2 and eq.last_fast_path == "fused" and finite and rel <= VOL_TOL):
-        raise AssertionError("callable-velocity main path check failed")
+    log("main", f"{N_MAIN}^3 RK3 velocity a callable that does not trace: steps={steps} "
+                f"path={eq.last_fast_path} routes={routes} launches={launches} "
+                f"finite={finite} volume rel change {rel:.2e}")
+    if not (steps == 2 and eq.last_fast_path == "fused" and finite and rel <= VOL_TOL
+            and routes[0][0] == "stream" and "torch.hypot" in routes[0][1]
+            and launches == dict(NONE_LAUNCHED, K1=3 * steps, K2=3 * steps)):
+        raise AssertionError("stream-route main path check failed")
+    del eq
 
 
-def fe_grad_loss(v, streams, bcs, sp, shape, dt):
+def fe_grad_loss(v, streams, bcs, sp, shape, dt, lo=None):
     """Cell (a)'s loss ``sum(unpack(step(pack(phi)))^2)`` of one fused FE
-    step through ``fused_step_stage``."""
+    step through ``fused_step_stage``; ``streams`` three velocity tensors or
+    a term list (a program term at the grid's ``lo``, time 0)."""
     P = v2.pack_padded(v, bcs)
-    out = v2.fused_step_stage(P, streams, (0.0, 1.0, dt), None, bcs, sp, shape)
+    out = v2.fused_step_stage(P, streams, (0.0, 1.0, dt), None, bcs, sp, shape,
+                              where=v2.Where(lo))
     return (v2.unpack_padded(out, shape) ** 2).sum()
 
 
@@ -685,13 +812,17 @@ def phase_grad(dev, res):
     # cell (a): value_and_grad of one FE step, streamed and callable velocity
     v = phi.values.clone().requires_grad_()
     u = vel.values.clone().requires_grad_()
+    torch.cuda.synchronize()
+    reset_counts()
     loss = fe_grad_loss(v, tuple(u[d] for d in range(3)), bcs, sp, shape, dt)
     gv, gu = torch.autograd.grad(loss, (v, u))
+    torch.cuda.synchronize()
+    counts_a = read_counts()  # the streamed K3: one launch, no program
     ok_a = math.isfinite(loss.item()) and bool(torch.isfinite(gv).all()) and bool(
-        torch.isfinite(gu).all())
+        torch.isfinite(gu).all()) and counts_a == dict(NONE_LAUNCHED, K1=1, K2=1, K3=1, K4=1)
     stream_c = FusedStepper(lsm.AdvectionTerm(rotation), phi,
-                            lsm.ForwardEuler()).stage_terms(0.0)[0][1]
-    loss_c = fe_grad_loss(v, stream_c, bcs, sp, shape, dt)
+                            lsm.ForwardEuler()).stage_terms(0.0)  # the program (K1'', K3'')
+    loss_c = fe_grad_loss(v, stream_c, bcs, sp, shape, dt, grid.lo)
     (gv_c,) = torch.autograd.grad(loss_c, v)
     ok_a = ok_a and math.isfinite(loss_c.item()) and bool(torch.isfinite(gv_c).all())
     log("grad", f"cell (a) {n}^3 f32 FE value_and_grad: streamed loss={loss.item():.6e} "
@@ -730,7 +861,8 @@ def phase_grad(dev, res):
     torch.cuda.synchronize()
     counts = read_counts()
     want = dict(NONE_LAUNCHED, K1=2 * 3 * ROLLOUT_STEPS, K2=2 * 3 * ROLLOUT_STEPS,
-                K3=3 * ROLLOUT_STEPS, K4=3 * ROLLOUT_STEPS, K5=2 * ROLLOUT_STEPS)
+                K3=3 * ROLLOUT_STEPS, K4=3 * ROLLOUT_STEPS, K5=2 * ROLLOUT_STEPS,
+                **{"K1''": 2 * 3 * ROLLOUT_STEPS, "K3''": 3 * ROLLOUT_STEPS})
     ok_b = math.isfinite(loss_b.item()) and bool(torch.isfinite(g_b).all())
     log("grad", f"cell (b) {n}^3 f32 RK3 rollout x{ROLLOUT_STEPS} remat: loss={loss_b.item():.6e} "
                 f"max|dphi0|={float(g_b.abs().max()):.3e} finite={ok_b} launches={counts} "
@@ -777,7 +909,8 @@ def phase_grad(dev, res):
             and remat_err <= 1e-6 * scale and e64 <= 1e-10 * s64
             and l2_32 <= F32_L2_FACTOR * ulp_l2):
         raise AssertionError("gradient slice check failed")
-    res["launches"].update({k: counts[k] for k in ("K3", "K4", "K5")})
+    res["launches"].update({"K3": counts_a["K3"], "K4": counts["K4"], "K5": counts["K5"],
+                            "K3''": counts["K3''"]})
 
 
 class PlainStepper(FusedStepper):
@@ -785,8 +918,9 @@ class PlainStepper(FusedStepper):
     time the plain step on the card (``integrate`` never routes a CUDA
     tensor there)."""
 
-    def stage(self, P, coeffs, t_stage, aux, coeff_values=None):
-        out = v2.stage_plain(P, self.stage_terms(t_stage), coeffs, aux, self.spacing, self.shape)
+    def stage(self, P, coeffs, t_stage, aux, coeff_values=None, t_value=None, entries=None):
+        out = v2.stage_plain(P, self.stage_terms(t_stage, entries), coeffs, aux, self.spacing,
+                             self.shape, v2.Where(self.lo, None, t_stage))
         return v2.refresh_ghosts_plain(out, self.bcs, self.shape)
 
 
@@ -817,6 +951,14 @@ def spin(xs, t):
     return (-y + zero, x + zero, zero)
 
 
+def spin_polar(xs, t):
+    """:func:`spin` in polar form (as :func:`rotation_polar`): the stream
+    route, evaluated per stage at the dispatched slots' coordinates."""
+    x, y, z = xs
+    r, th = torch.hypot(x, y), torch.atan2(y, x)
+    return (-r * torch.sin(th), r * torch.cos(th), 0.0 * (x + y + z))
+
+
 def sphere_band(n, dev, dtype=torch.float32, center=(0.0, 0.0, 0.0), radius=0.5):
     """The band bench's field: a sphere of radius 0.5 on [-1, 1]^3 with n^3
     nodes, ``Extrapolation(2)``, a band of 3 layers."""
@@ -844,9 +986,10 @@ class PlainBandStepper(FusedBandStepper):
     with and to time on the card (``integrate`` never routes a CUDA tensor
     there)."""
 
-    def stage(self, src, dst, state, coeffs, t_stage, aux, coeff_values=None):
+    def stage(self, src, dst, state, coeffs, t_stage, aux, coeff_values=None, t_value=None):
         bd.band_stage_plain(src, dst, state.ids, state.band, self.stage_terms(state, t_stage),
-                            coeffs, aux, self.spacing, self.shape, self.tiles)
+                            coeffs, aux, self.spacing, self.shape, self.tiles,
+                            v2.Where(self.lo, None, t_stage))
         return bd.refresh_band_ghosts_plain(dst, self.bcs, self.shape, state.flags)
 
     def retube_tiles(self, cur, band, cids):
@@ -955,10 +1098,10 @@ def phase_k6k7k8(dev, res):
     res["k6_err"], res["k7_err"], res["k8_err"] = worst6, 0.0, 0.0
 
 
-def run_band_stepper(cls, nb, integrator, dt, steps):
-    """``steps`` steps of ``cls`` (re-tubing every step) from ``nb``; the
-    stepper and its last state."""
-    stepper = cls((lsm.AdvectionTerm(spin),), nb, integrator)
+def run_band_stepper(cls, nb, integrator, dt, steps, velocity=spin):
+    """``steps`` steps of ``cls`` (re-tubing every step) from ``nb`` under
+    ``velocity``; the stepper and its last state."""
+    stepper = cls((lsm.AdvectionTerm(velocity),), nb, integrator)
     state, t = stepper.pack(nb), 0.0
     for _ in range(steps):
         state = stepper.step(state, t, dt)
@@ -984,34 +1127,48 @@ def phase_band_512(dev, res):
     versions: values within K1's bound and equal masks after BAND_CHECK_STEPS
     steps. Twice: the bench's sphere, centred on the rotation's axis (its
     band does not move), and one off the axis that touches the face x = 1,
-    whose band moves (K8 changes nodes) and whose K7 gates are on."""
-    for label, center in (("centred", (0.0, 0.0, 0.0)), ("off-axis", (0.5, 0.0, 0.0))):
+    whose band moves (K8 changes nodes) and whose K7 gates are on. Each
+    with the rotation in-kernel (:func:`spin`, K6'') and on the stream route
+    (:func:`spin_polar`, K6, evaluated into tile-packed streams per stage);
+    K6's error and launches are the latter's."""
+    res["launches"]["K6"] = 0
+    for (label, center), (route, velocity) in itertools.product(
+            (("centred", (0.0, 0.0, 0.0)), ("off-axis", (0.5, 0.0, 0.0))),
+            (("program", spin), ("stream", spin_polar))):
         nb = sphere_band(N_MAIN, dev, center=center)
         dt = 0.25 * nb.grid.min_spacing
+        torch.cuda.synchronize()
         reset_counts()
         kst, kstate = run_band_stepper(FusedBandStepper, nb, lsm.ForwardEuler(), dt,
-                                       BAND_CHECK_STEPS)
+                                       BAND_CHECK_STEPS, velocity)
         torch.cuda.synchronize()
         counts = read_counts()
         pst, pstate = run_band_stepper(PlainBandStepper, nb, lsm.ForwardEuler(), dt,
-                                       BAND_CHECK_STEPS)
+                                       BAND_CHECK_STEPS, velocity)
         got, ref = kst.unpack(kstate), pst.unpack(pstate)
         err, scale, dmask, dcmask = band_diff(got, ref)
         finite = bool(torch.isfinite(got.values).all())
         moved = int((got.mask != nb.mask).sum())
         flags = kstate.flags.tolist()
-        log("band_512", f"{N_MAIN}^3 f32 sphere band {label} {center} FE x{BAND_CHECK_STEPS} "
+        log("band_512", f"{N_MAIN}^3 f32 sphere band {label} {center} {route} route "
+                        f"{kst.entries[0][0].route} FE x{BAND_CHECK_STEPS} "
                         f"(dt = 0.25 h): compute-band cells {int(got.compute_mask.sum())}, "
                         f"dispatched tiles {int(kstate.count)} of {kst.total} (tiles {kst.tiles}), "
                         f"max|kernels-plain|={err:.3e} scale={scale:.3e} tol={K1_TOL:g}*scale, "
                         f"mask mismatches {dmask} (compute {dcmask}), active-mask nodes changed "
                         f"{moved}, launches {counts}, flags {flags}, finite={finite}")
-        want = dict(NONE_LAUNCHED, K6=BAND_CHECK_STEPS, K7=BAND_CHECK_STEPS, K8=BAND_CHECK_STEPS)
+        want = dict(NONE_LAUNCHED, K6=BAND_CHECK_STEPS, K7=BAND_CHECK_STEPS, K8=BAND_CHECK_STEPS,
+                    **{"K6''": BAND_CHECK_STEPS if route == "program" else 0})
         moving = label == "centred" or (moved > 0 and flags == [1, 1])
         if not (finite and err <= K1_TOL * scale and dmask == 0 and dcmask == 0 and counts == want
-                and moving):
-            raise AssertionError(f"band kernels and plain versions disagree at 512^3 ({label})")
-        res["k6_err"] = max(res["k6_err"], err)
+                and moving and kst.entries[0][0].route == route):
+            raise AssertionError(f"band kernels and plain versions disagree at 512^3 ({label}, "
+                                 f"{route})")
+        if route == "stream":
+            res["k6_err"] = max(res["k6_err"], err)
+            res["launches"]["K6"] += counts["K6"]
+        else:
+            res["k6a_err"] = max(res.get("k6a_err", 0.0), err)
         del nb, kst, kstate, pst, pstate, got, ref
 
 
@@ -1058,7 +1215,8 @@ def phase_band(dev, res):
         wall = time.perf_counter() - t0
         counts = read_counts()
         stages, steps = len(_STAGES[type(integ)]), eq.last_nsteps
-        want = dict(NONE_LAUNCHED, K6=stages * steps, K7=stages * steps, K8=steps)
+        want = dict(NONE_LAUNCHED, K6=stages * steps, K7=stages * steps, K8=steps,
+                    **{"K6''": stages * steps})
         finite = bool(torch.isfinite(eq.state.values).all())
         rel = abs(float(eq.volume()) - vol0) / vol0
         tiles = int(bd.tile_activity(eq.state.compute_mask, default_tiles()).sum())
@@ -1071,7 +1229,7 @@ def phase_band(dev, res):
             raise AssertionError(f"band main path check failed ({name})")
         runs[name] = eq
         if name == "RK3":
-            res["launches"].update({k: counts[k] for k in ("K6", "K7", "K8")})
+            res["launches"].update({k: counts[k] for k in ("K7", "K8", "K6''")})
     # a dispatch list far too small: regrown before the band is stepped
     with first_capacity(BAND_TINY) as made:
         eq = band_integrate(nb, lsm.ForwardEuler(), BAND_STEPS)
@@ -1150,7 +1308,9 @@ def phase_band_timing(dev, res):
     fe = FusedBandStepper((lsm.AdvectionTerm(spin),), nb, lsm.ForwardEuler())
     state = fe.pack(nb)
     P, out = state.bufs
-    u = fe.stage_terms(state, 0.0)
+    # K6 streamed: the rotation tile-packed (the stepper itself runs K6'')
+    spec = fe.stage_terms(state, 0.0)[0][0]
+    u = tuple(c.contiguous() for c in fe._slot_values(spec, state, 0.0))
     coeffs = (0.0, 1.0, dt)
     t["K6"] = cuda_time(lambda: bd.band_stage(P, out, state.ids, state.band, u, coeffs, None, sp,
                                               shape, fe.tiles))
@@ -2205,8 +2365,8 @@ def config(name, n, dev, dtype=torch.float32):
 
 TWOD = {  # name: (path, launches per stage, integrate's keyword arguments)
     "D1": (None, {}, {}),
-    "D2": ("fused", {"K1": 1, "K2": 1}, {}),
-    "D3": ("fused", {"K1": 1, "K2": 1}, {}),
+    "D2": ("fused", {"K1": 1, "K2": 1, "K1''": 1}, {}),
+    "D3": ("fused", {"K1": 1, "K2": 1, "K1''": 1}, {}),
     "D4": ("fused", {"K1": 1, "K2": 1, "K1'": 1}, {}),
     "D2h": (None, {"K11": 1}, {"posthook": True}),
 }
@@ -2276,7 +2436,7 @@ def phase_twod(dev, res):
     res["k11_err"] = max(res["k11_err"], worst)
     stepper = FusedStepper(terms, phi, lsm.RK3())
     Q = v2.fused_stage(stepper.pack(phi.values), stepper.stage_terms(0.0), (0.0, 1.0, dt), None,
-                       stepper.spacing, stepper.shape)
+                       stepper.spacing, stepper.shape, v2.Where(stepper.lo))
     got = v2.refresh_ghosts_fast(Q.clone(), stepper.bcs, stepper.shape)
     ref = v2.refresh_ghosts_plain(Q.clone(), stepper.bcs, stepper.shape)
     err = float((got - ref).abs().max())
@@ -2560,7 +2720,7 @@ def timing_backward(dev, res, grid, phi, vel, P, u, dt):
     velv = vel.values.clone().requires_grad_()
     phiv = phi.values.clone().requires_grad_()
     stream_c = FusedStepper(lsm.AdvectionTerm(rotation), phi,
-                            lsm.ForwardEuler()).stage_terms(0.0)[0][1]
+                            lsm.ForwardEuler()).stage_terms(0.0)  # the program (K1'', K3'')
     dt_a = 0.25 * grid.min_spacing
 
     def cell_a_streamed():
@@ -2568,7 +2728,8 @@ def timing_backward(dev, res, grid, phi, vel, P, u, dt):
         return torch.autograd.grad(loss, (phiv, velv))
 
     def cell_a_callable():
-        return torch.autograd.grad(fe_grad_loss(phiv, stream_c, bcs, sp, shape, dt_a), phiv)
+        return torch.autograd.grad(fe_grad_loss(phiv, stream_c, bcs, sp, shape, dt_a, grid.lo),
+                                   phiv)
 
     t["cellA_streamed"] = cuda_time(cell_a_streamed, reps=10)
     mem["cellA_streamed"] = peak_gib(cell_a_streamed)
@@ -2679,7 +2840,383 @@ def phase_profile(dev, res):
                        lambda: eq.integrate(eq.t + 1.0, max_steps=3, **kw))
 
 
-def main() -> int:
+# -- in-kernel coefficient programs: K1'', K3'', K6'' ------------------------------
+
+ORIGIN = (3.0, -5.0, 7.0)  # a shard's node offset (index units): K1'' takes a nonzero one
+T_STAGE = 0.3  # the stage time the program checks evaluate at
+
+
+def vortex3(xs, t):
+    """Config 3's single-vortex field in 3D: its swirl in x-y (reversing with
+    period 4) and a constant drift along z, a time-dependent program."""
+    x, y, z = xs
+    ux, uy = shapes.vortex_velocity(period=4.0)((x, y), t)
+    return (ux + 0.0 * z, uy + 0.0 * z, 0.1 + 0.0 * (x + y + z))
+
+
+def program_term(kind, fn):
+    """``(TermSpec, ())`` of ``fn`` traced into a program (raises if it does
+    not trace: the smoke's callables all must)."""
+    prog = coef_program.trace(fn, 3, v2.n_components(kind))
+    if isinstance(prog, str):
+        raise AssertionError(f"{fn.__name__} did not trace: {prog}")
+    return v2.TermSpec(kind, "program", prog), ()
+
+
+def analytic_cases():
+    """The program cases, ``(name, terms, with_aux)``: the rotation and the
+    vortex (time-dependent) through the advection-only entry, and a
+    time-dependent program normal speed beside a constant curvature, with
+    aux, through the term-list entry."""
+    return [("rotation", (program_term("advection", rotation),), False),
+            ("vortex", (program_term("advection", vortex3),), False),
+            ("normal+curvature", (program_term("normal", kinds_speed),
+                                  (v2.TermSpec("curvature", "const", -0.05, 0), ())), True)]
+
+
+def check_tables(progs, shape, sp, where, like, phase):
+    """The program tables' kernel against its plain version on ``progs``
+    (values, and values with t-derivatives), within K1's bound for
+    ``like``'s float32 (1e-12 in float64); returns the worst max|kernel -
+    plain|."""
+    tol = K1_TOL if like.dtype == torch.float32 else 1e-12
+    worst = 0.0
+    for need_dt in (False, True):
+        got = v2.program_tables(progs, shape, sp, where, like, need_dt)
+        ref = v2.program_tables_plain(progs, shape, sp, where, like, need_dt)
+        err = float((got - ref).abs().max())
+        scale = max(float(ref.abs().max()), 1.0)
+        log(phase, f"program tables {str(like.dtype)[6:]} {got.numel()} values (dt {need_dt}) "
+                   f"max|kernel-plain|={err:.3e} scale={scale:.3e} tol={tol:g}*scale")
+        if not (got.shape == ref.shape and err <= tol * scale):
+            raise AssertionError(f"program tables disagree with their plain version: {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_k1analytic(dev, res):
+    """K1'' against its plain version at BAND_SMALL on the torus, f32 and
+    f64, two BC cases, each case of :func:`analytic_cases` at origin 0 and at
+    ORIGIN, as the bare operator (0, 0, 1) and as a stage (with aux for the
+    term list); curvature nodes at the eps gate left out as in k1kinds."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    worst = 0.0
+    for dtype, tol in ((torch.float32, K1_TOL), (torch.float64, 1e-12)):
+        grid = lsm.Grid((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), BAND_SMALL)
+        phi = lsm.sample(shapes.torus((0.0, 0.0, 0.0), 0.5, 0.2), grid, lsm.Extrapolation(2),
+                         dtype=dtype, device=dev)
+        shape, sp = grid.shape, grid.spacing
+        for bname in ("periodic", "mixed"):
+            bcs = bc_cases()[bname]
+            P = v2.pack_padded(phi.values, bcs)
+            A = v2.pack_padded(phi.values + 0.01 * torch.randn(
+                shape, generator=gen, device=dev, dtype=dtype), bcs)
+            gate = gate_nodes(P, sp, shape)
+            errs = {}
+            if bname == "periodic":
+                for origin in (None, ORIGIN):
+                    err = check_tables([s.coef_static for _, ts, _ in analytic_cases()
+                                        for s, _ in ts if s.coef_kind == "program"], shape, sp,
+                                       v2.Where(grid.lo, origin, T_STAGE), P, "k1analytic")
+                    if dtype == torch.float32:
+                        res["tables_err"] = max(res.get("tables_err", 0.0), err)
+            for name, terms, with_aux in analytic_cases():
+                keep = ~gate if has_curvature(terms) else torch.ones_like(gate)
+                stage = (A, (0.75, 0.25, 2.5e-4)) if with_aux else (None, (0.0, 1.0, 1e-3))
+                for origin in (None, ORIGIN):
+                    for aux, coeffs in ((None, (0.0, 0.0, 1.0)), stage):
+                        where = v2.Where(grid.lo, origin, T_STAGE)
+                        got = v2.fused_stage(P, terms, coeffs, aux, sp, shape, where)
+                        ref = v2.stage_plain(P, terms, coeffs, aux, sp, shape, where)
+                        torch.cuda.synchronize()
+                        g, r = v2.unpack_padded(got, shape), v2.unpack_padded(ref, shape)
+                        err, scale = kinds_err(g, r, keep)
+                        if not (bool(torch.isfinite(g).all()) and err <= tol * scale):
+                            raise AssertionError(f"K1'' parity failed ({dtype}, {bname}, {name},"
+                                                 f" origin {origin}): {err} > {tol} * {scale}")
+                        errs[name] = max(errs.get(name, 0.0), err / scale)
+                        if dtype == torch.float32:
+                            worst = max(worst, err)
+            log("k1analytic", f"K1'' {str(dtype)[6:]} {bname:9s} shape={shape} t={T_STAGE} "
+                              f"origins 0 and {ORIGIN}: max|kernel-plain|/scale (tol {tol:g}): "
+                              + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+    res["k1a_err"] = worst
+
+
+def k3a_errs(got, ref, shape):
+    """``{output: max|got - ref| / max|ref|}`` over K3''s outputs: the raw
+    dP, dalpha, dbeta, dgamma, dt, daux."""
+    errs = {"dP": rel_err(got[0], ref[0])}
+    for k, name in enumerate(("dalpha", "dbeta", "dgamma", "dt")):
+        errs[name] = rel_err(got[2][k:k + 1], ref[2][k:k + 1])
+    if ref[3] is not None:
+        errs["daux"] = rel_err(v2.unpack_padded(got[3], shape), v2.unpack_padded(ref[3], shape))
+    return errs
+
+
+def k3a_run(P, terms, coeffs, A, gf, sp, shape, where, plain=False):
+    """K3'' (or its plain version) on a program term list: the advection-only
+    entry for one advection program, the term-list entry otherwise; with
+    the stage time's cotangent."""
+    if v2.is_advection_only(terms):
+        fn = bwd.stage_backward_plain if plain else bwd.stage_backward
+        return fn(P, terms[0][0].coef_static, coeffs, A, gf, sp, shape, where=where,
+                  need_dt=True)
+    fn = bwd.stage_backward_terms_plain if plain else bwd.stage_backward_terms
+    return fn(P, terms, coeffs, A, gf, sp, shape, where=where, need_dt=True)
+
+
+def phase_k3analytic(dev, res):
+    """K3'' at BAND_SMALL on the noisy torus, two tie-free BC cases, the
+    cases of :func:`analytic_cases` plus the vortex beside the program normal
+    speed (K3 in accumulate mode after K3'), with and without aux, the stage
+    time's cotangent included: f64 kernel vs f64 plain (tol 1e-10 relative
+    to max|ref|), f32 kernel vs the f64 autograd oracle of stage + refresh
+    (float32's WENO epsilon floor; tol K3_TOL)."""
+    shape = BAND_SMALL
+    gen = torch.Generator(device=dev).manual_seed(32)
+    grid = lsm.Grid((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0), shape)
+    sp, where = grid.spacing, v2.Where(grid.lo, None, T_STAGE)
+    torus = lsm.sample(shapes.torus((0.0, 0.0, 0.0), 0.5, 0.2), grid, dtype=torch.float64,
+                       device=dev).values
+    vals = torus + 1e-3 * torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+    aux_vals = torch.randn(shape, generator=gen, device=dev, dtype=torch.float64)
+    G64 = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=torch.float64)
+    cases = [(n, t) for n, t, _ in analytic_cases()] + [
+        ("vortex + normal", (program_term("advection", vortex3),
+                             program_term("normal", kinds_speed)))]
+    worst = {"f64": 0.0, "f32": 0.0, "f32_abs": 0.0}
+    for bname in ("periodic", "symmetry"):
+        bcs = lsm.normalize_bcs(K3K_BCS[bname](), 3)
+        for name, terms in cases:
+            line = {}
+            for with_aux in (False, True):
+                coeffs = (0.75, 0.25, 2.5e-3) if with_aux else (0.0, 1.0, 1e-2)
+                for dtype in (torch.float64, torch.float32):
+                    P = v2.pack_padded(vals.to(dtype), bcs)
+                    A = v2.pack_padded(aux_vals.to(dtype), bcs) if with_aux else None
+                    G = G64.to(dtype)
+                    gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
+                    got = k3a_run(P, terms, coeffs, A, gf, sp, shape, where)
+                    torch.cuda.synchronize()
+                    if not all(bool(torch.isfinite(x).all()) for x in (got[0], got[2])):
+                        raise AssertionError(f"K3'' non-finite ({bname}, {name})")
+                    if dtype == torch.float64:
+                        plain = k3a_run(P, terms, coeffs, A, gf, sp, shape, where, plain=True)
+                        errs = k3a_errs(got, plain, shape)
+                        key = "f64"
+                    else:
+                        d = lambda t: None if t is None else t.double()
+                        with f32_weno_floor():
+                            ref = bwd.composite_backward_autograd(
+                                d(P), terms, coeffs, d(A), G.double(), bcs, sp, shape, where)
+                        errs = k3a_errs(got, ref, shape)
+                        worst["f32_abs"] = max(worst["f32_abs"],
+                                               float((got[0].double() - ref[0]).abs().max()))
+                        key = "f32"
+                    line[key] = max(line.get(key, 0.0), max(errs.values()))
+                    line[f"{key}_dt"] = max(line.get(f"{key}_dt", 0.0), errs["dt"])
+                    worst[key] = max(worst[key], max(errs.values()))
+            log("k3analytic", f"{bname:9s} {name:16s} f64 kernel vs plain {line['f64']:.2e} "
+                              f"(dt {line['f64_dt']:.2e}; tol 1e-10), f32 kernel vs f64 oracle "
+                              f"{line['f32']:.2e} (dt {line['f32_dt']:.2e}; tol {K3_TOL:g}), "
+                              f"relative to max|ref|")
+    log("k3analytic", f"worst: f64 {worst['f64']:.3e}, f32 {worst['f32']:.3e} (dP max abs "
+                      f"{worst['f32_abs']:.3e})")
+    if not (worst["f64"] <= 1e-10 and worst["f32"] <= K3_TOL):
+        raise AssertionError(f"K3'' parity failed: {worst}")
+    res["k3a_err"] = worst["f32_abs"]
+
+
+def phase_k6analytic(dev, res):
+    """K6'' against its plain version over the BAND_SMALL sphere's dispatch
+    list, f32 and f64, two BC cases: the band bench's rotation (the
+    advection-only entry) and a program normal speed beside a constant
+    curvature with aux (the term-list entry), at T_STAGE; within K1's bound
+    on the dispatched compute band, bit for bit elsewhere."""
+    gen = torch.Generator(device=dev).manual_seed(33)
+    worst = 0.0
+    cases = [("spin", (program_term("advection", spin),), False),
+             ("normal+curvature", (program_term("normal", kinds_speed),
+                                   (v2.TermSpec("curvature", "const", -0.05, 0), ())), True)]
+    for dtype, tol in ((torch.float32, K1_TOL), (torch.float64, 1e-12)):
+        grid = lsm.Grid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), BAND_SMALL)
+        phi = lsm.sample(shapes.sphere((0.1, 0.5, 0.9), 0.35), grid, lsm.Extrapolation(2),
+                         dtype=dtype, device=dev)
+        nb = lsm.NarrowBandField.from_field(phi)
+        shape, sp, tiles = grid.shape, grid.spacing, default_tiles(nb.nlayers)
+        band = combined(nb)
+        act = bd.tile_activity(band, tiles)
+        cap = int(act.sum()) + 5
+        ids, _ = bd.compact_ids(act, cap)
+        disp = bd.dispatched_cells(ids, shape, tiles)
+        cm = band != 0
+        off_list = ~inside(shape, disp, dev)
+        for bname in ("extrap2", "mixed"):
+            bcs = bc_cases()[bname]
+            P = v2.pack_padded(nb.values, bcs)
+            A = v2.pack_padded(nb.values + 0.01 * torch.randn(
+                shape, generator=gen, device=dev, dtype=dtype), bcs)
+            target = P + torch.randn(P.shape, generator=gen, device=dev, dtype=dtype)
+            gate = gate_nodes(P, sp, shape)
+            errs, exact = {}, True
+            for name, terms, with_aux in cases:
+                on = disp & cm & (~gate if has_curvature(terms) else torch.ones_like(gate))
+                aux, coeffs = (A, (0.75, 0.25, 2.5e-4)) if with_aux else (None, (0.0, 1.0, 1e-3))
+                got = bd.band_stage(P, target.clone(), ids, band, terms, coeffs, aux, sp, shape,
+                                    tiles, v2.Where(grid.lo, None, T_STAGE))
+                ref = bd.band_stage_plain(P, target.clone(), ids, band, terms, coeffs, aux, sp,
+                                          shape, tiles, v2.Where(grid.lo, None, T_STAGE))
+                torch.cuda.synchronize()
+                g, r = v2.unpack_padded(got, shape), v2.unpack_padded(ref, shape)
+                err, scale = kinds_err(g, r, on)
+                kept = torch.equal(g[disp & ~cm], v2.unpack_padded(P, shape)[disp & ~cm])
+                untouched = torch.equal(got[off_list], target[off_list])
+                exact = exact and kept and untouched
+                if not (bool(torch.isfinite(g).all()) and err <= tol * scale and kept
+                        and untouched):
+                    raise AssertionError(f"K6'' parity failed ({dtype}, {bname}, {name}): err "
+                                         f"{err} scale {scale}, kept {kept}, untouched {untouched}")
+                errs[name] = err / scale
+                if dtype == torch.float32:
+                    worst = max(worst, err)
+            log("k6analytic", f"K6'' {str(dtype)[6:]} {bname:9s} tiles={tiles} slots={cap} "
+                              f"max|kernel-plain|/scale (tol {tol:g}): "
+                              + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+                              + f"; off the band and off the list bit for bit: {exact}")
+    res["k6a_err"] = worst
+
+
+def update_terms_of(phi):
+    """``update_func`` terms: the rotation re-traced at every refresh, and a
+    normal speed that follows the state (0.05 + 0.02 tanh(phi), streamed)."""
+    speed = lambda s, p, t: lsm.MeshField(0.05 + 0.02 * torch.tanh(p.values), p.grid)
+    return (lsm.AdvectionTerm(rotation, update_func=lambda v, p, t: rotation),
+            lsm.NormalMotionTerm(0.05, update_func=speed))
+
+
+def phase_update(dev, res):
+    """``update_func`` on the dense fused stepper: ``integrate`` of the
+    64^3 Zalesak field under :func:`update_terms_of`, RK3, on the card
+    (kernels: K1'' inside K1' for the program advection beside the streamed
+    speed) against the CPU (plain versions), f32 and f64; launches counted."""
+    for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
+        out = {}
+        for where in ("cpu", dev):
+            _, phi, _ = zalesak(N_SMALL, where, dtype)
+            eq = lsm.LevelSetEquation(terms=update_terms_of(phi), ic=phi, integrator=lsm.RK3())
+            if where != "cpu":
+                torch.cuda.synchronize()
+            reset_counts()
+            eq.integrate(1.0, max_steps=KINDS_SMALL_STEPS)
+            if where != "cpu":
+                torch.cuda.synchronize()
+            out[str(where)] = (eq, read_counts())
+        (a, counts), (b, _) = out[str(dev)], out["cpu"]
+        steps = a.last_nsteps
+        scale = max(float(b.state.values.abs().max()), 1.0)
+        err = float((a.state.values.cpu().double() - b.state.values.double()).abs().max())
+        want = dict(NONE_LAUNCHED, K1=3 * steps, K2=3 * steps,
+                    **{"K1'": 3 * steps, "K1''": 3 * steps})
+        speeds = isinstance(a.terms[1].speed, lsm.MeshField)
+        log("update", f"{N_SMALL}^3 {str(dtype)[6:]} RK3 update_func: steps {steps}/"
+                      f"{b.last_nsteps} paths {a.last_fast_path}/{b.last_fast_path} t "
+                      f"{a.t:.9e}/{b.t:.9e} max|card-cpu|={err:.3e} (tol {tol:g}*scale) "
+                      f"launches={counts} refreshed terms kept: {speeds}")
+        if not (steps == b.last_nsteps == KINDS_SMALL_STEPS
+                and a.last_fast_path == b.last_fast_path == "fused"
+                and abs(a.t - b.t) <= T_TOL[dtype] * abs(b.t) and err <= tol * scale
+                and counts == want and speeds):
+            raise AssertionError(f"update_func card-vs-CPU check failed ({dtype})")
+
+
+def phase_analytic_timing(dev, res):
+    """CUDA-event medians at 512^3 f32 of K1'' (rotation, vortex), K3''
+    (rotation; vortex with the time's cotangent) and K6'' (the band bench's
+    state), beside their plain versions (the plain K3'' at N_PLAIN_BWD^3);
+    the flagship RK3 ``integrate`` per step with the rotation in-kernel and
+    streamed, in turns."""
+    t, n = res["t"], N_MAIN
+    grid, phi, vel = zalesak(n, dev)
+    shape, sp, bcs = grid.shape, grid.spacing, phi.bcs
+    P = v2.pack_padded(phi.values, bcs)
+    dt = 0.5 * float(lsm.compute_cfl((lsm.AdvectionTerm(vel),), phi, 0.0))
+    coeffs = (0.0, 1.0, dt)
+    where = v2.Where(grid.lo, None, T_STAGE)
+    G = torch.randn(v2.padded_shape(shape), generator=torch.Generator(device=dev).manual_seed(34),
+                    device=dev)
+    gf = bwd.fold_ghost_cotangent_fast(G, bcs, shape)
+    for name, fn in (("rotation", rotation), ("vortex", vortex3)):
+        terms = (program_term("advection", fn),)
+        prog = terms[0][0].coef_static
+        t[f"K1pp_{name}"] = cuda_time(lambda: v2.fused_stage(P, terms, coeffs, None, sp, shape,
+                                                             where))
+        t[f"K1pp_{name}_plain"] = cuda_time(lambda: v2.stage_plain(
+            P, terms, coeffs, None, sp, shape, where), warmup=1)
+        t[f"K3pp_{name}"] = cuda_time(lambda: bwd.stage_backward(
+            P, prog, coeffs, None, gf, sp, shape, where=where, need_dt=prog.depends_on_t))
+        t[f"tables_{name}"] = cuda_time(lambda: v2.program_tables(
+            [prog], shape, sp, where, P, False))
+        t[f"tables_{name}_plain"] = cuda_time(lambda: v2.program_tables_plain(
+            [prog], shape, sp, where, P, False))
+        res[f"prog_{name}"] = program_work(prog, shape)
+    m = N_PLAIN_BWD
+    gm, phim, _ = zalesak(m, dev)
+    Pm = v2.pack_padded(phim.values, phim.bcs)
+    Gm = torch.randn(v2.padded_shape(gm.shape), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(35))
+    gfm = bwd.fold_ghost_cotangent_plain(Gm, phim.bcs, gm.shape)
+    prog = program_term("advection", vortex3)[0].coef_static
+    t[f"K3pp_vortex@{m}"] = cuda_time(lambda: bwd.stage_backward(
+        Pm, prog, coeffs, None, gfm, gm.spacing, gm.shape, where=where, need_dt=True))
+    t[f"K3pp_vortex_plain@{m}"] = cuda_time(lambda: bwd.stage_backward_plain(
+        Pm, prog, coeffs, None, gfm, gm.spacing, gm.shape, where=where, need_dt=True),
+        warmup=1, reps=5)
+    del gm, phim, Pm, Gm, gfm, G, gf
+    # the CFL bound, which still evaluates a callable over the whole grid in
+    # plain torch (ROADMAP queue 1 item 7b), against the streamed velocity's
+    for key, term in (("cfl_program", lsm.AdvectionTerm(rotation)),
+                      ("cfl_streamed", lsm.AdvectionTerm(vel))):
+        t[key] = cuda_time(lambda: lsm.compute_cfl((term,), phi, 0.0), warmup=1)
+    for key, term in (("RK3_integrate_program", lsm.AdvectionTerm(rotation)),
+                      ("RK3_integrate_streamed", lsm.AdvectionTerm(vel)),
+                      ("RK3_integrate_streamed_2", lsm.AdvectionTerm(vel)),
+                      ("RK3_integrate_program_2", lsm.AdvectionTerm(rotation))):
+        t[key] = integrate_ms_per_step(term, phi, lsm.RK3())
+    del P, phi, vel
+    torch.cuda.empty_cache()
+    nb = sphere_band(n, dev)
+    fe = FusedBandStepper((lsm.AdvectionTerm(spin),), nb, lsm.ForwardEuler())
+    state = fe.pack(nb)
+    Q, out = state.bufs
+    terms = fe.stage_terms(state, 0.0)
+    bcoeffs = (0.0, 1.0, 0.25 * nb.grid.min_spacing)
+    t["K6pp"] = cuda_time(lambda: bd.band_stage(Q, out, state.ids, state.band, terms, bcoeffs,
+                                                None, nb.grid.spacing, nb.shape, fe.tiles,
+                                                v2.Where(fe.lo)))
+    t["K6pp_plain"] = cuda_time(lambda: bd.band_stage_plain(
+        Q, out, state.ids, state.band, terms, bcoeffs, None, nb.grid.spacing, nb.shape,
+        fe.tiles, v2.Where(fe.lo)), warmup=1, reps=5)
+    res["prog_spin"] = program_work(terms[0][0].coef_static, nb.shape)
+    del nb, fe, state, Q, out
+    torch.cuda.empty_cache()
+    for name in [k for k in t if k.startswith(("K1pp", "K3pp", "K6pp", "RK3_integrate", "cfl",
+                                               "tables"))]:
+        log("analytic_timing", f"f32 {name:28s} median {t[name]:.4f} ms")
+
+
+def program_work(prog, shape):
+    """A program's work on a grid of ``shape``: its arithmetic operations
+    per node (a leaf's load is none), and its tables' entries and arithmetic
+    operations (each table once per launch)."""
+    entries = [1 if axis < 0 else shape[axis] for _, axis in prog.tables]
+    return {"per_node": prog.n_arith, "table_entries": sum(entries),
+            "table_ops": sum(n * k for n, k in zip(entries, prog.table_arith))}
+
+
+def main(argv=()) -> int:
+    """Every phase in order; with phase names in ``argv``, only those (a
+    partial run: no kernel record, and a last line that says so)."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     dev = torch.device("cuda", 0)
@@ -2694,26 +3231,40 @@ def main() -> int:
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("build", line.strip())
-    res = {}
-    for name, run in (("device", phase_device), ("k2", phase_k2), ("k1", phase_k1),
+    res = {"t": {}, "launches": {}, "mem": {}}
+    if argv:  # a partial run: what the skipped phases would have recorded starts at 0
+        res = collections.defaultdict(float, res)
+    phases = (("device", phase_device), ("k2", phase_k2), ("k1", phase_k1),
                       ("k4k5", phase_k4k5), ("k3", phase_k3), ("k6k7k8", phase_k6k7k8),
                       ("k1kinds", phase_k1kinds), ("k6kinds", phase_k6kinds),
-                      ("k3kinds", phase_k3kinds),
+                      ("k3kinds", phase_k3kinds), ("k1analytic", phase_k1analytic),
+                      ("k3analytic", phase_k3analytic), ("k6analytic", phase_k6analytic),
                       ("k10k11", phase_k10k11), ("k2_small", phase_k2_small),
                       ("k512", phase_k512), ("k3_512", phase_k3_512),
                       ("band_512", phase_band_512), ("kinds_512", phase_kinds_512),
                       ("k3kinds_512", phase_k3kinds_512),
                       ("slice", phase_slice), ("main", phase_main), ("grad", phase_grad),
-                      ("band", phase_band), ("kinds", phase_kinds),
+                      ("band", phase_band), ("kinds", phase_kinds), ("update", phase_update),
                       ("grad_kinds", phase_grad_kinds), ("config5", phase_config5),
                       ("general_512", phase_general_512), ("twod", phase_twod),
                       ("general_small", phase_general_small), ("timing", phase_timing),
                       ("band_timing", phase_band_timing), ("kinds_timing", phase_kinds_timing),
-                      ("general_timing", phase_general_timing), ("profile", phase_profile),
-                      ("revolution", phase_revolution)):
+                      ("general_timing", phase_general_timing),
+                      ("analytic_timing", phase_analytic_timing), ("profile", phase_profile),
+                      ("revolution", phase_revolution))
+    unknown = set(argv) - {name for name, _ in phases}
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
+    for name, run in phases:
+        if argv and name not in argv:
+            continue
         t0 = time.perf_counter()
         run(dev, res)
         log(name, f"phase done in {time.perf_counter() - t0:.1f} s")
+    if argv:
+        print(nvidia_smi())
+        print(json.dumps({"partial": list(argv), "passed": True}))
+        return 0
     unported_bounds()
     print(json.dumps({"kernels": kernel_records(res)}))
     print(nvidia_smi())
@@ -2724,19 +3275,15 @@ def main() -> int:
 
 
 def unported_bounds():
-    """The bounds of the TPU kernels still to port, at the sizes their paths
-    would run: K9 writes the four halo/BC shell blocks of a 512^3 grid's
-    local shard on 4 shards along axis 0 (blocks read once and written once);
-    K1'' is K1 with in-kernel coefficients (phi read, the interior written,
-    K1's operations; the coefficient's own are not counted)."""
+    """The bound of the TPU kernel still to port, at the size its path would
+    run: K9 writes the four halo/BC shell blocks of a 512^3 grid's local
+    shard on 4 shards along axis 0 (blocks read once and written once)."""
     f32, n = 4, N_MAIN
     n0, n1, n2 = n // 4, n, n
     blocks = 2 * 3 * n1 * n2 + 2 * (n0 + 6) * 3 * n2
     k9 = bound(2 * f32 * blocks, 0)
-    k1a = bound(f32 * ((n + 6) ** 3 + n ** 3), K1_OPS_PER_CELL * n ** 3)
     log("bounds", f"K9 write_shell_blocks, one shard of {n}^3 on 4: {2 * f32 * blocks / 1e6:.2f} "
-                  f"MB, bound {k9[0]:.4f} ms ({k9[1]}); K1'' analytic coefficients at {n}^3: "
-                  f"bound {k1a[0]:.4f} ms ({k1a[1]})")
+                  f"MB, bound {k9[0]:.4f} ms ({k9[1]})")
 
 
 def kernel_records(res):
@@ -2747,6 +3294,15 @@ def kernel_records(res):
     cells, padded, ghosts = n ** 3, (n + 6) ** 3, (n + 6) ** 3 - n ** 3
     f32 = 4
     k3_plain_n = res["K3_plain_n"]
+    # a program's arithmetic per node (a table load is none) and its tables'
+    # entries (written once, read once) and arithmetic, once per launch
+    rot, vortex, spin_w = res["prog_rotation"], res["prog_vortex"], res["prog_spin"]
+
+    def prog_bound(nbytes, ops, w, nodes, dual=False):
+        k = 2 if dual else 1  # dual numbers: the t-derivative beside each value
+        return bound(nbytes + k * 2 * f32 * w["table_entries"],
+                     ops + k * (w["per_node"] * nodes + w["table_ops"]))
+
     tk = res["t_k3k"]
     work, kwork = res["band_work"], res["kinds_band_work"]
     rows = [
@@ -2811,6 +3367,28 @@ def kernel_records(res):
         (f"K11 weno_stage_pallas 2D (the same in 2D, at {N_2D}^2)", "weno_general.cu",
          "lsm_tpu/ops/weno_pallas.py:294", "K11", res["k11_err"], t["K11"], t["K11_plain"],
          bound(f32 * ((N_2D + 6) ** 2 + 3 * N_2D ** 2), K11_OPS_PER_CELL * N_2D ** 2), None),
+        ("K1'' fused_stage with an in-kernel coefficient program (the rotation)",
+         "weno_stage.cu", "lsm_tpu/ops/weno_v2.py:667", "K1''", res["k1a_err"],
+         t["K1pp_rotation"], t["K1pp_rotation_plain"],
+         # reads P, writes the interior; WENO5 plus the program's arithmetic
+         prog_bound(f32 * (padded + cells), K1_OPS_PER_CELL * cells, rot, cells), None),
+        ("K3'' stage_backward with an in-kernel coefficient program (the rotation)",
+         "stage_backward.cu", "lsm_tpu/ops/weno_v2_bwd.py:731", "K3''", res["k3a_err"],
+         t["K3pp_rotation"], t[f"K3pp_vortex_plain@{N_PLAIN_BWD}"],
+         # reads P and the folded g, writes dP (no stream, no du)
+         prog_bound(f32 * (2 * padded + cells), K3_OPS_PER_CELL * cells, rot, cells), None),
+        ("K6'' band_stage with an in-kernel coefficient program (the band bench's rotation)",
+         "band_stage.cu", "lsm_tpu/ops/band_pallas.py:612", "K6''", res["k6a_err"], t["K6pp"],
+         t["K6pp_plain"],
+         # per dispatched node: P's centre and the mask read, the output
+         # written; on the compute band WENO5 and the program, nothing streamed
+         prog_bound((f32 * 2 + 1) * work["dispatched"], K1_OPS_PER_CELL * work["ops_cells"],
+                    spin_w, work["ops_cells"]), None),
+        ("K1''/K3''/K6'' program tables (the per-axis subexpressions of a traced coefficient; "
+         "the vortex)", "coef_tables.cu", "lsm_tpu/ops/weno_v2.py:508", "tables",
+         res["tables_err"], t["tables_vortex"], t["tables_vortex_plain"],
+         # each entry written once from the coordinates and t
+         bound(f32 * vortex["table_entries"], vortex["table_ops"]), None),
     ]
     out = []
     for name, src, replaces, key, err, ms, plain_ms, (bound_ms, bound_by), lib_ms in rows:
@@ -2837,6 +3415,25 @@ def kernel_records(res):
                        rel_err_f64_vs_plain=res["k3k_rel"][0],
                        rel_err_f32_vs_f64_oracle=res["k3k_rel"][1],
                        ops_per_cell={"A": K3K_OPS["A"], "C": K3K_OPS["C"]})
+        if key == "K1''":  # the time-dependent vortex
+            rec.update(ms_vortex=t["K1pp_vortex"], plain_ms_vortex=t["K1pp_vortex_plain"],
+                       bound_ms_vortex=prog_bound(f32 * (padded + cells), K1_OPS_PER_CELL * cells,
+                                                  vortex, cells)[0],
+                       ms_streamed_K1=t["K1"], program_work={"rotation": rot, "vortex": vortex})
+        if key == "K3''":  # the vortex with dt (dual numbers); plain at its own grid
+            m = N_PLAIN_BWD
+            rec.update(plain_grid=f"{m}^3", plain_case="vortex, dt",
+                       ms_vortex_dt=t["K3pp_vortex"], ms_vortex_dt_at_plain_grid=t[
+                           f"K3pp_vortex@{m}"], ms_streamed_K3=t["K3"],
+                       bound_ms_vortex_dt=prog_bound(f32 * (2 * padded + cells),
+                                                     K3_OPS_PER_CELL * cells, vortex, cells,
+                                                     dual=True)[0],
+                       rel_err_512_sub_box=res["k3a_512_rel"])
+        if key == "K6''":
+            rec.update(ms_streamed_K6=t["K6"])
+        if key == "tables":
+            rec.update(ms_rotation=t["tables_rotation"], plain_ms_rotation=t[
+                "tables_rotation_plain"], work={"rotation": rot, "vortex": vortex})
         if key == "K1'":  # config B's stage (one streamed sign, 12 B/cell) and the sign recomputed
             b_ms, (b_bound, _) = t["K1k_B_frozen"], bound(f32 * (padded + 2 * cells),
                                                           KINDS_OPS["B"] * cells)
@@ -2849,4 +3446,4 @@ def kernel_records(res):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(tuple(sys.argv[1:])))

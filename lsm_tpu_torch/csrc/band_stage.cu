@@ -11,6 +11,10 @@
 // K1's own, so the two cannot drift: lsm::stage_value (weno5.cuh) for the
 // advection-only stage, lsm::stage_value_terms (hamiltonians.cuh) for any
 // term list, whose streamed coefficients are tile-packed like the velocity.
+// K6'' (the TPU kernel's "analytic" branch, band_pallas.py:537-545): a
+// coefficient program is evaluated at each node's own coordinates
+// (csrc/coef_program.cuh), computed from the tile id and the node's place in
+// the tile, so nothing is tile-packed or kept per slot for it.
 //
 // Layout: P, aux and out are padded (n0+6, n1+6, n2+6) buffers; `band` is
 // the interior-shaped uint8 combined mask (0 outside, 1 compute band only, 2
@@ -28,6 +32,7 @@
 
 #include <cuda_runtime.h>
 
+#include "coef_program.cuh"
 #include "hamiltonians.cuh"
 #include "lsm_kernels.h"
 #include "weno5.cuh"
@@ -95,7 +100,7 @@ int launch_band_stage(const void* P, const void* u0, const void* u1, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kAdvection>
+template <typename T, bool kAdvection, bool kProgram>
 __global__ void __launch_bounds__(kThreads)
     band_stage_terms_kernel(const T* __restrict__ P, const T* __restrict__ aux,
                             T* __restrict__ out, const uint8_t* __restrict__ band,
@@ -122,9 +127,9 @@ __global__ void __launch_bounds__(kThreads)
     if (i >= n0 || j >= n1 || k >= n2) continue;
     const int64_t c = (i + LSM_GHOST) * s0 + (j + LSM_GHOST) * s1 + (k + LSM_GHOST);
     const int64_t q = (i * n1 + j) * n2 + k;
-    out[c] = band[q] != 0
-                 ? lsm::stage_value_terms<T, kAdvection>(P, aux, c, s0, s1, slot + e, terms)
-                 : P[c];
+    out[c] = band[q] != 0 ? lsm::stage_value_terms<T, kAdvection, kProgram>(
+                                P, aux, c, s0, s1, slot + e, i, j, k, terms)
+                          : P[c];
   }
 }
 
@@ -137,8 +142,11 @@ int launch_band_stage_terms(const void* P, const void* aux, void* out, const voi
   if (capacity <= 0) return 0;
   const int G1 = static_cast<int>((n1 + B1 - 1) / B1);
   const int G2 = static_cast<int>((n2 + B2 - 1) / B2);
-  const auto kernel = lsm::has_advection(*terms) ? band_stage_terms_kernel<T, true>
-                                                 : band_stage_terms_kernel<T, false>;
+  const bool adv = lsm::has_advection(*terms), prog = lsm::has_program(*terms);
+  const auto kernel = adv ? (prog ? band_stage_terms_kernel<T, true, true>
+                                  : band_stage_terms_kernel<T, true, false>)
+                          : (prog ? band_stage_terms_kernel<T, false, true>
+                                  : band_stage_terms_kernel<T, false, false>);
   kernel<<<static_cast<unsigned>(capacity), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(P), static_cast<const T*>(aux), static_cast<T*>(out),
       static_cast<const uint8_t*>(band), static_cast<const int32_t*>(ids), n0, n1, n2,
@@ -146,7 +154,82 @@ int launch_band_stage_terms(const void* P, const void* aux, void* out, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    band_stage_prog_kernel(const T* __restrict__ P, const T* __restrict__ aux,
+                           T* __restrict__ out, const uint8_t* __restrict__ band,
+                           const int32_t* __restrict__ ids, int64_t n0, int64_t n1, int64_t n2,
+                           int B0, int B1, int B2, int G1, int G2, lsm::StageConsts<T> sc,
+                           const __grid_constant__ LsmStageTerms terms) {
+  const int32_t tid = ids[blockIdx.x];
+  if (tid < 0) return;
+  const int64_t ti = tid / (G1 * G2);
+  const int64_t tj = (tid / G2) % G1;
+  const int64_t tk = tid % G2;
+  const int64_t s1 = n2 + 2 * LSM_GHOST;
+  const int64_t s0 = (n1 + 2 * LSM_GHOST) * s1;
+  const int tile = B0 * B1 * B2;
+  for (int e = threadIdx.x; e < tile; e += kThreads) {
+    const int c2 = e % B2;
+    const int r = e / B2;
+    const int c1 = r % B1;
+    const int c0 = r / B1;
+    const int64_t i = ti * B0 + c0;
+    const int64_t j = tj * B1 + c1;
+    const int64_t k = tk * B2 + c2;
+    if (i >= n0 || j >= n1 || k >= n2) continue;
+    const int64_t c = (i + LSM_GHOST) * s0 + (j + LSM_GHOST) * s1 + (k + LSM_GHOST);
+    const int64_t q = (i * n1 + j) * n2 + k;
+    T v;
+    if (band[q] != 0) {
+      const T u0 = lsm::prog_value<T>(terms.prog, 0, 0, i, j, k);
+      const T u1 = lsm::prog_value<T>(terms.prog, 0, 1, i, j, k);
+      const T u2 = lsm::prog_value<T>(terms.prog, 0, 2, i, j, k);
+      v = lsm::stage_value(P, aux, c, s0, s1, u0, u1, u2, sc.inv_h0, sc.inv_h1, sc.inv_h2,
+                           sc.alpha, sc.beta, sc.gamma);
+    } else {
+      v = P[c];
+    }
+    out[c] = v;
+  }
+}
+
+template <typename T>
+int launch_band_stage_prog(const void* P, const void* aux, void* out, const void* band,
+                           const void* ids, int64_t capacity, int64_t n0, int64_t n1, int64_t n2,
+                           int64_t B0, int64_t B1, int64_t B2, const LsmStageTerms* terms,
+                           void* stream) {
+  if (terms->n != 1 || terms->coef[0] != LSM_COEF_PROGRAM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (capacity <= 0) return 0;
+  const int G1 = static_cast<int>((n1 + B1 - 1) / B1);
+  const int G2 = static_cast<int>((n2 + B2 - 1) / B2);
+  band_stage_prog_kernel<T><<<static_cast<unsigned>(capacity), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(P), static_cast<const T*>(aux), static_cast<T*>(out),
+      static_cast<const uint8_t*>(band), static_cast<const int32_t*>(ids), n0, n1, n2,
+      static_cast<int>(B0), static_cast<int>(B1), static_cast<int>(B2), G1, G2,
+      lsm::StageConsts<T>::of(*terms), *terms);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int lsm_band_stage_prog_f32(const void* P, const void* aux, void* out,
+                                       const void* band, const void* ids, int64_t capacity,
+                                       int64_t n0, int64_t n1, int64_t n2, int64_t B0, int64_t B1,
+                                       int64_t B2, const LsmStageTerms* terms, void* stream) {
+  return launch_band_stage_prog<float>(P, aux, out, band, ids, capacity, n0, n1, n2, B0, B1, B2,
+                                       terms, stream);
+}
+
+extern "C" int lsm_band_stage_prog_f64(const void* P, const void* aux, void* out,
+                                       const void* band, const void* ids, int64_t capacity,
+                                       int64_t n0, int64_t n1, int64_t n2, int64_t B0, int64_t B1,
+                                       int64_t B2, const LsmStageTerms* terms, void* stream) {
+  return launch_band_stage_prog<double>(P, aux, out, band, ids, capacity, n0, n1, n2, B0, B1,
+                                        B2, terms, stream);
+}
 
 extern "C" int lsm_band_stage_terms_f32(const void* P, const void* aux, void* out,
                                         const void* band, const void* ids, int64_t capacity,

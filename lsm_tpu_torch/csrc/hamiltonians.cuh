@@ -27,6 +27,7 @@
 
 #include <stdint.h>
 
+#include "coef_program.cuh"
 #include "lsm_kernels.h"
 #include "weno5.cuh"
 
@@ -140,7 +141,7 @@ __device__ __forceinline__ T curvature_term(const T* __restrict__ P, int64_t c, 
   return b * kappa * safe_sqrt(nrmsq);
 }
 
-// s * (|grad| - 1) with the sign s frozen (coef == LSM_COEF_STREAM, s = s0)
+// s * (|grad| - 1) with the sign s frozen (s = s0: streamed or a program)
 // or recomputed from phi with gradient-aware smoothing (LSM_COEF_NONE).
 template <typename T>
 __device__ __forceinline__ T eikonal_term(const T* __restrict__ P, int64_t c, int64_t s0,
@@ -170,17 +171,29 @@ inline bool has_advection(const LsmStageTerms& p) {
   return false;
 }
 
+// Whether the table holds a program coefficient (host side: picks the kernel).
+inline bool has_program(const LsmStageTerms& p) {
+  for (int e = 0; e < p.n; ++e) {
+    if (p.coef[e] == LSM_COEF_PROGRAM) return true;
+  }
+  return false;
+}
+
 // One RK stage at the padded index c over the term table p:
 // alpha*aux[c] + beta*P[c] - gamma*sum_e H_e, the alpha term dropped when
 // aux is null. q indexes the streams (the interior index for K1, the slot
-// position for K6). The loop and its branches are uniform across a block.
+// position for K6); a program coefficient is evaluated at the node's
+// interior index (i0, i1, i2) (K1'', K6''). The loop and its branches are
+// uniform across a block.
 // kAdvection compiles the WENO5 advection branch in; a table without an
 // advection term takes the instantiation without it, whose registers are not
-// sized for WENO5 (more threads resident per SM).
-template <typename T, bool kAdvection>
+// sized for WENO5 (more threads resident per SM). kProgram likewise compiles
+// the program interpreter in only for tables that hold a program.
+template <typename T, bool kAdvection, bool kProgram>
 __device__ __forceinline__ T stage_value_terms(const T* __restrict__ P,
                                                const T* __restrict__ aux, int64_t c, int64_t s0,
-                                               int64_t s1, int64_t q, const LsmStageTerms& p) {
+                                               int64_t s1, int64_t q, int64_t i0, int64_t i1,
+                                               int64_t i2, const LsmStageTerms& p) {
   T ham = T(0);
   for (int e = 0; e < p.n; ++e) {
     const int kind = p.kind[e];
@@ -190,11 +203,16 @@ __device__ __forceinline__ T stage_value_terms(const T* __restrict__ P,
       v = static_cast<const T*>(p.stream[e][0])[q];
     } else if (coef == LSM_COEF_CONST) {
       v = T(p.value[e]);
+    } else if (kProgram && coef == LSM_COEF_PROGRAM) {
+      v = prog_value<T>(p.prog, e, 0, i0, i1, i2);
     }
     T h;
     if (kAdvection && kind == LSM_TERM_ADVECTION) {
-      const T u1 = static_cast<const T*>(p.stream[e][1])[q];
-      const T u2 = static_cast<const T*>(p.stream[e][2])[q];
+      const bool prog = kProgram && coef == LSM_COEF_PROGRAM;
+      const T u1 = prog ? prog_value<T>(p.prog, e, 1, i0, i1, i2)
+                        : static_cast<const T*>(p.stream[e][1])[q];
+      const T u2 = prog ? prog_value<T>(p.prog, e, 2, i0, i1, i2)
+                        : static_cast<const T*>(p.stream[e][2])[q];
       h = axis_term(P, c, s0, T(p.inv_h[0]), v);
       h = h + axis_term(P, c, s1, T(p.inv_h[1]), u1);
       h = h + axis_term(P, c, int64_t(1), T(p.inv_h[2]), u2);

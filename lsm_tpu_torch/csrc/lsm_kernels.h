@@ -32,15 +32,73 @@
 #define LSM_COEF_STREAM 0
 #define LSM_COEF_CONST 1
 #define LSM_COEF_NONE 2
+#define LSM_COEF_PROGRAM 3
 
-/* The term table of K1 and K6 (mirrored by lsm_tpu_torch.ops.weno_v2.StageTerms),
- * copied into the kernel's parameters. Entry e of n: kind[e] (LSM_TERM_*),
- * coef[e] (LSM_COEF_*), value[e] (a constant coefficient), stream[e][0..2]
- * (device pointers of the streamed coefficients: 3 velocity components for
- * advection, 1 otherwise; interior-shaped for K1, tile-packed by dispatch slot
- * for K6). The spacing-derived constants are formed in double on the host:
- * per axis 1/h, h/2, 1/(2h) and 1/(h*h), 1/(4*h_i*h_j) for the axis pairs
- * (0,1), (0,2), (1,2), and min(h). */
+/* Coefficient programs (lsm_tpu_torch/ops/coef_program.py): postfix ops for an
+ * accumulator machine, each opcode | mode << 5 | operand << 8. A leaf (X, T,
+ * CONST, TAB) has mode 0 (load the accumulator) or 1 (push it first); a
+ * binary op has mode 0 (left operand from the stack) or takes its right
+ * operand as an immediate: mode 1 a table, 2 a constant, 3 a coordinate
+ * (operand 0-2) or t (operand 3). Operands: the axis of X, the constant
+ * index of CONST and POWC, the table slot of TAB. The opcodes' order is
+ * coef_program.OPCODES'. */
+#define LSM_PROG_MAX_OPS 160
+#define LSM_PROG_MAX_CONSTS 40
+#define LSM_PROG_MAX_TABS 32
+#define LSM_PROG_STACK 12
+enum {
+  LSM_OP_X, LSM_OP_T, LSM_OP_CONST, LSM_OP_NEG, LSM_OP_ABS, LSM_OP_SIN, LSM_OP_COS,
+  LSM_OP_TAN, LSM_OP_EXP, LSM_OP_LOG, LSM_OP_SQRT, LSM_OP_RSQRT, LSM_OP_TANH, LSM_OP_SIGN,
+  LSM_OP_ADD, LSM_OP_SUB, LSM_OP_MUL, LSM_OP_DIV, LSM_OP_POW, LSM_OP_POWC, LSM_OP_MIN,
+  LSM_OP_MAX, LSM_OP_LT, LSM_OP_LE, LSM_OP_GT, LSM_OP_GE, LSM_OP_EQ, LSM_OP_NE, LSM_OP_WHERE,
+  LSM_OP_TAB
+};
+
+/* The program terms of a stage (mirrored by lsm_tpu_torch.ops.weno_v2.ProgramTable):
+ * node (i0, i1, i2) sits at x_d = lo[d] + (origin[d] + i_d) * h[d], the stage
+ * time is t; entry e's component d is len[e][d] ops from op[start[e][d]].
+ * A subexpression that reads at most one axis is a table: slot s holds its
+ * values at table[tab_off[s] + i_a] (a = tab_axis[s]; one value at
+ * table[tab_off[s]] when a < 0), in the field's dtype on the device; with
+ * tab_dt > 0 their t-derivatives follow at table[tab_dt + ...]. */
+typedef struct {
+  double lo[3], h[3], origin[3];
+  double t;
+  int16_t start[LSM_MAX_TERMS][3];
+  int16_t len[LSM_MAX_TERMS][3];
+  uint16_t op[LSM_PROG_MAX_OPS];
+  double konst[LSM_PROG_MAX_CONSTS];
+  const void* table;
+  int64_t tab_dt;
+  int32_t tab_off[LSM_PROG_MAX_TABS];
+  int32_t tab_axis[LSM_PROG_MAX_TABS];
+} LsmProgram;
+
+/* The per-axis tables of a stage's programs, filled on the device by
+ * lsm_prog_tables_* (mirrored by lsm_tpu_torch.ops.weno_v2.TableFill): prog
+ * holds the n table programs' ops and constants (no TAB leaf: a table reads
+ * at most one axis), the coordinates and time, and the layout the stage reads
+ * (tab_off ascending and contiguous, tab_axis, tab_dt); table slot s is
+ * nops[s] ops from prog.op[start[s]], evaluated at index i = 0..count[s]-1 of
+ * its axis into table[tab_off[s] + i] (and its t-derivative into
+ * table[tab_dt + tab_off[s] + i] when tab_dt > 0); total = the sum of count. */
+typedef struct {
+  LsmProgram prog;
+  int32_t n, total;
+  int16_t start[LSM_PROG_MAX_TABS];
+  int16_t nops[LSM_PROG_MAX_TABS];
+  int32_t count[LSM_PROG_MAX_TABS];
+} LsmTableFill;
+
+/* The term table of K1, K3, K3' and K6 (mirrored by
+ * lsm_tpu_torch.ops.weno_v2.StageTerms), copied into the kernel's parameters.
+ * Entry e of n: kind[e] (LSM_TERM_*), coef[e] (LSM_COEF_*), value[e] (a
+ * constant coefficient), stream[e][0..2] (device pointers of the streamed
+ * coefficients: 3 velocity components for advection, 1 otherwise;
+ * interior-shaped for K1, tile-packed by dispatch slot for K6), prog (the
+ * programs of LSM_COEF_PROGRAM entries). The spacing-derived constants are
+ * formed in double on the host: per axis 1/h, h/2, 1/(2h) and 1/(h*h),
+ * 1/(4*h_i*h_j) for the axis pairs (0,1), (0,2), (1,2), and min(h). */
 typedef struct {
   int n;
   int kind[LSM_MAX_TERMS];
@@ -50,6 +108,7 @@ typedef struct {
   double inv_h[3], half_h[3], inv_two_h[3], inv_hh[3], inv_hmix[3];
   double dx_min;
   double alpha, beta, gamma;
+  LsmProgram prog;
 } LsmStageTerms;
 
 #ifdef __cplusplus
@@ -78,6 +137,21 @@ int lsm_weno_stage_terms_f32(const void* P, const void* aux, void* out, int64_t 
 int lsm_weno_stage_terms_f64(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
                              int64_t n2, const LsmStageTerms* terms, void* stream);
 
+/* K1'': the advection-only stage with the velocity of the table's entry 0, a
+ * 3-component program evaluated per node. Arguments as for
+ * lsm_weno_stage_terms_*. */
+int lsm_weno_stage_prog_f32(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
+                            int64_t n2, const LsmStageTerms* terms, void* stream);
+int lsm_weno_stage_prog_f64(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
+                            int64_t n2, const LsmStageTerms* terms, void* stream);
+
+/* The program tables of K1'', K3'' and K6'' (csrc/coef_tables.cu): every
+ * slot of *fill (a host pointer) evaluated by the programs' interpreter
+ * into fill->prog.table (a device buffer of the field's dtype, total values,
+ * twice that with tab_dt > 0: then the t-derivatives in dual numbers). */
+int lsm_prog_tables_f32(const LsmTableFill* fill, void* stream);
+int lsm_prog_tables_f64(const LsmTableFill* fill, void* stream);
+
 /* K2: rewrite every ghost shell of the padded buffer P from its interior, in
  * place: axis 0, then axis 1 (over axis 0's full padded extent), then axis 2
  * (over the full padded extents of axes 0 and 1). Three launches, in order.
@@ -104,6 +178,20 @@ int lsm_refresh_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n2,
  * accumulate != 0 (an advection term of a term list, after K3'): dP is added
  * to instead of written, with no beta*g, no daux and dcoef = (0, 0, dgamma). */
 int64_t lsm_stage_bwd_scratch(int64_t n0, int64_t n1, int64_t n2);
+
+/* K3'': K3 with the velocity of the table's entry 0, a 3-component program
+ * evaluated per node (no du). part: 2 * lsm_stage_bwd_scratch doubles; dcoef[4]
+ * = (dalpha, dbeta, dgamma, dt), dt the cotangent of the stage time when
+ * needs_dt (the program in dual numbers); without needs_dt dcoef[3] is not
+ * written. Other arguments as for K3. */
+int lsm_stage_bwd_prog_f32(const void* P, const void* g, const void* aux, void* dP, void* daux,
+                           void* part, void* dcoef, int64_t n0, int64_t n1, int64_t n2,
+                           const LsmStageTerms* terms, int accumulate, int needs_dt,
+                           void* stream);
+int lsm_stage_bwd_prog_f64(const void* P, const void* g, const void* aux, void* dP, void* daux,
+                           void* part, void* dcoef, int64_t n0, int64_t n1, int64_t n2,
+                           const LsmStageTerms* terms, int accumulate, int needs_dt,
+                           void* stream);
 int lsm_stage_bwd_f32(const void* P, const void* g, const void* u0, const void* u1,
                       const void* u2, const void* aux, void* dP, void* du0, void* du1,
                       void* du2, void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
@@ -121,18 +209,19 @@ int lsm_stage_bwd_f64(const void* P, const void* g, const void* u0, const void* 
  * g, aux, daux, part as for K3 (part: lsm_stage_bwd_terms_scratch doubles).
  * Writes dP (padded, every element: beta*g plus the entries' adjoints),
  * dstreams[e] (a host array of LSM_MAX_TERMS device pointers: the cotangent
- * of entry e's stream, interior-shaped, or NULL) and dcoef[3] = (dalpha,
- * dbeta, dgamma of those entries). Two launches: the gather, then the sum of
- * the per-block partials. */
+ * of entry e's stream, interior-shaped, or NULL) and dcoef[4] = (dalpha,
+ * dbeta, dgamma of those entries, dt), dt the cotangent of the stage time
+ * through the program entries when needs_dt (dual numbers), else 0. Two
+ * launches: the gather, then the sum of the per-block partials. */
 int64_t lsm_stage_bwd_terms_scratch(int64_t n0, int64_t n1, int64_t n2);
 int lsm_stage_bwd_terms_f32(const void* P, const void* g, const void* aux, void* dP, void* daux,
                             void* part, void* dcoef, int64_t n0, int64_t n1, int64_t n2,
                             const LsmStageTerms* terms, const void* const* dstreams,
-                            void* stream);
+                            int needs_dt, void* stream);
 int lsm_stage_bwd_terms_f64(const void* P, const void* g, const void* aux, void* dP, void* daux,
                             void* part, void* dcoef, int64_t n0, int64_t n1, int64_t n2,
                             const LsmStageTerms* terms, const void* const* dstreams,
-                            void* stream);
+                            int needs_dt, void* stream);
 
 /* K4: fold the ghost-shell cotangents of the padded buffer g into its
  * interior and zero the shells, in place: the transpose of K2. Three
@@ -174,6 +263,18 @@ int lsm_band_stage_terms_f64(const void* P, const void* aux, void* out, const vo
                              const void* ids, int64_t capacity, int64_t n0, int64_t n1,
                              int64_t n2, int64_t B0, int64_t B1, int64_t B2,
                              const LsmStageTerms* terms, void* stream);
+
+/* K6'': the advection-only band stage with the velocity of the table's entry
+ * 0, a 3-component program evaluated per node. Arguments as for
+ * lsm_band_stage_terms_*. */
+int lsm_band_stage_prog_f32(const void* P, const void* aux, void* out, const void* band,
+                            const void* ids, int64_t capacity, int64_t n0, int64_t n1,
+                            int64_t n2, int64_t B0, int64_t B1, int64_t B2,
+                            const LsmStageTerms* terms, void* stream);
+int lsm_band_stage_prog_f64(const void* P, const void* aux, void* out, const void* band,
+                            const void* ids, int64_t capacity, int64_t n0, int64_t n1,
+                            int64_t n2, int64_t B0, int64_t B1, int64_t B2,
+                            const LsmStageTerms* terms, void* stream);
 
 /* K7: K2 gated on the device (csrc/refresh_ghosts.cu). flags: int32[2] in
  * device memory; flags[0] == 0 skips the axis-0 and axis-1 launches,

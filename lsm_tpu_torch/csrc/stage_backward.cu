@@ -54,9 +54,19 @@
 // written dP): the axis-0 launch adds its term to dP as the others do, and
 // writes no beta*g, no daux and no phi/aux partial sums, so dcoef is
 // (0, 0, dgamma of this advection term).
+//
+// K3'' (the program entry, lsm_stage_bwd_prog_*): the velocity is a
+// coefficient program (csrc/coef_program.cuh), each axis launch evaluating
+// its own component at the output's node in place of the stream (the TPU
+// kernel's "analytic" branch, weno_v2_bwd.py:604-660). There is no du. When
+// the stage time needs a cotangent the component is evaluated in forward-mode
+// dual numbers, and dt = sum over outputs of du_a * du_a/dt (du_a = core_a *
+// (-gamma*g), the cotangent of u_a) joins the fixed-order partial sums:
+// one more double per block, summed by the reduction launch.
 
 #include <cuda_runtime.h>
 
+#include "coef_program.cuh"
 #include "lsm_kernels.h"
 
 namespace {
@@ -262,6 +272,11 @@ struct BwdArgs {
   Geom geo;
   T inv_h, alpha, beta, gamma;
   int accumulate;  // add to dP on the axis-0 launch too (see above)
+  // K3'' only: the velocity program (entry 0 of tab), whether dt is wanted,
+  // and this axis's slots of the dt partials
+  int needs_dt;
+  double* tpart;
+  LsmStageTerms tab;
 };
 
 // deterministic sum over the block of NT threads, 1D or 2D (result in
@@ -279,13 +294,14 @@ __device__ __forceinline__ double block_sum(double v, double* red) {
   return v;
 }
 
-template <typename T, int AXIS>
-__global__ void __launch_bounds__(Tile<AXIS>::NT) stage_bwd_axis_kernel(BwdArgs<T> a) {
+template <typename T, int AXIS, bool kProgram>
+__global__ void __launch_bounds__(Tile<AXIS>::NT)
+    stage_bwd_axis_kernel(const __grid_constant__ BwdArgs<T> a) {
   using R = Rn<T>;
   using TL = Tile<AXIS>;
   constexpr int LX = TL::LX, LA = TL::LA, NT = TL::NT, ROWS = LA + 2 * LSM_GHOST;
   __shared__ T D[6][ROWS * LX];
-  __shared__ double red[3][NT / 32];
+  __shared__ double red[kProgram ? 4 : 3][NT / 32];
   const Geom& G = a.geo;
   const int64_t m0 = int64_t(blockIdx.x) * LA;
   // the two coordinates this block holds fixed (or its lane base)
@@ -309,7 +325,7 @@ __global__ void __launch_bounds__(Tile<AXIS>::NT) stage_bwd_axis_kernel(BwdArgs<
     }
   };
   const T neg_gamma = -a.gamma;
-  double sg = 0.0, sb = 0.0, sa_ = 0.0;
+  double sg = 0.0, sb = 0.0, sa_ = 0.0, st_ = 0.0;
 
   // phase 1: the adjoint of every output within reach of the tile, once each
   for (int idx = threadIdx.x; idx < ROWS * LX; idx += NT) {
@@ -332,7 +348,14 @@ __global__ void __launch_bounds__(Tile<AXIS>::NT) stage_bwd_axis_kernel(BwdArgs<
     for (int q = 0; q < 6; ++q) dm[q] = R::mul(R::sub(sv[q + 1], sv[q]), a.inv_h);
     const int64_t qi = ((i - LSM_GHOST) * G.n[1] + (j - LSM_GHOST)) * G.n[2] + (k - LSM_GHOST);
     const T gv = a.g[c];
-    const T uv = a.u[qi];
+    T uv, udt = T(0);
+    if constexpr (kProgram) {
+      const int64_t n0 = i - LSM_GHOST, n1 = j - LSM_GHOST, n2 = k - LSM_GHOST;
+      uv = a.needs_dt ? lsm::prog_eval<T, true>(a.tab.prog, 0, AXIS, n0, n1, n2, &udt)
+                      : lsm::prog_eval<T, false>(a.tab.prog, 0, AXIS, n0, n1, n2, nullptr);
+    } else {
+      uv = a.u[qi];
+    }
     const T gup = R::mul(neg_gamma, gv);
     T ddm[6], core;
     weno5_fwd_bwd(dm, uv, gup, ddm, core);
@@ -341,6 +364,7 @@ __global__ void __launch_bounds__(Tile<AXIS>::NT) stage_bwd_axis_kernel(BwdArgs<
     if (r >= LSM_GHOST && r < LSM_GHOST + LA) {  // an output this block owns
       if (a.du != nullptr) a.du[qi] = R::mul(core, gup);
       sg += double(gv) * double(R::mul(uv, core));
+      if (kProgram) st_ += double(R::mul(core, gup)) * double(udt);
     }
   }
   __syncthreads();
@@ -380,6 +404,10 @@ __global__ void __launch_bounds__(Tile<AXIS>::NT) stage_bwd_axis_kernel(BwdArgs<
   const int64_t bid = int64_t(blockIdx.x) + int64_t(gridDim.x) *
                       (int64_t(blockIdx.y) + int64_t(gridDim.y) * blockIdx.z);
   sg = block_sum<NT>(sg, red[0]);
+  if constexpr (kProgram) {
+    st_ = block_sum<NT>(st_, red[3]);
+    if (threadIdx.x == 0) a.tpart[bid] = st_;
+  }
   if (AXIS == 0) {
     sb = block_sum<NT>(sb, red[1]);
     sa_ = block_sum<NT>(sa_, red[2]);
@@ -403,54 +431,61 @@ __device__ double strided_sum(const double* part, int64_t count, int stride, int
   return block_sum<kReduceThreads>(v, red);
 }
 
-// out = (dalpha, dbeta, dgamma) from the three launches' partials
-template <typename T>
+// out = (dalpha, dbeta, dgamma) from the three launches' partials; K3''
+// adds out[3] = dt from the dt partials (tpart, nb0 + nb1 + nb2 of them)
+template <typename T, bool kProgram>
 __global__ void __launch_bounds__(kReduceThreads)
     stage_bwd_reduce_kernel(const double* part, int64_t nb0, int64_t nb1, int64_t nb2,
-                            T* out) {
-  __shared__ double red[5][kReduceThreads / 32];
+                            const double* tpart, T* out) {
+  __shared__ double red[kProgram ? 6 : 5][kReduceThreads / 32];
   const double g0 = strided_sum(part, nb0, 3, 0, red[0]);
   const double sb = strided_sum(part, nb0, 3, 1, red[1]);
   const double sa = strided_sum(part, nb0, 3, 2, red[2]);
   const double g1 = strided_sum(part + 3 * nb0, nb1, 1, 0, red[3]);
   const double g2 = strided_sum(part + 3 * nb0 + nb1, nb2, 1, 0, red[4]);
+  double dt = 0.0;
+  if constexpr (kProgram) dt = strided_sum(tpart, nb0 + nb1 + nb2, 1, 0, red[5]);
   if (threadIdx.x == 0) {
     out[0] = T(sa);
     out[1] = T(sb);
     out[2] = T(-((g0 + g1) + g2));
+    if (kProgram) out[3] = T(dt);
   }
 }
 
-template <typename T, int AXIS>
-cudaError_t launch_axis(BwdArgs<T> args, cudaStream_t stream) {
-  stage_bwd_axis_kernel<T, AXIS><<<bwd_grid<AXIS>(args.geo), Tile<AXIS>::NT, 0, stream>>>(args);
+template <typename T, int AXIS, bool kProgram>
+cudaError_t launch_axis(const BwdArgs<T>& args, cudaStream_t stream) {
+  stage_bwd_axis_kernel<T, AXIS, kProgram>
+      <<<bwd_grid<AXIS>(args.geo), Tile<AXIS>::NT, 0, stream>>>(args);
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch_stage_bwd(const void* P, const void* g, const void* u0, const void* u1,
-                     const void* u2, const void* aux, void* dP, void* du0, void* du1,
-                     void* du2, void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
-                     int64_t n2, double inv_h0, double inv_h1, double inv_h2, double alpha,
-                     double beta, double gamma, int accumulate, void* stream_) {
+// K3 (kProgram false: the velocity streamed in u) and K3'' (the velocity the
+// program of tab's entry 0; part holds 2 * lsm_stage_bwd_scratch doubles, the
+// second half the dt partials)
+template <typename T, bool kProgram>
+int launch_stage_bwd(const void* P, const void* g, const void* const* u, const void* aux,
+                     void* dP, void* const* du, void* daux, void* part, void* dcoef, int64_t n0,
+                     int64_t n1, int64_t n2, const double* inv_h, double alpha, double beta,
+                     double gamma, int accumulate, const LsmStageTerms* tab, int needs_dt,
+                     void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const Geom geo = make_geom(n0, n1, n2);
   const int64_t nb[3] = {nblocks(bwd_grid<0>(geo)), nblocks(bwd_grid<1>(geo)),
                          nblocks(bwd_grid<2>(geo))};
-  const void* u[3] = {u0, u1, u2};
-  void* du[3] = {du0, du1, du2};
-  const double inv_h[3] = {inv_h0, inv_h1, inv_h2};
   double* parts = static_cast<double*>(part);
   double* part_at[3] = {parts, parts + 3 * nb[0], parts + 3 * nb[0] + nb[1]};
+  double* tparts = parts + 3 * nb[0] + nb[1] + nb[2];
+  double* tpart_at[3] = {tparts, tparts + nb[0], tparts + nb[0] + nb[1]};
   cudaError_t err = cudaSuccess;
   for (int axis = 0; axis < 3 && err == cudaSuccess; ++axis) {
-    BwdArgs<T> a;
+    BwdArgs<T> a{};
     a.P = static_cast<const T*>(P);
     a.g = static_cast<const T*>(g);
-    a.u = static_cast<const T*>(u[axis]);
+    a.u = kProgram ? nullptr : static_cast<const T*>(u[axis]);
     a.aux = axis == 0 ? static_cast<const T*>(aux) : nullptr;
     a.dP = static_cast<T*>(dP);
-    a.du = static_cast<T*>(du[axis]);
+    a.du = kProgram ? nullptr : static_cast<T*>(du[axis]);
     a.daux = axis == 0 ? static_cast<T*>(daux) : nullptr;
     a.part = part_at[axis];
     a.geo = geo;
@@ -459,13 +494,22 @@ int launch_stage_bwd(const void* P, const void* g, const void* u0, const void* u
     a.beta = T(beta);
     a.gamma = T(gamma);
     a.accumulate = accumulate;
-    if (axis == 0) err = launch_axis<T, 0>(a, stream);
-    else if (axis == 1) err = launch_axis<T, 1>(a, stream);
-    else err = launch_axis<T, 2>(a, stream);
+    if constexpr (kProgram) {
+      a.needs_dt = needs_dt;
+      a.tpart = tpart_at[axis];
+      a.tab = *tab;
+    }
+    if (axis == 0) err = launch_axis<T, 0, kProgram>(a, stream);
+    else if (axis == 1) err = launch_axis<T, 1, kProgram>(a, stream);
+    else err = launch_axis<T, 2, kProgram>(a, stream);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  stage_bwd_reduce_kernel<T><<<1, kReduceThreads, 0, stream>>>(parts, nb[0], nb[1], nb[2],
-                                                                static_cast<T*>(dcoef));
+  // without dt the dt partials are all 0: the plain reduction, dcoef[3] left
+  // as the caller zeroed it
+  const auto reduce = kProgram && needs_dt ? stage_bwd_reduce_kernel<T, true>
+                                           : stage_bwd_reduce_kernel<T, false>;
+  reduce<<<1, kReduceThreads, 0, stream>>>(parts, nb[0], nb[1], nb[2], tparts,
+                                           static_cast<T*>(dcoef));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -485,7 +529,11 @@ int launch_stage_bwd(const void* P, const void* g, const void* u0, const void* u
 //       skipped: K3 adds their share afterwards in accumulate mode);
 //   dstream[e] for each streamed coefficient of those entries (optional);
 //   daux = alpha*g on the interior (optional; K5 zeroes its shells);
-//   dcoef = (sum g*aux, sum g*phi, -sum g*H) over those entries.
+//   dcoef = (sum g*aux, sum g*phi, -sum g*H, dt) over those entries, dt (K3'')
+//   the sum over nodes of a program coefficient's cotangent times its
+//   t-derivative (dual numbers at the centre output), when asked for.
+// A program coefficient (K3'') is evaluated at each output's node in place
+// of its stream.
 // The tie rules are those of autodiff of the plain stage (torch.maximum /
 // minimum split a tie 0.5/0.5, torch.where sends everything to the branch it
 // took, safe_sqrt has derivative 0 at 0, minmod's goes to the argument it
@@ -523,7 +571,37 @@ struct TermsBwdArgs {
   Geom geo;
   LsmStageTerms tab;
   int has_godunov, has_curvature;
+  int needs_dt;  // K3'': the stage time's cotangent through program entries
 };
+
+// A program coefficient (K3''): entry e at the output whose padded
+// coordinates are Y, with its t-derivative in *vdt when `dual`. Not inlined,
+// so that the interpreter's registers and stack stay out of the adjoints of
+// the streamed and constant coefficients.
+template <typename T>
+__device__ __noinline__ T program_coef(const LsmProgram& p, int e, const int64_t* Y, bool dual,
+                                       T* vdt) {
+  const int64_t i0 = Y[0] - LSM_GHOST, i1 = Y[1] - LSM_GHOST, i2 = Y[2] - LSM_GHOST;
+  return dual ? lsm::prog_eval<T, true>(p, e, 0, i0, i1, i2, vdt)
+              : lsm::prog_eval<T, false>(p, e, 0, i0, i1, i2, nullptr);
+}
+
+// A scalar coefficient of entry e at the output whose padded coordinates are
+// Y (q its interior index): streamed, constant or (kProgram: the table holds
+// a program entry) a program. A table without programs takes the
+// instantiation without the call, so K3' of streamed and constant
+// coefficients keeps its registers.
+template <typename T, bool kProgram>
+__device__ __forceinline__ T coef_at(const TermsBwdArgs<T>& a, int e, int64_t q,
+                                     const int64_t* Y, bool dual, T* vdt) {
+  const LsmStageTerms& p = a.tab;
+  if (p.coef[e] == LSM_COEF_STREAM) return static_cast<const T*>(p.stream[e][0])[q];
+  if (p.coef[e] == LSM_COEF_CONST) return T(p.value[e]);
+  if constexpr (kProgram) {
+    if (p.coef[e] == LSM_COEF_PROGRAM) return program_coef<T>(p.prog, e, Y, dual, vdt);
+  }
+  return T(0);
+}
 
 template <typename T>
 __device__ __forceinline__ T tmax(T a, T b) {
@@ -573,12 +651,12 @@ template <typename T>
 struct GodAdj {
   T dA[3], dB[3];
   int sA[3], sB[3];
-  T dc, ham;
+  T dc, ham, dt;  // dt: sum of the centre's coefficient cotangent times its d/dt
 };
 
-template <typename T>
-__device__ void godunov_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q, T gbar,
-                                bool centre, GodAdj<T>& o) {
+template <typename T, bool kProgram>
+__device__ void godunov_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q,
+                                const int64_t* Y, T gbar, bool centre, GodAdj<T>& o) {
   const LsmStageTerms& p = a.tab;
   const T* P = a.P;
   const int64_t st[3] = {a.geo.s[0], a.geo.s[1], 1};
@@ -601,13 +679,13 @@ __device__ void godunov_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q, 
   }
   const T gp = gp2 > T(0) ? tsqrt(gp2) : T(0);
   const T gm = gm2 > T(0) ? tsqrt(gm2) : T(0);
-  T dgp = T(0), dgm = T(0), dc = T(0), ham = T(0);
+  T dgp = T(0), dgm = T(0), dc = T(0), ham = T(0), tsum = T(0);
   for (int e = 0; e < p.n; ++e) {
     const int kind = p.kind[e], coef = p.coef[e];
     if (kind != LSM_TERM_NORMAL && kind != LSM_TERM_EIKONAL) continue;
-    T v = T(0);
-    if (coef == LSM_COEF_STREAM) v = static_cast<const T*>(p.stream[e][0])[q];
-    else if (coef == LSM_COEF_CONST) v = T(p.value[e]);
+    const bool dual = kProgram && centre && a.needs_dt && coef == LSM_COEF_PROGRAM;
+    T vdt = T(0);
+    const T v = coef_at<T, kProgram>(a, e, q, Y, dual, &vdt);
     T dv = T(0);
     if (kind == LSM_TERM_NORMAL) {
       // H = max(v, 0) gp + min(v, 0) gm; a tie at v == 0 splits 0.5 / 0.5
@@ -647,6 +725,7 @@ __device__ void godunov_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q, 
       }
     }
     if (centre && coef == LSM_COEF_STREAM && a.dstream[e] != nullptr) a.dstream[e][q] = dv;
+    if (dual) tsum = tsum + dv * vdt;
   }
   const T dgp2 = gp2 > T(0) ? dgp / (T(2) * gp) : T(0);
   const T dgm2 = gm2 > T(0) ? dgm / (T(2) * gm) : T(0);
@@ -657,6 +736,7 @@ __device__ void godunov_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q, 
   }
   o.dc = dc;
   o.ham = ham;
+  o.dt = tsum;
 }
 
 // what the Godunov kinds at y send to P[y + k e_d], k in -2..2 (the centre's
@@ -682,12 +762,12 @@ __device__ __forceinline__ T godunov_weight(const GodAdj<T>& o, const LsmStageTe
 template <typename T>
 struct CurvAdj {
   T dg[3], dhd[3], dhm[3];
-  T ham;
+  T ham, dt;
 };
 
-template <typename T>
-__device__ void curvature_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q, T gbar,
-                                  bool centre, CurvAdj<T>& o) {
+template <typename T, bool kProgram>
+__device__ void curvature_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q,
+                                  const int64_t* Y, T gbar, bool centre, CurvAdj<T>& o) {
   const LsmStageTerms& p = a.tab;
   const T* P = a.P;
   const int64_t st[3] = {a.geo.s[0], a.geo.s[1], 1};
@@ -721,17 +801,20 @@ __device__ void curvature_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q
   const T N = lap * ns - quad;
   const T kap = safe ? N / D : T(0);
   const T nrm = nrmsq > T(0) ? tsqrt(nrmsq) : T(0);
-  T dkap = T(0), dnrm = T(0), ham = T(0);
+  T dkap = T(0), dnrm = T(0), ham = T(0), tsum = T(0);
   for (int e = 0; e < p.n; ++e) {
     if (p.kind[e] != LSM_TERM_CURVATURE) continue;
     const bool stream = p.coef[e] == LSM_COEF_STREAM;
-    const T b = stream ? static_cast<const T*>(p.stream[e][0])[q] : T(p.value[e]);
+    const bool dual = kProgram && centre && a.needs_dt && p.coef[e] == LSM_COEF_PROGRAM;
+    T bdt = T(0);
+    const T b = coef_at<T, kProgram>(a, e, q, Y, dual, &bdt);
     // H = (b kappa) |grad|
     dkap = dkap + gbar * nrm * b;
     dnrm = dnrm + gbar * (b * kap);
     if (centre) {
       ham = ham + b * kap * nrm;
       if (stream && a.dstream[e] != nullptr) a.dstream[e][q] = gbar * nrm * kap;
+      if (dual) tsum = tsum + (gbar * nrm * kap) * bdt;
     }
   }
   const T dK = safe ? dkap : T(0);
@@ -756,6 +839,7 @@ __device__ void curvature_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q
 #pragma unroll
   for (int k = 0; k < 3; ++k) o.dhm[k] = dquad * (T(2) * g[pair[k][0]] * g[pair[k][1]]);
   o.ham = ham;
+  o.dt = tsum;
 }
 
 constexpr int kTermsX = 64;
@@ -771,7 +855,7 @@ __device__ __forceinline__ bool inside3(const int64_t* X, const Geom& G) {
   return inside(X[0], G.n[0]) && inside(X[1], G.n[1]) && inside(X[2], G.n[2]);
 }
 
-template <typename T>
+template <typename T, bool kProgram>
 __global__ void __launch_bounds__(kTermsX* kTermsY)
     stage_bwd_terms_kernel(const __grid_constant__ TermsBwdArgs<T> a) {
   const Geom& G = a.geo;
@@ -785,7 +869,7 @@ __global__ void __launch_bounds__(kTermsX* kTermsY)
   auto qidx = [&](const int64_t* Y) {
     return ((Y[0] - LSM_GHOST) * G.n[1] + (Y[1] - LSM_GHOST)) * G.n[2] + (Y[2] - LSM_GHOST);
   };
-  double sg = 0.0, sb = 0.0, sa = 0.0;
+  double sg = 0.0, sb = 0.0, sa = 0.0, st_ = 0.0;
   if (k < G.S[2] && j < G.S[1]) {
     const int64_t X[3] = {i, j, k};
     const int64_t x = i * st[0] + j * st[1] + k;
@@ -798,17 +882,19 @@ __global__ void __launch_bounds__(kTermsX* kTermsY)
       T ham = T(0);
       if (a.has_godunov) {
         GodAdj<T> o;
-        godunov_adjoint(a, x, q, gbar, true, o);
+        godunov_adjoint<T, kProgram>(a, x, q, X, gbar, true, o);
         acc = acc + (godunov_weight(o, p, 0, 0) + godunov_weight(o, p, 1, 0) +
                      godunov_weight(o, p, 2, 0) + o.dc);
         ham = ham + o.ham;
+        st_ += double(o.dt);
       }
       if (a.has_curvature) {
         CurvAdj<T> o;
-        curvature_adjoint(a, x, q, gbar, true, o);
+        curvature_adjoint<T, kProgram>(a, x, q, X, gbar, true, o);
         acc = acc - T(2) * (o.dhd[0] * T(p.inv_hh[0]) + o.dhd[1] * T(p.inv_hh[1]) +
                             o.dhd[2] * T(p.inv_hh[2]));
         ham = ham + o.ham;
+        st_ += double(o.dt);
       }
       if (a.daux != nullptr) a.daux[x] = T(p.alpha) * gv;
       sg = double(gv) * double(ham);
@@ -828,12 +914,12 @@ __global__ void __launch_bounds__(kTermsX* kTermsY)
         const T gbar = neg_gamma * a.g[y];
         if (a.has_godunov) {
           GodAdj<T> o;
-          godunov_adjoint(a, y, q, gbar, false, o);
+          godunov_adjoint<T, kProgram>(a, y, q, Y, gbar, false, o);
           acc = acc + godunov_weight(o, p, d, kk);
         }
         if (a.has_curvature && near) {
           CurvAdj<T> o;
-          curvature_adjoint(a, y, q, gbar, false, o);
+          curvature_adjoint<T, kProgram>(a, y, q, Y, gbar, false, o);
           const T dg = o.dg[d] * T(p.inv_two_h[d]);
           acc = acc + ((kk == 1 ? dg : -dg) + o.dhd[d] * T(p.inv_hh[d]));
         }
@@ -851,7 +937,7 @@ __global__ void __launch_bounds__(kTermsX* kTermsY)
             if (!inside3(Y, G)) continue;
             const int64_t y = x - sa_ * st[da] - sb_ * st[db];
             CurvAdj<T> o;
-            curvature_adjoint(a, y, qidx(Y), neg_gamma * a.g[y], false, o);
+            curvature_adjoint<T, kProgram>(a, y, qidx(Y), Y, neg_gamma * a.g[y], false, o);
             const T w = o.dhm[m] * T(p.inv_hmix[m]);
             acc = acc + (sa_ * sb_ > 0 ? w : -w);
           }
@@ -860,31 +946,35 @@ __global__ void __launch_bounds__(kTermsX* kTermsY)
     }
     a.dP[x] = acc;
   }
-  __shared__ double red[3][kTermsX * kTermsY / 32];
+  __shared__ double red[4][kTermsX * kTermsY / 32];
   sg = block_sum<kTermsX * kTermsY>(sg, red[0]);
   sb = block_sum<kTermsX * kTermsY>(sb, red[1]);
   sa = block_sum<kTermsX * kTermsY>(sa, red[2]);
+  st_ = block_sum<kTermsX * kTermsY>(st_, red[3]);
   if (threadIdx.x == 0 && threadIdx.y == 0) {
     const int64_t bid = int64_t(blockIdx.x) + int64_t(gridDim.x) *
                         (int64_t(blockIdx.y) + int64_t(gridDim.y) * blockIdx.z);
-    a.part[3 * bid] = sg;
-    a.part[3 * bid + 1] = sb;
-    a.part[3 * bid + 2] = sa;
+    a.part[4 * bid] = sg;
+    a.part[4 * bid + 1] = sb;
+    a.part[4 * bid + 2] = sa;
+    a.part[4 * bid + 3] = st_;
   }
 }
 
-// out = (dalpha, dbeta, dgamma) from K3''s per-block partials
+// out = (dalpha, dbeta, dgamma, dt) from K3''s per-block partials
 template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
     stage_bwd_terms_reduce_kernel(const double* part, int64_t nb, T* out) {
-  __shared__ double red[3][kReduceThreads / 32];
-  const double sg = strided_sum(part, nb, 3, 0, red[0]);
-  const double sb = strided_sum(part, nb, 3, 1, red[1]);
-  const double sa = strided_sum(part, nb, 3, 2, red[2]);
+  __shared__ double red[4][kReduceThreads / 32];
+  const double sg = strided_sum(part, nb, 4, 0, red[0]);
+  const double sb = strided_sum(part, nb, 4, 1, red[1]);
+  const double sa = strided_sum(part, nb, 4, 2, red[2]);
+  const double st = strided_sum(part, nb, 4, 3, red[3]);
   if (threadIdx.x == 0) {
     out[0] = T(sa);
     out[1] = T(sb);
     out[2] = T(-sg);
+    out[3] = T(st);
   }
 }
 
@@ -892,7 +982,7 @@ template <typename T>
 int launch_stage_bwd_terms(const void* P, const void* g, const void* aux, void* dP, void* daux,
                            void* part, void* dcoef, int64_t n0, int64_t n1, int64_t n2,
                            const LsmStageTerms* terms, const void* const* dstreams,
-                           void* stream_) {
+                           int needs_dt, void* stream_) {
   if (terms->n < 1 || terms->n > LSM_MAX_TERMS) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   TermsBwdArgs<T> a;
@@ -906,15 +996,19 @@ int launch_stage_bwd_terms(const void* P, const void* g, const void* aux, void* 
   a.tab = *terms;
   a.has_godunov = 0;
   a.has_curvature = 0;
+  a.needs_dt = needs_dt;
+  bool program = false;
   for (int e = 0; e < LSM_MAX_TERMS; ++e) {
     a.dstream[e] = e < terms->n ? static_cast<T*>(const_cast<void*>(dstreams[e])) : nullptr;
     if (e >= terms->n) continue;
     if (terms->kind[e] == LSM_TERM_NORMAL || terms->kind[e] == LSM_TERM_EIKONAL)
       a.has_godunov = 1;
     if (terms->kind[e] == LSM_TERM_CURVATURE) a.has_curvature = 1;
+    if (terms->coef[e] == LSM_COEF_PROGRAM && terms->kind[e] != LSM_TERM_ADVECTION) program = true;
   }
   const dim3 grid = terms_grid(a.geo);
-  stage_bwd_terms_kernel<T><<<grid, dim3(kTermsX, kTermsY, 1), 0, stream>>>(a);
+  const auto kernel = program ? stage_bwd_terms_kernel<T, true> : stage_bwd_terms_kernel<T, false>;
+  kernel<<<grid, dim3(kTermsX, kTermsY, 1), 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   stage_bwd_terms_reduce_kernel<T><<<1, kReduceThreads, 0, stream>>>(
@@ -936,9 +1030,12 @@ extern "C" int lsm_stage_bwd_f32(const void* P, const void* g, const void* u0, c
                                  int64_t n0, int64_t n1, int64_t n2, double inv_h0,
                                  double inv_h1, double inv_h2, double alpha, double beta,
                                  double gamma, int accumulate, void* stream) {
-  return launch_stage_bwd<float>(P, g, u0, u1, u2, aux, dP, du0, du1, du2, daux, part, dcoef,
-                                 n0, n1, n2, inv_h0, inv_h1, inv_h2, alpha, beta, gamma,
-                                 accumulate, stream);
+  const void* u[3] = {u0, u1, u2};
+  void* du[3] = {du0, du1, du2};
+  const double inv_h[3] = {inv_h0, inv_h1, inv_h2};
+  return launch_stage_bwd<float, false>(P, g, u, aux, dP, du, daux, part, dcoef, n0, n1, n2,
+                                        inv_h, alpha, beta, gamma, accumulate, nullptr, 0,
+                                        stream);
 }
 
 extern "C" int lsm_stage_bwd_f64(const void* P, const void* g, const void* u0, const void* u1,
@@ -947,27 +1044,62 @@ extern "C" int lsm_stage_bwd_f64(const void* P, const void* g, const void* u0, c
                                  int64_t n0, int64_t n1, int64_t n2, double inv_h0,
                                  double inv_h1, double inv_h2, double alpha, double beta,
                                  double gamma, int accumulate, void* stream) {
-  return launch_stage_bwd<double>(P, g, u0, u1, u2, aux, dP, du0, du1, du2, daux, part,
-                                  dcoef, n0, n1, n2, inv_h0, inv_h1, inv_h2, alpha, beta,
-                                  gamma, accumulate, stream);
+  const void* u[3] = {u0, u1, u2};
+  void* du[3] = {du0, du1, du2};
+  const double inv_h[3] = {inv_h0, inv_h1, inv_h2};
+  return launch_stage_bwd<double, false>(P, g, u, aux, dP, du, daux, part, dcoef, n0, n1, n2,
+                                         inv_h, alpha, beta, gamma, accumulate, nullptr, 0,
+                                         stream);
+}
+
+template <typename T>
+int launch_stage_bwd_prog(const void* P, const void* g, const void* aux, void* dP, void* daux,
+                          void* part, void* dcoef, int64_t n0, int64_t n1, int64_t n2,
+                          const LsmStageTerms* terms, int accumulate, int needs_dt,
+                          void* stream) {
+  if (terms->n != 1 || terms->coef[0] != LSM_COEF_PROGRAM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* u[3] = {nullptr, nullptr, nullptr};
+  void* du[3] = {nullptr, nullptr, nullptr};
+  return launch_stage_bwd<T, true>(P, g, u, aux, dP, du, daux, part, dcoef, n0, n1, n2,
+                                   terms->inv_h, terms->alpha, terms->beta, terms->gamma,
+                                   accumulate, terms, needs_dt, stream);
+}
+
+extern "C" int lsm_stage_bwd_prog_f32(const void* P, const void* g, const void* aux, void* dP,
+                                      void* daux, void* part, void* dcoef, int64_t n0,
+                                      int64_t n1, int64_t n2, const LsmStageTerms* terms,
+                                      int accumulate, int needs_dt, void* stream) {
+  return launch_stage_bwd_prog<float>(P, g, aux, dP, daux, part, dcoef, n0, n1, n2, terms,
+                                      accumulate, needs_dt, stream);
+}
+
+extern "C" int lsm_stage_bwd_prog_f64(const void* P, const void* g, const void* aux, void* dP,
+                                      void* daux, void* part, void* dcoef, int64_t n0,
+                                      int64_t n1, int64_t n2, const LsmStageTerms* terms,
+                                      int accumulate, int needs_dt, void* stream) {
+  return launch_stage_bwd_prog<double>(P, g, aux, dP, daux, part, dcoef, n0, n1, n2, terms,
+                                       accumulate, needs_dt, stream);
 }
 
 extern "C" int64_t lsm_stage_bwd_terms_scratch(int64_t n0, int64_t n1, int64_t n2) {
-  return 3 * nblocks(terms_grid(make_geom(n0, n1, n2)));
+  return 4 * nblocks(terms_grid(make_geom(n0, n1, n2)));
 }
 
 extern "C" int lsm_stage_bwd_terms_f32(const void* P, const void* g, const void* aux, void* dP,
                                        void* daux, void* part, void* dcoef, int64_t n0,
                                        int64_t n1, int64_t n2, const LsmStageTerms* terms,
-                                       const void* const* dstreams, void* stream) {
+                                       const void* const* dstreams, int needs_dt,
+                                       void* stream) {
   return launch_stage_bwd_terms<float>(P, g, aux, dP, daux, part, dcoef, n0, n1, n2, terms,
-                                       dstreams, stream);
+                                       dstreams, needs_dt, stream);
 }
 
 extern "C" int lsm_stage_bwd_terms_f64(const void* P, const void* g, const void* aux, void* dP,
                                        void* daux, void* part, void* dcoef, int64_t n0,
                                        int64_t n1, int64_t n2, const LsmStageTerms* terms,
-                                       const void* const* dstreams, void* stream) {
+                                       const void* const* dstreams, int needs_dt,
+                                       void* stream) {
   return launch_stage_bwd_terms<double>(P, g, aux, dP, daux, part, dcoef, n0, n1, n2, terms,
-                                        dstreams, stream);
+                                        dstreams, needs_dt, stream);
 }

@@ -17,11 +17,15 @@ Routing by the state's device and kind, as JAX routes on the TPU:
   an object that is no term kind, other integrators). Each RK stage is one
   K10 (3D) or K11 (2D) pass for a single WENO5 advection term, else the
   terms' ``rhs`` and an axpy; a band field is re-tubed after every step.
+- Terms with ``update_func`` take the fused stepper on a dense field: each
+  step refreshes them with the accepted state before the CFL bound, then
+  before every stage (JAX's loop order), and the refreshed terms persist in
+  ``self.terms``. On a band they take the general path, as in JAX.
 - On CUDA, a configuration that JAX takes on its fused path and this port
-  does not yet (``update_func`` without hooks, Extrapolation of degree > 7,
-  a 2D band) raises ``NotImplementedError`` naming its ROADMAP item. On the
-  CPU it takes the general path. The kernels' plain versions run on CPU
-  tensors; nothing on CUDA drops to them.
+  does not yet (Extrapolation of degree > 7, a 2D band) raises
+  ``NotImplementedError`` naming its ROADMAP item. On the CPU it takes the
+  general path. The kernels' plain versions run on CPU tensors; nothing on
+  CUDA drops to them.
 """
 
 from __future__ import annotations
@@ -176,18 +180,30 @@ class LevelSetEquation:
 
     def _integrate_fast(self, stepper: FusedStepper, tf, dt_max, max_steps):
         """Host adaptive-CFL loop over the fused stepper: the CFL bound is
-        recomputed (and read back) every accepted step."""
+        recomputed (and read back) every accepted step. With ``update_func``
+        the terms are refreshed with the accepted state, then the bound is
+        taken, then the step refreshes them per stage (JAX's
+        ``_integrate_fast``); they persist in ``self.terms``."""
         P = stepper.pack(self.state.values)
         alpha = self.integrator.cfl
         eps = self._eps(tf)
+        terms = self.terms
         while self.t <= tf - eps:
             if max_steps is not None and self.last_nsteps >= max_steps:
                 break
-            cfl_dt = self._checked_dt(stepper.cfl(P, self.t).item())
+            if stepper.has_update:
+                cfl_t, terms = stepper.cfl_with_terms(P, self.t, terms)
+            else:
+                cfl_t = stepper.cfl(P, self.t)
+            cfl_dt = self._checked_dt(cfl_t.item())
             dt = min(dt_max, alpha * cfl_dt, tf - self.t)
-            P = stepper.step(P, self.t, dt)
+            if stepper.has_update:
+                P, terms = stepper.step_with_terms(P, self.t, dt, terms)
+            else:
+                P = stepper.step(P, self.t, dt)
             self.t += dt
             self.last_nsteps += 1
+        self.terms = terms
         self.state = self.state.with_values(stepper.unpack(P).contiguous())
         self._check_finite()
         if self.t > tf - eps:

@@ -9,10 +9,12 @@ band_stage`) and one gated K7 shell refresh; a re-tube step ends with K8 on
 the candidate tiles (the active tiles and their neighbours), after which
 the tile activity, the dispatch list and the K7 gates are rebuilt on the
 device in plain torch. The terms are any list the dense stepper takes
-(advection, normal motion, curvature, eikonal reinitialization): a callable
-coefficient is evaluated at the dispatched tiles' nodes only, a streamed one
-gathered onto them once per re-tube, so a step has no pass over the whole
-grid.
+(advection, normal motion, curvature, eikonal reinitialization) without
+``update_func`` (which takes the general path, as JAX's band stepper
+refuses it): a callable traced into a program is evaluated per node inside
+K6 (K6″), with nothing kept per slot; another callable is evaluated at the
+dispatched tiles' nodes only and a streamed coefficient gathered onto them
+once per re-tube, so a step has no pass over the whole grid.
 
 Buffer rotation. Off-band cells are frozen, so a stage writes its tiles
 into the previous buffer of the rotation and leaves the rest alone:
@@ -74,7 +76,8 @@ class BandState(NamedTuple):
     flags: torch.Tensor   # int32 (2,): K7's gates for the dispatched tiles
     amask: torch.Tensor   # bool (capacity, B0, B1, B2): active-band nodes per slot
     coefs: Tuple[Tuple[torch.Tensor, ...], ...]  # per term: its tile-packed streams
-    xs: Optional[Tuple[torch.Tensor, ...]]  # the slots' node coordinates, for callables
+    xs: Optional[Tuple[torch.Tensor, ...]]  # the slots' node coordinates, for the
+    # callables on the stream route (a program term needs none)
 
 
 def unsupported_reason(terms, nb, integrator) -> Optional[str]:
@@ -82,6 +85,10 @@ def unsupported_reason(terms, nb, integrator) -> Optional[str]:
     the ROADMAP item that would add it; ``None`` when it can."""
     if not isinstance(nb, NarrowBandField):
         return "the band stepper takes a NarrowBandField"
+    terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)
+    if any(getattr(t, "update_func", None) is not None for t in terms):
+        return ("a term with update_func on a NarrowBandField takes the general path (JAX's "
+                "band stepper does not take it either)")
     return _field_reason(nb, integrator) or _terms_reason(terms, nb)
 
 
@@ -247,13 +254,15 @@ class FusedBandStepper:
             self._cache = (float(t), state.xs, terms)
         return terms
 
-    def stage(self, src, dst, state, coeffs, t_stage, aux, coeff_values=None):
+    def stage(self, src, dst, state, coeffs, t_stage, aux, coeff_values=None, t_value=None):
         """K6 from ``src`` into ``dst``, then K7 on ``dst``; in place, or
         into a copy of ``dst`` when a gradient is needed
-        (:func:`~lsm_tpu_torch.ops.band.band_step_stage`)."""
+        (:func:`~lsm_tpu_torch.ops.band.band_step_stage`). Program terms see
+        the stage time ``t_stage`` (``t_value`` its host number)."""
         return bd.band_step_stage(src, dst, state.ids, state.band, state.flags,
                                   self.stage_terms(state, t_stage), coeffs, aux, self.bcs,
-                                  self.spacing, self.shape, self.tiles, coeff_values)
+                                  self.spacing, self.shape, self.tiles, coeff_values,
+                                  v2.Where(self.lo, None, t_stage, t_value))
 
     def step(self, state: BandState, t, dt, retube: bool = True, dt_value=None) -> BandState:
         """One accepted step; ``retube=False`` keeps the band (valid only
@@ -261,6 +270,8 @@ class FusedBandStepper:
         coefficients and a callable coefficient then carry their
         gradients); the kernels take ``dt_value`` (default ``float(dt)``)."""
         dtv = float(dt) if dt_value is None else float(dt_value)
+        tv = ((float(t.detach()) if isinstance(t, torch.Tensor) else float(t))
+              if v2.needs_t(self.entries) else 0.0)
         bufs = state.bufs
         A = bufs[0]
         # the rotation's targets; a differentiated stage returns a new tensor
@@ -271,7 +282,7 @@ class FusedBandStepper:
             k = s % 2
             targets[k] = self.stage(src, targets[k], state, (alpha, beta, g * dt),
                                     t + off * dt, None if s == 0 else A,
-                                    coeff_values=(alpha, beta, g * dtv))
+                                    coeff_values=(alpha, beta, g * dtv), t_value=tv + off * dtv)
             src = targets[k]
         last = (len(self.stages) - 1) % 2
         new = (targets[last], A) + ((targets[1 - last],) if len(targets) == 2 else ())
@@ -315,10 +326,24 @@ class FusedBandStepper:
         coefficient's bound is a host number."""
         out = None
         for spec, arrs in self.stage_terms(state, t):
-            coef = (spec.coef_static,) if spec.coef_kind == "const" else arrs
+            if spec.coef_kind == "const":
+                coef = (spec.coef_static,)
+            elif spec.coef_kind == "program":
+                coef = self._slot_values(spec, state, t)
+            else:
+                coef = arrs
             dt = kind_cfl(spec.kind, coef, state.amask, self.spacing, state.bufs[0])
             out = dt if out is None else torch.minimum(out, dt)
         return out, state.count
+
+    def _slot_values(self, spec, state: BandState, t):
+        """A program term's coefficient at the dispatched nodes, tile-packed
+        (for the CFL bound only: K6″ evaluates it in-kernel)."""
+        xs = bd.tile_coords(state.ids, self.shape, self.tiles, self.spacing, self.lo, self.dtype)
+        tt = torch.as_tensor(t, dtype=self.dtype, device=self.device)
+        return tuple(torch.broadcast_to(torch.as_tensor(c, dtype=self.dtype, device=self.device),
+                                        (self.capacity, *self.tiles))
+                     for c in spec.coef_static.evaluate(xs, tt))
 
     def regrow(self, state: BandState):
         """Recover from a dispatch-list overflow: a stepper with ``REGROW``

@@ -11,13 +11,24 @@ same control flow. One stepper serves ``integrate`` and ``rollout``.
 
 The stepper covers dense 3D and 2D fields under any list of up to 16 terms
 of the fused stage's kinds: WENO5 :class:`AdvectionTerm`,
-:class:`NormalMotionTerm` (both without ``update_func``),
+:class:`NormalMotionTerm` (both with or without ``update_func``),
 :class:`CurvatureTerm` and :class:`EikonalReinitializationTerm`. A
 coefficient is a ``MeshField`` or tensor (streamed), a number (a constant of
-the kernel) or a callable ``f(xs, t)`` (evaluated into streamed tensors at
-each stage time, at the kernel's node coordinates ``lo + i*h``). A gradient
-runs K4, K3 (one streamed advection term) or K3' (any other list) and K5; on
+the kernel) or a callable ``f(xs, t)``. A callable that follows
+:mod:`~lsm_tpu_torch.ops.coef_program`'s rule is traced once, at
+construction, into a program the kernels evaluate per node (K1″, K3″):
+nothing is streamed for it. Any other callable is evaluated into streamed
+tensors at each stage time, at the kernel's node coordinates ``lo + i*h``.
+:attr:`FusedStepper.routes` says which route each term took, and why. A
+gradient runs K4, K3 (one advection term) or K3' (any other list) and K5; on
 CUDA a 2D field's gradient raises (:func:`gradient_reason`).
+
+``update_func`` (counterpart of JAX's ``_stage_specs`` /
+``step_with_terms`` / ``cfl_with_terms``): :meth:`FusedStepper.
+step_with_terms` refreshes the terms with each stage's input state and time
+and rebuilds their entries (an updated callable is traced again), and
+:meth:`FusedStepper.cfl_with_terms` refreshes them with the accepted state
+before the CFL bound, as the reference's loop does.
 
 A 2D field rides the 3D kernels as ``(1, n0, n1)``: the dummy axis 0 has
 ``Extrapolation(0)`` ghosts (copies of its one node), so every difference
@@ -37,9 +48,10 @@ import torch
 
 from ..core import bc as _bc
 from ..core.field import MeshField
+from ..ops import coef_program as cp
 from ..ops import weno_v2 as v2
 from ..terms.terms import (AdvectionTerm, CurvatureTerm, EikonalReinitializationTerm,
-                           NormalMotionTerm, compute_cfl, is_number)
+                           NormalMotionTerm, compute_cfl, is_number, update_terms)
 from .explicit import RK2, RK3, ForwardEuler
 
 __all__ = ["FusedStepper", "supports_fused", "unsupported_reason", "term_entry",
@@ -57,7 +69,7 @@ _STAGES = {
 
 #: ROADMAP items of configurations that JAX's fused path takes and this
 #: port's does not yet: on CUDA they raise rather than take the general path
-PENDING = ("update_func", "K2 degree", "2D band")
+PENDING = ("K2 degree", "2D band")
 
 
 def _todo(what: str, item: str) -> str:
@@ -83,7 +95,7 @@ def _coef_entry(kind: str, coef, phi: MeshField, k: int):
         return (v2.TermSpec(kind, "stream", None, k),
                 tuple(vals[d] for d in range(k)) if k > 1 else (vals,))
     if callable(coef):
-        return v2.TermSpec(kind, "analytic", coef, 0), ()
+        return _callable_spec(kind, coef, phi.ndim, k), ()
     if is_number(coef) and k == 1:
         return v2.TermSpec(kind, "const", float(coef), 0), ()
     if isinstance(coef, torch.Tensor):
@@ -99,20 +111,49 @@ def _coef_entry(kind: str, coef, phi: MeshField, k: int):
     return f"{what} of type {type(coef).__name__} is not supported"
 
 
+def _callable_spec(kind: str, fn, ndim: int, k: int) -> v2.TermSpec:
+    """A callable coefficient's spec: a ``"program"`` when it traces on the
+    3D node coordinates, else ``"analytic"`` (the stream route) with the
+    reason. A 2D field's callable stays untraced here: the embedding wraps
+    it first (:func:`_embed_entries_2d`)."""
+    if ndim != 3:
+        return v2.TermSpec(kind, "analytic", fn, 0)
+    prog = cp.trace(fn, 3, k)
+    if isinstance(prog, str):
+        return v2.TermSpec(kind, "analytic", fn, 0, reason=prog)
+    return v2.TermSpec(kind, "program", prog, 0)
+
+
+def _fit_programs(entries):
+    """Entries whose programs fit the kernels' tables together; a program
+    that would overflow them takes the stream route instead."""
+    ops = consts = tabs = 0
+    out = []
+    for spec, arrs in entries:
+        if spec.coef_kind == "program":
+            prog = spec.coef_static
+            if (ops + prog.n_ops > cp.MAX_OPS or consts + prog.n_consts > cp.MAX_CONSTS
+                    or tabs + len(prog.tables) > cp.MAX_TABLES):
+                spec = v2.TermSpec(spec.kind, "analytic", prog.fn, 0,
+                                   reason="the stage's other programs fill the kernels' tables")
+            else:
+                ops, consts = ops + prog.n_ops, consts + prog.n_consts
+                tabs += len(prog.tables)
+        out.append((spec, arrs))
+    return tuple(out)
+
+
 def term_entry(term, phi: MeshField):
-    """``(TermSpec, streams)`` of one term for the fused stage (an analytic
-    coefficient keeps its callable), or the reason, naming its ROADMAP item,
-    why the fused path cannot take it (counterpart of
-    ``lsm_tpu.integrators.fused._term_spec``)."""
+    """``(TermSpec, streams)`` of one term for the fused stage (a callable
+    coefficient traced into a program, or kept for the stream route), or the
+    reason, naming its ROADMAP item, why the fused path cannot take it
+    (counterpart of ``lsm_tpu.integrators.fused._term_spec`` with
+    ``allow_update``)."""
     if isinstance(term, AdvectionTerm):
         if term.scheme != "weno5":
             return f"the {term.scheme!r} advection scheme takes the general path"
-        if term.update_func is not None:
-            return _todo("an AdvectionTerm with update_func", "update_func")
         return _coef_entry("advection", term.velocity, phi, phi.ndim)
     if isinstance(term, NormalMotionTerm):
-        if term.update_func is not None:
-            return _todo("a NormalMotionTerm with update_func", "update_func")
         return _coef_entry("normal", term.speed, phi, 1)
     if isinstance(term, CurvatureTerm):
         return _coef_entry("curvature", term.b, phi, 1)
@@ -142,8 +183,8 @@ def unsupported_reason(terms, phi: MeshField, integrator) -> Optional[str]:
 def _terms_reason(terms, phi: MeshField) -> Optional[str]:
     """The term-list check the dense and the band stepper share: every term
     a kind of the fused stage (WENO5 advection, normal motion, curvature,
-    eikonal reinitialization) without ``update_func``, with a coefficient
-    the stage takes, at most ``MAX_TERMS`` of them."""
+    eikonal reinitialization) with a coefficient the stage takes, at most
+    ``MAX_TERMS`` of them."""
     if not isinstance(terms, (tuple, list)):
         terms = (terms,)
     if not 1 <= len(terms) <= v2.MAX_TERMS:
@@ -204,8 +245,9 @@ def embed_2d(phi: MeshField):
 def _embed_entries_2d(entries):
     """A 2D term list's ``(TermSpec, streams)`` in the embedding: streamed
     tensors gain the leading length-1 axis, an advection velocity a zero
-    component 0, and a callable sees the two real coordinates (counterpart
-    of ``lsm_tpu.integrators.fused._embed_specs_2d``)."""
+    component 0, and a callable sees the two real coordinates, wrapped
+    before it is traced, so its program reads ``(xs[1], xs[2])``
+    (counterpart of ``lsm_tpu.integrators.fused._embed_specs_2d``)."""
     out = []
     for spec, arrs in entries:
         if spec.coef_kind == "analytic":
@@ -217,7 +259,7 @@ def _embed_entries_2d(entries):
             else:
                 def f3(xs, t, _f=f2):
                     return _f((xs[1], xs[2]), t)
-            out.append((v2.TermSpec(spec.kind, "analytic", f3, 0), ()))
+            out.append((_callable_spec(spec.kind, f3, 3, v2.n_components(spec.kind)), ()))
         elif spec.coef_kind == "stream":
             arrs3 = tuple(a[None] for a in arrs)
             if spec.kind == "advection":
@@ -230,14 +272,18 @@ def _embed_entries_2d(entries):
 
 def term_entries(terms, phi: MeshField):
     """The fused stage's ``(TermSpec, streams)`` of every term, streams
-    contiguous in the field's dtype and on its device (``terms`` passed
-    :func:`_terms_reason`)."""
+    contiguous in the field's dtype and on its device, a 2D field's in the
+    embedding, programs within the kernels' tables (``terms`` passed
+    :func:`_terms_reason`; else ``ValueError``)."""
     out = []
     for term in terms:
-        spec, arrs = term_entry(term, phi)
+        entry = term_entry(term, phi)
+        if isinstance(entry, str):
+            raise ValueError(entry)
+        spec, arrs = entry
         out.append((spec, tuple(a.to(device=phi.device, dtype=phi.dtype).contiguous()
                                 for a in arrs)))
-    return tuple(out)
+    return _fit_programs(_embed_entries_2d(out) if phi.ndim == 2 else out)
 
 
 def gradient_reason(terms, phi: MeshField) -> Optional[str]:
@@ -266,7 +312,7 @@ class FusedStepper:
         stepper = FusedStepper(terms, phi, integrator)
         P = stepper.pack(phi.values)
         for _ in range(nsteps):
-            P = stepper.step(P, t, dt)
+            P = stepper.step(P, t, dt)   # with update_func: step_with_terms
             t += dt
         values = stepper.unpack(P)
     """
@@ -282,10 +328,11 @@ class FusedStepper:
         self.is2d = phi.ndim == 2
         self.dtype, self.device = phi.dtype, phi.device
         self.stages = _STAGES[type(integrator)]
+        #: whether a term refreshes itself (``step_with_terms``, ``cfl_with_terms``)
+        self.has_update = any(getattr(t, "update_func", None) is not None for t in terms)
         self.entries = term_entries(terms, phi)
         if self.is2d:  # the kernels' view: (1, n0, n1)
             self.shape, self.bcs, self.spacing, self.lo = embed_2d(phi)
-            self.entries = _embed_entries_2d(self.entries)
         else:
             self.shape, self.bcs = tuple(phi.shape), phi.bcs
             self.spacing = tuple(float(h) for h in phi.spacing)
@@ -298,20 +345,40 @@ class FusedStepper:
         out = v2.unpack_padded(padded, self.shape)
         return out[0] if self.is2d else out
 
-    def stage_terms(self, t):
-        """The stage's term list at time ``t``: a callable coefficient is
-        evaluated into streams at the kernel's node coordinates."""
-        if all(spec.coef_kind != "analytic" for spec, _ in self.entries):
-            return self.entries
-        xs = v2.node_coords(self.shape, self.spacing, self.lo, self.dtype, self.device)
-        return v2.resolve_terms(self.entries, xs, t, self.shape, self.dtype, self.device)
+    @property
+    def routes(self):
+        """Per term, how its coefficient reaches the kernels and, for a
+        callable on the stream route, why: ``(route, reason)`` with route
+        ``"program"`` (traced, evaluated in-kernel), ``"stream"``,
+        ``"const"`` or ``"none"``."""
+        return tuple((spec.route, spec.reason) for spec, _ in self.entries)
 
-    def stage(self, P, coeffs, t_stage, aux, coeff_values=None):
+    def stage_terms(self, t, entries=None):
+        """The stage's term list at time ``t`` (of ``entries``, default the
+        stepper's): a callable on the stream route is evaluated into streams
+        at the kernel's node coordinates; a program term passes through."""
+        entries = self.entries if entries is None else entries
+        if all(spec.coef_kind != "analytic" for spec, _ in entries):
+            return entries
+        xs = v2.node_coords(self.shape, self.spacing, self.lo, self.dtype, self.device)
+        return v2.resolve_terms(entries, xs, t, self.shape, self.dtype, self.device)
+
+    def stage(self, P, coeffs, t_stage, aux, coeff_values=None, t_value=None, entries=None):
         """One stage: K1 into a fresh buffer, then K2 on its shells; through
         :func:`~lsm_tpu_torch.ops.weno_v2.fused_step_stage`, so gradients
-        flow when an input requires them (backward K4, K3, K5)."""
-        return v2.fused_step_stage(P, self.stage_terms(t_stage), coeffs, aux, self.bcs,
-                                   self.spacing, self.shape, coeff_values)
+        flow when an input requires them (backward K4, K3, K5). Program
+        terms see the stage time ``t_stage`` (``t_value`` its host number)."""
+        return v2.fused_step_stage(P, self.stage_terms(t_stage, entries), coeffs, aux, self.bcs,
+                                   self.spacing, self.shape, coeff_values,
+                                   v2.Where(self.lo, None, t_stage, t_value))
+
+    def _times(self, t, dt, dt_value, entries=None):
+        """Host numbers of ``dt`` and ``t`` (the latter read only when a
+        program term depends on the time)."""
+        dtv = float(dt) if dt_value is None else float(dt_value)
+        uses_t = v2.needs_t(self.entries if entries is None else entries) or self.has_update
+        tv = (float(t.detach()) if isinstance(t, torch.Tensor) else float(t)) if uses_t else 0.0
+        return tv, dtv
 
     def step(self, P: torch.Tensor, t, dt, dt_value=None) -> torch.Tensor:
         """One accepted step; returns a new padded buffer (``P`` is kept as
@@ -319,16 +386,45 @@ class FusedStepper:
         may be tensors (then the stage coefficients and a callable velocity
         carry their gradients); the kernels take ``dt_value`` (default
         ``float(dt)``) as the host number."""
-        dtv = float(dt) if dt_value is None else float(dt_value)
+        tv, dtv = self._times(t, dt, dt_value)
         cur = P
         for s, (alpha, beta, g, off) in enumerate(self.stages):
             cur = self.stage(cur, (alpha, beta, g * dt), t + off * dt,
-                             None if s == 0 else P, coeff_values=(alpha, beta, g * dtv))
+                             None if s == 0 else P, coeff_values=(alpha, beta, g * dtv),
+                             t_value=tv + off * dtv)
         return cur
+
+    def _field(self, P) -> MeshField:
+        return MeshField(self.unpack(P), self.grid, self.field_bcs, _normalized=True)
+
+    def step_with_terms(self, P: torch.Tensor, t, dt, terms, dt_value=None):
+        """One accepted step for ``update_func`` terms: before each stage the
+        terms are refreshed with the stage's input state and time (the
+        reference's per-stage ``update_term!``) and their entries rebuilt.
+        Returns ``(P_new, terms)`` (counterpart of JAX's
+        ``FusedStepper.step_with_terms``)."""
+        tv, dtv = self._times(t, dt, dt_value)
+        cur = P
+        for s, (alpha, beta, g, off) in enumerate(self.stages):
+            t_stage = t + off * dt
+            field = self._field(cur)
+            terms = update_terms(terms, field, t_stage)
+            entries = term_entries(terms, field)
+            cur = self.stage(cur, (alpha, beta, g * dt), t_stage, None if s == 0 else P,
+                             coeff_values=(alpha, beta, g * dtv), t_value=tv + off * dtv,
+                             entries=entries)
+        return cur, terms
 
     def cfl(self, P: torch.Tensor, t) -> torch.Tensor:
         """Largest stable ``dt`` for the current padded state (0-d tensor):
         the minimum over the terms (a constant coefficient's bound is a host
         number), on the field's own grid and terms (2D for a 2D field)."""
-        field = MeshField(self.unpack(P), self.grid, self.field_bcs, _normalized=True)
-        return compute_cfl(self.terms, field, t)
+        return compute_cfl(self.terms, self._field(P), t)
+
+    def cfl_with_terms(self, P: torch.Tensor, t, terms):
+        """``update_terms`` with the accepted state, then the CFL bound of
+        the refreshed terms: ``(dt, terms)`` (the reference's pre-step
+        ``update_term!`` and ``compute_cfl``)."""
+        field = self._field(P)
+        terms = update_terms(terms, field, t)
+        return compute_cfl(terms, field, t), terms

@@ -7,8 +7,10 @@
   ``torch.autograd``: on a configuration the fused stepper takes (dense 3D
   or 2D), every stage is :func:`~lsm_tpu_torch.ops.weno_v2.fused_step_stage`
   (forward K1 + K2, backward K4, then K3 for one WENO5 advection term or K3'
-  for any other term list, then K5), on the card and on the CPU alike. On
-  CUDA a gradient through the 2D embedding raises (2D gradient).
+  for any other term list, then K5), on the card and on the CPU alike; terms
+  with ``update_func`` are refreshed before every stage and threaded
+  through (JAX's ``_step_terms_impl``). On CUDA a gradient through the 2D
+  embedding raises (2D gradient).
   ``fast="off"`` and the configurations the steppers do not take run the
   general path (:meth:`TimeIntegrator.advance`: K10/K11 forward for one
   WENO5 advection term, the plain VJP backward), differentiable everywhere.
@@ -86,9 +88,11 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
 
     Differentiable: gradients flow to ``phi.values``, a streamed
     coefficient, and ``t0``/``dt`` when they are tensors that require them
-    (through the stage coefficients and a callable coefficient's own graph).
+    (through the stage coefficients and a callable coefficient: K3″'s time
+    cotangent for a traced one, its own graph for one on the stream route).
     A tensor ``dt`` is read back once per call, for the kernels'
-    coefficients.
+    coefficients, and a tensor ``t0`` once per step when a traced callable
+    depends on the time.
 
     ``unroll`` is accepted and ignored: JAX unrolls its ``lax.scan``; here
     the steps are a Python loop. ``fast="auto"`` takes the fused stepper
@@ -153,6 +157,15 @@ def _fused_rollout(integrator, terms, phi, t0, dt, nsteps, remat, remat_chunk):
         if why is not None:
             raise NotImplementedError(why)
     dt_value = _host(dt)
+    if stepper.has_update:
+        def update_step(c):
+            P, t, tms = c
+            P, tms = stepper.step_with_terms(P, t, dt, tms, dt_value)
+            return P, t + dt, tms
+
+        P, _, terms = _scan_steps(update_step, (stepper.pack(phi.values), t0, terms), nsteps,
+                                  remat, remat_chunk)
+        return phi.with_values(stepper.unpack(P).contiguous()), terms
 
     def fused_step(c):
         P, t = c

@@ -134,7 +134,7 @@ def vortex_velocity(period=None):
         uy = torch.sin(2.0 * math.pi * x) * sy ** 2
         if period is not None:
             arg = math.pi * t / period
-            mod = torch.cos(arg) if isinstance(arg, torch.Tensor) else math.cos(arg)
+            mod = math.cos(arg) if isinstance(arg, (int, float)) else torch.cos(arg)
             ux, uy = ux * mod, uy * mod
         return (ux + 0.0 * y, uy + 0.0 * x)
 

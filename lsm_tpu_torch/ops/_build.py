@@ -102,15 +102,18 @@ def compile_library(out: Path, nvcc: str) -> str:
 
 
 class Library:
-    """The loaded kernel library: ``stage_f32/f64`` and ``stage_terms_f32/f64``
-    (K1, advection-only and term-list entries), ``refresh_f32/f64``
-    (K2), ``stage_bwd_f32/f64`` and ``stage_bwd_scratch`` (K3),
-    ``stage_bwd_terms_f32/f64`` and ``stage_bwd_terms_scratch`` (K3'),
-    ``fold_f32/f64`` (K4), ``zero_shells_f32/f64`` (K5),
-    ``band_stage_f32/f64`` and ``band_stage_terms_f32/f64`` (K6),
+    """The loaded kernel library: ``stage_f32/f64``, ``stage_prog_f32/f64``
+    and ``stage_terms_f32/f64`` (K1: advection-only streamed and program
+    entries, term-list entry), ``refresh_f32/f64`` (K2),
+    ``stage_bwd_f32/f64``, ``stage_bwd_prog_f32/f64`` and
+    ``stage_bwd_scratch`` (K3, K3″), ``stage_bwd_terms_f32/f64`` and
+    ``stage_bwd_terms_scratch`` (K3'), ``fold_f32/f64`` (K4),
+    ``zero_shells_f32/f64`` (K5), ``band_stage_f32/f64``,
+    ``band_stage_prog_f32/f64`` and ``band_stage_terms_f32/f64`` (K6),
     ``band_refresh_f32/f64`` (K7),
     ``band_retube_f32/f64`` and ``band_retube_smem`` (K8),
-    ``general_3d_f32/f64`` (K10), ``general_2d_f32/f64`` (K11), ``error_string``,
+    ``general_3d_f32/f64`` (K10), ``general_2d_f32/f64`` (K11),
+    ``prog_tables_f32/f64`` (the program tables of K1″, K3″ and K6″), ``error_string``,
     plus where it came from (``path``), the build's wall time in seconds
     (``build_seconds``, 0 when it was already built) and nvcc's output
     (``log``)."""
@@ -122,7 +125,8 @@ class Library:
         stage_args = [vp] * 6 + [i64] * 3 + [f64] * 6 + [vp]
         ghost_args = [vp] + [i64] * 3 + [vp] * 3 + [vp]
         bwd_args = [vp] * 13 + [i64] * 3 + [f64] * 6 + [ci, vp]
-        bwd_terms_args = [vp] * 7 + [i64] * 3 + [vp] * 3
+        bwd_terms_args = [vp] * 7 + [i64] * 3 + [vp, vp, ci, vp]
+        bwd_prog_args = [vp] * 7 + [i64] * 3 + [vp, ci, ci, vp]
         zero_args = [vp] + [i64] * 3 + [vp]
         band_stage_args = [vp] * 8 + [i64] * 7 + [f64] * 6 + [vp]
         band_ghost_args = [vp] + [i64] * 3 + [vp] * 4 + [vp]
@@ -134,13 +138,16 @@ class Library:
                  "general_3d": ("lsm_weno_general_3d", stage_args),
                  "general_2d": ("lsm_weno_general_2d", general_2d_args),
                  "stage_terms": ("lsm_weno_stage_terms", terms_args),
+                 "stage_prog": ("lsm_weno_stage_prog", terms_args),
                  "refresh": ("lsm_refresh_ghosts", ghost_args),
                  "stage_bwd": ("lsm_stage_bwd", bwd_args),
                  "stage_bwd_terms": ("lsm_stage_bwd_terms", bwd_terms_args),
+                 "stage_bwd_prog": ("lsm_stage_bwd_prog", bwd_prog_args),
                  "fold": ("lsm_fold_ghosts", ghost_args),
                  "zero_shells": ("lsm_zero_shells", zero_args),
                  "band_stage": ("lsm_band_stage", band_stage_args),
                  "band_stage_terms": ("lsm_band_stage_terms", band_terms_args),
+                 "band_stage_prog": ("lsm_band_stage_prog", band_terms_args),
                  "band_refresh": ("lsm_refresh_band_ghosts", band_ghost_args),
                  "band_retube": ("lsm_band_retube", retube_args)}
         for attr, (name, args) in names.items():
@@ -149,6 +156,11 @@ class Library:
                 fn.argtypes = args
                 fn.restype = ci
                 setattr(self, f"{attr}_{suffix}", fn)
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"lsm_prog_tables_{suffix}")
+            fn.argtypes = [vp, vp]
+            fn.restype = ci
+            setattr(self, f"prog_tables_{suffix}", fn)
         for name in ("stage_bwd_scratch", "stage_bwd_terms_scratch"):
             fn = getattr(lib, f"lsm_{name}")
             fn.argtypes = [i64] * 3

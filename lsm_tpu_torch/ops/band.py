@@ -18,7 +18,9 @@ the on-card comparison in ``chip_smoke.py``):
 - :func:`band_stage` (K6, ``csrc/band_stage.cu``; plain
   :func:`band_stage_plain`): K1's stage, any term list, over the dispatched
   tiles, into the ping-pong target; cells outside the compute band keep the
-  source's value.
+  source's value. A program term (K6″) is evaluated per node at the node's
+  own coordinates: it needs no tile-packed stream and no coordinates kept
+  per slot.
 - :func:`refresh_band_ghosts_fast` (K7, ``csrc/refresh_ghosts.cu``; plain
   :func:`refresh_band_ghosts_plain`): K2's shell refresh, each phase gated by
   device flags.
@@ -32,7 +34,8 @@ the on-card comparison in ``chip_smoke.py``):
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises, and counts its launches in ``launches`` (K6
-also those of its term-list entry in ``kinds_launches``). The
+also those of its term-list entry in ``kinds_launches`` and those with a
+program term in ``program_launches``). The
 dispatch-list compaction is plain torch on the device (a ``cumsum`` and a
 scatter), with no host synchronisation.
 """
@@ -213,11 +216,13 @@ def _check_tiles(shape, tiles):
 # -- K6: the active-tile stage ---------------------------------------------------------
 
 
-def band_stage_plain(P, out, ids, band, terms, coeffs, aux, spacing, shape, tiles) -> torch.Tensor:
+def band_stage_plain(P, out, ids, band, terms, coeffs, aux, spacing, shape, tiles,
+                     where: Optional[v2.Where] = None) -> torch.Tensor:
     """Plain version of K6: the dense stage (each tile-packed stream
-    scattered onto the grid), then ``torch.where`` to (dispatched tile and
-    compute band); other nodes of a dispatched tile take ``P``'s value, the
-    rest of ``out`` is left as it is. Writes ``out`` in place, returns it."""
+    scattered onto the grid, each program evaluated at ``where``), then
+    ``torch.where`` to (dispatched tile and compute band); other nodes of a
+    dispatched tile take ``P``'s value, the rest of ``out`` is left as it
+    is. Writes ``out`` in place, returns it."""
     flat, valid = tile_index(ids, shape, tiles)
 
     def dense(packed):
@@ -226,7 +231,7 @@ def band_stage_plain(P, out, ids, band, terms, coeffs, aux, spacing, shape, tile
         return d
 
     terms = tuple((spec, tuple(dense(a) for a in arrs)) for spec, arrs in v2.as_terms(terms))
-    stage = v2._stage_interior(P, terms, coeffs, aux, spacing, shape)
+    stage = v2._stage_interior(P, terms, coeffs, aux, spacing, shape, where)
     new = torch.where(band != 0, stage, v2.unpack_padded(P, shape))
     o = v2.unpack_padded(out, shape)
     o.copy_(torch.where(dispatched_cells(ids, shape, tiles), new, o))
@@ -235,7 +240,7 @@ def band_stage_plain(P, out, ids, band, terms, coeffs, aux, spacing, shape, tile
 
 def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torch.Tensor,
                terms, coeffs, aux: Optional[torch.Tensor], spacing, shape,
-               tiles) -> torch.Tensor:
+               tiles, where: Optional[v2.Where] = None) -> torch.Tensor:
     """K6: one RK stage on the dispatched tiles.
 
     Replaces ``lsm_tpu.ops.band_pallas.band_stage``. ``P`` the source and
@@ -244,9 +249,10 @@ def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torc
     ``band`` the uint8 combined mask, ``terms`` K1's term list (or three
     velocity tensors) with every stream tile-packed ``(capacity, B0, B1,
     B2)``, ``aux`` a padded buffer or None, ``coeffs`` ``(alpha, beta,
-    gamma)`` as numbers. CUDA tensors go to ``csrc/band_stage.cu`` (the
-    advection-only stage to its own entry), CPU tensors to
-    :func:`band_stage_plain`.
+    gamma)`` as numbers; program terms (K6″) at ``where`` as in
+    :func:`~lsm_tpu_torch.ops.weno_v2.fused_stage`. CUDA tensors go to
+    ``csrc/band_stage.cu`` (the advection-only stage to its own entries),
+    CPU tensors to :func:`band_stage_plain`.
     """
     shape, tiles = tuple(shape), tuple(int(b) for b in tiles)
     _check_tiles(shape, tiles)
@@ -263,14 +269,16 @@ def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torc
     v2.check_terms(terms, P, (ids.shape[0], *tiles))
     if aux is not None:
         v2._check(aux, "aux", v2.padded_shape(shape), like=P)
+    where = where or v2.Where()
     if P.device.type == "cpu":
-        return band_stage_plain(P, out, ids, band, terms, coeffs, aux, spacing, shape, tiles)
+        return band_stage_plain(P, out, ids, band, terms, coeffs, aux, spacing, shape, tiles,
+                                where)
     lib = load_library()
     f32 = P.dtype == torch.float32
     aux_ptr = None if aux is None else aux.data_ptr()
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if v2.is_advection_only(terms):
+        if v2.is_advection_only(terms) and terms[0][0].coef_kind == "stream":
             u = terms[0][1]
             alpha, beta, gamma = (float(c) for c in coeffs)
             code = (lib.band_stage_f32 if f32 else lib.band_stage_f64)(
@@ -278,22 +286,28 @@ def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torc
                 out.data_ptr(), band.data_ptr(), ids.data_ptr(), ids.shape[0], *shape, *tiles,
                 *(1.0 / float(h) for h in spacing), alpha, beta, gamma, stream)
         else:
-            tab = v2.stage_table(terms, spacing, coeffs)
-            code = (lib.band_stage_terms_f32 if f32 else lib.band_stage_terms_f64)(
-                P.data_ptr(), aux_ptr, out.data_ptr(), band.data_ptr(), ids.data_ptr(),
-                ids.shape[0], *shape, *tiles, ctypes.addressof(tab), stream)
+            tab = v2.stage_table(terms, spacing, coeffs, where, shape, P)
+            if v2.is_advection_only(terms):
+                fn = lib.band_stage_prog_f32 if f32 else lib.band_stage_prog_f64
+            else:
+                fn = lib.band_stage_terms_f32 if f32 else lib.band_stage_terms_f64
+            code = fn(P.data_ptr(), aux_ptr, out.data_ptr(), band.data_ptr(), ids.data_ptr(),
+                      ids.shape[0], *shape, *tiles, ctypes.addressof(tab), stream)
     v2._raise_on(code, lib, "band_stage kernel")
     band_stage.launches += 1
     band_stage.kinds_launches += not v2.is_advection_only(terms)
+    band_stage.program_launches += any(spec.coef_kind == "program" for spec, _ in terms)
     return out
 
 
 band_stage.launches = 0
 band_stage.kinds_launches = 0  # of the launches, those of the term-list entry
+band_stage.program_launches = 0  # of the launches, those with a program term (K6″)
 
 
 def band_stage_reference(padded, out_init, compute_mask, term_specs_and_streams, coeffs, t,
-                         aux_padded, bcs, spacing, shape, lo, tiles, ids=None) -> torch.Tensor:
+                         aux_padded, bcs, spacing, shape, lo, tiles, ids=None,
+                         origin=None) -> torch.Tensor:
     """Plain oracle (counterpart of ``lsm_tpu.ops.band_pallas.
     band_stage_reference``): the dense stage (ghosts rebuilt from the
     interior, dense streams or a callable at node coordinates) masked to
@@ -304,7 +318,7 @@ def band_stage_reference(padded, out_init, compute_mask, term_specs_and_streams,
     before). Returns a new padded buffer whose shells are ``out_init``'s."""
     shape = tuple(shape)
     dense = v2.stage_reference(padded, term_specs_and_streams, coeffs, t, aux_padded, bcs,
-                               spacing, shape, lo)
+                               spacing, shape, lo, origin)
     cm = compute_mask != 0
     if ids is None:
         ids = active_tile_ids(cm, tiles, math.prod(tile_grid(shape, tiles)))[0]
@@ -318,13 +332,14 @@ def band_stage_reference(padded, out_init, compute_mask, term_specs_and_streams,
 
 
 def band_stage_refresh_plain(P, out_init, ids, band, terms, coeffs, aux, bcs, spacing, shape,
-                             tiles) -> torch.Tensor:
+                             tiles, where: Optional[v2.Where] = None) -> torch.Tensor:
     """The plain band composite (counterpart of ``lsm_tpu.ops.band_pallas.
     _band_stage_refresh_jnp``): each tile-packed stream scattered onto the
-    grid, :func:`band_stage_reference` on the dispatch list ``ids``, then the
-    full ghost refresh. A new buffer; differentiable in ``P``, ``out_init``,
-    ``aux``, the streams and tensor ``coeffs``. Its autograd is the backward
-    of :func:`band_step_stage`, on both devices."""
+    grid, :func:`band_stage_reference` on the dispatch list ``ids`` (program
+    terms at ``where``), then the full ghost refresh. A new buffer;
+    differentiable in ``P``, ``out_init``, ``aux``, the streams, tensor
+    ``coeffs`` and a tensor ``where.t``. Its autograd is the backward of
+    :func:`band_step_stage`, on both devices."""
     shape = tuple(shape)
     flat, valid = tile_index(ids, shape, tiles)
     idx = flat[valid]
@@ -333,9 +348,10 @@ def band_stage_refresh_plain(P, out_init, ids, band, terms, coeffs, aux, bcs, sp
         d = torch.zeros(shape, dtype=P.dtype, device=P.device)
         return d.view(-1).index_put((idx,), packed[valid]).view(shape)
 
+    where = where or v2.Where()
     dense_terms = tuple((spec, tuple(dense(a) for a in arrs)) for spec, arrs in terms)
-    out = band_stage_reference(P, out_init, band, dense_terms, coeffs, 0.0, aux, bcs, spacing,
-                               shape, (0.0,) * len(shape), tiles, ids=ids)
+    out = band_stage_reference(P, out_init, band, dense_terms, coeffs, where.t, aux, bcs,
+                               spacing, shape, where.lo, tiles, ids=ids, origin=where.origin)
     return v2.refresh_ghosts(out, bcs, shape)
 
 
@@ -344,34 +360,38 @@ class _BandStepStage(torch.autograd.Function):
     :func:`band_stage_refresh_plain` from the saved inputs (the full refresh:
     a phase K7 skipped left shells that already agree with the interior, so
     the composite computes the same output), with no cotangent for the
-    dispatch list, the band and the gates, as in JAX's ``_bss_bwd``."""
+    dispatch list, the band and the gates, as in JAX's ``_bss_bwd``; the
+    stage time ``t`` gets its cotangent through the program terms, as JAX's
+    ``dt_``."""
 
     @staticmethod
-    def forward(ctx, P, out_init, aux, ids, band, flags, alpha, beta, gamma, statics, *streams):
-        specs, counts, bcs, spacing, shape, tiles, values = statics
+    def forward(ctx, P, out_init, aux, ids, band, flags, alpha, beta, gamma, t, statics,
+                *streams):
+        specs, counts, bcs, spacing, shape, tiles, values, where = statics
         terms = v2._unflatten(specs, counts, streams)
         out = out_init.clone()
-        band_stage(P, out, ids, band, terms, values, aux, spacing, shape, tiles)
+        band_stage(P, out, ids, band, terms, values, aux, spacing, shape, tiles, where)
         refresh_band_ghosts_fast(out, bcs, shape, flags)
         ctx.save_for_backward(P, out_init, aux, ids, band, *streams)
         ctx.statics = statics
-        ctx.coefs = (alpha, beta, gamma)
+        ctx.coefs = (alpha, beta, gamma, t)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         P, out_init, aux, ids, band, *streams = ctx.saved_tensors
-        specs, counts, bcs, spacing, shape, tiles, _ = ctx.statics
+        specs, counts, bcs, spacing, shape, tiles, _, where = ctx.statics
         need = ctx.needs_input_grad  # P, out_init, aux, ids, band, flags, alpha, beta, gamma,
-        with torch.enable_grad():    # statics, *streams
+        with torch.enable_grad():    # t, statics, *streams
             leaf = lambda t, n: t.detach().requires_grad_(n) if t is not None else None
             Pv, Ov, Av = leaf(P, need[0]), leaf(out_init, need[1]), leaf(aux, need[2])
             cv = [c.detach().requires_grad_(need[6 + k]) if isinstance(c, torch.Tensor) else c
                   for k, c in enumerate(ctx.coefs)]
-            sv = [leaf(a, n) for a, n in zip(streams, need[10:])]
+            sv = [leaf(a, n) for a, n in zip(streams, need[11:])]
+            at = where.at(cv[3]) if isinstance(cv[3], torch.Tensor) else where
             out = band_stage_refresh_plain(Pv, Ov, ids, band, v2._unflatten(specs, counts, sv),
-                                           cv, Av, bcs, spacing, shape, tiles)
+                                           cv[:3], Av, bcs, spacing, shape, tiles, at)
             inputs = [t for t in (Pv, Ov, Av, *cv, *sv)
                       if isinstance(t, torch.Tensor) and t.requires_grad]
             grads = iter(torch.autograd.grad(out, inputs, grad_outputs=g, allow_unused=True)
@@ -386,7 +406,7 @@ class _BandStepStage(torch.autograd.Function):
 
 
 def band_step_stage(P, out, ids, band, flags, terms, coeffs, aux, bcs, spacing, shape, tiles,
-                    coeff_values=None) -> torch.Tensor:
+                    coeff_values=None, where: Optional[v2.Where] = None) -> torch.Tensor:
     """One band stage: K6 from ``P`` into ``out``, then K7 on ``out``
     (counterpart of ``lsm_tpu.ops.band_pallas.band_step_stage``).
 
@@ -396,23 +416,27 @@ def band_step_stage(P, out, ids, band, flags, terms, coeffs, aux, bcs, spacing, 
     that is written later) through a ``torch.autograd.Function`` whose
     backward is autograd of :func:`band_stage_refresh_plain`: gradients flow
     to ``P``, ``out`` (the nodes the stage leaves), ``aux``, the tile-packed
-    streams and tensor ``coeffs``; the dispatch list, the band and the gates
-    are constants. The kernels take the coefficients as host numbers
-    (``coeff_values``, default ``float`` of each).
+    streams, tensor ``coeffs`` and, through a program term that depends on
+    it, a tensor ``where.t``; the dispatch list, the band and the gates are
+    constants. The kernels take the coefficients and the time as host
+    numbers (``coeff_values`` and ``where.value``, default ``float`` of
+    each); program terms are evaluated at ``where`` as in :func:`band_stage`.
     """
     shape, tiles = tuple(shape), tuple(int(b) for b in tiles)
     terms = v2.as_terms(terms)
     values = tuple(float(c.detach()) if isinstance(c, torch.Tensor) else float(c)
                    for c in (coeffs if coeff_values is None else coeff_values))
+    where = where or v2.Where()
+    t = where.t if v2.needs_t(terms) else None
     streams = [a for _, arrs in terms for a in arrs]
-    tensors = [P, out, aux, *streams, *coeffs]
+    tensors = [P, out, aux, *streams, *coeffs, t]
     if not (torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)):
-        band_stage(P, out, ids, band, terms, values, aux, spacing, shape, tiles)
+            isinstance(x, torch.Tensor) and x.requires_grad for x in tensors)):
+        band_stage(P, out, ids, band, terms, values, aux, spacing, shape, tiles, where)
         return refresh_band_ghosts_fast(out, bcs, shape, flags)
     statics = (tuple(spec for spec, _ in terms), tuple(len(arrs) for _, arrs in terms), bcs,
-               tuple(float(h) for h in spacing), shape, tiles, values)
-    return _BandStepStage.apply(P, out, aux, ids, band, flags, *coeffs, statics, *streams)
+               tuple(float(h) for h in spacing), shape, tiles, values, where.at(where.value))
+    return _BandStepStage.apply(P, out, aux, ids, band, flags, *coeffs, t, statics, *streams)
 
 
 # -- K7: the gated shell refresh --------------------------------------------------------

@@ -14,7 +14,10 @@ tests and by the on-card comparison in ``chip_smoke.py``):
   fresh padded buffer, ghost shells left stale. The terms ``H_n`` are WENO5
   advection, Godunov/ENO2 normal motion, mean-curvature motion and eikonal
   reinitialization (frozen or recomputed sign), summed in list order; the
-  per-node Hamiltonians are ``csrc/hamiltonians.cuh``, shared with K6.
+  per-node Hamiltonians are ``csrc/hamiltonians.cuh``, shared with K6. A
+  coefficient is streamed, a constant, none (the recomputed eikonal sign)
+  or a traced coordinate program (K1″, :mod:`.coef_program`), which the
+  kernel evaluates per node at ``lo + (origin + i)*h`` and time ``t``.
 - :func:`refresh_ghosts_fast` (K2, ``csrc/refresh_ghosts.cu``; plain
   :func:`refresh_ghosts_plain`) rewrites the ghost shells in place from the
   interior: axis 0, then axis 1, then axis 2, so corner ghosts equal
@@ -26,19 +29,26 @@ tests and by the on-card comparison in ``chip_smoke.py``):
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises. Each counts its kernel launches in
 ``launches``; K1 also counts those of its term-list entry in
-``kinds_launches``.
+``kinds_launches`` and those with a program term (K1″) in
+``program_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..core import bc as _bc
 from ..geometry import queries as geo
 from . import stencils as st
+from .coef_program import OPCODES, Program
+from .coef_program import MAX_CONSTS as _MAX_CONSTS
+from .coef_program import MAX_OPS as _MAX_OPS
+from .coef_program import MAX_TABLES as _MAX_TABLES
 from ._build import load_library
 
 __all__ = [
@@ -57,11 +67,13 @@ __all__ = [
     "stage_refresh_plain",
     "fused_step_stage",
     "TermSpec",
+    "Where",
     "KINDS",
     "MAX_TERMS",
     "ADVECTION",
     "as_terms",
     "resolve_terms",
+    "program_values",
     "ham_contribution",
     "gradient_reason",
 ]
@@ -224,10 +236,11 @@ refresh_ghosts_fast.launches = 0
 KINDS = ("advection", "normal", "curvature", "eikonal")
 MAX_TERMS = 16  # the kernels' term table (a by-value kernel parameter)
 _KIND_CODES = {k: i for i, k in enumerate(KINDS)}
-_COEF_CODES = {"stream": 0, "const": 1, "none": 2}
+_COEF_CODES = {"stream": 0, "const": 1, "none": 2, "program": 3}
 #: the coefficient kinds the kernels take, per term kind
-_KERNEL_COEFS = {"advection": ("stream",), "normal": ("stream", "const"),
-                 "curvature": ("stream", "const"), "eikonal": ("stream", "none")}
+_KERNEL_COEFS = {"advection": ("stream", "program"), "normal": ("stream", "const", "program"),
+                 "curvature": ("stream", "const", "program"),
+                 "eikonal": ("stream", "none", "program")}
 
 
 class TermSpec:
@@ -237,19 +250,30 @@ class TermSpec:
     - ``"stream"``: ``n_streams`` coefficient tensors (3 velocity components
       for advection, 1 for a scalar coefficient or a frozen eikonal sign),
     - ``"const"``: the number ``coef_static``,
-    - ``"analytic"``: a coordinate callable ``coef_static(xs, t)``, which the
-      steppers evaluate into streamed tensors at each stage time
-      (:func:`resolve_terms`),
+    - ``"program"``: a coordinate callable traced into the
+      :class:`~.coef_program.Program` ``coef_static``, which the kernels
+      evaluate per node (K1″, K3″, K6″): nothing is streamed for it,
+    - ``"analytic"``: a coordinate callable ``coef_static(xs, t)`` that did
+      not trace (``reason`` says why), which the steppers evaluate into
+      streamed tensors at each stage time (:func:`resolve_terms`),
     - ``"none"``: the eikonal term with its sign recomputed from phi.
     """
 
-    __slots__ = ("kind", "coef_kind", "coef_static", "n_streams")
+    __slots__ = ("kind", "coef_kind", "coef_static", "n_streams", "reason")
 
-    def __init__(self, kind, coef_kind, coef_static=None, n_streams=0):
+    def __init__(self, kind, coef_kind, coef_static=None, n_streams=0, reason=None):
         self.kind = kind
         self.coef_kind = coef_kind
         self.coef_static = coef_static
         self.n_streams = n_streams
+        self.reason = reason
+
+    @property
+    def route(self):
+        """How the coefficient reaches the kernels: ``"program"`` (in-kernel),
+        ``"stream"`` (streamed tensors: a tensor, or a callable that did not
+        trace), ``"const"`` or ``"none"``."""
+        return "stream" if self.coef_kind == "analytic" else self.coef_kind
 
     def __repr__(self):
         return f"TermSpec({self.kind}, {self.coef_kind})"
@@ -257,6 +281,11 @@ class TermSpec:
 
 #: the advection-only stage: one WENO5 advection term with 3 streamed components
 ADVECTION = TermSpec("advection", "stream", None, 3)
+
+
+def n_components(kind: str) -> int:
+    """Coefficient components of a term kind in 3D: 3 for advection, else 1."""
+    return 3 if kind == "advection" else 1
 
 
 def as_terms(terms):
@@ -270,22 +299,39 @@ def as_terms(terms):
 
 def is_advection_only(terms) -> bool:
     """Whether a normalised term list is the advection-only stage (one
-    streamed advection term), which keeps its own kernel entry and K3."""
+    advection term, streamed or a program), which keeps its own kernel
+    entries and K3."""
     return len(terms) == 1 and terms[0][0].kind == "advection" and \
-        terms[0][0].coef_kind == "stream"
+        terms[0][0].coef_kind in ("stream", "program")
 
 
-def node_coords(shape, spacing, lo, dtype, device=None):
-    """Sparse node coordinates ``lo + i*h`` per axis: the coordinates the
-    fused stage evaluates coefficient callables at (not ``Grid.coords``'
-    linspace, which differs in the last bits)."""
+def node_coords(shape, spacing, lo, dtype, device=None, origin=None):
+    """Sparse node coordinates ``lo + (origin + i)*h`` per axis (``origin``
+    in index units, default none): the coordinates the fused stage evaluates
+    coefficient callables at (not ``Grid.coords``' linspace, which differs
+    in the last bits)."""
     out = []
     for d, n in enumerate(shape):
         view = [1] * len(shape)
         view[d] = n
         i = torch.arange(n, dtype=dtype, device=device).reshape(view)
+        if origin is not None:
+            i = i + float(origin[d])
         out.append(lo[d] + i * float(spacing[d]))
     return tuple(out)
+
+
+def program_values(spec: TermSpec, shape, spacing, lo, t, like: torch.Tensor, origin=None):
+    """A program term's coefficient components at :func:`node_coords` and
+    time ``t`` (a number, or a tensor whose graph the values keep), each
+    broadcast to ``shape`` in ``like``'s dtype and device: the plain
+    version of what K1″, K3″ and K6″ evaluate per node."""
+    dtype, device = like.dtype, like.device
+    xs = node_coords(shape, spacing, lo, dtype, device, origin)
+    tt = (t.to(dtype=dtype, device=device) if isinstance(t, torch.Tensor)
+          else torch.tensor(float(t), dtype=dtype, device=device))
+    return tuple(torch.broadcast_to(torch.as_tensor(c, dtype=dtype, device=device), shape)
+                 for c in spec.coef_static.evaluate(xs, tt))
 
 
 def eval_components(value, shape, dtype, device, k=3) -> Tuple[torch.Tensor, ...]:
@@ -356,59 +402,97 @@ def ham_contribution(spec: TermSpec, P, coef, center, spacing, shape):
     raise ValueError(f"unknown term kind {spec.kind!r}")
 
 
-def _coef_values(spec: TermSpec, arrs, like: torch.Tensor):
+class Where:
+    """Where and when a stage evaluates its program terms: the grid's
+    ``lo``, the ``origin`` offset of node 0 (index units, as JAX's), the
+    stage time ``t`` (a number, or a 0-d tensor that the plain versions and
+    the differentiable stages take the cotangent of) and ``value``, ``t`` as
+    the host number the kernels take (given, a tensor ``t`` is not read
+    back; default ``float(t)``)."""
+
+    __slots__ = ("lo", "origin", "t", "_value")
+
+    def __init__(self, lo=None, origin=None, t=0.0, value=None):
+        self.lo = (0.0, 0.0, 0.0) if lo is None else tuple(float(x) for x in lo)
+        self.origin = (0.0, 0.0, 0.0) if origin is None else tuple(float(o) for o in origin)
+        self.t = t
+        self._value = None if value is None else float(value)
+
+    @property
+    def value(self) -> float:
+        if self._value is None:
+            t = self.t
+            self._value = float(t.detach()) if isinstance(t, torch.Tensor) else float(t)
+        return self._value
+
+    def at(self, t) -> "Where":
+        """The same place at the time ``t`` (host number unchanged)."""
+        return Where(self.lo, self.origin, t, self.value)
+
+
+def _coef_values(spec: TermSpec, arrs, like: torch.Tensor, spacing=None, shape=None,
+                 where: Optional[Where] = None):
     if spec.coef_kind == "stream":
         return tuple(arrs)
     if spec.coef_kind == "const":
         return (torch.full((), float(spec.coef_static), dtype=like.dtype, device=like.device),)
     if spec.coef_kind == "none":
         return ()
+    if spec.coef_kind == "program":
+        where = where or Where()
+        return program_values(spec, shape, spacing, where.lo, where.t, like, where.origin)
     raise ValueError(f"{spec!r}: evaluate an analytic coefficient first (resolve_terms)")
 
 
-def _stage_interior(P, terms, coeffs, aux, spacing, shape):
+def _stage_interior(P, terms, coeffs, aux, spacing, shape, where: Optional[Where] = None):
     """``alpha*aux + beta*phi - gamma*sum_n H_n`` on the interior, with the
     arithmetic order of the JAX oracle; the coefficients are numbers or 0-d
-    tensors, ``terms`` a normalised list without analytic coefficients."""
+    tensors, ``terms`` a normalised list without analytic coefficients
+    (program terms are evaluated at ``where``)."""
     alpha, beta, gamma = coeffs
     center = st.shift(P, (0,) * len(shape), GHOST, shape)
     ham = 0.0
     for spec, arrs in terms:
-        ham = ham + ham_contribution(spec, P, _coef_values(spec, arrs, P), center, spacing,
-                                     shape)
+        ham = ham + ham_contribution(spec, P, _coef_values(spec, arrs, P, spacing, shape, where),
+                                     center, spacing, shape)
     res = beta * center - gamma * ham
     if aux is not None:
         res = alpha * unpack_padded(aux, shape) + res
     return res
 
 
-def stage_plain(P, terms, coeffs, aux, spacing, shape) -> torch.Tensor:
+def stage_plain(P, terms, coeffs, aux, spacing, shape, where: Optional[Where] = None
+                ) -> torch.Tensor:
     """Plain version of K1: a fresh padded buffer holding the stage result in
     its interior; its ghost shells are left unset, as the kernel leaves them.
-    ``terms`` as for :func:`fused_stage`."""
+    ``terms`` as for :func:`fused_stage`; program terms evaluated at
+    ``where``."""
     out = torch.empty_like(P)
     unpack_padded(out, shape).copy_(
-        _stage_interior(P, as_terms(terms), coeffs, aux, spacing, shape))
+        _stage_interior(P, as_terms(terms), coeffs, aux, spacing, shape, where))
     return out
 
 
 def stage_reference(padded, term_specs_and_streams, coeffs, t, aux_padded, bcs,
-                    spacing, shape, lo) -> torch.Tensor:
+                    spacing, shape, lo, origin=None) -> torch.Tensor:
     """Plain oracle on the padded layout; returns the INTERIOR. Ghosts are
     rebuilt from the interior and ``bcs`` (independent of the stored shells),
-    and analytic coefficients are evaluated at :func:`node_coords`."""
+    and analytic and program coefficients are evaluated at
+    :func:`node_coords` (shifted by ``origin``)."""
     shape = tuple(shape)
     full = pack_padded(unpack_padded(padded, shape), bcs)
-    xs = node_coords(shape, spacing, lo, padded.dtype, padded.device)
+    xs = node_coords(shape, spacing, lo, padded.dtype, padded.device, origin)
     terms = resolve_terms(as_terms(term_specs_and_streams), xs, t, shape, padded.dtype,
                           padded.device)
-    return _stage_interior(full, terms, coeffs, aux_padded, spacing, shape)
+    return _stage_interior(full, terms, coeffs, aux_padded, spacing, shape,
+                           Where(lo, origin, t))
 
 
 def check_terms(terms, P, stream_shape, name="terms"):
     """Validate a normalised term list for the kernels: known kinds, a
     coefficient kind each kind takes, streams of ``stream_shape`` like
-    ``P``, at most :data:`MAX_TERMS` entries."""
+    ``P``, programs of the kind's component count, at most
+    :data:`MAX_TERMS` entries."""
     if not 1 <= len(terms) <= MAX_TERMS:
         raise ValueError(f"the stage kernels take 1 to {MAX_TERMS} terms, got {len(terms)}")
     for n, (spec, arrs) in enumerate(terms):
@@ -418,32 +502,226 @@ def check_terms(terms, P, stream_shape, name="terms"):
         if spec.coef_kind not in allowed:
             raise ValueError(
                 f"term {n}: a {spec.kind} term with a {spec.coef_kind!r} coefficient is not a "
-                f"kernel input (takes {allowed}); an analytic one is evaluated into streams "
-                "first (in-kernel analytic coefficients: ROADMAP.md queue 2, item 2)")
-        want = (3 if spec.kind == "advection" else 1) if spec.coef_kind == "stream" else 0
+                f"kernel input (takes {allowed}); an analytic callable runs in-kernel once "
+                "traced into a program (coef_program.trace), or is evaluated into streams "
+                "first (resolve_terms)")
+        if spec.coef_kind == "program" and (
+                not isinstance(spec.coef_static, Program)
+                or len(spec.coef_static.components) != n_components(spec.kind)):
+            raise ValueError(f"term {n} ({spec.kind}) needs a Program of "
+                             f"{n_components(spec.kind)} components")
+        want = n_components(spec.kind) if spec.coef_kind == "stream" else 0
         if len(arrs) != want:
             raise ValueError(f"term {n} ({spec.kind}) needs {want} streams, got {len(arrs)}")
         for d, a in enumerate(arrs):
             _check(a, f"{name}[{n}] stream {d}", stream_shape, like=P)
 
 
+class ProgramTable(ctypes.Structure):
+    """The program terms' coordinates, time, ops and per-axis tables
+    (``LsmProgram`` in ``csrc/lsm_kernels.h``): entry ``e``'s component
+    ``d`` is ``len[e][d]`` ops from ``op[start[e][d]]``, each ``opcode |
+    mode << 5 | operand << 8``; table slot ``s`` starts at ``tab_off[s]`` of
+    the device buffer ``table`` and runs along axis ``tab_axis[s]``."""
+
+    _fields_ = [("lo", ctypes.c_double * 3), ("h", ctypes.c_double * 3),
+                ("origin", ctypes.c_double * 3), ("t", ctypes.c_double),
+                ("start", (ctypes.c_int16 * 3) * MAX_TERMS),
+                ("len", (ctypes.c_int16 * 3) * MAX_TERMS),
+                ("op", ctypes.c_uint16 * _MAX_OPS), ("konst", ctypes.c_double * _MAX_CONSTS),
+                ("table", ctypes.c_void_p), ("tab_dt", ctypes.c_int64),
+                ("tab_off", ctypes.c_int32 * _MAX_TABLES),
+                ("tab_axis", ctypes.c_int32 * _MAX_TABLES)]
+
+
 class StageTerms(ctypes.Structure):
     """The kernels' term table and stage constants (``LsmStageTerms`` in
-    ``csrc/lsm_kernels.h``), passed to K1 and K6 by value."""
+    ``csrc/lsm_kernels.h``), passed to K1, K3, K3' and K6 by value."""
 
     _fields_ = [("n", ctypes.c_int), ("kind", ctypes.c_int * MAX_TERMS),
                 ("coef", ctypes.c_int * MAX_TERMS), ("value", ctypes.c_double * MAX_TERMS),
                 ("stream", ctypes.c_void_p * (3 * MAX_TERMS))] + [
         (name, ctypes.c_double * 3)
         for name in ("inv_h", "half_h", "inv_two_h", "inv_hh", "inv_hmix")
-    ] + [(name, ctypes.c_double) for name in ("dx_min", "alpha", "beta", "gamma")]
+    ] + [(name, ctypes.c_double) for name in ("dx_min", "alpha", "beta", "gamma")] + [
+        ("prog", ProgramTable)]
 
 
-def stage_table(terms, spacing, coeffs) -> StageTerms:
+class TableFill(ctypes.Structure):
+    """The table programs of a stage (``LsmTableFill`` in
+    ``csrc/lsm_kernels.h``): slot ``s`` runs ``nops[s]`` ops from
+    ``prog.op[start[s]]`` at the ``count[s]`` indices of its axis into
+    ``prog.table`` from ``prog.tab_off[s]``."""
+
+    _fields_ = [("prog", ProgramTable), ("n", ctypes.c_int32), ("total", ctypes.c_int32),
+                ("start", ctypes.c_int16 * _MAX_TABLES), ("nops", ctypes.c_int16 * _MAX_TABLES),
+                ("count", ctypes.c_int32 * _MAX_TABLES)]
+
+
+#: the mode bits of a binary op's immediate right operand, by leaf
+_IMM_MODES = {"tab": 1, "const": 2, "tconst": 2, "x": 3, "t": 3}
+
+
+def _encode(prog: ProgramTable, comp, at: int, k: int, slot0: int = 0):
+    """Write the accumulator program ``comp`` into ``prog.op`` from ``at``,
+    its constants into ``prog.konst`` from ``k``, its table slots offset by
+    ``slot0``; returns the next ``(at, k)``."""
+    for op, arg, mode in comp:
+        if mode == "imm":  # a binary op whose right operand is a leaf
+            leaf, leaf_arg = arg
+            bits, operand = _IMM_MODES[leaf], 3 if leaf == "t" else leaf_arg
+        else:
+            bits, operand, leaf, leaf_arg = int(mode == "push"), 0, op, arg
+        if leaf == "x":
+            operand = leaf_arg
+        elif leaf == "tab":
+            operand = slot0 + leaf_arg
+        elif leaf in ("const", "tconst", "powc"):
+            prog.konst[k] = leaf_arg
+            operand, k = k, k + 1
+        prog.op[at] = OPCODES["const" if op == "tconst" else op] | (bits << 5) | (operand << 8)
+        at += 1
+    return at, k
+
+
+def _set_where(prog: ProgramTable, spacing, where: Where):
+    for d in range(3):
+        prog.lo[d], prog.h[d], prog.origin[d] = where.lo[d], float(spacing[d]), where.origin[d]
+    prog.t = where.value
+
+
+def _table_layout(progs, shape):
+    """``(axis, count, offset)`` of every table slot of ``progs`` in order,
+    and their total."""
+    out, at = [], 0
+    for p in progs:
+        for _, axis in p.tables:
+            count = 1 if axis < 0 else int(shape[axis])
+            out.append((axis, count, at))
+            at += count
+    return out, at
+
+
+def table_fill(progs, shape, spacing, where: Where) -> TableFill:
+    """The :class:`TableFill` of the tables of ``progs`` on a grid of
+    ``shape`` at ``where`` (its buffer and ``tab_dt`` unset). The encoding
+    is cached per programs, grid and place; only the time is set per call
+    (the launch copies the struct)."""
+    fill = _table_fill(tuple(progs), tuple(int(n) for n in shape),
+                       tuple(float(h) for h in spacing), where.lo, where.origin)
+    fill.prog.t = where.value
+    return fill
+
+
+@functools.lru_cache(maxsize=32)
+def _table_fill(progs, shape, spacing, lo, origin) -> TableFill:
+    layout, total = _table_layout(progs, shape)
+    fill = TableFill()
+    _set_where(fill.prog, spacing, Where(lo, origin))
+    at = k = 0
+    for s, (comp, (axis, count, off)) in enumerate(
+            zip((c for p in progs for c in p.table_components), layout)):
+        fill.start[s], fill.nops[s], fill.count[s] = at, len(comp), count
+        fill.prog.tab_off[s], fill.prog.tab_axis[s] = off, axis
+        at, k = _encode(fill.prog, comp, at, k)
+    fill.n, fill.total = len(layout), total
+    return fill
+
+
+def program_tables_plain(progs, shape, spacing, where: Where, like: torch.Tensor,
+                         need_dt: bool) -> torch.Tensor:
+    """Plain version of :func:`program_tables`: every table of ``progs`` by
+    :meth:`~.coef_program.Program.table_values` at ``where``'s node
+    coordinates and time, then, with ``need_dt``, their t-derivatives
+    (forward-mode autograd), in one buffer of ``like``'s dtype."""
+    dtype, device = like.dtype, like.device
+    xs = node_coords(shape, spacing, where.lo, dtype, device, where.origin)
+    tt = torch.tensor(where.value, dtype=dtype, device=device)
+    vals, tans = [], []
+    for prog in progs:
+        if need_dt:
+            with fwAD.dual_level():
+                out = [fwAD.unpack_dual(v) for v in prog.table_values(
+                    xs, fwAD.make_dual(tt, torch.ones_like(tt)))]
+            vals += [v.primal for v in out]
+            tans += [torch.zeros_like(v.primal) if v.tangent is None else v.tangent
+                     for v in out]
+        else:
+            vals += list(prog.table_values(xs, tt))
+    parts = vals + tans
+    return torch.cat(parts).contiguous() if parts else like.new_zeros(1)
+
+
+def program_tables(progs, shape, spacing, where: Where, like: torch.Tensor,
+                   need_dt: bool) -> torch.Tensor:
+    """The per-axis tables of the programs ``progs`` at ``where``'s node
+    coordinates and time, in one buffer of ``like``'s dtype and device laid
+    out as :func:`_table_layout` says, with ``need_dt`` followed by their
+    t-derivatives: what K1″, K3″ and K6″ read per node. CUDA tensors go to
+    ``csrc/coef_tables.cu`` (the programs' interpreter, one thread per
+    entry), CPU tensors to :func:`program_tables_plain`."""
+    fill = table_fill(progs, shape, spacing, where)
+    total = fill.total
+    if like.device.type == "cpu" or total == 0:
+        return program_tables_plain(progs, shape, spacing, where, like, need_dt)
+    buf = like.new_empty(2 * total if need_dt else total)
+    fill.prog.table, fill.prog.tab_dt = buf.data_ptr(), total if need_dt else 0
+    lib = load_library()
+    with torch.cuda.device(like.device):
+        code = (lib.prog_tables_f32 if like.dtype == torch.float32 else lib.prog_tables_f64)(
+            ctypes.addressof(fill), torch.cuda.current_stream().cuda_stream)
+    _raise_on(code, lib, "program tables kernel")
+    program_tables.launches += 1
+    return buf
+
+
+program_tables.launches = 0
+
+
+def _pack_programs(prog: ProgramTable, terms, spacing, where: Where, shape, like, need_dt):
+    """Encode the program terms of ``terms`` into ``prog`` and fill their
+    tables (:func:`program_tables`; the buffer is returned: it must live
+    until the launch has run); raises ``ValueError`` when they do not fit
+    the kernels' tables."""
+    progs = [s.coef_static for s, _ in terms if s.coef_kind == "program"]
+    n_ops, n_consts = sum(p.n_ops for p in progs), sum(p.n_consts for p in progs)
+    n_tabs = sum(len(p.tables) for p in progs)
+    t_ops, t_consts = (sum(p.n_table_ops for p in progs), sum(p.n_table_consts for p in progs))
+    if (max(n_ops, t_ops) > _MAX_OPS or max(n_consts, t_consts) > _MAX_CONSTS
+            or n_tabs > _MAX_TABLES):
+        raise ValueError(f"the stage's programs take {n_ops} ops, {n_consts} constants and "
+                         f"{n_tabs} tables (their programs {t_ops} ops and {t_consts} "
+                         f"constants); the kernels' tables hold {_MAX_OPS}, {_MAX_CONSTS} "
+                         f"and {_MAX_TABLES}")
+    if shape is None or like is None:
+        raise ValueError("a program term needs the stage's shape and a tensor of its dtype")
+    _set_where(prog, spacing, where)
+    layout, total = _table_layout(progs, shape)
+    buf = program_tables(progs, shape, spacing, where, like, need_dt)
+    prog.table, prog.tab_dt = buf.data_ptr(), total if need_dt else 0
+    for s, (axis, _, off) in enumerate(layout):
+        prog.tab_off[s], prog.tab_axis[s] = off, axis
+    at = k = slot0 = 0
+    for e, (spec, _) in enumerate(terms):
+        if spec.coef_kind != "program":
+            continue
+        p = spec.coef_static
+        for d, comp in enumerate(p.components):
+            prog.start[e][d], prog.len[e][d] = at, len(comp)
+            at, k = _encode(prog, comp, at, k, slot0)
+        slot0 += len(p.tables)
+    return buf
+
+
+def stage_table(terms, spacing, coeffs, where: Optional[Where] = None, shape=None, like=None,
+                need_dt: bool = False) -> StageTerms:
     """The :class:`StageTerms` of a checked term list. The spacing-derived
     constants are the reciprocals of what the plain version divides by
     (``h``, ``2h``, ``h*h``, ``4*h1*h2``), formed in float64; the kernel
-    rounds each to its dtype and multiplies."""
+    rounds each to its dtype and multiplies. Program terms are encoded with
+    the coordinates and time of ``where``, their per-axis tables filled on
+    ``like``'s device for a grid of ``shape`` (with their t-derivatives when
+    ``need_dt``); the table keeps that buffer alive (``tab.tables``)."""
     tab = StageTerms()
     tab.n = len(terms)
     for n, (spec, arrs) in enumerate(terms):
@@ -460,25 +738,32 @@ def stage_table(terms, spacing, coeffs) -> StageTerms:
         tab.inv_hmix[k] = 1.0 / (4.0 * h[i] * h[j])
     tab.dx_min = min(h)
     tab.alpha, tab.beta, tab.gamma = (float(c) for c in coeffs)
+    tab.tables = None
+    if any(spec.coef_kind == "program" for spec, _ in terms):
+        tab.tables = _pack_programs(tab.prog, terms, spacing, where or Where(), shape, like,
+                                    need_dt)
     return tab
 
 
 def fused_stage(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
-                spacing, shape) -> torch.Tensor:
+                spacing, shape, where: Optional[Where] = None) -> torch.Tensor:
     """K1: one RK stage on the padded layout.
 
     ``out = alpha*aux + beta*phi - gamma*sum_n H_n`` in the interior of a
     fresh padded buffer; its ghost shells are stale until
     :func:`refresh_ghosts_fast`. ``terms`` is a list of ``(TermSpec,
     streams)`` (kinds advection, normal, curvature, eikonal; coefficients
-    streamed, constant or none; streams contiguous and interior-shaped), or
-    three velocity tensors for the advection-only stage. ``aux`` a padded
-    buffer or ``None``, ``coeffs`` ``(alpha, beta, gamma)`` as Python
-    numbers (a new ``dt`` rebuilds nothing). Replaces
-    ``lsm_tpu.ops.weno_v2.fused_stage`` (an analytic coefficient is
-    evaluated into streams first, :func:`resolve_terms`). CUDA tensors go to
-    ``csrc/weno_stage.cu`` (the advection-only stage to its own entry), CPU
-    tensors to :func:`stage_plain`.
+    streamed, constant, none or a program; streams contiguous and
+    interior-shaped), or three velocity tensors for the advection-only
+    stage. ``aux`` a padded buffer or ``None``, ``coeffs`` ``(alpha, beta,
+    gamma)`` as Python numbers (a new ``dt`` rebuilds nothing). A program
+    term (K1″) is evaluated per node at ``lo + (origin + i)*h`` and the
+    stage time of the :class:`Where` ``where`` (default: ``lo`` and
+    ``origin`` zero, time 0).
+    Replaces ``lsm_tpu.ops.weno_v2.fused_stage`` (a callable that did not
+    trace is evaluated into streams first, :func:`resolve_terms`). CUDA
+    tensors go to ``csrc/weno_stage.cu`` (the advection-only stage to its
+    own entries), CPU tensors to :func:`stage_plain`.
     """
     shape = tuple(shape)
     if len(shape) != 3 or len(spacing) != 3:
@@ -491,15 +776,16 @@ def fused_stage(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
     check_terms(terms, P, shape)
     if aux is not None:
         _check(aux, "aux", padded_shape(shape), like=P)
+    where = where or Where()
     if P.device.type == "cpu":
-        return stage_plain(P, terms, coeffs, aux, spacing, shape)
+        return stage_plain(P, terms, coeffs, aux, spacing, shape, where)
     lib = load_library()
     f32 = P.dtype == torch.float32
     out = torch.empty_like(P)
     aux_ptr = None if aux is None else aux.data_ptr()
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if is_advection_only(terms):
+        if is_advection_only(terms) and terms[0][0].coef_kind == "stream":
             u = terms[0][1]
             alpha, beta, gamma = (float(c) for c in coeffs)
             code = (lib.stage_f32 if f32 else lib.stage_f64)(
@@ -507,42 +793,57 @@ def fused_stage(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
                 out.data_ptr(), *shape, *(1.0 / float(h) for h in spacing), alpha, beta, gamma,
                 stream)
         else:
-            tab = stage_table(terms, spacing, coeffs)
-            code = (lib.stage_terms_f32 if f32 else lib.stage_terms_f64)(
-                P.data_ptr(), aux_ptr, out.data_ptr(), *shape, ctypes.addressof(tab), stream)
+            tab = stage_table(terms, spacing, coeffs, where, shape, P)
+            if is_advection_only(terms):
+                fn = lib.stage_prog_f32 if f32 else lib.stage_prog_f64
+            else:
+                fn = lib.stage_terms_f32 if f32 else lib.stage_terms_f64
+            code = fn(P.data_ptr(), aux_ptr, out.data_ptr(), *shape, ctypes.addressof(tab),
+                      stream)
     _raise_on(code, lib, "weno_stage kernel")
     fused_stage.launches += 1
     fused_stage.kinds_launches += not is_advection_only(terms)
+    fused_stage.program_launches += any(spec.coef_kind == "program" for spec, _ in terms)
     return out
 
 
 fused_stage.launches = 0
 fused_stage.kinds_launches = 0  # of the launches, those of the term-list entry
+fused_stage.program_launches = 0  # of the launches, those with a program term (K1″)
 
 
 # -- the differentiable stage --------------------------------------------------------
 
 
-def stage_refresh_plain(P, terms, coeffs, aux, bcs, spacing, shape) -> torch.Tensor:
+def stage_refresh_plain(P, terms, coeffs, aux, bcs, spacing, shape,
+                        where: Optional[Where] = None) -> torch.Tensor:
     """Plain stage plus ghost refresh on the padded layout (counterpart of
     ``lsm_tpu.ops.weno_v2._stage_refresh_jnp``): the stage reads ``P``'s
     stored ghosts, as K1 does, and the result is packed with fresh ghosts.
-    ``terms`` as for :func:`fused_stage`; ``coeffs`` may be tensors. Autograd
-    through this function is the oracle of the stage's backward."""
-    return pack_padded(_stage_interior(P, as_terms(terms), coeffs, aux, spacing, shape), bcs)
+    ``terms`` as for :func:`fused_stage`; ``coeffs`` and ``where.t`` may be
+    tensors. Autograd through this function is the oracle of the stage's
+    backward."""
+    return pack_padded(_stage_interior(P, as_terms(terms), coeffs, aux, spacing, shape, where),
+                       bcs)
 
 
 def gradient_reason(terms) -> Optional[str]:
     """Why a gradient through a stage of ``terms`` (normalised; a callable
     coefficient counts as the streams the stepper evaluates it into) cannot
     run on CUDA; ``None`` for every list K1' takes, whose backward is K4, K3
-    or K3', and K5."""
+    or K3' (K3″ for program terms), and K5."""
     if not 1 <= len(terms) <= MAX_TERMS:
         return f"the stage kernels take 1 to {MAX_TERMS} terms, got {len(terms)}"
     for spec, _ in terms:
         if spec.coef_kind not in _KERNEL_COEFS.get(spec.kind, ()) + ("analytic",):
             return f"{spec!r} is no input of the stage kernels"
     return None
+
+
+def needs_t(terms) -> bool:
+    """Whether a program term of ``terms`` depends on the stage time."""
+    return any(spec.coef_kind == "program" and spec.coef_static.depends_on_t
+               for spec, _ in terms)
 
 
 def _unflatten(specs, counts, streams):
@@ -554,19 +855,21 @@ def _unflatten(specs, counts, streams):
 class _FusedStepStage(torch.autograd.Function):
     """K1 + K2 forward over a term list whose streams are the trailing
     arguments. Backward: K4 (fold the output cotangent's shells), K3 for one
-    advection term or K3' for any other list (stage cotangents), K5 (zero
+    advection term or K3' for any other list (stage cotangents; K3″ for
+    program terms, with the cotangent of the stage time ``t``), K5 (zero
     daux's shells); on the CPU their plain versions. Saves ``P``, ``aux`` and
     the streams (references, no copies)."""
 
     @staticmethod
-    def forward(ctx, P, aux, alpha, beta, gamma, statics, *streams):
-        specs, counts, bcs, spacing, shape, values = statics
-        out = fused_stage(P, _unflatten(specs, counts, streams), values, aux, spacing, shape)
+    def forward(ctx, P, aux, alpha, beta, gamma, t, statics, *streams):
+        specs, counts, bcs, spacing, shape, values, where = statics
+        out = fused_stage(P, _unflatten(specs, counts, streams), values, aux, spacing, shape,
+                          where)
         refresh_ghosts_fast(out, bcs, shape)
         ctx.save_for_backward(P, aux, *streams)
         ctx.statics = statics
         ctx.coef_like = tuple((c.dtype, c.device) if isinstance(c, torch.Tensor) else None
-                              for c in (alpha, beta, gamma))
+                              for c in (alpha, beta, gamma, t))
         return out
 
     @staticmethod
@@ -575,43 +878,48 @@ class _FusedStepStage(torch.autograd.Function):
         from . import weno_v2_bwd as bwd  # imports this module
 
         P, aux, *streams = ctx.saved_tensors
-        specs, counts, bcs, spacing, shape, values = ctx.statics
+        specs, counts, bcs, spacing, shape, values, where = ctx.statics
         terms = _unflatten(specs, counts, streams)
-        need = ctx.needs_input_grad  # P, aux, alpha, beta, gamma, statics, *streams
+        need = ctx.needs_input_grad  # P, aux, alpha, beta, gamma, t, statics, *streams
+        need_dt = need[5] and needs_t(terms)
         # K4 folds in place, so it gets a copy: autograd may hand this node
         # the caller's grad_outputs, or one buffer shared with another branch
         gf = bwd.fold_ghost_cotangent_fast(g.clone(memory_format=torch.contiguous_format),
                                            bcs, shape)
         if is_advection_only(terms):
+            spec, arrs = terms[0]
             dP, dstreams, dcoef, daux = bwd.stage_backward(
-                P, streams, values, aux, gf, spacing, shape,
-                need_du=any(need[6:]), need_daux=need[1])
+                P, arrs if spec.coef_kind == "stream" else spec.coef_static, values, aux, gf,
+                spacing, shape, need_du=any(need[7:]), need_daux=need[1], where=where,
+                need_dt=need_dt)
         else:
             dP, dstreams, dcoef, daux = bwd.stage_backward_terms(
                 P, terms, values, aux, gf, spacing, shape,
-                need_dstreams=any(need[6:]), need_daux=need[1])
+                need_dstreams=any(need[7:]), need_daux=need[1], where=where, need_dt=need_dt)
         dstreams = dstreams or (None,) * len(streams)
-        dc = tuple(None if like is None or not need[2 + k] else
+        dc = tuple(None if like is None or not need[2 + k] or k >= len(dcoef) else
                    dcoef[k].to(dtype=like[0], device=like[1])
                    for k, like in enumerate(ctx.coef_like))
         return (dP if need[0] else None, daux if need[1] else None, *dc, None,
-                *(d if n else None for d, n in zip(dstreams, need[6:])))
+                *(d if n else None for d, n in zip(dstreams, need[7:])))
 
 
 def fused_step_stage(P: torch.Tensor, terms, coeffs, aux, bcs, spacing, shape,
-                     coeff_values=None) -> torch.Tensor:
+                     coeff_values=None, where: Optional[Where] = None) -> torch.Tensor:
     """One RK stage plus ghost refresh, differentiable (counterpart of
     ``lsm_tpu.ops.weno_v2.fused_step_stage``).
 
     The forward is :func:`fused_stage` (K1) then :func:`refresh_ghosts_fast`
-    (K2); ``terms`` as for :func:`fused_stage`. ``coeffs = (alpha, beta,
-    gamma)`` are numbers or 0-d tensors. The kernels take the coefficients
-    as host numbers: ``coeff_values`` gives them, so a tensor coefficient is
-    not read back here (default: ``float`` of each coefficient). When
-    nothing needs a gradient, the call is K1 + K2 and keeps nothing for a
-    backward. Otherwise gradients flow to ``P``, the streams, ``aux`` and
-    the tensor coefficients: through K4, then K3 for one advection term or
-    K3' for any other term list, then K5.
+    (K2); ``terms`` and ``where`` as for :func:`fused_stage`. ``coeffs =
+    (alpha, beta, gamma)`` and ``where.t`` are numbers or 0-d tensors. The
+    kernels take them as host numbers: ``coeff_values`` and ``where.value``
+    give them, so a tensor is not read back here (default: ``float`` of
+    each). When nothing needs a gradient, the call is K1 + K2 and keeps
+    nothing for a backward. Otherwise gradients flow to ``P``, the streams,
+    ``aux``, the tensor coefficients and, through a program term that
+    depends on it, ``where.t``: through K4, then K3 for one advection term
+    or K3' for any other term list (K3″ evaluates the programs, the time's
+    cotangent included), then K5.
     """
     shape = tuple(shape)
     terms = tuple(terms)
@@ -620,12 +928,14 @@ def fused_step_stage(P: torch.Tensor, terms, coeffs, aux, bcs, spacing, shape,
     terms = as_terms(terms)
     values = tuple(float(c.detach()) if isinstance(c, torch.Tensor) else float(c)
                    for c in (coeffs if coeff_values is None else coeff_values))
+    where = where or Where()
+    t = where.t if needs_t(terms) else None
     streams = [a for _, arrs in terms for a in arrs]
-    tensors = [P, *streams, aux, *coeffs]
+    tensors = [P, *streams, aux, *coeffs, t]
     if not (torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)):
-        out = fused_stage(P, terms, values, aux, spacing, shape)
+            isinstance(x, torch.Tensor) and x.requires_grad for x in tensors)):
+        out = fused_stage(P, terms, values, aux, spacing, shape, where)
         return refresh_ghosts_fast(out, bcs, shape)
     statics = (tuple(spec for spec, _ in terms), tuple(len(arrs) for _, arrs in terms), bcs,
-               tuple(spacing), shape, values)
-    return _FusedStepStage.apply(P, aux, *coeffs, statics, *streams)
+               tuple(spacing), shape, values, where.at(where.value))
+    return _FusedStepStage.apply(P, aux, *coeffs, t, statics, *streams)

@@ -24,6 +24,13 @@ version, and the autograd oracle they are held against.
   mixed list). Its plain version is autograd of the plain stage for the
   other kinds, which have no float32 tie hazard, and the hand adjoint for
   advection.
+- K3″, the program branch of K3 and K3' (``csrc/stage_backward.cu``): a
+  program term (:mod:`.coef_program`) is evaluated per node in place of
+  its streams, has no stream cotangent, and when the caller asks for it
+  (``need_dt``) the kernel evaluates the program in forward-mode dual
+  numbers for ``dH/dt`` and reduces ``sum g*(-gamma)*dH/dt`` into the
+  cotangent of the stage time, a fourth entry of ``dcoef``. The plain
+  versions take it from autograd of :func:`~.weno_v2.program_values`.
 - :func:`composite_backward_autograd`: ``torch.autograd.grad`` of
   :func:`~.weno_v2.stage_refresh_plain` (stage plus refresh), the oracle
   (counterpart of ``lsm_tpu.ops.weno_v2_bwd._jnp_stage_backward``). In
@@ -32,7 +39,8 @@ version, and the autograd oracle they are held against.
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises. Each counts its kernel launches in
-``launches``.
+``launches``; K3 and K3' those with a program term (K3″) also in
+``program_launches``.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from ..core import bc as _bc
 from . import stencils as st
 from . import weno_v2 as v2
 from ._build import load_library
+from .coef_program import Program
 
 __all__ = [
     "fold_ghost_cotangent",
@@ -217,24 +226,59 @@ def _advection_backward(P, u, gup, spacing, shape):
     return ham, dP, tuple(du)
 
 
+def _program_coefs(spec, P, spacing, shape, where, need_dt):
+    """A program term's coefficient values at ``where`` (detached) and, when
+    ``need_dt``, the graph to differentiate them in ``t``:
+    ``(values, (t leaf, live values) or None)``."""
+    where = where or v2.Where()
+    if not (need_dt and spec.coef_static.depends_on_t):
+        with torch.no_grad():
+            vals = v2.program_values(spec, shape, spacing, where.lo, where.value, P,
+                                     where.origin)
+        return vals, None
+    t = torch.tensor(where.value, dtype=P.dtype, device=P.device, requires_grad=True)
+    with torch.enable_grad():
+        live = v2.program_values(spec, shape, spacing, where.lo, t, P, where.origin)
+    return tuple(v.detach() for v in live), (t, live)
+
+
+def _dt_of(graph, cotangents, like):
+    """``sum_k <cotangent_k, d value_k / dt>`` of :func:`_program_coefs`'
+    graph (0 without one)."""
+    pairs = [] if graph is None else [(v, c) for v, c in zip(graph[1], cotangents)
+                                      if v.requires_grad]
+    if not pairs:
+        return like.new_zeros(())
+    (dt,) = torch.autograd.grad([v for v, _ in pairs], graph[0],
+                                grad_outputs=[c for _, c in pairs], allow_unused=True)
+    return like.new_zeros(()) if dt is None else dt
+
+
 def stage_backward_plain(P, u, coeffs, aux, g, spacing, shape, need_du=True,
-                         need_daux=True, out=None):
+                         need_daux=True, out=None, where=None, need_dt=False):
     """Plain version of K3, with the kernel's arithmetic: see
     :func:`stage_backward`."""
     shape = tuple(shape)
     alpha, beta, gamma = (float(c) for c in coeffs)
     gi = v2.unpack_padded(g, shape)
+    prog = isinstance(u, Program)
+    if prog:
+        u, graph = _program_coefs(v2.TermSpec("advection", "program", u), P, spacing, shape,
+                                  where, need_dt)
+        need_du = False
     ham, dPa, du = _advection_backward(P, u, -gamma * gi, spacing, shape)
     dgamma = -(gi * ham).sum()
+    extra = [_dt_of(graph, du, dgamma)] if prog else []
     if out is not None:
         zero = torch.zeros_like(dgamma)
-        return out.add_(dPa), (du if need_du else None), torch.stack([zero, zero, dgamma]), None
+        return (out.add_(dPa), (du if need_du else None),
+                torch.stack([zero, zero, dgamma, *extra]), None)
     dP = torch.zeros_like(P)
     v2.unpack_padded(dP, shape).copy_(beta * gi)
     dP = dP + dPa
     center = v2.unpack_padded(P, shape)
     dalpha = (gi * v2.unpack_padded(aux, shape)).sum() if aux is not None else gi.new_zeros(())
-    dcoef = torch.stack([dalpha, (gi * center).sum(), dgamma])
+    dcoef = torch.stack([dalpha, (gi * center).sum(), dgamma, *extra])
     daux = None
     if aux is not None and need_daux:
         daux = torch.empty_like(P)
@@ -243,10 +287,11 @@ def stage_backward_plain(P, u, coeffs, aux, g, spacing, shape, need_du=True,
     return dP, (du if need_du else None), dcoef, daux
 
 
-def stage_backward(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs,
+def stage_backward(P: torch.Tensor, u, coeffs,
                    aux: Optional[torch.Tensor], g: torch.Tensor, spacing, shape,
                    need_du: bool = True, need_daux: bool = True,
-                   out: Optional[torch.Tensor] = None
+                   out: Optional[torch.Tensor] = None, where: Optional[v2.Where] = None,
+                   need_dt: bool = False
                    ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, ...]],
                               torch.Tensor, Optional[torch.Tensor]]:
     """K3: cotangents of one K1 stage ``alpha*aux + beta*phi - gamma*u.grad(phi)``.
@@ -264,16 +309,23 @@ def stage_backward(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs,
     which is returned as ``dP``; nothing is written for ``beta*g`` or
     ``daux`` (``None``), and ``dcoef = (0, 0, dgamma)``.
 
+    K3″: ``u`` may be a 3-component :class:`~.coef_program.Program`,
+    evaluated per node at ``where`` (its ``lo``, ``origin`` and host-number
+    time ``t``); then ``du`` is ``None`` and ``dcoef`` gains a fourth entry,
+    the cotangent of ``t`` (0 unless ``need_dt``).
+
     Replaces ``lsm_tpu.ops.weno_v2_bwd.stage_backward`` (without its
-    ``prefolded``/``origin`` arguments). CUDA tensors go to
-    ``csrc/stage_backward.cu``, CPU tensors to :func:`stage_backward_plain`.
+    ``prefolded`` argument). CUDA tensors go to ``csrc/stage_backward.cu``,
+    CPU tensors to :func:`stage_backward_plain`.
     """
     shape = tuple(shape)
-    if len(shape) != 3 or len(u) != 3 or len(spacing) != 3:
+    prog = isinstance(u, Program)
+    if len(shape) != 3 or len(spacing) != 3 or (
+            len(u.components) if prog else len(u)) != 3:
         raise ValueError("the stage backward is 3D only: shape, u and spacing need 3 entries")
     v2._check(P, "P", v2.padded_shape(shape))
     v2._check(g, "g", v2.padded_shape(shape), like=P)
-    for d, ud in enumerate(u):
+    for d, ud in enumerate(() if prog else u):
         v2._check(ud, f"u[{d}]", shape, like=P)
     if aux is not None:
         v2._check(aux, "aux", v2.padded_shape(shape), like=P)
@@ -282,33 +334,48 @@ def stage_backward(P: torch.Tensor, u: Sequence[torch.Tensor], coeffs,
         aux = None
     if P.device.type == "cpu":
         return stage_backward_plain(P, u, coeffs, aux, g, spacing, shape, need_du, need_daux,
-                                    out)
+                                    out, where, need_dt)
     lib = load_library()
-    fn = lib.stage_bwd_f32 if P.dtype == torch.float32 else lib.stage_bwd_f64
+    f32 = P.dtype == torch.float32
     dP = torch.empty_like(P) if out is None else out
+    need_du = need_du and not prog
     du = tuple(torch.empty_like(u[0]) for _ in range(3)) if need_du else None
     daux = torch.empty_like(P) if aux is not None and need_daux else None
-    part = torch.empty(lib.stage_bwd_scratch(*shape), dtype=torch.float64, device=P.device)
-    dcoef = torch.empty(3, dtype=P.dtype, device=P.device)
+    part = torch.empty((2 if prog else 1) * lib.stage_bwd_scratch(*shape), dtype=torch.float64,
+                       device=P.device)
+    dcoef = (torch.zeros if prog else torch.empty)(4 if prog else 3, dtype=P.dtype,
+                                                     device=P.device)
     alpha, beta, gamma = (float(c) for c in coeffs)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(P.device):
-        code = fn(P.data_ptr(), g.data_ptr(), *(c.data_ptr() for c in u), ptr(aux),
-                  dP.data_ptr(), *(ptr(d) for d in (du or (None,) * 3)), ptr(daux),
-                  part.data_ptr(), dcoef.data_ptr(), *shape,
-                  *(1.0 / float(h) for h in spacing), alpha, beta, gamma, int(out is not None),
-                  _stream())
+        if prog:
+            need_dt = bool(need_dt and u.depends_on_t)
+            tab = v2.stage_table(((v2.TermSpec("advection", "program", u), ()),), spacing,
+                                 coeffs, where, shape, P, need_dt)
+            code = (lib.stage_bwd_prog_f32 if f32 else lib.stage_bwd_prog_f64)(
+                P.data_ptr(), g.data_ptr(), ptr(aux), dP.data_ptr(), ptr(daux),
+                part.data_ptr(), dcoef.data_ptr(), *shape, ctypes.addressof(tab),
+                int(out is not None), int(need_dt), _stream())
+        else:
+            code = (lib.stage_bwd_f32 if f32 else lib.stage_bwd_f64)(
+                P.data_ptr(), g.data_ptr(), *(c.data_ptr() for c in u), ptr(aux),
+                dP.data_ptr(), *(ptr(d) for d in (du or (None,) * 3)), ptr(daux),
+                part.data_ptr(), dcoef.data_ptr(), *shape,
+                *(1.0 / float(h) for h in spacing), alpha, beta, gamma, int(out is not None),
+                _stream())
     v2._raise_on(code, lib, "stage_backward kernel")
     stage_backward.launches += 1
+    stage_backward.program_launches += prog
     if daux is not None:
         zero_pad_shells(daux, shape)
     return dP, du, dcoef, daux
 
 
 stage_backward.launches = 0
+stage_backward.program_launches = 0  # of the launches, K3″'s (a program velocity)
 
 
 # -- K3': the stage backward of a term list -------------------------------------------
@@ -324,14 +391,15 @@ def _stream_slices(terms):
 
 
 def stage_backward_terms_plain(P, terms, coeffs, aux, g, spacing, shape, need_dstreams=True,
-                               need_daux=True):
+                               need_daux=True, where=None, need_dt=False):
     """Plain version of K3': see :func:`stage_backward_terms`. The
     normal-motion, curvature and eikonal terms take ``torch.autograd.grad``
     of their plain Hamiltonians (:func:`~.weno_v2.ham_contribution`) for the
-    cotangent ``-gamma*g``; each advection term the hand WENO5 adjoint of
-    :func:`stage_backward_plain`."""
+    cotangent ``-gamma*g`` (a program term's ``t`` too); each advection
+    term the hand WENO5 adjoint of :func:`stage_backward_plain`."""
     shape = tuple(shape)
     terms = v2.as_terms(terms)
+    where = where or v2.Where()
     alpha, beta, gamma = (float(c) for c in coeffs)
     gi = v2.unpack_padded(g, shape)
     gup = -gamma * gi
@@ -340,19 +408,25 @@ def stage_backward_terms_plain(P, terms, coeffs, aux, g, spacing, shape, need_ds
     flat = [a for _, arrs in terms for a in arrs]
     dstreams = [None] * len(flat)
     ham = 0.0
+    dt = gi.new_zeros(())
     others = [(spec, sl) for (spec, _), sl in zip(terms, _stream_slices(terms))
               if spec.kind != "advection"]
     if others:
         with torch.enable_grad():
             Pv = P.detach().requires_grad_()
             sv = [a.detach().requires_grad_() for a in flat]
+            tv = torch.tensor(where.value, dtype=P.dtype, device=P.device,
+                              requires_grad=need_dt)
+            at = where.at(tv)
             center = v2.unpack_padded(Pv, shape)
             H = 0.0
             for spec, sl in others:
-                H = H + v2.ham_contribution(spec, Pv, v2._coef_values(spec, sv[sl], Pv), center,
-                                            spacing, shape)
+                H = H + v2.ham_contribution(spec, Pv, v2._coef_values(spec, sv[sl], Pv, spacing,
+                                                                      shape, at),
+                                            center, spacing, shape)
             used = [sv[k] for _, sl in others for k in range(sl.start, sl.stop)]
-            grads = torch.autograd.grad(H, [Pv, *used], grad_outputs=gup, allow_unused=True)
+            grads = torch.autograd.grad(H, [Pv, *used, *([tv] if need_dt else [])],
+                                        grad_outputs=gup, allow_unused=True)
         dP = dP + grads[0]
         ham = ham + H.detach()
         it = iter(grads[1:])
@@ -360,15 +434,25 @@ def stage_backward_terms_plain(P, terms, coeffs, aux, g, spacing, shape, need_ds
             for k in range(sl.start, sl.stop):
                 d = next(it)
                 dstreams[k] = torch.zeros_like(flat[k]) if d is None else d
+        if need_dt:
+            d = next(it)
+            dt = dt if d is None else dt + d
     for (spec, arrs), sl in zip(terms, _stream_slices(terms)):
         if spec.kind == "advection":
+            graph = None
+            if spec.coef_kind == "program":
+                arrs, graph = _program_coefs(spec, P, spacing, shape, where, need_dt)
             H, dPa, du = _advection_backward(P, arrs, gup, spacing, shape)
             ham = ham + H
             dP = dP + dPa
-            dstreams[sl] = du
+            if spec.coef_kind == "program":
+                dt = dt + _dt_of(graph, du, dt)
+            else:
+                dstreams[sl] = du
     center = v2.unpack_padded(P, shape)
     dalpha = (gi * v2.unpack_padded(aux, shape)).sum() if aux is not None else gi.new_zeros(())
-    dcoef = torch.stack([dalpha, (gi * center).sum(), -(gi * ham).sum()])
+    dcoef = torch.stack([dalpha, (gi * center).sum(), -(gi * ham).sum()] + (
+        [dt] if any(spec.coef_kind == "program" for spec, _ in terms) else []))
     daux = None
     if aux is not None and need_daux:
         daux = torch.empty_like(P)
@@ -379,7 +463,8 @@ def stage_backward_terms_plain(P, terms, coeffs, aux, g, spacing, shape, need_ds
 
 def stage_backward_terms(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
                          g: torch.Tensor, spacing, shape, need_dstreams: bool = True,
-                         need_daux: bool = True):
+                         need_daux: bool = True, where: Optional[v2.Where] = None,
+                         need_dt: bool = False):
     """K3': cotangents of one K1' stage ``alpha*aux + beta*phi - gamma*sum_n
     H_n`` over the term list ``terms`` (any list :func:`~.weno_v2.fused_stage`
     takes: kinds advection, normal, curvature, eikonal; coefficients
@@ -388,7 +473,9 @@ def stage_backward_terms(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Ten
     ``g`` as for :func:`stage_backward` (folded by K4, interior read).
     Returns ``(dP, dstreams, dcoef, daux)`` in K3's layout, ``dstreams`` one
     cotangent per stream of the list in order (``None`` unless
-    ``need_dstreams``); constant coefficients get none.
+    ``need_dstreams``); constant and program coefficients get none. With a
+    program term (K3″, evaluated at ``where``) ``dcoef`` gains a fourth
+    entry, the cotangent of the stage time (0 unless ``need_dt``).
 
     Replaces the term-kind branch of ``lsm_tpu.ops.weno_v2_bwd.stage_backward``
     (its per-part ``jax.vjp``). CUDA tensors go to ``csrc/stage_backward.cu``:
@@ -408,14 +495,15 @@ def stage_backward_terms(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Ten
         v2._check(aux, "aux", v2.padded_shape(shape), like=P)
     if P.device.type == "cpu":
         return stage_backward_terms_plain(P, terms, coeffs, aux, g, spacing, shape,
-                                          need_dstreams, need_daux)
+                                          need_dstreams, need_daux, where, need_dt)
     lib = load_library()
     fn = lib.stage_bwd_terms_f32 if P.dtype == torch.float32 else lib.stage_bwd_terms_f64
     dP = torch.empty_like(P)
     daux = torch.empty_like(P) if aux is not None and need_daux else None
     part = torch.empty(lib.stage_bwd_terms_scratch(*shape), dtype=torch.float64,
                        device=P.device)
-    dcoef = torch.empty(3, dtype=P.dtype, device=P.device)
+    has_prog = any(spec.coef_kind == "program" for spec, _ in terms)
+    dcoef = torch.empty(4, dtype=P.dtype, device=P.device)
     flat = [a for _, arrs in terms for a in arrs]
     dstreams = [None] * len(flat)
     outs = (ctypes.c_void_p * v2.MAX_TERMS)()
@@ -423,20 +511,24 @@ def stage_backward_terms(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Ten
         if spec.kind != "advection" and arrs and need_dstreams:
             dstreams[sl.start] = torch.empty_like(arrs[0])
             outs[e] = dstreams[sl.start].data_ptr()
-    tab = v2.stage_table(terms, spacing, coeffs)
+    tab = v2.stage_table(terms, spacing, coeffs, where, shape, P, need_dt)
     with torch.cuda.device(P.device):
         code = fn(P.data_ptr(), g.data_ptr(), None if aux is None else aux.data_ptr(),
                   dP.data_ptr(), None if daux is None else daux.data_ptr(), part.data_ptr(),
                   dcoef.data_ptr(), *shape, ctypes.addressof(tab), ctypes.addressof(outs),
-                  _stream())
+                  int(bool(need_dt)), _stream())
     v2._raise_on(code, lib, "stage_backward_terms kernel")
     stage_backward_terms.launches += 1
+    stage_backward_terms.program_launches += has_prog
+    dcoef = dcoef if has_prog else dcoef[:3]
     for (spec, arrs), sl in zip(terms, _stream_slices(terms)):
         if spec.kind == "advection":
-            _, du, dc, _ = stage_backward(P, arrs, coeffs, None, g, spacing, shape,
-                                          need_du=need_dstreams, out=dP)
-            dcoef = dcoef + dc
-            if need_dstreams:
+            prog = spec.coef_kind == "program"
+            _, du, dc, _ = stage_backward(P, spec.coef_static if prog else arrs, coeffs, None, g,
+                                          spacing, shape, need_du=need_dstreams, out=dP,
+                                          where=where, need_dt=need_dt)
+            dcoef = dcoef + (dc if len(dc) == len(dcoef) else torch.cat([dc, dc.new_zeros(1)]))
+            if need_dstreams and not prog:
                 dstreams[sl] = du
     if daux is not None:
         zero_pad_shells(daux, shape)
@@ -444,28 +536,33 @@ def stage_backward_terms(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Ten
 
 
 stage_backward_terms.launches = 0
+stage_backward_terms.program_launches = 0  # of the launches, those with a program term
 
 
-def composite_backward_autograd(P, terms, coeffs, aux, g, bcs, spacing, shape):
+def composite_backward_autograd(P, terms, coeffs, aux, g, bcs, spacing, shape, where=None):
     """``torch.autograd.grad`` of :func:`~.weno_v2.stage_refresh_plain` (stage
     plus ghost refresh) for the raw, unfolded padded output cotangent ``g``:
     ``(dP, dstreams, dcoef, daux)`` as :func:`stage_backward` returns them
     (``dstreams`` one per stream of ``terms``, a term list or three velocity
-    tensors; ``daux`` ``None`` without ``aux``). The oracle of K4 followed by
-    K3 or K3'; run it in float64."""
+    tensors; ``daux`` ``None`` without ``aux``; with a program term, at
+    ``where``, ``dcoef`` ends with the stage time's cotangent). The oracle of
+    K4 followed by K3, K3' or K3″; run it in float64."""
     terms = v2.as_terms(terms)
+    where = where or v2.Where()
+    prog = any(spec.coef_kind == "program" for spec, _ in terms)
     with torch.enable_grad():
         Pv = P.detach().requires_grad_()
         tv = tuple((spec, tuple(a.detach().requires_grad_() for a in arrs))
                    for spec, arrs in terms)
         sv = [a for _, arrs in tv for a in arrs]
         cv = [torch.tensor(float(c), dtype=P.dtype, device=P.device, requires_grad=True)
-              for c in coeffs]
+              for c in (*coeffs, where.value)]
         av = None if aux is None else aux.detach().requires_grad_()
-        out = v2.stage_refresh_plain(Pv, tv, cv, av, bcs, spacing, shape)
+        out = v2.stage_refresh_plain(Pv, tv, cv[:3], av, bcs, spacing, shape,
+                                     where.at(cv[3]))
         inputs = [Pv, *sv, *cv] + ([] if av is None else [av])
         grads = torch.autograd.grad(out, inputs, grad_outputs=g, allow_unused=True)
     ns = len(sv)
-    dP, dstreams, dc = grads[0], tuple(grads[1:1 + ns]), grads[1 + ns:4 + ns]
-    dcoef = torch.stack([d if d is not None else P.new_zeros(()) for d in dc])
-    return dP, dstreams, dcoef, (grads[4 + ns] if av is not None else None)
+    dP, dstreams, dc = grads[0], tuple(grads[1:1 + ns]), grads[1 + ns:5 + ns]
+    dcoef = torch.stack([d if d is not None else P.new_zeros(()) for d in dc[:4 if prog else 3]])
+    return dP, dstreams, dcoef, (grads[5 + ns] if av is not None else None)

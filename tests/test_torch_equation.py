@@ -136,6 +136,9 @@ def test_general_path_2d_matches_jax():
 
 
 def test_update_func_and_hooks_take_the_general_path():
+    """Hooks take the general path; ``update_func`` (since the fused stepper
+    took it) the fused one, refreshing the terms before the CFL bound and
+    before each of RK2's two stages."""
     _, tphi = _pair((8, 8, 8))
     seen = []
 
@@ -146,7 +149,8 @@ def test_update_func_and_hooks_take_the_general_path():
     eq = T.LevelSetEquation(terms=T.AdvectionTerm(_velf, update_func=upd), ic=tphi,
                             integrator=T.RK2())
     eq.integrate(0.02)
-    assert eq.last_fast_path is None and len(seen) >= 3 and eq.t == 0.02
+    assert eq.last_fast_path == "fused" and len(seen) == 3 * eq.last_nsteps >= 3
+    assert eq.t == 0.02
     pre = []
     eq2 = T.LevelSetEquation(terms=T.AdvectionTerm(_velf), ic=tphi)
     eq2.integrate(1.0, prehook=lambda e: pre.append(e.t), max_steps=2)
@@ -244,8 +248,8 @@ def test_unsupported_configurations_raise_on_the_cuda_route():
     stepper = T.LevelSetEquation(terms=T.AdvectionTerm(vel2), ic=phi2)._cuda_stepper(False, "auto")
     assert isinstance(stepper, tfused.FusedStepper) and stepper.shape == (1, 8, 8)
     eq = T.LevelSetEquation(terms=T.AdvectionTerm(_velf, update_func=lambda v, p, t: v), ic=tphi)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2, update_func"):
-        eq._cuda_stepper(False, "auto")
+    stepper = eq._cuda_stepper(False, "auto")  # update_func: the fused stepper
+    assert isinstance(stepper, tfused.FusedStepper) and stepper.has_update
     assert eq._cuda_stepper(True, "auto") is None  # with hooks: the general path
     # an object that is no term kind is refused with a reason that says so;
     # a sum of two advection terms routes to the fused stepper

@@ -162,8 +162,9 @@ def test_cuda_route_table():
     """What ``_cuda_stepper`` does with each configuration: hooks,
     ``fast="off"``, the upwind scheme and an object that is no term kind take
     the general path (``None``); a dense 2D field takes the fused stepper;
-    ``update_func`` without hooks, a 2D band and Extrapolation(8) raise
-    naming their ROADMAP items."""
+    a 2D band and Extrapolation(8) raise naming their ROADMAP items;
+    ``update_func`` takes the fused stepper on a dense field and the general
+    path on a band, as in JAX."""
     _, tphi = _dense_pair((8, 8, 8))
     _, tnb = _band_pair((16, 16, 16))
     g2 = T.Grid((0.0, 0.0), (1.0, 1.0), (16, 16))
@@ -187,8 +188,10 @@ def test_cuda_route_table():
     assert isinstance(route(adv, tnb), T.integrators.band_fused.FusedBandStepper)
     stepper = route(T.AdvectionTerm(vel2), phi2)
     assert isinstance(stepper, tfused.FusedStepper) and stepper.shape == (1, 16, 16)
+    upd = T.AdvectionTerm(_velf, update_func=lambda v, p, t: v)
+    assert isinstance(route(upd, tphi), tfused.FusedStepper)
+    assert route(upd, tnb) is None
     refusals = [
-        ((T.AdvectionTerm(_velf, update_func=lambda v, p, t: v),), tphi, "update_func"),
         ((T.AdvectionTerm(vel2),), T.NarrowBandField.from_field(phi2), "2D band"),
         ((adv,), tphi.with_bcs(T.Extrapolation(8), replace=True), "K2 degree"),
     ]

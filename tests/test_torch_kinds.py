@@ -359,15 +359,15 @@ def test_cuda_refusals_name_their_roadmap_items():
     assert tv2.gradient_reason(((tv2.TermSpec("normal", "const", 0.2, 0), ()),)) is None
     assert "no input of the stage kernels" in tv2.gradient_reason(
         ((tv2.TermSpec("eikonal", "const", 1.0, 0), ()),))
-    # update_func on the fused path: refused on CUDA, honoured on the CPU
+    # update_func on the fused path: taken on CUDA and on the CPU, refreshed
+    # before the CFL bound and before every stage
     seen = []
     upd = T.NormalMotionTerm(0.2, update_func=lambda s, phi, t: seen.append(t) or s)
-    assert "update_func" in tfused.unsupported_reason((upd,), tphi, T.RK3())
+    assert tfused.unsupported_reason((upd,), tphi, T.RK3()) is None
     eq = T.LevelSetEquation(terms=upd, ic=tphi, integrator=T.RK2())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2, update_func"):
-        eq._cuda_stepper(False, "auto")
+    assert isinstance(eq._cuda_stepper(False, "auto"), tfused.FusedStepper)
     eq.integrate(0.01)
-    assert eq.last_fast_path is None and len(seen) >= 2
+    assert eq.last_fast_path == "fused" and len(seen) == 3 * eq.last_nsteps
     # 2D and hooks
     g2 = T.Grid((0.0, 0.0), (1.0, 1.0), (8, 8))
     phi2 = T.sample(tshapes.circle((0.5, 0.5), 0.2), g2, T.Periodic(), dtype=torch.float64,

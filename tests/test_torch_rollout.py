@@ -242,8 +242,8 @@ class _CudaTyped(torch.Tensor):
 def test_rollout_general_path_raises_on_cuda():
     """The CUDA route of ``rollout``: ``fast="off"`` and the upwind scheme
     run the general path (here on the plain versions, the tensors lying on
-    the CPU), ``update_func`` raises naming its item, and so does a gradient
-    through the 2D embedding, before any stage runs."""
+    the CPU), ``update_func`` the fused stepper, and a gradient through the
+    2D embedding raises naming its item, before any stage runs."""
     shape = (6, 7, 8)
     _, tg, _, tphi, _ = _fields(shape, seed=51)
     phi = tphi.with_values(tphi.values.as_subclass(_CudaTyped))
@@ -254,9 +254,12 @@ def test_rollout_general_path_raises_on_cuda():
                                atol=1e-13)
     up, _ = T.rollout(T.RK3(), (T.AdvectionTerm(_velf, "upwind"),), phi, 0.0, 1e-3, 1)
     assert bool(torch.isfinite(up.values).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2, update_func"):
-        T.rollout(T.RK3(), (T.AdvectionTerm(_velf, update_func=lambda v, p, t: v),), phi, 0.0,
-                  1e-3, 1)
+    seen = []
+    upd = T.AdvectionTerm(_velf, update_func=lambda v, p, t: seen.append(t) or v)
+    out, (term,) = T.rollout(T.RK3(), (upd,), phi, 0.0, 1e-3, 1)
+    torch.testing.assert_close(out.values.as_subclass(torch.Tensor), ref.values, rtol=0,
+                               atol=1e-13)
+    assert len(seen) == 3 and term.update_func is upd.update_func  # one refresh per stage
     g2 = T.Grid((0.0, 0.0), (1.0, 1.0), (8, 9))
     phi2 = T.sample(tshapes.circle((0.5, 0.5), 0.2), g2, T.Periodic(), dtype=torch.float64,
                     device="cpu")
