@@ -122,6 +122,22 @@ phases (a partial run: no kernel record):
     analytic_timing — K1'', K3'', K6'' and the program tables at 512^3
              beside their plain versions; the flagship RK3 ``integrate`` per step with the
              rotation in-kernel and streamed, in turns.
+    k9     — the shell writer K9 vs its plain version, bit for bit (random
+             blocks, every subset, f32 and f64); K2's single-axis entry; the
+             sharded refresh on (4, 1), (2, 2) and (1, 4) meshes of the card vs
+             the single-device refresh, five BC cases; K9 timed at the 512^3
+             flagship's shard shapes.
+    sharded — this slice's main path: the 512^3 flagship (in-kernel
+             rotation, RK3, 10 steps) through make_sharded_evolve(fused=True) on
+             (4, 1) and (2, 2) meshes of the card vs the single-device
+             integrate; launches counted (K1'', K9, K2's phases); ms per step
+             in turns; the sharded refresh per stage; the device busy share.
+    sharded_grad — the sharded fused rollout's gradient at 64^3 vs the
+             single-device card rollout (f64 max norm, f32 relative L2).
+    sharded_general — make_sharded_step (K10 at 64^3, K11 at 256^2) and the
+             sharded band evolve on a (2, 2) mesh vs the single-device runs.
+    dryrun — dryrun_multichip(4) on the card: a sharded training step, the
+             sharded dense, band and fused evolves.
 17. profile — ``torch.profiler`` over 3 RK3 steps of the main path, the two
              gradient cells, 3 band FE and RK3 steps, and 3 RK3 steps each of
              configs A and C, H, D2 and D2h: device busy share of the wall
@@ -165,6 +181,9 @@ from lsm_tpu_torch.ops import stencils as st
 from lsm_tpu_torch.ops import weno_general as wg
 from lsm_tpu_torch.ops import weno_v2 as v2
 from lsm_tpu_torch.ops import weno_v2_bwd as bwd
+from lsm_tpu_torch import parallel as par
+from lsm_tpu_torch.parallel import fused_evolve as sfe
+from lsm_tpu_torch.parallel.dryrun import dryrun_multichip
 
 N_MAIN = 512
 N_SMALL = 64  # the gradient checks' small grid
@@ -200,6 +219,11 @@ N_2D_SMALL = 256  # their card-vs-CPU trajectories and the revolution
 GENERAL_STEPS = 10  # H and D1-D4: steps of integrate
 GRAD_GENERAL_N = 32  # the general path's card-vs-CPU gradient, f64
 REINIT_EVERY = 5  # H's reinitializing posthook runs every this many steps
+SHARDS = 4  # the sharded cells: four shards on the one card
+SHARDED_MESHES = ((4, 1), (2, 2))  # their mesh shapes
+SHARDED_STEPS = 10  # the sharded flagship: RK3 steps, as the main path
+SHARDED_TOL = 1e-6  # sharded vs single-device 512^3 trajectory, relative to max(|ref|, 1)
+K9_SETS = 8  # K9's timing: buffers and block sets in turn, ~100 MB against the 50 MB L2
 # card vs CPU: the times reached, each the sum of steps from a CFL bound that
 # both reduce in the field's dtype, in another order
 T_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
@@ -235,7 +259,8 @@ COUNTED = {"K1": v2.fused_stage, "K2": v2.refresh_ghosts_fast, "K3": bwd.stage_b
            "K3'": bwd.stage_backward_terms,
            "K4": bwd.fold_ghost_cotangent_fast, "K5": bwd.zero_pad_shells,
            "K6": bd.band_stage, "K7": bd.refresh_band_ghosts_fast,
-           "K8": bd.band_retube_incremental, "K10": wg.weno_stage_3d, "K11": wg.weno_stage_2d}
+           "K8": bd.band_retube_incremental, "K10": wg.weno_stage_3d, "K11": wg.weno_stage_2d,
+           "K9": sfe.write_shell_blocks, "K2ax": v2.refresh_axis_fast}
 # the term-list entries of K1 and K6, counted apart (``kinds_launches``) as
 # well as in their wrapper's ``launches``
 KIND_ENTRIES = {"K1'": v2.fused_stage, "K6'": bd.band_stage}
@@ -2774,9 +2799,30 @@ def timing_backward(dev, res, grid, phi, vel, P, u, dt):
     res["mem"] = mem
 
 
-def profile_window(label, fn):
+def device_ms(fn, reps=20, name=None):
+    """Device time per call of ``fn`` (ms): ``torch.profiler``'s CUDA self
+    time over ``reps`` calls (warmed up first), of every kernel or of those
+    whose name holds ``name``. Unlike :func:`cuda_time` it leaves out the
+    host's time to issue the calls, which bounds a call of a few
+    microseconds of device work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and (name is None or name in e.key)]
+    return sum(e.self_device_time_total for e in events) / 1e3 / reps
+
+
+def profile_window(label, fn, kernels=None):
     """``torch.profiler`` over one call of ``fn`` (warmed up first): wall
-    time, device busy share, and the device time by kernel."""
+    time, device busy share, and the device time by kernel. Returns ``(wall
+    ms, device busy ms)``; a dict given as ``kernels`` gets every kernel's
+    ``(device ms, launches)`` by name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2788,10 +2834,13 @@ def profile_window(label, fn):
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
+    if kernels is not None:
+        kernels.update({e.key: (e.self_device_time_total / 1e3, e.count) for e in events})
     log("profile", f"{label}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
                    f"({100 * busy_us / wall_us:.1f}% of wall)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log("profile", f"{e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return wall_us / 1e3, busy_us / 1e3
 
 
 def phase_profile(dev, res):
@@ -3214,6 +3263,376 @@ def program_work(prog, shape):
             "table_ops": sum(n * k for n, k in zip(entries, prog.table_arith))}
 
 
+# -- the sharded paths: K9, the sharded fused evolve, its gradient, the general path ---
+
+
+def card_mesh(dev, shape):
+    """A mesh of ``shape`` whose every shard lies on the card ``dev``."""
+    return par.make_mesh(devices=[dev] * math.prod(shape), mesh_shape=shape)
+
+
+def k9_blocks(shape, mesh_shape, dtype, dev, gen):
+    """Random K9 blocks for a shard of ``shape``: the axis-0 pair when the
+    mesh splits axis 0, the axis-1 pair when it splits axis 1."""
+    n0, n1, n2 = shape
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=dev, dtype=dtype)
+
+    l0, r0 = (rnd(3, n1, n2), rnd(3, n1, n2)) if mesh_shape[0] > 1 else (None, None)
+    l1, r1 = (rnd(n0 + 6, 3, n2), rnd(n0 + 6, 3, n2)) if mesh_shape[1] > 1 else (None, None)
+    return l0, r0, l1, r1
+
+
+def sharded_refresh_mismatches(grid, bcs, v, dev, label):
+    """The sharded refresh of ``v``'s shards on SHARDED_MESHES and (1, 4) of
+    the card (every shell stale, NaN, before it) against the single-device
+    plain refresh of the whole padded buffer, bit for bit; each refresh must
+    launch K9 once per shard and K2's three-phase refresh never. Returns the
+    mismatches, tagged with ``label``."""
+    bad = []
+    ref = v2.refresh_ghosts_plain(v2.pack_padded(v, bcs), bcs, grid.shape)
+    for ms in SHARDED_MESHES + ((1, 4),):
+        layout = sfe.ShardLayout(card_mesh(dev, ms), grid)
+        bufs = []
+        for blk in par.constrain(v, layout.mesh, 3).flat:
+            b = torch.full(v2.padded_shape(layout.local_shape), float("nan"), device=dev,
+                           dtype=v.dtype)
+            v2.unpack_padded(b, layout.local_shape).copy_(blk)
+            bufs.append(b)
+        reset_counts()
+        sfe.refresh_ghosts_sharded(bufs, bcs, layout)
+        counts = read_counts()
+        m0, m1, _ = layout.local_shape
+        for b, (i, j) in zip(bufs, layout.pos):
+            if not torch.equal(b, ref[i * m0:i * m0 + m0 + 6, j * m1:j * m1 + m1 + 6]):
+                bad.append(("refresh", *label, ms, (i, j)))
+        if counts["K9"] != SHARDS or counts["K2"] != 0:
+            bad.append(("refresh launches", *label, ms, counts))
+        del bufs
+    return bad
+
+
+def phase_k9(dev, res):
+    """K9 against its plain version (slice assignment), bit for bit: random
+    blocks at ragged shapes, every subset of the four, f32 and f64; K2's
+    single-axis entry against its plain version, every BC case and axis; the
+    sharded refresh (exchange, BC blocks, K9, K2's phases) on meshes of the
+    card against the single-device plain refresh, every BC case, f32 and
+    f64; the same at the 512^3 flagship's size, with K9 and K2's
+    single-axis entry at its shard shapes, f32; then K9 timed there over
+    K9_SETS buffers in turn (out of L2) beside its plain version and K2's
+    axis-2 phase."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    worst, worst_ax, bad = 0.0, 0.0, []
+    for dtype in (torch.float32, torch.float64):
+        for shape in ((5, 7, 9), (16, 24, 40), (33, 8, 130)):
+            P = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
+            blocks = k9_blocks(shape, (2, 2), dtype, dev, gen)
+            for keep in itertools.product((False, True), repeat=4):
+                bl = [b if k else None for b, k in zip(blocks, keep)]
+                a = sfe.write_shell_blocks(P.clone(), *bl, shape)
+                b = sfe.write_shell_blocks_plain(P.clone(), *bl, shape)
+                worst = max(worst, float((a - b).abs().max()))
+                if not torch.equal(a, b):
+                    bad.append(("K9", str(dtype), shape, keep))
+        grid = lsm.Grid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (24, 32, 20))
+        shape = grid.shape
+        for name, bcs in bc_cases().items():
+            P = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
+            for ax in range(3):
+                a = v2.refresh_axis_fast(P.clone(), bcs, shape, ax)
+                b = v2.refresh_axis_plain(P.clone(), bcs, shape, ax)
+                worst_ax = max(worst_ax, float((a - b).abs().max()))
+                if not torch.equal(a, b):
+                    bad.append(("K2 axis", str(dtype), name, ax))
+            v = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+            bad += sharded_refresh_mismatches(grid, bcs, v, dev, (str(dtype), name))
+    log("k9", f"K9 vs plain, 3 shapes x 16 block subsets, f32 and f64: max|diff| {worst:.3e}; "
+              f"K2's single-axis entry vs plain and the sharded refresh on meshes "
+              f"{SHARDED_MESHES + ((1, 4),)} of the card vs the single-device plain refresh, "
+              f"{len(bc_cases())} BC cases: mismatches {bad}")
+    if bad:
+        raise AssertionError(f"K9 / sharded refresh check failed: {bad[:4]}")
+    # the flagship's size: the sharded refresh of random 512^3 values against
+    # the single-device plain refresh, and at each mesh's shard shape K9 and
+    # K2's single-axis entry (every axis) against their plain versions, every
+    # BC case, f32, bit for bit
+    grid = lsm.Grid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (N_MAIN,) * 3)
+    for name, bcs in bc_cases().items():
+        v = torch.randn(grid.shape, generator=gen, device=dev)
+        bad += sharded_refresh_mismatches(grid, bcs, v, dev, (f"{N_MAIN}^3", name))
+        del v
+        for ms in SHARDED_MESHES:
+            shape = (N_MAIN // ms[0], N_MAIN // ms[1], N_MAIN)
+            P = torch.randn(v2.padded_shape(shape), generator=gen, device=dev)
+            for ax in range(3):
+                a = v2.refresh_axis_fast(P.clone(), bcs, shape, ax)
+                b = v2.refresh_axis_plain(P.clone(), bcs, shape, ax)
+                worst_ax = max(worst_ax, float((a - b).abs().max()))
+                if not torch.equal(a, b):
+                    bad.append(("K2 axis", name, ms, ax))
+                del a, b
+            bl = k9_blocks(shape, ms, torch.float32, dev, gen)
+            if not torch.equal(sfe.write_shell_blocks(P.clone(), *bl, shape),
+                               sfe.write_shell_blocks_plain(P.clone(), *bl, shape)):
+                bad.append(("K9", name, ms, shape))
+            del P, bl
+    log("k9", f"at {N_MAIN}^3: the sharded refresh on meshes {SHARDED_MESHES + ((1, 4),)} vs "
+              f"the single-device plain refresh, K9 and K2's single-axis entry (axes 0-2) at "
+              f"the shard shapes of {SHARDED_MESHES} vs plain, {len(bc_cases())} BC cases, "
+              f"f32: mismatches {bad}")
+    if bad:
+        raise AssertionError(f"K9 / sharded refresh check at {N_MAIN}^3 failed: {bad[:4]}")
+    periodic = lsm.normalize_bcs(lsm.Periodic(), 3)
+    times = {}
+    for ms in SHARDED_MESHES:
+        shape = (N_MAIN // ms[0], N_MAIN // ms[1], N_MAIN)
+        # K9_SETS buffers and block sets in turn: a set's ~13 MB is out of
+        # the card's 50 MB L2 by the time it comes round again, so each call
+        # reads its blocks and writes its shells from and to HBM, as a stage
+        # of the main path does (K1 streams the whole buffer in between)
+        sets = [(torch.zeros(v2.padded_shape(shape), device=dev),
+                 k9_blocks(shape, ms, torch.float32, dev, gen)) for _ in range(K9_SETS)]
+        P, bl = sets[0]
+        nbytes = 2 * 4 * sum(b.numel() for b in bl if b is not None)  # read once, written once
+
+        def turns(fn):
+            it = itertools.cycle(sets)
+            return lambda: fn(*next(it))
+
+        k9 = turns(lambda P, bl: sfe.write_shell_blocks(P, *bl, shape))
+        plain = turns(lambda P, bl: sfe.write_shell_blocks_plain(P, *bl, shape))
+        k2_axis2 = turns(lambda P, bl: v2.refresh_axis_fast(P, periodic, shape, 2))
+        k2_axis2_plain = turns(lambda P, bl: v2.refresh_axis_plain(P, periodic, shape, 2))
+        # periodic: each axis-2 ghost (over the padded extent of axes 0 and
+        # 1) read once from its source and written once
+        k2_bytes = 2 * 4 * 2 * v2.GHOST * (shape[0] + 6) * (shape[1] + 6)
+        # device time per call (the profiler) and the time of one call
+        # between CUDA events, the host's issue included; K9 on one set
+        # again and again (its blocks and shells stay in L2) beside them
+        times[ms] = {"shape": shape, "mb": nbytes / 1e6, "bound": bound(nbytes, 0),
+                     "ms": device_ms(k9), "plain_ms": device_ms(plain),
+                     "K2_axis2_ms": device_ms(k2_axis2),
+                     "K2_axis2_plain_ms": device_ms(k2_axis2_plain),
+                     "K2_axis2_bound": bound(k2_bytes, 0), "call_ms": cuda_time(k9),
+                     "plain_call_ms": cuda_time(plain),
+                     "ms_hot_l2": device_ms(lambda: sfe.write_shell_blocks(P, *bl, shape))}
+        r = times[ms]
+        log("k9", f"mesh {ms} shard {shape} f32, {K9_SETS} sets in turn: K9 {r['ms']:.4f} ms on "
+                  f"the card ({r['call_ms']:.4f} ms a call, host included; one set again and "
+                  f"again {r['ms_hot_l2']:.4f}), plain {r['plain_ms']:.4f} ms "
+                  f"({r['plain_call_ms']:.4f}), bound {r['bound'][0]:.4f} ms ({r['bound'][1]}, "
+                  f"{r['mb']:.2f} MB); K2's axis-2 phase {r['K2_axis2_ms']:.4f} ms, plain "
+                  f"{r['K2_axis2_plain_ms']:.4f}, bound {r['K2_axis2_bound'][0]:.4f}")
+        del P, bl, sets
+    res["k9"] = {"err": worst, "k2ax_err": worst_ax, "times": times}
+
+
+def phase_sharded(dev, res):
+    """The slice's main path: the 512^3 flagship (Zalesak, Periodic, RK3, the
+    rotation in-kernel) through ``make_sharded_evolve(fused=True)`` on
+    SHARDED_MESHES of the card, SHARDED_STEPS steps, against the
+    single-device fused ``integrate`` of the same steps: equal step counts
+    and times, the shards unsharded within SHARDED_TOL * max(|ref|, 1) (bit
+    for bit expected: every node's arithmetic is the single device's);
+    launches counted. Then ms per step of each, in turns; the sharded
+    refresh alone per stage (device time and host time); the device busy
+    share of a sharded run."""
+    grid, phi, _ = zalesak(N_MAIN, dev)
+    term = lsm.AdvectionTerm(rotation)
+    eq = lsm.LevelSetEquation(terms=term, ic=phi, integrator=lsm.RK3())
+    eq.integrate(1.0, max_steps=SHARDED_STEPS)
+    ref, ref_t, ref_n = eq.state.values, eq.t, eq.last_nsteps
+    del eq
+    scale = max(float(ref.abs().max()), 1.0)
+    out, runs = {}, {}
+    for ms in SHARDED_MESHES:
+        mesh = card_mesh(dev, ms)
+        ev = par.make_sharded_evolve(lsm.RK3(), mesh, grid, fused=True, max_steps=SHARDED_STEPS)
+        sphi = par.shard_field(phi, mesh)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sout, t, n = ev((term,), sphi, 0.0, 1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, tables = read_counts(), v2.program_tables.launches
+        vals = par.unshard(sout).values
+        err, exact = float((vals - ref).abs().max()), bool(torch.equal(vals, ref))
+        refreshes = 3 * n + 1  # one per stage and the pack's
+        phases = sum(s == 1 for s in ms) + 1  # K2's phases: the whole axes and axis 2
+        want = dict(NONE_LAUNCHED, K1=3 * n * SHARDS, K9=refreshes * SHARDS,
+                    K2ax=refreshes * SHARDS * phases, **{"K1''": 3 * n * SHARDS})
+        log("sharded", f"{N_MAIN}^3 RK3 in-kernel on mesh {ms} of {dev} (shards "
+                       f"{sfe.ShardLayout(mesh, grid).local_shape}): steps {n} (single device "
+                       f"{ref_n}) t {t!r} ({ref_t!r}) max|sharded - single|={err:.3e} "
+                       f"(tol {SHARDED_TOL:g}*{scale:.3e}) bit for bit {exact}; launches "
+                       f"{counts} table fills {tables}; first run {1e3 * wall / n:.4f} ms/step")
+        if not (n == ref_n == SHARDED_STEPS and t == ref_t and err <= SHARDED_TOL * scale
+                and counts == want and tables == 3 * n * SHARDS):
+            raise AssertionError(f"sharded flagship check failed on mesh {ms}")
+        out[ms] = {"err": err, "exact": exact, "launches": counts}
+        runs[ms] = (ev, sphi)
+        del sout, vals
+    del ref
+    per = collections.defaultdict(list)
+    for key in (None, *SHARDED_MESHES, *reversed(SHARDED_MESHES), None):  # in turns
+        if key is None:
+            per["single"].append(integrate_ms_per_step(term, phi, lsm.RK3(),
+                                                       steps=SHARDED_STEPS))
+        else:
+            ev, sphi = runs[key]
+            per[key].append(cuda_time(lambda: ev((term,), sphi, 0.0, 1.0), warmup=1, reps=10)
+                            / SHARDED_STEPS)
+    refresh = {}
+    for ms in SHARDED_MESHES:
+        layout = sfe.ShardLayout(card_mesh(dev, ms), grid)
+        sphi = runs[ms][1]
+        bufs = [v2.pack_padded(sphi.blocks[c], phi.bcs) for c in layout.coords]
+        dev_ms = device_ms(lambda: sfe.refresh_ghosts_sharded(bufs, phi.bcs, layout))
+        call_ms = cuda_time(lambda: sfe.refresh_ghosts_sharded(bufs, phi.bcs, layout))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            sfe.refresh_ghosts_sharded(bufs, phi.bcs, layout)
+        host_ms = 1e3 * (time.perf_counter() - t0) / 20
+        torch.cuda.synchronize()
+        refresh[ms] = {"ms": dev_ms, "call_ms": call_ms, "host_ms": host_ms}
+        del bufs
+    ev, sphi = runs[(2, 2)]
+    by_kernel = {}
+    wall_ms, busy_ms = profile_window(f"sharded flagship, {SHARDED_STEPS} RK3 steps at "
+                                      f"{N_MAIN}^3 on mesh (2, 2) of the card",
+                                      lambda: ev((term,), sphi, 0.0, 1.0), by_kernel)
+    # K9's device time per launch inside the main path's run
+    k9_prof = [v for k, v in by_kernel.items() if "shell_blocks_kernel" in k]
+    k9_path_ms = sum(v[0] for v in k9_prof) / sum(v[1] for v in k9_prof) if k9_prof else None
+    for key, v in per.items():
+        where = "single device" if key == "single" else f"mesh {key}"
+        log("sharded", f"{N_MAIN}^3 f32 RK3 in-kernel, {where}: "
+                       f"{' / '.join(f'{x:.4f}' for x in v)} ms/step (in turns)")
+    for ms, r in refresh.items():
+        log("sharded", f"mesh {ms}: the sharded refresh (exchange, BC blocks, K9, K2's phases) "
+                       f"{r['ms']:.4f} ms per stage on the card, {r['call_ms']:.4f} ms a call "
+                       f"between events, {r['host_ms']:.4f} ms of host time to issue it")
+    busy = 100 * busy_ms / wall_ms
+    log("sharded", f"mesh (2, 2): device busy {busy_ms:.3f} of {wall_ms:.3f} ms wall "
+                   f"({busy:.1f}%; host share {100 - busy:.1f}%); K9 {k9_path_ms} ms per "
+                   f"launch in that run")
+    res["sharded"] = {"check": out, "ms_per_step": dict(per), "refresh": refresh,
+                      "busy": (wall_ms, busy_ms), "k9_path_ms": k9_path_ms}
+    res["launches"]["K9"] = out[(2, 2)]["launches"]["K9"]
+    res["launches"]["K2ax"] = out[(2, 2)]["launches"]["K2ax"]
+
+
+def sharded_rollout_grad(mesh, phi, v, dt, nsteps):
+    """``sum(phi_final^2)`` of the sharded fused RK3 rollout (the rotation
+    in-kernel, remat) and its gradient w.r.t. the initial values."""
+    ro = sfe.make_sharded_fused_rollout(lsm.RK3(), mesh, phi.grid, nsteps=nsteps)
+    loss = (ro((lsm.AdvectionTerm(rotation),), phi.with_values(v), 0.0, dt).values ** 2).sum()
+    return loss, torch.autograd.grad(loss, v)[0]
+
+
+def phase_sharded_grad(dev, res):
+    """The sharded rollout's gradient at N_SMALL^3 on a (2, 2) mesh of the
+    card against the single-device card rollout (the Zalesak field, the
+    rotation in-kernel: K1'' and K3'', RK3, 3 steps, remat): f64 max norm
+    within 1e-10 * scale; f32 relative L2 within F32_L2_FACTOR times the
+    card's own spread under a 1-ulp change of phi0; launches counted (the
+    backward's refresh transpose is plain torch: no K4)."""
+    mesh = card_mesh(dev, (2, 2))
+    errs, counts = {}, None
+    for dtype in (torch.float32, torch.float64):
+        grid, phi, _ = zalesak(N_SMALL, dev, dtype)
+        dt = 0.25 * grid.min_spacing
+        torch.cuda.synchronize()
+        reset_counts()
+        loss, g = sharded_rollout_grad(mesh, phi, phi.values.clone().requires_grad_(), dt, 3)
+        torch.cuda.synchronize()
+        counts = read_counts() if dtype == torch.float64 else counts
+        loss_r, g_r = rollout_grad(phi, phi.values.clone().requires_grad_(), dt, 3)
+        loss, loss_r = float(loss.detach()), float(loss_r.detach())
+        errs[dtype] = (float((g - g_r).abs().max()), max(float(g_r.abs().max()), 1.0),
+                       rel_l2(g, g_r), abs(loss - loss_r) / abs(loss_r))
+        if dtype == torch.float32:
+            gen = torch.Generator(device=dev).manual_seed(12)
+            pert = phi.values * (1 + 2.0 ** -23 * torch.randn(grid.shape, generator=gen,
+                                                              device=dev))
+            ulp_l2 = rel_l2(rollout_grad(phi, pert.requires_grad_(), dt, 3)[1], g_r)
+    (e32, s32, l2_32, _), (e64, s64, _, lrel64) = errs[torch.float32], errs[torch.float64]
+    log("sharded_grad", f"{N_SMALL}^3 RK3 rollout x3 (remat) on mesh (2, 2) of the card vs the "
+                        f"single-device card rollout: f64 max|diff|={e64:.3e} scale={s64:.3e} "
+                        f"(tol 1e-10*scale), loss rel {lrel64:.2e}; f32 max|diff|={e32:.3e} "
+                        f"scale={s32:.3e} (reported), relative L2 {l2_32:.3e} (tol "
+                        f"{F32_L2_FACTOR:g}x the card's 1-ulp spread {ulp_l2:.3e}); f64 launches "
+                        f"{counts}")
+    if not (e64 <= 1e-10 * s64 and l2_32 <= F32_L2_FACTOR * ulp_l2 and counts["K9"] > 0
+            and counts["K3''"] > 0 and counts["K4"] == 0 and counts["K2"] == 0):
+        raise AssertionError("sharded gradient check failed")
+    res["sharded_grad"] = errs
+
+
+def phase_sharded_general(dev, res):
+    """The sharded general path on a (2, 2) mesh of the card against the
+    single-device card runs: ``make_sharded_step`` at N_SMALL^3 (Zalesak,
+    streamed rotation, RK3; K10 per shard and stage) and at N_2D_SMALL^2
+    (configuration 2's disk; K11), and the sharded band evolve (the
+    off-axis sphere band, streamed spin, 3 RK3 steps) against the
+    single-device general band path (``fast="off"``), f32."""
+    mesh = card_mesh(dev, (2, 2))
+    grid, phi, vel = zalesak(N_SMALL, dev)
+    dt = 0.25 * grid.min_spacing
+    term = lsm.AdvectionTerm(vel)
+    reset_counts()
+    got = par.make_sharded_step(lsm.RK3(), mesh, grid)((term,), phi, 0.0, dt)
+    torch.cuda.synchronize()
+    c3 = read_counts()
+    reset_counts()
+    want, _ = lsm.RK3().advance((term,), phi, 0.0, dt)
+    e3 = float((got.values - want.values).abs().max())
+    ex3 = bool(torch.equal(got.values, want.values))
+    terms2, phi2, _ = config("D2h", N_2D_SMALL, dev)
+    vel2 = lsm.sample(lambda x, y: (0.5 - y + 0 * x, x - 0.5 + 0 * y), phi2.grid, vector=True,
+                      device=dev)
+    term2 = lsm.AdvectionTerm(vel2)
+    dt2 = 0.25 * phi2.grid.min_spacing
+    reset_counts()
+    got2 = par.make_sharded_step(lsm.RK3(), mesh, phi2.grid)((term2,), phi2, 0.0, dt2)
+    torch.cuda.synchronize()
+    c2 = read_counts()
+    want2, _ = lsm.RK3().advance((term2,), phi2, 0.0, dt2)
+    e2 = float((got2.values - want2.values).abs().max())
+    nb = sphere_band(N_SMALL, dev, center=(0.5, 0.0, 0.0), radius=0.4)
+    velb = lsm.sample(lambda x, y, z: spin((x, y, z), 0.0), nb.grid, vector=True, device=dev)
+    termb = lsm.AdvectionTerm(velb)
+    reset_counts()
+    bout, bt, bn = par.make_sharded_evolve(lsm.RK3(), mesh, nb.grid, max_steps=3,
+                                           is_band=True)((termb,), nb, 0.0, 1.0)
+    torch.cuda.synchronize()
+    cb = read_counts()
+    eq = lsm.LevelSetEquation(terms=termb, ic=nb, integrator=lsm.RK3())
+    eq.integrate(1.0, max_steps=3, fast="off")
+    eb, scb, dmask, dcmask = band_diff(bout, eq.state)
+    log("sharded_general", f"make_sharded_step {N_SMALL}^3 RK3 on mesh (2, 2): max|sharded - "
+                           f"single|={e3:.3e} bit for bit {ex3} launches {c3}; 2D "
+                           f"{N_2D_SMALL}^2: {e2:.3e} launches {c2}; band evolve x{bn} t={bt:.6f} "
+                           f"(single {eq.last_nsteps}, {eq.t:.6f}): {eb:.3e} (scale {scb:.3e}) "
+                           f"mask mismatches {dmask} ({dcmask}) launches {cb}")
+    if not (e3 <= 1e-6 and c3 == dict(NONE_LAUNCHED, K10=3 * SHARDS) and e2 <= 1e-6
+            and c2 == dict(NONE_LAUNCHED, K11=3 * SHARDS) and bn == eq.last_nsteps == 3
+            and dmask == dcmask == 0 and eb <= 1e-6 * scb and cb["K10"] == 3 * 3 * SHARDS):
+        raise AssertionError("sharded general path check failed")
+
+
+def phase_dryrun(dev, res):
+    """The dryrun counterpart on SHARDS shards of the card: a sharded
+    training step through the fused rollout, then the sharded dense, band
+    and fused evolves for 3 steps each."""
+    out = dryrun_multichip(SHARDS, devices=[dev] * SHARDS)
+    log("dryrun", f"dryrun_multichip({SHARDS}) on {dev}: {out}")
+
+
 def main(argv=()) -> int:
     """Every phase in order; with phase names in ``argv``, only those (a
     partial run: no kernel record, and a last line that says so)."""
@@ -3247,7 +3666,10 @@ def main(argv=()) -> int:
                       ("band", phase_band), ("kinds", phase_kinds), ("update", phase_update),
                       ("grad_kinds", phase_grad_kinds), ("config5", phase_config5),
                       ("general_512", phase_general_512), ("twod", phase_twod),
-                      ("general_small", phase_general_small), ("timing", phase_timing),
+                      ("general_small", phase_general_small), ("k9", phase_k9),
+                      ("sharded", phase_sharded), ("sharded_grad", phase_sharded_grad),
+                      ("sharded_general", phase_sharded_general), ("dryrun", phase_dryrun),
+                      ("timing", phase_timing),
                       ("band_timing", phase_band_timing), ("kinds_timing", phase_kinds_timing),
                       ("general_timing", phase_general_timing),
                       ("analytic_timing", phase_analytic_timing), ("profile", phase_profile),
@@ -3265,25 +3687,12 @@ def main(argv=()) -> int:
         print(nvidia_smi())
         print(json.dumps({"partial": list(argv), "passed": True}))
         return 0
-    unported_bounds()
     print(json.dumps({"kernels": kernel_records(res)}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
-
-
-def unported_bounds():
-    """The bound of the TPU kernel still to port, at the size its path would
-    run: K9 writes the four halo/BC shell blocks of a 512^3 grid's local
-    shard on 4 shards along axis 0 (blocks read once and written once)."""
-    f32, n = 4, N_MAIN
-    n0, n1, n2 = n // 4, n, n
-    blocks = 2 * 3 * n1 * n2 + 2 * (n0 + 6) * 3 * n2
-    k9 = bound(2 * f32 * blocks, 0)
-    log("bounds", f"K9 write_shell_blocks, one shard of {n}^3 on 4: {2 * f32 * blocks / 1e6:.2f} "
-                  f"MB, bound {k9[0]:.4f} ms ({k9[1]})")
 
 
 def kernel_records(res):
@@ -3305,6 +3714,8 @@ def kernel_records(res):
 
     tk = res["t_k3k"]
     work, kwork = res["band_work"], res["kinds_band_work"]
+    k9 = res["k9"]["times"]
+    k9_main = k9[(2, 2)]  # the (2, 2) mesh: all four blocks per shard
     rows = [
         ("K1 fused_stage (WENO5 advection RK stage)", "weno_stage.cu",
          "lsm_tpu/ops/weno_v2.py:667", "K1", res["k1_err"], t["K1"], t["K1_plain"],
@@ -3367,6 +3778,17 @@ def kernel_records(res):
         (f"K11 weno_stage_pallas 2D (the same in 2D, at {N_2D}^2)", "weno_general.cu",
          "lsm_tpu/ops/weno_pallas.py:294", "K11", res["k11_err"], t["K11"], t["K11_plain"],
          bound(f32 * ((N_2D + 6) ** 2 + 3 * N_2D ** 2), K11_OPS_PER_CELL * N_2D ** 2), None),
+        (f"K9 write_shell_blocks (a shard's ghost-shell blocks, in place; the 512^3 flagship on "
+         f"a (2, 2) mesh of the card, shard {k9_main['shape']})", "shell_blocks.cu",
+         "lsm_tpu/parallel/fused_evolve.py:131", "K9", res["k9"]["err"], k9_main["ms"],
+         k9_main["plain_ms"],
+         # the four blocks read once and written once
+         k9_main["bound"], None),
+        (f"K2 refresh_axis_fast (K2's single-axis entry: the axis-2 phase of the sharded "
+         f"refresh; the 512^3 flagship on a (2, 2) mesh of the card, shard "
+         f"{k9_main['shape']})", "refresh_ghosts.cu", "lsm_tpu/ops/weno_v2.py:208", "K2ax",
+         res["k9"]["k2ax_err"], k9_main["K2_axis2_ms"], k9_main["K2_axis2_plain_ms"],
+         k9_main["K2_axis2_bound"], None),
         ("K1'' fused_stage with an in-kernel coefficient program (the rotation)",
          "weno_stage.cu", "lsm_tpu/ops/weno_v2.py:667", "K1''", res["k1a_err"],
          t["K1pp_rotation"], t["K1pp_rotation_plain"],
@@ -3431,6 +3853,16 @@ def kernel_records(res):
                        rel_err_512_sub_box=res["k3a_512_rel"])
         if key == "K6''":
             rec.update(ms_streamed_K6=t["K6"])
+        if key == "K9":  # ms: device time (profiler); a call between events beside it; the
+            # (4, 1) mesh: the axis-0 pair only; K2's axis-2 phase beside it
+            r41 = k9[(4, 1)]
+            rec.update(ms_hot_l2=k9_main["ms_hot_l2"],
+                       ms_per_launch_in_main_path=res["sharded"]["k9_path_ms"],
+                       ms_one_call_with_host=k9_main["call_ms"],
+                       plain_ms_one_call_with_host=k9_main["plain_call_ms"],
+                       ms_mesh_4x1=r41["ms"], plain_ms_mesh_4x1=r41["plain_ms"],
+                       bound_ms_mesh_4x1=r41["bound"][0], shard_4x1=list(r41["shape"]),
+                       launches_per_step=res["launches"]["K9"] // SHARDED_STEPS)
         if key == "tables":
             rec.update(ms_rotation=t["tables_rotation"], plain_ms_rotation=t[
                 "tables_rotation_plain"], work={"rotation": rot, "vortex": vortex})

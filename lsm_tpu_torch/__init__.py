@@ -26,8 +26,11 @@ lists the steppers do not take run the WENO5 advection stage through K10
 ``reinitialize`` (PDE reinitialization), ``extend_along_normals`` and the
 geometric queries and CSG in plain torch; and ``models.benchmarks``, the
 canonical configurations 1 to 5 (configuration 5: shape optimisation
-through a band rollout). Tensors go to the card unless the caller asks for
-the CPU (``device="cpu"``).
+through a band rollout); and the sharded paths (:mod:`lsm_tpu_torch.parallel`:
+an in-process mesh of torch devices, the halo exchange, the sharded general
+and fused evolutions with the shell writer K9, the differentiable sharded
+rollout). Tensors go to the card unless the caller asks for the CPU
+(``device="cpu"``).
 """
 
 from .core.grid import Grid

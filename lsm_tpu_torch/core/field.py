@@ -15,7 +15,12 @@ from .bc import bcs_str, normalize_bcs, pad_ghost
 from .device import resolve_device
 from .grid import Grid
 
-__all__ = ["MeshField", "sample"]
+__all__ = ["MeshField", "sample", "SHARDED_ONLY"]
+
+#: what the single-device engine says when it is handed a sharded field
+SHARDED_ONLY = ("a ShardedField runs through the explicit sharded paths of "
+                "lsm_tpu_torch.parallel (make_sharded_step, make_sharded_evolve, "
+                "make_sharded_fused_rollout); unshard() it for the single-device engine")
 
 
 class MeshField:

@@ -167,6 +167,27 @@ int lsm_refresh_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n2,
                            const int* kinds, const int* degrees, const double* weights,
                            void* stream);
 
+/* K2's single-axis entry: one of its three phases (axis 0, 1 or 2), the shells
+ * of that axis over the extents described above (the earlier axes' full padded
+ * extent, the later axes' interior). One launch; arguments as for K2. */
+int lsm_refresh_axis_f32(void* P, int64_t n0, int64_t n1, int64_t n2, int axis,
+                         const int* kinds, const int* degrees, const double* weights,
+                         void* stream);
+int lsm_refresh_axis_f64(void* P, int64_t n0, int64_t n1, int64_t n2, int axis,
+                         const int* kinds, const int* degrees, const double* weights,
+                         void* stream);
+
+/* K9: write the ghost-shell blocks of a shard's padded buffer P in place
+ * (csrc/shell_blocks.cu). l0, r0: the axis-0 shells (3, n1, n2), rows [0, 3)
+ * and [3+n0, n0+6) at the interior columns and lanes; l1, r1: the axis-1
+ * shells (n0+6, 3, n2), columns [0, 3) and [3+n1, n1+6) over every row, at the
+ * interior lanes. Each block contiguous, of P's dtype; any may be NULL (not
+ * written). The lane ghosts are not touched. One launch. */
+int lsm_shell_blocks_f32(void* P, int64_t n0, int64_t n1, int64_t n2, const void* l0,
+                         const void* r0, const void* l1, const void* r1, void* stream);
+int lsm_shell_blocks_f64(void* P, int64_t n0, int64_t n1, int64_t n2, const void* l0,
+                         const void* r0, const void* l1, const void* r1, void* stream);
+
 /* K3: cotangents of one K1 stage (csrc/stage_backward.cu). g is the padded
  * cotangent of the stage output, already folded (K4): only its interior is
  * read. Writes dP (padded, every element), du0..du2 (interior-shaped; each

@@ -15,7 +15,9 @@
 // ghosts, axis 2 reads both) comes from the launch order. Each thread writes
 // one ghost node from at most 8 source nodes along its axis. For axes 0 and 1
 // the contiguous axis 2 is the thread's fastest index (coalesced rows); for
-// axis 2 the six ghost slots of one row are.
+// axis 2 the six ghost slots of one row are. The single-axis entry
+// (lsm_refresh_axis_*) runs one of the three phases alone: the sharded
+// refresh takes it for the axes a mesh leaves unsharded (always axis 2).
 //
 // Bound: it touches only the shells, O(N^2): about 6 * 518^2 nodes per axis at
 // 512^3, a few MB of traffic, so launch latency dominates.
@@ -105,16 +107,18 @@ __global__ void __launch_bounds__(kThreads)
   P[base + pos * stride] = val;
 }
 
+// Axes [axis_lo, axis_hi) in order: the whole refresh is [0, 3), one phase
+// of it [axis, axis + 1).
 template <typename T>
 int launch_refresh(void* P_, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
                    const int* degrees, const double* weights, const int* flags,
-                   void* stream_) {
+                   void* stream_, int axis_lo = 0, int axis_hi = 3) {
   T* P = static_cast<T*>(P_);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const int64_t n[3] = {n0, n1, n2};
   const int64_t S[3] = {n0 + 2 * LSM_GHOST, n1 + 2 * LSM_GHOST, n2 + 2 * LSM_GHOST};
   const int64_t stride[3] = {S[1] * S[2], S[2], 1};
-  for (int axis = 0; axis < 3; ++axis) {
+  for (int axis = axis_lo; axis < axis_hi; ++axis) {
     AxisBC bc;
     for (int side = 0; side < 2; ++side) {
       const int a = 2 * axis + side;
@@ -156,6 +160,22 @@ extern "C" int lsm_refresh_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n
                                       const int* kinds, const int* degrees,
                                       const double* weights, void* stream) {
   return launch_refresh<double>(P, n0, n1, n2, kinds, degrees, weights, nullptr, stream);
+}
+
+extern "C" int lsm_refresh_axis_f32(void* P, int64_t n0, int64_t n1, int64_t n2, int axis,
+                                    const int* kinds, const int* degrees,
+                                    const double* weights, void* stream) {
+  if (axis < 0 || axis > 2) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_refresh<float>(P, n0, n1, n2, kinds, degrees, weights, nullptr, stream, axis,
+                               axis + 1);
+}
+
+extern "C" int lsm_refresh_axis_f64(void* P, int64_t n0, int64_t n1, int64_t n2, int axis,
+                                    const int* kinds, const int* degrees,
+                                    const double* weights, void* stream) {
+  if (axis < 0 || axis > 2) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_refresh<double>(P, n0, n1, n2, kinds, degrees, weights, nullptr, stream, axis,
+                                axis + 1);
 }
 
 extern "C" int lsm_refresh_band_ghosts_f32(void* P, int64_t n0, int64_t n1, int64_t n2,

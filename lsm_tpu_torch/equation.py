@@ -36,7 +36,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .core.field import MeshField
+from .core.field import SHARDED_ONLY, MeshField
 from .core.narrowband import NarrowBandField
 from .geometry import queries as geo
 from .integrators import band_fused as _band
@@ -61,6 +61,8 @@ class LevelSetEquation:
 
     def __init__(self, *, terms, ic: MeshField, bc=None,
                  integrator: TimeIntegrator = RK3(), t: float = 0.0):
+        if getattr(ic, "is_sharded", False):
+            raise TypeError(SHARDED_ONLY)
         if not isinstance(ic, MeshField):
             raise TypeError("ic must be a MeshField")
         self.terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)

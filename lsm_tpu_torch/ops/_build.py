@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -104,7 +105,9 @@ def compile_library(out: Path, nvcc: str) -> str:
 class Library:
     """The loaded kernel library: ``stage_f32/f64``, ``stage_prog_f32/f64``
     and ``stage_terms_f32/f64`` (K1: advection-only streamed and program
-    entries, term-list entry), ``refresh_f32/f64`` (K2),
+    entries, term-list entry), ``refresh_f32/f64`` (K2) and
+    ``refresh_axis_f32/f64`` (its single-axis entry), ``shell_blocks_f32/f64``
+    (K9),
     ``stage_bwd_f32/f64``, ``stage_bwd_prog_f32/f64`` and
     ``stage_bwd_scratch`` (K3, K3″), ``stage_bwd_terms_f32/f64`` and
     ``stage_bwd_terms_scratch`` (K3'), ``fold_f32/f64`` (K4),
@@ -134,12 +137,16 @@ class Library:
         terms_args = [vp] * 3 + [i64] * 3 + [vp, vp]
         band_terms_args = [vp] * 5 + [i64] * 7 + [vp, vp]
         general_2d_args = [vp] * 5 + [i64] * 2 + [f64] * 5 + [vp]
+        axis_args = [vp] + [i64] * 3 + [ci] + [vp] * 3 + [vp]
+        shell_args = [vp] + [i64] * 3 + [vp] * 4 + [vp]
         names = {"stage": ("lsm_weno_stage", stage_args),
                  "general_3d": ("lsm_weno_general_3d", stage_args),
                  "general_2d": ("lsm_weno_general_2d", general_2d_args),
                  "stage_terms": ("lsm_weno_stage_terms", terms_args),
                  "stage_prog": ("lsm_weno_stage_prog", terms_args),
                  "refresh": ("lsm_refresh_ghosts", ghost_args),
+                 "refresh_axis": ("lsm_refresh_axis", axis_args),
+                 "shell_blocks": ("lsm_shell_blocks", shell_args),
                  "stage_bwd": ("lsm_stage_bwd", bwd_args),
                  "stage_bwd_terms": ("lsm_stage_bwd_terms", bwd_terms_args),
                  "stage_bwd_prog": ("lsm_stage_bwd_prog", bwd_prog_args),
@@ -177,9 +184,11 @@ class Library:
         return self._lib.lsm_error_string(int(code)).decode()
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.cache
-def load_library() -> Library:
-    """Build (first use) and load the kernel library; cached per process."""
+def _load() -> Library:
     path = BUILD_DIR / f"liblsm_kernels-{_digest()}.so"
     if path.exists():
         return Library(path, 0.0, "already built")
@@ -187,3 +196,11 @@ def load_library() -> Library:
     t0 = time.perf_counter()
     log = compile_library(path, nvcc)
     return Library(path, time.perf_counter() - t0, log)
+
+
+def load_library() -> Library:
+    """Build (first use) and load the kernel library; cached per process.
+    The shards of an in-process mesh call it from several threads: the first
+    builds, the others wait for it."""
+    with _LOAD_LOCK:
+        return _load()

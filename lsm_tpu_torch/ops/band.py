@@ -52,6 +52,7 @@ import torch.nn.functional as F
 from ..core.narrowband import band_mask_from_values, box_dilate
 from . import weno_v2 as v2
 from ._build import load_library
+from ._launches import bump
 
 __all__ = [
     "tile_grid",
@@ -294,9 +295,8 @@ def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torc
             code = fn(P.data_ptr(), aux_ptr, out.data_ptr(), band.data_ptr(), ids.data_ptr(),
                       ids.shape[0], *shape, *tiles, ctypes.addressof(tab), stream)
     v2._raise_on(code, lib, "band_stage kernel")
-    band_stage.launches += 1
-    band_stage.kinds_launches += not v2.is_advection_only(terms)
-    band_stage.program_launches += any(spec.coef_kind == "program" for spec, _ in terms)
+    bump(band_stage, launches=1, kinds_launches=not v2.is_advection_only(terms),
+         program_launches=any(spec.coef_kind == "program" for spec, _ in terms))
     return out
 
 
@@ -482,7 +482,7 @@ def refresh_band_ghosts_fast(padded: torch.Tensor, bcs, shape, flags: torch.Tens
                   ctypes.addressof(degrees), ctypes.addressof(weights), flags.data_ptr(),
                   torch.cuda.current_stream().cuda_stream)
     v2._raise_on(code, lib, "refresh_band_ghosts kernel")
-    refresh_band_ghosts_fast.launches += 1
+    bump(refresh_band_ghosts_fast, launches=1)
     return padded
 
 
@@ -548,7 +548,7 @@ def band_retube_incremental(P: torch.Tensor, band: torch.Tensor, cand: torch.Ten
                   flags.data_ptr(), ncand, *shape, *tiles, int(nlayers), int(chalo),
                   torch.cuda.current_stream().cuda_stream)
     v2._raise_on(code, lib, "band_retube kernel")
-    band_retube_incremental.launches += 1
+    bump(band_retube_incremental, launches=1)
     return flags
 
 

@@ -35,6 +35,7 @@ import torch
 
 from . import stencils as st
 from ._build import load_library
+from ._launches import bump
 from .weno_v2 import _check, _raise_on
 
 __all__ = [
@@ -101,7 +102,7 @@ def weno_stage_3d(padded, u, spacing, shape, coeffs=None, aux=None) -> torch.Ten
     """K10: the 3D stage (see :func:`weno_stage_general`). Replaces
     ``lsm_tpu.ops.weno_pallas.weno_stage_pallas`` in 3D (``_make_kernel_3d``)."""
     out, launched = _run("general_3d", 3, padded, u, spacing, shape, coeffs, aux)
-    weno_stage_3d.launches += launched
+    bump(weno_stage_3d, launches=launched)
     return out
 
 
@@ -112,7 +113,7 @@ def weno_stage_2d(padded, u, spacing, shape, coeffs=None, aux=None) -> torch.Ten
     """K11: the 2D stage (see :func:`weno_stage_general`). Replaces
     ``lsm_tpu.ops.weno_pallas.weno_stage_pallas`` in 2D (``_make_kernel_2d``)."""
     out, launched = _run("general_2d", 2, padded, u, spacing, shape, coeffs, aux)
-    weno_stage_2d.launches += launched
+    bump(weno_stage_2d, launches=launched)
     return out
 
 

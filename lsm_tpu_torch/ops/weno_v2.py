@@ -21,7 +21,8 @@ tests and by the on-card comparison in ``chip_smoke.py``):
 - :func:`refresh_ghosts_fast` (K2, ``csrc/refresh_ghosts.cu``; plain
   :func:`refresh_ghosts_plain`) rewrites the ghost shells in place from the
   interior: axis 0, then axis 1, then axis 2, so corner ghosts equal
-  ``pad_ghost(values, bcs, 3)``.
+  ``pad_ghost(values, bcs, 3)``; :func:`refresh_axis_fast` is one of those
+  three phases alone (plain :func:`refresh_axis_plain`).
 - :func:`fused_step_stage` is K1 + K2 as a ``torch.autograd.Function``
   whose backward runs K4, then K3 (one advection term) or K3' (any other
   term list), then K5 (:mod:`.weno_v2_bwd`).
@@ -50,6 +51,7 @@ from .coef_program import MAX_CONSTS as _MAX_CONSTS
 from .coef_program import MAX_OPS as _MAX_OPS
 from .coef_program import MAX_TABLES as _MAX_TABLES
 from ._build import load_library
+from ._launches import bump
 
 __all__ = [
     "GHOST",
@@ -60,6 +62,7 @@ __all__ = [
     "refresh_axis_plain",
     "refresh_ghosts_plain",
     "refresh_ghosts_fast",
+    "refresh_axis_fast",
     "node_coords",
     "stage_plain",
     "stage_reference",
@@ -224,11 +227,38 @@ def refresh_ghosts_fast(padded: torch.Tensor, bcs, shape) -> torch.Tensor:
                   ctypes.addressof(degrees), ctypes.addressof(weights),
                   torch.cuda.current_stream().cuda_stream)
     _raise_on(code, lib, "refresh_ghosts kernel")
-    refresh_ghosts_fast.launches += 1
+    bump(refresh_ghosts_fast, launches=1)
     return padded
 
 
 refresh_ghosts_fast.launches = 0
+
+
+def refresh_axis_fast(padded: torch.Tensor, bcs, shape, ax: int) -> torch.Tensor:
+    """K2's single-axis entry: one of its three phases, the two shells of
+    axis ``ax`` in place (as :func:`refresh_axis_plain`). The sharded
+    refresh runs it for the axes a mesh leaves unsharded. CUDA tensors go to
+    ``csrc/refresh_ghosts.cu`` (one launch), CPU tensors to
+    :func:`refresh_axis_plain`. Returns ``padded``."""
+    shape = tuple(shape)
+    if len(shape) != 3 or ax not in (0, 1, 2):
+        raise ValueError(f"the ghost refresh is 3D only, got shape {shape} and axis {ax}")
+    _check(padded, "padded", padded_shape(shape))
+    kinds, degrees, weights = _ghost_args(bcs, shape)
+    if padded.device.type == "cpu":
+        return refresh_axis_plain(padded, bcs, shape, ax)
+    lib = load_library()
+    fn = lib.refresh_axis_f32 if padded.dtype == torch.float32 else lib.refresh_axis_f64
+    with torch.cuda.device(padded.device):
+        code = fn(padded.data_ptr(), *shape, ax, ctypes.addressof(kinds),
+                  ctypes.addressof(degrees), ctypes.addressof(weights),
+                  torch.cuda.current_stream().cuda_stream)
+    _raise_on(code, lib, "refresh_axis kernel")
+    bump(refresh_axis_fast, launches=1)
+    return padded
+
+
+refresh_axis_fast.launches = 0
 
 
 # -- K1: fused RK stage -------------------------------------------------------------
@@ -671,7 +701,7 @@ def program_tables(progs, shape, spacing, where: Where, like: torch.Tensor,
         code = (lib.prog_tables_f32 if like.dtype == torch.float32 else lib.prog_tables_f64)(
             ctypes.addressof(fill), torch.cuda.current_stream().cuda_stream)
     _raise_on(code, lib, "program tables kernel")
-    program_tables.launches += 1
+    bump(program_tables, launches=1)
     return buf
 
 
@@ -801,9 +831,8 @@ def fused_stage(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
             code = fn(P.data_ptr(), aux_ptr, out.data_ptr(), *shape, ctypes.addressof(tab),
                       stream)
     _raise_on(code, lib, "weno_stage kernel")
-    fused_stage.launches += 1
-    fused_stage.kinds_launches += not is_advection_only(terms)
-    fused_stage.program_launches += any(spec.coef_kind == "program" for spec, _ in terms)
+    bump(fused_stage, launches=1, kinds_launches=not is_advection_only(terms),
+         program_launches=any(spec.coef_kind == "program" for spec, _ in terms))
     return out
 
 
@@ -858,14 +887,18 @@ class _FusedStepStage(torch.autograd.Function):
     advection term or K3' for any other list (stage cotangents; K3″ for
     program terms, with the cotangent of the stage time ``t``), K5 (zero
     daux's shells); on the CPU their plain versions. Saves ``P``, ``aux`` and
-    the streams (references, no copies)."""
+    the streams (references, no copies). Without ``refresh`` (a static) the
+    forward is K1 alone and the backward takes a cotangent whose shells the
+    caller has already folded: no K4 (the sharded stages, whose refresh and
+    its transpose span the mesh)."""
 
     @staticmethod
     def forward(ctx, P, aux, alpha, beta, gamma, t, statics, *streams):
-        specs, counts, bcs, spacing, shape, values, where = statics
+        specs, counts, bcs, spacing, shape, values, where, refresh = statics
         out = fused_stage(P, _unflatten(specs, counts, streams), values, aux, spacing, shape,
                           where)
-        refresh_ghosts_fast(out, bcs, shape)
+        if refresh:
+            refresh_ghosts_fast(out, bcs, shape)
         ctx.save_for_backward(P, aux, *streams)
         ctx.statics = statics
         ctx.coef_like = tuple((c.dtype, c.device) if isinstance(c, torch.Tensor) else None
@@ -878,14 +911,14 @@ class _FusedStepStage(torch.autograd.Function):
         from . import weno_v2_bwd as bwd  # imports this module
 
         P, aux, *streams = ctx.saved_tensors
-        specs, counts, bcs, spacing, shape, values, where = ctx.statics
+        specs, counts, bcs, spacing, shape, values, where, refresh = ctx.statics
         terms = _unflatten(specs, counts, streams)
         need = ctx.needs_input_grad  # P, aux, alpha, beta, gamma, t, statics, *streams
         need_dt = need[5] and needs_t(terms)
         # K4 folds in place, so it gets a copy: autograd may hand this node
         # the caller's grad_outputs, or one buffer shared with another branch
-        gf = bwd.fold_ghost_cotangent_fast(g.clone(memory_format=torch.contiguous_format),
-                                           bcs, shape)
+        gf = (bwd.fold_ghost_cotangent_fast(g.clone(memory_format=torch.contiguous_format),
+                                            bcs, shape) if refresh else g.contiguous())
         if is_advection_only(terms):
             spec, arrs = terms[0]
             dP, dstreams, dcoef, daux = bwd.stage_backward(
@@ -905,7 +938,8 @@ class _FusedStepStage(torch.autograd.Function):
 
 
 def fused_step_stage(P: torch.Tensor, terms, coeffs, aux, bcs, spacing, shape,
-                     coeff_values=None, where: Optional[Where] = None) -> torch.Tensor:
+                     coeff_values=None, where: Optional[Where] = None,
+                     refresh: bool = True) -> torch.Tensor:
     """One RK stage plus ghost refresh, differentiable (counterpart of
     ``lsm_tpu.ops.weno_v2.fused_step_stage``).
 
@@ -919,7 +953,9 @@ def fused_step_stage(P: torch.Tensor, terms, coeffs, aux, bcs, spacing, shape,
     ``aux``, the tensor coefficients and, through a program term that
     depends on it, ``where.t``: through K4, then K3 for one advection term
     or K3' for any other term list (K3″ evaluates the programs, the time's
-    cotangent included), then K5.
+    cotangent included), then K5. ``refresh=False`` leaves the ghost shells
+    to the caller: the forward is K1 alone, and the backward takes the
+    output's cotangent as already folded (no K4).
     """
     shape = tuple(shape)
     terms = tuple(terms)
@@ -935,7 +971,7 @@ def fused_step_stage(P: torch.Tensor, terms, coeffs, aux, bcs, spacing, shape,
     if not (torch.is_grad_enabled() and any(
             isinstance(x, torch.Tensor) and x.requires_grad for x in tensors)):
         out = fused_stage(P, terms, values, aux, spacing, shape, where)
-        return refresh_ghosts_fast(out, bcs, shape)
+        return refresh_ghosts_fast(out, bcs, shape) if refresh else out
     statics = (tuple(spec for spec, _ in terms), tuple(len(arrs) for _, arrs in terms), bcs,
-               tuple(spacing), shape, values, where.at(where.value))
+               tuple(spacing), shape, values, where.at(where.value), refresh)
     return _FusedStepStage.apply(P, aux, *coeffs, t, statics, *streams)

@@ -54,6 +54,7 @@ from ..core import bc as _bc
 from . import stencils as st
 from . import weno_v2 as v2
 from ._build import load_library
+from ._launches import bump
 from .coef_program import Program
 
 __all__ = [
@@ -154,7 +155,7 @@ def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
         code = fn(g.data_ptr(), *shape, ctypes.addressof(kinds), ctypes.addressof(degrees),
                   ctypes.addressof(weights), _stream())
     v2._raise_on(code, lib, "fold_ghosts kernel")
-    fold_ghost_cotangent_fast.launches += 1
+    bump(fold_ghost_cotangent_fast, launches=1)
     return g
 
 
@@ -189,7 +190,7 @@ def zero_pad_shells(buf: torch.Tensor, shape) -> torch.Tensor:
     with torch.cuda.device(buf.device):
         code = fn(buf.data_ptr(), *shape, _stream())
     v2._raise_on(code, lib, "zero_shells kernel")
-    zero_pad_shells.launches += 1
+    bump(zero_pad_shells, launches=1)
     return buf
 
 
@@ -367,8 +368,7 @@ def stage_backward(P: torch.Tensor, u, coeffs,
                 *(1.0 / float(h) for h in spacing), alpha, beta, gamma, int(out is not None),
                 _stream())
     v2._raise_on(code, lib, "stage_backward kernel")
-    stage_backward.launches += 1
-    stage_backward.program_launches += prog
+    bump(stage_backward, launches=1, program_launches=prog)
     if daux is not None:
         zero_pad_shells(daux, shape)
     return dP, du, dcoef, daux
@@ -518,8 +518,7 @@ def stage_backward_terms(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Ten
                   dcoef.data_ptr(), *shape, ctypes.addressof(tab), ctypes.addressof(outs),
                   int(bool(need_dt)), _stream())
     v2._raise_on(code, lib, "stage_backward_terms kernel")
-    stage_backward_terms.launches += 1
-    stage_backward_terms.program_launches += has_prog
+    bump(stage_backward_terms, launches=1, program_launches=has_prog)
     dcoef = dcoef if has_prog else dcoef[:3]
     for (spec, arrs), sl in zip(terms, _stream_slices(terms)):
         if spec.kind == "advection":
