@@ -216,6 +216,11 @@ KINDS_SMALL_STEPS = 5  # their 64^3 card-vs-CPU trajectories
 GATE_ULPS = 4  # curvature: nodes this close to its eps gate are counted, not compared
 N_2D = 4096  # D1-D4, the canonical 2D configurations: a 4K frame
 N_2D_SMALL = 256  # their card-vs-CPU trajectories and the revolution
+BAND_2D_SMALL = (200, 264)  # the 2D band kernels' parity grid (ragged 16x16 tiles)
+BAND_2D_STEPS = 10  # D2b and D4b: steps of integrate at N_2D^2
+BAND_2D_CHECK_STEPS = 3  # D2b, D4b: kernels against plain versions at N_2D^2
+N_BAND_2D_SMALL = 128  # the 2D band's card-vs-CPU trajectory and gradient, f64
+GRAD2B_STEPS = 8  # grad2b: configuration 5's RK3 steps
 GENERAL_STEPS = 10  # H and D1-D4: steps of integrate
 GRAD_GENERAL_N = 32  # the general path's card-vs-CPU gradient, f64
 REINIT_EVERY = 5  # H's reinitializing posthook runs every this many steps
@@ -255,6 +260,10 @@ N_CONFIG5_XL = 256  # its timed size (the plain band backward is O(grid) per sta
 # subgradients there; the card-vs-CPU checks add this much seeded noise
 CONFIG5_NOISE = 1e-6
 
+# the 2D entries of K6, K7 and K8, counted apart (``launches_2d``) as well as
+# in their wrapper's ``launches``
+TWOD_ENTRIES = {"K6 2D": bd.band_stage, "K7 2D": bd.refresh_band_ghosts_fast,
+                "K8 2D": bd.band_retube_incremental}
 COUNTED = {"K1": v2.fused_stage, "K2": v2.refresh_ghosts_fast, "K3": bwd.stage_backward,
            "K3'": bwd.stage_backward_terms,
            "K4": bwd.fold_ghost_cotangent_fast, "K5": bwd.zero_pad_shells,
@@ -269,13 +278,16 @@ KIND_ENTRIES = {"K1'": v2.fused_stage, "K6'": bd.band_stage}
 PROGRAM_ENTRIES = {"K1''": (v2.fused_stage,), "K3''": (bwd.stage_backward,
                                                      bwd.stage_backward_terms),
                    "K6''": (bd.band_stage,)}
-NONE_LAUNCHED = {name: 0 for name in (*COUNTED, *KIND_ENTRIES, *PROGRAM_ENTRIES)}
+NONE_LAUNCHED = {name: 0 for name in (*COUNTED, *KIND_ENTRIES, *PROGRAM_ENTRIES,
+                                      *TWOD_ENTRIES)}
 
 
 def reset_counts():
     v2.program_tables.launches = 0
     for fn in COUNTED.values():
         fn.launches = 0
+    for fn in TWOD_ENTRIES.values():
+        fn.launches_2d = 0
     for fn in KIND_ENTRIES.values():
         fn.kinds_launches = 0
     for fns in PROGRAM_ENTRIES.values():
@@ -288,6 +300,7 @@ def read_counts():
     out.update({name: fn.kinds_launches for name, fn in KIND_ENTRIES.items()})
     out.update({name: sum(fn.program_launches for fn in fns)
                 for name, fns in PROGRAM_ENTRIES.items()})
+    out.update({name: fn.launches_2d for name, fn in TWOD_ENTRIES.items()})
     return out
 
 
@@ -1123,10 +1136,11 @@ def phase_k6k7k8(dev, res):
     res["k6_err"], res["k7_err"], res["k8_err"] = worst6, 0.0, 0.0
 
 
-def run_band_stepper(cls, nb, integrator, dt, steps, velocity=spin):
+def run_band_stepper(cls, nb, integrator, dt, steps, velocity=spin, terms=None):
     """``steps`` steps of ``cls`` (re-tubing every step) from ``nb`` under
-    ``velocity``; the stepper and its last state."""
-    stepper = cls((lsm.AdvectionTerm(velocity),), nb, integrator)
+    ``velocity`` (or the term list ``terms``); the stepper and its last
+    state."""
+    stepper = cls(terms or (lsm.AdvectionTerm(velocity),), nb, integrator)
     state, t = stepper.pack(nb), 0.0
     for _ in range(steps):
         state = stepper.step(state, t, dt)
@@ -2697,7 +2711,7 @@ def phase_timing(dev, res):
     log("timing", f"peak memory: kernels {kernel_peak / 2**30:.2f} GiB, "
                   f"plain {plain_peak / 2**30:.2f} GiB")
     del fe, rk3, plain_fe, plain_rk3
-    res["t"] = t
+    res["t"].update(t)  # beside the times of the phases before it
     timing_backward(dev, res, grid, phi, vel, P, u, dt)
 
 
@@ -3633,6 +3647,387 @@ def phase_dryrun(dev, res):
     log("dryrun", f"dryrun_multichip({SHARDS}) on {dev}: {out}")
 
 
+# -- the 2D band (the 2D entries of K6, K7 and K8) ------------------------------------
+
+
+def rotation2(xs, t):
+    """Configuration 2's rigid rotation: 2 pi about (0.5, 0.5)."""
+    return shapes.rigid_rotation_velocity((0.5, 0.5), 2.0 * math.pi)(xs, t)
+
+
+def corner_band(shape, dev, dtype):
+    """A circle band about the corner (0.1, 0.9) of [0, 1]^2 that crosses the
+    faces x = 0 and y = 1, the ragged last tiles and tile boundaries."""
+    grid = lsm.Grid((0.0, 0.0), (1.0, 1.0), shape)
+    phi = lsm.sample(shapes.circle((0.1, 0.9), 0.35), grid, lsm.Extrapolation(2), dtype=dtype,
+                     device=dev)
+    return lsm.NarrowBandField.from_field(phi)
+
+
+def bc_cases_2d():
+    return {
+        "periodic": lsm.normalize_bcs(lsm.Periodic(), 2),
+        "symmetry": lsm.normalize_bcs(lsm.Symmetry(), 2),
+        "extrap0": lsm.normalize_bcs(lsm.Extrapolation(0), 2),
+        "extrap2": lsm.normalize_bcs(lsm.Extrapolation(2), 2),
+        "mixed": lsm.normalize_bcs([(lsm.Symmetry(), lsm.Extrapolation(1)),
+                                    (lsm.Extrapolation(3), lsm.Symmetry())], 2),
+    }
+
+
+def k6_2d_cases(nb, gen):
+    """K6 2D's term lists as ``(name, terms, with_aux, route)``: a streamed
+    velocity (the advection entry), the rotation and the vortex traced into
+    programs (K6'', the vortex with aux), and a 3-term sum of the kinds with
+    aux (K6': streamed normal speed, constant curvature, the recomputed
+    eikonal sign)."""
+    dev, dtype, g = nb.device, nb.dtype, nb.grid
+    vel = lsm.MeshField(0.5 * torch.randn((2, *nb.shape), generator=gen, device=dev,
+                                          dtype=dtype), g)
+    speed = torch.randn(nb.shape, generator=gen, device=dev, dtype=dtype)
+    speed[:, ::4] = 0.0  # ties
+    return [("streamed", (lsm.AdvectionTerm(vel),), False, "stream"),
+            ("rotation", (lsm.AdvectionTerm(rotation2),), False, "program"),
+            ("vortex", (lsm.AdvectionTerm(shapes.vortex_velocity(period=4.0)),), True,
+             "program"),
+            ("3-term sum", (lsm.NormalMotionTerm(lsm.MeshField(speed, g)),
+                            lsm.CurvatureTerm(-0.05), lsm.EikonalReinitializationTerm()), True,
+             "stream")]
+
+
+def phase_k6k7k8_2d(dev, res):
+    """The 2D entries of K6, K7 and K8 against their plain versions at
+    BAND_2D_SMALL (ragged 16x16 tiles on both axes), f32 and f64, on a band
+    that crosses the faces x = 0 and y = 1. K6 (each case of
+    :func:`k6_2d_cases`, its terms tile-packed by the band stepper): within
+    K1's bound on the dispatched compute band (curvature: off its eps gate),
+    bit for bit elsewhere. K7: bit for bit on five BC cases with flags (1,1),
+    (0,1), (0,0). K8: the mask, flags, activity, dispatch list and count
+    exactly, the mask also against the full re-tube."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    halo = lsm.NarrowBandField.COMPUTE_HALO
+    worst = {"K6 2D": 0.0, "K6' 2D": 0.0, "K6'' 2D": 0.0}
+    for dtype, tol in ((torch.float32, K1_TOL), (torch.float64, 1e-12)):
+        nb = corner_band(BAND_2D_SMALL, dev, dtype)
+        shape, sp, lo = nb.shape, nb.grid.spacing, nb.grid.lo
+        tiles = default_tiles(nb.nlayers, 2)
+        band = combined(nb)
+        act = bd.tile_activity(band, tiles)
+        P = v2.pack_padded(nb.values, nb.bcs)
+        A = v2.pack_padded(nb.values + 0.01 * torch.randn(shape, generator=gen, device=dev,
+                                                          dtype=dtype), nb.bcs)
+        target = P + torch.randn(P.shape, generator=gen, device=dev, dtype=dtype)
+        gate = gate_nodes(P, sp, shape)
+        for name, terms, with_aux, route in k6_2d_cases(nb, gen):
+            stepper = FusedBandStepper(terms, nb, lsm.RK3(), capacity=int(act.sum()) + 5)
+            routes = [spec.route for spec, _ in stepper.entries]
+            if routes != [route] + ["const", "none"][:len(terms) - 1]:
+                raise AssertionError(f"K6 2D {name}: routes {routes}")
+            state = stepper.pack(nb)
+            packed = stepper.stage_terms(state, T_STAGE)
+            disp = bd.dispatched_cells(state.ids, shape, tiles)
+            cm = band != 0
+            on = disp & cm & (~gate if has_curvature(packed) else torch.ones_like(gate))
+            off_list = ~inside(shape, disp, dev)
+            aux, coeffs = (A, (0.75, 0.25, 2.5e-4)) if with_aux else (None, (0.0, 1.0, 1e-3))
+            where = v2.Where(lo, None, T_STAGE)
+            got = bd.band_stage(P, target.clone(), state.ids, band, packed, coeffs, aux, sp,
+                                shape, tiles, where)
+            ref = bd.band_stage_plain(P, target.clone(), state.ids, band, packed, coeffs, aux,
+                                      sp, shape, tiles, where)
+            torch.cuda.synchronize()
+            g, r = v2.unpack_padded(got, shape), v2.unpack_padded(ref, shape)
+            err, scale = kinds_err(g, r, on)
+            kept = torch.equal(g[disp & ~cm], v2.unpack_padded(P, shape)[disp & ~cm])
+            untouched = torch.equal(got[off_list], target[off_list])
+            log("k6k7k8_2d", f"K6 2D {str(dtype)[6:]} {name:10s} route {route:7s} "
+                             f"aux={with_aux!s:5s} tiles={tiles} slots={stepper.capacity} "
+                             f"max|kernel-plain|={err:.3e} scale={scale:.3e} tol={tol:g}*scale; "
+                             f"source kept off the band: {kept}, other tiles and shells "
+                             f"untouched: {untouched}")
+            if not (bool(torch.isfinite(g).all()) and err <= tol * scale and kept and untouched):
+                raise AssertionError(f"K6 2D parity failed ({dtype}, {name})")
+            if dtype == torch.float32:
+                key = {"streamed": "K6 2D", "3-term sum": "K6' 2D"}.get(name, "K6'' 2D")
+                worst[key] = max(worst[key], err)
+        for name, bcs in bc_cases_2d().items():
+            Q = v2.pack_padded(torch.randn(shape, generator=gen, device=dev, dtype=dtype), bcs)
+            shell = ~inside(shape, torch.ones(shape, dtype=torch.bool, device=dev), dev)
+            Q[shell] = torch.randn(int(shell.sum()), generator=gen, device=dev, dtype=dtype)
+            for flags in ((1, 1), (0, 1), (0, 0)):
+                f = torch.tensor(flags, dtype=torch.int32, device=dev)
+                got = bd.refresh_band_ghosts_fast(Q.clone(), bcs, shape, f)
+                ref = bd.refresh_band_ghosts_plain(Q.clone(), bcs, shape, f)
+                torch.cuda.synchronize()
+                kept = flags != (0, 0) or torch.equal(got, Q)
+                if not (torch.equal(got, ref) and kept):
+                    raise AssertionError(f"K7 2D differs from its plain version ({name}, {flags})")
+            log("k6k7k8_2d", f"K7 2D {str(dtype)[6:]} {name:9s} flags (1,1) (0,1) (0,0): "
+                             f"kernel == plain bit for bit, (0,0) leaves the buffer as it was")
+        h = sp[0]
+        grid = nb.grid
+        moved = lsm.sample(shapes.circle((0.1 + 1.5 * h, 0.9 - 0.5 * h), 0.35), grid,
+                           lsm.Extrapolation(2), dtype=dtype, device=dev)
+        Pm = v2.pack_padded(moved.values, nb.bcs)
+        total = act.numel()
+        cids, _ = bd.compact_ids(box_dilate(act, 1), total)
+        out = {}
+        for label, fn in (("kernel", bd.band_retube_incremental), ("plain", bd.band_retube_plain)):
+            b = band.clone()
+            flags = fn(Pm, b, cids, nb.nlayers, halo, shape, tiles)
+            new_act = bd.scatter_activity(act, cids, flags)
+            ids2, count2 = bd.compact_ids(new_act | act, total)
+            out[label] = (b, flags, new_act, ids2, count2)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(out["kernel"], out["plain"]))
+        full = bd.retube_full(moved.values, band, nb.nlayers, halo)
+        exact_full = torch.equal(out["kernel"][0], full)
+        changed = int((out["kernel"][0] != band).sum())
+        log("k6k7k8_2d", f"K8 2D {str(dtype)[6:]} candidates={int((cids >= 0).sum())} of "
+                         f"{total} tiles, nodes changed={changed}: kernel == plain (mask, flags, "
+                         f"activity, ids, count) {same}; == full re-tube {exact_full}")
+        if not (same and exact_full and changed > 0):
+            raise AssertionError(f"K8 2D parity failed ({dtype})")
+    res["k6_2d_err"] = worst
+    res["k7_2d_err"], res["k8_2d_err"] = 0.0, 0.0
+
+
+def d2b(n, dev, dtype=torch.float32):
+    """D2b: configuration 2 (the Zalesak disk under the rigid rotation, RK3)
+    at n^2 as a 3-layer band. A NarrowBandField refuses Periodic BCs (as
+    JAX's and the reference's), so the band takes Extrapolation(2): the disk
+    stays 0.1 from every face, so no ghost is read and the values are
+    configuration 2's."""
+    eq = bench.config2_zalesak(n, dtype=dtype, device=dev)
+    phi = eq.state.with_bcs(lsm.Extrapolation(2), replace=True)
+    return eq.terms, lsm.NarrowBandField.from_field(phi, nlayers=3), eq.integrator
+
+
+def d4b(n, dev, dtype=torch.float32):
+    """D4b: configuration 4 (the star, curvature -0.05 and normal motion 0.2,
+    Extrapolation(2), RK3) at n^2 as a 3-layer band."""
+    eq = bench.config4_curvature_normal(n, dtype=dtype, device=dev)
+    return eq.terms, lsm.NarrowBandField.from_field(eq.state, nlayers=3), eq.integrator
+
+
+def grad2b(n, nsteps, dtype, device):
+    """grad2b: configuration 5's loss in 2D. ``(loss_and_grad, phi0,
+    speed0)``: the circle of radius 0.45 on [-1, 1]^2, Extrapolation(1), a
+    3-layer band, normal motion at a streamed speed (0.1), ``nsteps`` RK3
+    steps of ``rollout`` at dt = 0.4 h, loss ``(area - 0.3)^2``, gradients
+    with respect to phi0 and the speed."""
+    grid = lsm.Grid((-1.0, -1.0), (1.0, 1.0), (n, n))
+    phi0 = lsm.sample(shapes.circle((0.0, 0.0), 0.45), grid, lsm.Extrapolation(1), dtype=dtype,
+                      device=device)
+    speed0 = torch.full(grid.shape, 0.1, dtype=dtype, device=phi0.device)
+    dt = float(torch.tensor(0.4, dtype=dtype) * grid.min_spacing)
+
+    def loss_and_grad(phi_values, speed_values):
+        with torch.enable_grad():
+            v = phi_values.detach().requires_grad_()
+            s = speed_values.detach().requires_grad_()
+            phi = lsm.NarrowBandField(v, grid, phi0.bcs, nlayers=3, _normalized=True)
+            term = lsm.NormalMotionTerm(lsm.MeshField(s, grid, phi0.bcs, _normalized=True))
+            out, _ = lsm.rollout(lsm.RK3(), (term,), phi, 0.0, dt, nsteps)
+            loss = (geo.volume(out) - 0.3) ** 2
+            dphi, dspeed = torch.autograd.grad(loss, (v, s))
+        return loss.detach(), (dphi, dspeed)
+
+    return loss_and_grad, phi0, speed0
+
+
+def phase_band2d_4096(dev, res):
+    """The 2D band at N_2D^2 f32. D2b and D4b: BAND_2D_CHECK_STEPS steps
+    through the kernels and through their plain versions (values within
+    K1's bound, equal masks); ``integrate`` of BAND_2D_STEPS steps counting
+    launches (the 2D entries of K6 and K7 once per stage, K8 once per step,
+    nothing else) and its ms per step, with D2 (dense) beside D2b; grad2b's
+    ``loss_and_grad`` (K6' and K7 forward, K8, the plain band backward)
+    with its launches, ms and peak memory; the device's busy share of each.
+    At N_BAND_2D_SMALL^2 f64: D2b's trajectory card against CPU (1e-12) and
+    grad2b's gradients card (band stepper) against CPU (general path),
+    1e-10*scale; in f32 card against CPU by relative L2, against the CPU's
+    own spread under a 1-ulp change of phi0. Then K6 2D (streamed and in-kernel
+    rotation), K7 2D (flags on and off) and K8 2D alone on D2b's state,
+    beside their plain versions."""
+    t, mem, busy, n = res["t"], {}, {}, N_2D
+    cells = {}
+    for name, make in (("D2b", d2b), ("D4b", d4b)):
+        terms, nb, integ = make(n, dev)
+        h = nb.grid.min_spacing
+        dt = 0.25 * h if name == "D2b" else 0.2 * h * h / 0.1
+        got, ref = (st.unpack(state) for st, state in (
+            run_band_stepper(cls, nb, integ, dt, BAND_2D_CHECK_STEPS, terms=terms)
+            for cls in (FusedBandStepper, PlainBandStepper)))
+        err, scale, dmask, dcmask = band_diff(got, ref)
+        log("band2d_4096", f"{name} {n}^2 f32 RK3 x{BAND_2D_CHECK_STEPS} kernels vs plain: "
+                           f"max|diff|={err:.3e} scale={scale:.3e} tol={K1_TOL:g}*scale, mask "
+                           f"mismatches {dmask} (compute {dcmask})")
+        if not (bool(torch.isfinite(got.values).all()) and err <= K1_TOL * scale
+                and dmask == dcmask == 0):
+            raise AssertionError(f"{name}: the 2D band kernels and their plain versions disagree")
+        res[f"{name}_err"] = err
+        del got, ref
+        eq = lsm.LevelSetEquation(terms=terms, ic=nb, integrator=integ)
+        torch.cuda.synchronize()
+        reset_counts()
+        eq.integrate(1.0, max_steps=BAND_2D_STEPS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        steps, stages = eq.last_nsteps, len(_STAGES[type(integ)])
+        entry = "K6''" if name == "D2b" else "K6'"
+        want = dict(NONE_LAUNCHED, K6=stages * steps, K7=stages * steps, K8=steps,
+                    **{"K6 2D": stages * steps, "K7 2D": stages * steps, "K8 2D": steps,
+                       entry: stages * steps})
+        cells[name] = int(eq.state.compute_mask.sum())
+        log("band2d_4096", f"{name} integrate: steps={steps} path={eq.last_fast_path} "
+                           f"compute-band nodes {cells[name]} of {n * n}, launches {counts}")
+        if not (steps == BAND_2D_STEPS and eq.last_fast_path == "band" and counts == want
+                and bool(torch.isfinite(eq.state.values).all())):
+            raise AssertionError(f"{name}: the 2D band main path check failed")
+        if name == "D2b":
+            res["launches"].update({k: counts[k] for k in TWOD_ENTRIES})
+            res["launches"]["K6'' 2D"] = counts["K6''"]
+        else:
+            res["launches"]["K6' 2D"] = counts["K6'"]
+        key = f"{name}_integrate@{n}"
+        t[key] = integrate_ms_per_step(terms, nb, integ, path="band")
+        mem[key] = peak_gib(lambda: lsm.LevelSetEquation(terms=terms, ic=nb, integrator=integ)
+                            .integrate(1.0, max_steps=BAND_2D_STEPS))
+        busy[key] = profile_window(f"{name} integrate x{BAND_2D_STEPS} at {n}^2", lambda: (
+            lsm.LevelSetEquation(terms=terms, ic=nb, integrator=integ)
+            .integrate(1.0, max_steps=BAND_2D_STEPS)))
+        del eq, nb
+        torch.cuda.empty_cache()
+    terms, phi, integ = config("D2", n, dev)
+    t[f"D2_integrate@{n}"] = integrate_ms_per_step(terms, phi, integ)
+    mem[f"D2_integrate@{n}"] = peak_gib(lambda: lsm.LevelSetEquation(
+        terms=terms, ic=phi, integrator=integ).integrate(1.0, max_steps=BAND_2D_STEPS))
+    del phi
+    torch.cuda.empty_cache()
+    # grad2b at N_2D^2 f32
+    fn, phi0, speed0 = grad2b(n, GRAD2B_STEPS, torch.float32, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    loss, (dphi, dspeed) = fn(phi0.values, speed0)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    finite = bool(torch.isfinite(dphi).all()) and bool(torch.isfinite(dspeed).all())
+    stages = 3 * GRAD2B_STEPS
+    log("band2d_4096", f"grad2b {n}^2 f32 x{GRAD2B_STEPS} RK3 loss_and_grad: loss "
+                       f"{float(loss):.6e} finite={finite} launches {counts}")
+    if not (finite and counts["K6 2D"] >= stages and counts["K6'"] >= stages
+            and counts["K7 2D"] >= stages and counts["K8 2D"] >= GRAD2B_STEPS
+            and counts["K6 2D"] == counts["K6"]):
+        raise AssertionError("grad2b at 4096^2 failed")
+    del dphi, dspeed
+    call = lambda: fn(phi0.values, speed0)
+    t[f"grad2b@{n}"] = cuda_time(call, warmup=1, reps=3)
+    mem[f"grad2b@{n}"] = peak_gib(call)
+    busy[f"grad2b@{n}"] = profile_window(f"grad2b loss_and_grad at {n}^2", call)
+    del fn, phi0, speed0
+    torch.cuda.empty_cache()
+    # N_BAND_2D_SMALL^2 f64: card against CPU
+    m = N_BAND_2D_SMALL
+    out = {}
+    for where in ("cpu", dev):
+        terms, nb, integ = d2b(m, where, torch.float64)
+        eq = lsm.LevelSetEquation(terms=terms, ic=nb, integrator=integ)
+        eq.integrate(0.05)
+        out[str(where)] = eq
+    a, b = out[str(dev)], out["cpu"]
+    err, scale, dmask, dcmask = band_diff(a.state, b.state)
+    moved = int((a.state.mask != nb.mask).sum())
+    log("band2d_4096", f"D2b {m}^2 f64 integrate to t=0.05, card vs CPU: steps "
+                       f"{a.last_nsteps}/{b.last_nsteps} paths {a.last_fast_path}/"
+                       f"{b.last_fast_path} max|diff|={err:.3e} scale={scale:.3e} (tol "
+                       f"1e-12*scale) mask mismatches {dmask} (compute {dcmask}); the band "
+                       f"moved: {moved} nodes changed")
+    if not (a.last_nsteps == b.last_nsteps and a.last_fast_path == b.last_fast_path == "band"
+            and err <= 1e-12 * scale and dmask == dcmask == 0 and moved > 0):
+        raise AssertionError("D2b card-vs-CPU trajectory check failed")
+    noise = CONFIG5_NOISE * torch.randn((m, m), generator=torch.Generator().manual_seed(7),
+                                        dtype=torch.float64)
+    pert = torch.randn((m, m), generator=torch.Generator().manual_seed(8))
+    grads = {}
+    for label, where, dtype, ulp in (("cpu", "cpu", torch.float64, 0.0),
+                                     ("card", dev, torch.float64, 0.0),
+                                     ("cpu32", "cpu", torch.float32, 0.0),
+                                     ("card32", dev, torch.float32, 0.0),
+                                     ("cpu32_ulp", "cpu", torch.float32, 2.0 ** -23)):
+        fn, phi0, speed0 = grad2b(m, GRAD2B_STEPS, dtype, where)
+        v = (phi0.values + noise.to(where, dtype)) * (1 + ulp * pert.to(where, dtype))
+        loss, g = fn(v, speed0)
+        grads[label] = [x.cpu().double() for x in (loss, *g)]
+    card, cpu = grads["card"], grads["cpu"]
+    e64 = [float((x - y).abs().max()) / float(y.abs().max()) for x, y in zip(card, cpu)]
+    l2_32 = [rel_l2(x, y) for x, y in zip(grads["card32"][1:], grads["cpu32"][1:])]
+    spread = [rel_l2(x, y) for x, y in zip(grads["cpu32_ulp"][1:], grads["cpu32"][1:])]
+    log("band2d_4096", f"grad2b {m}^2 x{GRAD2B_STEPS} RK3: card (band stepper) vs CPU (general "
+                       f"path) f64 max|diff|/max|ref| loss {e64[0]:.2e} dphi {e64[1]:.2e} "
+                       f"dspeed {e64[2]:.2e} (tol 1e-10); f32 relative L2 dphi {l2_32[0]:.3e} "
+                       f"dspeed {l2_32[1]:.3e} (tol {F32_L2_FACTOR:g}x the CPU's 1-ulp spread "
+                       f"{spread[0]:.3e}, {spread[1]:.3e})")
+    if not (max(e64) <= 1e-10 and all(x <= F32_L2_FACTOR * y for x, y in zip(l2_32, spread))):
+        raise AssertionError("grad2b card-vs-CPU gradient check failed")
+    res["grad2b_rel"] = {"f64": e64, "f32_l2": l2_32, "cpu_f32_ulp_spread": spread}
+    # the kernels alone on D2b's state at N_2D^2
+    terms, nb, integ = d2b(n, dev)
+    shape, sp, halo = nb.shape, nb.grid.spacing, lsm.NarrowBandField.COMPUTE_HALO
+    st_ = FusedBandStepper(terms, nb, integ)
+    state = st_.pack(nb)
+    P, out_buf = state.bufs[0], state.bufs[1]
+    dt = 0.25 * nb.grid.min_spacing
+    prog = st_.stage_terms(state, 0.0)
+    spec = prog[0][0]
+    # the rotation tile-packed, its two 2D components (the embedding's first is zero)
+    u = tuple(c.contiguous() for c in st_._slot_values(spec, state, 0.0))[1:]
+    coeffs, where = (0.0, 1.0, dt), v2.Where(nb.grid.lo, None, 0.0)
+    t["K6_2d"] = cuda_time(lambda: bd.band_stage(P, out_buf, state.ids, state.band, u, coeffs,
+                                                 None, sp, shape, st_.tiles, where))
+    t["K6_2d_plain"] = cuda_time(lambda: bd.band_stage_plain(
+        P, out_buf, state.ids, state.band, u, coeffs, None, sp, shape, st_.tiles, where),
+        warmup=1, reps=5)
+    t["K6pp_2d"] = cuda_time(lambda: bd.band_stage(P, out_buf, state.ids, state.band, prog,
+                                                   coeffs, None, sp, shape, st_.tiles, where))
+    t["K6pp_2d_plain"] = cuda_time(lambda: bd.band_stage_plain(
+        P, out_buf, state.ids, state.band, prog, coeffs, None, sp, shape, st_.tiles, where),
+        warmup=1, reps=5)
+    on = torch.ones(2, dtype=torch.int32, device=dev)
+    off = torch.zeros(2, dtype=torch.int32, device=dev)
+    t["K7_2d"] = cuda_time(lambda: bd.refresh_band_ghosts_fast(P, nb.bcs, shape, on))
+    t["K7_2d_off"] = cuda_time(lambda: bd.refresh_band_ghosts_fast(P, nb.bcs, shape, off))
+    t["K7_2d_plain"] = cuda_time(lambda: bd.refresh_band_ghosts_plain(P, nb.bcs, shape, on))
+    cids, _ = bd.compact_ids(box_dilate(state.act, 1), st_.total)
+    band = state.band.clone()
+    t["K8_2d"] = cuda_time(lambda: bd.band_retube_incremental(P, band, cids, nb.nlayers, halo,
+                                                              shape, st_.tiles))
+    t["K8_2d_plain"] = cuda_time(lambda: bd.band_retube_plain(P, band, cids, nb.nlayers, halo,
+                                                              shape, st_.tiles),
+                                 warmup=1, reps=5)
+    flat, valid = bd.tile_index(state.ids, shape, st_.tiles)
+    cand = bd.dispatched_cells(cids, shape, st_.tiles)
+    reach = halo + nb.nlayers + 2
+    res["band2d_work"] = {
+        "dispatched": int(valid.sum()),
+        "ops_cells": int(((state.band.view(-1)[flat] != 0) & valid).sum()),
+        "cand_cells": int(cand.sum()), "cand_reach_cells": int(box_dilate(cand, reach).sum()),
+        "ghosts": (n + 6) ** 2 - n ** 2, "tiles": st_.tiles, "slots": int(state.count),
+        "prog": program_work(spec.coef_static, (1, *shape))}
+    log("band2d_4096", f"D2b {n}^2 state: tiles {st_.tiles}, dispatched {int(state.count)} "
+                       f"of {st_.total} ({res['band2d_work']['dispatched']} nodes), "
+                       f"compute-band nodes {res['band2d_work']['ops_cells']}, K8 candidates "
+                       f"{int((cids >= 0).sum())} ({res['band2d_work']['cand_cells']} nodes)")
+    for name in [k for k in t if k.endswith(("_2d", "_2d_plain", "_2d_off")) or
+                 k.startswith(("D2b", "D4b", "D2_", "grad2b"))]:
+        log("band2d_4096", f"f32 {name:24s} median {t[name]:.4f} ms")
+    log("band2d_4096", "peak memory: " + ", ".join(f"{k} {v:.3f} GiB" for k, v in mem.items()))
+    log("band2d_4096", "wall and device busy ms: " + ", ".join(
+        f"{k} {w:.3f}/{b:.3f} ({100 * b / w:.1f}%)" for k, (w, b) in busy.items()))
+    res["mem"].update(mem)
+    res["busy_2d"] = busy
+
+
 def main(argv=()) -> int:
     """Every phase in order; with phase names in ``argv``, only those (a
     partial run: no kernel record, and a last line that says so)."""
@@ -3655,6 +4050,7 @@ def main(argv=()) -> int:
         res = collections.defaultdict(float, res)
     phases = (("device", phase_device), ("k2", phase_k2), ("k1", phase_k1),
                       ("k4k5", phase_k4k5), ("k3", phase_k3), ("k6k7k8", phase_k6k7k8),
+                      ("k6k7k8_2d", phase_k6k7k8_2d),
                       ("k1kinds", phase_k1kinds), ("k6kinds", phase_k6kinds),
                       ("k3kinds", phase_k3kinds), ("k1analytic", phase_k1analytic),
                       ("k3analytic", phase_k3analytic), ("k6analytic", phase_k6analytic),
@@ -3663,7 +4059,8 @@ def main(argv=()) -> int:
                       ("band_512", phase_band_512), ("kinds_512", phase_kinds_512),
                       ("k3kinds_512", phase_k3kinds_512),
                       ("slice", phase_slice), ("main", phase_main), ("grad", phase_grad),
-                      ("band", phase_band), ("kinds", phase_kinds), ("update", phase_update),
+                      ("band", phase_band), ("band2d_4096", phase_band2d_4096), ("kinds", phase_kinds),
+                      ("update", phase_update),
                       ("grad_kinds", phase_grad_kinds), ("config5", phase_config5),
                       ("general_512", phase_general_512), ("twod", phase_twod),
                       ("general_small", phase_general_small), ("k9", phase_k9),
@@ -3713,7 +4110,7 @@ def kernel_records(res):
                      ops + k * (w["per_node"] * nodes + w["table_ops"]))
 
     tk = res["t_k3k"]
-    work, kwork = res["band_work"], res["kinds_band_work"]
+    work, kwork, w2 = res["band_work"], res["kinds_band_work"], res["band2d_work"]
     k9 = res["k9"]["times"]
     k9_main = k9[(2, 2)]  # the (2, 2) mesh: all four blocks per shard
     rows = [
@@ -3806,6 +4203,21 @@ def kernel_records(res):
          # written; on the compute band WENO5 and the program, nothing streamed
          prog_bound((f32 * 2 + 1) * work["dispatched"], K1_OPS_PER_CELL * work["ops_cells"],
                     spin_w, work["ops_cells"]), None),
+        ("K6 2D band_stage, 2D entry (a 2D band on its (n0+6, n1+6) layout; D2b's state at "
+         f"{N_2D}^2, the rotation streamed)", "band_stage.cu", "lsm_tpu/ops/band_pallas.py:612",
+         "K6 2D", res["k6_2d_err"]["K6 2D"], t["K6_2d"], t["K6_2d_plain"],
+         # per dispatched node: P's centre and the mask read, the output
+         # written; on the compute band the 2 velocity components read and
+         # WENO5 on two axes computed
+         bound((f32 * 2 + 1) * w2["dispatched"] + 2 * f32 * w2["ops_cells"],
+               K11_OPS_PER_CELL * w2["ops_cells"]), None),
+        (f"K7 2D refresh_band_ghosts_fast, 2D entry (flags on, {N_2D}^2)", "refresh_ghosts.cu",
+         "lsm_tpu/ops/band_pallas.py:187", "K7 2D", res["k7_2d_err"], t["K7_2d"],
+         t["K7_2d_plain"], bound(f32 * 2 * w2["ghosts"], 0), None),
+        (f"K8 2D band_retube_incremental, 2D entry (D2b's candidate tiles at {N_2D}^2)",
+         "band_retube.cu", "lsm_tpu/ops/band_pallas.py:1185", "K8 2D", res["k8_2d_err"],
+         t["K8_2d"], t["K8_2d_plain"],
+         bound((f32 + 1) * w2["cand_reach_cells"] + w2["cand_cells"], 0), None),
         ("K1''/K3''/K6'' program tables (the per-axis subexpressions of a traced coefficient; "
          "the vortex)", "coef_tables.cu", "lsm_tpu/ops/weno_v2.py:508", "tables",
          res["tables_err"], t["tables_vortex"], t["tables_vortex_plain"],
@@ -3853,6 +4265,18 @@ def kernel_records(res):
                        rel_err_512_sub_box=res["k3a_512_rel"])
         if key == "K6''":
             rec.update(ms_streamed_K6=t["K6"])
+        if key == "K6 2D":  # D2b's own entry, the rotation in-kernel (K6'' 2D); D4b's K6'
+            rec.update(ms_program=t["K6pp_2d"], plain_ms_program=t["K6pp_2d_plain"],
+                       bound_ms_program=prog_bound(
+                           (f32 * 2 + 1) * w2["dispatched"], K11_OPS_PER_CELL * w2["ops_cells"],
+                           w2["prog"], w2["ops_cells"])[0],
+                       max_abs_err_program=res["k6_2d_err"]["K6'' 2D"],
+                       max_abs_err_terms=res["k6_2d_err"]["K6' 2D"],
+                       launches_program=res["launches"]["K6'' 2D"],
+                       launches_terms_D4b=res["launches"]["K6' 2D"], tiles=list(w2["tiles"]),
+                       dispatched_tiles=w2["slots"])
+        if key == "K7 2D":
+            rec["ms_flags_off"] = t["K7_2d_off"]
         if key == "K9":  # ms: device time (profiler); a call between events beside it; the
             # (4, 1) mesh: the axis-0 pair only; K2's axis-2 phase beside it
             r41 = k9[(4, 1)]

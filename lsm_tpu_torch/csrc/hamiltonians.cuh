@@ -22,6 +22,13 @@
 // Each function takes the padded buffer P, the centre index c and the
 // strides (s0, s1, 1); every stencil value is loaded from device memory and
 // the reuse between neighbouring nodes is left to L1/L2.
+//
+// kFirst is the first axis of the stencil: 0 for the 3D kernels, 1 for K6's
+// 2D entry, which runs the 3D function of the (1, n0, n1) embedding on a
+// (n0+6, n1+6) buffer with axis 0 compiled out (s0 is not read). Along that
+// axis every difference of the embedding is exactly zero (its ghosts are
+// copies of its one node), so each skipped term is an exact zero and the sums
+// keep the 3D order of the other terms.
 #ifndef LSM_HAMILTONIANS_CUH
 #define LSM_HAMILTONIANS_CUH
 
@@ -83,14 +90,14 @@ __device__ __forceinline__ void eno2(const T* __restrict__ P, int64_t c, int64_t
 }
 
 // Godunov upwind gradient magnitudes (|grad+|, |grad-|) from ENO2.
-template <typename T>
+template <typename T, int kFirst = 0>
 __device__ __forceinline__ void godunov(const T* __restrict__ P, int64_t c, int64_t s0,
                                         int64_t s1, const LsmStageTerms& p, T& gp, T& gm) {
   const int64_t stride[3] = {s0, s1, 1};
   T gp2 = T(0);
   T gm2 = T(0);
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
+  for (int d = kFirst; d < 3; ++d) {
     T A, B;
     eno2(P, c, stride[d], T(p.inv_h[d]), T(p.half_h[d]), T(p.inv_hh[d]), A, B);
     const T ap = max2(A, T(0));
@@ -106,35 +113,46 @@ __device__ __forceinline__ void godunov(const T* __restrict__ P, int64_t c, int6
 
 // b * kappa * |grad phi| with central differences: 3 first, 3 second and 3
 // mixed (the 4 edge neighbours of each axis pair) differences.
-template <typename T>
+template <typename T, int kFirst = 0>
 __device__ __forceinline__ T curvature_term(const T* __restrict__ P, int64_t c, int64_t s0,
                                             int64_t s1, const LsmStageTerms& p, T b) {
   const int64_t st[3] = {s0, s1, 1};
   const T c0 = P[c];
   T g[3], hd[3];
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
+  for (int d = kFirst; d < 3; ++d) {
     const T plus = P[c + st[d]];
     const T minus = P[c - st[d]];
     g[d] = (plus - minus) * T(p.inv_two_h[d]);
     hd[d] = (plus - T(2) * c0 + minus) * T(p.inv_hh[d]);
   }
-  T hm[3];  // (0,1), (0,2), (1,2)
-  const int pair[3][2] = {{0, 1}, {0, 2}, {1, 2}};
+  T nrmsq, lap, quad;
+  if constexpr (kFirst == 1) {  // the 3D sums without their axis-0 terms
+    const T hm12 = (P[c + s1 + 1] - P[c + s1 - 1] - P[c - s1 + 1] + P[c - s1 - 1]) *
+                   T(p.inv_hmix[2]);
+    nrmsq = g[1] * g[1] + g[2] * g[2];
+    lap = hd[1] + hd[2];
+    quad = g[1] * g[1] * hd[1];
+    quad = quad + T(2) * g[1] * g[2] * hm12;
+    quad = quad + g[2] * g[2] * hd[2];
+  } else {
+    T hm[3];  // (0,1), (0,2), (1,2)
+    const int pair[3][2] = {{0, 1}, {0, 2}, {1, 2}};
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const int64_t a = st[pair[k][0]];
-    const int64_t b2 = st[pair[k][1]];
-    hm[k] = (P[c + a + b2] - P[c + a - b2] - P[c - a + b2] + P[c - a - b2]) * T(p.inv_hmix[k]);
+    for (int k = 0; k < 3; ++k) {
+      const int64_t a = st[pair[k][0]];
+      const int64_t b2 = st[pair[k][1]];
+      hm[k] = (P[c + a + b2] - P[c + a - b2] - P[c - a + b2] + P[c - a - b2]) * T(p.inv_hmix[k]);
+    }
+    nrmsq = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
+    lap = hd[0] + hd[1] + hd[2];
+    quad = g[0] * g[0] * hd[0];
+    quad = quad + T(2) * g[0] * g[1] * hm[0];
+    quad = quad + T(2) * g[0] * g[2] * hm[1];
+    quad = quad + g[1] * g[1] * hd[1];
+    quad = quad + T(2) * g[1] * g[2] * hm[2];
+    quad = quad + g[2] * g[2] * hd[2];
   }
-  const T nrmsq = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
-  const T lap = hd[0] + hd[1] + hd[2];
-  T quad = g[0] * g[0] * hd[0];
-  quad = quad + T(2) * g[0] * g[1] * hm[0];
-  quad = quad + T(2) * g[0] * g[2] * hm[1];
-  quad = quad + g[1] * g[1] * hd[1];
-  quad = quad + T(2) * g[1] * g[2] * hm[2];
-  quad = quad + g[2] * g[2] * hd[2];
   const bool safe = nrmsq >= Eps<T>::value();
   const T ns = safe ? nrmsq : T(1);
   const T kappa = safe ? (lap * ns - quad) / (ns * sqrt_(ns)) : T(0);
@@ -143,12 +161,12 @@ __device__ __forceinline__ T curvature_term(const T* __restrict__ P, int64_t c, 
 
 // s * (|grad| - 1) with the sign s frozen (s = s0: streamed or a program)
 // or recomputed from phi with gradient-aware smoothing (LSM_COEF_NONE).
-template <typename T>
+template <typename T, int kFirst = 0>
 __device__ __forceinline__ T eikonal_term(const T* __restrict__ P, int64_t c, int64_t s0,
                                           int64_t s1, const LsmStageTerms& p, int coef,
                                           T s_frozen) {
   T gp, gm;
-  godunov(P, c, s0, s1, p, gp, gm);
+  godunov<T, kFirst>(P, c, s0, s1, p, gp, gm);
   T s, norm;
   if (coef == LSM_COEF_NONE) {
     const T center = P[c];
@@ -188,8 +206,11 @@ inline bool has_program(const LsmStageTerms& p) {
 // kAdvection compiles the WENO5 advection branch in; a table without an
 // advection term takes the instantiation without it, whose registers are not
 // sized for WENO5 (more threads resident per SM). kProgram likewise compiles
-// the program interpreter in only for tables that hold a program.
-template <typename T, bool kAdvection, bool kProgram>
+// the program interpreter in only for tables that hold a program. kFirst = 1
+// is the 2D entry (see the top of this file): i0 is then 0, the embedding's
+// node, and an advection term's component 0, the embedding's zero velocity,
+// is not read.
+template <typename T, bool kAdvection, bool kProgram, int kFirst = 0>
 __device__ __forceinline__ T stage_value_terms(const T* __restrict__ P,
                                                const T* __restrict__ aux, int64_t c, int64_t s0,
                                                int64_t s1, int64_t q, int64_t i0, int64_t i1,
@@ -198,12 +219,13 @@ __device__ __forceinline__ T stage_value_terms(const T* __restrict__ P,
   for (int e = 0; e < p.n; ++e) {
     const int kind = p.kind[e];
     const int coef = p.coef[e];
+    const bool dummy = kFirst == 1 && kind == LSM_TERM_ADVECTION;  // u0 of the embedding
     T v = T(0);  // the scalar coefficient of a normal, curvature or eikonal term
     if (coef == LSM_COEF_STREAM) {
-      v = static_cast<const T*>(p.stream[e][0])[q];
+      if (!dummy) v = static_cast<const T*>(p.stream[e][0])[q];
     } else if (coef == LSM_COEF_CONST) {
       v = T(p.value[e]);
-    } else if (kProgram && coef == LSM_COEF_PROGRAM) {
+    } else if (kProgram && coef == LSM_COEF_PROGRAM && !dummy) {
       v = prog_value<T>(p.prog, e, 0, i0, i1, i2);
     }
     T h;
@@ -213,17 +235,21 @@ __device__ __forceinline__ T stage_value_terms(const T* __restrict__ P,
                         : static_cast<const T*>(p.stream[e][1])[q];
       const T u2 = prog ? prog_value<T>(p.prog, e, 2, i0, i1, i2)
                         : static_cast<const T*>(p.stream[e][2])[q];
-      h = axis_term(P, c, s0, T(p.inv_h[0]), v);
-      h = h + axis_term(P, c, s1, T(p.inv_h[1]), u1);
+      if constexpr (kFirst == 0) {
+        h = axis_term(P, c, s0, T(p.inv_h[0]), v);
+        h = h + axis_term(P, c, s1, T(p.inv_h[1]), u1);
+      } else {
+        h = axis_term(P, c, s1, T(p.inv_h[1]), u1);
+      }
       h = h + axis_term(P, c, int64_t(1), T(p.inv_h[2]), u2);
     } else if (kind == LSM_TERM_NORMAL) {
       T gp, gm;
-      godunov(P, c, s0, s1, p, gp, gm);
+      godunov<T, kFirst>(P, c, s0, s1, p, gp, gm);
       h = max2(v, T(0)) * gp + min2(v, T(0)) * gm;
     } else if (kind == LSM_TERM_CURVATURE) {
-      h = curvature_term(P, c, s0, s1, p, v);
+      h = curvature_term<T, kFirst>(P, c, s0, s1, p, v);
     } else {
-      h = eikonal_term(P, c, s0, s1, p, coef, v);
+      h = eikonal_term<T, kFirst>(P, c, s0, s1, p, coef, v);
     }
     ham = ham + h;
   }

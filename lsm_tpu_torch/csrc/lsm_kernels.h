@@ -322,6 +322,51 @@ int lsm_band_retube_f64(const void* P, void* band, const void* cand, void* stash
                         int64_t ncand, int64_t n0, int64_t n1, int64_t n2, int64_t B0,
                         int64_t B1, int64_t B2, int64_t nlayers, int64_t chalo, void* stream);
 
+/* The 2D entries of K6, K7 and K8: a 2D band on its own padded layout,
+ * P, aux, out (n0+6, n1+6), band (n0, n1), tiles (B0, B1), streams
+ * tile-packed (capacity, B0, B1); tile ids and slots as in 3D over the 2D
+ * tile grid. They compute the 3D function of the (1, n0, n1) embedding:
+ * the term table is the embedding's (spacing (h_min, h0, h1); its entries 1
+ * and 2 are the 2D axes), a program is evaluated at the embedding's node
+ * (0, i, j), and an advection term's component 0 is not read. K6's
+ * advection entry takes the two 2D velocity components u0, u1 and
+ * spacings. */
+int lsm_band_stage_2d_f32(const void* P, const void* u0, const void* u1, const void* aux,
+                          void* out, const void* band, const void* ids, int64_t capacity,
+                          int64_t n0, int64_t n1, int64_t B0, int64_t B1, double inv_h0,
+                          double inv_h1, double alpha, double beta, double gamma, void* stream);
+int lsm_band_stage_2d_f64(const void* P, const void* u0, const void* u1, const void* aux,
+                          void* out, const void* band, const void* ids, int64_t capacity,
+                          int64_t n0, int64_t n1, int64_t B0, int64_t B1, double inv_h0,
+                          double inv_h1, double alpha, double beta, double gamma, void* stream);
+int lsm_band_stage_terms_2d_f32(const void* P, const void* aux, void* out, const void* band,
+                                const void* ids, int64_t capacity, int64_t n0, int64_t n1,
+                                int64_t B0, int64_t B1, const LsmStageTerms* terms, void* stream);
+int lsm_band_stage_terms_2d_f64(const void* P, const void* aux, void* out, const void* band,
+                                const void* ids, int64_t capacity, int64_t n0, int64_t n1,
+                                int64_t B0, int64_t B1, const LsmStageTerms* terms, void* stream);
+int lsm_band_stage_prog_2d_f32(const void* P, const void* aux, void* out, const void* band,
+                               const void* ids, int64_t capacity, int64_t n0, int64_t n1,
+                               int64_t B0, int64_t B1, const LsmStageTerms* terms, void* stream);
+int lsm_band_stage_prog_2d_f64(const void* P, const void* aux, void* out, const void* band,
+                               const void* ids, int64_t capacity, int64_t n0, int64_t n1,
+                               int64_t B0, int64_t B1, const LsmStageTerms* terms, void* stream);
+/* K7 2D: flags[0] gates the axis-0 phase, flags[1] the axis-1 phase. */
+int lsm_refresh_band_ghosts_2d_f32(void* P, int64_t n0, int64_t n1, const int* kinds,
+                                   const int* degrees, const double* weights, const void* flags,
+                                   void* stream);
+int lsm_refresh_band_ghosts_2d_f64(void* P, int64_t n0, int64_t n1, const int* kinds,
+                                   const int* degrees, const double* weights, const void* flags,
+                                   void* stream);
+/* K8 2D: stash uint8[ncand * B0*B1]. */
+int64_t lsm_band_retube_smem_2d(int64_t B0, int64_t B1, int64_t nlayers, int64_t chalo);
+int lsm_band_retube_2d_f32(const void* P, void* band, const void* cand, void* stash, void* flags,
+                           int64_t ncand, int64_t n0, int64_t n1, int64_t B0, int64_t B1,
+                           int64_t nlayers, int64_t chalo, void* stream);
+int lsm_band_retube_2d_f64(const void* P, void* band, const void* cand, void* stash, void* flags,
+                           int64_t ncand, int64_t n0, int64_t n1, int64_t B0, int64_t B1,
+                           int64_t nlayers, int64_t chalo, void* stream);
+
 /* K10: the general path's 3D WENO5 advection stage (csrc/weno_general.cu):
  * out = alpha*aux + beta*phi - gamma * sum_d u_d * WENO5_d(phi). P: the field
  * padded by LSM_GHOST on every side, (n0+6, n1+6, n2+6); u0..u2, aux (may be

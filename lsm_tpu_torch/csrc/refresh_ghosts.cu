@@ -30,6 +30,14 @@
 // launch when flags[1] == 0 (no host read, and a skipped phase leaves the
 // buffer bit-identical). A shell changes only when an active tile touches
 // its face, so a band that stays inside the grid skips the whole refresh.
+//
+// K7's 2D entry (lsm_refresh_band_ghosts_2d_*) refreshes a 2D band on its own
+// (n0+6, n1+6) layout: K2's two 2D phases, axis 0 over the interior columns
+// gated by flags[0], then axis 1 over every padded row gated by flags[1]
+// (which the caller sets whenever flags[0] is: the axis-1 ghosts of the
+// axis-0 ghost rows read those rows). The TPU kernel ran the 3D refresh on the
+// (1, n0, n1) embedding, whose dummy axis keeps flags[0] on and rewrites the
+// full axis-0 ghost planes at every stage; this layout has none.
 
 #include <cuda_runtime.h>
 
@@ -107,6 +115,21 @@ __global__ void __launch_bounds__(kThreads)
   P[base + pos * stride] = val;
 }
 
+// The boundary conditions of one axis from the host arrays (kinds[2*axis +
+// side], degrees likewise, weights[((2*axis + side)*3 + k-1)*8 + j]).
+AxisBC axis_bc(const int* kinds, const int* degrees, const double* weights, int axis) {
+  AxisBC bc;
+  for (int side = 0; side < 2; ++side) {
+    const int a = 2 * axis + side;
+    bc.kind[side] = kinds[a];
+    bc.degree[side] = degrees[a];
+    for (int k = 0; k < LSM_GHOST; ++k)
+      for (int j = 0; j <= LSM_MAX_DEGREE; ++j)
+        bc.w[side][k][j] = weights[(a * LSM_GHOST + k) * (LSM_MAX_DEGREE + 1) + j];
+  }
+  return bc;
+}
+
 // Axes [axis_lo, axis_hi) in order: the whole refresh is [0, 3), one phase
 // of it [axis, axis + 1).
 template <typename T>
@@ -119,15 +142,7 @@ int launch_refresh(void* P_, int64_t n0, int64_t n1, int64_t n2, const int* kind
   const int64_t S[3] = {n0 + 2 * LSM_GHOST, n1 + 2 * LSM_GHOST, n2 + 2 * LSM_GHOST};
   const int64_t stride[3] = {S[1] * S[2], S[2], 1};
   for (int axis = axis_lo; axis < axis_hi; ++axis) {
-    AxisBC bc;
-    for (int side = 0; side < 2; ++side) {
-      const int a = 2 * axis + side;
-      bc.kind[side] = kinds[a];
-      bc.degree[side] = degrees[a];
-      for (int k = 0; k < LSM_GHOST; ++k)
-        for (int j = 0; j <= LSM_MAX_DEGREE; ++j)
-          bc.w[side][k][j] = weights[(a * LSM_GHOST + k) * (LSM_MAX_DEGREE + 1) + j];
-    }
+    const AxisBC bc = axis_bc(kinds, degrees, weights, axis);
     // the two other axes, in order; earlier axes span their padded extent
     // (ghosts already fresh), later ones their interior
     const int oa = axis == 0 ? 1 : 0;
@@ -142,6 +157,31 @@ int launch_refresh(void* P_, int64_t n0, int64_t n1, int64_t n2, const int* kind
         P, n[axis], stride[axis], a_lo, a_cnt, stride[oa], b_lo, b_cnt, stride[ob],
         axis == 2 ? 1 : 0, bc,
         flags == nullptr ? nullptr : flags + (axis == 2 ? 1 : 0));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// The two phases of a 2D buffer (n0+6, n1+6), each gated by its flag: axis 0
+// over the interior columns (rows of n1 nodes, coalesced), then axis 1 over
+// all n0+6 padded rows (the six ghost slots of a row fastest). The kernel's
+// second line axis is unused (one line, stride 0).
+template <typename T>
+int launch_refresh_2d(void* P_, int64_t n0, int64_t n1, const int* kinds, const int* degrees,
+                      const double* weights, const int* flags, void* stream_) {
+  T* P = static_cast<T*>(P_);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const int64_t S1 = n1 + 2 * LSM_GHOST;
+  for (int axis = 0; axis < 2; ++axis) {
+    const AxisBC bc = axis_bc(kinds, degrees, weights, axis);
+    const int64_t b_lo = axis == 0 ? LSM_GHOST : 0;
+    const int64_t b_cnt = axis == 0 ? n1 : n0 + 2 * LSM_GHOST;
+    const int64_t total = 2 * LSM_GHOST * b_cnt;
+    const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+    refresh_axis_kernel<T><<<blocks, kThreads, 0, stream>>>(
+        P, axis == 0 ? n0 : n1, axis == 0 ? S1 : 1, 0, 1, 0, b_lo, b_cnt, axis == 0 ? 1 : S1,
+        axis, bc, flags + axis);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -192,4 +232,18 @@ extern "C" int lsm_refresh_band_ghosts_f64(void* P, int64_t n0, int64_t n1, int6
                                            void* stream) {
   return launch_refresh<double>(P, n0, n1, n2, kinds, degrees, weights,
                                 static_cast<const int*>(flags), stream);
+}
+
+extern "C" int lsm_refresh_band_ghosts_2d_f32(void* P, int64_t n0, int64_t n1, const int* kinds,
+                                              const int* degrees, const double* weights,
+                                              const void* flags, void* stream) {
+  return launch_refresh_2d<float>(P, n0, n1, kinds, degrees, weights,
+                                  static_cast<const int*>(flags), stream);
+}
+
+extern "C" int lsm_refresh_band_ghosts_2d_f64(void* P, int64_t n0, int64_t n1, const int* kinds,
+                                              const int* degrees, const double* weights,
+                                              const void* flags, void* stream) {
+  return launch_refresh_2d<double>(P, n0, n1, kinds, degrees, weights,
+                                   static_cast<const int*>(flags), stream);
 }

@@ -114,6 +114,20 @@ __device__ __forceinline__ T stage_value(const T* __restrict__ P, const T* __res
   return stage_value_at<T, 3>(P, aux, c, c, stride, u, inv_h, alpha, beta, gamma);
 }
 
+// The 2D stage of K6's 2D entry at the padded index c of a (n0+6, n1+6)
+// buffer P (strides s1, 1), aux on the same layout: the 3D stage of the
+// (1, n0, n1) embedding with axis 0 compiled out (its differences, and so
+// its term, are exactly zero there).
+template <typename T>
+__device__ __forceinline__ T stage_value_2d(const T* __restrict__ P, const T* __restrict__ aux,
+                                            int64_t c, int64_t s1, T u1, T u2, T inv_h1,
+                                            T inv_h2, T alpha, T beta, T gamma) {
+  const int64_t stride[2] = {s1, 1};
+  const T u[2] = {u1, u2};
+  const T inv_h[2] = {inv_h1, inv_h2};
+  return stage_value_at<T, 2>(P, aux, c, c, stride, u, inv_h, alpha, beta, gamma);
+}
+
 }  // namespace lsm
 
 #endif  // LSM_WENO5_CUH

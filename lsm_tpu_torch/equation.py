@@ -8,10 +8,11 @@ Routing by the state's device and kind, as JAX routes on the TPU:
 
 - Without hooks and with ``fast="auto"``: a dense 3D or 2D field (2D as
   ``(1, n0, n1)``) takes the fused stepper (kernels K1, K2;
-  ``last_fast_path == "fused"``), a 3D
+  ``last_fast_path == "fused"``), a 3D or 2D
   :class:`~lsm_tpu_torch.core.narrowband.NarrowBandField` the band stepper
-  (K6, K7, K8; ``"band"``), for any list of advection, normal-motion,
-  curvature and eikonal terms.
+  (K6, K7, K8, a 2D band their 2D entries on its own ``(n0+6, n1+6)``
+  layout; ``"band"``), for any list of advection, normal-motion, curvature
+  and eikonal terms.
 - Otherwise the general path (``last_fast_path is None``): hooks,
   ``fast="off"``, a term list the steppers do not take (the upwind scheme,
   an object that is no term kind, other integrators). Each RK stage is one
@@ -22,7 +23,7 @@ Routing by the state's device and kind, as JAX routes on the TPU:
   before every stage (JAX's loop order), and the refreshed terms persist in
   ``self.terms``. On a band they take the general path, as in JAX.
 - On CUDA, a configuration that JAX takes on its fused path and this port
-  does not yet (Extrapolation of degree > 7, a 2D band) raises
+  does not yet (Extrapolation of degree > 7) raises
   ``NotImplementedError`` naming its ROADMAP item. On the CPU it takes the
   general path. The kernels' plain versions run on CPU tensors; nothing on
   CUDA drops to them.

@@ -1,9 +1,9 @@
 """Band-proportional fused evolution (port of
 :mod:`lsm_tpu.integrators.band_fused`).
 
-For a 3D :class:`~lsm_tpu_torch.core.narrowband.NarrowBandField` the stepper
-keeps the level set in padded buffers and the band in one uint8 combined
-mask (0 outside, 1 compute band only, 2 active band). Each RK stage is one K6
+For a 3D or 2D :class:`~lsm_tpu_torch.core.narrowband.NarrowBandField` the
+stepper keeps the level set in padded buffers and the band in one uint8
+combined mask (0 outside, 1 compute band only, 2 active band). Each RK stage is one K6
 launch over a dispatch list of tiles (:func:`~lsm_tpu_torch.ops.band.
 band_stage`) and one gated K7 shell refresh; a re-tube step ends with K8 on
 the candidate tiles (the active tiles and their neighbours), after which
@@ -15,6 +15,14 @@ refuses it): a callable traced into a program is evaluated per node inside
 K6 (K6″), with nothing kept per slot; another callable is evaluated at the
 dispatched tiles' nodes only and a streamed coefficient gathered onto them
 once per re-tube, so a step has no pass over the whole grid.
+
+A 2D band keeps its own ``(n0+6, n1+6)`` layout, ``(B0, B1)`` tiles and
+the 2D entries of K6, K7 and K8 (:mod:`lsm_tpu_torch.ops.band`), while its
+terms are those of the ``(1, n0, n1)`` embedding that JAX's band stepper
+runs (:func:`~lsm_tpu_torch.integrators.fused.term_entries`), so the stage
+computes JAX's function. JAX re-tubes a 2D band in full every step (its
+embedding's one-node tiles on the dummy axis are below K8's reach); here
+the 2D tiles meet the reach, and K8 re-tubes the candidate tiles only.
 
 Buffer rotation. Off-band cells are frozen, so a stage writes its tiles
 into the previous buffer of the rotation and leaves the rest alone:
@@ -44,6 +52,7 @@ checkpointed step recomputes the same masks.
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import NamedTuple, Optional, Tuple
 
@@ -74,7 +83,7 @@ class BandState(NamedTuple):
     ids: torch.Tensor     # int32 (capacity,): dispatch list of act | previous act
     count: torch.Tensor   # int32 0-d: tiles on the dispatch list (> capacity: overflow)
     flags: torch.Tensor   # int32 (2,): K7's gates for the dispatched tiles
-    amask: torch.Tensor   # bool (capacity, B0, B1, B2): active-band nodes per slot
+    amask: torch.Tensor   # bool (capacity, *tiles): active-band nodes per slot
     coefs: Tuple[Tuple[torch.Tensor, ...], ...]  # per term: its tile-packed streams
     xs: Optional[Tuple[torch.Tensor, ...]]  # the slots' node coordinates, for the
     # callables on the stream route (a program term needs none)
@@ -97,13 +106,20 @@ def supports_band_fused(terms, nb, integrator=None) -> bool:
     return unsupported_reason(terms, nb, integrator or RK3()) is None
 
 
-def default_tiles(nlayers: int = 3) -> Tuple[int, int, int]:
-    """Cubes of 16 nodes, or deeper where the incremental re-tube needs it
-    (every axis at least ``1 + nlayers + COMPUTE_HALO`` nodes). Of the
-    tiles ``tools/band_tile_sweep.py`` tried on the 512^3 sphere band, 16^3
-    gave the fastest step (PERF.md)."""
-    b = max(16, 1 + nlayers + NarrowBandField.COMPUTE_HALO)
-    return (b, b, b)
+#: the 2D default tile: of the tiles ``tools/band_tile_sweep.py --2d`` tried
+#: on the D2b band (the Zalesak disk at 4096^2), the one with the least
+#: device time per RK3 step, beside 32x32 (the step's host time does not
+#: depend on the tiles; PERF.md)
+TILES_2D = (16, 64)
+
+
+def default_tiles(nlayers: int = 3, ndim: int = 3) -> Tuple[int, ...]:
+    """3D: cubes of 16 nodes; 2D: :data:`TILES_2D`; each axis deepened where
+    the incremental re-tube needs it (at least ``1 + nlayers +
+    COMPUTE_HALO`` nodes). Of the tiles ``tools/band_tile_sweep.py`` tried
+    on the 512^3 sphere band, 16^3 gave the fastest step (PERF.md)."""
+    reach = 1 + nlayers + NarrowBandField.COMPUTE_HALO
+    return tuple(max(b, reach) for b in ((16,) * 3 if ndim == 3 else TILES_2D))
 
 
 def _face_layers(bcs, shape, tiles):
@@ -123,7 +139,7 @@ def _face_layers(bcs, shape, tiles):
 
 
 class FusedBandStepper:
-    """Active-tile fused stepping for a 3D :class:`NarrowBandField`.
+    """Active-tile fused stepping for a 3D or 2D :class:`NarrowBandField`.
 
     Usage::
 
@@ -145,7 +161,7 @@ class FusedBandStepper:
     """
 
     def __init__(self, terms, nb: NarrowBandField, integrator,
-                 tiles: Optional[Tuple[int, int, int]] = None,
+                 tiles: Optional[Tuple[int, ...]] = None,
                  capacity: Optional[int] = None, retube_every: int = 1):
         terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)
         reason = unsupported_reason(terms, nb, integrator)
@@ -170,9 +186,10 @@ class FusedBandStepper:
         self.lo = tuple(float(x) for x in nb.grid.lo)
         self.dtype, self.device = nb.dtype, nb.device
         self.stages = _STAGES[type(integrator)]
-        self.tiles = tuple(int(b) for b in (tiles or default_tiles(nb.nlayers)))
-        if len(self.tiles) != 3 or min(self.tiles) < 1:
-            raise ValueError(f"tiles must be 3 positive sizes, got {tiles}")
+        self.is2d = nb.ndim == 2
+        self.tiles = tuple(int(b) for b in (tiles or default_tiles(nb.nlayers, nb.ndim)))
+        if len(self.tiles) != nb.ndim or min(self.tiles) < 1:
+            raise ValueError(f"tiles must be {nb.ndim} positive sizes, got {tiles}")
         #: the re-tube runs K8 on the candidate tiles when a change can reach
         #: at most one tile away: every tile at least 1 + nlayers + halo deep
         reach = 1 + self.nlayers + NarrowBandField.COMPUTE_HALO
@@ -182,14 +199,14 @@ class FusedBandStepper:
                 f"tiles {self.tiles} are shallower than the incremental re-tube's reach "
                 f"1 + nlayers + COMPUTE_HALO = {reach} on some axis; on CUDA every tile "
                 f"must be at least {reach} nodes deep")
-        G = bd.tile_grid(self.shape, self.tiles)
-        self.total = G[0] * G[1] * G[2]
+        self.total = math.prod(bd.tile_grid(self.shape, self.tiles))
         if capacity is None:
             n_active = int(bd.tile_activity(nb.compute_mask, self.tiles).sum())
             capacity = min(self.total, max(64, int(n_active * SLACK) + 32))
         self.capacity = int(capacity)
         self._layers = _face_layers(self.bcs, self.shape, self.tiles)
-        #: per term (TermSpec, dense streams); a callable keeps its function
+        #: per term (TermSpec, dense streams); a callable keeps its function;
+        #: a 2D band's are those of the (1, n0, n1) embedding
         self.entries = term_entries(terms, nb)
         self._analytic = any(spec.coef_kind == "analytic" for spec, _ in self.entries)
         self._cache = None
@@ -205,9 +222,16 @@ class FusedBandStepper:
         flat, valid = bd.tile_index(ids, self.shape, self.tiles)
         amask = (band.view(-1)[flat] == bd.ACTIVE) & valid
         coefs = tuple(tuple(a.reshape(-1)[flat] for a in arrs) for _, arrs in self.entries)
-        xs = (bd.tile_coords(ids, self.shape, self.tiles, self.spacing, self.lo, self.dtype)
-              if self._analytic else None)
+        xs = self._slot_coords(ids) if self._analytic else None
         return BandState(tuple(bufs), band, act, ids, count, flags, amask, coefs, xs)
+
+    def _slot_coords(self, ids):
+        """The dispatched nodes' coordinates, as the entries' callables take
+        them (a 2D band's: the embedding's, coordinate 0 zero)."""
+        xs = bd.tile_coords(ids, self.shape, self.tiles, self.spacing, self.lo, self.dtype)
+        if self.is2d:
+            xs = (torch.zeros((), dtype=self.dtype, device=self.device), *xs)
+        return xs
 
     def pack(self, nb: NarrowBandField) -> BandState:
         Q = v2.pack_padded(nb.values.to(device=self.device, dtype=self.dtype), self.bcs)
@@ -332,6 +356,8 @@ class FusedBandStepper:
                 coef = self._slot_values(spec, state, t)
             else:
                 coef = arrs
+            if self.is2d and spec.kind == "advection":
+                coef = coef[1:]  # the embedding's zero component
             dt = kind_cfl(spec.kind, coef, state.amask, self.spacing, state.bufs[0])
             out = dt if out is None else torch.minimum(out, dt)
         return out, state.count
@@ -339,7 +365,7 @@ class FusedBandStepper:
     def _slot_values(self, spec, state: BandState, t):
         """A program term's coefficient at the dispatched nodes, tile-packed
         (for the CFL bound only: K6″ evaluates it in-kernel)."""
-        xs = bd.tile_coords(state.ids, self.shape, self.tiles, self.spacing, self.lo, self.dtype)
+        xs = self._slot_coords(state.ids)
         tt = torch.as_tensor(t, dtype=self.dtype, device=self.device)
         return tuple(torch.broadcast_to(torch.as_tensor(c, dtype=self.dtype, device=self.device),
                                         (self.capacity, *self.tiles))

@@ -69,7 +69,7 @@ _STAGES = {
 
 #: ROADMAP items of configurations that JAX's fused path takes and this
 #: port's does not yet: on CUDA they raise rather than take the general path
-PENDING = ("K2 degree", "2D band")
+PENDING = ("K2 degree",)
 
 
 def _todo(what: str, item: str) -> str:
@@ -224,10 +224,11 @@ def _axes_reason(shape, bcs) -> Optional[str]:
 
 
 def _field_reason(phi: MeshField, integrator) -> Optional[str]:
-    """The band stepper's field and integrator check: a 3D scalar field with
-    BCs the kernels take, every axis at least 4 nodes deep, FE/RK2/RK3."""
-    if phi.ndim != 3:
-        return _todo(f"a {phi.ndim}D NarrowBandField", "2D band")
+    """The band stepper's field and integrator check: a 3D or 2D scalar
+    field with BCs the kernels take, every axis at least 4 nodes deep,
+    FE/RK2/RK3."""
+    if phi.ndim not in (2, 3):
+        return f"the band stepper takes a 3D or 2D field, not {phi.ndim}D"
     reason = _kind_reason(phi, integrator)
     if reason is None and min(phi.shape) < v2.GHOST + 1:
         return f"the band stepper needs >= {v2.GHOST + 1} nodes per axis, got {phi.shape}"

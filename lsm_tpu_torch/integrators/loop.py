@@ -17,7 +17,7 @@
 
 A :class:`~lsm_tpu_torch.core.narrowband.NarrowBandField` re-tubes after
 every step. On the card its rollout runs the band stepper (K6, K7, K8 in the
-forward); under a gradient each stage is
+forward, a 2D band their 2D entries); under a gradient each stage is
 :func:`~lsm_tpu_torch.ops.band.band_step_stage`, whose backward is autograd
 of the plain band composite (as JAX's is ``jax.vjp`` of its dense
 composite), and the re-tube stays out of the graph. With ``fast="off"`` it
@@ -195,7 +195,7 @@ def _band_rollout(integrator, terms, phi, t0, dt, nsteps, remat=True, remat_chun
     recomputes the same masks in the backward (K8 is bit-equal to its plain
     version, and the stepper re-tubes a copy of the band). ``t0`` and ``dt``
     may be tensors."""
-    total = math.prod(tile_grid(phi.shape, _band.default_tiles(phi.nlayers)))
+    total = math.prod(tile_grid(phi.shape, _band.default_tiles(phi.nlayers, phi.ndim)))
     stepper = _band.FusedBandStepper(terms, phi, integrator, capacity=total)
     dt_value = _host(dt)
 

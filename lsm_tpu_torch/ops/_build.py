@@ -114,7 +114,10 @@ class Library:
     ``zero_shells_f32/f64`` (K5), ``band_stage_f32/f64``,
     ``band_stage_prog_f32/f64`` and ``band_stage_terms_f32/f64`` (K6),
     ``band_refresh_f32/f64`` (K7),
-    ``band_retube_f32/f64`` and ``band_retube_smem`` (K8),
+    ``band_retube_f32/f64`` and ``band_retube_smem`` (K8), their 2D entries
+    ``band_stage_2d``, ``band_stage_terms_2d``, ``band_stage_prog_2d``,
+    ``band_refresh_2d``, ``band_retube_2d`` (``_f32/_f64``) and
+    ``band_retube_smem_2d``,
     ``general_3d_f32/f64`` (K10), ``general_2d_f32/f64`` (K11),
     ``prog_tables_f32/f64`` (the program tables of K1″, K3″ and K6″), ``error_string``,
     plus where it came from (``path``), the build's wall time in seconds
@@ -137,6 +140,10 @@ class Library:
         terms_args = [vp] * 3 + [i64] * 3 + [vp, vp]
         band_terms_args = [vp] * 5 + [i64] * 7 + [vp, vp]
         general_2d_args = [vp] * 5 + [i64] * 2 + [f64] * 5 + [vp]
+        band_stage_2d_args = [vp] * 7 + [i64] * 5 + [f64] * 5 + [vp]
+        band_terms_2d_args = [vp] * 5 + [i64] * 5 + [vp, vp]
+        band_ghost_2d_args = [vp] + [i64] * 2 + [vp] * 4 + [vp]
+        retube_2d_args = [vp] * 5 + [i64] * 7 + [vp]
         axis_args = [vp] + [i64] * 3 + [ci] + [vp] * 3 + [vp]
         shell_args = [vp] + [i64] * 3 + [vp] * 4 + [vp]
         names = {"stage": ("lsm_weno_stage", stage_args),
@@ -156,7 +163,12 @@ class Library:
                  "band_stage_terms": ("lsm_band_stage_terms", band_terms_args),
                  "band_stage_prog": ("lsm_band_stage_prog", band_terms_args),
                  "band_refresh": ("lsm_refresh_band_ghosts", band_ghost_args),
-                 "band_retube": ("lsm_band_retube", retube_args)}
+                 "band_retube": ("lsm_band_retube", retube_args),
+                 "band_stage_2d": ("lsm_band_stage_2d", band_stage_2d_args),
+                 "band_stage_terms_2d": ("lsm_band_stage_terms_2d", band_terms_2d_args),
+                 "band_stage_prog_2d": ("lsm_band_stage_prog_2d", band_terms_2d_args),
+                 "band_refresh_2d": ("lsm_refresh_band_ghosts_2d", band_ghost_2d_args),
+                 "band_retube_2d": ("lsm_band_retube_2d", retube_2d_args)}
         for attr, (name, args) in names.items():
             for suffix in ("f32", "f64"):
                 fn = getattr(lib, f"{name}_{suffix}")
@@ -176,6 +188,9 @@ class Library:
         lib.lsm_band_retube_smem.argtypes = [i64] * 5
         lib.lsm_band_retube_smem.restype = i64
         self.band_retube_smem = lib.lsm_band_retube_smem
+        lib.lsm_band_retube_smem_2d.argtypes = [i64] * 4
+        lib.lsm_band_retube_smem_2d.restype = i64
+        self.band_retube_smem_2d = lib.lsm_band_retube_smem_2d
         lib.lsm_error_string.argtypes = [ci]
         lib.lsm_error_string.restype = ctypes.c_char_p
         self._lib = lib

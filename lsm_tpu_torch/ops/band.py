@@ -32,6 +32,20 @@ the on-card comparison in ``chip_smoke.py``):
   whose backward is ``jax.vjp`` of its dense composite: there is no TPU
   kernel of the band adjoint).
 
+A 2D band keeps its own padded ``(n0+6, n1+6)`` layout, the uint8 mask
+``(n0, n1)``, tiles ``(B0, B1)`` over the tile grid ``(G0, G1)`` and streams
+packed ``(capacity, B0, B1)``; every function here takes either. The 2D
+stage computes JAX's 2D band function, the 3D stage of the ``(1, n0, n1)``
+embedding (``lsm_tpu.integrators.band_fused``), so its term list is the
+embedding's as :func:`~lsm_tpu_torch.integrators.fused.term_entries` gives
+it for a 2D field (an advection velocity of three components, the first
+zero; programs of the three embedding coordinates), while ``spacing`` and
+``where`` are the 2D field's (the embedding's dummy axis takes the smallest
+spacing, so the eikonal smoothing reads ``min(spacing)`` of the field, and
+coordinate 0). The kernels' 2D entries run it with axis 0 compiled out; the
+plain versions run the 2D stage of the plain stencils, whose sums skip the
+embedding's exact-zero axis-0 terms.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises, and counts its launches in ``launches`` (K6
 also those of its term-list entry in ``kinds_launches`` and those with a
@@ -86,15 +100,15 @@ def tile_grid(shape, tiles) -> Tuple[int, ...]:
 
 
 def tile_activity(compute_mask: torch.Tensor, tiles) -> torch.Tensor:
-    """``(G0, G1, G2)`` bool: does the tile hold any compute-band node?"""
+    """``(G0, G1[, G2])`` bool: does the tile hold any compute-band node?"""
     G = tile_grid(compute_mask.shape, tiles)
     m = (compute_mask != 0).to(torch.uint8)
     pad = []
     for n, g, b in reversed(list(zip(compute_mask.shape, G, tiles))):
         pad += [0, g * b - n]
     m = F.pad(m, pad)
-    m = m.reshape(G[0], tiles[0], G[1], tiles[1], G[2], tiles[2])
-    return m.amax(dim=(1, 3, 5)) != 0
+    m = m.reshape([x for g, b in zip(G, tiles) for x in (g, b)])
+    return m.amax(dim=tuple(range(1, 2 * len(G), 2))) != 0
 
 
 def compact_ids(flags: torch.Tensor, capacity: int):
@@ -128,21 +142,26 @@ def scatter_activity(act: torch.Tensor, cids: torch.Tensor, flags: torch.Tensor)
     return flat[:-1].reshape(act.shape)
 
 
-def refresh_flags_from_activity(act: torch.Tensor, layers=((1, 1),) * 3) -> torch.Tensor:
+def refresh_flags_from_activity(act: torch.Tensor, layers=None) -> torch.Tensor:
     """``int32[2]`` gates for :func:`refresh_band_ghosts_fast` from a tile
     activity grid: a ghost shell changes only when a visited tile touches its
     face. ``layers[d] = (lo, hi)`` is how many tile layers at each face of
-    axis ``d`` hold the nodes the ghosts are built from (1 when a tile is at
-    least that deep). ``flags[0]`` gates axes 0 and 1; ``flags[1]`` gates
-    axis 2 and includes ``flags[0]``: the axis-2 ghosts of the axis-0/1 ghost
-    rows read those rows."""
+    axis ``d`` hold the nodes the ghosts are built from (default 1: a tile
+    at least that deep). 3D: ``flags[0]`` gates axes 0 and 1; ``flags[1]``
+    gates axis 2 and includes ``flags[0]``: the axis-2 ghosts of the axis-0/1
+    ghost rows read those rows. 2D: ``flags[0]`` gates axis 0, ``flags[1]``
+    axis 1 and includes ``flags[0]``, for the same reason."""
     a = act != 0
+    layers = ((1, 1),) * a.ndim if layers is None else layers
 
     def face(ax):
         lo, hi = layers[ax]
         n = a.shape[ax]
         return a.narrow(ax, 0, min(lo, n)).any() | a.narrow(ax, n - min(hi, n), min(hi, n)).any()
 
+    if a.ndim == 2:
+        f0 = face(0)
+        return torch.stack([f0, face(1) | f0]).to(torch.int32)
     f01 = face(0) | face(1)
     return torch.stack([f01, face(2) | f01]).to(torch.int32)
 
@@ -150,32 +169,40 @@ def refresh_flags_from_activity(act: torch.Tensor, layers=((1, 1),) * 3) -> torc
 def _tile_axes(ids: torch.Tensor, shape, tiles):
     """Per axis, the node indices of the dispatched tiles, int64 shaped
     ``(capacity, B0, 1, 1)``, ``(capacity, 1, B1, 1)``, ``(capacity, 1, 1,
-    B2)`` (an empty slot decodes as tile 0; a ragged edge runs past ``n``)."""
+    B2)`` (2D: ``(capacity, B0, 1)``, ``(capacity, 1, B1)``; an empty slot
+    decodes as tile 0; a ragged edge runs past ``n``)."""
     G = tile_grid(shape, tiles)
-    safe = ids.clamp(min=0).long()
-    tile = (safe // (G[1] * G[2]), (safe // G[2]) % G[1], safe % G[2])
-    view = ((-1, tiles[0], 1, 1), (-1, 1, tiles[1], 1), (-1, 1, 1, tiles[2]))
-    return [(tile[d][:, None] * tiles[d] + torch.arange(tiles[d], device=ids.device))
-            .reshape(view[d]) for d in range(3)]
+    nd = len(G)
+    rest = ids.clamp(min=0).long()
+    tile = [None] * nd
+    for d in reversed(range(nd)):  # row-major over the tile grid
+        tile[d], rest = rest % G[d], rest // G[d]
+    out = []
+    for d in range(nd):
+        view = [-1] + [1] * nd
+        view[1 + d] = tiles[d]
+        out.append((tile[d][:, None] * tiles[d] + torch.arange(tiles[d], device=ids.device))
+                   .reshape(view))
+    return out
 
 
 def tile_index(ids: torch.Tensor, shape, tiles):
     """Per dispatch slot and tile node: ``(flat, valid)``, both
-    ``(capacity, B0, B1, B2)``; ``flat`` the node's row-major index in the
+    ``(capacity, *tiles)``; ``flat`` the node's row-major index in the
     interior (clamped to the grid), ``valid`` false for empty slots and nodes
     past a ragged edge."""
-    idx, valid = _tile_axes(ids, shape, tiles), (ids >= 0).reshape(-1, 1, 1, 1)
+    idx = _tile_axes(ids, shape, tiles)
+    valid = (ids >= 0).reshape([-1] + [1] * len(idx))
+    flat = 0
     for d, i in enumerate(idx):
         valid = valid & (i < shape[d])
-        idx[d] = i.clamp(max=shape[d] - 1)
-    flat = (idx[0] * shape[1] + idx[1]) * shape[2] + idx[2]
+        flat = flat * shape[d] + i.clamp(max=shape[d] - 1)
     return flat, valid
 
 
 def tile_coords(ids: torch.Tensor, shape, tiles, spacing, lo, dtype):
     """Broadcastable node coordinates ``lo + i*h`` of the dispatched tiles
-    (shapes ``(capacity, B0, 1, 1)``, ``(capacity, 1, B1, 1)``,
-    ``(capacity, 1, 1, B2)``): the coordinates K1 evaluates a callable
+    (shapes as :func:`_tile_axes`): the coordinates K1 evaluates a callable
     velocity at (:func:`~lsm_tpu_torch.ops.weno_v2.node_coords`), per slot."""
     return tuple(lo[d] + i.to(dtype) * float(spacing[d])
                  for d, i in enumerate(_tile_axes(ids, shape, tiles)))
@@ -184,12 +211,13 @@ def tile_coords(ids: torch.Tensor, shape, tiles, spacing, lo, dtype):
 def dispatched_cells(ids: torch.Tensor, shape, tiles) -> torch.Tensor:
     """Interior-shaped bool: the nodes of the tiles on the dispatch list."""
     G = tile_grid(shape, tiles)
-    disp = torch.zeros(G[0] * G[1] * G[2] + 1, dtype=torch.bool, device=ids.device)
-    disp[torch.where(ids >= 0, ids, G[0] * G[1] * G[2]).long()] = True
+    total = math.prod(G)
+    disp = torch.zeros(total + 1, dtype=torch.bool, device=ids.device)
+    disp[torch.where(ids >= 0, ids, total).long()] = True
     cells = disp[:-1].reshape(G)
-    for d in range(3):
+    for d in range(len(G)):
         cells = cells.repeat_interleave(tiles[d], dim=d)
-    return cells[: shape[0], : shape[1], : shape[2]]
+    return cells[tuple(slice(0, n) for n in shape)]
 
 
 # -- argument checks ------------------------------------------------------------------
@@ -210,11 +238,65 @@ def _check_band(band: torch.Tensor, shape, like: torch.Tensor):
 
 
 def _check_tiles(shape, tiles):
-    if len(shape) != 3 or len(tiles) != 3 or any(int(b) < 1 for b in tiles):
-        raise ValueError(f"the band kernels are 3D with positive tiles, got {shape}, {tiles}")
+    if len(shape) not in (2, 3) or len(tiles) != len(shape) or any(int(b) < 1 for b in tiles):
+        raise ValueError(f"the band kernels take a 2D or 3D shape with one positive tile size "
+                         f"per axis, got {shape}, {tiles}")
+
+
+# -- the 2D band: the (1, n0, n1) embedding's term list on the 2D layout -------------
+
+
+def embedding_2d(spacing, where: Optional[v2.Where]):
+    """``(spacing, where)`` of the ``(1, n0, n1)`` embedding of a 2D band's
+    ``spacing`` and ``where`` (its last two coordinates): the dummy axis
+    takes the smallest spacing and coordinate 0, as
+    :func:`~lsm_tpu_torch.integrators.fused.embed_2d`. The kernels' term
+    table is built from these."""
+    h = tuple(float(x) for x in spacing)
+    w = where or v2.Where()
+    return (min(h), *h), v2.Where((0.0, *w.lo[-2:]), (0.0, *w.origin[-2:]), w.t, w.value)
+
+
+def dense_terms(terms, shape, spacing, where: Optional[v2.Where], like: torch.Tensor, dense):
+    """A band stage's term list for the plain stencils, each stream through
+    ``dense`` (tile-packed to grid-shaped). A 2D band's (the embedding's)
+    becomes 2D: a program is evaluated at the embedding's nodes of
+    ``shape`` (its graph kept for a tensor ``where.t``) into a stream, an
+    advection term loses its zero component 0. Constant and
+    sign-recomputing terms pass through."""
+    if len(shape) != 2:
+        return tuple((spec, tuple(dense(a) for a in arrs)) for spec, arrs in terms)
+    spacing3, where3 = embedding_2d(spacing, where)
+    out = []
+    for spec, arrs in terms:
+        if spec.coef_kind == "program":
+            arrs = tuple(c[0] for c in v2.program_values(
+                spec, (1, *shape), spacing3, where3.lo, where3.t, like, where3.origin))
+        elif spec.coef_kind == "stream":
+            arrs = tuple(dense(a) for a in arrs)
+        else:
+            out.append((spec, tuple(arrs)))
+            continue
+        if spec.kind == "advection":
+            arrs = arrs[1:]
+        out.append((v2.TermSpec(spec.kind, "stream", None, len(arrs)), arrs))
+    return tuple(out)
 
 
 # -- K6: the active-tile stage ---------------------------------------------------------
+
+
+def _as_band_terms(terms, shape):
+    """A band stage's normalised term list: velocity tensors, one per axis,
+    stand for one streamed advection term (a 2D band's gain the
+    embedding's zero component 0)."""
+    terms = tuple(terms)
+    if terms and all(isinstance(x, torch.Tensor) for x in terms):
+        if len(terms) != len(shape):
+            raise ValueError(f"the band stage needs {len(shape)} velocity components")
+        if len(shape) == 2:
+            terms = (torch.zeros_like(terms[0]), *terms)
+    return v2.as_terms(terms)
 
 
 def band_stage_plain(P, out, ids, band, terms, coeffs, aux, spacing, shape, tiles,
@@ -231,7 +313,7 @@ def band_stage_plain(P, out, ids, band, terms, coeffs, aux, spacing, shape, tile
         d.view(-1)[flat[valid]] = packed[valid]
         return d
 
-    terms = tuple((spec, tuple(dense(a) for a in arrs)) for spec, arrs in v2.as_terms(terms))
+    terms = dense_terms(_as_band_terms(terms, shape), shape, spacing, where, P, dense)
     stage = v2._stage_interior(P, terms, coeffs, aux, spacing, shape, where)
     new = torch.where(band != 0, stage, v2.unpack_padded(P, shape))
     o = v2.unpack_padded(out, shape)
@@ -248,12 +330,14 @@ def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torc
     ``out`` the ping-pong target (padded buffers, written in place and
     returned; ghost shells untouched), ``ids`` the int32 dispatch list,
     ``band`` the uint8 combined mask, ``terms`` K1's term list (or three
-    velocity tensors) with every stream tile-packed ``(capacity, B0, B1,
-    B2)``, ``aux`` a padded buffer or None, ``coeffs`` ``(alpha, beta,
+    velocity tensors) with every stream tile-packed ``(capacity, *tiles)``,
+    ``aux`` a padded buffer or None, ``coeffs`` ``(alpha, beta,
     gamma)`` as numbers; program terms (K6″) at ``where`` as in
-    :func:`~lsm_tpu_torch.ops.weno_v2.fused_stage`. CUDA tensors go to
-    ``csrc/band_stage.cu`` (the advection-only stage to its own entries),
-    CPU tensors to :func:`band_stage_plain`.
+    :func:`~lsm_tpu_torch.ops.weno_v2.fused_stage`. A 2D band (module
+    docstring) takes the embedding's term list, or its two velocity tensors.
+    CUDA tensors go to ``csrc/band_stage.cu`` (the advection-only stage to
+    its own entries, a 2D band to the 2D entries), CPU tensors to
+    :func:`band_stage_plain`.
     """
     shape, tiles = tuple(shape), tuple(int(b) for b in tiles)
     _check_tiles(shape, tiles)
@@ -263,10 +347,7 @@ def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torc
         raise ValueError("the band stage writes a ping-pong target: out must not be P")
     _check_ids(ids, "ids", P)
     _check_band(band, shape, P)
-    terms = tuple(terms)
-    if all(isinstance(x, torch.Tensor) for x in terms) and len(terms) != 3:
-        raise ValueError("the band stage needs 3 velocity components")
-    terms = v2.as_terms(terms)
+    terms = _as_band_terms(terms, shape)
     v2.check_terms(terms, P, (ids.shape[0], *tiles))
     if aux is not None:
         v2._check(aux, "aux", v2.padded_shape(shape), like=P)
@@ -279,7 +360,10 @@ def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torc
     aux_ptr = None if aux is None else aux.data_ptr()
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if v2.is_advection_only(terms) and terms[0][0].coef_kind == "stream":
+        if len(shape) == 2:
+            code = _band_stage_2d(lib, f32, P, aux_ptr, out, ids, band, terms, coeffs, spacing,
+                                  shape, tiles, where, stream)
+        elif v2.is_advection_only(terms) and terms[0][0].coef_kind == "stream":
             u = terms[0][1]
             alpha, beta, gamma = (float(c) for c in coeffs)
             code = (lib.band_stage_f32 if f32 else lib.band_stage_f64)(
@@ -296,13 +380,38 @@ def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torc
                       ids.shape[0], *shape, *tiles, ctypes.addressof(tab), stream)
     v2._raise_on(code, lib, "band_stage kernel")
     bump(band_stage, launches=1, kinds_launches=not v2.is_advection_only(terms),
-         program_launches=any(spec.coef_kind == "program" for spec, _ in terms))
+         program_launches=any(spec.coef_kind == "program" for spec, _ in terms),
+         launches_2d=len(shape) == 2)
     return out
 
 
 band_stage.launches = 0
 band_stage.kinds_launches = 0  # of the launches, those of the term-list entry
 band_stage.program_launches = 0  # of the launches, those with a program term (K6″)
+band_stage.launches_2d = 0  # of the launches, those of a 2D band
+
+
+def _band_stage_2d(lib, f32, P, aux_ptr, out, ids, band, terms, coeffs, spacing, shape, tiles,
+                   where, stream) -> int:
+    """Launch K6's 2D entry (``csrc/band_stage.cu``): the advection-only
+    streamed stage with its two 2D velocity components, else the term table
+    (K6′) or program (K6″) entry with the embedding's table."""
+    args = (ids.data_ptr(), ids.shape[0], *shape, *tiles)
+    if v2.is_advection_only(terms) and terms[0][0].coef_kind == "stream":
+        u = terms[0][1]
+        alpha, beta, gamma = (float(c) for c in coeffs)
+        return (lib.band_stage_2d_f32 if f32 else lib.band_stage_2d_f64)(
+            P.data_ptr(), u[1].data_ptr(), u[2].data_ptr(), aux_ptr, out.data_ptr(),
+            band.data_ptr(), *args, *(1.0 / float(h) for h in spacing), alpha, beta, gamma,
+            stream)
+    spacing3, where3 = embedding_2d(spacing, where)
+    tab = v2.stage_table(terms, spacing3, coeffs, where3, (1, *shape), P)
+    if v2.is_advection_only(terms):
+        fn = lib.band_stage_prog_2d_f32 if f32 else lib.band_stage_prog_2d_f64
+    else:
+        fn = lib.band_stage_terms_2d_f32 if f32 else lib.band_stage_terms_2d_f64
+    return fn(P.data_ptr(), aux_ptr, out.data_ptr(), band.data_ptr(), *args,
+              ctypes.addressof(tab), stream)
 
 
 def band_stage_reference(padded, out_init, compute_mask, term_specs_and_streams, coeffs, t,
@@ -349,9 +458,10 @@ def band_stage_refresh_plain(P, out_init, ids, band, terms, coeffs, aux, bcs, sp
         return d.view(-1).index_put((idx,), packed[valid]).view(shape)
 
     where = where or v2.Where()
-    dense_terms = tuple((spec, tuple(dense(a) for a in arrs)) for spec, arrs in terms)
-    out = band_stage_reference(P, out_init, band, dense_terms, coeffs, where.t, aux, bcs,
-                               spacing, shape, where.lo, tiles, ids=ids, origin=where.origin)
+    out = band_stage_reference(P, out_init, band,
+                               dense_terms(terms, shape, spacing, where, P, dense), coeffs,
+                               where.t, aux, bcs, spacing, shape, where.lo, tiles, ids=ids,
+                               origin=where.origin)
     return v2.refresh_ghosts(out, bcs, shape)
 
 
@@ -444,11 +554,13 @@ def band_step_stage(P, out, ids, band, flags, terms, coeffs, aux, bcs, spacing, 
 
 def refresh_band_ghosts_plain(padded: torch.Tensor, bcs, shape, flags) -> torch.Tensor:
     """Plain version of K7: K2's phases (axis 0, 1, then 2) in place, axes 0
-    and 1 only where ``flags[0]`` is set, axis 2 only where ``flags[1]`` is.
+    and 1 only where ``flags[0]`` is set, axis 2 only where ``flags[1]`` is
+    (2D: axis 0 where ``flags[0]`` is, axis 1 where ``flags[1]`` is).
     Returns ``padded``."""
-    f01, f2 = (int(f) for f in flags.tolist())
-    for ax in range(3):
-        if (f01 if ax < 2 else f2):
+    f0, f1 = (int(f) for f in flags.tolist())
+    gates = (f0, f1) if len(shape) == 2 else (f0, f0, f1)
+    for ax, gate in enumerate(gates):
+        if gate:
             v2.refresh_axis_plain(padded, bcs, shape, ax)
     return padded
 
@@ -460,13 +572,13 @@ def refresh_band_ghosts_fast(padded: torch.Tensor, bcs, shape, flags: torch.Tens
     is an int32 ``(2,)`` tensor on the buffer's device
     (:func:`refresh_flags_from_activity`); the kernel reads it on the card,
     so gating needs no host synchronisation. CUDA tensors go to
-    ``csrc/refresh_ghosts.cu`` (three launches, each returning at once when
-    its flag is off), CPU tensors to :func:`refresh_band_ghosts_plain`.
-    Returns ``padded``.
+    ``csrc/refresh_ghosts.cu`` (three launches, a 2D band's two, each
+    returning at once when its flag is off), CPU tensors to
+    :func:`refresh_band_ghosts_plain`. Returns ``padded``.
     """
     shape = tuple(shape)
-    if len(shape) != 3:
-        raise ValueError(f"the band ghost refresh is 3D only, got shape {shape}")
+    if len(shape) not in (2, 3):
+        raise ValueError(f"the band ghost refresh takes a 2D or 3D shape, got {shape}")
     v2._check(padded, "padded", v2.padded_shape(shape))
     if (flags.dtype != torch.int32 or tuple(flags.shape) != (2,) or not flags.is_contiguous()
             or flags.device != padded.device):
@@ -476,17 +588,22 @@ def refresh_band_ghosts_fast(padded: torch.Tensor, bcs, shape, flags: torch.Tens
     if padded.device.type == "cpu":
         return refresh_band_ghosts_plain(padded, bcs, shape, flags)
     lib = load_library()
-    fn = lib.band_refresh_f32 if padded.dtype == torch.float32 else lib.band_refresh_f64
+    f32 = padded.dtype == torch.float32
+    if len(shape) == 2:
+        fn = lib.band_refresh_2d_f32 if f32 else lib.band_refresh_2d_f64
+    else:
+        fn = lib.band_refresh_f32 if f32 else lib.band_refresh_f64
     with torch.cuda.device(padded.device):
         code = fn(padded.data_ptr(), *shape, ctypes.addressof(kinds),
                   ctypes.addressof(degrees), ctypes.addressof(weights), flags.data_ptr(),
                   torch.cuda.current_stream().cuda_stream)
     v2._raise_on(code, lib, "refresh_band_ghosts kernel")
-    bump(refresh_band_ghosts_fast, launches=1)
+    bump(refresh_band_ghosts_fast, launches=1, launches_2d=len(shape) == 2)
     return padded
 
 
 refresh_band_ghosts_fast.launches = 0
+refresh_band_ghosts_fast.launches_2d = 0  # of the launches, those of a 2D band
 
 
 # -- K8: the incremental re-tube ---------------------------------------------------------
@@ -523,7 +640,8 @@ def band_retube_incremental(P: torch.Tensor, band: torch.Tensor, cand: torch.Ten
     neighbours, with tiles at least ``1 + nlayers + chalo`` deep). Returns
     ``int32[len(cand)]`` activity flags. CUDA tensors go to
     ``csrc/band_retube.cu`` (two launches: recompute into a stash of
-    ``len(cand) * B0*B1*B2`` bytes, then copy back), CPU tensors to
+    ``len(cand) * B0*B1*B2`` bytes, then copy back; a 2D band to the 2D
+    entry, ``len(cand) * B0*B1`` bytes), CPU tensors to
     :func:`band_retube_plain`. The band carries no gradient.
     """
     shape, tiles = tuple(shape), tuple(int(b) for b in tiles)
@@ -534,22 +652,27 @@ def band_retube_incremental(P: torch.Tensor, band: torch.Tensor, cand: torch.Ten
     if P.device.type == "cpu":
         return band_retube_plain(P, band, cand, nlayers, chalo, shape, tiles)
     lib = load_library()
-    fn = lib.band_retube_f32 if P.dtype == torch.float32 else lib.band_retube_f64
+    f32 = P.dtype == torch.float32
+    if len(shape) == 2:
+        fn = lib.band_retube_2d_f32 if f32 else lib.band_retube_2d_f64
+        smem = lib.band_retube_smem_2d(*tiles, nlayers, chalo)
+    else:
+        fn = lib.band_retube_f32 if f32 else lib.band_retube_f64
+        smem = lib.band_retube_smem(*tiles, nlayers, chalo)
     ncand = cand.shape[0]
-    smem = lib.band_retube_smem(*tiles, nlayers, chalo)
     if smem > 227 * 1024:
         raise ValueError(f"tiles {tiles} with nlayers={nlayers} need {smem} bytes of shared "
                          "memory for the re-tube; a block has 232448")
-    stash = torch.empty(ncand * tiles[0] * tiles[1] * tiles[2], dtype=torch.uint8,
-                        device=P.device)
+    stash = torch.empty(ncand * math.prod(tiles), dtype=torch.uint8, device=P.device)
     flags = torch.empty(ncand, dtype=torch.int32, device=P.device)
     with torch.cuda.device(P.device):
         code = fn(P.data_ptr(), band.data_ptr(), cand.data_ptr(), stash.data_ptr(),
                   flags.data_ptr(), ncand, *shape, *tiles, int(nlayers), int(chalo),
                   torch.cuda.current_stream().cuda_stream)
     v2._raise_on(code, lib, "band_retube kernel")
-    bump(band_retube_incremental, launches=1)
+    bump(band_retube_incremental, launches=1, launches_2d=len(shape) == 2)
     return flags
 
 
 band_retube_incremental.launches = 0
+band_retube_incremental.launches_2d = 0  # of the launches, those of a 2D band

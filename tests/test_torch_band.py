@@ -497,7 +497,8 @@ def test_band_routing_names_roadmap_items():
         with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
             tband.FusedBandStepper(terms, nb, T.RK3())
     # on CUDA the upwind scheme and an object that is no term kind take the
-    # general path (None); Extrapolation(8) waits for its item, as does a 2D band
+    # general path (None); Extrapolation(8) waits for its item; a 2D band takes
+    # the band stepper (its 2D entries)
     for terms, nb, item in cases:
         eq = T.LevelSetEquation(terms=terms, ic=nb)
         if item == "K2 degree":
@@ -508,9 +509,10 @@ def test_band_routing_names_roadmap_items():
     grid2 = T.Grid((0.0, 0.0), (1.0, 1.0), (16, 16))
     nb2 = T.NarrowBandField(torch.linspace(-1, 1, 16, dtype=torch.float64)[:, None].expand(16, 16)
                             .contiguous(), grid2, T.Extrapolation(1))
-    assert "ROADMAP.md queue 2, 2D band" in tband.unsupported_reason((vel,), nb2, T.RK3())
-    with pytest.raises(NotImplementedError, match="2D band"):
-        T.LevelSetEquation(terms=vel, ic=nb2)._cuda_stepper(False, "auto")
+    vel2 = T.AdvectionTerm(lambda xs, t: (-xs[1], xs[0]))
+    assert tband.unsupported_reason((vel2,), nb2, T.RK3()) is None
+    stepper = T.LevelSetEquation(terms=vel2, ic=nb2)._cuda_stepper(False, "auto")
+    assert isinstance(stepper, tband.FusedBandStepper) and stepper.tiles == tband.TILES_2D
     # hooks and fast="off" take the general path on CUDA too (K10 over the
     # band's dense values, then the plain re-tube)
     eq = T.LevelSetEquation(terms=vel, ic=tnb)

@@ -161,8 +161,9 @@ def test_rollout_general_path_gradients_match_jax():
 def test_cuda_route_table():
     """What ``_cuda_stepper`` does with each configuration: hooks,
     ``fast="off"``, the upwind scheme and an object that is no term kind take
-    the general path (``None``); a dense 2D field takes the fused stepper;
-    a 2D band and Extrapolation(8) raise naming their ROADMAP items;
+    the general path (``None``); a dense 2D field takes the fused stepper,
+    a 2D band the band stepper; Extrapolation(8) raises naming its ROADMAP
+    item;
     ``update_func`` takes the fused stepper on a dense field and the general
     path on a band, as in JAX."""
     _, tphi = _dense_pair((8, 8, 8))
@@ -191,8 +192,9 @@ def test_cuda_route_table():
     upd = T.AdvectionTerm(_velf, update_func=lambda v, p, t: v)
     assert isinstance(route(upd, tphi), tfused.FusedStepper)
     assert route(upd, tnb) is None
+    band2 = route(T.AdvectionTerm(vel2), T.NarrowBandField.from_field(phi2))
+    assert isinstance(band2, T.integrators.band_fused.FusedBandStepper) and band2.shape == (16, 16)
     refusals = [
-        ((T.AdvectionTerm(vel2),), T.NarrowBandField.from_field(phi2), "2D band"),
         ((adv,), tphi.with_bcs(T.Extrapolation(8), replace=True), "K2 degree"),
     ]
     for terms, ic, item in refusals:

@@ -9,9 +9,15 @@ instructions without their addresses. A kernel whose instructions are equal
 in both trees was compiled to the same code, so a change elsewhere in its
 source file or its headers left it alone.
 
+A kernel that gained a template argument has another mangled name; ``OLD=NEW``
+arguments after the trees replace ``NEW`` by ``OLD`` in the names of the
+second tree's kernels that the first tree lacks, so each old instantiation is
+compared with the one that replaced it (``E=Li0EE``: a trailing ``int``
+template argument whose value 0 keeps the old code).
+
 From the repository root, on a machine with the CUDA toolkit:
     git archive <parent> | tar -x -C _archive/parent
-    python3 tools/sass_diff.py _archive/parent .
+    python3 tools/sass_diff.py _archive/parent . [OLD=NEW ...]
 """
 
 from __future__ import annotations
@@ -53,8 +59,11 @@ def kernels(lib: str) -> dict:
     return out
 
 
-def main(first: str, second: str) -> int:
+def main(first: str, second: str, *renames: str) -> int:
     a, b = kernels(library(first)), kernels(library(second))
+    for rename in renames:
+        old, new = rename.split("=")
+        b = {name if name in a else name.replace(new, old): code for name, code in b.items()}
     for name in sorted(set(a) | set(b)):
         if name not in a or name not in b:
             state = f"only in {first if name in a else second}"
@@ -68,4 +77,4 @@ def main(first: str, second: str) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(*sys.argv[1:3]))
+    sys.exit(main(*sys.argv[1:]))
