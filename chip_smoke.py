@@ -12,7 +12,9 @@ phases (a partial run: no kernel record):
              ``lsm.sample`` with no ``device`` lands on the card.
 2. build   — nvcc builds the kernels from ``lsm_tpu_torch/csrc`` (sm_90a, one
              process per source); prints the build time and ptxas
-             register/spill counts.
+             register/spill counts, and a summary line per stage-adjoint
+             kernel (K3, K3'', K3' and their reduction: registers, spills,
+             static shared memory).
 3. k2      — ghost-refresh kernel vs its plain version, five BC cases.
 4. k1      — stage kernel vs its plain version, f32 (and f64).
 5. k4k5    — ghost-cotangent fold (K4) vs its plain version and the autograd
@@ -54,16 +56,17 @@ phases (a partial run: no kernel record):
              inputs (Zalesak field, rotation velocity).
 9. k3_512  — K3 and K3'' (the rotation in-kernel) at 512^3 on the main
              path's inputs: a 64^3 sub-box vs the f64 plain backward, the
-             whole buffer finite; K4 and K5 bit for bit vs their plain
-             versions at 512^3, on a random cotangent and on K3's dP.
+             whole buffer finite, a second launch on the same inputs equal
+             bit for bit; K4 and K5 bit for bit vs their plain versions at
+             512^3, on a random cotangent and on K3's dP.
 10. band_512 — the band bench's 512^3 sphere band, a few FE steps through
              K6-K8 and through their plain versions, the rotation in-kernel
              (K6'') and on the stream route (K6).
     kinds_512 — K1' vs plain at 512^3 on configs A and B's inputs, K6' on
              config C's and on A's terms over the off-axis sphere band.
     k3kinds_512 — K3' at 512^3 on config A's and (dense) config C's inputs:
-             a 64^3 sub-box vs the f64 plain K3'; K3' and its plain version
-             timed (the plain at 256^3).
+             a 64^3 sub-box vs the f64 plain K3', a second launch equal bit
+             for bit; K3' and its plain version timed (the plain at 256^3).
 11. slice  — 64^3 Zalesak RK3 ``integrate``: CPU (plain) vs card (kernels).
 12. main   — the 512^3 Zalesak RK3 main path through
              ``LevelSetEquation.integrate`` as the JAX bench runs it, the
@@ -568,6 +571,27 @@ def _sub_box(n, B, centre):
     return min(max(a, 6), n - B)
 
 
+def same_bits(first, again):
+    """Whether two launches' outputs (tensors, tuples of them or None) are
+    equal bit for bit."""
+    if isinstance(first, (tuple, list)):
+        return len(first) == len(again) and all(same_bits(a, b) for a, b in zip(first, again))
+    if first is None or again is None:
+        return first is again
+    return bool(torch.equal(first.view(torch.int8), again.view(torch.int8)))
+
+
+def repeat_check(phase, label, call, first):
+    """Launch ``call`` again on the same inputs and require the bits of
+    ``first``: the kernels sum in a fixed order, with no atomics."""
+    again = call()
+    torch.cuda.synchronize()
+    equal = same_bits(first, again)
+    log(phase, f"{label}: a second launch on the same inputs gives equal bits: {equal}")
+    if not equal:
+        raise AssertionError(f"{label}: two launches on the same inputs differ")
+
+
 def phase_k3_512(dev, res):
     """K3 at 512^3 on the main path's inputs, stage 1 and an RK3 stage with
     aux: a sub-box (around the slot, where u1 == 0) against the f64 plain
@@ -595,7 +619,10 @@ def phase_k3_512(dev, res):
     for label, src, aux, coeffs in (("stage 1", P, None, (0.0, 1.0, dt)),
                                     ("RK3 stage 2", P1, P, (0.75, 0.25, 0.25 * dt))):
         gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
-        dP, du, dcoef, daux = bwd.stage_backward(src, u, coeffs, aux, gf, sp, shape)
+        call = lambda: bwd.stage_backward(src, u, coeffs, aux, gf, sp, shape)
+        dP, du, dcoef, daux = first = call()
+        repeat_check("k3_512", f"K3 {label}", call, first)
+        del first
         finite = all(bool(torch.isfinite(t).all()) for t in (dP, *du, dcoef)) and (
             daux is None or bool(torch.isfinite(daux).all()))
         sub = (B + 6,) * 3
@@ -630,8 +657,11 @@ def phase_k3_512(dev, res):
     for label, src, aux, coeffs in (("stage 1", P, None, (0.0, 1.0, dt)),
                                     ("RK3 stage 2", P1, P, (0.75, 0.25, 0.25 * dt))):
         gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
-        dP, du, dcoef, daux = bwd.stage_backward(src, prog, coeffs, aux, gf, sp, shape,
-                                                 where=v2.Where(grid.lo))
+        call = lambda: bwd.stage_backward(src, prog, coeffs, aux, gf, sp, shape,
+                                          where=v2.Where(grid.lo))
+        dP, du, dcoef, daux = first = call()
+        repeat_check("k3_512", f"K3'' {label}", call, first)
+        del first
         finite = all(bool(torch.isfinite(t).all()) for t in (dP, dcoef)) and (
             daux is None or bool(torch.isfinite(daux).all()))
         d = lambda t: None if t is None else t[box].double().contiguous()
@@ -2031,7 +2061,10 @@ def phase_k3kinds_512(dev, res):
         G = torch.randn(v2.padded_shape(shape), generator=gen, device=dev)
         gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
         coeffs = (0.0, 1.0, dt)
-        dP, ds, dcoef, _ = bwd.stage_backward_terms(P, terms, coeffs, None, gf, sp, shape)
+        call = lambda: bwd.stage_backward_terms(P, terms, coeffs, None, gf, sp, shape)
+        dP, ds, dcoef, _ = first = call()
+        repeat_check("k3kinds_512", f"K3' config {label}", call, first)
+        del first
         finite = all(bool(torch.isfinite(x).all()) for x in (dP, *ds, dcoef))
         # on the surface: the torus's at y = -0.7, off its core circle
         # (|grad phi| -> 0 there, and curvature's adjoint with it); the sphere's
@@ -4045,6 +4078,8 @@ def main(argv=()) -> int:
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("build", line.strip())
+    for name, info in stage_adjoint_ptxas(lib.log):
+        log("build", f"stage adjoint {name}: {info}")
     res = {"t": {}, "launches": {}, "mem": {}}
     if argv:  # a partial run: what the skipped phases would have recorded starts at 0
         res = collections.defaultdict(float, res)
@@ -4090,6 +4125,34 @@ def main(argv=()) -> int:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def stage_adjoint_ptxas(build_log):
+    """``(kernel, "N registers, S B spill stores, M B static smem")`` of each
+    kernel of ``csrc/stage_backward.cu`` in nvcc's ``-Xptxas -v`` output (the
+    tiles' dynamic shared memory is set at launch)."""
+    names = {"stage_bwd_kernel": "K3", "stage_bwd_terms_kernel": "K3'",
+             "stage_bwd_reduce_kernel": "reduction"}
+    out, cur, spill = [], None, ""
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            cur = None
+            for key, label in names.items():
+                if "stage_backward_cu" in line and key + "I" in line:
+                    m = line.split(key + "I", 1)[1]
+                    dtype = "f32" if m.startswith("f") else "f64"
+                    prog = "Lb1" in m.split("EE", 1)[0][:4]
+                    kind = {"K3": "K3''", "K3'": "K3' (program)",
+                            "reduction": "reduction (dt)"}[label] if prog else label
+                    cur = f"{kind} {dtype}"
+        elif cur and "spill stores" in line:
+            spill = line.split("bytes stack frame, ")[-1].split(",")[0].strip()
+        elif cur and "Used" in line and "registers" in line:
+            regs = line.split("Used ")[1].split(" registers")[0]
+            smem = line.rsplit(", ", 1)[-1].strip() if "smem" in line else "0 bytes smem"
+            out.append((cur, f"{regs} registers, {spill}, {smem} static"))
+            cur = None
+    return out
 
 
 def kernel_records(res):

@@ -194,14 +194,15 @@ int lsm_shell_blocks_f64(void* P, int64_t n0, int64_t n1, int64_t n2, const void
  * may be NULL), daux = alpha*g on the interior of a padded buffer (NULL when
  * aux is NULL or not wanted; its shells are left for K5) and dcoef[3] =
  * (dalpha, dbeta, dgamma). aux may be NULL (dalpha is then 0). part is
- * device scratch of lsm_stage_bwd_scratch(n0, n1, n2) doubles. Four
- * launches: one per axis, then one that sums the per-block partials.
+ * device scratch of lsm_stage_bwd_scratch(n0, n1, n2) doubles. Two
+ * launches: the three axes in one pass, then the sum of the per-block
+ * partials.
  * accumulate != 0 (an advection term of a term list, after K3'): dP is added
  * to instead of written, with no beta*g, no daux and dcoef = (0, 0, dgamma). */
 int64_t lsm_stage_bwd_scratch(int64_t n0, int64_t n1, int64_t n2);
 
 /* K3'': K3 with the velocity of the table's entry 0, a 3-component program
- * evaluated per node (no du). part: 2 * lsm_stage_bwd_scratch doubles; dcoef[4]
+ * evaluated per node (no du). part: lsm_stage_bwd_scratch doubles; dcoef[4]
  * = (dalpha, dbeta, dgamma, dt), dt the cotangent of the stage time when
  * needs_dt (the program in dual numbers); without needs_dt dcoef[3] is not
  * written. Other arguments as for K3. */

@@ -18,52 +18,66 @@
 //   dcoef = (dalpha, dbeta, dgamma) = (sum g*aux, sum g*phi, -sum g*H).
 // ddm and core come from the hand-derived WENO5 adjoint, the arithmetic of
 // lsm_tpu_torch/ops/stencils.py `weno5_upwind_fwd_bwd` term by term. Every
-// product, sum and quotient is rounded on its own (__fmul_rn etc., no FMA
-// contraction, IEEE division), because at WENO-symmetric cells the
-// cotangent of eps multiplies a cancelled sum dr by r^2 ~ 1e21: the plain
-// association is what keeps float32 right there.
+// product, sum and quotient is rounded on its own (the __fmul_rn family, which
+// the compiler never contracts into an FMA; IEEE division), because at
+// WENO-symmetric cells the cotangent of eps multiplies a cancelled sum dr by
+// r^2 ~ 1e21: the plain association is what keeps float32 right there.
 //
-// Design. The TPU kernel accumulated each tile's +-3 overhang into dP by
-// read-modify-write and carried the scalar partials across grid steps, both
-// relying on an in-order grid. Blocks run in no order on Hopper, so this is
-// the gather form: every dP element is written by one thread. One launch per
-// axis a (0, 1, 2, in order on the stream). A block owns a tile of LA
-// consecutive positions along a (and, for a = 0 or 1, 32 lanes along the
-// contiguous axis 2); it first evaluates the per-axis adjoint of the LA + 6
-// outputs within reach of the tile into shared memory, once each, then every
-// thread gathers c_a for its positions from there. The axis-0 launch writes
-// dP, daux and the phi/aux partial sums; the axis-1 and axis-2 launches add
-// their term to dP. Redundancy factor: (LA + 6) / LA evaluations of the
-// adjoint per output and axis, 24/18 = 1.33 for axes 0 and 1 and 128/122 =
-// 1.05 for axis 2. Scalar sums: each block writes its partial (in double) to
-// a scratch slot; a fourth launch of one block sums the slots in a fixed
-// order. No atomics: every run gives the same bits.
+// Design: one launch for the three axes (and the reduction), in the gather
+// form (every dP element written by one thread, once). A block owns a column
+// of CY x CX nodes in axes (1, 2) (16 x 32 in f32, 8 x 32 in f64; one thread
+// per node) and marches down axis 0 over a chunk of <= 64 planes. Per output
+// plane p:
+//  - axis 0: each thread evaluates the adjoint of its own output (p, j, k)
+//    from a register ring of the seven P values along axis 0 and adds the six
+//    ddm into a register ring of the edge cotangents c_0. The march runs
+//    downwards, so c_0[z] sums its outputs from y = z+2 down to z-3, the
+//    order of the per-axis form, and dP of plane p+3 is complete (lag 3).
+//    This part is behind the compile-time switch kAxis0, which a 2D layout
+//    without axis 0 can turn off (built, not launched yet).
+//  - axes 1 and 2 (the chunk's own planes only): plane p of P (the column and
+//    a reach of 6, 28 x 44 in f32) and of g (reach 3) sit in shared memory,
+//    filled by cp.async one plane ahead (two buffers); the adjoint of each
+//    output of the column and a halo of 3 along its axis (22 x 32 for axis 1,
+//    16 x 38 for axis 2) is evaluated once into shared memory (two sets, by
+//    the plane's parity, so two barriers a plane suffice), and every thread
+//    gathers c_1 and c_2 of its node, kept in registers until axis 0's lag
+//    is through. A table built once per block holds each output's
+//    plane-invariant offsets (int32 inside the column; across planes int64).
+// dP, du and daux are written once; nothing is read back. Adjoint
+// evaluations per output and axis: (chunk + 6)/chunk on axis 0 (1.10 at
+// 512^3: 9 chunks of 58), 22/16 = 1.375 on axis 1, 38/32 = 1.19 on axis 2
+// (the per-axis launches before: 24/18, 24/18 and 128/122). Dynamic shared
+// memory 98.2 KB (f32: tiles 16.5, ddm 61.5, table 20.5), 104.3 KB (f64);
+// one block of 16 warps per SM (125 registers in f32). Scalar sums: each block
+// writes its partials (in double) to four scratch slots; the reduction sums
+// them in a fixed order. No atomics: every run gives the same bits.
 //
 // Bound at 512^3 f32: it must read P, g (interior) and the 3 streams and
 // write dP and the 3 du: 36 B/cell, 44 with aux and daux, 4.9-6.0 GB,
 // 1.45-1.78 ms at 3.35 TB/s. Its arithmetic is 607 FP32 operations per cell
 // (202 per axis, counting each of the 2 IEEE divisions per axis as one),
 // 8.1e10 at 512^3, 1.2 ms at 67 TFLOP/s: bytes bind, barely. Measured on an
-// H100 80GB HBM3 at 700 W (PERF.md): 10.6 ms, each axis launch 3.4 ms
-// whether its axis is contiguous or strided, so instruction issue binds,
-// not DRAM: the halo recomputation, no FMA, int64 index arithmetic and the
-// division sequences. Fusing the three axes into one pass, contracting FMAs
-// outside the s/b/dr chain and int32 indexing are later work.
+// H100 80GB HBM3 at 700 W (PERF.md): 9.7 ms, against 10.8 for the per-axis
+// launches. With the adjoints replaced by a product per difference the
+// kernel still takes 5.8 ms (tools/stage_bwd_variants.py): the per-plane
+// skeleton (the tiles' halos, the barriers at 16 warps per SM, the halo
+// outputs' velocity reads) binds more than the adjoint's unfused
+// arithmetic.
 //
 // Accumulate mode (an advection term inside a term list, after K3' below has
-// written dP): the axis-0 launch adds its term to dP as the others do, and
-// writes no beta*g, no daux and no phi/aux partial sums, so dcoef is
-// (0, 0, dgamma of this advection term).
+// written dP): dP is added to, with no beta*g, no daux and no phi/aux
+// partial sums, so dcoef is (0, 0, dgamma of this advection term).
 //
 // K3'' (the program entry, lsm_stage_bwd_prog_*): the velocity is a
-// coefficient program (csrc/coef_program.cuh), each axis launch evaluating
-// its own component at the output's node in place of the stream (the TPU
+// coefficient program (csrc/coef_program.cuh), each output evaluating the
+// component of its axis at its node in place of the stream (the TPU
 // kernel's "analytic" branch, weno_v2_bwd.py:604-660). There is no du. When
 // the stage time needs a cotangent the component is evaluated in forward-mode
 // dual numbers, and dt = sum over outputs of du_a * du_a/dt (du_a = core_a *
-// (-gamma*g), the cotangent of u_a) joins the fixed-order partial sums:
-// one more double per block, summed by the reduction launch.
+// (-gamma*g), the cotangent of u_a) joins the fixed-order partial sums.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "coef_program.cuh"
@@ -213,78 +227,52 @@ __device__ __forceinline__ void weno5_fwd_bwd(const T* dm, T u, T g, T* ddm, T& 
   ddm[5] = cond ? T(0) : dv1;
 }
 
-// Tile of one axis launch: LA positions along the axis (rows) times LX lanes
-// along axis 2 (axes 0 and 1 only), NT threads. (LA + 6) * LX is a multiple
-// of NT, so every thread evaluates the same number of outputs.
-template <int AXIS>
-struct Tile {
-  static constexpr int LX = 32, LA = 18, NT = 256;
-};
-template <>
-struct Tile<2> {
-  static constexpr int LX = 1, LA = 122, NT = 128;
-};
-
+// The padded geometry in int32: sizes, and the strides of axes 0 and 1 (axis
+// 2 is contiguous). A plane (S1 * S2 nodes) fits in int32; an offset across
+// planes is int64.
 struct Geom {
-  int64_t n[3], S[3], s[3];
+  int n[3], S[3];
+  int s0, s1;
+  int m12;  // n1 * n2: an interior plane
 };
 
-__host__ __device__ inline Geom make_geom(int64_t n0, int64_t n1, int64_t n2) {
+inline Geom make_geom(int64_t n0, int64_t n1, int64_t n2) {
   Geom g;
-  g.n[0] = n0;
-  g.n[1] = n1;
-  g.n[2] = n2;
-  for (int d = 0; d < 3; ++d) g.S[d] = g.n[d] + 2 * LSM_GHOST;
-  g.s[2] = 1;
-  g.s[1] = g.S[2];
-  g.s[0] = g.S[1] * g.S[2];
+  const int64_t n[3] = {n0, n1, n2};
+  for (int d = 0; d < 3; ++d) {
+    g.n[d] = static_cast<int>(n[d]);
+    g.S[d] = static_cast<int>(n[d] + 2 * LSM_GHOST);
+  }
+  g.s1 = g.S[2];
+  g.s0 = g.S[1] * g.S[2];
+  g.m12 = g.n[1] * g.n[2];
   return g;
 }
 
-template <int AXIS>
-__host__ __device__ inline dim3 bwd_grid(const Geom& g) {
-  using TL = Tile<AXIS>;
-  const unsigned rows = static_cast<unsigned>((g.S[AXIS] + TL::LA - 1) / TL::LA);
-  if constexpr (AXIS == 2) {
-    return dim3(rows, static_cast<unsigned>(g.S[1]), static_cast<unsigned>(g.S[0]));
-  } else {
-    return dim3(rows, static_cast<unsigned>((g.S[2] + TL::LX - 1) / TL::LX),
-                static_cast<unsigned>(g.S[1 - AXIS]));
-  }
+__device__ __forceinline__ int64_t pidx(const Geom& G, int i, int j, int k) {
+  return int64_t(i) * G.s0 + (j * G.s1 + k);
+}
+
+__device__ __forceinline__ bool inside(int c, int n) { return c >= LSM_GHOST && c < n + LSM_GHOST; }
+
+__device__ __forceinline__ bool interior(const Geom& G, int i, int j, int k) {
+  return inside(i, G.n[0]) && inside(j, G.n[1]) && inside(k, G.n[2]);
 }
 
 inline int64_t nblocks(dim3 d) { return int64_t(d.x) * d.y * d.z; }
 
-__device__ __forceinline__ bool inside(int64_t c, int64_t n) {
-  return c >= LSM_GHOST && c < n + LSM_GHOST;
-}
+// The march along axis 0: chunks of at most kChunk planes, as even as the
+// padded axis allows.
+constexpr int kChunk = 64;
 
-template <typename T>
-struct BwdArgs {
-  const T* P;
-  const T* g;
-  const T* u;    // this axis's velocity component (interior-shaped)
-  const T* aux;  // axis-0 launch only, may be null
-  T* dP;
-  T* du;    // this axis's, may be null
-  T* daux;  // axis-0 launch only, may be null
-  double* part;
-  Geom geo;
-  T inv_h, alpha, beta, gamma;
-  int accumulate;  // add to dP on the axis-0 launch too (see above)
-  // K3'' only: the velocity program (entry 0 of tab), whether dt is wanted,
-  // and this axis's slots of the dt partials
-  int needs_dt;
-  double* tpart;
-  LsmStageTerms tab;
-};
+inline int chunks_of(int S0) { return (S0 + kChunk - 1) / kChunk; }
+inline int chunk_len(int S0) { return (S0 + chunks_of(S0) - 1) / chunks_of(S0); }
 
-// deterministic sum over the block of NT threads, 1D or 2D (result in
-// thread 0)
+// deterministic sum over the block of NT threads (result in thread 0)
 template <int NT>
 __device__ __forceinline__ double block_sum(double v, double* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int tid = threadIdx.x + blockDim.x * threadIdx.y;
+  const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   if (lane == 0) red[warp] = v;
   __syncthreads();
@@ -294,136 +282,9 @@ __device__ __forceinline__ double block_sum(double v, double* red) {
   return v;
 }
 
-template <typename T, int AXIS, bool kProgram>
-__global__ void __launch_bounds__(Tile<AXIS>::NT)
-    stage_bwd_axis_kernel(const __grid_constant__ BwdArgs<T> a) {
-  using R = Rn<T>;
-  using TL = Tile<AXIS>;
-  constexpr int LX = TL::LX, LA = TL::LA, NT = TL::NT, ROWS = LA + 2 * LSM_GHOST;
-  __shared__ T D[6][ROWS * LX];
-  __shared__ double red[kProgram ? 4 : 3][NT / 32];
-  const Geom& G = a.geo;
-  const int64_t m0 = int64_t(blockIdx.x) * LA;
-  // the two coordinates this block holds fixed (or its lane base)
-  int64_t fix_i = 0, fix_j = 0, l0 = 0;
-  if constexpr (AXIS == 2) {
-    fix_j = blockIdx.y;
-    fix_i = blockIdx.z;
-  } else {
-    l0 = int64_t(blockIdx.y) * LX;
-    if constexpr (AXIS == 0) fix_j = blockIdx.z;
-    else fix_i = blockIdx.z;
-  }
-  const int64_t sa = G.s[AXIS];
-  auto coords = [&](int64_t m, int64_t l, int64_t& i, int64_t& j, int64_t& k) {
-    if constexpr (AXIS == 0) {
-      i = m, j = fix_j, k = l;
-    } else if constexpr (AXIS == 1) {
-      i = fix_i, j = m, k = l;
-    } else {
-      i = fix_i, j = fix_j, k = m;
-    }
-  };
-  const T neg_gamma = -a.gamma;
-  double sg = 0.0, sb = 0.0, sa_ = 0.0, st_ = 0.0;
-
-  // phase 1: the adjoint of every output within reach of the tile, once each
-  for (int idx = threadIdx.x; idx < ROWS * LX; idx += NT) {
-    const int lane = idx % LX, r = idx / LX;
-    const int64_t m = m0 - LSM_GHOST + r, l = l0 + lane;
-    int64_t i, j, k;
-    coords(m, l, i, j, k);
-    const bool valid = inside(i, G.n[0]) && inside(j, G.n[1]) && inside(k, G.n[2]);
-    if (!valid) {
-#pragma unroll
-      for (int q = 0; q < 6; ++q) D[q][idx] = T(0);
-      continue;
-    }
-    const int64_t c = i * G.s[0] + j * G.s[1] + k;
-    T sv[7];
-#pragma unroll
-    for (int q = 0; q < 7; ++q) sv[q] = a.P[c + (q - 3) * sa];
-    T dm[6];
-#pragma unroll
-    for (int q = 0; q < 6; ++q) dm[q] = R::mul(R::sub(sv[q + 1], sv[q]), a.inv_h);
-    const int64_t qi = ((i - LSM_GHOST) * G.n[1] + (j - LSM_GHOST)) * G.n[2] + (k - LSM_GHOST);
-    const T gv = a.g[c];
-    T uv, udt = T(0);
-    if constexpr (kProgram) {
-      const int64_t n0 = i - LSM_GHOST, n1 = j - LSM_GHOST, n2 = k - LSM_GHOST;
-      uv = a.needs_dt ? lsm::prog_eval<T, true>(a.tab.prog, 0, AXIS, n0, n1, n2, &udt)
-                      : lsm::prog_eval<T, false>(a.tab.prog, 0, AXIS, n0, n1, n2, nullptr);
-    } else {
-      uv = a.u[qi];
-    }
-    const T gup = R::mul(neg_gamma, gv);
-    T ddm[6], core;
-    weno5_fwd_bwd(dm, uv, gup, ddm, core);
-#pragma unroll
-    for (int q = 0; q < 6; ++q) D[q][idx] = ddm[q];
-    if (r >= LSM_GHOST && r < LSM_GHOST + LA) {  // an output this block owns
-      if (a.du != nullptr) a.du[qi] = R::mul(core, gup);
-      sg += double(gv) * double(R::mul(uv, core));
-      if (kProgram) st_ += double(R::mul(core, gup)) * double(udt);
-    }
-  }
-  __syncthreads();
-
-  // phase 2: gather the edge cotangents for the tile's positions
-  for (int idx = threadIdx.x; idx < LA * LX; idx += NT) {
-    const int lane = idx % LX, rr = idx / LX, r = rr + LSM_GHOST;
-    const int64_t m = m0 + rr, l = l0 + lane;
-    if (m >= G.S[AXIS] || (AXIS != 2 && l >= G.S[2])) continue;
-    int64_t i, j, k;
-    coords(m, l, i, j, k);
-    T cx = D[0][(r + 2) * LX + lane];
-    T cx1 = D[0][(r + 3) * LX + lane];
-#pragma unroll
-    for (int q = 1; q < 6; ++q) {
-      cx = R::add(cx, D[q][(r + 2 - q) * LX + lane]);
-      cx1 = R::add(cx1, D[q][(r + 3 - q) * LX + lane]);
-    }
-    const T contrib = R::mul(R::sub(cx, cx1), a.inv_h);
-    const int64_t x = i * G.s[0] + j * G.s[1] + k;
-    if (AXIS == 0 && !a.accumulate) {
-      const bool in_x = inside(i, G.n[0]) && inside(j, G.n[1]) && inside(k, G.n[2]);
-      if (in_x) {
-        const T gv = a.g[x];
-        a.dP[x] = R::add(R::mul(a.beta, gv), contrib);
-        if (a.daux != nullptr) a.daux[x] = R::mul(a.alpha, gv);
-        sb += double(gv) * double(a.P[x]);
-        if (a.aux != nullptr) sa_ += double(gv) * double(a.aux[x]);
-      } else {
-        a.dP[x] = contrib;
-      }
-    } else {
-      a.dP[x] = R::add(a.dP[x], contrib);
-    }
-  }
-
-  const int64_t bid = int64_t(blockIdx.x) + int64_t(gridDim.x) *
-                      (int64_t(blockIdx.y) + int64_t(gridDim.y) * blockIdx.z);
-  sg = block_sum<NT>(sg, red[0]);
-  if constexpr (kProgram) {
-    st_ = block_sum<NT>(st_, red[3]);
-    if (threadIdx.x == 0) a.tpart[bid] = st_;
-  }
-  if (AXIS == 0) {
-    sb = block_sum<NT>(sb, red[1]);
-    sa_ = block_sum<NT>(sa_, red[2]);
-    if (threadIdx.x == 0) {
-      a.part[3 * bid] = sg;
-      a.part[3 * bid + 1] = sb;
-      a.part[3 * bid + 2] = sa_;
-    }
-  } else if (threadIdx.x == 0) {
-    a.part[bid] = sg;
-  }
-}
-
 constexpr int kReduceThreads = 1024;
 
-// sum of part[off + stride*b + field] over b < count, in a fixed order
+// sum of part[stride*b + field] over b < count, in a fixed order
 __device__ double strided_sum(const double* part, int64_t count, int stride, int field,
                               double* red) {
   double v = 0.0;
@@ -431,38 +292,359 @@ __device__ double strided_sum(const double* part, int64_t count, int stride, int
   return block_sum<kReduceThreads>(v, red);
 }
 
-// out = (dalpha, dbeta, dgamma) from the three launches' partials; K3''
-// adds out[3] = dt from the dt partials (tpart, nb0 + nb1 + nb2 of them)
-template <typename T, bool kProgram>
+// out = (dalpha, dbeta, dgamma[, dt]) from the per-block partials (g*H, g*phi,
+// g*aux, dt) of K3 or K3'; kDt writes out[3]
+template <typename T, bool kDt>
 __global__ void __launch_bounds__(kReduceThreads)
-    stage_bwd_reduce_kernel(const double* part, int64_t nb0, int64_t nb1, int64_t nb2,
-                            const double* tpart, T* out) {
-  __shared__ double red[kProgram ? 6 : 5][kReduceThreads / 32];
-  const double g0 = strided_sum(part, nb0, 3, 0, red[0]);
-  const double sb = strided_sum(part, nb0, 3, 1, red[1]);
-  const double sa = strided_sum(part, nb0, 3, 2, red[2]);
-  const double g1 = strided_sum(part + 3 * nb0, nb1, 1, 0, red[3]);
-  const double g2 = strided_sum(part + 3 * nb0 + nb1, nb2, 1, 0, red[4]);
-  double dt = 0.0;
-  if constexpr (kProgram) dt = strided_sum(tpart, nb0 + nb1 + nb2, 1, 0, red[5]);
+    stage_bwd_reduce_kernel(const double* part, int64_t nb, T* out) {
+  __shared__ double red[4][kReduceThreads / 32];
+  const double sg = strided_sum(part, nb, 4, 0, red[0]);
+  const double sb = strided_sum(part, nb, 4, 1, red[1]);
+  const double sa = strided_sum(part, nb, 4, 2, red[2]);
+  double st = 0.0;
+  if constexpr (kDt) st = strided_sum(part, nb, 4, 3, red[3]);
   if (threadIdx.x == 0) {
     out[0] = T(sa);
     out[1] = T(sb);
-    out[2] = T(-((g0 + g1) + g2));
-    if (kProgram) out[3] = T(dt);
+    out[2] = T(-sg);
+    if (kDt) out[3] = T(st);
   }
 }
 
-template <typename T, int AXIS, bool kProgram>
-cudaError_t launch_axis(const BwdArgs<T>& args, cudaStream_t stream) {
-  stage_bwd_axis_kernel<T, AXIS, kProgram>
-      <<<bwd_grid<AXIS>(args.geo), Tile<AXIS>::NT, 0, stream>>>(args);
+template <typename T>
+cudaError_t launch_reduce(const double* part, int64_t nb, bool dt, void* dcoef,
+                          cudaStream_t stream) {
+  const auto reduce = dt ? stage_bwd_reduce_kernel<T, true> : stage_bwd_reduce_kernel<T, false>;
+  reduce<<<1, kReduceThreads, 0, stream>>>(part, nb, static_cast<T*>(dcoef));
   return cudaGetLastError();
 }
 
+// One element from global to shared memory asynchronously (cp.async); 0
+// when !valid (src is then not read). async_wait() waits for this thread's
+// copies; a barrier after it publishes them to the block.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, bool valid) {
+  __pipeline_memcpy_async(dst, src, sizeof(T), valid ? 0 : sizeof(T));
+}
+__device__ __forceinline__ void async_commit() { __pipeline_commit(); }
+__device__ __forceinline__ void async_wait() { __pipeline_wait_prior(0); }
+
+// The column of one K3 block: CY x CX nodes in axes (1, 2), one thread each;
+// the P tile (reach 6 around the column: the outputs within reach 3 and
+// their stencils), the g tile (reach 3: the outputs), the outputs of axis 1
+// (R1 rows of CX) and of axis 2 (CY rows of W2), UPT of them per thread.
+template <typename T>
+struct AdvTile {
+  static constexpr int CY = sizeof(T) == 4 ? 16 : 8, CX = 32, NT = CY * CX;
+  static constexpr int R1 = CY + 2 * LSM_GHOST, W2 = CX + 2 * LSM_GHOST;
+  static constexpr int PY = CY + 4 * LSM_GHOST, PX = CX + 4 * LSM_GHOST;
+  static constexpr int GY = R1, GX = W2;
+  static constexpr int U1 = R1 * CX, U2 = CY * W2, UPT = (U1 + U2 + NT - 1) / NT;
+  // dynamic shared memory: two P and two g tiles (one being filled), two
+  // sets of ddm (by the plane's parity), then the units' table (int4 each,
+  // 16-byte aligned)
+  static constexpr size_t tab_off =
+      ((2 * (PY * PX + GY * GX) + 2 * 6 * (U1 + U2)) * sizeof(T) + 15) / 16 * 16;
+  static constexpr size_t smem = tab_off + (U1 + U2) * 16;
+};
+
+template <typename T>
+inline dim3 adv_grid(const Geom& g) {
+  using TL = AdvTile<T>;
+  return dim3(static_cast<unsigned>((g.S[2] + TL::CX - 1) / TL::CX),
+              static_cast<unsigned>((g.S[1] + TL::CY - 1) / TL::CY),
+              static_cast<unsigned>(chunks_of(g.S[0])));
+}
+
+template <typename T>
+struct BwdArgs {
+  const T* P;
+  const T* g;
+  const T* u[3];  // the velocity components (interior-shaped); K3'' none
+  const T* aux;   // may be null
+  T* dP;
+  T* du[3];  // each may be null
+  T* daux;   // may be null
+  double* part;
+  Geom geo;
+  int chunk;
+  T inv_h[3], alpha, beta, gamma;
+  int accumulate;  // add to dP (see above)
+  // K3'' only: the velocity program (entry 0 of tab) and whether dt is wanted
+  int needs_dt;
+  LsmStageTerms tab;
+};
+
+// The plane-invariant part of axis-1/2 unit e of a K3 block (e < U1: axis 1,
+// row r of R1; else axis 2, row r of CY, column c of W2), built once per
+// block: x = its output's offset in the P tile | axis 2 << 16 | an output of
+// the column << 17; y = its offset in the g tile | (yk - k0 + 3) << 16 |
+// (yj - j0 + 3) << 24; z = (yj - 3) * n2 + (yk - 3), or -1 off the interior
+// in the plane.
+template <typename TL>
+__device__ __forceinline__ int4 adv_unit(int e, int j0, int k0, const Geom& G) {
+  constexpr int H = LSM_GHOST;
+  int r, c, yj, yk, pc, gc, mine;
+  const bool ax1 = e < TL::U1;
+  if (ax1) {
+    r = e / TL::CX, c = e % TL::CX;
+    yj = j0 - H + r, yk = k0 + c;
+    pc = (r + H) * TL::PX + c + 2 * H, gc = r * TL::GX + c + H;
+    mine = r >= H && r < H + TL::CY;
+  } else {
+    r = (e - TL::U1) / TL::W2, c = (e - TL::U1) % TL::W2;
+    yj = j0 + r, yk = k0 - H + c;
+    pc = (r + 2 * H) * TL::PX + c + H, gc = (r + H) * TL::GX + c;
+    mine = c >= H && c < H + TL::CX;
+  }
+  const bool in = inside(yj, G.n[1]) && inside(yk, G.n[2]);
+  return make_int4(pc | (ax1 ? 0 : 1 << 16) | (mine << 17),
+                   gc | ((yk - k0 + H) << 16) | ((yj - j0 + H) << 24),
+                   in ? (yj - H) * G.n[2] + (yk - H) : -1, 0);
+}
+
+// The program velocity of K3'' along `axis` at an output (its t-derivative
+// in *udt when dt is wanted)
+template <typename T>
+__device__ __forceinline__ T program_velocity(const BwdArgs<T>& a, int axis, int i, int j, int k,
+                                              T* udt) {
+  const int64_t n0 = i - LSM_GHOST, n1 = j - LSM_GHOST, n2 = k - LSM_GHOST;
+  return a.needs_dt ? lsm::prog_eval<T, true>(a.tab.prog, 0, axis, n0, n1, n2, udt)
+                    : lsm::prog_eval<T, false>(a.tab.prog, 0, axis, n0, n1, n2, nullptr);
+}
+
+// (c_a[x] - c_a[x + e_a]) * inv_h from the six ddm rows D[q] of the outputs
+// along a: x at row r, rows `step` apart, `lane` the offset across them
+template <typename T, int N>
+__device__ __forceinline__ T edge_term(const T (*D)[N], int r, int step, int lane, T inv_h) {
+  using R = Rn<T>;
+  T cx = D[0][(r + 2) * step + lane];
+  T cx1 = D[0][(r + 3) * step + lane];
+#pragma unroll
+  for (int q = 1; q < 6; ++q) {
+    cx = R::add(cx, D[q][(r + 2 - q) * step + lane]);
+    cx1 = R::add(cx1, D[q][(r + 3 - q) * step + lane]);
+  }
+  return R::mul(R::sub(cx, cx1), inv_h);
+}
+
+template <typename T, bool kProgram, bool kAxis0>
+__global__ void __launch_bounds__(AdvTile<T>::NT)
+    stage_bwd_kernel(const __grid_constant__ BwdArgs<T> a) {
+  using R = Rn<T>;
+  using TL = AdvTile<T>;
+  constexpr int CY = TL::CY, CX = TL::CX, NT = TL::NT, H = LSM_GHOST, UPT = TL::UPT;
+  constexpr int LAG = kAxis0 ? H : 0;  // dP of plane p + LAG is written at plane p
+  constexpr int PT = TL::PY * TL::PX, GT = TL::GY * TL::GX;
+  extern __shared__ __align__(16) unsigned char lsm_dyn_smem[];
+  T* const Pt = reinterpret_cast<T*>(lsm_dyn_smem);  // [2][PT], plane p in buffer p & 1
+  T* const Gt = Pt + 2 * PT;                          // [2][GT]
+  T(*const D1s)[TL::U1] = reinterpret_cast<T(*)[TL::U1]>(Gt + 2 * GT);  // [2 * 6]
+  T(*const D2s)[TL::U2] = reinterpret_cast<T(*)[TL::U2]>(&D1s[12][0]);   // [2 * 6]
+  int4* const units = reinterpret_cast<int4*>(lsm_dyn_smem + TL::tab_off);
+  __shared__ double red[4][NT / 32];
+  const Geom& G = a.geo;
+  const int t = threadIdx.x, jl = t / CX, kl = t % CX;
+  const int j0 = blockIdx.y * CY, k0 = blockIdx.x * CX;
+  const int j = j0 + jl, k = k0 + kl;
+  const int i0 = blockIdx.z * a.chunk, i1 = min(i0 + a.chunk, G.S[0]);
+  const bool col = j < G.S[1] && k < G.S[2];
+  // this thread's node in its plane: padded offset, interior offset (-1 off
+  // the interior in the plane)
+  const int pin = j * G.s1 + k;
+  const int qin = inside(j, G.n[1]) && inside(k, G.n[2]) ? (j - H) * G.n[2] + (k - H) : -1;
+  const T neg_gamma = -a.gamma;
+  double sg = 0.0, sb = 0.0, sa = 0.0, st = 0.0;
+  for (int e = t; e < TL::U1 + TL::U2; e += NT) units[e] = adv_unit<TL>(e, j0, k0, G);
+  T pr[7] = {};                // P[p - 3 + q] along axis 0 at (j, k)
+  T cz[7] = {};                // c_0[p - 2 + q]
+  T c1q[4] = {}, c2q[4] = {};  // the axis-1 and axis-2 dP terms of planes p .. p + 3
+  auto P_at = [&](int i) -> T {
+    return col && i >= 0 && i < G.S[0] ? a.P[int64_t(i) * G.s0 + pin] : T(0);
+  };
+  // plane `plane` of P and g into the tiles, asynchronously
+  auto issue_tiles = [&](int plane) {
+    T* const pd = Pt + (plane & 1) * PT;
+    T* const gd = Gt + (plane & 1) * GT;
+    for (int e = t; e < PT; e += NT) {
+      const int jj = j0 - 2 * H + e / TL::PX, kk = k0 - 2 * H + e % TL::PX;
+      const bool in = jj >= 0 && jj < G.S[1] && kk >= 0 && kk < G.S[2];
+      copy_async(pd + e, a.P + (in ? pidx(G, plane, jj, kk) : 0), in);
+    }
+    for (int e = t; e < GT; e += NT) {
+      const int jj = j0 - H + e / TL::GX, kk = k0 - H + e % TL::GX;
+      const bool in = interior(G, plane, jj, kk);
+      copy_async(gd + e, a.g + (in ? pidx(G, plane, jj, kk) : 0), in);
+    }
+    async_commit();
+  };
+  // what step p reads from global memory besides the tiles, loaded a step
+  // ahead: the axis-0 output's new P, its g and u_0, each unit's velocity
+  T nx_p = T(0), nx_g = T(0), nx_u0 = T(0), nx_u[UPT] = {};
+  auto fetch = [&](int p) {
+    nx_p = P_at(p - H);
+    const bool in_p = inside(p, G.n[0]);
+    const bool in0 = kAxis0 && in_p && qin >= 0;
+    nx_g = in0 ? a.g[int64_t(p) * G.s0 + pin] : T(0);
+    if constexpr (!kProgram) {
+      const int64_t qp = int64_t(p - H) * G.m12;
+      nx_u0 = in0 ? a.u[0][qp + qin] : T(0);
+      const bool own = p >= i0 && p < i1 && in_p;
+#pragma unroll
+      for (int m = 0; m < UPT; ++m) {
+        const int e = t + m * NT;
+        const int4 u = e < TL::U1 + TL::U2 ? units[e] : make_int4(0, 0, -1, 0);
+        const bool in = own && u.z >= 0;
+        nx_u[m] = in ? a.u[(u.x >> 16 & 1) + 1][qp + u.z] : T(0);
+      }
+    }
+  };
+  const int ptop = i1 - 1 + LAG;
+  if constexpr (kAxis0) {
+#pragma unroll
+    for (int q = 0; q < 6; ++q) pr[q] = P_at(ptop - 2 + q);  // shifted up on entry
+  }
+  __syncthreads();  // the units' table is in
+  fetch(ptop);
+  issue_tiles(i1 - 1);  // the first plane of the chunk
+  for (int p = ptop; p >= i0 - LAG; --p) {
+    const bool own = p >= i0 && p < i1;  // uniform over the block
+    const T p_new = nx_p, g0 = nx_g, u0 = nx_u0;
+    T um[UPT];
+#pragma unroll
+    for (int m = 0; m < UPT; ++m) um[m] = nx_u[m];
+    if (p > i0 - LAG) fetch(p - 1);
+#pragma unroll
+    for (int q = 3; q > 0; --q) {
+      c1q[q] = c1q[q - 1];
+      c2q[q] = c2q[q - 1];
+    }
+    c1q[0] = c2q[0] = T(0);
+    if (own) {
+      async_wait();
+      __syncthreads();  // the tiles of plane p are in
+      // the next plane's into the other buffers: their last readers passed
+      // the previous plane's barriers
+      if (p > i0) issue_tiles(p - 1);
+    }
+    if constexpr (kAxis0) {  // axis 0: this thread's output (p, j, k)
+#pragma unroll
+      for (int q = 6; q > 0; --q) {
+        pr[q] = pr[q - 1];
+        cz[q] = cz[q - 1];
+      }
+      pr[0] = p_new;
+      cz[0] = T(0);
+      if (qin >= 0 && inside(p, G.n[0])) {
+        T dm[6];
+#pragma unroll
+        for (int q = 0; q < 6; ++q) dm[q] = R::mul(R::sub(pr[q + 1], pr[q]), a.inv_h[0]);
+        T udt = T(0);
+        T uv = u0;
+        if constexpr (kProgram) uv = program_velocity(a, 0, p, j, k, &udt);
+        const T gup = R::mul(neg_gamma, g0);
+        T ddm[6], core;
+        weno5_fwd_bwd(dm, uv, gup, ddm, core);
+#pragma unroll
+        for (int q = 0; q < 6; ++q) cz[q] = R::add(cz[q], ddm[q]);
+        if (own) {
+          if (!kProgram && a.du[0] != nullptr)
+            a.du[0][int64_t(p - H) * G.m12 + qin] = R::mul(core, gup);
+          sg += double(g0) * double(R::mul(uv, core));
+          if (kProgram) st += double(R::mul(core, gup)) * double(udt);
+        }
+      }
+    }
+    if (own) {
+      // axes 1 and 2: the outputs of the column and a halo of 3 along each;
+      // their ddm in the set of this plane's parity, whose last readers
+      // passed this plane's first barrier
+      T(*const D1)[TL::U1] = D1s + 6 * (p & 1);
+      T(*const D2)[TL::U2] = D2s + 6 * (p & 1);
+      const T* const pt = Pt + (p & 1) * PT;
+      const T* const gt = Gt + (p & 1) * GT;
+      const bool in_p = inside(p, G.n[0]);
+      const int64_t qp = int64_t(p - H) * G.m12;
+#pragma unroll
+      for (int m = 0; m < UPT; ++m) {
+        const int e = t + m * NT;
+        if (e >= TL::U1 + TL::U2) break;
+        const int4 un = units[e];
+        const bool ax1 = (un.x >> 16 & 1) == 0;
+        const int axis = ax1 ? 1 : 2;
+        T* const Dq = ax1 ? &D1[0][e] : &D2[0][e - TL::U1];
+        const int dstride = ax1 ? TL::U1 : TL::U2;
+        if (!(in_p && un.z >= 0)) {
+#pragma unroll
+          for (int q = 0; q < 6; ++q) Dq[q * dstride] = T(0);
+          continue;
+        }
+        // the output in the tiles: P's rows from j0 - 6, g's from j0 - 3
+        const int pc = un.x & 0xffff, gc = un.y & 0xffff;
+        const int step = ax1 ? TL::PX : 1;
+        T dm[6];
+#pragma unroll
+        for (int q = 0; q < 6; ++q)
+          dm[q] = R::mul(R::sub(pt[pc + (q - H + 1) * step], pt[pc + (q - H) * step]),
+                         a.inv_h[axis]);
+        T udt = T(0);
+        T uv = um[m];
+        if constexpr (kProgram)
+          uv = program_velocity(a, axis, p, j0 - H + (un.y >> 24), k0 - H + (un.y >> 16 & 0xff),
+                                &udt);
+        const T gv = gt[gc];
+        const T gup = R::mul(neg_gamma, gv);
+        T ddm[6], core;
+        weno5_fwd_bwd(dm, uv, gup, ddm, core);
+#pragma unroll
+        for (int q = 0; q < 6; ++q) Dq[q * dstride] = ddm[q];
+        if (un.x >> 17 & 1) {  // an output of this block's column
+          if (!kProgram && a.du[axis] != nullptr) a.du[axis][qp + un.z] = R::mul(core, gup);
+          sg += double(gv) * double(R::mul(uv, core));
+          if (kProgram) st += double(R::mul(core, gup)) * double(udt);
+        }
+      }
+      __syncthreads();  // the ddm are in
+      c1q[0] = edge_term<T, TL::U1>(D1, jl + H, CX, kl, a.inv_h[1]);
+      c2q[0] = edge_term<T, TL::U2>(D2, kl + H, 1, jl * TL::W2, a.inv_h[2]);
+    }
+    // dP of plane i = p + LAG: c_0 of planes i and i + 1 are complete
+    const int i = p + LAG;
+    if (col && i >= i0 && i < i1) {
+      const T contrib0 = kAxis0 ? R::mul(R::sub(cz[5], cz[6]), a.inv_h[0]) : T(0);
+      const int64_t x = int64_t(i) * G.s0 + pin;
+      T v;
+      if (a.accumulate) {
+        v = R::add(a.dP[x], contrib0);
+      } else if (qin >= 0 && inside(i, G.n[0])) {
+        const T gv = a.g[x];
+        v = R::add(R::mul(a.beta, gv), contrib0);
+        if (a.daux != nullptr) a.daux[x] = R::mul(a.alpha, gv);
+        sb += double(gv) * double(a.P[x]);
+        if (a.aux != nullptr) sa += double(gv) * double(a.aux[x]);
+      } else {
+        v = contrib0;
+      }
+      v = R::add(v, c1q[LAG]);
+      a.dP[x] = R::add(v, c2q[LAG]);
+    }
+  }
+  const int64_t bid = int64_t(blockIdx.x) + int64_t(gridDim.x) *
+                      (int64_t(blockIdx.y) + int64_t(gridDim.y) * blockIdx.z);
+  sg = block_sum<NT>(sg, red[0]);
+  sb = block_sum<NT>(sb, red[1]);
+  sa = block_sum<NT>(sa, red[2]);
+  st = block_sum<NT>(st, red[3]);
+  if (t == 0) {
+    a.part[4 * bid] = sg;
+    a.part[4 * bid + 1] = sb;
+    a.part[4 * bid + 2] = sa;
+    a.part[4 * bid + 3] = st;
+  }
+}
+
 // K3 (kProgram false: the velocity streamed in u) and K3'' (the velocity the
-// program of tab's entry 0; part holds 2 * lsm_stage_bwd_scratch doubles, the
-// second half the dt partials)
+// program of tab's entry 0): the fused launch, then the reduction
 template <typename T, bool kProgram>
 int launch_stage_bwd(const void* P, const void* g, const void* const* u, const void* aux,
                      void* dP, void* const* du, void* daux, void* part, void* dcoef, int64_t n0,
@@ -470,47 +652,40 @@ int launch_stage_bwd(const void* P, const void* g, const void* const* u, const v
                      double gamma, int accumulate, const LsmStageTerms* tab, int needs_dt,
                      void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const Geom geo = make_geom(n0, n1, n2);
-  const int64_t nb[3] = {nblocks(bwd_grid<0>(geo)), nblocks(bwd_grid<1>(geo)),
-                         nblocks(bwd_grid<2>(geo))};
-  double* parts = static_cast<double*>(part);
-  double* part_at[3] = {parts, parts + 3 * nb[0], parts + 3 * nb[0] + nb[1]};
-  double* tparts = parts + 3 * nb[0] + nb[1] + nb[2];
-  double* tpart_at[3] = {tparts, tparts + nb[0], tparts + nb[0] + nb[1]};
-  cudaError_t err = cudaSuccess;
-  for (int axis = 0; axis < 3 && err == cudaSuccess; ++axis) {
-    BwdArgs<T> a{};
-    a.P = static_cast<const T*>(P);
-    a.g = static_cast<const T*>(g);
-    a.u = kProgram ? nullptr : static_cast<const T*>(u[axis]);
-    a.aux = axis == 0 ? static_cast<const T*>(aux) : nullptr;
-    a.dP = static_cast<T*>(dP);
-    a.du = kProgram ? nullptr : static_cast<T*>(du[axis]);
-    a.daux = axis == 0 ? static_cast<T*>(daux) : nullptr;
-    a.part = part_at[axis];
-    a.geo = geo;
-    a.inv_h = T(inv_h[axis]);
-    a.alpha = T(alpha);
-    a.beta = T(beta);
-    a.gamma = T(gamma);
-    a.accumulate = accumulate;
-    if constexpr (kProgram) {
-      a.needs_dt = needs_dt;
-      a.tpart = tpart_at[axis];
-      a.tab = *tab;
-    }
-    if (axis == 0) err = launch_axis<T, 0, kProgram>(a, stream);
-    else if (axis == 1) err = launch_axis<T, 1, kProgram>(a, stream);
-    else err = launch_axis<T, 2, kProgram>(a, stream);
+  BwdArgs<T> a{};
+  a.P = static_cast<const T*>(P);
+  a.g = static_cast<const T*>(g);
+  a.aux = accumulate ? nullptr : static_cast<const T*>(aux);
+  a.dP = static_cast<T*>(dP);
+  a.daux = accumulate ? nullptr : static_cast<T*>(daux);
+  for (int d = 0; d < 3; ++d) {
+    a.u[d] = kProgram ? nullptr : static_cast<const T*>(u[d]);
+    a.du[d] = kProgram ? nullptr : static_cast<T*>(du[d]);
+    a.inv_h[d] = T(inv_h[d]);
   }
+  a.part = static_cast<double*>(part);
+  a.geo = make_geom(n0, n1, n2);
+  a.chunk = chunk_len(a.geo.S[0]);
+  a.alpha = T(alpha);
+  a.beta = T(beta);
+  a.gamma = T(gamma);
+  a.accumulate = accumulate;
+  if constexpr (kProgram) {
+    a.needs_dt = needs_dt;
+    a.tab = *tab;
+  }
+  const dim3 grid = adv_grid<T>(a.geo);
+  const auto kernel = stage_bwd_kernel<T, kProgram, true>;
+  const size_t smem = AdvTile<T>::smem;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // without dt the dt partials are all 0: the plain reduction, dcoef[3] left
-  // as the caller zeroed it
-  const auto reduce = kProgram && needs_dt ? stage_bwd_reduce_kernel<T, true>
-                                           : stage_bwd_reduce_kernel<T, false>;
-  reduce<<<1, kReduceThreads, 0, stream>>>(parts, nb[0], nb[1], nb[2], tparts,
-                                           static_cast<T*>(dcoef));
-  return static_cast<int>(cudaGetLastError());
+  kernel<<<grid, AdvTile<T>::NT, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // without dt, dcoef[3] is left as the caller zeroed it
+  return static_cast<int>(
+      launch_reduce<T>(a.part, nblocks(grid), kProgram && needs_dt, dcoef, stream));
 }
 
 
@@ -539,25 +714,125 @@ int launch_stage_bwd(const void* P, const void* g, const void* const* u, const v
 // took, safe_sqrt has derivative 0 at 0, minmod's goes to the argument it
 // picked), so the kernel is held to autograd of the plain version.
 //
-// Design: recompute, in the gather form. One thread per padded node x
-// writes dP[x] once: it re-evaluates, in registers, the adjoint of every
-// output y whose stencil holds x (13 nodes for the Godunov kinds: the centre
-// and +-1, +-2 along each axis; 19 for curvature: the centre, +-1 along each
-// axis and the 12 edge neighbours) and takes the weight of x. Stream
-// cotangents and the scalar partials come from y == x. No shared memory, no
-// atomics; the partials go to per-block slots in double and one fixed-order
-// reduction follows, so every run gives the same bits. This file is built
-// without FMA contraction (ops/_build.py), so each product and sum rounds on
-// its own, as in the plain version.
+// Design: each output's adjoint evaluated once into shared memory, then
+// gathered. A block owns a column of CY x CX nodes in axes (1, 2) (16 x 32 in
+// f32, 8 x 16 in f64; one thread each) and marches up axis 0 over a chunk of
+// <= 64 planes (and 2 planes either side). At plane s, phase 1 evaluates the
+// adjoint of every output of plane s over the column and a halo of 2 (20 x
+// 36 positions in f32, less the 16 corners no gather reads) and keeps only
+// the pieces the gather needs: for the Godunov kinds (normal motion,
+// eikonal) the cotangents dA, dB of the ENO2 one-sided derivatives and
+// their six minmod branches in one 16-bit word (26 B in f32); for curvature,
+// over a halo of 1, the cotangents of its 3 central first, second and mixed
+// differences (36 B). A thread's own output also sends at once, in registers,
+// what it owes its own node on planes s-2 .. s+2 (axis 0, and the centre's
+// direct part): dP of a thread's node accumulates over five planes. After a
+// barrier, phase 2: every thread gathers from the plane's pieces what its
+// node owes to the outputs around it in the plane, and (curvature's mixed
+// differences across axes (0, 1) and (0, 2)) what its nodes on planes s-1
+// and s+1 owe to them; dP of plane s-2 is then complete and written once. P
+// comes through a ring of planes (s-2 .. s+3, slots mirrored so that five
+// planes lie at one stride) and g through a ring of two, filled by cp.async
+// one plane ahead; a table built once per block holds each unit's
+// plane-invariant offsets. Adjoint evaluations per output: 704/512 x
+// (chunk+4)/chunk = 1.47 for the Godunov kinds, 612/512 x (chunk+4)/chunk =
+// 1.28 for curvature at 512^3 in f32 (1.87 and 1.50 in f64), against 13
+// and 19 in the recompute form this replaces. Dynamic shared memory 94.2 KB
+// in f32 (the P ring 37.5, the pieces 38.8, the table 11.3, g 5.6; less the
+// pieces of a kind the table lacks), 61.9 KB in f64: two blocks of 16 warps
+// per SM in f32 (64 registers). The pieces never leave the chip. No atomics;
+// the partials go to per-block slots in double and one fixed-order
+// reduction follows, so every run gives the same bits. Products and sums may
+// contract into FMAs here, and in float the square roots and quotients are
+// the hardware's approximations (tsqrt, qdiv): the f32 kernel is held to the
+// f64 oracle at 1e-3, as before.
 //
 // Bound at 512^3 f32 (constant coefficients): read the padded P and the
 // interior g, write the padded dP, 1.65 GB, 0.49 ms at 3.35 TB/s; a streamed
-// speed adds its read and its cotangent's write. The recomputation does 13
-// (Godunov) or 19 (curvature) adjoints per node, ~3.7e3 (normal motion) to
-// ~6e3 (curvature + normal motion) operations per node, 0.5e12-0.8e12 at
-// 512^3, 7-12 ms at 67 TFLOP/s: the operations bind, by ~15-25x. Staging
-// each output's adjoint pieces in shared memory over a tile and its halo
-// (once per output instead of 13-19 times) is the later work.
+// speed adds its read and its cotangent's write. One adjoint per output and
+// its gather weights are ~400 operations per node on config A (curvature +
+// normal motion), 0.8 ms at 67 TFLOP/s: the operations bind, barely.
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md): 8.7 ms on config A
+// (88.95 in the recompute form), 7.3 on config C (45.50).
+
+template <typename T>
+struct TermsTile {
+  static constexpr int CY = sizeof(T) == 4 ? 16 : 8, CX = sizeof(T) == 4 ? 32 : 16;
+  static constexpr int NT = CY * CX;
+  static constexpr int W = CX + 4, RP = (CY + 4) * W;   // a plane's outputs: halo 2
+  static constexpr int WC = CX + 2, RC = (CY + 2) * WC;  // curvature's: halo 1
+  static constexpr int TW = CX + 8, TP = (CY + 8) * TW;  // a plane of P: reach 4
+  // P's planes s - 2 .. s + 3 in 6 slots, slots 0 .. 3 mirrored after them,
+  // so that any 5 consecutive planes lie in consecutive slots; g's s, s + 1
+  static constexpr int P_SLOTS = 6, P_RING = P_SLOTS + 4, G_SLOTS = 2;
+  static constexpr int GOD_F = 6, CURV_F = 9;  // dA[3], dB[3]; dg[3], dhd[3], dhm[3]
+  static constexpr int MIN_BLOCKS = 2;
+};
+
+template <typename T>
+inline size_t terms_smem(bool god, bool curv) {
+  using TL = TermsTile<T>;
+  return TL::RP * 16 + (TL::P_RING * TL::TP + TL::G_SLOTS * TL::RP) * sizeof(T) +
+         (god ? TL::RP * (TL::GOD_F * sizeof(T) + sizeof(uint16_t)) : 0) +
+         (curv ? TL::RC * TL::CURV_F * sizeof(T) : 0);
+}
+
+// P around one output, from the ring of planes in shared memory: planes y - 2
+// .. y + 2 lie `plane` apart from y0 (plane y - 2 at y's position), `row` the
+// stride of axis 1
+template <typename T>
+struct Stencil {
+  const T* y0;
+  int plane, row;
+  __device__ __forceinline__ T at(int o0, int o1, int o2) const {
+    return y0[(o0 + 2) * plane + o1 * row + o2];
+  }
+  // offset o along axis d
+  __device__ __forceinline__ T along(int d, int o) const {
+    return d == 0 ? at(o, 0, 0) : (d == 1 ? at(0, o, 0) : at(0, 0, o));
+  }
+};
+
+template <typename T>
+inline dim3 terms_grid(const Geom& g) {
+  using TL = TermsTile<T>;
+  return dim3(static_cast<unsigned>((g.S[2] + TL::CX - 1) / TL::CX),
+              static_cast<unsigned>((g.S[1] + TL::CY - 1) / TL::CY),
+              static_cast<unsigned>(chunks_of(g.S[0])));
+}
+
+// The table's spacing constants, stage coefficients and constant
+// coefficients rounded to T once, on the host
+template <typename T>
+struct TermConsts {
+  T inv_h[3], half_h[3], inv_hh[3], inv_two_h[3], inv_hmix[3];
+  T dx, alpha, beta, gamma;
+  T value[LSM_MAX_TERMS];
+  // the entries of the Godunov kinds (normal motion, eikonal) and of curvature
+  int n_god, n_curv;
+  int god[LSM_MAX_TERMS], curv[LSM_MAX_TERMS];
+  static TermConsts of(const LsmStageTerms& p) {
+    TermConsts c;
+    c.n_god = c.n_curv = 0;
+    for (int e = 0; e < p.n; ++e) {
+      if (p.kind[e] == LSM_TERM_NORMAL || p.kind[e] == LSM_TERM_EIKONAL) c.god[c.n_god++] = e;
+      if (p.kind[e] == LSM_TERM_CURVATURE) c.curv[c.n_curv++] = e;
+    }
+    for (int d = 0; d < 3; ++d) {
+      c.inv_h[d] = T(p.inv_h[d]);
+      c.half_h[d] = T(p.half_h[d]);
+      c.inv_hh[d] = T(p.inv_hh[d]);
+      c.inv_two_h[d] = T(p.inv_two_h[d]);
+      c.inv_hmix[d] = T(p.inv_hmix[d]);
+    }
+    c.dx = T(p.dx_min);
+    c.alpha = T(p.alpha);
+    c.beta = T(p.beta);
+    c.gamma = T(p.gamma);
+    for (int e = 0; e < LSM_MAX_TERMS; ++e) c.value[e] = T(p.value[e]);
+    return c;
+  }
+};
 
 template <typename T>
 struct TermsBwdArgs {
@@ -569,7 +844,9 @@ struct TermsBwdArgs {
   double* part;
   T* dstream[LSM_MAX_TERMS];  // per table entry, its stream's cotangent or null
   Geom geo;
+  int chunk;
   LsmStageTerms tab;
+  TermConsts<T> k;
   int has_godunov, has_curvature;
   int needs_dt;  // K3'': the stage time's cotangent through program entries
 };
@@ -579,7 +856,7 @@ struct TermsBwdArgs {
 // so that the interpreter's registers and stack stay out of the adjoints of
 // the streamed and constant coefficients.
 template <typename T>
-__device__ __noinline__ T program_coef(const LsmProgram& p, int e, const int64_t* Y, bool dual,
+__device__ __noinline__ T program_coef(const LsmProgram& p, int e, const int* Y, bool dual,
                                        T* vdt) {
   const int64_t i0 = Y[0] - LSM_GHOST, i1 = Y[1] - LSM_GHOST, i2 = Y[2] - LSM_GHOST;
   return dual ? lsm::prog_eval<T, true>(p, e, 0, i0, i1, i2, vdt)
@@ -592,11 +869,11 @@ __device__ __noinline__ T program_coef(const LsmProgram& p, int e, const int64_t
 // instantiation without the call, so K3' of streamed and constant
 // coefficients keeps its registers.
 template <typename T, bool kProgram>
-__device__ __forceinline__ T coef_at(const TermsBwdArgs<T>& a, int e, int64_t q,
-                                     const int64_t* Y, bool dual, T* vdt) {
+__device__ __forceinline__ T coef_at(const TermsBwdArgs<T>& a, int e, int64_t q, const int* Y,
+                                     bool dual, T* vdt) {
   const LsmStageTerms& p = a.tab;
   if (p.coef[e] == LSM_COEF_STREAM) return static_cast<const T*>(p.stream[e][0])[q];
-  if (p.coef[e] == LSM_COEF_CONST) return T(p.value[e]);
+  if (p.coef[e] == LSM_COEF_CONST) return a.k.value[e];
   if constexpr (kProgram) {
     if (p.coef[e] == LSM_COEF_PROGRAM) return program_coef<T>(p.prog, e, Y, dual, vdt);
   }
@@ -611,8 +888,13 @@ template <typename T>
 __device__ __forceinline__ T tmin(T a, T b) {
   return a < b ? a : b;
 }
-__device__ __forceinline__ float tsqrt(float x) { return sqrtf(x); }
+// The square roots and quotients of K3': in float the hardware's
+// approximations (MUFU, a few ulp, against the 1e-3 the f32 checks allow),
+// in double IEEE
+__device__ __forceinline__ float tsqrt(float x) { return x > 0.0f ? x * rsqrtf(x) : 0.0f; }
 __device__ __forceinline__ double tsqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float qdiv(float a, float b) { return __fdividef(a, b); }
+__device__ __forceinline__ double qdiv(double a, double b) { return a / b; }
 __device__ __forceinline__ float tabs(float x) { return fabsf(x); }
 __device__ __forceinline__ double tabs(double x) { return fabs(x); }
 
@@ -654,19 +936,18 @@ struct GodAdj {
   T dc, ham, dt;  // dt: sum of the centre's coefficient cotangent times its d/dt
 };
 
+// S the P around y; Y the padded coordinates of y, q its interior index
 template <typename T, bool kProgram>
-__device__ void godunov_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q,
-                                const int64_t* Y, T gbar, bool centre, GodAdj<T>& o) {
+__device__ void godunov_adjoint(const TermsBwdArgs<T>& a, const Stencil<T>& S, int64_t q,
+                                const int* Y, T gbar, bool centre, GodAdj<T>& o) {
   const LsmStageTerms& p = a.tab;
-  const T* P = a.P;
-  const int64_t st[3] = {a.geo.s[0], a.geo.s[1], 1};
   T A[3], B[3];
   T gp2 = T(0), gm2 = T(0);
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    const int64_t s = st[d];
-    const T inv_h = T(p.inv_h[d]), half_h = T(p.half_h[d]), inv_hh = T(p.inv_hh[d]);
-    const T m2 = P[c - 2 * s], m1 = P[c - s], c0 = P[c], p1 = P[c + s], p2 = P[c + 2 * s];
+    const T inv_h = a.k.inv_h[d], half_h = a.k.half_h[d], inv_hh = a.k.inv_hh[d];
+    const T m2 = S.along(d, -2), m1 = S.along(d, -1), c0 = S.at(0, 0, 0);
+    const T p1 = S.along(d, 1), p2 = S.along(d, 2);
     const T d2c = (p1 - T(2) * c0 + m1) * inv_hh;
     const T d2mm = (m2 - T(2) * m1 + c0) * inv_hh;
     const T d2pp = (c0 - T(2) * p1 + p2) * inv_hh;
@@ -680,9 +961,8 @@ __device__ void godunov_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q,
   const T gp = gp2 > T(0) ? tsqrt(gp2) : T(0);
   const T gm = gm2 > T(0) ? tsqrt(gm2) : T(0);
   T dgp = T(0), dgm = T(0), dc = T(0), ham = T(0), tsum = T(0);
-  for (int e = 0; e < p.n; ++e) {
-    const int kind = p.kind[e], coef = p.coef[e];
-    if (kind != LSM_TERM_NORMAL && kind != LSM_TERM_EIKONAL) continue;
+  for (int i = 0; i < a.k.n_god; ++i) {
+    const int e = a.k.god[i], kind = p.kind[e], coef = p.coef[e];
     const bool dual = kProgram && centre && a.needs_dt && coef == LSM_COEF_PROGRAM;
     T vdt = T(0);
     const T v = coef_at<T, kProgram>(a, e, q, Y, dual, &vdt);
@@ -698,16 +978,16 @@ __device__ void godunov_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q,
       }
     } else if (coef == LSM_COEF_NONE) {
       // s = phi / sqrt(phi^2 + norm^2 dx^2) (0 where that is 0), H = s (norm - 1)
-      const T c0 = P[c], dx = T(p.dx_min);
+      const T c0 = S.at(0, 0, 0), dx = a.k.dx;
       const bool up = c0 > T(0);
       const T norm = up ? gp : gm;
       const T denom = tsqrt(c0 * c0 + norm * norm * dx * dx);
-      const T s = denom == T(0) ? T(0) : c0 / denom;
+      const T s = denom == T(0) ? T(0) : qdiv(c0, denom);
       const T ds = gbar * (norm - T(1));
       T dnorm = gbar * s;
-      const T ddenom = denom == T(0) ? T(0) : -ds * c0 / (denom * denom);
-      if (denom != T(0)) dc = dc + ds / denom;
-      const T dX = ddenom / (T(2) * denom);  // 0/0 where denom == 0, as autodiff's
+      const T ddenom = denom == T(0) ? T(0) : qdiv(-ds * c0, denom * denom);
+      if (denom != T(0)) dc = dc + qdiv(ds, denom);
+      const T dX = qdiv(ddenom, T(2) * denom);  // 0/0 where denom == 0, as autodiff's
       dc = dc + dX * (T(2) * c0);
       dnorm = dnorm + dX * dx * dx * (T(2) * norm);
       if (up) dgp = dgp + dnorm;
@@ -727,8 +1007,8 @@ __device__ void godunov_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q,
     if (centre && coef == LSM_COEF_STREAM && a.dstream[e] != nullptr) a.dstream[e][q] = dv;
     if (dual) tsum = tsum + dv * vdt;
   }
-  const T dgp2 = gp2 > T(0) ? dgp / (T(2) * gp) : T(0);
-  const T dgm2 = gm2 > T(0) ? dgm / (T(2) * gm) : T(0);
+  const T dgp2 = gp2 > T(0) ? qdiv(dgp, T(2) * gp) : T(0);
+  const T dgm2 = gm2 > T(0) ? qdiv(dgm, T(2) * gm) : T(0);
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     o.dA[d] = A[d] > T(0) ? dgp2 * (T(2) * A[d]) : (A[d] < T(0) ? dgm2 * (T(2) * A[d]) : T(0));
@@ -740,19 +1020,19 @@ __device__ void godunov_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q,
 }
 
 // what the Godunov kinds at y send to P[y + k e_d], k in -2..2 (the centre's
-// direct part excluded)
+// direct part excluded), from y's pieces along d: dA, dB and their minmod
+// branches sA, sB
 template <typename T>
-__device__ __forceinline__ T godunov_weight(const GodAdj<T>& o, const LsmStageTerms& p, int d,
-                                            int k) {
-  const T inv_h = T(p.inv_h[d]), half_h = T(p.half_h[d]), inv_hh = T(p.inv_hh[d]);
-  const T dA = o.dA[d], dB = o.dB[d];
+__device__ __forceinline__ T godunov_weight(T dA, T dB, int sA, int sB, const TermConsts<T>& c,
+                                            int d, int k) {
+  const T inv_h = c.inv_h[d], half_h = c.half_h[d], inv_hh = c.inv_hh[d];
   T w = T(0);
   // A = (c0 - m1)/h + h/2 minmod(D2--, D2_0); B = (p1 - c0)/h - h/2 minmod(D2++, D2_0)
   if (k == 0) w = w + dA * inv_h - dB * inv_h;
   if (k == -1) w = w - dA * inv_h;
   if (k == 1) w = w + dB * inv_h;
-  if (o.sA[d] != 0) w = w + dA * half_h * inv_hh * d2_coef<T>(o.sA[d] == 1 ? -1 : 0, k);
-  if (o.sB[d] != 0) w = w - dB * half_h * inv_hh * d2_coef<T>(o.sB[d] == 1 ? 1 : 0, k);
+  if (sA != 0) w = w + dA * half_h * inv_hh * d2_coef<T>(sA == 1 ? -1 : 0, k);
+  if (sB != 0) w = w - dB * half_h * inv_hh * d2_coef<T>(sB == 1 ? 1 : 0, k);
   return w;
 }
 
@@ -766,25 +1046,28 @@ struct CurvAdj {
 };
 
 template <typename T, bool kProgram>
-__device__ void curvature_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q,
-                                  const int64_t* Y, T gbar, bool centre, CurvAdj<T>& o) {
+__device__ void curvature_adjoint(const TermsBwdArgs<T>& a, const Stencil<T>& S, int64_t q,
+                                  const int* Y, T gbar, bool centre, CurvAdj<T>& o) {
   const LsmStageTerms& p = a.tab;
-  const T* P = a.P;
-  const int64_t st[3] = {a.geo.s[0], a.geo.s[1], 1};
   const int pair[3][2] = {{0, 1}, {0, 2}, {1, 2}};
-  const T c0 = P[c];
+  const T c0 = S.at(0, 0, 0);
   T g[3], hd[3], hm[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    const T plus = P[c + st[d]], minus = P[c - st[d]];
-    g[d] = (plus - minus) * T(p.inv_two_h[d]);
-    hd[d] = (plus - T(2) * c0 + minus) * T(p.inv_hh[d]);
+    const T plus = S.along(d, 1), minus = S.along(d, -1);
+    g[d] = (plus - minus) * a.k.inv_two_h[d];
+    hd[d] = (plus - T(2) * c0 + minus) * a.k.inv_hh[d];
   }
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const int64_t sa = st[pair[k][0]], sb = st[pair[k][1]];
-    hm[k] = (P[c + sa + sb] - P[c + sa - sb] - P[c - sa + sb] + P[c - sa - sb]) *
-            T(p.inv_hmix[k]);
+    // the edge neighbour (sa, sb) along the axis pair
+    auto edge = [&](int sa, int sb) {
+      int off[3] = {0, 0, 0};
+      off[pair[k][0]] += sa;
+      off[pair[k][1]] += sb;
+      return S.at(off[0], off[1], off[2]);
+    };
+    hm[k] = (edge(1, 1) - edge(1, -1) - edge(-1, 1) + edge(-1, -1)) * a.k.inv_hmix[k];
   }
   const T nrmsq = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
   const T lap = hd[0] + hd[1] + hd[2];
@@ -798,12 +1081,14 @@ __device__ void curvature_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q
   const T ns = safe ? nrmsq : T(1);
   const T root = tsqrt(ns);
   const T D = ns * root;
+  const T inv_D = qdiv(T(1), D);  // one reciprocal for the quotients by D
   const T N = lap * ns - quad;
-  const T kap = safe ? N / D : T(0);
-  const T nrm = nrmsq > T(0) ? tsqrt(nrmsq) : T(0);
+  const T kr = N * inv_D;
+  const T kap = safe ? kr : T(0);
+  const T nrm = safe ? root : (nrmsq > T(0) ? tsqrt(nrmsq) : T(0));
   T dkap = T(0), dnrm = T(0), ham = T(0), tsum = T(0);
-  for (int e = 0; e < p.n; ++e) {
-    if (p.kind[e] != LSM_TERM_CURVATURE) continue;
+  for (int i = 0; i < a.k.n_curv; ++i) {
+    const int e = a.k.curv[i];
     const bool stream = p.coef[e] == LSM_COEF_STREAM;
     const bool dual = kProgram && centre && a.needs_dt && p.coef[e] == LSM_COEF_PROGRAM;
     T bdt = T(0);
@@ -818,12 +1103,12 @@ __device__ void curvature_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q
     }
   }
   const T dK = safe ? dkap : T(0);
-  const T dN = dK / D;
-  const T dD = -dK * N / (D * D);
+  const T dN = dK * inv_D;
+  const T dD = -dN * kr;  // -dK N / D^2
   const T dns = dN * lap + dD * (T(1.5) * root);
   const T dlap = dN * ns;
   const T dquad = -dN;
-  const T dnrmsq = (safe ? dns : T(0)) + (nrmsq > T(0) ? dnrm / (T(2) * nrm) : T(0));
+  const T dnrmsq = (safe ? dns : T(0)) + (nrmsq > T(0) ? qdiv(dnrm, T(2) * nrm) : T(0));
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     o.dhd[d] = dquad * (g[d] * g[d]) + dlap;
@@ -842,139 +1127,268 @@ __device__ void curvature_adjoint(const TermsBwdArgs<T>& a, int64_t c, int64_t q
   o.dt = tsum;
 }
 
-constexpr int kTermsX = 64;
-constexpr int kTermsY = 4;
-
-__host__ __device__ inline dim3 terms_grid(const Geom& g) {
-  return dim3(static_cast<unsigned>((g.S[2] + kTermsX - 1) / kTermsX),
-              static_cast<unsigned>((g.S[1] + kTermsY - 1) / kTermsY),
-              static_cast<unsigned>(g.S[0]));
-}
-
-__device__ __forceinline__ bool inside3(const int64_t* X, const Geom& G) {
-  return inside(X[0], G.n[0]) && inside(X[1], G.n[1]) && inside(X[2], G.n[2]);
+// Phase 1's unit e of a K3' block, plane-invariant, built once per block:
+// its position (jj, kk) in a plane of outputs (RP = (CY + 4) x W, the column
+// at jj, kk in [2, CY + 2) x [2, CX + 2)), the column's positions first (unit
+// e = thread e: its own node), then the halo. x = jj * W + kk | (its
+// position in curvature's plane + 1, or 0 off it) << 16; y = its offset in
+// a plane of the P ring | jj << 16 | kk << 24; z = (Yj - 3) * n2 + (Yk - 3),
+// or -1 off the interior in the plane; w = whether the Godunov gather reads
+// its pieces.
+template <typename TL>
+__device__ __forceinline__ int4 terms_unit(int e, int j0, int k0, const Geom& G) {
+  constexpr int W = TL::W;
+  int jj, kk;
+  if (e < TL::NT) {
+    jj = e / TL::CX + 2;
+    kk = e % TL::CX + 2;
+  } else if (e - TL::NT < 4 * W) {  // two rows above the column, two below
+    const int h = e - TL::NT;
+    jj = h < 2 * W ? h / W : TL::CY + h / W;
+    kk = h % W;
+  } else {  // two lanes on each side
+    const int h = e - TL::NT - 4 * W;
+    jj = 2 + h / 4;
+    const int c = h % 4;
+    kk = c < 2 ? c : TL::CX + c;
+  }
+  const int Yj = j0 + jj - 2, Yk = k0 + kk - 2;
+  const bool c1 = jj >= 1 && jj <= TL::CY + 2 && kk >= 1 && kk <= TL::CX + 2;
+  // the Godunov gather reads along one axis: a corner's pieces are never read
+  const bool god = (jj >= 2 && jj < TL::CY + 2) || (kk >= 2 && kk < TL::CX + 2);
+  const bool in = inside(Yj, G.n[1]) && inside(Yk, G.n[2]);
+  return make_int4((jj * W + kk) | ((c1 ? (jj - 1) * TL::WC + kk : 0) << 16),
+                   ((jj + 2) * TL::TW + kk + 2) | (jj << 16) | (kk << 24),
+                   in ? (Yj - LSM_GHOST) * G.n[2] + (Yk - LSM_GHOST) : -1, god);
 }
 
 template <typename T, bool kProgram>
-__global__ void __launch_bounds__(kTermsX* kTermsY)
+__global__ void __launch_bounds__(TermsTile<T>::NT, TermsTile<T>::MIN_BLOCKS)
     stage_bwd_terms_kernel(const __grid_constant__ TermsBwdArgs<T> a) {
+  using TL = TermsTile<T>;
+  constexpr int CX = TL::CX, NT = TL::NT, W = TL::W, RP = TL::RP, WC = TL::WC, RC = TL::RC;
+  constexpr int TW = TL::TW, TP = TL::TP;
+  extern __shared__ __align__(16) unsigned char lsm_dyn_smem[];
+  __shared__ double red[4][NT / 32];
   const Geom& G = a.geo;
   const LsmStageTerms& p = a.tab;
-  const int64_t k = int64_t(blockIdx.x) * kTermsX + threadIdx.x;
-  const int64_t j = int64_t(blockIdx.y) * kTermsY + threadIdx.y;
-  const int64_t i = blockIdx.z;
-  const int64_t st[3] = {G.s[0], G.s[1], 1};
-  const int pair[3][2] = {{0, 1}, {0, 2}, {1, 2}};
-  const T neg_gamma = -T(p.gamma);
-  auto qidx = [&](const int64_t* Y) {
-    return ((Y[0] - LSM_GHOST) * G.n[1] + (Y[1] - LSM_GHOST)) * G.n[2] + (Y[2] - LSM_GHOST);
+  const bool god = a.has_godunov, curv = a.has_curvature;
+  // shared memory: the units' table, the ring of P's planes, the ring of g's
+  // (at the outputs' positions), the Godunov and curvature pieces of a plane
+  // (field-major), the Godunov minmod branches
+  int4* const units = reinterpret_cast<int4*>(lsm_dyn_smem);
+  T* const ring = reinterpret_cast<T*>(units + RP);
+  T* const gring = ring + TL::P_RING * TP;
+  T* const gp_ = gring + TL::G_SLOTS * RP;
+  T* const cp_ = gp_ + (god ? TL::GOD_F * RP : 0);
+  uint16_t* const sel = reinterpret_cast<uint16_t*>(cp_ + (curv ? TL::CURV_F * RC : 0));
+  auto pslot = [](int plane) { return (plane + 2 * TL::P_SLOTS) % TL::P_SLOTS * TP; };
+  auto gslot = [](int plane) { return (plane + 2 * TL::G_SLOTS) % TL::G_SLOTS * RP; };
+  const int t = threadIdx.x;
+  const int j0 = blockIdx.y * TL::CY, k0 = blockIdx.x * CX;
+  const int j = j0 + t / CX, k = k0 + t % CX;  // this thread's node in the column
+  const int own_pos = (t / CX + 2) * W + t % CX + 2, own_c = (t / CX + 1) * WC + t % CX + 1;
+  const int own_p = (t / CX + 4) * TW + t % CX + 4;
+  const int i0 = blockIdx.z * a.chunk, i1 = min(i0 + a.chunk, G.S[0]);
+  const TermConsts<T>& kc = a.k;
+  const T neg_gamma = -kc.gamma;
+  for (int e = t; e < RP; e += NT) units[e] = terms_unit<TL>(e, j0, k0, G);
+  // plane `plane` of P over the column and a reach of 4, asynchronously
+  auto load_plane = [&](int plane) {
+    T* const dst = ring + pslot(plane);
+    const bool mirror = pslot(plane) < (TL::P_RING - TL::P_SLOTS) * TP;
+    for (int e = t; e < TP; e += NT) {
+      const int jj = j0 - 4 + e / TW, kk = k0 - 4 + e % TW;
+      const bool in = plane >= 0 && plane < G.S[0] && jj >= 0 && jj < G.S[1] && kk >= 0 &&
+                      kk < G.S[2];
+      const T* const src = a.P + (in ? pidx(G, plane, jj, kk) : 0);
+      copy_async(dst + e, src, in);
+      if (mirror) copy_async(dst + TL::P_SLOTS * TP + e, src, in);
+    }
+  };
+  // plane `plane` of g at the outputs' positions (0 off the interior)
+  auto load_g = [&](int plane) {
+    T* const dst = gring + gslot(plane);
+    for (int e = t; e < RP; e += NT) {
+      const int Yj = j0 + e / W - 2, Yk = k0 + e % W - 2;
+      const bool in = interior(G, plane, Yj, Yk);
+      copy_async(dst + e, a.g + (in ? pidx(G, plane, Yj, Yk) : 0), in);
+    }
+  };
+  // y's Godunov pieces along d in this plane's buffer
+  auto gw = [&](const T* gb, const uint16_t* sb_, int pos, int d, int kq) -> T {
+    const int bits = sb_[pos] >> (4 * d);
+    return godunov_weight<T>(gb[d * RP + pos], gb[(3 + d) * RP + pos], bits & 3,
+                             (bits >> 2) & 3, kc, d, kq);
   };
   double sg = 0.0, sb = 0.0, sa = 0.0, st_ = 0.0;
-  if (k < G.S[2] && j < G.S[1]) {
-    const int64_t X[3] = {i, j, k};
-    const int64_t x = i * st[0] + j * st[1] + k;
-    T acc = T(0);
-    if (inside3(X, G)) {
-      const int64_t q = qidx(X);
-      const T gv = a.g[x];
-      const T gbar = neg_gamma * gv;
-      acc = T(p.beta) * gv;
-      T ham = T(0);
-      if (a.has_godunov) {
-        GodAdj<T> o;
-        godunov_adjoint<T, kProgram>(a, x, q, X, gbar, true, o);
-        acc = acc + (godunov_weight(o, p, 0, 0) + godunov_weight(o, p, 1, 0) +
-                     godunov_weight(o, p, 2, 0) + o.dc);
-        ham = ham + o.ham;
-        st_ += double(o.dt);
-      }
-      if (a.has_curvature) {
-        CurvAdj<T> o;
-        curvature_adjoint<T, kProgram>(a, x, q, X, gbar, true, o);
-        acc = acc - T(2) * (o.dhd[0] * T(p.inv_hh[0]) + o.dhd[1] * T(p.inv_hh[1]) +
-                            o.dhd[2] * T(p.inv_hh[2]));
-        ham = ham + o.ham;
-        st_ += double(o.dt);
-      }
-      if (a.daux != nullptr) a.daux[x] = T(p.alpha) * gv;
-      sg = double(gv) * double(ham);
-      sb = double(gv) * double(a.P[x]);
-      if (a.aux != nullptr) sa = double(gv) * double(a.aux[x]);
-    }
-    // outputs along each axis: +-1 (both kinds) and +-2 (Godunov kinds)
-    for (int d = 0; d < 3; ++d) {
-      for (int kk = -2; kk <= 2; ++kk) {
-        if (kk == 0) continue;
-        const bool near = kk == 1 || kk == -1;
-        if (!a.has_godunov && !near) continue;
-        int64_t Y[3] = {X[0], X[1], X[2]};
-        Y[d] -= kk;
-        if (!inside3(Y, G)) continue;
-        const int64_t y = x - kk * st[d], q = qidx(Y);
-        const T gbar = neg_gamma * a.g[y];
-        if (a.has_godunov) {
+  // dP of this thread's node on planes s - 2 .. s + 2, gathered as the pieces
+  // of plane s come: on planes s -+ 1, s -+ 2 from its own output (axis 0),
+  // on s from the outputs around it in the plane, on s -+ 1 from the edges
+  // across the axis pairs (0, 1), (0, 2)
+  T acc[5] = {};
+  const int s0 = i0 - 2, s1 = i1 + 2;  // the planes whose pieces this chunk needs
+  for (int plane = s0 - 2; plane <= s0 + 2; ++plane) load_plane(plane);
+  load_g(s0);
+  async_commit();
+  for (int s = s0; s < s1; ++s) {
+    async_wait();
+    __syncthreads();  // P's planes s - 2 .. s + 2 and g's plane s are in
+    load_plane(s + 3);
+    load_g(s + 1);
+    async_commit();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] = acc[q + 1];
+    acc[4] = T(0);
+    const T* const gs = gring + gslot(s);
+    // (the previous plane's readers passed the barrier above)
+    T* const gb = gp_;
+    T* const cb = cp_;
+    uint16_t* const sb_ = sel;
+    // phase 1: the pieces of plane s's outputs over the column and a halo
+    // of 2 (Godunov) or 1 (curvature); a thread's own output first
+    const bool in_s = inside(s, G.n[0]);
+    const int64_t qs = int64_t(s - LSM_GHOST) * G.m12;
+    const T* const planes = ring + pslot(s - 2);  // planes s - 2 .. s + 2, TP apart
+    for (int e = t; e < RP; e += NT) {
+      const int4 un = units[e];
+      const int pos = un.x & 0xffff, cpos1 = un.x >> 16;
+      const int Y[3] = {s, j0 + (un.y >> 16 & 0xff) - 2, k0 + (un.y >> 24) - 2};
+      const bool own = e < NT, in = in_s && un.z >= 0;
+      const bool centre = own && in && s >= i0 && s < i1;
+      const int64_t q = qs + un.z;
+      const T gbar = neg_gamma * gs[pos];
+      const Stencil<T> S{planes + (un.y & 0xffff), TP, TW};
+      if (god && un.w) {
+        if (in) {
           GodAdj<T> o;
-          godunov_adjoint<T, kProgram>(a, y, q, Y, gbar, false, o);
-          acc = acc + godunov_weight(o, p, d, kk);
+          godunov_adjoint<T, kProgram>(a, S, q, Y, gbar, centre, o);
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            gb[d * RP + pos] = o.dA[d];
+            gb[(3 + d) * RP + pos] = o.dB[d];
+          }
+          sb_[pos] = static_cast<uint16_t>(o.sA[0] | (o.sB[0] << 2) | (o.sA[1] << 4) |
+                                           (o.sB[1] << 6) | (o.sA[2] << 8) | (o.sB[2] << 10));
+          if (own) {  // along axis 0 and at the centre: this thread's own node
+            acc[2] = acc[2] + (godunov_weight<T>(o.dA[0], o.dB[0], o.sA[0], o.sB[0], kc, 0, 0) +
+                               godunov_weight<T>(o.dA[1], o.dB[1], o.sA[1], o.sB[1], kc, 1, 0) +
+                               godunov_weight<T>(o.dA[2], o.dB[2], o.sA[2], o.sB[2], kc, 2, 0) +
+                               o.dc);
+#pragma unroll
+            for (int kq = -2; kq <= 2; ++kq)
+              if (kq != 0)
+                acc[2 + kq] =
+                    acc[2 + kq] + godunov_weight<T>(o.dA[0], o.dB[0], o.sA[0], o.sB[0], kc, 0, kq);
+          }
+          if (centre) {
+            sg += double(gs[pos]) * double(o.ham);
+            st_ += double(o.dt);
+          }
+        } else {
+#pragma unroll
+          for (int f6 = 0; f6 < TL::GOD_F; ++f6) gb[f6 * RP + pos] = T(0);
+          sb_[pos] = 0;
         }
-        if (a.has_curvature && near) {
+      }
+      // curvature reaches 1: its pieces over the column and a halo of 1
+      if (curv && cpos1 > 0) {
+        const int cpos = cpos1 - 1;
+        if (in) {
           CurvAdj<T> o;
-          curvature_adjoint<T, kProgram>(a, y, q, Y, gbar, false, o);
-          const T dg = o.dg[d] * T(p.inv_two_h[d]);
-          acc = acc + ((kk == 1 ? dg : -dg) + o.dhd[d] * T(p.inv_hh[d]));
+          curvature_adjoint<T, kProgram>(a, S, q, Y, gbar, centre, o);
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            cb[d * RC + cpos] = o.dg[d];
+            cb[(3 + d) * RC + cpos] = o.dhd[d];
+            cb[(6 + d) * RC + cpos] = o.dhm[d];
+          }
+          if (own) {
+            acc[2] = acc[2] - T(2) * (o.dhd[0] * kc.inv_hh[0] + o.dhd[1] * kc.inv_hh[1] +
+                                      o.dhd[2] * kc.inv_hh[2]);
+            const T dg = o.dg[0] * kc.inv_two_h[0], dh = o.dhd[0] * kc.inv_hh[0];
+            acc[3] = acc[3] + (dg + dh);   // the node at s + 1 reads y as its -1
+            acc[1] = acc[1] + (-dg + dh);  // the node at s - 1 as its +1
+          }
+          if (centre) {
+            sg += double(gs[pos]) * double(o.ham);
+            st_ += double(o.dt);
+          }
+        } else {
+#pragma unroll
+          for (int f9 = 0; f9 < TL::CURV_F; ++f9) cb[f9 * RC + cpos] = T(0);
         }
       }
     }
-    // curvature's mixed differences: the 12 edge neighbours
-    if (a.has_curvature) {
-      for (int m = 0; m < 3; ++m) {
-        const int da = pair[m][0], db = pair[m][1];
-        for (int sa_ = -1; sa_ <= 1; sa_ += 2) {
-          for (int sb_ = -1; sb_ <= 1; sb_ += 2) {
-            int64_t Y[3] = {X[0], X[1], X[2]};
-            Y[da] -= sa_;
-            Y[db] -= sb_;
-            if (!inside3(Y, G)) continue;
-            const int64_t y = x - sa_ * st[da] - sb_ * st[db];
-            CurvAdj<T> o;
-            curvature_adjoint<T, kProgram>(a, y, qidx(Y), Y, neg_gamma * a.g[y], false, o);
-            const T w = o.dhm[m] * T(p.inv_hmix[m]);
-            acc = acc + (sa_ * sb_ > 0 ? w : -w);
+    __syncthreads();  // plane s's pieces are in
+    // phase 2: what the outputs around this thread's node in plane s send to
+    // it (on plane s) and, across the edges, to its nodes on planes s -+ 1
+    if (j < G.S[1] && k < G.S[2]) {
+      const int dpos[3] = {0, W, 1}, dcpos[3] = {0, WC, 1};
+#pragma unroll
+      for (int d = 1; d < 3; ++d) {
+#pragma unroll
+        for (int kk = -2; kk <= 2; ++kk) {
+          if (kk == 0) continue;
+          const bool near = kk == 1 || kk == -1;
+          if (!god && !near) continue;
+          // (the pieces of an output off the interior are 0)
+          if (god) acc[2] = acc[2] + gw(gb, sb_, own_pos - kk * dpos[d], d, kk);
+          if (curv && near) {
+            const int cpos = own_c - kk * dcpos[d];
+            const T dg = cb[d * RC + cpos] * kc.inv_two_h[d];
+            acc[2] = acc[2] + ((kk == 1 ? dg : -dg) + cb[(3 + d) * RC + cpos] * kc.inv_hh[d]);
           }
         }
       }
+      if (curv) {
+        // the mixed differences: y = x - sa e_da - sb e_db with y on plane s,
+        // x on plane s + sa when da is axis 0
+        const int pair[3][2] = {{0, 1}, {0, 2}, {1, 2}};
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          const int da = pair[m][0], db = pair[m][1];
+#pragma unroll
+          for (int sa_ = -1; sa_ <= 1; sa_ += 2) {
+#pragma unroll
+            for (int sb2 = -1; sb2 <= 1; sb2 += 2) {
+              const int cpos = own_c - (da != 0 ? sa_ * dcpos[da] : 0) - sb2 * dcpos[db];
+              const T w = cb[(6 + m) * RC + cpos] * kc.inv_hmix[m];
+              const int at = da == 0 ? 2 + sa_ : 2;
+              acc[at] = acc[at] + (sa_ * sb2 > 0 ? w : -w);
+            }
+          }
+        }
+      }
+      // dP of plane s - 2 is complete
+      const int i = s - 2;
+      if (i >= i0 && i < i1) {
+        const int64_t x = pidx(G, i, j, k);
+        T v = acc[0];
+        if (interior(G, i, j, k)) {
+          const T gv = a.g[x];
+          v = kc.beta * gv + v;
+          if (a.daux != nullptr) a.daux[x] = kc.alpha * gv;
+          sb += double(gv) * double(ring[pslot(i) + own_p]);
+          if (a.aux != nullptr) sa += double(gv) * double(a.aux[x]);
+        }
+        a.dP[x] = v;
+      }
     }
-    a.dP[x] = acc;
   }
-  __shared__ double red[4][kTermsX * kTermsY / 32];
-  sg = block_sum<kTermsX * kTermsY>(sg, red[0]);
-  sb = block_sum<kTermsX * kTermsY>(sb, red[1]);
-  sa = block_sum<kTermsX * kTermsY>(sa, red[2]);
-  st_ = block_sum<kTermsX * kTermsY>(st_, red[3]);
-  if (threadIdx.x == 0 && threadIdx.y == 0) {
+  async_wait();
+  __syncthreads();
+  sg = block_sum<NT>(sg, red[0]);
+  sb = block_sum<NT>(sb, red[1]);
+  sa = block_sum<NT>(sa, red[2]);
+  st_ = block_sum<NT>(st_, red[3]);
+  if (t == 0) {
     const int64_t bid = int64_t(blockIdx.x) + int64_t(gridDim.x) *
                         (int64_t(blockIdx.y) + int64_t(gridDim.y) * blockIdx.z);
     a.part[4 * bid] = sg;
     a.part[4 * bid + 1] = sb;
     a.part[4 * bid + 2] = sa;
     a.part[4 * bid + 3] = st_;
-  }
-}
-
-// out = (dalpha, dbeta, dgamma, dt) from K3''s per-block partials
-template <typename T>
-__global__ void __launch_bounds__(kReduceThreads)
-    stage_bwd_terms_reduce_kernel(const double* part, int64_t nb, T* out) {
-  __shared__ double red[4][kReduceThreads / 32];
-  const double sg = strided_sum(part, nb, 4, 0, red[0]);
-  const double sb = strided_sum(part, nb, 4, 1, red[1]);
-  const double sa = strided_sum(part, nb, 4, 2, red[2]);
-  const double st = strided_sum(part, nb, 4, 3, red[3]);
-  if (threadIdx.x == 0) {
-    out[0] = T(sa);
-    out[1] = T(sb);
-    out[2] = T(-sg);
-    out[3] = T(st);
   }
 }
 
@@ -993,35 +1407,38 @@ int launch_stage_bwd_terms(const void* P, const void* g, const void* aux, void* 
   a.daux = static_cast<T*>(daux);
   a.part = static_cast<double*>(part);
   a.geo = make_geom(n0, n1, n2);
+  a.chunk = chunk_len(a.geo.S[0]);
   a.tab = *terms;
+  a.k = TermConsts<T>::of(*terms);
   a.has_godunov = 0;
   a.has_curvature = 0;
   a.needs_dt = needs_dt;
   bool program = false;
   for (int e = 0; e < LSM_MAX_TERMS; ++e) {
     a.dstream[e] = e < terms->n ? static_cast<T*>(const_cast<void*>(dstreams[e])) : nullptr;
-    if (e >= terms->n) continue;
-    if (terms->kind[e] == LSM_TERM_NORMAL || terms->kind[e] == LSM_TERM_EIKONAL)
-      a.has_godunov = 1;
-    if (terms->kind[e] == LSM_TERM_CURVATURE) a.has_curvature = 1;
-    if (terms->coef[e] == LSM_COEF_PROGRAM && terms->kind[e] != LSM_TERM_ADVECTION) program = true;
+    if (e < terms->n && terms->coef[e] == LSM_COEF_PROGRAM &&
+        terms->kind[e] != LSM_TERM_ADVECTION)
+      program = true;
   }
-  const dim3 grid = terms_grid(a.geo);
+  a.has_godunov = a.k.n_god > 0;
+  a.has_curvature = a.k.n_curv > 0;
+  const dim3 grid = terms_grid<T>(a.geo);
   const auto kernel = program ? stage_bwd_terms_kernel<T, true> : stage_bwd_terms_kernel<T, false>;
-  kernel<<<grid, dim3(kTermsX, kTermsY, 1), 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+  const size_t smem = terms_smem<T>(a.has_godunov, a.has_curvature);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  stage_bwd_terms_reduce_kernel<T><<<1, kReduceThreads, 0, stream>>>(
-      a.part, nblocks(grid), static_cast<T*>(dcoef));
-  return static_cast<int>(cudaGetLastError());
+  kernel<<<grid, TermsTile<T>::NT, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_reduce<T>(a.part, nblocks(grid), true, dcoef, stream));
 }
 
 }  // namespace
 
+// scratch doubles: four per block of the larger grid (f64's)
 extern "C" int64_t lsm_stage_bwd_scratch(int64_t n0, int64_t n1, int64_t n2) {
-  const Geom geo = make_geom(n0, n1, n2);
-  return 3 * nblocks(bwd_grid<0>(geo)) + nblocks(bwd_grid<1>(geo)) +
-         nblocks(bwd_grid<2>(geo));
+  return 4 * nblocks(adv_grid<double>(make_geom(n0, n1, n2)));
 }
 
 extern "C" int lsm_stage_bwd_f32(const void* P, const void* g, const void* u0, const void* u1,
@@ -1082,8 +1499,9 @@ extern "C" int lsm_stage_bwd_prog_f64(const void* P, const void* g, const void* 
                                        accumulate, needs_dt, stream);
 }
 
+// scratch doubles: four per block of the larger grid (f64's)
 extern "C" int64_t lsm_stage_bwd_terms_scratch(int64_t n0, int64_t n1, int64_t n2) {
-  return 4 * nblocks(terms_grid(make_geom(n0, n1, n2)));
+  return 4 * nblocks(terms_grid<double>(make_geom(n0, n1, n2)));
 }
 
 extern "C" int lsm_stage_bwd_terms_f32(const void* P, const void* g, const void* aux, void* dP,

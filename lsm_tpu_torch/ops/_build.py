@@ -21,7 +21,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "SOURCE_FLAGS", "find_nvcc", "compile_library", "load_library", "Library"]
+__all__ = ["NVCC_FLAGS", "find_nvcc", "compile_library", "load_library", "Library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -31,9 +31,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-#: flags of one source only: the stage adjoints K3 and K3' round every
-#: product and sum on its own, so nothing there may contract into an FMA
-SOURCE_FLAGS = {"stage_backward.cu": ("-fmad=false",)}
 
 
 def find_nvcc() -> str:
@@ -57,7 +54,7 @@ def _sources():
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(sorted(SOURCE_FLAGS.items())).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -94,7 +91,7 @@ def compile_library(out: Path, nvcc: str) -> str:
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out.parent) as objdir:
         objs = {src: str(Path(objdir) / f"{src.stem}.o") for src in _sources()}
-        log = _run_all([[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-I", str(CSRC),
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC),
                          "-c", "-o", obj, str(src)] for src, obj in objs.items()])
         tmp = Path(objdir) / out.name
         log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs.values()]])

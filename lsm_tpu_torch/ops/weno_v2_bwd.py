@@ -23,7 +23,9 @@ version, and the autograd oracle they are held against.
   each advection term (the hand WENO5 adjoint, as JAX keeps it inside a
   mixed list). Its plain version is autograd of the plain stage for the
   other kinds, which have no float32 tie hazard, and the hand adjoint for
-  advection.
+  advection. :func:`stage_backward_terms_staged`, for the tests only, is the
+  CPU twin of the kernel's factorisation: each output's pieces once, then
+  the gather with the kernel's weights.
 - K3″, the program branch of K3 and K3' (``csrc/stage_backward.cu``): a
   program term (:mod:`.coef_program`) is evaluated per node in place of
   its streams, has no stream cotangent, and when the caller asks for it
@@ -342,8 +344,7 @@ def stage_backward(P: torch.Tensor, u, coeffs,
     need_du = need_du and not prog
     du = tuple(torch.empty_like(u[0]) for _ in range(3)) if need_du else None
     daux = torch.empty_like(P) if aux is not None and need_daux else None
-    part = torch.empty((2 if prog else 1) * lib.stage_bwd_scratch(*shape), dtype=torch.float64,
-                       device=P.device)
+    part = torch.empty(lib.stage_bwd_scratch(*shape), dtype=torch.float64, device=P.device)
     dcoef = (torch.zeros if prog else torch.empty)(4 if prog else 3, dtype=P.dtype,
                                                      device=P.device)
     alpha, beta, gamma = (float(c) for c in coeffs)
@@ -449,6 +450,250 @@ def stage_backward_terms_plain(P, terms, coeffs, aux, g, spacing, shape, need_ds
                 dt = dt + _dt_of(graph, du, dt)
             else:
                 dstreams[sl] = du
+    center = v2.unpack_padded(P, shape)
+    dalpha = (gi * v2.unpack_padded(aux, shape)).sum() if aux is not None else gi.new_zeros(())
+    dcoef = torch.stack([dalpha, (gi * center).sum(), -(gi * ham).sum()] + (
+        [dt] if any(spec.coef_kind == "program" for spec, _ in terms) else []))
+    daux = None
+    if aux is not None and need_daux:
+        daux = torch.empty_like(P)
+        v2.unpack_padded(daux, shape).copy_(alpha * gi)
+        zero_pad_shells_plain(daux, shape)
+    return dP, (tuple(dstreams) if need_dstreams else None), dcoef, daux
+
+
+# -- the CPU twin of K3''s staged factorisation ---------------------------------------
+
+
+def _d2_coef(centre: int, k: int) -> float:
+    """Coefficient of offset ``k`` in the second difference centred at
+    ``centre``."""
+    r = k - centre
+    return -2.0 if r == 0 else (1.0 if abs(r) == 1 else 0.0)
+
+
+def _minmod_sel(x, y):
+    """``minmod(x, y)`` and the argument it returned: 0 none, 1 ``x``, 2 ``y``."""
+    same = x * y > 0
+    first = x.abs() <= y.abs()
+    sel = torch.where(same, torch.where(first, 1, 2), 0)
+    return torch.where(same, torch.where(first, x, y), torch.zeros_like(x)), sel
+
+
+def _godunov_pieces(P, specs, vals, gbar, spacing, shape):
+    """The Godunov kinds' pieces of every interior output, once each (K3'
+    phase 1): ``(dA, dB, sA, sB, dc, ham, dvs)``: per axis the cotangents of
+    the ENO2 one-sided derivatives and their minmod branches, the centre's
+    direct cotangent, ``H`` and each term's coefficient cotangent."""
+    c0 = st._s(P, 0, 0, G, shape)
+    A, B, sA, sB = [], [], [], []
+    gp2 = gm2 = 0.0
+    for d, h in enumerate(spacing):
+        # the plain stencils' arithmetic, so that near-ties pick its branches
+        h = float(h)
+        d2c = st.d2c(P, d, h, G, shape)
+        mA, sa = _minmod_sel(st.d2mm(P, d, h, G, shape), d2c)
+        mB, sb = _minmod_sel(st.d2pp(P, d, h, G, shape), d2c)
+        A.append(st.dm(P, d, h, G, shape) + 0.5 * h * mA)
+        B.append(st.dp(P, d, h, G, shape) - 0.5 * h * mB)
+        sA.append(sa)
+        sB.append(sb)
+        gp2 = gp2 + A[d].clamp(min=0) ** 2 + B[d].clamp(max=0) ** 2
+        gm2 = gm2 + A[d].clamp(max=0) ** 2 + B[d].clamp(min=0) ** 2
+    zero = torch.zeros_like(c0)
+    gp = torch.where(gp2 > 0, gp2.clamp(min=0).sqrt(), zero)
+    gm = torch.where(gm2 > 0, gm2.clamp(min=0).sqrt(), zero)
+    dgp = dgm = dc = ham = zero
+    dvs = []
+    for spec, v in zip(specs, vals):
+        dv = zero
+        if spec.kind == "normal":
+            # H = max(v, 0) gp + min(v, 0) gm; a tie at v == 0 splits 0.5 / 0.5
+            dgp = dgp + gbar * v.clamp(min=0)
+            dgm = dgm + gbar * v.clamp(max=0)
+            ham = ham + (v.clamp(min=0) * gp + v.clamp(max=0) * gm)
+            dv = torch.where(v > 0, gbar * gp,
+                             torch.where(v < 0, gbar * gm, 0.5 * gbar * gp + 0.5 * gbar * gm))
+        elif spec.coef_kind == "none":
+            # s = phi / sqrt(phi^2 + norm^2 dx^2) (0 where that is 0), H = s (norm - 1)
+            dx = min(float(h) for h in spacing)
+            up = c0 > 0
+            norm = torch.where(up, gp, gm)
+            denom = (c0 * c0 + norm * norm * dx * dx).sqrt()
+            nz = denom != 0
+            s = torch.where(nz, c0 / torch.where(nz, denom, 1.0), zero)
+            ds = gbar * (norm - 1.0)
+            ddenom = torch.where(nz, -ds * c0 / (denom * denom), zero)
+            dc = dc + torch.where(nz, ds / torch.where(nz, denom, 1.0), zero)
+            dX = ddenom / (2.0 * denom)  # 0/0 where denom == 0, as autodiff's
+            dc = dc + dX * (2.0 * c0)
+            dnorm = gbar * s + dX * dx * dx * (2.0 * norm)
+            dgp = dgp + torch.where(up, dnorm, zero)
+            dgm = dgm + torch.where(up, zero, dnorm)
+            ham = ham + s * (norm - 1.0)
+        else:
+            # frozen sign s = v: H = s (norm - 1), norm = |grad+| where s > 0
+            up = v > 0
+            norm = torch.where(up, gp, gm)
+            dgp = dgp + torch.where(up, gbar * v, zero)
+            dgm = dgm + torch.where(up, zero, gbar * v)
+            ham = ham + v * (norm - 1.0)
+            dv = gbar * (norm - 1.0)
+        dvs.append(dv)
+    dgp2 = torch.where(gp2 > 0, dgp / (2.0 * torch.where(gp2 > 0, gp, 1.0)), zero)
+    dgm2 = torch.where(gm2 > 0, dgm / (2.0 * torch.where(gm2 > 0, gm, 1.0)), zero)
+    dA = [torch.where(a > 0, dgp2 * (2.0 * a), torch.where(a < 0, dgm2 * (2.0 * a), zero))
+          for a in A]
+    dB = [torch.where(b < 0, dgp2 * (2.0 * b), torch.where(b > 0, dgm2 * (2.0 * b), zero))
+          for b in B]
+    return dA, dB, sA, sB, dc, ham, dvs
+
+
+def _curvature_pieces(P, vals, gbar, spacing, shape):
+    """Curvature's pieces of every interior output, once each: the cotangents
+    ``(dg, dhd, dhm)`` of its central first, second and mixed differences,
+    ``H`` and each term's coefficient cotangent."""
+    pair = ((0, 1), (0, 2), (1, 2))
+    h = [float(x) for x in spacing]
+    c0 = st._s(P, 0, 0, G, shape)
+    g = [st.d0(P, d, h[d], G, shape) for d in range(3)]
+    hd = [st.d2c(P, d, h[d], G, shape) for d in range(3)]
+    hm = [st.d2_mixed(P, i, j, h[i], h[j], G, shape) for i, j in pair]
+    nrmsq = g[0] * g[0] + g[1] * g[1] + g[2] * g[2]
+    lap = hd[0] + hd[1] + hd[2]
+    quad = (g[0] * g[0] * hd[0] + 2.0 * g[0] * g[1] * hm[0] + 2.0 * g[0] * g[2] * hm[1]
+            + g[1] * g[1] * hd[1] + 2.0 * g[1] * g[2] * hm[2] + g[2] * g[2] * hd[2])
+    safe = nrmsq >= torch.finfo(P.dtype).eps
+    zero = torch.zeros_like(c0)
+    ns = torch.where(safe, nrmsq, 1.0)
+    root = ns.sqrt()
+    D = ns * root
+    N = lap * ns - quad
+    kap = torch.where(safe, N / D, zero)
+    nrm = torch.where(nrmsq > 0, nrmsq.clamp(min=0).sqrt(), zero)
+    dkap = dnrm = ham = zero
+    dvs = []
+    for b in vals:  # H = (b kappa) |grad|
+        dkap = dkap + gbar * nrm * b
+        dnrm = dnrm + gbar * (b * kap)
+        ham = ham + b * kap * nrm
+        dvs.append(gbar * nrm * kap)
+    dK = torch.where(safe, dkap, zero)
+    dN = dK / D
+    dD = -dK * N / (D * D)
+    dlap = dN * ns
+    dquad = -dN
+    dnrmsq = (torch.where(safe, dN * lap + dD * (1.5 * root), zero)
+              + torch.where(nrmsq > 0, dnrm / (2.0 * torch.where(nrmsq > 0, nrm, 1.0)), zero))
+    dhd = [dquad * (g[d] * g[d]) + dlap for d in range(3)]
+    dg = []
+    for d in range(3):
+        dgd = dquad * (2.0 * g[d] * hd[d])
+        for m, (i, j) in enumerate(pair):
+            if i == d:
+                dgd = dgd + dquad * (2.0 * g[j] * hm[m])
+            if j == d:
+                dgd = dgd + dquad * (2.0 * g[i] * hm[m])
+        dg.append(dgd + (2.0 * g[d]) * dnrmsq)
+    dhm = [dquad * (2.0 * g[i] * g[j]) for i, j in pair]
+    return dg, dhd, dhm, ham, dvs
+
+
+def stage_backward_terms_staged(P, terms, coeffs, aux, g, spacing, shape, need_dstreams=True,
+                                need_daux=True, where=None, need_dt=False):
+    """The CPU twin of K3''s factorisation, for the tests: each interior
+    output's Godunov pieces (per axis ``dA``, ``dB`` and the minmod branches)
+    and curvature pieces (``dg``, ``dhd``, ``dhm``) are evaluated once, then
+    ``dP`` gathers them with the weights of the kernel's phase 2. Returns
+    what :func:`stage_backward_terms_plain` returns (advection terms take the
+    same hand adjoint)."""
+    shape = tuple(shape)
+    terms = v2.as_terms(terms)
+    where = where or v2.Where()
+    alpha, beta, gamma = (float(c) for c in coeffs)
+    gi = v2.unpack_padded(g, shape)
+    gbar = -gamma * gi
+    h = [float(x) for x in spacing]
+    dP = torch.zeros_like(P)
+    v2.unpack_padded(dP, shape).copy_(beta * gi)
+    flat = [a for _, arrs in terms for a in arrs]
+    dstreams = [None] * len(flat)
+    ham = 0.0
+    dt = gi.new_zeros(())
+    god, curv = [], []  # (term index, spec, coefficient values, program graph)
+    for n, (spec, arrs) in enumerate(terms):
+        if spec.kind == "advection":
+            continue
+        graph = None
+        if spec.coef_kind == "program":
+            vals, graph = _program_coefs(spec, P, spacing, shape, where, need_dt)
+        else:
+            vals = v2._coef_values(spec, arrs, P, spacing, shape, where)
+        (curv if spec.kind == "curvature" else god).append((n, spec, vals[0] if vals else None,
+                                                            graph))
+    slices = _stream_slices(terms)
+
+    def spread(n, dv, graph):  # a term's coefficient cotangent: its stream's, or dt
+        nonlocal dt
+        if graph is not None:
+            dt = dt + _dt_of(graph, (dv,), dt)
+        elif terms[n][0].coef_kind == "stream":
+            dstreams[slices[n].start] = dv
+
+    def send(w, d, k):  # what every output y sends to P[y + k e_d]
+        st._s(dP, d, k, G, shape).add_(w)
+
+    if god:
+        dA, dB, sA, sB, dc, H, dvs = _godunov_pieces(P, [s for _, s, _, _ in god],
+                                                     [v for _, _, v, _ in god], gbar, spacing,
+                                                     shape)
+        ham = ham + H
+        for (n, _, _, graph), dv in zip(god, dvs):
+            spread(n, dv, graph)
+        send(dc, 0, 0)
+        for d in range(3):
+            inv_h, hh = 1.0 / h[d], 0.5 * h[d] / (h[d] * h[d])
+            for k in range(-2, 3):
+                w = (dA[d] * inv_h - dB[d] * inv_h if k == 0 else
+                     -dA[d] * inv_h if k == -1 else dB[d] * inv_h if k == 1 else 0.0)
+                cA = torch.where(sA[d] == 1, _d2_coef(-1, k), torch.where(sA[d] == 2,
+                                                                         _d2_coef(0, k), 0.0))
+                cB = torch.where(sB[d] == 1, _d2_coef(1, k), torch.where(sB[d] == 2,
+                                                                        _d2_coef(0, k), 0.0))
+                send(w + dA[d] * hh * cA - dB[d] * hh * cB, d, k)
+    if curv:
+        dg, dhd, dhm, H, dvs = _curvature_pieces(P, [v for _, _, v, _ in curv], gbar, spacing,
+                                                 shape)
+        ham = ham + H
+        for (n, _, _, graph), dv in zip(curv, dvs):
+            spread(n, dv, graph)
+        for d in range(3):
+            inv_hh, inv_2h = 1.0 / (h[d] * h[d]), 1.0 / (2.0 * h[d])
+            send(-2.0 * dhd[d] * inv_hh, d, 0)
+            send(dg[d] * inv_2h + dhd[d] * inv_hh, d, 1)
+            send(-dg[d] * inv_2h + dhd[d] * inv_hh, d, -1)
+        for m, (i, j) in enumerate(((0, 1), (0, 2), (1, 2))):
+            w = dhm[m] / (4.0 * h[i] * h[j])
+            for si in (-1, 1):
+                for sj in (-1, 1):
+                    off = [0, 0, 0]
+                    off[i], off[j] = si, sj
+                    st.shift(dP, tuple(off), G, shape).add_(w if si * sj > 0 else -w)
+    for (spec, arrs), sl in zip(terms, slices):
+        if spec.kind == "advection":
+            graph = None
+            if spec.coef_kind == "program":
+                arrs, graph = _program_coefs(spec, P, spacing, shape, where, need_dt)
+            H, dPa, du = _advection_backward(P, arrs, gbar, spacing, shape)
+            ham = ham + H
+            dP = dP + dPa
+            if spec.coef_kind == "program":
+                dt = dt + _dt_of(graph, du, dt)
+            else:
+                dstreams[sl] = du
+    for k, a in enumerate(flat):  # a stream the cotangent does not reach
+        if dstreams[k] is None:
+            dstreams[k] = torch.zeros_like(a)
     center = v2.unpack_padded(P, shape)
     dalpha = (gi * v2.unpack_padded(aux, shape)).sum() if aux is not None else gi.new_zeros(())
     dcoef = torch.stack([dalpha, (gi * center).sum(), -(gi * ham).sum()] + (

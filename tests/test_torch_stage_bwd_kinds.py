@@ -2,7 +2,8 @@
 ``stage_backward_terms_plain``) with the JAX package's ``stage_backward``, on
 the CPU in float64, over the normal-motion, curvature and eikonal kinds and
 sums of terms (JAX runs its Pallas kernel in interpret mode at the shape it
-tiles, its jnp composite below it), and with the port's own autograd oracle.
+tiles, its jnp composite below it), and with the port's own autograd oracle;
+and of the CPU twin of the kernel's staged factorisation with the plain K3'.
 
 As in ``test_torch_weno_v2_bwd.py``, the two packages store different padded
 layouts, so ``dP`` is compared on the interior after each package's own
@@ -19,6 +20,7 @@ import lsm_tpu as J
 import lsm_tpu_torch as T
 from lsm_tpu.ops import weno_v2 as jv2
 from lsm_tpu.ops import weno_v2_bwd as jbwd
+from lsm_tpu_torch.ops import coef_program as cp
 from lsm_tpu_torch.ops import weno_v2 as tv2
 from lsm_tpu_torch.ops import weno_v2_bwd as tbwd
 
@@ -191,3 +193,81 @@ def test_fused_step_stage_runs_k3_prime_on_a_term_list():
     assert _err(got[2], ref[2][2]) <= 1e-12
     for a, b in zip(got[3:], ref[1]):
         assert _err(a, b) <= 1e-12
+
+
+# -- the CPU twin of K3''s staged factorisation ------------------------------------------
+
+TWIN_BCS = {"periodic": lambda: T.Periodic(), "extrap1": lambda: T.LinearExtrapolation(),
+            "extrap2": lambda: T.Extrapolation(2)}
+
+
+def _speed(xs, t):
+    """A time-dependent normal speed, traced into a program."""
+    x, y, z = xs
+    return 0.1 + 0.05 * x + 0.02 * t * y
+
+
+#: config A's curvature + streamed normal motion, config C's normal motion,
+#: both eikonal sign forms, a program speed whose stage time needs a
+#: cotangent, and an advection term beside normal motion
+TWIN_LISTS = {
+    "config A": (("curvature", "const"), ("normal", "stream")),
+    "config C": (("normal", "stream"),),
+    "eikonal frozen": (("eikonal", "stream"),),
+    "eikonal none": (("eikonal", "none"),),
+    "program + dt": (("normal", "program"), ("curvature", "stream")),
+    "advection + normal": (("advection", "stream"), ("normal", "stream")),
+}
+
+
+def _twin_inputs(bc, kinds, with_aux, seed):
+    """The port's stage-backward inputs from numpy's generator: ``(P, terms,
+    aux, g, bcs)``; a streamed normal speed has exact zeros (its tie)."""
+    rng = np.random.default_rng(seed)
+    bcs = T.normalize_bcs(TWIN_BCS[bc](), 3)
+    P = tv2.pack_padded(torch.from_numpy(rng.standard_normal(SMALL)), bcs)
+    aux = tv2.pack_padded(torch.from_numpy(rng.standard_normal(SMALL)), bcs) if with_aux else None
+    g = torch.from_numpy(rng.standard_normal(tv2.padded_shape(SMALL)))
+    terms = []
+    for kind, coef in kinds:
+        if coef == "stream":
+            k = 3 if kind == "advection" else 1
+            arrs = rng.standard_normal((k, *SMALL)) * (0.3 if k == 3 else 1.0)
+            if kind == "normal":
+                arrs[:, :, ::3] = 0.0
+            terms.append((tv2.TermSpec(kind, "stream", None, k),
+                          tuple(torch.from_numpy(a.copy()) for a in arrs)))
+        elif coef == "program":
+            terms.append((tv2.TermSpec(kind, "program", cp.trace(_speed, 3, 1)), ()))
+        else:
+            terms.append((tv2.TermSpec(kind, coef, CONST.get(kind), 0), ()))
+    return P, tuple(terms), aux, g, bcs
+
+
+@pytest.mark.parametrize("with_aux", [False, True])
+@pytest.mark.parametrize("name", list(TWIN_LISTS))
+@pytest.mark.parametrize("bc", list(TWIN_BCS))
+def test_staged_twin_matches_plain(bc, name, with_aux):
+    """The CPU twin of K3''s design (each output's Godunov and curvature
+    pieces once, then dP gathered with the kernel's weights) against the
+    plain K3' (autograd of the plain Hamiltonians) in float64: dP, the stream
+    cotangents, dcoef (the stage time's cotangent included) and daux, within
+    1e-12 of max|ref|."""
+    P, terms, aux, g, bcs = _twin_inputs(bc, TWIN_LISTS[name], with_aux, seed=len(name) + len(bc))
+    gf = tbwd.fold_ghost_cotangent_plain(g.clone(), bcs, SMALL)
+    where = tv2.Where(LO, (3.0, -5.0, 7.0), 0.3)
+    coeffs = (0.3, 0.7, 0.12)
+    ref = tbwd.stage_backward_terms_plain(P, terms, coeffs, aux, gf, SPACING, SMALL, where=where,
+                                          need_dt=True)
+    got = tbwd.stage_backward_terms_staged(P, terms, coeffs, aux, gf, SPACING, SMALL,
+                                           where=where, need_dt=True)
+    rel = lambda a, b: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+    assert rel(got[0], ref[0]) <= 1e-12, name
+    assert len(got[1]) == len(ref[1])
+    for a, b in zip(got[1], ref[1]):
+        assert torch.equal(a, b) if float(b.abs().max()) == 0.0 else rel(a, b) <= 1e-12
+    assert got[2].shape == ref[2].shape and rel(got[2], ref[2]) <= 1e-12
+    if with_aux:
+        assert rel(got[3], ref[3]) <= 1e-12
+    else:
+        assert got[3] is None and ref[3] is None
