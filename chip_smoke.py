@@ -206,8 +206,8 @@ N_BAND_XL = 768  # the band's winning regime: band and dense integrate at 768^3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 FP32_OPS_PER_S = 67e12
 # FP32 operations per interior cell, counted from the sources (a division
-# counts as one): csrc/weno_stage.cu 88 per axis + 5, csrc/stage_backward.cu
-# 202 per axis + 1 (FE form, no aux)
+# or reciprocal counts as one): csrc/weno_stage.cu 88 per axis + 5,
+# csrc/stage_backward.cu 202 per axis + 1 (FE form, no aux)
 K1_OPS_PER_CELL = 3 * 88 + 5
 K3_OPS_PER_CELL = 3 * 202 + 1
 # csrc/hamiltonians.cuh per node (a division, square root or pow as one):
@@ -431,28 +431,85 @@ def phase_k2(dev, res):
     res["k2_err"] = worst
 
 
+# K1's and K1''s shapes where the march treats a tile apart: the 2D embedding
+# (n0 = 1, axis 0 compiled out; its axis-0 ghosts copy the plane, as
+# Extrapolation(0) refreshes them), axis 0 not a multiple of the march's
+# chunk (64 planes), and columns that tile neither axis 1 (16) nor axis 2
+# (32): with an odd n2 (element copies) and with n2 % 4 == 0 (pairs for the
+# tile and aux, 16-byte velocity copies, cut at the last tile)
+K1_MARCH_SHAPES = ((1, 75, 133), (67, 37, 75), (130, 20, 33), (67, 37, 100), (1, 45, 264))
+K1_MISALIGNED_SHAPE = (67, 37, 100)  # aux and u1 one element off their alignment there
+
+
+def k1_inputs(shape, dtype, dev, gen):
+    """A padded buffer of random values for K1 at ``shape`` (its ghosts
+    random too, or on the embedding (n0 = 1) the Extrapolation(0) copies
+    of the plane along axis 0 and periodic ones on the other axes), a
+    random aux buffer and the grid's spacing and ``lo``."""
+    grid = lsm.Grid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (max(shape[0], 2), *shape[1:]))
+    if shape[0] == 1:
+        bcs = ((lsm.Extrapolation(0), lsm.Extrapolation(0)),
+               *lsm.normalize_bcs(lsm.Periodic(), 2))
+        P = v2.pack_padded(torch.randn(shape, generator=gen, device=dev, dtype=dtype), bcs)
+    else:
+        P = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
+    A = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
+    return P, A, grid.spacing, grid.lo
+
+
+def misaligned(x):
+    """A contiguous copy of ``x`` that starts one element into its storage:
+    off the alignment the march's copies of two elements and of 16 bytes
+    need, so its launch copies an element at a time."""
+    out = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view(x.shape)
+    return out.copy_(x)
+
+
+def k1_compare(phase, label, P, terms, coeffs, aux, sp, shape, where=None, tol=None):
+    """K1 (or K1'') against its plain version on the same inputs, within
+    ``tol`` (K1_TOL in float32, 1e-12 in float64) times max(|ref|, 1);
+    returns max|kernel - plain|."""
+    tol = tol or (K1_TOL if P.dtype == torch.float32 else 1e-12)
+    got = v2.unpack_padded(v2.fused_stage(P, terms, coeffs, aux, sp, shape, where), shape)
+    ref = v2.unpack_padded(v2.stage_plain(P, terms, coeffs, aux, sp, shape, where), shape)
+    err = float((got - ref).abs().max())
+    scale = max(float(ref.abs().max()), 1.0)
+    log(phase, f"{label} {str(P.dtype)[6:]} shape={tuple(shape)} aux={aux is not None} "
+               f"max|kernel-plain|={err:.3e} scale={scale:.3e} tol={tol:g}*scale")
+    if not (bool(torch.isfinite(got).all()) and err <= tol * scale):
+        raise AssertionError(f"{label} parity failed at {tuple(shape)}: {err} > {tol} * {scale}")
+    return err
+
+
 def phase_k1(dev, res):
+    """K1 against its plain version, f32 and f64: random buffers at a shape
+    of each dtype and at K1_MARCH_SHAPES in both, with and without aux."""
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
-    for dtype, shape, tol in ((torch.float32, (96, 128, 160), K1_TOL),
-                              (torch.float64, (32, 48, 64), 1e-12)):
-        grid = lsm.Grid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), shape)
-        P = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
-        A = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
-        xs = v2.node_coords(shape, grid.spacing, grid.lo, dtype, dev)
+    cases = [(torch.float32, (96, 128, 160)), (torch.float64, (32, 48, 64))]
+    cases += [(dtype, shape) for shape in K1_MARCH_SHAPES
+              for dtype in (torch.float32, torch.float64)]
+    for dtype, shape in cases:
+        P, A, sp, lo = k1_inputs(shape, dtype, dev, gen)
+        xs = v2.node_coords(shape, sp, lo, dtype, dev)
         u = v2.eval_components(rotation(xs, 0.0), shape, dtype, dev)  # u2 == 0: ties
+        if shape[0] == 1:  # the embedding: any u0 (its term is exactly zero)
+            u = (torch.randn(shape, generator=gen, device=dev, dtype=dtype), *u[1:])
         for aux, coeffs in ((None, (0.0, 1.0, 1e-3)), (A, (0.75, 0.25, 2.5e-4))):
-            got = v2.fused_stage(P, u, coeffs, aux, grid.spacing, shape)
-            ref = v2.stage_plain(P, u, coeffs, aux, grid.spacing, shape)
-            torch.cuda.synchronize()
-            g, r = v2.unpack_padded(got, shape), v2.unpack_padded(ref, shape)
-            err = float((g - r).abs().max())
-            scale = max(float(r.abs().max()), 1.0)
-            ok = bool(torch.isfinite(g).all()) and err <= tol * scale
-            log("k1", f"{str(dtype):13s} shape={shape} aux={aux is not None} "
-                      f"max|kernel-plain|={err:.3e} scale={scale:.3e} tol={tol:g}*scale")
-            if not ok:
-                raise AssertionError(f"K1 parity failed: {err} > {tol} * {scale}")
+            err = k1_compare("k1", "K1", P, u, coeffs, aux, sp, shape)
+            if dtype == torch.float32:
+                worst = max(worst, err)
+        if shape == K1_MISALIGNED_SHAPE:  # the same stage from misaligned aux and u1
+            coeffs = (0.75, 0.25, 2.5e-4)
+            mu = (u[0], misaligned(u[1]), u[2])
+            err = k1_compare("k1", "K1 misaligned aux, u1", P, mu, coeffs, misaligned(A), sp,
+                             shape)
+            same = torch.equal(*(v2.unpack_padded(v2.fused_stage(P, w, coeffs, a, sp, shape),
+                                                  shape) for w, a in ((u, A), (mu, misaligned(A)))))
+            log("k1", f"K1 {str(dtype)[6:]} shape={shape}: aligned and misaligned inputs "
+                      f"give equal bits: {same}")
+            if not same:
+                raise AssertionError(f"K1 at {shape}: misaligned aux and u1 change the bits")
             if dtype == torch.float32:
                 worst = max(worst, err)
     res["k1_err"] = worst
@@ -752,6 +809,32 @@ def phase_k512(dev, res):
         worst_p = max(worst_p, err)
         del g, r
     res["k1a_err"] = max(res["k1a_err"], worst_p)
+    # the march's bits do not depend on the launch: K1 and K1'' twice on RK3
+    # stage 2's inputs (the interior: the kernels leave the shells unset)
+    for label, terms_i, where_i in (("K1", u, None), ("K1''", terms, where)):
+        call = (lambda t=terms_i, w=where_i: v2.unpack_padded(v2.fused_stage(
+            P1, t, (0.75, 0.25, 0.25 * dt), P, sp, shape, w), shape).contiguous())
+        first = call()
+        repeat_check("k512", f"{label} {N_MAIN}^3 stage 2", call, first)
+        del first
+    # the sharded flagship's shards (make_sharded_evolve on (4, 1) and (2, 2)
+    # meshes): the padded block of the 512^3 buffer a shard holds, its
+    # velocity, and its program at the shard's nonzero origin
+    for mesh_shape, at in (((4, 1), (N_MAIN // 4, 0)), ((2, 2), (N_MAIN // 2, N_MAIN // 2))):
+        sub = (N_MAIN // mesh_shape[0], N_MAIN // mesh_shape[1], N_MAIN)
+        box = tuple(slice(a, a + m) for a, m in zip(at, sub[:2]))
+        pbox = tuple(slice(a, a + m + 2 * v2.GHOST) for a, m in zip(at, sub[:2]))
+        where_s = v2.Where(grid.lo, (*at, 0), 0.0)
+        for dtype in (torch.float32, torch.float64):
+            Ps, As = P1[pbox].to(dtype).contiguous(), P[pbox].to(dtype).contiguous()
+            us = tuple(c[box].to(dtype).contiguous() for c in u)
+            for label, terms_s in (("K1", us), (f"K1'' rotation origin {(*at, 0)}", terms)):
+                err = k1_compare("k512", f"{label} shard of {mesh_shape}", Ps, terms_s,
+                                 (0.75, 0.25, 0.25 * dt), As, sp, sub, where_s)
+                if dtype == torch.float32:
+                    key = "k1_err" if label == "K1" else "k1a_err"
+                    res[key] = max(res[key], err)
+            del Ps, As, us
     gen = torch.Generator(device=dev).manual_seed(3)
     shell = torch.ones_like(P1, dtype=torch.bool)
     v2.unpack_padded(shell, shape).fill_(False)
@@ -3036,6 +3119,18 @@ def phase_k1analytic(dev, res):
             log("k1analytic", f"K1'' {str(dtype)[6:]} {bname:9s} shape={shape} t={T_STAGE} "
                               f"origins 0 and {ORIGIN}: max|kernel-plain|/scale (tol {tol:g}): "
                               + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()))
+        # the march's own shapes: the rotation (a component per column, one
+        # per plane) and the vortex (per node), on random buffers
+        for shape in K1_MARCH_SHAPES:
+            P, A, sp, lo = k1_inputs(shape, dtype, dev, gen)
+            for name, terms, _ in analytic_cases()[:2]:
+                for origin in (None, ORIGIN):
+                    where = v2.Where(lo, origin, T_STAGE)
+                    for aux, coeffs in ((None, (0.0, 0.0, 1.0)), (A, (0.75, 0.25, 2.5e-4))):
+                        err = k1_compare("k1analytic", f"K1'' {name} origin {origin}", P, terms,
+                                         coeffs, aux, sp, shape, where, tol)
+                        if dtype == torch.float32:
+                            worst = max(worst, err)
     res["k1a_err"] = worst
 
 
@@ -4080,6 +4175,8 @@ def main(argv=()) -> int:
             log("build", line.strip())
     for name, info in stage_adjoint_ptxas(lib.log):
         log("build", f"stage adjoint {name}: {info}")
+    for name, info in forward_stage_ptxas(lib.log):
+        log("build", f"forward stage {name}: {info}")
     res = {"t": {}, "launches": {}, "mem": {}}
     if argv:  # a partial run: what the skipped phases would have recorded starts at 0
         res = collections.defaultdict(float, res)
@@ -4127,31 +4224,54 @@ def main(argv=()) -> int:
     return 0
 
 
-def stage_adjoint_ptxas(build_log):
-    """``(kernel, "N registers, S B spill stores, M B static smem")`` of each
-    kernel of ``csrc/stage_backward.cu`` in nvcc's ``-Xptxas -v`` output (the
-    tiles' dynamic shared memory is set at launch)."""
-    names = {"stage_bwd_kernel": "K3", "stage_bwd_terms_kernel": "K3'",
-             "stage_bwd_reduce_kernel": "reduction"}
+def ptxas_summary(build_log, source, names):
+    """``(kernel, its mangled template arguments, "N registers, S B spill
+    stores, M B static smem")`` of each kernel of ``csrc/<source>`` named in
+    ``names`` in nvcc's ``-Xptxas -v`` output (dynamic shared memory is set
+    at launch)."""
+    key = source.replace(".", "_")
     out, cur, spill = [], None, ""
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            cur = None
-            for key, label in names.items():
-                if "stage_backward_cu" in line and key + "I" in line:
-                    m = line.split(key + "I", 1)[1]
-                    dtype = "f32" if m.startswith("f") else "f64"
-                    prog = "Lb1" in m.split("EE", 1)[0][:4]
-                    kind = {"K3": "K3''", "K3'": "K3' (program)",
-                            "reduction": "reduction (dt)"}[label] if prog else label
-                    cur = f"{kind} {dtype}"
+            cur = next(((name, line.split(name + "I", 1)[1]) for name in names
+                        if key in line and name + "I" in line), None)
         elif cur and "spill stores" in line:
             spill = line.split("bytes stack frame, ")[-1].split(",")[0].strip()
         elif cur and "Used" in line and "registers" in line:
             regs = line.split("Used ")[1].split(" registers")[0]
             smem = line.rsplit(", ", 1)[-1].strip() if "smem" in line else "0 bytes smem"
-            out.append((cur, f"{regs} registers, {spill}, {smem} static"))
+            out.append((*cur, f"{regs} registers, {spill}, {smem} static"))
             cur = None
+    return out
+
+
+def stage_adjoint_ptxas(build_log):
+    """``(kernel, registers, spills and static shared memory)`` of each
+    kernel of ``csrc/stage_backward.cu`` (K3, K3'', K3' and the reduction)."""
+    names = {"stage_bwd_kernel": "K3", "stage_bwd_terms_kernel": "K3'",
+             "stage_bwd_reduce_kernel": "reduction"}
+    out = []
+    for name, args, info in ptxas_summary(build_log, "stage_backward.cu", names):
+        label = names[name]
+        dtype = "f32" if args.startswith("f") else "f64"
+        if "Lb1" in args.split("EE", 1)[0][:4]:  # the program instantiation
+            label = {"K3": "K3''", "K3'": "K3' (program)", "reduction": "reduction (dt)"}[label]
+        out.append((f"{label} {dtype}", info))
+    return out
+
+
+def forward_stage_ptxas(build_log):
+    """The same for the march of ``csrc/weno_stage.cu`` (K1, K1''; the 2D
+    embedding's instantiations without axis 0; "K1'' per node": the kernel of
+    one thread per node, for a component evaluated per node and the
+    embedding)."""
+    names = {"stage_march_kernel": "K1", "stage_march_prog_kernel": "K1''",
+             "stage_node_prog_kernel": "K1'' per node"}
+    out = []
+    for name, args, info in ptxas_summary(build_log, "weno_stage.cu", names):
+        dtype = "f32" if args.startswith("f") else "f64"
+        axis0 = "" if args[1:4] != "Lb0" else " (2D embedding: axis 0 compiled out)"
+        out.append((f"{names[name]} {dtype}{axis0}", info))
     return out
 
 

@@ -139,11 +139,15 @@ int lsm_weno_stage_terms_f64(const void* P, const void* aux, void* out, int64_t 
 
 /* K1'': the advection-only stage with the velocity of the table's entry 0, a
  * 3-component program evaluated per node. Arguments as for
- * lsm_weno_stage_terms_*. */
+ * lsm_weno_stage_terms_*; axes0..axes2: the coordinate axes component d
+ * reads (bit a for axis a), as the tracer found them
+ * (lsm_tpu_torch.ops.coef_program.Program.axes). */
 int lsm_weno_stage_prog_f32(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
-                            int64_t n2, const LsmStageTerms* terms, void* stream);
+                            int64_t n2, const LsmStageTerms* terms, int axes0, int axes1,
+                            int axes2, void* stream);
 int lsm_weno_stage_prog_f64(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
-                            int64_t n2, const LsmStageTerms* terms, void* stream);
+                            int64_t n2, const LsmStageTerms* terms, int axes0, int axes1,
+                            int axes2, void* stream);
 
 /* The program tables of K1'', K3'' and K6'' (csrc/coef_tables.cu): every
  * slot of *fill (a host pointer) evaluated by the programs' interpreter

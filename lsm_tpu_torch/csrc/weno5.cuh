@@ -1,11 +1,13 @@
 // Per-node WENO5 advection stage, shared by K1 (weno_stage.cu), K6
 // (band_stage.cu) and the general path's K10/K11 (weno_general.cu) so that
-// the stages cannot drift apart.
+// the stages cannot drift apart. K1's march reads its samples from shared
+// memory and registers and forms the same differences itself, then calls
+// weno5_upwind.
 //
 // Arithmetic follows lsm_tpu/ops/stencils.py `weno5_upwind` /
 // `_weno_combine` term by term: the five stencil inputs are selected by the
 // sign of u (u == 0 takes the plus branch), one Jiang-Shu core runs, and the
-// weights use the one-division form.
+// weights use the one-division form, its two reciprocals `weno_recip`.
 #ifndef LSM_WENO5_CUH
 #define LSM_WENO5_CUH
 
@@ -27,6 +29,21 @@ struct WenoFloor<double> {
 template <typename T>
 __device__ __forceinline__ T max2(T a, T b) {
   return a > b ? a : b;
+}
+
+// 1 / x for the weights: in float the hardware's approximate reciprocal and
+// one Newton step, as the reference's `_fast_recip` (lsm_tpu/ops/weno_v2.py);
+// within about an ulp of the division, without its branches to a slow path.
+// In double the IEEE division.
+template <typename T>
+__device__ __forceinline__ T weno_recip(T x) {
+  if constexpr (sizeof(T) == 4) {
+    float r;
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+    return r * (2.0f - x * r);
+  } else {
+    return T(1.0) / x;
+  }
 }
 
 // u * WENO5 upwind derivative from the six backward differences dm[0..5]
@@ -56,7 +73,7 @@ __device__ __forceinline__ T weno5_upwind(const T* dm, T u) {
   const T s3 = c13 * (c3 * c3) + T(0.25) * (t3 * t3);
   const T vmax = max2(max2(max2(v1 * v1, v2 * v2), max2(v3 * v3, v4 * v4)), v5 * v5);
   const T eps = T(1.0e-6) * vmax + WenoFloor<T>::value();
-  const T r = T(1.0) / eps;
+  const T r = weno_recip(eps);
   const T b1 = s1 * r + T(1.0);
   const T b2 = s2 * r + T(1.0);
   const T b3 = s3 * r + T(1.0);
@@ -66,7 +83,7 @@ __device__ __forceinline__ T weno5_upwind(const T* dm, T u) {
   const T q1 = T(0.1) * (p1 * p1);
   const T q2 = T(0.6) * (p2 * p2);
   const T q3 = T(0.3) * (p3 * p3);
-  const T w = T(1.0) / (q1 + q2 + q3);
+  const T w = weno_recip(q1 + q2 + q3);
   return u * ((q1 * d1 + q2 * d2 + q3 * d3) * w);
 }
 

@@ -135,6 +135,7 @@ class Library:
         band_ghost_args = [vp] + [i64] * 3 + [vp] * 4 + [vp]
         retube_args = [vp] * 5 + [i64] * 9 + [vp]
         terms_args = [vp] * 3 + [i64] * 3 + [vp, vp]
+        prog_args = [vp] * 3 + [i64] * 3 + [vp] + [ci] * 3 + [vp]
         band_terms_args = [vp] * 5 + [i64] * 7 + [vp, vp]
         general_2d_args = [vp] * 5 + [i64] * 2 + [f64] * 5 + [vp]
         band_stage_2d_args = [vp] * 7 + [i64] * 5 + [f64] * 5 + [vp]
@@ -147,7 +148,7 @@ class Library:
                  "general_3d": ("lsm_weno_general_3d", stage_args),
                  "general_2d": ("lsm_weno_general_2d", general_2d_args),
                  "stage_terms": ("lsm_weno_stage_terms", terms_args),
-                 "stage_prog": ("lsm_weno_stage_prog", terms_args),
+                 "stage_prog": ("lsm_weno_stage_prog", prog_args),
                  "refresh": ("lsm_refresh_ghosts", ghost_args),
                  "refresh_axis": ("lsm_refresh_axis", axis_args),
                  "shell_blocks": ("lsm_shell_blocks", shell_args),

@@ -454,11 +454,13 @@ class Program:
     ``tables`` (``(node, axis)``, axis -1 for one value) and the programs
     that fill them (``table_components``), ``depends_on_t``, and the
     callable ``fn`` it came from (tracing a new callable builds a new
-    program). ``n_arith`` counts the arithmetic operations per node,
-    ``table_arith`` those per entry of each table."""
+    program). ``axes`` holds the coordinate axes each component reads (bit
+    ``d`` for axis ``d``), ``n_arith`` counts the arithmetic operations per
+    node, ``table_arith`` those per entry of each table."""
 
     __slots__ = ("fn", "roots", "components", "tables", "table_components", "depends_on_t",
-                 "n_ops", "n_consts", "n_table_ops", "n_table_consts", "n_arith", "table_arith")
+                 "axes", "n_ops", "n_consts", "n_table_ops", "n_table_consts", "n_arith",
+                 "table_arith")
 
     def __init__(self, fn, roots, depends_on_t):
         self.fn = fn
@@ -470,6 +472,7 @@ class Program:
         self.tables = tuple((node, next(iter(_axes(node, memo)), -1)) for node in tables)
         self.table_components = tuple(self._program(node, None, memo) for node in tables)
         self.depends_on_t = bool(depends_on_t)
+        self.axes = tuple(sum(1 << d for d in _axes(root, memo)) for root in self.roots)
         self.n_ops = sum(len(c) for c in self.components)
         self.n_consts = _n_consts(self.components)
         self.n_table_ops = sum(len(c) for c in self.table_components)

@@ -793,7 +793,12 @@ def fused_stage(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
     Replaces ``lsm_tpu.ops.weno_v2.fused_stage`` (a callable that did not
     trace is evaluated into streams first, :func:`resolve_terms`). CUDA
     tensors go to ``csrc/weno_stage.cu`` (the advection-only stage to its
-    own entries), CPU tensors to :func:`stage_plain`.
+    own entries), CPU tensors to :func:`stage_plain`. With ``shape[0] == 1``
+    (the 2D embedding) the advection-only entries take the axis-0 term as
+    zero: ``P``'s axis-0 ghosts must copy its one plane, as
+    :func:`pack_padded` and :func:`refresh_ghosts_fast` leave them under
+    every boundary condition a one-node axis admits; on other ghosts the
+    card drops a term that :func:`stage_plain` keeps.
     """
     shape = tuple(shape)
     if len(shape) != 3 or len(spacing) != 3:
@@ -824,12 +829,12 @@ def fused_stage(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
                 stream)
         else:
             tab = stage_table(terms, spacing, coeffs, where, shape, P)
-            if is_advection_only(terms):
-                fn = lib.stage_prog_f32 if f32 else lib.stage_prog_f64
+            args = (P.data_ptr(), aux_ptr, out.data_ptr(), *shape, ctypes.addressof(tab))
+            if is_advection_only(terms):  # the march reads which axes each component reads
+                code = (lib.stage_prog_f32 if f32 else lib.stage_prog_f64)(
+                    *args, *terms[0][0].coef_static.axes, stream)
             else:
-                fn = lib.stage_terms_f32 if f32 else lib.stage_terms_f64
-            code = fn(P.data_ptr(), aux_ptr, out.data_ptr(), *shape, ctypes.addressof(tab),
-                      stream)
+                code = (lib.stage_terms_f32 if f32 else lib.stage_terms_f64)(*args, stream)
     _raise_on(code, lib, "weno_stage kernel")
     bump(fused_stage, launches=1, kinds_launches=not is_advection_only(terms),
          program_launches=any(spec.coef_kind == "program" for spec, _ in terms))

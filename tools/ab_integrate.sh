@@ -2,11 +2,17 @@
 # A/B of two trees of this repository on one card, in turns: first, second,
 # second, first. Each tree runs its own chip_smoke helpers in a process of its
 # own and prints one line: the end-to-end `integrate` ms per step of the
-# 512^3 Zalesak main path (streamed rotation, FE and RK3, 10 steps per call,
-# median of 20 calls), and the CUDA-event medians of the advection-only K1 on
-# its stage-1 inputs and of the advection-only K6 on the 512^3 sphere band.
-# A tree that has the term kinds also times K1' on configs A and B (frozen
-# sign) and K6' on config C.
+# 512^3 Zalesak main path (FE and RK3 with the rotation streamed, RK3 with it
+# in-kernel as a callable; 10 steps per call, median of 20 calls), of the
+# same in-kernel RK3 through `make_sharded_evolve(fused=True)` on 4 shards of
+# the card (meshes (4, 1) and (2, 2)), of cell (b) (a 20-step RK3 rollout's
+# gradient under remat, ms per step) and of D2 and D3 (configurations 2 and 3
+# of `models.benchmarks`, the 2D embedding) at 4096^2; the CUDA-event medians
+# of the advection-only K1 on its stage-1
+# inputs and with aux, of K1'' with the rotation and with the vortex
+# in-kernel, and of the advection-only K6 on the 512^3 sphere band. A tree
+# that has the term kinds also times K1' on configs A and B (frozen sign) and
+# K6' on config C.
 #
 # From the repository root, on a machine with one H100:
 #   git archive <parent> | tar -x -C _archive/parent
@@ -21,6 +27,7 @@ import sys
 import torch
 import chip_smoke as cs
 import lsm_tpu_torch as lsm
+from lsm_tpu_torch import parallel as par
 from lsm_tpu_torch.integrators.band_fused import FusedBandStepper
 from lsm_tpu_torch.integrators.fused import FusedStepper
 from lsm_tpu_torch.ops import band as bd
@@ -37,7 +44,35 @@ u = tuple(vel.values[d].contiguous() for d in range(3))
 dt = 0.25 * grid.min_spacing
 out["K1_ms"] = cs.cuda_time(lambda: v2.fused_stage(P, u, (0.0, 1.0, dt), None, grid.spacing,
                                                    grid.shape))
-del P, u, phi, vel
+out["K1_aux_ms"] = cs.cuda_time(lambda: v2.fused_stage(P, u, (0.75, 0.25, 0.25 * dt), P,
+                                                       grid.spacing, grid.shape))
+where = v2.Where(grid.lo, None, cs.T_STAGE)
+for name, fn in (("rotation", cs.rotation), ("vortex", cs.vortex3)):
+    prog = (cs.program_term("advection", fn),)
+    out[f"K1pp_{name}_ms"] = cs.cuda_time(lambda: v2.fused_stage(
+        P, prog, (0.0, 1.0, dt), None, grid.spacing, grid.shape, where))
+rot = lsm.AdvectionTerm(cs.rotation)
+out["RK3_integrate_inkernel_ms"] = cs.integrate_ms_per_step(rot, phi, lsm.RK3())
+for ms in cs.SHARDED_MESHES:
+    ev = par.make_sharded_evolve(lsm.RK3(), cs.card_mesh(dev, ms), grid, fused=True,
+                                 max_steps=cs.SHARDED_STEPS)
+    sphi = par.shard_field(phi, cs.card_mesh(dev, ms))
+    out[f"sharded_{ms[0]}x{ms[1]}_ms"] = cs.cuda_time(
+        lambda: ev((rot,), sphi, 0.0, 1.0), warmup=1, reps=10) / cs.SHARDED_STEPS
+    del ev, sphi
+del P, u
+torch.cuda.empty_cache()
+phiv = phi.values.clone().requires_grad_()
+out["cellB_ms_per_step"] = cs.cuda_time(
+    lambda: cs.rollout_grad(phi, phiv, dt, cs.ROLLOUT_STEPS, remat=True),
+    warmup=1, reps=5) / cs.ROLLOUT_STEPS
+del phiv, phi, vel
+torch.cuda.empty_cache()
+for name in ("D2", "D3"):
+    terms2, phi2, integ2 = cs.config(name, 4096, dev)
+    out[f"{name}_integrate_ms"] = cs.integrate_ms_per_step(terms2, phi2, integ2)
+    del terms2, phi2, integ2
+torch.cuda.empty_cache()
 nb = cs.sphere_band(512, dev)
 st = FusedBandStepper((lsm.AdvectionTerm(cs.spin),), nb, lsm.ForwardEuler())
 s = st.pack(nb)
