@@ -29,7 +29,10 @@ phases (a partial run: no kernel record):
    k1kinds — K1's term-list entry (K1') vs its plain version at 40x72x136
              on a torus, five BC cases, f32 and f64: normal motion (constant,
              streamed, callable speed), curvature (constant, streamed),
-             eikonal (recomputed, frozen sign), a 3-term sum with aux.
+             eikonal (recomputed, frozen sign), a 3-term sum with aux; then
+             at K1_MARCH_SHAPES (the march's edge shapes, the embedding
+             included), f32 and f64, every kind and two sums with streams
+             and aux off 16-byte alignment; a program table's route named.
    k6kinds — K6's term-list entry (K6') on the same cases over a sphere's
              dispatch list; the rest of the target bit for bit.
    k3kinds — the term-list stage adjoint (K3') vs its plain version at
@@ -48,7 +51,8 @@ phases (a partial run: no kernel record):
    k10k11  — the general path's WENO5 stage, K10 (3D, 40x72x136) and K11
              (2D, 67x131), vs their plain versions, five BC cases, f32 and
              f64, the bare Hamiltonian and stages with and without aux; a
-             flat field.
+             flat field; K10 at K1_MARCH_SHAPES (n0 >= 2) equal bit for bit
+             to the interior of K1's march on the same inputs.
    k2_small — K2 on the 2D embedding's (1, n0, n1) layout (the length-1
              axis's Extrapolation(0)), bit for bit vs its plain version.
 8. k512    — K1, K1'' (the rotation in-kernel, and its tables) and K2 vs
@@ -62,8 +66,10 @@ phases (a partial run: no kernel record):
 10. band_512 — the band bench's 512^3 sphere band, a few FE steps through
              K6-K8 and through their plain versions, the rotation in-kernel
              (K6'') and on the stream route (K6).
-    kinds_512 — K1' vs plain at 512^3 on configs A and B's inputs, K6' on
-             config C's and on A's terms over the off-axis sphere band.
+    kinds_512 — K1' vs plain at 512^3 on configs A, B and the kinds
+             gradient's inputs (a second launch on A's and the kinds
+             gradient's: equal bits), each with its route; K6' on config C's
+             and on A's terms over the off-axis sphere band.
     k3kinds_512 — K3' at 512^3 on config A's and (dense) config C's inputs:
              a 64^3 sub-box vs the f64 plain K3', a second launch equal bit
              for bit; K3' and its plain version timed (the plain at 256^3).
@@ -105,8 +111,9 @@ phases (a partial run: no kernel record):
              calls ``reinitialize`` every 5 steps; K10 vs plain on H's inputs.
     twod   — D1-D4 (configurations 1-4 of ``models.benchmarks``) at 4096^2
              through ``integrate`` (D2-D4 on the 2D embedding: K1, K1', K2;
-             D2h, D2 with a posthook: K11; D1, upwind: no kernel); K11 and K2
-             vs plain at 4096^2; 256^2 card vs CPU; a 2D gradient refused.
+             D2h, D2 with a posthook: K11; D1, upwind: no kernel); K1' on
+             D4's state, K11 and K2 vs plain at 4096^2; 256^2 card vs CPU; a
+             2D gradient refused.
     general_small — card vs CPU: H and a band with hooks at 64^3,
              ``reinitialize`` at 64^3 f64, the general path's rollout
              gradient at 32^3 f64 (K10 launches in its forward).
@@ -117,8 +124,10 @@ phases (a partial run: no kernel record):
 16. band_timing — K6-K8 alone, the band FE and RK3 steps (kernels and plain
              versions), the band ``integrate`` per step at 512^3 and 768^3
              beside the dense one at 768^3; peak memory of each.
-    kinds_timing — K1' on A's and B's inputs, K6' on C's, their plain
-             versions, ``integrate`` per step of A, B and C; peak memory.
+    kinds_timing — K1' on A's (with and without aux), B's (both signs),
+             the kinds gradient's table (with and without aux) and D4's
+             inputs, K6' on C's, their plain versions, ``integrate`` per step
+             of A, B and C; K1''s routes; peak memory.
     general_timing — K10 at 512^3 and K11 at 4096^2 with their plain
              versions, ``integrate`` per step of H (posthook, ``fast="off"``,
              fused) and of D1-D4, D2h; peak memory of each.
@@ -212,8 +221,12 @@ K1_OPS_PER_CELL = 3 * 88 + 5
 K3_OPS_PER_CELL = 3 * 202 + 1
 # csrc/hamiltonians.cuh per node (a division, square root or pow as one):
 # Godunov norms 3 * 43 + 6 (ENO2 31 per axis), normal motion 140, curvature
-# 69, frozen eikonal 139; the stage adds 3 and one per term
-KINDS_OPS = {"A": 140 + 69 + 2 + 3, "B": 139 + 1 + 3, "C": 140 + 1 + 3}
+# 69, frozen eikonal 139, recomputed 146; the stage adds 3 and one per term.
+# A curvature beside a normal or eikonal term shares their second
+# differences (12 operations; 8 in 2D). In 2D (D4, the embedding) the
+# Godunov norms take 2 * 43 + 6 (normal motion 97), the curvature 38.
+KINDS_OPS = {"A": 140 + 69 - 12 + 2 + 3, "B": 139 + 1 + 3, "B none": 146 + 1 + 3,
+             "C": 140 + 1 + 3, "D4": 97 + 38 - 8 + 2 + 3}
 KINDS_STEPS = 10  # configs A, B and C at 512^3: steps of integrate
 KINDS_SMALL_STEPS = 5  # their 64^3 card-vs-CPU trajectories
 GATE_ULPS = 4  # curvature: nodes this close to its eps gate are counted, not compared
@@ -1615,8 +1628,11 @@ def phase_k1kinds(dev, res):
     the torus (curvature of both signs), on K2's five BC cases, f32 and
     f64, for every case of :func:`kind_cases`: the bare operator (alpha,
     beta, gamma) = (0, 0, 1), so no dt scales an error down, and a stage
-    (with aux for the sum). Curvature nodes at the eps gate are counted and
-    left out."""
+    (with aux for the sum). Then at K1_MARCH_SHAPES (the march's edge
+    shapes, the embedding included) on random buffers, f32 and f64, every
+    case of :func:`k1_march_cases` with its streams and aux off 16-byte
+    alignment, with and without aux. Curvature nodes at the eps gate are
+    counted and left out. A program table's route is named."""
     gen = torch.Generator(device=dev).manual_seed(21)
     worst = 0.0
     for dtype, tol in ((torch.float32, K1_TOL), (torch.float64, 1e-12)):
@@ -1649,7 +1665,60 @@ def phase_k1kinds(dev, res):
             log("k1kinds", f"K1' {str(dtype)[6:]} {bname:9s} shape={shape} max|kernel-plain|/scale "
                            f"(tol {tol:g}): " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
                            + f"; nodes at the curvature gate left out: {int(gate.sum())}")
+    for shape in K1_MARCH_SHAPES:
+        for dtype, tol in ((torch.float32, K1_TOL), (torch.float64, 1e-12)):
+            P, A, sp, _ = k1_inputs(shape, dtype, dev, gen)
+            keep_all = torch.ones(shape, dtype=torch.bool, device=dev)
+            gate = gate_nodes(P, sp, shape)
+            errs, routes = {}, set()  # random buffers: errors relative to their scale
+            for name, terms in k1_march_cases(shape, dtype, dev, gen):
+                keep = ~gate if has_curvature(terms) else keep_all
+                routes.add(v2.stage_route(terms, shape))
+                for aux, coeffs in ((None, (0.0, 0.0, 1.0)), (misaligned(A), (0.75, 0.25, 2.5e-4))):
+                    got = v2.unpack_padded(v2.fused_stage(P, terms, coeffs, aux, sp, shape), shape)
+                    ref = v2.unpack_padded(v2.stage_plain(P, terms, coeffs, aux, sp, shape), shape)
+                    err, scale = kinds_err(got, ref, keep)
+                    if not (bool(torch.isfinite(got).all()) and err <= tol * scale):
+                        raise AssertionError(f"K1' parity failed at {shape} ({dtype}, {name}, "
+                                             f"aux {aux is not None}): {err} > {tol} * {scale}")
+                    errs[name] = max(errs.get(name, 0.0), err / scale)
+                    if dtype == torch.float32:
+                        res["k1k_march_rel"] = max(res.get("k1k_march_rel", 0.0), err / scale)
+            log("k1kinds", f"K1' {str(dtype)[6:]} march shape={shape} routes {sorted(routes)}, "
+                           f"streams and aux off 16-byte alignment, with and without aux: "
+                           f"max|kernel-plain|/scale (tol {tol:g}): "
+                           + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+                           + f"; nodes at the curvature gate left out: {int(gate.sum())}")
+    phi = torus_field(24, dev)
+    prog_route = FusedStepper((lsm.NormalMotionTerm(kinds_speed),), phi, lsm.RK3()).stage_route
+    log("k1kinds", f"a table with a program coefficient (normal motion at kinds_speed, which "
+                   f"reads every axis) takes the route {prog_route!r}")
+    if prog_route != "K1' per node":
+        raise AssertionError(f"a program table's route is {prog_route!r}")
     res["k1k_err"] = worst
+
+
+def k1_march_cases(shape, dtype, dev, gen):
+    """K1''s term lists at a march shape, as ``(name, terms)``: each kind with
+    each coefficient kind the march takes (no program) and two sums, one
+    with an advection term (reach 3); every stream a contiguous copy that
+    starts one element into its storage (off 16-byte alignment). Random
+    streams have exact zeros (ties)."""
+    a = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    a[:, ::4] = 0.0
+    vel = [0.5 * torch.randn(shape, generator=gen, device=dev, dtype=dtype) for _ in range(3)]
+    stream = lambda kind, arrs: (v2.TermSpec(kind, "stream", None, len(arrs)),
+                                 tuple(misaligned(x) for x in arrs))
+    const = lambda kind, value: (v2.TermSpec(kind, "const", value, 0), ())
+    return [("normal const", (const("normal", 0.2),)),
+            ("normal stream", (stream("normal", [a]),)),
+            ("curvature const", (const("curvature", -0.05),)),
+            ("curvature stream", (stream("curvature", [-a.abs()]),)),
+            ("eikonal none", ((v2.TermSpec("eikonal", "none", None, 0), ()),)),
+            ("eikonal stream", (stream("eikonal", [torch.tanh(a)]),)),
+            ("A", (const("curvature", -0.05), const("normal", 0.2))),
+            ("3-term sum", (stream("advection", vel), const("curvature", -0.01),
+                            stream("normal", [a])))]
 
 
 def phase_k6kinds(dev, res):
@@ -1711,11 +1780,21 @@ def phase_k6kinds(dev, res):
     res["k6k_err"] = worst
 
 
-def _k1k_512(label, stepper, P, coeff_sets, res):
-    """K1' against its plain version on the 512^3 stepper's term list."""
+def _k1k_512(label, stepper, P, coeff_sets, res, repeat=False):
+    """K1' against its plain version on the 512^3 stepper's term list; with
+    ``repeat``, the first set launched twice (interiors equal bit for bit:
+    the kernel leaves the shells unset)."""
     terms = stepper.stage_terms(0.0)
     shape, sp = stepper.shape, stepper.spacing
     keep = ~gate_nodes(P, sp, shape) if has_curvature(terms) else None
+    log("kinds_512", f"K1' {label}: route {stepper.stage_route!r}")
+    if repeat:
+        _, src, aux, coeffs = coeff_sets[0]
+        call = lambda: v2.unpack_padded(v2.fused_stage(src, terms, coeffs, aux, sp, shape),
+                                        shape).contiguous()
+        first = call()
+        repeat_check("kinds_512", f"K1' {label} {N_MAIN}^3", call, first)
+        del first
     for tag, src, aux, coeffs in coeff_sets:
         g = v2.unpack_padded(v2.fused_stage(src, terms, coeffs, aux, sp, shape), shape)
         r = v2.unpack_padded(v2.stage_plain(src, terms, coeffs, aux, sp, shape), shape)
@@ -1732,19 +1811,27 @@ def _k1k_512(label, stepper, P, coeff_sets, res):
 
 def phase_kinds_512(dev, res):
     """K1' against its plain version at 512^3 on the inputs of config A
-    (stage 1, RK3 stage 2 with aux, the bare operator) and of config B (both
-    eikonal forms); K6' on config C's sphere band (streamed speed) and on
-    curvature plus normal motion on the off-axis sphere that reaches a face."""
+    (stage 1, RK3 stage 2 with aux, the bare operator), of the kinds
+    gradient's table and of config B (both eikonal forms), each with its
+    route; on A's and the kinds gradient's, a second launch gives equal
+    bits. K6' on config C's sphere band (streamed speed) and on curvature
+    plus normal motion on the off-axis sphere that reaches a face."""
     phi = torus_field(N_MAIN, dev)
     st_a = FusedStepper(a_terms(), phi, lsm.RK3())
     P = st_a.pack(phi.values)
     dt = 0.5 * float(st_a.cfl(P, 0.0))
     P1 = v2.refresh_ghosts_plain(v2.stage_plain(P, st_a.stage_terms(0.0), (0.0, 1.0, dt), None,
                                                 st_a.spacing, st_a.shape), st_a.bcs, st_a.shape)
-    _k1k_512("A", st_a, P, (("stage 1", P, None, (0.0, 1.0, dt)),
-                            ("stage 2", P1, P, (0.75, 0.25, 0.25 * dt)),
-                            ("-H", P, None, (0.0, 0.0, 1.0))), res)
-    del P1, P, st_a, phi
+    _k1k_512("A", st_a, P, (("stage 2", P1, P, (0.75, 0.25, 0.25 * dt)),
+                            ("stage 1", P, None, (0.0, 1.0, dt)),
+                            ("-H", P, None, (0.0, 0.0, 1.0))), res, repeat=True)
+    del P1, st_a
+    # the kinds gradient's table: curvature plus normal motion at a streamed speed
+    st_g = FusedStepper(grad_kinds_terms(phi, c_term(phi).speed.values), phi, lsm.RK3())
+    dt = 0.5 * float(st_g.cfl(P, 0.0))
+    _k1k_512("kinds gradient", st_g, P, (("stage 1", P, None, (0.0, 1.0, dt)),
+                                         ("-H", P, None, (0.0, 0.0, 1.0))), res, repeat=True)
+    del P, st_g, phi
     phi = torus_field(N_MAIN, dev, wavy=True)
     for label, term in (("B frozen", lsm.EikonalReinitializationTerm.from_initial(phi)),
                         ("B none", lsm.EikonalReinitializationTerm())):
@@ -1944,10 +2031,11 @@ def kinds_card_vs_cpu(dev):
 
 
 def phase_kinds_timing(dev, res):
-    """CUDA-event medians at 512^3: K1' on config A's and config B's
-    (frozen and recomputed sign) stage-1 inputs, K6' on config C's, and
-    their plain versions; ``integrate`` ms per step for A (RK3), B (RK3,
-    frozen sign) and C (FE, RK3); peak memory of each."""
+    """CUDA-event medians at 512^3: K1' on config A's, the kinds gradient's
+    (both also with aux: RK3 stages 2 and 3) and config B's (frozen and
+    recomputed sign) stage-1 inputs, on D4's at N_2D^2 (the embedding), K6'
+    on config C's, and their plain versions; ``integrate`` ms per step for A
+    (RK3), B (RK3, frozen sign) and C (FE, RK3); peak memory of each."""
     t, mem, n = res["t"], {}, N_MAIN
     phi = torus_field(n, dev)
     st_a = FusedStepper(a_terms(), phi, lsm.RK3())
@@ -1961,7 +2049,30 @@ def phase_kinds_timing(dev, res):
     t["A_integrate"] = integrate_ms_per_step(a_terms(), phi, lsm.RK3())
     mem["A_integrate"] = peak_gib(lambda: lsm.LevelSetEquation(
         terms=a_terms(), ic=phi, integrator=lsm.RK3()).integrate(1.0, max_steps=10))
-    del phi, st_a, P, terms
+    # the kinds gradient's table: curvature plus normal motion at a streamed speed
+    st_g = FusedStepper(grad_kinds_terms(phi, c_term(phi).speed.values), phi, lsm.RK3())
+    terms = st_g.stage_terms(0.0)
+    t["K1k_grad"] = cuda_time(lambda: v2.fused_stage(P, terms, (0.0, 1.0, dt), None,
+                                                     st_g.spacing, st_g.shape))
+    t["K1k_grad_aux"] = cuda_time(lambda: v2.fused_stage(P, terms, (0.75, 0.25, 0.25 * dt), P,
+                                                         st_g.spacing, st_g.shape))
+    t["K1k_A_aux"] = cuda_time(lambda: v2.fused_stage(P, st_a.stage_terms(0.0),
+                                                      (0.75, 0.25, 0.25 * dt), P, st_a.spacing,
+                                                      st_a.shape))
+    del phi, st_a, st_g, P, terms
+    # D4: config 4 at N_2D^2 on the (1, n0, n1) embedding (axis 0 compiled out)
+    d4_terms, d4_phi, d4_integ = config("D4", N_2D, dev)
+    st_d = FusedStepper(d4_terms, d4_phi, d4_integ)
+    P, terms = st_d.pack(d4_phi.values), st_d.stage_terms(0.0)
+    t["K1k_D4"] = cuda_time(lambda: v2.fused_stage(P, terms, (0.0, 1.0, 1e-6), None,
+                                                   st_d.spacing, st_d.shape))
+    t["K1k_D4_plain"] = cuda_time(lambda: v2.stage_plain(P, terms, (0.0, 1.0, 1e-6), None,
+                                                         st_d.spacing, st_d.shape),
+                                  warmup=1, reps=5)
+    res["k1k_routes"] = {"A": FusedStepper(a_terms(), torus_field(8, dev), lsm.RK3()).stage_route,
+                         "D4": st_d.stage_route}
+    del d4_terms, d4_phi, d4_integ, st_d, P, terms
+    torch.cuda.empty_cache()
     phi = torus_field(n, dev, wavy=True)
     frozen = lsm.EikonalReinitializationTerm.from_initial(phi)
     for label, term in (("frozen", frozen), ("none", lsm.EikonalReinitializationTerm())):
@@ -1999,7 +2110,9 @@ def phase_kinds_timing(dev, res):
     del nb, fe, state, P, out, terms
     torch.cuda.empty_cache()
     for name in [k for k in t if k.startswith(("K1k", "K6k", "A_", "B_", "C_"))]:
-        log("kinds_timing", f"{n}^3 f32 {name:24s} median {t[name]:.4f} ms")
+        where = f"{N_2D}^2" if "D4" in name else f"{n}^3"
+        log("kinds_timing", f"{where} f32 {name:24s} median {t[name]:.4f} ms")
+    log("kinds_timing", f"K1' routes: {res['k1k_routes']}")
     log("kinds_timing", "peak memory: " + ", ".join(f"{k} {v:.2f} GiB" for k, v in mem.items()))
     res["mem"].update(mem)
 
@@ -2264,6 +2377,7 @@ def phase_grad_kinds(dev, res):
                       f"(expected {want}); value_and_grad median {ms:.1f} ms, peak {mem:.2f} GiB")
     if not (finite and counts == want):
         raise AssertionError("the kinds gradient at 512^3 failed")
+    res["launches"]["K1' kinds grad"] = counts["K1'"]
     profile_window(f"kinds gradient, {k} RK3 steps at {n}^3", call)
     res["launches"]["K3'"] = counts["K3'"]
     res["t_grad"] = {"grad_kinds": ms}
@@ -2347,11 +2461,50 @@ def general_compare(label, got, ref, tol):
     return err, scale
 
 
+def k10_march_shapes(dev, gen, res):
+    """K10 at K1_MARCH_SHAPES with n0 >= 2 (K10 always marches axis 0), f32
+    and f64, random buffers: the bare Hamiltonian and stages with and
+    without aux, with aligned inputs and with u1 and aux one element off
+    their alignment: within the tolerance of its plain version, and equal
+    bit for bit to the interior of K1's march on the same P, u and aux (aux
+    on K1's padded layout)."""
+    worst = 0.0
+    for shape in [s for s in K1_MARCH_SHAPES if s[0] >= 2]:
+        for dtype, tol in ((torch.float32, K1_TOL), (torch.float64, 1e-12)):
+            P, A, sp, _ = k1_inputs(shape, dtype, dev, gen)
+            u = [torch.randn(shape, generator=gen, device=dev, dtype=dtype) for _ in range(3)]
+            u[0].view(-1)[::7] = 0.0
+            aux = v2.unpack_padded(A, shape).contiguous()
+            rel, same = 0.0, True
+            for coeffs, a in (((0.0, 0.0, -1.0), None), ((0.0, 1.0, 1e-3), None),
+                              ((0.75, 0.25, 2.5e-4), aux)):
+                for uu, aa in ((u, a), ((u[0], misaligned(u[1]), u[2]),
+                                        None if a is None else misaligned(a))):
+                    got = wg.weno_stage_3d(P, uu, sp, shape, coeffs, aa)
+                    ref = wg._stage_plain(P, uu, aa, coeffs, sp, shape)
+                    k1 = v2.unpack_padded(v2.fused_stage(P, uu, coeffs, None if a is None else A,
+                                                         sp, shape), shape)
+                    torch.cuda.synchronize()
+                    err, scale = general_compare(f"K10 {shape} {dtype} {coeffs}", got, ref, tol)
+                    rel = max(rel, err / scale)
+                    same = same and bool(torch.equal(got, k1))
+                    if dtype == torch.float32:
+                        worst = max(worst, err)
+            log("k10k11", f"K10 {str(dtype):13s} march shape={shape} H / stage / stage+aux, aligned "
+                          f"and u1, aux off alignment: max|kernel-plain|/scale={rel:.3e} (tol "
+                          f"{tol:g}); equal bits to K1's march interior: {same}")
+            if not same:
+                raise AssertionError(f"K10 at {shape} ({dtype}) differs from K1's march")
+    res["k10_err"] = max(res.get("k10_err", 0.0), worst)
+
+
 def phase_k10k11(dev, res):
     """K10 (3D) and K11 (2D) against their plain versions at 40x72x136 and
     67x131, five BC cases, f32 and f64: the bare Hamiltonian and a stage
     with and without aux, on a random field with a random velocity that is
-    exactly 0 on every 7th node (the upwind tie); a flat field gives 0."""
+    exactly 0 on every 7th node (the upwind tie); a flat field gives 0.
+    K10 also at the march's shapes against K1's march
+    (:func:`k10_march_shapes`)."""
     gen = torch.Generator(device=dev).manual_seed(10)
     worst = {"K10": 0.0, "K11": 0.0}
     for shape in ((40, 72, 136), (67, 131)):
@@ -2376,6 +2529,8 @@ def phase_k10k11(dev, res):
                         worst[key] = max(worst[key], err)
             log("k10k11", f"{key} {str(dtype):13s} shape={shape} five BC cases, H / stage / "
                           f"stage+aux: max|kernel-plain|/scale={rel:.3e} (tol {tol:g})")
+        if key == "K10":
+            k10_march_shapes(dev, gen, res)
         flat = torch.ones(tuple(n + 6 for n in shape), device=dev)
         uf = [torch.full(shape, v, device=dev) for v in (1.0, -1.0, 0.0)[:len(shape)]]
         hf = wg.weno_hamiltonian(flat, uf, sp, shape)
@@ -2385,7 +2540,8 @@ def phase_k10k11(dev, res):
                       f"max|H|={mx:.3e}")
         if not (bool(torch.isfinite(hf).all()) and mx < 1e-6):
             raise AssertionError(f"{key} on a flat field: {mx}")
-    res["k10_err"], res["k11_err"] = worst["K10"], worst["K11"]
+    res["k10_err"] = max(res.get("k10_err", 0.0), worst["K10"])
+    res["k11_err"] = worst["K11"]
 
 
 def phase_k2_small(dev, res):
@@ -2550,8 +2706,9 @@ def twod_integrate(name, n, dev, dtype=torch.float32, steps=GENERAL_STEPS):
 def phase_twod(dev, res):
     """D1-D4 and D2h at N_2D^2 f32 through ``integrate``, GENERAL_STEPS steps
     each, counting launches (D2, D3: K1 = K2 = 3 per step, the 2D
-    embedding; D4: K1' too; D2h, D2 with a posthook: K11 = 3 per step; D1,
-    upwind FE: none); K11 and K2 (the length-1 axis) against their plain
+    embedding; D4: K1' too, then K1' against its plain version on D4's
+    state; D2h, D2 with a posthook: K11 = 3 per step; D1, upwind FE: none);
+    K11 and K2 (the length-1 axis) against their plain
     versions on D2's inputs at N_2D^2; card-vs-CPU trajectories at
     N_2D_SMALL^2; a gradient through the 2D embedding on the card refused."""
     n, steps = N_2D, GENERAL_STEPS
@@ -2568,7 +2725,25 @@ def phase_twod(dev, res):
             raise AssertionError(f"{name} check failed")
         if name == "D2h":
             res["launches"]["K11"] = counts["K11"]
-        del eq
+        if name == "D4":  # K1''s march with axis 0 compiled out, against its plain version
+            res["launches"]["K1' D4"] = counts["K1'"]
+            stepper = FusedStepper(eq.terms, eq.state, lsm.RK3())
+            P = stepper.pack(eq.state.values)
+            terms = stepper.stage_terms(0.0)
+            dt = 0.5 * float(stepper.cfl(P, 0.0))
+            for label, aux, coeffs in (("stage 1", None, (0.0, 1.0, dt)),
+                                       ("stage 2", P, (0.75, 0.25, 0.25 * dt))):
+                g = v2.unpack_padded(v2.fused_stage(P, terms, coeffs, aux, stepper.spacing,
+                                                    stepper.shape), stepper.shape)
+                r = v2.unpack_padded(v2.stage_plain(P, terms, coeffs, aux, stepper.spacing,
+                                                    stepper.shape), stepper.shape)
+                err, scale = kinds_err(g, r, ~gate_nodes(P, stepper.spacing, stepper.shape))
+                log("twod", f"K1' D4 {label} {n}^2 f32 route {stepper.stage_route!r} "
+                            f"max|kernel-plain|={err:.3e} scale={scale:.3e} tol={K1_TOL:g}*scale")
+                if not (bool(torch.isfinite(g).all()) and err <= K1_TOL * scale):
+                    raise AssertionError(f"K1' on D4 at {n}^2 failed ({label})")
+                res["k1k_err"] = max(res["k1k_err"], err)
+            del stepper, P, terms, g, r
     # K11 and K2 at N_2D^2 on D2's inputs
     terms, phi, _ = config("D2", n, dev)
     sp, shape = phi.spacing, phi.shape
@@ -4261,17 +4436,29 @@ def stage_adjoint_ptxas(build_log):
 
 
 def forward_stage_ptxas(build_log):
-    """The same for the march of ``csrc/weno_stage.cu`` (K1, K1''; the 2D
-    embedding's instantiations without axis 0; "K1'' per node": the kernel of
-    one thread per node, for a component evaluated per node and the
-    embedding)."""
+    """The same for the marches of ``csrc/weno_stage.cu`` (K1, K1'', K1' with
+    reach R; the 2D embedding's instantiations without axis 0; "K1'' per
+    node": the kernel of one thread per node, for a component evaluated per
+    node and the embedding; "K1' per node": a table with a program) and of
+    ``csrc/weno_general.cu`` (K10)."""
     names = {"stage_march_kernel": "K1", "stage_march_prog_kernel": "K1''",
-             "stage_node_prog_kernel": "K1'' per node"}
+             "stage_node_prog_kernel": "K1'' per node",
+             "stage_terms_march_kernel": "K1' march", "weno_stage_terms_kernel": "K1' per node"}
     out = []
     for name, args, info in ptxas_summary(build_log, "weno_stage.cu", names):
         dtype = "f32" if args.startswith("f") else "f64"
-        axis0 = "" if args[1:4] != "Lb0" else " (2D embedding: axis 0 compiled out)"
-        out.append((f"{names[name]} {dtype}{axis0}", info))
+        label = names[name]
+        if name == "stage_terms_march_kernel":  # <T, R, kFirst>: "fLi2ELi0E..."
+            label += f" R={args[3]}"
+            axis0 = "" if args[7] == "0" else " (2D embedding: axis 0 compiled out)"
+        elif name == "weno_stage_terms_kernel":  # <T, kAdvection>
+            axis0 = " (advection)" if args[1:4] == "Lb1" else ""
+        else:
+            axis0 = "" if args[1:4] != "Lb0" else " (2D embedding: axis 0 compiled out)"
+        out.append((f"{label} {dtype}{axis0}", info))
+    for name, args, info in ptxas_summary(build_log, "weno_general.cu",
+                                          {"general_march_kernel": "K10"}):
+        out.append((f"K10 march {'f32' if args.startswith('f') else 'f64'}", info))
     return out
 
 
@@ -4473,11 +4660,29 @@ def kernel_records(res):
         if key == "tables":
             rec.update(ms_rotation=t["tables_rotation"], plain_ms_rotation=t[
                 "tables_rotation_plain"], work={"rotation": rot, "vortex": vortex})
-        if key == "K1'":  # config B's stage (one streamed sign, 12 B/cell) and the sign recomputed
-            b_ms, (b_bound, _) = t["K1k_B_frozen"], bound(f32 * (padded + 2 * cells),
-                                                          KINDS_OPS["B"] * cells)
-            rec.update(ms_B_frozen=b_ms, plain_ms_B_frozen=t["K1k_B_frozen_plain"],
-                       bound_ms_B_frozen=b_bound, ms_B_none=t["K1k_B_none"])
+        if key == "K1'":  # config B's stage (one streamed sign, 12 B/cell) and the sign
+            # recomputed (8 B/cell); the kinds gradient's table (A's terms, a streamed
+            # speed); A and it with aux (one more read); D4 at N_2D^2 (the embedding:
+            # one padded plane read, the interior written)
+            plane2d, cells2d = (N_2D + 6) ** 2, N_2D ** 2
+            rec.update(ms_B_frozen=t["K1k_B_frozen"], plain_ms_B_frozen=t["K1k_B_frozen_plain"],
+                       bound_ms_B_frozen=bound(f32 * (padded + 2 * cells),
+                                               KINDS_OPS["B"] * cells)[0],
+                       ms_B_none=t["K1k_B_none"], plain_ms_B_none=t["K1k_B_none_plain"],
+                       bound_ms_B_none=bound(f32 * (padded + cells),
+                                             KINDS_OPS["B none"] * cells)[0],
+                       ms_A_aux=t["K1k_A_aux"],
+                       bound_ms_A_aux=bound(f32 * (padded + 2 * cells), KINDS_OPS["A"] * cells)[0],
+                       ms_kinds_grad=t["K1k_grad"], ms_kinds_grad_aux=t["K1k_grad_aux"],
+                       bound_ms_kinds_grad=bound(f32 * (padded + 2 * cells),
+                                                 KINDS_OPS["A"] * cells)[0],
+                       ms_D4=t["K1k_D4"], plain_ms_D4=t["K1k_D4_plain"],
+                       bound_ms_D4=bound(f32 * (plane2d + cells2d), KINDS_OPS["D4"] * cells2d)[0],
+                       launches_D4=res["launches"].get("K1' D4", 0),
+                       launches_kinds_grad=res["launches"].get("K1' kinds grad", 0),
+                       max_rel_err_march_shapes=res["k1k_march_rel"],
+                       routes=res["k1k_routes"], ops_per_cell={
+                           k: KINDS_OPS[k] for k in ("A", "B", "B none", "D4")})
         out.append(rec)
     if not all(math.isfinite(k["ms"]) and k["launches"] > 0 for k in out):
         raise AssertionError("a kernel was not measured or not launched on the main path")

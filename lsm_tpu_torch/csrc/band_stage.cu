@@ -145,7 +145,8 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t c = (i + LSM_GHOST) * s0 + (j + LSM_GHOST) * s1 + (k + LSM_GHOST);
     const int64_t q = (i * n1 + j) * n2 + k;
     out[c] = band[q] != 0 ? lsm::stage_value_terms<T, kAdvection, kProgram, kFirst>(
-                                P, aux, c, s0, s1, slot + e, i, j, k, terms)
+                                lsm::DeviceNbr<T>{P, c, s0, s1}, aux, c, slot + e, i, j, k,
+                                terms)
                           : P[c];
   }
 }

@@ -128,18 +128,21 @@ int lsm_weno_stage_f64(const void* P, const void* u0, const void* u1, const void
                        double inv_h0, double inv_h1, double inv_h2,
                        double alpha, double beta, double gamma, void* stream);
 
-/* K1 over a term table: out_interior = alpha*aux + beta*phi - gamma*sum_e H_e
+/* K1' over a term table: out_interior = alpha*aux + beta*phi - gamma*sum_e H_e
  * with the Hamiltonians of csrc/hamiltonians.cuh summed in table order (the
  * constants alpha, beta, gamma and the spacing come from *terms, a host
- * pointer). P, aux (may be NULL), out as for lsm_weno_stage_*. */
+ * pointer). P, aux (may be NULL), out as for lsm_weno_stage_*. A table
+ * without a program coefficient takes the march (n0 == 1 compiles axis 0
+ * out, which needs axis-0 ghosts that copy the plane), a table with one a
+ * kernel of one thread per node. */
 int lsm_weno_stage_terms_f32(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
                              int64_t n2, const LsmStageTerms* terms, void* stream);
 int lsm_weno_stage_terms_f64(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
                              int64_t n2, const LsmStageTerms* terms, void* stream);
 
 /* K1'': the advection-only stage with the velocity of the table's entry 0, a
- * 3-component program evaluated per node. Arguments as for
- * lsm_weno_stage_terms_*; axes0..axes2: the coordinate axes component d
+ * 3-component program evaluated per node. P, aux, out, n0..n2 and terms as
+ * for lsm_weno_stage_terms_*; axes0..axes2: the coordinate axes component d
  * reads (bit a for axis a), as the tracer found them
  * (lsm_tpu_torch.ops.coef_program.Program.axes). */
 int lsm_weno_stage_prog_f32(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
@@ -376,7 +379,8 @@ int lsm_band_retube_2d_f64(const void* P, void* band, const void* cand, void* st
  * out = alpha*aux + beta*phi - gamma * sum_d u_d * WENO5_d(phi). P: the field
  * padded by LSM_GHOST on every side, (n0+6, n1+6, n2+6); u0..u2, aux (may be
  * NULL: the alpha term is dropped) and out: interior-shaped (n0, n1, n2).
- * inv_h*: reciprocal node spacing per axis. One launch. */
+ * inv_h*: reciprocal node spacing per axis. One launch; offsets inside a
+ * padded plane are 32-bit, so a larger plane is refused. */
 int lsm_weno_general_3d_f32(const void* P, const void* u0, const void* u1, const void* u2,
                             const void* aux, void* out, int64_t n0, int64_t n1, int64_t n2,
                             double inv_h0, double inv_h1, double inv_h2,

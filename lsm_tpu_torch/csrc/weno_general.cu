@@ -8,28 +8,41 @@
 // interior-shaped and contiguous. The host passes (0, 0, -1) and no aux for
 // the bare Hamiltonian.
 //
-// The per-node arithmetic is K1's and K6's (lsm::stage_value_at, weno5.cuh):
-// the same WENO5 core, epsilon floors and upwind choice at u == 0, so the
-// three stage kernels cannot drift apart. Unlike K1, aux is read and out
-// written at the interior index q.
+// The per-node arithmetic is K1's and K6's (weno5.cuh): the same WENO5
+// core, epsilon floors and upwind choice at u == 0, so the three stage
+// kernels cannot drift apart.
 //
-// Design: K1's layout, one thread per interior node, threadIdx.x along the
-// contiguous last axis (64 per block) so a warp reads and writes neighbouring
-// elements; each thread loads its 13-point (2D) or 19-point (3D) stencil
-// from device memory and relies on L1/L2 for the reuse between neighbours.
-// The outer axis is walked by a grid-stride loop, so any extent launches.
-// Indices are int64_t: the 512^3 padded buffer holds 1.39e8 elements.
+// K10's design is K1's march (march.cuh; weno_stage.cu's top comment): a
+// block of 16 x 32 columns marches a chunk of <= 64 planes of axis 0, each
+// plane of phi with its halo and the output plane's velocity and aux staged
+// in shared memory by cp.async, the differences along axis 0 kept in
+// registers. K1 keeps aux and the output on the padded layout; here both are
+// interior-shaped (kInterior): aux is copied as the velocity is (16 bytes
+// at a time where n2 % 4 == 0 (f32) and the pointer is aligned), and the
+// output plane is stored at the interior index (o*n1 + j)*n2 + k. On the
+// same P, u and aux, K10's output equals the interior of K1's bit for bit.
+// Axis 0 is always marched: MeshField.pad(3) makes no promise about the
+// ghosts of a one-node axis, so K1's n0 == 1 shortcut is not taken.
+//
+// K11 keeps one thread per interior node, threadIdx.x along the contiguous
+// last axis (64 per block) so a warp reads and writes neighbouring
+// elements; each thread loads its 13-point stencil from device memory and
+// relies on L1/L2 for the reuse between neighbours; the outer axis is
+// walked by a grid-stride loop, so any extent launches.
 //
 // Bound at 512^3 f32: the padded phi read once (518^3 * 4 B), three velocity
 // components read and the output written: 20 B per cell (24 with aux),
 // 0.81 ms (0.97 ms) at 3.35 TB/s; its ~269 FP32 operations per cell take
 // 0.54 ms at 67 TFLOP/s, so bytes bind. At 4096^2 f32 K11 moves 16 B per
 // cell (20 with aux): 0.08 ms, where launch overhead is of the same order.
-// Shared-memory tiles and TMA are later work.
 
 #include <cuda_runtime.h>
 
+#include <climits>
+#include <cstdint>
+
 #include "lsm_kernels.h"
+#include "march.cuh"
 #include "weno5.cuh"
 
 namespace {
@@ -38,26 +51,12 @@ constexpr int kBlockX = 64;
 constexpr int kBlockY = 4;
 constexpr int64_t kMaxGridYZ = 65535;
 
+// K10: K1's march (march.cuh) with an interior-shaped aux and output; axis
+// 0 always on (MeshField.pad(3) makes no promise about a one-node axis).
 template <typename T>
-__global__ void __launch_bounds__(kBlockX* kBlockY)
-    weno_general_3d_kernel(const T* __restrict__ P, const T* __restrict__ u0,
-                           const T* __restrict__ u1, const T* __restrict__ u2,
-                           const T* __restrict__ aux, T* __restrict__ out, int64_t n0,
-                           int64_t n1, int64_t n2, T inv_h0, T inv_h1, T inv_h2, T alpha,
-                           T beta, T gamma) {
-  const int64_t k = static_cast<int64_t>(blockIdx.x) * kBlockX + threadIdx.x;
-  const int64_t j = static_cast<int64_t>(blockIdx.y) * kBlockY + threadIdx.y;
-  if (k >= n2 || j >= n1) return;
-  const int64_t s1 = n2 + 2 * LSM_GHOST;
-  const int64_t s0 = (n1 + 2 * LSM_GHOST) * s1;
-  const int64_t stride[3] = {s0, s1, 1};
-  const T inv_h[3] = {inv_h0, inv_h1, inv_h2};
-  for (int64_t i = blockIdx.z; i < n0; i += gridDim.z) {
-    const int64_t c = (i + LSM_GHOST) * s0 + (j + LSM_GHOST) * s1 + (k + LSM_GHOST);
-    const int64_t q = (i * n1 + j) * n2 + k;
-    const T u[3] = {u0[q], u1[q], u2[q]};
-    out[q] = lsm::stage_value_at<T, 3>(P, aux, c, q, stride, u, inv_h, alpha, beta, gamma);
-  }
+__global__ void __launch_bounds__(March<T>::NT, March<T>::MIN_BLOCKS)
+    general_march_kernel(const __grid_constant__ MarchArgs<T> a) {
+  march<T, false, true, true>(a, nullptr);
 }
 
 template <typename T>
@@ -88,16 +87,46 @@ template <typename T>
 int launch_3d(const void* P, const void* u0, const void* u1, const void* u2, const void* aux,
               void* out, int64_t n0, int64_t n1, int64_t n2, double inv_h0, double inv_h1,
               double inv_h2, double alpha, double beta, double gamma, void* stream) {
-  if (n0 < 1 || n1 < 1 || n2 < 1 || cdiv(n1, kBlockY) > kMaxGridYZ)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kBlockX, kBlockY, 1);
-  const dim3 grid(static_cast<unsigned>(cdiv(n2, kBlockX)),
-                  static_cast<unsigned>(cdiv(n1, kBlockY)), static_cast<unsigned>(capped(n0)));
-  weno_general_3d_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(P), static_cast<const T*>(u0), static_cast<const T*>(u1),
-      static_cast<const T*>(u2), static_cast<const T*>(aux), static_cast<T*>(out), n0, n1, n2,
-      T(inv_h0), T(inv_h1), T(inv_h2), T(alpha), T(beta), T(gamma));
-  return static_cast<int>(cudaGetLastError());
+  using M = March<T>;
+  const int64_t chunks = cdiv(n0, kChunk);
+  if (n0 < 1 || n1 < 1 || n2 < 1 || n0 > INT_MAX || chunks > kMaxGridYZ ||
+      cdiv(n1, M::CY) > kMaxGridYZ || n1 + 2 * LSM_GHOST > INT_MAX / (n2 + 2 * LSM_GHOST))
+    return static_cast<int>(cudaErrorInvalidValue);  // offsets inside a plane are 32-bit
+  const auto aligned = [](const void* ptr, size_t bytes) {
+    return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+  };
+  MarchArgs<T> a{};
+  a.P = static_cast<const T*>(P);
+  a.u[0] = static_cast<const T*>(u0);
+  a.u[1] = static_cast<const T*>(u1);
+  a.u[2] = static_cast<const T*>(u2);
+  a.aux = static_cast<const T*>(aux);
+  a.out = static_cast<T*>(out);
+  a.n0 = static_cast<int>(n0);
+  a.n1 = static_cast<int>(n1);
+  a.n2 = static_cast<int>(n2);
+  a.s1 = a.n2 + 2 * LSM_GHOST;
+  a.s0 = int64_t(a.n1 + 2 * LSM_GHOST) * a.s1;
+  a.m12 = n1 * n2;
+  a.chunk = static_cast<int>(cdiv(n0, chunks));  // as even as n0 allows
+  a.inv_h[0] = T(inv_h0);
+  a.inv_h[1] = T(inv_h1);
+  a.inv_h[2] = T(inv_h2);
+  a.alpha = T(alpha);
+  a.beta = T(beta);
+  a.gamma = T(gamma);
+  a.pairs = a.s1 % 2 == 0 && aligned(P, 2 * sizeof(T));
+  a.vec_u = a.n2 % M::VU == 0 && aligned(u0, 16) && aligned(u1, 16) && aligned(u2, 16);
+  a.vec_aux = a.n2 % M::VU == 0 && aligned(aux, 16);
+  const dim3 grid(static_cast<unsigned>(cdiv(n2, M::CX)), static_cast<unsigned>(cdiv(n1, M::CY)),
+                  static_cast<unsigned>(chunks));
+  const auto kernel = general_march_kernel<T>;
+  const size_t smem = MarchRing<T, false>::BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess)
+    kernel<<<grid, M::NT, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <typename T>

@@ -10,11 +10,11 @@
 //   streamed, 12 B/cell less in f32;
 // - K1': any term list (advection, normal motion, curvature, eikonal
 //   reinitialization; streamed, constant, program or no coefficient), summed
-//   in list order: lsm::stage_value_terms (hamiltonians.cuh). The table
-//   travels by value in the kernel's parameters (__grid_constant__, so a loop
-//   over it reads the constant bank without a local copy); its branches are
-//   uniform.
-// The per-node functions are shared with the band stage K6.
+//   in list order (hamiltonians.cuh). The table travels by value in the
+//   kernel's parameters (__grid_constant__, so a loop over it reads the
+//   constant bank without a local copy); its branches are uniform.
+// The per-node functions are shared with the band stage K6, the march
+// (march.cuh) with the general path's K10.
 //
 // Design of the advection-only entries (K1, K1''), as the TPU kernel stages a
 // slab of phi in VMEM: a block of 256 threads owns a tile of 16 x 32 output
@@ -64,16 +64,25 @@
 // own (none per node for the rotation, the interpreter per node for the
 // vortex).
 //
-// The term-list entry (K1') keeps one thread per interior node, threadIdx.x
-// along the contiguous last axis so a warp reads and writes 32 neighbouring
-// floats; each thread loads its stencils straight from device memory and
-// relies on L1/L2 for the reuse between neighbours. It reads phi (and per
-// term at most one scalar stream) and writes phi: 8-12 B/cell for the normal,
-// curvature and eikonal kinds, ~0.3-0.5 ms at 512^3 f32; a normal or eikonal
-// term does ~140 operations per cell, a curvature term ~70, so it sits on the
-// FP32 pipes as much as on DRAM. Divisions by spacing constants are products
-// by host-computed reciprocals, and a table without advection takes an
-// instantiation without WENO5's registers (more threads resident per SM).
+// The term-list entry (K1') marches a block of columns down axis 0 too. A
+// step copies a plane of phi with a halo of R = 2 nodes (3 with an advection
+// term, a compile-time choice) and the output plane's aux and streamed
+// coefficients (as many as
+// the ring's budget holds; the rest are read in place). A node loads its
+// samples from the tile once into registers (RingNbr, hamiltonians.cuh's
+// accessor), forms the pieces its terms share once (second differences,
+// Godunov norms, curvature, the recomputed eikonal sign: lsm::term_pieces),
+// and without an advection term a thread walks the table once for its four
+// rows (lsm::term_share, selects); the constants come in T from the kernel
+// parameters, converted on the host. Square roots and divisions are IEEE,
+// as K6''s. A table with a program coefficient takes a kernel of one thread
+// per node (its interpreter per node; launch_stage_terms chooses from the
+// table, ops/weno_v2.py stage_route reports it). Bound at 512^3 f32 on
+// config A: phi read once and written, 8 B/cell (0.32 ms), ~200 operations
+// a node (0.40 ms at 67 TFLOP/s); the march issues ~480 instructions a node
+// with its copies, loads, table walk and the IEEE forms' range checks and
+// branches, so the issue rate binds (tools/stage_fwd_variants.py takes it
+// apart).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -84,262 +93,10 @@
 #include "coef_program.cuh"
 #include "hamiltonians.cuh"
 #include "lsm_kernels.h"
+#include "march.cuh"
 #include "weno5.cuh"
 
 namespace {
-
-// The march of K1 and K1'': a block of NT threads, CX along axis 2 by TY
-// along axis 1, each computing NR neighbouring rows of axis 1, so a block
-// owns CY x CX columns. A step stages one plane of phi with its halo (RY x
-// RX) and the streams of one output plane: aux on a window of AX elements a
-// row (from the even column k0 + 2, so that pairs of elements are aligned)
-// and, for K1, the three velocity components. DEPTH steps' copies are in
-// flight; the ring holds those and the four planes a step reads (its own,
-// and the plane three back that centres its output).
-template <typename T>
-struct March {
-  static constexpr int CX = 32, TY = 8, NT = CX * TY, NR = 2, CY = TY * NR;
-  static constexpr int RX = CX + 2 * LSM_GHOST, RY = CY + 2 * LSM_GHOST, PT = RX * RY;
-  static constexpr int AX = CX + 2;
-  static constexpr int VU = 16 / sizeof(T);  // the elements of a 16-byte copy
-  static constexpr int DEPTH = sizeof(T) == 4 ? 2 : 1;
-  static constexpr int STAGES = DEPTH + 4;
-  static constexpr int MIN_BLOCKS = sizeof(T) == 4 ? 2 : 1;
-};
-constexpr int kChunk = 64;  // planes a block marches over, at most
-
-// A stage of the ring in dynamic shared memory: the plane's tile (PT
-// elements), aux (CY x AX), the velocity (K1: 3 x CY x CX); each part starts
-// on 16 bytes.
-template <typename T, bool kProgram>
-struct MarchRing {
-  using M = March<T>;
-  static constexpr int AUX = M::PT;
-  static constexpr int U = AUX + M::CY * M::AX;
-  static constexpr int ELEMS = U + (kProgram ? 0 : 3 * M::CY * M::CX);
-  static constexpr size_t BYTES = size_t(M::STAGES) * ELEMS * sizeof(T);
-  static_assert(M::PT % 4 == 0 && M::CY * M::AX % 4 == 0 && ELEMS % 4 == 0, "16-byte parts");
-};
-
-// How K1'' evaluates a velocity component: once per column, once per plane,
-// or per node.
-enum { kPerColumn = 0, kPerPlane = 1, kPerNode = 2 };
-
-template <typename T>
-struct MarchArgs {
-  const T* P;
-  const T* u[3];  // K1: the velocity components (interior-shaped)
-  const T* aux;   // may be null
-  T* out;
-  int64_t s0;   // padded plane stride
-  int64_t m12;  // interior plane size n1 * n2
-  int n0, n1, n2, s1, chunk;
-  // copies of two elements for the tile and aux (rows of even length,
-  // buffers aligned to two elements), of 16 bytes for the velocity
-  int pairs, vec_u;
-  int vclass[3];  // K1'': kPerColumn, kPerPlane or kPerNode, per component
-  T inv_h[3], alpha, beta, gamma;
-};
-
-// COUNT chunks of N elements into shared memory by cp.async: chunk f (this
-// thread's: t, t + NT, ...) lands at dst + f * N and comes from src(m, f),
-// m the thread's m-th chunk.
-template <int N, int COUNT, int NT, typename T, typename Src>
-__device__ __forceinline__ void copy_chunks(T* dst, int t, Src src) {
-#pragma unroll
-  for (int m = 0; m < (COUNT + NT - 1) / NT; ++m) {
-    const int f = t + m * NT;
-    if ((m + 1) * NT <= COUNT || f < COUNT)
-      __pipeline_memcpy_async(dst + f * N, src(m, f), N * sizeof(T));
-  }
-}
-
-// In-plane offsets of chunk f of W elements of what a step copies for the
-// block at (j0, k0): the tile of phi (RY x RX), aux's window (CY x AX, from
-// column k0 + 2 of the padded row) and a velocity component (CY x CX). A
-// chunk off the buffer takes element 0: it fills a slot that no node reads.
-template <typename T, int W>
-__device__ __forceinline__ int tile_chunk(const MarchArgs<T>& a, int j0, int k0, int f) {
-  constexpr int RX = March<T>::RX;
-  const int r = f / (RX / W), c = k0 + f % (RX / W) * W;
-  return j0 + r < a.n1 + 2 * LSM_GHOST && c < a.s1 ? (j0 + r) * a.s1 + c : 0;
-}
-template <typename T, int W>
-__device__ __forceinline__ int aux_chunk(const MarchArgs<T>& a, int j0, int k0, int f) {
-  constexpr int AX = March<T>::AX;
-  const int r = f / (AX / W), c = k0 + 2 + f % (AX / W) * W;
-  return j0 + r < a.n1 && c < a.s1 ? (j0 + LSM_GHOST + r) * a.s1 + c : 0;
-}
-template <typename T, int W>
-__device__ __forceinline__ int vel_chunk(const MarchArgs<T>& a, int j0, int k0, int f) {
-  constexpr int CX = March<T>::CX;
-  const int r = f / (CX / W), c = k0 + f % (CX / W) * W;
-  return j0 + r < a.n1 && c < a.n2 ? (j0 + r) * a.n2 + c : 0;
-}
-
-// The N backward differences of N + 1 samples, as weno5.cuh's axis_term
-// forms them.
-template <typename T, int N>
-__device__ __forceinline__ void diffs(const T (&s)[N + 1], T inv_h, T (&d)[N]) {
-#pragma unroll
-  for (int m = 0; m < N; ++m) d[m] = (s[m + 1] - s[m]) * inv_h;
-}
-
-// One block's march (see the top of this file); prog is K1'''s velocity
-// program (entry 0 of the term table), null for K1; none of its components
-// is evaluated per node.
-// Step q copies padded plane i0 + q (i0 + q + 3 without axis 0) and, from
-// step L on, the streams of output plane i0 + q - L, whose centre plane is
-// the one step q - L / 2 copied.
-template <typename T, bool kProgram, bool kAxis0>
-__device__ __forceinline__ void march(const MarchArgs<T>& a, const LsmProgram* prog) {
-  using M = March<T>;
-  using Ring = MarchRing<T, kProgram>;
-  constexpr int CX = M::CX, CY = M::CY, NR = M::NR, NT = M::NT, RX = M::RX, PT = M::PT;
-  constexpr int AX = M::AX, VU = M::VU, S = M::STAGES, D = M::DEPTH, H = LSM_GHOST;
-  constexpr int L = kAxis0 ? 2 * H : 0;
-  extern __shared__ __align__(16) unsigned char march_smem[];
-  T* const ring = reinterpret_cast<T*>(march_smem);
-  __shared__ T vplane[kProgram ? 3 : 1][kProgram ? kChunk : 1];  // K1'': per-plane components
-  const int t = threadIdx.x, jl = t / CX, kl = t % CX;
-  const int j0 = blockIdx.y * CY, k0 = blockIdx.x * CX;
-  const int jf = j0 + jl * NR, k = k0 + kl;  // this thread's first row, and its column
-  const int i0 = blockIdx.z * a.chunk, i1 = min(i0 + a.chunk, a.n0), nq = i1 - i0 + L;
-  bool rin[NR];  // its rows on the grid (those past n1 come last)
-#pragma unroll
-  for (int r = 0; r < NR; ++r) rin[r] = k < a.n2 && jf + r < a.n1;
-  // this thread's chunks' offsets on the common path (pairs, 16-byte
-  // velocity copies); the other computes them at each copy
-  constexpr int CU = CY * CX / VU;  // a component's 16-byte chunks
-  constexpr int TP = (PT / 2 + NT - 1) / NT, AP = (CY * AX / 2 + NT - 1) / NT;
-  constexpr int UP = (3 * CU + NT - 1) / NT;
-  int toff[TP], aoff[AP], uoff[UP];
-#pragma unroll
-  for (int m = 0; m < TP; ++m) toff[m] = tile_chunk<T, 2>(a, j0, k0, t + m * NT);
-#pragma unroll
-  for (int m = 0; m < AP; ++m) aoff[m] = aux_chunk<T, 2>(a, j0, k0, t + m * NT);
-#pragma unroll
-  for (int m = 0; m < UP; ++m) uoff[m] = vel_chunk<T, VU>(a, j0, k0, (t + m * NT) % CU);
-  // step q's copies (one commit group a step, empty past the last)
-  auto issue = [&](int q) {
-    if (q < nq) {
-      T* const st = ring + unsigned(q) % S * Ring::ELEMS;
-      const T* const pp = a.P + int64_t(i0 + q + (kAxis0 ? 0 : H)) * a.s0;
-      if (a.pairs)
-        copy_chunks<2, PT / 2, NT>(st, t, [&](int m, int) { return pp + toff[m]; });
-      else
-        copy_chunks<1, PT, NT>(st, t, [&](int, int f) {
-          return pp + tile_chunk<T, 1>(a, j0, k0, f);
-        });
-      const int o = i0 + q - L;
-      if (q >= L && a.aux != nullptr) {
-        const T* const pa = a.aux + int64_t(o + H) * a.s0;
-        if (a.pairs)
-          copy_chunks<2, CY * AX / 2, NT>(st + Ring::AUX, t, [&](int m, int) {
-            return pa + aoff[m];
-          });
-        else
-          copy_chunks<1, CY * AX, NT>(st + Ring::AUX, t, [&](int, int f) {
-            return pa + aux_chunk<T, 1>(a, j0, k0, f);
-          });
-      }
-      if constexpr (!kProgram) {
-        if (q >= L) {
-          // chunk f: component f / (chunks a component), its chunk f % (...)
-          const int64_t plane = int64_t(o) * a.m12;
-          const auto comp = [&](int f, int per) {
-            const int d = f / per;
-            return (d == 0 ? a.u[0] : (d == 1 ? a.u[1] : a.u[2])) + plane;
-          };
-          if (a.vec_u)
-            copy_chunks<VU, 3 * CU, NT>(st + Ring::U, t, [&](int m, int f) {
-              return comp(f, CU) + uoff[m];
-            });
-          else
-            copy_chunks<1, 3 * CY * CX, NT>(st + Ring::U, t, [&](int, int f) {
-              return comp(f, CY * CX) + vel_chunk<T, 1>(a, j0, k0, f % (CY * CX));
-            });
-        }
-      }
-    }
-    __pipeline_commit();
-  };
-#pragma unroll
-  for (int p = 0; p < D; ++p) issue(p);
-  T uc[3][NR] = {};  // K1'': the per-column components
-  if constexpr (kProgram) {
-#pragma unroll
-    for (int d = 0; d < 3; ++d)
-#pragma unroll
-      for (int r = 0; r < NR; ++r)
-        if (a.vclass[d] == kPerColumn && rin[r])
-          uc[d][r] = lsm::prog_value<T>(*prog, 0, d, i0, jf + r, k);
-    for (int e = t; e < 3 * kChunk; e += NT) {
-      const int d = e / kChunk, p = e % kChunk;
-      if (a.vclass[d] == kPerPlane && i0 + p < i1)
-        vplane[d][p] = lsm::prog_value<T>(*prog, 0, d, i0 + p, 0, 0);
-    }
-  }
-  // axis 0: per row, the six differences D- at planes i - 2 .. i + 3 of the
-  // next output i, and phi on plane i + 3
-  T dq[NR][6] = {}, last[NR] = {};
-  T* out = a.out + int64_t(i0 + H) * a.s0 + (jf + H) * a.s1 + k + H;  // row 0, plane i0
-  for (int q = 0; q < nq; ++q) {
-    __pipeline_wait_prior(D - 1);
-    __syncthreads();  // step q's copies are in; every thread is done with step q - 1
-    issue(q + D);
-    const T* const st = ring + unsigned(q) % S * Ring::ELEMS;
-    if constexpr (kAxis0) {
-#pragma unroll
-      for (int r = 0; r < NR; ++r) {
-        const T v = st[(jl * NR + r + H) * RX + kl + H];
-#pragma unroll
-        for (int m = 0; m < 5; ++m) dq[r][m] = dq[r][m + 1];
-        dq[r][5] = (v - last[r]) * a.inv_h[0];
-        last[r] = v;
-      }
-    }
-    if (q < L || !rin[0]) continue;
-    const int o = i0 + q - L;
-    // axis 1: the column's samples over the rows and their reach, and their
-    // differences, shared by the rows
-    const T* const c =
-        ring + unsigned(q - L / 2) % S * Ring::ELEMS + (jl * NR + H) * RX + kl + H;
-    T c1[NR + 6], d1[NR + 5];
-#pragma unroll
-    for (int m = 0; m < NR + 6; ++m) c1[m] = c[(m - H) * RX];
-    diffs<T, NR + 5>(c1, a.inv_h[1], d1);
-#pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      if (!rin[r]) break;
-      T u[3];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        if constexpr (kProgram) {
-          u[d] = a.vclass[d] == kPerColumn ? uc[d][r] : vplane[d][o - i0];
-        } else {
-          u[d] = st[Ring::U + (d * CY + jl * NR + r) * CX + kl];
-        }
-      }
-      T s2[7], d2[6];
-#pragma unroll
-      for (int m = 0; m < 7; ++m) s2[m] = c[r * RX + m - H];
-      diffs<T, 6>(s2, a.inv_h[2], d2);
-      T ham;
-      if constexpr (kAxis0) {
-        ham = lsm::weno5_upwind(dq[r], u[0]);
-        ham = ham + lsm::weno5_upwind(d1 + r, u[1]);
-      } else {
-        ham = lsm::weno5_upwind(d1 + r, u[1]);
-      }
-      ham = ham + lsm::weno5_upwind(d2, u[2]);
-      T res = a.beta * c1[r + H] - a.gamma * ham;
-      if (a.aux != nullptr) res = a.alpha * st[Ring::AUX + (jl * NR + r) * AX + kl + 1] + res;
-      out[r * a.s1] = res;
-    }
-    out += a.s0;
-  }
-}
 
 template <typename T, bool kAxis0>
 __global__ void __launch_bounds__(March<T>::NT, March<T>::MIN_BLOCKS)
@@ -479,10 +236,315 @@ int launch_stage_prog(const void* P, const void* aux, void* out, int64_t n0, int
                          terms->beta, terms->gamma, terms, axes, stream);
 }
 
-// The term-list entry K1': one thread per interior node (kBlockX x kBlockY
-// blocks, as K1'''s per-node kernel).
+// The term-list entry K1'. A table without a program coefficient takes the
+// march (see the top of this file): a block of NT threads, CX along axis 2
+// by TY along axis 1, each NR rows of axis 1, owns CY x CX columns and
+// marches a chunk of axis 0; four rows a thread share the table's walk and
+// a plane's fixed costs (tools/stage_fwd_variants.py measured one, two and
+// four). R is the stencil's reach: 2 without an advection term (ENO2
+// reaches 2; the curvature's mixed differences read the corners at reach
+// 1), 3 with one (WENO5). A step copies one plane of phi: rows j0 + 3 - R ..
+// j0 + CY + 2 + R of the padded layout (RY rows) and the padded columns k0
+// .. k0 + CX + 5 (RX, so that pairs of elements start on an even column),
+// and the output plane's aux (CY x AX from the even column k0 + 2, as K1's)
+// and streamed coefficients (CY x CX each, as K1's velocity; as many as the
+// ring's budget holds, the rest read in place). The ring holds the 2R + 1
+// planes a node reads and DEPTH steps' copies in flight; axis 0 is compiled
+// out on the embedding (kFirst = 1: one plane, R0 = 0).
+template <typename T, int R, int kFirst>
+struct TermsMarch {
+  static constexpr int CX = 32, TY = 8, NT = CX * TY, NR = 4, CY = TY * NR;
+  static constexpr int RX = CX + 2 * LSM_GHOST, RY = CY + 2 * R, PT = RX * RY, AX = CX + 2;
+  static constexpr int VU = 16 / sizeof(T);  // the elements of a 16-byte copy
+  static constexpr int R0 = kFirst == 0 ? R : 0;  // the reach along axis 0
+  // f32 without advection: three steps in flight (a ring of 8 stages)
+  static constexpr int DEPTH = sizeof(T) == 4 ? (R == 2 ? 3 : 2) : 1;
+  static constexpr int STAGES = 2 * R0 + 1 + DEPTH;
+  static constexpr int MIN_BLOCKS = sizeof(T) == 4 ? 2 : 1;
+  // the ring's bytes, at most, so that MIN_BLOCKS blocks fit an SM's 228 KB
+  static constexpr size_t BUDGET = 224 * 1024 / MIN_BLOCKS;
+  static_assert(PT % 4 == 0 && CY * AX % 4 == 0, "the parts of a stage start on 16 bytes");
+};
+constexpr int kMaxStaged = 6;  // the streamed components a stage holds, at most
 
-template <typename T, bool kAdvection, bool kProgram>
+template <typename T>
+struct TermsArgs {
+  const T* P;
+  const T* aux;  // may be null
+  T* out;
+  int64_t s0;   // padded plane stride
+  int64_t m12;  // interior plane size n1 * n2
+  int n0, n1, n2, s1, chunk;
+  int pairs;  // phi's tile and aux copied two elements at a time (even rows, aligned)
+  int vec_s;  // the staged streams copied 16 bytes at a time
+  int elems, aux_at, str_at;  // a stage's elements and where aux and the streams start
+  int nstaged;                // the streamed components staged
+  int slot[LSM_MAX_TERMS];    // term e's first staged component, or -1: read in place
+  const T* sptr[kMaxStaged];  // the staged components, in slot order
+  lsm::TermConsts<T> k;       // the table's constants in T
+};
+
+// In-plane offsets of chunk f of W elements of what a step of the block at
+// (j0, k0) copies: the tile of phi, aux's window (from column k0 + 2 of the
+// padded row) and a streamed component (interior-shaped). A chunk off the
+// buffer takes element 0: it fills a slot that no node reads.
+template <typename T, int R, int W>
+__device__ __forceinline__ int terms_tile_chunk(const TermsArgs<T>& a, int j0, int k0, int f) {
+  constexpr int RX = TermsMarch<T, R, 0>::RX;
+  const int r = j0 + LSM_GHOST - R + f / (RX / W), c = k0 + f % (RX / W) * W;
+  return r < a.n1 + 2 * LSM_GHOST && c < a.s1 ? r * a.s1 + c : 0;
+}
+template <typename T, int W>
+__device__ __forceinline__ int terms_aux_chunk(const TermsArgs<T>& a, int j0, int k0, int f) {
+  constexpr int AX = TermsMarch<T, 2, 0>::AX;
+  const int r = f / (AX / W), c = k0 + 2 + f % (AX / W) * W;
+  return j0 + r < a.n1 && c < a.s1 ? (j0 + LSM_GHOST + r) * a.s1 + c : 0;
+}
+template <typename T, int W>
+__device__ __forceinline__ int terms_stream_chunk(const TermsArgs<T>& a, int j0, int k0, int f) {
+  constexpr int CX = TermsMarch<T, 2, 0>::CX;
+  const int r = f / (CX / W), c = k0 + f % (CX / W) * W;
+  return j0 + r < a.n1 && c < a.n2 ? (j0 + r) * a.n2 + c : 0;
+}
+
+// A node's samples in registers (hamiltonians.cuh's accessor): the centre,
+// R on each side along each axis and, for a curvature term, the 12 corners.
+template <typename T, int R>
+struct RingNbr {
+  T c, s[3][2 * R], cr[3][4];
+  __device__ __forceinline__ T at(int d, int m) const {
+    return m == 0 ? c : s[d][m < 0 ? m + R : m + R - 1];
+  }
+  __device__ __forceinline__ T corner(int k, int sa, int sb) const {
+    return cr[k][(sa < 0 ? 2 : 0) + (sb < 0 ? 1 : 0)];
+  }
+};
+
+// Load the node at x of its plane's tile from the planes pl[0 .. 2 R0]
+// (pl[R0] its own): once, for every term.
+template <typename T, int R, int kFirst>
+__device__ __forceinline__ void load_nbr(RingNbr<T, R>& n,
+                                         const T* const (&pl)[2 * TermsMarch<T, R, kFirst>::R0 + 1],
+                                         int x, bool curv) {
+  constexpr int R0 = TermsMarch<T, R, kFirst>::R0, RX = TermsMarch<T, R, kFirst>::RX;
+  const T* const own = pl[R0];
+  n.c = own[x];
+#pragma unroll
+  for (int m = 1; m <= R; ++m) {
+    if constexpr (kFirst == 0) {
+      n.s[0][R - m] = pl[R0 - m][x];
+      n.s[0][R + m - 1] = pl[R0 + m][x];
+    }
+    n.s[1][R - m] = own[x - m * RX];
+    n.s[1][R + m - 1] = own[x + m * RX];
+    n.s[2][R - m] = own[x - m];
+    n.s[2][R + m - 1] = own[x + m];
+  }
+  if (curv) {
+#pragma unroll
+    for (int sa = 1; sa >= -1; sa -= 2)
+#pragma unroll
+      for (int sb = 1; sb >= -1; sb -= 2) {
+        const int z = (sa < 0 ? 2 : 0) + (sb < 0 ? 1 : 0);
+        if constexpr (kFirst == 0) {
+          n.cr[0][z] = pl[R0 + sa][x + sb * RX];
+          n.cr[1][z] = pl[R0 + sa][x + sb];
+        }
+        n.cr[2][z] = own[x + sa * RX + sb];
+      }
+  }
+}
+
+// A node's streamed coefficients: a staged component from its stage, at the
+// node's place y in the block's columns; the others in place, at the
+// interior index q.
+template <typename T>
+struct StagedStreams {
+  const TermsArgs<T>& a;
+  const LsmStageTerms& p;
+  const T* st;  // the stage of the node's output plane
+  int y;
+  int64_t q;
+  __device__ __forceinline__ T operator()(int e, int d) const {
+    constexpr int CC = TermsMarch<T, 2, 0>::CY * TermsMarch<T, 2, 0>::CX;
+    const int sl = a.slot[e];
+    return sl >= 0 ? st[a.str_at + (sl + d) * CC + y] : static_cast<const T*>(p.stream[e][d])[q];
+  }
+};
+
+// The march of K1'. Step q copies padded plane i0 + q + 3 - R0 and, from
+// step 2 R0 on, the aux and streams of output plane o = i0 + q - 2 R0,
+// which it computes from the planes of steps q - 2 R0 .. q. A node loads its
+// samples from the tile once (load_nbr), forms the pieces its terms share
+// once (lsm::term_pieces), and stores its value.
+template <typename T, int R, int kFirst>
+__global__ void __launch_bounds__(TermsMarch<T, R, kFirst>::NT,
+                                  TermsMarch<T, R, kFirst>::MIN_BLOCKS)
+    stage_terms_march_kernel(const __grid_constant__ TermsArgs<T> a,
+                             const __grid_constant__ LsmStageTerms p) {
+  using M = TermsMarch<T, R, kFirst>;
+  constexpr int CX = M::CX, CY = M::CY, NR = M::NR, NT = M::NT, RX = M::RX, PT = M::PT;
+  constexpr int AX = M::AX, VU = M::VU, R0 = M::R0, S = M::STAGES, D = M::DEPTH;
+  constexpr int H = LSM_GHOST, L = 2 * R0;
+  extern __shared__ __align__(16) unsigned char terms_smem[];
+  T* const ring = reinterpret_cast<T*>(terms_smem);
+  const int t = threadIdx.x, jl = t / CX, kl = t % CX;
+  const int j0 = blockIdx.y * CY, k0 = blockIdx.x * CX;
+  const int jf = j0 + jl * NR, k = k0 + kl;  // this thread's first row, and its column
+  const int i0 = blockIdx.z * a.chunk, i1 = min(i0 + a.chunk, a.n0), nq = i1 - i0 + L;
+  // this thread's chunks' offsets on the common path (pairs, 16-byte stream
+  // copies); the other computes them at each copy
+  constexpr int TP = (PT / 2 + NT - 1) / NT, AP = (CY * AX / 2 + NT - 1) / NT;
+  constexpr int SP = (CY * CX / VU + NT - 1) / NT;
+  int toff[TP], aoff[AP], soff[SP];
+#pragma unroll
+  for (int m = 0; m < TP; ++m) toff[m] = terms_tile_chunk<T, R, 2>(a, j0, k0, t + m * NT);
+#pragma unroll
+  for (int m = 0; m < AP; ++m) aoff[m] = terms_aux_chunk<T, 2>(a, j0, k0, t + m * NT);
+#pragma unroll
+  for (int m = 0; m < SP; ++m) soff[m] = terms_stream_chunk<T, VU>(a, j0, k0, t + m * NT);
+  // step q's copies (one commit group a step, empty past the last)
+  auto issue = [&](int q) {
+    if (q < nq) {
+      T* const st = ring + unsigned(q) % S * a.elems;
+      const T* const pp = a.P + int64_t(i0 + q + H - R0) * a.s0;
+      if (a.pairs)
+        copy_chunks<2, PT / 2, NT>(st, t, [&](int m, int) { return pp + toff[m]; });
+      else
+        copy_chunks<1, PT, NT>(st, t, [&](int, int f) {
+          return pp + terms_tile_chunk<T, R, 1>(a, j0, k0, f);
+        });
+      if (q >= L) {
+        const int o = i0 + q - L;
+        if (a.aux != nullptr) {
+          const T* const pa = a.aux + int64_t(o + H) * a.s0;
+          if (a.pairs)
+            copy_chunks<2, CY * AX / 2, NT>(st + a.aux_at, t, [&](int m, int) {
+              return pa + aoff[m];
+            });
+          else
+            copy_chunks<1, CY * AX, NT>(st + a.aux_at, t, [&](int, int f) {
+              return pa + terms_aux_chunk<T, 1>(a, j0, k0, f);
+            });
+        }
+        for (int sl = 0; sl < a.nstaged; ++sl) {
+          const T* const ps = a.sptr[sl] + int64_t(o) * a.m12;
+          T* const dst = st + a.str_at + sl * CY * CX;
+          if (a.vec_s)
+            copy_chunks<VU, CY * CX / VU, NT>(dst, t, [&](int m, int) { return ps + soff[m]; });
+          else
+            copy_chunks<1, CY * CX, NT>(dst, t, [&](int, int f) {
+              return ps + terms_stream_chunk<T, 1>(a, j0, k0, f);
+            });
+        }
+      }
+    }
+    __pipeline_commit();
+  };
+#pragma unroll
+  for (int q = 0; q < D; ++q) issue(q);
+  const int pieces = lsm::pieces_of(p);  // what the table's terms share (uniform)
+  const bool curv = pieces & lsm::kCurvature;
+  const int x0 = (jl * NR + R) * RX + kl + H;  // row 0's node in its plane's tile
+  for (int q = 0; q < nq; ++q) {
+    __pipeline_wait_prior(D - 1);
+    __syncthreads();  // step q's copies are in; every thread is done with step q - 1
+    issue(q + D);
+    if (q < L || k >= a.n2) continue;
+    const int o = i0 + q - L;
+    const T* pl[2 * R0 + 1];
+#pragma unroll
+    for (int m = 0; m <= 2 * R0; ++m) pl[m] = ring + unsigned(q - L + m) % S * a.elems;
+    const int64_t cp = int64_t(o + H) * a.s0, qp = int64_t(o) * a.m12;
+    const T* const st = pl[2 * R0];  // the stage that holds the output plane's aux and streams
+    if constexpr (R == 3) {  // an advection term: each row's samples stay for WENO5
+#pragma unroll 1
+      for (int r = 0; r < NR; ++r) {
+        const int j = jf + r;
+        if (j >= a.n1) break;
+        RingNbr<T, R> n;
+        load_nbr<T, R, kFirst>(n, pl, x0 + r * RX, curv);
+        const StagedStreams<T> s{a, p, st, (jl * NR + r) * CX + kl, qp + j * a.n2 + k};
+        const T ham = lsm::term_sum<T, true, false, kFirst>(n, a.k, s, o, j, k, p, pieces);
+        T res = lsm::stage_combine(a.k, n.c, ham);
+        if (a.aux != nullptr)
+          res = lsm::stage_with_aux(a.k, st[a.aux_at + (jl * NR + r) * AX + kl + 1], res);
+        a.out[cp + (j + H) * a.s1 + k + H] = res;
+      }
+    } else {  // the rows' pieces first, then one walk of the table for both rows
+      lsm::Pieces<T> pc[NR];
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        RingNbr<T, R> n;
+        load_nbr<T, R, kFirst>(n, pl, x0 + r * RX, curv);
+        pc[r] = lsm::term_pieces<T, kFirst>(n, a.k, pieces);
+      }
+      T ham[NR] = {};
+      for (int e = 0; e < p.n; ++e) {
+        const int kind = p.kind[e], coef = p.coef[e];
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          // a row past n1 reads no stream (its node is not stored)
+          const StagedStreams<T> s{a, p, st, (jl * NR + r) * CX + kl, qp + (jf + r) * a.n2 + k};
+          const T v = coef == LSM_COEF_STREAM ? (jf + r < a.n1 ? s(e, 0) : T(0))
+                                              : (coef == LSM_COEF_CONST ? a.k.value(e) : T(0));
+          ham[r] = ham[r] + lsm::term_share(a.k, pc[r], kind, coef, v);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const int j = jf + r;
+        if (j >= a.n1) break;
+        T res = lsm::stage_combine(a.k, pc[r].center, ham[r]);
+        if (a.aux != nullptr)
+          res = lsm::stage_with_aux(a.k, st[a.aux_at + (jl * NR + r) * AX + kl + 1], res);
+        a.out[cp + (j + H) * a.s1 + k + H] = res;
+      }
+    }
+  }
+}
+
+// Stage the table's streamed components while the ring stays within its
+// budget (a term's components all or none), lay a stage out and launch.
+template <typename T, int R, int kFirst>
+cudaError_t launch_terms_march(TermsArgs<T> a, dim3 grid, const LsmStageTerms& terms,
+                               cudaStream_t s) {
+  using M = TermsMarch<T, R, kFirst>;
+  const auto aligned = [](const void* ptr, size_t bytes) {
+    return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+  };
+  a.aux_at = M::PT;
+  a.str_at = M::PT + (a.aux != nullptr ? M::CY * M::AX : 0);
+  const size_t per = size_t(M::CY) * M::CX * sizeof(T) * M::STAGES;  // a staged component
+  const size_t base = size_t(a.str_at) * sizeof(T) * M::STAGES;
+  const int room = base >= M::BUDGET ? 0 : static_cast<int>((M::BUDGET - base) / per);
+  const int cap = room < kMaxStaged ? room : kMaxStaged;
+  a.nstaged = 0;
+  a.vec_s = a.n2 % M::VU == 0;
+  for (int e = 0; e < terms.n; ++e) {
+    const int comps = terms.kind[e] == LSM_TERM_ADVECTION ? 3 : 1;
+    a.slot[e] = -1;
+    if (terms.coef[e] != LSM_COEF_STREAM || a.nstaged + comps > cap) continue;
+    a.slot[e] = a.nstaged;
+    for (int d = 0; d < comps; ++d) {
+      a.sptr[a.nstaged] = static_cast<const T*>(terms.stream[e][d]);
+      a.vec_s = a.vec_s && aligned(terms.stream[e][d], 16);
+      ++a.nstaged;
+    }
+  }
+  a.elems = a.str_at + a.nstaged * M::CY * M::CX;
+  const size_t smem = size_t(a.elems) * sizeof(T) * M::STAGES;
+  const auto kernel = stage_terms_march_kernel<T, R, kFirst>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) kernel<<<grid, M::NT, smem, s>>>(a, terms);
+  return err;
+}
+
+// K1' for a table with a program coefficient: one thread per interior node
+// (kBlockX x kBlockY blocks, as the per-node kernel of K1''), the stencils
+// from device memory, the programs by the interpreter per node.
+template <typename T, bool kAdvection>
 __global__ void __launch_bounds__(kBlockX* kBlockY)
     weno_stage_terms_kernel(const T* __restrict__ P, const T* __restrict__ aux,
                             T* __restrict__ out, int64_t n0, int64_t n1, int64_t n2,
@@ -495,27 +557,60 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   const int64_t s0 = (n1 + 2 * LSM_GHOST) * s1;
   const int64_t c = (i + LSM_GHOST) * s0 + (j + LSM_GHOST) * s1 + (k + LSM_GHOST);
   const int64_t q = (i * n1 + j) * n2 + k;
-  out[c] = lsm::stage_value_terms<T, kAdvection, kProgram>(P, aux, c, s0, s1, q, i, j, k,
-                                                           terms);
+  out[c] = lsm::stage_value_terms<T, kAdvection, true, 0>(lsm::DeviceNbr<T>{P, c, s0, s1}, aux,
+                                                          c, q, i, j, k, terms);
 }
 
+// K1': a table with a program coefficient takes the kernel of one thread
+// per node (the march evaluates no program), any other the march.
 template <typename T>
 int launch_stage_terms(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
                        int64_t n2, const LsmStageTerms* terms, void* stream) {
   if (terms->n < 1 || terms->n > LSM_MAX_TERMS) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kBlockX, kBlockY, 1);
-  const dim3 grid(static_cast<unsigned>((n2 + kBlockX - 1) / kBlockX),
-                  static_cast<unsigned>((n1 + kBlockY - 1) / kBlockY),
-                  static_cast<unsigned>(n0));
-  const bool adv = lsm::has_advection(*terms), prog = lsm::has_program(*terms);
-  const auto kernel = adv ? (prog ? weno_stage_terms_kernel<T, true, true>
-                                  : weno_stage_terms_kernel<T, true, false>)
-                          : (prog ? weno_stage_terms_kernel<T, false, true>
-                                  : weno_stage_terms_kernel<T, false, false>);
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(P), static_cast<const T*>(aux), static_cast<T*>(out), n0, n1, n2,
-      *terms);
-  return static_cast<int>(cudaGetLastError());
+  const bool adv = lsm::has_advection(*terms);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lsm::has_program(*terms)) {
+    const dim3 block(kBlockX, kBlockY, 1);
+    const dim3 grid(static_cast<unsigned>((n2 + kBlockX - 1) / kBlockX),
+                    static_cast<unsigned>((n1 + kBlockY - 1) / kBlockY),
+                    static_cast<unsigned>(n0));
+    const auto kernel = adv ? weno_stage_terms_kernel<T, true> : weno_stage_terms_kernel<T, false>;
+    kernel<<<grid, block, 0, s>>>(static_cast<const T*>(P), static_cast<const T*>(aux),
+                                  static_cast<T*>(out), n0, n1, n2, *terms);
+    return static_cast<int>(cudaGetLastError());
+  }
+  using M = TermsMarch<T, 2, 0>;  // the block's columns are every instantiation's
+  const int64_t chunks = (n0 + kChunk - 1) / kChunk, gy = (n1 + M::CY - 1) / M::CY;
+  if (n0 > INT_MAX || chunks > 65535 || gy > 65535 ||
+      n1 + 2 * LSM_GHOST > INT_MAX / (n2 + 2 * LSM_GHOST))
+    return static_cast<int>(cudaErrorInvalidValue);  // offsets inside a plane are 32-bit
+  const auto aligned = [](const void* ptr, size_t bytes) {
+    return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+  };
+  TermsArgs<T> a{};
+  a.P = static_cast<const T*>(P);
+  a.aux = static_cast<const T*>(aux);
+  a.out = static_cast<T*>(out);
+  a.n0 = static_cast<int>(n0);
+  a.n1 = static_cast<int>(n1);
+  a.n2 = static_cast<int>(n2);
+  a.s1 = a.n2 + 2 * LSM_GHOST;
+  a.s0 = int64_t(a.n1 + 2 * LSM_GHOST) * a.s1;
+  a.m12 = n1 * n2;
+  a.chunk = static_cast<int>((n0 + chunks - 1) / chunks);  // as even as n0 allows
+  a.pairs = a.s1 % 2 == 0 && aligned(P, 2 * sizeof(T)) &&
+            (aux == nullptr || aligned(aux, 2 * sizeof(T)));
+  a.k = lsm::TermConsts<T>::of(*terms);
+  const dim3 grid(static_cast<unsigned>((n2 + M::CX - 1) / M::CX), static_cast<unsigned>(gy),
+                  static_cast<unsigned>(chunks));
+  // n0 == 1: the 2D embedding, axis 0 compiled out (its ghosts copy the plane)
+  const bool axis0 = n0 > 1;
+  const cudaError_t err =
+      adv ? (axis0 ? launch_terms_march<T, 3, 0>(a, grid, *terms, s)
+                   : launch_terms_march<T, 3, 1>(a, grid, *terms, s))
+          : (axis0 ? launch_terms_march<T, 2, 0>(a, grid, *terms, s)
+                   : launch_terms_march<T, 2, 1>(a, grid, *terms, s));
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace

@@ -19,7 +19,8 @@ the kernel) or a callable ``f(xs, t)``. A callable that follows
 construction, into a program the kernels evaluate per node (K1″, K3″):
 nothing is streamed for it. Any other callable is evaluated into streamed
 tensors at each stage time, at the kernel's node coordinates ``lo + i*h``.
-:attr:`FusedStepper.routes` says which route each term took, and why. A
+:attr:`FusedStepper.routes` says which route each term took, and why;
+:attr:`FusedStepper.stage_route` which kernel a stage launches. A
 gradient runs K4, K3 (one advection term) or K3' (any other list) and K5; on
 CUDA a 2D field's gradient raises (:func:`gradient_reason`).
 
@@ -338,6 +339,7 @@ class FusedStepper:
             self.shape, self.bcs = tuple(phi.shape), phi.bcs
             self.spacing = tuple(float(h) for h in phi.spacing)
             self.lo = tuple(float(x) for x in phi.grid.lo)
+        self._stage_route = v2.stage_route(self.entries, self.shape)
 
     def pack(self, values: torch.Tensor) -> torch.Tensor:
         return v2.pack_padded(values[None] if self.is2d else values, self.bcs)
@@ -353,6 +355,16 @@ class FusedStepper:
         ``"program"`` (traced, evaluated in-kernel), ``"stream"``,
         ``"const"`` or ``"none"``."""
         return tuple((spec.route, spec.reason) for spec, _ in self.entries)
+
+    @property
+    def stage_route(self) -> str:
+        """The kernel a stage of this stepper launches on CUDA, which its
+        term table decides (reported by
+        :func:`~lsm_tpu_torch.ops.weno_v2.stage_route`): ``"K1 march"``,
+        ``"K1'' march"``, ``"K1'' per node"``, ``"K1' march R=3"``,
+        ``"K1' march R=2"`` or ``"K1' per node"`` (a program coefficient in
+        a term list)."""
+        return self._stage_route
 
     def stage_terms(self, t, entries=None):
         """The stage's term list at time ``t`` (of ``entries``, default the

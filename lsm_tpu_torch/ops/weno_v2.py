@@ -66,6 +66,7 @@ __all__ = [
     "node_coords",
     "stage_plain",
     "stage_reference",
+    "stage_route",
     "fused_stage",
     "stage_refresh_plain",
     "fused_step_stage",
@@ -775,6 +776,38 @@ def stage_table(terms, spacing, coeffs, where: Optional[Where] = None, shape=Non
     return tab
 
 
+def stage_route(terms, shape) -> str:
+    """Which kernel of ``csrc/weno_stage.cu`` a stage of the normalised term
+    list ``terms`` on a grid of ``shape`` launches on CUDA (a callable on
+    the stream route counts as streamed). The launch chooses it from the
+    table; this reports the same rule:
+
+    - ``"K1 march"``: one streamed advection term;
+    - ``"K1'' march"``: one advection term whose velocity is a program each
+      of whose components reads axis 0 alone or not at all (evaluated per
+      plane or per column);
+    - ``"K1'' per node"``: the other advection programs, and every one on
+      the 2D embedding (``shape[0] == 1``);
+    - ``"K1' march R=3"`` / ``"K1' march R=2"``: any other list without a
+      program coefficient, with an advection term (WENO5 reaches 3 nodes) or
+      without (ENO2 and the curvature reach 2); on the embedding axis 0 is
+      compiled out;
+    - ``"K1' per node"``: a list with a program coefficient (its
+      interpreter runs per node; in the march it measured slower).
+    """
+    specs = [spec for spec, _ in terms]
+    if len(specs) == 1 and specs[0].kind == "advection" and specs[0].route in ("stream",
+                                                                               "program"):
+        if specs[0].route == "stream":
+            return "K1 march"
+        per_node = shape[0] == 1 or any(a & 1 and a != 1 for a in specs[0].coef_static.axes)
+        return "K1'' per node" if per_node else "K1'' march"
+    if any(spec.coef_kind == "program" for spec in specs):
+        return "K1' per node"
+    return "K1' march R=3" if any(spec.kind == "advection" for spec in specs) else \
+        "K1' march R=2"
+
+
 def fused_stage(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
                 spacing, shape, where: Optional[Where] = None) -> torch.Tensor:
     """K1: one RK stage on the padded layout.
@@ -792,13 +825,15 @@ def fused_stage(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
     ``origin`` zero, time 0).
     Replaces ``lsm_tpu.ops.weno_v2.fused_stage`` (a callable that did not
     trace is evaluated into streams first, :func:`resolve_terms`). CUDA
-    tensors go to ``csrc/weno_stage.cu`` (the advection-only stage to its
-    own entries), CPU tensors to :func:`stage_plain`. With ``shape[0] == 1``
-    (the 2D embedding) the advection-only entries take the axis-0 term as
-    zero: ``P``'s axis-0 ghosts must copy its one plane, as
-    :func:`pack_padded` and :func:`refresh_ghosts_fast` leave them under
-    every boundary condition a one-node axis admits; on other ghosts the
-    card drops a term that :func:`stage_plain` keeps.
+    tensors go to ``csrc/weno_stage.cu``, to the kernel :func:`stage_route`
+    names; CPU tensors to :func:`stage_plain`. With ``shape[0] == 1`` (the
+    2D embedding) the marches (K1, K1′) and K1″'s per-node kernel compile
+    axis 0 out and take every axis-0 difference as zero: ``P``'s axis-0
+    ghosts must copy its one plane, as :func:`pack_padded` and
+    :func:`refresh_ghosts_fast` leave them under every boundary condition a
+    one-node axis admits; on other ghosts the card drops a term that
+    :func:`stage_plain` keeps (K1′'s per-node kernel, for a program
+    coefficient, reads them).
     """
     shape = tuple(shape)
     if len(shape) != 3 or len(spacing) != 3:

@@ -87,23 +87,49 @@ def _mixed_bcs(pkg):
             (pkg.Extrapolation(2), pkg.Symmetry())]
 
 
+#: the march's edge shapes beside SHAPE: the 2D embedding (axis 0 compiled
+#: out on the card), axis 0 past one chunk of 64 planes, columns that tile
+#: neither axis 1 (16) nor axis 2 (32)
+STAGE_SHAPES = {"16x16x128": SHAPE, "embedding": (1, 37, 75), "past_chunk": (67, 20, 33),
+                "ragged": (9, 37, 40)}
+
+
+def _stage_field(shape):
+    """``(JAX values, port values, JAX bcs, port bcs, spacing, lo)`` of the
+    wavy torus at ``shape`` under :func:`_mixed_bcs`; the embedding (n0 = 1)
+    takes the first plane of a 2-plane grid, with ``Extrapolation(0)``
+    ghosts (copies of the plane) along axis 0."""
+    if shape[0] == 1:
+        jphi, tphi = _field((2, *shape[1:]), _wavy, _mixed_bcs)
+        embed = lambda pkg, bcs: ((pkg.Extrapolation(0), pkg.Extrapolation(0)), *bcs[1:])
+        return (jphi.values[:1], tphi.values[:1].contiguous(), embed(J, jphi.bcs),
+                embed(T, tphi.bcs), tphi.grid.spacing, tphi.grid.lo)
+    jphi, tphi = _field(shape, _wavy, _mixed_bcs)
+    return jphi.values, tphi.values, jphi.bcs, tphi.bcs, tphi.grid.spacing, tphi.grid.lo
+
+
+@pytest.mark.parametrize("where", list(STAGE_SHAPES))
 @pytest.mark.parametrize("case", STAGE_CASES)
-def test_stage_kinds_match_jax_reference(case):
+def test_stage_kinds_match_jax_reference(case, where):
     """The plain K1 (``fused_stage`` on CPU tensors) and the port's oracle
-    against JAX's ``stage_reference``, each on its own padded layout."""
-    jphi, tphi = _field(SHAPE, _wavy, _mixed_bcs)
+    against JAX's ``stage_reference``, each on its own padded layout, at
+    SHAPE and at the march's edge shapes; where JAX's Pallas stage takes
+    the shape (its lane tile, 128, divides n2), against it in interpret mode
+    too."""
+    shape = STAGE_SHAPES[where]
+    jvals, tvals, jbcs, tbcs, spacing, lo = _stage_field(shape)
     rng = np.random.default_rng(11)
-    a = rng.standard_normal(SHAPE)
+    a = rng.standard_normal(shape)
     a[:, ::4] = 0.0  # ties: zero speed, zero weight, zero sign
-    s0 = np.array(jphi.values) / np.sqrt(np.array(jphi.values) ** 2 + 1e-4)
+    s0 = np.array(jvals) / np.sqrt(np.array(jvals) ** 2 + 1e-4)
     kind, coef = case.split("_")[0], case.split("_")[1]
     streams = {"normal": a, "curvature": -np.abs(a), "eikonal": s0}
     t, coeffs, aux = 0.3, (0.0, 1.0, 0.5), None
     if case == "sum3_aux":
-        vel = 0.5 * rng.standard_normal((3, *SHAPE))
+        vel = 0.5 * rng.standard_normal((3, *shape))
         specs = [("advection", "stream", None, list(vel)), ("curvature", "const", -0.01, []),
                  ("normal", "stream", None, [a])]
-        coeffs, aux = (0.4, 0.6, 5e-2), np.array(jphi.values) * 1.1 + 0.05
+        coeffs, aux = (0.4, 0.6, 5e-2), np.array(jvals) * 1.1 + 0.05
     elif coef == "const":
         specs = [(kind, "const", 0.2 if kind == "normal" else -0.05, [])]
     elif coef == "callable":
@@ -116,19 +142,22 @@ def test_stage_kinds_match_jax_reference(case):
                   for k, c, v, s in specs)
     tspec = tuple((tv2.TermSpec(k, c, v, len(s)), tuple(torch.from_numpy(np.ascontiguousarray(x))
                                                          for x in s)) for k, c, v, s in specs)
-    grid = tphi.grid
-    JP, TP = jv2.pack_padded(jphi.values, jphi.bcs), tv2.pack_padded(tphi.values, tphi.bcs)
-    JA = None if aux is None else jv2.pack_padded(jnp.asarray(aux), jphi.bcs)
-    TA = None if aux is None else tv2.pack_padded(torch.from_numpy(aux), tphi.bcs)
-    ref = jv2.stage_reference(JP, jspec, coeffs, t, JA, jphi.bcs, grid.spacing, SHAPE, grid.lo)
-    oracle = tv2.stage_reference(TP, tspec, coeffs, t, TA, tphi.bcs, grid.spacing, SHAPE, grid.lo)
+    JP, TP = jv2.pack_padded(jvals, jbcs), tv2.pack_padded(tvals, tbcs)
+    JA = None if aux is None else jv2.pack_padded(jnp.asarray(aux), jbcs)
+    TA = None if aux is None else tv2.pack_padded(torch.from_numpy(aux), tbcs)
+    ref = jv2.stage_reference(JP, jspec, coeffs, t, JA, jbcs, spacing, shape, lo)
+    oracle = tv2.stage_reference(TP, tspec, coeffs, t, TA, tbcs, spacing, shape, lo)
     _close(_np(oracle), ref, 1e-12)
-    xs = tv2.node_coords(SHAPE, grid.spacing, grid.lo, torch.float64)
-    resolved = tv2.resolve_terms(tspec, xs, t, SHAPE, torch.float64, "cpu")
+    xs = tv2.node_coords(shape, spacing, lo, torch.float64)
+    resolved = tv2.resolve_terms(tspec, xs, t, shape, torch.float64, "cpu")
     assert all(spec.coef_kind != "analytic" for spec, _ in resolved)
-    out = tv2.fused_stage(TP, resolved, coeffs, TA, grid.spacing, SHAPE)
+    out = tv2.fused_stage(TP, resolved, coeffs, TA, spacing, shape)
     assert tv2.fused_stage.launches == 0
-    _close(_np(tv2.unpack_padded(out, SHAPE)), ref, 1e-12)
+    _close(_np(tv2.unpack_padded(out, shape)), ref, 1e-12)
+    if shape[2] % 128 == 0:  # JAX's Pallas stage takes the shape: interpret mode
+        pallas = jv2.fused_stage(JP, jspec, coeffs, t, JA, jbcs, spacing, shape, lo,
+                                 interpret=True)
+        _close(_np(tv2.unpack_padded(out, shape)), jv2.unpack_padded(pallas, shape), 1e-12)
 
 
 def test_stage_term_table_limits():
@@ -383,3 +412,61 @@ def test_cuda_refusals_name_their_roadmap_items():
     assert tband.unsupported_reason(kinds, nb, T.RK3()) is None
     assert "a curvature coefficient MeshField" in tfused.unsupported_reason(
         (T.CurvatureTerm(T.MeshField(tphi.values[None], tphi.grid, tphi.bcs)),), tphi, T.RK3())
+
+
+# -- the stage's route on CUDA ---------------------------------------------------------------
+
+
+def _route_case(name):
+    """(terms, field) of a configuration whose stage route is checked."""
+    torus = lambda: _field((12, 12, 12), lambda m: m.torus((0.0, 0.0, 0.0), 0.5, 0.2),
+                           lambda pkg: pkg.Extrapolation(2))[1]
+    if name == "A":
+        return (T.CurvatureTerm(-0.05), T.NormalMotionTerm(0.2)), torus()
+    if name == "B_frozen":
+        phi = _field((12, 12, 12), _wavy, lambda pkg: pkg.Extrapolation(2))[1]
+        return (T.EikonalReinitializationTerm.from_initial(phi),), phi
+    if name == "B_none":
+        return (T.EikonalReinitializationTerm(),), torus()
+    if name == "D4":
+        eq = T.models.benchmarks.config4_curvature_normal(16, dtype=torch.float64, device="cpu")
+        return eq.terms, eq.state
+    if name == "kinds_grad":  # curvature plus normal motion at a streamed speed
+        phi = torus()
+        speed = T.MeshField(0.1 + 0.05 * phi.values, phi.grid, phi.bcs)
+        return (T.CurvatureTerm(-0.05), T.NormalMotionTerm(speed)), phi
+    if name in ("advection_curvature", "streamed"):
+        phi = torus()
+        vel = T.MeshField(torch.stack([phi.values] * 3), phi.grid, phi.bcs)
+        extra = (T.CurvatureTerm(-0.01),) if name == "advection_curvature" else ()
+        return (T.AdvectionTerm(vel), *extra), phi
+    if name == "program_table":  # a traced speed that reads axes 0, 1 and 2
+        return (T.CurvatureTerm(-0.05), T.NormalMotionTerm(_speed)), torus()
+    if name == "program_axis1":  # a traced speed that reads axis 1 alone
+        return (T.NormalMotionTerm(lambda xs, t: 0.2 + 0.1 * xs[1]),), torus()
+    if name == "rotation":  # advection only, components per column or per plane
+        return (T.AdvectionTerm(_velf),), torus()
+    if name == "vortex":  # advection only, a component that reads axes 0 and 1
+        return (T.AdvectionTerm(lambda xs, t: (xs[1] * xs[0], -xs[0], 0.0 * xs[2])),), torus()
+    eq = T.models.benchmarks.config2_zalesak(16, dtype=torch.float64, device="cpu")  # D2
+    return eq.terms, eq.state
+
+
+ROUTES = {"A": "K1' march R=2", "B_frozen": "K1' march R=2", "B_none": "K1' march R=2",
+          "D4": "K1' march R=2", "kinds_grad": "K1' march R=2",
+          "advection_curvature": "K1' march R=3", "program_table": "K1' per node",
+          "program_axis1": "K1' per node", "rotation": "K1'' march", "vortex": "K1'' per node",
+          "streamed": "K1 march", "D2": "K1'' per node"}
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_stage_route(name):
+    """The kernel a stepper's stage launches on CUDA, as its term table
+    decides and the stepper reports it: K1''s march with reach 2 (no advection
+    term) or 3, or one thread per node for a table with a program
+    coefficient; K1'' per node for a velocity component that reads axis 0
+    and another axis, and on the 2D embedding."""
+    terms, phi = _route_case(name)
+    stepper = tfused.FusedStepper(terms, phi, T.RK3())
+    assert stepper.stage_route == ROUTES[name]
+    assert tv2.stage_route(stepper.stage_terms(0.0), stepper.shape) == ROUTES[name]

@@ -96,7 +96,10 @@ def test_plain_matches_jax_pallas_interpret(case, with_aux):
 
 
 F64_CASES = {"3d_odd": ((13, 17, 19), "extrap2"), "3d_periodic": ((12, 16, 20), "periodic"),
-             "2d_odd": ((23, 29), "symmetry"), "2d_periodic": ((32, 32), "periodic")}
+             "2d_odd": ((23, 29), "symmetry"), "2d_periodic": ((32, 32), "periodic"),
+             # K10's march on the card: axis 0 past one chunk of 64 planes, and
+             # columns that tile neither axis 1 (16) nor axis 2 (32)
+             "3d_past_chunk": ((67, 20, 33), "symmetry"), "3d_ragged": ((9, 37, 40), "periodic")}
 
 
 @pytest.mark.parametrize("with_aux", [False, True], ids=["noaux", "aux"])
