@@ -26,6 +26,10 @@ phases (a partial run: no kernel record):
              f64: the active-tile stage (K6), the gated shell refresh (K7) on
              five BC cases and three gate settings, the incremental re-tube
              (K8) and the dispatch rebuilt from it.
+   band_tiles — K6, K6'' and K6' vs their plain versions, and K8 bit for
+             bit, at every tile shape of tools/band_tile_sweep.py (3D at
+             40x72x136, 2D at 200x264), f32 and f64: K6's largest boxes of
+             shared memory and K8's rows of several words.
    k1kinds — K1's term-list entry (K1') vs its plain version at 40x72x136
              on a torus, five BC cases, f32 and f64: normal motion (constant,
              streamed, callable speed), curvature (constant, streamed),
@@ -208,6 +212,7 @@ K4_TOL = 1e-6  # relative to max(|ref|, 1)
 F32_L2_FACTOR = 4.0  # f32 card-vs-CPU rollout gradient, times the CPU's 1-ulp L2 spread
 VOL_TOL = 1e-3  # relative volume change over the main path's 10 RK3 steps
 BAND_SMALL = (40, 72, 136)  # the band kernels' parity grid (ragged last tile on axis 2)
+BAND_ODD = (40, 72, 133)  # the same, rows of odd length: K6's and K8's copies an element a time
 BAND_STEPS = 10  # the band main path: steps of integrate, FE and RK3
 BAND_CHECK_STEPS = 3  # the 512^3 band: kernels against plain versions
 BAND_TINY = 1024  # a dispatch list too small for the 512^3 band: integrate must regrow it
@@ -1156,15 +1161,63 @@ class PlainBandStepper(FusedBandStepper):
                             v2.Where(self.lo, None, t_stage))
         return bd.refresh_band_ghosts_plain(dst, self.bcs, self.shape, state.flags)
 
-    def retube_tiles(self, cur, band, cids):
+    def retube_tiles(self, cur, band, cids, count):
         return bd.band_retube_plain(cur, band, cids, self.nlayers,
-                                    lsm.NarrowBandField.COMPUTE_HALO, self.shape, self.tiles)
+                                    lsm.NarrowBandField.COMPUTE_HALO, self.shape, self.tiles,
+                                    count)
+
+
+K8_WIDE_TILES = (8, 8, 64)  # K8's rows of three words (64 + 2 (nlayers + 4) nodes)
+# the tile shapes tools/band_tile_sweep.py times; phase_band_tiles holds the
+# band kernels against their plain versions at each
+SWEEP_TILES = ((8, 8, 32), (8, 8, 64), (8, 8, 128), (8, 16, 32), (16, 16, 16), (16, 16, 32))
+SWEEP_TILES_2D = ((16, 16), (32, 32), (16, 64), (8, 128))
+
+
+def k8_reach(nlayers):
+    """How far K8's region reaches past its tile: a stamp within nlayers +
+    chalo, a cut cell one node further."""
+    return nlayers + lsm.NarrowBandField.COMPUTE_HALO + 1
+
+
+def k8_compare(phase, label, P, band, act, nlayers, shape, tiles, repeat=False):
+    """K8 against its plain version on the candidates of the tile activity
+    ``act`` (the stepper's list and count: the active tiles and their
+    neighbours), bit for bit: the new mask and the flags; with ``repeat``
+    also a second launch on the same inputs. Returns the nodes it changed."""
+    halo = lsm.NarrowBandField.COMPUTE_HALO
+    cids, count = bd.compact_ids(box_dilate(act, 1), act.numel())
+
+    def run(fn):
+        b = band.clone()
+        return b, fn(P, b, cids, nlayers, halo, shape, tiles, count)
+
+    got, ref = run(bd.band_retube_incremental), run(bd.band_retube_plain)
+    torch.cuda.synchronize()
+    same, changed = same_bits(got, ref), int((got[0] != band).sum())
+    log(phase, f"K8 {label} tiles={tiles} candidates={int(count)} of {act.numel()} tiles, "
+               f"nodes changed={changed}: kernel == plain (mask, flags) {same}")
+    if not same:
+        raise AssertionError(f"K8 differs from its plain version ({label})")
+    if repeat:
+        repeat_check(phase, f"K8 {label}", lambda: run(bd.band_retube_incremental), got)
+    return changed
+
+
+def k8_after_step(phase, label, stepper, state, t, dt):
+    """One more step of ``stepper`` without its re-tube, then
+    :func:`k8_compare` on the re-tube that step would have run (twice)."""
+    moved = stepper.step(state, t, dt, retube=False)
+    return k8_compare(phase, label, moved.bufs[0], moved.band, moved.act, stepper.nlayers,
+                      stepper.shape, stepper.tiles, repeat=True)
 
 
 def phase_k6k7k8(dev, res):
     """K6, K7 and K8 against their plain versions at BAND_SMALL, f32 and
     f64, on a band that crosses tile boundaries, the ragged last tile of
-    axis 2 and the faces x = 0 and z = 1. K6: within K1's bound on the
+    axis 2 and the faces x = 0 and z = 1, with the default tiles and with
+    K8_WIDE_TILES (K8's rows of several words); K6 and K8 also at BAND_ODD
+    (rows of odd length: the element copies). K6: within K1's bound on the
     compute band, bit for bit elsewhere (the source's value on the rest of a
     dispatched tile, the target's previous value on every other tile and
     every shell), streamed and callable, FE and with aux. K7: bit for bit on
@@ -1175,90 +1228,99 @@ def phase_k6k7k8(dev, res):
     halo = lsm.NarrowBandField.COMPUTE_HALO
     worst6 = 0.0
     for dtype, tol in ((torch.float32, K1_TOL), (torch.float64, 1e-12)):
-        grid = lsm.Grid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), BAND_SMALL)
-        phi = lsm.sample(shapes.sphere((0.1, 0.5, 0.9), 0.35), grid, lsm.Extrapolation(2),
-                         dtype=dtype, device=dev)
-        nb = lsm.NarrowBandField.from_field(phi)
-        shape, sp, tiles = grid.shape, grid.spacing, default_tiles(nb.nlayers)
-        band = combined(nb)
-        act = bd.tile_activity(band, tiles)
-        cap = int(act.sum()) + 5  # a few empty (-1) slots
-        ids, _ = bd.compact_ids(act, cap)
-        P = v2.pack_padded(nb.values, nb.bcs)
-        A = v2.pack_padded(nb.values + 0.01 * torch.randn(shape, generator=gen, device=dev,
-                                                          dtype=dtype), nb.bcs)
-        target = P + torch.randn(P.shape, generator=gen, device=dev, dtype=dtype)
-        disp = bd.dispatched_cells(ids, shape, tiles)
-        cm = band != 0
-        flat, _ = bd.tile_index(ids, shape, tiles)
-        stream = torch.randn((3, *shape), generator=gen, device=dev, dtype=dtype)
-        stream[1, :, ::3] = 0.0  # ties
-        streamed = tuple(stream[d].reshape(-1)[flat].contiguous() for d in range(3))
-        xs = bd.tile_coords(ids, shape, tiles, sp, grid.lo, dtype)
-        called = v2.eval_components(spin(xs, 0.0), (cap, *tiles), dtype, dev)
-        off_list = ~inside(shape, disp, dev)
-        for vname, u in (("streamed", streamed), ("callable", called)):
-            for aux, coeffs in ((None, (0.0, 1.0, 1e-3)), (A, (0.75, 0.25, 2.5e-4))):
-                got = bd.band_stage(P, target.clone(), ids, band, u, coeffs, aux, sp, shape,
-                                    tiles)
-                ref = bd.band_stage_plain(P, target.clone(), ids, band, u, coeffs, aux, sp,
-                                          shape, tiles)
+        for shape_n in (BAND_SMALL, BAND_ODD):
+            grid = lsm.Grid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), shape_n)
+            phi = lsm.sample(shapes.sphere((0.1, 0.5, 0.9), 0.35), grid, lsm.Extrapolation(2),
+                             dtype=dtype, device=dev)
+            nb = lsm.NarrowBandField.from_field(phi)
+            shape, sp = grid.shape, grid.spacing
+            band = combined(nb)
+            P = v2.pack_padded(nb.values, nb.bcs)
+            A = v2.pack_padded(nb.values + 0.01 * torch.randn(shape, generator=gen, device=dev,
+                                                              dtype=dtype), nb.bcs)
+            target = P + torch.randn(P.shape, generator=gen, device=dev, dtype=dtype)
+            cm = band != 0
+            stream = torch.randn((3, *shape), generator=gen, device=dev, dtype=dtype)
+            stream[1, :, ::3] = 0.0  # ties
+            for tiles in (default_tiles(nb.nlayers), K8_WIDE_TILES):
+                act = bd.tile_activity(band, tiles)
+                cap = int(act.sum()) + 5  # a few empty (-1) slots
+                ids, _ = bd.compact_ids(act, cap)
+                disp = bd.dispatched_cells(ids, shape, tiles)
+                flat, _ = bd.tile_index(ids, shape, tiles)
+                streamed = tuple(stream[d].reshape(-1)[flat].contiguous() for d in range(3))
+                xs = bd.tile_coords(ids, shape, tiles, sp, grid.lo, dtype)
+                called = v2.eval_components(spin(xs, 0.0), (cap, *tiles), dtype, dev)
+                off_list = ~inside(shape, disp, dev)
+                for vname, u in (("streamed", streamed), ("callable", called)):
+                    for aux, coeffs in ((None, (0.0, 1.0, 1e-3)), (A, (0.75, 0.25, 2.5e-4))):
+                        args = (ids, band, u, coeffs, aux, sp, shape, tiles)
+                        got = bd.band_stage(P, target.clone(), *args)
+                        ref = bd.band_stage_plain(P, target.clone(), *args)
+                        torch.cuda.synchronize()
+                        g, r = v2.unpack_padded(got, shape), v2.unpack_padded(ref, shape)
+                        on = disp & cm
+                        err = float((g - r)[on].abs().max())
+                        scale = max(float(r[on].abs().max()), 1.0)
+                        kept = disp & ~cm
+                        src_kept = torch.equal(g[kept], v2.unpack_padded(P, shape)[kept])
+                        untouched = torch.equal(got[off_list], target[off_list])
+                        ok = (bool(torch.isfinite(g).all()) and err <= tol * scale and src_kept
+                              and untouched)
+                        log("k6k7k8", f"K6 {str(dtype)[6:]} {vname:8s} aux={aux is not None!s:5s} "
+                                      f"grid={shape} tiles={tiles} slots={cap} "
+                                      f"max|kernel-plain|={err:.3e} "
+                                      f"scale={scale:.3e} tol={tol:g}*scale source kept off the "
+                                      f"band: {src_kept}, other tiles and shells untouched: "
+                                      f"{untouched}")
+                        if not ok:
+                            raise AssertionError(f"K6 parity failed ({dtype}, {vname}, "
+                                                 f"aux={aux is not None}, tiles {tiles})")
+                        if dtype == torch.float32:
+                            worst6 = max(worst6, err)
+            # K7 on K2's five BC cases
+            for name, bcs in (bc_cases() if shape_n == BAND_SMALL else {}).items():
+                Q = v2.pack_padded(torch.randn(shape, generator=gen, device=dev, dtype=dtype), bcs)
+                shell = ~inside(shape, torch.ones(shape, dtype=torch.bool, device=dev), dev)
+                Q[shell] = torch.randn(int(shell.sum()), generator=gen, device=dev, dtype=dtype)
+                for flags in ((1, 1), (1, 0), (0, 0)):
+                    f = torch.tensor(flags, dtype=torch.int32, device=dev)
+                    got = bd.refresh_band_ghosts_fast(Q.clone(), bcs, shape, f)
+                    ref = bd.refresh_band_ghosts_plain(Q.clone(), bcs, shape, f)
+                    torch.cuda.synchronize()
+                    same = torch.equal(got, ref)
+                    kept = flags != (0, 0) or torch.equal(got, Q)
+                    if not (same and kept):
+                        raise AssertionError(f"K7 differs from its plain version ({name}, {flags})")
+                log("k6k7k8", f"K7 {str(dtype)[6:]} {name:9s} flags (1,1) (1,0) (0,0): "
+                              f"kernel == plain bit for bit, (0,0) leaves the buffer as it was")
+            # K8 after the interface moved by about a cell
+            moved = lsm.sample(shapes.sphere((0.1 + 1.5 * sp[0], 0.5, 0.9), 0.35), grid,
+                               lsm.Extrapolation(2), dtype=dtype, device=dev)
+            Pm = v2.pack_padded(moved.values, nb.bcs)
+            for tiles in (default_tiles(nb.nlayers), K8_WIDE_TILES):
+                act = bd.tile_activity(band, tiles)
+                total = act.numel()
+                cids, ccount = bd.compact_ids(box_dilate(act, 1), total)
+                out = {}
+                for label, fn in (("kernel", bd.band_retube_incremental),
+                                  ("plain", bd.band_retube_plain)):
+                    b = band.clone()
+                    flags = fn(Pm, b, cids, nb.nlayers, halo, shape, tiles, ccount)
+                    new_act = bd.scatter_activity(act, cids, flags)
+                    ids2, count2 = bd.compact_ids(new_act | act, int(act.sum()) + 64)
+                    out[label] = (b, flags, new_act, ids2, count2)
                 torch.cuda.synchronize()
-                g, r = v2.unpack_padded(got, shape), v2.unpack_padded(ref, shape)
-                on = disp & cm
-                err = float((g - r)[on].abs().max())
-                scale = max(float(r[on].abs().max()), 1.0)
-                src_kept = torch.equal(g[disp & ~cm], v2.unpack_padded(P, shape)[disp & ~cm])
-                untouched = torch.equal(got[off_list], target[off_list])
-                ok = (bool(torch.isfinite(g).all()) and err <= tol * scale and src_kept
-                      and untouched)
-                log("k6k7k8", f"K6 {str(dtype)[6:]} {vname:8s} aux={aux is not None!s:5s} "
-                              f"tiles={tiles} slots={cap} max|kernel-plain|={err:.3e} "
-                              f"scale={scale:.3e} tol={tol:g}*scale source kept off the band: "
-                              f"{src_kept}, other tiles and shells untouched: {untouched}")
-                if not ok:
-                    raise AssertionError(f"K6 parity failed ({dtype}, {vname}, aux={aux is not None})")
-                if dtype == torch.float32:
-                    worst6 = max(worst6, err)
-        # K7 on K2's five BC cases
-        for name, bcs in bc_cases().items():
-            Q = v2.pack_padded(torch.randn(shape, generator=gen, device=dev, dtype=dtype), bcs)
-            shell = ~inside(shape, torch.ones(shape, dtype=torch.bool, device=dev), dev)
-            Q[shell] = torch.randn(int(shell.sum()), generator=gen, device=dev, dtype=dtype)
-            for flags in ((1, 1), (1, 0), (0, 0)):
-                f = torch.tensor(flags, dtype=torch.int32, device=dev)
-                got = bd.refresh_band_ghosts_fast(Q.clone(), bcs, shape, f)
-                ref = bd.refresh_band_ghosts_plain(Q.clone(), bcs, shape, f)
-                torch.cuda.synchronize()
-                same = torch.equal(got, ref)
-                kept = flags != (0, 0) or torch.equal(got, Q)
-                if not (same and kept):
-                    raise AssertionError(f"K7 differs from its plain version ({name}, {flags})")
-            log("k6k7k8", f"K7 {str(dtype)[6:]} {name:9s} flags (1,1) (1,0) (0,0): "
-                          f"kernel == plain bit for bit, (0,0) leaves the buffer as it was")
-        # K8 after the interface moved by about a cell
-        moved = lsm.sample(shapes.sphere((0.1 + 1.5 * sp[0], 0.5, 0.9), 0.35), grid,
-                           lsm.Extrapolation(2), dtype=dtype, device=dev)
-        Pm = v2.pack_padded(moved.values, nb.bcs)
-        total = act.numel()
-        cids, _ = bd.compact_ids(box_dilate(act, 1), total)
-        out = {}
-        for label, fn in (("kernel", bd.band_retube_incremental), ("plain", bd.band_retube_plain)):
-            b = band.clone()
-            flags = fn(Pm, b, cids, nb.nlayers, halo, shape, tiles)
-            new_act = bd.scatter_activity(act, cids, flags)
-            ids2, count2 = bd.compact_ids(new_act | act, cap + 64)
-            out[label] = (b, flags, new_act, ids2, count2)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(out["kernel"], out["plain"]))
-        full = bd.retube_full(moved.values, band, nb.nlayers, halo)
-        exact_full = torch.equal(out["kernel"][0], full)
-        changed = int((out["kernel"][0] != band).sum())
-        log("k6k7k8", f"K8 {str(dtype)[6:]} candidates={int((cids >= 0).sum())} of {total} "
-                      f"tiles, nodes changed={changed}: kernel == plain (mask, flags, activity, "
-                      f"ids, count) {same}; == full re-tube {exact_full}")
-        if not (same and exact_full and changed > 0):
-            raise AssertionError(f"K8 parity failed ({dtype})")
+                same = all(torch.equal(a, b) for a, b in zip(out["kernel"], out["plain"]))
+                full = bd.retube_full(moved.values, band, nb.nlayers, halo)
+                exact_full = torch.equal(out["kernel"][0], full)
+                changed = int((out["kernel"][0] != band).sum())
+                log("k6k7k8", f"K8 {str(dtype)[6:]} grid={shape} tiles={tiles} "
+                              f"candidates={int(ccount)} of "
+                              f"{total} tiles, nodes changed={changed}: kernel == plain (mask, "
+                              f"flags, activity, ids, count) {same}; == full re-tube {exact_full}")
+                if not (same and exact_full and changed > 0):
+                    raise AssertionError(f"K8 parity failed ({dtype}, tiles {tiles})")
     res["k6_err"], res["k7_err"], res["k8_err"] = worst6, 0.0, 0.0
 
 
@@ -1334,7 +1396,33 @@ def phase_band_512(dev, res):
             res["launches"]["K6"] += counts["K6"]
         else:
             res["k6a_err"] = max(res.get("k6a_err", 0.0), err)
-        del nb, kst, kstate, pst, pstate, got, ref
+        # the stage twice on the same inputs; the re-tube of a step that
+        # moved the band, against its plain version and twice
+        t = BAND_CHECK_STEPS * dt
+        terms, (Pk, outk) = kst.stage_terms(kstate, t), kstate.bufs[:2]
+        stage = lambda: bd.band_stage(Pk, outk.clone(), kstate.ids, kstate.band, terms,
+                                      (0.75, 0.25, 0.25 * dt), Pk, kst.spacing, kst.shape,
+                                      kst.tiles, v2.Where(kst.lo, None, t))
+        kernel = "K6" if route == "stream" else "K6''"
+        repeat_check("band_512", f"{kernel} {label} {N_MAIN}^3 (with aux)", stage, stage())
+        changed = k8_after_step("band_512", f"{N_MAIN}^3 f32 {label} {route} route, step "
+                                            f"{BAND_CHECK_STEPS + 1}", kst, kstate, t, dt)
+        if label == "off-axis" and changed == 0:
+            raise AssertionError("the off-axis band did not move at 512^3")
+        del nb, kst, kstate, pst, pstate, got, ref, terms, Pk, outk
+    # K8 in f64: the off-axis sphere moved by 1.5 h, its band reaching the face x = 1
+    nb = sphere_band(N_MAIN, dev, torch.float64, center=(0.5, 0.0, 0.0))
+    h = nb.grid.min_spacing
+    moved = lsm.sample(shapes.sphere((0.5 + 1.5 * h, 0.0, 0.0), 0.5), nb.grid,
+                       lsm.Extrapolation(2), dtype=torch.float64, device=dev)
+    band, tiles = combined(nb), default_tiles(nb.nlayers)
+    changed = k8_compare("band_512", f"{N_MAIN}^3 f64 off-axis sphere moved by 1.5 h",
+                         v2.pack_padded(moved.values, nb.bcs), band, bd.tile_activity(band, tiles),
+                         nb.nlayers, nb.shape, tiles, repeat=True)
+    if changed == 0:
+        raise AssertionError("the f64 band did not move at 512^3")
+    del nb, moved, band
+    torch.cuda.empty_cache()
 
 
 @contextlib.contextmanager
@@ -1461,7 +1549,8 @@ def phase_band(dev, res):
 
 def phase_band_timing(dev, res):
     """CUDA-event medians: K6, K7 (flags on and off) and K8 alone at 512^3
-    on the band main path's state, and their plain versions; the band FE
+    on the band main path's state, and their plain versions (and K6's and
+    K8's time a call issued back to back, the host's issue hidden); the band FE
     and RK3 stepper step (per layer) through the kernels and the plain
     versions; the end-to-end ``integrate`` ms per step on the band at 512^3
     (FE, RK3) and at 768^3 (FE) beside the dense FE ``integrate`` at 768^3;
@@ -1486,26 +1575,34 @@ def phase_band_timing(dev, res):
     t["K7"] = cuda_time(lambda: bd.refresh_band_ghosts_fast(P, nb.bcs, shape, on))
     t["K7_off"] = cuda_time(lambda: bd.refresh_band_ghosts_fast(P, nb.bcs, shape, off))
     t["K7_plain"] = cuda_time(lambda: bd.refresh_band_ghosts_plain(P, nb.bcs, shape, on))
-    cids, _ = bd.compact_ids(box_dilate(state.act, 1), fe.total)
+    cids, count = bd.compact_ids(box_dilate(state.act, 1), fe.total)
     band = state.band.clone()
     t["K8"] = cuda_time(lambda: bd.band_retube_incremental(P, band, cids, nb.nlayers, halo,
-                                                           shape, fe.tiles))
+                                                           shape, fe.tiles, count))
     t["K8_plain"] = cuda_time(lambda: bd.band_retube_plain(P, band, cids, nb.nlayers, halo,
-                                                           shape, fe.tiles), warmup=1, reps=5)
+                                                           shape, fe.tiles, count),
+                              warmup=1, reps=5)
+    # back to back: the card's time a call, the host's issue hidden behind it
+    t["K6_back_to_back"] = back_to_back_ms(lambda: bd.band_stage(
+        P, out, state.ids, state.band, u, coeffs, None, sp, shape, fe.tiles))
+    t["K8_back_to_back"] = back_to_back_ms(lambda: bd.band_retube_incremental(
+        P, band, cids, nb.nlayers, halo, shape, fe.tiles, count))
     # what each call must move and compute, from this state
     flat, valid = bd.tile_index(state.ids, shape, fe.tiles)
     dispatched = int(valid.sum())
     ops_cells = int(((state.band.view(-1)[flat] != 0) & valid).sum())
     cand = bd.dispatched_cells(cids, shape, fe.tiles)
-    reach = lsm.NarrowBandField.COMPUTE_HALO + nb.nlayers + 2
+    reach = box_dilate(cand, k8_reach(nb.nlayers))
     res["band_work"] = {"dispatched": dispatched, "ops_cells": ops_cells,
-                        "cand_cells": int(cand.sum()),
-                        "cand_reach_cells": int(box_dilate(cand, reach).sum()),
+                        "cand_cells": int(cand.sum()), "cand_reach_cells": int(reach.sum()),
+                        "active_reach_cells": int((reach & (band == bd.ACTIVE)).sum()),
                         "ghosts": (n + 6) ** 3 - n ** 3}
     log("band_timing", f"{n}^3 band state: dispatched tiles {int(state.count)} "
                        f"({dispatched} nodes), compute-band nodes {ops_cells}, K8 candidates "
                        f"{int((cids >= 0).sum())} ({res['band_work']['cand_cells']} nodes, "
-                       f"{res['band_work']['cand_reach_cells']} within its reach)")
+                       f"{res['band_work']['cand_reach_cells']} within its reach, "
+                       f"{res['band_work']['active_reach_cells']} of them active)")
+    del reach
     del cand, flat, valid, band
     for name, integ in (("FE", lsm.ForwardEuler()), ("RK3", lsm.RK3())):
         for label, cls in (("", FusedBandStepper), ("_plain", PlainBandStepper)):
@@ -1539,6 +1636,8 @@ def phase_band_timing(dev, res):
     torch.cuda.empty_cache()
     for name in [k for k in t if k.startswith(("K6", "K7", "K8", "band", "dense"))]:
         log("band_timing", f"f32 {name:26s} median {t[name]:.4f} ms")
+    for name, info in res["band_ptxas"].items():
+        log("band_timing", f"{name}: {info}")
     log("band_timing", "peak memory: " + ", ".join(f"{k} {v:.2f} GiB" for k, v in mem.items()))
     res["mem"].update(mem)
 
@@ -1869,6 +1968,9 @@ def phase_kinds_512(dev, res):
                          f"bit: {same}")
         if not (bool(torch.isfinite(g).all()) and err <= K1_TOL * scale and same):
             raise AssertionError(f"K6' parity at {N_MAIN}^3 failed ({label})")
+        repeat_check("kinds_512", f"K6' {label} {N_MAIN}^3", lambda: bd.band_stage(
+            P, out.clone(), state.ids, state.band, terms, (0.0, 1.0, dt), None, sp, shape,
+            stepper.tiles), got)
         res["k6k_err"] = max(res["k6k_err"], err)
         del nb, stepper, state, P, out, got, ref, g, r
         torch.cuda.empty_cache()
@@ -2097,6 +2199,7 @@ def phase_kinds_timing(dev, res):
     dt = 0.5 * float(fe.cfl(state, 0.0)[0])
     args = (state.ids, state.band, terms, (0.0, 1.0, dt), None, fe.spacing, fe.shape, fe.tiles)
     t["K6k_C"] = cuda_time(lambda: bd.band_stage(P, out, *args))
+    t["K6k_C_back_to_back"] = back_to_back_ms(lambda: bd.band_stage(P, out, *args))
     t["K6k_C_plain"] = cuda_time(lambda: bd.band_stage_plain(P, out, *args), warmup=1, reps=5)
     flat, valid = bd.tile_index(state.ids, fe.shape, fe.tiles)
     res["kinds_band_work"] = {"dispatched": int(valid.sum()),
@@ -3123,6 +3226,23 @@ def device_ms(fn, reps=20, name=None):
     return sum(e.self_device_time_total for e in events) / 1e3 / reps
 
 
+def back_to_back_ms(fn, calls=50) -> float:
+    """Milliseconds a call of ``fn`` over ``calls`` calls issued back to
+    back between two CUDA events (warmed up first): the card's time for a
+    call whenever the host issues faster than the card runs, since the
+    queue never drains."""
+    for _ in range(3):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
+
+
 def profile_window(label, fn, kernels=None):
     """``torch.profiler`` over one call of ``fn`` (warmed up first): wall
     time, device busy share, and the device time by kernel. Returns ``(wall
@@ -3560,6 +3680,9 @@ def phase_analytic_timing(dev, res):
     t["K6pp"] = cuda_time(lambda: bd.band_stage(Q, out, state.ids, state.band, terms, bcoeffs,
                                                 None, nb.grid.spacing, nb.shape, fe.tiles,
                                                 v2.Where(fe.lo)))
+    t["K6pp_back_to_back"] = back_to_back_ms(lambda: bd.band_stage(
+        Q, out, state.ids, state.band, terms, bcoeffs, None, nb.grid.spacing, nb.shape,
+        fe.tiles, v2.Where(fe.lo)))
     t["K6pp_plain"] = cuda_time(lambda: bd.band_stage_plain(
         Q, out, state.ids, state.band, terms, bcoeffs, None, nb.grid.spacing, nb.shape,
         fe.tiles, v2.Where(fe.lo)), warmup=1, reps=5)
@@ -4073,11 +4196,11 @@ def phase_k6k7k8_2d(dev, res):
                            lsm.Extrapolation(2), dtype=dtype, device=dev)
         Pm = v2.pack_padded(moved.values, nb.bcs)
         total = act.numel()
-        cids, _ = bd.compact_ids(box_dilate(act, 1), total)
+        cids, ccount = bd.compact_ids(box_dilate(act, 1), total)
         out = {}
         for label, fn in (("kernel", bd.band_retube_incremental), ("plain", bd.band_retube_plain)):
             b = band.clone()
-            flags = fn(Pm, b, cids, nb.nlayers, halo, shape, tiles)
+            flags = fn(Pm, b, cids, nb.nlayers, halo, shape, tiles, ccount)
             new_act = bd.scatter_activity(act, cids, flags)
             ids2, count2 = bd.compact_ids(new_act | act, total)
             out[label] = (b, flags, new_act, ids2, count2)
@@ -4093,6 +4216,90 @@ def phase_k6k7k8_2d(dev, res):
             raise AssertionError(f"K8 2D parity failed ({dtype})")
     res["k6_2d_err"] = worst
     res["k7_2d_err"], res["k8_2d_err"] = 0.0, 0.0
+
+
+def k6_tiles_compare(label, nb, tiles, cases, gen, tol):
+    """K6 (each ``(name, terms, with_aux)`` of ``cases``, its terms packed by
+    a band stepper with ``tiles``) against its plain version on the band
+    ``nb``: within ``tol`` of max(|ref|, 1) on the dispatched compute band
+    (curvature: off its eps gate), bit for bit elsewhere. Returns the
+    largest difference over the scale."""
+    dev, dtype, shape, sp = nb.device, nb.dtype, nb.shape, nb.grid.spacing
+    band = combined(nb)
+    P = v2.pack_padded(nb.values, nb.bcs)
+    A = v2.pack_padded(nb.values + 0.01 * torch.randn(shape, generator=gen, device=dev,
+                                                      dtype=dtype), nb.bcs)
+    target = P + torch.randn(P.shape, generator=gen, device=dev, dtype=dtype)
+    gate = gate_nodes(P, sp, shape)
+    worst = 0.0
+    for name, terms, with_aux in cases:
+        stepper = FusedBandStepper(terms, nb, lsm.RK3(), tiles=tiles)
+        state = stepper.pack(nb)
+        packed = stepper.stage_terms(state, T_STAGE)
+        disp = bd.dispatched_cells(state.ids, shape, tiles)
+        on = disp & (band != 0) & (~gate if has_curvature(packed) else torch.ones_like(gate))
+        off_list = ~inside(shape, disp, dev)
+        aux, coeffs = (A, (0.75, 0.25, 2.5e-4)) if with_aux else (None, (0.0, 1.0, 1e-3))
+        args = (state.ids, band, packed, coeffs, aux, sp, shape, tiles,
+                v2.Where(nb.grid.lo, None, T_STAGE))
+        got = bd.band_stage(P, target.clone(), *args)
+        ref = bd.band_stage_plain(P, target.clone(), *args)
+        torch.cuda.synchronize()
+        g, r = v2.unpack_padded(got, shape), v2.unpack_padded(ref, shape)
+        err, scale = kinds_err(g, r, on)
+        kept = torch.equal(g[disp & (band == 0)], v2.unpack_padded(P, shape)[disp & (band == 0)])
+        untouched = torch.equal(got[off_list], target[off_list])
+        if not (bool(torch.isfinite(g).all()) and err <= tol * scale and kept and untouched):
+            raise AssertionError(f"{label} {name} tiles {tiles}: K6 parity failed, err {err} "
+                                 f"scale {scale}, kept {kept}, untouched {untouched}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def phase_band_tiles(dev, res):
+    """Every tile shape of ``tools/band_tile_sweep.py`` (SWEEP_TILES,
+    SWEEP_TILES_2D), f32 and f64: K6 (a streamed velocity), K6'' (the
+    rotation in-kernel) and K6' (a streamed normal speed beside a constant
+    curvature, with aux) against their plain versions, within K1's bound,
+    and K8 on the candidates after the interface moved by about a cell,
+    bit for bit. 3D at BAND_SMALL, 2D at BAND_2D_SMALL, on bands that reach
+    faces; the largest tiles give K6 its largest box of shared memory and
+    K8 rows of several words."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    for dtype, tol in ((torch.float32, K1_TOL), (torch.float64, 1e-12)):
+        grid = lsm.Grid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), BAND_SMALL)
+        nb = lsm.NarrowBandField.from_field(lsm.sample(
+            shapes.sphere((0.1, 0.5, 0.9), 0.35), grid, lsm.Extrapolation(2), dtype=dtype,
+            device=dev))
+        vel = lsm.MeshField(0.5 * torch.randn((3, *nb.shape), generator=gen, device=dev,
+                                              dtype=dtype), grid)
+        speed = torch.randn(nb.shape, generator=gen, device=dev, dtype=dtype)
+        cases = [("streamed", (lsm.AdvectionTerm(vel),), False),
+                 ("rotation", (lsm.AdvectionTerm(spin),), False),
+                 ("normal+curvature", (lsm.NormalMotionTerm(lsm.MeshField(speed, grid)),
+                                       lsm.CurvatureTerm(-0.05)), True)]
+        moved = lsm.sample(shapes.sphere((0.1 + 1.5 * grid.spacing[0], 0.5, 0.9), 0.35), grid,
+                           lsm.Extrapolation(2), dtype=dtype, device=dev)
+        Pm = v2.pack_padded(moved.values, nb.bcs)
+        for tiles in SWEEP_TILES:
+            err = k6_tiles_compare("3D", nb, tiles, cases, gen, tol)
+            band = combined(nb)
+            k8_compare("band_tiles", f"{str(dtype)[6:]} 3D", Pm, band,
+                       bd.tile_activity(band, tiles), nb.nlayers, nb.shape, tiles)
+            log("band_tiles", f"K6/K6''/K6' {str(dtype)[6:]} grid={nb.shape} tiles={tiles}: "
+                              f"max|kernel-plain|/scale {err:.1e} (tol {tol:g})")
+        nb2 = corner_band(BAND_2D_SMALL, dev, dtype)
+        moved2 = lsm.sample(shapes.circle((0.1 + 1.5 * nb2.grid.spacing[0], 0.9), 0.35),
+                            nb2.grid, lsm.Extrapolation(2), dtype=dtype, device=dev)
+        Pm2 = v2.pack_padded(moved2.values, nb2.bcs)
+        cases2 = [case[:3] for case in k6_2d_cases(nb2, gen)]
+        for tiles in SWEEP_TILES_2D:
+            err = k6_tiles_compare("2D", nb2, tiles, cases2, gen, tol)
+            band = combined(nb2)
+            k8_compare("band_tiles", f"{str(dtype)[6:]} 2D", Pm2, band,
+                       bd.tile_activity(band, tiles), nb2.nlayers, nb2.shape, tiles)
+            log("band_tiles", f"K6 2D {str(dtype)[6:]} grid={nb2.shape} tiles={tiles}: "
+                              f"max|kernel-plain|/scale {err:.1e} (tol {tol:g})")
 
 
 def d2b(n, dev, dtype=torch.float32):
@@ -4159,9 +4366,10 @@ def phase_band2d_4096(dev, res):
         terms, nb, integ = make(n, dev)
         h = nb.grid.min_spacing
         dt = 0.25 * h if name == "D2b" else 0.2 * h * h / 0.1
-        got, ref = (st.unpack(state) for st, state in (
+        (kst, kstate), (pst, pstate) = (
             run_band_stepper(cls, nb, integ, dt, BAND_2D_CHECK_STEPS, terms=terms)
-            for cls in (FusedBandStepper, PlainBandStepper)))
+            for cls in (FusedBandStepper, PlainBandStepper))
+        got, ref = kst.unpack(kstate), pst.unpack(pstate)
         err, scale, dmask, dcmask = band_diff(got, ref)
         log("band2d_4096", f"{name} {n}^2 f32 RK3 x{BAND_2D_CHECK_STEPS} kernels vs plain: "
                            f"max|diff|={err:.3e} scale={scale:.3e} tol={K1_TOL:g}*scale, mask "
@@ -4170,6 +4378,9 @@ def phase_band2d_4096(dev, res):
                 and dmask == dcmask == 0):
             raise AssertionError(f"{name}: the 2D band kernels and their plain versions disagree")
         res[f"{name}_err"] = err
+        k8_after_step("band2d_4096", f"2D {name} {n}^2 f32, step {BAND_2D_CHECK_STEPS + 1}",
+                      kst, kstate, BAND_2D_CHECK_STEPS * dt, dt)
+        del kst, kstate, pst, pstate
         del got, ref
         eq = lsm.LevelSetEquation(terms=terms, ic=nb, integrator=integ)
         torch.cuda.synchronize()
@@ -4301,20 +4512,21 @@ def phase_band2d_4096(dev, res):
     t["K7_2d"] = cuda_time(lambda: bd.refresh_band_ghosts_fast(P, nb.bcs, shape, on))
     t["K7_2d_off"] = cuda_time(lambda: bd.refresh_band_ghosts_fast(P, nb.bcs, shape, off))
     t["K7_2d_plain"] = cuda_time(lambda: bd.refresh_band_ghosts_plain(P, nb.bcs, shape, on))
-    cids, _ = bd.compact_ids(box_dilate(state.act, 1), st_.total)
+    cids, count = bd.compact_ids(box_dilate(state.act, 1), st_.total)
     band = state.band.clone()
     t["K8_2d"] = cuda_time(lambda: bd.band_retube_incremental(P, band, cids, nb.nlayers, halo,
-                                                              shape, st_.tiles))
+                                                              shape, st_.tiles, count))
     t["K8_2d_plain"] = cuda_time(lambda: bd.band_retube_plain(P, band, cids, nb.nlayers, halo,
-                                                              shape, st_.tiles),
+                                                              shape, st_.tiles, count),
                                  warmup=1, reps=5)
     flat, valid = bd.tile_index(state.ids, shape, st_.tiles)
     cand = bd.dispatched_cells(cids, shape, st_.tiles)
-    reach = halo + nb.nlayers + 2
+    reach = box_dilate(cand, k8_reach(nb.nlayers))
     res["band2d_work"] = {
         "dispatched": int(valid.sum()),
         "ops_cells": int(((state.band.view(-1)[flat] != 0) & valid).sum()),
-        "cand_cells": int(cand.sum()), "cand_reach_cells": int(box_dilate(cand, reach).sum()),
+        "cand_cells": int(cand.sum()), "cand_reach_cells": int(reach.sum()),
+        "active_reach_cells": int((reach & (band == bd.ACTIVE)).sum()),
         "ghosts": (n + 6) ** 2 - n ** 2, "tiles": st_.tiles, "slots": int(state.count),
         "prog": program_work(spec.coef_static, (1, *shape))}
     log("band2d_4096", f"D2b {n}^2 state: tiles {st_.tiles}, dispatched {int(state.count)} "
@@ -4355,9 +4567,12 @@ def main(argv=()) -> int:
     res = {"t": {}, "launches": {}, "mem": {}}
     if argv:  # a partial run: what the skipped phases would have recorded starts at 0
         res = collections.defaultdict(float, res)
+    res["band_ptxas"] = band_ptxas(lib.log)
+    for name, info in res["band_ptxas"].items():
+        log("build", f"band {name}: {info}")
     phases = (("device", phase_device), ("k2", phase_k2), ("k1", phase_k1),
                       ("k4k5", phase_k4k5), ("k3", phase_k3), ("k6k7k8", phase_k6k7k8),
-                      ("k6k7k8_2d", phase_k6k7k8_2d),
+                      ("k6k7k8_2d", phase_k6k7k8_2d), ("band_tiles", phase_band_tiles),
                       ("k1kinds", phase_k1kinds), ("k6kinds", phase_k6kinds),
                       ("k3kinds", phase_k3kinds), ("k1analytic", phase_k1analytic),
                       ("k3analytic", phase_k3analytic), ("k6analytic", phase_k6analytic),
@@ -4408,8 +4623,9 @@ def ptxas_summary(build_log, source, names):
     out, cur, spill = [], None, ""
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            cur = next(((name, line.split(name + "I", 1)[1]) for name in names
-                        if key in line and name + "I" in line), None)
+            cur = next(((name, line.split(name + "I", 1)[1] if name + "I" in line else "")
+                        for name in names if key in line and (name + "I" in line
+                                                              or name + "E" in line)), None)
         elif cur and "spill stores" in line:
             spill = line.split("bytes stack frame, ")[-1].split(",")[0].strip()
         elif cur and "Used" in line and "registers" in line:
@@ -4459,6 +4675,43 @@ def forward_stage_ptxas(build_log):
     for name, args, info in ptxas_summary(build_log, "weno_general.cu",
                                           {"general_march_kernel": "K10"}):
         out.append((f"K10 march {'f32' if args.startswith('f') else 'f64'}", info))
+    return out
+
+
+def band_ptxas(build_log):
+    """``{label: "N registers, S spill stores, M static smem; D B dynamic"}``
+    of the kernels of ``csrc/band_stage.cu`` (K6, K6', K6''; "2D": the 2D
+    entries) and ``csrc/band_retube.cu`` (K8's three launches), with the
+    dynamic shared memory of the default tiles (16^3; 16 x 64 in 2D) and 3
+    layers: K6's box of phi, K8's bit planes."""
+    out = {}
+    names = {"band_stage_kernel": "K6", "band_stage_terms_kernel": "K6'",
+             "band_stage_prog_kernel": "K6''"}
+    for name, args, info in ptxas_summary(build_log, "band_stage.cu", names):
+        dtype, size = ("f32", 4) if args.startswith("f") else ("f64", 8)
+        two_d = args.split("EE", 1)[0].endswith("Li1")
+        label = names[name]
+        if name == "band_stage_terms_kernel":  # <T, kAdvection, kProgram, kFirst>
+            label += " (advection)" if args[1:4] == "Lb1" else ""
+            label += " (program)" if args[5:8] == "Lb1" else ""
+        box = (16 + 6) * (64 + 6) if two_d else (16 + 6) ** 3
+        extra = 3 * 16 if name == "band_stage_prog_kernel" and not two_d else 0
+        out[f"{label} {dtype}{' 2D' if two_d else ''}"] = (
+            f"{info}; {(box + extra) * size} B dynamic (the tile's box)")
+    planes = {False: 5 * 30 * 30 * 1 * 4, True: 5 * 30 * 3 * 4}  # R0 R1 W words, five planes
+    for name, args, info in ptxas_summary(build_log, "band_retube.cu",
+                                          {"retube_tag_kernel": "K8 T",
+                                           "retube_bits_kernel": "K8 A",
+                                           "retube_decode_kernel": "K8 B"}):
+        if name == "retube_decode_kernel":
+            out["K8 B (decode)"] = f"{info}; no dynamic"
+            continue
+        if name == "retube_tag_kernel":
+            out[f"K8 T (tags) {'f32' if args.startswith('f') else 'f64'}"] = f"{info}; no dynamic"
+            continue
+        two_d = args.split("EE", 1)[0].endswith("Lb1")
+        out[f"K8 A {'f32' if args.startswith('f') else 'f64'}{' 2D' if two_d else ''}"] = (
+            f"{info}; {planes[two_d]} B dynamic (the bit planes)")
     return out
 
 
@@ -4516,9 +4769,11 @@ def kernel_records(res):
          t["K7_plain"], bound(f32 * 2 * work["ghosts"], 0), None),
         ("K8 band_retube_incremental (re-tube of the candidate tiles)", "band_retube.cu",
          "lsm_tpu/ops/band_pallas.py:1185", "K8", res["k8_err"], t["K8"], t["K8_plain"],
-         # phi and the mask read within the re-tube's reach of the
-         # candidate tiles, the new mask written on them
-         bound((f32 + 1) * work["cand_reach_cells"] + work["cand_cells"], 0), None),
+         # the mask read within the re-tube's reach of the candidate tiles,
+         # phi only at its active nodes (a cell is cut only when its corners
+         # are all active), the new mask written on the candidates
+         bound(work["cand_reach_cells"] + f32 * work["active_reach_cells"]
+               + work["cand_cells"], 0), None),
         ("K1' fused_stage, term-list entry (normal, curvature, eikonal kinds and sums; "
          "config A: curvature + normal motion)", "weno_stage.cu", "lsm_tpu/ops/weno_v2.py:667",
          "K1'", res["k1k_err"], t["K1k_A"], t["K1k_A_plain"],
@@ -4587,7 +4842,8 @@ def kernel_records(res):
         (f"K8 2D band_retube_incremental, 2D entry (D2b's candidate tiles at {N_2D}^2)",
          "band_retube.cu", "lsm_tpu/ops/band_pallas.py:1185", "K8 2D", res["k8_2d_err"],
          t["K8_2d"], t["K8_2d_plain"],
-         bound((f32 + 1) * w2["cand_reach_cells"] + w2["cand_cells"], 0), None),
+         bound(w2["cand_reach_cells"] + f32 * w2["active_reach_cells"] + w2["cand_cells"], 0),
+         None),
         ("K1''/K3''/K6'' program tables (the per-axis subexpressions of a traced coefficient; "
          "the vortex)", "coef_tables.cu", "lsm_tpu/ops/weno_v2.py:508", "tables",
          res["tables_err"], t["tables_vortex"], t["tables_vortex_plain"],
@@ -4633,6 +4889,12 @@ def kernel_records(res):
                                                      K3_OPS_PER_CELL * cells, vortex, cells,
                                                      dual=True)[0],
                        rel_err_512_sub_box=res["k3a_512_rel"])
+        if key in ("K6", "K6'", "K6''", "K8"):  # ms a call back to back (the host's
+            # issue hidden); registers and shared memory (build log)
+            rec["ms_back_to_back"] = t[{"K6": "K6_back_to_back", "K6'": "K6k_C_back_to_back",
+                                        "K6''": "K6pp_back_to_back",
+                                        "K8": "K8_back_to_back"}[key]]
+            rec["ptxas"] = {k: v for k, v in res["band_ptxas"].items() if k.split(" ")[0] == key}
         if key == "K6''":
             rec.update(ms_streamed_K6=t["K6"])
         if key == "K6 2D":  # D2b's own entry, the rotation in-kernel (K6'' 2D); D4b's K6'

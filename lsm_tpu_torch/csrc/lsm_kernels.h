@@ -270,7 +270,9 @@ int lsm_zero_shells_f64(void* buf, int64_t n0, int64_t n1, int64_t n2, void* str
  * 0/1/2) is nonzero with the stage, elsewhere in the tile with P's value.
  * ids: int32[capacity] flat tile ids over the tile grid ceil(n/B) (row-major)
  * or -1. u0..u2: tile-packed velocity (capacity, B0, B1, B2), by slot. One
- * launch of `capacity` blocks. */
+ * launch of `capacity` blocks, each staging its tile's (B0+6)(B1+6)(B2+6)
+ * box of P in shared memory: a box over 227 KB, or offsets inside a tile
+ * past int, are refused (cudaErrorInvalidValue). */
 int lsm_band_stage_f32(const void* P, const void* u0, const void* u1, const void* u2,
                        const void* aux, void* out, const void* band, const void* ids,
                        int64_t capacity, int64_t n0, int64_t n1, int64_t n2, int64_t B0,
@@ -294,16 +296,20 @@ int lsm_band_stage_terms_f64(const void* P, const void* aux, void* out, const vo
                              const LsmStageTerms* terms, void* stream);
 
 /* K6'': the advection-only band stage with the velocity of the table's entry
- * 0, a 3-component program evaluated per node. Arguments as for
- * lsm_band_stage_terms_*. */
+ * 0, a 3-component program. Arguments as for lsm_band_stage_terms_*;
+ * axes0..axes2 as for lsm_weno_stage_prog_*: a component that does not read
+ * axis 0 is evaluated once per column of a tile, one that reads axis 0 only
+ * once per plane, any other per node. */
 int lsm_band_stage_prog_f32(const void* P, const void* aux, void* out, const void* band,
                             const void* ids, int64_t capacity, int64_t n0, int64_t n1,
                             int64_t n2, int64_t B0, int64_t B1, int64_t B2,
-                            const LsmStageTerms* terms, void* stream);
+                            const LsmStageTerms* terms, int axes0, int axes1, int axes2,
+                            void* stream);
 int lsm_band_stage_prog_f64(const void* P, const void* aux, void* out, const void* band,
                             const void* ids, int64_t capacity, int64_t n0, int64_t n1,
                             int64_t n2, int64_t B0, int64_t B1, int64_t B2,
-                            const LsmStageTerms* terms, void* stream);
+                            const LsmStageTerms* terms, int axes0, int axes1, int axes2,
+                            void* stream);
 
 /* K7: K2 gated on the device (csrc/refresh_ghosts.cu). flags: int32[2] in
  * device memory; flags[0] == 0 skips the axis-0 and axis-1 launches,
@@ -317,18 +323,24 @@ int lsm_refresh_band_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n2, con
 
 /* K8: incremental re-tube over a candidate tile list (csrc/band_retube.cu).
  * P: padded phi; band: the combined uint8 mask, updated in place on the
- * candidate tiles; cand: int32[ncand] tile ids or -1; stash: uint8
- * [ncand * B0*B1*B2] device scratch; flags: int32[ncand], set to 1 where the
- * new tile holds a band node. Two launches (A: recompute into the stash; B:
- * copy back). lsm_band_retube_smem gives launch A's shared memory in bytes. */
+ * candidate tiles; cand: int32[ncand] tile ids or -1; count: an int32 in
+ * device memory, the number of leading slots of cand to re-tube (at most
+ * ncand); flags: int32[ncand], set to 1 where the new tile holds a band
+ * node, 0 for an empty slot (slots past count are not written). Two
+ * launches over the candidates only, no scratch (A: the new mask into the
+ * candidate tiles' bytes' high bits; B: shifted down). lsm_band_retube_smem
+ * gives launch A's shared memory in bytes, -1 for radii nlayers + chalo it
+ * does not take (> 31); a launch refuses those and planes over 227 KB. */
 int64_t lsm_band_retube_smem(int64_t B0, int64_t B1, int64_t B2, int64_t nlayers,
                              int64_t chalo);
-int lsm_band_retube_f32(const void* P, void* band, const void* cand, void* stash, void* flags,
-                        int64_t ncand, int64_t n0, int64_t n1, int64_t n2, int64_t B0,
-                        int64_t B1, int64_t B2, int64_t nlayers, int64_t chalo, void* stream);
-int lsm_band_retube_f64(const void* P, void* band, const void* cand, void* stash, void* flags,
-                        int64_t ncand, int64_t n0, int64_t n1, int64_t n2, int64_t B0,
-                        int64_t B1, int64_t B2, int64_t nlayers, int64_t chalo, void* stream);
+int lsm_band_retube_f32(const void* P, void* band, const void* cand, const void* count,
+                        void* flags, int64_t ncand, int64_t n0, int64_t n1, int64_t n2,
+                        int64_t B0, int64_t B1, int64_t B2, int64_t nlayers, int64_t chalo,
+                        void* stream);
+int lsm_band_retube_f64(const void* P, void* band, const void* cand, const void* count,
+                        void* flags, int64_t ncand, int64_t n0, int64_t n1, int64_t n2,
+                        int64_t B0, int64_t B1, int64_t B2, int64_t nlayers, int64_t chalo,
+                        void* stream);
 
 /* The 2D entries of K6, K7 and K8: a 2D band on its own padded layout,
  * P, aux, out (n0+6, n1+6), band (n0, n1), tiles (B0, B1), streams
@@ -366,14 +378,14 @@ int lsm_refresh_band_ghosts_2d_f32(void* P, int64_t n0, int64_t n1, const int* k
 int lsm_refresh_band_ghosts_2d_f64(void* P, int64_t n0, int64_t n1, const int* kinds,
                                    const int* degrees, const double* weights, const void* flags,
                                    void* stream);
-/* K8 2D: stash uint8[ncand * B0*B1]. */
+/* K8 2D: arguments as for K8. */
 int64_t lsm_band_retube_smem_2d(int64_t B0, int64_t B1, int64_t nlayers, int64_t chalo);
-int lsm_band_retube_2d_f32(const void* P, void* band, const void* cand, void* stash, void* flags,
-                           int64_t ncand, int64_t n0, int64_t n1, int64_t B0, int64_t B1,
-                           int64_t nlayers, int64_t chalo, void* stream);
-int lsm_band_retube_2d_f64(const void* P, void* band, const void* cand, void* stash, void* flags,
-                           int64_t ncand, int64_t n0, int64_t n1, int64_t B0, int64_t B1,
-                           int64_t nlayers, int64_t chalo, void* stream);
+int lsm_band_retube_2d_f32(const void* P, void* band, const void* cand, const void* count,
+                           void* flags, int64_t ncand, int64_t n0, int64_t n1, int64_t B0,
+                           int64_t B1, int64_t nlayers, int64_t chalo, void* stream);
+int lsm_band_retube_2d_f64(const void* P, void* band, const void* cand, const void* count,
+                           void* flags, int64_t ncand, int64_t n0, int64_t n1, int64_t B0,
+                           int64_t B1, int64_t nlayers, int64_t chalo, void* stream);
 
 /* K10: the general path's 3D WENO5 advection stage (csrc/weno_general.cu):
  * out = alpha*aux + beta*phi - gamma * sum_d u_d * WENO5_d(phi). P: the field

@@ -87,10 +87,10 @@ __device__ __forceinline__ T weno5_upwind(const T* dm, T u) {
   return u * ((q1 * d1 + q2 * d2 + q3 * d3) * w);
 }
 
-// u * WENO5 along the axis with element stride `stride`, centred at `c`.
-template <typename T>
-__device__ __forceinline__ T axis_term(const T* __restrict__ P, int64_t c, int64_t stride,
-                                       T inv_h, T u) {
+// u * WENO5 along the axis with element stride `stride`, centred at `c`
+// (I: the index type; K6 indexes its tile in shared memory with int).
+template <typename T, typename I = int64_t>
+__device__ __forceinline__ T axis_term(const T* __restrict__ P, I c, I stride, T inv_h, T u) {
   T s[7];
 #pragma unroll
   for (int m = 0; m < 7; ++m) s[m] = P[c + (m - 3) * stride];
@@ -103,23 +103,23 @@ __device__ __forceinline__ T axis_term(const T* __restrict__ P, int64_t c, int64
 // One RK stage over N axes at the padded index c of P (element strides
 // stride[0..N-1]): alpha*aux[a] + beta*P[c] - gamma*(u[0]*W0 + ... ), the
 // axes summed in order and the alpha term dropped when aux is null. The
-// caller names aux's index a: K1 and K6 keep aux on P's padded layout
-// (a = c), K10 and K11 on the interior.
-template <typename T, int N>
+// caller names aux's index a: K1's per-node kernel keeps aux on P's padded
+// layout (a = c), K11 on the interior, K6 P's tile in shared memory (c and
+// the strides the tile's, a aux's offset from the tile's first node).
+template <typename T, int N, typename I = int64_t>
 __device__ __forceinline__ T stage_value_at(const T* __restrict__ P, const T* __restrict__ aux,
-                                            int64_t c, int64_t a, const int64_t (&stride)[N],
-                                            const T (&u)[N], const T (&inv_h)[N], T alpha,
-                                            T beta, T gamma) {
-  T ham = axis_term(P, c, stride[0], inv_h[0], u[0]);
+                                            I c, I a, const I (&stride)[N], const T (&u)[N],
+                                            const T (&inv_h)[N], T alpha, T beta, T gamma) {
+  T ham = axis_term<T, I>(P, c, stride[0], inv_h[0], u[0]);
 #pragma unroll
-  for (int d = 1; d < N; ++d) ham = ham + axis_term(P, c, stride[d], inv_h[d], u[d]);
+  for (int d = 1; d < N; ++d) ham = ham + axis_term<T, I>(P, c, stride[d], inv_h[d], u[d]);
   T res = beta * P[c] - gamma * ham;
   if (aux != nullptr) res = alpha * aux[a] + res;
   return res;
 }
 
-// The 3D stage of K1 and K6 at the padded index c of P (strides s0, s1, 1),
-// aux on the same layout.
+// The 3D stage of K1's per-node kernel at the padded index c of P (strides
+// s0, s1, 1), aux on the same layout.
 template <typename T>
 __device__ __forceinline__ T stage_value(const T* __restrict__ P, const T* __restrict__ aux,
                                          int64_t c, int64_t s0, int64_t s1, T u0, T u1, T u2,
@@ -131,10 +131,11 @@ __device__ __forceinline__ T stage_value(const T* __restrict__ P, const T* __res
   return stage_value_at<T, 3>(P, aux, c, c, stride, u, inv_h, alpha, beta, gamma);
 }
 
-// The 2D stage of K6's 2D entry at the padded index c of a (n0+6, n1+6)
-// buffer P (strides s1, 1), aux on the same layout: the 3D stage of the
-// (1, n0, n1) embedding with axis 0 compiled out (its differences, and so
-// its term, are exactly zero there).
+// The 2D stage at the padded index c of a (n0+6, n1+6) buffer P (strides
+// s1, 1), aux on the same layout: the 3D stage of the (1, n0, n1) embedding
+// with axis 0 compiled out (its differences, and so its term, are exactly
+// zero there); K1's per-node kernel on the embedding, and K6's 2D entries
+// (stage_value_at on their tile) run it.
 template <typename T>
 __device__ __forceinline__ T stage_value_2d(const T* __restrict__ P, const T* __restrict__ aux,
                                             int64_t c, int64_t s1, T u1, T u2, T inv_h1,

@@ -323,21 +323,24 @@ class FusedBandStepper:
         if torch.is_grad_enabled() and cur.requires_grad:
             band = band.clone()  # a stage of this step saved it for its backward
         if self.incremental:
-            # the candidate list holds every tile of the grid, so it cannot
-            # overflow (K8's stash: one byte per node of the tile grid)
-            cids, _ = bd.compact_ids(box_dilate(state.act, 1), self.total)
-            act = bd.scatter_activity(state.act, cids, self.retube_tiles(cur, band, cids))
+            # the candidates (the active tiles and their neighbours) in a list
+            # with a slot for every tile of the grid, so it cannot overflow;
+            # K8 runs over the first `count` slots only and needs no scratch
+            cids, count = bd.compact_ids(box_dilate(state.act, 1), self.total)
+            act = bd.scatter_activity(state.act, cids,
+                                      self.retube_tiles(cur, band, cids, count))
         else:
             band = bd.retube_full(v2.unpack_padded(cur, self.shape), band, self.nlayers,
                                   NarrowBandField.COMPUTE_HALO)
             act = bd.tile_activity(band, self.tiles)
         return self._dispatch(band, act, act | state.act, bufs)
 
-    def retube_tiles(self, cur, band, cids):
-        """K8 on the candidate tiles ``cids``: ``band`` re-tubed in place,
-        one activity flag per slot."""
+    def retube_tiles(self, cur, band, cids, count):
+        """K8 on the first ``count`` candidate tiles of ``cids``: ``band``
+        re-tubed in place, one activity flag per slot."""
         return bd.band_retube_incremental(cur, band, cids, self.nlayers,
-                                          NarrowBandField.COMPUTE_HALO, self.shape, self.tiles)
+                                          NarrowBandField.COMPUTE_HALO, self.shape, self.tiles,
+                                          count)
 
     # -- adaptive CFL and overflow ------------------------------------------------------
 

@@ -137,6 +137,7 @@ class Library:
         terms_args = [vp] * 3 + [i64] * 3 + [vp, vp]
         prog_args = [vp] * 3 + [i64] * 3 + [vp] + [ci] * 3 + [vp]
         band_terms_args = [vp] * 5 + [i64] * 7 + [vp, vp]
+        band_prog_args = [vp] * 5 + [i64] * 7 + [vp] + [ci] * 3 + [vp]
         general_2d_args = [vp] * 5 + [i64] * 2 + [f64] * 5 + [vp]
         band_stage_2d_args = [vp] * 7 + [i64] * 5 + [f64] * 5 + [vp]
         band_terms_2d_args = [vp] * 5 + [i64] * 5 + [vp, vp]
@@ -159,7 +160,7 @@ class Library:
                  "zero_shells": ("lsm_zero_shells", zero_args),
                  "band_stage": ("lsm_band_stage", band_stage_args),
                  "band_stage_terms": ("lsm_band_stage_terms", band_terms_args),
-                 "band_stage_prog": ("lsm_band_stage_prog", band_terms_args),
+                 "band_stage_prog": ("lsm_band_stage_prog", band_prog_args),
                  "band_refresh": ("lsm_refresh_band_ghosts", band_ghost_args),
                  "band_retube": ("lsm_band_retube", retube_args),
                  "band_stage_2d": ("lsm_band_stage_2d", band_stage_2d_args),

@@ -92,6 +92,7 @@ __all__ = [
 
 GHOST = v2.GHOST
 ACTIVE = 2  # the active band's value in the combined mask
+BOX_BYTES = 227 * 1024  # shared memory a block may take on the card (K6's box)
 
 
 def tile_grid(shape, tiles) -> Tuple[int, ...]:
@@ -336,7 +337,9 @@ def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torc
     :func:`~lsm_tpu_torch.ops.weno_v2.fused_stage`. A 2D band (module
     docstring) takes the embedding's term list, or its two velocity tensors.
     CUDA tensors go to ``csrc/band_stage.cu`` (the advection-only stage to
-    its own entries, a 2D band to the 2D entries), CPU tensors to
+    its own entries, a 2D band to the 2D entries; each block stages its
+    tile's box of ``P``, ``tiles + 6`` per axis, in shared memory, and a tile
+    whose box does not fit is refused), CPU tensors to
     :func:`band_stage_plain`.
     """
     shape, tiles = tuple(shape), tuple(int(b) for b in tiles)
@@ -355,6 +358,11 @@ def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torc
     if P.device.type == "cpu":
         return band_stage_plain(P, out, ids, band, terms, coeffs, aux, spacing, shape, tiles,
                                 where)
+    box = math.prod(b + 2 * GHOST for b in tiles[-2:]) * (tiles[0] + 2 * GHOST if len(shape) == 3
+                                                          else 1)
+    if (box + 3 * tiles[0]) * P.element_size() > BOX_BYTES:
+        raise ValueError(f"tiles {tiles}: K6 stages a tile's box of {box} nodes of phi in "
+                         f"shared memory, over a block's {BOX_BYTES} bytes in {P.dtype}")
     lib = load_library()
     f32 = P.dtype == torch.float32
     aux_ptr = None if aux is None else aux.data_ptr()
@@ -372,12 +380,14 @@ def band_stage(P: torch.Tensor, out: torch.Tensor, ids: torch.Tensor, band: torc
                 *(1.0 / float(h) for h in spacing), alpha, beta, gamma, stream)
         else:
             tab = v2.stage_table(terms, spacing, coeffs, where, shape, P)
-            if v2.is_advection_only(terms):
-                fn = lib.band_stage_prog_f32 if f32 else lib.band_stage_prog_f64
+            args = (P.data_ptr(), aux_ptr, out.data_ptr(), band.data_ptr(), ids.data_ptr(),
+                    ids.shape[0], *shape, *tiles, ctypes.addressof(tab))
+            if v2.is_advection_only(terms):  # each component's axes: per column, plane or node
+                code = (lib.band_stage_prog_f32 if f32 else lib.band_stage_prog_f64)(
+                    *args, *terms[0][0].coef_static.axes, stream)
             else:
-                fn = lib.band_stage_terms_f32 if f32 else lib.band_stage_terms_f64
-            code = fn(P.data_ptr(), aux_ptr, out.data_ptr(), band.data_ptr(), ids.data_ptr(),
-                      ids.shape[0], *shape, *tiles, ctypes.addressof(tab), stream)
+                code = (lib.band_stage_terms_f32 if f32 else lib.band_stage_terms_f64)(
+                    *args, stream)
     v2._raise_on(code, lib, "band_stage kernel")
     bump(band_stage, launches=1, kinds_launches=not v2.is_advection_only(terms),
          program_launches=any(spec.coef_kind == "program" for spec, _ in terms),
@@ -618,30 +628,43 @@ def retube_full(values: torch.Tensor, band: torch.Tensor, nlayers: int, chalo: i
     return box_dilate(mask, chalo).to(torch.uint8) + mask.to(torch.uint8)
 
 
-def band_retube_plain(P, band, cand, nlayers, chalo, shape, tiles) -> torch.Tensor:
+def _check_count(count: torch.Tensor, like: torch.Tensor):
+    if not isinstance(count, torch.Tensor) or count.dtype != torch.int32 or count.ndim != 0:
+        raise ValueError("count must be a 0-d int32 tensor (compact_ids's count)")
+    if count.device != like.device:
+        raise ValueError(f"count lies on {count.device}, the state on {like.device}")
+
+
+def band_retube_plain(P, band, cand, nlayers, chalo, shape, tiles,
+                      count: torch.Tensor) -> torch.Tensor:
     """Plain version of K8: the full re-tube, copied into ``band`` (in place)
-    on the candidate tiles only. Returns ``int32[len(cand)]``, 1 where the new
-    candidate tile holds a band node."""
+    on the candidate tiles only (the first ``count`` slots of ``cand``).
+    Returns ``int32[len(cand)]``, 1 where the new candidate tile holds a
+    band node."""
     new = retube_full(v2.unpack_padded(P, shape), band, nlayers, chalo)
     flat, valid = tile_index(cand, shape, tiles)
+    used = torch.arange(cand.shape[0], device=cand.device) < count
+    valid = valid & used.reshape([-1] + [1] * len(shape))
     packed = new.view(-1)[flat]
     band.view(-1)[flat[valid]] = packed[valid]
     return ((packed != 0) & valid).flatten(1).any(dim=1).to(torch.int32)
 
 
 def band_retube_incremental(P: torch.Tensor, band: torch.Tensor, cand: torch.Tensor, nlayers: int,
-                            chalo: int, shape, tiles) -> torch.Tensor:
+                            chalo: int, shape, tiles, count: torch.Tensor) -> torch.Tensor:
     """K8: re-tube the candidate tiles of the combined mask ``band`` in place.
 
     Replaces ``lsm_tpu.ops.band_pallas.band_retube_incremental``. ``P`` the
     padded phi, ``band`` the uint8 combined mask, ``cand`` an int32 list of
-    tile ids (-1 for empty slots). Exact against the full re-tube when every
+    tile ids (-1 for empty slots), ``count`` (a 0-d int32 tensor on the
+    device, :func:`compact_ids`'s count) how many leading slots of ``cand``
+    to re-tube. Exact against the full re-tube when every
     tile that can change is a candidate (the active tiles and their
     neighbours, with tiles at least ``1 + nlayers + chalo`` deep). Returns
-    ``int32[len(cand)]`` activity flags. CUDA tensors go to
-    ``csrc/band_retube.cu`` (two launches: recompute into a stash of
-    ``len(cand) * B0*B1*B2`` bytes, then copy back; a 2D band to the 2D
-    entry, ``len(cand) * B0*B1`` bytes), CPU tensors to
+    ``int32[len(cand)]`` activity flags (0 past ``count``). CUDA tensors go
+    to ``csrc/band_retube.cu`` (two launches over the candidates only, a
+    2D band to the 2D entry; no scratch: each new value waits in its mask
+    byte's high bits until the second launch), CPU tensors to
     :func:`band_retube_plain`. The band carries no gradient.
     """
     shape, tiles = tuple(shape), tuple(int(b) for b in tiles)
@@ -649,8 +672,9 @@ def band_retube_incremental(P: torch.Tensor, band: torch.Tensor, cand: torch.Ten
     v2._check(P, "P", v2.padded_shape(shape))
     _check_band(band, shape, P)
     _check_ids(cand, "cand", P)
+    _check_count(count, P)
     if P.device.type == "cpu":
-        return band_retube_plain(P, band, cand, nlayers, chalo, shape, tiles)
+        return band_retube_plain(P, band, cand, nlayers, chalo, shape, tiles, count)
     lib = load_library()
     f32 = P.dtype == torch.float32
     if len(shape) == 2:
@@ -659,14 +683,14 @@ def band_retube_incremental(P: torch.Tensor, band: torch.Tensor, cand: torch.Ten
     else:
         fn = lib.band_retube_f32 if f32 else lib.band_retube_f64
         smem = lib.band_retube_smem(*tiles, nlayers, chalo)
+    if not 0 <= smem <= 227 * 1024:
+        raise ValueError(f"tiles {tiles} with nlayers={nlayers}, chalo={chalo}: the re-tube "
+                         "takes radii nlayers + chalo <= 31 and bit planes within a block's "
+                         "232448 bytes of shared memory")
     ncand = cand.shape[0]
-    if smem > 227 * 1024:
-        raise ValueError(f"tiles {tiles} with nlayers={nlayers} need {smem} bytes of shared "
-                         "memory for the re-tube; a block has 232448")
-    stash = torch.empty(ncand * math.prod(tiles), dtype=torch.uint8, device=P.device)
-    flags = torch.empty(ncand, dtype=torch.int32, device=P.device)
+    flags = torch.zeros(ncand, dtype=torch.int32, device=P.device)
     with torch.cuda.device(P.device):
-        code = fn(P.data_ptr(), band.data_ptr(), cand.data_ptr(), stash.data_ptr(),
+        code = fn(P.data_ptr(), band.data_ptr(), cand.data_ptr(), count.data_ptr(),
                   flags.data_ptr(), ncand, *shape, *tiles, int(nlayers), int(chalo),
                   torch.cuda.current_stream().cuda_stream)
     v2._raise_on(code, lib, "band_retube kernel")

@@ -240,7 +240,7 @@ def test_k8_plain_matches_jax_interpret_and_full_retube():
     act = bd.tile_activity(band, JT)
     cand, ncand = bd.compact_ids(tband.box_dilate(act, 1), 16)
     assert int(ncand) <= 16
-    flags = bd.band_retube_incremental(P, band, cand, 3, 3, SHAPE, JT)
+    flags = bd.band_retube_incremental(P, band, cand, 3, 3, SHAPE, JT, ncand)
     # JAX's kernel, its band layout and combined mask in phi's dtype
     jQ = bp.pack_band_padded(jnp.asarray(_np(moved.values)), jnb.bcs)
     jband = (bp.pack_band_mask(jnb.compute_mask, jQ.dtype) + bp.pack_band_mask(jnb.mask, jQ.dtype))

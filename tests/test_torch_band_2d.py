@@ -257,9 +257,9 @@ def test_plain_retube_2d_matches_the_full_retube():
     h = tnb.grid.spacing[0]
     _, moved = _pair(center=(5.0 * h, -4.0 * h), nlayers=3)  # 5 and 4 nodes: past a tile edge
     P = v2.pack_padded(moved.values, tnb.bcs)
-    cids, _ = bd.compact_ids(tband.box_dilate(act, 1), act.numel())
+    cids, count = bd.compact_ids(tband.box_dilate(act, 1), act.numel())
     flags = bd.band_retube_plain(P, band, cids, 3, T.NarrowBandField.COMPUTE_HALO, tnb.shape,
-                                 tiles)
+                                 tiles, count)
     jmoved = jnb.with_values(jnp.asarray(_np(moved.values)), mask_update=False).update_band()
     np.testing.assert_array_equal(_np(band == 2), np.asarray(jmoved.mask))
     np.testing.assert_array_equal(_np(band != 0), np.asarray(jmoved.compute_mask))

@@ -34,8 +34,7 @@ from lsm_tpu_torch.integrators.band_fused import FusedBandStepper  # noqa: E402
 from lsm_tpu_torch.ops import band as bd  # noqa: E402
 from lsm_tpu_torch.ops import weno_v2 as v2  # noqa: E402
 
-TILES = ((8, 8, 32), (8, 8, 64), (8, 8, 128), (8, 16, 32), (16, 16, 16), (16, 16, 32))
-TILES_2D = ((16, 16), (32, 32), (16, 64), (8, 128))
+TILES, TILES_2D = cs.SWEEP_TILES, cs.SWEEP_TILES_2D
 
 
 def main(argv):
@@ -70,12 +69,12 @@ def main(argv):
         P, out = state.bufs[:2]
         u = st.stage_terms(state, 0.0)
         _, valid = bd.tile_index(state.ids, shape, tiles)
-        cids, _ = bd.compact_ids(box_dilate(state.act, 1), st.total)
+        cids, count = bd.compact_ids(box_dilate(state.act, 1), st.total)
         band = state.band.clone()
         k6 = cs.cuda_time(lambda: bd.band_stage(P, out, state.ids, state.band, u, (0.0, 1.0, dt),
                                                 None, sp, shape, tiles, where))
         k8 = cs.cuda_time(lambda: bd.band_retube_incremental(P, band, cids, nb.nlayers, halo,
-                                                             shape, tiles))
+                                                             shape, tiles, count))
         step = cs.cuda_time(lambda: st.step(state, 0.0, dt))
         busy = cs.device_ms(lambda: st.step(state, 0.0, dt))
         peak = cs.peak_gib(lambda: st.step(state, 0.0, dt))
