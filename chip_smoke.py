@@ -57,8 +57,14 @@ phases (a partial run: no kernel record):
              f64, the bare Hamiltonian and stages with and without aux; a
              flat field; K10 at K1_MARCH_SHAPES (n0 >= 2) equal bit for bit
              to the interior of K1's march on the same inputs.
-   k2_small — K2 on the 2D embedding's (1, n0, n1) layout (the length-1
-             axis's Extrapolation(0)), bit for bit vs its plain version.
+   k2_small — K2's 2D entry (one launch) on (n0+6, n1+6) buffers at ragged
+             shapes and at 4096^2, five BC cases, f32 and f64, bit for bit vs
+             its plain version and pad_ghost; K2 on a 3D field of one plane
+             (the length-1 axis's Extrapolation(0)) bit for bit.
+   k1_2d   — K1's 2D entries (K1 and K1'' the 2D march, K1' and a K1''
+             component per node one thread a node) and their per-node form
+             vs the plain 2D stage at ragged shapes, f32 and f64, BC cases,
+             with and without aux, streams and aux off alignment.
 8. k512    — K1, K1'' (the rotation in-kernel, and its tables) and K2 vs
              their plain versions at the main path's 512^3 shape, on its own
              inputs (Zalesak field, rotation velocity).
@@ -113,11 +119,13 @@ phases (a partial run: no kernel record):
              ``integrate`` with a posthook (the general path: K10 = 30, K1 = 0
              over 10 steps), with ``fast="off"``, and with a posthook that
              calls ``reinitialize`` every 5 steps; K10 vs plain on H's inputs.
-    twod   — D1-D4 (configurations 1-4 of ``models.benchmarks``) at 4096^2
-             through ``integrate`` (D2-D4 on the 2D embedding: K1, K1', K2;
-             D2h, D2 with a posthook: K11; D1, upwind: no kernel); K1' on
-             D4's state, K11 and K2 vs plain at 4096^2; 256^2 card vs CPU; a
-             2D gradient refused.
+    twod   — D1-D4 and D2s (configurations 1-4 of ``models.benchmarks``, D2s
+             D2 streamed) at 4096^2 through ``integrate`` (D2-D4 the dense 2D
+             stepper on (n+6, n+6): K1's and K2's 2D entries, no (1, n, n)
+             launch; D2h, D2 with a posthook: K11; D1, upwind: no kernel);
+             K1, K1'', K1' 2D vs plain on each one's state (a second launch
+             equal bits), K2 2D and K11 vs plain at 4096^2; 256^2 card vs
+             CPU; a 2D gradient refused.
     general_small — card vs CPU: H and a band with hooks at 64^3,
              ``reinitialize`` at 64^3 f64, the general path's rollout
              gradient at 32^3 f64 (K10 launches in its forward).
@@ -133,8 +141,10 @@ phases (a partial run: no kernel record):
              inputs, K6' on C's, their plain versions, ``integrate`` per step
              of A, B and C; K1''s routes; peak memory.
     general_timing — K10 at 512^3 and K11 at 4096^2 with their plain
-             versions, ``integrate`` per step of H (posthook, ``fast="off"``,
-             fused) and of D1-D4, D2h; peak memory of each.
+             versions, K1's 2D entries (with aux, per-node form, plain) and
+             K2's at 4096^2, ``integrate`` per step of H (posthook,
+             ``fast="off"``, fused) and of D1-D4, D2s, D2h; peak memory of
+             each.
     analytic_timing — K1'', K3'', K6'' and the program tables at 512^3
              beside their plain versions; the flagship RK3 ``integrate`` per step with the
              rotation in-kernel and streamed, in turns.
@@ -281,10 +291,11 @@ N_CONFIG5_XL = 256  # its timed size (the plain band backward is O(grid) per sta
 # subgradients there; the card-vs-CPU checks add this much seeded noise
 CONFIG5_NOISE = 1e-6
 
-# the 2D entries of K6, K7 and K8, counted apart (``launches_2d``) as well as
-# in their wrapper's ``launches``
+# the 2D entries of K6, K7 and K8 and of K1 (K1, K1', K1'') and K2, counted
+# apart (``launches_2d``) as well as in their wrapper's ``launches``
 TWOD_ENTRIES = {"K6 2D": bd.band_stage, "K7 2D": bd.refresh_band_ghosts_fast,
-                "K8 2D": bd.band_retube_incremental}
+                "K8 2D": bd.band_retube_incremental, "K1 2D": v2.fused_stage,
+                "K2 2D": v2.refresh_ghosts_fast}
 COUNTED = {"K1": v2.fused_stage, "K2": v2.refresh_ghosts_fast, "K3": bwd.stage_backward,
            "K3'": bwd.stage_backward_terms,
            "K4": bwd.fold_ghost_cotangent_fast, "K5": bwd.zero_pad_shells,
@@ -2647,15 +2658,44 @@ def phase_k10k11(dev, res):
     res["k11_err"] = worst["K11"]
 
 
+#: K2's 2D entry's shapes: ragged, the smallest axes Periodic takes, D2's grid
+K2_2D_SHAPES = ((67, 131), (4, 9), (40, 72), (N_2D, N_2D))
+
+
 def phase_k2_small(dev, res):
-    """K2 on the 2D embedding's ``(1, n0, n1)`` layout: the length-1 axis
-    under ``Extrapolation(0)`` (its ghosts copies of the node), the other two
-    under the five BC cases, scribbled shells: bit for bit against its plain
-    version."""
-    shape = (1, 67, 131)
+    """K2's 2D entry (one launch) on ``(n0+6, n1+6)`` buffers at
+    K2_2D_SHAPES, f32 and f64, the five BC cases of ``general_bcs(2)`` (two
+    at N_2D^2), scribbled shells: bit for bit against its plain version and
+    ``pad_ghost`` of the interior. Then K2 on a 3D field of one plane (the
+    length-1 axis under ``Extrapolation(0)``, which a 3D field still takes),
+    bit for bit against its plain version."""
     gen = torch.Generator(device=dev).manual_seed(12)
+    for shape in K2_2D_SHAPES:
+        cases = general_bcs(2)
+        if shape[0] == N_2D:
+            cases = {k: cases[k] for k in ("periodic", "mixed")}
+        for dtype in (torch.float32, torch.float64):
+            for name, bcs in cases.items():
+                vals = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                P = v2.pack_padded(vals, bcs)
+                shell = shell_mask(shape, dev)
+                P[shell] = torch.randn(int(shell.sum()), generator=gen, device=dev, dtype=dtype)
+                reset_counts()
+                got = v2.refresh_ghosts_fast(P.clone(), bcs, shape)
+                counts = read_counts()
+                ref = v2.refresh_ghosts_plain(P.clone(), bcs, shape)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                err_pad = float((got - pad_ghost(vals, bcs, v2.GHOST)).abs().max())
+                log("k2_small", f"K2 2D {str(dtype)[6:]} {name:9s} shape={shape} "
+                                f"max|kernel-plain|={err:.3e} max|kernel-pad_ghost|={err_pad:.3e} "
+                                f"launches K2 {counts['K2']} (2D {counts['K2 2D']})")
+                if not (err == 0.0 and err_pad == 0.0 and counts["K2"] == counts["K2 2D"] == 1):
+                    raise AssertionError(f"K2's 2D entry failed for {name} at {shape}: {err}")
+    res["k2_2d_err"] = 0.0
+    shape = (1, 67, 131)
     for name, bcs2 in general_bcs(2).items():
-        bcs = ((lsm.Extrapolation(0), lsm.Extrapolation(0)), *bcs2)  # the dummy axis 0
+        bcs = ((lsm.Extrapolation(0), lsm.Extrapolation(0)), *bcs2)  # the length-1 axis 0
         vals = torch.randn(shape, generator=gen, device=dev)
         P = v2.pack_padded(vals, bcs)
         shell = shell_mask(shape, dev)
@@ -2667,10 +2707,125 @@ def phase_k2_small(dev, res):
         err_pad = float((got - v2.pack_padded(vals, bcs)).abs().max())
         copies = bool((got[:3] == got[3]).all() and (got[4:] == got[3]).all())
         log("k2_small", f"{name:9s} shape={shape} max|kernel-plain|={err:.3e} "
-                        f"max|kernel-pad_ghost|={err_pad:.3e} dummy ghosts copies={copies}")
+                        f"max|kernel-pad_ghost|={err_pad:.3e} length-1 axis ghosts copies={copies}")
         if not (err == 0.0 and err_pad <= K2_TOL and copies):
             raise AssertionError(f"K2 on a length-1 axis failed for {name}: {err} / {err_pad}")
     res["k2_err"] = max(res["k2_err"], 0.0)
+
+
+# -- the dense 2D stepper's stage on the (n0+6, n1+6) layout: K1's 2D entries -----------
+
+#: K1's 2D march at its edge shapes: rows of odd length (element copies) and a
+#: ragged last block of columns, n1 % 4 == 0 (pairs and 16-byte streams), more
+#: rows than a chunk (three chunks)
+K1_2D_SHAPES = ((67, 131), (40, 72), (130, 33))
+
+
+def speed2(xs, t):
+    """A 2D speed that changes sign (both Godunov branches), traced into a
+    program that reads both axes and t."""
+    return 0.3 * xs[0] - 0.2 * xs[1] * xs[1] + 0.05 + 0.2 * t
+
+
+def stage_2d_cases(phi, gen):
+    """The dense 2D stepper's term lists as ``(name, terms)``: the streamed
+    velocity (K1), the rotation (K1'': a component per column and one per
+    row) and the vortex (per node), and K1' on D4's terms, a 4-term sum with
+    an advection term and streams (reach 3), a frozen eikonal sign, a
+    program speed with curvature and an advection program with curvature.
+    Random streams have exact zeros (ties)."""
+    dev, dtype, g = phi.device, phi.dtype, phi.grid
+    vel = 0.5 * torch.randn((2, *phi.shape), generator=gen, device=dev, dtype=dtype)
+    vel[0].view(-1)[::7] = 0.0
+    speed = torch.randn(phi.shape, generator=gen, device=dev, dtype=dtype)
+    speed[:, ::4] = 0.0
+    adv = lsm.AdvectionTerm(lsm.MeshField(vel, g))
+    return [("K1 streamed", (adv,)),
+            ("K1'' rotation", (lsm.AdvectionTerm(rotation2),)),
+            ("K1'' vortex", (lsm.AdvectionTerm(shapes.vortex_velocity(period=4.0)),)),
+            ("K1' D4", (lsm.CurvatureTerm(-0.05), lsm.NormalMotionTerm(0.2))),
+            ("K1' 4-term sum", (lsm.NormalMotionTerm(lsm.MeshField(speed, g)),
+                                lsm.CurvatureTerm(-0.05), lsm.EikonalReinitializationTerm(), adv)),
+            ("K1' frozen sign", (lsm.EikonalReinitializationTerm.from_initial(phi),)),
+            ("K1' program speed", (lsm.NormalMotionTerm(speed2), lsm.CurvatureTerm(-0.01))),
+            ("K1' advection program", (lsm.AdvectionTerm(rotation2), lsm.CurvatureTerm(-0.01)))]
+
+
+def k1_2d_compare(label, st, P, terms, coeffs, aux, where, repeat=False, scale=None):
+    """K1's 2D entry (the stepper's route) against its plain version, and its
+    per-node form beside it, on the same inputs: ``(max|kernel - plain|,
+    scale, max|per node - plain|)`` over the nodes off the curvature's gate
+    (GATE_ULPS), within K1_TOL (1e-12 in f64) times ``scale`` (default
+    max(|ref|, 1)); the kernel's and the per-node form's bits must be equal
+    on every node; ``repeat``: a second launch gives equal bits."""
+    sp, shape = st.spacing, st.shape
+    run = lambda fn: v2.unpack_padded(fn(P, terms, coeffs, aux, sp, shape, where), shape)
+    got, node = run(v2.fused_stage), run(v2.fused_stage_2d_per_node)
+    ref = run(v2.stage_plain)
+    keep = (~gate_nodes(P, sp, shape) if has_curvature(terms)
+            else torch.ones_like(ref, dtype=torch.bool))
+    err, own = kinds_err(got, ref, keep)
+    scale = own if scale is None else scale
+    node_err = kinds_err(node, ref, keep)[0]
+    tol = K1_TOL if P.dtype == torch.float32 else 1e-12
+    same = bool(torch.equal(got, node))
+    again = bool(torch.equal(got, run(v2.fused_stage))) if repeat else True
+    if not (bool(torch.isfinite(got).all()) and err <= tol * scale and node_err <= tol * scale
+            and same and again):
+        raise AssertionError(f"{label}: march {err}, per node {node_err} > {tol} * {scale}, "
+                             f"march and per node equal bits {same}, second launch equal "
+                             f"{again}")
+    return err, scale, node_err
+
+
+def phase_k1_2d(dev, res):
+    """K1's 2D entries (K1, K1', K1'', the 2D march of ``csrc/weno_stage_2d.cu``)
+    and their per-node form against the plain 2D stage at K1_2D_SHAPES, f32
+    and f64, on the term lists of :func:`stage_2d_cases` through the
+    stepper's own entries and routes, each with and without aux; the five BC
+    cases on the first shape, two on the others; streams and aux one
+    element off their alignment at (40, 72), equal bits to the aligned
+    launch."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    worst, routes = {}, {}
+    for i, shape in enumerate(K1_2D_SHAPES):
+        grid = lsm.Grid((0.0, -0.2), (1.0, 1.1), shape)
+        bcases = bc_cases_2d() if i == 0 else {k: bc_cases_2d()[k] for k in ("periodic", "mixed")}
+        for dtype in (torch.float32, torch.float64):
+            rel = {}
+            for bname, bcs in bcases.items():
+                phi = lsm.MeshField(0.3 * torch.randn(shape, generator=gen, device=dev,
+                                                      dtype=dtype), grid, bcs)
+                A = v2.pack_padded(torch.randn(shape, generator=gen, device=dev, dtype=dtype), bcs)
+                for name, terms in stage_2d_cases(phi, gen):
+                    st = FusedStepper(terms, phi, lsm.RK3())
+                    routes[name] = st.stage_route
+                    P, where = st.pack(phi.values), v2.Where(st.lo, None, T_STAGE)
+                    tt = st.stage_terms(T_STAGE)
+                    for aux, coeffs in ((None, (0.0, 1.0, 1e-3)), (A, (0.75, 0.25, 2.5e-4))):
+                        err, scale, node_err = k1_2d_compare(
+                            f"{name} {bname} {shape} {dtype}", st, P, tt, coeffs, aux, where)
+                        rel[name] = max(rel.get(name, 0.0), err / scale)
+                        if dtype == torch.float32:
+                            worst[name] = max(worst.get(name, 0.0), err)
+                    if shape == (40, 72) and bname == "periodic" and any(
+                            spec.coef_kind == "stream" for spec, _ in tt):
+                        mt = tuple((spec, tuple(misaligned(a) for a in arrs)) for spec, arrs in tt)
+                        coeffs = (0.75, 0.25, 2.5e-4)
+                        out = [v2.unpack_padded(v2.fused_stage(P, w, coeffs, a, st.spacing,
+                                                               st.shape, where), st.shape)
+                               for w, a in ((tt, A), (mt, misaligned(A)))]
+                        log("k1_2d", f"{name} {str(dtype)[6:]} {shape}: streams and aux off "
+                                     f"alignment give equal bits: {torch.equal(*out)}")
+                        if not torch.equal(*out):
+                            raise AssertionError(f"{name}: misaligned inputs change the bits")
+            for name, r in rel.items():
+                log("k1_2d", f"{name:22s} {str(dtype)[6:]} shape={shape} route {routes[name]!r} "
+                             f"{len(bcases)} BC cases, stage and stage+aux: "
+                             f"max|kernel-plain|/scale={r:.3e}")
+    log("k1_2d", "march and per-node form equal bit for bit on every case (asserted)")
+    res["k1_2d_small_err"] = worst
+    res["k1_2d_routes"] = routes
 
 
 def general_run(term, phi, integrator, steps, **kw):
@@ -2768,22 +2923,32 @@ def phase_general_512(dev, res):
 
 def config(name, n, dev, dtype=torch.float32):
     """D1-D4 (configurations 1-4 of ``models.benchmarks``) at ``n^2``; D2h
-    is D2."""
+    is D2, D2s D2 with its velocity sampled on the grid (streamed)."""
     eq = {"D1": lambda: bench.config1_circle_advection(n, dtype=dtype, device=dev)[0],
           "D2": lambda: bench.config2_zalesak(n, dtype=dtype, device=dev),
           "D2h": lambda: bench.config2_zalesak(n, dtype=dtype, device=dev),
+          "D2s": lambda: bench.config2_zalesak(n, dtype=dtype, device=dev),
           "D3": lambda: bench.config3_vortex_spiral(n, dtype=dtype, device=dev),
           "D4": lambda: bench.config4_curvature_normal(n, dtype=dtype, device=dev)}[name]()
+    if name == "D2s":
+        vel = lsm.sample(lambda *xs: rotation2(xs, 0.0), eq.state.grid, dtype=dtype, device=dev,
+                         vector=True)
+        return (lsm.AdvectionTerm(vel),), eq.state, eq.integrator
     return eq.terms, eq.state, eq.integrator
 
 
+# the dense 2D stepper's launches per stage: K1's and K2's 2D entries
+_ON_2D = {"K1": 1, "K2": 1, "K1 2D": 1, "K2 2D": 1}
 TWOD = {  # name: (path, launches per stage, integrate's keyword arguments)
     "D1": (None, {}, {}),
-    "D2": ("fused", {"K1": 1, "K2": 1, "K1''": 1}, {}),
-    "D3": ("fused", {"K1": 1, "K2": 1, "K1''": 1}, {}),
-    "D4": ("fused", {"K1": 1, "K2": 1, "K1'": 1}, {}),
+    "D2": ("fused", dict(_ON_2D, **{"K1''": 1}), {}),
+    "D2s": ("fused", _ON_2D, {}),
+    "D3": ("fused", dict(_ON_2D, **{"K1''": 1}), {}),
+    "D4": ("fused", dict(_ON_2D, **{"K1'": 1}), {}),
     "D2h": (None, {"K11": 1}, {"posthook": True}),
 }
+#: the record key of K1's 2D entry each configuration's stage launches
+K1_2D_OF = {"D2s": "K1 2D", "D2": "K1'' 2D", "D3": "K1'' 2D", "D4": "K1' 2D"}
 
 
 def twod_integrate(name, n, dev, dtype=torch.float32, steps=GENERAL_STEPS):
@@ -2807,14 +2972,21 @@ def twod_integrate(name, n, dev, dtype=torch.float32, steps=GENERAL_STEPS):
 
 
 def phase_twod(dev, res):
-    """D1-D4 and D2h at N_2D^2 f32 through ``integrate``, GENERAL_STEPS steps
-    each, counting launches (D2, D3: K1 = K2 = 3 per step, the 2D
-    embedding; D4: K1' too, then K1' against its plain version on D4's
-    state; D2h, D2 with a posthook: K11 = 3 per step; D1, upwind FE: none);
-    K11 and K2 (the length-1 axis) against their plain
-    versions on D2's inputs at N_2D^2; card-vs-CPU trajectories at
-    N_2D_SMALL^2; a gradient through the 2D embedding on the card refused."""
+    """D1-D4, D2s and D2h at N_2D^2 f32 through ``integrate``, GENERAL_STEPS
+    steps each, counting launches (D2, D3: K1'' = K1 = K2 = 3 per step, all
+    of them K1's and K2's 2D entries on the (n0+6, n1+6) layout, none a
+    ``(1, n0, n1)`` one; D2s, D2's velocity streamed: K1's 2D entry; D4:
+    K1' too; D2h, D2 with a posthook: K11 = 3 per step; D1, upwind FE:
+    none); K1's 2D entries (K1 on D2s, K1'' on D2 and D3, K1' on D4) against
+    their plain versions on each one's state at N_2D^2 (the bare operator H
+    and H plus aux within K1_TOL * max(|H|, 1), then RK3's stages 1 and 2
+    with aux; the per-node form's bits equal to the kernel's, a second
+    launch's too), K2's 2D entry bit
+    for bit against its plain version and ``pad_ghost`` there, K11 against
+    its plain version on D2's inputs; card-vs-CPU trajectories at
+    N_2D_SMALL^2; a gradient through a dense 2D field on the card refused."""
     n, steps = N_2D, GENERAL_STEPS
+    res.setdefault("k1_2d_err", {})
     for name, (path, per_stage, _) in TWOD.items():
         stages = (1 if name == "D1" else 3) * steps
         eq, counts, wall = twod_integrate(name, n, dev)
@@ -2828,26 +3000,54 @@ def phase_twod(dev, res):
             raise AssertionError(f"{name} check failed")
         if name == "D2h":
             res["launches"]["K11"] = counts["K11"]
-        if name == "D4":  # K1''s march with axis 0 compiled out, against its plain version
+        if name not in K1_2D_OF:
+            continue
+        key = K1_2D_OF[name]
+        res["launches"][key] = counts["K1 2D"]
+        res["launches"]["K2 2D"] = counts["K2 2D"]
+        if name == "D4":
             res["launches"]["K1' D4"] = counts["K1'"]
-            stepper = FusedStepper(eq.terms, eq.state, lsm.RK3())
-            P = stepper.pack(eq.state.values)
-            terms = stepper.stage_terms(0.0)
-            dt = 0.5 * float(stepper.cfl(P, 0.0))
-            for label, aux, coeffs in (("stage 1", None, (0.0, 1.0, dt)),
-                                       ("stage 2", P, (0.75, 0.25, 0.25 * dt))):
-                g = v2.unpack_padded(v2.fused_stage(P, terms, coeffs, aux, stepper.spacing,
-                                                    stepper.shape), stepper.shape)
-                r = v2.unpack_padded(v2.stage_plain(P, terms, coeffs, aux, stepper.spacing,
-                                                    stepper.shape), stepper.shape)
-                err, scale = kinds_err(g, r, ~gate_nodes(P, stepper.spacing, stepper.shape))
-                log("twod", f"K1' D4 {label} {n}^2 f32 route {stepper.stage_route!r} "
-                            f"max|kernel-plain|={err:.3e} scale={scale:.3e} tol={K1_TOL:g}*scale")
-                if not (bool(torch.isfinite(g).all()) and err <= K1_TOL * scale):
-                    raise AssertionError(f"K1' on D4 at {n}^2 failed ({label})")
-                res["k1k_err"] = max(res["k1k_err"], err)
-            del stepper, P, terms, g, r
-    # K11 and K2 at N_2D^2 on D2's inputs
+        # the stage on this configuration's state, against its plain version: the
+        # bare operator H (alpha, beta, gamma) = (0, 0, 1), so no dt scales an error
+        # down, then H plus aux (1, 0, 1), both within K1_TOL * max(|H|, 1); the RK3
+        # stages 1 and 2 besides
+        stepper = FusedStepper(eq.terms, eq.state, lsm.RK3())
+        P = stepper.pack(eq.state.values)
+        A = 0.5 * P  # aux: not phi, so reading phi for aux shows
+        where = v2.Where(stepper.lo, None, eq.t)
+        terms = stepper.stage_terms(eq.t)
+        dt = 0.5 * float(stepper.cfl(P, eq.t))
+        scale_h = None
+        for label, aux, coeffs in (("H", None, (0.0, 0.0, 1.0)), ("H + aux", A, (1.0, 0.0, 1.0)),
+                                   ("stage 1", None, (0.0, 1.0, dt)),
+                                   ("stage 2", A, (0.75, 0.25, 0.25 * dt))):
+            err, scale, node_err = k1_2d_compare(f"{key} on {name} {label}", stepper, P, terms,
+                                                 coeffs, aux, where, repeat=True,
+                                                 scale=scale_h if label == "H + aux" else None)
+            scale_h = scale if label == "H" else scale_h
+            log("twod", f"{key} {name} {label:8s} {n}^2 f32 route {stepper.stage_route!r} "
+                        f"max|kernel-plain|={err:.3e} scale={scale:.3e} tol={K1_TOL:g}*scale; "
+                        f"per-node form {node_err:.3e}, its bits equal to the kernel's; a "
+                        f"second launch equal bits")
+            res["k1_2d_err"][name] = max(res["k1_2d_err"].get(name, 0.0), err)
+            if label.startswith("H"):
+                res.setdefault("k1_2d_rel_h", {})[name] = max(
+                    res.get("k1_2d_rel_h", {}).get(name, 0.0), err / scale)
+        if name == "D2":  # K2's 2D entry on the stage's output
+            Q = v2.fused_stage(P, terms, (0.0, 1.0, dt), None, stepper.spacing, stepper.shape,
+                               where)
+            got = v2.refresh_ghosts_fast(Q.clone(), stepper.bcs, stepper.shape)
+            ref = v2.refresh_ghosts_plain(Q.clone(), stepper.bcs, stepper.shape)
+            err = float((got - ref).abs().max())
+            err_pad = float((got - pad_ghost(v2.unpack_padded(Q, stepper.shape), stepper.bcs,
+                                             v2.GHOST)).abs().max())
+            log("twod", f"K2 2D on D2's ({n}+6, {n}+6) buffer, periodic: max|kernel-plain|="
+                        f"{err:.3e} max|kernel-pad_ghost|={err_pad:.3e}")
+            if not err == err_pad == 0.0:
+                raise AssertionError(f"K2's 2D entry at {n}^2: {err} / {err_pad}")
+            del Q, got, ref
+        del stepper, P, A, terms, eq
+    # K11 at N_2D^2 on D2's inputs
     terms, phi, _ = config("D2", n, dev)
     sp, shape = phi.spacing, phi.shape
     u = wg._components(terms[0].velocity(phi.grid.coords(dtype=phi.dtype, device=dev), 0.0),
@@ -2867,20 +3067,10 @@ def phase_twod(dev, res):
                     f"scale={scale:.3e} tol={K1_TOL:g}*scale")
         worst = max(worst, err)
     res["k11_err"] = max(res["k11_err"], worst)
-    stepper = FusedStepper(terms, phi, lsm.RK3())
-    Q = v2.fused_stage(stepper.pack(phi.values), stepper.stage_terms(0.0), (0.0, 1.0, dt), None,
-                       stepper.spacing, stepper.shape, v2.Where(stepper.lo))
-    got = v2.refresh_ghosts_fast(Q.clone(), stepper.bcs, stepper.shape)
-    ref = v2.refresh_ghosts_plain(Q.clone(), stepper.bcs, stepper.shape)
-    err = float((got - ref).abs().max())
-    log("twod", f"K2 on (1, {n}, {n}) periodic, the dummy axis Extrapolation(0): "
-                f"max|kernel-plain|={err:.3e}")
-    if err != 0.0:
-        raise AssertionError(f"K2 on the 2D embedding at {n}^2: {err}")
-    del stepper, Q, got, ref, P, phi1, u
+    del P, phi1, u
     torch.cuda.empty_cache()
     twod_card_vs_cpu(dev)
-    # a gradient through the 2D embedding on the card is refused before any stage runs
+    # a gradient through a dense 2D field on the card is refused before any stage runs
     terms, phi, _ = config("D2", N_SMALL, dev)
     try:
         reset_counts()
@@ -2892,14 +3082,14 @@ def phase_twod(dev, res):
     log("twod", f"gradient through a 2D rollout on the card: {refused!r}; launches before the "
                 f"refusal {read_counts()}")
     if "2D gradient (K4 length-1 axis)" not in refused or read_counts() != NONE_LAUNCHED:
-        raise AssertionError("a gradient through the 2D embedding was not refused")
+        raise AssertionError("a gradient through a dense 2D field was not refused")
 
 
 def twod_card_vs_cpu(dev):
-    """N_2D_SMALL^2 trajectories of D2, D3, D4 and D2h, card (kernels)
+    """N_2D_SMALL^2 trajectories of D2, D2s, D3, D4 and D2h, card (kernels)
     against CPU (plain versions), KINDS_SMALL_STEPS steps: f32 within 1e-4 *
     scale, f64 within 1e-10 * scale, equal step counts and paths."""
-    for name in ("D2", "D3", "D4", "D2h"):
+    for name in ("D2", "D2s", "D3", "D4", "D2h"):
         for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
             out = {where: twod_integrate(name, N_2D_SMALL, where, dtype, KINDS_SMALL_STEPS)[0]
                    for where in ("cpu", dev)}
@@ -3023,6 +3213,7 @@ def phase_general_timing(dev, res):
     t["K11_plain"] = cuda_time(lambda: wg._stage_plain(P2, u2, None, (0.0, 1.0, dt2), sp2,
                                                        shape2), warmup=1, reps=5)
     del P2, u2, phi2, terms
+    timing_2d(dev, res)
     for name, (path, _, kw) in TWOD.items():
         terms, phi, integ = config(name, N_2D, dev)
         kw = {"posthook": lambda e: None} if kw else {}
@@ -3034,6 +3225,41 @@ def phase_general_timing(dev, res):
         log("general_timing", f"{where} f32 {name:18s} median {t[name]:.4f} ms")
     log("general_timing", "peak memory: " + ", ".join(f"{k} {v:.2f} GiB" for k, v in mem.items()))
     res["mem"].update(mem)
+
+
+def timing_2d(dev, res):
+    """CUDA-event medians at N_2D^2 f32 of K1's 2D entries on each
+    configuration's stage-1 inputs (K1 on D2s, K1'' on D2 and D3, K1' on D4;
+    without and with aux), their per-node form and their plain versions,
+    and of K2's 2D entry on D2's buffer beside its plain version; each
+    program's work for the bounds."""
+    t, work = res["t"], {}
+    for name, key in (("D2s", "K1_2d"), ("D2", "K1pp_2d_rotation"), ("D3", "K1pp_2d_vortex"),
+                      ("D4", "K1k_2d_D4")):
+        terms, phi, integ = config(name, N_2D, dev)
+        st = FusedStepper(terms, phi, integ)
+        P, where = st.pack(phi.values), v2.Where(st.lo, None, 0.0)
+        tt = st.stage_terms(0.0)
+        dt = 0.5 * float(st.cfl(P, 0.0))
+        args = (st.spacing, st.shape, where)
+        t[key] = cuda_time(lambda: v2.fused_stage(P, tt, (0.0, 1.0, dt), None, *args))
+        t[f"{key}_aux"] = cuda_time(lambda: v2.fused_stage(P, tt, (0.75, 0.25, dt), P, *args))
+        t[f"{key}_per_node"] = cuda_time(lambda: v2.fused_stage_2d_per_node(
+            P, tt, (0.0, 1.0, dt), None, *args))
+        t[f"{key}_plain"] = cuda_time(lambda: v2.stage_plain(P, tt, (0.0, 1.0, dt), None, *args),
+                                      warmup=1, reps=5)
+        progs = [spec.coef_static for spec, _ in tt if spec.coef_kind == "program"]
+        if progs:
+            work[name] = program_work(progs[0], (1, *st.shape))
+        if name == "D2":
+            t["K2_2d"] = cuda_time(lambda: v2.refresh_ghosts_fast(P, st.bcs, st.shape))
+            t["K2_2d_plain"] = cuda_time(lambda: v2.refresh_ghosts_plain(P, st.bcs, st.shape),
+                                         warmup=1, reps=5)
+        del st, P, tt, phi, terms
+        torch.cuda.empty_cache()
+    res["k1_2d_work"] = work
+    for name in [k for k in t if k.startswith(("K1_2d", "K1pp_2d", "K1k_2d", "K2_2d"))]:
+        log("general_timing", f"{N_2D}^2 f32 {name:26s} median {t[name]:.4f} ms")
 
 
 def phase_revolution(dev, res):
@@ -3272,8 +3498,8 @@ def phase_profile(dev, res):
     """``torch.profiler`` over 3 RK3 steps of the 512^3 main path, one
     ``value_and_grad`` of cell (a) (streamed) and one of cell (b), 3 band FE
     and RK3 steps, 3 RK3 steps of configs C and A, of H (the general path,
-    K10) and of D2 (the 2D embedding) and D2h (K11) at N_2D^2: the device
-    busy share and the device time by kernel."""
+    K10) and of D2 (the dense 2D stepper: K1'' and K2 2D) and D2h (K11) at
+    N_2D^2: the device busy share and the device time by kernel."""
     grid, phi, vel = zalesak(N_MAIN, dev)
     eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(vel), ic=phi, integrator=lsm.RK3())
     profile_window(f"3 RK3 steps at {N_MAIN}^3", lambda: eq.integrate(1.0, max_steps=3))
@@ -3310,8 +3536,9 @@ def phase_profile(dev, res):
         terms, phi, integ = config(name, N_2D, dev)
         eq = lsm.LevelSetEquation(terms=terms, ic=phi, integrator=integ)
         kw = {"posthook": lambda e: None} if name == "D2h" else {}
-        profile_window(f"{name}: 3 RK3 steps at {N_2D}^2",
-                       lambda: eq.integrate(eq.t + 1.0, max_steps=3, **kw))
+        wall, busy = profile_window(f"{name}: 3 RK3 steps at {N_2D}^2",
+                                    lambda: eq.integrate(eq.t + 1.0, max_steps=3, **kw))
+        res[f"{name}_busy_share"] = busy / wall
 
 
 # -- in-kernel coefficient programs: K1'', K3'', K6'' ------------------------------
@@ -4400,7 +4627,7 @@ def phase_band2d_4096(dev, res):
                 and bool(torch.isfinite(eq.state.values).all())):
             raise AssertionError(f"{name}: the 2D band main path check failed")
         if name == "D2b":
-            res["launches"].update({k: counts[k] for k in TWOD_ENTRIES})
+            res["launches"].update({k: counts[k] for k in ("K6 2D", "K7 2D", "K8 2D")})
             res["launches"]["K6'' 2D"] = counts["K6''"]
         else:
             res["launches"]["K6' 2D"] = counts["K6'"]
@@ -4577,6 +4804,7 @@ def main(argv=()) -> int:
                       ("k3kinds", phase_k3kinds), ("k1analytic", phase_k1analytic),
                       ("k3analytic", phase_k3analytic), ("k6analytic", phase_k6analytic),
                       ("k10k11", phase_k10k11), ("k2_small", phase_k2_small),
+                      ("k1_2d", phase_k1_2d),
                       ("k512", phase_k512), ("k3_512", phase_k3_512),
                       ("band_512", phase_band_512), ("kinds_512", phase_kinds_512),
                       ("k3kinds_512", phase_k3kinds_512),
@@ -4652,11 +4880,13 @@ def stage_adjoint_ptxas(build_log):
 
 
 def forward_stage_ptxas(build_log):
-    """The same for the marches of ``csrc/weno_stage.cu`` (K1, K1'', K1' with
-    reach R; the 2D embedding's instantiations without axis 0; "K1'' per
-    node": the kernel of one thread per node, for a component evaluated per
-    node and the embedding; "K1' per node": a table with a program) and of
-    ``csrc/weno_general.cu`` (K10)."""
+    """The same for the kernels of ``csrc/weno_stage.cu`` (K1, K1'', K1' with
+    reach R; a 3D field of one plane's instantiations without axis 0; "K1''
+    per node": the kernel of one thread per node, for a component evaluated
+    per node and a field of one plane; "K1' per node": a table with a
+    program), of ``csrc/weno_general.cu`` (K10) and of
+    ``csrc/weno_stage_2d.cu`` (K1's 2D entries: the 2D march of K1 and
+    K1'', and the per-node form)."""
     names = {"stage_march_kernel": "K1", "stage_march_prog_kernel": "K1''",
              "stage_node_prog_kernel": "K1'' per node",
              "stage_terms_march_kernel": "K1' march", "weno_stage_terms_kernel": "K1' per node"}
@@ -4666,15 +4896,27 @@ def forward_stage_ptxas(build_log):
         label = names[name]
         if name == "stage_terms_march_kernel":  # <T, R, kFirst>: "fLi2ELi0E..."
             label += f" R={args[3]}"
-            axis0 = "" if args[7] == "0" else " (2D embedding: axis 0 compiled out)"
+            axis0 = "" if args[7] == "0" else " (one plane: axis 0 compiled out)"
         elif name == "weno_stage_terms_kernel":  # <T, kAdvection>
             axis0 = " (advection)" if args[1:4] == "Lb1" else ""
         else:
-            axis0 = "" if args[1:4] != "Lb0" else " (2D embedding: axis 0 compiled out)"
+            axis0 = "" if args[1:4] != "Lb0" else " (one plane: axis 0 compiled out)"
         out.append((f"{label} {dtype}{axis0}", info))
     for name, args, info in ptxas_summary(build_log, "weno_general.cu",
                                           {"general_march_kernel": "K10"}):
         out.append((f"K10 march {'f32' if args.startswith('f') else 'f64'}", info))
+    names = {"stage_march_2d_kernel": "2D march", "stage_node_2d_kernel": "2D per node",
+             "stage_node_prog_2d_kernel": "K1'' 2D per node"}
+    for name, args, info in ptxas_summary(build_log, "weno_stage_2d.cu", names):
+        dtype = "f32" if args.startswith("f") else "f64"
+        if name == "stage_march_2d_kernel":  # <T, kKind>: "fLi1E"
+            label = ("K1", "K1''")[int(args[3])] + " 2D march"
+        elif name == "stage_node_prog_2d_kernel":
+            label = names[name]
+        else:  # <T, kAdvection, kProg>
+            label = "K1 2D per node" + (" (advection)" if args[1:4] == "Lb1" else "")
+            label += " (program)" if args[5:8] == "Lb1" else ""
+        out.append((f"{label} {dtype}", info))
     return out
 
 
@@ -4734,6 +4976,7 @@ def kernel_records(res):
 
     tk = res["t_k3k"]
     work, kwork, w2 = res["band_work"], res["kinds_band_work"], res["band2d_work"]
+    plane2d, cells2d, w2d = (N_2D + 6) ** 2, N_2D ** 2, res["k1_2d_work"]
     k9 = res["k9"]["times"]
     k9_main = k9[(2, 2)]  # the (2, 2) mesh: all four blocks per shard
     rows = [
@@ -4844,6 +5087,26 @@ def kernel_records(res):
          t["K8_2d"], t["K8_2d_plain"],
          bound(w2["cand_reach_cells"] + f32 * w2["active_reach_cells"] + w2["cand_cells"], 0),
          None),
+        (f"K1 2D fused_stage, 2D entry (a 2D field on its (n0+6, n1+6) layout, the 2D march; "
+         f"D2s: D2's state at {N_2D}^2, the rotation streamed)", "weno_stage_2d.cu",
+         "lsm_tpu/ops/weno_v2.py:667", "K1 2D", res["k1_2d_err"]["D2s"], t["K1_2d"],
+         t["K1_2d_plain"],
+         # reads the padded phi and 2 streams, writes the interior (no aux)
+         bound(f32 * (plane2d + 3 * cells2d), K11_OPS_PER_CELL * cells2d), None),
+        (f"K1'' 2D fused_stage, 2D entry with an in-kernel coefficient program (D2's rotation "
+         f"at {N_2D}^2)", "weno_stage_2d.cu", "lsm_tpu/ops/weno_v2.py:667", "K1'' 2D",
+         res["k1_2d_err"]["D2"], t["K1pp_2d_rotation"], t["K1pp_2d_rotation_plain"],
+         prog_bound(f32 * (plane2d + cells2d), K11_OPS_PER_CELL * cells2d, w2d["D2"], cells2d),
+         None),
+        (f"K1' 2D fused_stage, 2D term-list entry (D4 at {N_2D}^2: curvature + normal motion)",
+         "weno_stage_2d.cu", "lsm_tpu/ops/weno_v2.py:667", "K1' 2D", res["k1_2d_err"]["D4"],
+         t["K1k_2d_D4"], t["K1k_2d_D4_plain"],
+         bound(f32 * (plane2d + cells2d), KINDS_OPS["D4"] * cells2d), None),
+        (f"K2 2D refresh_ghosts_fast, 2D entry (one launch; D2's buffer at {N_2D}^2, Periodic)",
+         "refresh_ghosts.cu", "lsm_tpu/ops/weno_v2.py:208", "K2 2D", res["k2_2d_err"],
+         t["K2_2d"], t["K2_2d_plain"],
+         # periodic: each ghost written once from one source
+         bound(f32 * 2 * (plane2d - cells2d), 0), None),
         ("K1''/K3''/K6'' program tables (the per-axis subexpressions of a traced coefficient; "
          "the vortex)", "coef_tables.cu", "lsm_tpu/ops/weno_v2.py:508", "tables",
          res["tables_err"], t["tables_vortex"], t["tables_vortex_plain"],
@@ -4909,6 +5172,29 @@ def kernel_records(res):
                        dispatched_tiles=w2["slots"])
         if key == "K7 2D":
             rec["ms_flags_off"] = t["K7_2d_off"]
+        if key in ("K1 2D", "K1'' 2D", "K1' 2D"):  # with aux (one more read), the per-node form
+            tk2 = {"K1 2D": "K1_2d", "K1'' 2D": "K1pp_2d_rotation", "K1' 2D": "K1k_2d_D4"}[key]
+            aux_bytes = f32 * (plane2d + 2 * cells2d)  # phi and aux read, the interior written
+            bound_aux = {"K1 2D": bound(aux_bytes + 2 * f32 * cells2d,
+                                        K11_OPS_PER_CELL * cells2d),
+                         "K1'' 2D": prog_bound(aux_bytes, K11_OPS_PER_CELL * cells2d, w2d["D2"],
+                                               cells2d),
+                         "K1' 2D": bound(aux_bytes, KINDS_OPS["D4"] * cells2d)}[key]
+            rec.update(ms_aux=t[f"{tk2}_aux"], ms_per_node=t[f"{tk2}_per_node"],
+                       bound_ms_aux=bound_aux[0],
+                       route=res["k1_2d_routes"].get(
+                           {"K1 2D": "K1 streamed", "K1'' 2D": "K1'' rotation",
+                            "K1' 2D": "K1' D4"}[key]),
+                       max_rel_err_small_shapes=res["k1_2d_small_err"])
+        if key == "K1'' 2D":  # the vortex (components per node), D3's state; D2's busy share
+            rec.update(ms_vortex=t["K1pp_2d_vortex"], plain_ms_vortex=t["K1pp_2d_vortex_plain"],
+                       ms_vortex_per_node=t["K1pp_2d_vortex_per_node"],
+                       bound_ms_vortex=prog_bound(f32 * (plane2d + cells2d),
+                                                  K11_OPS_PER_CELL * cells2d, w2d["D3"],
+                                                  cells2d)[0],
+                       max_abs_err_vortex=res["k1_2d_err"]["D3"],
+                       program_work={"rotation": w2d["D2"], "vortex": w2d["D3"]},
+                       D2_device_busy_share=res["D2_busy_share"])
         if key == "K9":  # ms: device time (profiler); a call between events beside it; the
             # (4, 1) mesh: the axis-0 pair only; K2's axis-2 phase beside it
             r41 = k9[(4, 1)]

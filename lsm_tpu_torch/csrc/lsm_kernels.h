@@ -152,6 +152,32 @@ int lsm_weno_stage_prog_f64(const void* P, const void* aux, void* out, int64_t n
                             int64_t n2, const LsmStageTerms* terms, int axes0, int axes1,
                             int axes2, void* stream);
 
+/* K1's 2D entries (csrc/weno_stage_2d.cu): the stage of a 2D field on its
+ * padded (n0+6, n1+6) layout (P, aux, out), the function of the (1, n0, n1)
+ * embedding with the dummy axis compiled out. lsm_weno_stage_2d_*: one
+ * advection term, u0 and u1 interior-shaped (n0, n1), inv_h* per axis;
+ * lsm_weno_stage_prog_2d_*: its velocity the program of the table's entry 0,
+ * axes1, axes2 the embedding's axes its components 1 and 2 read;
+ * lsm_weno_stage_terms_2d_*: any term table (one thread per node, the
+ * per-node form; the smoke times K1 and K1'' through it). The tables are the
+ * embedding's (spacing and coordinates of (1, n0, n1); an advection term's
+ * stream[e][1..2] the field's two velocity components, stream[e][0] not
+ * read). out's ghost shells are not written. */
+int lsm_weno_stage_2d_f32(const void* P, const void* u0, const void* u1, const void* aux,
+                          void* out, int64_t n0, int64_t n1, double inv_h0, double inv_h1,
+                          double alpha, double beta, double gamma, void* stream);
+int lsm_weno_stage_2d_f64(const void* P, const void* u0, const void* u1, const void* aux,
+                          void* out, int64_t n0, int64_t n1, double inv_h0, double inv_h1,
+                          double alpha, double beta, double gamma, void* stream);
+int lsm_weno_stage_prog_2d_f32(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
+                               const LsmStageTerms* terms, int axes1, int axes2, void* stream);
+int lsm_weno_stage_prog_2d_f64(const void* P, const void* aux, void* out, int64_t n0, int64_t n1,
+                               const LsmStageTerms* terms, int axes1, int axes2, void* stream);
+int lsm_weno_stage_terms_2d_f32(const void* P, const void* aux, void* out, int64_t n0,
+                                int64_t n1, const LsmStageTerms* terms, void* stream);
+int lsm_weno_stage_terms_2d_f64(const void* P, const void* aux, void* out, int64_t n0,
+                                int64_t n1, const LsmStageTerms* terms, void* stream);
+
 /* The program tables of K1'', K3'' and K6'' (csrc/coef_tables.cu): every
  * slot of *fill (a host pointer) evaluated by the programs' interpreter
  * into fill->prog.table (a device buffer of the field's dtype, total values,
@@ -173,6 +199,14 @@ int lsm_refresh_ghosts_f32(void* P, int64_t n0, int64_t n1, int64_t n2,
 int lsm_refresh_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n2,
                            const int* kinds, const int* degrees, const double* weights,
                            void* stream);
+
+/* K2's 2D entry: every ghost of a 2D buffer (n0+6, n1+6) in one launch,
+ * equal to the two phases axis 0, then axis 1 over the padded rows (a corner
+ * recomputes the axis-0 values it reads). Arguments as for K2, axes 0 and 1. */
+int lsm_refresh_ghosts_2d_f32(void* P, int64_t n0, int64_t n1, const int* kinds,
+                              const int* degrees, const double* weights, void* stream);
+int lsm_refresh_ghosts_2d_f64(void* P, int64_t n0, int64_t n1, const int* kinds,
+                              const int* degrees, const double* weights, void* stream);
 
 /* K2's single-axis entry: one of its three phases (axis 0, 1 or 2), the shells
  * of that axis over the extents described above (the earlier axes' full padded

@@ -1,4 +1,4 @@
-// K2: in-place refresh of the ghost shells of a padded 3D buffer.
+// K2: in-place refresh of the ghost shells of a padded 3D or 2D buffer.
 //
 // Replaces the TPU kernel lsm_tpu/ops/weno_v2.py `refresh_ghosts_fast`
 // (helpers `_dim0_shell`, `_dim1_ghost_cols`). Semantics are those of
@@ -21,6 +21,13 @@
 //
 // Bound: it touches only the shells, O(N^2): about 6 * 518^2 nodes per axis at
 // 512^3, a few MB of traffic, so launch latency dominates.
+//
+// K2's 2D entry (lsm_refresh_ghosts_2d_*) refreshes a 2D field's (n0+6, n1+6)
+// buffer, the dense 2D stepper's, in one launch (refresh_2d_kernel): the two
+// phases' ghosts are written by disjoint threads that read the interior
+// only, a corner's thread recomputing the axis-0 values it reads, so the
+// composition order needs no second launch. At 4096^2 that is 49 k ghosts
+// against the (1, n0, n1) embedding's three phases over six 4102^2 planes.
 //
 // K7 (lsm_refresh_band_ghosts_*) replaces the TPU kernel
 // lsm_tpu/ops/band_pallas.py `refresh_band_ghosts_fast` (kernel01, kernel2)
@@ -188,7 +195,103 @@ int launch_refresh_2d(void* P_, int64_t n0, int64_t n1, const int* kinds, const 
   return 0;
 }
 
+// One ghost of a line of n nodes: the node at index m of the line is node(m);
+// side and distance k as refresh_axis_kernel takes them, with its arithmetic
+// (which keeps its own copy of it, so that the 3D entries and K7 keep their
+// machine code).
+template <typename T, typename Node>
+__device__ __forceinline__ T ghost_of(const AxisBC& bc, int side, int k, int64_t n, Node node) {
+  switch (bc.kind[side]) {
+    case LSM_BC_PERIODIC:
+      return node(side == 0 ? n - 1 - k : k);
+    case LSM_BC_SYMMETRY:
+      return node(side == 0 ? k : n - 1 - k);
+    default: {  // LSM_BC_EXTRAPOLATION
+      const double* w = bc.w[side][k - 1];
+      const int64_t m0 = side == 0 ? 0 : n - 1, step = side == 0 ? 1 : -1;
+      T val = mul_add_rn(T(0), T(w[0]), node(m0));
+      for (int j = 1; j <= bc.degree[side]; ++j) val = mul_add_rn(val, T(w[j]), node(m0 + j * step));
+      return val;
+    }
+  }
+}
+
+// K2's 2D entry: every ghost of a (n0+6, n1+6) buffer in one launch. Threads
+// [0, 6 n1) write the axis-0 ghosts of the interior columns (a row of n1
+// fastest, coalesced), the next 6 (n0+6) the axis-1 ghosts of every padded
+// row (a row's six slots fastest). An axis-1 ghost of an axis-0 ghost row (a
+// corner) reads that row's values, which other threads of the launch write:
+// its thread recomputes each value it reads from the interior with the
+// axis-0 arithmetic, so it equals pad_ghost's composition (axis 0, then axis 1
+// over the padded rows) bit for bit, and no thread reads what another writes.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    refresh_2d_kernel(T* __restrict__ P, int64_t n0, int64_t n1, AxisBC bc0, AxisBC bc1) {
+  const int64_t S1 = n1 + 2 * LSM_GHOST;
+  const int64_t cols = 2 * LSM_GHOST * n1;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= cols + 2 * LSM_GHOST * (n0 + 2 * LSM_GHOST)) return;
+  // a slot g6 in [0, 6): side g6 / 3, layer g6 % 3 (distance 3 - layer on the
+  // left, layer + 1 on the right), at padded index layer or n + 3 + layer
+  const auto slot = [](int g6, int64_t n, int& side, int& k, int64_t& pos) {
+    side = g6 / LSM_GHOST;
+    const int layer = g6 % LSM_GHOST;
+    k = side == 0 ? LSM_GHOST - layer : layer + 1;
+    pos = side == 0 ? layer : LSM_GHOST + n + layer;
+  };
+  int side, k;
+  int64_t pos;
+  if (t < cols) {  // an axis-0 ghost of interior column b
+    const int64_t b = t % n1;
+    slot(static_cast<int>(t / n1), n0, side, k, pos);
+    const T* col = P + LSM_GHOST * S1 + LSM_GHOST + b;  // node (0, b)
+    P[pos * S1 + LSM_GHOST + b] = ghost_of<T>(bc0, side, k, n0, [&](int64_t m) {
+      return col[m * S1];
+    });
+    return;
+  }
+  const int64_t r = t - cols, row = r / (2 * LSM_GHOST);
+  slot(static_cast<int>(r % (2 * LSM_GHOST)), n1, side, k, pos);
+  T val;
+  if (row >= LSM_GHOST && row < LSM_GHOST + n0) {
+    const T* line = P + row * S1 + LSM_GHOST;  // node (row - 3, 0)
+    val = ghost_of<T>(bc1, side, k, n1, [&](int64_t m) { return line[m]; });
+  } else {  // a corner: the axis-0 ghost row's values, recomputed from the interior
+    int side0, k0;
+    int64_t pos0;
+    slot(static_cast<int>(row < LSM_GHOST ? row : row - n0), n0, side0, k0, pos0);
+    const T* first = P + LSM_GHOST * S1 + LSM_GHOST;  // node (0, 0)
+    val = ghost_of<T>(bc1, side, k, n1, [&](int64_t m) {
+      return ghost_of<T>(bc0, side0, k0, n0, [&](int64_t i) { return first[i * S1 + m]; });
+    });
+  }
+  P[row * S1 + pos] = val;
+}
+
+template <typename T>
+int launch_refresh_ghosts_2d(void* P, int64_t n0, int64_t n1, const int* kinds,
+                             const int* degrees, const double* weights, void* stream) {
+  const int64_t total = 2 * LSM_GHOST * (n1 + n0 + 2 * LSM_GHOST);
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  refresh_2d_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(P), n0, n1, axis_bc(kinds, degrees, weights, 0),
+      axis_bc(kinds, degrees, weights, 1));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int lsm_refresh_ghosts_2d_f32(void* P, int64_t n0, int64_t n1, const int* kinds,
+                                         const int* degrees, const double* weights,
+                                         void* stream) {
+  return launch_refresh_ghosts_2d<float>(P, n0, n1, kinds, degrees, weights, stream);
+}
+
+extern "C" int lsm_refresh_ghosts_2d_f64(void* P, int64_t n0, int64_t n1, const int* kinds,
+                                         const int* degrees, const double* weights,
+                                         void* stream) {
+  return launch_refresh_ghosts_2d<double>(P, n0, n1, kinds, degrees, weights, stream);
+}
 
 extern "C" int lsm_refresh_ghosts_f32(void* P, int64_t n0, int64_t n1, int64_t n2,
                                       const int* kinds, const int* degrees,

@@ -43,15 +43,16 @@
 // axis 0 and another axis (the vortex) takes a kernel of one thread per node
 // that evaluates each component by the interpreter: the march with the
 // interpreter in its plane loop measured slower.
-// n0 == 1 (the 2D embedding (1, n0, n1), integrators/fused.py) takes an
-// instantiation with axis 0 compiled out: the axis-0 ghosts of a one-node
-// axis copy its plane under every boundary condition K2 refreshes
-// (Extrapolation(0) in the embedding; the others need more nodes), so every
-// axis-0 difference, and the term, is exactly zero (weno5.cuh
-// `stage_value_2d` does the same for K6); a step there copies the one plane
-// its output needs. The entries require such ghosts there (a buffer as
-// pack_padded or K2 leaves it): on other axis-0 ghosts they drop a term that
-// the plain stage keeps.
+// n0 == 1 (a 3D field of one plane, as JAX's (1, n0, n1) embedding of a 2D
+// field; a 2D field itself takes the 2D entries of csrc/weno_stage_2d.cu on
+// its own (n0+6, n1+6) layout) takes an instantiation with axis 0 compiled
+// out: the axis-0 ghosts of a one-node axis copy its plane under every
+// boundary condition K2 refreshes (Extrapolation(0); the others need more
+// nodes), so every axis-0 difference, and the term, is exactly zero
+// (weno5.cuh `stage_value_2d` does the same for K6); a step there copies the
+// one plane its output needs. The entries require such ghosts there (a
+// buffer as pack_padded or K2 leaves it): on other axis-0 ghosts they drop a
+// term that the plain stage keeps.
 //
 // Bound at 512^3 f32: per cell it reads phi once, 3 velocity components and
 // aux (stages 2-3), and writes phi: 20-24 B/cell, 0.81-0.97 ms at 3.35 TB/s.
@@ -112,7 +113,7 @@ __global__ void __launch_bounds__(March<T>::NT, March<T>::MIN_BLOCKS)
 }
 
 // K1'' for a program with a component evaluated per node (the vortex), and
-// on the 2D embedding (one plane: nothing to march, and every component is
+// on a field of one plane (nothing to march, and every component is
 // evaluated once per node there): one thread per interior node,
 // threadIdx.x along the contiguous last axis, the stencils from device
 // memory, each component by the interpreter. The march holding the
@@ -186,7 +187,7 @@ int launch_march(const void* P, const void* const* u, const void* aux, void* out
   const dim3 grid(static_cast<unsigned>((n2 + M::CX - 1) / M::CX),
                   static_cast<unsigned>((n1 + M::CY - 1) / M::CY), static_cast<unsigned>(chunks));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // n0 == 1: the 2D embedding, axis 0 compiled out (its ghosts copy the plane)
+  // n0 == 1: one plane, axis 0 compiled out (its ghosts copy the plane)
   const bool axis0 = n0 > 1;
   cudaError_t err;
   if (terms == nullptr) {
@@ -250,7 +251,7 @@ int launch_stage_prog(const void* P, const void* aux, void* out, int64_t n0, int
 // and streamed coefficients (CY x CX each, as K1's velocity; as many as the
 // ring's budget holds, the rest read in place). The ring holds the 2R + 1
 // planes a node reads and DEPTH steps' copies in flight; axis 0 is compiled
-// out on the embedding (kFirst = 1: one plane, R0 = 0).
+// out on a field of one plane (kFirst = 1: R0 = 0).
 template <typename T, int R, int kFirst>
 struct TermsMarch {
   static constexpr int CX = 32, TY = 8, NT = CX * TY, NR = 4, CY = TY * NR;
@@ -603,7 +604,7 @@ int launch_stage_terms(const void* P, const void* aux, void* out, int64_t n0, in
   a.k = lsm::TermConsts<T>::of(*terms);
   const dim3 grid(static_cast<unsigned>((n2 + M::CX - 1) / M::CX), static_cast<unsigned>(gy),
                   static_cast<unsigned>(chunks));
-  // n0 == 1: the 2D embedding, axis 0 compiled out (its ghosts copy the plane)
+  // n0 == 1: one plane, axis 0 compiled out (its ghosts copy the plane)
   const bool axis0 = n0 > 1;
   const cudaError_t err =
       adv ? (axis0 ? launch_terms_march<T, 3, 0>(a, grid, *terms, s)

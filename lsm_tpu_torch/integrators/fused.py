@@ -21,8 +21,9 @@ nothing is streamed for it. Any other callable is evaluated into streamed
 tensors at each stage time, at the kernel's node coordinates ``lo + i*h``.
 :attr:`FusedStepper.routes` says which route each term took, and why;
 :attr:`FusedStepper.stage_route` which kernel a stage launches. A
-gradient runs K4, K3 (one advection term) or K3' (any other list) and K5; on
-CUDA a 2D field's gradient raises (:func:`gradient_reason`).
+gradient runs K4, K3 (one advection term) or K3' (any other list) and K5; a
+2D field's runs as autograd of the plain 2D stage and refresh on the CPU and
+raises on CUDA (:func:`gradient_reason`).
 
 ``update_func`` (counterpart of JAX's ``_stage_specs`` /
 ``step_with_terms`` / ``cfl_with_terms``): :meth:`FusedStepper.
@@ -31,14 +32,18 @@ and rebuilds their entries (an updated callable is traced again), and
 :meth:`FusedStepper.cfl_with_terms` refreshes them with the accepted state
 before the CFL bound, as the reference's loop does.
 
-A 2D field rides the 3D kernels as ``(1, n0, n1)``: the dummy axis 0 has
-``Extrapolation(0)`` ghosts (copies of its one node), so every difference
-along it is exactly zero and each 3D Hamiltonian reduces to its 2D form; an
-advection velocity gains a zero component 0, a streamed coefficient a
-leading axis, a callable sees ``(xs[1], xs[2])``. The dummy spacing is the
-field's smallest spacing (any positive value leaves the zero differences
-zero; this one keeps ``min(spacing)``, which the eikonal kind's smoothing
-reads, the field's). The CFL bound is taken on the 2D field and terms.
+A 2D field lives in its own ``(n0+6, n1+6)`` buffer, packed with its own
+boundary conditions (the 2D band's layout), and each stage is K1's and K2's
+2D entries. JAX rides its 3D kernels as ``(1, n0, n1)`` (the dummy axis 0
+with ``Extrapolation(0)`` ghosts, copies of its one node, so every
+difference along it is exactly zero and each 3D Hamiltonian reduces to its
+2D form); the 2D entries compute that function with the dummy axis compiled
+out. The term list keeps streamed coefficients 2D (an advection velocity
+its two components); a callable is traced as the embedding's program, which
+sees ``(xs[1], xs[2])`` (:func:`term_entries`), evaluated at coordinate 0
+and the field's smallest spacing on the dummy axis (``min(spacing)``, which
+the eikonal kind's smoothing reads, stays the field's). The CFL bound is
+taken on the 2D field and terms.
 """
 
 from __future__ import annotations
@@ -176,8 +181,7 @@ def unsupported_reason(terms, phi: MeshField, integrator) -> Optional[str]:
         return f"the fused stepper takes 2D and 3D fields, not {phi.ndim}D"
     reason = _kind_reason(phi, integrator)
     if reason is None:
-        shape, bcs = (phi.shape, phi.bcs) if phi.ndim == 3 else embed_2d(phi)[:2]
-        reason = _axes_reason(shape, bcs)
+        reason = _axes_reason(phi.shape, phi.bcs)
     return reason or _terms_reason(terms, phi)
 
 
@@ -238,7 +242,8 @@ def _field_reason(phi: MeshField, integrator) -> Optional[str]:
 
 def embed_2d(phi: MeshField):
     """``(shape, bcs, spacing, lo)`` of a 2D field's ``(1, n0, n1)``
-    embedding (see the module docstring)."""
+    embedding (see the module docstring): the 3D field JAX steps, whose
+    function the 2D entries compute."""
     spacing = tuple(float(h) for h in phi.spacing)
     return ((1, *phi.shape), ((_bc.Extrapolation(0), _bc.Extrapolation(0)), *phi.bcs),
             (min(spacing), *spacing), (0.0, *(float(x) for x in phi.grid.lo)))
@@ -272,11 +277,28 @@ def _embed_entries_2d(entries):
     return tuple(out)
 
 
-def term_entries(terms, phi: MeshField):
+def _entries_2d(entries):
+    """A 2D term list for the dense 2D stage: streams stay 2D (an advection
+    velocity its two components), and a callable is traced as the
+    embedding's program (:func:`_embed_entries_2d`); one that does not trace
+    stays a 2D callable, evaluated on the 2D nodes."""
+    out = []
+    for spec, arrs in entries:
+        if spec.coef_kind == "analytic":
+            emb = _embed_entries_2d(((spec, arrs),))[0][0]
+            spec = emb if emb.coef_kind == "program" else v2.TermSpec(
+                spec.kind, "analytic", spec.coef_static, 0, reason=emb.reason)
+        out.append((spec, arrs))
+    return tuple(out)
+
+
+def term_entries(terms, phi: MeshField, embed: bool = True):
     """The fused stage's ``(TermSpec, streams)`` of every term, streams
-    contiguous in the field's dtype and on its device, a 2D field's in the
-    embedding, programs within the kernels' tables (``terms`` passed
-    :func:`_terms_reason`; else ``ValueError``)."""
+    contiguous in the field's dtype and on its device, programs within the
+    kernels' tables (``terms`` passed :func:`_terms_reason`; else
+    ``ValueError``). A 2D field's are the ``(1, n0, n1)`` embedding's (the
+    2D band's), or with ``embed=False`` the dense 2D stage's
+    (:func:`_entries_2d`)."""
     out = []
     for term in terms:
         entry = term_entry(term, phi)
@@ -285,7 +307,9 @@ def term_entries(terms, phi: MeshField):
         spec, arrs = entry
         out.append((spec, tuple(a.to(device=phi.device, dtype=phi.dtype).contiguous()
                                 for a in arrs)))
-    return _fit_programs(_embed_entries_2d(out) if phi.ndim == 2 else out)
+    if phi.ndim == 2:
+        out = _embed_entries_2d(out) if embed else _entries_2d(out)
+    return _fit_programs(out)
 
 
 def gradient_reason(terms, phi: MeshField) -> Optional[str]:
@@ -293,10 +317,12 @@ def gradient_reason(terms, phi: MeshField) -> Optional[str]:
     CUDA, naming the ROADMAP item; ``None`` when it can: any term list the
     stepper takes (K4, K3 or K3', K5), on a 3D field whose axes K4 folds."""
     terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)
-    if phi.ndim != 3 or min(phi.shape) < v2.GHOST + 1:
+    if phi.ndim == 2:
+        return v2.GRADIENT_2D
+    if min(phi.shape) < v2.GHOST + 1:
         return ("a gradient through the fused stage on an axis of fewer than "
-                f"{v2.GHOST + 1} nodes (the 2D embedding's dummy axis) is not ported to "
-                "CUDA yet (ROADMAP.md queue 2, 2D gradient (K4 length-1 axis))")
+                f"{v2.GHOST + 1} nodes is not ported to CUDA yet (ROADMAP.md queue 2, 2D "
+                "gradient (K4 length-1 axis))")
     return _terms_reason(terms, phi) or v2.gradient_reason(
         tuple(term_entry(t, phi) for t in terms))
 
@@ -326,27 +352,21 @@ class FusedStepper:
             raise NotImplementedError(reason)
         self.terms = terms
         self.grid = phi.grid
-        self.field_bcs = phi.bcs  # the field's own (the CFL bound's)
-        self.is2d = phi.ndim == 2
         self.dtype, self.device = phi.dtype, phi.device
         self.stages = _STAGES[type(integrator)]
         #: whether a term refreshes itself (``step_with_terms``, ``cfl_with_terms``)
         self.has_update = any(getattr(t, "update_func", None) is not None for t in terms)
-        self.entries = term_entries(terms, phi)
-        if self.is2d:  # the kernels' view: (1, n0, n1)
-            self.shape, self.bcs, self.spacing, self.lo = embed_2d(phi)
-        else:
-            self.shape, self.bcs = tuple(phi.shape), phi.bcs
-            self.spacing = tuple(float(h) for h in phi.spacing)
-            self.lo = tuple(float(x) for x in phi.grid.lo)
+        self.entries = term_entries(terms, phi, embed=False)
+        self.shape, self.bcs = tuple(phi.shape), phi.bcs  # a 2D field's buffer: (n0+6, n1+6)
+        self.spacing = tuple(float(h) for h in phi.spacing)
+        self.lo = tuple(float(x) for x in phi.grid.lo)
         self._stage_route = v2.stage_route(self.entries, self.shape)
 
     def pack(self, values: torch.Tensor) -> torch.Tensor:
-        return v2.pack_padded(values[None] if self.is2d else values, self.bcs)
+        return v2.pack_padded(values, self.bcs)
 
     def unpack(self, padded: torch.Tensor) -> torch.Tensor:
-        out = v2.unpack_padded(padded, self.shape)
-        return out[0] if self.is2d else out
+        return v2.unpack_padded(padded, self.shape)
 
     @property
     def routes(self):
@@ -363,7 +383,8 @@ class FusedStepper:
         :func:`~lsm_tpu_torch.ops.weno_v2.stage_route`): ``"K1 march"``,
         ``"K1'' march"``, ``"K1'' per node"``, ``"K1' march R=3"``,
         ``"K1' march R=2"`` or ``"K1' per node"`` (a program coefficient in
-        a term list)."""
+        a term list); on a 2D field ``"K1 2D march"``, ``"K1'' 2D march"``,
+        ``"K1'' 2D per node"`` or ``"K1' 2D per node"``."""
         return self._stage_route
 
     def stage_terms(self, t, entries=None):
@@ -374,7 +395,8 @@ class FusedStepper:
         if all(spec.coef_kind != "analytic" for spec, _ in entries):
             return entries
         xs = v2.node_coords(self.shape, self.spacing, self.lo, self.dtype, self.device)
-        return v2.resolve_terms(entries, xs, t, self.shape, self.dtype, self.device)
+        return v2.resolve_terms(entries, xs, t, self.shape, self.dtype, self.device,
+                                velocity=len(self.shape))
 
     def stage(self, P, coeffs, t_stage, aux, coeff_values=None, t_value=None, entries=None):
         """One stage: K1 into a fresh buffer, then K2 on its shells; through
@@ -408,7 +430,7 @@ class FusedStepper:
         return cur
 
     def _field(self, P) -> MeshField:
-        return MeshField(self.unpack(P), self.grid, self.field_bcs, _normalized=True)
+        return MeshField(self.unpack(P), self.grid, self.bcs, _normalized=True)
 
     def step_with_terms(self, P: torch.Tensor, t, dt, terms, dt_value=None):
         """One accepted step for ``update_func`` terms: before each stage the
@@ -422,7 +444,7 @@ class FusedStepper:
             t_stage = t + off * dt
             field = self._field(cur)
             terms = update_terms(terms, field, t_stage)
-            entries = term_entries(terms, field)
+            entries = term_entries(terms, field, embed=False)
             cur = self.stage(cur, (alpha, beta, g * dt), t_stage, None if s == 0 else P,
                              coeff_values=(alpha, beta, g * dtv), t_value=tv + off * dtv,
                              entries=entries)

@@ -147,10 +147,9 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
 
 
 def _fused_rollout(integrator, terms, phi, t0, dt, nsteps, remat, remat_chunk):
-    """The fused stepper's rollout; on CUDA a gradient it cannot run (the
-    2D embedding's) is refused before any stage runs (a callable that closes
-    over a parameter reaches K4 in the backward, which refuses the
-    embedding's length-1 axis)."""
+    """The fused stepper's rollout; on CUDA a gradient it cannot run (a 2D
+    field's: K3, K4 and K5 have no 2D entry) is refused before any stage
+    runs."""
     stepper = FusedStepper(terms, phi, integrator)
     if phi.values.is_cuda and _needs_grad(stepper, phi, t0, dt):
         why = gradient_reason(terms, phi)

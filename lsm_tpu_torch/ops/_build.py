@@ -102,8 +102,11 @@ def compile_library(out: Path, nvcc: str) -> str:
 class Library:
     """The loaded kernel library: ``stage_f32/f64``, ``stage_prog_f32/f64``
     and ``stage_terms_f32/f64`` (K1: advection-only streamed and program
-    entries, term-list entry), ``refresh_f32/f64`` (K2) and
-    ``refresh_axis_f32/f64`` (its single-axis entry), ``shell_blocks_f32/f64``
+    entries, term-list entry), their 2D entries ``stage_2d``,
+    ``stage_prog_2d`` and ``stage_terms_2d`` (``_f32/_f64``; the last one
+    thread per node for any table), ``refresh_f32/f64`` (K2), its 2D
+    entry ``refresh_2d_f32/f64`` and ``refresh_axis_f32/f64`` (its
+    single-axis entry), ``shell_blocks_f32/f64``
     (K9),
     ``stage_bwd_f32/f64``, ``stage_bwd_prog_f32/f64`` and
     ``stage_bwd_scratch`` (K3, K3″), ``stage_bwd_terms_f32/f64`` and
@@ -143,6 +146,9 @@ class Library:
         band_terms_2d_args = [vp] * 5 + [i64] * 5 + [vp, vp]
         band_ghost_2d_args = [vp] + [i64] * 2 + [vp] * 4 + [vp]
         retube_2d_args = [vp] * 5 + [i64] * 7 + [vp]
+        ghost_2d_args = [vp] + [i64] * 2 + [vp] * 3 + [vp]
+        terms_2d_args = [vp] * 3 + [i64] * 2 + [vp, vp]
+        prog_2d_args = [vp] * 3 + [i64] * 2 + [vp] + [ci] * 2 + [vp]
         axis_args = [vp] + [i64] * 3 + [ci] + [vp] * 3 + [vp]
         shell_args = [vp] + [i64] * 3 + [vp] * 4 + [vp]
         names = {"stage": ("lsm_weno_stage", stage_args),
@@ -151,6 +157,10 @@ class Library:
                  "stage_terms": ("lsm_weno_stage_terms", terms_args),
                  "stage_prog": ("lsm_weno_stage_prog", prog_args),
                  "refresh": ("lsm_refresh_ghosts", ghost_args),
+                 "refresh_2d": ("lsm_refresh_ghosts_2d", ghost_2d_args),
+                 "stage_2d": ("lsm_weno_stage_2d", general_2d_args),
+                 "stage_prog_2d": ("lsm_weno_stage_prog_2d", prog_2d_args),
+                 "stage_terms_2d": ("lsm_weno_stage_terms_2d", terms_2d_args),
                  "refresh_axis": ("lsm_refresh_axis", axis_args),
                  "shell_blocks": ("lsm_shell_blocks", shell_args),
                  "stage_bwd": ("lsm_stage_bwd", bwd_args),

@@ -65,6 +65,7 @@ import torch.nn.functional as F
 
 from ..core.narrowband import band_mask_from_values, box_dilate
 from . import weno_v2 as v2
+from .weno_v2 import embedding_2d
 from ._build import load_library
 from ._launches import bump
 
@@ -247,41 +248,25 @@ def _check_tiles(shape, tiles):
 # -- the 2D band: the (1, n0, n1) embedding's term list on the 2D layout -------------
 
 
-def embedding_2d(spacing, where: Optional[v2.Where]):
-    """``(spacing, where)`` of the ``(1, n0, n1)`` embedding of a 2D band's
-    ``spacing`` and ``where`` (its last two coordinates): the dummy axis
-    takes the smallest spacing and coordinate 0, as
-    :func:`~lsm_tpu_torch.integrators.fused.embed_2d`. The kernels' term
-    table is built from these."""
-    h = tuple(float(x) for x in spacing)
-    w = where or v2.Where()
-    return (min(h), *h), v2.Where((0.0, *w.lo[-2:]), (0.0, *w.origin[-2:]), w.t, w.value)
-
-
 def dense_terms(terms, shape, spacing, where: Optional[v2.Where], like: torch.Tensor, dense):
     """A band stage's term list for the plain stencils, each stream through
     ``dense`` (tile-packed to grid-shaped). A 2D band's (the embedding's)
     becomes 2D: a program is evaluated at the embedding's nodes of
-    ``shape`` (its graph kept for a tensor ``where.t``) into a stream, an
-    advection term loses its zero component 0. Constant and
-    sign-recomputing terms pass through."""
+    ``shape`` (its graph kept for a tensor ``where.t``) into a stream
+    (:func:`~lsm_tpu_torch.ops.weno_v2.programs_2d`), an advection term
+    loses its zero component 0. Constant and sign-recomputing terms pass
+    through."""
     if len(shape) != 2:
         return tuple((spec, tuple(dense(a) for a in arrs)) for spec, arrs in terms)
-    spacing3, where3 = embedding_2d(spacing, where)
     out = []
     for spec, arrs in terms:
-        if spec.coef_kind == "program":
-            arrs = tuple(c[0] for c in v2.program_values(
-                spec, (1, *shape), spacing3, where3.lo, where3.t, like, where3.origin))
-        elif spec.coef_kind == "stream":
+        if spec.coef_kind == "stream":
             arrs = tuple(dense(a) for a in arrs)
-        else:
-            out.append((spec, tuple(arrs)))
-            continue
-        if spec.kind == "advection":
-            arrs = arrs[1:]
-        out.append((v2.TermSpec(spec.kind, "stream", None, len(arrs)), arrs))
-    return tuple(out)
+            if spec.kind == "advection":
+                arrs = arrs[1:]
+            spec = v2.TermSpec(spec.kind, "stream", None, len(arrs))
+        out.append((spec, tuple(arrs)))
+    return v2.programs_2d(out, shape, spacing, where, like)
 
 
 # -- K6: the active-tile stage ---------------------------------------------------------

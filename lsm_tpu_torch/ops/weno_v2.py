@@ -1,10 +1,13 @@
-"""Persistent padded layout and the two kernels of the fused 3D advection path
+"""Persistent padded layout and the two kernels of the fused advection path
 (port of :mod:`lsm_tpu.ops.weno_v2`).
 
 Layout: the level set lives in one ``(n0+6, n1+6, n2+6)`` buffer with 3 ghost
-layers on every axis (WENO5's reach). The TPU layout's 8-row sublane pad, its
-lane-roll view and its ``n2 % 128`` rule are TPU constraints and are not kept:
-every shell is stored, so a stage kernel reads plain neighbours.
+layers on every axis (WENO5's reach); a 2D field in its own ``(n0+6, n1+6)``
+buffer, the 2D band's layout (JAX runs a 2D field as the ``(1, n0, n1)``
+embedding, whose dummy axis stores six ghost copies of the plane). The TPU
+layout's 8-row sublane pad, its lane-roll view and its ``n2 % 128`` rule are
+TPU constraints and are not kept: every shell is stored, so a stage kernel
+reads plain neighbours.
 
 Kernels, each beside its plain torch version (used for CPU tensors, by the
 tests and by the on-card comparison in ``chip_smoke.py``):
@@ -17,12 +20,16 @@ tests and by the on-card comparison in ``chip_smoke.py``):
   per-node Hamiltonians are ``csrc/hamiltonians.cuh``, shared with K6. A
   coefficient is streamed, a constant, none (the recomputed eikonal sign)
   or a traced coordinate program (K1″, :mod:`.coef_program`), which the
-  kernel evaluates per node at ``lo + (origin + i)*h`` and time ``t``.
+  kernel evaluates per node at ``lo + (origin + i)*h`` and time ``t``. On a
+  2D field it computes the embedding's function on the 2D layout
+  (``csrc/weno_stage_2d.cu``): its term list is the 2D stage's (see
+  :func:`fused_stage`).
 - :func:`refresh_ghosts_fast` (K2, ``csrc/refresh_ghosts.cu``; plain
   :func:`refresh_ghosts_plain`) rewrites the ghost shells in place from the
   interior: axis 0, then axis 1, then axis 2, so corner ghosts equal
-  ``pad_ghost(values, bcs, 3)``; :func:`refresh_axis_fast` is one of those
-  three phases alone (plain :func:`refresh_axis_plain`).
+  ``pad_ghost(values, bcs, 3)`` (a 2D buffer's two axes in one launch);
+  :func:`refresh_axis_fast` is one of the three 3D phases alone (plain
+  :func:`refresh_axis_plain`).
 - :func:`fused_step_stage` is K1 + K2 as a ``torch.autograd.Function``
   whose backward runs K4, then K3 (one advection term) or K3' (any other
   term list), then K5 (:mod:`.weno_v2_bwd`).
@@ -31,11 +38,13 @@ A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises. Each counts its kernel launches in
 ``launches``; K1 also counts those of its term-list entry in
 ``kinds_launches`` and those with a program term (K1″) in
-``program_launches``.
+``program_launches``, K1 and K2 those of their 2D entries in
+``launches_2d``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional, Tuple
@@ -63,6 +72,8 @@ __all__ = [
     "refresh_ghosts_plain",
     "refresh_ghosts_fast",
     "refresh_axis_fast",
+    "embedding_2d",
+    "programs_2d",
     "node_coords",
     "stage_plain",
     "stage_reference",
@@ -121,6 +132,18 @@ def _check(x: torch.Tensor, name: str, shape, like: Optional[torch.Tensor] = Non
             f"{like.dtype} on {like.device}")
 
 
+def _on_card(x: torch.Tensor):
+    """``(context, stream)`` for a launch on ``x``'s card: a context that
+    makes the card current where it is not, and the raw handle of its
+    current stream (what torch's generated launchers read; a few
+    microseconds cheaper a call than ``torch.cuda.device`` and
+    ``current_stream``, which matters to a kernel of a few microseconds)."""
+    index = x.device.index
+    ctx = (contextlib.nullcontext() if index == torch.cuda.current_device()
+           else torch.cuda.device(index))
+    return ctx, torch._C._cuda_getCurrentRawStream(index)
+
+
 def _raise_on(code: int, lib, what: str):
     if code != 0:
         raise RuntimeError(f"{what} failed: CUDA error {code} ({lib.error_string(code)})")
@@ -176,9 +199,15 @@ def _ghost_args(bcs, shape):
     """Per axis and side: BC kind code, extrapolation degree, and the weights
     ``w[axis][side][k-1][j]`` of node ``j`` (from the boundary inward) for the
     ghost at distance ``k``, computed in float64 on the host. An axis of
-    ``n`` nodes takes ``Extrapolation(d)`` for ``d + 1 <= n`` (so the 2D
-    embedding's one-node axis takes ``Extrapolation(0)``: its ghosts are
-    copies of the node), Periodic and Symmetry for ``n >= 4``."""
+    ``n`` nodes takes ``Extrapolation(d)`` for ``d + 1 <= n`` (so a one-node
+    axis takes ``Extrapolation(0)``: its ghosts are copies of the node),
+    Periodic and Symmetry for ``n >= 4``. Cached per BCs and shape (the
+    arrays are read, never written, by the launches)."""
+    return _ghost_args_of(tuple(tuple(pair) for pair in bcs), tuple(int(n) for n in shape))
+
+
+@functools.lru_cache(maxsize=64)
+def _ghost_args_of(bcs, shape):
     kinds = (ctypes.c_int * 6)()
     degrees = (ctypes.c_int * 6)()
     weights = (ctypes.c_double * (6 * GHOST * (_MAX_DEGREE + 1)))()
@@ -208,31 +237,38 @@ def _ghost_args(bcs, shape):
 
 
 def refresh_ghosts_fast(padded: torch.Tensor, bcs, shape) -> torch.Tensor:
-    """K2: refresh the ghost shells of a padded 3D buffer in place.
+    """K2: refresh the ghost shells of a padded 3D or 2D buffer in place.
 
     Replaces ``lsm_tpu.ops.weno_v2.refresh_ghosts_fast``. CUDA tensors go to
-    ``csrc/refresh_ghosts.cu`` (three launches: axis 0, 1, 2), CPU tensors to
-    :func:`refresh_ghosts_plain`. Returns ``padded``.
+    ``csrc/refresh_ghosts.cu`` (3D: three launches, axis 0, 1, 2; 2D: one
+    launch, whose corner ghosts recompute the axis-0 values they read, bit
+    for bit ``pad_ghost``'s), CPU tensors to :func:`refresh_ghosts_plain`.
+    Returns ``padded``.
     """
     shape = tuple(shape)
-    if len(shape) != 3:
-        raise ValueError(f"the ghost refresh is 3D only, got shape {shape}")
+    if len(shape) not in (2, 3):
+        raise ValueError(f"the ghost refresh takes a 3D or 2D shape, got {shape}")
     _check(padded, "padded", padded_shape(shape))
     kinds, degrees, weights = _ghost_args(bcs, shape)
     if padded.device.type == "cpu":
         return refresh_ghosts_plain(padded, bcs, shape)
     lib = load_library()
-    fn = lib.refresh_f32 if padded.dtype == torch.float32 else lib.refresh_f64
-    with torch.cuda.device(padded.device):
+    f32 = padded.dtype == torch.float32
+    if len(shape) == 3:
+        fn = lib.refresh_f32 if f32 else lib.refresh_f64
+    else:
+        fn = lib.refresh_2d_f32 if f32 else lib.refresh_2d_f64
+    ctx, stream = _on_card(padded)
+    with ctx:
         code = fn(padded.data_ptr(), *shape, ctypes.addressof(kinds),
-                  ctypes.addressof(degrees), ctypes.addressof(weights),
-                  torch.cuda.current_stream().cuda_stream)
+                  ctypes.addressof(degrees), ctypes.addressof(weights), stream)
     _raise_on(code, lib, "refresh_ghosts kernel")
-    bump(refresh_ghosts_fast, launches=1)
+    bump(refresh_ghosts_fast, launches=1, launches_2d=len(shape) == 2)
     return padded
 
 
 refresh_ghosts_fast.launches = 0
+refresh_ghosts_fast.launches_2d = 0  # of the launches, those of the 2D entry
 
 
 def refresh_axis_fast(padded: torch.Tensor, bcs, shape, ax: int) -> torch.Tensor:
@@ -321,10 +357,11 @@ def n_components(kind: str) -> int:
 
 def as_terms(terms):
     """A stage's term list as ``((TermSpec, streams), ...)``; three tensors
-    stand for one streamed advection term."""
+    (two on a 2D field) stand for one streamed advection term."""
     terms = tuple(terms)
-    if len(terms) == 3 and all(isinstance(x, torch.Tensor) for x in terms):
-        return ((ADVECTION, terms),)
+    if len(terms) in (2, 3) and all(isinstance(x, torch.Tensor) for x in terms):
+        return ((ADVECTION if len(terms) == 3 else TermSpec("advection", "stream", None, 2),
+                 terms),)
     return tuple((spec, tuple(arrs)) for spec, arrs in terms)
 
 
@@ -379,13 +416,15 @@ def eval_components(value, shape, dtype, device, k=3) -> Tuple[torch.Tensor, ...
         for c in comps)
 
 
-def resolve_terms(terms, xs, t, shape, dtype, device):
+def resolve_terms(terms, xs, t, shape, dtype, device, velocity=3):
     """The term list with every analytic coefficient evaluated at the
-    coordinates ``xs`` and time ``t`` into streamed tensors of ``shape``."""
+    coordinates ``xs`` and time ``t`` into streamed tensors of ``shape`` (an
+    advection velocity of ``velocity`` components: 2 on the dense 2D
+    stage)."""
     out = []
     for spec, arrs in terms:
         if spec.coef_kind == "analytic":
-            k = 3 if spec.kind == "advection" else 1
+            k = velocity if spec.kind == "advection" else 1
             comps = eval_components(spec.coef_static(xs, t), shape, dtype, device, k)
             out.append((TermSpec(spec.kind, "stream", None, k), comps))
         else:
@@ -461,6 +500,38 @@ class Where:
         return Where(self.lo, self.origin, t, self.value)
 
 
+def embedding_2d(spacing, where: Optional[Where]):
+    """``(spacing, where)`` of the ``(1, n0, n1)`` embedding of a 2D
+    stage's ``spacing`` and ``where`` (its last two coordinates): the dummy
+    axis takes the smallest spacing and coordinate 0, as JAX's embedding
+    with the field's smallest spacing (see
+    :func:`~lsm_tpu_torch.integrators.fused.embed_2d`). The 2D kernels' term
+    table is built from these."""
+    h = tuple(float(x) for x in spacing)
+    w = where or Where()
+    return (min(h), *h), Where((0.0, *w.lo[-2:]), (0.0, *w.origin[-2:]), w.t, w.value)
+
+
+def programs_2d(terms, shape, spacing, where: Optional[Where], like: torch.Tensor):
+    """A 2D stage's term list with each program term (the embedding's, of
+    the three embedding coordinates) evaluated at the embedding's nodes of
+    ``shape`` into 2D streams, its graph kept for a tensor ``where.t``; an
+    advection program loses the embedding's zero component 0. The other
+    terms pass through. The plain 2D stage runs on this list."""
+    out, spacing3, where3 = [], None, None
+    for spec, arrs in terms:
+        if spec.coef_kind == "program":
+            if where3 is None:
+                spacing3, where3 = embedding_2d(spacing, where)
+            arrs = tuple(c[0] for c in program_values(
+                spec, (1, *shape), spacing3, where3.lo, where3.t, like, where3.origin))
+            if spec.kind == "advection":
+                arrs = arrs[1:]
+            spec = TermSpec(spec.kind, "stream", None, len(arrs))
+        out.append((spec, arrs))
+    return tuple(out)
+
+
 def _coef_values(spec: TermSpec, arrs, like: torch.Tensor, spacing=None, shape=None,
                  where: Optional[Where] = None):
     if spec.coef_kind == "stream":
@@ -479,8 +550,11 @@ def _stage_interior(P, terms, coeffs, aux, spacing, shape, where: Optional[Where
     """``alpha*aux + beta*phi - gamma*sum_n H_n`` on the interior, with the
     arithmetic order of the JAX oracle; the coefficients are numbers or 0-d
     tensors, ``terms`` a normalised list without analytic coefficients
-    (program terms are evaluated at ``where``)."""
+    (program terms are evaluated at ``where``; a 2D stage's by
+    :func:`programs_2d`)."""
     alpha, beta, gamma = coeffs
+    if len(shape) == 2:
+        terms = programs_2d(terms, shape, spacing, where, P)
     center = st.shift(P, (0,) * len(shape), GHOST, shape)
     ham = 0.0
     for spec, arrs in terms:
@@ -519,10 +593,11 @@ def stage_reference(padded, term_specs_and_streams, coeffs, t, aux_padded, bcs,
                            Where(lo, origin, t))
 
 
-def check_terms(terms, P, stream_shape, name="terms"):
+def check_terms(terms, P, stream_shape, name="terms", velocity=3):
     """Validate a normalised term list for the kernels: known kinds, a
     coefficient kind each kind takes, streams of ``stream_shape`` like
-    ``P``, programs of the kind's component count, at most
+    ``P`` (``velocity`` of them for a streamed advection term: 2 on the
+    dense 2D stage), programs of the kind's component count, at most
     :data:`MAX_TERMS` entries."""
     if not 1 <= len(terms) <= MAX_TERMS:
         raise ValueError(f"the stage kernels take 1 to {MAX_TERMS} terms, got {len(terms)}")
@@ -541,7 +616,8 @@ def check_terms(terms, P, stream_shape, name="terms"):
                 or len(spec.coef_static.components) != n_components(spec.kind)):
             raise ValueError(f"term {n} ({spec.kind}) needs a Program of "
                              f"{n_components(spec.kind)} components")
-        want = n_components(spec.kind) if spec.coef_kind == "stream" else 0
+        want = 0 if spec.coef_kind != "stream" else (
+            velocity if spec.kind == "advection" else 1)
         if len(arrs) != want:
             raise ValueError(f"term {n} ({spec.kind}) needs {want} streams, got {len(arrs)}")
         for d, a in enumerate(arrs):
@@ -793,19 +869,50 @@ def stage_route(terms, shape) -> str:
       without (ENO2 and the curvature reach 2); on the embedding axis 0 is
       compiled out;
     - ``"K1' per node"``: a list with a program coefficient (its
-      interpreter runs per node; in the march it measured slower).
+      interpreter runs per node; in the march it measured slower);
+    - on a 2D ``shape`` the 2D entries (``csrc/weno_stage_2d.cu``): ``"K1
+      2D march"`` (one streamed advection term), ``"K1'' 2D march"`` (a
+      velocity program each of whose components reads one axis or none:
+      once per column or once per row), ``"K1'' 2D per node"`` (one that
+      reads both) and ``"K1' 2D per node"`` (any other list), the last two
+      one thread per node.
     """
     specs = [spec for spec, _ in terms]
-    if len(specs) == 1 and specs[0].kind == "advection" and specs[0].route in ("stream",
-                                                                               "program"):
+    adv = any(spec.kind == "advection" for spec in specs)
+    advection_only = len(specs) == 1 and specs[0].kind == "advection" and \
+        specs[0].route in ("stream", "program")
+    if len(shape) == 2:
+        if not advection_only:
+            return "K1' 2D per node"
+        if specs[0].route == "stream":
+            return "K1 2D march"
+        per_node = any(a & 6 == 6 for a in specs[0].coef_static.axes[1:])
+        return "K1'' 2D per node" if per_node else "K1'' 2D march"
+    if advection_only:
         if specs[0].route == "stream":
             return "K1 march"
         per_node = shape[0] == 1 or any(a & 1 and a != 1 for a in specs[0].coef_static.axes)
         return "K1'' per node" if per_node else "K1'' march"
     if any(spec.coef_kind == "program" for spec in specs):
         return "K1' per node"
-    return "K1' march R=3" if any(spec.kind == "advection" for spec in specs) else \
-        "K1' march R=2"
+    return "K1' march R=3" if adv else "K1' march R=2"
+
+
+def _checked_stage(P, terms, aux, spacing, shape):
+    """``(terms, shape)`` of a fused stage's arguments, normalised and
+    checked (``ValueError``/``TypeError`` on a mismatch)."""
+    shape = tuple(shape)
+    if len(shape) not in (2, 3) or len(spacing) != len(shape):
+        raise ValueError("the fused stage takes a 3D or 2D shape and one spacing per axis")
+    terms = tuple(terms)
+    if all(isinstance(x, torch.Tensor) for x in terms) and len(terms) != len(shape):
+        raise ValueError(f"the fused stage's velocity needs {len(shape)} components")
+    terms = as_terms(terms)
+    _check(P, "P", padded_shape(shape))
+    check_terms(terms, P, shape, velocity=len(shape))
+    if aux is not None:
+        _check(aux, "aux", padded_shape(shape), like=P)
+    return terms, shape
 
 
 def fused_stage(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
@@ -826,26 +933,25 @@ def fused_stage(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
     Replaces ``lsm_tpu.ops.weno_v2.fused_stage`` (a callable that did not
     trace is evaluated into streams first, :func:`resolve_terms`). CUDA
     tensors go to ``csrc/weno_stage.cu``, to the kernel :func:`stage_route`
-    names; CPU tensors to :func:`stage_plain`. With ``shape[0] == 1`` (the
-    2D embedding) the marches (K1, K1′) and K1″'s per-node kernel compile
-    axis 0 out and take every axis-0 difference as zero: ``P``'s axis-0
-    ghosts must copy its one plane, as :func:`pack_padded` and
+    names; CPU tensors to :func:`stage_plain`. With ``shape[0] == 1`` (a 3D
+    field of one plane) the marches (K1, K1′) and K1″'s per-node kernel
+    compile axis 0 out and take every axis-0 difference as zero: ``P``'s
+    axis-0 ghosts must copy its one plane, as :func:`pack_padded` and
     :func:`refresh_ghosts_fast` leave them under every boundary condition a
     one-node axis admits; on other ghosts the card drops a term that
     :func:`stage_plain` keeps (K1′'s per-node kernel, for a program
     coefficient, reads them).
+
+    A 2D ``shape`` (``P`` of ``(n0+6, n1+6)``, ``spacing`` and ``where`` the
+    field's) computes the function of JAX's ``(1, n0, n1)`` embedding, as
+    the 2D band does: an advection term streams the field's two velocity
+    components (or takes two tensors), a program is the embedding's (traced
+    on the three embedding coordinates, the first the dummy axis at
+    coordinate 0 and the field's smallest spacing, :func:`embedding_2d`).
+    CUDA tensors go to ``csrc/weno_stage_2d.cu``, CPU tensors to the plain
+    2D stage (:func:`programs_2d`, then the 2D stencils).
     """
-    shape = tuple(shape)
-    if len(shape) != 3 or len(spacing) != 3:
-        raise ValueError("the fused stage is 3D only: shape and spacing need 3 entries")
-    terms = tuple(terms)
-    if all(isinstance(x, torch.Tensor) for x in terms) and len(terms) != 3:
-        raise ValueError("the fused stage is 3D only: u needs 3 entries")
-    terms = as_terms(terms)
-    _check(P, "P", padded_shape(shape))
-    check_terms(terms, P, shape)
-    if aux is not None:
-        _check(aux, "aux", padded_shape(shape), like=P)
+    terms, shape = _checked_stage(P, terms, aux, spacing, shape)
     where = where or Where()
     if P.device.type == "cpu":
         return stage_plain(P, terms, coeffs, aux, spacing, shape, where)
@@ -853,9 +959,11 @@ def fused_stage(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
     f32 = P.dtype == torch.float32
     out = torch.empty_like(P)
     aux_ptr = None if aux is None else aux.data_ptr()
-    with torch.cuda.device(P.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if is_advection_only(terms) and terms[0][0].coef_kind == "stream":
+    ctx, stream = _on_card(P)
+    with ctx:
+        if len(shape) == 2:
+            code = _stage_2d(lib, P, aux_ptr, out, terms, coeffs, spacing, shape, where, stream)
+        elif is_advection_only(terms) and terms[0][0].coef_kind == "stream":
             u = terms[0][1]
             alpha, beta, gamma = (float(c) for c in coeffs)
             code = (lib.stage_f32 if f32 else lib.stage_f64)(
@@ -872,13 +980,74 @@ def fused_stage(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
                 code = (lib.stage_terms_f32 if f32 else lib.stage_terms_f64)(*args, stream)
     _raise_on(code, lib, "weno_stage kernel")
     bump(fused_stage, launches=1, kinds_launches=not is_advection_only(terms),
-         program_launches=any(spec.coef_kind == "program" for spec, _ in terms))
+         program_launches=any(spec.coef_kind == "program" for spec, _ in terms),
+         launches_2d=len(shape) == 2)
     return out
 
 
 fused_stage.launches = 0
 fused_stage.kinds_launches = 0  # of the launches, those of the term-list entry
 fused_stage.program_launches = 0  # of the launches, those with a program term (K1″)
+fused_stage.launches_2d = 0  # of the launches, those of the 2D entries
+
+
+def _table_2d(terms, coeffs, spacing, shape, where, P) -> StageTerms:
+    """The embedding's term table of a 2D stage: its spacing and
+    coordinates (:func:`embedding_2d`), programs over ``(1, n0, n1)``; an
+    advection term's component 0 (the embedding's zero, which the 2D
+    kernels never read) takes component 1's pointer."""
+    spacing3, where3 = embedding_2d(spacing, where)
+    terms3 = tuple((spec, (arrs[0], *arrs)) if spec.kind == "advection" and spec.coef_kind ==
+                   "stream" else (spec, arrs) for spec, arrs in terms)
+    return stage_table(terms3, spacing3, coeffs, where3, (1, *shape), P)
+
+
+def _stage_2d(lib, P, aux_ptr, out, terms, coeffs, spacing, shape, where, stream,
+              per_node=False):
+    """Launch K1's 2D entry for a checked term list; returns the CUDA error
+    code. ``per_node`` takes the per-node form (the term-list entry, one
+    thread per node) for any list, as :func:`fused_stage_2d_per_node`."""
+    f32 = P.dtype == torch.float32
+    if not per_node and is_advection_only(terms) and terms[0][0].coef_kind == "stream":
+        u = terms[0][1]
+        alpha, beta, gamma = (float(c) for c in coeffs)
+        return (lib.stage_2d_f32 if f32 else lib.stage_2d_f64)(
+            P.data_ptr(), u[0].data_ptr(), u[1].data_ptr(), aux_ptr, out.data_ptr(), *shape,
+            *(1.0 / float(h) for h in spacing), alpha, beta, gamma, stream)
+    tab = _table_2d(terms, coeffs, spacing, shape, where, P)
+    args = (P.data_ptr(), aux_ptr, out.data_ptr(), *shape, ctypes.addressof(tab))
+    if not per_node and is_advection_only(terms):  # the axes each component reads
+        axes = terms[0][0].coef_static.axes
+        return (lib.stage_prog_2d_f32 if f32 else lib.stage_prog_2d_f64)(
+            *args, axes[1], axes[2], stream)
+    return (lib.stage_terms_2d_f32 if f32 else lib.stage_terms_2d_f64)(*args, stream)
+
+
+def fused_stage_2d_per_node(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Tensor],
+                            spacing, shape, where: Optional[Where] = None) -> torch.Tensor:
+    """K1's 2D stage in its per-node form: one thread per node reading its
+    stencils from device memory, K6's 2D function on the dense grid
+    (``csrc/weno_stage_2d.cu`` ``stage_node_2d_kernel``), for any term list
+    :func:`fused_stage` takes on a 2D ``shape``. :func:`fused_stage` takes
+    this kernel for a term list (:func:`stage_route` "K1' 2D per node"); for
+    the other entries it is the comparison beside their kernels. CUDA
+    tensors only (the plain version is :func:`stage_plain`); counted in its
+    own ``launches``."""
+    if len(tuple(shape)) != 2 or P.device.type != "cuda":
+        raise ValueError("the per-node 2D stage takes a 2D shape and CUDA tensors")
+    terms, shape = _checked_stage(P, terms, aux, spacing, shape)
+    lib = load_library()
+    out = torch.empty_like(P)
+    ctx, stream = _on_card(P)
+    with ctx:
+        code = _stage_2d(lib, P, None if aux is None else aux.data_ptr(), out, terms, coeffs,
+                         spacing, shape, where or Where(), stream, per_node=True)
+    _raise_on(code, lib, "weno_stage per-node 2D kernel")
+    bump(fused_stage_2d_per_node, launches=1)
+    return out
+
+
+fused_stage_2d_per_node.launches = 0
 
 
 # -- the differentiable stage --------------------------------------------------------
@@ -894,6 +1063,12 @@ def stage_refresh_plain(P, terms, coeffs, aux, bcs, spacing, shape,
     backward."""
     return pack_padded(_stage_interior(P, as_terms(terms), coeffs, aux, spacing, shape, where),
                        bcs)
+
+
+#: why a gradient through a dense 2D stage does not run on CUDA
+GRADIENT_2D = ("a gradient through the fused stage of a 2D field (its (n0+6, n1+6) layout: K3, "
+               "K4 and K5 have no 2D entry) is not ported to CUDA yet (ROADMAP.md queue 2, "
+               "2D gradient (K4 length-1 axis))")
 
 
 def gradient_reason(terms) -> Optional[str]:
@@ -996,11 +1171,16 @@ def fused_step_stage(P: torch.Tensor, terms, coeffs, aux, bcs, spacing, shape,
     cotangent included), then K5. ``refresh=False`` leaves the ghost shells
     to the caller: the forward is K1 alone, and the backward takes the
     output's cotangent as already folded (no K4).
+
+    A 2D stage (``shape`` of two entries) that needs a gradient runs as
+    autograd of :func:`stage_refresh_plain` on the CPU, as the 2D band's
+    backward does; on CUDA it raises ``NotImplementedError`` (K3, K4 and K5
+    have no 2D entry yet).
     """
     shape = tuple(shape)
     terms = tuple(terms)
-    if all(isinstance(x, torch.Tensor) for x in terms) and len(terms) != 3:
-        raise ValueError("the fused stage is 3D only: u needs 3 entries")
+    if all(isinstance(x, torch.Tensor) for x in terms) and len(terms) != len(shape):
+        raise ValueError(f"the fused stage's velocity needs {len(shape)} components")
     terms = as_terms(terms)
     values = tuple(float(c.detach()) if isinstance(c, torch.Tensor) else float(c)
                    for c in (coeffs if coeff_values is None else coeff_values))
@@ -1012,6 +1192,10 @@ def fused_step_stage(P: torch.Tensor, terms, coeffs, aux, bcs, spacing, shape,
             isinstance(x, torch.Tensor) and x.requires_grad for x in tensors)):
         out = fused_stage(P, terms, values, aux, spacing, shape, where)
         return refresh_ghosts_fast(out, bcs, shape) if refresh else out
+    if len(shape) == 2:
+        if P.device.type != "cpu" or not refresh:
+            raise NotImplementedError(GRADIENT_2D)
+        return stage_refresh_plain(P, terms, coeffs, aux, bcs, spacing, shape, where)
     statics = (tuple(spec for spec, _ in terms), tuple(len(arrs) for _, arrs in terms), bcs,
                tuple(spacing), shape, values, where.at(where.value), refresh)
     return _FusedStepStage.apply(P, aux, *coeffs, t, statics, *streams)

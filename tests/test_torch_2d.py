@@ -1,8 +1,9 @@
 """2D fields in the port against the JAX package, on the CPU in float64: the
 canonical configurations 1 to 4 (``models.benchmarks``; 2 to 4 through the
-fused stepper's ``(1, n0, n1)`` embedding, 1 through the general path), the
-ghost refresh (K2's plain version) on the embedding's length-1 axis, the 2D
-shapes and velocities, the CFL bound, and gradients through the embedding.
+fused stepper on its ``(n0+6, n1+6)`` layout, which computes the function of
+JAX's ``(1, n0, n1)`` embedding, 1 through the general path), the ghost
+refresh (K2's plain version) on a 3D field's length-1 axis, the 2D shapes
+and velocities, the CFL bound, and gradients through the 2D stepper.
 """
 
 import jax
@@ -55,8 +56,8 @@ TF = {1: 0.2, 2: 0.01, 3: 0.02, 4: 0.06}
 
 @pytest.mark.parametrize("cfg", [1, 2, 3, 4])
 def test_config_matches_jax_general_path(cfg):
-    """The port (configs 2-4 through the embedded fused stepper on the
-    kernels' plain versions, config 1 through the general path) against JAX's
+    """The port (configs 2-4 through the 2D fused stepper on the kernels'
+    plain versions, config 1 through the general path) against JAX's
     general path, equal step counts, float64."""
     jeq, teq = _build(cfg, 32)
     jsteps = []
@@ -81,14 +82,16 @@ def test_config2_matches_jax_embedded_pallas_interpret():
 
 
 def test_config4_cfl_is_the_2d_bound():
-    """The embedded stepper's CFL bound is taken on the 2D field and terms,
-    not on the embedding's spacing."""
+    """The 2D stepper's CFL bound is taken on the 2D field and terms; the
+    stepper keeps the field's own shape, spacing and boundary conditions
+    (no embedding's dummy axis)."""
     jeq, teq = _build(4, 40)
     stepper = tfused.FusedStepper(teq.terms, teq.state, teq.integrator)
     got = float(stepper.cfl(stepper.pack(teq.state.values), 0.0))
     want = float(J.compute_cfl(jeq.terms, jeq.state, 0.0))
     assert got == pytest.approx(want, rel=1e-15)
-    assert stepper.spacing == (min(teq.grid.spacing), *teq.grid.spacing)
+    assert stepper.spacing == tuple(teq.grid.spacing) and stepper.shape == (40, 40)
+    assert stepper.bcs == teq.state.bcs
 
 
 def _bcs2():
@@ -166,8 +169,9 @@ def test_shapes_match_jax():
 
 def test_embedding_keeps_the_eikonal_smoothing_spacing():
     """The recomputed eikonal sign smooths with ``min(spacing)``: on a grid
-    whose spacing exceeds 1 the embedded stepper still matches the 2D
-    general path (a dummy spacing of 1 would not)."""
+    whose spacing exceeds 1 the 2D stepper (the embedding's function, its
+    dummy axis at the field's smallest spacing) still matches the 2D general
+    path (a dummy spacing of 1 would not)."""
     grid = T.Grid((0.0, 0.0), (40.0, 40.0), (21, 21))
     phi = T.sample(lambda x, y: 0.3 * ((x - 20.0) ** 2 + (y - 18.0) ** 2 - 100.0) / 10.0,
                    grid, T.Extrapolation(1), dtype=torch.float64, device="cpu")
@@ -184,8 +188,9 @@ def test_embedding_keeps_the_eikonal_smoothing_spacing():
 
 @pytest.mark.parametrize("velocity", ["stream", "callable"])
 def test_rollout_gradient_through_the_embedding_matches_jax(velocity):
-    """On the CPU autograd runs through the embedded stepper (K4/K3/K5's
-    plain versions) as for 3D; against ``jax.grad`` of JAX's general path."""
+    """On the CPU autograd runs through the 2D stepper (autograd of the
+    plain 2D stage and refresh, as the 2D band's backward); against
+    ``jax.grad`` of JAX's general path."""
     shape = (20, 24)
     args = ((0.0, 0.0), (1.0, 1.0), shape)
     rng = np.random.default_rng(9)

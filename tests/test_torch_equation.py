@@ -246,7 +246,7 @@ def test_unsupported_configurations_raise_on_the_cuda_route():
         eq = T.LevelSetEquation(terms=terms, ic=phi)
         assert eq._cuda_stepper(kw.get("hooks", False), kw.get("fast", "auto")) is None
     stepper = T.LevelSetEquation(terms=T.AdvectionTerm(vel2), ic=phi2)._cuda_stepper(False, "auto")
-    assert isinstance(stepper, tfused.FusedStepper) and stepper.shape == (1, 8, 8)
+    assert isinstance(stepper, tfused.FusedStepper) and stepper.shape == (8, 8)
     eq = T.LevelSetEquation(terms=T.AdvectionTerm(_velf, update_func=lambda v, p, t: v), ic=tphi)
     stepper = eq._cuda_stepper(False, "auto")  # update_func: the fused stepper
     assert isinstance(stepper, tfused.FusedStepper) and stepper.has_update

@@ -188,7 +188,7 @@ def test_cuda_route_table():
     assert route(adv, tnb, hooks=True) is None
     assert isinstance(route(adv, tnb), T.integrators.band_fused.FusedBandStepper)
     stepper = route(T.AdvectionTerm(vel2), phi2)
-    assert isinstance(stepper, tfused.FusedStepper) and stepper.shape == (1, 16, 16)
+    assert isinstance(stepper, tfused.FusedStepper) and stepper.shape == (16, 16)
     upd = T.AdvectionTerm(_velf, update_func=lambda v, p, t: v)
     assert isinstance(route(upd, tphi), tfused.FusedStepper)
     assert route(upd, tnb) is None

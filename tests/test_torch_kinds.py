@@ -401,7 +401,7 @@ def test_cuda_refusals_name_their_roadmap_items():
     g2 = T.Grid((0.0, 0.0), (1.0, 1.0), (8, 8))
     phi2 = T.sample(tshapes.circle((0.5, 0.5), 0.2), g2, T.Periodic(), dtype=torch.float64,
                     device="cpu")
-    assert tfused.unsupported_reason(kinds, phi2, T.RK3()) is None  # the 2D embedding
+    assert tfused.unsupported_reason(kinds, phi2, T.RK3()) is None  # a 2D field
     assert isinstance(T.LevelSetEquation(terms=kinds, ic=phi2)._cuda_stepper(False, "auto"),
                       tfused.FusedStepper)
     eq = T.LevelSetEquation(terms=kinds, ic=tphi)
@@ -449,14 +449,18 @@ def _route_case(name):
     if name == "vortex":  # advection only, a component that reads axes 0 and 1
         return (T.AdvectionTerm(lambda xs, t: (xs[1] * xs[0], -xs[0], 0.0 * xs[2])),), torus()
     eq = T.models.benchmarks.config2_zalesak(16, dtype=torch.float64, device="cpu")  # D2
+    if name == "D2_untraced":  # a 2D velocity that captures a tensor: it does not trace
+        one = torch.ones((), dtype=torch.float64)
+        return (T.AdvectionTerm(lambda xs, t: (one * (0.5 - xs[1]), one * (xs[0] - 0.5))),), \
+            eq.state
     return eq.terms, eq.state
 
 
 ROUTES = {"A": "K1' march R=2", "B_frozen": "K1' march R=2", "B_none": "K1' march R=2",
-          "D4": "K1' march R=2", "kinds_grad": "K1' march R=2",
+          "D4": "K1' 2D per node", "kinds_grad": "K1' march R=2",
           "advection_curvature": "K1' march R=3", "program_table": "K1' per node",
           "program_axis1": "K1' per node", "rotation": "K1'' march", "vortex": "K1'' per node",
-          "streamed": "K1 march", "D2": "K1'' per node"}
+          "streamed": "K1 march", "D2": "K1'' 2D march", "D2_untraced": "K1 2D march"}
 
 
 @pytest.mark.parametrize("name", list(ROUTES))
@@ -465,8 +469,12 @@ def test_stage_route(name):
     decides and the stepper reports it: K1''s march with reach 2 (no advection
     term) or 3, or one thread per node for a table with a program
     coefficient; K1'' per node for a velocity component that reads axis 0
-    and another axis, and on the 2D embedding."""
+    and another axis; a 2D field (D2, D4) the 2D entries (K1'' marches, K1'
+    one thread per node), a 2D velocity that does not trace K1's streamed
+    march, as its stage resolves it."""
     terms, phi = _route_case(name)
     stepper = tfused.FusedStepper(terms, phi, T.RK3())
+    if name == "D2_untraced":
+        assert stepper.entries[0][0].coef_kind == "analytic"
     assert stepper.stage_route == ROUTES[name]
     assert tv2.stage_route(stepper.stage_terms(0.0), stepper.shape) == ROUTES[name]

@@ -243,7 +243,7 @@ def test_rollout_general_path_raises_on_cuda():
     """The CUDA route of ``rollout``: ``fast="off"`` and the upwind scheme
     run the general path (here on the plain versions, the tensors lying on
     the CPU), ``update_func`` the fused stepper, and a gradient through the
-    2D embedding raises naming its item, before any stage runs."""
+    dense 2D stepper raises naming its item, before any stage runs."""
     shape = (6, 7, 8)
     _, tg, _, tphi, _ = _fields(shape, seed=51)
     phi = tphi.with_values(tphi.values.as_subclass(_CudaTyped))

@@ -191,7 +191,7 @@ def test_fused_stage_checks():
     P = torch.zeros(tv2.padded_shape(shape), dtype=torch.float64)
     u = tuple(torch.zeros(shape, dtype=torch.float64) for _ in range(3))
     sp = (0.1, 0.1, 0.1)
-    with pytest.raises(ValueError, match="3D only"):
+    with pytest.raises(ValueError, match="needs 3 components"):
         tv2.fused_stage(P, u[:2], (0, 1, 1), None, sp, shape)
     with pytest.raises(ValueError, match="expected"):
         tv2.fused_stage(P, u, (0, 1, 1), None, sp, (5, 6, 8))

@@ -30,7 +30,9 @@ import sys
 
 _FUNC = re.compile(r"^\s*Function : (\S+)")
 _INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;")
-_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_")
+# the hash of an anonymous namespace: in the _GLOBAL__N__ form, or the 8 hex
+# digits after the file's name (`refresh_ghosts_cu_89302f97`)
+_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_|(?<=_cu_)[0-9a-f]{8}")
 
 
 def library(tree: str) -> str:
