@@ -15,11 +15,16 @@ phases (a partial run: no kernel record):
              register/spill counts, and a summary line per stage-adjoint
              kernel (K3, K3'', K3' and their reduction: registers, spills,
              static shared memory).
-3. k2      — ghost-refresh kernel vs its plain version, five BC cases.
+3. k2      — K2's 3D entry (one launch) vs its plain version and pad_ghost,
+             bit for bit, at SHELL_SHAPES (an axis of 4 nodes, odd rows, an
+             8-node axis under Extrapolation(7)), five BC cases and the
+             degree-7 ones, f32 and f64; a second launch equal bits.
 4. k1      — stage kernel vs its plain version, f32 (and f64).
-5. k4k5    — ghost-cotangent fold (K4) vs its plain version and the autograd
-             transpose of ``pack_padded``, five BC cases; shell zeroing (K5)
-             vs its plain version.
+5. k4k5    — ghost-cotangent fold (K4, out of place) vs its plain version bit
+             for bit and the autograd transpose of ``pack_padded``, at K2's
+             shapes and BC cases, f32 and f64: its input's bits untouched, a
+             second launch and a launch on a misaligned copy equal bits;
+             shell zeroing (K5) vs its plain version.
 6. k3      — stage backward (K3) in f32 vs the f64 autograd oracle of stage +
              refresh, in f64 vs its plain version, in f32 vs its plain version.
 7. k6k7k8  — the band kernels vs their plain versions at 40x72x136, f32 and
@@ -67,12 +72,14 @@ phases (a partial run: no kernel record):
              with and without aux, streams and aux off alignment.
 8. k512    — K1, K1'' (the rotation in-kernel, and its tables) and K2 vs
              their plain versions at the main path's 512^3 shape, on its own
-             inputs (Zalesak field, rotation velocity).
+             inputs (Zalesak field, rotation velocity); K2 bit for bit there
+             and on config A's torus (Extrapolation(2)).
 9. k3_512  — K3 and K3'' (the rotation in-kernel) at 512^3 on the main
              path's inputs: a 64^3 sub-box vs the f64 plain backward, the
              whole buffer finite, a second launch on the same inputs equal
              bit for bit; K4 and K5 bit for bit vs their plain versions at
-             512^3, on a random cotangent and on K3's dP.
+             512^3, on a random cotangent and on K3's dP (K4 leaves its input
+             alone and gives the same bits on a misaligned copy).
 10. band_512 — the band bench's 512^3 sphere band, a few FE steps through
              K6-K8 and through their plain versions, the rotation in-kernel
              (K6'') and on the stream route (K6).
@@ -129,7 +136,8 @@ phases (a partial run: no kernel record):
     general_small — card vs CPU: H and a band with hooks at 64^3,
              ``reinitialize`` at 64^3 f64, the general path's rollout
              gradient at 32^3 f64 (K10 launches in its forward).
-15. timing — CUDA-event medians at 512^3: K1-K5, the FE and RK3 steps
+15. timing — CUDA-event medians at 512^3: K1-K5 (K2 and K4 also back to
+             back and by device time, K4 beside g.clone()), the FE and RK3 steps
              through the kernels and through the plain versions, the
              end-to-end ``integrate`` time per step for FE and RK3, the two
              gradient cells, and the plain backward; peak memory of each.
@@ -437,26 +445,61 @@ def zalesak(n, device, dtype=torch.float32):
     return grid, phi, vel
 
 
+#: K2's and K4's 3D shapes: the smoke's grid, an axis of 4 nodes (every node
+#: fed from both faces), rows of odd length, an 8-node axis (Extrapolation(7))
+SHELL_SHAPES = ((40, 72, 136), (4, 37, 75), (8, 19, 33), (67, 4, 9))
+
+
+def shell_cases(shape):
+    """The five BC cases, and on a shape whose axes all hold 8 nodes
+    ``Extrapolation(7)`` alone and mixed per side with Symmetry and Periodic."""
+    cases = bc_cases()
+    if min(shape) >= 8:
+        cases["extrap7"] = lsm.normalize_bcs(lsm.Extrapolation(7), 3)
+        cases["mixed7"] = lsm.normalize_bcs([(lsm.Extrapolation(7), lsm.Symmetry()),
+                                             lsm.Periodic(),
+                                             (lsm.Symmetry(), lsm.Extrapolation(5))], 3)
+    return cases
+
+
+def scribbled(vals, bcs, gen):
+    """``pack_padded(vals)`` with random values written over its shells."""
+    P = v2.pack_padded(vals, bcs)
+    shell = shell_mask(vals.shape, vals.device)
+    P[shell] = torch.randn(int(shell.sum()), generator=gen, device=vals.device, dtype=vals.dtype)
+    return P
+
+
+def k2_compare(phase, label, vals, bcs, gen):
+    """K2 (one launch) on ``vals`` packed with scribbled shells: equal to its
+    plain version and to ``pack_padded(vals)``, and a second launch on the same
+    input equal bit for bit."""
+    shape = tuple(vals.shape)
+    P = scribbled(vals, bcs, gen)
+    got = v2.refresh_ghosts_fast(P.clone(), bcs, shape)
+    ref = v2.refresh_ghosts_plain(P.clone(), bcs, shape)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    err_pad = float((got - v2.pack_padded(vals, bcs)).abs().max())
+    again = same_bits(got, v2.refresh_ghosts_fast(P.clone(), bcs, shape))
+    log(phase, f"K2 {label} {str(vals.dtype)[6:]} shape={shape} max|kernel-plain|={err:.3e} "
+               f"max|kernel-pad_ghost|={err_pad:.3e} (both must be 0); a second launch "
+               f"equal bits: {again}")
+    if not (err == 0.0 and err_pad == 0.0 and again):
+        raise AssertionError(f"K2 failed for {label} at {shape}: {err} / {err_pad}, {again}")
+    return err
+
+
 def phase_k2(dev, res):
-    shape = (40, 72, 136)
+    """K2's 3D entry against its plain version and ``pad_ghost``, bit for bit,
+    at SHELL_SHAPES under their BC cases, f32 and f64, scribbled shells."""
     gen = torch.Generator(device=dev).manual_seed(2)
     worst = 0.0
-    for name, bcs in bc_cases().items():
-        vals = torch.randn(shape, generator=gen, device=dev)
-        P = v2.pack_padded(vals, bcs)
-        shell = torch.ones_like(P, dtype=torch.bool)
-        v2.unpack_padded(shell, shape).fill_(False)
-        P[shell] = torch.randn(int(shell.sum()), generator=gen, device=dev)  # scribble
-        got = v2.refresh_ghosts_fast(P.clone(), bcs, shape)
-        ref = v2.refresh_ghosts_plain(P.clone(), bcs, shape)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        err_pad = float((got - v2.pack_padded(vals, bcs)).abs().max())
-        log("k2", f"{name:9s} shape={shape} max|kernel-plain|={err:.3e} "
-                  f"max|kernel-pad_ghost|={err_pad:.3e}")
-        if not (err <= K2_TOL and err_pad <= K2_TOL):
-            raise AssertionError(f"K2 parity failed for {name}: {err} / {err_pad} > {K2_TOL}")
-        worst = max(worst, err)
+    for shape in SHELL_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            for name, bcs in shell_cases(shape).items():
+                vals = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                worst = max(worst, k2_compare("k2", name, vals, bcs, gen))
     res["k2_err"] = worst
 
 
@@ -560,28 +603,48 @@ def phase_device(dev, res):
         raise AssertionError(f"sample() without device landed on {phi.values.device}")
 
 
+def k4_compare(phase, label, G, bcs, shape, autograd=True):
+    """K4 on ``G``: ``G``'s bits left as they were, the output equal to the
+    plain version's, zero shells, a second launch and a launch on a
+    misaligned copy of ``G`` equal bit for bit, and (``autograd``) within
+    K4_TOL of the autograd transpose of ``pack_padded``."""
+    before = G.clone()
+    got = bwd.fold_ghost_cotangent_fast(G, bcs, shape)
+    plain = bwd.fold_ghost_cotangent_plain(G.clone(), bcs, shape)
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    untouched = same_bits(G, before)
+    shells_zero = not bool(got[shell_mask(shape, G.device)].any())
+    msg = ""
+    if autograd:
+        ref = bwd.fold_ghost_cotangent(G, bcs, shape)
+        scale = max(float(ref.abs().max()), 1.0)
+        err_ref = float((v2.unpack_padded(got, shape) - ref).abs().max())
+        msg = f" max|kernel-autograd|={err_ref:.3e} (tol {K4_TOL:g}*{scale:.3e})"
+        if not err_ref <= K4_TOL * scale:
+            raise AssertionError(f"K4 {label} at {shape} differs from autograd: {err_ref}")
+    again = same_bits(got, bwd.fold_ghost_cotangent_fast(G, bcs, shape))
+    off = same_bits(got, bwd.fold_ghost_cotangent_fast(misaligned(G), bcs, shape))
+    log(phase, f"K4 {label} {str(G.dtype)[6:]} shape={shape} max|kernel-plain|={err:.3e} "
+               f"(must be 0){msg} shells_zero={shells_zero} input untouched={untouched}; "
+               f"equal bits: a second launch {again}, on a misaligned copy {off}")
+    if not (err == 0.0 and shells_zero and untouched and again and off):
+        raise AssertionError(f"K4 {label} at {shape}: {err}, shells_zero={shells_zero}, "
+                             f"input untouched={untouched}, again={again}, misaligned={off}")
+    return err
+
+
 def phase_k4k5(dev, res):
-    """K4 against its plain version and the autograd transpose of
-    ``pack_padded``; K5 against its plain version (bit for bit)."""
-    shape = (40, 72, 136)
+    """K4 at SHELL_SHAPES under their BC cases, f32 and f64
+    (:func:`k4_compare`); K5 against its plain version (bit for bit)."""
     gen = torch.Generator(device=dev).manual_seed(4)
     worst = 0.0
-    for name, bcs in bc_cases().items():
-        G = torch.randn(v2.padded_shape(shape), generator=gen, device=dev)
-        got = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
-        plain = bwd.fold_ghost_cotangent_plain(G.clone(), bcs, shape)
-        ref = bwd.fold_ghost_cotangent(G, bcs, shape)
-        torch.cuda.synchronize()
-        scale = max(float(ref.abs().max()), 1.0)
-        err = float((got - plain).abs().max())
-        err_ref = float((v2.unpack_padded(got, shape) - ref).abs().max())
-        shells_zero = not bool(got[shell_mask(shape, dev)].any())
-        log("k4k5", f"K4 {name:9s} shape={shape} max|kernel-plain|={err:.3e} "
-                    f"max|kernel-autograd|={err_ref:.3e} scale={scale:.3e} "
-                    f"tol={K4_TOL:g}*scale shells_zero={shells_zero}")
-        if not (err <= K4_TOL * scale and err_ref <= K4_TOL * scale and shells_zero):
-            raise AssertionError(f"K4 parity failed for {name}: {err} / {err_ref}")
-        worst = max(worst, err)
+    for shape in SHELL_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            for name, bcs in shell_cases(shape).items():
+                G = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
+                worst = max(worst, k4_compare("k4k5", name, G, bcs, shape))
+    shape = SHELL_SHAPES[0]
     buf = torch.randn(v2.padded_shape(shape), generator=gen, device=dev)
     got = bwd.zero_pad_shells(buf.clone(), shape)
     same = bool(torch.equal(got, bwd.zero_pad_shells_plain(buf.clone(), shape)))
@@ -629,7 +692,7 @@ def phase_k3(dev, res):
         xs = v2.node_coords(shape, sp, grid.lo, dtype, dev)
         u = v2.eval_components(rotation(xs, 0.0), shape, dtype, dev)
         for aux, coeffs in ((None, (0.0, 1.0, 1e-3)), (A, (0.75, 0.25, 2.5e-4))):
-            gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
+            gf = bwd.fold_ghost_cotangent_fast(G, bcs, shape)
             got = bwd.stage_backward(P, u, coeffs, aux, gf, sp, shape)
             plain = bwd.stage_backward_plain(P, u, coeffs, aux, gf, sp, shape)
             torch.cuda.synchronize()
@@ -704,7 +767,7 @@ def phase_k3_512(dev, res):
     worst = 0.0
     for label, src, aux, coeffs in (("stage 1", P, None, (0.0, 1.0, dt)),
                                     ("RK3 stage 2", P1, P, (0.75, 0.25, 0.25 * dt))):
-        gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
+        gf = bwd.fold_ghost_cotangent_fast(G, bcs, shape)
         call = lambda: bwd.stage_backward(src, u, coeffs, aux, gf, sp, shape)
         dP, du, dcoef, daux = first = call()
         repeat_check("k3_512", f"K3 {label}", call, first)
@@ -742,7 +805,7 @@ def phase_k3_512(dev, res):
     worst = worst_abs = 0.0
     for label, src, aux, coeffs in (("stage 1", P, None, (0.0, 1.0, dt)),
                                     ("RK3 stage 2", P1, P, (0.75, 0.25, 0.25 * dt))):
-        gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
+        gf = bwd.fold_ghost_cotangent_fast(G, bcs, shape)
         call = lambda: bwd.stage_backward(src, prog, coeffs, aux, gf, sp, shape,
                                           where=v2.Where(grid.lo))
         dP, du, dcoef, daux = first = call()
@@ -772,12 +835,11 @@ def phase_k3_512(dev, res):
 
 
 def k4k5_512(G, bcs, shape, label, res):
-    """K4 and K5 bit for bit against their plain versions on a padded
-    buffer of the main path's shape; their max|kernel - plain| go into
+    """K4 (:func:`k4_compare`: bit for bit, input untouched, twice and on a
+    misaligned copy) and K5 bit for bit against their plain versions on a
+    padded buffer of the main path's shape; their max|kernel - plain| go into
     ``res``."""
-    got = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
-    err4 = float((got - bwd.fold_ghost_cotangent_plain(G.clone(), bcs, shape)).abs().max())
-    del got
+    err4 = k4_compare("k3_512", label, G, bcs, shape, autograd=False)
     got = bwd.zero_pad_shells(G.clone(), shape)
     err5 = float((got - bwd.zero_pad_shells_plain(G.clone(), shape)).abs().max())
     log("k3_512", f"{N_MAIN}^3 f32 {label}: K4 max|kernel-plain|={err4:.3e}, "
@@ -864,19 +926,13 @@ def phase_k512(dev, res):
                     key = "k1_err" if label == "K1" else "k1a_err"
                     res[key] = max(res[key], err)
             del Ps, As, us
+    # K2 on a stage output (Periodic) and on config A's torus (Extrapolation(2))
     gen = torch.Generator(device=dev).manual_seed(3)
-    shell = torch.ones_like(P1, dtype=torch.bool)
-    v2.unpack_padded(shell, shape).fill_(False)
-    Q = P1.clone()
-    Q[shell] = torch.randn(int(shell.sum()), generator=gen, device=dev)  # scribble
-    got = v2.refresh_ghosts_fast(Q.clone(), bcs, shape)
-    ref = v2.refresh_ghosts_plain(Q, bcs, shape)
-    err = float((got - ref).abs().max())
-    err_pad = float((got - P1).abs().max())
-    log("k512", f"K2 periodic {N_MAIN}^3 f32 max|kernel-plain|={err:.3e} "
-                f"max|kernel-pad_ghost|={err_pad:.3e}")
-    if not (err <= K2_TOL and err_pad <= K2_TOL):
-        raise AssertionError(f"K2 parity at {N_MAIN}^3 failed: {err} / {err_pad} > {K2_TOL}")
+    err = k2_compare("k512", "periodic, RK3 stage 1's output", v2.unpack_padded(P1, shape),
+                     bcs, gen)
+    del P, P1
+    torus = torus_field(N_MAIN, dev)
+    err = max(err, k2_compare("k512", "extrap2, config A's torus", torus.values, torus.bcs, gen))
     res["k1_err"] = max(res["k1_err"], worst)
     res["k2_err"] = max(res["k2_err"], err)
 
@@ -2302,7 +2358,7 @@ def phase_k3kinds(dev, res):
                     A = v2.pack_padded(aux_vals.to(dtype), bcs) if with_aux else None
                     G = G64.to(dtype)
                     terms = cast_terms(terms64, dtype)
-                    gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
+                    gf = bwd.fold_ghost_cotangent_fast(G, bcs, shape)
                     got = bwd.stage_backward_terms(P, terms, coeffs, A, gf, sp, shape)
                     plain = bwd.stage_backward_terms_plain(P, terms, coeffs, A, gf, sp, shape)
                     torch.cuda.synchronize()
@@ -2369,7 +2425,7 @@ def phase_k3kinds_512(dev, res):
         stepper, P, terms, dt = k3k_inputs(label, n, dev)
         shape, sp, bcs = stepper.shape, stepper.spacing, stepper.bcs
         G = torch.randn(v2.padded_shape(shape), generator=gen, device=dev)
-        gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
+        gf = bwd.fold_ghost_cotangent_fast(G, bcs, shape)
         coeffs = (0.0, 1.0, dt)
         call = lambda: bwd.stage_backward_terms(P, terms, coeffs, None, gf, sp, shape)
         dP, ds, dcoef, _ = first = call()
@@ -2403,7 +2459,7 @@ def phase_k3kinds_512(dev, res):
         m = N_K3K_PLAIN
         stepper, P, terms, dt = k3k_inputs(label, m, dev)
         G = torch.randn(v2.padded_shape(stepper.shape), generator=gen, device=dev)
-        gf = bwd.fold_ghost_cotangent_fast(G.clone(), stepper.bcs, stepper.shape)
+        gf = bwd.fold_ghost_cotangent_fast(G, stepper.bcs, stepper.shape)
         args = (P, terms, (0.0, 1.0, dt), None, gf, stepper.spacing, stepper.shape)
         t[f"{label}@{m}"] = cuda_time(lambda: bwd.stage_backward_terms(*args))
         t[f"{label}_plain@{m}"] = cuda_time(lambda: bwd.stage_backward_terms_plain(*args),
@@ -3304,6 +3360,7 @@ def phase_timing(dev, res):
     t["K1"] = cuda_time(lambda: v2.fused_stage(P, u, (0.0, 1.0, dt), None, sp, shape))
     t["K1_aux"] = cuda_time(lambda: v2.fused_stage(P, u, (0.75, 0.25, dt), P, sp, shape))
     t["K2"] = cuda_time(lambda: v2.refresh_ghosts_fast(P, bcs, shape))
+    t["K2_back_to_back"] = back_to_back_ms(lambda: v2.refresh_ghosts_fast(P, bcs, shape))
     t["FE_step"] = cuda_time(lambda: fe.step(P, 0.0, dt))
     t["RK3_step"] = cuda_time(lambda: rk3.step(P, 0.0, dt))
     t["FE_integrate"] = integrate_ms_per_step(term, phi, lsm.ForwardEuler())
@@ -3360,13 +3417,18 @@ def timing_backward(dev, res, grid, phi, vel, P, u, dt):
     shape, sp, bcs = grid.shape, grid.spacing, phi.bcs
     G = torch.randn(v2.padded_shape(shape), generator=torch.Generator(device=dev).manual_seed(8),
                     device=dev)
-    gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
+    gf = bwd.fold_ghost_cotangent_fast(G, bcs, shape)
     coeffs = (0.0, 1.0, dt)
     t["K3"] = cuda_time(lambda: bwd.stage_backward(P, u, coeffs, None, gf, sp, shape))
     t["K3_aux"] = cuda_time(lambda: bwd.stage_backward(P, u, (0.75, 0.25, dt), P, gf, sp,
                                                        shape))
     mem["K3"] = peak_gib(lambda: bwd.stage_backward(P, u, coeffs, None, gf, sp, shape))
-    t["K4"] = cuda_time(lambda: bwd.fold_ghost_cotangent_fast(G, bcs, shape))
+    # K4 beside g.clone() of the same buffer, its copy floor (the port calls no clone)
+    for key, fn in (("K4", lambda: bwd.fold_ghost_cotangent_fast(G, bcs, shape)),
+                    ("K4_clone", lambda: G.clone())):
+        t[key] = cuda_time(fn)
+        t[f"{key}_back_to_back"] = back_to_back_ms(fn)
+    shells_device(res)
     t["K5"] = cuda_time(lambda: bwd.zero_pad_shells(G, shape))
     mask = shell_mask(shape, dev)
     t["K5_library"] = cuda_time(lambda: G.masked_fill_(mask, 0.0))
@@ -3431,6 +3493,27 @@ def timing_backward(dev, res, grid, phi, vel, P, u, dt):
         log("timing", f"{n}^3 f32 {name:22s} median {t[name]:.4f} ms")
     log("timing", "peak memory: " + ", ".join(f"{k} {v:.2f} GiB" for k, v in mem.items()))
     res["mem"] = mem
+
+
+def shells_device(res):
+    """The device times of K2, K4 and ``g.clone()`` at 512^3 (the flagship's
+    Periodic state; config A's ``Extrapolation(2)`` and mixed BCs beside it)
+    from ``tools/ghost_shells.py`` in a process of its own: after the phases
+    before it, this process's profiler under-reads them (on an H100, K4 0.14
+    ms of its 0.40, the clone's copy not at all). Into ``res["t"]``
+    (K2_device, K4_device, K4_clone_device) and ``res["shells"]`` (every
+    reading of the tool)."""
+    torch.cuda.empty_cache()  # the cached blocks of the phases before, for the child
+    out = subprocess.run([sys.executable, "tools/ghost_shells.py", "smoke"], capture_output=True,
+                         text=True, check=True, timeout=600).stdout
+    line = next(x for x in out.splitlines() if x.startswith("SHELLS smoke"))
+    vals = line.split()[3:]
+    shells = {k: float(v) for k, v in zip(vals[::2], vals[1::2])}
+    for key, name in (("K2_device", "K2"), ("K4_device", "K4"), ("K4_clone_device", "clone")):
+        res["t"][key] = shells[f"periodic_{name}_device"]
+    res["shells"] = shells
+    log("timing", "device ms (tools/ghost_shells.py): " + " ".join(
+        f"{k} {v:.4f}" for k, v in shells.items() if k.endswith("_device")))
 
 
 def device_ms(fn, reps=20, name=None):
@@ -3709,7 +3792,7 @@ def phase_k3analytic(dev, res):
                     P = v2.pack_padded(vals.to(dtype), bcs)
                     A = v2.pack_padded(aux_vals.to(dtype), bcs) if with_aux else None
                     G = G64.to(dtype)
-                    gf = bwd.fold_ghost_cotangent_fast(G.clone(), bcs, shape)
+                    gf = bwd.fold_ghost_cotangent_fast(G, bcs, shape)
                     got = k3a_run(P, terms, coeffs, A, gf, sp, shape, where)
                     torch.cuda.synchronize()
                     if not all(bool(torch.isfinite(x).all()) for x in (got[0], got[2])):
@@ -4993,10 +5076,10 @@ def kernel_records(res):
          t[f"K3_plain@{k3_plain_n}"],
          # reads P, the folded g, 3 streams; writes dP and 3 du
          bound(f32 * (2 * padded + 7 * cells), K3_OPS_PER_CELL * cells), None),
-        ("K4 fold_ghost_cotangent_fast (ghost-cotangent fold)", "fold_ghosts.cu",
+        ("K4 fold_ghost_cotangent_fast (ghost-cotangent fold, out of place)", "fold_ghosts.cu",
          "lsm_tpu/ops/weno_v2_bwd.py:179", "K4", res["k4_err"], t["K4"], t["K4_plain"],
-         # periodic: each ghost read and zeroed, its source read and written
-         bound(f32 * 4 * ghosts, 2 * ghosts), None),
+         # out of place: g read once, the new buffer written once
+         bound(f32 * 2 * padded, 2 * ghosts), t["K4_clone"]),
         ("K5 zero_pad_shells (ghost-shell zeroing)", "fold_ghosts.cu",
          "lsm_tpu/ops/weno_v2_bwd.py:293", "K5", res["k5_err"], t["K5"], t["K5_plain"],
          bound(f32 * ghosts, 0), t["K5_library"]),
@@ -5121,6 +5204,15 @@ def kernel_records(res):
                "library_ms": lib_ms}
         if key == "K3":
             rec["plain_grid"] = f"{k3_plain_n}^3"
+        if key in ("K2", "K4"):  # a call back to back and the profiler's device time; K4's
+            # library_ms is g.clone() of the same buffer (its copy floor), timed alike
+            rec.update(ms_back_to_back=t[f"{key}_back_to_back"], ms_device=t[f"{key}_device"],
+                       ms_device_by_bc={bc: res["shells"][f"{bc}_{key}_device"]
+                                        for bc in ("periodic", "extrap2", "mixed7")})
+        if key == "K4":
+            rec.update(library_call="g.clone()",
+                       library_ms_back_to_back=t["K4_clone_back_to_back"],
+                       library_ms_device=t["K4_clone_device"])
         if key == "K7":  # the 512^3 band stays off the faces: the main path's K7 is gated off
             rec["ms_flags_off"] = t["K7_off"]
         if key == "K10":  # with aux (RK3 stages 2 and 3): one more interior read

@@ -1,44 +1,67 @@
 // K4: fold of the ghost-shell cotangents of a padded buffer into its
-// interior (the transpose of K2), and K5: zeroing of the ghost shells.
+// interior (the transpose of K2), out of place; and K5: zeroing of the ghost
+// shells in place.
 //
 // K4 replaces the TPU kernel lsm_tpu/ops/weno_v2_bwd.py
 // `fold_ghost_cotangent_fast`; K5 replaces `_zero_pad_shells` there.
 //
 // K4. K2 writes the ghosts of axis 0, then axis 1 (over axis 0's padded
 // extent), then axis 2 (over the padded extents of axes 0 and 1), each ghost
-// a weighted sum of interior nodes of its line. The transpose runs the three
-// launches in reverse order, axis 2, then 1, then 0, each over the same lines
-// K2's launch for that axis covers. A thread owns one line: for the left,
-// then the right side, for the ghost at distance k = 1..3, it adds
-// w * g[ghost] onto each source node of the line (periodic, shared
-// endpoint: left k <- node n-1-k, right k <- node k; symmetry: left k <-
-// node k, right k <- node n-1-k; extrapolation of degree P <= 7: the
-// Lagrange weights of K2, nodes j = 0..P from the boundary inward), then
-// zeroes the line's six ghosts. A line owns its ghosts and its sources, so
-// there is no race and no atomic. Each product and sum is rounded on its
-// own (__fmul_rn/__fadd_rn), in the order of the plain torch version
-// (ops/weno_v2_bwd.py `fold_ghost_cotangent_plain`), so the two agree bit for
-// bit.
+// a weighted sum of interior nodes of its line. Its transpose, the plain
+// version (ops/weno_v2_bwd.py `fold_ghost_cotangent_plain`), scatters in the
+// reverse order: axis 2's pass, then axis 1's, then axis 0's, each adding
+// w * ghost onto the ghost's source nodes (left side, then right side, ghost
+// distance k = 1..3; periodic, shared endpoint: left k <- node n-1-k, right
+// k <- node k; symmetry: left k <- node k, right k <- node n-1-k;
+// extrapolation of degree P <= 7: K2's Lagrange weights, nodes j = 0..P from
+// the boundary inward), then zeroing that axis's ghosts. A ghost that an
+// earlier pass has added to (an edge or corner of the shell) passes on its
+// partial sum.
+//
+// Design: one launch that reads g and writes every node of a new buffer gf
+// exactly once, so the caller needs no copy of g (the stage backward used to
+// clone the whole cotangent and fold the clone in place: 2 x 556 MB at
+// 512^3 f32 besides the fold). A ghost of gf is 0. An interior node gathers
+// what the scatter would add to it, in the scatter's order: g at the node,
+// then axis 2's contributions, then axis 1's, then axis 0's, each side 0 k =
+// 1..3 then side 1 k = 1..3, each product and sum rounded on its own
+// (__fmul_rn/__fadd_rn), so gf equals the plain version bit for bit. A
+// contribution from a ghost of axis 1 or 0 takes that ghost's partial sum
+// from the earlier passes, which the thread recomputes from g in registers
+// (V2, then V1 below); at a vertex of the shell's strips that is at most 7^3
+// reads, and only the nodes within max(4, P+1) of a face (8 (P+1)^3 of them
+// at a vertex) take that path. g is only read and gf only written: no race.
+//
+// The bulk (nodes farther than max(4, P+1) from every face, 92% of the
+// buffer at 512^3) is a straight copy: a flat pass reads and writes the
+// buffer as 16-byte vectors (the buffer is 16-byte aligned as a whole though
+// its rows of 518 floats are not), each thread eight vectors a block's width
+// apart, every load issued before the stores. Its other vectors go node by
+// node: a ghost is written 0, a node of a bulk row (i and j in the bulk's
+// ranges) gathers axis 2's contributions only. The interior nodes of the
+// strip rows (8,128 rows at 512^3) take one thread a node and the whole
+// gather; their blocks are interleaved in proportion with the flat pass's,
+// so that their chains of loads run beside its stream (on an H100 at 512^3
+// f32, 0.395 ms of device time against 0.435 with them after it,
+// tools/shell_variants.py). g off 16-byte alignment
+// (a view handed over by autograd) is read an element at a time. Index math
+// is 32-bit within a block (a fast division by the plane and row lengths),
+// from a 64-bit base per block.
 //
 // K5. One launch, one thread per ghost node of the six slabs (axis-0 slabs
 // over the padded extents of axes 1 and 2, axis-1 slabs over interior axis
 // 0, axis-2 slabs over interior axes 0 and 1), writing 0.
 //
-// Bound: both touch only the O(N^2) shells and the interior strips next to
-// them: at 512^3 about 4.8 M ghost nodes, so some 40 MB of traffic for K4
-// (~0.012 ms at 3.35 TB/s) and 19 MB for K5; launch latency dominates.
+// Bound: K4 reads g and writes gf whole, 2 x 518^3 x 4 B at 512^3 f32: 0.332
+// ms at 3.35 TB/s (the copy it replaces moved the same bytes, and the
+// in-place fold after it some 40 MB more). K5 writes the shells only, 19 MB
+// at 512^3: launch latency dominates.
 
 #include <cuda_runtime.h>
 
 #include "lsm_kernels.h"
 
 namespace {
-
-struct AxisFold {
-  int kind[2];
-  int degree[2];
-  double w[2][LSM_GHOST][LSM_MAX_DEGREE + 1];  // [side][k-1][j]
-};
 
 constexpr int kThreads = 256;
 
@@ -49,82 +72,311 @@ __device__ __forceinline__ double mul_add_rn(double acc, double w, double x) {
   return __dadd_rn(acc, __dmul_rn(w, x));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fold_axis_kernel(T* __restrict__ g, int64_t n, int64_t stride, int64_t a_lo,
-                     int64_t a_cnt, int64_t a_stride, int64_t b_lo, int64_t b_cnt,
-                     int64_t b_stride, AxisFold bc) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= a_cnt * b_cnt) return;
-  const int64_t b = t % b_cnt, a = t / b_cnt;
-  T* line = g + (a_lo + a) * a_stride + (b_lo + b) * b_stride;  // padded index 0
-  T* node = line + LSM_GHOST * stride;                            // interior node 0
-  for (int side = 0; side < 2; ++side) {
-    for (int k = 1; k <= LSM_GHOST; ++k) {
-      const int64_t pos = side == 0 ? LSM_GHOST - k : LSM_GHOST + n - 1 + k;
-      const T gv = line[pos * stride];
-      switch (bc.kind[side]) {
-        case LSM_BC_PERIODIC: {
-          T* src = node + (side == 0 ? n - 1 - k : k) * stride;
-          *src = mul_add_rn(*src, T(1), gv);
-          break;
-        }
-        case LSM_BC_SYMMETRY: {
-          T* src = node + (side == 0 ? k : n - 1 - k) * stride;
-          *src = mul_add_rn(*src, T(1), gv);
-          break;
-        }
-        default: {  // LSM_BC_EXTRAPOLATION
-          const double* w = bc.w[side][k - 1];
-          for (int j = 0; j <= bc.degree[side]; ++j) {
-            T* src = node + (side == 0 ? j : n - 1 - j) * stride;
-            *src = mul_add_rn(*src, T(w[j]), gv);
-          }
-          break;
-        }
-      }
-    }
+// n / d for n in [0, 2^31) and d in [1, 2^31): a multiply-high and a shift
+// (the round-up method; mul = ceil(2^(31 + ceil(log2 d)) / d))
+struct FastDiv {
+  uint32_t d, mul, shr;
+};
+
+FastDiv fast_div(uint32_t d) {
+  FastDiv f{d, 0, 0};
+  if (d > 1) {
+    int l = 0;
+    while ((uint64_t{1} << l) < d) ++l;
+    f.mul = static_cast<uint32_t>(((uint64_t{1} << (31 + l)) + d - 1) / d);
+    f.shr = static_cast<uint32_t>(l - 1);
   }
-  for (int l = 0; l < LSM_GHOST; ++l) {
-    line[l * stride] = T(0);
-    line[(LSM_GHOST + n + l) * stride] = T(0);
-  }
+  return f;
+}
+
+__device__ __forceinline__ uint32_t quo(const FastDiv& f, uint32_t n) {
+  return f.d == 1 ? n : __umulhi(n, f.mul) >> f.shr;
+}
+
+// 16 bytes at an aligned address, as an array of 4 floats or 2 doubles
+__device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+__device__ __forceinline__ void load16(const double* p, double (&x)[2]) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  x[0] = v.x, x[1] = v.y;
+}
+__device__ __forceinline__ void store16(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store16(double* p, const double (&x)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(x[0], x[1]);
 }
 
 template <typename T>
-int launch_fold(void* g_, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
-                const int* degrees, const double* weights, void* stream_) {
-  T* g = static_cast<T*>(g_);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+struct FoldArgs {
+  int n[3];                          // interior extents
+  uint32_t S1, S2, plane;            // padded extents of axes 1 and 2; S1 * S2
+  FastDiv div_plane, div_row;
+  int lo[3], hi[3];                  // the bulk: padded index in [lo, hi) on each axis
+  uint32_t flat_blocks;              // blocks of the flat pass
+  FastDiv div_n2;
+  uint32_t cnt_planes, cnt_rows;     // threads of the strip rows' two ranges
+  int kind[3][2], degree[3][2];      // per axis and side
+  T w[3][2][LSM_GHOST][LSM_MAX_DEGREE + 1];  // [axis][side][k-1][j], in T
+};
+
+// The weight of the ghost at distance k on `side` of `axis` in interior node
+// m of its line, when m is one of that ghost's sources.
+template <typename T>
+__device__ __forceinline__ bool weight_of(const FoldArgs<T>& a, int axis, int side, int k, int m,
+                                          T& w) {
+  const int n = a.n[axis];
+  switch (a.kind[axis][side]) {
+    case LSM_BC_PERIODIC:
+      w = T(1);
+      return m == (side == 0 ? n - 1 - k : k);
+    case LSM_BC_SYMMETRY:
+      w = T(1);
+      return m == (side == 0 ? k : n - 1 - k);
+    default: {  // LSM_BC_EXTRAPOLATION: node j from the boundary inward
+      const int j = side == 0 ? m : n - 1 - m;
+      if (j > a.degree[axis][side]) return false;
+      w = a.w[axis][side][k - 1][j];
+      return true;
+    }
+  }
+}
+
+// padded index of the ghost at distance k on `side` of an axis of n nodes
+__device__ __forceinline__ int ghost_pos(int side, int k, int n) {
+  return side == 0 ? LSM_GHOST - k : LSM_GHOST + n - 1 + k;
+}
+
+// The products w * x onto interior node m of an axis from the ghosts of its
+// line whose sources include m, in the scatter's order (side 0, k = 1..3,
+// then side 1); ghost(p) is the line's value at padded index p.
+template <typename T, typename Ghost>
+__device__ __forceinline__ T gather_axis(const FoldArgs<T>& a, int axis, int m, T x, Ghost ghost) {
+  for (int side = 0; side < 2; ++side)
+    for (int d = 1; d <= LSM_GHOST; ++d) {
+      T w;
+      if (weight_of(a, axis, side, d, m, w))
+        x = mul_add_rn(x, w, ghost(ghost_pos(side, d, a.n[axis])));
+    }
+  return x;
+}
+
+// gf at padded node (i, j, k): 0 on a ghost; on an interior node V0, where
+// V2(y) = g(y) + axis 2's contributions to y (y's row), V1(y) = V2(y) +
+// w * V2(ghost) over axis 1's ghosts of y's column, V0(y) = V1(y) + w *
+// V1(ghost) over axis 0's: the scatter's partial sums, in its order. An
+// axis adds nothing to a node outside its strips (the bulk's range).
+template <typename T>
+__device__ __forceinline__ T fold_node(const T* __restrict__ g, const FoldArgs<T>& a, int i,
+                                       int j, int k) {
+  const int mi = i - LSM_GHOST, mj = j - LSM_GHOST, mk = k - LSM_GHOST;
+  if (static_cast<unsigned>(mi) >= static_cast<unsigned>(a.n[0]) ||
+      static_cast<unsigned>(mj) >= static_cast<unsigned>(a.n[1]) ||
+      static_cast<unsigned>(mk) >= static_cast<unsigned>(a.n[2]))
+    return T(0);
+  const bool strip0 = i < a.lo[0] || i >= a.hi[0], strip1 = j < a.lo[1] || j >= a.hi[1],
+             strip2 = k < a.lo[2] || k >= a.hi[2];
+  const auto v2 = [&](const T* row) {
+    return strip2 ? gather_axis(a, 2, mk, row[k], [&](int p) { return row[p]; }) : row[k];
+  };
+  const auto v1 = [&](const T* plane) {
+    const T x = v2(plane + static_cast<uint32_t>(j) * a.S2);
+    return strip1 ? gather_axis(a, 1, mj, x, [&](int p) {
+      return v2(plane + static_cast<uint32_t>(p) * a.S2);
+    }) : x;
+  };
+  const T x = v1(g + static_cast<int64_t>(i) * a.plane);
+  return strip0 ? gather_axis(a, 0, mi, x, [&](int p) {
+    return v1(g + static_cast<int64_t>(p) * a.plane);
+  }) : x;
+}
+
+constexpr int kVectors = 8;  // 16-byte vectors a thread, kThreads apart
+
+// A node of a bulk row (i and j in the bulk's ranges, k interior): g plus
+// axis 2's contributions.
+template <typename T>
+__device__ __forceinline__ T row_node(const T* __restrict__ g, const FoldArgs<T>& a, int i, int j,
+                                      int k) {
+  const T* row = g + (static_cast<int64_t>(i) * a.plane + static_cast<uint32_t>(j) * a.S2);
+  if (k >= a.lo[2] && k < a.hi[2]) return row[k];
+  return gather_axis(a, 2, k - LSM_GHOST, row[k], [&](int p) { return row[p]; });
+}
+
+// flat_blocks of the blocks (interleaved in proportion with the others, so
+// that the strip rows' chains of loads run beside the flat pass's stream)
+// pass over the buffer as 16-byte vectors: a vector of the bulk is copied
+// (every load issued before the stores); of the others, a ghost is written
+// 0 and a node of a bulk row its row_node, node by node; the interior nodes
+// of the strip rows (i and j interior, not both in the bulk's ranges) are
+// left to the other blocks, one thread a node (fold_node). Every node of gf
+// is written once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fold_kernel(const T* __restrict__ g, T* __restrict__ gf, int64_t numel, int vec,
+                FoldArgs<T> a) {
+  constexpr int W = 16 / sizeof(T);  // elements a vector
+  // flat blocks before this one, and up to it
+  const uint64_t b = blockIdx.x;
+  const uint32_t before = static_cast<uint32_t>(b * a.flat_blocks / gridDim.x);
+  const uint32_t upto = static_cast<uint32_t>((b + 1) * a.flat_blocks / gridDim.x);
+  const auto in_bulk = [&](int p, int axis) { return p >= a.lo[axis] && p < a.hi[axis]; };
+  if (upto > before) {
+    const int64_t base = static_cast<int64_t>(before) * (kThreads * kVectors * W);
+    // the block's first element: plane i0, offset r0 within it
+    uint32_t i0, r0;
+    if (base < (int64_t{1} << 31)) {
+      i0 = quo(a.div_plane, static_cast<uint32_t>(base));
+      r0 = static_cast<uint32_t>(base) - i0 * a.plane;
+    } else {
+      i0 = static_cast<uint32_t>(base / a.plane);
+      r0 = static_cast<uint32_t>(base - static_cast<int64_t>(i0) * a.plane);
+    }
+    const T* gb = g + base;
+    T* fb = gf + base;
+    const int64_t left = numel - base;  // elements from the block's first on
+    const auto node_of = [&](uint32_t o, int& i, int& j, int& k) {
+      uint32_t r = r0 + o;
+      const uint32_t di = quo(a.div_plane, r);
+      r -= di * a.plane;
+      i = static_cast<int>(i0 + di);
+      j = static_cast<int>(quo(a.div_row, r));
+      k = static_cast<int>(r - static_cast<uint32_t>(j) * a.S2);
+    };
+    T x[kVectors][W];
+    unsigned bulk = 0, rest = 0;  // bit u: vector u is the bulk's, or not
+#pragma unroll
+    for (int u = 0; u < kVectors; ++u) {
+      const uint32_t o = (u * kThreads + threadIdx.x) * W;
+      if (o >= left) continue;
+      int i, j, k;
+      node_of(o, i, j, k);
+      if (o + W > left || !in_bulk(i, 0) || !in_bulk(j, 1) || k < a.lo[2] || k + W > a.hi[2]) {
+        rest |= 1u << u;
+        continue;
+      }
+      bulk |= 1u << u;
+      if (vec) {
+        load16(gb + o, x[u]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < W; ++q) x[u][q] = gb[o + q];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kVectors; ++u) {
+      if (!(bulk >> u & 1)) continue;
+      const uint32_t o = (u * kThreads + threadIdx.x) * W;
+      if (vec) {
+        store16(fb + o, x[u]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < W; ++q) fb[o + q] = x[u][q];
+      }
+    }
+#pragma unroll 1
+    for (; rest != 0; rest &= rest - 1) {
+      const uint32_t o = ((__ffs(rest) - 1) * kThreads + threadIdx.x) * W;
+      int i, j, k;
+      node_of(o, i, j, k);
+#pragma unroll
+      for (int q = 0; q < W; ++q) {
+        if (o + q < left) {
+          if (static_cast<unsigned>(i - LSM_GHOST) >= static_cast<unsigned>(a.n[0]) ||
+              static_cast<unsigned>(j - LSM_GHOST) >= static_cast<unsigned>(a.n[1]) ||
+              static_cast<unsigned>(k - LSM_GHOST) >= static_cast<unsigned>(a.n[2]))
+            fb[o + q] = T(0);
+          else if (in_bulk(i, 0) && in_bulk(j, 1))
+            fb[o + q] = row_node(g, a, i, j, k);
+        }
+        if (++k == static_cast<int>(a.S2)) {
+          k = 0;
+          if (++j == static_cast<int>(a.S1)) {
+            j = 0;
+            ++i;
+          }
+        }
+      }
+    }
+    return;
+  }
+  // the interior nodes of the strip rows: planes i outside the bulk's axis-0
+  // range (its rows j all interior), then rows j outside its axis-1 range in
+  // the planes within it
+  uint32_t t = (blockIdx.x - before) * kThreads + threadIdx.x;
+  const int n0 = a.n[0], n1 = a.n[1], n2 = a.n[2];
+  const int B0 = a.hi[0] - a.lo[0], B1 = a.hi[1] - a.lo[1];
+  const int lo0 = a.lo[0] - LSM_GHOST, lo1 = a.lo[1] - LSM_GHOST;  // as interior indices
+  int mi, mj;
+  const uint32_t row = quo(a.div_n2, t);
+  const int mk = static_cast<int>(t - row * static_cast<uint32_t>(n2));
+  if (t < a.cnt_planes) {
+    const uint32_t p = row / static_cast<uint32_t>(n1);
+    mj = static_cast<int>(row - p * static_cast<uint32_t>(n1));
+    mi = static_cast<int>(p) < lo0 ? static_cast<int>(p) : static_cast<int>(p) + B0;
+  } else if (t - a.cnt_planes < a.cnt_rows) {
+    const uint32_t q = row - a.cnt_planes / static_cast<uint32_t>(n2),
+                   other = static_cast<uint32_t>(n1 - B1), ii = q / other;
+    const int jj = static_cast<int>(q - ii * other);
+    mi = lo0 + static_cast<int>(ii);
+    mj = jj < lo1 ? jj : jj + B1;
+  } else {
+    return;
+  }
+  const int i = LSM_GHOST + mi, j = LSM_GHOST + mj, k = LSM_GHOST + mk;
+  gf[static_cast<int64_t>(i) * a.plane + (static_cast<uint32_t>(j) * a.S2 + k)] =
+      fold_node(g, a, i, j, k);
+}
+
+template <typename T>
+int launch_fold(const void* g_, void* gf_, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
+                const int* degrees, const double* weights, void* stream) {
+  const T* g = static_cast<const T*>(g_);
+  T* gf = static_cast<T*>(gf_);
   const int64_t n[3] = {n0, n1, n2};
-  const int64_t S[3] = {n0 + 2 * LSM_GHOST, n1 + 2 * LSM_GHOST, n2 + 2 * LSM_GHOST};
-  const int64_t stride[3] = {S[1] * S[2], S[2], 1};
-  for (int axis = 2; axis >= 0; --axis) {
-    AxisFold bc;
+  const int64_t S0 = n0 + 2 * LSM_GHOST, S1 = n1 + 2 * LSM_GHOST, S2 = n2 + 2 * LSM_GHOST;
+  constexpr int64_t kBlock = kThreads * kVectors * (16 / sizeof(T));
+  // a block's offsets within a plane stay below 2^31
+  if (S1 * S2 + kBlock >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  FoldArgs<T> a;
+  a.S1 = static_cast<uint32_t>(S1);
+  a.S2 = static_cast<uint32_t>(S2);
+  a.plane = static_cast<uint32_t>(S1 * S2);
+  a.div_plane = fast_div(a.plane);
+  a.div_row = fast_div(a.S2);
+  for (int axis = 0; axis < 3; ++axis) {
+    a.n[axis] = static_cast<int>(n[axis]);
+    int reach = LSM_GHOST + 1;  // periodic and symmetry feed nodes 1..3 from each face
     for (int side = 0; side < 2; ++side) {
-      const int a = 2 * axis + side;
-      bc.kind[side] = kinds[a];
-      bc.degree[side] = degrees[a];
+      const int s = 2 * axis + side;
+      a.kind[axis][side] = kinds[s];
+      a.degree[axis][side] = degrees[s];
+      if (kinds[s] == LSM_BC_EXTRAPOLATION && degrees[s] + 1 > reach) reach = degrees[s] + 1;
       for (int k = 0; k < LSM_GHOST; ++k)
         for (int j = 0; j <= LSM_MAX_DEGREE; ++j)
-          bc.w[side][k][j] = weights[(a * LSM_GHOST + k) * (LSM_MAX_DEGREE + 1) + j];
+          a.w[axis][side][k][j] =
+              static_cast<T>(weights[(s * LSM_GHOST + k) * (LSM_MAX_DEGREE + 1) + j]);
     }
-    // the lines K2 refreshes for this axis: earlier axes over their padded
-    // extent, later ones over their interior; the later of the two other axes
-    // is the thread's fastest index
-    const int oa = axis == 0 ? 1 : 0;
-    const int ob = axis == 2 ? 1 : 2;
-    const int64_t a_lo = oa < axis ? 0 : LSM_GHOST;
-    const int64_t a_cnt = oa < axis ? S[oa] : n[oa];
-    const int64_t b_lo = ob < axis ? 0 : LSM_GHOST;
-    const int64_t b_cnt = ob < axis ? S[ob] : n[ob];
-    const unsigned blocks = static_cast<unsigned>((a_cnt * b_cnt + kThreads - 1) / kThreads);
-    fold_axis_kernel<T><<<blocks, kThreads, 0, stream>>>(g, n[axis], stride[axis], a_lo, a_cnt,
-                                                         stride[oa], b_lo, b_cnt, stride[ob], bc);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    a.lo[axis] = LSM_GHOST + reach;
+    a.hi[axis] = static_cast<int>(LSM_GHOST + n[axis] - reach);
+    if (a.hi[axis] < a.lo[axis]) a.hi[axis] = a.lo[axis];
   }
-  return 0;
+  const int64_t numel = S0 * S1 * S2;
+  const int64_t B0 = a.hi[0] - a.lo[0], B1 = a.hi[1] - a.lo[1];
+  const int64_t planes = (n0 - B0) * n1 * n2, rows = B0 * (n1 - B1) * n2;
+  if (planes + rows + kThreads >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.cnt_planes = static_cast<uint32_t>(planes);
+  a.cnt_rows = static_cast<uint32_t>(rows);
+  a.div_n2 = fast_div(static_cast<uint32_t>(n2));
+  a.flat_blocks = static_cast<uint32_t>((numel + kBlock - 1) / kBlock);
+  const int vec = (reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(gf)) % 16 == 0;
+  const unsigned blocks =
+      a.flat_blocks + static_cast<unsigned>((planes + rows + kThreads - 1) / kThreads);
+  fold_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(g, gf, numel, vec, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -167,16 +419,16 @@ int launch_zero_shells(void* buf, int64_t n0, int64_t n1, int64_t n2, void* stre
 
 }  // namespace
 
-extern "C" int lsm_fold_ghosts_f32(void* g, int64_t n0, int64_t n1, int64_t n2,
-                                   const int* kinds, const int* degrees,
+extern "C" int lsm_fold_ghosts_f32(const void* g, void* gf, int64_t n0, int64_t n1,
+                                   int64_t n2, const int* kinds, const int* degrees,
                                    const double* weights, void* stream) {
-  return launch_fold<float>(g, n0, n1, n2, kinds, degrees, weights, stream);
+  return launch_fold<float>(g, gf, n0, n1, n2, kinds, degrees, weights, stream);
 }
 
-extern "C" int lsm_fold_ghosts_f64(void* g, int64_t n0, int64_t n1, int64_t n2,
-                                   const int* kinds, const int* degrees,
+extern "C" int lsm_fold_ghosts_f64(const void* g, void* gf, int64_t n0, int64_t n1,
+                                   int64_t n2, const int* kinds, const int* degrees,
                                    const double* weights, void* stream) {
-  return launch_fold<double>(g, n0, n1, n2, kinds, degrees, weights, stream);
+  return launch_fold<double>(g, gf, n0, n1, n2, kinds, degrees, weights, stream);
 }
 
 extern "C" int lsm_zero_shells_f32(void* buf, int64_t n0, int64_t n1, int64_t n2,

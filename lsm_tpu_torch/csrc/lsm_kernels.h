@@ -186,8 +186,10 @@ int lsm_prog_tables_f32(const LsmTableFill* fill, void* stream);
 int lsm_prog_tables_f64(const LsmTableFill* fill, void* stream);
 
 /* K2: rewrite every ghost shell of the padded buffer P from its interior, in
- * place: axis 0, then axis 1 (over axis 0's full padded extent), then axis 2
- * (over the full padded extents of axes 0 and 1). Three launches, in order.
+ * place, equal to the three phases axis 0, then axis 1 (over axis 0's full
+ * padded extent), then axis 2 (over the full padded extents of axes 0 and 1).
+ * One launch (an edge or vertex ghost recomputes the earlier phases' values
+ * it reads); three, in order, for a buffer that would need 2^31 threads.
  * Host arrays, index a = 2*axis + side (side 0 = left, 1 = right):
  *   kinds[6]    LSM_BC_* code;
  *   degrees[6]  extrapolation degree (<= LSM_MAX_DEGREE);
@@ -286,13 +288,16 @@ int lsm_stage_bwd_terms_f64(const void* P, const void* g, const void* aux, void*
                             const LsmStageTerms* terms, const void* const* dstreams,
                             int needs_dt, void* stream);
 
-/* K4: fold the ghost-shell cotangents of the padded buffer g into its
- * interior and zero the shells, in place: the transpose of K2. Three
- * launches, axis 2, then 1, then 0. kinds, degrees, weights as for K2. */
-int lsm_fold_ghosts_f32(void* g, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
-                        const int* degrees, const double* weights, void* stream);
-int lsm_fold_ghosts_f64(void* g, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
-                        const int* degrees, const double* weights, void* stream);
+/* K4: the transpose of K2 out of place: gf (a padded buffer like g, not
+ * overlapping it) gets g's interior plus the ghost-shell cotangents folded
+ * into it, and zero shells; g is only read. One launch. kinds, degrees,
+ * weights as for K2. */
+int lsm_fold_ghosts_f32(const void* g, void* gf, int64_t n0, int64_t n1, int64_t n2,
+                        const int* kinds, const int* degrees, const double* weights,
+                        void* stream);
+int lsm_fold_ghosts_f64(const void* g, void* gf, int64_t n0, int64_t n1, int64_t n2,
+                        const int* kinds, const int* degrees, const double* weights,
+                        void* stream);
 
 /* K5: zero the six ghost slabs of a padded buffer in place. */
 int lsm_zero_shells_f32(void* buf, int64_t n0, int64_t n1, int64_t n2, void* stream);

@@ -9,18 +9,32 @@
 //   extrapolation of degree P <= 7: sum_j w[k][j] * node j from the boundary
 //     inward (left: nodes 0..P; right: nodes n-1..n-1-P).
 //
-// Design: three launches, axis 0, then axis 1, then axis 2, on one stream. A
-// launch's blocks run in no order on Hopper, so the composition order that
-// makes corner ghosts equal pad_ghost's (axis 1 reads the fresh axis-0
-// ghosts, axis 2 reads both) comes from the launch order. Each thread writes
-// one ghost node from at most 8 source nodes along its axis. For axes 0 and 1
-// the contiguous axis 2 is the thread's fastest index (coalesced rows); for
-// axis 2 the six ghost slots of one row are. The single-axis entry
-// (lsm_refresh_axis_*) runs one of the three phases alone: the sharded
-// refresh takes it for the axes a mesh leaves unsharded (always axis 2).
+// pad_ghost composes the axes: axis 0's ghosts over the interior, then axis
+// 1's over axis 0's padded extent (its corner ghosts read axis 0's), then
+// axis 2's over both padded extents.
 //
-// Bound: it touches only the shells, O(N^2): about 6 * 518^2 nodes per axis at
-// 512^3, a few MB of traffic, so launch latency dominates.
+// Design of the 3D entry (lsm_refresh_ghosts_*, refresh_3d_kernel): one
+// launch (the three below took 0.053 ms of device time at 512^3 f32 on an
+// H100, waves of threads with one dependent load and store each). An edge
+// or vertex ghost's thread recomputes the earlier axes' ghosts it reads from
+// the interior with their arithmetic, so no thread reads what another writes
+// and the composition needs no launch order. Index math is 32-bit (a 64-bit
+// base per plane); a buffer that would need 2^31 threads (some 10 GB in
+// f32) takes the three launches below.
+//
+// The three launches (launch_refresh, refresh_axis_kernel): axis 0, then axis
+// 1, then axis 2, on one stream, the launch order giving the composition
+// order. Each thread writes one ghost node from at most 8 source nodes along
+// its axis. For axes 0 and 1 the contiguous axis 2 is the thread's fastest
+// index (coalesced rows); for axis 2 the six ghost slots of one row are. The
+// single-axis entry (lsm_refresh_axis_*) runs one of the three phases alone:
+// the sharded refresh takes it for the axes a mesh leaves unsharded (always
+// axis 2). K7 (below) runs the three gated.
+//
+// Bound: it touches only the shells, O(N^2): 4,774,104 ghosts at 512^3, each
+// written once and one source read (Periodic), 38 MB: 0.0114 ms at 3.35
+// TB/s. The ends of the 262,144 interior rows move whole 32-byte sectors, a
+// few times the ghosts' own 24 bytes a row end.
 //
 // K2's 2D entry (lsm_refresh_ghosts_2d_*) refreshes a 2D field's (n0+6, n1+6)
 // buffer, the dense 2D stepper's, in one launch (refresh_2d_kernel): the two
@@ -199,16 +213,18 @@ int launch_refresh_2d(void* P_, int64_t n0, int64_t n1, const int* kinds, const 
 // side and distance k as refresh_axis_kernel takes them, with its arithmetic
 // (which keeps its own copy of it, so that the 3D entries and K7 keep their
 // machine code).
-template <typename T, typename Node>
-__device__ __forceinline__ T ghost_of(const AxisBC& bc, int side, int k, int64_t n, Node node) {
+// The 2D entry takes it with K2's double weights and 64-bit indices, the 3D
+// entry with weights in T and 32-bit indices.
+template <typename T, typename BC, typename I, typename Node>
+__device__ __forceinline__ T ghost_of(const BC& bc, int side, int k, I n, Node node) {
   switch (bc.kind[side]) {
     case LSM_BC_PERIODIC:
       return node(side == 0 ? n - 1 - k : k);
     case LSM_BC_SYMMETRY:
       return node(side == 0 ? k : n - 1 - k);
     default: {  // LSM_BC_EXTRAPOLATION
-      const double* w = bc.w[side][k - 1];
-      const int64_t m0 = side == 0 ? 0 : n - 1, step = side == 0 ? 1 : -1;
+      const auto& w = bc.w[side][k - 1];
+      const I m0 = side == 0 ? 0 : n - 1, step = side == 0 ? 1 : -1;
       T val = mul_add_rn(T(0), T(w[0]), node(m0));
       for (int j = 1; j <= bc.degree[side]; ++j) val = mul_add_rn(val, T(w[j]), node(m0 + j * step));
       return val;
@@ -279,6 +295,268 @@ int launch_refresh_ghosts_2d(void* P, int64_t n0, int64_t n1, const int* kinds,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2's 3D entry: every ghost of a (n0+6, n1+6, n2+6) buffer in one launch,
+// none reading what another writes. Its threads, in order:
+//   E: one a ghost of two or three axes (an edge or vertex of the shell;
+//      55,512 at 512^3), first so that their longer chains start early. Such
+//      a ghost reads pad_ghost's values of the earlier axes' ghosts, which
+//      its thread recomputes from the interior with their arithmetic: f0
+//      (axis 0 over an interior column), f1 (axis 1 over f0's values), f2
+//      (axis 2 over f1's);
+//   A: one the six axis-0 ghosts of an interior column (j, k), warps along k;
+//   B: one the six axis-1 ghosts of an interior (i, k);
+//   C: one an axis-2 ghost slot of kRowsC interior rows (rows_c apart; for
+//      each, a warp's lanes take neighbouring rows' slots in the order of
+//      their addresses: a row's right ghosts beside the next row's left).
+// A line of A, B or C reads its own interior nodes, an extrapolation's all
+// at once. So every ghost equals pad_ghost's composition bit for bit, with no
+// second launch. A buffer with no extrapolating side takes an instantiation
+// without extrapolation's code (kExtrap false), whose registers are fewer.
+
+constexpr int kRowsC = 1;  // rows a thread of C takes
+
+template <typename T>
+struct ShellBC {
+  int kind[2];
+  int degree[2];
+  T w[2][LSM_GHOST][LSM_MAX_DEGREE + 1];  // [side][k-1][j]
+};
+
+template <typename T>
+struct Shell3 {
+  int n[3];
+  uint32_t S1, S2, plane;  // padded extents of axes 1 and 2; S1 * S2
+  uint32_t cnt_e1, cnt_e2, cnt_e3, cnt_a, cnt_b, cnt_c;
+  uint32_t rows_c;  // C's rows over kRowsC
+  ShellBC<T> bc[3];
+};
+
+// padded index of ghost slot g in [0, 6) of an axis of n nodes, and its side
+// and distance k
+__device__ __forceinline__ int slot_pos(int g, int n) { return g < LSM_GHOST ? g : n + g; }
+__device__ __forceinline__ int slot_side(int g) { return g < LSM_GHOST ? 0 : 1; }
+__device__ __forceinline__ int slot_dist(int g) { return g < LSM_GHOST ? LSM_GHOST - g : g - 2; }
+
+// The P + 1 nodes node(m) an extrapolation on `side` of a line of n nodes
+// reads, loaded at once (ghost_of's loop waits for each load in turn), and a
+// ghost's sum over them in ghost_of's order.
+template <typename T, typename Node>
+__device__ __forceinline__ void extrap_nodes(int P, int side, int n, Node node,
+                                             T (&x)[LSM_MAX_DEGREE + 1]) {
+  const int m0 = side == 0 ? 0 : n - 1, step = side == 0 ? 1 : -1;
+#pragma unroll
+  for (int j = 0; j <= LSM_MAX_DEGREE; ++j) x[j] = j <= P ? node(m0 + j * step) : T(0);
+}
+template <typename T>
+__device__ __forceinline__ T extrap_sum(int P, const T* w, const T (&x)[LSM_MAX_DEGREE + 1]) {
+  T val = mul_add_rn(T(0), w[0], x[0]);
+#pragma unroll
+  for (int j = 1; j <= LSM_MAX_DEGREE; ++j)
+    if (j <= P) val = mul_add_rn(val, w[j], x[j]);
+  return val;
+}
+
+// ghost_of's value; without extrapolation (kExtrap false) a copy of the node
+// a periodic or symmetry ghost takes.
+template <typename T, bool kExtrap, typename Node>
+__device__ __forceinline__ T ghost3(const ShellBC<T>& bc, int side, int k, int n, Node node) {
+  if constexpr (kExtrap) {
+    return ghost_of<T>(bc, side, k, n, node);
+  } else {  // periodic: ghost -k <- node n-1-k, n-1+k <- k; symmetry the mirror
+    return node((bc.kind[side] == LSM_BC_SYMMETRY) == (side == 0) ? k : n - 1 - k);
+  }
+}
+
+// The ghosts of slots [g_lo, g_hi) of a line of n nodes node(m) into val,
+// ghost_of's values; an extrapolating side's nodes loaded once for its ghosts.
+template <typename T, bool kExtrap, typename Node>
+__device__ __forceinline__ void line_ghosts(const ShellBC<T>& bc, int n, int g_lo, int g_hi,
+                                            Node node, T (&val)[2 * LSM_GHOST]) {
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    if (g_hi <= side * LSM_GHOST || g_lo >= (side + 1) * LSM_GHOST) continue;
+    if (kExtrap && bc.kind[side] == LSM_BC_EXTRAPOLATION) {
+      T x[LSM_MAX_DEGREE + 1];
+      extrap_nodes<T>(bc.degree[side], side, n, node, x);
+#pragma unroll
+      for (int g = side * LSM_GHOST; g < (side + 1) * LSM_GHOST; ++g)
+        if (g >= g_lo && g < g_hi)
+          val[g] = extrap_sum(bc.degree[side], bc.w[side][slot_dist(g) - 1], x);
+    } else {
+#pragma unroll
+      for (int g = side * LSM_GHOST; g < (side + 1) * LSM_GHOST; ++g)
+        if (g >= g_lo && g < g_hi) val[g] = ghost3<T, false>(bc, side, slot_dist(g), n, node);
+    }
+  }
+}
+
+// The ghost at padded (i, j, k), a ghost of two or three axes: the
+// composition f2(f1(f0)) from the interior, with the BCs bc[3].
+template <typename T, bool kExtrap>
+__device__ __forceinline__ T edge_ghost(const T* __restrict__ P, const Shell3<T>& s,
+                                        const ShellBC<T>* bc, int i, int j, int k) {
+  const int n0 = s.n[0], n1 = s.n[1], n2 = s.n[2];
+  const auto inside = [](int p, int n) {
+    return static_cast<unsigned>(p - LSM_GHOST) < static_cast<unsigned>(n);
+  };
+  const auto f0 = [&](int i, int j, int k) -> T {  // j and k interior
+    const T* col = P + (static_cast<int64_t>(LSM_GHOST) * s.plane +
+                        (static_cast<uint32_t>(j) * s.S2 + k));
+    if (inside(i, n0)) return col[static_cast<int64_t>(i - LSM_GHOST) * s.plane];
+    const int g = i < LSM_GHOST ? i : i - n0;
+    return ghost3<T, kExtrap>(bc[0], slot_side(g), slot_dist(g), n0,
+                              [&](int m) { return col[static_cast<int64_t>(m) * s.plane]; });
+  };
+  const auto f1 = [&](int i, int j, int k) -> T {  // k interior
+    if (inside(j, n1)) return f0(i, j, k);
+    const int g = j < LSM_GHOST ? j : j - n1;
+    return ghost3<T, kExtrap>(bc[1], slot_side(g), slot_dist(g), n1,
+                              [&](int m) { return f0(i, LSM_GHOST + m, k); });
+  };
+  if (inside(k, n2)) return f1(i, j, k);
+  const int g = k < LSM_GHOST ? k : k - n2;
+  return ghost3<T, kExtrap>(bc[2], slot_side(g), slot_dist(g), n2,
+                            [&](int m) { return f1(i, j, LSM_GHOST + m); });
+}
+
+template <typename T, bool kExtrap>
+__global__ void __launch_bounds__(kThreads, 6) refresh_3d_kernel(T* __restrict__ P, Shell3<T> s) {
+  // the BCs in shared memory: a warp's lanes read other ghosts' weights
+  // without the constant cache serialising them
+  __shared__ ShellBC<T> bc[3];
+  constexpr int kW = 2 * LSM_GHOST * (LSM_MAX_DEGREE + 1);  // weights of an axis
+  for (int e = threadIdx.x; e < 3 * kW; e += kThreads) {
+    const int axis = e / kW, r = e % kW, side = r / (kW / 2);
+    const int k = r / (LSM_MAX_DEGREE + 1) % LSM_GHOST, j = r % (LSM_MAX_DEGREE + 1);
+    bc[axis].w[side][k][j] = s.bc[axis].w[side][k][j];
+  }
+  if (threadIdx.x < 6) {
+    bc[threadIdx.x / 2].kind[threadIdx.x % 2] = s.bc[threadIdx.x / 2].kind[threadIdx.x % 2];
+    bc[threadIdx.x / 2].degree[threadIdx.x % 2] = s.bc[threadIdx.x / 2].degree[threadIdx.x % 2];
+  }
+  __syncthreads();
+  uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+  const int n0 = s.n[0], n1 = s.n[1], n2 = s.n[2];
+  constexpr int G2 = 2 * LSM_GHOST;
+  const auto at = [&](int i, int j, int k) {
+    return P + (static_cast<int64_t>(i) * s.plane + (static_cast<uint32_t>(j) * s.S2 + k));
+  };
+  if (t < s.cnt_e1 + s.cnt_e2 + s.cnt_e3) {  // E: an edge or vertex ghost
+    int i, j, k;
+    if (t < s.cnt_e1) {  // i and j ghosts, any k
+      const uint32_t r = t / s.S2, g0 = r / G2;
+      k = static_cast<int>(t - r * s.S2);
+      i = slot_pos(static_cast<int>(g0), n0);
+      j = slot_pos(static_cast<int>(r - g0 * G2), n1);
+    } else if ((t -= s.cnt_e1) < s.cnt_e2) {  // i and k ghosts, j interior
+      const uint32_t r = t / G2, g0 = r / static_cast<uint32_t>(n1);
+      k = slot_pos(static_cast<int>(t - r * G2), n2);
+      i = slot_pos(static_cast<int>(g0), n0);
+      j = LSM_GHOST + static_cast<int>(r - g0 * static_cast<uint32_t>(n1));
+    } else {  // j and k ghosts, i interior
+      t -= s.cnt_e2;
+      const uint32_t r = t / G2, mi = r / G2;
+      k = slot_pos(static_cast<int>(t - r * G2), n2);
+      j = slot_pos(static_cast<int>(r - mi * G2), n1);
+      i = LSM_GHOST + static_cast<int>(mi);
+    }
+    *at(i, j, k) = edge_ghost<T, kExtrap>(P, s, bc, i, j, k);
+    return;
+  }
+  t -= s.cnt_e1 + s.cnt_e2 + s.cnt_e3;
+  // A, B, C: ghosts of a line whose other coordinates are interior
+  int axis;
+  T* line;  // padded index 0 of the line
+  int64_t step;
+  if (t < s.cnt_a) {  // A: axis 0 at the interior column (j, k)
+    axis = 0;
+    const uint32_t mj = t / static_cast<uint32_t>(n2);
+    line = at(0, LSM_GHOST + mj, LSM_GHOST + (t - mj * static_cast<uint32_t>(n2)));
+    step = s.plane;
+  } else if ((t -= s.cnt_a) < s.cnt_b) {  // B: axis 1 at the interior (i, k)
+    axis = 1;
+    const uint32_t mi = t / static_cast<uint32_t>(n2);
+    line = at(LSM_GHOST + mi, 0, LSM_GHOST + (t - mi * static_cast<uint32_t>(n2)));
+    step = s.S2;
+  } else if ((t -= s.cnt_b) < s.cnt_c) {  // C: slot g of kRowsC interior rows, rows_c apart
+    const uint32_t rg = t / G2, rows = static_cast<uint32_t>(n0) * static_cast<uint32_t>(n1);
+    const int g = static_cast<int>(t - rg * G2);
+    T v[kRowsC];
+    T* dst[kRowsC];
+#pragma unroll
+    for (int u = 0; u < kRowsC; ++u) {
+      const uint32_t r = rg + u * s.rows_c, mi = r / static_cast<uint32_t>(n1);
+      dst[u] = nullptr;
+      if (r >= rows) continue;
+      T* row = at(LSM_GHOST + mi, LSM_GHOST + (r - mi * static_cast<uint32_t>(n1)), 0);
+      const T* node = row + LSM_GHOST;
+      T val[G2];
+      line_ghosts<T, kExtrap>(bc[2], n2, g, g + 1, [&](int m) { return node[m]; }, val);
+#pragma unroll
+      for (int q = 0; q < G2; ++q)
+        if (q == g) v[u] = val[q];
+      dst[u] = row + slot_pos(g, n2);
+    }
+#pragma unroll
+    for (int u = 0; u < kRowsC; ++u)
+      if (dst[u] != nullptr) *dst[u] = v[u];
+    return;
+  } else {
+    return;
+  }
+  const int n = s.n[axis];
+  const T* node = line + LSM_GHOST * step;
+  T val[G2];
+  line_ghosts<T, kExtrap>(bc[axis], n, 0, G2, [&](int m) { return node[m * step]; }, val);
+#pragma unroll
+  for (int g = 0; g < G2; ++g) line[slot_pos(g, n) * step] = val[g];
+}
+
+// One launch when its threads allow 32-bit indices; beyond them the three
+// launches of launch_refresh.
+template <typename T>
+int launch_refresh_3d(void* P, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
+                      const int* degrees, const double* weights, void* stream) {
+  const int64_t S1 = n1 + 2 * LSM_GHOST, S2 = n2 + 2 * LSM_GHOST;
+  constexpr int64_t G2 = 2 * LSM_GHOST;
+  const int64_t cnt_e1 = G2 * G2 * S2, cnt_e2 = G2 * G2 * n1, cnt_e3 = G2 * G2 * n0,
+                cnt_a = n1 * n2, cnt_b = n0 * n2, rows_c = (n0 * n1 + kRowsC - 1) / kRowsC,
+                cnt_c = rows_c * G2;
+  const int64_t total = cnt_e1 + cnt_e2 + cnt_e3 + cnt_a + cnt_b + cnt_c;
+  if (total + kThreads >= (int64_t{1} << 31) || S1 * S2 >= (int64_t{1} << 31))
+    return launch_refresh<T>(P, n0, n1, n2, kinds, degrees, weights, nullptr, stream);
+  Shell3<T> s;
+  const int64_t n[3] = {n0, n1, n2};
+  for (int axis = 0; axis < 3; ++axis) {
+    s.n[axis] = static_cast<int>(n[axis]);
+    for (int side = 0; side < 2; ++side) {
+      const int a = 2 * axis + side;
+      s.bc[axis].kind[side] = kinds[a];
+      s.bc[axis].degree[side] = degrees[a];
+      for (int k = 0; k < LSM_GHOST; ++k)
+        for (int j = 0; j <= LSM_MAX_DEGREE; ++j)
+          s.bc[axis].w[side][k][j] =
+              static_cast<T>(weights[(a * LSM_GHOST + k) * (LSM_MAX_DEGREE + 1) + j]);
+    }
+  }
+  s.S1 = static_cast<uint32_t>(S1);
+  s.S2 = static_cast<uint32_t>(S2);
+  s.plane = static_cast<uint32_t>(S1 * S2);
+  s.cnt_e1 = static_cast<uint32_t>(cnt_e1);
+  s.cnt_e2 = static_cast<uint32_t>(cnt_e2);
+  s.cnt_e3 = static_cast<uint32_t>(cnt_e3);
+  s.cnt_a = static_cast<uint32_t>(cnt_a);
+  s.cnt_b = static_cast<uint32_t>(cnt_b);
+  s.cnt_c = static_cast<uint32_t>(cnt_c);
+  s.rows_c = static_cast<uint32_t>(rows_c);
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  bool extrap = false;  // the kernel without extrapolation's code when no side takes it
+  for (int a = 0; a < 6; ++a) extrap |= kinds[a] == LSM_BC_EXTRAPOLATION;
+  const auto kernel = extrap ? refresh_3d_kernel<T, true> : refresh_3d_kernel<T, false>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<T*>(P), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int lsm_refresh_ghosts_2d_f32(void* P, int64_t n0, int64_t n1, const int* kinds,
@@ -296,13 +574,13 @@ extern "C" int lsm_refresh_ghosts_2d_f64(void* P, int64_t n0, int64_t n1, const 
 extern "C" int lsm_refresh_ghosts_f32(void* P, int64_t n0, int64_t n1, int64_t n2,
                                       const int* kinds, const int* degrees,
                                       const double* weights, void* stream) {
-  return launch_refresh<float>(P, n0, n1, n2, kinds, degrees, weights, nullptr, stream);
+  return launch_refresh_3d<float>(P, n0, n1, n2, kinds, degrees, weights, stream);
 }
 
 extern "C" int lsm_refresh_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n2,
                                       const int* kinds, const int* degrees,
                                       const double* weights, void* stream) {
-  return launch_refresh<double>(P, n0, n1, n2, kinds, degrees, weights, nullptr, stream);
+  return launch_refresh_3d<double>(P, n0, n1, n2, kinds, degrees, weights, stream);
 }
 
 extern "C" int lsm_refresh_axis_f32(void* P, int64_t n0, int64_t n1, int64_t n2, int axis,

@@ -130,6 +130,7 @@ class Library:
         vp, i64, f64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, ctypes.c_int
         stage_args = [vp] * 6 + [i64] * 3 + [f64] * 6 + [vp]
         ghost_args = [vp] + [i64] * 3 + [vp] * 3 + [vp]
+        fold_args = [vp, vp] + [i64] * 3 + [vp] * 3 + [vp]
         bwd_args = [vp] * 13 + [i64] * 3 + [f64] * 6 + [ci, vp]
         bwd_terms_args = [vp] * 7 + [i64] * 3 + [vp, vp, ci, vp]
         bwd_prog_args = [vp] * 7 + [i64] * 3 + [vp, ci, ci, vp]
@@ -166,7 +167,7 @@ class Library:
                  "stage_bwd": ("lsm_stage_bwd", bwd_args),
                  "stage_bwd_terms": ("lsm_stage_bwd_terms", bwd_terms_args),
                  "stage_bwd_prog": ("lsm_stage_bwd_prog", bwd_prog_args),
-                 "fold": ("lsm_fold_ghosts", ghost_args),
+                 "fold": ("lsm_fold_ghosts", fold_args),
                  "zero_shells": ("lsm_zero_shells", zero_args),
                  "band_stage": ("lsm_band_stage", band_stage_args),
                  "band_stage_terms": ("lsm_band_stage_terms", band_terms_args),

@@ -26,8 +26,8 @@ tests and by the on-card comparison in ``chip_smoke.py``):
   :func:`fused_stage`).
 - :func:`refresh_ghosts_fast` (K2, ``csrc/refresh_ghosts.cu``; plain
   :func:`refresh_ghosts_plain`) rewrites the ghost shells in place from the
-  interior: axis 0, then axis 1, then axis 2, so corner ghosts equal
-  ``pad_ghost(values, bcs, 3)`` (a 2D buffer's two axes in one launch);
+  interior as axis 0, then axis 1, then axis 2 would, so corner ghosts equal
+  ``pad_ghost(values, bcs, 3)`` (every axis in one launch);
   :func:`refresh_axis_fast` is one of the three 3D phases alone (plain
   :func:`refresh_axis_plain`).
 - :func:`fused_step_stage` is K1 + K2 as a ``torch.autograd.Function``
@@ -240,10 +240,10 @@ def refresh_ghosts_fast(padded: torch.Tensor, bcs, shape) -> torch.Tensor:
     """K2: refresh the ghost shells of a padded 3D or 2D buffer in place.
 
     Replaces ``lsm_tpu.ops.weno_v2.refresh_ghosts_fast``. CUDA tensors go to
-    ``csrc/refresh_ghosts.cu`` (3D: three launches, axis 0, 1, 2; 2D: one
-    launch, whose corner ghosts recompute the axis-0 values they read, bit
-    for bit ``pad_ghost``'s), CPU tensors to :func:`refresh_ghosts_plain`.
-    Returns ``padded``.
+    ``csrc/refresh_ghosts.cu`` (one launch, 3D or 2D, whose edge and corner
+    ghosts recompute the earlier axes' values they read, bit for bit
+    ``pad_ghost``'s), CPU tensors to :func:`refresh_ghosts_plain`. Returns
+    ``padded``.
     """
     shape = tuple(shape)
     if len(shape) not in (2, 3):
@@ -1130,10 +1130,10 @@ class _FusedStepStage(torch.autograd.Function):
         terms = _unflatten(specs, counts, streams)
         need = ctx.needs_input_grad  # P, aux, alpha, beta, gamma, t, statics, *streams
         need_dt = need[5] and needs_t(terms)
-        # K4 folds in place, so it gets a copy: autograd may hand this node
-        # the caller's grad_outputs, or one buffer shared with another branch
-        gf = (bwd.fold_ghost_cotangent_fast(g.clone(memory_format=torch.contiguous_format),
-                                            bcs, shape) if refresh else g.contiguous())
+        # K4 writes a new buffer and leaves g alone: autograd may hand this
+        # node the caller's grad_outputs, or one buffer shared with another branch
+        g = g.contiguous()
+        gf = bwd.fold_ghost_cotangent_fast(g, bcs, shape) if refresh else g
         if is_advection_only(terms):
             spec, arrs = terms[0]
             dP, dstreams, dcoef, daux = bwd.stage_backward(

@@ -3,10 +3,11 @@
 version, and the autograd oracle they are held against.
 
 - :func:`fold_ghost_cotangent_fast` (K4, ``csrc/fold_ghosts.cu``; plain
-  :func:`fold_ghost_cotangent_plain`) folds the cotangents on a padded
-  buffer's ghost shells into its interior, in place, and zeroes the shells:
-  the transpose of the ghost refresh K2. :func:`fold_ghost_cotangent` is the
-  same map as the autograd VJP of :func:`~.weno_v2.pack_padded` (the oracle).
+  :func:`fold_ghost_cotangent_plain`, in place) folds the cotangents on a
+  padded buffer's ghost shells into its interior, with zero shells, into a
+  new buffer: the transpose of the ghost refresh K2.
+  :func:`fold_ghost_cotangent` is the same map as the autograd VJP of
+  :func:`~.weno_v2.pack_padded` (the oracle).
 - :func:`zero_pad_shells` (K5, ``csrc/fold_ghosts.cu``; plain
   :func:`zero_pad_shells_plain`) zeroes the ghost shells in place.
 - :func:`stage_backward` (K3, ``csrc/stage_backward.cu``; plain
@@ -128,12 +129,14 @@ def fold_ghost_cotangent_plain(g: torch.Tensor, bcs, shape) -> torch.Tensor:
 
 
 def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
-    """K4: fold the ghost-shell cotangents of the padded ``g`` into its
-    interior and zero the shells, in place; returns ``g``.
+    """K4: a new padded buffer holding ``g``'s interior with the ghost-shell
+    cotangents of ``g`` folded into it, and zero shells; ``g`` is left as it
+    is.
 
     Replaces ``lsm_tpu.ops.weno_v2_bwd.fold_ghost_cotangent_fast``. CUDA
-    tensors go to ``csrc/fold_ghosts.cu`` (three launches: axis 2, 1, 0), CPU
-    tensors to :func:`fold_ghost_cotangent_plain`. On CUDA the kernel takes
+    tensors go to ``csrc/fold_ghosts.cu`` (one launch: each interior node
+    gathers its contributions in the plain version's order), CPU tensors to
+    :func:`fold_ghost_cotangent_plain` on a copy. On CUDA the kernel takes
     axes of >= 4 nodes with what K2 takes there (Extrapolation of degree <=
     7 and <= n - 1) and raises ``NotImplementedError`` otherwise.
     """
@@ -142,7 +145,7 @@ def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
         raise ValueError(f"the ghost fold is 3D only, got shape {shape}")
     v2._check(g, "g", v2.padded_shape(shape))
     if g.device.type == "cpu":
-        return fold_ghost_cotangent_plain(g, bcs, shape)
+        return fold_ghost_cotangent_plain(g.clone(), bcs, shape)
     if min(shape) < G + 1:
         raise NotImplementedError(
             f"the ghost fold of an axis of fewer than {G + 1} nodes, shape {shape}, is not "
@@ -153,12 +156,14 @@ def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
         raise NotImplementedError(f"{e} (ROADMAP.md queue 2, K2 degree)") from e
     lib = load_library()
     fn = lib.fold_f32 if g.dtype == torch.float32 else lib.fold_f64
-    with torch.cuda.device(g.device):
-        code = fn(g.data_ptr(), *shape, ctypes.addressof(kinds), ctypes.addressof(degrees),
-                  ctypes.addressof(weights), _stream())
+    gf = torch.empty_like(g)
+    ctx, stream = v2._on_card(g)
+    with ctx:
+        code = fn(g.data_ptr(), gf.data_ptr(), *shape, ctypes.addressof(kinds),
+                  ctypes.addressof(degrees), ctypes.addressof(weights), stream)
     v2._raise_on(code, lib, "fold_ghosts kernel")
     bump(fold_ghost_cotangent_fast, launches=1)
-    return g
+    return gf
 
 
 fold_ghost_cotangent_fast.launches = 0
@@ -189,8 +194,9 @@ def zero_pad_shells(buf: torch.Tensor, shape) -> torch.Tensor:
         return zero_pad_shells_plain(buf, shape)
     lib = load_library()
     fn = lib.zero_shells_f32 if buf.dtype == torch.float32 else lib.zero_shells_f64
-    with torch.cuda.device(buf.device):
-        code = fn(buf.data_ptr(), *shape, _stream())
+    ctx, stream = v2._on_card(buf)
+    with ctx:
+        code = fn(buf.data_ptr(), *shape, stream)
     v2._raise_on(code, lib, "zero_shells kernel")
     bump(zero_pad_shells, launches=1)
     return buf

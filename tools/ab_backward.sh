@@ -6,7 +6,13 @@
 # in-kernel, K3' on config A's and config C's (dense) stage-1 inputs; then,
 # unless KERNELS_ONLY=1, cell (a) (value_and_grad of one FE step, streamed),
 # cell (b) (a 20-step RK3 rollout under remat, ms per step) and the kinds
-# gradient (3 RK3 steps, ms per value_and_grad).
+# gradient (3 RK3 steps, ms per value_and_grad), each with its peak memory. Before that line each tree
+# prints its ghost-shell kernel line (tools/ghost_shells.py, run from this
+# script's tree on the other's sources): K2's 3D entry and the fold as that
+# tree's stage backward runs it (a copy of the cotangent, then K4 in place;
+# or K4 out of place alone), beside g.clone(), each by CUDA events, back to
+# back and by device time, on the flagship's Periodic state and on config
+# A's Extrapolation(2).
 #
 # From the repository root, on a machine with one H100:
 #   git archive <parent> | tar -x -C _archive/parent
@@ -14,8 +20,10 @@
 set -euo pipefail
 first=${1:?first tree}
 second=${2:?second tree}
+here=$(cd "$(dirname "$0")" && pwd)
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 for tree in "$first" "$second" "$second" "$first"; do
+  (cd "$tree" && python3 "$here/ghost_shells.py" "$tree")
   (cd "$tree" && python3 - "$tree" "${KERNELS_ONLY:-0}" <<'EOF'
 import sys
 import torch
@@ -64,18 +72,19 @@ if sys.argv[2] != "1":
         return torch.autograd.grad(loss, (phiv, velv))
 
     out["cellA_streamed_ms"] = cs.cuda_time(cell_a, reps=10)
-    out["cellB_ms_per_step"] = cs.cuda_time(
-        lambda: cs.rollout_grad(phi, phiv, dt_a, cs.ROLLOUT_STEPS, remat=True),
-        warmup=1, reps=5) / cs.ROLLOUT_STEPS
+    out["cellA_streamed_peak_GiB"] = cs.peak_gib(cell_a)
+    cell_b = lambda: cs.rollout_grad(phi, phiv, dt_a, cs.ROLLOUT_STEPS, remat=True)
+    out["cellB_ms_per_step"] = cs.cuda_time(cell_b, warmup=1, reps=5) / cs.ROLLOUT_STEPS
+    out["cellB_peak_GiB"] = cs.peak_gib(cell_b)
     del phiv, velv, phi, vel
     torch.cuda.empty_cache()
     tphi = cs.torus_field(n, dev)
     s = cs.c_term(tphi).speed.values
     dtg = 0.5 * float(lsm.compute_cfl(cs.grad_kinds_terms(tphi, s), tphi, 0.0))
-    out["grad_kinds_ms"] = cs.cuda_time(
-        lambda: cs.grad_kinds(tphi, tphi.values.clone().requires_grad_(),
-                              s.clone().requires_grad_(), dtg, cs.GRAD_KINDS_STEPS),
-        warmup=1, reps=3)
+    grad_kinds = lambda: cs.grad_kinds(tphi, tphi.values.clone().requires_grad_(),
+                                       s.clone().requires_grad_(), dtg, cs.GRAD_KINDS_STEPS)
+    out["grad_kinds_ms"] = cs.cuda_time(grad_kinds, warmup=1, reps=3)
+    out["grad_kinds_peak_GiB"] = cs.peak_gib(grad_kinds)
 print("AB", sys.argv[1], " ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
 EOF
   )

@@ -1,0 +1,188 @@
+"""What binds the ghost-shell pair: K2's 3D entry and K4 timed at 512^3 f32
+with parts of `lsm_tpu_torch/csrc/refresh_ghosts.cu` or `fold_ghosts.cu`
+taken out or changed.
+
+Each variant is one source with a text substitution, built by nvcc (the
+port's flags) into a library of its own under `lsm_tpu_torch/_build/`; the
+wrappers of `ops/weno_v2.py` and `ops/weno_v2_bwd.py` launch it on the
+flagship's Periodic state, on config A's `Extrapolation(2)` and on the
+flagship's field under mixed BCs with `Extrapolation(7)` (K2 on the packed
+state, K4 on a random cotangent). A variant that removes work
+computes something else: only its time is read. Variants run in turns (all,
+then all in reverse); each line gives the faster of a variant's two readings
+of the profiler's device time and of the CUDA-event median.
+
+From the repository root, on a machine with one H100:
+    python3 tools/shell_variants.py
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs  # noqa: E402
+import lsm_tpu_torch as lsm  # noqa: E402
+from lsm_tpu_torch.ops import _build  # noqa: E402
+from lsm_tpu_torch.ops import weno_v2 as v2  # noqa: E402
+from lsm_tpu_torch.ops import weno_v2_bwd as bwd  # noqa: E402
+
+_LINES_A = "  s.cnt_a = static_cast<uint32_t>(cnt_a);\n"
+_LINES_B = "  s.cnt_b = static_cast<uint32_t>(cnt_b);\n"
+_LINES_C = "  s.cnt_c = static_cast<uint32_t>(cnt_c);\n"
+_K2_ROWS = "constexpr int kRowsC = 1;"
+_EDGES_1 = "  s.cnt_e1 = static_cast<uint32_t>(cnt_e1);\n"
+_EDGES_2 = "  s.cnt_e2 = static_cast<uint32_t>(cnt_e2);\n"
+_EDGES_3 = "  s.cnt_e3 = static_cast<uint32_t>(cnt_e3);\n"
+_K2_BOUNDS = "__global__ void __launch_bounds__(kThreads, 6) refresh_3d_kernel("
+_K4_BOUNDS = "__global__ void __launch_bounds__(kThreads)\n    fold_kernel("
+_K4_NODES = "  uint32_t t = (blockIdx.x - before) * kThreads + threadIdx.x;\n"
+_K4_FLAT = "  if (upto > before) {\n"
+_K4_VECTORS = "constexpr int kVectors = 8;"
+_K4_FIRST = "  if (blockIdx.x < a.flat_blocks) {\n    const uint32_t before = blockIdx.x;\n"
+
+#: name: (what it shows, source, substitutions, kernels it touches)
+VARIANTS = {
+    "as built": ("the kernels", None, [], ("K2", "K4")),
+    "K2 axis-2 lines only": ("the interior rows' ends", "refresh_ghosts.cu",
+                             [(_LINES_A, "  s.cnt_a = 0;\n"), (_LINES_B, "  s.cnt_b = 0;\n")],
+                             ("K2",)),
+    "K2 axis-0 and axis-1 lines only": ("the ghost planes and rows", "refresh_ghosts.cu",
+                                        [(_LINES_C, "  s.cnt_c = 0;\n")], ("K2",)),
+    "K2 without the edge ghosts": ("lines only", "refresh_ghosts.cu",
+                                   [(_EDGES_1, "  s.cnt_e1 = 0;\n"), (_EDGES_2, "  s.cnt_e2 = 0;\n"),
+                                    (_EDGES_3, "  s.cnt_e3 = 0;\n")], ("K2",)),
+    "K2 edge ghosts only": ("the ghosts of two or three axes", "refresh_ghosts.cu",
+                            [(_LINES_A, "  s.cnt_a = 0;\n"), (_LINES_B, "  s.cnt_b = 0;\n"),
+                             (_LINES_C, "  s.cnt_c = 0;\n")], ("K2",)),
+    "K2 two rows a thread of C": ("two loads in flight a thread at the row ends",
+                                  "refresh_ghosts.cu",
+                                  [(_K2_ROWS, _K2_ROWS.replace("1;", "2;"))], ("K2",)),
+    "K2 four rows a thread of C": ("four loads in flight a thread at the row ends",
+                                   "refresh_ghosts.cu",
+                                   [(_K2_ROWS, _K2_ROWS.replace("1;", "4;"))], ("K2",)),
+    "K2 at most 64 registers": ("four blocks an SM", "refresh_ghosts.cu",
+                                [(_K2_BOUNDS, _K2_BOUNDS.replace("(kThreads, 6)", "(kThreads, 4)"))],
+                                ("K2",)),
+    "K2 at most 32 registers": ("eight blocks an SM", "refresh_ghosts.cu",
+                                [(_K2_BOUNDS, _K2_BOUNDS.replace("(kThreads, 6)", "(kThreads, 8)"))],
+                                ("K2",)),
+    "K4 flat pass only": ("the strip rows' nodes left out", "fold_ghosts.cu",
+                          [(_K4_NODES, "  if (a.flat_blocks != 0) return;\n" + _K4_NODES)],
+                          ("K4",)),
+    "K4 strip rows only": ("the flat pass left out", "fold_ghosts.cu",
+                           [(_K4_FLAT, _K4_FLAT + "    if (a.cnt_planes != 0) return;\n")],
+                           ("K4",)),
+    "K4 flat blocks first": ("the flat pass's blocks, then the strip rows'", "fold_ghosts.cu",
+                             [(_K4_FLAT, _K4_FIRST),
+                              (_K4_NODES, _K4_NODES.replace("before", "a.flat_blocks"))],
+                             ("K4",)),
+    "K4 four vectors a thread": ("64 bytes in flight a thread", "fold_ghosts.cu",
+                                 [(_K4_VECTORS, _K4_VECTORS.replace("8;", "4;"))], ("K4",)),
+    "K4 at most 64 registers": ("four blocks an SM", "fold_ghosts.cu",
+                                [(_K4_BOUNDS, _K4_BOUNDS.replace("(kThreads)", "(kThreads, 4)"))],
+                                ("K4",)),
+}
+
+
+class _Lib:
+    """K2's and K4's entries of one variant's library, beside the main
+    library's others."""
+
+    def __init__(self, path, main):
+        lib = ctypes.CDLL(str(path))
+        vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        for attr, name, args in (("refresh", "lsm_refresh_ghosts", [vp] + [i64] * 3 + [vp] * 4),
+                                 ("fold", "lsm_fold_ghosts", [vp, vp] + [i64] * 3 + [vp] * 4)):
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"{name}_{suffix}", None)
+                if fn is None:
+                    fn = getattr(main, f"{attr}_{suffix}")
+                else:
+                    fn.argtypes, fn.restype = args, ci
+                setattr(self, f"{attr}_{suffix}", fn)
+        self._lib, self.error_string = lib, main.error_string
+
+
+def build(main):
+    """Every variant's library, built in parallel: ``{name: _Lib}``."""
+    out_dir = _build.BUILD_DIR / "shell_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc, cmds = _build.find_nvcc(), {}
+    for n, (name, (_, source, subs, _)) in enumerate(VARIANTS.items()):
+        if source is None:
+            continue
+        src = (_build.CSRC / source).read_text()
+        for old, new in subs:
+            if src.count(old) != 1:
+                raise RuntimeError(f"variant {name!r}: its anchor is not in the source once")
+            src = src.replace(old, new)
+        cu = out_dir / f"v{n}.cu"
+        cu.write_text(src)
+        cmds[name] = [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o",
+                      str(out_dir / f"libv{n}.so"), str(cu)]
+    procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True) for name, cmd in cmds.items()}
+    libs = {"as built": main}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {name!r} does not build:\n{log[-4000:]}")
+        libs[name] = _Lib(cmds[name][-2], main)
+        lines = log.splitlines()
+        regs = [" ".join(lines[n + 1:n + 3]) for n, line in enumerate(lines)
+                if "Compiling entry" in line and ("refresh_3d_kernel" in line
+                                                  or "fold_kernel" in line)]
+        print(f"BUILD {name}: " + " | ".join(regs), flush=True)
+    return libs
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("shell_variants: no CUDA device")
+    dev = torch.device("cuda", 0)
+    libs = build(_build.load_library())
+    _, phi, _ = cs.zalesak(cs.N_MAIN, dev)
+    torus = cs.torus_field(cs.N_MAIN, dev)
+    mixed7 = lsm.normalize_bcs([(lsm.Extrapolation(7), lsm.Symmetry()), lsm.Periodic(),
+                                (lsm.Symmetry(), lsm.Extrapolation(5))], 3)
+    states = {"periodic": (phi.values, phi.bcs), "extrap2": (torus.values, torus.bcs),
+              "mixed7": (phi.values, mixed7)}
+    calls = {}
+    for label, (values, bcs) in states.items():
+        shape = tuple(values.shape)
+        P = v2.pack_padded(values, bcs)
+        G = torch.randn(v2.padded_shape(shape),
+                        generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+        calls[("K2", label)] = lambda P=P, bcs=bcs, shape=shape: v2.refresh_ghosts_fast(
+            P, bcs, shape)
+        calls[("K4", label)] = lambda G=G, bcs=bcs, shape=shape: bwd.fold_ghost_cotangent_fast(
+            G, bcs, shape)
+    del phi, torus, states
+    times = {name: {} for name in VARIANTS}
+    loaders = v2.load_library, bwd.load_library
+    try:
+        for name in [*VARIANTS, *reversed(VARIANTS)]:
+            v2.load_library = bwd.load_library = lambda lib=libs[name]: lib
+            for (kernel, label), fn in calls.items():
+                if kernel not in VARIANTS[name][3]:
+                    continue
+                for key, ms in ((f"{kernel} {label} device", cs.device_ms(fn)),
+                                (f"{kernel} {label} event", cs.cuda_time(fn))):
+                    times[name][key] = min(times[name].get(key, ms), ms)
+    finally:
+        v2.load_library, bwd.load_library = loaders
+    print(cs.nvidia_smi())
+    for name, (what, *_rest) in VARIANTS.items():
+        print(f"VARIANT {name} ({what}): "
+              + " ".join(f"{k} {v:.4f} ms" for k, v in times[name].items()), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
