@@ -132,7 +132,22 @@ phases (a partial run: no kernel record):
              launch; D2h, D2 with a posthook: K11; D1, upwind: no kernel);
              K1, K1'', K1' 2D vs plain on each one's state (a second launch
              equal bits), K2 2D and K11 vs plain at 4096^2; 256^2 card vs
-             CPU; a 2D gradient refused.
+             CPU.
+    grad_2d — the dense 2D gradient (this slice's path): K4 and K5 2D bit for
+             bit vs their plain versions at k2_small's shapes and BC cases (and
+             a 3-node axis), f32 and f64 (input untouched, again and misaligned
+             equal bits); K3/K3''/K3' 2D in f64 vs plain and in f32 vs the f64
+             autograd oracle, twice equal bits; K3/K3''/K3' 2D at 4096^2 on
+             the 2D cells' stage inputs, f32 vs the f64 plain version of
+             sub-boxes (dP, du, daux, dcoef; 0 off the boxes); K4, K3 and
+             K3' on 3D fields with a short axis (axis 0, all, axis 2) and
+             their rollout gradients card vs CPU;
+             Extrapolation(3) on 3 nodes raising ValueError; the 2D cells'
+             gradients at 256^2 card vs CPU; grad2d (the rotation in-kernel and
+             streamed) and grad2d_kinds at 4096^2: launches (2D entries only,
+             no plain version called), ms per value_and_grad, peak memory; the
+             kernels' and the plain-autograd yardstick's times from
+             tools/grad_2d.py in a child process.
     general_small — card vs CPU: H and a band with hooks at 64^3,
              ``reinitialize`` at 64^3 f64, the general path's rollout
              gradient at 32^3 f64 (K10 launches in its forward).
@@ -299,11 +314,14 @@ N_CONFIG5_XL = 256  # its timed size (the plain band backward is O(grid) per sta
 # subgradients there; the card-vs-CPU checks add this much seeded noise
 CONFIG5_NOISE = 1e-6
 
-# the 2D entries of K6, K7 and K8 and of K1 (K1, K1', K1'') and K2, counted
-# apart (``launches_2d``) as well as in their wrapper's ``launches``
+# the 2D entries of K6, K7 and K8, of K1 (K1, K1', K1'') and K2, and of the
+# backward's K3 (K3, K3''), K3', K4 and K5, counted apart (``launches_2d``) as
+# well as in their wrapper's ``launches``
 TWOD_ENTRIES = {"K6 2D": bd.band_stage, "K7 2D": bd.refresh_band_ghosts_fast,
                 "K8 2D": bd.band_retube_incremental, "K1 2D": v2.fused_stage,
-                "K2 2D": v2.refresh_ghosts_fast}
+                "K2 2D": v2.refresh_ghosts_fast, "K3 2D": bwd.stage_backward,
+                "K3' 2D": bwd.stage_backward_terms, "K4 2D": bwd.fold_ghost_cotangent_fast,
+                "K5 2D": bwd.zero_pad_shells}
 COUNTED = {"K1": v2.fused_stage, "K2": v2.refresh_ghosts_fast, "K3": bwd.stage_backward,
            "K3'": bwd.stage_backward_terms,
            "K4": bwd.fold_ghost_cotangent_fast, "K5": bwd.zero_pad_shells,
@@ -3040,7 +3058,7 @@ def phase_twod(dev, res):
     launch's too), K2's 2D entry bit
     for bit against its plain version and ``pad_ghost`` there, K11 against
     its plain version on D2's inputs; card-vs-CPU trajectories at
-    N_2D_SMALL^2; a gradient through a dense 2D field on the card refused."""
+    N_2D_SMALL^2 (a gradient through a dense 2D field: the grad_2d phase)."""
     n, steps = N_2D, GENERAL_STEPS
     res.setdefault("k1_2d_err", {})
     for name, (path, per_stage, _) in TWOD.items():
@@ -3126,19 +3144,6 @@ def phase_twod(dev, res):
     del P, phi1, u
     torch.cuda.empty_cache()
     twod_card_vs_cpu(dev)
-    # a gradient through a dense 2D field on the card is refused before any stage runs
-    terms, phi, _ = config("D2", N_SMALL, dev)
-    try:
-        reset_counts()
-        lsm.rollout(lsm.RK3(), terms, phi.with_values(phi.values.clone().requires_grad_()),
-                    0.0, 1e-4, 2)
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    log("twod", f"gradient through a 2D rollout on the card: {refused!r}; launches before the "
-                f"refusal {read_counts()}")
-    if "2D gradient (K4 length-1 axis)" not in refused or read_counts() != NONE_LAUNCHED:
-        raise AssertionError("a gradient through a dense 2D field was not refused")
 
 
 def twod_card_vs_cpu(dev):
@@ -3158,6 +3163,556 @@ def twod_card_vs_cpu(dev):
             if not (a.last_nsteps == b.last_nsteps == KINDS_SMALL_STEPS
                     and math.isclose(a.t, b.t, rel_tol=T_TOL[dtype]) and err <= tol * scale):
                 raise AssertionError(f"{name} card-vs-CPU check failed ({dtype})")
+
+
+# -- the dense 2D gradient: the 2D entries of K4, K3/K3'', K3' and K5 --------------------
+
+GRAD2D_STEPS = 8  # grad2d: RK3 steps of rollout under remat, dt = 0.1 h
+GRAD2D_KINDS_STEPS = 3  # grad2d_kinds: configuration 4's terms at a streamed speed
+GRAD2D_SMALL_STEPS = 3  # their card-vs-CPU gradients at N_2D_SMALL^2
+# the seeded noise on phi0 of those checks, as grad_kinds' torus carries: on
+# the bare samples the f64 gradient moves by 1.8e-3 (grad2d) and 6e-4
+# (grad2d_kinds, Extrapolation(2)'s minmod ties) of its max under a 1-ulp
+# change of phi0 (on the CPU), and the card, which multiplies by 1/h^2 where
+# the plain stencils divide, took another subgradient there (4.4e-4 of max on
+# an H100); with the noise that spread is 1e-12 of max
+GRAD2D_NOISE = 1e-3
+#: the 2D stage adjoints' parity shapes: ragged rows, a short axis 0 (3 nodes,
+#: Extrapolation), more rows than columns
+BWD_2D_SHAPES = ((67, 131), (40, 72), (3, 40), (130, 33))
+#: tie-free BCs for the raw dP of the 2D adjoints (the WENO5 and ENO2 ties of
+#: Extrapolation(2): ROADMAP.md queue 3's lessons); a 3-node axis takes Extrapolation(1)
+BWD_2D_BCS = {"periodic": lsm.Periodic, "symmetry": lsm.Symmetry,
+              "extrap1": lsm.LinearExtrapolation}
+#: the 2D gradient cells at N_2D^2 f32: grad2d (configuration 2, the rotation
+#: in-kernel), grad2d_streamed (its velocity sampled on the grid), grad2d_kinds
+GRAD2D_CELLS = ("grad2d", "grad2d_streamed", "grad2d_kinds")
+# K3's 2D entry: the 3D count's two axes (202 each) and one
+K3_2D_OPS_PER_CELL = 2 * 202 + 1
+# K3' 2D on grad2d_kinds' terms (curvature + streamed normal motion),
+# estimated from the source as K3K_OPS: one Godunov adjoint over two axes (152
+# less one axis's ENO2, 40) and its 9 gather weights (4 each); one curvature
+# adjoint over two axes (96) and its 9 weights (3 each); the stage terms 4,
+# the stream cotangent 2
+K3K_OPS_2D = 112 + 9 * 4 + 96 + 9 * 3 + 4 + 2
+# the plain versions the 2D cells must not call (module, attribute): the
+# wrappers of K1, K2, K3, K3', K4 and K5 look them up per call
+PLAIN_VERSIONS = {"K1": (v2, "stage_plain"), "K2": (v2, "refresh_ghosts_plain"),
+                  "K3": (bwd, "stage_backward_plain"), "K3'": (bwd, "stage_backward_terms_plain"),
+                  "K4": (bwd, "fold_ghost_cotangent_plain"), "K5": (bwd, "zero_pad_shells_plain"),
+                  "autograd": (v2, "stage_refresh_plain")}
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of the kernels' plain versions while the block runs:
+    yields a Counter by :data:`PLAIN_VERSIONS` key."""
+    calls, saved = collections.Counter(), {}
+    for key, (mod, name) in PLAIN_VERSIONS.items():
+        fn = saved[(mod, name)] = getattr(mod, name)
+
+        def counted(*a, _fn=fn, _key=key, **kw):
+            calls[_key] += 1
+            return _fn(*a, **kw)
+
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def grad2d_cell(name, n, dev, dtype=torch.float32):
+    """A dense 2D gradient cell at ``n^2``: ``(phi, terms_of, s, dt, nsteps)``,
+    ``terms_of(s)`` its terms for the speed ``s`` (``None`` but for
+    grad2d_kinds). grad2d: configuration 2 (Zalesak disk, the rotation 2 pi
+    about (0.5, 0.5) traced in-kernel: K1'' 2D, K3'' 2D), Periodic, dt = 0.1 h,
+    GRAD2D_STEPS; grad2d_streamed: its velocity sampled on the grid (K1 2D,
+    K3 2D); grad2d_kinds: configuration 4's star on [-1, 1]^2, Extrapolation(2),
+    curvature -0.05 and normal motion at the streamed speed 0.2 + 0.05 x (K1'
+    2D, K3' 2D), dt half its CFL bound, GRAD2D_KINDS_STEPS."""
+    if name == "grad2d_kinds":
+        phi = bench.config4_curvature_normal(n, dtype=dtype, device=dev).state
+        s = lsm.sample(lambda x, y: 0.2 + 0.05 * x + 0.0 * y, phi.grid, dtype=dtype,
+                       device=dev).values
+
+        def terms_of(speed):
+            return (lsm.CurvatureTerm(-0.05), lsm.NormalMotionTerm(lsm.MeshField(speed, phi.grid)))
+
+        # the CFL bound in float64 (the same dt on the card and the CPU, either dtype)
+        dt = 0.5 * float(lsm.compute_cfl(terms_of(s.double()), phi.with_values(
+            phi.values.double()), 0.0))
+        return phi, terms_of, s, dt, GRAD2D_KINDS_STEPS
+    terms, phi, _ = config("D2" if name == "grad2d" else "D2s", n, dev, dtype)
+    return phi, (lambda speed: terms), None, 0.1 * phi.grid.min_spacing, GRAD2D_STEPS
+
+
+def grad2d_value_and_grad(phi, terms_of, s, dt, nsteps, v, remat=True):
+    """``L = sum(phi_final^2)`` of an RK3 ``rollout`` from ``v`` (under
+    remat) and its gradient w.r.t. ``v`` (and the speed ``s``)."""
+    s = None if s is None else s.detach().clone().requires_grad_()
+    out, _ = lsm.rollout(lsm.RK3(), terms_of(s), phi.with_values(v), 0.0, dt, nsteps,
+                         remat=remat)
+    loss = (out.values ** 2).sum()
+    return loss, torch.autograd.grad(loss, (v,) if s is None else (v, s))
+
+
+def grad2d_launches(name, nsteps):
+    """The launches of one value_and_grad of a 2D cell under remat: each
+    stage's K1 and K2 twice (the forward, then again in the backward), K4 and
+    K3 (K3'') or K3' once, K5 on the later stages' daux; all 2D entries."""
+    stages = 3 * nsteps
+    k3 = "K3'" if name == "grad2d_kinds" else "K3"
+    want = dict(NONE_LAUNCHED, **{"K1": 2 * stages, "K1 2D": 2 * stages, "K2": 2 * stages,
+                                  "K2 2D": 2 * stages, k3: stages, f"{k3} 2D": stages,
+                                  "K4": stages, "K4 2D": stages, "K5": 2 * nsteps,
+                                  "K5 2D": 2 * nsteps})
+    want.update({"grad2d": {"K1''": 2 * stages, "K3''": stages},
+                 "grad2d_streamed": {}, "grad2d_kinds": {"K1'": 2 * stages}}[name])
+    return want
+
+
+def bwd_2d_errs(got, ref, bcs, shape, fold):
+    """Worst ``max|got - ref| / max|ref|`` over a 2D stage adjoint's outputs:
+    dP (folded to the interior when ``fold``, else raw), each stream
+    cotangent, each entry of dcoef, daux's interior."""
+    pairs = [(bwd.fold_ghost_cotangent(got[0].double(), bcs, shape),
+              bwd.fold_ghost_cotangent(ref[0].double(), bcs, shape)) if fold
+             else (got[0], ref[0])]
+    pairs += list(zip(got[1] or (), ref[1] or ()))
+    pairs += [(got[2][k:k + 1], ref[2][k:k + 1]) for k in range(len(ref[2]))]
+    if ref[3] is not None:
+        pairs.append((v2.unpack_padded(got[3], shape), v2.unpack_padded(ref[3], shape)))
+    return max(rel_err(a, b) for a, b in pairs)
+
+
+def bwd_2d_cases(phi, gen):
+    """The 2D stage adjoints' cases on the field ``phi``: ``{label: (kernel
+    name, terms)}``: K3 (a streamed velocity with exact zeros: upwind ties),
+    K3'' (the rotation; the vortex, whose stage time takes a cotangent), K3'
+    (configuration 4's terms at a streamed speed with exact zeros, the
+    eikonal kind's two sign forms, a time-dependent program speed beside a
+    streamed curvature, an advection term beside normal motion)."""
+    shape, dtype, dev = phi.shape, phi.dtype, phi.values.device
+    vel = 0.3 * torch.randn((2, *shape), generator=gen, device=dev, dtype=dtype)
+    vel[1, :, ::4] = 0.0
+    s = 0.2 + 0.05 * torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+    s[:, ::3] = 0.0
+    mf = lambda x: lsm.MeshField(x, phi.grid)
+    lists = {
+        "K3 stream": ("K3 2D", (lsm.AdvectionTerm(mf(vel)),)),
+        "K3'' rotation": ("K3'' 2D", (lsm.AdvectionTerm(rotation2),)),
+        "K3'' vortex dt": ("K3'' 2D", (lsm.AdvectionTerm(shapes.vortex_velocity(period=4.0)),)),
+        "K3' config 4": ("K3' 2D", (lsm.CurvatureTerm(-0.05), lsm.NormalMotionTerm(mf(s)))),
+        "K3' eikonal none": ("K3' 2D", (lsm.EikonalReinitializationTerm(),)),
+        "K3' eikonal frozen": ("K3' 2D", (lsm.EikonalReinitializationTerm(mf(s)),)),
+        "K3' program + dt": ("K3' 2D", (lsm.NormalMotionTerm(
+            lambda xs, t: 0.1 + 0.05 * xs[0] + 0.02 * t * xs[1]), lsm.CurvatureTerm(mf(s)))),
+        "K3' advection + normal": ("K3' 2D", (lsm.AdvectionTerm(mf(vel)),
+                                              lsm.NormalMotionTerm(mf(s)))),
+    }
+    return {k: (kernel, FusedStepper(terms, phi, lsm.RK3()).entries)
+            for k, (kernel, terms) in lists.items()}
+
+
+def bwd_2d_run(P, terms, coeffs, aux, gf, sp, shape, where, plain=False):
+    """One 2D stage adjoint of ``terms`` (K3 or K3'' for one advection
+    term, else K3'), or its plain version."""
+    if v2.is_advection_only(terms):
+        spec, arrs = terms[0]
+        u = arrs if spec.coef_kind == "stream" else spec.coef_static
+        fn = bwd.stage_backward_plain if plain else bwd.stage_backward
+        return fn(P, u, coeffs, aux, gf, sp, shape, where=where, need_dt=True)
+    fn = bwd.stage_backward_terms_plain if plain else bwd.stage_backward_terms
+    return fn(P, terms, coeffs, aux, gf, sp, shape, where=where, need_dt=True)
+
+
+def grad2d_parity(dev, res):
+    """K3/K3''/K3' 2D at BWD_2D_SHAPES under BWD_2D_BCS (a 3-node axis:
+    extrap1 only), with and without aux, on a sampled Zalesak disk with a
+    little noise: f64 kernel vs f64 plain within 1e-10 (raw dP), f32 kernel
+    vs the f64 autograd oracle of the 2D stage and refresh (with float32's
+    WENO epsilon floor) within K3_TOL, dP folded to the interior (K3, K3''),
+    raw (K3'; under extrap1 against its f32 plain version, K3K_F32_VS_PLAIN);
+    a second launch equal bits."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    worst = collections.defaultdict(float)
+    where = v2.Where((0.0, 0.0), None, T_STAGE)
+    for shape in BWD_2D_SHAPES:
+        grid = lsm.Grid((0.0, 0.0), (1.0, 1.3), shape)
+        for bc_name, bc in BWD_2D_BCS.items():
+            if min(shape) < 4 and bc_name != "extrap1":
+                continue
+            phi64 = lsm.sample(shapes.zalesak_disk(), grid, bc(), dtype=torch.float64, device=dev)
+            phi64 = phi64.with_values(phi64.values + 1e-3 * torch.randn(
+                shape, generator=gen, device=dev, dtype=torch.float64))
+            bcs = phi64.bcs
+            P64 = v2.pack_padded(phi64.values, bcs)
+            A64 = v2.pack_padded(torch.randn(shape, generator=gen, device=dev,
+                                             dtype=torch.float64), bcs)
+            G64 = torch.randn(v2.padded_shape(shape), generator=gen, device=dev,
+                              dtype=torch.float64)
+            gf64 = bwd.fold_ghost_cotangent_fast(G64, bcs, shape)
+            sp = phi64.spacing
+            for label, (kernel, terms64) in bwd_2d_cases(phi64, gen).items():
+                terms32 = cast_terms(terms64, torch.float32)
+                fold = kernel != "K3' 2D"
+                for aux, coeffs in ((None, (0.0, 1.0, 0.03)), (A64, (0.75, 0.25, 0.03))):
+                    got = bwd_2d_run(P64, terms64, coeffs, aux, gf64, sp, shape, where)
+                    again = bwd_2d_run(P64, terms64, coeffs, aux, gf64, sp, shape, where)
+                    ref = bwd_2d_run(P64, terms64, coeffs, aux, gf64, sp, shape, where,
+                                     plain=True)
+                    e64 = bwd_2d_errs(got, ref, bcs, shape, fold=False)
+                    same = same_bits(got[0], again[0]) and all(
+                        same_bits(a, b) for a, b in zip(got[1] or (), again[1] or ()))
+                    d = lambda t: None if t is None else t.float()
+                    got32 = bwd_2d_run(d(P64), terms32, coeffs, d(aux),
+                                       bwd.fold_ghost_cotangent_fast(d(G64), bcs, shape), sp,
+                                       shape, where)
+                    if kernel == "K3' 2D" and bc_name in K3K_F32_VS_PLAIN:
+                        ref32 = bwd_2d_run(d(P64), terms32, coeffs, d(aux),
+                                           bwd.fold_ghost_cotangent_fast(d(G64), bcs, shape), sp,
+                                           shape, where, plain=True)
+                        against = "f32 plain"
+                    else:
+                        with f32_weno_floor():
+                            ref32 = bwd.composite_backward_autograd(P64, terms64, coeffs, aux,
+                                                                    G64, bcs, sp, shape, where)
+                        against = "f64 oracle"
+                    e32 = bwd_2d_errs(got32, ref32, bcs, shape, fold)
+                    log("grad_2d", f"{label:22s} {bc_name:8s} shape={shape} aux={aux is not None}"
+                                   f": f64 vs plain {e64:.2e} (tol 1e-10), f32 vs {against} "
+                                   f"{e32:.2e} (tol {K3_TOL:g}), a second launch equal bits {same}")
+                    if not (e64 <= 1e-10 and e32 <= K3_TOL and same
+                            and bool(torch.isfinite(got32[0]).all())):
+                        raise AssertionError(f"{label} at {shape} ({bc_name}): {e64} / {e32}")
+                    worst[kernel] = max(worst[kernel], e32)
+                    worst[f"{kernel} f64"] = max(worst[f"{kernel} f64"], e64)
+    res["k3_2d_rel"] = dict(worst)
+
+
+N2D_BOX = 64  # the side of the 4096^2 check's sub-boxes of outputs
+
+
+def _box_start(n, B, m):
+    """Padded start of a B-node box of outputs centred on interior node
+    ``m`` whose reach (the outputs within 3, and the P their stencils read)
+    stays in the interior: no ghost of the grid, so no BC, enters the
+    comparison."""
+    return min(max(m + 3 - B // 2, 9), n - B - 3)
+
+
+def grad2d_4096(dev, res):
+    """K3'' 2D, K3 2D and K3' 2D at N_2D^2 f32 on the inputs of grad2d,
+    grad2d_streamed and grad2d_kinds (the state, its streams and program as
+    their stepper packs them): stage 1, and an RK3 stage 2 on stage 1's
+    output with aux. Two N2D_BOX^2 boxes of outputs, one on the interface
+    and one at the far end of the index range (both clear of the grid's
+    ghosts), each against the f64 plain version of the box with its reach
+    (float32's WENO epsilon floor, :func:`f32_weno_floor`), within K3_TOL
+    relative to the box's max|ref|:
+      - with a random folded cotangent on the whole grid: dP, du and daux of
+        the box's outputs; every output finite; a second launch equal bits;
+      - with that cotangent zeroed off the boxes' outputs: dP, du and daux
+        over each box with its reach, and dcoef against the sum of the
+        boxes'; every element off the boxes exactly 0.
+    ``res["k3_2d_4096"]``: each kernel's worst relative and absolute error."""
+    B, n = N2D_BOX, N_2D
+    out = {}
+    for name in GRAD2D_CELLS:
+        kernel = {"grad2d": "K3'' 2D", "grad2d_streamed": "K3 2D",
+                  "grad2d_kinds": "K3' 2D"}[name]
+        phi, terms_of, s, dt, _ = grad2d_cell(name, n, dev)
+        grid, shape, bcs, sp = phi.grid, phi.shape, phi.bcs, phi.spacing
+        entries = FusedStepper(terms_of(s), phi, lsm.RK3()).entries
+        where = v2.Where(grid.lo)
+        P = v2.pack_padded(phi.values, bcs)
+        with torch.no_grad():
+            P1 = v2.fused_step_stage(P, entries, (0.0, 1.0, dt), None, bcs, sp, shape,
+                                     where=where)
+        G = torch.randn(v2.padded_shape(shape), generator=torch.Generator(
+            device=dev).manual_seed(20), device=dev)
+        gf = bwd.fold_ghost_cotangent_fast(G, bcs, shape)
+        del G
+        # on the interface along the middle row, and at the far corner
+        m = n // 2 + int(phi.values[n // 2, n // 2:].abs().argmin())
+        starts = ((_box_start(n, B, n // 2), _box_start(n, B, m)), (n - B - 3,) * 2)
+        gm = torch.zeros_like(gf)
+        in_p = torch.zeros(v2.padded_shape(shape), dtype=torch.bool, device=dev)
+        for a in starts:
+            reach = tuple(slice(x - 3, x + B + 3) for x in a)
+            gm[reach] = gf[reach]
+            in_p[tuple(slice(x - 6, x + B + 6) for x in a)] = True
+        in_i = v2.unpack_padded(in_p, shape)
+        rel = abs_ = 0.0
+        for label, src, aux, coeffs in (("stage 1", P, None, (0.0, 1.0, dt)),
+                                        ("RK3 stage 2", P1, P, (0.75, 0.25, 0.25 * dt))):
+            call = lambda g=gf: bwd_2d_run(src, entries, coeffs, aux, g, sp, shape, where)
+            got = call()
+            repeat_check("grad_2d", f"{kernel} {name} {label} {n}^2", call, got)
+            outs = [got[0], *(got[1] or ()), got[2]] + ([got[3]] if aux is not None else [])
+            finite = all(bool(torch.isfinite(t).all()) for t in outs)
+            masked = call(gm)
+            pairs, dcoef_ref = [], 0.0
+            for a in starts:
+                box = tuple(slice(x - 6, x + B + 6) for x in a)
+                box_i = tuple(slice(x - 6, x + B) for x in a)  # the box's reach, interior index
+                d = lambda t: None if t is None else t[box].double().contiguous()
+                sub = tuple((spec, tuple(c[box_i].double().contiguous() for c in arrs))
+                            for spec, arrs in entries)
+                with f32_weno_floor():
+                    ref = bwd_2d_run(d(src), sub, coeffs, d(aux), d(gm), sp, (B + 6,) * 2,
+                                     v2.Where(grid.lo, tuple(float(x - 6) for x in a)),
+                                     plain=True)
+                region = tuple(slice(x, x + B) for x in a)
+                region_i = tuple(slice(x - 3, x - 3 + B) for x in a)
+                inner_p, inner_i = (slice(6, 6 + B),) * 2, (slice(3, 3 + B),) * 2
+                pairs += [(f"dP {a}", got[0][region], ref[0][inner_p]),
+                          (f"dP reach {a}", masked[0][box], ref[0])]
+                for k, (g1, g2, r) in enumerate(zip(got[1] or (), masked[1] or (), ref[1] or ())):
+                    pairs += [(f"du{k} {a}", g1[region_i], r[inner_i]),
+                              (f"du{k} reach {a}", g2[box_i], r)]
+                if aux is not None:
+                    pairs += [(f"daux {a}", got[3][region], ref[3][inner_p]),
+                              (f"daux reach {a}", masked[3][box], ref[3])]
+                dcoef_ref = dcoef_ref + ref[2]
+            pairs += [(f"dcoef{k}", masked[2][k:k + 1], dcoef_ref[k:k + 1])
+                      for k in range(len(dcoef_ref))]
+            errs = {k: rel_err(g, r) for k, g, r in pairs}
+            worst_abs = max(float((g.double() - r).abs().max()) for _, g, r in pairs)
+            off = [masked[0][~in_p]] + [t[~in_i] for t in masked[1] or ()] + (
+                [masked[3][~in_p]] if aux is not None else [])
+            zero_off = not any(bool(t.any()) for t in off)
+            w = max(errs.values())
+            log("grad_2d", f"{kernel} {name} {label:11s} {n}^2 f32, boxes {B}^2 at {starts}: "
+                           f"worst {max(errs, key=errs.get)} {w:.2e}, max|err| {worst_abs:.3e} "
+                           f"(tol {K3_TOL:g}); " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()
+                                                           if k.startswith("dcoef"))
+                           + f"; finite={finite}, 0 off the boxes={zero_off}")
+            if not (finite and zero_off and w <= K3_TOL):
+                raise AssertionError(f"{kernel} at {n}^2 ({name}, {label}): {errs}, "
+                                     f"finite={finite}, zero off the boxes={zero_off}")
+            rel, abs_ = max(rel, w), max(abs_, worst_abs)
+            del got, masked, outs, off
+        out[kernel] = {"rel": rel, "abs": abs_}
+        del phi, P, P1, gf, gm, in_p, entries
+        torch.cuda.empty_cache()
+    res["k3_2d_4096"] = out
+
+
+#: 3D shapes with an axis of fewer than 4 nodes (axis 0, all three, axis 2)
+#: and the Extrapolation degree each takes for K3 and for K3'
+SHORT_3D_SHAPES = (((3, 24, 40), 2, 1), ((2, 9, 12), 1, 1), ((24, 40, 3), 2, 1))
+
+
+def helical(xs, t):
+    """:func:`rotation` with a constant axis-2 component 0.3: every axis,
+    a short one too, upwinds a nonzero velocity."""
+    x, y, z = xs
+    zero = 0.0 * (x + y + z)
+    return (0.5 - y + zero, x - 0.5 + zero, 0.3 + zero)
+
+
+def grad2d_short_3d(dev, res):
+    """3D fields with an axis of fewer than 4 nodes (SHORT_3D_SHAPES: axis 0
+    short, every axis short, axis 2 short): K4 bit for bit against its plain
+    version under Extrapolation(1) and (2 where it fits), f32 and f64 (its
+    input untouched, again and misaligned equal bits); K3 (the helical
+    velocity streamed; dP folded) and K3' (config A's terms; raw dP) in f64
+    against their plain versions; a rollout gradient through each field
+    (the helical velocity, Extrapolation(2) where it fits) on the card
+    against the CPU in f64 (``gradient_reason`` no longer refuses them)."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for shape, deg3, deg3k in SHORT_3D_SHAPES:
+        for deg in sorted({deg3, deg3k}):
+            bcs = lsm.normalize_bcs(lsm.Extrapolation(deg), 3)
+            for dtype in (torch.float32, torch.float64):
+                G = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
+                k4_compare("grad_2d", f"extrap{deg} (3D, short axis)", G, bcs, shape)
+        grid = lsm.Grid((0.0, 0.0, 0.0), tuple(0.05 * (n - 1) for n in shape), shape)
+        for deg, label in ((deg3, "K3"), (deg3k, "K3'")):
+            phi = lsm.sample(shapes.zalesak_sphere(center=tuple(0.025 * (n - 1) for n in shape)),
+                             grid, lsm.Extrapolation(deg), dtype=torch.float64, device=dev)
+            P = v2.pack_padded(phi.values, phi.bcs)
+            G = torch.randn(v2.padded_shape(shape), generator=gen, device=dev,
+                            dtype=torch.float64)
+            gf = bwd.fold_ghost_cotangent_fast(G, phi.bcs, shape)
+            if label == "K3":  # the helical velocity evaluated into streams
+                xs = v2.node_coords(shape, grid.spacing, grid.lo, torch.float64, dev)
+                entries = ((v2.ADVECTION, v2.eval_components(helical(xs, 0.0), shape,
+                                                             torch.float64, dev)),)
+            else:
+                entries = FusedStepper(a_terms(), phi, lsm.RK3()).entries
+            args = (P, entries, (0.75, 0.25, 0.01), P, gf, grid.spacing, shape, v2.Where())
+            got, ref = bwd_2d_run(*args), bwd_2d_run(*args, plain=True)
+            err = bwd_2d_errs(got, ref, phi.bcs, shape, fold=label == "K3")
+            log("grad_2d", f"{label} 3D f64 shape={shape} Extrapolation({deg}) kernel vs plain "
+                           f"{err:.2e} (tol 1e-10)")
+            if not err <= 1e-10:
+                raise AssertionError(f"{label} on a short 3D axis at {shape}: {err}")
+        grads = {}
+        for where in (dev, "cpu"):
+            phi = lsm.sample(shapes.zalesak_sphere(center=tuple(0.025 * (n - 1) for n in shape)),
+                             grid, lsm.Extrapolation(deg3), dtype=torch.float64, device=where)
+            v = phi.values.clone().requires_grad_()
+            out, _ = lsm.rollout(lsm.RK3(), (lsm.AdvectionTerm(helical),), phi.with_values(v),
+                                 0.0, 0.1 * grid.min_spacing, 2, remat=True)
+            grads[where] = torch.autograd.grad((out.values ** 2).sum(), v)[0].cpu()
+        err, scale = float((grads[dev] - grads["cpu"]).abs().max()), float(
+            grads["cpu"].abs().max())
+        log("grad_2d", f"rollout gradient through a {shape} field (Extrapolation({deg3})) f64 "
+                       f"card vs CPU: max|diff|={err:.3e} scale={scale:.3e} (tol 1e-10*scale)")
+        if not err <= 1e-10 * scale:
+            raise AssertionError(f"the short-axis 3D gradient at {shape}: {err}")
+
+
+def grad2d_card_vs_cpu(dev, res):
+    """The three 2D cells' gradients at N_2D_SMALL^2, GRAD2D_SMALL_STEPS
+    steps, phi0 with GRAD2D_NOISE of seeded noise, card (kernels) against
+    CPU (plain versions): f64 max norm within 1e-10 * scale; f32 relative L2
+    within F32_L2_FACTOR times the CPU's own L2 spread under a 1-ulp change
+    of phi0 (the max norm reported)."""
+    out = {}
+    for name in GRAD2D_CELLS:
+        diffs, cpu = {}, {}
+        for dtype in (torch.float32, torch.float64):
+            g = {}
+            for where in (dev, "cpu"):
+                phi, terms_of, s, dt, _ = grad2d_cell(name, N_2D_SMALL, where, dtype)
+                noise = GRAD2D_NOISE * torch.randn(phi.shape, generator=torch.Generator(
+                    ).manual_seed(19), dtype=torch.float64)
+                v = phi.values + noise.to(where, dtype)
+                g[where] = [x.cpu() for x in grad2d_value_and_grad(
+                    phi, terms_of, s, dt, GRAD2D_SMALL_STEPS, v.requires_grad_())[1]]
+                if where == "cpu":
+                    cpu[dtype] = (phi, terms_of, s, dt, v.detach())
+            diffs[dtype] = [(float((a - b).abs().max()), float(b.abs().max()), rel_l2(a, b))
+                            for a, b in zip(g[dev], g["cpu"])]
+            cpu[dtype] = cpu[dtype] + (g["cpu"],)
+        phi, terms_of, s, dt, v32, g32 = cpu[torch.float32]
+        pert = v32 * (1 + 2.0 ** -23 * torch.randn(phi.shape, generator=torch.Generator(
+            ).manual_seed(12)))
+        g_pert = grad2d_value_and_grad(phi, terms_of, s, dt, GRAD2D_SMALL_STEPS,
+                                       pert.requires_grad_())[1]
+        spread = [rel_l2(a, b) for a, b in zip(g_pert, g32)]
+        ok = all(e <= 1e-10 * sc for e, sc, _ in diffs[torch.float64]) and all(
+            l2 <= F32_L2_FACTOR * sp for (_, _, l2), sp in zip(diffs[torch.float32], spread))
+        log("grad_2d", f"{name} {N_2D_SMALL}^2 x{GRAD2D_SMALL_STEPS} card vs CPU (d/dphi0"
+                       f"{', d/dspeed' if s is not None else ''}): f64 " + ", ".join(
+                           f"max|diff|={e:.3e} scale={sc:.3e}" for e, sc, _ in
+                           diffs[torch.float64]) + " (tol 1e-10*scale); f32 " + ", ".join(
+                           f"max|diff|={e:.3e} relative L2 {l2:.3e} (tol {F32_L2_FACTOR:g}x "
+                           f"{sp:.3e})" for (e, _, l2), sp in zip(diffs[torch.float32], spread)))
+        if not ok:
+            raise AssertionError(f"{name}: the 2D gradient card vs CPU failed")
+        out[name] = {"f64": diffs[torch.float64], "f32": diffs[torch.float32], "spread": spread}
+    res["grad2d_small"] = out
+
+
+def phase_grad_2d(dev, res):
+    """The dense 2D gradient on the card (this slice's main path): K4 and K5
+    2D bit for bit against their plain versions at K2_2D_SHAPES (and a
+    3-node axis) under the BC cases of k2_small, f32 and f64; K3/K3''/K3' 2D
+    (:func:`grad2d_parity`) and at N_2D^2 (:func:`grad2d_4096`); 3D fields
+    with a short axis (:func:`grad2d_short_3d`); Extrapolation(3) on an axis of 3 nodes raising
+    ValueError, as in JAX; the cells' gradients card vs CPU at N_2D_SMALL^2
+    (:func:`grad2d_card_vs_cpu`); then grad2d (in-kernel and streamed) and
+    grad2d_kinds at N_2D^2 f32: launches of one value_and_grad (every one a
+    2D entry, no plain version called), ms per value_and_grad (CUDA-event
+    median), peak memory; the kernels' device times, their plain versions
+    and the plain-autograd yardstick from ``tools/grad_2d.py`` in a process
+    of its own."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    E = lsm.Extrapolation
+    worst = 0.0
+    for shape in K2_2D_SHAPES + ((3, 40),):
+        cases = general_bcs(2)
+        if shape[0] == N_2D:
+            cases = {k: cases[k] for k in ("periodic", "mixed")}
+        if shape[0] < 4:
+            cases = {"extrap0": cases["extrap0"], "extrap2": cases["extrap2"],
+                     "short": lsm.normalize_bcs([(E(1), E(2)), lsm.Periodic()], 2)}
+        for dtype in (torch.float32, torch.float64):
+            for name, bcs in cases.items():
+                G = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
+                reset_counts()
+                worst = max(worst, k4_compare("grad_2d", f"2D {name}", G, bcs, shape,
+                                              autograd=shape[0] != N_2D))
+                z = bwd.zero_pad_shells(G.clone(), shape)
+                counts = read_counts()
+                same = bool(torch.equal(z, bwd.zero_pad_shells_plain(G.clone(), shape)))
+                if not (same and counts["K4 2D"] == counts["K4"] == 3
+                        and counts["K5 2D"] == counts["K5"] == 1):
+                    raise AssertionError(f"K5 2D or the 2D launch counts at {shape}: {same}, "
+                                         f"{counts}")
+                del G, z
+    log("grad_2d", "K5 2D == plain at every shape and case; K4 2D and K5 2D counted apart")
+    res["k4_2d_err"], res["k5_2d_err"] = worst, 0.0
+    grad2d_parity(dev, res)
+    grad2d_4096(dev, res)
+    grad2d_short_3d(dev, res)
+    # Extrapolation(3) on an axis of 3 nodes: JAX's ValueError, not a pending port
+    grid = lsm.Grid((0.0, 0.0), (1.0, 1.0), (3, 40))
+    phi = lsm.MeshField(torch.zeros(3, 40, device=dev), grid, E(3))
+    try:
+        lsm.LevelSetEquation(terms=lsm.AdvectionTerm(rotation2), ic=phi).integrate(
+            0.1, max_steps=1)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    log("grad_2d", f"Extrapolation(3) on an axis of 3 nodes on the card: ValueError {raised!r}")
+    if raised is None or "needs 4 nodes" not in raised:
+        raise AssertionError("Extrapolation(3) on 3 nodes did not raise JAX's ValueError")
+    grad2d_card_vs_cpu(dev, res)
+    # the cells at N_2D^2: launches, ms per value_and_grad, peak memory
+    res.setdefault("grad2d", {})
+    for name in GRAD2D_CELLS:
+        phi, terms_of, s, dt, nsteps = grad2d_cell(name, N_2D, dev)
+        call = lambda: grad2d_value_and_grad(phi, terms_of, s, dt, nsteps,
+                                             phi.values.clone().requires_grad_())
+        loss, grads = call()  # warm: builds, tables
+        torch.cuda.synchronize()
+        reset_counts()
+        with plain_calls() as plain:
+            loss, grads = call()
+            torch.cuda.synchronize()
+        counts, want = read_counts(), grad2d_launches(name, nsteps)
+        finite = math.isfinite(float(loss.detach())) and all(bool(torch.isfinite(g).all()) for g in grads)
+        ms = cuda_time(call, warmup=1, reps=5)
+        mem = peak_gib(call)
+        log("grad_2d", f"{name} {N_2D}^2 f32 RK3 x{nsteps} remat value_and_grad: loss "
+                       f"{float(loss):.6e} max|dphi0|={float(grads[0].abs().max()):.3e} "
+                       f"finite={finite}, median {ms:.3f} ms, peak {mem:.3f} GiB; launches "
+                       f"{counts} (expected {want}); plain versions called {dict(plain)}")
+        if not (finite and counts == want and sum(plain.values()) == 0):
+            raise AssertionError(f"{name}: launches {counts} or plain calls {dict(plain)}")
+        res["grad2d"][name] = {"ms": ms, "peak_gib": mem, "launches": counts}
+        key = {"grad2d": ("K3'' 2D", "K3''"), "grad2d_streamed": ("K3 2D", "K3 2D"),
+               "grad2d_kinds": ("K3' 2D", "K3' 2D")}[name]
+        res["launches"][key[0]] = counts[key[1]]
+        if name == "grad2d":
+            res["launches"]["K4 2D"], res["launches"]["K5 2D"] = counts["K4 2D"], counts["K5 2D"]
+        del phi, grads, call
+        torch.cuda.empty_cache()
+    grad2d_device(res)
+
+
+def grad2d_device(res):
+    """The 2D backward kernels' times at N_2D^2 f32 (CUDA-event medians and
+    the profiler's device times), their plain versions', the library calls
+    beside K4 and K5, and the plain-autograd yardstick of each cell, from
+    ``tools/grad_2d.py`` in a process of its own (``res["t"]``; every
+    reading in ``res["grad2d_tool"]``)."""
+    torch.cuda.empty_cache()
+    out = subprocess.run([sys.executable, "tools/grad_2d.py", "smoke"], capture_output=True,
+                         text=True, check=True, timeout=900).stdout
+    line = next(x for x in out.splitlines() if x.startswith("GRAD2D smoke"))
+    vals = line.split()[2:]
+    tool = {k: float(v) for k, v in zip(vals[::2], vals[1::2])}
+    res["grad2d_tool"] = tool
+    res["t"].update({k: v for k, v in tool.items() if k.startswith(("K3", "K4", "K5"))})
+    log("grad_2d", "tools/grad_2d.py: " + " ".join(f"{k} {v:.4f}" for k, v in tool.items()))
 
 
 def phase_general_small(dev, res):
@@ -4896,6 +5451,7 @@ def main(argv=()) -> int:
                       ("update", phase_update),
                       ("grad_kinds", phase_grad_kinds), ("config5", phase_config5),
                       ("general_512", phase_general_512), ("twod", phase_twod),
+                      ("grad_2d", phase_grad_2d),
                       ("general_small", phase_general_small), ("k9", phase_k9),
                       ("sharded", phase_sharded), ("sharded_grad", phase_sharded_grad),
                       ("sharded_general", phase_sharded_general), ("dryrun", phase_dryrun),
@@ -5190,6 +5746,32 @@ def kernel_records(res):
          t["K2_2d"], t["K2_2d_plain"],
          # periodic: each ghost written once from one source
          bound(f32 * 2 * (plane2d - cells2d), 0), None),
+        (f"K4 2D fold_ghost_cotangent_fast, 2D entry (out of place, one thread a node; a "
+         f"cotangent on grad2d's ({N_2D}+6, {N_2D}+6) layout, Periodic)", "fold_ghosts.cu",
+         "lsm_tpu/ops/weno_v2_bwd.py:179", "K4 2D", res["k4_2d_err"], t["K4_2d"],
+         t["K4_2d_plain"],
+         # g read once, the new buffer written once
+         bound(f32 * 2 * plane2d, 2 * (plane2d - cells2d)), t["K4_2d_clone"]),
+        (f"K5 2D zero_pad_shells, 2D entry (the four ghost slabs at {N_2D}^2)", "fold_ghosts.cu",
+         "lsm_tpu/ops/weno_v2_bwd.py:293", "K5 2D", res["k5_2d_err"], t["K5_2d"],
+         t["K5_2d_plain"], bound(f32 * (plane2d - cells2d), 0), t["K5_2d_library"]),
+        (f"K3 2D stage_backward, 2D entry (grad2d_streamed: D2's state at {N_2D}^2, the "
+         f"rotation streamed, du written)", "stage_backward.cu", "lsm_tpu/ops/weno_v2_bwd.py:731",
+         "K3 2D", res["k3_2d_4096"]["K3 2D"]["abs"], t["K3_2d"], t["K3_2d_plain"],
+         # reads P, the folded g and 2 streams, writes dP and 2 du
+         bound(f32 * (2 * plane2d + 5 * cells2d), K3_2D_OPS_PER_CELL * cells2d), None),
+        (f"K3'' 2D stage_backward, 2D entry with an in-kernel coefficient program (grad2d: "
+         f"D2's rotation at {N_2D}^2)", "stage_backward.cu", "lsm_tpu/ops/weno_v2_bwd.py:731",
+         "K3'' 2D", res["k3_2d_4096"]["K3'' 2D"]["abs"], t["K3pp_2d"], t["K3pp_2d_plain"],
+         # reads P and the folded g, writes dP; the program's arithmetic besides
+         prog_bound(f32 * (2 * plane2d + cells2d), K3_2D_OPS_PER_CELL * cells2d, w2d["D2"],
+                    cells2d), None),
+        (f"K3' 2D stage_backward_terms, 2D entry (grad2d_kinds: curvature + normal motion at "
+         f"a streamed speed, config 4's star at {N_2D}^2)", "stage_backward.cu",
+         "lsm_tpu/ops/weno_v2_bwd.py:731", "K3' 2D", res["k3_2d_4096"]["K3' 2D"]["abs"],
+         t["K3k_2d"], t["K3k_2d_plain"],
+         # reads P, the folded g and the speed, writes dP and the speed's cotangent
+         bound(f32 * (2 * plane2d + 3 * cells2d), K3K_OPS_2D * cells2d), None),
         ("K1''/K3''/K6'' program tables (the per-axis subexpressions of a traced coefficient; "
          "the vortex)", "coef_tables.cu", "lsm_tpu/ops/weno_v2.py:508", "tables",
          res["tables_err"], t["tables_vortex"], t["tables_vortex_plain"],
@@ -5264,6 +5846,32 @@ def kernel_records(res):
                        dispatched_tiles=w2["slots"])
         if key == "K7 2D":
             rec["ms_flags_off"] = t["K7_2d_off"]
+        if key in ("K4 2D", "K5 2D", "K3 2D", "K3'' 2D", "K3' 2D"):  # the profiler's device
+            # time (tools/grad_2d.py, a process of its own); the max_abs_err of a stage
+            # adjoint is its f32 error against the f64 plain version at the main path's
+            # shape (grad2d_4096), its relative errors there and at the small shapes
+            # (grad2d_parity: f32 against the f64 oracle, f64 against the plain version)
+            tk2 = {"K4 2D": "K4_2d", "K5 2D": "K5_2d", "K3 2D": "K3_2d", "K3'' 2D": "K3pp_2d",
+                   "K3' 2D": "K3k_2d"}[key]
+            rec["ms_device"] = t[f"{tk2}_device"]
+            if key.startswith("K3"):
+                rec.update(max_rel_err_sub_boxes=res["k3_2d_4096"][key]["rel"],
+                           max_rel_err_small_shapes=res["k3_2d_rel"][key],
+                           max_rel_err_f64_vs_plain=res["k3_2d_rel"][f"{key} f64"])
+        if key == "K4 2D":
+            rec.update(library_call="g.clone()", library_ms_device=t["K4_2d_clone_device"])
+        if key == "K5 2D":
+            rec["library_call"] = "masked_fill_"
+        if key == "K3 2D":
+            rec.update(ms_aux=t["K3_2d_aux"], bound_ms_aux=bound(
+                f32 * (3 * plane2d + 6 * cells2d), K3_2D_OPS_PER_CELL * cells2d)[0])
+        if key == "K3'' 2D":  # the vortex with dt; the 2D gradient cells end to end
+            rec["cells"] = {k: {"ms": v["ms"], "peak_gib": v["peak_gib"], "plain_autograd_ms":
+                                res["grad2d_tool"][f"{k}_plain_autograd_ms"]}
+                            for k, v in res["grad2d"].items()}
+            rec.update(ms_vortex_dt=t["K3pp_2d_vortex_dt"], bound_ms_vortex_dt=prog_bound(
+                f32 * (2 * plane2d + cells2d), K3_2D_OPS_PER_CELL * cells2d, w2d["D3"], cells2d,
+                dual=True)[0])
         if key in ("K1 2D", "K1'' 2D", "K1' 2D"):  # with aux (one more read), the per-node form
             tk2 = {"K1 2D": "K1_2d", "K1'' 2D": "K1pp_2d_rotation", "K1' 2D": "K1k_2d_D4"}[key]
             aux_bytes = f32 * (plane2d + 2 * cells2d)  # phi and aux read, the interior written

@@ -56,6 +56,21 @@
 // ms at 3.35 TB/s (the copy it replaces moved the same bytes, and the
 // in-place fold after it some 40 MB more). K5 writes the shells only, 19 MB
 // at 512^3: launch latency dominates.
+//
+// The 2D entries (lsm_fold_ghosts_2d_*, lsm_zero_shells_2d_*) take a 2D
+// field's (n0+6, n1+6) buffer, the dense 2D stepper's. K4's is the transpose
+// of K2's 2D entry (axis 0's ghosts over the interior columns, then axis 1's
+// over every padded row): its plain version scatters axis 1's pass over every
+// padded row, then axis 0's over the interior columns. One launch, one thread
+// a node of the buffer, rows fastest: a ghost is written 0, a node of the
+// bulk (farther than max(4, P+1) from both faces of each axis) copies g, a
+// node of the strips gathers what the scatter adds to it, in its order: g at
+// the node, axis 1's contributions (V1), then axis 0's, w * V1(ghost), where
+// V1 of an axis-0 ghost row (its corner contributions) is recomputed from g.
+// An axis of 1-3 nodes (Extrapolation of degree <= n-1) has no bulk: each of
+// its nodes gathers from both faces, side 0 first. K5's zeroes the four ghost
+// slabs. Bound at 4096^2 f32: g read and gf written once, 2 x 4102^2 x 4 B =
+// 134.6 MB, 0.040 ms at 3.35 TB/s; K5's 0.39 MB of shells, launch latency.
 
 #include <cuda_runtime.h>
 
@@ -417,7 +432,118 @@ int launch_zero_shells(void* buf, int64_t n0, int64_t n1, int64_t n2, void* stre
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4's 2D entry: a (the FoldArgs of the 2D axes 0 and 1) gives plane = the
+// buffer's nodes and S2 = its row length; one thread a node.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fold_2d_kernel(const T* __restrict__ g, T* __restrict__ gf, FoldArgs<T> a) {
+  const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= a.plane) return;
+  const uint32_t i = quo(a.div_row, t);
+  const int j = static_cast<int>(t - i * a.S2);
+  const int mi = static_cast<int>(i) - LSM_GHOST, mj = j - LSM_GHOST;
+  T x = T(0);
+  if (static_cast<unsigned>(mi) < static_cast<unsigned>(a.n[0]) &&
+      static_cast<unsigned>(mj) < static_cast<unsigned>(a.n[1])) {
+    const bool strip0 = static_cast<int>(i) < a.lo[0] || static_cast<int>(i) >= a.hi[0];
+    const bool strip1 = j < a.lo[1] || j >= a.hi[1];
+    // V1 of row `row` at column j: g plus axis 1's contributions
+    const auto v1 = [&](const T* row) {
+      return strip1 ? gather_axis(a, 1, mj, row[j], [&](int p) { return row[p]; }) : row[j];
+    };
+    x = v1(g + i * a.S2);
+    if (strip0)
+      x = gather_axis(a, 0, mi, x, [&](int p) { return v1(g + static_cast<uint32_t>(p) * a.S2); });
+  }
+  gf[t] = x;
+}
+
+template <typename T>
+int launch_fold_2d(const void* g, void* gf, int64_t n0, int64_t n1, const int* kinds,
+                   const int* degrees, const double* weights, void* stream) {
+  const int64_t n[2] = {n0, n1};
+  const int64_t S0 = n0 + 2 * LSM_GHOST, S1 = n1 + 2 * LSM_GHOST;
+  if (S0 * S1 + kThreads >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  FoldArgs<T> a{};
+  a.S1 = static_cast<uint32_t>(S0);
+  a.S2 = static_cast<uint32_t>(S1);
+  a.plane = static_cast<uint32_t>(S0 * S1);
+  a.div_row = fast_div(a.S2);
+  for (int axis = 0; axis < 2; ++axis) {
+    a.n[axis] = static_cast<int>(n[axis]);
+    int reach = LSM_GHOST + 1;
+    for (int side = 0; side < 2; ++side) {
+      const int s = 2 * axis + side;
+      a.kind[axis][side] = kinds[s];
+      a.degree[axis][side] = degrees[s];
+      if (kinds[s] == LSM_BC_EXTRAPOLATION && degrees[s] + 1 > reach) reach = degrees[s] + 1;
+      for (int k = 0; k < LSM_GHOST; ++k)
+        for (int j = 0; j <= LSM_MAX_DEGREE; ++j)
+          a.w[axis][side][k][j] =
+              static_cast<T>(weights[(s * LSM_GHOST + k) * (LSM_MAX_DEGREE + 1) + j]);
+    }
+    a.lo[axis] = LSM_GHOST + reach;
+    a.hi[axis] = static_cast<int>(LSM_GHOST + n[axis] - reach);
+    if (a.hi[axis] < a.lo[axis]) a.hi[axis] = a.lo[axis];
+  }
+  const unsigned blocks = static_cast<unsigned>((S0 * S1 + kThreads - 1) / kThreads);
+  fold_2d_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(g), static_cast<T*>(gf), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5's 2D entry: the axis-0 ghost rows (every column), then the axis-1 ghosts
+// of the interior rows, one thread a node.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    zero_shells_2d_kernel(T* __restrict__ buf, int64_t n0, int64_t n1) {
+  const int64_t S1 = n1 + 2 * LSM_GHOST;
+  const int64_t cnt0 = 2 * LSM_GHOST * S1, cnt1 = n0 * 2 * LSM_GHOST;
+  int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  int64_t i, j;
+  auto ghost = [](int64_t s6, int64_t n) { return s6 < LSM_GHOST ? s6 : n + s6; };
+  if (t < cnt0) {
+    j = t % S1;
+    i = ghost(t / S1, n0);
+  } else if ((t -= cnt0) < cnt1) {
+    j = ghost(t % (2 * LSM_GHOST), n1);
+    i = LSM_GHOST + t / (2 * LSM_GHOST);
+  } else {
+    return;
+  }
+  buf[i * S1 + j] = T(0);
+}
+
+template <typename T>
+int launch_zero_shells_2d(void* buf, int64_t n0, int64_t n1, void* stream) {
+  const int64_t total = 2 * LSM_GHOST * (n1 + 2 * LSM_GHOST) + n0 * 2 * LSM_GHOST;
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  zero_shells_2d_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(buf), n0, n1);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int lsm_fold_ghosts_2d_f32(const void* g, void* gf, int64_t n0, int64_t n1,
+                                      const int* kinds, const int* degrees,
+                                      const double* weights, void* stream) {
+  return launch_fold_2d<float>(g, gf, n0, n1, kinds, degrees, weights, stream);
+}
+
+extern "C" int lsm_fold_ghosts_2d_f64(const void* g, void* gf, int64_t n0, int64_t n1,
+                                      const int* kinds, const int* degrees,
+                                      const double* weights, void* stream) {
+  return launch_fold_2d<double>(g, gf, n0, n1, kinds, degrees, weights, stream);
+}
+
+extern "C" int lsm_zero_shells_2d_f32(void* buf, int64_t n0, int64_t n1, void* stream) {
+  return launch_zero_shells_2d<float>(buf, n0, n1, stream);
+}
+
+extern "C" int lsm_zero_shells_2d_f64(void* buf, int64_t n0, int64_t n1, void* stream) {
+  return launch_zero_shells_2d<double>(buf, n0, n1, stream);
+}
 
 extern "C" int lsm_fold_ghosts_f32(const void* g, void* gf, int64_t n0, int64_t n1,
                                    int64_t n2, const int* kinds, const int* degrees,

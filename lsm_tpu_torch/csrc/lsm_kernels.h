@@ -303,6 +303,44 @@ int lsm_fold_ghosts_f64(const void* g, void* gf, int64_t n0, int64_t n1, int64_t
 int lsm_zero_shells_f32(void* buf, int64_t n0, int64_t n1, int64_t n2, void* stream);
 int lsm_zero_shells_f64(void* buf, int64_t n0, int64_t n1, int64_t n2, void* stream);
 
+/* The 2D entries of K3, K3'', K3', K4 and K5: a 2D field's (n0+6, n1+6)
+ * layout, the stage of K1's 2D entries (the (1, n0, n1) embedding's function
+ * with its dummy axis compiled out). Arguments as for the 3D entries, with
+ * the 2D field's two axes (two velocity components, two spacings); K3'' and
+ * K3' take the embedding's table (ops/weno_v2.py `_table_2d`). */
+int64_t lsm_stage_bwd_scratch_2d(int64_t n0, int64_t n1);
+int64_t lsm_stage_bwd_terms_scratch_2d(int64_t n0, int64_t n1);
+int lsm_stage_bwd_2d_f32(const void* P, const void* g, const void* u0, const void* u1,
+                         const void* aux, void* dP, void* du0, void* du1, void* daux, void* part,
+                         void* dcoef, int64_t n0, int64_t n1, double inv_h0, double inv_h1,
+                         double alpha, double beta, double gamma, int accumulate, void* stream);
+int lsm_stage_bwd_2d_f64(const void* P, const void* g, const void* u0, const void* u1,
+                         const void* aux, void* dP, void* du0, void* du1, void* daux, void* part,
+                         void* dcoef, int64_t n0, int64_t n1, double inv_h0, double inv_h1,
+                         double alpha, double beta, double gamma, int accumulate, void* stream);
+int lsm_stage_bwd_prog_2d_f32(const void* P, const void* g, const void* aux, void* dP,
+                              void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
+                              const LsmStageTerms* terms, int accumulate, int needs_dt,
+                              void* stream);
+int lsm_stage_bwd_prog_2d_f64(const void* P, const void* g, const void* aux, void* dP,
+                              void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
+                              const LsmStageTerms* terms, int accumulate, int needs_dt,
+                              void* stream);
+int lsm_stage_bwd_terms_2d_f32(const void* P, const void* g, const void* aux, void* dP,
+                               void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
+                               const LsmStageTerms* terms, const void* const* dstreams,
+                               int needs_dt, void* stream);
+int lsm_stage_bwd_terms_2d_f64(const void* P, const void* g, const void* aux, void* dP,
+                               void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
+                               const LsmStageTerms* terms, const void* const* dstreams,
+                               int needs_dt, void* stream);
+int lsm_fold_ghosts_2d_f32(const void* g, void* gf, int64_t n0, int64_t n1, const int* kinds,
+                           const int* degrees, const double* weights, void* stream);
+int lsm_fold_ghosts_2d_f64(const void* g, void* gf, int64_t n0, int64_t n1, const int* kinds,
+                           const int* degrees, const double* weights, void* stream);
+int lsm_zero_shells_2d_f32(void* buf, int64_t n0, int64_t n1, void* stream);
+int lsm_zero_shells_2d_f64(void* buf, int64_t n0, int64_t n1, void* stream);
+
 /* K6: K1's stage over an active-tile dispatch list (csrc/band_stage.cu).
  * P, aux (may be NULL), out: padded buffers; out is written only on the
  * tiles of the list: where the combined mask `band` (uint8, interior-shaped,

@@ -33,8 +33,8 @@
 //    ddm into a register ring of the edge cotangents c_0. The march runs
 //    downwards, so c_0[z] sums its outputs from y = z+2 down to z-3, the
 //    order of the per-axis form, and dP of plane p+3 is complete (lag 3).
-//    This part is behind the compile-time switch kAxis0, which a 2D layout
-//    without axis 0 can turn off (built, not launched yet).
+//    This part is behind the compile-time switch kAxis0, which the 2D entries
+//    turn off (below).
 //  - axes 1 and 2 (the chunk's own planes only): plane p of P (the column and
 //    a reach of 6, 28 x 44 in f32) and of g (reach 3) sit in shared memory,
 //    filled by cp.async one plane ahead (two buffers); the adjoint of each
@@ -76,6 +76,21 @@
 // the stage time needs a cotangent the component is evaluated in forward-mode
 // dual numbers, and dt = sum over outputs of du_a * du_a/dt (du_a = core_a *
 // (-gamma*g), the cotangent of u_a) joins the fixed-order partial sums.
+//
+// The 2D entries of K3 and K3'' (lsm_stage_bwd_2d_*, lsm_stage_bwd_prog_2d_*)
+// take a 2D field's (n0+6, n1+6) layout, the dense 2D stepper's, whose K1 2D
+// entries compute the function of the (1, n0, n1) embedding with its dummy
+// axis compiled out: the same kernel with kAxis0 off, the 2D axes 0 and 1 in
+// the places of axes 1 and 2 over one plane with no axis-0 ghosts (the plane
+// is interior, its interior index 0: a program is evaluated at the
+// embedding's node (0, i, j), from the embedding's table, as K1'' 2D reads
+// it). A block then runs one plane: its tiles, the adjoints of its column and
+// their halos, the gather. Bound at 4096^2 f32: the streamed entry reads P,
+// g and two velocity components and writes dP and two du, 28 B a cell (36
+// with aux and daux), 0.140 ms (0.180) at 3.35 TB/s, against 405 FP32
+// operations a cell (202 an axis and one), 0.101 ms at 67 TFLOP/s; with the
+// rotation in-kernel 12 B a cell (0.060 ms) against the same operations
+// (0.101 ms) and the program's: the operations bind.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -246,6 +261,15 @@ inline Geom make_geom(int64_t n0, int64_t n1, int64_t n2) {
   g.s1 = g.S[2];
   g.s0 = g.S[1] * g.S[2];
   g.m12 = g.n[1] * g.n[2];
+  return g;
+}
+
+// A 2D field's (n0+6, n1+6) layout as one plane of the geometry above with
+// no axis-0 ghosts (S[0] = 1): its axes 0 and 1 take the places of axes 1
+// and 2.
+inline Geom make_geom_2d(int64_t n0, int64_t n1) {
+  Geom g = make_geom(1, n0, n1);
+  g.S[0] = 1;
   return g;
 }
 
@@ -454,6 +478,9 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
   const int pin = j * G.s1 + k;
   const int qin = inside(j, G.n[1]) && inside(k, G.n[2]) ? (j - H) * G.n[2] + (k - H) : -1;
   const T neg_gamma = -a.gamma;
+  // (the plane index p along axis 0 is padded; without kAxis0 it is the 2D
+  // layout's one plane, p = 0, interior, interior index 0, padded index H
+  // for a program)
   double sg = 0.0, sb = 0.0, sa = 0.0, st = 0.0;
   for (int e = t; e < TL::U1 + TL::U2; e += NT) units[e] = adv_unit<TL>(e, j0, k0, G);
   T pr[7] = {};                // P[p - 3 + q] along axis 0 at (j, k)
@@ -473,7 +500,8 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
     }
     for (int e = t; e < GT; e += NT) {
       const int jj = j0 - H + e / TL::GX, kk = k0 - H + e % TL::GX;
-      const bool in = interior(G, plane, jj, kk);
+      const bool in = kAxis0 ? interior(G, plane, jj, kk)
+                             : inside(jj, G.n[1]) && inside(kk, G.n[2]);
       copy_async(gd + e, a.g + (in ? pidx(G, plane, jj, kk) : 0), in);
     }
     async_commit();
@@ -483,11 +511,11 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
   T nx_p = T(0), nx_g = T(0), nx_u0 = T(0), nx_u[UPT] = {};
   auto fetch = [&](int p) {
     nx_p = P_at(p - H);
-    const bool in_p = inside(p, G.n[0]);
+    const bool in_p = kAxis0 ? inside(p, G.n[0]) : true;
     const bool in0 = kAxis0 && in_p && qin >= 0;
     nx_g = in0 ? a.g[int64_t(p) * G.s0 + pin] : T(0);
     if constexpr (!kProgram) {
-      const int64_t qp = int64_t(p - H) * G.m12;
+      const int64_t qp = int64_t(kAxis0 ? p - H : p) * G.m12;
       nx_u0 = in0 ? a.u[0][qp + qin] : T(0);
       const bool own = p >= i0 && p < i1 && in_p;
 #pragma unroll
@@ -563,8 +591,8 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
       T(*const D2)[TL::U2] = D2s + 6 * (p & 1);
       const T* const pt = Pt + (p & 1) * PT;
       const T* const gt = Gt + (p & 1) * GT;
-      const bool in_p = inside(p, G.n[0]);
-      const int64_t qp = int64_t(p - H) * G.m12;
+      const bool in_p = kAxis0 ? inside(p, G.n[0]) : true;
+      const int64_t qp = int64_t(kAxis0 ? p - H : p) * G.m12;
 #pragma unroll
       for (int m = 0; m < UPT; ++m) {
         const int e = t + m * NT;
@@ -590,8 +618,8 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
         T udt = T(0);
         T uv = um[m];
         if constexpr (kProgram)
-          uv = program_velocity(a, axis, p, j0 - H + (un.y >> 24), k0 - H + (un.y >> 16 & 0xff),
-                                &udt);
+          uv = program_velocity(a, axis, kAxis0 ? p : p + H, j0 - H + (un.y >> 24),
+                                k0 - H + (un.y >> 16 & 0xff), &udt);
         const T gv = gt[gc];
         const T gup = R::mul(neg_gamma, gv);
         T ddm[6], core;
@@ -616,7 +644,7 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
       T v;
       if (a.accumulate) {
         v = R::add(a.dP[x], contrib0);
-      } else if (qin >= 0 && inside(i, G.n[0])) {
+      } else if (qin >= 0 && (kAxis0 ? inside(i, G.n[0]) : true)) {
         const T gv = a.g[x];
         v = R::add(R::mul(a.beta, gv), contrib0);
         if (a.daux != nullptr) a.daux[x] = R::mul(a.alpha, gv);
@@ -645,7 +673,8 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
 
 // K3 (kProgram false: the velocity streamed in u) and K3'' (the velocity the
 // program of tab's entry 0): the fused launch, then the reduction
-template <typename T, bool kProgram>
+// kAxis0 false: the 2D entries, (n0, n1, n2) = (1, the 2D field's n0, n1)
+template <typename T, bool kProgram, bool kAxis0 = true>
 int launch_stage_bwd(const void* P, const void* g, const void* const* u, const void* aux,
                      void* dP, void* const* du, void* daux, void* part, void* dcoef, int64_t n0,
                      int64_t n1, int64_t n2, const double* inv_h, double alpha, double beta,
@@ -664,7 +693,7 @@ int launch_stage_bwd(const void* P, const void* g, const void* const* u, const v
     a.inv_h[d] = T(inv_h[d]);
   }
   a.part = static_cast<double*>(part);
-  a.geo = make_geom(n0, n1, n2);
+  a.geo = kAxis0 ? make_geom(n0, n1, n2) : make_geom_2d(n1, n2);
   a.chunk = chunk_len(a.geo.S[0]);
   a.alpha = T(alpha);
   a.beta = T(beta);
@@ -675,7 +704,7 @@ int launch_stage_bwd(const void* P, const void* g, const void* const* u, const v
     a.tab = *tab;
   }
   const dim3 grid = adv_grid<T>(a.geo);
-  const auto kernel = stage_bwd_kernel<T, kProgram, true>;
+  const auto kernel = stage_bwd_kernel<T, kProgram, kAxis0>;
   const size_t smem = AdvTile<T>::smem;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -936,15 +965,21 @@ struct GodAdj {
   T dc, ham, dt;  // dt: sum of the centre's coefficient cotangent times its d/dt
 };
 
-// S the P around y; Y the padded coordinates of y, q its interior index
-template <typename T, bool kProgram>
+// S the P around y; Y the padded coordinates of y, q its interior index.
+// kFirst the first axis (hamiltonians.cuh): 1 for the 2D entry, whose axis-0
+// pieces are 0 and never read.
+template <typename T, bool kProgram, int kFirst = 0>
 __device__ void godunov_adjoint(const TermsBwdArgs<T>& a, const Stencil<T>& S, int64_t q,
                                 const int* Y, T gbar, bool centre, GodAdj<T>& o) {
   const LsmStageTerms& p = a.tab;
   T A[3], B[3];
   T gp2 = T(0), gm2 = T(0);
+  if constexpr (kFirst == 1) {
+    A[0] = B[0] = T(0);
+    o.sA[0] = o.sB[0] = 0;
+  }
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
+  for (int d = kFirst; d < 3; ++d) {
     const T inv_h = a.k.inv_h[d], half_h = a.k.half_h[d], inv_hh = a.k.inv_hh[d];
     const T m2 = S.along(d, -2), m1 = S.along(d, -1), c0 = S.at(0, 0, 0);
     const T p1 = S.along(d, 1), p2 = S.along(d, 2);
@@ -1010,7 +1045,7 @@ __device__ void godunov_adjoint(const TermsBwdArgs<T>& a, const Stencil<T>& S, i
   const T dgp2 = gp2 > T(0) ? qdiv(dgp, T(2) * gp) : T(0);
   const T dgm2 = gm2 > T(0) ? qdiv(dgm, T(2) * gm) : T(0);
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
+  for (int d = 0; d < 3; ++d) {  // (kFirst = 1: A[0] = B[0] = 0, so dA[0] = dB[0] = 0)
     o.dA[d] = A[d] > T(0) ? dgp2 * (T(2) * A[d]) : (A[d] < T(0) ? dgm2 * (T(2) * A[d]) : T(0));
     o.dB[d] = B[d] < T(0) ? dgp2 * (T(2) * B[d]) : (B[d] > T(0) ? dgm2 * (T(2) * B[d]) : T(0));
   }
@@ -1045,21 +1080,24 @@ struct CurvAdj {
   T ham, dt;
 };
 
-template <typename T, bool kProgram>
+// kFirst = 1 (the 2D entry): the 3D sums without their axis-0 terms, as
+// hamiltonians.cuh's curvature; the axis-0 pieces are 0.
+template <typename T, bool kProgram, int kFirst = 0>
 __device__ void curvature_adjoint(const TermsBwdArgs<T>& a, const Stencil<T>& S, int64_t q,
                                   const int* Y, T gbar, bool centre, CurvAdj<T>& o) {
   const LsmStageTerms& p = a.tab;
   const int pair[3][2] = {{0, 1}, {0, 2}, {1, 2}};
   const T c0 = S.at(0, 0, 0);
   T g[3], hd[3], hm[3];
+  if constexpr (kFirst == 1) g[0] = hd[0] = hm[0] = hm[1] = T(0);
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
+  for (int d = kFirst; d < 3; ++d) {
     const T plus = S.along(d, 1), minus = S.along(d, -1);
     g[d] = (plus - minus) * a.k.inv_two_h[d];
     hd[d] = (plus - T(2) * c0 + minus) * a.k.inv_hh[d];
   }
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
+  for (int k = kFirst == 1 ? 2 : 0; k < 3; ++k) {
     // the edge neighbour (sa, sb) along the axis pair
     auto edge = [&](int sa, int sb) {
       int off[3] = {0, 0, 0};
@@ -1069,14 +1107,23 @@ __device__ void curvature_adjoint(const TermsBwdArgs<T>& a, const Stencil<T>& S,
     };
     hm[k] = (edge(1, 1) - edge(1, -1) - edge(-1, 1) + edge(-1, -1)) * a.k.inv_hmix[k];
   }
-  const T nrmsq = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
-  const T lap = hd[0] + hd[1] + hd[2];
-  T quad = g[0] * g[0] * hd[0];
-  quad = quad + T(2) * g[0] * g[1] * hm[0];
-  quad = quad + T(2) * g[0] * g[2] * hm[1];
-  quad = quad + g[1] * g[1] * hd[1];
-  quad = quad + T(2) * g[1] * g[2] * hm[2];
-  quad = quad + g[2] * g[2] * hd[2];
+  T nrmsq, lap, quad;
+  if constexpr (kFirst == 1) {
+    nrmsq = g[1] * g[1] + g[2] * g[2];
+    lap = hd[1] + hd[2];
+    quad = g[1] * g[1] * hd[1];
+    quad = quad + T(2) * g[1] * g[2] * hm[2];
+    quad = quad + g[2] * g[2] * hd[2];
+  } else {
+    nrmsq = g[0] * g[0] + g[1] * g[1] + g[2] * g[2];
+    lap = hd[0] + hd[1] + hd[2];
+    quad = g[0] * g[0] * hd[0];
+    quad = quad + T(2) * g[0] * g[1] * hm[0];
+    quad = quad + T(2) * g[0] * g[2] * hm[1];
+    quad = quad + g[1] * g[1] * hd[1];
+    quad = quad + T(2) * g[1] * g[2] * hm[2];
+    quad = quad + g[2] * g[2] * hd[2];
+  }
   const bool safe = nrmsq >= EpsOf<T>::value();
   const T ns = safe ? nrmsq : T(1);
   const T root = tsqrt(ns);
@@ -1109,12 +1156,13 @@ __device__ void curvature_adjoint(const TermsBwdArgs<T>& a, const Stencil<T>& S,
   const T dlap = dN * ns;
   const T dquad = -dN;
   const T dnrmsq = (safe ? dns : T(0)) + (nrmsq > T(0) ? qdiv(dnrm, T(2) * nrm) : T(0));
+  if constexpr (kFirst == 1) o.dhd[0] = o.dg[0] = o.dhm[0] = o.dhm[1] = T(0);
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
+  for (int d = kFirst; d < 3; ++d) {
     o.dhd[d] = dquad * (g[d] * g[d]) + dlap;
     T dgd = dquad * (T(2) * g[d] * hd[d]);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
+    for (int k = kFirst == 1 ? 2 : 0; k < 3; ++k) {
       const int i = pair[k][0], j = pair[k][1];
       if (i == d) dgd = dgd + dquad * (T(2) * g[j] * hm[k]);
       if (j == d) dgd = dgd + dquad * (T(2) * g[i] * hm[k]);
@@ -1122,7 +1170,8 @@ __device__ void curvature_adjoint(const TermsBwdArgs<T>& a, const Stencil<T>& S,
     o.dg[d] = dgd + (T(2) * g[d]) * dnrmsq;
   }
 #pragma unroll
-  for (int k = 0; k < 3; ++k) o.dhm[k] = dquad * (T(2) * g[pair[k][0]] * g[pair[k][1]]);
+  for (int k = kFirst == 1 ? 2 : 0; k < 3; ++k)
+    o.dhm[k] = dquad * (T(2) * g[pair[k][0]] * g[pair[k][1]]);
   o.ham = ham;
   o.dt = tsum;
 }
@@ -1162,6 +1211,146 @@ __device__ __forceinline__ int4 terms_unit(int e, int j0, int k0, const Geom& G)
                    in ? (Yj - LSM_GHOST) * G.n[2] + (Yk - LSM_GHOST) : -1, god);
 }
 
+// Phase 1 of a K3' block at one output y (unit `un`, whose Godunov and
+// curvature positions it holds; S the P around y, Y its padded coordinates,
+// q its interior index, g its cotangent): the pieces of the gather into the
+// plane's buffers gb, cb and sb_ (0 off the interior). `own` (the unit of
+// this thread's node): what y sends its own node, into acc[0] (kFirst = 0:
+// along axis 0 too, into acc[-2 .. 2], the node on planes y - 2 .. y + 2);
+// `centre`: its g*H and dt into the partial sums. kFirst = 1 (the 2D entry):
+// no axis-0 piece is sent.
+template <typename T, bool kProgram, int kFirst>
+__device__ __forceinline__ void terms_pieces(const TermsBwdArgs<T>& a, const Stencil<T>& S,
+                                             int64_t q, const int* Y, T g, int4 un, bool in,
+                                             bool own, bool centre, T* gb, T* cb, uint16_t* sb_,
+                                             T* acc, double& sg, double& st_) {
+  using TL = TermsTile<T>;
+  constexpr int RP = TL::RP, RC = TL::RC;
+  const TermConsts<T>& kc = a.k;
+  const int pos = un.x & 0xffff, cpos1 = un.x >> 16;
+  const T gbar = -kc.gamma * g;
+  if (a.has_godunov && un.w) {
+    if (in) {
+      GodAdj<T> o;
+      godunov_adjoint<T, kProgram, kFirst>(a, S, q, Y, gbar, centre, o);
+      int bits = 0;
+#pragma unroll
+      for (int d = kFirst; d < 3; ++d) {
+        gb[d * RP + pos] = o.dA[d];
+        gb[(3 + d) * RP + pos] = o.dB[d];
+        bits |= (o.sA[d] | (o.sB[d] << 2)) << (4 * d);
+      }
+      sb_[pos] = static_cast<uint16_t>(bits);
+      if (own) {
+        T w = godunov_weight<T>(o.dA[kFirst], o.dB[kFirst], o.sA[kFirst], o.sB[kFirst], kc,
+                                kFirst, 0);
+#pragma unroll
+        for (int d = kFirst + 1; d < 3; ++d)
+          w = w + godunov_weight<T>(o.dA[d], o.dB[d], o.sA[d], o.sB[d], kc, d, 0);
+        acc[0] = acc[0] + (w + o.dc);
+        if constexpr (kFirst == 0) {
+#pragma unroll
+          for (int kq = -2; kq <= 2; ++kq)
+            if (kq != 0)
+              acc[kq] = acc[kq] + godunov_weight<T>(o.dA[0], o.dB[0], o.sA[0], o.sB[0], kc, 0, kq);
+        }
+      }
+      if (centre) {
+        sg += double(g) * double(o.ham);
+        st_ += double(o.dt);
+      }
+    } else {
+#pragma unroll
+      for (int f6 = 0; f6 < TL::GOD_F; ++f6) gb[f6 * RP + pos] = T(0);
+      sb_[pos] = 0;
+    }
+  }
+  // curvature reaches 1: its pieces over the column and a halo of 1
+  if (a.has_curvature && cpos1 > 0) {
+    const int cpos = cpos1 - 1;
+    if (in) {
+      CurvAdj<T> o;
+      curvature_adjoint<T, kProgram, kFirst>(a, S, q, Y, gbar, centre, o);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        cb[d * RC + cpos] = o.dg[d];
+        cb[(3 + d) * RC + cpos] = o.dhd[d];
+        cb[(6 + d) * RC + cpos] = o.dhm[d];
+      }
+      if (own) {
+        T h = o.dhd[kFirst] * kc.inv_hh[kFirst];
+#pragma unroll
+        for (int d = kFirst + 1; d < 3; ++d) h = h + o.dhd[d] * kc.inv_hh[d];
+        acc[0] = acc[0] - T(2) * h;
+        if constexpr (kFirst == 0) {
+          const T dg = o.dg[0] * kc.inv_two_h[0], dh = o.dhd[0] * kc.inv_hh[0];
+          acc[1] = acc[1] + (dg + dh);    // the node at y + 1 reads y as its -1
+          acc[-1] = acc[-1] + (-dg + dh);  // the node at y - 1 as its +1
+        }
+      }
+      if (centre) {
+        sg += double(g) * double(o.ham);
+        st_ += double(o.dt);
+      }
+    } else {
+#pragma unroll
+      for (int f9 = 0; f9 < TL::CURV_F; ++f9) cb[f9 * RC + cpos] = T(0);
+    }
+  }
+}
+
+// Phase 2 of a K3' block: what the outputs around this thread's node in the
+// plane send to it (their pieces in gb, sb_, cb), into acc[0]; with kFirst
+// = 0 also, across the edges of the axis pairs (0, 1) and (0, 2), what they
+// send its nodes on the planes either side, into acc[-1] and acc[1].
+template <typename T, int kFirst>
+__device__ __forceinline__ void terms_gather(const TermConsts<T>& kc, bool god, bool curv,
+                                             const T* gb, const uint16_t* sb_, const T* cb,
+                                             int own_pos, int own_c, T* acc) {
+  using TL = TermsTile<T>;
+  constexpr int RP = TL::RP, RC = TL::RC;
+  const int dpos[3] = {0, TL::W, 1}, dcpos[3] = {0, TL::WC, 1};
+#pragma unroll
+  for (int d = 1; d < 3; ++d) {
+#pragma unroll
+    for (int kk = -2; kk <= 2; ++kk) {
+      if (kk == 0) continue;
+      const bool near = kk == 1 || kk == -1;
+      if (!god && !near) continue;
+      // (the pieces of an output off the interior are 0)
+      if (god) {
+        const int pos = own_pos - kk * dpos[d], bits = sb_[pos] >> (4 * d);
+        acc[0] = acc[0] + godunov_weight<T>(gb[d * RP + pos], gb[(3 + d) * RP + pos], bits & 3,
+                                            (bits >> 2) & 3, kc, d, kk);
+      }
+      if (curv && near) {
+        const int cpos = own_c - kk * dcpos[d];
+        const T dg = cb[d * RC + cpos] * kc.inv_two_h[d];
+        acc[0] = acc[0] + ((kk == 1 ? dg : -dg) + cb[(3 + d) * RC + cpos] * kc.inv_hh[d]);
+      }
+    }
+  }
+  if (curv) {
+    // the mixed differences: y = x - sa e_da - sb e_db with y in the plane, x
+    // on the plane sa away when da is axis 0
+    const int pair[3][2] = {{0, 1}, {0, 2}, {1, 2}};
+#pragma unroll
+    for (int m = kFirst == 0 ? 0 : 2; m < 3; ++m) {
+      const int da = pair[m][0], db = pair[m][1];
+#pragma unroll
+      for (int sa_ = -1; sa_ <= 1; sa_ += 2) {
+#pragma unroll
+        for (int sb2 = -1; sb2 <= 1; sb2 += 2) {
+          const int cpos = own_c - (da != 0 ? sa_ * dcpos[da] : 0) - sb2 * dcpos[db];
+          const T w = cb[(6 + m) * RC + cpos] * kc.inv_hmix[m];
+          const int at = da == 0 ? sa_ : 0;
+          acc[at] = acc[at] + (sa_ * sb2 > 0 ? w : -w);
+        }
+      }
+    }
+  }
+}
+
 template <typename T, bool kProgram>
 __global__ void __launch_bounds__(TermsTile<T>::NT, TermsTile<T>::MIN_BLOCKS)
     stage_bwd_terms_kernel(const __grid_constant__ TermsBwdArgs<T> a) {
@@ -1191,7 +1380,6 @@ __global__ void __launch_bounds__(TermsTile<T>::NT, TermsTile<T>::MIN_BLOCKS)
   const int own_p = (t / CX + 4) * TW + t % CX + 4;
   const int i0 = blockIdx.z * a.chunk, i1 = min(i0 + a.chunk, G.S[0]);
   const TermConsts<T>& kc = a.k;
-  const T neg_gamma = -kc.gamma;
   for (int e = t; e < RP; e += NT) units[e] = terms_unit<TL>(e, j0, k0, G);
   // plane `plane` of P over the column and a reach of 4, asynchronously
   auto load_plane = [&](int plane) {
@@ -1215,12 +1403,6 @@ __global__ void __launch_bounds__(TermsTile<T>::NT, TermsTile<T>::MIN_BLOCKS)
       copy_async(dst + e, a.g + (in ? pidx(G, plane, Yj, Yk) : 0), in);
     }
   };
-  // y's Godunov pieces along d in this plane's buffer
-  auto gw = [&](const T* gb, const uint16_t* sb_, int pos, int d, int kq) -> T {
-    const int bits = sb_[pos] >> (4 * d);
-    return godunov_weight<T>(gb[d * RP + pos], gb[(3 + d) * RP + pos], bits & 3,
-                             (bits >> 2) & 3, kc, d, kq);
-  };
   double sg = 0.0, sb = 0.0, sa = 0.0, st_ = 0.0;
   // dP of this thread's node on planes s - 2 .. s + 2, gathered as the pieces
   // of plane s come: on planes s -+ 1, s -+ 2 from its own output (axis 0),
@@ -1241,125 +1423,26 @@ __global__ void __launch_bounds__(TermsTile<T>::NT, TermsTile<T>::MIN_BLOCKS)
     for (int q = 0; q < 4; ++q) acc[q] = acc[q + 1];
     acc[4] = T(0);
     const T* const gs = gring + gslot(s);
-    // (the previous plane's readers passed the barrier above)
-    T* const gb = gp_;
-    T* const cb = cp_;
-    uint16_t* const sb_ = sel;
     // phase 1: the pieces of plane s's outputs over the column and a halo
-    // of 2 (Godunov) or 1 (curvature); a thread's own output first
+    // of 2 (Godunov) or 1 (curvature); a thread's own output first (the
+    // previous plane's readers passed the barrier above)
     const bool in_s = inside(s, G.n[0]);
     const int64_t qs = int64_t(s - LSM_GHOST) * G.m12;
     const T* const planes = ring + pslot(s - 2);  // planes s - 2 .. s + 2, TP apart
     for (int e = t; e < RP; e += NT) {
       const int4 un = units[e];
-      const int pos = un.x & 0xffff, cpos1 = un.x >> 16;
       const int Y[3] = {s, j0 + (un.y >> 16 & 0xff) - 2, k0 + (un.y >> 24) - 2};
       const bool own = e < NT, in = in_s && un.z >= 0;
-      const bool centre = own && in && s >= i0 && s < i1;
-      const int64_t q = qs + un.z;
-      const T gbar = neg_gamma * gs[pos];
       const Stencil<T> S{planes + (un.y & 0xffff), TP, TW};
-      if (god && un.w) {
-        if (in) {
-          GodAdj<T> o;
-          godunov_adjoint<T, kProgram>(a, S, q, Y, gbar, centre, o);
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            gb[d * RP + pos] = o.dA[d];
-            gb[(3 + d) * RP + pos] = o.dB[d];
-          }
-          sb_[pos] = static_cast<uint16_t>(o.sA[0] | (o.sB[0] << 2) | (o.sA[1] << 4) |
-                                           (o.sB[1] << 6) | (o.sA[2] << 8) | (o.sB[2] << 10));
-          if (own) {  // along axis 0 and at the centre: this thread's own node
-            acc[2] = acc[2] + (godunov_weight<T>(o.dA[0], o.dB[0], o.sA[0], o.sB[0], kc, 0, 0) +
-                               godunov_weight<T>(o.dA[1], o.dB[1], o.sA[1], o.sB[1], kc, 1, 0) +
-                               godunov_weight<T>(o.dA[2], o.dB[2], o.sA[2], o.sB[2], kc, 2, 0) +
-                               o.dc);
-#pragma unroll
-            for (int kq = -2; kq <= 2; ++kq)
-              if (kq != 0)
-                acc[2 + kq] =
-                    acc[2 + kq] + godunov_weight<T>(o.dA[0], o.dB[0], o.sA[0], o.sB[0], kc, 0, kq);
-          }
-          if (centre) {
-            sg += double(gs[pos]) * double(o.ham);
-            st_ += double(o.dt);
-          }
-        } else {
-#pragma unroll
-          for (int f6 = 0; f6 < TL::GOD_F; ++f6) gb[f6 * RP + pos] = T(0);
-          sb_[pos] = 0;
-        }
-      }
-      // curvature reaches 1: its pieces over the column and a halo of 1
-      if (curv && cpos1 > 0) {
-        const int cpos = cpos1 - 1;
-        if (in) {
-          CurvAdj<T> o;
-          curvature_adjoint<T, kProgram>(a, S, q, Y, gbar, centre, o);
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            cb[d * RC + cpos] = o.dg[d];
-            cb[(3 + d) * RC + cpos] = o.dhd[d];
-            cb[(6 + d) * RC + cpos] = o.dhm[d];
-          }
-          if (own) {
-            acc[2] = acc[2] - T(2) * (o.dhd[0] * kc.inv_hh[0] + o.dhd[1] * kc.inv_hh[1] +
-                                      o.dhd[2] * kc.inv_hh[2]);
-            const T dg = o.dg[0] * kc.inv_two_h[0], dh = o.dhd[0] * kc.inv_hh[0];
-            acc[3] = acc[3] + (dg + dh);   // the node at s + 1 reads y as its -1
-            acc[1] = acc[1] + (-dg + dh);  // the node at s - 1 as its +1
-          }
-          if (centre) {
-            sg += double(gs[pos]) * double(o.ham);
-            st_ += double(o.dt);
-          }
-        } else {
-#pragma unroll
-          for (int f9 = 0; f9 < TL::CURV_F; ++f9) cb[f9 * RC + cpos] = T(0);
-        }
-      }
+      terms_pieces<T, kProgram, 0>(a, S, qs + un.z, Y, gs[un.x & 0xffff], un, in, own,
+                                   own && in && s >= i0 && s < i1, gp_, cp_, sel, acc + 2, sg,
+                                   st_);
     }
     __syncthreads();  // plane s's pieces are in
     // phase 2: what the outputs around this thread's node in plane s send to
     // it (on plane s) and, across the edges, to its nodes on planes s -+ 1
     if (j < G.S[1] && k < G.S[2]) {
-      const int dpos[3] = {0, W, 1}, dcpos[3] = {0, WC, 1};
-#pragma unroll
-      for (int d = 1; d < 3; ++d) {
-#pragma unroll
-        for (int kk = -2; kk <= 2; ++kk) {
-          if (kk == 0) continue;
-          const bool near = kk == 1 || kk == -1;
-          if (!god && !near) continue;
-          // (the pieces of an output off the interior are 0)
-          if (god) acc[2] = acc[2] + gw(gb, sb_, own_pos - kk * dpos[d], d, kk);
-          if (curv && near) {
-            const int cpos = own_c - kk * dcpos[d];
-            const T dg = cb[d * RC + cpos] * kc.inv_two_h[d];
-            acc[2] = acc[2] + ((kk == 1 ? dg : -dg) + cb[(3 + d) * RC + cpos] * kc.inv_hh[d]);
-          }
-        }
-      }
-      if (curv) {
-        // the mixed differences: y = x - sa e_da - sb e_db with y on plane s,
-        // x on plane s + sa when da is axis 0
-        const int pair[3][2] = {{0, 1}, {0, 2}, {1, 2}};
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-          const int da = pair[m][0], db = pair[m][1];
-#pragma unroll
-          for (int sa_ = -1; sa_ <= 1; sa_ += 2) {
-#pragma unroll
-            for (int sb2 = -1; sb2 <= 1; sb2 += 2) {
-              const int cpos = own_c - (da != 0 ? sa_ * dcpos[da] : 0) - sb2 * dcpos[db];
-              const T w = cb[(6 + m) * RC + cpos] * kc.inv_hmix[m];
-              const int at = da == 0 ? 2 + sa_ : 2;
-              acc[at] = acc[at] + (sa_ * sb2 > 0 ? w : -w);
-            }
-          }
-        }
-      }
+      terms_gather<T, 0>(kc, god, curv, gp_, sel, cp_, own_pos, own_c, acc + 2);
       // dP of plane s - 2 is complete
       const int i = s - 2;
       if (i >= i0 && i < i1) {
@@ -1392,8 +1475,109 @@ __global__ void __launch_bounds__(TermsTile<T>::NT, TermsTile<T>::MIN_BLOCKS)
   }
 }
 
+// K3''s 2D entry (lsm_stage_bwd_terms_2d_*): the adjoint of K1''s 2D stage
+// (the embedding's function with axis 0 compiled out, hamiltonians.cuh with
+// kFirst = 1) on a 2D field's (n0+6, n1+6) layout, whose axes 0 and 1 take
+// the places of axes 1 and 2 above over one plane (make_geom_2d). The same
+// gather, without the march: a block owns a column of CY x CX nodes, stages
+// the plane of P over it and a reach of 4 and g at its outputs (the column
+// and a halo of 2) by cp.async, phase 1 evaluates each output's pieces once
+// and phase 2 gathers what its node owes the outputs around it: the 3D
+// kernel's terms_pieces and terms_gather with kFirst = 1 (no axis-0 sample,
+// piece or send). An advection term's share is K3's 2D entry in accumulate
+// mode, as in 3D.
+template <typename T, bool kProgram>
+__global__ void __launch_bounds__(TermsTile<T>::NT, TermsTile<T>::MIN_BLOCKS)
+    stage_bwd_terms_2d_kernel(const __grid_constant__ TermsBwdArgs<T> a) {
+  using TL = TermsTile<T>;
+  constexpr int CX = TL::CX, NT = TL::NT, W = TL::W, RP = TL::RP, WC = TL::WC, RC = TL::RC;
+  constexpr int TW = TL::TW, TP = TL::TP;
+  extern __shared__ __align__(16) unsigned char lsm_dyn_smem[];
+  __shared__ double red[4][NT / 32];
+  const Geom& G = a.geo;
+  const bool god = a.has_godunov, curv = a.has_curvature;
+  // shared memory: the units' table, the plane of P, g at the outputs'
+  // positions, the Godunov and curvature pieces (field-major), the minmod
+  // branches
+  int4* const units = reinterpret_cast<int4*>(lsm_dyn_smem);
+  T* const tile = reinterpret_cast<T*>(units + RP);
+  T* const gs = tile + TP;
+  T* const gb = gs + RP;
+  T* const cb = gb + (god ? TL::GOD_F * RP : 0);
+  uint16_t* const sb_ = reinterpret_cast<uint16_t*>(cb + (curv ? TL::CURV_F * RC : 0));
+  const int t = threadIdx.x;
+  const int j0 = blockIdx.y * TL::CY, k0 = blockIdx.x * CX;
+  const int j = j0 + t / CX, k = k0 + t % CX;  // this thread's node
+  const int own_pos = (t / CX + 2) * W + t % CX + 2, own_c = (t / CX + 1) * WC + t % CX + 1;
+  const int own_p = (t / CX + 4) * TW + t % CX + 4;
+  const TermConsts<T>& kc = a.k;
+  for (int e = t; e < RP; e += NT) units[e] = terms_unit<TL>(e, j0, k0, G);
+  for (int e = t; e < TP; e += NT) {
+    const int jj = j0 - 4 + e / TW, kk = k0 - 4 + e % TW;
+    const bool in = jj >= 0 && jj < G.S[1] && kk >= 0 && kk < G.S[2];
+    copy_async(tile + e, a.P + (in ? pidx(G, 0, jj, kk) : 0), in);
+  }
+  for (int e = t; e < RP; e += NT) {
+    const int Yj = j0 + e / W - 2, Yk = k0 + e % W - 2;
+    const bool in = inside(Yj, G.n[1]) && inside(Yk, G.n[2]);
+    copy_async(gs + e, a.g + (in ? pidx(G, 0, Yj, Yk) : 0), in);
+  }
+  async_commit();
+  async_wait();
+  __syncthreads();  // the table, P and g are in
+  double sg = 0.0, sb = 0.0, sa = 0.0, st_ = 0.0;
+  T acc = T(0);  // dP of this thread's node
+  // phase 1: the pieces of the outputs over the column and a halo of 2
+  // (Godunov) or 1 (curvature); a thread's own output first
+  for (int e = t; e < RP; e += NT) {
+    const int4 un = units[e];
+    // the embedding's node: axis-0 index 0 (padded LSM_GHOST)
+    const int Y[3] = {LSM_GHOST, j0 + (un.y >> 16 & 0xff) - 2, k0 + (un.y >> 24) - 2};
+    const bool own = e < NT, in = un.z >= 0;
+    const Stencil<T> S{tile + (un.y & 0xffff), 0, TW};
+    terms_pieces<T, kProgram, 1>(a, S, un.z, Y, gs[un.x & 0xffff], un, in, own, own && in, gb,
+                                 cb, sb_, &acc, sg, st_);
+  }
+  __syncthreads();  // the pieces are in
+  // phase 2: what the outputs around this thread's node send to it
+  if (j < G.S[1] && k < G.S[2]) {
+    terms_gather<T, 1>(kc, god, curv, gb, sb_, cb, own_pos, own_c, &acc);
+    const int64_t x = pidx(G, 0, j, k);
+    T v = acc;
+    if (inside(j, G.n[1]) && inside(k, G.n[2])) {
+      const T gv = a.g[x];
+      v = kc.beta * gv + v;
+      if (a.daux != nullptr) a.daux[x] = kc.alpha * gv;
+      sb += double(gv) * double(tile[own_p]);
+      if (a.aux != nullptr) sa += double(gv) * double(a.aux[x]);
+    }
+    a.dP[x] = v;
+  }
+  sg = block_sum<NT>(sg, red[0]);
+  sb = block_sum<NT>(sb, red[1]);
+  sa = block_sum<NT>(sa, red[2]);
+  st_ = block_sum<NT>(st_, red[3]);
+  if (t == 0) {
+    const int64_t bid = int64_t(blockIdx.x) + int64_t(gridDim.x) * int64_t(blockIdx.y);
+    a.part[4 * bid] = sg;
+    a.part[4 * bid + 1] = sb;
+    a.part[4 * bid + 2] = sa;
+    a.part[4 * bid + 3] = st_;
+  }
+}
+
 template <typename T>
-int launch_stage_bwd_terms(const void* P, const void* g, const void* aux, void* dP, void* daux,
+inline size_t terms_smem_2d(bool god, bool curv) {
+  using TL = TermsTile<T>;
+  return TL::RP * 16 + (TL::TP + TL::RP) * sizeof(T) +
+         (god ? TL::RP * (TL::GOD_F * sizeof(T) + sizeof(uint16_t)) : 0) +
+         (curv ? TL::RC * TL::CURV_F * sizeof(T) : 0);
+}
+
+// k2D: the 2D entry, (n0, n1, n2) = (1, the 2D field's n0, n1)
+template <typename T, bool k2D = false>
+int launch_stage_bwd_terms(
+const void* P, const void* g, const void* aux, void* dP, void* daux,
                            void* part, void* dcoef, int64_t n0, int64_t n1, int64_t n2,
                            const LsmStageTerms* terms, const void* const* dstreams,
                            int needs_dt, void* stream_) {
@@ -1406,7 +1590,7 @@ int launch_stage_bwd_terms(const void* P, const void* g, const void* aux, void* 
   a.dP = static_cast<T*>(dP);
   a.daux = static_cast<T*>(daux);
   a.part = static_cast<double*>(part);
-  a.geo = make_geom(n0, n1, n2);
+  a.geo = k2D ? make_geom_2d(n1, n2) : make_geom(n0, n1, n2);
   a.chunk = chunk_len(a.geo.S[0]);
   a.tab = *terms;
   a.k = TermConsts<T>::of(*terms);
@@ -1423,8 +1607,11 @@ int launch_stage_bwd_terms(const void* P, const void* g, const void* aux, void* 
   a.has_godunov = a.k.n_god > 0;
   a.has_curvature = a.k.n_curv > 0;
   const dim3 grid = terms_grid<T>(a.geo);
-  const auto kernel = program ? stage_bwd_terms_kernel<T, true> : stage_bwd_terms_kernel<T, false>;
-  const size_t smem = terms_smem<T>(a.has_godunov, a.has_curvature);
+  const auto kernel =
+      k2D ? (program ? stage_bwd_terms_2d_kernel<T, true> : stage_bwd_terms_2d_kernel<T, false>)
+          : (program ? stage_bwd_terms_kernel<T, true> : stage_bwd_terms_kernel<T, false>);
+  const size_t smem = k2D ? terms_smem_2d<T>(a.has_godunov, a.has_curvature)
+                          : terms_smem<T>(a.has_godunov, a.has_curvature);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1520,4 +1707,100 @@ extern "C" int lsm_stage_bwd_terms_f64(const void* P, const void* g, const void*
                                        void* stream) {
   return launch_stage_bwd_terms<double>(P, g, aux, dP, daux, part, dcoef, n0, n1, n2, terms,
                                         dstreams, needs_dt, stream);
+}
+
+// -- the 2D entries: a 2D field's (n0+6, n1+6) layout -----------------------------------
+
+extern "C" int64_t lsm_stage_bwd_scratch_2d(int64_t n0, int64_t n1) {
+  return 4 * nblocks(adv_grid<double>(make_geom_2d(n0, n1)));
+}
+
+extern "C" int64_t lsm_stage_bwd_terms_scratch_2d(int64_t n0, int64_t n1) {
+  return 4 * nblocks(terms_grid<double>(make_geom_2d(n0, n1)));
+}
+
+namespace {
+
+template <typename T>
+int launch_stage_bwd_2d(const void* P, const void* g, const void* u0, const void* u1,
+                        const void* aux, void* dP, void* du0, void* du1, void* daux, void* part,
+                        void* dcoef, int64_t n0, int64_t n1, double inv_h0, double inv_h1,
+                        double alpha, double beta, double gamma, int accumulate, void* stream) {
+  // the 2D axes 0 and 1 in the places of axes 1 and 2 (axis 0's never read)
+  const void* u[3] = {nullptr, u0, u1};
+  void* du[3] = {nullptr, du0, du1};
+  const double inv_h[3] = {0.0, inv_h0, inv_h1};
+  return launch_stage_bwd<T, false, false>(P, g, u, aux, dP, du, daux, part, dcoef, 1, n0, n1,
+                                           inv_h, alpha, beta, gamma, accumulate, nullptr, 0,
+                                           stream);
+}
+
+// K3'' 2D: the embedding's table (its spacing and coordinates, the program
+// over (1, n0, n1)), entry 0 the velocity program
+template <typename T>
+int launch_stage_bwd_prog_2d(const void* P, const void* g, const void* aux, void* dP, void* daux,
+                             void* part, void* dcoef, int64_t n0, int64_t n1,
+                             const LsmStageTerms* terms, int accumulate, int needs_dt,
+                             void* stream) {
+  if (terms->n != 1 || terms->coef[0] != LSM_COEF_PROGRAM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* u[3] = {nullptr, nullptr, nullptr};
+  void* du[3] = {nullptr, nullptr, nullptr};
+  return launch_stage_bwd<T, true, false>(P, g, u, aux, dP, du, daux, part, dcoef, 1, n0, n1,
+                                          terms->inv_h, terms->alpha, terms->beta, terms->gamma,
+                                          accumulate, terms, needs_dt, stream);
+}
+
+}  // namespace
+
+extern "C" int lsm_stage_bwd_2d_f32(const void* P, const void* g, const void* u0, const void* u1,
+                                    const void* aux, void* dP, void* du0, void* du1, void* daux,
+                                    void* part, void* dcoef, int64_t n0, int64_t n1,
+                                    double inv_h0, double inv_h1, double alpha, double beta,
+                                    double gamma, int accumulate, void* stream) {
+  return launch_stage_bwd_2d<float>(P, g, u0, u1, aux, dP, du0, du1, daux, part, dcoef, n0, n1,
+                                    inv_h0, inv_h1, alpha, beta, gamma, accumulate, stream);
+}
+
+extern "C" int lsm_stage_bwd_2d_f64(const void* P, const void* g, const void* u0, const void* u1,
+                                    const void* aux, void* dP, void* du0, void* du1, void* daux,
+                                    void* part, void* dcoef, int64_t n0, int64_t n1,
+                                    double inv_h0, double inv_h1, double alpha, double beta,
+                                    double gamma, int accumulate, void* stream) {
+  return launch_stage_bwd_2d<double>(P, g, u0, u1, aux, dP, du0, du1, daux, part, dcoef, n0, n1,
+                                     inv_h0, inv_h1, alpha, beta, gamma, accumulate, stream);
+}
+
+extern "C" int lsm_stage_bwd_prog_2d_f32(const void* P, const void* g, const void* aux, void* dP,
+                                         void* daux, void* part, void* dcoef, int64_t n0,
+                                         int64_t n1, const LsmStageTerms* terms, int accumulate,
+                                         int needs_dt, void* stream) {
+  return launch_stage_bwd_prog_2d<float>(P, g, aux, dP, daux, part, dcoef, n0, n1, terms,
+                                         accumulate, needs_dt, stream);
+}
+
+extern "C" int lsm_stage_bwd_prog_2d_f64(const void* P, const void* g, const void* aux, void* dP,
+                                         void* daux, void* part, void* dcoef, int64_t n0,
+                                         int64_t n1, const LsmStageTerms* terms, int accumulate,
+                                         int needs_dt, void* stream) {
+  return launch_stage_bwd_prog_2d<double>(P, g, aux, dP, daux, part, dcoef, n0, n1, terms,
+                                          accumulate, needs_dt, stream);
+}
+
+extern "C" int lsm_stage_bwd_terms_2d_f32(const void* P, const void* g, const void* aux, void* dP,
+                                          void* daux, void* part, void* dcoef, int64_t n0,
+                                          int64_t n1, const LsmStageTerms* terms,
+                                          const void* const* dstreams, int needs_dt,
+                                          void* stream) {
+  return launch_stage_bwd_terms<float, true>(P, g, aux, dP, daux, part, dcoef, 1, n0, n1, terms,
+                                             dstreams, needs_dt, stream);
+}
+
+extern "C" int lsm_stage_bwd_terms_2d_f64(const void* P, const void* g, const void* aux, void* dP,
+                                          void* daux, void* part, void* dcoef, int64_t n0,
+                                          int64_t n1, const LsmStageTerms* terms,
+                                          const void* const* dstreams, int needs_dt,
+                                          void* stream) {
+  return launch_stage_bwd_terms<double, true>(P, g, aux, dP, daux, part, dcoef, 1, n0, n1,
+                                              terms, dstreams, needs_dt, stream);
 }

@@ -22,8 +22,7 @@ tensors at each stage time, at the kernel's node coordinates ``lo + i*h``.
 :attr:`FusedStepper.routes` says which route each term took, and why;
 :attr:`FusedStepper.stage_route` which kernel a stage launches. A
 gradient runs K4, K3 (one advection term) or K3' (any other list) and K5; a
-2D field's runs as autograd of the plain 2D stage and refresh on the CPU and
-raises on CUDA (:func:`gradient_reason`).
+2D field's runs their 2D entries (on the CPU, their plain versions).
 
 ``update_func`` (counterpart of JAX's ``_stage_specs`` /
 ``step_with_terms`` / ``cfl_with_terms``): :meth:`FusedStepper.
@@ -214,12 +213,17 @@ def _kind_reason(phi: MeshField, integrator) -> Optional[str]:
 
 
 def _axes_reason(shape, bcs) -> Optional[str]:
-    """K2's rule per axis and side: ``Extrapolation(d)`` needs ``d <= 7`` and
-    ``n >= d + 1`` nodes, Periodic and Symmetry ``n >= 4``."""
+    """K2's rule per axis and side: ``Extrapolation(d)`` needs ``n >= d + 1``
+    nodes (as in JAX: with fewer the general path raises ``ValueError``) and
+    ``d <= 7`` (a higher degree waits for its ROADMAP item), Periodic and
+    Symmetry ``n >= 4``."""
     for ax, n in enumerate(shape):
         for b in bcs[ax]:
             if isinstance(b, _bc.Extrapolation):
-                if b.degree > 7 or b.degree + 1 > n:
+                if b.degree + 1 > n:
+                    return (f"Extrapolation({b.degree}) needs {b.degree + 1} nodes, axis {ax} "
+                            f"has {n}")
+                if b.degree > 7:
                     return _todo(f"Extrapolation({b.degree}) on an axis of {n} nodes",
                                  "K2 degree")
             elif n < v2.GHOST + 1:
@@ -314,15 +318,10 @@ def term_entries(terms, phi: MeshField, embed: bool = True):
 
 def gradient_reason(terms, phi: MeshField) -> Optional[str]:
     """Why a gradient through the fused stepper of ``terms`` cannot run on
-    CUDA, naming the ROADMAP item; ``None`` when it can: any term list the
-    stepper takes (K4, K3 or K3', K5), on a 3D field whose axes K4 folds."""
+    CUDA; ``None`` when it can: any term list the stepper takes (K4, K3 or
+    K3', K5), on a 3D field or a 2D one (their 2D entries), every axis
+    K2 takes (an axis of 1-3 nodes under ``Extrapolation``)."""
     terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)
-    if phi.ndim == 2:
-        return v2.GRADIENT_2D
-    if min(phi.shape) < v2.GHOST + 1:
-        return ("a gradient through the fused stage on an axis of fewer than "
-                f"{v2.GHOST + 1} nodes is not ported to CUDA yet (ROADMAP.md queue 2, 2D "
-                "gradient (K4 length-1 axis))")
     return _terms_reason(terms, phi) or v2.gradient_reason(
         tuple(term_entry(t, phi) for t in terms))
 

@@ -147,9 +147,8 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
 
 
 def _fused_rollout(integrator, terms, phi, t0, dt, nsteps, remat, remat_chunk):
-    """The fused stepper's rollout; on CUDA a gradient it cannot run (a 2D
-    field's: K3, K4 and K5 have no 2D entry) is refused before any stage
-    runs."""
+    """The fused stepper's rollout; on CUDA a gradient it cannot run
+    (:func:`~.fused.gradient_reason`) is refused before any stage runs."""
     stepper = FusedStepper(terms, phi, integrator)
     if phi.values.is_cuda and _needs_grad(stepper, phi, t0, dt):
         why = gradient_reason(terms, phi)

@@ -111,7 +111,10 @@ class Library:
     ``stage_bwd_f32/f64``, ``stage_bwd_prog_f32/f64`` and
     ``stage_bwd_scratch`` (K3, K3″), ``stage_bwd_terms_f32/f64`` and
     ``stage_bwd_terms_scratch`` (K3'), ``fold_f32/f64`` (K4),
-    ``zero_shells_f32/f64`` (K5), ``band_stage_f32/f64``,
+    ``zero_shells_f32/f64`` (K5), their 2D entries ``stage_bwd_2d``,
+    ``stage_bwd_prog_2d``, ``stage_bwd_terms_2d``, ``fold_2d``,
+    ``zero_shells_2d`` (``_f32/_f64``), ``stage_bwd_scratch_2d`` and
+    ``stage_bwd_terms_scratch_2d``, ``band_stage_f32/f64``,
     ``band_stage_prog_f32/f64`` and ``band_stage_terms_f32/f64`` (K6),
     ``band_refresh_f32/f64`` (K7),
     ``band_retube_f32/f64`` and ``band_retube_smem`` (K8), their 2D entries
@@ -151,6 +154,11 @@ class Library:
         terms_2d_args = [vp] * 3 + [i64] * 2 + [vp, vp]
         prog_2d_args = [vp] * 3 + [i64] * 2 + [vp] + [ci] * 2 + [vp]
         axis_args = [vp] + [i64] * 3 + [ci] + [vp] * 3 + [vp]
+        bwd_2d_args = [vp] * 11 + [i64] * 2 + [f64] * 5 + [ci, vp]
+        bwd_prog_2d_args = [vp] * 7 + [i64] * 2 + [vp, ci, ci, vp]
+        bwd_terms_2d_args = [vp] * 7 + [i64] * 2 + [vp, vp, ci, vp]
+        fold_2d_args = [vp, vp] + [i64] * 2 + [vp] * 3 + [vp]
+        zero_2d_args = [vp] + [i64] * 2 + [vp]
         shell_args = [vp] + [i64] * 3 + [vp] * 4 + [vp]
         names = {"stage": ("lsm_weno_stage", stage_args),
                  "general_3d": ("lsm_weno_general_3d", stage_args),
@@ -169,6 +177,11 @@ class Library:
                  "stage_bwd_prog": ("lsm_stage_bwd_prog", bwd_prog_args),
                  "fold": ("lsm_fold_ghosts", fold_args),
                  "zero_shells": ("lsm_zero_shells", zero_args),
+                 "stage_bwd_2d": ("lsm_stage_bwd_2d", bwd_2d_args),
+                 "stage_bwd_prog_2d": ("lsm_stage_bwd_prog_2d", bwd_prog_2d_args),
+                 "stage_bwd_terms_2d": ("lsm_stage_bwd_terms_2d", bwd_terms_2d_args),
+                 "fold_2d": ("lsm_fold_ghosts_2d", fold_2d_args),
+                 "zero_shells_2d": ("lsm_zero_shells_2d", zero_2d_args),
                  "band_stage": ("lsm_band_stage", band_stage_args),
                  "band_stage_terms": ("lsm_band_stage_terms", band_terms_args),
                  "band_stage_prog": ("lsm_band_stage_prog", band_prog_args),
@@ -195,6 +208,10 @@ class Library:
             fn.argtypes = [i64] * 3
             fn.restype = i64
             setattr(self, name, fn)
+            fn = getattr(lib, f"lsm_{name}_2d")
+            fn.argtypes = [i64] * 2
+            fn.restype = i64
+            setattr(self, f"{name}_2d", fn)
         lib.lsm_band_retube_smem.argtypes = [i64] * 5
         lib.lsm_band_retube_smem.restype = i64
         self.band_retube_smem = lib.lsm_band_retube_smem

@@ -32,7 +32,8 @@ tests and by the on-card comparison in ``chip_smoke.py``):
   :func:`refresh_axis_plain`).
 - :func:`fused_step_stage` is K1 + K2 as a ``torch.autograd.Function``
   whose backward runs K4, then K3 (one advection term) or K3' (any other
-  term list), then K5 (:mod:`.weno_v2_bwd`).
+  term list), then K5 (:mod:`.weno_v2_bwd`), in 3D or on a 2D field's
+  layout (their 2D entries).
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises. Each counts its kernel launches in
@@ -89,6 +90,7 @@ __all__ = [
     "as_terms",
     "resolve_terms",
     "program_values",
+    "program_values_at",
     "ham_contribution",
     "gradient_reason",
 ]
@@ -512,21 +514,32 @@ def embedding_2d(spacing, where: Optional[Where]):
     return (min(h), *h), Where((0.0, *w.lo[-2:]), (0.0, *w.origin[-2:]), w.t, w.value)
 
 
+def program_values_at(spec: TermSpec, shape, spacing, where: Optional[Where],
+                      like: torch.Tensor):
+    """A program term's coefficient values on a grid of ``shape`` at
+    ``where`` (its ``lo``, ``origin`` and time ``t``, whose graph a tensor
+    keeps): :func:`program_values`; on a 2D ``shape`` the embedding's
+    program at the embedding's nodes (:func:`embedding_2d`), 2D components,
+    an advection velocity without the embedding's zero component 0."""
+    where = where or Where()
+    if len(shape) == 3:
+        return program_values(spec, shape, spacing, where.lo, where.t, like, where.origin)
+    spacing3, where3 = embedding_2d(spacing, where)
+    vals = tuple(c[0] for c in program_values(spec, (1, *shape), spacing3, where3.lo, where3.t,
+                                              like, where3.origin))
+    return vals[1:] if spec.kind == "advection" else vals
+
+
 def programs_2d(terms, shape, spacing, where: Optional[Where], like: torch.Tensor):
     """A 2D stage's term list with each program term (the embedding's, of
     the three embedding coordinates) evaluated at the embedding's nodes of
-    ``shape`` into 2D streams, its graph kept for a tensor ``where.t``; an
-    advection program loses the embedding's zero component 0. The other
-    terms pass through. The plain 2D stage runs on this list."""
-    out, spacing3, where3 = [], None, None
+    ``shape`` into 2D streams (:func:`program_values_at`), its graph kept
+    for a tensor ``where.t``. The other terms pass through. The plain 2D
+    stage runs on this list."""
+    out = []
     for spec, arrs in terms:
         if spec.coef_kind == "program":
-            if where3 is None:
-                spacing3, where3 = embedding_2d(spacing, where)
-            arrs = tuple(c[0] for c in program_values(
-                spec, (1, *shape), spacing3, where3.lo, where3.t, like, where3.origin))
-            if spec.kind == "advection":
-                arrs = arrs[1:]
+            arrs = program_values_at(spec, shape, spacing, where, like)
             spec = TermSpec(spec.kind, "stream", None, len(arrs))
         out.append((spec, arrs))
     return tuple(out)
@@ -541,8 +554,7 @@ def _coef_values(spec: TermSpec, arrs, like: torch.Tensor, spacing=None, shape=N
     if spec.coef_kind == "none":
         return ()
     if spec.coef_kind == "program":
-        where = where or Where()
-        return program_values(spec, shape, spacing, where.lo, where.t, like, where.origin)
+        return program_values_at(spec, shape, spacing, where, like)
     raise ValueError(f"{spec!r}: evaluate an analytic coefficient first (resolve_terms)")
 
 
@@ -991,15 +1003,16 @@ fused_stage.program_launches = 0  # of the launches, those with a program term (
 fused_stage.launches_2d = 0  # of the launches, those of the 2D entries
 
 
-def _table_2d(terms, coeffs, spacing, shape, where, P) -> StageTerms:
-    """The embedding's term table of a 2D stage: its spacing and
-    coordinates (:func:`embedding_2d`), programs over ``(1, n0, n1)``; an
-    advection term's component 0 (the embedding's zero, which the 2D
-    kernels never read) takes component 1's pointer."""
+def _table_2d(terms, coeffs, spacing, shape, where, P, need_dt=False) -> StageTerms:
+    """The embedding's term table of a 2D stage (K1's 2D entries and the
+    backward's, K3″ and K3' 2D; ``need_dt`` as for :func:`stage_table`): its
+    spacing and coordinates (:func:`embedding_2d`), programs over ``(1, n0,
+    n1)``; an advection term's component 0 (the embedding's zero, which the
+    2D kernels never read) takes component 1's pointer."""
     spacing3, where3 = embedding_2d(spacing, where)
     terms3 = tuple((spec, (arrs[0], *arrs)) if spec.kind == "advection" and spec.coef_kind ==
                    "stream" else (spec, arrs) for spec, arrs in terms)
-    return stage_table(terms3, spacing3, coeffs, where3, (1, *shape), P)
+    return stage_table(terms3, spacing3, coeffs, where3, (1, *shape), P, need_dt)
 
 
 def _stage_2d(lib, P, aux_ptr, out, terms, coeffs, spacing, shape, where, stream,
@@ -1063,12 +1076,6 @@ def stage_refresh_plain(P, terms, coeffs, aux, bcs, spacing, shape,
     backward."""
     return pack_padded(_stage_interior(P, as_terms(terms), coeffs, aux, spacing, shape, where),
                        bcs)
-
-
-#: why a gradient through a dense 2D stage does not run on CUDA
-GRADIENT_2D = ("a gradient through the fused stage of a 2D field (its (n0+6, n1+6) layout: K3, "
-               "K4 and K5 have no 2D entry) is not ported to CUDA yet (ROADMAP.md queue 2, "
-               "2D gradient (K4 length-1 axis))")
 
 
 def gradient_reason(terms) -> Optional[str]:
@@ -1172,10 +1179,9 @@ def fused_step_stage(P: torch.Tensor, terms, coeffs, aux, bcs, spacing, shape,
     to the caller: the forward is K1 alone, and the backward takes the
     output's cotangent as already folded (no K4).
 
-    A 2D stage (``shape`` of two entries) that needs a gradient runs as
-    autograd of :func:`stage_refresh_plain` on the CPU, as the 2D band's
-    backward does; on CUDA it raises ``NotImplementedError`` (K3, K4 and K5
-    have no 2D entry yet).
+    A 2D stage (``shape`` of two entries, K1's and K2's 2D entries) takes
+    the same route: its backward is the 2D entries of K4, K3 or K3' and K5
+    (on the CPU their plain versions on the 2D stencils).
     """
     shape = tuple(shape)
     terms = tuple(terms)
@@ -1192,10 +1198,6 @@ def fused_step_stage(P: torch.Tensor, terms, coeffs, aux, bcs, spacing, shape,
             isinstance(x, torch.Tensor) and x.requires_grad for x in tensors)):
         out = fused_stage(P, terms, values, aux, spacing, shape, where)
         return refresh_ghosts_fast(out, bcs, shape) if refresh else out
-    if len(shape) == 2:
-        if P.device.type != "cpu" or not refresh:
-            raise NotImplementedError(GRADIENT_2D)
-        return stage_refresh_plain(P, terms, coeffs, aux, bcs, spacing, shape, where)
     statics = (tuple(spec for spec, _ in terms), tuple(len(arrs) for _, arrs in terms), bcs,
                tuple(spacing), shape, values, where.at(where.value), refresh)
     return _FusedStepStage.apply(P, aux, *coeffs, t, statics, *streams)

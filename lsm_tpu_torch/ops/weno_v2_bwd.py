@@ -40,10 +40,18 @@ version, and the autograd oracle they are held against.
   float32 it is wrong at WENO tie cells; hold float32 results against it in
   float64.
 
+Every wrapper takes a 3D shape or a 2D one: a 2D field's ``(n0+6, n1+6)``
+buffer, the dense 2D stepper's, whose stage (K1's 2D entries) computes the
+function of the ``(1, n0, n1)`` embedding with its dummy axis compiled out;
+its backward is the 2D entries of the same kernels (two velocity components
+and spacings; a program, and K3' 's table, the embedding's,
+:func:`~.weno_v2.embedding_2d`) and, on the CPU, the plain versions on the 2D
+stencils.
+
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises. Each counts its kernel launches in
-``launches``; K3 and K3' those with a program term (K3″) also in
-``program_launches``.
+``launches``, those of its 2D entry also in ``launches_2d``; K3 and K3'
+those with a program term (K3″) also in ``program_launches``.
 """
 
 from __future__ import annotations
@@ -80,6 +88,13 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _entry(lib, name: str, shape, dtype):
+    """The library's entry ``name`` for a 3D or 2D ``shape`` and ``dtype``:
+    ``lib.<name>_f32``, or ``lib.<name>_2d_f64`` and so on."""
+    return getattr(lib, f"{name}{'_2d' if len(shape) == 2 else ''}_"
+                        f"{'f32' if dtype == torch.float32 else 'f64'}")
+
+
 # -- K4: ghost-cotangent fold --------------------------------------------------------
 
 
@@ -109,12 +124,12 @@ def _fold_sources(bc, side: int, k: int, n: int):
 
 
 def fold_ghost_cotangent_plain(g: torch.Tensor, bcs, shape) -> torch.Tensor:
-    """Plain version of K4, in place on the padded ``g``: axis 2, then 1, then
-    0 (the reverse of the refresh), each over the lines the refresh covers for
-    that axis; per line, left then right side, ghost distance 1..3, source
-    node by node: ``src += w * ghost``; then the shells are zeroed. Returns
-    ``g``."""
-    for ax in (2, 1, 0):
+    """Plain version of K4, in place on the padded ``g``: the axes last to
+    first (the reverse of the refresh: 2, 1, 0 in 3D, 1, 0 in 2D), each over
+    the lines the refresh covers for that axis; per line, left then right
+    side, ghost distance 1..3, source node by node: ``src += w * ghost``;
+    then the shells are zeroed. Returns ``g``."""
+    for ax in reversed(range(len(shape))):
         n = shape[ax]
         line = g[tuple(slice(None) if d <= ax else slice(G, G + m)
                        for d, m in enumerate(shape))]
@@ -128,52 +143,63 @@ def fold_ghost_cotangent_plain(g: torch.Tensor, bcs, shape) -> torch.Tensor:
     return g
 
 
+def _check_degrees(bcs, shape):
+    """``NotImplementedError`` naming its item for an ``Extrapolation`` of
+    degree > 7 on an axis that has the degree's nodes (the kernels' weight
+    table; JAX computes it); fewer nodes than degree + 1 stay the
+    ``ValueError`` of :func:`~.weno_v2._ghost_args`, as in JAX."""
+    for ax, n in enumerate(shape):
+        for b in bcs[ax]:
+            if isinstance(b, _bc.Extrapolation) and v2._MAX_DEGREE < b.degree <= n - 1:
+                raise NotImplementedError(
+                    f"Extrapolation({b.degree}) on axis {ax}: the ghost kernels take degree <= "
+                    f"{v2._MAX_DEGREE} (ROADMAP.md queue 2, K2 degree)")
+
+
 def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
     """K4: a new padded buffer holding ``g``'s interior with the ghost-shell
     cotangents of ``g`` folded into it, and zero shells; ``g`` is left as it
-    is.
+    is. ``shape`` 3D, or 2D (a 2D field's ``(n0+6, n1+6)`` buffer: the
+    transpose of K2's 2D entry).
 
     Replaces ``lsm_tpu.ops.weno_v2_bwd.fold_ghost_cotangent_fast``. CUDA
     tensors go to ``csrc/fold_ghosts.cu`` (one launch: each interior node
     gathers its contributions in the plain version's order), CPU tensors to
-    :func:`fold_ghost_cotangent_plain` on a copy. On CUDA the kernel takes
-    axes of >= 4 nodes with what K2 takes there (Extrapolation of degree <=
-    7 and <= n - 1) and raises ``NotImplementedError`` otherwise.
+    :func:`fold_ghost_cotangent_plain` on a copy. The kernels take what K2
+    takes: Periodic and Symmetry on axes of >= 4 nodes, Extrapolation of
+    degree <= n - 1 on any axis (one of 1-3 nodes gathers from both faces),
+    else ``ValueError``; a degree > 7 raises ``NotImplementedError``.
     """
     shape = tuple(shape)
-    if len(shape) != 3:
-        raise ValueError(f"the ghost fold is 3D only, got shape {shape}")
+    if len(shape) not in (2, 3):
+        raise ValueError(f"the ghost fold takes a 3D or 2D shape, got {shape}")
     v2._check(g, "g", v2.padded_shape(shape))
     if g.device.type == "cpu":
         return fold_ghost_cotangent_plain(g.clone(), bcs, shape)
-    if min(shape) < G + 1:
-        raise NotImplementedError(
-            f"the ghost fold of an axis of fewer than {G + 1} nodes, shape {shape}, is not "
-            "ported to CUDA yet (ROADMAP.md queue 2, 2D gradient (K4 length-1 axis))")
-    try:
-        kinds, degrees, weights = v2._ghost_args(bcs, shape)
-    except ValueError as e:
-        raise NotImplementedError(f"{e} (ROADMAP.md queue 2, K2 degree)") from e
+    _check_degrees(bcs, shape)
+    kinds, degrees, weights = v2._ghost_args(bcs, shape)
     lib = load_library()
-    fn = lib.fold_f32 if g.dtype == torch.float32 else lib.fold_f64
+    fn = _entry(lib, "fold", shape, g.dtype)
     gf = torch.empty_like(g)
     ctx, stream = v2._on_card(g)
     with ctx:
         code = fn(g.data_ptr(), gf.data_ptr(), *shape, ctypes.addressof(kinds),
                   ctypes.addressof(degrees), ctypes.addressof(weights), stream)
     v2._raise_on(code, lib, "fold_ghosts kernel")
-    bump(fold_ghost_cotangent_fast, launches=1)
+    bump(fold_ghost_cotangent_fast, launches=1, launches_2d=len(shape) == 2)
     return gf
 
 
 fold_ghost_cotangent_fast.launches = 0
+fold_ghost_cotangent_fast.launches_2d = 0  # of the launches, those of the 2D entry
 
 
 # -- K5: shell zeroing -----------------------------------------------------------
 
 
 def zero_pad_shells_plain(buf: torch.Tensor, shape) -> torch.Tensor:
-    """Plain version of K5: zero the six ghost slabs of ``buf`` in place."""
+    """Plain version of K5: zero the ghost slabs of ``buf`` in place (six in
+    3D, four in 2D)."""
     for ax, n in enumerate(shape):
         buf.narrow(ax, 0, G).zero_()
         buf.narrow(ax, G + n, G).zero_()
@@ -181,28 +207,30 @@ def zero_pad_shells_plain(buf: torch.Tensor, shape) -> torch.Tensor:
 
 
 def zero_pad_shells(buf: torch.Tensor, shape) -> torch.Tensor:
-    """K5: zero the ghost shells of a padded buffer in place; returns ``buf``.
+    """K5: zero the ghost shells of a padded 3D or 2D buffer in place;
+    returns ``buf``.
 
     Replaces ``lsm_tpu.ops.weno_v2_bwd._zero_pad_shells``. CUDA tensors go to
     ``csrc/fold_ghosts.cu``, CPU tensors to :func:`zero_pad_shells_plain`.
     """
     shape = tuple(shape)
-    if len(shape) != 3:
-        raise ValueError(f"the shell zeroing is 3D only, got shape {shape}")
+    if len(shape) not in (2, 3):
+        raise ValueError(f"the shell zeroing takes a 3D or 2D shape, got {shape}")
     v2._check(buf, "buf", v2.padded_shape(shape))
     if buf.device.type == "cpu":
         return zero_pad_shells_plain(buf, shape)
     lib = load_library()
-    fn = lib.zero_shells_f32 if buf.dtype == torch.float32 else lib.zero_shells_f64
+    fn = _entry(lib, "zero_shells", shape, buf.dtype)
     ctx, stream = v2._on_card(buf)
     with ctx:
         code = fn(buf.data_ptr(), *shape, stream)
     v2._raise_on(code, lib, "zero_shells kernel")
-    bump(zero_pad_shells, launches=1)
+    bump(zero_pad_shells, launches=1, launches_2d=len(shape) == 2)
     return buf
 
 
 zero_pad_shells.launches = 0
+zero_pad_shells.launches_2d = 0  # of the launches, those of the 2D entry
 
 
 # -- K3: stage backward ---------------------------------------------------------------
@@ -216,7 +244,8 @@ def _edge_transpose(ddm, ax, inv_h, shape, like):
                           enumerate(v2.padded_shape(shape))), dtype=like.dtype,
                     device=like.device)
     for k in range(6):
-        st.shift(c, tuple(k - 2 if d == ax else 0 for d in range(3)), G, shape).add_(ddm[k])
+        st.shift(c, tuple(k - 2 if d == ax else 0 for d in range(len(shape))), G,
+                 shape).add_(ddm[k])
     n = c.shape[ax]
     return (c.narrow(ax, 0, n - 1) - c.narrow(ax, 1, n - 1)) * inv_h
 
@@ -242,12 +271,11 @@ def _program_coefs(spec, P, spacing, shape, where, need_dt):
     where = where or v2.Where()
     if not (need_dt and spec.coef_static.depends_on_t):
         with torch.no_grad():
-            vals = v2.program_values(spec, shape, spacing, where.lo, where.value, P,
-                                     where.origin)
+            vals = v2.program_values_at(spec, shape, spacing, where.at(where.value), P)
         return vals, None
     t = torch.tensor(where.value, dtype=P.dtype, device=P.device, requires_grad=True)
     with torch.enable_grad():
-        live = v2.program_values(spec, shape, spacing, where.lo, t, P, where.origin)
+        live = v2.program_values_at(spec, shape, spacing, where.at(t), P)
     return tuple(v.detach() for v in live), (t, live)
 
 
@@ -323,15 +351,21 @@ def stage_backward(P: torch.Tensor, u, coeffs,
     time ``t``); then ``du`` is ``None`` and ``dcoef`` gains a fourth entry,
     the cotangent of ``t`` (0 unless ``need_dt``).
 
+    A 2D ``shape`` (K1's 2D stage): ``u`` two components (a program stays
+    the embedding's three), ``spacing`` and ``where`` the field's, ``du`` two
+    components.
+
     Replaces ``lsm_tpu.ops.weno_v2_bwd.stage_backward`` (without its
     ``prefolded`` argument). CUDA tensors go to ``csrc/stage_backward.cu``,
     CPU tensors to :func:`stage_backward_plain`.
     """
     shape = tuple(shape)
     prog = isinstance(u, Program)
-    if len(shape) != 3 or len(spacing) != 3 or (
-            len(u.components) if prog else len(u)) != 3:
-        raise ValueError("the stage backward is 3D only: shape, u and spacing need 3 entries")
+    nd = len(shape)
+    if nd not in (2, 3) or len(spacing) != nd or (
+            len(u.components) != 3 if prog else len(u) != nd):
+        raise ValueError("the stage backward takes a 3D or 2D shape with one spacing and one "
+                         "velocity component per axis (a program of 3 components)")
     v2._check(P, "P", v2.padded_shape(shape))
     v2._check(g, "g", v2.padded_shape(shape), like=P)
     for d, ud in enumerate(() if prog else u):
@@ -345,12 +379,12 @@ def stage_backward(P: torch.Tensor, u, coeffs,
         return stage_backward_plain(P, u, coeffs, aux, g, spacing, shape, need_du, need_daux,
                                     out, where, need_dt)
     lib = load_library()
-    f32 = P.dtype == torch.float32
     dP = torch.empty_like(P) if out is None else out
     need_du = need_du and not prog
-    du = tuple(torch.empty_like(u[0]) for _ in range(3)) if need_du else None
+    du = tuple(torch.empty_like(u[0]) for _ in range(nd)) if need_du else None
     daux = torch.empty_like(P) if aux is not None and need_daux else None
-    part = torch.empty(lib.stage_bwd_scratch(*shape), dtype=torch.float64, device=P.device)
+    scratch = lib.stage_bwd_scratch if nd == 3 else lib.stage_bwd_scratch_2d
+    part = torch.empty(scratch(*shape), dtype=torch.float64, device=P.device)
     dcoef = (torch.zeros if prog else torch.empty)(4 if prog else 3, dtype=P.dtype,
                                                      device=P.device)
     alpha, beta, gamma = (float(c) for c in coeffs)
@@ -361,21 +395,23 @@ def stage_backward(P: torch.Tensor, u, coeffs,
     with torch.cuda.device(P.device):
         if prog:
             need_dt = bool(need_dt and u.depends_on_t)
-            tab = v2.stage_table(((v2.TermSpec("advection", "program", u), ()),), spacing,
-                                 coeffs, where, shape, P, need_dt)
-            code = (lib.stage_bwd_prog_f32 if f32 else lib.stage_bwd_prog_f64)(
-                P.data_ptr(), g.data_ptr(), ptr(aux), dP.data_ptr(), ptr(daux),
-                part.data_ptr(), dcoef.data_ptr(), *shape, ctypes.addressof(tab),
-                int(out is not None), int(need_dt), _stream())
+            term = ((v2.TermSpec("advection", "program", u), ()),)
+            if nd == 3:
+                tab = v2.stage_table(term, spacing, coeffs, where, shape, P, need_dt)
+            else:  # the embedding's table, as K1″'s 2D entry reads it
+                tab = v2._table_2d(term, coeffs, spacing, shape, where or v2.Where(), P, need_dt)
+            fn = _entry(lib, "stage_bwd_prog", shape, P.dtype)
+            code = fn(P.data_ptr(), g.data_ptr(), ptr(aux), dP.data_ptr(), ptr(daux),
+                      part.data_ptr(), dcoef.data_ptr(), *shape, ctypes.addressof(tab),
+                      int(out is not None), int(need_dt), _stream())
         else:
-            code = (lib.stage_bwd_f32 if f32 else lib.stage_bwd_f64)(
-                P.data_ptr(), g.data_ptr(), *(c.data_ptr() for c in u), ptr(aux),
-                dP.data_ptr(), *(ptr(d) for d in (du or (None,) * 3)), ptr(daux),
-                part.data_ptr(), dcoef.data_ptr(), *shape,
-                *(1.0 / float(h) for h in spacing), alpha, beta, gamma, int(out is not None),
-                _stream())
+            code = _entry(lib, "stage_bwd", shape, P.dtype)(P.data_ptr(), g.data_ptr(), *(c.data_ptr() for c in u), ptr(aux),
+                      dP.data_ptr(), *(ptr(d) for d in (du or (None,) * nd)), ptr(daux),
+                      part.data_ptr(), dcoef.data_ptr(), *shape,
+                      *(1.0 / float(h) for h in spacing), alpha, beta, gamma,
+                      int(out is not None), _stream())
     v2._raise_on(code, lib, "stage_backward kernel")
-    bump(stage_backward, launches=1, program_launches=prog)
+    bump(stage_backward, launches=1, program_launches=prog, launches_2d=nd == 2)
     if daux is not None:
         zero_pad_shells(daux, shape)
     return dP, du, dcoef, daux
@@ -383,6 +419,8 @@ def stage_backward(P: torch.Tensor, u, coeffs,
 
 stage_backward.launches = 0
 stage_backward.program_launches = 0  # of the launches, K3″'s (a program velocity)
+stage_backward.launches_2d = 0  # of the launches, those of the 2D entries
+
 
 
 # -- K3': the stage backward of a term list -------------------------------------------
@@ -555,20 +593,33 @@ def _godunov_pieces(P, specs, vals, gbar, spacing, shape):
     return dA, dB, sA, sB, dc, ham, dvs
 
 
+def _pairs(nd):
+    """The axis pairs of the mixed differences: (0, 1), (0, 2), (1, 2) in 3D,
+    (0, 1) in 2D."""
+    return tuple((i, j) for i in range(nd) for j in range(i + 1, nd))
+
+
 def _curvature_pieces(P, vals, gbar, spacing, shape):
     """Curvature's pieces of every interior output, once each: the cotangents
-    ``(dg, dhd, dhm)`` of its central first, second and mixed differences,
-    ``H`` and each term's coefficient cotangent."""
-    pair = ((0, 1), (0, 2), (1, 2))
+    ``(dg, dhd, dhm)`` of its central first, second and mixed differences
+    (the mixed ones per pair of :func:`_pairs`), ``H`` and each term's
+    coefficient cotangent."""
+    nd = len(shape)
+    pair = _pairs(nd)
     h = [float(x) for x in spacing]
     c0 = st._s(P, 0, 0, G, shape)
-    g = [st.d0(P, d, h[d], G, shape) for d in range(3)]
-    hd = [st.d2c(P, d, h[d], G, shape) for d in range(3)]
+    g = [st.d0(P, d, h[d], G, shape) for d in range(nd)]
+    hd = [st.d2c(P, d, h[d], G, shape) for d in range(nd)]
     hm = [st.d2_mixed(P, i, j, h[i], h[j], G, shape) for i, j in pair]
-    nrmsq = g[0] * g[0] + g[1] * g[1] + g[2] * g[2]
-    lap = hd[0] + hd[1] + hd[2]
-    quad = (g[0] * g[0] * hd[0] + 2.0 * g[0] * g[1] * hm[0] + 2.0 * g[0] * g[2] * hm[1]
-            + g[1] * g[1] * hd[1] + 2.0 * g[1] * g[2] * hm[2] + g[2] * g[2] * hd[2])
+    nrmsq, lap, quad = 0.0, 0.0, 0.0
+    for d in range(nd):  # the plain curvature's order
+        nrmsq = nrmsq + g[d] * g[d]
+        lap = lap + hd[d]
+    for i in range(nd):
+        quad = quad + g[i] * g[i] * hd[i]
+        for m, (a, b) in enumerate(pair):
+            if a == i:
+                quad = quad + 2.0 * g[a] * g[b] * hm[m]
     safe = nrmsq >= torch.finfo(P.dtype).eps
     zero = torch.zeros_like(c0)
     ns = torch.where(safe, nrmsq, 1.0)
@@ -591,9 +642,9 @@ def _curvature_pieces(P, vals, gbar, spacing, shape):
     dquad = -dN
     dnrmsq = (torch.where(safe, dN * lap + dD * (1.5 * root), zero)
               + torch.where(nrmsq > 0, dnrm / (2.0 * torch.where(nrmsq > 0, nrm, 1.0)), zero))
-    dhd = [dquad * (g[d] * g[d]) + dlap for d in range(3)]
+    dhd = [dquad * (g[d] * g[d]) + dlap for d in range(nd)]
     dg = []
-    for d in range(3):
+    for d in range(nd):
         dgd = dquad * (2.0 * g[d] * hd[d])
         for m, (i, j) in enumerate(pair):
             if i == d:
@@ -614,6 +665,7 @@ def stage_backward_terms_staged(P, terms, coeffs, aux, g, spacing, shape, need_d
     what :func:`stage_backward_terms_plain` returns (advection terms take the
     same hand adjoint)."""
     shape = tuple(shape)
+    nd = len(shape)
     terms = v2.as_terms(terms)
     where = where or v2.Where()
     alpha, beta, gamma = (float(c) for c in coeffs)
@@ -657,7 +709,7 @@ def stage_backward_terms_staged(P, terms, coeffs, aux, g, spacing, shape, need_d
         for (n, _, _, graph), dv in zip(god, dvs):
             spread(n, dv, graph)
         send(dc, 0, 0)
-        for d in range(3):
+        for d in range(nd):
             inv_h, hh = 1.0 / h[d], 0.5 * h[d] / (h[d] * h[d])
             for k in range(-2, 3):
                 w = (dA[d] * inv_h - dB[d] * inv_h if k == 0 else
@@ -673,16 +725,16 @@ def stage_backward_terms_staged(P, terms, coeffs, aux, g, spacing, shape, need_d
         ham = ham + H
         for (n, _, _, graph), dv in zip(curv, dvs):
             spread(n, dv, graph)
-        for d in range(3):
+        for d in range(nd):
             inv_hh, inv_2h = 1.0 / (h[d] * h[d]), 1.0 / (2.0 * h[d])
             send(-2.0 * dhd[d] * inv_hh, d, 0)
             send(dg[d] * inv_2h + dhd[d] * inv_hh, d, 1)
             send(-dg[d] * inv_2h + dhd[d] * inv_hh, d, -1)
-        for m, (i, j) in enumerate(((0, 1), (0, 2), (1, 2))):
+        for m, (i, j) in enumerate(_pairs(nd)):
             w = dhm[m] / (4.0 * h[i] * h[j])
             for si in (-1, 1):
                 for sj in (-1, 1):
-                    off = [0, 0, 0]
+                    off = [0] * nd
                     off[i], off[j] = si, sj
                     st.shift(dP, tuple(off), G, shape).add_(w if si * sj > 0 else -w)
     for (spec, arrs), sl in zip(terms, slices):
@@ -728,6 +780,10 @@ def stage_backward_terms(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Ten
     program term (K3″, evaluated at ``where``) ``dcoef`` gains a fourth
     entry, the cotangent of the stage time (0 unless ``need_dt``).
 
+    A 2D ``shape``: the term list of K1's 2D stage (streams 2D, an advection
+    velocity two components, programs the embedding's), ``spacing`` and
+    ``where`` the field's; K3''s 2D entry takes the embedding's table.
+
     Replaces the term-kind branch of ``lsm_tpu.ops.weno_v2_bwd.stage_backward``
     (its per-part ``jax.vjp``). CUDA tensors go to ``csrc/stage_backward.cu``:
     one K3' launch (and its reduction) for the normal, curvature and eikonal
@@ -736,23 +792,24 @@ def stage_backward_terms(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Ten
     :func:`stage_backward_terms_plain`.
     """
     shape = tuple(shape)
-    if len(shape) != 3 or len(spacing) != 3:
-        raise ValueError("the stage backward is 3D only: shape and spacing need 3 entries")
+    nd = len(shape)
+    if nd not in (2, 3) or len(spacing) != nd:
+        raise ValueError("the stage backward takes a 3D or 2D shape and one spacing per axis")
     terms = v2.as_terms(terms)
     v2._check(P, "P", v2.padded_shape(shape))
     v2._check(g, "g", v2.padded_shape(shape), like=P)
-    v2.check_terms(terms, P, shape)
+    v2.check_terms(terms, P, shape, velocity=nd)
     if aux is not None:
         v2._check(aux, "aux", v2.padded_shape(shape), like=P)
     if P.device.type == "cpu":
         return stage_backward_terms_plain(P, terms, coeffs, aux, g, spacing, shape,
                                           need_dstreams, need_daux, where, need_dt)
     lib = load_library()
-    fn = lib.stage_bwd_terms_f32 if P.dtype == torch.float32 else lib.stage_bwd_terms_f64
+    fn = _entry(lib, "stage_bwd_terms", shape, P.dtype)
+    scratch = lib.stage_bwd_terms_scratch if nd == 3 else lib.stage_bwd_terms_scratch_2d
     dP = torch.empty_like(P)
     daux = torch.empty_like(P) if aux is not None and need_daux else None
-    part = torch.empty(lib.stage_bwd_terms_scratch(*shape), dtype=torch.float64,
-                       device=P.device)
+    part = torch.empty(scratch(*shape), dtype=torch.float64, device=P.device)
     has_prog = any(spec.coef_kind == "program" for spec, _ in terms)
     dcoef = torch.empty(4, dtype=P.dtype, device=P.device)
     flat = [a for _, arrs in terms for a in arrs]
@@ -762,14 +819,17 @@ def stage_backward_terms(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Ten
         if spec.kind != "advection" and arrs and need_dstreams:
             dstreams[sl.start] = torch.empty_like(arrs[0])
             outs[e] = dstreams[sl.start].data_ptr()
-    tab = v2.stage_table(terms, spacing, coeffs, where, shape, P, need_dt)
+    if nd == 3:
+        tab = v2.stage_table(terms, spacing, coeffs, where, shape, P, need_dt)
+    else:
+        tab = v2._table_2d(terms, coeffs, spacing, shape, where or v2.Where(), P, need_dt)
     with torch.cuda.device(P.device):
         code = fn(P.data_ptr(), g.data_ptr(), None if aux is None else aux.data_ptr(),
                   dP.data_ptr(), None if daux is None else daux.data_ptr(), part.data_ptr(),
                   dcoef.data_ptr(), *shape, ctypes.addressof(tab), ctypes.addressof(outs),
                   int(bool(need_dt)), _stream())
     v2._raise_on(code, lib, "stage_backward_terms kernel")
-    bump(stage_backward_terms, launches=1, program_launches=has_prog)
+    bump(stage_backward_terms, launches=1, program_launches=has_prog, launches_2d=nd == 2)
     dcoef = dcoef if has_prog else dcoef[:3]
     for (spec, arrs), sl in zip(terms, _stream_slices(terms)):
         if spec.kind == "advection":
@@ -787,6 +847,7 @@ def stage_backward_terms(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Ten
 
 stage_backward_terms.launches = 0
 stage_backward_terms.program_launches = 0  # of the launches, those with a program term
+stage_backward_terms.launches_2d = 0  # of the launches, those of the 2D entry
 
 
 def composite_backward_autograd(P, terms, coeffs, aux, g, bcs, spacing, shape, where=None):

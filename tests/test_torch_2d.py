@@ -23,6 +23,7 @@ from lsm_tpu_torch.integrators import fused as tfused
 from lsm_tpu_torch.models import benchmarks as tbench
 from lsm_tpu_torch.models import shapes as tshapes
 from lsm_tpu_torch.ops import weno_v2 as tv2
+from test_torch_dense_2d import _CudaTyped
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -188,9 +189,10 @@ def test_embedding_keeps_the_eikonal_smoothing_spacing():
 
 @pytest.mark.parametrize("velocity", ["stream", "callable"])
 def test_rollout_gradient_through_the_embedding_matches_jax(velocity):
-    """On the CPU autograd runs through the 2D stepper (autograd of the
-    plain 2D stage and refresh, as the 2D band's backward); against
-    ``jax.grad`` of JAX's general path."""
+    """On the CPU autograd runs through the 2D stepper (each stage a
+    ``_FusedStepStage``, whose backward is the plain versions of the 2D K4,
+    K3 and K5); against ``jax.grad`` of JAX's general path, also on the CUDA
+    route (a tensor that reports ``is_cuda``)."""
     shape = (20, 24)
     args = ((0.0, 0.0), (1.0, 1.0), shape)
     rng = np.random.default_rng(9)
@@ -215,4 +217,9 @@ def test_rollout_gradient_through_the_embedding_matches_jax(velocity):
     out, _ = T.rollout(T.RK3(), (tterm,), tphi.with_values(v), 0.0, dt, 3)
     (g,) = torch.autograd.grad((out.values ** 2).sum(), v)
     assert float(np.abs(_np(g) - jg).max()) <= 1e-9 * float(np.abs(jg).max())
-    assert "2D gradient (K4 length-1 axis)" in tfused.gradient_reason((tterm,), tphi)
+    # the CUDA route takes this gradient too: the 2D entries of K4, K3 and K5
+    assert tfused.gradient_reason((tterm,), tphi) is None
+    cv = torch.from_numpy(vals).as_subclass(_CudaTyped).requires_grad_()
+    out, _ = T.rollout(T.RK3(), (tterm,), tphi.with_values(cv), 0.0, dt, 3)
+    (gc,) = torch.autograd.grad((out.values ** 2).sum(), cv)
+    assert cv.is_cuda and float(np.abs(_np(gc) - jg).max()) <= 1e-9 * float(np.abs(jg).max())

@@ -309,8 +309,9 @@ def test_update_func_matches_jax():
 
 
 class _CudaTyped(torch.Tensor):
-    """A CPU tensor that reports ``is_cuda``: drives the CUDA route's checks
-    without a card (they raise before any arithmetic)."""
+    """A CPU tensor that reports ``is_cuda``: drives the CUDA route without
+    a card (its checks and its routing; the wrappers then run their plain
+    versions, the data lying on the CPU). The other port tests import it."""
 
     @property
     def is_cuda(self):
@@ -318,20 +319,28 @@ class _CudaTyped(torch.Tensor):
 
 
 def test_cuda_gradient_refusal_names_its_label():
-    """On CUDA a gradient through the dense 2D stepper is refused before any
-    stage runs, naming ``2D gradient (K4 length-1 axis)`` (a term list too),
-    and the differentiable 2D stage refuses a tensor off the CPU."""
+    """A gradient through the dense 2D stepper is no longer refused on CUDA:
+    ``gradient_reason`` is ``None`` for a 2D field (a term list too), the
+    CUDA route's rollout (a tensor that reports ``is_cuda``) runs every stage
+    through ``_FusedStepStage`` and gives the CPU's gradient, and the
+    differentiable 2D stage still refuses a tensor off the CPU and the card."""
     grid = T.Grid((-1.0, -1.0), (1.0, 1.0), (12, 16))
     phi = T.sample(tshapes.star(), grid, T.Extrapolation(2), dtype=torch.float64, device="cpu")
     terms = (T.CurvatureTerm(-0.05), T.NormalMotionTerm(0.2))
-    reason = tfused.gradient_reason(terms, phi)
-    assert "2D gradient (K4 length-1 axis)" in reason and "(n0+6, n1+6)" in reason
-    assert tfused.pending(reason) is False
-    v = phi.values.clone().as_subclass(_CudaTyped).requires_grad_()
-    with pytest.raises(NotImplementedError, match=r"2D gradient \(K4 length-1 axis\)"):
-        T.rollout(T.RK3(), terms, phi.with_values(v), 0.0, 1e-4, 1)
+    assert tfused.gradient_reason(terms, phi) is None
+    assert tfused.gradient_reason((T.AdvectionTerm(lambda xs, t: (-xs[1], xs[0])),), phi) is None
+    grads = []
+    for vals in (phi.values.clone(), phi.values.clone().as_subclass(_CudaTyped)):
+        v = vals.requires_grad_()
+        out, _ = T.rollout(T.RK3(), terms, phi.with_values(v), 0.0, 1e-4, 2)
+        assert out.values.grad_fn is not None
+        grads.append(torch.autograd.grad((out.values ** 2).sum(), v)[0])
+    assert torch.equal(grads[1].as_subclass(torch.Tensor), grads[0])
     st = tfused.FusedStepper(terms, phi, T.RK3())
-    P = st.pack(phi.values).to("meta").requires_grad_()
-    with pytest.raises(NotImplementedError, match=r"2D gradient \(K4 length-1 axis\)"):
-        tv2.fused_step_stage(P, st.stage_terms(0.0), (0.0, 1.0, 1e-4), None, st.bcs,
-                             st.spacing, st.shape)
+    P = st.pack(phi.values).requires_grad_()
+    out = tv2.fused_step_stage(P, st.stage_terms(0.0), (0.0, 1.0, 1e-4), None, st.bcs,
+                               st.spacing, st.shape)
+    assert "_FusedStepStage" in type(out.grad_fn).__name__
+    with pytest.raises(ValueError, match="only cpu and cuda"):
+        tv2.fused_step_stage(P.detach().to("meta").requires_grad_(), st.stage_terms(0.0),
+                             (0.0, 1.0, 1e-4), None, st.bcs, st.spacing, st.shape)

@@ -258,11 +258,14 @@ def test_unsupported_configurations_raise_on_the_cuda_route():
     assert tfused.unsupported_reason(two, tphi, T.RK3()) is None
     stepper = T.LevelSetEquation(terms=two, ic=tphi)._cuda_stepper(False, "auto")
     assert isinstance(stepper, tfused.FusedStepper) and len(stepper.entries) == 2
-    # an Extrapolation(7) axis of 6 nodes cannot be refreshed: named, not run
+    # an Extrapolation(7) axis of 6 nodes cannot be refreshed: an error, as in
+    # JAX (the general path's ValueError), not a pending port
     g = T.Grid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (8, 8, 6))
     phi = T.MeshField(torch.zeros(8, 8, 6, dtype=torch.float64), g, T.Extrapolation(7))
-    with pytest.raises(NotImplementedError, match="K2 degree"):
-        T.LevelSetEquation(terms=T.AdvectionTerm(_velf), ic=phi)._cuda_stepper(False, "auto")
+    eq = T.LevelSetEquation(terms=T.AdvectionTerm(_velf), ic=phi)
+    assert eq._cuda_stepper(False, "auto") is None
+    with pytest.raises(ValueError, match="needs 8 nodes"):
+        eq.integrate(1.0, max_steps=1)
     with pytest.raises(NotImplementedError, match="integrator"):
         tfused.FusedStepper(T.AdvectionTerm(_velf), tphi, object())
     half = tphi.with_values(tphi.values.to(torch.bfloat16))

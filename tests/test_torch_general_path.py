@@ -163,7 +163,7 @@ def test_cuda_route_table():
     ``fast="off"``, the upwind scheme and an object that is no term kind take
     the general path (``None``); a dense 2D field takes the fused stepper,
     a 2D band the band stepper; Extrapolation(8) raises naming its ROADMAP
-    item;
+    item (on an axis of 8 nodes, too few for it, the general path);
     ``update_func`` takes the fused stepper on a dense field and the general
     path on a band, as in JAX."""
     _, tphi = _dense_pair((8, 8, 8))
@@ -194,8 +194,12 @@ def test_cuda_route_table():
     assert route(upd, tnb) is None
     band2 = route(T.AdvectionTerm(vel2), T.NarrowBandField.from_field(phi2))
     assert isinstance(band2, T.integrators.band_fused.FusedBandStepper) and band2.shape == (16, 16)
+    # Extrapolation(8) on an axis of 8 nodes is an error (the general path's
+    # ValueError, as in JAX); on 10 nodes it waits for its ROADMAP item
+    assert route((adv,), tphi.with_bcs(T.Extrapolation(8), replace=True)) is None
+    _, deep = _dense_pair((10, 10, 10))
     refusals = [
-        ((adv,), tphi.with_bcs(T.Extrapolation(8), replace=True), "K2 degree"),
+        ((adv,), deep.with_bcs(T.Extrapolation(8), replace=True), "K2 degree"),
     ]
     for terms, ic, item in refusals:
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 2, {item}"):

@@ -18,11 +18,12 @@ import torch
 
 import lsm_tpu as J
 import lsm_tpu_torch as T
-from lsm_tpu_torch.integrators.fused import FusedStepper
+from lsm_tpu_torch.integrators.fused import FusedStepper, gradient_reason
 from lsm_tpu_torch.models import shapes as tshapes
 from lsm_tpu_torch.ops import weno_v2 as tv2
 from lsm_tpu_torch.ops import weno_v2_bwd as tbwd
 from lsm_tpu_torch.utils import checkpoint as tckpt
+from test_torch_dense_2d import _CudaTyped
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -230,20 +231,12 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     assert T.sample(tshapes.zalesak_sphere(), g, device="cpu").values.device.type == "cpu"
 
 
-class _CudaTyped(torch.Tensor):
-    """A CPU tensor that reports ``is_cuda``: drives the CUDA route's checks
-    without a card (they raise before any arithmetic)."""
-
-    @property
-    def is_cuda(self):
-        return True
-
-
 def test_rollout_general_path_raises_on_cuda():
     """The CUDA route of ``rollout``: ``fast="off"`` and the upwind scheme
     run the general path (here on the plain versions, the tensors lying on
     the CPU), ``update_func`` the fused stepper, and a gradient through the
-    dense 2D stepper raises naming its item, before any stage runs."""
+    dense 2D stepper runs (the 2D entries of K4, K3 and K5, here their plain
+    versions), equal to the CPU's."""
     shape = (6, 7, 8)
     _, tg, _, tphi, _ = _fields(shape, seed=51)
     phi = tphi.with_values(tphi.values.as_subclass(_CudaTyped))
@@ -265,7 +258,11 @@ def test_rollout_general_path_raises_on_cuda():
                     device="cpu")
     v2 = phi2.values.clone().as_subclass(_CudaTyped).requires_grad_()
     vel2 = lambda xs, t: (0.5 - xs[1] + 0.0 * xs[0], xs[0] - 0.5 + 0.0 * xs[1])
-    with pytest.raises(NotImplementedError, match=r"2D gradient \(K4 length-1 axis\)"):
-        T.rollout(T.RK3(), (T.AdvectionTerm(vel2),), phi2.with_values(v2), 0.0, 1e-3, 1)
+    assert gradient_reason((T.AdvectionTerm(vel2),), phi2) is None
+    grads = []
+    for v in (v2, phi2.values.clone().requires_grad_()):
+        out, _ = T.rollout(T.RK3(), (T.AdvectionTerm(vel2),), phi2.with_values(v), 0.0, 1e-3, 1)
+        grads.append(torch.autograd.grad((out.values ** 2).sum(), v)[0])
+    assert torch.equal(grads[0].as_subclass(torch.Tensor), grads[1])
     with pytest.raises(ValueError, match="fast must be"):
         T.rollout(T.RK3(), (T.AdvectionTerm(_velf),), tphi, 0.0, 1e-3, 1, fast="interpret")

@@ -161,12 +161,15 @@ def test_zero_pad_shells_and_checks():
     assert not buf[~mask].any()
     with pytest.raises(ValueError, match="expected"):
         tbwd.zero_pad_shells(buf[1:].contiguous(), shape)
-    with pytest.raises(ValueError, match="3D only"):
+    # a 2D shape is the 2D entry's (a 2D field's buffer): this 3D buffer's shape does not fit it
+    with pytest.raises(ValueError, match="expected"):
         tbwd.fold_ghost_cotangent_fast(buf, T.normalize_bcs(T.Periodic(), 3), shape[:2])
+    with pytest.raises(ValueError, match="3D or 2D"):
+        tbwd.fold_ghost_cotangent_fast(buf, T.normalize_bcs(T.Periodic(), 3), shape[:1])
     u = tuple(torch.zeros(shape, dtype=torch.float64) for _ in range(3))
     with pytest.raises(ValueError, match="but the state is"):
         tbwd.stage_backward(buf, u, (0, 1, 1), None, buf.float(), (0.1,) * 3, shape)
-    with pytest.raises(ValueError, match="3D only"):
+    with pytest.raises(ValueError, match="one velocity component per axis"):
         tbwd.stage_backward(buf, u[:2], (0, 1, 1), None, buf, (0.1,) * 3, shape)
 
 
