@@ -3178,12 +3178,32 @@ GRAD2D_SMALL_STEPS = 3  # their card-vs-CPU gradients at N_2D_SMALL^2
 # an H100); with the noise that spread is 1e-12 of max
 GRAD2D_NOISE = 1e-3
 #: the 2D stage adjoints' parity shapes: ragged rows, a short axis 0 (3 nodes,
-#: Extrapolation), more rows than columns
-BWD_2D_SHAPES = ((67, 131), (40, 72), (3, 40), (130, 33))
+#: Extrapolation), more rows than columns; padded rows past one and two
+#: chunks of the 2D marches (65 + 6, 129 + 6: two and three chunks, each
+#: march's last step short), padded widths one column past a block of K3 2D
+#: (128 columns: 123 + 6) and of K3' 2D (124: 119 + 6), and past two of K3 2D
+#: (251 + 6)
+BWD_2D_SHAPES = ((67, 131), (40, 72), (3, 40), (130, 33), (65, 123), (129, 119), (129, 251))
 #: tie-free BCs for the raw dP of the 2D adjoints (the WENO5 and ENO2 ties of
 #: Extrapolation(2): ROADMAP.md queue 3's lessons); a 3-node axis takes Extrapolation(1)
 BWD_2D_BCS = {"periodic": lsm.Periodic, "symmetry": lsm.Symmetry,
               "extrap1": lsm.LinearExtrapolation}
+#: the f32 K3/K3'' 2D cases of grad2d_parity whose float32 function itself
+#: misses the f64 oracle at one output: ``(label, shape, bc name): output``.
+#: The f32 input is the f64 buffer rounded, ghosts included. Under
+#: Extrapolation(1) a face's last interior difference and its three ghost
+#: differences are equal in float64, so a WENO5 sub-stencil of three of them
+#: is exactly flat: its smoothness indicator and that indicator's gradient
+#: are 0. Rounded they differ by about 1e-5 of their size, and that gradient
+#: times WENO5's 1/eps (eps = 1e-6 vmax) is of order one: the float64
+#: function on the rounded buffer misses the oracle as far. At (129, 251)
+#: the folded dP at node (8, 249), beside the axis-1 face's last node, moves
+#: by 1.6 (1.14e-3 of max|dP|; tools/bwd_2d_f32.py takes the case apart).
+#: That output is held to the f32 plain version (K3_TOL), its oracle error
+#: to at most K3_2D_F32_FACTOR times the plain version's; every other output
+#: of the case to the oracle.
+K3_2D_F32_VS_PLAIN = {("K3'' rotation", (129, 251), "extrap1"): "dP"}
+K3_2D_F32_FACTOR = 1.25
 #: the 2D gradient cells at N_2D^2 f32: grad2d (configuration 2, the rotation
 #: in-kernel), grad2d_streamed (its velocity sampled on the grid), grad2d_kinds
 GRAD2D_CELLS = ("grad2d", "grad2d_streamed", "grad2d_kinds")
@@ -3273,18 +3293,24 @@ def grad2d_launches(name, nsteps):
     return want
 
 
+def bwd_2d_outputs(res, bcs, shape, fold):
+    """``{name: tensor}`` of a 2D stage adjoint's result ``(dP, du, dcoef,
+    daux)``: dP (folded to the interior when ``fold``, else raw), each
+    stream cotangent (du0, du1), each entry of dcoef (dcoef0 ..), daux's
+    interior."""
+    out = {"dP": bwd.fold_ghost_cotangent(res[0].double(), bcs, shape) if fold else res[0]}
+    out.update({f"du{k}": d for k, d in enumerate(res[1] or ()) if d is not None})
+    out.update({f"dcoef{k}": res[2][k:k + 1] for k in range(len(res[2]))})
+    if res[3] is not None:
+        out["daux"] = v2.unpack_padded(res[3], shape)
+    return out
+
+
 def bwd_2d_errs(got, ref, bcs, shape, fold):
-    """Worst ``max|got - ref| / max|ref|`` over a 2D stage adjoint's outputs:
-    dP (folded to the interior when ``fold``, else raw), each stream
-    cotangent, each entry of dcoef, daux's interior."""
-    pairs = [(bwd.fold_ghost_cotangent(got[0].double(), bcs, shape),
-              bwd.fold_ghost_cotangent(ref[0].double(), bcs, shape)) if fold
-             else (got[0], ref[0])]
-    pairs += list(zip(got[1] or (), ref[1] or ()))
-    pairs += [(got[2][k:k + 1], ref[2][k:k + 1]) for k in range(len(ref[2]))]
-    if ref[3] is not None:
-        pairs.append((v2.unpack_padded(got[3], shape), v2.unpack_padded(ref[3], shape)))
-    return max(rel_err(a, b) for a, b in pairs)
+    """``{output: max|got - ref| / max|ref|}`` over a 2D stage adjoint's
+    outputs (:func:`bwd_2d_outputs`)."""
+    got, ref = bwd_2d_outputs(got, bcs, shape, fold), bwd_2d_outputs(ref, bcs, shape, fold)
+    return {name: rel_err(got[name], ref[name]) for name in ref}
 
 
 def bwd_2d_cases(phi, gen):
@@ -3328,17 +3354,14 @@ def bwd_2d_run(P, terms, coeffs, aux, gf, sp, shape, where, plain=False):
     return fn(P, terms, coeffs, aux, gf, sp, shape, where=where, need_dt=True)
 
 
-def grad2d_parity(dev, res):
-    """K3/K3''/K3' 2D at BWD_2D_SHAPES under BWD_2D_BCS (a 3-node axis:
-    extrap1 only), with and without aux, on a sampled Zalesak disk with a
-    little noise: f64 kernel vs f64 plain within 1e-10 (raw dP), f32 kernel
-    vs the f64 autograd oracle of the 2D stage and refresh (with float32's
-    WENO epsilon floor) within K3_TOL, dP folded to the interior (K3, K3''),
-    raw (K3'; under extrap1 against its f32 plain version, K3K_F32_VS_PLAIN);
-    a second launch equal bits."""
+def bwd_2d_inputs(dev):
+    """The inputs of :func:`grad2d_parity`, drawn in its order from one
+    generator seeded 17 on ``dev``: for each ``BWD_2D_SHAPES`` shape and
+    ``BWD_2D_BCS`` name (a 3-node axis: extrap1 only) ``(shape, bc name,
+    phi64, P64, A64, G64, cases)``: a sampled Zalesak disk with 1e-3 of
+    noise, its padded buffer, a padded aux and a padded cotangent, and
+    :func:`bwd_2d_cases` on it (float64)."""
     gen = torch.Generator(device=dev).manual_seed(17)
-    worst = collections.defaultdict(float)
-    where = v2.Where((0.0, 0.0), None, T_STAGE)
     for shape in BWD_2D_SHAPES:
         grid = lsm.Grid((0.0, 0.0), (1.0, 1.3), shape)
         for bc_name, bc in BWD_2D_BCS.items():
@@ -3347,48 +3370,83 @@ def grad2d_parity(dev, res):
             phi64 = lsm.sample(shapes.zalesak_disk(), grid, bc(), dtype=torch.float64, device=dev)
             phi64 = phi64.with_values(phi64.values + 1e-3 * torch.randn(
                 shape, generator=gen, device=dev, dtype=torch.float64))
-            bcs = phi64.bcs
-            P64 = v2.pack_padded(phi64.values, bcs)
+            P64 = v2.pack_padded(phi64.values, phi64.bcs)
             A64 = v2.pack_padded(torch.randn(shape, generator=gen, device=dev,
-                                             dtype=torch.float64), bcs)
+                                             dtype=torch.float64), phi64.bcs)
             G64 = torch.randn(v2.padded_shape(shape), generator=gen, device=dev,
                               dtype=torch.float64)
-            gf64 = bwd.fold_ghost_cotangent_fast(G64, bcs, shape)
-            sp = phi64.spacing
-            for label, (kernel, terms64) in bwd_2d_cases(phi64, gen).items():
-                terms32 = cast_terms(terms64, torch.float32)
-                fold = kernel != "K3' 2D"
-                for aux, coeffs in ((None, (0.0, 1.0, 0.03)), (A64, (0.75, 0.25, 0.03))):
-                    got = bwd_2d_run(P64, terms64, coeffs, aux, gf64, sp, shape, where)
-                    again = bwd_2d_run(P64, terms64, coeffs, aux, gf64, sp, shape, where)
-                    ref = bwd_2d_run(P64, terms64, coeffs, aux, gf64, sp, shape, where,
-                                     plain=True)
-                    e64 = bwd_2d_errs(got, ref, bcs, shape, fold=False)
-                    same = same_bits(got[0], again[0]) and all(
-                        same_bits(a, b) for a, b in zip(got[1] or (), again[1] or ()))
-                    d = lambda t: None if t is None else t.float()
-                    got32 = bwd_2d_run(d(P64), terms32, coeffs, d(aux),
-                                       bwd.fold_ghost_cotangent_fast(d(G64), bcs, shape), sp,
-                                       shape, where)
-                    if kernel == "K3' 2D" and bc_name in K3K_F32_VS_PLAIN:
-                        ref32 = bwd_2d_run(d(P64), terms32, coeffs, d(aux),
-                                           bwd.fold_ghost_cotangent_fast(d(G64), bcs, shape), sp,
-                                           shape, where, plain=True)
-                        against = "f32 plain"
-                    else:
-                        with f32_weno_floor():
-                            ref32 = bwd.composite_backward_autograd(P64, terms64, coeffs, aux,
-                                                                    G64, bcs, sp, shape, where)
-                        against = "f64 oracle"
-                    e32 = bwd_2d_errs(got32, ref32, bcs, shape, fold)
+            yield shape, bc_name, phi64, P64, A64, G64, bwd_2d_cases(phi64, gen)
+
+
+def grad2d_parity(dev, res):
+    """K3/K3''/K3' 2D at BWD_2D_SHAPES under BWD_2D_BCS (a 3-node axis:
+    extrap1 only), with and without aux, on a sampled Zalesak disk with a
+    little noise: f64 kernel vs f64 plain within 1e-10 (raw dP), f32 kernel
+    vs the f64 autograd oracle of the 2D stage and refresh (with float32's
+    WENO epsilon floor) within K3_TOL, dP folded to the interior (K3, K3''),
+    raw (K3'; under extrap1 against its f32 plain version, K3K_F32_VS_PLAIN;
+    the output K3_2D_F32_VS_PLAIN names against its f32 plain version, its
+    oracle error within K3_2D_F32_FACTOR of the plain version's); a second
+    launch equal bits."""
+    worst = collections.defaultdict(float)
+    where = v2.Where((0.0, 0.0), None, T_STAGE)
+    for shape, bc_name, phi64, P64, A64, G64, cases in bwd_2d_inputs(dev):
+        bcs, sp = phi64.bcs, phi64.spacing
+        gf64 = bwd.fold_ghost_cotangent_fast(G64, bcs, shape)
+        for label, (kernel, terms64) in cases.items():
+            terms32 = cast_terms(terms64, torch.float32)
+            fold = kernel != "K3' 2D"
+            for aux, coeffs in ((None, (0.0, 1.0, 0.03)), (A64, (0.75, 0.25, 0.03))):
+                got = bwd_2d_run(P64, terms64, coeffs, aux, gf64, sp, shape, where)
+                again = bwd_2d_run(P64, terms64, coeffs, aux, gf64, sp, shape, where)
+                ref = bwd_2d_run(P64, terms64, coeffs, aux, gf64, sp, shape, where,
+                                 plain=True)
+                e64 = max(bwd_2d_errs(got, ref, bcs, shape, fold=False).values())
+                same = same_bits(got[0], again[0]) and all(
+                    same_bits(a, b) for a, b in zip(got[1] or (), again[1] or ()))
+                d = lambda t: None if t is None else t.float()
+                got32 = bwd_2d_run(d(P64), terms32, coeffs, d(aux),
+                                   bwd.fold_ghost_cotangent_fast(d(G64), bcs, shape), sp,
+                                   shape, where)
+                plain32 = lambda: bwd_2d_run(
+                    d(P64), terms32, coeffs, d(aux),
+                    bwd.fold_ghost_cotangent_fast(d(G64), bcs, shape), sp, shape, where,
+                    plain=True)
+                if kernel == "K3' 2D" and bc_name in K3K_F32_VS_PLAIN:
+                    ref32 = plain32()
+                    against = "f32 plain"
+                else:
+                    with f32_weno_floor():
+                        ref32 = bwd.composite_backward_autograd(P64, terms64, coeffs, aux,
+                                                                G64, bcs, sp, shape, where)
+                    against = "f64 oracle"
+                errs = bwd_2d_errs(got32, ref32, bcs, shape, fold)
+                named = K3_2D_F32_VS_PLAIN.get((label, shape, bc_name))
+                if named is not None:
+                    # the named output: the f32 function's own conditioning
+                    p32 = plain32()
+                    e_plain = bwd_2d_errs(p32, ref32, bcs, shape, fold)[named]
+                    e_vs_plain = bwd_2d_errs(got32, p32, bcs, shape, fold)[named]
+                    ok = e_vs_plain <= K3_TOL and errs[named] <= K3_2D_F32_FACTOR * e_plain
                     log("grad_2d", f"{label:22s} {bc_name:8s} shape={shape} aux={aux is not None}"
-                                   f": f64 vs plain {e64:.2e} (tol 1e-10), f32 vs {against} "
-                                   f"{e32:.2e} (tol {K3_TOL:g}), a second launch equal bits {same}")
-                    if not (e64 <= 1e-10 and e32 <= K3_TOL and same
-                            and bool(torch.isfinite(got32[0]).all())):
-                        raise AssertionError(f"{label} at {shape} ({bc_name}): {e64} / {e32}")
-                    worst[kernel] = max(worst[kernel], e32)
-                    worst[f"{kernel} f64"] = max(worst[f"{kernel} f64"], e64)
+                                   f": {named} f32 vs f64 oracle {errs[named]:.2e}, the f32 "
+                                   f"plain version's {e_plain:.2e} (at most "
+                                   f"{K3_2D_F32_FACTOR:g}x), f32 vs f32 plain {e_vs_plain:.2e} "
+                                   f"(tol {K3_TOL:g}): {ok}")
+                    if not ok:
+                        raise AssertionError(f"{label} at {shape} ({bc_name}): {named} "
+                                             f"{errs[named]} / {e_plain} / {e_vs_plain}")
+                    errs[named] = e_vs_plain
+                    against = f"f64 oracle ({named} vs f32 plain)"
+                e32 = max(errs.values())
+                log("grad_2d", f"{label:22s} {bc_name:8s} shape={shape} aux={aux is not None}"
+                               f": f64 vs plain {e64:.2e} (tol 1e-10), f32 vs {against} "
+                               f"{e32:.2e} (tol {K3_TOL:g}), a second launch equal bits {same}")
+                if not (e64 <= 1e-10 and e32 <= K3_TOL and same
+                        and bool(torch.isfinite(got32[0]).all())):
+                    raise AssertionError(f"{label} at {shape} ({bc_name}): {e64} / {e32}")
+                worst[kernel] = max(worst[kernel], e32)
+                worst[f"{kernel} f64"] = max(worst[f"{kernel} f64"], e64)
     res["k3_2d_rel"] = dict(worst)
 
 
@@ -3546,7 +3604,7 @@ def grad2d_short_3d(dev, res):
                 entries = FusedStepper(a_terms(), phi, lsm.RK3()).entries
             args = (P, entries, (0.75, 0.25, 0.01), P, gf, grid.spacing, shape, v2.Where())
             got, ref = bwd_2d_run(*args), bwd_2d_run(*args, plain=True)
-            err = bwd_2d_errs(got, ref, phi.bcs, shape, fold=label == "K3")
+            err = max(bwd_2d_errs(got, ref, phi.bcs, shape, fold=label == "K3").values())
             log("grad_2d", f"{label} 3D f64 shape={shape} Extrapolation({deg}) kernel vs plain "
                            f"{err:.2e} (tol 1e-10)")
             if not err <= 1e-10:
@@ -5505,15 +5563,18 @@ def ptxas_summary(build_log, source, names):
 
 def stage_adjoint_ptxas(build_log):
     """``(kernel, registers, spills and static shared memory)`` of each
-    kernel of ``csrc/stage_backward.cu`` (K3, K3'', K3' and the reduction)."""
+    kernel of ``csrc/stage_backward.cu`` (K3, K3'', K3', their 2D marches and
+    the reduction)."""
     names = {"stage_bwd_kernel": "K3", "stage_bwd_terms_kernel": "K3'",
+             "stage_bwd_2d_kernel": "K3 2D", "stage_bwd_terms_2d_kernel": "K3' 2D",
              "stage_bwd_reduce_kernel": "reduction"}
     out = []
     for name, args, info in ptxas_summary(build_log, "stage_backward.cu", names):
         label = names[name]
         dtype = "f32" if args.startswith("f") else "f64"
         if "Lb1" in args.split("EE", 1)[0][:4]:  # the program instantiation
-            label = {"K3": "K3''", "K3'": "K3' (program)", "reduction": "reduction (dt)"}[label]
+            label = {"K3": "K3''", "K3'": "K3' (program)", "K3 2D": "K3'' 2D",
+                     "K3' 2D": "K3' 2D (program)", "reduction": "reduction (dt)"}[label]
         out.append((f"{label} {dtype}", info))
     return out
 

@@ -307,7 +307,9 @@ int lsm_zero_shells_f64(void* buf, int64_t n0, int64_t n1, int64_t n2, void* str
  * layout, the stage of K1's 2D entries (the (1, n0, n1) embedding's function
  * with its dummy axis compiled out). Arguments as for the 3D entries, with
  * the 2D field's two axes (two velocity components, two spacings); K3'' and
- * K3' take the embedding's table (ops/weno_v2.py `_table_2d`). */
+ * K3' take the embedding's table (ops/weno_v2.py `_table_2d`), K3'' also the
+ * embedding's axes its components 1 and 2 read (bit a for axis a), as K1''
+ * 2D. */
 int64_t lsm_stage_bwd_scratch_2d(int64_t n0, int64_t n1);
 int64_t lsm_stage_bwd_terms_scratch_2d(int64_t n0, int64_t n1);
 int lsm_stage_bwd_2d_f32(const void* P, const void* g, const void* u0, const void* u1,
@@ -321,11 +323,11 @@ int lsm_stage_bwd_2d_f64(const void* P, const void* g, const void* u0, const voi
 int lsm_stage_bwd_prog_2d_f32(const void* P, const void* g, const void* aux, void* dP,
                               void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
                               const LsmStageTerms* terms, int accumulate, int needs_dt,
-                              void* stream);
+                              int axes1, int axes2, void* stream);
 int lsm_stage_bwd_prog_2d_f64(const void* P, const void* g, const void* aux, void* dP,
                               void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
                               const LsmStageTerms* terms, int accumulate, int needs_dt,
-                              void* stream);
+                              int axes1, int axes2, void* stream);
 int lsm_stage_bwd_terms_2d_f32(const void* P, const void* g, const void* aux, void* dP,
                                void* daux, void* part, void* dcoef, int64_t n0, int64_t n1,
                                const LsmStageTerms* terms, const void* const* dstreams,

@@ -33,8 +33,6 @@
 //    ddm into a register ring of the edge cotangents c_0. The march runs
 //    downwards, so c_0[z] sums its outputs from y = z+2 down to z-3, the
 //    order of the per-axis form, and dP of plane p+3 is complete (lag 3).
-//    This part is behind the compile-time switch kAxis0, which the 2D entries
-//    turn off (below).
 //  - axes 1 and 2 (the chunk's own planes only): plane p of P (the column and
 //    a reach of 6, 28 x 44 in f32) and of g (reach 3) sit in shared memory,
 //    filled by cp.async one plane ahead (two buffers); the adjoint of each
@@ -80,17 +78,17 @@
 // The 2D entries of K3 and K3'' (lsm_stage_bwd_2d_*, lsm_stage_bwd_prog_2d_*)
 // take a 2D field's (n0+6, n1+6) layout, the dense 2D stepper's, whose K1 2D
 // entries compute the function of the (1, n0, n1) embedding with its dummy
-// axis compiled out: the same kernel with kAxis0 off, the 2D axes 0 and 1 in
-// the places of axes 1 and 2 over one plane with no axis-0 ghosts (the plane
-// is interior, its interior index 0: a program is evaluated at the
-// embedding's node (0, i, j), from the embedding's table, as K1'' 2D reads
-// it). A block then runs one plane: its tiles, the adjoints of its column and
-// their halos, the gather. Bound at 4096^2 f32: the streamed entry reads P,
-// g and two velocity components and writes dP and two du, 28 B a cell (36
-// with aux and daux), 0.140 ms (0.180) at 3.35 TB/s, against 405 FP32
-// operations a cell (202 an axis and one), 0.101 ms at 67 TFLOP/s; with the
-// rotation in-kernel 12 B a cell (0.060 ms) against the same operations
-// (0.101 ms) and the program's: the operations bind.
+// axis compiled out (a program is evaluated at the embedding's node (0, i,
+// j), from the embedding's table, as K1'' 2D reads it). Their kernel is a 2D
+// march of its own (stage_bwd_2d_kernel, below): the 3D kernel's axis 0 down
+// the 2D axis 0, the gather of its in-plane axes along the rows. Its sums
+// are those of one plane a block (the design before it), so dP, du and daux
+// keep their bits. Bound at 4096^2 f32: the streamed entry reads P, g and
+// two velocity components and writes dP and two du, 28 B a cell (36 with aux
+// and daux), 0.140 ms (0.180) at 3.35 TB/s, against 405 FP32 operations a
+// cell (202 an axis and one), 0.101 ms at 67 TFLOP/s; with the rotation
+// in-kernel 12 B a cell (0.060 ms) against the same operations (0.101 ms)
+// and the program's: the operations bind.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -452,13 +450,13 @@ __device__ __forceinline__ T edge_term(const T (*D)[N], int r, int step, int lan
   return R::mul(R::sub(cx, cx1), inv_h);
 }
 
-template <typename T, bool kProgram, bool kAxis0>
+template <typename T, bool kProgram>
 __global__ void __launch_bounds__(AdvTile<T>::NT)
     stage_bwd_kernel(const __grid_constant__ BwdArgs<T> a) {
   using R = Rn<T>;
   using TL = AdvTile<T>;
   constexpr int CY = TL::CY, CX = TL::CX, NT = TL::NT, H = LSM_GHOST, UPT = TL::UPT;
-  constexpr int LAG = kAxis0 ? H : 0;  // dP of plane p + LAG is written at plane p
+  constexpr int LAG = H;  // dP of plane p + LAG is written at plane p
   constexpr int PT = TL::PY * TL::PX, GT = TL::GY * TL::GX;
   extern __shared__ __align__(16) unsigned char lsm_dyn_smem[];
   T* const Pt = reinterpret_cast<T*>(lsm_dyn_smem);  // [2][PT], plane p in buffer p & 1
@@ -478,9 +476,6 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
   const int pin = j * G.s1 + k;
   const int qin = inside(j, G.n[1]) && inside(k, G.n[2]) ? (j - H) * G.n[2] + (k - H) : -1;
   const T neg_gamma = -a.gamma;
-  // (the plane index p along axis 0 is padded; without kAxis0 it is the 2D
-  // layout's one plane, p = 0, interior, interior index 0, padded index H
-  // for a program)
   double sg = 0.0, sb = 0.0, sa = 0.0, st = 0.0;
   for (int e = t; e < TL::U1 + TL::U2; e += NT) units[e] = adv_unit<TL>(e, j0, k0, G);
   T pr[7] = {};                // P[p - 3 + q] along axis 0 at (j, k)
@@ -500,8 +495,7 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
     }
     for (int e = t; e < GT; e += NT) {
       const int jj = j0 - H + e / TL::GX, kk = k0 - H + e % TL::GX;
-      const bool in = kAxis0 ? interior(G, plane, jj, kk)
-                             : inside(jj, G.n[1]) && inside(kk, G.n[2]);
+      const bool in = interior(G, plane, jj, kk);
       copy_async(gd + e, a.g + (in ? pidx(G, plane, jj, kk) : 0), in);
     }
     async_commit();
@@ -511,11 +505,11 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
   T nx_p = T(0), nx_g = T(0), nx_u0 = T(0), nx_u[UPT] = {};
   auto fetch = [&](int p) {
     nx_p = P_at(p - H);
-    const bool in_p = kAxis0 ? inside(p, G.n[0]) : true;
-    const bool in0 = kAxis0 && in_p && qin >= 0;
+    const bool in_p = inside(p, G.n[0]);
+    const bool in0 = in_p && qin >= 0;
     nx_g = in0 ? a.g[int64_t(p) * G.s0 + pin] : T(0);
     if constexpr (!kProgram) {
-      const int64_t qp = int64_t(kAxis0 ? p - H : p) * G.m12;
+      const int64_t qp = int64_t(p - H) * G.m12;
       nx_u0 = in0 ? a.u[0][qp + qin] : T(0);
       const bool own = p >= i0 && p < i1 && in_p;
 #pragma unroll
@@ -528,10 +522,8 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
     }
   };
   const int ptop = i1 - 1 + LAG;
-  if constexpr (kAxis0) {
 #pragma unroll
-    for (int q = 0; q < 6; ++q) pr[q] = P_at(ptop - 2 + q);  // shifted up on entry
-  }
+  for (int q = 0; q < 6; ++q) pr[q] = P_at(ptop - 2 + q);  // shifted up on entry
   __syncthreads();  // the units' table is in
   fetch(ptop);
   issue_tiles(i1 - 1);  // the first plane of the chunk
@@ -555,7 +547,7 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
       // the previous plane's barriers
       if (p > i0) issue_tiles(p - 1);
     }
-    if constexpr (kAxis0) {  // axis 0: this thread's output (p, j, k)
+    {  // axis 0: this thread's output (p, j, k)
 #pragma unroll
       for (int q = 6; q > 0; --q) {
         pr[q] = pr[q - 1];
@@ -591,8 +583,8 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
       T(*const D2)[TL::U2] = D2s + 6 * (p & 1);
       const T* const pt = Pt + (p & 1) * PT;
       const T* const gt = Gt + (p & 1) * GT;
-      const bool in_p = kAxis0 ? inside(p, G.n[0]) : true;
-      const int64_t qp = int64_t(kAxis0 ? p - H : p) * G.m12;
+      const bool in_p = inside(p, G.n[0]);
+      const int64_t qp = int64_t(p - H) * G.m12;
 #pragma unroll
       for (int m = 0; m < UPT; ++m) {
         const int e = t + m * NT;
@@ -618,7 +610,7 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
         T udt = T(0);
         T uv = um[m];
         if constexpr (kProgram)
-          uv = program_velocity(a, axis, kAxis0 ? p : p + H, j0 - H + (un.y >> 24),
+          uv = program_velocity(a, axis, p, j0 - H + (un.y >> 24),
                                 k0 - H + (un.y >> 16 & 0xff), &udt);
         const T gv = gt[gc];
         const T gup = R::mul(neg_gamma, gv);
@@ -639,12 +631,12 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
     // dP of plane i = p + LAG: c_0 of planes i and i + 1 are complete
     const int i = p + LAG;
     if (col && i >= i0 && i < i1) {
-      const T contrib0 = kAxis0 ? R::mul(R::sub(cz[5], cz[6]), a.inv_h[0]) : T(0);
+      const T contrib0 = R::mul(R::sub(cz[5], cz[6]), a.inv_h[0]);
       const int64_t x = int64_t(i) * G.s0 + pin;
       T v;
       if (a.accumulate) {
         v = R::add(a.dP[x], contrib0);
-      } else if (qin >= 0 && (kAxis0 ? inside(i, G.n[0]) : true)) {
+      } else if (qin >= 0 && inside(i, G.n[0])) {
         const T gv = a.g[x];
         v = R::add(R::mul(a.beta, gv), contrib0);
         if (a.daux != nullptr) a.daux[x] = R::mul(a.alpha, gv);
@@ -673,8 +665,7 @@ __global__ void __launch_bounds__(AdvTile<T>::NT)
 
 // K3 (kProgram false: the velocity streamed in u) and K3'' (the velocity the
 // program of tab's entry 0): the fused launch, then the reduction
-// kAxis0 false: the 2D entries, (n0, n1, n2) = (1, the 2D field's n0, n1)
-template <typename T, bool kProgram, bool kAxis0 = true>
+template <typename T, bool kProgram>
 int launch_stage_bwd(const void* P, const void* g, const void* const* u, const void* aux,
                      void* dP, void* const* du, void* daux, void* part, void* dcoef, int64_t n0,
                      int64_t n1, int64_t n2, const double* inv_h, double alpha, double beta,
@@ -693,7 +684,7 @@ int launch_stage_bwd(const void* P, const void* g, const void* const* u, const v
     a.inv_h[d] = T(inv_h[d]);
   }
   a.part = static_cast<double*>(part);
-  a.geo = kAxis0 ? make_geom(n0, n1, n2) : make_geom_2d(n1, n2);
+  a.geo = make_geom(n0, n1, n2);
   a.chunk = chunk_len(a.geo.S[0]);
   a.alpha = T(alpha);
   a.beta = T(beta);
@@ -704,7 +695,7 @@ int launch_stage_bwd(const void* P, const void* g, const void* const* u, const v
     a.tab = *tab;
   }
   const dim3 grid = adv_grid<T>(a.geo);
-  const auto kernel = stage_bwd_kernel<T, kProgram, kAxis0>;
+  const auto kernel = stage_bwd_kernel<T, kProgram>;
   const size_t smem = AdvTile<T>::smem;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -715,6 +706,389 @@ int launch_stage_bwd(const void* P, const void* g, const void* const* u, const v
   // without dt, dcoef[3] is left as the caller zeroed it
   return static_cast<int>(
       launch_reduce<T>(a.part, nblocks(grid), kProgram && needs_dt, dcoef, stream));
+}
+
+
+// ---------------------------------------------------------------------------
+// K3 and K3'' 2D (lsm_stage_bwd_2d_*, lsm_stage_bwd_prog_2d_*): the march.
+//
+// A block of NT threads owns NT columns of the padded axis 1, one thread a
+// column, and marches down a chunk of <= 64 padded rows of axis 0 (as even as
+// the axis allows), NR rows a step (6 in f32, 4 in f64). Step s stages the
+// rows b .. b + NR - 1 (b = i1 - (s + 1) NR) by cp.async one step ahead: P
+// over the columns and a reach of 6, g and u1 over the columns and a halo of
+// 3; at the columns, u0 of the rows three below and aux of the rows six
+// below (the axis-0 outputs' and the written rows'). Then:
+//  - axis 1 (across the row): the adjoint of every output of the step's rows
+//    in the chunk, over the columns and a halo of 3 (NT + 6 a row), once into
+//    shared memory; a barrier;
+//  - axis 0 (along the march): each thread evaluates the outputs y = b + 3
+//    .. b + NR + 2 of its column from a register ring of seven P values and
+//    adds their six ddm into a register ring of the edge cotangents c_0 (the
+//    3D kernel's axis 0), so c_0[z] sums its outputs y = z + 2 down to z - 3,
+//    edge_term's order; after output y the row y + 3 is complete and its dP
+//    written once: c_1 from a ring of held values (each thread's own, in
+//    shared memory; a step's rows are at least 6 below the rows it writes,
+//    so each step fills it by edge_term after its writes), g from a register ring of the outputs' g, P from the ring's pr[6], aux
+//    staged: the write reads no device memory.
+// dP = ((beta*g + 0) + c_0 term) + c_1 term, every sum and product rounded as
+// in the design of one plane a block, so dP, du and daux keep its bits.
+// Adjoints per output: (chunk + 6)/chunk along axis 0 (the last step's
+// extra rows skipped), (NT + 6)/NT across. K3'': a component that reads one
+// 2D coordinate or none is evaluated once per column or once per row of the
+// block into shared memory (ops/coef_program.py `Program.axes`, K1'' 2D's
+// rule), one that reads both per output. Shared memory in f32 50.7 KB (56.8
+// with aux; K3'' 38.1, 44.2). Against six rows a step, 128 columns and
+// three blocks an SM (the fastest of six rounds, two runs; PERF.md section
+// 6, the 2D marches' entry): four rows 2-3% slower, four blocks an SM within
+// the spread, 64 columns 3% and 256 columns 24-29% slower; eight and sixteen
+// rows measured slower before and are not built (a step would stage a row
+// it writes). Scalar sums in per-block slots, reduced in a fixed order, as K3.
+
+enum { kByColumn = 0, kByRow = 1, kByNode = 2 };  // K3'': how a component is evaluated
+
+template <typename T>
+struct Adv2D {
+  static constexpr int NT = 128;                    // threads, one column each
+  static constexpr int NR = sizeof(T) == 4 ? 6 : 4;  // rows a step
+  static constexpr int MIN_BLOCKS = sizeof(T) == 4 ? 3 : 2;
+  static constexpr int WP = NT + 4 * LSM_GHOST;  // a staged row of P: reach 6
+  static constexpr int WG = NT + 2 * LSM_GHOST;  // of g and u1: the outputs of axis 1
+  static constexpr int C1 = 8;                   // the ring of held c_1 rows (6 live)
+  // a step stages the rows b .. b + NR - 1 and writes b + 6 .. b + NR + 5,
+  // whose c_1 earlier steps held; the rows b .. b + 5 take distinct slots
+  static_assert(NR <= 6 && C1 >= 6 && (C1 & (C1 - 1)) == 0, "c_1 of a written row is held");
+  // a stage: NR rows of P and of g, then (streamed) of u1 and of u0, then
+  // (with aux) of aux
+  static constexpr int stage(bool prog, bool aux) {
+    return NR * (WP + WG + (prog ? 0 : WG + NT) + (aux ? NT : 0));
+  }
+  // the two stages, the ddm of a step, the held c_1 and g
+  static constexpr size_t smem(bool prog, bool aux) {
+    return size_t(2 * stage(prog, aux) + 6 * NR * WG + (C1 + LSM_GHOST) * NT) * sizeof(T);
+  }
+};
+
+template <typename T>
+struct Bwd2DArgs {
+  const T* P;
+  const T* g;
+  const T* u[2];  // the velocity components (interior-shaped); K3'' none
+  const T* aux;   // may be null
+  T* dP;
+  T* du[2];  // each may be null
+  T* daux;   // may be null
+  double* part;
+  int n0, n1, S0, S1, chunk;
+  int stage, aux_at;  // a stage's elements (Adv2D::stage), where its aux starts
+  T inv_h[2], alpha, beta, gamma;
+  int accumulate;
+  int needs_dt, vclass[2];  // K3'': dt wanted; how each component is evaluated
+  LsmStageTerms tab;        // K3'': the velocity program (entry 0, the embedding's)
+};
+
+// K3'': component 1 + d of the embedding's program at the 2D output (y, x)
+// (padded), its t-derivative in *udt when dt is wanted
+template <typename T>
+__device__ __forceinline__ T prog_2d(const Bwd2DArgs<T>& a, int d, int y, int x, T* udt) {
+  const int64_t i1 = y - LSM_GHOST, i2 = x - LSM_GHOST;
+  return a.needs_dt ? lsm::prog_eval<T, true>(a.tab.prog, 0, d + 1, 0, i1, i2, udt)
+                    : lsm::prog_eval<T, false>(a.tab.prog, 0, d + 1, 0, i1, i2, nullptr);
+}
+
+template <typename T, bool kProgram>
+__global__ void __launch_bounds__(Adv2D<T>::NT, Adv2D<T>::MIN_BLOCKS)
+    stage_bwd_2d_kernel(const __grid_constant__ Bwd2DArgs<T> a) {
+  using R = Rn<T>;
+  using M = Adv2D<T>;
+  constexpr int NT = M::NT, NR = M::NR, WP = M::WP, WG = M::WG, C1 = M::C1, H = LSM_GHOST;
+  constexpr int VR = kChunk + 2 * H;
+  const int ST = a.stage;
+  extern __shared__ __align__(16) unsigned char lsm_dyn_smem[];
+  T* const ring = reinterpret_cast<T*>(lsm_dyn_smem);  // [2][ST], step s in stage s & 1
+  T(*const D)[NR * WG] = reinterpret_cast<T(*)[NR * WG]>(ring + 2 * ST);  // [6]
+  T* const c1s = ring + 2 * ST + 6 * NR * WG;  // [C1][NT]: c_1 of row i in slot i % C1
+  T* const hold = c1s + C1 * NT;               // [H][NT]: g of the rows b .. b + 2
+  __shared__ double red[4][NT / 32];
+  // K3'': the components by column (the block's columns and halo) and by row
+  // (the chunk's and a reach of 3), values then t-derivatives
+  __shared__ T vcol[kProgram ? 4 : 1][kProgram ? WG : 1];
+  __shared__ T vrow[kProgram ? 4 : 1][kProgram ? VR : 1];
+  const int t = threadIdx.x, k0 = blockIdx.x * NT, k = k0 + t;
+  const int i0 = blockIdx.y * a.chunk, i1 = min(i0 + a.chunk, a.S0);
+  const int nsteps = (i1 - i0 + 2 * H + NR - 1) / NR;
+  const bool col = k < a.S1, kin = inside(k, a.n1);
+  const T neg_gamma = -a.gamma;
+  double sg = 0.0, sb = 0.0, sa = 0.0, st = 0.0;
+  // step s's rows into stage s & 1, asynchronously (one commit group a step)
+  auto issue = [&](int s) {
+    if (s < nsteps) {
+      T* const sp = ring + (s & 1) * ST;
+      const int b = i1 - (s + 1) * NR;
+      for (int e = t; e < NR * WP; e += NT) {
+        const int r = e / WP, c = k0 - 2 * H + (e - r * WP), row = b + r;
+        const bool in = row >= 0 && c >= 0 && c < a.S1;
+        copy_async(sp + e, a.P + (in ? int64_t(row) * a.S1 + c : 0), in);
+      }
+      T* const gd = sp + NR * WP;
+      for (int e = t; e < NR * WG; e += NT) {
+        const int r = e / WG, c = k0 - H + (e - r * WG), row = b + r;
+        const bool in = inside(row, a.n0) && inside(c, a.n1);
+        copy_async(gd + e, a.g + (in ? int64_t(row) * a.S1 + c : 0), in);
+        if constexpr (!kProgram)
+          copy_async(gd + NR * WG + e, a.u[1] + (in ? int64_t(row - H) * a.n1 + (c - H) : 0), in);
+      }
+      // at the columns: u0 of the axis-0 outputs b + 3 .. b + NR + 2, aux of
+      // the rows written after them, b + 6 .. b + NR + 5
+      if constexpr (!kProgram) {
+        T* const ud = gd + 2 * NR * WG;
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          const bool in = inside(b + H + r, a.n0) && kin;
+          copy_async(ud + r * NT + t, a.u[0] + (in ? int64_t(b + r) * a.n1 + (k - H) : 0), in);
+        }
+      }
+      if (a.aux != nullptr) {
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+          const bool in = inside(b + 2 * H + r, a.n0) && kin;
+          copy_async(sp + a.aux_at + r * NT + t,
+                     a.aux + (in ? int64_t(b + 2 * H + r) * a.S1 + k : 0), in);
+        }
+      }
+    }
+    async_commit();
+  };
+  issue(0);
+  auto velocity = [&](int d, int y, int x, T* udt) -> T {
+    if (a.vclass[d] == kByColumn) {
+      *udt = vcol[2 + d][x - k0 + H];
+      return vcol[d][x - k0 + H];
+    }
+    if (a.vclass[d] == kByRow) {
+      *udt = vrow[2 + d][y - i0 + H];
+      return vrow[d][y - i0 + H];
+    }
+    return prog_2d(a, d, y, x, udt);
+  };
+  if constexpr (kProgram) {  // at the interior's columns and rows (a table has no more)
+    for (int e = t; e < 2 * WG; e += NT) {
+      const int d = e / WG, c = e - d * WG;
+      T dt = T(0);
+      if (a.vclass[d] == kByColumn && inside(k0 - H + c, a.n1)) {
+        vcol[d][c] = prog_2d(a, d, H, k0 - H + c, &dt);
+        vcol[2 + d][c] = dt;
+      }
+    }
+    for (int e = t; e < 2 * VR; e += NT) {
+      const int d = e / VR, r = e - d * VR;
+      T dt = T(0);
+      if (a.vclass[d] == kByRow && inside(i0 - H + r, a.n0) && i0 - H + r < i1 + H) {
+        vrow[d][r] = prog_2d(a, d, i0 - H + r, H, &dt);
+        vrow[2 + d][r] = dt;
+      }
+    }
+  }
+  // the ring along axis 0 enters at the output y = i1 + 2: P of the rows i1
+  // .. i1 + 5 (shifted up on entry), g of the rows i1 .. i1 + 2 held; g of
+  // the outputs y .. y + 3 rides a ring of its own, so the row y + 3 written
+  // after output y reads no device memory (its P is pr[6], its aux staged)
+  T pr[7] = {}, cz[7] = {}, gq[4] = {};
+#pragma unroll
+  for (int q = 0; q < 6; ++q)
+    pr[q] = col && i1 + q < a.S0 ? a.P[int64_t(i1 + q) * a.S1 + k] : T(0);
+#pragma unroll
+  for (int j = 0; j < H; ++j)
+    hold[j * NT + t] = inside(i1 + j, a.n0) && kin ? a.g[int64_t(i1 + j) * a.S1 + k] : T(0);
+  for (int s = 0; s < nsteps; ++s) {
+    async_wait();
+    __syncthreads();  // step s's rows are in; every thread is done with step s - 1
+    issue(s + 1);     // into the stage step s - 1 read
+    const int b = i1 - (s + 1) * NR;
+    const T* const Ps = ring + (s & 1) * ST;
+    const T* const Gs = Ps + NR * WP;
+    const T* const U1s = Gs + NR * WG;
+    const T* const U0s = U1s + NR * WG;
+    const T* const As = Ps + a.aux_at;
+    // axis 1: the outputs of the step's rows in the chunk over the columns
+    // and a halo of 3: this thread's column's NR, then one of the 6 NR of the halo
+    for (int m = 0; m <= NR; ++m) {
+      int r = m, c = t + H;
+      if (m == NR) {
+        if (t >= 6 * NR) break;
+        r = t / 6;
+        c = t % 6 < 3 ? t % 6 : NT + t % 6;
+      }
+      const int row = b + r, x = k0 - H + c;
+      if (row < i0) continue;  // no dP of this chunk reads it
+      T ddm[6] = {};
+      if (inside(row, a.n0) && inside(x, a.n1)) {
+        const T* const pc = Ps + r * WP + c + H;  // P at (row, x)
+        T dm[6];
+#pragma unroll
+        for (int q = 0; q < 6; ++q) dm[q] = R::mul(R::sub(pc[q - 2], pc[q - 3]), a.inv_h[1]);
+        T udt = T(0);
+        T uv;
+        if constexpr (kProgram) uv = velocity(1, row, x, &udt);
+        else uv = U1s[r * WG + c];
+        const T gv = Gs[r * WG + c];
+        const T gup = R::mul(neg_gamma, gv);
+        T core;
+        weno5_fwd_bwd(dm, uv, gup, ddm, core);
+        if (m < NR) {  // an output of this thread's column
+          if (!kProgram && a.du[1] != nullptr)
+            a.du[1][int64_t(row - H) * a.n1 + (x - H)] = R::mul(core, gup);
+          sg += double(gv) * double(R::mul(uv, core));
+          if (kProgram) st += double(R::mul(core, gup)) * double(udt);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 6; ++q) D[q][r * WG + c] = ddm[q];
+    }
+    __syncthreads();  // the ddm are in
+    // axis 0: the outputs y = b + 3 + m of this thread's column, downwards
+#pragma unroll 1
+    for (int m = NR - 1; m >= 0; --m) {
+      const int y = b + H + m;
+#pragma unroll
+      for (int q = 6; q > 0; --q) {
+        pr[q] = pr[q - 1];
+        cz[q] = cz[q - 1];
+      }
+      pr[0] = Ps[m * WP + t + 2 * H];  // P[y - 3]: the step's row m
+      // g at (y, k): the step's row m + 3, or held from the step above
+      const T gv = m >= NR - H ? hold[(m - NR + H) * NT + t] : Gs[(m + H) * WG + t + H];
+#pragma unroll
+      for (int q = 3; q > 0; --q) gq[q] = gq[q - 1];
+      gq[0] = gv;
+      T ddm[6] = {};
+      if (kin && inside(y, a.n0) && y >= i0 - H) {
+        T dm[6];
+#pragma unroll
+        for (int q = 0; q < 6; ++q) dm[q] = R::mul(R::sub(pr[q + 1], pr[q]), a.inv_h[0]);
+        T udt = T(0);
+        T uv;
+        if constexpr (kProgram) uv = velocity(0, y, k, &udt);
+        else uv = U0s[m * NT + t];
+        const T gup = R::mul(neg_gamma, gv);
+        T core;
+        weno5_fwd_bwd(dm, uv, gup, ddm, core);
+        if (y >= i0 && y < i1) {
+          if (!kProgram && a.du[0] != nullptr)
+            a.du[0][int64_t(y - H) * a.n1 + (k - H)] = R::mul(core, gup);
+          sg += double(gv) * double(R::mul(uv, core));
+          if (kProgram) st += double(R::mul(core, gup)) * double(udt);
+        }
+      }
+      cz[0] = ddm[0];  // c_0[y - 2]'s first output, as edge_term starts its sum
+#pragma unroll
+      for (int q = 1; q < 6; ++q) cz[q] = R::add(cz[q], ddm[q]);
+      // dP of row i = y + 3: c_0 of rows i and i + 1 are complete
+      const int i = y + H;
+      if (col && i >= i0 && i < i1) {
+        const T c0 = R::mul(R::sub(cz[5], cz[6]), a.inv_h[0]);
+        const T c1 = c1s[(i & (C1 - 1)) * NT + t];
+        const int64_t x = int64_t(i) * a.S1 + k;
+        T v;
+        if (a.accumulate) {
+          v = R::add(a.dP[x], T(0));
+        } else if (kin && inside(i, a.n0)) {  // g, P and aux of row i: gq[3], pr[6], staged
+          v = R::add(R::mul(a.beta, gq[3]), T(0));
+          if (a.daux != nullptr) a.daux[x] = R::mul(a.alpha, gq[3]);
+          sb += double(gq[3]) * double(pr[6]);
+          if (a.aux != nullptr) sa += double(gq[3]) * double(As[m * NT + t]);
+        } else {
+          v = T(0);
+        }
+        v = R::add(v, c0);
+        a.dP[x] = R::add(v, c1);
+      }
+    }
+    // c_1 of the step's rows, which the next steps write (after this step's
+    // reads of the ring)
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      if (b + r >= i0)
+        c1s[((b + r) & (C1 - 1)) * NT + t] =
+            edge_term<T, NR * WG>(D, t + H, 1, r * WG, a.inv_h[1]);
+    // g of the step's rows b .. b + 2, which the next step's axis 0 reads
+#pragma unroll
+    for (int j = 0; j < H; ++j) hold[j * NT + t] = Gs[j * WG + t + H];
+  }
+  const int64_t bid = int64_t(blockIdx.x) + int64_t(gridDim.x) * blockIdx.y;
+  sg = block_sum<NT>(sg, red[0]);
+  sb = block_sum<NT>(sb, red[1]);
+  sa = block_sum<NT>(sa, red[2]);
+  st = block_sum<NT>(st, red[3]);
+  if (t == 0) {
+    a.part[4 * bid] = sg;
+    a.part[4 * bid + 1] = sb;
+    a.part[4 * bid + 2] = sa;
+    a.part[4 * bid + 3] = st;
+  }
+}
+
+inline dim3 adv_grid_2d(int64_t n0, int64_t n1) {
+  return dim3(static_cast<unsigned>((n1 + 2 * LSM_GHOST + Adv2D<float>::NT - 1) /
+                                    Adv2D<float>::NT),
+              static_cast<unsigned>(chunks_of(static_cast<int>(n0 + 2 * LSM_GHOST))));
+}
+
+// K3 2D (kProgram false: u0, u1 streamed) and K3'' 2D (tab's entry 0 the
+// velocity program, axes[d] the embedding's axes its component 1 + d reads):
+// the march, then the reduction
+template <typename T, bool kProgram>
+int launch_stage_bwd_2d(const void* P, const void* g, const void* u0, const void* u1,
+                        const void* aux, void* dP, void* du0, void* du1, void* daux, void* part,
+                        void* dcoef, int64_t n0, int64_t n1, double inv_h0, double inv_h1,
+                        double alpha, double beta, double gamma, int accumulate,
+                        const LsmStageTerms* tab, int needs_dt, const int* axes,
+                        void* stream_) {
+  using M = Adv2D<T>;
+  if (n0 < 1 || n1 < 1 || n0 > (1 << 29) || n1 > (1 << 29))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Bwd2DArgs<T> a{};
+  a.P = static_cast<const T*>(P);
+  a.g = static_cast<const T*>(g);
+  a.u[0] = static_cast<const T*>(u0);
+  a.u[1] = static_cast<const T*>(u1);
+  a.aux = accumulate ? nullptr : static_cast<const T*>(aux);
+  a.dP = static_cast<T*>(dP);
+  a.du[0] = static_cast<T*>(du0);
+  a.du[1] = static_cast<T*>(du1);
+  a.daux = accumulate ? nullptr : static_cast<T*>(daux);
+  a.part = static_cast<double*>(part);
+  a.n0 = static_cast<int>(n0);
+  a.n1 = static_cast<int>(n1);
+  a.S0 = a.n0 + 2 * LSM_GHOST;
+  a.S1 = a.n1 + 2 * LSM_GHOST;
+  a.chunk = chunk_len(a.S0);
+  a.stage = M::stage(kProgram, a.aux != nullptr);
+  a.aux_at = M::stage(kProgram, false);
+  a.inv_h[0] = T(inv_h0);
+  a.inv_h[1] = T(inv_h1);
+  a.alpha = T(alpha);
+  a.beta = T(beta);
+  a.gamma = T(gamma);
+  a.accumulate = accumulate;
+  if constexpr (kProgram) {
+    a.needs_dt = needs_dt;
+    a.tab = *tab;
+    for (int d = 0; d < 2; ++d)
+      a.vclass[d] = (axes[d] & 6) == 6 ? kByNode : (axes[d] & 2 ? kByRow : kByColumn);
+  }
+  const dim3 grid = adv_grid_2d(n0, n1);
+  const auto kernel = stage_bwd_2d_kernel<T, kProgram>;
+  const size_t smem = M::smem(kProgram, a.aux != nullptr);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(M::smem(kProgram, true)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, M::NT, smem, static_cast<cudaStream_t>(stream_)>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // without dt, dcoef[3] is left as the caller zeroed it
+  return static_cast<int>(launch_reduce<T>(a.part, nblocks(grid), kProgram && needs_dt, dcoef,
+                                           static_cast<cudaStream_t>(stream_)));
 }
 
 
@@ -1214,17 +1588,17 @@ __device__ __forceinline__ int4 terms_unit(int e, int j0, int k0, const Geom& G)
 // Phase 1 of a K3' block at one output y (unit `un`, whose Godunov and
 // curvature positions it holds; S the P around y, Y its padded coordinates,
 // q its interior index, g its cotangent): the pieces of the gather into the
-// plane's buffers gb, cb and sb_ (0 off the interior). `own` (the unit of
-// this thread's node): what y sends its own node, into acc[0] (kFirst = 0:
-// along axis 0 too, into acc[-2 .. 2], the node on planes y - 2 .. y + 2);
-// `centre`: its g*H and dt into the partial sums. kFirst = 1 (the 2D entry):
-// no axis-0 piece is sent.
-template <typename T, bool kProgram, int kFirst>
+// buffers gb, cb and sb_ of the plane (the row: TL's field strides RP, RC)
+// (0 off the interior). `own` (the unit of this thread's node): what y sends
+// its own node, into acc[0], and along the march's axis kFirst (axis 0 in
+// 3D; the 2D entry, whose axis 0 is compiled out, marches along axis 1) into
+// acc[-2 .. 2], the node on the planes (rows) y - 2 .. y + 2; `centre`: its
+// g*H and dt into the partial sums.
+template <typename T, bool kProgram, int kFirst, typename TL = TermsTile<T>>
 __device__ __forceinline__ void terms_pieces(const TermsBwdArgs<T>& a, const Stencil<T>& S,
                                              int64_t q, const int* Y, T g, int4 un, bool in,
                                              bool own, bool centre, T* gb, T* cb, uint16_t* sb_,
                                              T* acc, double& sg, double& st_) {
-  using TL = TermsTile<T>;
   constexpr int RP = TL::RP, RC = TL::RC;
   const TermConsts<T>& kc = a.k;
   const int pos = un.x & 0xffff, cpos1 = un.x >> 16;
@@ -1248,12 +1622,11 @@ __device__ __forceinline__ void terms_pieces(const TermsBwdArgs<T>& a, const Ste
         for (int d = kFirst + 1; d < 3; ++d)
           w = w + godunov_weight<T>(o.dA[d], o.dB[d], o.sA[d], o.sB[d], kc, d, 0);
         acc[0] = acc[0] + (w + o.dc);
-        if constexpr (kFirst == 0) {
 #pragma unroll
-          for (int kq = -2; kq <= 2; ++kq)
-            if (kq != 0)
-              acc[kq] = acc[kq] + godunov_weight<T>(o.dA[0], o.dB[0], o.sA[0], o.sB[0], kc, 0, kq);
-        }
+        for (int kq = -2; kq <= 2; ++kq)
+          if (kq != 0)
+            acc[kq] = acc[kq] + godunov_weight<T>(o.dA[kFirst], o.dB[kFirst], o.sA[kFirst],
+                                                  o.sB[kFirst], kc, kFirst, kq);
       }
       if (centre) {
         sg += double(g) * double(o.ham);
@@ -1282,11 +1655,9 @@ __device__ __forceinline__ void terms_pieces(const TermsBwdArgs<T>& a, const Ste
 #pragma unroll
         for (int d = kFirst + 1; d < 3; ++d) h = h + o.dhd[d] * kc.inv_hh[d];
         acc[0] = acc[0] - T(2) * h;
-        if constexpr (kFirst == 0) {
-          const T dg = o.dg[0] * kc.inv_two_h[0], dh = o.dhd[0] * kc.inv_hh[0];
-          acc[1] = acc[1] + (dg + dh);    // the node at y + 1 reads y as its -1
-          acc[-1] = acc[-1] + (-dg + dh);  // the node at y - 1 as its +1
-        }
+        const T dg = o.dg[kFirst] * kc.inv_two_h[kFirst], dh = o.dhd[kFirst] * kc.inv_hh[kFirst];
+        acc[1] = acc[1] + (dg + dh);    // the node at y + 1 reads y as its -1
+        acc[-1] = acc[-1] + (-dg + dh);  // the node at y - 1 as its +1
       }
       if (centre) {
         sg += double(g) * double(o.ham);
@@ -1300,18 +1671,19 @@ __device__ __forceinline__ void terms_pieces(const TermsBwdArgs<T>& a, const Ste
 }
 
 // Phase 2 of a K3' block: what the outputs around this thread's node in the
-// plane send to it (their pieces in gb, sb_, cb), into acc[0]; with kFirst
-// = 0 also, across the edges of the axis pairs (0, 1) and (0, 2), what they
-// send its nodes on the planes either side, into acc[-1] and acc[1].
-template <typename T, int kFirst>
+// plane (the row) send to it along the axes after the march's axis kFirst
+// (their pieces in gb, sb_, cb), into acc[0]; and, across the edges of the
+// axis pairs with the march's axis ((0, 1) and (0, 2) in 3D, (1, 2) in the
+// 2D entry), what they send its nodes on the planes (rows) either side, into
+// acc[-1] and acc[1].
+template <typename T, int kFirst, typename TL = TermsTile<T>>
 __device__ __forceinline__ void terms_gather(const TermConsts<T>& kc, bool god, bool curv,
                                              const T* gb, const uint16_t* sb_, const T* cb,
                                              int own_pos, int own_c, T* acc) {
-  using TL = TermsTile<T>;
   constexpr int RP = TL::RP, RC = TL::RC;
   const int dpos[3] = {0, TL::W, 1}, dcpos[3] = {0, TL::WC, 1};
 #pragma unroll
-  for (int d = 1; d < 3; ++d) {
+  for (int d = kFirst + 1; d < 3; ++d) {
 #pragma unroll
     for (int kk = -2; kk <= 2; ++kk) {
       if (kk == 0) continue;
@@ -1332,7 +1704,7 @@ __device__ __forceinline__ void terms_gather(const TermConsts<T>& kc, bool god, 
   }
   if (curv) {
     // the mixed differences: y = x - sa e_da - sb e_db with y in the plane, x
-    // on the plane sa away when da is axis 0
+    // on the plane sa away when da is the march's axis
     const int pair[3][2] = {{0, 1}, {0, 2}, {1, 2}};
 #pragma unroll
     for (int m = kFirst == 0 ? 0 : 2; m < 3; ++m) {
@@ -1341,9 +1713,9 @@ __device__ __forceinline__ void terms_gather(const TermConsts<T>& kc, bool god, 
       for (int sa_ = -1; sa_ <= 1; sa_ += 2) {
 #pragma unroll
         for (int sb2 = -1; sb2 <= 1; sb2 += 2) {
-          const int cpos = own_c - (da != 0 ? sa_ * dcpos[da] : 0) - sb2 * dcpos[db];
+          const int cpos = own_c - (da != kFirst ? sa_ * dcpos[da] : 0) - sb2 * dcpos[db];
           const T w = cb[(6 + m) * RC + cpos] * kc.inv_hmix[m];
-          const int at = da == 0 ? sa_ : 0;
+          const int at = da == kFirst ? sa_ : 0;
           acc[at] = acc[at] + (sa_ * sb2 > 0 ? w : -w);
         }
       }
@@ -1478,81 +1850,142 @@ __global__ void __launch_bounds__(TermsTile<T>::NT, TermsTile<T>::MIN_BLOCKS)
 // K3''s 2D entry (lsm_stage_bwd_terms_2d_*): the adjoint of K1''s 2D stage
 // (the embedding's function with axis 0 compiled out, hamiltonians.cuh with
 // kFirst = 1) on a 2D field's (n0+6, n1+6) layout, whose axes 0 and 1 take
-// the places of axes 1 and 2 above over one plane (make_geom_2d). The same
-// gather, without the march: a block owns a column of CY x CX nodes, stages
-// the plane of P over it and a reach of 4 and g at its outputs (the column
-// and a halo of 2) by cp.async, phase 1 evaluates each output's pieces once
-// and phase 2 gathers what its node owes the outputs around it: the 3D
-// kernel's terms_pieces and terms_gather with kFirst = 1 (no axis-0 sample,
-// piece or send). An advection term's share is K3's 2D entry in accumulate
-// mode, as in 3D.
+// the places of axes 1 and 2 above (make_geom_2d). The 3D kernel's march
+// with its axis 1 compiled out: a block of NT threads marches up a chunk of
+// <= 64 padded rows (and 2 rows either side), thread t at the padded column
+// k0 - 2 + t; the block owns the NT - 4 columns of threads 2 .. NT - 3, the
+// others are their halo of 2 (1 for curvature). At row s, phase 1 evaluates
+// the pieces of the output of each thread's column, one pass of the block
+// (terms_pieces, kFirst = 1: the 2D axis 0 is the march's), and a thread's
+// own output sends what it owes its own node on rows s - 2 .. s + 2 in
+// registers; after a barrier, phase 2 gathers along the row from row s's
+// pieces and curvature's mixed differences into rows s -+ 1 (terms_gather);
+// dP of row s - 2 is then complete and written once, its g, P and aux from
+// shared memory. P comes through a ring of rows (s - 2 .. s + 3, mirrored so
+// that five rows lie at one stride), g (s - 2 .. s + 1) and aux (s - 2, s -
+// 1) through rings of their own, by cp.async one row ahead. Adjoints per
+// output NT/(NT - 4) x (chunk + 4)/chunk, 1.10 at 4096^2 (a halo of 4 units
+// a row as a second pass of warp 0 measured 13% slower: PERF.md section 6,
+// the 2D marches' entry). Shared memory 16.2 KB in f32 with both kinds'
+// pieces. Four blocks an SM (128 registers) measured 4-5% faster than eight
+// (64) in f32; with a program coefficient eight, though it spills, 11-13%
+// faster than four (PERF.md section 6, the 2D marches' entry). An advection
+// term's share is K3's 2D entry in accumulate mode, as in 3D.
+template <typename T>
+struct TermsMarch2D {
+  static constexpr int NT = 128, OWN = NT - 4, MIN_BLOCKS = 4;
+  static constexpr int MIN_BLOCKS_PROG = sizeof(T) == 4 ? 8 : 4;  // with a program coefficient
+  static constexpr int W = NT, RP = W;        // a row's outputs: the threads' columns
+  static constexpr int WC = NT - 2, RC = WC;  // curvature's: the owned and a halo of 1
+  static constexpr int TW = NT + 4;           // a row of P: reach 2 past the threads'
+  // P's rows s - 2 .. s + 3 (mirrored as in 3D); g's s - 2 .. s + 1 at the
+  // threads' columns; aux's s - 2, s - 1
+  static constexpr int P_SLOTS = 6, P_RING = P_SLOTS + 4, G_SLOTS = 4, A_SLOTS = 2;
+  static constexpr int GOD_F = TermsTile<T>::GOD_F, CURV_F = TermsTile<T>::CURV_F;
+};
+
 template <typename T, bool kProgram>
-__global__ void __launch_bounds__(TermsTile<T>::NT, TermsTile<T>::MIN_BLOCKS)
+__global__ void __launch_bounds__(TermsMarch2D<T>::NT, kProgram
+                                                             ? TermsMarch2D<T>::MIN_BLOCKS_PROG
+                                                             : TermsMarch2D<T>::MIN_BLOCKS)
     stage_bwd_terms_2d_kernel(const __grid_constant__ TermsBwdArgs<T> a) {
-  using TL = TermsTile<T>;
-  constexpr int CX = TL::CX, NT = TL::NT, W = TL::W, RP = TL::RP, WC = TL::WC, RC = TL::RC;
-  constexpr int TW = TL::TW, TP = TL::TP;
+  using TL = TermsMarch2D<T>;
+  constexpr int NT = TL::NT, RP = TL::RP, TW = TL::TW, H = LSM_GHOST;
   extern __shared__ __align__(16) unsigned char lsm_dyn_smem[];
   __shared__ double red[4][NT / 32];
-  const Geom& G = a.geo;
+  const Geom& G = a.geo;  // axis 1: the 2D rows (S[1], n[1]); axis 2: the columns
   const bool god = a.has_godunov, curv = a.has_curvature;
-  // shared memory: the units' table, the plane of P, g at the outputs'
-  // positions, the Godunov and curvature pieces (field-major), the minmod
-  // branches
-  int4* const units = reinterpret_cast<int4*>(lsm_dyn_smem);
-  T* const tile = reinterpret_cast<T*>(units + RP);
-  T* const gs = tile + TP;
-  T* const gb = gs + RP;
-  T* const cb = gb + (god ? TL::GOD_F * RP : 0);
-  uint16_t* const sb_ = reinterpret_cast<uint16_t*>(cb + (curv ? TL::CURV_F * RC : 0));
-  const int t = threadIdx.x;
-  const int j0 = blockIdx.y * TL::CY, k0 = blockIdx.x * CX;
-  const int j = j0 + t / CX, k = k0 + t % CX;  // this thread's node
-  const int own_pos = (t / CX + 2) * W + t % CX + 2, own_c = (t / CX + 1) * WC + t % CX + 1;
-  const int own_p = (t / CX + 4) * TW + t % CX + 4;
+  // shared memory: the ring of P's rows, the ring of g's, the ring of aux's,
+  // the Godunov and curvature pieces of a row (field-major), the Godunov
+  // minmod branches
+  T* const ring = reinterpret_cast<T*>(lsm_dyn_smem);
+  T* const gring = ring + TL::P_RING * TW;
+  T* const aring = gring + TL::G_SLOTS * RP;
+  T* const gp_ = aring + TL::A_SLOTS * NT;
+  T* const cp_ = gp_ + (god ? TL::GOD_F * RP : 0);
+  uint16_t* const sel = reinterpret_cast<uint16_t*>(cp_ + (curv ? TL::CURV_F * TL::RC : 0));
+  auto pslot = [](int row) { return (row + 2 * TL::P_SLOTS) % TL::P_SLOTS * TW; };
+  auto gslot = [](int row) { return (row + 2 * TL::G_SLOTS) % TL::G_SLOTS * RP; };
+  auto aslot = [](int row) { return (row + 2 * TL::A_SLOTS) % TL::A_SLOTS * NT; };
+  const int t = threadIdx.x, k0 = blockIdx.x * TL::OWN, k = k0 - 2 + t;  // this thread's column
+  const bool own = t >= 2 && t < NT - 2 && k < G.S[2];  // a column this block owns
+  const bool kin = inside(k, G.n[2]);
+  const int i0 = blockIdx.y * a.chunk, i1 = min(i0 + a.chunk, G.S[1]);
   const TermConsts<T>& kc = a.k;
-  for (int e = t; e < RP; e += NT) units[e] = terms_unit<TL>(e, j0, k0, G);
-  for (int e = t; e < TP; e += NT) {
-    const int jj = j0 - 4 + e / TW, kk = k0 - 4 + e % TW;
-    const bool in = jj >= 0 && jj < G.S[1] && kk >= 0 && kk < G.S[2];
-    copy_async(tile + e, a.P + (in ? pidx(G, 0, jj, kk) : 0), in);
-  }
-  for (int e = t; e < RP; e += NT) {
-    const int Yj = j0 + e / W - 2, Yk = k0 + e % W - 2;
-    const bool in = inside(Yj, G.n[1]) && inside(Yk, G.n[2]);
-    copy_async(gs + e, a.g + (in ? pidx(G, 0, Yj, Yk) : 0), in);
-  }
-  async_commit();
-  async_wait();
-  __syncthreads();  // the table, P and g are in
-  double sg = 0.0, sb = 0.0, sa = 0.0, st_ = 0.0;
-  T acc = T(0);  // dP of this thread's node
-  // phase 1: the pieces of the outputs over the column and a halo of 2
-  // (Godunov) or 1 (curvature); a thread's own output first
-  for (int e = t; e < RP; e += NT) {
-    const int4 un = units[e];
-    // the embedding's node: axis-0 index 0 (padded LSM_GHOST)
-    const int Y[3] = {LSM_GHOST, j0 + (un.y >> 16 & 0xff) - 2, k0 + (un.y >> 24) - 2};
-    const bool own = e < NT, in = un.z >= 0;
-    const Stencil<T> S{tile + (un.y & 0xffff), 0, TW};
-    terms_pieces<T, kProgram, 1>(a, S, un.z, Y, gs[un.x & 0xffff], un, in, own, own && in, gb,
-                                 cb, sb_, &acc, sg, st_);
-  }
-  __syncthreads();  // the pieces are in
-  // phase 2: what the outputs around this thread's node send to it
-  if (j < G.S[1] && k < G.S[2]) {
-    terms_gather<T, 1>(kc, god, curv, gb, sb_, cb, own_pos, own_c, &acc);
-    const int64_t x = pidx(G, 0, j, k);
-    T v = acc;
-    if (inside(j, G.n[1]) && inside(k, G.n[2])) {
-      const T gv = a.g[x];
-      v = kc.beta * gv + v;
-      if (a.daux != nullptr) a.daux[x] = kc.alpha * gv;
-      sb += double(gv) * double(tile[own_p]);
-      if (a.aux != nullptr) sa += double(gv) * double(a.aux[x]);
+  // row `row` of P over the threads' columns and a reach of 2, asynchronously
+  auto load_row = [&](int row) {
+    T* const dst = ring + pslot(row);
+    const bool mirror = pslot(row) < (TL::P_RING - TL::P_SLOTS) * TW;
+    for (int e = t; e < TW; e += NT) {
+      const int kk = k0 - 4 + e;
+      const bool in = row >= 0 && row < G.S[1] && kk >= 0 && kk < G.S[2];
+      const T* const src = a.P + (in ? pidx(G, 0, row, kk) : 0);
+      copy_async(dst + e, src, in);
+      if (mirror) copy_async(dst + TL::P_SLOTS * TW + e, src, in);
     }
-    a.dP[x] = v;
+  };
+  // row `row` of g (0 off the interior) and of aux at the threads' columns
+  auto load_g = [&](int row) {
+    const bool in = inside(row, G.n[1]) && kin;
+    copy_async(gring + gslot(row) + t, a.g + (in ? pidx(G, 0, row, k) : 0), in);
+  };
+  auto load_aux = [&](int row) {
+    const bool in = inside(row, G.n[1]) && kin;
+    copy_async(aring + aslot(row) + t, a.aux + (in ? pidx(G, 0, row, k) : 0), in);
+  };
+  double sg = 0.0, sb = 0.0, sa = 0.0, st_ = 0.0;
+  // dP of this thread's node on rows s - 2 .. s + 2, gathered as the pieces
+  // of row s come
+  T acc[5] = {};
+  const int s0 = i0 - 2, s1 = i1 + 2;  // the rows whose pieces this chunk needs
+  for (int row = s0 - 2; row <= s0 + 2; ++row) load_row(row);
+  load_g(s0);
+  async_commit();
+  // this thread's unit: its position in the row's pieces (curvature's + 1,
+  // or 0 off its halo of 1); the gather reads every position's Godunov pieces
+  const int4 un = make_int4(t | ((t >= 1 && t < NT - 1 ? t : 0) << 16), 0, 0, 1);
+  for (int s = s0; s < s1; ++s) {
+    async_wait();
+    __syncthreads();  // P's rows s - 2 .. s + 2, g's row s (and aux's s - 2) are in
+    load_row(s + 3);
+    load_g(s + 1);
+    if (a.aux != nullptr) load_aux(s - 1);
+    async_commit();
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] = acc[q + 1];
+    acc[4] = T(0);
+    const bool in = inside(s, G.n[1]) && kin;
+    const T* const rows = ring + pslot(s - 2);  // rows s - 2 .. s + 2, TW apart
+    // phase 1: the pieces of the output (s, k)
+    const int Y[3] = {H, s, k};  // the embedding's node: axis-0 index 0
+    const Stencil<T> S{rows + 2 * TW + t + 2, 0, TW};
+    terms_pieces<T, kProgram, 1, TL>(a, S, int64_t(s - H) * G.n[2] + (k - H), Y,
+                                     gring[gslot(s) + t], un, in, own,
+                                     own && in && s >= i0 && s < i1, gp_, cp_, sel, acc + 2, sg,
+                                     st_);
+    __syncthreads();  // row s's pieces are in
+    // phase 2: what the outputs around this thread's node in row s send to
+    // it (on row s) and, across the edges, to its nodes on rows s -+ 1
+    if (own) {
+      terms_gather<T, 1, TL>(kc, god, curv, gp_, sel, cp_, t, t - 1, acc + 2);
+      // dP of row s - 2 is complete
+      const int i = s - 2;
+      if (i >= i0 && i < i1) {
+        const int64_t x = pidx(G, 0, i, k);
+        T v = acc[0];
+        if (inside(i, G.n[1]) && kin) {  // g, P and aux from the rings
+          const T gv = gring[gslot(i) + t];
+          v = kc.beta * gv + v;
+          if (a.daux != nullptr) a.daux[x] = kc.alpha * gv;
+          sb += double(gv) * double(ring[pslot(i) + t + 2]);
+          if (a.aux != nullptr) sa += double(gv) * double(aring[aslot(i) + t]);
+        }
+        a.dP[x] = v;
+      }
+    }
   }
+  async_wait();
+  __syncthreads();
   sg = block_sum<NT>(sg, red[0]);
   sb = block_sum<NT>(sb, red[1]);
   sa = block_sum<NT>(sa, red[2]);
@@ -1568,10 +2001,16 @@ __global__ void __launch_bounds__(TermsTile<T>::NT, TermsTile<T>::MIN_BLOCKS)
 
 template <typename T>
 inline size_t terms_smem_2d(bool god, bool curv) {
-  using TL = TermsTile<T>;
-  return TL::RP * 16 + (TL::TP + TL::RP) * sizeof(T) +
+  using TL = TermsMarch2D<T>;
+  return (TL::P_RING * TL::TW + TL::G_SLOTS * TL::RP + TL::A_SLOTS * TL::NT) * sizeof(T) +
          (god ? TL::RP * (TL::GOD_F * sizeof(T) + sizeof(uint16_t)) : 0) +
          (curv ? TL::RC * TL::CURV_F * sizeof(T) : 0);
+}
+
+inline dim3 terms_grid_2d(const Geom& g) {
+  return dim3(static_cast<unsigned>((g.S[2] + TermsMarch2D<float>::OWN - 1) /
+                                    TermsMarch2D<float>::OWN),
+              static_cast<unsigned>(chunks_of(g.S[1])));
 }
 
 // k2D: the 2D entry, (n0, n1, n2) = (1, the 2D field's n0, n1)
@@ -1591,7 +2030,7 @@ const void* P, const void* g, const void* aux, void* dP, void* daux,
   a.daux = static_cast<T*>(daux);
   a.part = static_cast<double*>(part);
   a.geo = k2D ? make_geom_2d(n1, n2) : make_geom(n0, n1, n2);
-  a.chunk = chunk_len(a.geo.S[0]);
+  a.chunk = chunk_len(a.geo.S[k2D ? 1 : 0]);  // the march's axis
   a.tab = *terms;
   a.k = TermConsts<T>::of(*terms);
   a.has_godunov = 0;
@@ -1606,7 +2045,7 @@ const void* P, const void* g, const void* aux, void* dP, void* daux,
   }
   a.has_godunov = a.k.n_god > 0;
   a.has_curvature = a.k.n_curv > 0;
-  const dim3 grid = terms_grid<T>(a.geo);
+  const dim3 grid = k2D ? terms_grid_2d(a.geo) : terms_grid<T>(a.geo);
   const auto kernel =
       k2D ? (program ? stage_bwd_terms_2d_kernel<T, true> : stage_bwd_terms_2d_kernel<T, false>)
           : (program ? stage_bwd_terms_kernel<T, true> : stage_bwd_terms_kernel<T, false>);
@@ -1615,7 +2054,7 @@ const void* P, const void* g, const void* aux, void* dP, void* daux,
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, TermsTile<T>::NT, smem, stream>>>(a);
+  kernel<<<grid, k2D ? TermsMarch2D<T>::NT : TermsTile<T>::NT, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_reduce<T>(a.part, nblocks(grid), true, dcoef, stream));
@@ -1712,54 +2151,21 @@ extern "C" int lsm_stage_bwd_terms_f64(const void* P, const void* g, const void*
 // -- the 2D entries: a 2D field's (n0+6, n1+6) layout -----------------------------------
 
 extern "C" int64_t lsm_stage_bwd_scratch_2d(int64_t n0, int64_t n1) {
-  return 4 * nblocks(adv_grid<double>(make_geom_2d(n0, n1)));
+  return 4 * nblocks(adv_grid_2d(n0, n1));
 }
 
 extern "C" int64_t lsm_stage_bwd_terms_scratch_2d(int64_t n0, int64_t n1) {
-  return 4 * nblocks(terms_grid<double>(make_geom_2d(n0, n1)));
+  return 4 * nblocks(terms_grid_2d(make_geom_2d(n0, n1)));
 }
-
-namespace {
-
-template <typename T>
-int launch_stage_bwd_2d(const void* P, const void* g, const void* u0, const void* u1,
-                        const void* aux, void* dP, void* du0, void* du1, void* daux, void* part,
-                        void* dcoef, int64_t n0, int64_t n1, double inv_h0, double inv_h1,
-                        double alpha, double beta, double gamma, int accumulate, void* stream) {
-  // the 2D axes 0 and 1 in the places of axes 1 and 2 (axis 0's never read)
-  const void* u[3] = {nullptr, u0, u1};
-  void* du[3] = {nullptr, du0, du1};
-  const double inv_h[3] = {0.0, inv_h0, inv_h1};
-  return launch_stage_bwd<T, false, false>(P, g, u, aux, dP, du, daux, part, dcoef, 1, n0, n1,
-                                           inv_h, alpha, beta, gamma, accumulate, nullptr, 0,
-                                           stream);
-}
-
-// K3'' 2D: the embedding's table (its spacing and coordinates, the program
-// over (1, n0, n1)), entry 0 the velocity program
-template <typename T>
-int launch_stage_bwd_prog_2d(const void* P, const void* g, const void* aux, void* dP, void* daux,
-                             void* part, void* dcoef, int64_t n0, int64_t n1,
-                             const LsmStageTerms* terms, int accumulate, int needs_dt,
-                             void* stream) {
-  if (terms->n != 1 || terms->coef[0] != LSM_COEF_PROGRAM)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const void* u[3] = {nullptr, nullptr, nullptr};
-  void* du[3] = {nullptr, nullptr, nullptr};
-  return launch_stage_bwd<T, true, false>(P, g, u, aux, dP, du, daux, part, dcoef, 1, n0, n1,
-                                          terms->inv_h, terms->alpha, terms->beta, terms->gamma,
-                                          accumulate, terms, needs_dt, stream);
-}
-
-}  // namespace
 
 extern "C" int lsm_stage_bwd_2d_f32(const void* P, const void* g, const void* u0, const void* u1,
                                     const void* aux, void* dP, void* du0, void* du1, void* daux,
                                     void* part, void* dcoef, int64_t n0, int64_t n1,
                                     double inv_h0, double inv_h1, double alpha, double beta,
                                     double gamma, int accumulate, void* stream) {
-  return launch_stage_bwd_2d<float>(P, g, u0, u1, aux, dP, du0, du1, daux, part, dcoef, n0, n1,
-                                    inv_h0, inv_h1, alpha, beta, gamma, accumulate, stream);
+  return launch_stage_bwd_2d<float, false>(P, g, u0, u1, aux, dP, du0, du1, daux, part, dcoef,
+                                           n0, n1, inv_h0, inv_h1, alpha, beta, gamma,
+                                           accumulate, nullptr, 0, nullptr, stream);
 }
 
 extern "C" int lsm_stage_bwd_2d_f64(const void* P, const void* g, const void* u0, const void* u1,
@@ -1767,24 +2173,46 @@ extern "C" int lsm_stage_bwd_2d_f64(const void* P, const void* g, const void* u0
                                     void* part, void* dcoef, int64_t n0, int64_t n1,
                                     double inv_h0, double inv_h1, double alpha, double beta,
                                     double gamma, int accumulate, void* stream) {
-  return launch_stage_bwd_2d<double>(P, g, u0, u1, aux, dP, du0, du1, daux, part, dcoef, n0, n1,
-                                     inv_h0, inv_h1, alpha, beta, gamma, accumulate, stream);
+  return launch_stage_bwd_2d<double, false>(P, g, u0, u1, aux, dP, du0, du1, daux, part, dcoef,
+                                            n0, n1, inv_h0, inv_h1, alpha, beta, gamma,
+                                            accumulate, nullptr, 0, nullptr, stream);
 }
+
+namespace {
+
+// K3'' 2D: the embedding's table (its spacing and coordinates, the program
+// over (1, n0, n1)), entry 0 the velocity program; axes1, axes2 the
+// embedding's axes its components 1 and 2 read (Program.axes)
+template <typename T>
+int launch_stage_bwd_prog_2d(const void* P, const void* g, const void* aux, void* dP, void* daux,
+                             void* part, void* dcoef, int64_t n0, int64_t n1,
+                             const LsmStageTerms* terms, int accumulate, int needs_dt, int axes1,
+                             int axes2, void* stream) {
+  if (terms->n != 1 || terms->coef[0] != LSM_COEF_PROGRAM || ((axes1 | axes2) & ~7))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int axes[2] = {axes1, axes2};
+  return launch_stage_bwd_2d<T, true>(P, g, nullptr, nullptr, aux, dP, nullptr, nullptr, daux,
+                                      part, dcoef, n0, n1, terms->inv_h[1], terms->inv_h[2],
+                                      terms->alpha, terms->beta, terms->gamma, accumulate, terms,
+                                      needs_dt, axes, stream);
+}
+
+}  // namespace
 
 extern "C" int lsm_stage_bwd_prog_2d_f32(const void* P, const void* g, const void* aux, void* dP,
                                          void* daux, void* part, void* dcoef, int64_t n0,
                                          int64_t n1, const LsmStageTerms* terms, int accumulate,
-                                         int needs_dt, void* stream) {
+                                         int needs_dt, int axes1, int axes2, void* stream) {
   return launch_stage_bwd_prog_2d<float>(P, g, aux, dP, daux, part, dcoef, n0, n1, terms,
-                                         accumulate, needs_dt, stream);
+                                         accumulate, needs_dt, axes1, axes2, stream);
 }
 
 extern "C" int lsm_stage_bwd_prog_2d_f64(const void* P, const void* g, const void* aux, void* dP,
                                          void* daux, void* part, void* dcoef, int64_t n0,
                                          int64_t n1, const LsmStageTerms* terms, int accumulate,
-                                         int needs_dt, void* stream) {
+                                         int needs_dt, int axes1, int axes2, void* stream) {
   return launch_stage_bwd_prog_2d<double>(P, g, aux, dP, daux, part, dcoef, n0, n1, terms,
-                                          accumulate, needs_dt, stream);
+                                          accumulate, needs_dt, axes1, axes2, stream);
 }
 
 extern "C" int lsm_stage_bwd_terms_2d_f32(const void* P, const void* g, const void* aux, void* dP,

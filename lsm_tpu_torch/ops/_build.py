@@ -155,7 +155,7 @@ class Library:
         prog_2d_args = [vp] * 3 + [i64] * 2 + [vp] + [ci] * 2 + [vp]
         axis_args = [vp] + [i64] * 3 + [ci] + [vp] * 3 + [vp]
         bwd_2d_args = [vp] * 11 + [i64] * 2 + [f64] * 5 + [ci, vp]
-        bwd_prog_2d_args = [vp] * 7 + [i64] * 2 + [vp, ci, ci, vp]
+        bwd_prog_2d_args = [vp] * 7 + [i64] * 2 + [vp] + [ci] * 4 + [vp]
         bwd_terms_2d_args = [vp] * 7 + [i64] * 2 + [vp, vp, ci, vp]
         fold_2d_args = [vp, vp] + [i64] * 2 + [vp] * 3 + [vp]
         zero_2d_args = [vp] + [i64] * 2 + [vp]

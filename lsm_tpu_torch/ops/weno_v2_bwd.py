@@ -84,10 +84,6 @@ __all__ = [
 G = v2.GHOST
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _entry(lib, name: str, shape, dtype):
     """The library's entry ``name`` for a 3D or 2D ``shape`` and ``dtype``:
     ``lib.<name>_f32``, or ``lib.<name>_2d_f64`` and so on."""
@@ -392,24 +388,27 @@ def stage_backward(P: torch.Tensor, u, coeffs,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(P.device):
+    ctx, stream = v2._on_card(P)
+    with ctx:
         if prog:
             need_dt = bool(need_dt and u.depends_on_t)
             term = ((v2.TermSpec("advection", "program", u), ()),)
             if nd == 3:
                 tab = v2.stage_table(term, spacing, coeffs, where, shape, P, need_dt)
-            else:  # the embedding's table, as K1″'s 2D entry reads it
+                axes = ()
+            else:  # the embedding's table and the axes each component reads, as K1″ 2D
                 tab = v2._table_2d(term, coeffs, spacing, shape, where or v2.Where(), P, need_dt)
+                axes = u.axes[1:]
             fn = _entry(lib, "stage_bwd_prog", shape, P.dtype)
             code = fn(P.data_ptr(), g.data_ptr(), ptr(aux), dP.data_ptr(), ptr(daux),
                       part.data_ptr(), dcoef.data_ptr(), *shape, ctypes.addressof(tab),
-                      int(out is not None), int(need_dt), _stream())
+                      int(out is not None), int(need_dt), *axes, stream)
         else:
-            code = _entry(lib, "stage_bwd", shape, P.dtype)(P.data_ptr(), g.data_ptr(), *(c.data_ptr() for c in u), ptr(aux),
-                      dP.data_ptr(), *(ptr(d) for d in (du or (None,) * nd)), ptr(daux),
-                      part.data_ptr(), dcoef.data_ptr(), *shape,
-                      *(1.0 / float(h) for h in spacing), alpha, beta, gamma,
-                      int(out is not None), _stream())
+            code = _entry(lib, "stage_bwd", shape, P.dtype)(
+                P.data_ptr(), g.data_ptr(), *(c.data_ptr() for c in u), ptr(aux), dP.data_ptr(),
+                *(ptr(d) for d in (du or (None,) * nd)), ptr(daux), part.data_ptr(),
+                dcoef.data_ptr(), *shape, *(1.0 / float(h) for h in spacing), alpha, beta, gamma,
+                int(out is not None), stream)
     v2._raise_on(code, lib, "stage_backward kernel")
     bump(stage_backward, launches=1, program_launches=prog, launches_2d=nd == 2)
     if daux is not None:
@@ -823,11 +822,12 @@ def stage_backward_terms(P: torch.Tensor, terms, coeffs, aux: Optional[torch.Ten
         tab = v2.stage_table(terms, spacing, coeffs, where, shape, P, need_dt)
     else:
         tab = v2._table_2d(terms, coeffs, spacing, shape, where or v2.Where(), P, need_dt)
-    with torch.cuda.device(P.device):
+    ctx, stream = v2._on_card(P)
+    with ctx:
         code = fn(P.data_ptr(), g.data_ptr(), None if aux is None else aux.data_ptr(),
                   dP.data_ptr(), None if daux is None else daux.data_ptr(), part.data_ptr(),
                   dcoef.data_ptr(), *shape, ctypes.addressof(tab), ctypes.addressof(outs),
-                  int(bool(need_dt)), _stream())
+                  int(bool(need_dt)), stream)
     v2._raise_on(code, lib, "stage_backward_terms kernel")
     bump(stage_backward_terms, launches=1, program_launches=has_prog, launches_2d=nd == 2)
     dcoef = dcoef if has_prog else dcoef[:3]
