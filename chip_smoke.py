@@ -521,6 +521,51 @@ def phase_k2(dev, res):
     res["k2_err"] = worst
 
 
+#: K7's shapes: the band kernels' parity grid, a ragged one with every axis
+#: of at least 8 nodes (Extrapolation(7)), and one whose work under each gate
+#: exceeds the kernel's grid (4 blocks of 256 threads an SM: 528 blocks on a
+#: 132-SM H100), so that its grid-stride loop takes a second pass under
+#: (1, 1), (1, 0) and (0, 1); 2D likewise (its (0, 1) work is 6 (n0 + 6)
+#: threads, its (1, 0) work 6 n1)
+K7_SHAPES = (BAND_SMALL, (9, 13, 70), (150, 160, 521))
+K7_2D_SHAPES = (BAND_2D_SMALL, (13, 131), (22531, 22537))
+K7_FLAGS = ((1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def shell_cases_2d(shape):
+    """The 2D BC cases, and on a shape whose axes both hold 8 nodes
+    ``Extrapolation(7)`` alone and mixed per side."""
+    cases = bc_cases_2d()
+    if min(shape) >= 8:
+        cases["extrap7"] = lsm.normalize_bcs(lsm.Extrapolation(7), 2)
+        cases["mixed7"] = lsm.normalize_bcs([(lsm.Extrapolation(7), lsm.Symmetry()),
+                                             lsm.Periodic()], 2)
+    return cases
+
+
+def k7_compare(phase, shape, cases, dtype, dev, gen, vals=None):
+    """K7 (one launch, 3D or 2D) on ``vals`` (random values where None)
+    packed with scribbled shells under each BC case and each of the four
+    gates: equal to its plain version bit for bit (under (0, 1) the last
+    axis's ghosts of the earlier axes' ghost rows read the scribbled values),
+    and (0, 0) leaves the buffer's bits."""
+    for name, bcs in cases.items():
+        Q = scribbled(torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                      if vals is None else vals, bcs, gen)
+        for flags in K7_FLAGS:
+            f = torch.tensor(flags, dtype=torch.int32, device=dev)
+            got = bd.refresh_band_ghosts_fast(Q.clone(), bcs, shape, f)
+            ref = bd.refresh_band_ghosts_plain(Q.clone(), bcs, shape, f)
+            torch.cuda.synchronize()
+            kept = flags != (0, 0) or same_bits(got, Q)
+            if not (same_bits(got, ref) and kept):
+                raise AssertionError(f"K7 differs from its plain version at {shape} ({name}, "
+                                     f"{str(dtype)[6:]}, flags {flags})")
+    log(phase, f"K7 {len(shape)}D {str(dtype)[6:]} shape={shape} {' '.join(cases)}: flags "
+               f"(1,1) (1,0) (0,1) (0,0) kernel == plain bit for bit, (0,0) leaves the buffer "
+               f"as it was")
+
+
 # K1's and K1''s shapes where the march treats a tile apart: the 2D embedding
 # (n0 = 1, axis 0 compiled out; its axis-0 ghosts copy the plane, as
 # Extrapolation(0) refreshes them), axis 0 not a multiple of the march's
@@ -1305,10 +1350,10 @@ def phase_k6k7k8(dev, res):
     (rows of odd length: the element copies). K6: within K1's bound on the
     compute band, bit for bit elsewhere (the source's value on the rest of a
     dispatched tile, the target's previous value on every other tile and
-    every shell), streamed and callable, FE and with aux. K7: bit for bit on
-    K2's five BC cases with flags (1,1), (1,0), (0,0). K8: the mask, the
-    flags, the rebuilt activity, dispatch list and count, exactly; the mask
-    also against the full re-tube."""
+    every shell), streamed and callable, FE and with aux. K7: bit for bit at
+    K7_SHAPES under their BC cases with all four flags (:func:`k7_compare`).
+    K8: the mask, the flags, the rebuilt activity, dispatch list and count,
+    exactly; the mask also against the full re-tube."""
     gen = torch.Generator(device=dev).manual_seed(13)
     halo = lsm.NarrowBandField.COMPUTE_HALO
     worst6 = 0.0
@@ -1363,22 +1408,9 @@ def phase_k6k7k8(dev, res):
                                                  f"aux={aux is not None}, tiles {tiles})")
                         if dtype == torch.float32:
                             worst6 = max(worst6, err)
-            # K7 on K2's five BC cases
-            for name, bcs in (bc_cases() if shape_n == BAND_SMALL else {}).items():
-                Q = v2.pack_padded(torch.randn(shape, generator=gen, device=dev, dtype=dtype), bcs)
-                shell = ~inside(shape, torch.ones(shape, dtype=torch.bool, device=dev), dev)
-                Q[shell] = torch.randn(int(shell.sum()), generator=gen, device=dev, dtype=dtype)
-                for flags in ((1, 1), (1, 0), (0, 0)):
-                    f = torch.tensor(flags, dtype=torch.int32, device=dev)
-                    got = bd.refresh_band_ghosts_fast(Q.clone(), bcs, shape, f)
-                    ref = bd.refresh_band_ghosts_plain(Q.clone(), bcs, shape, f)
-                    torch.cuda.synchronize()
-                    same = torch.equal(got, ref)
-                    kept = flags != (0, 0) or torch.equal(got, Q)
-                    if not (same and kept):
-                        raise AssertionError(f"K7 differs from its plain version ({name}, {flags})")
-                log("k6k7k8", f"K7 {str(dtype)[6:]} {name:9s} flags (1,1) (1,0) (0,0): "
-                              f"kernel == plain bit for bit, (0,0) leaves the buffer as it was")
+            if shape_n == BAND_SMALL:
+                for k7_shape in K7_SHAPES:
+                    k7_compare("k6k7k8", k7_shape, shell_cases(k7_shape), dtype, dev, gen)
             # K8 after the interface moved by about a cell
             moved = lsm.sample(shapes.sphere((0.1 + 1.5 * sp[0], 0.5, 0.9), 0.35), grid,
                                lsm.Extrapolation(2), dtype=dtype, device=dev)
@@ -1633,8 +1665,10 @@ def phase_band(dev, res):
 
 
 def phase_band_timing(dev, res):
-    """CUDA-event medians: K6, K7 (flags on and off) and K8 alone at 512^3
-    on the band main path's state, and their plain versions (and K6's and
+    """K7 on the band main path's field at 512^3 (its grid strides there)
+    under the four flags and the BC cases, bit for bit against its plain
+    version (:func:`k7_compare`). CUDA-event medians: K6, K7 (flags on and
+    off) and K8 alone at 512^3 on the band main path's state, and their plain versions (and K6's and
     K8's time a call issued back to back, the host's issue hidden); the band FE
     and RK3 stepper step (per layer) through the kernels and the plain
     versions; the end-to-end ``integrate`` ms per step on the band at 512^3
@@ -1655,6 +1689,10 @@ def phase_band_timing(dev, res):
                                               shape, fe.tiles))
     t["K6_plain"] = cuda_time(lambda: bd.band_stage_plain(
         P, out, state.ids, state.band, u, coeffs, None, sp, shape, fe.tiles), warmup=1, reps=5)
+    # K7 on the main path's field at its shape, where its grid strides over the
+    # work under every gate: bit for bit against its plain version
+    k7_compare("band_timing", shape, {"band": nb.bcs, **shell_cases(shape)}, nb.dtype, dev,
+               torch.Generator(device=dev).manual_seed(18), vals=nb.values)
     on = torch.ones(2, dtype=torch.int32, device=dev)
     off = torch.zeros(2, dtype=torch.int32, device=dev)
     t["K7"] = cuda_time(lambda: bd.refresh_band_ghosts_fast(P, nb.bcs, shape, on))
@@ -2686,13 +2724,76 @@ def k10_march_shapes(dev, gen, res):
     res["k10_err"] = max(res.get("k10_err", 0.0), worst)
 
 
+#: K11's march: axis 0 under one step of 8 rows and past one chunk of 64,
+#: axis 1 a multiple of neither 4 (16-byte copies) nor 128 (a block's columns)
+K11_MARCH_SHAPES = ((5, 131), (67, 37), (70, 9), (3, 258), (130, 200))
+
+
+def k11_against_k1_2d(label, P, u, aux, sp, shape, tol, res):
+    """K11 on ``(P, u, aux)`` under the bare Hamiltonian, a stage and a stage
+    with aux, aligned and with ``u[1]`` and aux one element off their
+    alignment (element copies): within ``tol`` times max(|ref|, 1) of its
+    plain version, and equal bit for bit to the interior of K1 2D's streamed
+    entry on the same P, u and aux (aux on K1's padded layout). Returns the
+    largest relative error; f32 errors go to ``res["k11_err"]``."""
+    A = torch.zeros_like(P)
+    v2.unpack_padded(A, shape).copy_(aux)
+    rel = 0.0
+    for coeffs, a in ((None, None), ((0.0, 1.0, 1e-3), None), ((0.75, 0.25, 2.5e-4), aux)):
+        bits = []
+        for uu, aa in ((u, a), ((u[0], misaligned(u[1])), None if a is None else misaligned(a))):
+            got = wg.weno_stage_2d(P, uu, sp, shape, coeffs, aa)
+            ref = wg._stage_plain(P, uu, aa, coeffs or wg._BARE, sp, shape)
+            k1 = v2.unpack_padded(v2.fused_stage(P, tuple(uu), coeffs or wg._BARE,
+                                                 None if a is None else A, sp, shape), shape)
+            torch.cuda.synchronize()
+            err, scale = general_compare(f"K11 {label} {coeffs}", got, ref, tol)
+            rel = max(rel, err / scale)
+            if P.dtype == torch.float32:
+                res["k11_err"] = max(res.get("k11_err", 0.0), err)
+            if not same_bits(got, k1):
+                raise AssertionError(f"K11 {label} {coeffs}: differs from K1 2D's interior")
+            bits.append(got)
+        if not same_bits(*bits):
+            raise AssertionError(f"K11 {label} {coeffs}: misaligned inputs change the bits")
+    return rel
+
+
+def k11_march(dev, gen, res):
+    """K11 (K1's 2D march, aux and output interior-shaped) at K11_MARCH_SHAPES
+    on random buffers, f32 and f64, and at N_2D^2 on D2s's stage inputs
+    (the stepper's packed state and streamed velocity; aux its interior),
+    f32: :func:`k11_against_k1_2d`."""
+    for shape in K11_MARCH_SHAPES:
+        sp = tuple(1.0 / (n + 1) for n in shape)
+        for dtype, tol in ((torch.float32, K1_TOL), (torch.float64, 1e-12)):
+            P = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
+            u = [torch.randn(shape, generator=gen, device=dev, dtype=dtype) for _ in range(2)]
+            u[0].view(-1)[::7] = 0.0
+            aux = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+            rel = k11_against_k1_2d(f"{shape} {dtype}", P, u, aux, sp, shape, tol, res)
+            log("k10k11", f"K11 {str(dtype):13s} march shape={shape} H / stage / stage+aux, "
+                          f"aligned and u1, aux off alignment: max|kernel-plain|/scale="
+                          f"{rel:.3e} (tol {tol:g}); equal bits to K1 2D's interior: True")
+    terms, phi, integ = config("D2s", N_2D, dev)
+    st = FusedStepper(terms, phi, integ)
+    P = st.pack(phi.values)
+    u = list(st.stage_terms(0.0)[0][1])
+    rel = k11_against_k1_2d(f"D2s {N_2D}^2", P, u, v2.unpack_padded(P, st.shape).contiguous(),
+                            st.spacing, st.shape, K1_TOL, res)
+    log("k10k11", f"K11 f32 D2s {N_2D}^2 H / stage / stage+aux, aligned and u1, aux off "
+                  f"alignment: max|kernel-plain|/scale={rel:.3e} (tol {K1_TOL:g}); equal bits "
+                  f"to K1 2D's streamed entry's interior: True")
+
+
 def phase_k10k11(dev, res):
     """K10 (3D) and K11 (2D) against their plain versions at 40x72x136 and
     67x131, five BC cases, f32 and f64: the bare Hamiltonian and a stage
     with and without aux, on a random field with a random velocity that is
     exactly 0 on every 7th node (the upwind tie); a flat field gives 0.
     K10 also at the march's shapes against K1's march
-    (:func:`k10_march_shapes`)."""
+    (:func:`k10_march_shapes`), K11 at its march's shapes and on D2s's
+    inputs against K1 2D's (:func:`k11_march`)."""
     gen = torch.Generator(device=dev).manual_seed(10)
     worst = {"K10": 0.0, "K11": 0.0}
     for shape in ((40, 72, 136), (67, 131)):
@@ -2719,6 +2820,8 @@ def phase_k10k11(dev, res):
                           f"stage+aux: max|kernel-plain|/scale={rel:.3e} (tol {tol:g})")
         if key == "K10":
             k10_march_shapes(dev, gen, res)
+        else:
+            k11_march(dev, gen, res)
         flat = torch.ones(tuple(n + 6 for n in shape), device=dev)
         uf = [torch.full(shape, v, device=dev) for v in (1.0, -1.0, 0.0)[:len(shape)]]
         hf = wg.weno_hamiltonian(flat, uf, sp, shape)
@@ -2729,7 +2832,7 @@ def phase_k10k11(dev, res):
         if not (bool(torch.isfinite(hf).all()) and mx < 1e-6):
             raise AssertionError(f"{key} on a flat field: {mx}")
     res["k10_err"] = max(res.get("k10_err", 0.0), worst["K10"])
-    res["k11_err"] = worst["K11"]
+    res["k11_err"] = max(res.get("k11_err", 0.0), worst["K11"])
 
 
 #: K2's 2D entry's shapes: ragged, the smallest axes Periodic takes, D2's grid
@@ -3848,7 +3951,8 @@ def phase_general_timing(dev, res):
     """CUDA-event medians: K10 at 512^3 on H's stage inputs (with and
     without aux) and its plain version, K11 at N_2D^2 on D2's; ``integrate``
     ms per step of H with a light posthook, with ``fast="off"`` and on the
-    fused path, and of D1-D4 and D2h; peak memory of each."""
+    fused path, and of D1-D4 and D2h; peak memory of each; then K11's and
+    K7's device times from a process of its own (:func:`general_band_device`)."""
     t, mem, n = res["t"], {}, N_MAIN
     grid, phi, vel = zalesak(n, dev)
     sp, shape = grid.spacing, grid.shape
@@ -3894,6 +3998,24 @@ def phase_general_timing(dev, res):
         log("general_timing", f"{where} f32 {name:18s} median {t[name]:.4f} ms")
     log("general_timing", "peak memory: " + ", ".join(f"{k} {v:.2f} GiB" for k, v in mem.items()))
     res["mem"].update(mem)
+    general_band_device(res)
+
+
+def general_band_device(res):
+    """K11's and K7's device times (K11 at N_2D^2 on D2h's inputs, with and
+    without aux; K7 at 512^3 on the band cells' buffer and its 2D entry on
+    D2b's, flags on and off) and their times a call back to back, from
+    ``tools/general_band.py`` in a process of its own (``res["t"]``: each
+    ``<call>_device`` and ``<call>_b2b``)."""
+    torch.cuda.empty_cache()  # the cached blocks of the phases before, for the child
+    out = subprocess.run([sys.executable, "tools/general_band.py", "smoke"], capture_output=True,
+                         text=True, check=True, timeout=600).stdout
+    line = next(x for x in out.splitlines() if x.startswith("GENBAND smoke"))
+    vals = line.split()[2:]
+    tool = {k: float(v) for k, v in zip(vals[::2], vals[1::2])}
+    res["t"].update({k: v for k, v in tool.items() if k.endswith(("_device", "_b2b"))})
+    log("general_timing", "tools/general_band.py: " + " ".join(
+        f"{k} {v:.4f}" for k, v in tool.items()))
 
 
 def timing_2d(dev, res):
@@ -5050,8 +5172,9 @@ def phase_k6k7k8_2d(dev, res):
     that crosses the faces x = 0 and y = 1. K6 (each case of
     :func:`k6_2d_cases`, its terms tile-packed by the band stepper): within
     K1's bound on the dispatched compute band (curvature: off its eps gate),
-    bit for bit elsewhere. K7: bit for bit on five BC cases with flags (1,1),
-    (0,1), (0,0). K8: the mask, flags, activity, dispatch list and count
+    bit for bit elsewhere. K7: bit for bit at K7_2D_SHAPES under their BC
+    cases with all four flags (:func:`k7_compare`). K8: the mask, flags,
+    activity, dispatch list and count
     exactly, the mask also against the full re-tube."""
     gen = torch.Generator(device=dev).manual_seed(29)
     halo = lsm.NarrowBandField.COMPUTE_HALO
@@ -5099,20 +5222,8 @@ def phase_k6k7k8_2d(dev, res):
             if dtype == torch.float32:
                 key = {"streamed": "K6 2D", "3-term sum": "K6' 2D"}.get(name, "K6'' 2D")
                 worst[key] = max(worst[key], err)
-        for name, bcs in bc_cases_2d().items():
-            Q = v2.pack_padded(torch.randn(shape, generator=gen, device=dev, dtype=dtype), bcs)
-            shell = ~inside(shape, torch.ones(shape, dtype=torch.bool, device=dev), dev)
-            Q[shell] = torch.randn(int(shell.sum()), generator=gen, device=dev, dtype=dtype)
-            for flags in ((1, 1), (0, 1), (0, 0)):
-                f = torch.tensor(flags, dtype=torch.int32, device=dev)
-                got = bd.refresh_band_ghosts_fast(Q.clone(), bcs, shape, f)
-                ref = bd.refresh_band_ghosts_plain(Q.clone(), bcs, shape, f)
-                torch.cuda.synchronize()
-                kept = flags != (0, 0) or torch.equal(got, Q)
-                if not (torch.equal(got, ref) and kept):
-                    raise AssertionError(f"K7 2D differs from its plain version ({name}, {flags})")
-            log("k6k7k8_2d", f"K7 2D {str(dtype)[6:]} {name:9s} flags (1,1) (0,1) (0,0): "
-                             f"kernel == plain bit for bit, (0,0) leaves the buffer as it was")
+        for k7_shape in K7_2D_SHAPES:
+            k7_compare("k6k7k8_2d", k7_shape, shell_cases_2d(k7_shape), dtype, dev, gen)
         h = sp[0]
         grid = nb.grid
         moved = lsm.sample(shapes.circle((0.1 + 1.5 * h, 0.9 - 0.5 * h), 0.35), grid,
@@ -5280,8 +5391,10 @@ def phase_band2d_4096(dev, res):
     At N_BAND_2D_SMALL^2 f64: D2b's trajectory card against CPU (1e-12) and
     grad2b's gradients card (band stepper) against CPU (general path),
     1e-10*scale; in f32 card against CPU by relative L2, against the CPU's
-    own spread under a 1-ulp change of phi0. Then K6 2D (streamed and in-kernel
-    rotation), K7 2D (flags on and off) and K8 2D alone on D2b's state,
+    own spread under a 1-ulp change of phi0. K7 2D on D2b's field under the
+    four flags and the BC cases, bit for bit against its plain version. Then
+    K6 2D (streamed and in-kernel rotation), K7 2D (flags on and off) and K8
+    2D alone on D2b's state,
     beside their plain versions."""
     t, mem, busy, n = res["t"], {}, {}, N_2D
     cells = {}
@@ -5430,6 +5543,8 @@ def phase_band2d_4096(dev, res):
     t["K6pp_2d_plain"] = cuda_time(lambda: bd.band_stage_plain(
         P, out_buf, state.ids, state.band, prog, coeffs, None, sp, shape, st_.tiles, where),
         warmup=1, reps=5)
+    k7_compare("band2d_4096", shape, {"band": nb.bcs, **shell_cases_2d(shape)}, nb.dtype, dev,
+               torch.Generator(device=dev).manual_seed(18), vals=nb.values)
     on = torch.ones(2, dtype=torch.int32, device=dev)
     off = torch.zeros(2, dtype=torch.int32, device=dev)
     t["K7_2d"] = cuda_time(lambda: bd.refresh_band_ghosts_fast(P, nb.bcs, shape, on))
@@ -5623,7 +5738,8 @@ def forward_stage_ptxas(build_log):
 def band_ptxas(build_log):
     """``{label: "N registers, S spill stores, M static smem; D B dynamic"}``
     of the kernels of ``csrc/band_stage.cu`` (K6, K6', K6''; "2D": the 2D
-    entries) and ``csrc/band_retube.cu`` (K8's three launches), with the
+    entries), ``csrc/band_retube.cu`` (K8's three launches) and K7's (3D
+    with and without extrapolation's code, 2D), with the
     dynamic shared memory of the default tiles (16^3; 16 x 64 in 2D) and 3
     layers: K6's box of phi, K8's bit planes."""
     out = {}
@@ -5654,6 +5770,13 @@ def band_ptxas(build_log):
         two_d = args.split("EE", 1)[0].endswith("Lb1")
         out[f"K8 A {'f32' if args.startswith('f') else 'f64'}{' 2D' if two_d else ''}"] = (
             f"{info}; {planes[two_d]} B dynamic (the bit planes)")
+    for name, args, info in ptxas_summary(build_log, "refresh_ghosts.cu",
+                                          {"band_refresh_3d_kernel": "K7",
+                                           "band_refresh_2d_kernel": "K7 2D"}):
+        label = "K7" if name == "band_refresh_3d_kernel" else "K7 2D"
+        extrap = " (extrapolation)" if args[1:4] == "Lb1" else ""
+        out[f"{label}{extrap} {'f32' if args.startswith('f') else 'f64'}"] = (
+            f"{info}; no dynamic")
     return out
 
 
@@ -5856,14 +5979,21 @@ def kernel_records(res):
             rec.update(library_call="g.clone()",
                        library_ms_back_to_back=t["K4_clone_back_to_back"],
                        library_ms_device=t["K4_clone_device"])
-        if key == "K7":  # the 512^3 band stays off the faces: the main path's K7 is gated off
-            rec["ms_flags_off"] = t["K7_off"]
+        if key in ("K7", "K7 2D"):  # the 512^3 band and D2b stay off the faces: the main
+            # path's K7 is gated off, one launch reading the two flags (8 B); the profiler's
+            # device time and a call back to back (tools/general_band.py, its own process)
+            tk2 = {"K7": "K7", "K7 2D": "K7_2d"}[key]
+            rec.update(ms_flags_off=t[f"{tk2}_off"], bound_ms_flags_off=bound(8, 0)[0],
+                       ms_device=t[f"{tk2}_device"], ms_device_flags_off=t[f"{tk2}_off_device"],
+                       ms_back_to_back=t[f"{tk2}_b2b"],
+                       ms_back_to_back_flags_off=t[f"{tk2}_off_b2b"])
         if key == "K10":  # with aux (RK3 stages 2 and 3): one more interior read
             rec.update(ms_aux=t["K10_aux"],
                        bound_ms_aux=bound(f32 * (padded + 5 * cells), K1_OPS_PER_CELL * cells)[0])
-        if key == "K11":
+        if key == "K11":  # with aux; the profiler's device times (tools/general_band.py)
             rec.update(ms_aux=t["K11_aux"], bound_ms_aux=bound(
-                f32 * ((N_2D + 6) ** 2 + 4 * N_2D ** 2), K11_OPS_PER_CELL * N_2D ** 2)[0])
+                f32 * ((N_2D + 6) ** 2 + 4 * N_2D ** 2), K11_OPS_PER_CELL * N_2D ** 2)[0],
+                ms_device=t["K11_device"], ms_aux_device=t["K11_aux_device"])
         if key == "K3'":  # plain at its own grid; config C's dense normal motion (streamed
             # speed: its read and its cotangent's write); the parity against plain and oracle
             m = N_K3K_PLAIN
@@ -5887,6 +6017,9 @@ def kernel_records(res):
                                                      K3_OPS_PER_CELL * cells, vortex, cells,
                                                      dual=True)[0],
                        rel_err_512_sub_box=res["k3a_512_rel"])
+        if key in ("K7", "K7 2D"):
+            rec["ptxas"] = {k: v for k, v in res["band_ptxas"].items()
+                            if k.split(" (")[0].rsplit(" ", 1)[0] == key}
         if key in ("K6", "K6'", "K6''", "K8"):  # ms a call back to back (the host's
             # issue hidden); registers and shared memory (build log)
             rec["ms_back_to_back"] = t[{"K6": "K6_back_to_back", "K6'": "K6k_C_back_to_back",
@@ -5905,8 +6038,6 @@ def kernel_records(res):
                        launches_program=res["launches"]["K6'' 2D"],
                        launches_terms_D4b=res["launches"]["K6' 2D"], tiles=list(w2["tiles"]),
                        dispatched_tiles=w2["slots"])
-        if key == "K7 2D":
-            rec["ms_flags_off"] = t["K7_2d_off"]
         if key in ("K4 2D", "K5 2D", "K3 2D", "K3'' 2D", "K3' 2D"):  # the profiler's device
             # time (tools/grad_2d.py, a process of its own); the max_abs_err of a stage
             # adjoint is its f32 error against the f64 plain version at the main path's

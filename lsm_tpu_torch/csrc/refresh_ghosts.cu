@@ -29,7 +29,7 @@
 // index (coalesced rows); for axis 2 the six ghost slots of one row are. The
 // single-axis entry (lsm_refresh_axis_*) runs one of the three phases alone:
 // the sharded refresh takes it for the axes a mesh leaves unsharded (always
-// axis 2). K7 (below) runs the three gated.
+// axis 2); K7 runs the three gated on a buffer beyond 32-bit indices.
 //
 // Bound: it touches only the shells, O(N^2): 4,774,104 ghosts at 512^3, each
 // written once and one source read (Periodic), 38 MB: 0.0114 ms at 3.35
@@ -45,18 +45,15 @@
 //
 // K7 (lsm_refresh_band_ghosts_*) replaces the TPU kernel
 // lsm_tpu/ops/band_pallas.py `refresh_band_ghosts_fast` (kernel01, kernel2)
-// on the band path, whose buffers share this uniform 3-ghost layout. It is
-// the same three launches, each gated on the device by an int32 flag: the
-// axis-0 and axis-1 launches return at once when flags[0] == 0, the axis-2
-// launch when flags[1] == 0 (no host read, and a skipped phase leaves the
-// buffer bit-identical). A shell changes only when an active tile touches
-// its face, so a band that stays inside the grid skips the whole refresh.
-//
-// K7's 2D entry (lsm_refresh_band_ghosts_2d_*) refreshes a 2D band on its own
-// (n0+6, n1+6) layout: K2's two 2D phases, axis 0 over the interior columns
-// gated by flags[0], then axis 1 over every padded row gated by flags[1]
-// (which the caller sets whenever flags[0] is: the axis-1 ghosts of the
-// axis-0 ghost rows read those rows). The TPU kernel ran the 3D refresh on the
+// on the band path, whose buffers share this uniform 3-ghost layout: K2's
+// one-launch threads (shell_ghost, ghost_2d) gated on the device by int32
+// flags, with no host read (band_refresh_3d_kernel, band_refresh_2d_kernel). A shell
+// changes only when an active tile touches its face, so a band that stays
+// inside the grid skips the whole refresh, and the launch then costs one
+// small grid of blocks that read the flags and exit (its first design, three
+// full-shell launches whose blocks each read a flag, took 0.1209 ms gated off
+// at 512^3 f32 on an H100 by CUDA events). The 2D entry refreshes a 2D band
+// on its own (n0+6, n1+6) layout; the TPU kernel ran the 3D refresh on the
 // (1, n0, n1) embedding, whose dummy axis keeps flags[0] on and rewrites the
 // full axis-0 ghost planes at every stage; this layout has none.
 
@@ -184,31 +181,6 @@ int launch_refresh(void* P_, int64_t n0, int64_t n1, int64_t n2, const int* kind
   return 0;
 }
 
-// The two phases of a 2D buffer (n0+6, n1+6), each gated by its flag: axis 0
-// over the interior columns (rows of n1 nodes, coalesced), then axis 1 over
-// all n0+6 padded rows (the six ghost slots of a row fastest). The kernel's
-// second line axis is unused (one line, stride 0).
-template <typename T>
-int launch_refresh_2d(void* P_, int64_t n0, int64_t n1, const int* kinds, const int* degrees,
-                      const double* weights, const int* flags, void* stream_) {
-  T* P = static_cast<T*>(P_);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int64_t S1 = n1 + 2 * LSM_GHOST;
-  for (int axis = 0; axis < 2; ++axis) {
-    const AxisBC bc = axis_bc(kinds, degrees, weights, axis);
-    const int64_t b_lo = axis == 0 ? LSM_GHOST : 0;
-    const int64_t b_cnt = axis == 0 ? n1 : n0 + 2 * LSM_GHOST;
-    const int64_t total = 2 * LSM_GHOST * b_cnt;
-    const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-    refresh_axis_kernel<T><<<blocks, kThreads, 0, stream>>>(
-        P, axis == 0 ? n0 : n1, axis == 0 ? S1 : 1, 0, 1, 0, b_lo, b_cnt, axis == 0 ? 1 : S1,
-        axis, bc, flags + axis);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
-}
-
 // One ghost of a line of n nodes: the node at index m of the line is node(m);
 // side and distance k as refresh_axis_kernel takes them, with its arithmetic
 // (which keeps its own copy of it, so that the 3D entries and K7 keep their
@@ -232,21 +204,19 @@ __device__ __forceinline__ T ghost_of(const BC& bc, int side, int k, I n, Node n
   }
 }
 
-// K2's 2D entry: every ghost of a (n0+6, n1+6) buffer in one launch. Threads
+// Thread t (t < 6 (n1 + n0 + 6)) of the 2D refresh, K2's and K7's: threads
 // [0, 6 n1) write the axis-0 ghosts of the interior columns (a row of n1
 // fastest, coalesced), the next 6 (n0+6) the axis-1 ghosts of every padded
 // row (a row's six slots fastest). An axis-1 ghost of an axis-0 ghost row (a
-// corner) reads that row's values, which other threads of the launch write:
-// its thread recomputes each value it reads from the interior with the
-// axis-0 arithmetic, so it equals pad_ghost's composition (axis 0, then axis 1
-// over the padded rows) bit for bit, and no thread reads what another writes.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    refresh_2d_kernel(T* __restrict__ P, int64_t n0, int64_t n1, AxisBC bc0, AxisBC bc1) {
+// corner) reads that row's values: its thread recomputes each from the
+// interior with the axis-0 arithmetic, or with kStored (K7's flags (0, 1),
+// where no thread writes those rows) reads the stored ones, as the plain
+// version does.
+template <typename T, bool kStored>
+__device__ __forceinline__ void ghost_2d(T* __restrict__ P, int64_t n0, int64_t n1,
+                                         const AxisBC& bc0, const AxisBC& bc1, int64_t t) {
   const int64_t S1 = n1 + 2 * LSM_GHOST;
   const int64_t cols = 2 * LSM_GHOST * n1;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= cols + 2 * LSM_GHOST * (n0 + 2 * LSM_GHOST)) return;
   // a slot g6 in [0, 6): side g6 / 3, layer g6 % 3 (distance 3 - layer on the
   // left, layer + 1 on the right), at padded index layer or n + 3 + layer
   const auto slot = [](int g6, int64_t n, int& side, int& k, int64_t& pos) {
@@ -269,7 +239,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t r = t - cols, row = r / (2 * LSM_GHOST);
   slot(static_cast<int>(r % (2 * LSM_GHOST)), n1, side, k, pos);
   T val;
-  if (row >= LSM_GHOST && row < LSM_GHOST + n0) {
+  if (kStored || (row >= LSM_GHOST && row < LSM_GHOST + n0)) {
     const T* line = P + row * S1 + LSM_GHOST;  // node (row - 3, 0)
     val = ghost_of<T>(bc1, side, k, n1, [&](int64_t m) { return line[m]; });
   } else {  // a corner: the axis-0 ghost row's values, recomputed from the interior
@@ -282,6 +252,19 @@ __global__ void __launch_bounds__(kThreads)
     });
   }
   P[row * S1 + pos] = val;
+}
+
+// K2's 2D entry: every ghost of a (n0+6, n1+6) buffer in one launch
+// (ghost_2d's threads): a corner's thread recomputes the axis-0 values it
+// reads from the interior, so the launch equals pad_ghost's composition (axis
+// 0, then axis 1 over the padded rows) bit for bit, and no thread reads what
+// another writes.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    refresh_2d_kernel(T* __restrict__ P, int64_t n0, int64_t n1, AxisBC bc0, AxisBC bc1) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= 2 * LSM_GHOST * (n1 + n0 + 2 * LSM_GHOST)) return;
+  ghost_2d<T, false>(P, n0, n1, bc0, bc1, t);
 }
 
 template <typename T>
@@ -419,11 +402,10 @@ __device__ __forceinline__ T edge_ghost(const T* __restrict__ P, const Shell3<T>
                             [&](int m) { return f1(i, j, LSM_GHOST + m); });
 }
 
-template <typename T, bool kExtrap>
-__global__ void __launch_bounds__(kThreads, 6) refresh_3d_kernel(T* __restrict__ P, Shell3<T> s) {
-  // the BCs in shared memory: a warp's lanes read other ghosts' weights
-  // without the constant cache serialising them
-  __shared__ ShellBC<T> bc[3];
+// The BCs of s into shared memory: a warp's lanes read other ghosts' weights
+// without the constant cache serialising them.
+template <typename T>
+__device__ __forceinline__ void shell_bcs(ShellBC<T> (&bc)[3], const Shell3<T>& s) {
   constexpr int kW = 2 * LSM_GHOST * (LSM_MAX_DEGREE + 1);  // weights of an axis
   for (int e = threadIdx.x; e < 3 * kW; e += kThreads) {
     const int axis = e / kW, r = e % kW, side = r / (kW / 2);
@@ -434,8 +416,13 @@ __global__ void __launch_bounds__(kThreads, 6) refresh_3d_kernel(T* __restrict__
     bc[threadIdx.x / 2].kind[threadIdx.x % 2] = s.bc[threadIdx.x / 2].kind[threadIdx.x % 2];
     bc[threadIdx.x / 2].degree[threadIdx.x % 2] = s.bc[threadIdx.x / 2].degree[threadIdx.x % 2];
   }
-  __syncthreads();
-  uint32_t t = blockIdx.x * kThreads + threadIdx.x;
+}
+
+// Thread t of K2's 3D launch, K7's under flags (1, 1): the ghost(s) of
+// class E (first, so that their longer chains start early), then A, B and C.
+template <typename T, bool kExtrap>
+__device__ __forceinline__ void shell_ghost(T* __restrict__ P, const Shell3<T>& s,
+                                            const ShellBC<T>* bc, uint32_t t) {
   const int n0 = s.n[0], n1 = s.n[1], n2 = s.n[2];
   constexpr int G2 = 2 * LSM_GHOST;
   const auto at = [&](int i, int j, int k) {
@@ -512,20 +499,144 @@ __global__ void __launch_bounds__(kThreads, 6) refresh_3d_kernel(T* __restrict__
   for (int g = 0; g < G2; ++g) line[slot_pos(g, n) * step] = val[g];
 }
 
-// One launch when its threads allow 32-bit indices; beyond them the three
-// launches of launch_refresh.
+template <typename T, bool kExtrap>
+__global__ void __launch_bounds__(kThreads, 6) refresh_3d_kernel(T* __restrict__ P, Shell3<T> s) {
+  __shared__ ShellBC<T> bc[3];
+  shell_bcs(bc, s);
+  __syncthreads();
+  shell_ghost<T, kExtrap>(P, s, bc, blockIdx.x * kThreads + threadIdx.x);
+}
+
+// K7's entries: K2's one-launch kernels gated on the device by flags
+// (int32[2], read once a block): 3D, flags[0] gates axes 0 and 1, flags[1]
+// axis 2; 2D, flags[0] axis 0 and flags[1] axis 1. Each of the four gates
+// gives the plain version's bits (its phases in order, a phase run only
+// where its flag is set):
+//   (0, 0): nothing is written;
+//   (1, 1): K2's composition, every ghost recomputed from the interior;
+//   (1, 0): the ghosts of axes 0 and 1 at interior axis-2 indices (2D: axis
+//     0's at interior columns): an edge ghost of axes 0 and 1 recomputes
+//     axis 0's values from the interior (f1(f0), as K2's E threads);
+//   (0, 1): the axis-2 ghosts (2D: axis 1's) of every padded row of the
+//     earlier axes, from the row's stored values: the plain version reads
+//     the axis-0/1 ghosts as they stand, and no thread writes them under
+//     this gate.
+// The grid is a fixed number of blocks for the card (kBandBlocksPerSM times
+// its SM count, at most the gated-on work's blocks), each walking its share
+// of the gate's work in a grid-stride loop: gated off, a launch costs one
+// block per slot of the card that reads the flags and exits, not a grid
+// over the whole shell. The 3D kernel takes 64 registers (four blocks an
+// SM): its three gates' paths in one loop spilled 1.5 KB a thread (f32,
+// extrapolation) under K2's 40, and took 0.0707 ms gated on at 512^3 f32 on
+// an H100 against 0.0546-0.0562 (one, two, 8, 16 or 24 blocks an SM and the
+// full grid measured: tools/shell_variants.py, PERF.md).
+constexpr int kBandBlocksPerSM = 4;  // the 3D kernel's resident blocks an SM
+
+// The card's SM count, read once per device.
+cudaError_t sm_count(int& sms) {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool slot = dev >= 0 && dev < 64;
+  if (slot && cached[dev] > 0) {
+    sms = cached[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && slot) cached[dev] = sms;
+  return err;
+}
+
+// Blocks of kThreads for work of `total` threads: kBandBlocksPerSM blocks an
+// SM, or fewer when the work needs fewer.
+cudaError_t band_blocks(int64_t total, unsigned& blocks) {
+  int sms = 0;
+  const cudaError_t err = sm_count(sms);
+  const int64_t need = (total + kThreads - 1) / kThreads, most = int64_t{kBandBlocksPerSM} * sms;
+  blocks = static_cast<unsigned>(need < most ? need : most);
+  if (blocks == 0) blocks = 1;
+  return err;
+}
+
+// The gate as a block reads it: bit 0 flags[0], bit 1 flags[1].
+__device__ __forceinline__ int read_gate(const int* __restrict__ flags) {
+  __shared__ int gate;
+  if (threadIdx.x == 0) gate = (flags[0] != 0) | (flags[1] != 0) << 1;
+  __syncthreads();
+  return gate;
+}
+
+template <typename T, bool kExtrap>
+__global__ void __launch_bounds__(kThreads, 4)
+    band_refresh_3d_kernel(T* __restrict__ P, Shell3<T> s, const int* __restrict__ flags) {
+  const int gate = read_gate(flags);
+  if (gate == 0) return;
+  __shared__ ShellBC<T> bc[3];
+  shell_bcs(bc, s);
+  __syncthreads();
+  constexpr uint32_t G2 = 2 * LSM_GHOST;
+  const int n0 = s.n[0], n2 = s.n[2];
+  const uint32_t cnt_e = s.cnt_e1 + s.cnt_e2 + s.cnt_e3;
+  const uint32_t e01 = G2 * G2 * static_cast<uint32_t>(n2);  // (1, 0)'s edge ghosts
+  const uint32_t total = gate == 3   ? cnt_e + s.cnt_a + s.cnt_b + s.cnt_c
+                         : gate == 1 ? e01 + s.cnt_a + s.cnt_b
+                                     : G2 * (static_cast<uint32_t>(n0) + G2) * s.S1;
+  for (uint32_t t = blockIdx.x * kThreads + threadIdx.x; t < total; t += gridDim.x * kThreads) {
+    if (gate != 2) {  // K2's thread t; under (1, 0) the E thread of an i and j ghost at
+      // interior k (f1(f0) from the interior), then A's and B's
+      uint32_t u = t;
+      if (gate == 1) {
+        const uint32_t r = t / static_cast<uint32_t>(n2);
+        u = t < e01 ? r * s.S2 + LSM_GHOST + (t - r * static_cast<uint32_t>(n2))
+                    : cnt_e + (t - e01);
+      }
+      shell_ghost<T, kExtrap>(P, s, bc, u);
+    } else {  // slot q of padded row (i, j), from its stored nodes
+      const uint32_t r = t / G2, i = r / s.S1;
+      const int q = static_cast<int>(t - r * G2);
+      T* row = P + (static_cast<int64_t>(i) * s.plane + (r - i * s.S1) * s.S2);
+      const T* node = row + LSM_GHOST;
+      T val[G2];
+      line_ghosts<T, kExtrap>(bc[2], n2, q, q + 1, [&](int m) { return node[m]; }, val);
+      T v = T(0);
+#pragma unroll
+      for (int g = 0; g < static_cast<int>(G2); ++g)
+        if (g == q) v = val[g];
+      row[slot_pos(q, n2)] = v;
+    }
+  }
+}
+
 template <typename T>
-int launch_refresh_3d(void* P, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
-                      const int* degrees, const double* weights, void* stream) {
+__global__ void __launch_bounds__(kThreads)
+    band_refresh_2d_kernel(T* __restrict__ P, int64_t n0, int64_t n1, AxisBC bc0, AxisBC bc1,
+                           const int* __restrict__ flags) {
+  const int gate = read_gate(flags);
+  if (gate == 0) return;
+  const int64_t cols = 2 * LSM_GHOST * n1, rows = 2 * LSM_GHOST * (n0 + 2 * LSM_GHOST);
+  const int64_t lo = gate == 2 ? cols : 0, hi = gate == 1 ? cols : cols + rows;
+  for (int64_t t = lo + static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; t < hi;
+       t += static_cast<int64_t>(gridDim.x) * kThreads) {
+    if (gate == 2)
+      ghost_2d<T, true>(P, n0, n1, bc0, bc1, t);
+    else
+      ghost_2d<T, false>(P, n0, n1, bc0, bc1, t);
+  }
+}
+
+// K2's threads at this shape into s, their count and whether a side
+// extrapolates; false where they would need more than 32-bit indices.
+template <typename T>
+bool shell3_args(Shell3<T>& s, int64_t& total, bool& extrap, int64_t n0, int64_t n1, int64_t n2,
+                 const int* kinds, const int* degrees, const double* weights) {
   const int64_t S1 = n1 + 2 * LSM_GHOST, S2 = n2 + 2 * LSM_GHOST;
   constexpr int64_t G2 = 2 * LSM_GHOST;
   const int64_t cnt_e1 = G2 * G2 * S2, cnt_e2 = G2 * G2 * n1, cnt_e3 = G2 * G2 * n0,
                 cnt_a = n1 * n2, cnt_b = n0 * n2, rows_c = (n0 * n1 + kRowsC - 1) / kRowsC,
                 cnt_c = rows_c * G2;
-  const int64_t total = cnt_e1 + cnt_e2 + cnt_e3 + cnt_a + cnt_b + cnt_c;
-  if (total + kThreads >= (int64_t{1} << 31) || S1 * S2 >= (int64_t{1} << 31))
-    return launch_refresh<T>(P, n0, n1, n2, kinds, degrees, weights, nullptr, stream);
-  Shell3<T> s;
+  total = cnt_e1 + cnt_e2 + cnt_e3 + cnt_a + cnt_b + cnt_c;
+  if (total + kThreads >= (int64_t{1} << 31) || S1 * S2 >= (int64_t{1} << 31)) return false;
   const int64_t n[3] = {n0, n1, n2};
   for (int axis = 0; axis < 3; ++axis) {
     s.n[axis] = static_cast<int>(n[axis]);
@@ -549,11 +660,57 @@ int launch_refresh_3d(void* P, int64_t n0, int64_t n1, int64_t n2, const int* ki
   s.cnt_b = static_cast<uint32_t>(cnt_b);
   s.cnt_c = static_cast<uint32_t>(cnt_c);
   s.rows_c = static_cast<uint32_t>(rows_c);
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  bool extrap = false;  // the kernel without extrapolation's code when no side takes it
+  extrap = false;  // the kernel without extrapolation's code when no side takes it
   for (int a = 0; a < 6; ++a) extrap |= kinds[a] == LSM_BC_EXTRAPOLATION;
+  return true;
+}
+
+// K2's 3D entry: one launch when its threads allow 32-bit indices; beyond
+// them the three launches of launch_refresh.
+template <typename T>
+int launch_refresh_3d(void* P, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
+                      const int* degrees, const double* weights, void* stream) {
+  Shell3<T> s;
+  int64_t total;
+  bool extrap;
+  if (!shell3_args(s, total, extrap, n0, n1, n2, kinds, degrees, weights))
+    return launch_refresh<T>(P, n0, n1, n2, kinds, degrees, weights, nullptr, stream);
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
   const auto kernel = extrap ? refresh_3d_kernel<T, true> : refresh_3d_kernel<T, false>;
   kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<T*>(P), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7's 3D entry: one gated launch; beyond 32-bit indices the three gated
+// launches of launch_refresh (a size route, as K2's).
+template <typename T>
+int launch_band_refresh_3d(void* P, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
+                           const int* degrees, const double* weights, const int* flags,
+                           void* stream) {
+  Shell3<T> s;
+  int64_t total;
+  bool extrap;
+  if (!shell3_args(s, total, extrap, n0, n1, n2, kinds, degrees, weights))
+    return launch_refresh<T>(P, n0, n1, n2, kinds, degrees, weights, flags, stream);
+  unsigned blocks;
+  const cudaError_t err = band_blocks(total, blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto kernel = extrap ? band_refresh_3d_kernel<T, true> : band_refresh_3d_kernel<T, false>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<T*>(P), s,
+                                                                     flags);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7's 2D entry: one gated launch.
+template <typename T>
+int launch_band_refresh_2d(void* P, int64_t n0, int64_t n1, const int* kinds, const int* degrees,
+                           const double* weights, const int* flags, void* stream) {
+  unsigned blocks;
+  const cudaError_t err = band_blocks(2 * LSM_GHOST * (n1 + n0 + 2 * LSM_GHOST), blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  band_refresh_2d_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(P), n0, n1, axis_bc(kinds, degrees, weights, 0),
+      axis_bc(kinds, degrees, weights, 1), flags);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -603,28 +760,28 @@ extern "C" int lsm_refresh_band_ghosts_f32(void* P, int64_t n0, int64_t n1, int6
                                            const int* kinds, const int* degrees,
                                            const double* weights, const void* flags,
                                            void* stream) {
-  return launch_refresh<float>(P, n0, n1, n2, kinds, degrees, weights,
-                               static_cast<const int*>(flags), stream);
+  return launch_band_refresh_3d<float>(P, n0, n1, n2, kinds, degrees, weights,
+                                       static_cast<const int*>(flags), stream);
 }
 
 extern "C" int lsm_refresh_band_ghosts_f64(void* P, int64_t n0, int64_t n1, int64_t n2,
                                            const int* kinds, const int* degrees,
                                            const double* weights, const void* flags,
                                            void* stream) {
-  return launch_refresh<double>(P, n0, n1, n2, kinds, degrees, weights,
-                                static_cast<const int*>(flags), stream);
+  return launch_band_refresh_3d<double>(P, n0, n1, n2, kinds, degrees, weights,
+                                        static_cast<const int*>(flags), stream);
 }
 
 extern "C" int lsm_refresh_band_ghosts_2d_f32(void* P, int64_t n0, int64_t n1, const int* kinds,
                                               const int* degrees, const double* weights,
                                               const void* flags, void* stream) {
-  return launch_refresh_2d<float>(P, n0, n1, kinds, degrees, weights,
-                                  static_cast<const int*>(flags), stream);
+  return launch_band_refresh_2d<float>(P, n0, n1, kinds, degrees, weights,
+                                       static_cast<const int*>(flags), stream);
 }
 
 extern "C" int lsm_refresh_band_ghosts_2d_f64(void* P, int64_t n0, int64_t n1, const int* kinds,
                                               const int* degrees, const double* weights,
                                               const void* flags, void* stream) {
-  return launch_refresh_2d<double>(P, n0, n1, kinds, degrees, weights,
-                                   static_cast<const int*>(flags), stream);
+  return launch_band_refresh_2d<double>(P, n0, n1, kinds, degrees, weights,
+                                        static_cast<const int*>(flags), stream);
 }

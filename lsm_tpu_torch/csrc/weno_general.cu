@@ -24,11 +24,19 @@
 // Axis 0 is always marched: MeshField.pad(3) makes no promise about the
 // ghosts of a one-node axis, so K1's n0 == 1 shortcut is not taken.
 //
-// K11 keeps one thread per interior node, threadIdx.x along the contiguous
-// last axis (64 per block) so a warp reads and writes neighbouring
-// elements; each thread loads its 13-point stencil from device memory and
-// relies on L1/L2 for the reuse between neighbours; the outer axis is
-// walked by a grid-stride loop, so any extent launches.
+// K11's design is K1's 2D march (march2d.cuh; weno_stage_2d.cu's top
+// comment): a block of 128 threads owns 128 columns of axis 1 and marches
+// down a chunk of <= 64 rows of axis 0, eight padded rows of phi a step and
+// the output rows' velocity and aux staged in shared memory by cp.async,
+// the axis-0 differences of a column formed once for its eight rows. As in
+// K10, aux and the output are interior-shaped (kInterior): aux is copied as
+// the velocity is (16 bytes at a time where n1 % 4 == 0 (f32) and the
+// pointer is aligned, else element by element), and the output row stored
+// at o*n1 + k; axis 0 is always marched. The per-node arithmetic is
+// stage_value_at<T, 2>'s from the same differences, so on the same P, u and
+// aux K11's output equals the interior of K1 2D's streamed entry bit for
+// bit. (Its first design, one thread per node with its 13-point stencil
+// from device memory, took 0.2212 ms at 4096^2 f32 on an H100: PERF.md.)
 //
 // Bound at 512^3 f32: the padded phi read once (518^3 * 4 B), three velocity
 // components read and the output written: 20 B per cell (24 with aux),
@@ -43,12 +51,11 @@
 
 #include "lsm_kernels.h"
 #include "march.cuh"
+#include "march2d.cuh"
 #include "weno5.cuh"
 
 namespace {
 
-constexpr int kBlockX = 64;
-constexpr int kBlockY = 4;
 constexpr int64_t kMaxGridYZ = 65535;
 
 // K10: K1's march (march.cuh) with an interior-shaped aux and output; axis
@@ -59,29 +66,14 @@ __global__ void __launch_bounds__(March<T>::NT, March<T>::MIN_BLOCKS)
   march<T, false, true, true>(a, nullptr);
 }
 
+// K11: K1's 2D march (march2d.cuh) with an interior-shaped aux and output.
 template <typename T>
-__global__ void __launch_bounds__(kBlockX* kBlockY)
-    weno_general_2d_kernel(const T* __restrict__ P, const T* __restrict__ u0,
-                           const T* __restrict__ u1, const T* __restrict__ aux,
-                           T* __restrict__ out, int64_t n0, int64_t n1, T inv_h0, T inv_h1,
-                           T alpha, T beta, T gamma) {
-  const int64_t k = static_cast<int64_t>(blockIdx.x) * kBlockX + threadIdx.x;
-  if (k >= n1) return;
-  const int64_t s0 = n1 + 2 * LSM_GHOST;
-  const int64_t stride[2] = {s0, 1};
-  const T inv_h[2] = {inv_h0, inv_h1};
-  const int64_t rows = static_cast<int64_t>(gridDim.y) * kBlockY;
-  for (int64_t i = static_cast<int64_t>(blockIdx.y) * kBlockY + threadIdx.y; i < n0; i += rows) {
-    const int64_t c = (i + LSM_GHOST) * s0 + (k + LSM_GHOST);
-    const int64_t q = i * n1 + k;
-    const T u[2] = {u0[q], u1[q]};
-    out[q] = lsm::stage_value_at<T, 2>(P, aux, c, q, stride, u, inv_h, alpha, beta, gamma);
-  }
+__global__ void __launch_bounds__(March2<T>::NT)
+    general_march_2d_kernel(const __grid_constant__ March2Args<T> a, int vec_aux) {
+  march2d<T, kStream, true>(a, nullptr, vec_aux);
 }
 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
-
-int64_t capped(int64_t blocks) { return blocks < kMaxGridYZ ? blocks : kMaxGridYZ; }
 
 template <typename T>
 int launch_3d(const void* P, const void* u0, const void* u1, const void* u2, const void* aux,
@@ -92,9 +84,6 @@ int launch_3d(const void* P, const void* u0, const void* u1, const void* u2, con
   if (n0 < 1 || n1 < 1 || n2 < 1 || n0 > INT_MAX || chunks > kMaxGridYZ ||
       cdiv(n1, M::CY) > kMaxGridYZ || n1 + 2 * LSM_GHOST > INT_MAX / (n2 + 2 * LSM_GHOST))
     return static_cast<int>(cudaErrorInvalidValue);  // offsets inside a plane are 32-bit
-  const auto aligned = [](const void* ptr, size_t bytes) {
-    return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
-  };
   MarchArgs<T> a{};
   a.P = static_cast<const T*>(P);
   a.u[0] = static_cast<const T*>(u0);
@@ -133,15 +122,29 @@ template <typename T>
 int launch_2d(const void* P, const void* u0, const void* u1, const void* aux, void* out,
               int64_t n0, int64_t n1, double inv_h0, double inv_h1, double alpha, double beta,
               double gamma, void* stream) {
-  if (n0 < 1 || n1 < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kBlockX, kBlockY, 1);
-  const dim3 grid(static_cast<unsigned>(cdiv(n1, kBlockX)),
-                  static_cast<unsigned>(capped(cdiv(n0, kBlockY))), 1);
-  weno_general_2d_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(P), static_cast<const T*>(u0), static_cast<const T*>(u1),
-      static_cast<const T*>(aux), static_cast<T*>(out), n0, n1, T(inv_h0), T(inv_h1), T(alpha),
-      T(beta), T(gamma));
-  return static_cast<int>(cudaGetLastError());
+  using M = March2<T>;
+  March2Args<T> a;
+  dim3 grid;
+  if (!march2_args<T>(a, P, aux, out, n0, n1, 2, grid, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.sptr[0] = static_cast<const T*>(u0);
+  a.sptr[1] = static_cast<const T*>(u1);
+  a.vec_s = a.n1 % M::VU == 0 && aligned(u0, 16) && aligned(u1, 16);
+  const int vec_aux = a.n1 % M::VU == 0 && aligned(aux, 16);
+  a.inv_h[0] = T(inv_h0);
+  a.inv_h[1] = T(inv_h1);
+  a.alpha = T(alpha);
+  a.beta = T(beta);
+  a.gamma = T(gamma);
+  const size_t smem = size_t(a.elems) * sizeof(T) * M::S;
+  const auto kernel = general_march_2d_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess) {
+    kernel<<<grid, M::NT, smem, static_cast<cudaStream_t>(stream)>>>(a, vec_aux);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace

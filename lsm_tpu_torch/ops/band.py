@@ -22,8 +22,8 @@ the on-card comparison in ``chip_smoke.py``):
   own coordinates: it needs no tile-packed stream and no coordinates kept
   per slot.
 - :func:`refresh_band_ghosts_fast` (K7, ``csrc/refresh_ghosts.cu``; plain
-  :func:`refresh_band_ghosts_plain`): K2's shell refresh, each phase gated by
-  device flags.
+  :func:`refresh_band_ghosts_plain`): K2's one-launch shell refresh, its
+  phases gated by device flags.
 - :func:`band_retube_incremental` (K8, ``csrc/band_retube.cu``; plain
   :func:`band_retube_plain`): the re-tube recomputed on candidate tiles only.
 - :func:`band_step_stage` is K6 + K7 as a ``torch.autograd.Function`` into
@@ -567,9 +567,10 @@ def refresh_band_ghosts_fast(padded: torch.Tensor, bcs, shape, flags: torch.Tens
     is an int32 ``(2,)`` tensor on the buffer's device
     (:func:`refresh_flags_from_activity`); the kernel reads it on the card,
     so gating needs no host synchronisation. CUDA tensors go to
-    ``csrc/refresh_ghosts.cu`` (three launches, a 2D band's two, each
-    returning at once when its flag is off), CPU tensors to
-    :func:`refresh_band_ghosts_plain`. Returns ``padded``.
+    ``csrc/refresh_ghosts.cu`` (one launch, 3D or 2D: K2's one-launch kernel
+    gated by the flags, a small grid whose blocks exit at once when both are
+    off), CPU tensors to :func:`refresh_band_ghosts_plain`. Returns
+    ``padded``.
     """
     shape = tuple(shape)
     if len(shape) not in (2, 3):
@@ -588,10 +589,11 @@ def refresh_band_ghosts_fast(padded: torch.Tensor, bcs, shape, flags: torch.Tens
         fn = lib.band_refresh_2d_f32 if f32 else lib.band_refresh_2d_f64
     else:
         fn = lib.band_refresh_f32 if f32 else lib.band_refresh_f64
-    with torch.cuda.device(padded.device):
+    ctx, stream = v2._on_card(padded)
+    with ctx:
         code = fn(padded.data_ptr(), *shape, ctypes.addressof(kinds),
                   ctypes.addressof(degrees), ctypes.addressof(weights), flags.data_ptr(),
-                  torch.cuda.current_stream().cuda_stream)
+                  stream)
     v2._raise_on(code, lib, "refresh_band_ghosts kernel")
     bump(refresh_band_ghosts_fast, launches=1, launches_2d=len(shape) == 2)
     return padded

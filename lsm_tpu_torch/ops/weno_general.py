@@ -36,7 +36,7 @@ import torch
 from . import stencils as st
 from ._build import load_library
 from ._launches import bump
-from .weno_v2 import _check, _raise_on
+from .weno_v2 import _check, _on_card, _raise_on
 
 __all__ = [
     "GHOST",
@@ -89,11 +89,11 @@ def _run(name, ndim, padded, u, spacing, shape, coeffs, aux):
     lib = load_library()
     fn = getattr(lib, f"{name}_{'f32' if padded.dtype == torch.float32 else 'f64'}")
     out = torch.empty(shape, dtype=padded.dtype, device=padded.device)
-    with torch.cuda.device(padded.device):
+    ctx, stream = _on_card(padded)
+    with ctx:
         code = fn(padded.data_ptr(), *(c.data_ptr() for c in u),
                   None if aux is None else aux.data_ptr(), out.data_ptr(), *shape,
-                  *(1.0 / float(h) for h in spacing), *(float(c) for c in coeffs),
-                  torch.cuda.current_stream().cuda_stream)
+                  *(1.0 / float(h) for h in spacing), *(float(c) for c in coeffs), stream)
     _raise_on(code, lib, f"{name} kernel")
     return out, 1
 

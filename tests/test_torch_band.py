@@ -202,7 +202,8 @@ K7_BCS = {
 }
 
 
-@pytest.mark.parametrize("flags", [(1, 1), (1, 0), (0, 0)], ids=lambda f: f"flags{f[0]}{f[1]}")
+@pytest.mark.parametrize("flags", [(1, 1), (1, 0), (0, 0), (0, 1)],
+                         ids=lambda f: f"flags{f[0]}{f[1]}")
 @pytest.mark.parametrize("name", list(K7_BCS))
 def test_k7_plain_matches_jax(name, flags):
     jb, tb = jbc.normalize_bcs(K7_BCS[name][0], 3), tbc.normalize_bcs(K7_BCS[name][1], 3)
@@ -220,6 +221,10 @@ def test_k7_plain_matches_jax(name, flags):
         want[:, :, 3:3 + n2] = full[:, :, 3:3 + n2]
     if flags[1]:
         want[:, :, :3], want[:, :, 3 + n2:] = full[:, :, :3], full[:, :, 3 + n2:]
+    if flags == (0, 1):  # the axis-2 ghosts of the scribbled axis-0/1 ghost rows read them
+        want = np.asarray(bp.refresh_band_ghosts_fast(Pd, jb, shape, interpret=True,
+                                                      flags=jnp.asarray(flags, jnp.int32))[w])
+        assert not np.array_equal(want[:, :, :3], full[:, :, :3])
     got = bd.refresh_band_ghosts_fast(torch.from_numpy(before), tb, shape,
                                       torch.tensor(flags, dtype=torch.int32))
     # corner ghosts extrapolated three times reach ~1e3: rounding, relative

@@ -19,6 +19,7 @@ import lsm_tpu_torch as T
 from lsm_tpu.models import shapes as jshapes
 from lsm_tpu.ops import weno_pallas as jwp
 from lsm_tpu_torch.ops import weno_general as twg
+from lsm_tpu_torch.ops import weno_v2 as tv2
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -117,6 +118,37 @@ def test_plain_matches_jax_jnp_f64(case, with_aux):
     ref = np.asarray(jwp._stage_jnp(jp, ju, jaux if with_aux else None, coeffs, sp, shape))
     out = twg.weno_stage_general(tp, tu, sp, shape, coeffs, taux if with_aux else None)
     np.testing.assert_allclose(_np(out), ref, rtol=0, atol=1e-12)
+
+
+#: K11's march on the card: axis 0 under one step of 8 rows and past one chunk
+#: of 64 rows, axis 1 a multiple of neither 4 (16-byte copies) nor 128 (a
+#: block's columns)
+K11_MARCH_SHAPES = [(5, 131), (67, 37), (70, 9), (3, 258)]
+
+
+@pytest.mark.parametrize("coeffs", [None, (0.0, 1.0, 1.7e-3), (0.75, 0.25, 2.5e-4)],
+                         ids=["H", "stage", "stage_aux"])
+@pytest.mark.parametrize("shape", K11_MARCH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k11_plain_equals_k1_2d_interior(shape, coeffs):
+    """float64: K11's plain version equals, bit for bit, the interior of K1
+    2D's plain streamed stage (``weno_v2.fused_stage`` on the ``(n0+6,
+    n1+6)`` buffer, aux placed in its padded layout), the function K11's march
+    and K1 2D's march share on the card."""
+    rng = np.random.default_rng(sum(shape))
+    bcs = T.normalize_bcs(T.Periodic() if min(shape) >= 4 else T.Extrapolation(2), 2)
+    vals = torch.from_numpy(rng.standard_normal(shape))
+    P = tv2.pack_padded(vals, bcs)
+    u = [torch.from_numpy(rng.standard_normal(shape)) for _ in range(2)]
+    u[0].view(-1)[::7] = 0.0  # the upwind tie
+    aux = torch.from_numpy(rng.standard_normal(shape)) if coeffs and coeffs[0] else None
+    A = None
+    if aux is not None:
+        A = torch.from_numpy(rng.standard_normal(tv2.padded_shape(shape)))
+        tv2.unpack_padded(A, shape).copy_(aux)
+    sp = tuple(1.0 / (n + 1) for n in shape)
+    got = twg.weno_stage_general(P, u, sp, shape, coeffs, aux)
+    k1 = tv2.unpack_padded(tv2.fused_stage(P, tuple(u), coeffs or twg._BARE, A, sp, shape), shape)
+    assert torch.equal(got, k1)
 
 
 @pytest.mark.parametrize("dims", [2, 3])

@@ -1,19 +1,21 @@
 """What binds the ghost-shell pair: K2's 3D entry and K4 timed at 512^3 f32
 with parts of `lsm_tpu_torch/csrc/refresh_ghosts.cu` or `fold_ghosts.cu`
-taken out or changed.
+taken out or changed; and K7's one launch with other grids.
 
 Each variant is one source with a text substitution, built by nvcc (the
 port's flags) into a library of its own under `lsm_tpu_torch/_build/`; the
-wrappers of `ops/weno_v2.py` and `ops/weno_v2_bwd.py` launch it on the
-flagship's Periodic state, on config A's `Extrapolation(2)` and on the
-flagship's field under mixed BCs with `Extrapolation(7)` (K2 on the packed
-state, K4 on a random cotangent). A variant that removes work
+wrappers of `ops/weno_v2.py`, `ops/weno_v2_bwd.py` and `ops/band.py` launch
+it on the flagship's Periodic state, on config A's `Extrapolation(2)` and on
+the flagship's field under mixed BCs with `Extrapolation(7)` (K2 on the
+packed state, K4 on a random cotangent), and K7 on the 512^3 band cells'
+buffer and K7's 2D entry on D2b's, flags on and off. A variant that removes work
 computes something else: only its time is read. Variants run in turns (all,
 then all in reverse); each line gives the faster of a variant's two readings
 of the profiler's device time and of the CUDA-event median.
 
 From the repository root, on a machine with one H100:
-    python3 tools/shell_variants.py
+    python3 tools/shell_variants.py [NAME ...]
+(names: only those variants, beside "as built").
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ sys.path.insert(0, os.getcwd())
 import chip_smoke as cs  # noqa: E402
 import lsm_tpu_torch as lsm  # noqa: E402
 from lsm_tpu_torch.ops import _build  # noqa: E402
+from lsm_tpu_torch.ops import band as bd  # noqa: E402
 from lsm_tpu_torch.ops import weno_v2 as v2  # noqa: E402
 from lsm_tpu_torch.ops import weno_v2_bwd as bwd  # noqa: E402
 
@@ -45,10 +48,13 @@ _K4_NODES = "  uint32_t t = (blockIdx.x - before) * kThreads + threadIdx.x;\n"
 _K4_FLAT = "  if (upto > before) {\n"
 _K4_VECTORS = "constexpr int kVectors = 8;"
 _K4_FIRST = "  if (blockIdx.x < a.flat_blocks) {\n    const uint32_t before = blockIdx.x;\n"
+_K7_BLOCKS = "constexpr int kBandBlocksPerSM = 4;"
+_K7_CAP = "  blocks = static_cast<unsigned>(need < most ? need : most);\n"
+_K7_BOUNDS = "__global__ void __launch_bounds__(kThreads, 4)\n    band_refresh_3d_kernel("
 
 #: name: (what it shows, source, substitutions, kernels it touches)
 VARIANTS = {
-    "as built": ("the kernels", None, [], ("K2", "K4")),
+    "as built": ("the kernels", None, [], ("K2", "K4", "K7", "K7 2D")),
     "K2 axis-2 lines only": ("the interior rows' ends", "refresh_ghosts.cu",
                              [(_LINES_A, "  s.cnt_a = 0;\n"), (_LINES_B, "  s.cnt_b = 0;\n")],
                              ("K2",)),
@@ -87,18 +93,45 @@ VARIANTS = {
     "K4 at most 64 registers": ("four blocks an SM", "fold_ghosts.cu",
                                 [(_K4_BOUNDS, _K4_BOUNDS.replace("(kThreads)", "(kThreads, 4)"))],
                                 ("K4",)),
+    "K7 one block an SM": ("a grid of the SM count", "refresh_ghosts.cu",
+                           [(_K7_BLOCKS, _K7_BLOCKS.replace("4;", "1;"))], ("K7", "K7 2D")),
+    "K7 two blocks an SM": ("a grid of twice the SM count", "refresh_ghosts.cu",
+                            [(_K7_BLOCKS, _K7_BLOCKS.replace("4;", "2;"))], ("K7", "K7 2D")),
+    "K7 eight blocks an SM": ("a grid of eight times the SM count", "refresh_ghosts.cu",
+                              [(_K7_BLOCKS, _K7_BLOCKS.replace("4;", "8;"))], ("K7", "K7 2D")),
+    "K7 16 blocks an SM": ("a grid of 16 times the SM count", "refresh_ghosts.cu",
+                           [(_K7_BLOCKS, _K7_BLOCKS.replace("4;", "16;"))], ("K7", "K7 2D")),
+    "K7 full grid": ("a block for every 256 threads of the gated-on work, each exiting at "
+                     "once when gated off", "refresh_ghosts.cu",
+                     [(_K7_CAP, "  blocks = static_cast<unsigned>(need);\n")], ("K7", "K7 2D")),
+    "K7 at most 48 registers": ("five blocks an SM, a grid of five times the SM count",
+                                "refresh_ghosts.cu",
+                                [(_K7_BOUNDS, _K7_BOUNDS.replace("(kThreads, 4)", "(kThreads, 5)")),
+                                 (_K7_BLOCKS, _K7_BLOCKS.replace("4;", "5;"))], ("K7",)),
+    "K7 at most 40 registers": ("K2's register cap, six blocks an SM, a grid of six times the "
+                                "SM count (the first design)", "refresh_ghosts.cu",
+                                [(_K7_BOUNDS, _K7_BOUNDS.replace("(kThreads, 4)", "(kThreads, 6)")),
+                                 (_K7_BLOCKS, _K7_BLOCKS.replace("4;", "6;"))], ("K7",)),
+    "K7 at most 40 registers, 24 blocks an SM": (
+        "K2's register cap, a grid of 24 times the SM count", "refresh_ghosts.cu",
+        [(_K7_BOUNDS, _K7_BOUNDS.replace("(kThreads, 4)", "(kThreads, 6)")),
+         (_K7_BLOCKS, _K7_BLOCKS.replace("4;", "24;"))], ("K7",)),
 }
 
 
 class _Lib:
-    """K2's and K4's entries of one variant's library, beside the main
+    """K2's, K4's and K7's entries of one variant's library, beside the main
     library's others."""
 
     def __init__(self, path, main):
         lib = ctypes.CDLL(str(path))
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for attr, name, args in (("refresh", "lsm_refresh_ghosts", [vp] + [i64] * 3 + [vp] * 4),
-                                 ("fold", "lsm_fold_ghosts", [vp, vp] + [i64] * 3 + [vp] * 4)):
+                                 ("fold", "lsm_fold_ghosts", [vp, vp] + [i64] * 3 + [vp] * 4),
+                                 ("band_refresh", "lsm_refresh_band_ghosts",
+                                  [vp] + [i64] * 3 + [vp] * 5),
+                                 ("band_refresh_2d", "lsm_refresh_band_ghosts_2d",
+                                  [vp] + [i64] * 2 + [vp] * 5)):
             for suffix in ("f32", "f64"):
                 fn = getattr(lib, f"{name}_{suffix}", None)
                 if fn is None:
@@ -109,13 +142,14 @@ class _Lib:
         self._lib, self.error_string = lib, main.error_string
 
 
-def build(main):
-    """Every variant's library, built in parallel: ``{name: _Lib}``."""
+def build(main, names):
+    """The libraries of the variants ``names``, built in parallel: ``{name:
+    _Lib}``."""
     out_dir = _build.BUILD_DIR / "shell_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, cmds = _build.find_nvcc(), {}
     for n, (name, (_, source, subs, _)) in enumerate(VARIANTS.items()):
-        if source is None:
+        if source is None or name not in names:
             continue
         src = (_build.CSRC / source).read_text()
         for old, new in subs:
@@ -142,11 +176,15 @@ def build(main):
     return libs
 
 
-def main() -> int:
+def main(only) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("shell_variants: no CUDA device")
+    unknown = set(only) - set(VARIANTS)
+    if unknown:
+        raise SystemExit(f"shell_variants: unknown variants {sorted(unknown)}")
+    names = ["as built", *(n for n in VARIANTS if n in only)] if only else list(VARIANTS)
     dev = torch.device("cuda", 0)
-    libs = build(_build.load_library())
+    libs = build(_build.load_library(), names)
     _, phi, _ = cs.zalesak(cs.N_MAIN, dev)
     torus = cs.torus_field(cs.N_MAIN, dev)
     mixed7 = lsm.normalize_bcs([(lsm.Extrapolation(7), lsm.Symmetry()), lsm.Periodic(),
@@ -164,11 +202,21 @@ def main() -> int:
         calls[("K4", label)] = lambda G=G, bcs=bcs, shape=shape: bwd.fold_ghost_cotangent_fast(
             G, bcs, shape)
     del phi, torus, states
-    times = {name: {} for name in VARIANTS}
-    loaders = v2.load_library, bwd.load_library
+    on = torch.ones(2, dtype=torch.int32, device=dev)
+    off = torch.zeros(2, dtype=torch.int32, device=dev)
+    nb = cs.sphere_band(cs.N_MAIN, dev)
+    _, nb2, _ = cs.d2b(cs.N_2D, dev)
+    for kernel, b in (("K7", nb), ("K7 2D", nb2)):
+        Q = v2.pack_padded(b.values, b.bcs)
+        for label, f in (("on", on), ("off", off)):
+            calls[(kernel, label)] = lambda Q=Q, b=b, f=f: bd.refresh_band_ghosts_fast(
+                Q, b.bcs, b.shape, f)
+    del nb, nb2
+    times = {name: {} for name in names}
+    loaders = v2.load_library, bwd.load_library, bd.load_library
     try:
-        for name in [*VARIANTS, *reversed(VARIANTS)]:
-            v2.load_library = bwd.load_library = lambda lib=libs[name]: lib
+        for name in [*names, *reversed(names)]:
+            v2.load_library = bwd.load_library = bd.load_library = lambda lib=libs[name]: lib
             for (kernel, label), fn in calls.items():
                 if kernel not in VARIANTS[name][3]:
                     continue
@@ -176,13 +224,14 @@ def main() -> int:
                                 (f"{kernel} {label} event", cs.cuda_time(fn))):
                     times[name][key] = min(times[name].get(key, ms), ms)
     finally:
-        v2.load_library, bwd.load_library = loaders
+        v2.load_library, bwd.load_library, bd.load_library = loaders
     print(cs.nvidia_smi())
-    for name, (what, *_rest) in VARIANTS.items():
+    for name in names:
+        what = VARIANTS[name][0]
         print(f"VARIANT {name} ({what}): "
               + " ".join(f"{k} {v:.4f} ms" for k, v in times[name].items()), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
