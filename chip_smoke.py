@@ -24,7 +24,10 @@ phases (a partial run: no kernel record):
              for bit and the autograd transpose of ``pack_padded``, at K2's
              shapes and BC cases, f32 and f64: its input's bits untouched, a
              second launch and a launch on a misaligned copy equal bits;
-             shell zeroing (K5) vs its plain version.
+             shell zeroing (K5, 3D and 2D) vs its plain version bit for bit at
+             those shapes, K2's 2D ones (4096^2 among them) and axes of 1-3
+             nodes, f32 and f64, on and off 16-byte alignment, the interior
+             and the elements around the buffer untouched.
 6. k3      — stage backward (K3) in f32 vs the f64 autograd oracle of stage +
              refresh, in f64 vs its plain version, in f32 vs its plain version.
 7. k6k7k8  — the band kernels vs their plain versions at 40x72x136, f32 and
@@ -151,8 +154,10 @@ phases (a partial run: no kernel record):
     general_small — card vs CPU: H and a band with hooks at 64^3,
              ``reinitialize`` at 64^3 f64, the general path's rollout
              gradient at 32^3 f64 (K10 launches in its forward).
-15. timing — CUDA-event medians at 512^3: K1-K5 (K2 and K4 also back to
-             back and by device time, K4 beside g.clone()), the FE and RK3 steps
+15. timing — CUDA-event medians at 512^3: K1-K5 (K2, K4 and K5 also back
+             to back and by device time, K4 beside g.clone(); K2's single-axis
+             phases at the shard shapes by device time: tools/ghost_shells.py,
+             a process of its own), the FE and RK3 steps
              through the kernels and through the plain versions, the
              end-to-end ``integrate`` time per step for FE and RK3, the two
              gradient cells, and the plain backward; peak memory of each.
@@ -172,10 +177,12 @@ phases (a partial run: no kernel record):
              beside their plain versions; the flagship RK3 ``integrate`` per step with the
              rotation in-kernel and streamed, in turns.
     k9     — the shell writer K9 vs its plain version, bit for bit (random
-             blocks, every subset, f32 and f64); K2's single-axis entry; the
-             sharded refresh on (4, 1), (2, 2) and (1, 4) meshes of the card vs
-             the single-device refresh, five BC cases; K9 timed at the 512^3
-             flagship's shard shapes.
+             blocks, every subset, f32 and f64); K2's single-axis entry (also
+             at 150x160x521, many blocks an SM, and on a buffer past 2^31
+             elements, where K2's 3D entry and K7 under each gate take its
+             three launches); the sharded refresh on (4, 1), (2, 2) and (1, 4)
+             meshes of the card vs the single-device refresh, five BC cases;
+             K9 timed at the 512^3 flagship's shard shapes.
     sharded — this slice's main path: the 512^3 flagship (in-kernel
              rotation, RK3, 10 steps) through make_sharded_evolve(fused=True) on
              (4, 1) and (2, 2) meshes of the card vs the single-device
@@ -697,9 +704,41 @@ def k4_compare(phase, label, G, bcs, shape, autograd=True):
     return err
 
 
+#: K5's shapes besides SHELL_SHAPES and K2_2D_SHAPES (D2b's 4096^2 among
+#: them): axes of 1-3 nodes, gaps between planes and a 2D head longer than a
+#: block's chunk of vectors
+K5_SHAPES = ((1, 7, 5), (3, 2, 9), (2, 3, 1), (3, 2, 700), (1, 5), (3, 2), (3, 1400))
+
+
+def k5_compare(shape, dtype, off, gen):
+    """K5 on a padded buffer of ``shape`` (3D or 2D) of random values that
+    starts ``off`` elements into its allocation (off 16-byte alignment for
+    ``off`` 1): equal to its plain version bit for bit, its interior and the
+    elements around it untouched. Returns ``max|kernel - plain|`` (0) or
+    raises."""
+    numel = math.prod(v2.padded_shape(shape))
+    base = torch.randn(numel + off + 1, generator=gen, device=gen.device, dtype=dtype)
+    keep = base.clone()
+    buf = base[off:off + numel].view(v2.padded_shape(shape))
+    ref = bwd.zero_pad_shells_plain(buf.clone(), shape)
+    out = bwd.zero_pad_shells(buf, shape)
+    torch.cuda.synchronize()
+    inner = same_bits(v2.unpack_padded(buf, shape).contiguous(),
+                      v2.unpack_padded(keep[off:off + numel].view(buf.shape), shape).contiguous())
+    around = same_bits(base[:off], keep[:off]) and same_bits(base[off + numel:],
+                                                              keep[off + numel:])
+    if not (out is buf and same_bits(buf, ref) and inner and around):
+        raise AssertionError(f"K5 at {shape} {dtype} {off} elements off: equal bits "
+                             f"{same_bits(buf, ref)}, interior untouched {inner}, around "
+                             f"untouched {around}")
+    return float((buf - ref).abs().max())
+
+
 def phase_k4k5(dev, res):
     """K4 at SHELL_SHAPES under their BC cases, f32 and f64
-    (:func:`k4_compare`); K5 against its plain version (bit for bit)."""
+    (:func:`k4_compare`); K5 against its plain version bit for bit at
+    SHELL_SHAPES, K2_2D_SHAPES and K5_SHAPES, f32 and f64, on buffers on and
+    off 16-byte alignment, interiors untouched (:func:`k5_compare`)."""
     gen = torch.Generator(device=dev).manual_seed(4)
     worst = 0.0
     for shape in SHELL_SHAPES:
@@ -707,14 +746,14 @@ def phase_k4k5(dev, res):
             for name, bcs in shell_cases(shape).items():
                 G = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
                 worst = max(worst, k4_compare("k4k5", name, G, bcs, shape))
-    shape = SHELL_SHAPES[0]
-    buf = torch.randn(v2.padded_shape(shape), generator=gen, device=dev)
-    got = bwd.zero_pad_shells(buf.clone(), shape)
-    same = bool(torch.equal(got, bwd.zero_pad_shells_plain(buf.clone(), shape)))
-    log("k4k5", f"K5 shape={shape} kernel == plain: {same}")
-    if not same:
-        raise AssertionError("K5 differs from its plain version")
-    res["k4_err"], res["k5_err"] = worst, 0.0
+    worst5, shapes = 0.0, SHELL_SHAPES + K2_2D_SHAPES + K5_SHAPES
+    for shape in shapes:
+        for dtype in (torch.float32, torch.float64):
+            for off in (0, 1):
+                worst5 = max(worst5, k5_compare(shape, dtype, off, gen))
+    log("k4k5", f"K5 == plain bit for bit, interiors and neighbours untouched, at {shapes}, "
+                f"f32 and f64, on and off 16-byte alignment")
+    res["k4_err"], res["k5_err"] = worst, worst5
 
 
 def _k3_compare(tag, got, ref, shape, bcs, tol):
@@ -4167,6 +4206,8 @@ def timing_backward(dev, res, grid, phi, vel, P, u, dt):
     t["K5"] = cuda_time(lambda: bwd.zero_pad_shells(G, shape))
     mask = shell_mask(shape, dev)
     t["K5_library"] = cuda_time(lambda: G.masked_fill_(mask, 0.0))
+    # the whole 32-byte sectors K5 writes (its seams of 24 B straddle them)
+    res["k5_sector_bytes"] = 32 * torch.unique(mask.view(-1).nonzero().view(-1) * 4 // 32).numel()
     del mask
     t["K4_plain"] = cuda_time(lambda: bwd.fold_ghost_cotangent_plain(G, bcs, shape), warmup=1)
     t["K5_plain"] = cuda_time(lambda: bwd.zero_pad_shells_plain(G, shape), warmup=1)
@@ -4232,20 +4273,22 @@ def timing_backward(dev, res, grid, phi, vel, P, u, dt):
 
 def shells_device(res):
     """The device times of K2, K4 and ``g.clone()`` at 512^3 (the flagship's
-    Periodic state; config A's ``Extrapolation(2)`` and mixed BCs beside it)
-    from ``tools/ghost_shells.py`` in a process of its own: after the phases
-    before it, this process's profiler under-reads them (on an H100, K4 0.14
-    ms of its 0.40, the clone's copy not at all). Into ``res["t"]``
-    (K2_device, K4_device, K4_clone_device) and ``res["shells"]`` (every
-    reading of the tool)."""
+    Periodic state; config A's ``Extrapolation(2)`` and mixed BCs beside it),
+    of K5 at 512^3, and of K2's single-axis phases at the sharded flagship's
+    shard shapes (out of L2) from ``tools/ghost_shells.py`` in a process of its
+    own: after the phases before it, this process's profiler under-reads them
+    (on an H100, K4 0.14 ms of its 0.40, the clone's copy not at all). Into
+    ``res["t"]`` (K2_device, K4_device, K4_clone_device, K5_device) and
+    ``res["shells"]`` (every reading of the tool)."""
     torch.cuda.empty_cache()  # the cached blocks of the phases before, for the child
     out = subprocess.run([sys.executable, "tools/ghost_shells.py", "smoke"], capture_output=True,
                          text=True, check=True, timeout=600).stdout
     line = next(x for x in out.splitlines() if x.startswith("SHELLS smoke"))
-    vals = line.split()[3:]
+    vals = line.split()[2:]
     shells = {k: float(v) for k, v in zip(vals[::2], vals[1::2])}
-    for key, name in (("K2_device", "K2"), ("K4_device", "K4"), ("K4_clone_device", "clone")):
-        res["t"][key] = shells[f"periodic_{name}_device"]
+    for key, name in (("K2_device", "periodic_K2"), ("K4_device", "periodic_K4"),
+                      ("K4_clone_device", "periodic_clone"), ("K5_device", "K5")):
+        res["t"][key] = shells[f"{name}_device"]
     res["shells"] = shells
     log("timing", "device ms (tools/ghost_shells.py): " + " ".join(
         f"{k} {v:.4f}" for k, v in shells.items() if k.endswith("_device")))
@@ -4798,16 +4841,98 @@ def sharded_refresh_mismatches(grid, bcs, v, dev, label):
     return bad
 
 
+#: a buffer past 2^31 elements (10.1 GB in f32) on which K2's 3D entry and K7
+#: take the three launches of K2's single-axis entry (their one launch would
+#: need 2^31 threads); one node along axis 2, so Extrapolation(0) there
+K2AX_BIG = (20000, 18000, 1)
+
+
+def kernel_names(fn):
+    """The names of the kernels one call of ``fn`` launches (the profiler; a
+    trace with no kernel at all is taken again once, calling ``fn`` again: the
+    profiler's first trace in a process has come back empty, and late in a
+    long process every trace). ``fn`` must give the same result when called
+    twice (a ghost refresh does)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def k2ax_past_2_31(dev):
+    """K2's single-axis entry (each axis), K2's 3D entry and K7 under each of
+    K7_FLAGS on a K2AX_BIG buffer of random values, f32, bit for bit against
+    their plain versions; the 3D entry and K7 there launch the single-axis
+    kernel three times (the profiler's kernel names)."""
+    shape = K2AX_BIG
+    bcs = lsm.normalize_bcs([lsm.Periodic(), (lsm.Symmetry(), lsm.Extrapolation(3)),
+                             lsm.Extrapolation(0)], 3)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(31)
+    orig = torch.randn(v2.padded_shape(shape), generator=gen, device=dev)
+    bad = []
+
+    def check(label, fast, plain, launches):
+        ref = plain(orig.clone())
+        P = orig.clone()
+        names = kernel_names(lambda: fast(P))
+        axis = sum("refresh_axis_kernel" in name for name in names)
+        if not (same_bits(P, ref) and axis == launches):
+            bad.append((label, same_bits(P, ref), axis, names[:3]))
+        del P, ref
+        torch.cuda.empty_cache()
+
+    for ax in range(3):
+        check(f"axis {ax}", lambda P: v2.refresh_axis_fast(P, bcs, shape, ax),
+              lambda P: v2.refresh_axis_plain(P, bcs, shape, ax), 1)
+    check("K2 3D", lambda P: v2.refresh_ghosts_fast(P, bcs, shape),
+          lambda P: v2.refresh_ghosts_plain(P, bcs, shape), 3)
+    for flags in K7_FLAGS:
+        f = torch.tensor(flags, dtype=torch.int32, device=dev)
+        check(f"K7 {flags}", lambda P: bd.refresh_band_ghosts_fast(P, bcs, shape, f),
+              lambda P: bd.refresh_band_ghosts_plain(P, bcs, shape, f), 3)
+    log("k9", f"{shape} f32 ({orig.numel()} elements, past 2^31): K2's single-axis entry "
+              f"(axes 0-2), K2 3D and K7 under {K7_FLAGS} (three single-axis launches each) "
+              f"vs plain, bit for bit: mismatches {bad}")
+    del orig
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"K2's single-axis route past 2^31 elements failed: {bad}")
+
+
+def axis2_sector_bytes(shape):
+    """The bytes of the whole 32-byte sectors that K2's axis-2 phase reads
+    and writes on a padded f32 buffer of ``shape`` (Periodic, 32-byte aligned):
+    each padded row's six ghosts and their six sources, a sector counted once
+    for the reads and once for the writes."""
+    n2, S2 = shape[2], shape[2] + 2 * v2.GHOST
+    rows = (shape[0] + 2 * v2.GHOST) * (shape[1] + 2 * v2.GHOST)
+    base = torch.arange(rows, dtype=torch.int64)[:, None] * S2
+    ghosts = torch.tensor([0, 1, 2, n2 + 3, n2 + 4, n2 + 5])
+    sources = torch.tensor([n2 - 1, n2, n2 + 1, 4, 5, 6])  # nodes n2-4..n2-2 and 1..3
+    return 32 * sum(torch.unique((base + at) * 4 // 32).numel() for at in (ghosts, sources))
+
+
 def phase_k9(dev, res):
     """K9 against its plain version (slice assignment), bit for bit: random
     blocks at ragged shapes, every subset of the four, f32 and f64; K2's
     single-axis entry against its plain version, every BC case and axis; the
     sharded refresh (exchange, BC blocks, K9, K2's phases) on meshes of the
     card against the single-device plain refresh, every BC case, f32 and
-    f64; the same at the 512^3 flagship's size, with K9 and K2's
-    single-axis entry at its shard shapes, f32; then K9 timed there over
-    K9_SETS buffers in turn (out of L2) beside its plain version and K2's
-    axis-2 phase."""
+    f64; the single-axis entry at 150x160x521 too; the same at the 512^3
+    flagship's size, with K9 and K2's single-axis entry at its shard shapes,
+    f32; the single-axis route on a buffer past 2^31 elements
+    (:func:`k2ax_past_2_31`, in a process of its own); then K9 timed there
+    over K9_SETS buffers in turn (out of L2) beside its plain version and
+    K2's axis-2 phase."""
     gen = torch.Generator(device=dev).manual_seed(19)
     worst, worst_ax, bad = 0.0, 0.0, []
     for dtype in (torch.float32, torch.float64):
@@ -4833,10 +4958,19 @@ def phase_k9(dev, res):
                     bad.append(("K2 axis", str(dtype), name, ax))
             v = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
             bad += sharded_refresh_mismatches(grid, bcs, v, dev, (str(dtype), name))
+        shape = K7_SHAPES[2]  # a grid of many blocks an SM on every axis
+        for name, bcs in bc_cases().items():
+            P = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
+            for ax in range(3):
+                a = v2.refresh_axis_fast(P.clone(), bcs, shape, ax)
+                b = v2.refresh_axis_plain(P.clone(), bcs, shape, ax)
+                worst_ax = max(worst_ax, float((a - b).abs().max()))
+                if not same_bits(a, b):
+                    bad.append(("K2 axis", str(dtype), shape, name, ax))
     log("k9", f"K9 vs plain, 3 shapes x 16 block subsets, f32 and f64: max|diff| {worst:.3e}; "
-              f"K2's single-axis entry vs plain and the sharded refresh on meshes "
-              f"{SHARDED_MESHES + ((1, 4),)} of the card vs the single-device plain refresh, "
-              f"{len(bc_cases())} BC cases: mismatches {bad}")
+              f"K2's single-axis entry vs plain (also at {K7_SHAPES[2]}) and the sharded "
+              f"refresh on meshes {SHARDED_MESHES + ((1, 4),)} of the card vs the "
+              f"single-device plain refresh, {len(bc_cases())} BC cases: mismatches {bad}")
     if bad:
         raise AssertionError(f"K9 / sharded refresh check failed: {bad[:4]}")
     # the flagship's size: the sharded refresh of random 512^3 values against
@@ -4869,6 +5003,17 @@ def phase_k9(dev, res):
               f"f32: mismatches {bad}")
     if bad:
         raise AssertionError(f"K9 / sharded refresh check at {N_MAIN}^3 failed: {bad[:4]}")
+    # in a process of its own: late in this one the profiler that names the
+    # kernels has recorded none
+    torch.cuda.empty_cache()
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys, torch; sys.path.insert(0, '.'); import chip_smoke; "
+         "chip_smoke.k2ax_past_2_31(torch.device('cuda', 0))"],
+        capture_output=True, text=True, timeout=900)
+    print(child.stdout, end="", flush=True)
+    if child.returncode != 0:
+        raise AssertionError(f"K2's single-axis route past 2^31 elements failed:\n"
+                             f"{child.stderr[-3000:]}")
     periodic = lsm.normalize_bcs(lsm.Periodic(), 3)
     times = {}
     for ms in SHARDED_MESHES:
@@ -4891,8 +5036,10 @@ def phase_k9(dev, res):
         k2_axis2 = turns(lambda P, bl: v2.refresh_axis_fast(P, periodic, shape, 2))
         k2_axis2_plain = turns(lambda P, bl: v2.refresh_axis_plain(P, periodic, shape, 2))
         # periodic: each axis-2 ghost (over the padded extent of axes 0 and
-        # 1) read once from its source and written once
+        # 1) read once from its source and written once; axis 1's over axis
+        # 0's padded extent and axis 2's interior
         k2_bytes = 2 * 4 * 2 * v2.GHOST * (shape[0] + 6) * (shape[1] + 6)
+        k2_axis1_bytes = 2 * 4 * 2 * v2.GHOST * (shape[0] + 6) * shape[2]
         # device time per call (the profiler) and the time of one call
         # between CUDA events, the host's issue included; K9 on one set
         # again and again (its blocks and shells stay in L2) beside them
@@ -4900,7 +5047,9 @@ def phase_k9(dev, res):
                      "ms": device_ms(k9), "plain_ms": device_ms(plain),
                      "K2_axis2_ms": device_ms(k2_axis2),
                      "K2_axis2_plain_ms": device_ms(k2_axis2_plain),
-                     "K2_axis2_bound": bound(k2_bytes, 0), "call_ms": cuda_time(k9),
+                     "K2_axis2_bound": bound(k2_bytes, 0),
+                     "K2_axis2_sectors": axis2_sector_bytes(shape),
+                     "K2_axis1_bound": bound(k2_axis1_bytes, 0), "call_ms": cuda_time(k9),
                      "plain_call_ms": cuda_time(plain),
                      "ms_hot_l2": device_ms(lambda: sfe.write_shell_blocks(P, *bl, shape))}
         r = times[ms]
@@ -5802,6 +5951,7 @@ def kernel_records(res):
     plane2d, cells2d, w2d = (N_2D + 6) ** 2, N_2D ** 2, res["k1_2d_work"]
     k9 = res["k9"]["times"]
     k9_main = k9[(2, 2)]  # the (2, 2) mesh: all four blocks per shard
+    shells = res["shells"]  # tools/ghost_shells.py's readings, a process of its own
     rows = [
         ("K1 fused_stage (WENO5 advection RK stage)", "weno_stage.cu",
          "lsm_tpu/ops/weno_v2.py:667", "K1", res["k1_err"], t["K1"], t["K1_plain"],
@@ -5820,9 +5970,9 @@ def kernel_records(res):
          "lsm_tpu/ops/weno_v2_bwd.py:179", "K4", res["k4_err"], t["K4"], t["K4_plain"],
          # out of place: g read once, the new buffer written once
          bound(f32 * 2 * padded, 2 * ghosts), t["K4_clone"]),
-        ("K5 zero_pad_shells (ghost-shell zeroing)", "fold_ghosts.cu",
-         "lsm_tpu/ops/weno_v2_bwd.py:293", "K5", res["k5_err"], t["K5"], t["K5_plain"],
-         bound(f32 * ghosts, 0), t["K5_library"]),
+        ("K5 zero_pad_shells (ghost-shell zeroing: the gaps between interior rows)",
+         "fold_ghosts.cu", "lsm_tpu/ops/weno_v2_bwd.py:293", "K5", res["k5_err"], t["K5"],
+         t["K5_plain"], bound(f32 * ghosts, 0), t["K5_library"]),
         ("K6 band_stage (WENO5 advection RK stage over the active tiles)", "band_stage.cu",
          "lsm_tpu/ops/band_pallas.py:612", "K6", res["k6_err"], t["K6"], t["K6_plain"],
          # per dispatched node: P's centre and the mask read, the output
@@ -5874,8 +6024,9 @@ def kernel_records(res):
          k9_main["bound"], None),
         (f"K2 refresh_axis_fast (K2's single-axis entry: the axis-2 phase of the sharded "
          f"refresh; the 512^3 flagship on a (2, 2) mesh of the card, shard "
-         f"{k9_main['shape']})", "refresh_ghosts.cu", "lsm_tpu/ops/weno_v2.py:208", "K2ax",
-         res["k9"]["k2ax_err"], k9_main["K2_axis2_ms"], k9_main["K2_axis2_plain_ms"],
+         f"{k9_main['shape']}; device time out of L2, tools/ghost_shells.py)",
+         "refresh_ghosts.cu", "lsm_tpu/ops/weno_v2.py:208", "K2ax", res["k9"]["k2ax_err"],
+         shells["K2ax_2x2_axis2_device"], k9_main["K2_axis2_plain_ms"],
          k9_main["K2_axis2_bound"], None),
         ("K1'' fused_stage with an in-kernel coefficient program (the rotation)",
          "weno_stage.cu", "lsm_tpu/ops/weno_v2.py:667", "K1''", res["k1a_err"],
@@ -5975,6 +6126,21 @@ def kernel_records(res):
             rec.update(ms_back_to_back=t[f"{key}_back_to_back"], ms_device=t[f"{key}_device"],
                        ms_device_by_bc={bc: res["shells"][f"{bc}_{key}_device"]
                                         for bc in ("periodic", "extrap2", "mixed7")})
+        if key == "K5":  # the device time a call (a process of its own) and back to back;
+            # the bound with every sector the shells touch written whole
+            rec.update(library_call="masked_fill_", ms_device=shells["K5_device"],
+                       ms_back_to_back=shells["K5_b2b"],
+                       bound_by_sector_ms=bound(res["k5_sector_bytes"], 0)[0])
+        if key == "K2ax":  # the (4, 1) mesh's shard: axes 1 and 2; the event time a call
+            # and the profiler's in this process beside the device time
+            rec.update(ms_event=shells["K2ax_2x2_axis2_event"],
+                       ms_device_in_process=k9_main["K2_axis2_ms"],
+                       bound_by_sector_ms=bound(k9_main["K2_axis2_sectors"], 0)[0],
+                       ms_axis1_mesh_4x1=shells["K2ax_4x1_axis1_device"],
+                       ms_axis2_mesh_4x1=shells["K2ax_4x1_axis2_device"],
+                       bound_ms_axis1_mesh_4x1=k9[(4, 1)]["K2_axis1_bound"][0],
+                       bound_ms_axis2_mesh_4x1=k9[(4, 1)]["K2_axis2_bound"][0],
+                       shard_4x1=list(k9[(4, 1)]["shape"]))
         if key == "K4":
             rec.update(library_call="g.clone()",
                        library_ms_back_to_back=t["K4_clone_back_to_back"],

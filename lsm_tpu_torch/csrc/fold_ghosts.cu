@@ -48,14 +48,19 @@
 // is 32-bit within a block (a fast division by the plane and row lengths),
 // from a 64-bit base per block.
 //
-// K5. One launch, one thread per ghost node of the six slabs (axis-0 slabs
-// over the padded extents of axes 1 and 2, axis-1 slabs over interior axis
-// 0, axis-2 slabs over interior axes 0 and 1), writing 0.
+// K5. One launch, 3D or 2D, over the gaps between the interior rows of the
+// buffer read as flat memory (zero_shells_kernel, below): the long gaps
+// (head, tail, between planes) as 16-byte stores, the six-element seams
+// between two rows of a plane a few lanes each; no interior node is read or
+// written. On an H100 at 512^3 f32 it takes 0.028 ms of device time, its
+// first design (one thread a ghost node of the six slabs, each decoding its
+// node with 64-bit divisions) 0.042; the seams bind (below).
 //
 // Bound: K4 reads g and writes gf whole, 2 x 518^3 x 4 B at 512^3 f32: 0.332
 // ms at 3.35 TB/s (the copy it replaces moved the same bytes, and the
 // in-place fold after it some 40 MB more). K5 writes the shells only, 19 MB
-// at 512^3: launch latency dominates.
+// at 512^3 f32: 0.0057 ms; its 261,632 seams of 24 B fall across 32-byte
+// sectors, so with every sector they touch counted whole about 0.008 ms.
 //
 // The 2D entries (lsm_fold_ghosts_2d_*, lsm_zero_shells_2d_*) take a 2D
 // field's (n0+6, n1+6) buffer, the dense 2D stepper's. K4's is the transpose
@@ -68,12 +73,14 @@
 // the node, axis 1's contributions (V1), then axis 0's, w * V1(ghost), where
 // V1 of an axis-0 ghost row (its corner contributions) is recomputed from g.
 // An axis of 1-3 nodes (Extrapolation of degree <= n-1) has no bulk: each of
-// its nodes gathers from both faces, side 0 first. K5's zeroes the four ghost
-// slabs. Bound at 4096^2 f32: g read and gf written once, 2 x 4102^2 x 4 B =
+// its nodes gathers from both faces, side 0 first. K5's is the 3D design
+// on one plane of n0 rows (head and tail 3 rows and 3 nodes, seams of 6).
+// Bound at 4096^2 f32: g read and gf written once, 2 x 4102^2 x 4 B =
 // 134.6 MB, 0.040 ms at 3.35 TB/s; K5's 0.39 MB of shells, launch latency.
 
 #include <cuda_runtime.h>
 
+#include "fast_div.cuh"
 #include "lsm_kernels.h"
 
 namespace {
@@ -85,27 +92,6 @@ __device__ __forceinline__ float mul_add_rn(float acc, float w, float x) {
 }
 __device__ __forceinline__ double mul_add_rn(double acc, double w, double x) {
   return __dadd_rn(acc, __dmul_rn(w, x));
-}
-
-// n / d for n in [0, 2^31) and d in [1, 2^31): a multiply-high and a shift
-// (the round-up method; mul = ceil(2^(31 + ceil(log2 d)) / d))
-struct FastDiv {
-  uint32_t d, mul, shr;
-};
-
-FastDiv fast_div(uint32_t d) {
-  FastDiv f{d, 0, 0};
-  if (d > 1) {
-    int l = 0;
-    while ((uint64_t{1} << l) < d) ++l;
-    f.mul = static_cast<uint32_t>(((uint64_t{1} << (31 + l)) + d - 1) / d);
-    f.shr = static_cast<uint32_t>(l - 1);
-  }
-  return f;
-}
-
-__device__ __forceinline__ uint32_t quo(const FastDiv& f, uint32_t n) {
-  return f.d == 1 ? n : __umulhi(n, f.mul) >> f.shr;
 }
 
 // 16 bytes at an aligned address, as an array of 4 floats or 2 doubles
@@ -394,41 +380,149 @@ int launch_fold(const void* g_, void* gf_, int64_t n0, int64_t n1, int64_t n2, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5, both entries: the shells of a padded buffer read as flat memory are
+// the gaps between its interior rows (runs of n elements, `rows` of them a
+// plane, `planes` planes): the head (head_planes planes, 3 rows, 3 nodes),
+// a seam of 6 between two rows of a plane (one row's right ghosts, the
+// next row's left ones), 6 + 6 S2 between two planes (the row ends and both
+// planes' axis-1 slabs), and the tail, the head's mirror. 3D: rows of n2,
+// n1 a plane, n0 planes, 3 head planes; 2D: rows of n1, n0 in one plane,
+// none. The long gaps (head, tail, between planes) go in chunks of
+// kThreads * kZeroVectors 16-byte vectors, a block each, scalars at a
+// chunk's unaligned ends (a buffer off 16-byte alignment takes its vectors
+// at the elements that are aligned); the seams kSeamLanes lanes each,
+// 6 / kSeamLanes elements a lane, kSeams work items a thread kThreads
+// apart; block b takes seam block b and chunk b. Index math is 32-bit (a
+// fast division of the seam index by the seams a plane) below a plane's
+// 64-bit base. On an H100 at 512^3 f32 (device time, tools/shell_variants.py)
+// six lanes a seam took 0.027-0.028 ms, three 0.033, two 0.043, one 0.058
+// (a warp's stores then span 5 seams, not 32); the seams alone 0.013-0.015,
+// the long gaps alone 0.005-0.008; the long gaps' blocks apart from the
+// seams' (first, interleaved, after them, or after them in a grid of eight
+// blocks an SM) and chunks of 1-8 vectors a thread, all 0.028-0.029. What
+// binds is the seams' 24-byte stores into sectors whose other bytes are the
+// interior's.
+constexpr int kZeroVectors = 1;  // 16-byte vectors a thread of a long gap's chunk
+constexpr int kSeamLanes = 6;    // lanes a seam
+constexpr int kSeams = 1;        // seam work items a thread
+
+struct ZeroArgs {
+  uint32_t n, S2, rows, head_planes;  // row length, padded row length, rows a plane, head planes
+  uint32_t planes;                    // interior planes (the 2D buffer one)
+  int64_t plane;                      // padded elements a plane
+  int64_t head, mid;                  // elements of the head (and tail), of a gap between planes
+  uint32_t head_blocks, mid_blocks;   // their chunks
+  uint32_t long_blocks;               // chunks of every long gap
+  FastDiv div_mid;                    // by mid_blocks
+  uint32_t items, seam_blocks;        // seam work items (planes (rows - 1) kSeamLanes), blocks
+  FastDiv div_seams;                  // by rows - 1, the seams a plane
+  uint32_t phase;                     // the first element at a 16-byte boundary, in [0, W)
+};
+
+// Long gap chunk b: chunk c of gap g, 0 the head, planes the tail, else the
+// gap between planes g - 1 and g; scalars at its unaligned ends, 16-byte
+// vectors between.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    zero_shells_kernel(T* __restrict__ buf, int64_t n0, int64_t n1, int64_t n2) {
-  const int64_t S1 = n1 + 2 * LSM_GHOST, S2 = n2 + 2 * LSM_GHOST;
-  const int64_t cnt0 = 2 * LSM_GHOST * S1 * S2;  // axis-0 slabs
-  const int64_t cnt1 = n0 * 2 * LSM_GHOST * S2;  // axis-1 slabs, interior axis 0
-  const int64_t cnt2 = n0 * n1 * 2 * LSM_GHOST;  // axis-2 slabs, interior axes 0, 1
-  int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  int64_t i, j, k;
-  auto ghost = [](int64_t s6, int64_t n) { return s6 < LSM_GHOST ? s6 : n + s6; };
-  if (t < cnt0) {
-    k = t % S2;
-    j = (t / S2) % S1;
-    i = ghost(t / (S1 * S2), n0);
-  } else if ((t -= cnt0) < cnt1) {
-    k = t % S2;
-    j = ghost((t / S2) % (2 * LSM_GHOST), n1);
-    i = LSM_GHOST + t / (S2 * 2 * LSM_GHOST);
-  } else if ((t -= cnt1) < cnt2) {
-    k = ghost(t % (2 * LSM_GHOST), n2);
-    j = LSM_GHOST + (t / (2 * LSM_GHOST)) % n1;
-    i = LSM_GHOST + t / (2 * LSM_GHOST * n1);
+__device__ __forceinline__ void zero_chunk(T* __restrict__ buf, const ZeroArgs& a, uint32_t b) {
+  constexpr uint32_t W = 16 / sizeof(T);                    // elements a vector
+  constexpr uint32_t kChunk = kThreads * kZeroVectors * W;  // elements a chunk
+  uint32_t g, c;
+  const uint32_t between = (a.planes - 1) * a.mid_blocks;
+  if (b < a.head_blocks) {
+    g = 0, c = b;
+  } else if (b - a.head_blocks < between) {
+    const uint32_t r = b - a.head_blocks;
+    g = 1 + quo(a.div_mid, r);
+    c = r - (g - 1) * a.mid_blocks;
   } else {
-    return;
+    g = a.planes, c = b - a.head_blocks - between;
   }
-  buf[(i * S1 + j) * S2 + k] = T(0);
+  // a gap after the head starts where the last row of plane g - 1 ends
+  const int64_t start =
+      (g == 0 ? 0
+              : static_cast<int64_t>(a.head_planes + g - 1) * a.plane +
+                    (static_cast<int64_t>(a.rows + 2) * a.S2 + LSM_GHOST + a.n)) +
+      static_cast<int64_t>(c) * kChunk;
+  const int64_t left =
+      (g == 0 || g == a.planes ? a.head : a.mid) - static_cast<int64_t>(c) * kChunk;
+  const uint32_t cnt = left < kChunk ? static_cast<uint32_t>(left) : kChunk;
+  T* p = buf + start;
+  const uint32_t lead = min((a.phase - static_cast<uint32_t>(start)) & (W - 1), cnt);
+  const uint32_t vecs = (cnt - lead) / W, tail = lead + vecs * W;
+  if (threadIdx.x < lead) p[threadIdx.x] = T(0);
+  if (threadIdx.x < cnt - tail) p[tail + threadIdx.x] = T(0);
+  const T zero[W] = {};
+#pragma unroll
+  for (int u = 0; u < kZeroVectors; ++u) {
+    const uint32_t v = u * kThreads + threadIdx.x;
+    if (v < vecs) store16(p + lead + v * W, zero);
+  }
 }
 
+// Seam block b: its threads' work items, kThreads apart, each kRun elements
+// of seam q = item / kSeamLanes (row r of plane pl: the fast division).
 template <typename T>
-int launch_zero_shells(void* buf, int64_t n0, int64_t n1, int64_t n2, void* stream) {
-  const int64_t S0 = n0 + 2 * LSM_GHOST, S1 = n1 + 2 * LSM_GHOST, S2 = n2 + 2 * LSM_GHOST;
-  const int64_t total = S0 * S1 * S2 - n0 * n1 * n2;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  zero_shells_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<T*>(buf), n0, n1, n2);
+__device__ __forceinline__ void zero_seams(T* __restrict__ buf, const ZeroArgs& a, uint32_t b) {
+  constexpr int kRun = 2 * LSM_GHOST / kSeamLanes;  // elements a lane
+  const uint32_t w0 = b * (kThreads * kSeams) + threadIdx.x;
+#pragma unroll
+  for (int s = 0; s < kSeams; ++s) {
+    const uint32_t w = w0 + s * kThreads;
+    if (w >= a.items) return;
+    const uint32_t q = w / kSeamLanes, part = w - q * kSeamLanes;
+    const uint32_t pl = quo(a.div_seams, q), r = q - pl * (a.rows - 1);
+    T* p = buf + static_cast<int64_t>(a.head_planes + pl) * a.plane +
+           ((r + LSM_GHOST) * a.S2 + LSM_GHOST + a.n + part * kRun);
+#pragma unroll
+    for (int e = 0; e < kRun; ++e) p[e] = T(0);
+  }
+}
+
+// Block b zeroes seam block b and long gap chunk b, those that exist.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) zero_shells_kernel(T* __restrict__ buf, ZeroArgs a) {
+  if (blockIdx.x < a.seam_blocks) zero_seams(buf, a, blockIdx.x);
+  if (blockIdx.x < a.long_blocks) zero_chunk(buf, a, blockIdx.x);
+}
+
+// K5's launch over `planes` planes of `rows` rows of n nodes (3D: n0, n1,
+// n2 with head_planes 3; 2D: 1, n0, n1 with none).
+template <typename T>
+int launch_zero_shells(void* buf, int64_t planes, int64_t rows, int64_t n, int head_planes,
+                       void* stream) {
+  constexpr int64_t W = 16 / sizeof(T), kChunk = kThreads * kZeroVectors * W;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(buf);
+  const int64_t S2 = n + 2 * LSM_GHOST, plane = (rows + 2 * LSM_GHOST) * S2;
+  const int64_t seams = planes * (rows - 1);
+  ZeroArgs a;
+  a.head = head_planes * plane + LSM_GHOST * S2 + LSM_GHOST;
+  a.mid = 2 * LSM_GHOST * S2 + 2 * LSM_GHOST;
+  const int64_t head_blocks = (a.head + kChunk - 1) / kChunk,
+                mid_blocks = (a.mid + kChunk - 1) / kChunk,
+                long_blocks = 2 * head_blocks + (planes - 1) * mid_blocks,
+                seam_blocks = (seams * kSeamLanes + kThreads * kSeams - 1) / (kThreads * kSeams);
+  // 32-bit seam items and offsets within a plane, a grid below 2^31 blocks
+  if (planes < 1 || rows < 1 || n < 1 || addr % sizeof(T) != 0 || plane >= (int64_t{1} << 32) ||
+      seams * kSeamLanes + kThreads * kSeams >= (int64_t{1} << 31) ||
+      long_blocks + seam_blocks >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.n = static_cast<uint32_t>(n);
+  a.S2 = static_cast<uint32_t>(S2);
+  a.rows = static_cast<uint32_t>(rows);
+  a.head_planes = static_cast<uint32_t>(head_planes);
+  a.planes = static_cast<uint32_t>(planes);
+  a.plane = plane;
+  a.head_blocks = static_cast<uint32_t>(head_blocks);
+  a.mid_blocks = static_cast<uint32_t>(mid_blocks);
+  a.long_blocks = static_cast<uint32_t>(long_blocks);
+  a.div_mid = fast_div(a.mid_blocks);
+  a.items = static_cast<uint32_t>(seams * kSeamLanes);
+  a.seam_blocks = static_cast<uint32_t>(seam_blocks);
+  a.div_seams = fast_div(rows > 1 ? static_cast<uint32_t>(rows - 1) : 1);
+  a.phase = static_cast<uint32_t>((16 - addr % 16) % 16 / sizeof(T));
+  const int64_t blocks = long_blocks > seam_blocks ? long_blocks : seam_blocks;
+  zero_shells_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(static_cast<T*>(buf), a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -492,37 +586,6 @@ int launch_fold_2d(const void* g, void* gf, int64_t n0, int64_t n1, const int* k
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5's 2D entry: the axis-0 ghost rows (every column), then the axis-1 ghosts
-// of the interior rows, one thread a node.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    zero_shells_2d_kernel(T* __restrict__ buf, int64_t n0, int64_t n1) {
-  const int64_t S1 = n1 + 2 * LSM_GHOST;
-  const int64_t cnt0 = 2 * LSM_GHOST * S1, cnt1 = n0 * 2 * LSM_GHOST;
-  int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  int64_t i, j;
-  auto ghost = [](int64_t s6, int64_t n) { return s6 < LSM_GHOST ? s6 : n + s6; };
-  if (t < cnt0) {
-    j = t % S1;
-    i = ghost(t / S1, n0);
-  } else if ((t -= cnt0) < cnt1) {
-    j = ghost(t % (2 * LSM_GHOST), n1);
-    i = LSM_GHOST + t / (2 * LSM_GHOST);
-  } else {
-    return;
-  }
-  buf[i * S1 + j] = T(0);
-}
-
-template <typename T>
-int launch_zero_shells_2d(void* buf, int64_t n0, int64_t n1, void* stream) {
-  const int64_t total = 2 * LSM_GHOST * (n1 + 2 * LSM_GHOST) + n0 * 2 * LSM_GHOST;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  zero_shells_2d_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<T*>(buf), n0, n1);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" int lsm_fold_ghosts_2d_f32(const void* g, void* gf, int64_t n0, int64_t n1,
@@ -538,11 +601,11 @@ extern "C" int lsm_fold_ghosts_2d_f64(const void* g, void* gf, int64_t n0, int64
 }
 
 extern "C" int lsm_zero_shells_2d_f32(void* buf, int64_t n0, int64_t n1, void* stream) {
-  return launch_zero_shells_2d<float>(buf, n0, n1, stream);
+  return launch_zero_shells<float>(buf, 1, n0, n1, 0, stream);
 }
 
 extern "C" int lsm_zero_shells_2d_f64(void* buf, int64_t n0, int64_t n1, void* stream) {
-  return launch_zero_shells_2d<double>(buf, n0, n1, stream);
+  return launch_zero_shells<double>(buf, 1, n0, n1, 0, stream);
 }
 
 extern "C" int lsm_fold_ghosts_f32(const void* g, void* gf, int64_t n0, int64_t n1,
@@ -559,10 +622,10 @@ extern "C" int lsm_fold_ghosts_f64(const void* g, void* gf, int64_t n0, int64_t 
 
 extern "C" int lsm_zero_shells_f32(void* buf, int64_t n0, int64_t n1, int64_t n2,
                                    void* stream) {
-  return launch_zero_shells<float>(buf, n0, n1, n2, stream);
+  return launch_zero_shells<float>(buf, n0, n1, n2, LSM_GHOST, stream);
 }
 
 extern "C" int lsm_zero_shells_f64(void* buf, int64_t n0, int64_t n1, int64_t n2,
                                    void* stream) {
-  return launch_zero_shells<double>(buf, n0, n1, n2, stream);
+  return launch_zero_shells<double>(buf, n0, n1, n2, LSM_GHOST, stream);
 }

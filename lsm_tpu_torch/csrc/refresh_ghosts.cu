@@ -24,12 +24,10 @@
 //
 // The three launches (launch_refresh, refresh_axis_kernel): axis 0, then axis
 // 1, then axis 2, on one stream, the launch order giving the composition
-// order. Each thread writes one ghost node from at most 8 source nodes along
-// its axis. For axes 0 and 1 the contiguous axis 2 is the thread's fastest
-// index (coalesced rows); for axis 2 the six ghost slots of one row are. The
-// single-axis entry (lsm_refresh_axis_*) runs one of the three phases alone:
-// the sharded refresh takes it for the axes a mesh leaves unsharded (always
-// axis 2); K7 runs the three gated on a buffer beyond 32-bit indices.
+// order, a thread a line and its six ghosts. The single-axis entry
+// (lsm_refresh_axis_*) runs one of the three phases alone: the sharded
+// refresh takes it for the axes a mesh leaves unsharded (always axis 2); K7
+// runs the three gated on a buffer beyond 32-bit indices.
 //
 // Bound: it touches only the shells, O(N^2): 4,774,104 ghosts at 512^3, each
 // written once and one source read (Periodic), 38 MB: 0.0114 ms at 3.35
@@ -59,6 +57,7 @@
 
 #include <cuda_runtime.h>
 
+#include "fast_div.cuh"
 #include "lsm_kernels.h"
 
 namespace {
@@ -80,59 +79,6 @@ __device__ __forceinline__ double mul_add_rn(double acc, double w, double x) {
   return __dadd_rn(acc, __dmul_rn(w, x));
 }
 
-// Ghost slots of one axis: g6 in [0, 6): side = g6 / 3, layer = g6 % 3.
-// Left layer l sits at padded index l (distance k = 3 - l); right layer l at
-// padded index 3 + n + l (distance k = l + 1). Node m sits at 3 + m.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    refresh_axis_kernel(T* __restrict__ P, int64_t n, int64_t stride,
-                        int64_t a_lo, int64_t a_cnt, int64_t a_stride, int64_t b_lo,
-                        int64_t b_cnt, int64_t b_stride, int ghost_fastest, AxisBC bc,
-                        const int* __restrict__ gate) {
-  if (gate != nullptr && *gate == 0) return;
-  const int64_t total = 2 * LSM_GHOST * a_cnt * b_cnt;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= total) return;
-  int g6;
-  int64_t a, b;
-  if (ghost_fastest) {
-    g6 = static_cast<int>(t % (2 * LSM_GHOST));
-    const int64_t r = t / (2 * LSM_GHOST);
-    b = r % b_cnt;
-    a = r / b_cnt;
-  } else {
-    b = t % b_cnt;
-    const int64_t r = t / b_cnt;
-    a = r % a_cnt;
-    g6 = static_cast<int>(r / a_cnt);
-  }
-  const int side = g6 / LSM_GHOST;
-  const int layer = g6 % LSM_GHOST;
-  const int64_t base = (a_lo + a) * a_stride + (b_lo + b) * b_stride;
-  const int64_t pos = side == 0 ? layer : LSM_GHOST + n + layer;
-  const int k = side == 0 ? LSM_GHOST - layer : layer + 1;
-  const T* line = P + base + LSM_GHOST * stride;  // node 0 of this line
-  T val;
-  switch (bc.kind[side]) {
-    case LSM_BC_PERIODIC:
-      val = line[(side == 0 ? n - 1 - k : k) * stride];
-      break;
-    case LSM_BC_SYMMETRY:
-      val = line[(side == 0 ? k : n - 1 - k) * stride];
-      break;
-    default: {  // LSM_BC_EXTRAPOLATION
-      const double* w = bc.w[side][k - 1];
-      const int P_deg = bc.degree[side];
-      const int64_t step = side == 0 ? stride : -stride;
-      const T* node = line + (side == 0 ? 0 : (n - 1) * stride);
-      val = mul_add_rn(T(0), T(w[0]), node[0]);
-      for (int j = 1; j <= P_deg; ++j) val = mul_add_rn(val, T(w[j]), node[j * step]);
-      break;
-    }
-  }
-  P[base + pos * stride] = val;
-}
-
 // The boundary conditions of one axis from the host arrays (kinds[2*axis +
 // side], degrees likewise, weights[((2*axis + side)*3 + k-1)*8 + j]).
 AxisBC axis_bc(const int* kinds, const int* degrees, const double* weights, int axis) {
@@ -148,45 +94,11 @@ AxisBC axis_bc(const int* kinds, const int* degrees, const double* weights, int 
   return bc;
 }
 
-// Axes [axis_lo, axis_hi) in order: the whole refresh is [0, 3), one phase
-// of it [axis, axis + 1).
-template <typename T>
-int launch_refresh(void* P_, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
-                   const int* degrees, const double* weights, const int* flags,
-                   void* stream_, int axis_lo = 0, int axis_hi = 3) {
-  T* P = static_cast<T*>(P_);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int64_t n[3] = {n0, n1, n2};
-  const int64_t S[3] = {n0 + 2 * LSM_GHOST, n1 + 2 * LSM_GHOST, n2 + 2 * LSM_GHOST};
-  const int64_t stride[3] = {S[1] * S[2], S[2], 1};
-  for (int axis = axis_lo; axis < axis_hi; ++axis) {
-    const AxisBC bc = axis_bc(kinds, degrees, weights, axis);
-    // the two other axes, in order; earlier axes span their padded extent
-    // (ghosts already fresh), later ones their interior
-    const int oa = axis == 0 ? 1 : 0;
-    const int ob = axis == 2 ? 1 : 2;
-    const int64_t a_lo = oa < axis ? 0 : LSM_GHOST;
-    const int64_t a_cnt = oa < axis ? S[oa] : n[oa];
-    const int64_t b_lo = ob < axis ? 0 : LSM_GHOST;
-    const int64_t b_cnt = ob < axis ? S[ob] : n[ob];
-    const int64_t total = 2 * LSM_GHOST * a_cnt * b_cnt;
-    const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-    refresh_axis_kernel<T><<<blocks, kThreads, 0, stream>>>(
-        P, n[axis], stride[axis], a_lo, a_cnt, stride[oa], b_lo, b_cnt, stride[ob],
-        axis == 2 ? 1 : 0, bc,
-        flags == nullptr ? nullptr : flags + (axis == 2 ? 1 : 0));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
-}
-
 // One ghost of a line of n nodes: the node at index m of the line is node(m);
-// side and distance k as refresh_axis_kernel takes them, with its arithmetic
-// (which keeps its own copy of it, so that the 3D entries and K7 keep their
-// machine code).
+// side 0 or 1 and distance k = 1..3 from the face, with the plain version's
+// arithmetic (0 + w0 x0 + w1 x1 + ..., each product and sum rounded).
 // The 2D entry takes it with K2's double weights and 64-bit indices, the 3D
-// entry with weights in T and 32-bit indices.
+// entries with weights in T and 32-bit indices.
 template <typename T, typename BC, typename I, typename Node>
 __device__ __forceinline__ T ghost_of(const BC& bc, int side, int k, I n, Node node) {
   switch (bc.kind[side]) {
@@ -625,6 +537,155 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// K2's single-axis entry (lsm_refresh_axis_*, refresh_axis_kernel): one phase
+// of pad_ghost's composition alone, the two shells of one axis from the
+// lines through them, reading the earlier axes' ghosts as the buffer holds
+// them. The sharded refresh runs it for the axes a mesh leaves unsharded
+// (always axis 2); K2's 3D entry and K7 run the three phases in order, K7's
+// gated by its flags, where their one launch would need more than 32-bit
+// indices. Axes 0 and 1: a thread a line along the axis at (j, k) or (i,
+// k), axis 2's interior k fastest across the warp (coalesced), its six
+// ghosts from loads of both ends issued before the stores (an
+// extrapolation's nodes at once). Axis 2: a lane a ghost, six lanes the six
+// contiguous elements between two padded rows (a row's right ghosts, the
+// next one's left). The weights are in T, converted on the host; the sums
+// round as the plain version's (mul_add_rn). Index math is 32-bit (a fast
+// division by n2; axis 2 a block's 42 seams) below the block's first line,
+// a 64-bit index; each line's address a 64-bit product. On an H100, out of
+// L2, f32, at the shards of 512^3 on (2, 2) (256 x 256 x 512) and (4, 1)
+// (128 x 512 x 512) meshes: axis 1's phase 0.0023 ms of device time, its
+// first design (one thread a ghost, a 64-bit division and remainder per
+// index, double weights converted per term) 0.0045; axis 2's 0.0089 either
+// way, and 0.014 with a thread a row (its loads and stores touch a line a
+// lane), against a bound of 0.0010 ms (each ghost written once from one
+// source, Periodic) and 0.0028 with the rows' ends' whole 32-byte sectors:
+// the scattered row ends bind.
+template <typename T>
+struct AxisPhase {
+  int n;               // the axis's interior nodes
+  int64_t lines;       // axes 0, 1: lines (a, b), b < n2 fastest; axis 2: padded rows
+  int64_t first;       // axes 0, 1: padded index 0 of line (0, 0)
+  int64_t a_stride;    // elements from line (a, b) to (a + 1, b); axis 2 from row to row
+  int64_t step;        // axes 0, 1: elements between neighbours along the axis
+  uint32_t n2;         // axis 2's interior nodes
+  FastDiv div_n2;
+  ShellBC<T> bc;
+};
+
+// The six ghosts of one line (padded index 0 at `line`, `step` apart) from
+// its interior nodes: every load before the stores.
+template <typename T, bool kExtrap, typename I>
+__device__ __forceinline__ void refresh_line(T* line, I step, const ShellBC<T>& bc, int n) {
+  const T* node = line + LSM_GHOST * step;
+  T val[2 * LSM_GHOST];
+  line_ghosts<T, kExtrap>(bc, n, 0, 2 * LSM_GHOST, [&](int m) { return node[m * step]; }, val);
+#pragma unroll
+  for (int g = 0; g < 2 * LSM_GHOST; ++g) line[slot_pos(g, n) * step] = val[g];
+}
+
+// Whether `gate` (an int32 flag on the device, read once a block) is set.
+__device__ __forceinline__ bool gate_on(const int* __restrict__ gate) {
+  __shared__ int on;
+  if (threadIdx.x == 0) on = *gate != 0;
+  __syncthreads();
+  return on != 0;
+}
+
+constexpr int kRowSeams = kThreads / (2 * LSM_GHOST);  // axis 2: seams a block (42)
+
+template <typename T, bool kExtrap, bool kRows>
+__global__ void __launch_bounds__(kThreads)
+    refresh_axis_kernel(T* __restrict__ P, AxisPhase<T> a, const int* __restrict__ gate) {
+  if (gate != nullptr && !gate_on(gate)) return;
+  if constexpr (kRows) {
+    // seam q between padded rows q - 1 and q (q in [0, rows]): six
+    // contiguous elements, a lane each, row q - 1's right ghosts then row q's
+    // left ones
+    const uint32_t dq = threadIdx.x / (2 * LSM_GHOST), e = threadIdx.x - dq * (2 * LSM_GHOST);
+    const int64_t q = static_cast<int64_t>(blockIdx.x) * kRowSeams + dq;
+    const int64_t row = e < LSM_GHOST ? q - 1 : q;
+    if (dq >= kRowSeams || row < 0 || row >= a.lines) return;
+    const int g = e < LSM_GHOST ? static_cast<int>(e) + LSM_GHOST : static_cast<int>(e) - LSM_GHOST;
+    T* line = P + row * a.a_stride;
+    const T* node = line + LSM_GHOST;
+    T val[2 * LSM_GHOST];
+    line_ghosts<T, kExtrap>(a.bc, a.n, g, g + 1, [&](int m) { return node[m]; }, val);
+    T v = T(0);
+#pragma unroll
+    for (int h = 0; h < 2 * LSM_GHOST; ++h)
+      if (h == g) v = val[h];
+    line[slot_pos(g, a.n)] = v;
+  } else {  // line t0 + threadIdx.x = (i0 + di) n2 + k, from t0 = i0 n2 + k0
+    const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kThreads;  // the block's first line
+    if (t0 + threadIdx.x >= a.lines) return;
+    const uint32_t i0 = t0 < (int64_t{1} << 31) ? quo(a.div_n2, static_cast<uint32_t>(t0))
+                                                 : static_cast<uint32_t>(t0 / a.n2);
+    const uint32_t r = static_cast<uint32_t>(t0 - static_cast<int64_t>(i0) * a.n2) + threadIdx.x;
+    const uint32_t di = quo(a.div_n2, r);
+    refresh_line<T, kExtrap>(
+        P + a.first + static_cast<int64_t>(i0 + di) * a.a_stride + (r - di * a.n2), a.step, a.bc,
+        a.n);
+  }
+}
+
+// The boundary conditions of one axis from the host arrays (kinds[2*axis +
+// side], degrees likewise, weights[((2*axis + side)*3 + k-1)*8 + j]), the
+// weights in T.
+template <typename T>
+ShellBC<T> shell_bc(const int* kinds, const int* degrees, const double* weights, int axis) {
+  ShellBC<T> bc;
+  for (int side = 0; side < 2; ++side) {
+    const int a = 2 * axis + side;
+    bc.kind[side] = kinds[a];
+    bc.degree[side] = degrees[a];
+    for (int k = 0; k < LSM_GHOST; ++k)
+      for (int j = 0; j <= LSM_MAX_DEGREE; ++j)
+        bc.w[side][k][j] = static_cast<T>(weights[(a * LSM_GHOST + k) * (LSM_MAX_DEGREE + 1) + j]);
+  }
+  return bc;
+}
+
+// Axes [axis_lo, axis_hi) in order, one launch each on one stream (the launch
+// order gives the composition's): the whole refresh is [0, 3), one phase of
+// it [axis, axis + 1). With flags (K7's), a phase runs where its flag is set:
+// flags[0] for axes 0 and 1, flags[1] for axis 2.
+template <typename T>
+int launch_refresh(void* P, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
+                   const int* degrees, const double* weights, const int* flags, void* stream,
+                   int axis_lo = 0, int axis_hi = 3) {
+  const int64_t n[3] = {n0, n1, n2};
+  const int64_t S0 = n0 + 2 * LSM_GHOST, S1 = n1 + 2 * LSM_GHOST, S2 = n2 + 2 * LSM_GHOST;
+  const int64_t plane = S1 * S2;
+  if (n2 >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  for (int axis = axis_lo; axis < axis_hi; ++axis) {
+    AxisPhase<T> a;
+    a.n = static_cast<int>(n[axis]);
+    a.bc = shell_bc<T>(kinds, degrees, weights, axis);
+    a.n2 = static_cast<uint32_t>(n2);
+    a.div_n2 = fast_div(a.n2);
+    // axis 0: lines over interior (j, k); axis 1: over padded i, interior k;
+    // axis 2: every padded row
+    a.lines = axis == 0 ? n1 * n2 : axis == 1 ? S0 * n2 : S0 * S1;
+    a.first = axis == 0 ? LSM_GHOST * S2 + LSM_GHOST : LSM_GHOST;
+    a.a_stride = axis == 1 ? plane : S2;
+    a.step = axis == 0 ? plane : S2;
+    const int64_t blocks = axis == 2 ? a.lines / kRowSeams + 1  // the rows' lines + 1 seams
+                                     : (a.lines + kThreads - 1) / kThreads;
+    if (blocks >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    const bool extrap = kinds[2 * axis] == LSM_BC_EXTRAPOLATION ||
+                        kinds[2 * axis + 1] == LSM_BC_EXTRAPOLATION;
+    const auto kernel = axis == 2 ? (extrap ? refresh_axis_kernel<T, true, true>
+                                            : refresh_axis_kernel<T, false, true>)
+                                  : (extrap ? refresh_axis_kernel<T, true, false>
+                                            : refresh_axis_kernel<T, false, false>);
+    kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<T*>(P), a, flags == nullptr ? nullptr : flags + (axis == 2 ? 1 : 0));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
 // K2's threads at this shape into s, their count and whether a side
 // extrapolates; false where they would need more than 32-bit indices.
 template <typename T>
@@ -640,15 +701,7 @@ bool shell3_args(Shell3<T>& s, int64_t& total, bool& extrap, int64_t n0, int64_t
   const int64_t n[3] = {n0, n1, n2};
   for (int axis = 0; axis < 3; ++axis) {
     s.n[axis] = static_cast<int>(n[axis]);
-    for (int side = 0; side < 2; ++side) {
-      const int a = 2 * axis + side;
-      s.bc[axis].kind[side] = kinds[a];
-      s.bc[axis].degree[side] = degrees[a];
-      for (int k = 0; k < LSM_GHOST; ++k)
-        for (int j = 0; j <= LSM_MAX_DEGREE; ++j)
-          s.bc[axis].w[side][k][j] =
-              static_cast<T>(weights[(a * LSM_GHOST + k) * (LSM_MAX_DEGREE + 1) + j]);
-    }
+    s.bc[axis] = shell_bc<T>(kinds, degrees, weights, axis);
   }
   s.S1 = static_cast<uint32_t>(S1);
   s.S2 = static_cast<uint32_t>(S2);

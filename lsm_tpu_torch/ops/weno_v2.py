@@ -277,8 +277,9 @@ def refresh_axis_fast(padded: torch.Tensor, bcs, shape, ax: int) -> torch.Tensor
     """K2's single-axis entry: one of its three phases, the two shells of
     axis ``ax`` in place (as :func:`refresh_axis_plain`). The sharded
     refresh runs it for the axes a mesh leaves unsharded. CUDA tensors go to
-    ``csrc/refresh_ghosts.cu`` (one launch), CPU tensors to
-    :func:`refresh_axis_plain`. Returns ``padded``."""
+    ``csrc/refresh_ghosts.cu`` (one launch: a thread a line and its six
+    ghosts on axes 0 and 1, a lane a ghost along the seams between rows on
+    axis 2), CPU tensors to :func:`refresh_axis_plain`. Returns ``padded``."""
     shape = tuple(shape)
     if len(shape) != 3 or ax not in (0, 1, 2):
         raise ValueError(f"the ghost refresh is 3D only, got shape {shape} and axis {ax}")
@@ -288,10 +289,10 @@ def refresh_axis_fast(padded: torch.Tensor, bcs, shape, ax: int) -> torch.Tensor
         return refresh_axis_plain(padded, bcs, shape, ax)
     lib = load_library()
     fn = lib.refresh_axis_f32 if padded.dtype == torch.float32 else lib.refresh_axis_f64
-    with torch.cuda.device(padded.device):
+    ctx, stream = _on_card(padded)
+    with ctx:
         code = fn(padded.data_ptr(), *shape, ax, ctypes.addressof(kinds),
-                  ctypes.addressof(degrees), ctypes.addressof(weights),
-                  torch.cuda.current_stream().cuda_stream)
+                  ctypes.addressof(degrees), ctypes.addressof(weights), stream)
     _raise_on(code, lib, "refresh_axis kernel")
     bump(refresh_axis_fast, launches=1)
     return padded

@@ -207,7 +207,10 @@ def zero_pad_shells(buf: torch.Tensor, shape) -> torch.Tensor:
     returns ``buf``.
 
     Replaces ``lsm_tpu.ops.weno_v2_bwd._zero_pad_shells``. CUDA tensors go to
-    ``csrc/fold_ghosts.cu``, CPU tensors to :func:`zero_pad_shells_plain`.
+    ``csrc/fold_ghosts.cu`` (one launch over the gaps between the interior
+    rows of the flat buffer: 16-byte stores over the head, the tail and the
+    gaps between planes, a few lanes a six-element seam between two rows;
+    no interior node touched), CPU tensors to :func:`zero_pad_shells_plain`.
     """
     shape = tuple(shape)
     if len(shape) not in (2, 3):

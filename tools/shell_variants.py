@@ -1,14 +1,19 @@
-"""What binds the ghost-shell pair: K2's 3D entry and K4 timed at 512^3 f32
+"""What binds the ghost-shell kernels: K2's 3D entry and K4 timed at 512^3 f32
 with parts of `lsm_tpu_torch/csrc/refresh_ghosts.cu` or `fold_ghosts.cu`
-taken out or changed; and K7's one launch with other grids.
+taken out or changed; K7's one launch with other grids; K5 (512^3 and
+4096^2) with other seam layouts and chunks, or its long gaps or seams alone;
+K2's single-axis phases (axis 2 at the (2, 2) mesh's shard, axes 1 and 2 at
+the (4, 1) mesh's, buffers in turn out of L2) with axis 2's rows laid
+otherwise.
 
 Each variant is one source with a text substitution, built by nvcc (the
 port's flags) into a library of its own under `lsm_tpu_torch/_build/`; the
 wrappers of `ops/weno_v2.py`, `ops/weno_v2_bwd.py` and `ops/band.py` launch
 it on the flagship's Periodic state, on config A's `Extrapolation(2)` and on
 the flagship's field under mixed BCs with `Extrapolation(7)` (K2 on the
-packed state, K4 on a random cotangent), and K7 on the 512^3 band cells'
-buffer and K7's 2D entry on D2b's, flags on and off. A variant that removes work
+packed state, K4 on a random cotangent), K7 on the 512^3 band cells'
+buffer and K7's 2D entry on D2b's, flags on and off, K5 on random buffers
+and K2's single-axis phases on zeroed ones (Periodic). A variant that removes work
 computes something else: only its time is read. Variants run in turns (all,
 then all in reverse); each line gives the faster of a variant's two readings
 of the profiler's device time and of the CUDA-event median.
@@ -21,6 +26,7 @@ From the repository root, on a machine with one H100:
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 import subprocess
 import sys
@@ -51,10 +57,39 @@ _K4_FIRST = "  if (blockIdx.x < a.flat_blocks) {\n    const uint32_t before = bl
 _K7_BLOCKS = "constexpr int kBandBlocksPerSM = 4;"
 _K7_CAP = "  blocks = static_cast<unsigned>(need < most ? need : most);\n"
 _K7_BOUNDS = "__global__ void __launch_bounds__(kThreads, 4)\n    band_refresh_3d_kernel("
+_K5_LANES = "constexpr int kSeamLanes = 6;"
+_K5_SEAMS = "constexpr int kSeams = 1;"
+_K5_VECTORS = "constexpr int kZeroVectors = 1;"
+_K5_GRID = "  const int64_t blocks = long_blocks > seam_blocks ? long_blocks : seam_blocks;\n"
+_K5_SEAMS_CALL = "  if (blockIdx.x < a.seam_blocks) zero_seams(buf, a, blockIdx.x);\n"
+_K5_CHUNK_CALL = "  if (blockIdx.x < a.long_blocks) zero_chunk(buf, a, blockIdx.x);\n"
+_K5_BLOCK = _K5_SEAMS_CALL + _K5_CHUNK_CALL
+_AX_SEAMS = """    const uint32_t dq = threadIdx.x / (2 * LSM_GHOST), e = threadIdx.x - dq * (2 * LSM_GHOST);
+    const int64_t q = static_cast<int64_t>(blockIdx.x) * kRowSeams + dq;
+    const int64_t row = e < LSM_GHOST ? q - 1 : q;
+    if (dq >= kRowSeams || row < 0 || row >= a.lines) return;
+    const int g = e < LSM_GHOST ? static_cast<int>(e) + LSM_GHOST : static_cast<int>(e) - LSM_GHOST;
+    T* line = P + row * a.a_stride;
+    const T* node = line + LSM_GHOST;
+    T val[2 * LSM_GHOST];
+    line_ghosts<T, kExtrap>(a.bc, a.n, g, g + 1, [&](int m) { return node[m]; }, val);
+    T v = T(0);
+#pragma unroll
+    for (int h = 0; h < 2 * LSM_GHOST; ++h)
+      if (h == g) v = val[h];
+    line[slot_pos(g, a.n)] = v;
+"""
+# axis 2 a thread a padded row: its six ghosts, both ends' loads before the
+# stores (each warp instruction then touches a line a lane)
+_AX_ROW_THREADS = """    const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+    if (row >= a.lines) return;
+    refresh_line<T, kExtrap>(P + row * a.a_stride, 1, a.bc, a.n);
+"""
+_AX_BLOCKS = "    const int64_t blocks = axis == 2 ? a.lines / kRowSeams + 1  // the rows' lines + 1 seams\n"
 
 #: name: (what it shows, source, substitutions, kernels it touches)
 VARIANTS = {
-    "as built": ("the kernels", None, [], ("K2", "K4", "K7", "K7 2D")),
+    "as built": ("the kernels", None, [], ("K2", "K4", "K7", "K7 2D", "K5", "K5 2D", "K2ax")),
     "K2 axis-2 lines only": ("the interior rows' ends", "refresh_ghosts.cu",
                              [(_LINES_A, "  s.cnt_a = 0;\n"), (_LINES_B, "  s.cnt_b = 0;\n")],
                              ("K2",)),
@@ -116,12 +151,55 @@ VARIANTS = {
         "K2's register cap, a grid of 24 times the SM count", "refresh_ghosts.cu",
         [(_K7_BOUNDS, _K7_BOUNDS.replace("(kThreads, 4)", "(kThreads, 6)")),
          (_K7_BLOCKS, _K7_BLOCKS.replace("4;", "24;"))], ("K7",)),
+    "K5 a block for one": ("a block a seam block or a chunk: a grid of both counts",
+                           "fold_ghosts.cu",
+                           [(_K5_BLOCK, """  if (blockIdx.x < a.seam_blocks)
+    zero_seams(buf, a, blockIdx.x);
+  else
+    zero_chunk(buf, a, blockIdx.x - a.seam_blocks);
+"""), (_K5_GRID, "  const int64_t blocks = seam_blocks + long_blocks;\n")], ("K5", "K5 2D")),
+    "K5 seams, then the long gaps, eight blocks an SM": (
+        "a grid of 1056 blocks (an H100's 132 SMs) walking every seam block, then every chunk",
+        "fold_ghosts.cu",
+        [(_K5_BLOCK, """  for (uint32_t b = blockIdx.x; b < a.seam_blocks; b += gridDim.x)
+    zero_seams(buf, a, b);
+  for (uint32_t b = blockIdx.x; b < a.long_blocks; b += gridDim.x) zero_chunk(buf, a, b);
+"""), (_K5_GRID, "  const int64_t blocks = 1056;\n")], ("K5", "K5 2D")),
+    "K5 four vectors a thread": ("chunks of 4 x 256 vectors", "fold_ghosts.cu",
+                                 [(_K5_VECTORS, _K5_VECTORS.replace("1;", "4;"))], ("K5", "K5 2D")),
+    "K5 a thread a seam": ("six stores a thread", "fold_ghosts.cu",
+                           [(_K5_LANES, _K5_LANES.replace("6;", "1;"))], ("K5", "K5 2D")),
+    "K5 a thread two seams": ("two seams a thread, kThreads apart", "fold_ghosts.cu",
+                              [(_K5_LANES, _K5_LANES.replace("6;", "1;")),
+                               (_K5_SEAMS, _K5_SEAMS.replace("1;", "2;"))], ("K5", "K5 2D")),
+    "K5 a thread four seams": ("four seams a thread", "fold_ghosts.cu",
+                               [(_K5_LANES, _K5_LANES.replace("6;", "1;")),
+                                (_K5_SEAMS, _K5_SEAMS.replace("1;", "4;"))], ("K5", "K5 2D")),
+    "K5 two lanes a seam": ("three stores a lane", "fold_ghosts.cu",
+                            [(_K5_LANES, _K5_LANES.replace("6;", "2;"))], ("K5", "K5 2D")),
+    "K5 three lanes a seam": ("two stores a lane", "fold_ghosts.cu",
+                              [(_K5_LANES, _K5_LANES.replace("6;", "3;"))], ("K5", "K5 2D")),
+    "K5 six lanes a seam, two items a thread": ("a store a lane, two a thread",
+                                                 "fold_ghosts.cu",
+                                                 [(_K5_SEAMS, _K5_SEAMS.replace("1;", "2;"))],
+                                                 ("K5", "K5 2D")),
+    "K5 two vectors a thread": ("chunks of 2 x 256 vectors", "fold_ghosts.cu",
+                                [(_K5_VECTORS, _K5_VECTORS.replace("1;", "2;"))], ("K5", "K5 2D")),
+    "K5 long gaps only": ("the seams left out", "fold_ghosts.cu",
+                          [(_K5_SEAMS_CALL, "")], ("K5", "K5 2D")),
+    "K5 seams only": ("the long gaps left out (their blocks exit)", "fold_ghosts.cu",
+                      [(_K5_CHUNK_CALL, "")], ("K5", "K5 2D")),
+    "K2ax axis 2 a thread a row": ("a padded row's six ghosts a thread", "refresh_ghosts.cu",
+                                   [(_AX_SEAMS, _AX_ROW_THREADS),
+                                    (_AX_BLOCKS, _AX_BLOCKS.replace("a.lines / kRowSeams + 1",
+                                                                    "(a.lines + kThreads - 1) / kThreads"))],
+                                   ("K2ax",)),
 }
 
 
 class _Lib:
-    """K2's, K4's and K7's entries of one variant's library, beside the main
-    library's others."""
+    """K2's, K4's, K5's and K7's entries of one variant's library, beside the
+    main library's others."""
 
     def __init__(self, path, main):
         lib = ctypes.CDLL(str(path))
@@ -131,7 +209,11 @@ class _Lib:
                                  ("band_refresh", "lsm_refresh_band_ghosts",
                                   [vp] + [i64] * 3 + [vp] * 5),
                                  ("band_refresh_2d", "lsm_refresh_band_ghosts_2d",
-                                  [vp] + [i64] * 2 + [vp] * 5)):
+                                  [vp] + [i64] * 2 + [vp] * 5),
+                                 ("zero_shells", "lsm_zero_shells", [vp] + [i64] * 3 + [vp]),
+                                 ("zero_shells_2d", "lsm_zero_shells_2d", [vp] + [i64] * 2 + [vp]),
+                                 ("refresh_axis", "lsm_refresh_axis",
+                                  [vp] + [i64] * 3 + [ci] + [vp] * 4)):
             for suffix in ("f32", "f64"):
                 fn = getattr(lib, f"{name}_{suffix}", None)
                 if fn is None:
@@ -170,8 +252,9 @@ def build(main, names):
         libs[name] = _Lib(cmds[name][-2], main)
         lines = log.splitlines()
         regs = [" ".join(lines[n + 1:n + 3]) for n, line in enumerate(lines)
-                if "Compiling entry" in line and ("refresh_3d_kernel" in line
-                                                  or "fold_kernel" in line)]
+                if "Compiling entry" in line and any(
+                    k in line for k in ("refresh_3d_kernel", "fold_kernel", "zero_shells_kernel",
+                                        "refresh_axis_kernel"))]
         print(f"BUILD {name}: " + " | ".join(regs), flush=True)
     return libs
 
@@ -212,6 +295,19 @@ def main(only) -> int:
             calls[(kernel, label)] = lambda Q=Q, b=b, f=f: bd.refresh_band_ghosts_fast(
                 Q, b.bcs, b.shape, f)
     del nb, nb2
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for kernel, shape in (("K5", (cs.N_MAIN,) * 3), ("K5 2D", (cs.N_2D,) * 2)):
+        Z = torch.randn(v2.padded_shape(shape), generator=gen, device=dev)
+        calls[(kernel, "f32")] = lambda Z=Z, shape=shape: bwd.zero_pad_shells(Z, shape)
+    periodic = lsm.normalize_bcs(lsm.Periodic(), 3)
+    for ms, axes in (((2, 2), (2,)), ((4, 1), (1, 2))):
+        shape = (cs.N_MAIN // ms[0], cs.N_MAIN // ms[1], cs.N_MAIN)
+        bufs = [torch.zeros(v2.padded_shape(shape), device=dev) for _ in range(cs.K9_SETS)]
+        for ax in axes:
+            it = itertools.cycle(bufs)
+            calls[("K2ax", f"{ms[0]}x{ms[1]} axis {ax}")] = (
+                lambda it=it, shape=shape, ax=ax: v2.refresh_axis_fast(next(it), periodic, shape,
+                                                                      ax))
     times = {name: {} for name in names}
     loaders = v2.load_library, bwd.load_library, bd.load_library
     try:
