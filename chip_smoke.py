@@ -69,6 +69,14 @@ phases (a partial run: no kernel record):
              shapes and at 4096^2, five BC cases, f32 and f64, bit for bit vs
              its plain version and pad_ghost; K2 on a 3D field of one plane
              (the length-1 axis's Extrapolation(0)) bit for bit.
+   k2_degree — K2 (3D, 2D, each single axis), K4 (3D, 2D) and K7 (3D, 2D,
+             four gates) under Extrapolation(8), Extrapolation(11) and both
+             mixed with Periodic and Symmetry, f32 and f64, at ragged shapes
+             and 512^3: their weight-table route (csrc/ghost_table.cu) bit
+             for bit against the plain versions; its times beside the
+             by-value route's (Extrapolation(7)) at 512^3; the flagship under
+             Extrapolation(8): 10 RK3 steps of ``integrate`` on the fused
+             path, a 64^3 f64 rollout gradient and a band card vs CPU.
    k1_2d   — K1's 2D entries (K1 and K1'' the 2D march, K1' and a K1''
              component per node one thread a node) and their per-node form
              vs the plain 2D stage at ragged shapes, f32 and f64, BC cases,
@@ -154,6 +162,17 @@ phases (a partial run: no kernel record):
     general_small — card vs CPU: H and a band with hooks at 64^3,
              ``reinitialize`` at 64^3 f64, the general path's rollout
              gradient at 32^3 f64 (K10 launches in its forward).
+    semi_implicit — SI: ``SemiImplicitI2OE`` (upwind, CFL 2) on the
+             flagship's sphere at 512^3 f32 (3 steps) and configuration 2 at
+             4096^2 (5 steps): ms a step, BiCGStab iterations, the relative
+             residual, peak memory, no non-convergence warning; card vs CPU
+             at 48^3 f64 and a gradient through a step at 32^3 f64.
+    interp_sdf — NSDF: ``NewtonSDF`` of a sphere at 256^3 f64 (the lazy
+             interpolant), ``reinitialize_newton`` over every node (its
+             error against |x| - r), ``hausdorff_distance``; card vs CPU at
+             32^3.
+    quadrature — Q: volume and area of a 64^3 sphere from a field on the
+             card, its interpolant eager and lazy.
 15. timing — CUDA-event medians at 512^3: K1-K5 (K2, K4 and K5 also back
              to back and by device time, K4 beside g.clone(); K2's single-axis
              phases at the shard shapes by device time: tools/ghost_shells.py,
@@ -219,6 +238,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -5730,6 +5750,422 @@ def phase_band2d_4096(dev, res):
     res["busy_2d"] = busy
 
 
+# -- the ghost kernels' route for an Extrapolation of degree above 7 -------------------
+
+
+def degree_cases(ndim):
+    """Extrapolation(8), Extrapolation(11), and degrees 8 and 11 mixed per
+    side with Symmetry and Periodic (an axis of at least 12 nodes)."""
+    E = lsm.Extrapolation
+    mixed = ([(E(8), lsm.Symmetry()), lsm.Periodic(), (lsm.Symmetry(), E(11))] if ndim == 3
+             else [(E(11), lsm.Symmetry()), lsm.Periodic()])
+    return {"extrap8": lsm.normalize_bcs(E(8), ndim), "extrap11": lsm.normalize_bcs(E(11), ndim),
+            "mixed8_11": lsm.normalize_bcs(mixed, ndim)}
+
+
+#: the > 7 route's 3D and 2D parity shapes: the smoke's grid, ragged ones with
+#: every axis of at least 12 nodes (Extrapolation(11)), and the main paths'
+DEGREE_SHAPES = ((40, 72, 136), (12, 19, 33), (130, 12, 75))
+DEGREE_2D_SHAPES = ((67, 131), (12, 40), (200, 264))
+DEGREE_STEPS = 10  # the 512^3 flagship under Extrapolation(8): RK3 steps of integrate
+N_DEGREE_GRAD = 64  # its rollout gradient, card vs CPU, f64
+DEGREE_GRAD_FACTOR = 4.0  # that gradient's gate: times the CPU's 1-ulp spread
+
+
+def table_counts():
+    return {name: fn.table_launches for name, fn in (
+        ("K2", v2.refresh_ghosts_fast), ("K2ax", v2.refresh_axis_fast),
+        ("K4", bwd.fold_ghost_cotangent_fast), ("K7", bd.refresh_band_ghosts_fast))}
+
+
+def degree_parity(dev, shape, dtype, gen, big=False):
+    """K2 (and on a 3D shape its single-axis entry), K4 and K7 under each
+    degree case at ``shape``: bit for bit against their plain versions
+    (:func:`k2_compare`, :func:`k4_compare`, :func:`k7_compare`); each call
+    on the table route."""
+    cases = degree_cases(len(shape))
+    if big:  # 512^3: one case, to keep the phase short
+        cases = {"mixed8_11": cases["mixed8_11"]}
+    before = table_counts()
+    for name, bcs in cases.items():
+        vals = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        if len(shape) == 3:
+            k2_compare("k2_degree", name, vals, bcs, gen)
+            P = scribbled(vals, bcs, gen)
+            for ax in range(3):
+                got = v2.refresh_axis_fast(P.clone(), bcs, shape, ax)
+                if not same_bits(got, v2.refresh_axis_plain(P.clone(), bcs, shape, ax)):
+                    raise AssertionError(f"K2 axis {ax} differs at {shape} ({name})")
+        else:
+            P = scribbled(vals, bcs, gen)
+            got = v2.refresh_ghosts_fast(P.clone(), bcs, shape)
+            if not (same_bits(got, v2.refresh_ghosts_plain(P.clone(), bcs, shape))
+                    and same_bits(got, v2.pack_padded(vals, bcs))):
+                raise AssertionError(f"K2 2D differs at {shape} ({name})")
+        G = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
+        k4_compare("k2_degree", name, G, bcs, shape, autograd=not big)
+        k7_compare("k2_degree", shape, {name: bcs}, dtype, dev, gen, vals=vals)
+    after = table_counts()
+    n = len(cases)
+    want = {"K2": n * (2 if len(shape) == 3 else 1), "K2ax": 3 * n if len(shape) == 3 else 0,
+            "K4": 3 * n, "K7": 4 * n}
+    got = {k: after[k] - before[k] for k in after}
+    if got != want:
+        raise AssertionError(f"table route launches at {shape}: {got}, expected {want}")
+    log("k2_degree", f"{len(shape)}D {str(dtype)[6:]} shape={shape} {' '.join(cases)}: K2"
+                     f"{' (and each axis)' if len(shape) == 3 else ''}, K4 and K7 (four gates) "
+                     f"== plain bit for bit, every call on the table route {got}")
+
+
+def degree_bound(shape, bcs, f32=4):
+    """The table route's refresh bound: per phase, each line's ghosts written
+    once and the nodes they are built from read once (``2 min(n, P + 1)``
+    an extrapolating line, one a ghost otherwise)."""
+    nbytes = 0
+    for ax, n in enumerate(shape):
+        lines = 1
+        for d, m in enumerate(shape):
+            if d != ax:
+                lines *= m + 6 if d < ax else m
+        reads = sum(min(n, b.degree + 1) if isinstance(b, lsm.Extrapolation) else 3
+                    for b in bcs[ax])
+        nbytes += f32 * lines * (6 + reads)
+    return bound(nbytes, 0)
+
+
+def phase_k2_degree(dev, res):
+    """K2 (3D, 2D, single axis), K4 (3D, 2D) and K7 (3D, 2D, four gates) on
+    the table route, bit for bit against their plain versions under
+    Extrapolation(8), Extrapolation(11) and both mixed with Periodic and
+    Symmetry, f32 and f64, at DEGREE_SHAPES, DEGREE_2D_SHAPES and 512^3; the
+    route's times at 512^3 f32 beside the by-value route's (Extrapolation(7));
+    the flagship under Extrapolation(8) on every face: 10 RK3 steps of
+    ``integrate`` on the fused path (launches counted), its rollout gradient at
+    64^3 card vs CPU (f64), and a band of it stepping as a band."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for dtype in (torch.float32, torch.float64):
+        for shape in DEGREE_SHAPES + DEGREE_2D_SHAPES:
+            degree_parity(dev, shape, dtype, gen)
+        degree_parity(dev, (N_MAIN,) * 3, dtype, gen, big=True)
+    shape = (N_MAIN,) * 3
+    out = {}
+    for label, bcs in (("degree7", lsm.normalize_bcs(lsm.Extrapolation(7), 3)),
+                       ("degree8", lsm.normalize_bcs(lsm.Extrapolation(8), 3))):
+        vals = torch.randn(shape, generator=gen, device=dev)
+        P = v2.pack_padded(vals, bcs)
+        G = torch.randn_like(P)
+        on = torch.ones(2, dtype=torch.int32, device=dev)
+        out[label] = {
+            "K2": cuda_time(lambda: v2.refresh_ghosts_fast(P, bcs, shape)),
+            "K4": cuda_time(lambda: bwd.fold_ghost_cotangent_fast(G, bcs, shape)),
+            "K7": cuda_time(lambda: bd.refresh_band_ghosts_fast(P, bcs, shape, on)),
+            "K2_bound": degree_bound(shape, bcs)[0]}
+        del P, G
+    res["k2_degree"] = out
+    log("k2_degree", f"{N_MAIN}^3 f32 ms (CUDA events, median of 20): by-value route "
+                     f"Extrapolation(7) {out['degree7']}; table route Extrapolation(8) "
+                     f"{out['degree8']} [{nvidia_smi()}]")
+    # the flagship under Extrapolation(8)
+    grid = lsm.Grid((0.0,) * 3, (1.0,) * 3, shape)
+    bcs8 = lsm.Extrapolation(8)
+    phi = lsm.sample(shapes.zalesak_sphere(), grid, bcs8, device=dev)
+    vol0 = float(lsm.volume(phi))
+    eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(rotation), ic=phi, integrator=lsm.RK3())
+    torch.cuda.synchronize()
+    reset_counts()
+    before = table_counts()
+    t0 = time.perf_counter()
+    eq.integrate(1.0, max_steps=DEGREE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, tables = read_counts(), table_counts()
+    steps = eq.last_nsteps
+    finite = bool(torch.isfinite(eq.state.values).all())
+    rel = abs(float(eq.volume()) - vol0) / vol0
+    log("k2_degree", f"{N_MAIN}^3 Zalesak RK3 under Extrapolation(8): steps={steps} "
+                     f"path={eq.last_fast_path} launches={launches} table route K2 "
+                     f"{tables['K2'] - before['K2']} finite={finite} volume rel change "
+                     f"{rel:.2e} {1e3 * wall / steps:.4f} ms/step")
+    if not (steps == DEGREE_STEPS and eq.last_fast_path == "fused" and finite
+            and rel <= VOL_TOL and launches["K1''"] == 3 * steps
+            and launches["K2"] == tables["K2"] - before["K2"] == 3 * steps):
+        raise AssertionError("the flagship under Extrapolation(8) did not take the fused path "
+                             "through the table route")
+    res["launches"]["K2 table"] = tables["K2"] - before["K2"]
+    res["k2_degree"]["flagship_ms_per_step"] = 1e3 * wall / steps
+    del eq, phi
+    # its rollout gradient at 64^3, card vs CPU (f64). A degree-8 extrapolation
+    # multiplies round-off near the faces by its weights (their absolute sum
+    # is in the thousands), and WENO5's weights pass it on: the card is gated
+    # on DEGREE_GRAD_FACTOR times the CPU's own spread under a 1-ulp change of
+    # phi0, the f32 gate of phase_grad in f64
+    grads = {}
+    g64 = lsm.Grid((0.0,) * 3, (1.0,) * 3, (N_DEGREE_GRAD,) * 3)
+    dt64 = 0.2 * g64.min_spacing
+    p = lsm.sample(shapes.zalesak_sphere(), g64, bcs8, dtype=torch.float64, device="cpu")
+    for where in ("cpu", dev):  # the same phi0 bits on both
+        v = p.values.to(where)
+        before = table_counts()
+        _, grads[str(where)] = rollout_grad(p.with_values(v), v.clone().requires_grad_(), dt64, 3)
+        k4 = table_counts()["K4"] - before["K4"]
+    gen_cpu = torch.Generator().manual_seed(21)
+    pert = p.values * (1 + 2.0 ** -52 * torch.randn(g64.shape, generator=gen_cpu,
+                                                    dtype=torch.float64))
+    g_pert = rollout_grad(p.with_values(pert), pert.clone().requires_grad_(), dt64, 3)[1]
+    err = rel_err(grads[str(dev)].cpu(), grads["cpu"])
+    spread = rel_err(g_pert, grads["cpu"])
+    log("k2_degree", f"rollout gradient {N_DEGREE_GRAD}^3 f64 under Extrapolation(8), 3 RK3 "
+                     f"steps: card vs CPU max rel err {err:.3e}; the CPU's under a 1-ulp change "
+                     f"of phi0 {spread:.3e} (tol {DEGREE_GRAD_FACTOR:g}x that, at least 1e-10); "
+                     f"K4 table launches {k4}")
+    res["k2_degree"]["grad_rel_err"], res["k2_degree"]["grad_ulp_spread"] = err, spread
+    if not (err <= max(DEGREE_GRAD_FACTOR * spread, 1e-10) and k4 >= 9):
+        raise AssertionError(f"the Extrapolation(8) rollout gradient: {err}, K4 {k4}")
+    # a band of it: the band stepper, card vs CPU (f64)
+    finals = {}
+    for where in ("cpu", dev):
+        g64 = lsm.Grid((-1.0,) * 3, (1.0,) * 3, (N_DEGREE_GRAD,) * 3)
+        p = lsm.sample(shapes.sphere((0.0, 0.0, 0.0), 0.5), g64, bcs8, dtype=torch.float64,
+                       device=where)
+        nb = lsm.NarrowBandField.from_field(p)
+        eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(spin), ic=nb, integrator=lsm.RK3())
+        before = table_counts()
+        eq.integrate(1.0, max_steps=3)
+        finals[str(where)] = (eq.state.values.cpu(), eq.last_fast_path,
+                              table_counts()["K7"] - before["K7"])
+    (a, pa, _), (b, pb, k7) = finals["cpu"], finals[str(dev)]
+    err = float((a - b).abs().max())
+    log("k2_degree", f"band {N_DEGREE_GRAD}^3 f64 under Extrapolation(8), 3 RK3 steps: paths "
+                     f"{pa}/{pb}, max|card-cpu|={err:.3e}, K7 table launches {k7}")
+    if not (pa == pb == "band" and err <= 1e-10 and k7 >= 9):
+        raise AssertionError(f"the Extrapolation(8) band: {pa}/{pb}, {err}, K7 {k7}")
+
+
+# -- the semi-implicit step, the Newton signed distance and the quadrature -------------
+
+N_SI = 512  # SI: the flagship's Zalesak sphere, upwind, SemiImplicitI2OE
+SI_STEPS = 3
+N_SI_2D = 4096  # configuration 2 under SemiImplicitI2OE
+SI_2D_STEPS = 5
+N_SI_SMALL, N_SI_GRAD = 48, 32  # card vs CPU, f64: 3 steps; the gradient through a step
+N_NSDF = 256  # NSDF: sphere r 0.5 on [-1, 1]^3, f64, lazy coefficients
+N_NSDF_SMALL = 32  # card vs CPU, eager
+N_QUAD = 64  # Q: the quadrature's sphere
+
+
+def si_run(phi, vel, steps):
+    """``integrate`` of ``phi`` under ``AdvectionTerm(vel, "upwind")`` and
+    ``SemiImplicitI2OE()`` for ``steps`` steps; each step's BiCGStab
+    iterations and relative residual, the warnings raised, ms a step."""
+    integ = lsm.SemiImplicitI2OE()
+    eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(vel, scheme="upwind"), ic=phi,
+                              integrator=integ)
+    solves = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, wall = timed(lambda: eq.integrate(1.0, max_steps=steps, posthook=lambda e: (
+            solves.append(dict(e.integrator.last_solve)))))
+    warned = [str(w.message) for w in caught if "BiCGStab" in str(w.message)]
+    return eq, solves, warned, 1e3 * wall / max(eq.last_nsteps, 1)
+
+
+def phase_semi_implicit(dev, res):
+    """SI: the flagship's Zalesak sphere at 512^3 f32, Periodic, the rotation
+    sampled on the grid (a vector MeshField), ``AdvectionTerm(vel,
+    scheme="upwind")`` under ``SemiImplicitI2OE()`` (CFL 2): 3 steps of
+    ``integrate``: ms a step, iterations a step, the final relative residual,
+    peak memory, no non-convergence warning; configuration 2 (Zalesak disk)
+    at 4096^2 f32 the same way for 5 steps; card vs CPU at 48^3 f64 after 3
+    steps (<= 1e-9 max|phi|, equal iterations); a gradient through a step at
+    32^3 f64, card vs CPU."""
+    out = {}
+    grid, phi, vel = zalesak(N_SI, dev)
+    torch.cuda.reset_peak_memory_stats()
+    eq, solves, warned, ms = si_run(phi, vel, SI_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(eq.state.values).all())
+    resid = ", ".join(f"{s['rel_residual']:.3e}" for s in solves)
+    log("semi_implicit", f"SI {N_SI}^3 f32 upwind, CFL 2: steps={eq.last_nsteps} "
+                         f"path={eq.last_fast_path} {ms:.1f} ms/step, iterations "
+                         f"{[s['iterations'] for s in solves]}, relative residuals [{resid}] "
+                         f"(tol {solves[-1]['tol']:.3e}), warnings {warned}, finite={finite}, "
+                         f"peak {peak:.2f} GiB [{nvidia_smi()}]")
+    out["512"] = {"ms_per_step": ms, "iterations": [s["iterations"] for s in solves],
+                  "rel_residual": solves[-1]["rel_residual"], "peak_gib": peak, "warned": warned}
+    # the loop test's host read: the busy share of one step on the card
+    step_phi = eq.state
+    wall, busy = profile_window(f"SI {N_SI}^3 one step", lambda: lsm.SemiImplicitI2OE().advance(
+        eq.terms, step_phi, 0.0, 0.5 * float(lsm.compute_cfl(eq.terms, step_phi, 0.0))))
+    out["512"]["busy_share"] = busy / wall
+    if not (eq.last_nsteps == SI_STEPS and eq.last_fast_path is None and finite and not warned
+            and all(0 < s["iterations"] < 500 for s in solves)):
+        raise AssertionError(f"SI at {N_SI}^3: {solves}, warnings {warned}")
+    del eq, phi, vel, step_phi
+    terms, phi2, _ = config("D2", N_SI_2D, dev)
+    vel2 = lsm.sample(lambda *xs: rotation2(xs, 0.0), phi2.grid, dtype=phi2.dtype, device=dev,
+                      vector=True)
+    torch.cuda.reset_peak_memory_stats()
+    eq, solves, warned, ms = si_run(phi2, vel2, SI_2D_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = bool(torch.isfinite(eq.state.values).all())
+    log("semi_implicit", f"config 2 {N_SI_2D}^2 f32 upwind: steps={eq.last_nsteps} {ms:.2f} "
+                         f"ms/step, iterations {[s['iterations'] for s in solves]}, final "
+                         f"relative residual {solves[-1]['rel_residual']:.3e}, warnings "
+                         f"{warned}, peak {peak:.3f} GiB")
+    out["2d"] = {"ms_per_step": ms, "iterations": [s["iterations"] for s in solves],
+                 "rel_residual": solves[-1]["rel_residual"], "peak_gib": peak}
+    if not (eq.last_nsteps == SI_2D_STEPS and finite and not warned):
+        raise AssertionError(f"SI config 2: {solves}, warnings {warned}")
+    del eq, phi2, vel2
+    # card vs CPU, f64, the same initial bits
+    _, phi_c, vel_c = zalesak(N_SI_SMALL, "cpu", torch.float64)
+    runs = {}
+    for where in ("cpu", dev):
+        p = phi_c.with_values(phi_c.values.to(where))
+        v = lsm.MeshField(vel_c.values.to(where), vel_c.grid)
+        eq, solves, warned, _ = si_run(p, v, 3)
+        runs[str(where)] = (eq.state.values.cpu(), [s["iterations"] for s in solves], eq.t)
+    (a, ia, ta), (b, ib, tb) = runs["cpu"], runs[str(dev)]
+    err = float((a - b).abs().max()) / float(a.abs().max())
+    log("semi_implicit", f"{N_SI_SMALL}^3 f64, 3 steps: card vs CPU max|diff|/max|phi| "
+                         f"{err:.3e} (tol 1e-9), iterations card {ib} CPU {ia}")
+    if not (err <= 1e-9 and ia == ib and ta == tb):
+        raise AssertionError(f"SI card vs CPU: {err}, {ia} / {ib}")
+    out["card_vs_cpu"] = err
+    # a gradient through one step, card vs CPU
+    _, phi_g, vel_g = zalesak(N_SI_GRAD, "cpu", torch.float64)
+    w = torch.randn(phi_g.shape, generator=torch.Generator().manual_seed(22),
+                    dtype=torch.float64)
+    grads = {}
+    for where in ("cpu", dev):
+        v = phi_g.values.to(where).requires_grad_()
+        u = vel_g.values.to(where).requires_grad_()
+        new, _ = lsm.SemiImplicitI2OE().advance(
+            (lsm.AdvectionTerm(lsm.MeshField(u, vel_g.grid), scheme="upwind"),),
+            phi_g.with_values(v), 0.0, 1.5 * phi_g.grid.min_spacing)
+        grads[str(where)] = [g.cpu() for g in torch.autograd.grad(
+            (new.values * w.to(where)).sum(), (v, u))]
+    gerr = max(rel_err(x, y) for x, y in zip(grads[str(dev)], grads["cpu"]))
+    log("semi_implicit", f"gradient through a step at {N_SI_GRAD}^3 f64 (phi and velocity): "
+                         f"card vs CPU max rel err {gerr:.3e} (tol 1e-9)")
+    if not gerr <= 1e-9:
+        raise AssertionError(f"SI gradient card vs CPU: {gerr}")
+    out["grad_card_vs_cpu"] = gerr
+    res["semi_implicit"] = out
+
+
+def sphere_field(n, dev, dtype=torch.float64, radius=0.5):
+    grid = lsm.Grid((-1.0,) * 3, (1.0,) * 3, (n,) * 3)
+    return lsm.sample(shapes.sphere((0.0, 0.0, 0.0), radius), grid, lsm.Extrapolation(2),
+                      dtype=dtype, device=dev)
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_interp_sdf(dev, res):
+    """NSDF: a sphere r 0.5 on [-1, 1]^3 at 256^3 f64 (its coefficients past
+    ``LAZY_THRESHOLD``: the lazy path on the card): ``NewtonSDF(order=3,
+    upsample=2)`` (build time, cut cells, valid samples),
+    ``reinitialize_newton`` over every node (time; error against |x| - r over
+    all nodes and within 5h), ``hausdorff_distance`` to r 0.48 (0.02); card
+    vs CPU at 32^3, eager: the samples to 1e-10, the queries to 1e-10 but at
+    lanes whose Newton stop lies one iterate apart (counted, at most 1%)."""
+    phi = sphere_field(N_NSDF, dev)
+    cf = lsm.InterpolatedField(phi, 3)
+    if not cf.is_lazy:
+        raise AssertionError("the 256^3 interpolant should be lazy")
+    torch.cuda.reset_peak_memory_stats()
+    sdf, t_build = timed(lambda: lsm.NewtonSDF(phi, order=3, upsample=2))
+    ncut = int((~sdf.cf.proven_empty(surface=True)).sum())
+    nvalid = int(sdf.valid.sum())
+    new, t_reinit = timed(lambda: lsm.reinitialize_newton(phi, order=3, upsample=2))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    coords = phi.grid.dense_coords(dtype=torch.float64, device=dev)
+    exact = torch.sqrt(sum(x ** 2 for x in coords)) - 0.5
+    err = (new.values - exact).abs()
+    near = exact.abs() <= 5 * phi.grid.min_spacing
+    err_all, err_near = float(err.max()), float(err[near].max())
+    other = lsm.NewtonSDF(sphere_field(N_NSDF, dev, radius=0.48), order=3, upsample=2)
+    hd, t_hd = timed(lambda: float(lsm.hausdorff_distance(sdf, other)))
+    log("interp_sdf", f"NSDF {N_NSDF}^3 f64 (lazy): build {t_build:.2f} s, cut cells {ncut}, "
+                      f"valid samples {nvalid} of {sdf.samples.shape[0]}; reinitialize_newton "
+                      f"over {phi.grid.num_nodes} nodes (its own build included; queries 2^20 a "
+                      f"KKT batch, closest_point's default on the card) {t_reinit:.2f} s, "
+                      f"max|phi - (|x| - r)| all {err_all:.3e}, within 5h {err_near:.3e}; "
+                      f"hausdorff_distance(r 0.5, r 0.48) = {hd:.6f} ({t_hd:.2f} s); peak "
+                      f"{peak:.2f} GiB [{nvidia_smi()}]")
+    res["interp_sdf"] = {"build_s": t_build, "cut_cells": ncut, "valid_samples": nvalid,
+                         "reinit_s": t_reinit, "err_all": err_all, "err_near_5h": err_near,
+                         "hausdorff": hd, "hausdorff_s": t_hd, "peak_gib": peak}
+    if not (err_near <= 1e-5 and err_all <= 1e-3 and abs(hd - 0.02) <= 2e-3 and nvalid > 0):
+        raise AssertionError("NSDF at 256^3 out of tolerance")
+    del sdf, other, new, coords, exact, err, near, cf
+    # card vs CPU at 32^3, eager
+    p_cpu = sphere_field(N_NSDF_SMALL, "cpu")
+    outs = {}
+    for where in ("cpu", dev):
+        p = p_cpu.with_values(p_cpu.values.to(where))
+        s = lsm.NewtonSDF(p, order=3, upsample=2)
+        x = p.grid.dense_coords(dtype=torch.float64, device=where)
+        x = torch.stack(x, -1).reshape(-1, 3)[::7]
+        outs[str(where)] = (s.samples.cpu(), s.valid.cpu(), s(x).cpu(),
+                            lsm.reinitialize_newton(p).values.cpu(), s.cf.is_lazy)
+    (sa, va, qa, ra, la), (sb, vb, qb, rb, lb) = outs["cpu"], outs[str(dev)]
+    # the samples to 1e-10; a query's KKT Newton freezes its lane at the first
+    # iterate whose residual is below 10 sqrt(eps) (JAX's rule), so a lane
+    # whose residual lies at that threshold may stop one iterate apart on the
+    # card and the CPU (their solves round differently): such lanes are
+    # counted and held to the rule's tolerance, the others to 1e-10
+    stop_tol = 10 * math.sqrt(torch.finfo(torch.float64).eps)
+    err_s = float((sa - sb).abs().max())
+    flips, worst = {}, {}
+    for name, a, b in (("sdf(x)", qa, qb), ("reinitialize_newton", ra, rb)):
+        d = (a - b).abs().reshape(-1)
+        flips[name], worst[name] = int((d > 1e-10).sum()), float(d.max())
+    log("interp_sdf", f"{N_NSDF_SMALL}^3 f64 eager, card vs CPU: samples {err_s:.3e} (tol 1e-10), "
+                      f"valid masks equal {torch.equal(va, vb)}; max|diff| "
+                      f"{ {k: f'{v:.3e}' for k, v in worst.items()} }, lanes past 1e-10 "
+                      f"(a Newton stop one iterate apart) {flips} of {qa.numel()} and "
+                      f"{ra.numel()} (tol {stop_tol:.2e}, at most 1%)")
+    if not (err_s <= 1e-10 and torch.equal(va, vb) and not la and not lb
+            and max(worst.values()) <= stop_tol and flips["sdf(x)"] <= 0.01 * qa.numel()
+            and flips["reinitialize_newton"] <= 0.01 * ra.numel()):
+        raise AssertionError(f"NSDF card vs CPU: {err_s}, {worst}, {flips}")
+    res["interp_sdf"]["card_vs_cpu"] = {"samples": err_s, "max": worst, "lanes_past_1e-10": flips}
+
+
+def phase_quadrature(dev, res):
+    """Q: the volume and area of a sphere r 0.5 on [-1, 1]^3 at 64^3 from a
+    field on the card, its interpolant eager and lazy, against 4/3 pi r^3 and
+    4 pi r^2; their times."""
+    phi = sphere_field(N_QUAD, dev)
+    r = 0.5
+    exact = {"volume": 4.0 / 3.0 * math.pi * r ** 3, "area": 4.0 * math.pi * r ** 2}
+    out = {}
+    for lazy in (False, True):
+        cf = lsm.InterpolatedField(phi, 3, lazy=lazy)
+        for kind, surface in (("volume", False), ("area", True)):
+            quads, t = timed(lambda: lsm.quadrature(cf, surface=surface))
+            val = lsm.integrate(None, quads)
+            out[f"{kind}_{'lazy' if lazy else 'eager'}"] = {
+                "value": val, "rel_err": abs(val - exact[kind]) / exact[kind], "s": t,
+                "cells": len(quads)}
+    log("quadrature", f"Q {N_QUAD}^3 f64 sphere r {r}: " + ", ".join(
+        f"{k} {v['value']:.10f} (rel err {v['rel_err']:.2e}, {v['cells']} cells, "
+        f"{v['s']:.2f} s)" for k, v in out.items()))
+    res["quadrature"] = out
+    same = all(abs(out[f"{k}_lazy"]["value"] - out[f"{k}_eager"]["value"])
+               <= 1e-12 * exact[k] for k in exact)
+    if not (all(v["rel_err"] <= 1e-4 for v in out.values()) and same):
+        raise AssertionError(f"quadrature: {out}")
+
+
 def main(argv=()) -> int:
     """Every phase in order; with phase names in ``argv``, only those (a
     partial run: no kernel record, and a last line that says so)."""
@@ -5764,7 +6200,7 @@ def main(argv=()) -> int:
                       ("k3kinds", phase_k3kinds), ("k1analytic", phase_k1analytic),
                       ("k3analytic", phase_k3analytic), ("k6analytic", phase_k6analytic),
                       ("k10k11", phase_k10k11), ("k2_small", phase_k2_small),
-                      ("k1_2d", phase_k1_2d),
+                      ("k1_2d", phase_k1_2d), ("k2_degree", phase_k2_degree),
                       ("k512", phase_k512), ("k3_512", phase_k3_512),
                       ("band_512", phase_band_512), ("kinds_512", phase_kinds_512),
                       ("k3kinds_512", phase_k3kinds_512),
@@ -5774,7 +6210,9 @@ def main(argv=()) -> int:
                       ("grad_kinds", phase_grad_kinds), ("config5", phase_config5),
                       ("general_512", phase_general_512), ("twod", phase_twod),
                       ("grad_2d", phase_grad_2d),
-                      ("general_small", phase_general_small), ("k9", phase_k9),
+                      ("general_small", phase_general_small),
+                      ("semi_implicit", phase_semi_implicit), ("interp_sdf", phase_interp_sdf),
+                      ("quadrature", phase_quadrature), ("k9", phase_k9),
                       ("sharded", phase_sharded), ("sharded_grad", phase_sharded_grad),
                       ("sharded_general", phase_sharded_general), ("dryrun", phase_dryrun),
                       ("timing", phase_timing),
@@ -6141,6 +6579,17 @@ def kernel_records(res):
                        bound_ms_axis1_mesh_4x1=k9[(4, 1)]["K2_axis1_bound"][0],
                        bound_ms_axis2_mesh_4x1=k9[(4, 1)]["K2_axis2_bound"][0],
                        shard_4x1=list(k9[(4, 1)]["shape"]))
+        if key in ("K2", "K4", "K7"):  # the route for an Extrapolation of degree above 7
+            # (csrc/ghost_table.cu) at 512^3 f32 beside the by-value route's Extrapolation(7)
+            # in the same run; K2's launches on the flagship under Extrapolation(8)
+            deg = res["k2_degree"]
+            rec.update(table_route={
+                "source": "lsm_tpu_torch/csrc/ghost_table.cu",
+                "ms_extrapolation8": deg["degree8"][key], "ms_extrapolation7": deg["degree7"][key],
+                "bound_ms_extrapolation8": (deg["degree8"]["K2_bound"] if key != "K4"
+                                            else bound(f32 * 2 * padded, 0)[0]),
+                "launches_flagship_extrapolation8": res["launches"]["K2 table"]
+                if key == "K2" else None})
         if key == "K4":
             rec.update(library_call="g.clone()",
                        library_ms_back_to_back=t["K4_clone_back_to_back"],

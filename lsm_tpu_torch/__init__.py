@@ -29,8 +29,14 @@ canonical configurations 1 to 5 (configuration 5: shape optimisation
 through a band rollout); and the sharded paths (:mod:`lsm_tpu_torch.parallel`:
 an in-process mesh of torch devices, the halo exchange, the sharded general
 and fused evolutions with the shell writer K9, the differentiable sharded
-rollout). Tensors go to the card unless the caller asks for the CPU
-(``device="cpu"``).
+rollout); ``SemiImplicitI2OE`` (a matrix-free BiCGStab step, plain torch,
+differentiable), ``InterpolatedField`` (piecewise Bernstein patches, eager
+or lazy), ``NewtonSDF``, ``reinitialize_newton`` and ``hausdorff_distance``
+(the high-order signed distance) and ``quadrature``/``integrate`` (cut-cell
+quadrature on the host): with them the port exports JAX's 46 names. An
+``Extrapolation`` of any degree takes the ghost kernels (above 7 their
+weight-table route). Tensors go to the card unless the caller asks for the
+CPU (``device="cpu"``).
 """
 
 from .core.grid import Grid
@@ -53,10 +59,14 @@ from .terms.terms import (
     compute_cfl,
 )
 from .integrators.explicit import ForwardEuler, RK2, RK3, TimeIntegrator
+from .integrators.semi_implicit import SemiImplicitI2OE
 from .integrators.loop import evolve, rollout, step
 from .equation import LevelSetEquation
+from .interp.interpolation import InterpolatedField
+from .interp.sdf import NewtonSDF, reinitialize_newton, hausdorff_distance
 from .reinit.eikonal import reinitialize
 from .reinit.velocity_extension import extend_along_normals
+from .geometry.quadrature import quadrature, integrate
 from .geometry.queries import (
     volume,
     perimeter,
@@ -95,13 +105,20 @@ __all__ = [
     "ForwardEuler",
     "RK2",
     "RK3",
+    "SemiImplicitI2OE",
     "TimeIntegrator",
     "step",
     "evolve",
     "rollout",
     "LevelSetEquation",
+    "InterpolatedField",
+    "NewtonSDF",
+    "reinitialize_newton",
+    "hausdorff_distance",
     "reinitialize",
     "extend_along_normals",
+    "quadrature",
+    "integrate",
     "volume",
     "perimeter",
     "curvature",

@@ -9,6 +9,7 @@ A frozen description of a tensor-product node lattice ``[lo, hi]`` with
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -41,6 +42,22 @@ class Grid:
         object.__setattr__(self, "hi", hi)
         object.__setattr__(self, "shape", shape)
 
+    @staticmethod
+    def from_meshsize(lo: Sequence[float], hi: Sequence[float], meshsize) -> "Grid":
+        """Grid spanning ``[lo, hi]`` with spacing at most ``meshsize`` per
+        dimension: the domain is kept exactly and the cell count rounded up."""
+        lo = tuple(float(v) for v in lo)
+        hi = tuple(float(v) for v in hi)
+        ndim = len(lo)
+        hs = (float(meshsize),) * ndim if np.isscalar(meshsize) else tuple(
+            float(v) for v in meshsize)
+        if len(hs) != ndim:
+            raise ValueError("meshsize must be a scalar or have one entry per dimension")
+        if any(h <= 0 for h in hs):
+            raise ValueError("meshsize must be positive in every dimension")
+        shape = tuple(int(math.ceil((b - a) / h - 1e-12)) + 1 for a, b, h in zip(lo, hi, hs))
+        return Grid(lo, hi, shape)
+
     @property
     def ndim(self) -> int:
         return len(self.shape)
@@ -56,6 +73,14 @@ class Grid:
     @property
     def cell_volume(self) -> float:
         return float(np.prod(self.spacing))
+
+    @property
+    def num_nodes(self) -> int:
+        return int(np.prod(self.shape))
+
+    @property
+    def cells_shape(self) -> Tuple[int, ...]:
+        return tuple(n - 1 for n in self.shape)
 
     def axis_coords(self, dim: int, dtype=torch.float64, device=None) -> torch.Tensor:
         """1-D tensor of node coordinates along dimension ``dim``; ``device``
@@ -73,6 +98,30 @@ class Grid:
             view[d] = self.shape[d]
             out.append(self.axis_coords(d, dtype, device).reshape(view))
         return tuple(out)
+
+    def dense_coords(self, dtype=torch.float64, device=None):
+        """Tuple of N dense coordinate tensors of shape ``self.shape``, on the
+        card unless ``device`` says otherwise."""
+        device = resolve_device(device)
+        axes = [self.axis_coords(d, dtype, device) for d in range(self.ndim)]
+        return tuple(torch.meshgrid(*axes, indexing="ij"))
+
+    def node(self, index: Sequence[int]) -> Tuple[float, ...]:
+        """Coordinates of the node at (0-based) multi-index ``index``; indices
+        outside the grid give ghost-node coordinates."""
+        return tuple(a + i * h for a, i, h in zip(self.lo, index, self.spacing))
+
+    def cell_center(self, index: Sequence[int]) -> Tuple[float, ...]:
+        return tuple(a + (i + 0.5) * h for a, i, h in zip(self.lo, index, self.spacing))
+
+    def locate_cell(self, x: torch.Tensor) -> torch.Tensor:
+        """Cell multi-index (int32) containing point(s) ``x`` (shape (..., N)),
+        clamped to the grid's cells."""
+        lo = torch.as_tensor(self.lo, dtype=x.dtype, device=x.device)
+        h = torch.as_tensor(self.spacing, dtype=x.dtype, device=x.device)
+        idx = torch.floor((x - lo) / h).to(torch.int32)
+        hi = torch.as_tensor([n - 2 for n in self.shape], dtype=torch.int32, device=x.device)
+        return torch.minimum(torch.clamp(idx, min=0), hi)
 
     def __repr__(self) -> str:
         dom = " x ".join(f"[{a:g}, {b:g}]" for a, b in zip(self.lo, self.hi))

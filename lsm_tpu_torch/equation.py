@@ -22,11 +22,10 @@ Routing by the state's device and kind, as JAX routes on the TPU:
   step refreshes them with the accepted state before the CFL bound, then
   before every stage (JAX's loop order), and the refreshed terms persist in
   ``self.terms``. On a band they take the general path, as in JAX.
-- On CUDA, a configuration that JAX takes on its fused path and this port
-  does not yet (Extrapolation of degree > 7) raises
-  ``NotImplementedError`` naming its ROADMAP item. On the CPU it takes the
-  general path. The kernels' plain versions run on CPU tensors; nothing on
-  CUDA drops to them.
+- Every configuration JAX takes on its fused path takes the port's, an
+  ``Extrapolation`` of any degree included (above 7 the ghost kernels read
+  their weights from a device table). The kernels' plain versions run on
+  CPU tensors; nothing on CUDA drops to them.
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ from .geometry import queries as geo
 from .integrators import band_fused as _band
 from .integrators import loop as _loop
 from .integrators.explicit import RK3, TimeIntegrator
-from .integrators.fused import FusedStepper, pending, unsupported_reason
+from .integrators.fused import FusedStepper, unsupported_reason
 from .terms.terms import compute_cfl as _compute_cfl, update_terms
 
 __all__ = ["LevelSetEquation"]
@@ -147,8 +146,7 @@ class LevelSetEquation:
     def _cuda_stepper(self, hooks: bool, fast: str):
         """The fused or band stepper for a CUDA state; ``None`` for the
         general path (hooks, ``fast="off"``, a configuration JAX sends to
-        its general path); or ``NotImplementedError`` naming the ROADMAP item
-        the configuration waits for (:func:`~.integrators.fused.pending`)."""
+        its general path)."""
         if self.state.dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(
                 f"the CUDA kernels take float32 or float64, not {self.state.dtype}")
@@ -160,8 +158,6 @@ class LevelSetEquation:
         if reason is None:
             return (_band.FusedBandStepper if band else FusedStepper)(
                 self.terms, self.state, self.integrator)
-        if pending(reason):
-            raise NotImplementedError(reason)
         return None
 
     def _eps(self, tf):

@@ -60,7 +60,7 @@ from ..terms.terms import (AdvectionTerm, CurvatureTerm, EikonalReinitialization
 from .explicit import RK2, RK3, ForwardEuler
 
 __all__ = ["FusedStepper", "supports_fused", "unsupported_reason", "term_entry",
-           "gradient_reason", "pending"]
+           "gradient_reason"]
 
 # (alpha, beta, gamma / dt, stage-time offset / dt) per stage, SSP form; the
 # aux buffer of every stage after the first is the step's input state
@@ -70,21 +70,6 @@ _STAGES = {
     RK3: ((0.0, 1.0, 1.0, 0.0), (0.75, 0.25, 0.25, 1.0),
           (1.0 / 3.0, 2.0 * (1.0 / 3.0), 2.0 * (1.0 / 3.0), 0.5)),
 }
-
-
-#: ROADMAP items of configurations that JAX's fused path takes and this
-#: port's does not yet: on CUDA they raise rather than take the general path
-PENDING = ("K2 degree",)
-
-
-def _todo(what: str, item: str) -> str:
-    return f"{what} is not ported to the fused path yet (ROADMAP.md queue 2, {item})"
-
-
-def pending(reason: Optional[str]) -> bool:
-    """Whether a reason from :func:`unsupported_reason` (or the band
-    stepper's) names one of the :data:`PENDING` items."""
-    return reason is not None and any(f"queue 2, {item})" in reason for item in PENDING)
 
 
 def _coef_entry(kind: str, coef, phi: MeshField, k: int):
@@ -214,18 +199,14 @@ def _kind_reason(phi: MeshField, integrator) -> Optional[str]:
 
 def _axes_reason(shape, bcs) -> Optional[str]:
     """K2's rule per axis and side: ``Extrapolation(d)`` needs ``n >= d + 1``
-    nodes (as in JAX: with fewer the general path raises ``ValueError``) and
-    ``d <= 7`` (a higher degree waits for its ROADMAP item), Periodic and
-    Symmetry ``n >= 4``."""
+    nodes (as in JAX: with fewer the general path raises ``ValueError``),
+    Periodic and Symmetry ``n >= 4``."""
     for ax, n in enumerate(shape):
         for b in bcs[ax]:
             if isinstance(b, _bc.Extrapolation):
                 if b.degree + 1 > n:
                     return (f"Extrapolation({b.degree}) needs {b.degree + 1} nodes, axis {ax} "
                             f"has {n}")
-                if b.degree > 7:
-                    return _todo(f"Extrapolation({b.degree}) on an axis of {n} nodes",
-                                 "K2 degree")
             elif n < v2.GHOST + 1:
                 return (f"axis {ax} has {n} nodes; the ghost refresh needs >= {v2.GHOST + 1} "
                         f"for {b} ghosts")

@@ -44,7 +44,7 @@ from ..core.narrowband import NarrowBandField
 from ..ops.band import tile_grid
 from . import band_fused as _band
 from .explicit import TimeIntegrator
-from .fused import FusedStepper, gradient_reason, pending, unsupported_reason
+from .fused import FusedStepper, gradient_reason, unsupported_reason
 
 __all__ = ["step", "evolve", "rollout"]
 
@@ -99,9 +99,8 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
     when the configuration qualifies (dense 3D or 2D, terms of the fused
     stage's kinds, FE/RK2/RK3), on the card and on the CPU, and the band
     stepper for a CUDA band; ``fast="off"`` and other configurations take
-    the general path. On CUDA a configuration JAX takes on its fused path
-    and this port does not yet raises ``NotImplementedError``, as does a
-    gradient the card cannot run
+    the general path. On CUDA a gradient the card cannot run raises
+    ``NotImplementedError``
     (:func:`~lsm_tpu_torch.integrators.fused.gradient_reason`). ``remat``
     and ``remat_chunk`` as in the module docstring.
     """
@@ -118,8 +117,6 @@ def rollout(integrator: TimeIntegrator, terms, phi: MeshField, t0, dt, nsteps: i
             if band:
                 return _band_rollout(integrator, terms, phi, t0, dt, nsteps, remat, remat_chunk)
             return _fused_rollout(integrator, terms, phi, t0, dt, nsteps, remat, remat_chunk)
-        if cuda and pending(reason):
-            raise NotImplementedError(reason)
     dt_value = _host(dt)
 
     if band:

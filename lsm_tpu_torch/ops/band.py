@@ -569,8 +569,8 @@ def refresh_band_ghosts_fast(padded: torch.Tensor, bcs, shape, flags: torch.Tens
     so gating needs no host synchronisation. CUDA tensors go to
     ``csrc/refresh_ghosts.cu`` (one launch, 3D or 2D: K2's one-launch kernel
     gated by the flags, a small grid whose blocks exit at once when both are
-    off), CPU tensors to :func:`refresh_band_ghosts_plain`. Returns
-    ``padded``.
+    off; a degree above 7: ``csrc/ghost_table.cu``, a gated launch a phase),
+    CPU tensors to :func:`refresh_band_ghosts_plain`. Returns ``padded``.
     """
     shape = tuple(shape)
     if len(shape) not in (2, 3):
@@ -583,6 +583,12 @@ def refresh_band_ghosts_fast(padded: torch.Tensor, bcs, shape, flags: torch.Tens
     kinds, degrees, weights = v2._ghost_args(bcs, shape)
     if padded.device.type == "cpu":
         return refresh_band_ghosts_plain(padded, bcs, shape, flags)
+    table = v2._ghost_table(bcs, shape, padded.device)
+    if table is not None:
+        v2.ghost_table_launch(v2.TABLE_REFRESH, None, padded, bcs, shape, table, flags=flags)
+        bump(refresh_band_ghosts_fast, launches=1, launches_2d=len(shape) == 2,
+             table_launches=1)
+        return padded
     lib = load_library()
     f32 = padded.dtype == torch.float32
     if len(shape) == 2:
@@ -601,6 +607,7 @@ def refresh_band_ghosts_fast(padded: torch.Tensor, bcs, shape, flags: torch.Tens
 
 refresh_band_ghosts_fast.launches = 0
 refresh_band_ghosts_fast.launches_2d = 0  # of the launches, those of a 2D band
+refresh_band_ghosts_fast.table_launches = 0  # of the launches, those of the table route
 
 
 # -- K8: the incremental re-tube ---------------------------------------------------------

@@ -22,6 +22,8 @@ __all__ = [
     "dp",
     "dm",
     "weno5_pair_diffs",
+    "weno5m",
+    "weno5p",
     "weno5_upwind",
     "weno5_upwind_fwd_bwd",
     "safe_sqrt",
@@ -78,6 +80,43 @@ def dp(p, axis, h, g, shape):
 def dm(p, axis, h, g, shape):
     """Backward first derivative along ``axis``."""
     return (_s(p, axis, 0, g, shape) - _s(p, axis, -1, g, shape)) / h
+
+
+def _weno_core(v1, v2, v3, v4, v5):
+    """Classic fifth-order WENO reconstruction from five one-sided differences
+    ordered from the upwind end inward (Jiang-Shu smoothness indicators,
+    weights 0.1/0.6/0.3, fudge factor ``1e-6 * max(v_i^2)`` plus a floor in
+    the working dtype, as :func:`_weno_eps`)."""
+    d1 = (1.0 / 3.0) * v1 - (7.0 / 6.0) * v2 + (11.0 / 6.0) * v3
+    d2 = -(1.0 / 6.0) * v2 + (5.0 / 6.0) * v3 + (1.0 / 3.0) * v4
+    d3 = (1.0 / 3.0) * v3 + (5.0 / 6.0) * v4 - (1.0 / 6.0) * v5
+    s1 = (13.0 / 12.0) * (v1 - 2.0 * v2 + v3) ** 2 + 0.25 * (v1 - 4.0 * v2 + 3.0 * v3) ** 2
+    s2 = (13.0 / 12.0) * (v2 - 2.0 * v3 + v4) ** 2 + 0.25 * (v2 - v4) ** 2
+    s3 = (13.0 / 12.0) * (v3 - 2.0 * v4 + v5) ** 2 + 0.25 * (3.0 * v3 - 4.0 * v4 + v5) ** 2
+    vmax = torch.maximum(torch.maximum(torch.maximum(v1 * v1, v2 * v2),
+                                       torch.maximum(v3 * v3, v4 * v4)), v5 * v5)
+    floor = 1.0e-36 if v1.dtype == torch.float64 else 1.0e-12
+    eps = 1.0e-6 * vmax + floor
+    a1 = 0.1 / (s1 + eps) ** 2
+    a2 = 0.6 / (s2 + eps) ** 2
+    a3 = 0.3 / (s3 + eps) ** 2
+    inv = 1.0 / (a1 + a2 + a3)
+    return (a1 * d1 + a2 * d2 + a3 * d3) * inv
+
+
+def weno5m(p, axis, h, g, shape):
+    """Left-biased fifth-order WENO derivative along ``axis`` (``weno5-``),
+    from the five backward differences at ``I-2 .. I+2``; needs ``g >= 3``."""
+    s = [_s(p, axis, k, g, shape) for k in range(-3, 3)]  # offsets -3..2
+    return _weno_core(*[(s[k + 1] - s[k]) / h for k in range(5)])
+
+
+def weno5p(p, axis, h, g, shape):
+    """Right-biased fifth-order WENO derivative along ``axis`` (``weno5+``),
+    from the five forward differences at ``I+2 .. I-2`` (upwind end first)."""
+    s = [_s(p, axis, k, g, shape) for k in range(-2, 4)]  # offsets -2..3
+    diffs = [(s[k + 1] - s[k]) / h for k in range(5)]  # D+ at I-2..I+2
+    return _weno_core(diffs[4], diffs[3], diffs[2], diffs[1], diffs[0])
 
 
 def _weno_eps(vmax, dtype):

@@ -50,6 +50,7 @@ import ctypes
 import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
@@ -96,7 +97,7 @@ __all__ = [
 ]
 
 GHOST = st.PAD_WENO5  # 3 ghost layers on every axis
-_MAX_DEGREE = 7  # K2 takes Lagrange extrapolation up to this degree
+_MAX_DEGREE = 7  # the by-value weights' degree; a higher one takes the table route
 _DTYPES = (torch.float32, torch.float64)
 
 
@@ -203,7 +204,9 @@ def _ghost_args(bcs, shape):
     ghost at distance ``k``, computed in float64 on the host. An axis of
     ``n`` nodes takes ``Extrapolation(d)`` for ``d + 1 <= n`` (so a one-node
     axis takes ``Extrapolation(0)``: its ghosts are copies of the node),
-    Periodic and Symmetry for ``n >= 4``. Cached per BCs and shape (the
+    Periodic and Symmetry for ``n >= 4``. The weights hold degrees up to
+    ``_MAX_DEGREE``; a side of higher degree leaves its row 0 and the
+    launches take :func:`_ghost_table`'s route. Cached per BCs and shape (the
     arrays are read, never written, by the launches)."""
     return _ghost_args_of(tuple(tuple(pair) for pair in bcs), tuple(int(n) for n in shape))
 
@@ -225,11 +228,13 @@ def _ghost_args_of(bcs, shape):
             kinds[2 * ax + side] = code
             if code == 2:
                 P = b.degree
-                if P > _MAX_DEGREE or P + 1 > n:
+                if P + 1 > n:
                     raise ValueError(
                         f"Extrapolation({P}) on axis {ax} with {n} nodes: the ghost "
-                        f"refresh takes degree <= {_MAX_DEGREE} and degree + 1 <= n")
+                        f"refresh takes degree + 1 <= n")
                 degrees[2 * ax + side] = P
+                if P > _MAX_DEGREE:
+                    continue
                 W = _bc._lagrange_extrap_weights(GHOST, P)  # row g <-> k = 3 - g
                 for k in range(1, GHOST + 1):
                     base = ((2 * ax + side) * GHOST + (k - 1)) * (_MAX_DEGREE + 1)
@@ -238,14 +243,68 @@ def _ghost_args_of(bcs, shape):
     return kinds, degrees, weights
 
 
+def _ghost_table(bcs, shape, device):
+    """The weight table of the route for a degree above ``_MAX_DEGREE``
+    (``csrc/ghost_table.cu``): ``(table, dmax)``, ``table`` a float64 tensor
+    on ``device`` with the weight of node ``j`` for the ghost at distance
+    ``k`` of side ``a = 2 axis + side`` at ``[(a*3 + k-1)*(dmax+1) + j]``;
+    ``None`` when every degree fits the by-value weights. Built once per
+    BCs, shape and device."""
+    return _ghost_table_of(tuple(tuple(pair) for pair in bcs), tuple(int(n) for n in shape),
+                           torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _ghost_table_of(bcs, shape, device):
+    dmax = max((b.degree for pair in bcs for b in pair if isinstance(b, _bc.Extrapolation)),
+               default=0)
+    if dmax <= _MAX_DEGREE:
+        return None
+    table = np.zeros((2 * len(shape), GHOST, dmax + 1))
+    for ax in range(len(shape)):
+        for side in range(2):
+            b = bcs[ax][side]
+            if isinstance(b, _bc.Extrapolation):
+                W = _bc._lagrange_extrap_weights(GHOST, b.degree)  # row g <-> k = 3 - g
+                for k in range(1, GHOST + 1):
+                    table[2 * ax + side, k - 1, :b.degree + 1] = W[GHOST - k]
+    return torch.as_tensor(table.ravel(), dtype=torch.float64, device=device), dmax
+
+
+TABLE_REFRESH, TABLE_FOLD = 0, 1  # the ops of lsm_ghosts_table_*
+
+
+def ghost_table_launch(op: int, g: Optional[torch.Tensor], padded: torch.Tensor, bcs, shape,
+                       table, axis_lo: int = 0, axis_hi: Optional[int] = None,
+                       flags: Optional[torch.Tensor] = None):
+    """One call of the table route on the card (``csrc/ghost_table.cu``):
+    ``TABLE_REFRESH`` the phases ``[axis_lo, axis_hi)`` of K2 on ``padded``
+    in place (gated by K7's ``flags`` when given), ``TABLE_FOLD`` K4's fold
+    of ``g`` into ``padded``. ``table`` is :func:`_ghost_table`'s pair."""
+    kinds, degrees, _ = _ghost_args(bcs, shape)
+    lib = load_library()
+    fn = lib.ghosts_table_f32 if padded.dtype == torch.float32 else lib.ghosts_table_f64
+    dims = tuple(shape) + (0,) * (3 - len(shape))
+    w, dmax = table
+    ctx, stream = _on_card(padded)
+    with ctx:
+        code = fn(op, None if g is None else g.data_ptr(), padded.data_ptr(), len(shape), *dims,
+                  axis_lo, len(shape) if axis_hi is None else axis_hi, ctypes.addressof(kinds),
+                  ctypes.addressof(degrees), w.data_ptr(), dmax,
+                  None if flags is None else flags.data_ptr(), stream)
+    _raise_on(code, lib, "ghosts_table kernel")
+
+
 def refresh_ghosts_fast(padded: torch.Tensor, bcs, shape) -> torch.Tensor:
     """K2: refresh the ghost shells of a padded 3D or 2D buffer in place.
 
     Replaces ``lsm_tpu.ops.weno_v2.refresh_ghosts_fast``. CUDA tensors go to
     ``csrc/refresh_ghosts.cu`` (one launch, 3D or 2D, whose edge and corner
     ghosts recompute the earlier axes' values they read, bit for bit
-    ``pad_ghost``'s), CPU tensors to :func:`refresh_ghosts_plain`. Returns
-    ``padded``.
+    ``pad_ghost``'s), CPU tensors to :func:`refresh_ghosts_plain`. An
+    ``Extrapolation`` of degree above 7 takes ``csrc/ghost_table.cu`` (a
+    launch a phase, the weights in a device table; counted in
+    ``table_launches`` too). Returns ``padded``.
     """
     shape = tuple(shape)
     if len(shape) not in (2, 3):
@@ -254,6 +313,11 @@ def refresh_ghosts_fast(padded: torch.Tensor, bcs, shape) -> torch.Tensor:
     kinds, degrees, weights = _ghost_args(bcs, shape)
     if padded.device.type == "cpu":
         return refresh_ghosts_plain(padded, bcs, shape)
+    table = _ghost_table(bcs, shape, padded.device)
+    if table is not None:
+        ghost_table_launch(TABLE_REFRESH, None, padded, bcs, shape, table)
+        bump(refresh_ghosts_fast, launches=1, launches_2d=len(shape) == 2, table_launches=1)
+        return padded
     lib = load_library()
     f32 = padded.dtype == torch.float32
     if len(shape) == 3:
@@ -271,6 +335,7 @@ def refresh_ghosts_fast(padded: torch.Tensor, bcs, shape) -> torch.Tensor:
 
 refresh_ghosts_fast.launches = 0
 refresh_ghosts_fast.launches_2d = 0  # of the launches, those of the 2D entry
+refresh_ghosts_fast.table_launches = 0  # of the launches, those of the table route
 
 
 def refresh_axis_fast(padded: torch.Tensor, bcs, shape, ax: int) -> torch.Tensor:
@@ -279,7 +344,8 @@ def refresh_axis_fast(padded: torch.Tensor, bcs, shape, ax: int) -> torch.Tensor
     refresh runs it for the axes a mesh leaves unsharded. CUDA tensors go to
     ``csrc/refresh_ghosts.cu`` (one launch: a thread a line and its six
     ghosts on axes 0 and 1, a lane a ghost along the seams between rows on
-    axis 2), CPU tensors to :func:`refresh_axis_plain`. Returns ``padded``."""
+    axis 2), CPU tensors to :func:`refresh_axis_plain`; a degree above 7
+    takes the table route (``table_launches``). Returns ``padded``."""
     shape = tuple(shape)
     if len(shape) != 3 or ax not in (0, 1, 2):
         raise ValueError(f"the ghost refresh is 3D only, got shape {shape} and axis {ax}")
@@ -287,6 +353,11 @@ def refresh_axis_fast(padded: torch.Tensor, bcs, shape, ax: int) -> torch.Tensor
     kinds, degrees, weights = _ghost_args(bcs, shape)
     if padded.device.type == "cpu":
         return refresh_axis_plain(padded, bcs, shape, ax)
+    table = _ghost_table(bcs, shape, padded.device)
+    if table is not None:
+        ghost_table_launch(TABLE_REFRESH, None, padded, bcs, shape, table, ax, ax + 1)
+        bump(refresh_axis_fast, launches=1, table_launches=1)
+        return padded
     lib = load_library()
     fn = lib.refresh_axis_f32 if padded.dtype == torch.float32 else lib.refresh_axis_f64
     ctx, stream = _on_card(padded)
@@ -299,6 +370,7 @@ def refresh_axis_fast(padded: torch.Tensor, bcs, shape, ax: int) -> torch.Tensor
 
 
 refresh_axis_fast.launches = 0
+refresh_axis_fast.table_launches = 0  # of the launches, those of the table route
 
 
 # -- K1: fused RK stage -------------------------------------------------------------

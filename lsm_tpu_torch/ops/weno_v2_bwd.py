@@ -139,19 +139,6 @@ def fold_ghost_cotangent_plain(g: torch.Tensor, bcs, shape) -> torch.Tensor:
     return g
 
 
-def _check_degrees(bcs, shape):
-    """``NotImplementedError`` naming its item for an ``Extrapolation`` of
-    degree > 7 on an axis that has the degree's nodes (the kernels' weight
-    table; JAX computes it); fewer nodes than degree + 1 stay the
-    ``ValueError`` of :func:`~.weno_v2._ghost_args`, as in JAX."""
-    for ax, n in enumerate(shape):
-        for b in bcs[ax]:
-            if isinstance(b, _bc.Extrapolation) and v2._MAX_DEGREE < b.degree <= n - 1:
-                raise NotImplementedError(
-                    f"Extrapolation({b.degree}) on axis {ax}: the ghost kernels take degree <= "
-                    f"{v2._MAX_DEGREE} (ROADMAP.md queue 2, K2 degree)")
-
-
 def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
     """K4: a new padded buffer holding ``g``'s interior with the ghost-shell
     cotangents of ``g`` folded into it, and zero shells; ``g`` is left as it
@@ -164,7 +151,9 @@ def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
     :func:`fold_ghost_cotangent_plain` on a copy. The kernels take what K2
     takes: Periodic and Symmetry on axes of >= 4 nodes, Extrapolation of
     degree <= n - 1 on any axis (one of 1-3 nodes gathers from both faces),
-    else ``ValueError``; a degree > 7 raises ``NotImplementedError``.
+    else ``ValueError``; a degree above 7 takes ``csrc/ghost_table.cu`` (a
+    copy, a launch an axis, the weights in a device table; counted in
+    ``table_launches`` too).
     """
     shape = tuple(shape)
     if len(shape) not in (2, 3):
@@ -172,8 +161,14 @@ def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
     v2._check(g, "g", v2.padded_shape(shape))
     if g.device.type == "cpu":
         return fold_ghost_cotangent_plain(g.clone(), bcs, shape)
-    _check_degrees(bcs, shape)
     kinds, degrees, weights = v2._ghost_args(bcs, shape)
+    table = v2._ghost_table(bcs, shape, g.device)
+    if table is not None:
+        gf = torch.empty_like(g)
+        v2.ghost_table_launch(v2.TABLE_FOLD, g, gf, bcs, shape, table)
+        bump(fold_ghost_cotangent_fast, launches=1, launches_2d=len(shape) == 2,
+             table_launches=1)
+        return gf
     lib = load_library()
     fn = _entry(lib, "fold", shape, g.dtype)
     gf = torch.empty_like(g)
@@ -188,6 +183,7 @@ def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
 
 fold_ghost_cotangent_fast.launches = 0
 fold_ghost_cotangent_fast.launches_2d = 0  # of the launches, those of the 2D entry
+fold_ghost_cotangent_fast.table_launches = 0  # of the launches, those of the table route
 
 
 # -- K5: shell zeroing -----------------------------------------------------------

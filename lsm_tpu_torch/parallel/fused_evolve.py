@@ -71,7 +71,7 @@ __all__ = ["refresh_ghosts_sharded", "write_shell_blocks", "make_sharded_fused_e
            "supports_sharded_fused", "sharded_fused_step_stage", "make_sharded_fused_rollout"]
 
 _G = v2.GHOST
-_EDGE = 8  # edge depth the BC blocks read: Extrapolation up to degree 7
+_EDGE = 8  # edge depth the BC blocks read: Extrapolation up to degree 7, deeper above
 
 
 # -- K9: the shell writer ------------------------------------------------------------
@@ -221,7 +221,9 @@ def _refresh(bufs, bcs, layout: ShardLayout, plain: bool):
     write = write_shell_blocks_plain if plain else write_shell_blocks
     devices = [b.device for b in bufs]
     lanes = slice(_G, _G + n2)
-    w0, w1 = min(_EDGE, n0), min(_EDGE, n1)
+    edge = [max([_EDGE] + [b.degree + 1 for b in pair if isinstance(b, _bc.Extrapolation)])
+            for pair in bcs[:2]]
+    w0, w1 = min(edge[0], n0), min(edge[1], n1)
     none = [None] * len(bufs)
     l0 = r0 = l1 = r1 = none
     if s0 > 1:

@@ -495,22 +495,28 @@ def test_band_routing_names_roadmap_items():
     cases = [
         ((vel, object()), tnb, "no term kind"),
         ((T.AdvectionTerm(_velf, "upwind"),), tnb, "general path"),
-        ((vel,), tnb.with_bcs(T.Extrapolation(8), replace=True), "K2 degree"),
     ]
     for terms, nb, item in cases:
         assert item in tband.unsupported_reason(terms, nb, T.RK3())
         with pytest.raises(NotImplementedError, match=item.replace("(", r"\(").replace(")", r"\)")):
             tband.FusedBandStepper(terms, nb, T.RK3())
     # on CUDA the upwind scheme and an object that is no term kind take the
-    # general path (None); Extrapolation(8) waits for its item; a 2D band takes
+    # general path (None); Extrapolation(8) takes the band stepper (the ghost
+    # kernels' table route), equal to JAX's dense band path; a 2D band takes
     # the band stepper (its 2D entries)
     for terms, nb, item in cases:
-        eq = T.LevelSetEquation(terms=terms, ic=nb)
-        if item == "K2 degree":
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2, K2 degree"):
-                eq._cuda_stepper(False, "auto")
-        else:
-            assert eq._cuda_stepper(False, "auto") is None
+        assert T.LevelSetEquation(terms=terms, ic=nb)._cuda_stepper(False, "auto") is None
+    jnb8, tnb8 = _pair((16, 16, 16), bcs=[("extrap", 8)] * 3)
+    assert tband.unsupported_reason((vel,), tnb8, T.RK3()) is None
+    assert isinstance(T.LevelSetEquation(terms=vel, ic=tnb8)._cuda_stepper(False, "auto"),
+                      tband.FusedBandStepper)
+    dt = 0.2 * jnb8.grid.min_spacing
+    _, _, out = _port_run(T.RK3, tnb8, dt, 2)
+    _assert_band_equal(out, _dense_band_run(J.RK3, jnb8, dt, 2))
+    teq = T.LevelSetEquation(terms=vel, ic=tnb8, integrator=T.RK3())
+    teq.integrate(2 * dt, dt_max=dt)
+    assert teq.last_fast_path == "band" and teq.last_nsteps == 2
+    torch.testing.assert_close(teq.state.values, out.values, rtol=0, atol=1e-13)
     grid2 = T.Grid((0.0, 0.0), (1.0, 1.0), (16, 16))
     nb2 = T.NarrowBandField(torch.linspace(-1, 1, 16, dtype=torch.float64)[:, None].expand(16, 16)
                             .contiguous(), grid2, T.Extrapolation(1))

@@ -390,23 +390,27 @@ def test_shallow_2d_tiles_take_the_full_retube_on_the_cpu_and_are_refused_on_cud
 
 
 def test_a_2d_band_routes_to_the_band_stepper_on_cuda():
-    """A 2D band on CUDA no longer raises naming "2D band": the route takes
-    the band stepper; the open items still raise by name."""
+    """A 2D band on CUDA takes the band stepper, under Extrapolation(8) too
+    (the ghost kernels' table route): no item is pending, and the band
+    stepper's steps equal JAX's general path with ``update_band``."""
     grid = T.Grid(LO, HI, (16, 16))
     tnb = T.NarrowBandField.from_field(T.sample(lambda X, Y: torch.sqrt(X ** 2 + Y ** 2) - 0.5,
                                                 grid, T.Extrapolation(2), dtype=torch.float64,
                                                 device="cpu"))
     term = T.AdvectionTerm(_rot)
-    assert "2D band" not in tfused.PENDING and tfused.PENDING == ("K2 degree",)
+    assert not hasattr(tfused, "PENDING") and not hasattr(tfused, "pending")
     assert tband.unsupported_reason((term,), tnb, T.RK3()) is None
     assert isinstance(T.LevelSetEquation(terms=term, ic=tnb)._cuda_stepper(False, "auto"),
                       tband.FusedBandStepper)
-    bad = tnb.with_bcs(T.Extrapolation(8), replace=True)
-    reason = tband.unsupported_reason((term,), bad, T.RK3())
-    assert tfused.pending(reason) and "ROADMAP.md queue 2, K2 degree" in reason
-    with pytest.raises(NotImplementedError, match="K2 degree"):
-        T.LevelSetEquation(terms=term, ic=bad)._cuda_stepper(False, "auto")
-    assert not tfused.pending("not ported (ROADMAP.md queue 2, 2D band)")
+    jnb8, tnb8 = _pair((24, 32))
+    jnb8, tnb8 = (jnb8.with_bcs(J.Extrapolation(8), replace=True),
+                  tnb8.with_bcs(T.Extrapolation(8), replace=True))
+    assert tband.unsupported_reason((term,), tnb8, T.RK3()) is None
+    assert isinstance(T.LevelSetEquation(terms=term, ic=tnb8)._cuda_stepper(False, "auto"),
+                      tband.FusedBandStepper)
+    dt = 0.3 * tnb8.grid.min_spacing
+    _, _, out = _port_steps((term,), tnb8, T.RK3(), dt, 2)
+    _close(out, _jax_general((J.AdvectionTerm(_rot),), jnb8, J.RK3(), dt, 2))
 
 
 def test_overflow_regrows_before_stepping():

@@ -162,8 +162,9 @@ def test_cuda_route_table():
     """What ``_cuda_stepper`` does with each configuration: hooks,
     ``fast="off"``, the upwind scheme and an object that is no term kind take
     the general path (``None``); a dense 2D field takes the fused stepper,
-    a 2D band the band stepper; Extrapolation(8) raises naming its ROADMAP
-    item (on an axis of 8 nodes, too few for it, the general path);
+    a 2D band the band stepper; Extrapolation(8) takes the fused stepper,
+    equal to JAX's step (on an axis of 8 nodes, too few for it, the general
+    path);
     ``update_func`` takes the fused stepper on a dense field and the general
     path on a band, as in JAX."""
     _, tphi = _dense_pair((8, 8, 8))
@@ -195,16 +196,21 @@ def test_cuda_route_table():
     band2 = route(T.AdvectionTerm(vel2), T.NarrowBandField.from_field(phi2))
     assert isinstance(band2, T.integrators.band_fused.FusedBandStepper) and band2.shape == (16, 16)
     # Extrapolation(8) on an axis of 8 nodes is an error (the general path's
-    # ValueError, as in JAX); on 10 nodes it waits for its ROADMAP item
+    # ValueError, as in JAX); on 10 nodes it takes the fused stepper (the
+    # ghost kernels' table route), whose step equals JAX's
     assert route((adv,), tphi.with_bcs(T.Extrapolation(8), replace=True)) is None
-    _, deep = _dense_pair((10, 10, 10))
-    refusals = [
-        ((adv,), deep.with_bcs(T.Extrapolation(8), replace=True), "K2 degree"),
-    ]
-    for terms, ic, item in refusals:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 2, {item}"):
-            route(terms, ic)
-        assert route(terms, ic, hooks=True) is None  # with hooks: the general path
+    jdeep, deep = _dense_pair((10, 10, 10))
+    jdeep, deep = (jdeep.with_bcs(J.Extrapolation(8), replace=True),
+                   deep.with_bcs(T.Extrapolation(8), replace=True))
+    assert isinstance(route((adv,), deep), tfused.FusedStepper)
+    assert route((adv,), deep, hooks=True) is None  # with hooks: the general path
+    teq = T.LevelSetEquation(terms=adv, ic=deep)
+    teq.integrate(0.02, max_steps=2)
+    jeq = J.LevelSetEquation(terms=J.AdvectionTerm(_velf), ic=jdeep)
+    jeq.integrate(0.02, max_steps=2)
+    assert teq.last_fast_path == "fused" and teq.t == jeq.t
+    want = np.asarray(jeq.state.values)
+    assert float(np.abs(_np(teq.state.values) - want).max()) <= 1e-12 * np.abs(want).max()
 
 
 def test_hooks_see_each_step_and_may_swap_the_state():

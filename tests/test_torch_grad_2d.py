@@ -423,13 +423,14 @@ def test_extrapolation_short_of_nodes_is_a_value_error():
     """``Extrapolation(d)`` on an axis of ``n <= d`` nodes is an error, as in
     JAX (``ValueError``, "needs d + 1 nodes"), not a pending port: its reason
     names no ROADMAP item, a CUDA state takes the general path and raises
-    ``ValueError`` there; a degree > 7 on an axis that has its nodes still
-    waits for "K2 degree" (the fused route and K4's wrapper)."""
+    ``ValueError`` there; a degree > 7 on an axis that has its nodes takes
+    the fused route, whose gradient (through K4's plain version, the table
+    route's function) equals the general path's and ``jax.grad``'s."""
     grid = T.Grid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (3, 8, 9))
     phi = T.MeshField(torch.zeros(3, 8, 9, dtype=torch.float64), grid, E(3))
     term = T.AdvectionTerm(lambda xs, t: (0.0 * xs[0], 0.0 * xs[1], 1.0 + 0.0 * xs[2]))
     reason = tfused.unsupported_reason((term,), phi, T.RK3())
-    assert "needs 4 nodes" in reason and not tfused.pending(reason) and "queue 2" not in reason
+    assert "needs 4 nodes" in reason and "queue 2" not in reason
     cuda = phi.with_values(phi.values.as_subclass(_CudaTyped))
     eq = T.LevelSetEquation(terms=term, ic=cuda)
     assert cuda.values.is_cuda and eq._cuda_stepper(False, "auto") is None
@@ -439,15 +440,32 @@ def test_extrapolation_short_of_nodes_is_a_value_error():
         T.rollout(T.RK3(), (term,), cuda, 0.0, 1e-3, 1)
     with pytest.raises(ValueError, match="needs 4 nodes"):  # JAX's error
         jbc.pad_ghost(jnp.zeros((3, 8, 9)), J.normalize_bcs(J.Extrapolation(3), 3), 3)
-    deep = T.MeshField(torch.zeros(9, 9, 9, dtype=torch.float64),
-                       T.Grid((0.0,) * 3, (1.0,) * 3, (9, 9, 9)), E(8))
-    reason = tfused.unsupported_reason((term,), deep, T.RK3())
-    assert tfused.pending(reason) and "ROADMAP.md queue 2, K2 degree" in reason
-    with pytest.raises(NotImplementedError, match="K2 degree"):
-        tbwd._check_degrees(deep.bcs, deep.shape)
-    tbwd._check_degrees(phi.bcs, phi.shape)  # too few nodes: _ghost_args' ValueError
-    with pytest.raises(ValueError, match=r"degree \+ 1 <= n"):
+    shape = (9, 9, 9)
+    vals = np.random.default_rng(8).standard_normal(shape)
+    deep = T.MeshField(torch.from_numpy(vals), T.Grid((0.0,) * 3, (1.0,) * 3, shape), E(8))
+    assert tfused.unsupported_reason((term,), deep, T.RK3()) is None
+    cuda = deep.with_values(deep.values.as_subclass(_CudaTyped))
+    assert isinstance(T.LevelSetEquation(terms=term, ic=cuda)._cuda_stepper(False, "auto"),
+                      tfused.FusedStepper)
+    with pytest.raises(ValueError, match=r"degree \+ 1 <= n"):  # too few nodes
         tv2._ghost_args(phi.bcs, phi.shape)
+    dt, w = 2e-3, np.random.default_rng(9).standard_normal(shape)
+    grads = []
+    for fast in ("auto", "off"):
+        v = torch.from_numpy(vals).requires_grad_()
+        out, _ = T.rollout(T.RK3(), (term,), deep.with_values(v), 0.0, dt, 2, fast=fast)
+        grads.append(torch.autograd.grad((out.values * torch.from_numpy(w)).sum(), v)[0])
+    jterm = J.AdvectionTerm(lambda xs, t: (0.0 * xs[0], 0.0 * xs[1], 1.0 + 0.0 * xs[2]))
+    jphi = J.MeshField(jnp.asarray(vals), J.Grid((0.0,) * 3, (1.0,) * 3, shape),
+                       J.Extrapolation(8))
+
+    def jloss(v):
+        out, _ = J.rollout(J.RK3(), (jterm,), jphi.with_values(v), 0.0, dt, 2, fast="off")
+        return jnp.sum(out.values * jnp.asarray(w))
+
+    jg = np.asarray(jax.grad(jloss)(jphi.values))
+    for g in grads:
+        assert _rel(_np(g), jg) <= 1e-10
 
 
 def _fold_gather_3d(g, bcs, shape):
