@@ -71,12 +71,17 @@ phases (a partial run: no kernel record):
              (the length-1 axis's Extrapolation(0)) bit for bit.
    k2_degree — K2 (3D, 2D, each single axis), K4 (3D, 2D) and K7 (3D, 2D,
              four gates) under Extrapolation(8), Extrapolation(11) and both
-             mixed with Periodic and Symmetry, f32 and f64, at ragged shapes
-             and 512^3: their weight-table route (csrc/ghost_table.cu) bit
-             for bit against the plain versions; its times beside the
-             by-value route's (Extrapolation(7)) at 512^3; the flagship under
-             Extrapolation(8): 10 RK3 steps of ``integrate`` on the fused
-             path, a 64^3 f64 rollout gradient and a band card vs CPU.
+             mixed with Periodic and Symmetry, and degrees 17 and 19 (three
+             chunks of loads), f32 and f64, at ragged shapes and 512^3, and
+             Extrapolation(520) in f64: their weight-table route (the
+             by-value kernels' threads reading a table of weights) bit for
+             bit against the plain versions; one kernel a call, no copy, by
+             the profiler's names;
+             its times beside the by-value route's (Extrapolation(7)) and
+             g.clone() at 512^3 (device times from tools/ghost_shells.py, a
+             process of its own); the flagship under Extrapolation(8): 10 RK3
+             steps of ``integrate`` on the fused path, a 64^3 f64 rollout
+             gradient and a band card vs CPU.
    k1_2d   — K1's 2D entries (K1 and K1'' the 2D march, K1' and a K1''
              component per node one thread a node) and their per-node form
              vs the plain 2D stage at ragged shapes, f32 and f64, BC cases,
@@ -4867,22 +4872,25 @@ def sharded_refresh_mismatches(grid, bcs, v, dev, label):
 K2AX_BIG = (20000, 18000, 1)
 
 
-def kernel_names(fn):
-    """The names of the kernels one call of ``fn`` launches (the profiler; a
-    trace with no kernel at all is taken again once, calling ``fn`` again: the
-    profiler's first trace in a process has come back empty, and late in a
-    long process every trace). ``fn`` must give the same result when called
-    twice (a ghost refresh does)."""
+def kernel_names(fn, ok=bool, tries=3):
+    """The names of the device activities (kernels, copies) one call of
+    ``fn`` launches, by the profiler. The profiler drops records now and
+    then (its first trace in a process has come back empty, late in a long
+    process every trace, and once one kernel of three), so a trace that
+    ``ok`` refuses is taken again, calling ``fn`` again, up to ``tries``
+    times: a count that is wrong in the code stays wrong in every trace.
+    ``fn`` must give the same result when called twice (a ghost refresh and
+    an out-of-place fold do)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+        if ok(names):
             break
     return names
 
@@ -4903,8 +4911,9 @@ def k2ax_past_2_31(dev):
     def check(label, fast, plain, launches):
         ref = plain(orig.clone())
         P = orig.clone()
-        names = kernel_names(lambda: fast(P))
-        axis = sum("refresh_axis_kernel" in name for name in names)
+        count = lambda names: sum("refresh_axis_kernel" in name for name in names)
+        names = kernel_names(lambda: fast(P), ok=lambda names: count(names) == launches)
+        axis = count(names)
         if not (same_bits(P, ref) and axis == launches):
             bad.append((label, same_bits(P, ref), axis, names[:3]))
         del P, ref
@@ -5763,13 +5772,35 @@ def degree_cases(ndim):
             "mixed8_11": lsm.normalize_bcs(mixed, ndim)}
 
 
+def high_degree_cases(ndim):
+    """Degrees 17 and 19 (nodes in three chunks of the table route's loads)
+    per side with Periodic and Symmetry (an axis of at least 20 nodes)."""
+    E = lsm.Extrapolation
+    return {"mixed17_19": lsm.normalize_bcs(
+        [(E(19), E(17)), lsm.Periodic(), (lsm.Symmetry(), E(19))] if ndim == 3
+        else [(E(19), lsm.Symmetry()), (E(17), E(19))], ndim)}
+
+
 #: the > 7 route's 3D and 2D parity shapes: the smoke's grid, ragged ones with
-#: every axis of at least 12 nodes (Extrapolation(11)), and the main paths'
+#: every axis of at least 12 nodes (Extrapolation(11)), and the main paths';
+#: degrees 17 and 19 on shapes of at least 20 nodes an axis (one of exactly 20)
 DEGREE_SHAPES = ((40, 72, 136), (12, 19, 33), (130, 12, 75))
 DEGREE_2D_SHAPES = ((67, 131), (12, 40), (200, 264))
+HIGH_DEGREE_SHAPES = ((40, 72, 136), (20, 23, 41), (67, 131), (20, 33))
+#: f64 shapes for a degree in the hundreds (a table of 2 ndim x 3 x 521
+#: weights): the route takes any degree
+DEVICE_TABLE_SHAPES = ((530, 12, 16), (530, 40))
 DEGREE_STEPS = 10  # the 512^3 flagship under Extrapolation(8): RK3 steps of integrate
 N_DEGREE_GRAD = 64  # its rollout gradient, card vs CPU, f64
 DEGREE_GRAD_FACTOR = 4.0  # that gradient's gate: times the CPU's 1-ulp spread
+
+
+def device_table_cases(ndim):
+    """Extrapolation(520) on axis 0 (its weights, some 1e153, stay finite in
+    f64) with Periodic and Symmetry on the other axes."""
+    E = lsm.Extrapolation
+    return {"extrap520": lsm.normalize_bcs(
+        [E(520), lsm.Periodic(), lsm.Symmetry()][:ndim], ndim)}
 
 
 def table_counts():
@@ -5778,12 +5809,14 @@ def table_counts():
         ("K4", bwd.fold_ghost_cotangent_fast), ("K7", bd.refresh_band_ghosts_fast))}
 
 
-def degree_parity(dev, shape, dtype, gen, big=False):
+def degree_parity(dev, shape, dtype, gen, big=False, cases=None):
     """K2 (and on a 3D shape its single-axis entry), K4 and K7 under each
-    degree case at ``shape``: bit for bit against their plain versions
-    (:func:`k2_compare`, :func:`k4_compare`, :func:`k7_compare`); each call
-    on the table route."""
-    cases = degree_cases(len(shape))
+    degree case at ``shape`` (``cases``, default :func:`degree_cases`): bit
+    for bit against their plain versions (:func:`k2_compare`,
+    :func:`k4_compare` (against autograd too, below degree 12 and 512^3),
+    :func:`k7_compare`); each call on the table route."""
+    high = cases is not None
+    cases = degree_cases(len(shape)) if cases is None else cases
     if big:  # 512^3: one case, to keep the phase short
         cases = {"mixed8_11": cases["mixed8_11"]}
     before = table_counts()
@@ -5803,7 +5836,7 @@ def degree_parity(dev, shape, dtype, gen, big=False):
                     and same_bits(got, v2.pack_padded(vals, bcs))):
                 raise AssertionError(f"K2 2D differs at {shape} ({name})")
         G = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
-        k4_compare("k2_degree", name, G, bcs, shape, autograd=not big)
+        k4_compare("k2_degree", name, G, bcs, shape, autograd=not (big or high))
         k7_compare("k2_degree", shape, {name: bcs}, dtype, dev, gen, vals=vals)
     after = table_counts()
     n = len(cases)
@@ -5815,6 +5848,49 @@ def degree_parity(dev, shape, dtype, gen, big=False):
     log("k2_degree", f"{len(shape)}D {str(dtype)[6:]} shape={shape} {' '.join(cases)}: K2"
                      f"{' (and each axis)' if len(shape) == 3 else ''}, K4 and K7 (four gates) "
                      f"== plain bit for bit, every call on the table route {got}")
+
+
+def degree_launches(dev, gen):
+    """The table route's device activities a call, by the profiler's names,
+    f32 under ``Extrapolation(8)``: K2 3D (512^3), K2 2D (N_2D^2), K4 and K7
+    (flags on) 3D and 2D each one kernel, no copy. ``{entry: [names]}``."""
+    out = {}
+    on = torch.ones(2, dtype=torch.int32, device=dev)
+    for shape in ((N_MAIN,) * 3, (N_2D,) * 2):
+        bcs = lsm.normalize_bcs(lsm.Extrapolation(8), len(shape))
+        P = v2.pack_padded(torch.randn(shape, generator=gen, device=dev), bcs)
+        G = torch.randn_like(P)
+        d = f"{len(shape)}D"
+        one = lambda names: len(names) == 1
+        out[f"K2 {d}"] = kernel_names(lambda: v2.refresh_ghosts_fast(P, bcs, shape), one)
+        out[f"K4 {d}"] = kernel_names(lambda: bwd.fold_ghost_cotangent_fast(G, bcs, shape), one)
+        out[f"K7 {d}"] = kernel_names(lambda: bd.refresh_band_ghosts_fast(P, bcs, shape, on), one)
+        del P, G
+    torch.cuda.empty_cache()
+    bad = {k: v for k, v in out.items()
+           if len(v) != 1 or any(w in v[0].lower() for w in ("memcpy", "memset"))}
+    log("k2_degree", "table route, device activities a call (profiler): " + "; ".join(
+        f"{k}: {len(v)} {v[0].removeprefix('void ').split('(')[0][-40:] if v else ''}"
+        for k, v in out.items()))
+    if bad:
+        raise AssertionError(f"the table route launched other than one kernel a call: {bad}")
+    return out
+
+
+def degree_device():
+    """The device times of K2, K4 and K7 (flags on and off) at 512^3 f32
+    under Extrapolation(8) and (7), and of ``g.clone()``, from
+    ``tools/ghost_shells.py --parts degree`` in a process of its own (this
+    process's profiler under-reads late in the run)."""
+    torch.cuda.empty_cache()
+    out = subprocess.run([sys.executable, "tools/ghost_shells.py", "smoke", "--parts", "degree"],
+                         capture_output=True, text=True, check=True, timeout=600).stdout
+    line = next(x for x in out.splitlines() if x.startswith("SHELLS smoke"))
+    vals = line.split()[2:]
+    shells = {k: float(v) for k, v in zip(vals[::2], vals[1::2])}
+    log("k2_degree", "512^3 f32 device ms (tools/ghost_shells.py): " + " ".join(
+        f"{k} {v:.4f}" for k, v in shells.items() if k.endswith("_device")))
+    return shells
 
 
 def degree_bound(shape, bcs, f32=4):
@@ -5846,7 +5922,12 @@ def phase_k2_degree(dev, res):
     for dtype in (torch.float32, torch.float64):
         for shape in DEGREE_SHAPES + DEGREE_2D_SHAPES:
             degree_parity(dev, shape, dtype, gen)
+        for shape in HIGH_DEGREE_SHAPES:
+            degree_parity(dev, shape, dtype, gen, cases=high_degree_cases(len(shape)))
         degree_parity(dev, (N_MAIN,) * 3, dtype, gen, big=True)
+    for shape in DEVICE_TABLE_SHAPES:
+        degree_parity(dev, shape, torch.float64, gen, cases=device_table_cases(len(shape)))
+    per_call = degree_launches(dev, gen)
     shape = (N_MAIN,) * 3
     out = {}
     for label, bcs in (("degree7", lsm.normalize_bcs(lsm.Extrapolation(7), 3)),
@@ -5861,6 +5942,8 @@ def phase_k2_degree(dev, res):
             "K7": cuda_time(lambda: bd.refresh_band_ghosts_fast(P, bcs, shape, on)),
             "K2_bound": degree_bound(shape, bcs)[0]}
         del P, G
+    out["launches_per_call"] = {k: len(v) for k, v in per_call.items()}
+    out["device"] = degree_device()
     res["k2_degree"] = out
     log("k2_degree", f"{N_MAIN}^3 f32 ms (CUDA events, median of 20): by-value route "
                      f"Extrapolation(7) {out['degree7']}; table route Extrapolation(8) "
@@ -6580,16 +6663,28 @@ def kernel_records(res):
                        bound_ms_axis2_mesh_4x1=k9[(4, 1)]["K2_axis2_bound"][0],
                        shard_4x1=list(k9[(4, 1)]["shape"]))
         if key in ("K2", "K4", "K7"):  # the route for an Extrapolation of degree above 7
-            # (csrc/ghost_table.cu) at 512^3 f32 beside the by-value route's Extrapolation(7)
-            # in the same run; K2's launches on the flagship under Extrapolation(8)
+            # (the by-value kernels' threads reading a table of weights) at 512^3
+            # f32 beside the by-value route's Extrapolation(7) in the same run (CUDA events;
+            # device times from tools/ghost_shells.py, a process of its own); its kernels a
+            # call (the profiler's names); K2's launches on the flagship under Extrapolation(8)
             deg = res["k2_degree"]
+            dk = {"K2": "K2", "K4": "K4", "K7": "K7on"}[key]
             rec.update(table_route={
-                "source": "lsm_tpu_torch/csrc/ghost_table.cu",
+                "source": f"lsm_tpu_torch/csrc/{'fold' if key == 'K4' else 'refresh'}_ghosts.cu",
                 "ms_extrapolation8": deg["degree8"][key], "ms_extrapolation7": deg["degree7"][key],
+                "ms_device_extrapolation8": deg["device"][f"degree8_{dk}_device"],
+                "ms_device_extrapolation7": deg["device"][f"degree7_{dk}_device"],
                 "bound_ms_extrapolation8": (deg["degree8"]["K2_bound"] if key != "K4"
                                             else bound(f32 * 2 * padded, 0)[0]),
+                "kernels_per_call": {k: n for k, n in deg["launches_per_call"].items()
+                                     if k.startswith(key)},
                 "launches_flagship_extrapolation8": res["launches"]["K2 table"]
                 if key == "K2" else None})
+            if key == "K4":
+                rec["table_route"]["library_ms_device"] = deg["device"]["degree_clone_device"]
+            if key == "K7":
+                rec["table_route"]["ms_device_flags_off_extrapolation8"] = deg["device"][
+                    "degree8_K7off_device"]
         if key == "K4":
             rec.update(library_call="g.clone()",
                        library_ms_back_to_back=t["K4_clone_back_to_back"],

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "dtype_str"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -24,3 +24,9 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: lsm_tpu_torch places tensors on the card by default; "
             'pass device="cpu" to run on the CPU')
     return torch.device("cuda")
+
+
+def dtype_str(dtype: torch.dtype) -> str:
+    """A dtype as the display trees print it, JAX's way: ``float32``, not
+    ``torch.float32``."""
+    return str(dtype).removeprefix("torch.")

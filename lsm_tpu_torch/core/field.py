@@ -12,7 +12,7 @@ from typing import Callable, Tuple
 import torch
 
 from .bc import bcs_str, normalize_bcs, pad_ghost
-from .device import resolve_device
+from .device import dtype_str, resolve_device
 from .grid import Grid
 
 __all__ = ["MeshField", "sample", "SHARDED_ONLY"]
@@ -100,9 +100,10 @@ class MeshField:
         kind = "vector" if self.is_vector else "scalar"
         nodes = " x ".join(str(n) for n in self.shape)
         return (
-            f"MeshField ({kind}, {self.values.dtype}, {self.values.device})\n"
+            f"MeshField ({kind}, {dtype_str(self.values.dtype)})\n"
             f"  |- grid: {nodes} nodes in R^{self.ndim}\n"
-            f"  `- bcs:  {bcs_str(self.bcs)}"
+            f"  |- bcs:  {bcs_str(self.bcs)}\n"
+            f"  `- device: {self.values.device}"
         )
 
 

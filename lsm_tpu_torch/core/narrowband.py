@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from .bc import Periodic, bcs_str, normalize_bcs
+from .device import dtype_str
 from .field import MeshField
 
 __all__ = ["NarrowBandField", "box_dilate", "l1_dilate", "cut_cell_mask",
@@ -179,8 +180,9 @@ class NarrowBandField(MeshField):
     def __repr__(self):
         nodes = " x ".join(str(n) for n in self.shape)
         return (
-            f"NarrowBandField ({self.values.dtype}, {self.values.device})\n"
+            f"NarrowBandField ({dtype_str(self.values.dtype)})\n"
             f"  |- grid:   {nodes} nodes in R^{self.ndim}\n"
             f"  |- active: {int(self.mask.sum())} nodes ({self.nlayers}-layer halo)\n"
-            f"  `- bcs:    {bcs_str(self.bcs)}"
+            f"  |- bcs:    {bcs_str(self.bcs)}\n"
+            f"  `- device: {self.values.device}"
         )

@@ -77,6 +77,16 @@
 // on one plane of n0 rows (head and tail 3 rows and 3 nodes, seams of 6).
 // Bound at 4096^2 f32: g read and gf written once, 2 x 4102^2 x 4 B =
 // 134.6 MB, 0.040 ms at 3.35 TB/s; K5's 0.39 MB of shells, launch latency.
+//
+// K4's table route (lsm_fold_table_*): a buffer with an Extrapolation of
+// degree above LSM_MAX_DEGREE runs the same kernels, one launch (3D
+// fold_kernel, 2D fold_2d_kernel, instantiated on WeightSource kTable), the
+// gather's weights read from a table of the buffer's type (refresh_ghosts.cu
+// WeightTable) in place of FoldArgs' own; its strips are max(4, P + 1) nodes
+// deep. Its first design (a copy of g, a gather launch an axis, three
+// zeroing launches) took 1.07 ms of device time at 512^3 f32 under
+// Extrapolation(8) on an H100, this one 0.63; the bound is the by-value
+// route's, 0.332 ms (tools/ab_degree.sh).
 
 #include <cuda_runtime.h>
 
@@ -121,11 +131,21 @@ struct FoldArgs {
   uint32_t cnt_planes, cnt_rows;     // threads of the strip rows' two ranges
   int kind[3][2], degree[3][2];      // per axis and side
   T w[3][2][LSM_GHOST][LSM_MAX_DEGREE + 1];  // [axis][side][k-1][j], in T
+  // the table route's weights (kTable): node j for the ghost at distance k of
+  // side s of axis a at table[((2 a + s) * 3 + k - 1) * stride + j]; the
+  // address in two halves, so that the struct keeps the 4-byte alignment (and
+  // the by-value kernels their parameters' offsets) in float
+  uint32_t table_lo, table_hi;
+  int stride;
 };
+
+// Where the gather reads its weights (a template parameter of the kernels):
+// FoldArgs' w (kArgs, the by-value route) or its table (kTable).
+enum WeightSource { kArgs, kTable };
 
 // The weight of the ghost at distance k on `side` of `axis` in interior node
 // m of its line, when m is one of that ghost's sources.
-template <typename T>
+template <int kW, typename T>
 __device__ __forceinline__ bool weight_of(const FoldArgs<T>& a, int axis, int side, int k, int m,
                                           T& w) {
   const int n = a.n[axis];
@@ -139,7 +159,12 @@ __device__ __forceinline__ bool weight_of(const FoldArgs<T>& a, int axis, int si
     default: {  // LSM_BC_EXTRAPOLATION: node j from the boundary inward
       const int j = side == 0 ? m : n - 1 - m;
       if (j > a.degree[axis][side]) return false;
-      w = a.w[axis][side][k - 1][j];
+      if constexpr (kW == kArgs) {
+        w = a.w[axis][side][k - 1][j];
+      } else {
+        const T* table = reinterpret_cast<const T*>(uint64_t{a.table_hi} << 32 | a.table_lo);
+        w = table[((2 * axis + side) * LSM_GHOST + k - 1) * a.stride + j];
+      }
       return true;
     }
   }
@@ -153,12 +178,12 @@ __device__ __forceinline__ int ghost_pos(int side, int k, int n) {
 // The products w * x onto interior node m of an axis from the ghosts of its
 // line whose sources include m, in the scatter's order (side 0, k = 1..3,
 // then side 1); ghost(p) is the line's value at padded index p.
-template <typename T, typename Ghost>
+template <int kW, typename T, typename Ghost>
 __device__ __forceinline__ T gather_axis(const FoldArgs<T>& a, int axis, int m, T x, Ghost ghost) {
   for (int side = 0; side < 2; ++side)
     for (int d = 1; d <= LSM_GHOST; ++d) {
       T w;
-      if (weight_of(a, axis, side, d, m, w))
+      if (weight_of<kW>(a, axis, side, d, m, w))
         x = mul_add_rn(x, w, ghost(ghost_pos(side, d, a.n[axis])));
     }
   return x;
@@ -169,7 +194,7 @@ __device__ __forceinline__ T gather_axis(const FoldArgs<T>& a, int axis, int m, 
 // w * V2(ghost) over axis 1's ghosts of y's column, V0(y) = V1(y) + w *
 // V1(ghost) over axis 0's: the scatter's partial sums, in its order. An
 // axis adds nothing to a node outside its strips (the bulk's range).
-template <typename T>
+template <int kW, typename T>
 __device__ __forceinline__ T fold_node(const T* __restrict__ g, const FoldArgs<T>& a, int i,
                                        int j, int k) {
   const int mi = i - LSM_GHOST, mj = j - LSM_GHOST, mk = k - LSM_GHOST;
@@ -180,16 +205,16 @@ __device__ __forceinline__ T fold_node(const T* __restrict__ g, const FoldArgs<T
   const bool strip0 = i < a.lo[0] || i >= a.hi[0], strip1 = j < a.lo[1] || j >= a.hi[1],
              strip2 = k < a.lo[2] || k >= a.hi[2];
   const auto v2 = [&](const T* row) {
-    return strip2 ? gather_axis(a, 2, mk, row[k], [&](int p) { return row[p]; }) : row[k];
+    return strip2 ? gather_axis<kW>(a, 2, mk, row[k], [&](int p) { return row[p]; }) : row[k];
   };
   const auto v1 = [&](const T* plane) {
     const T x = v2(plane + static_cast<uint32_t>(j) * a.S2);
-    return strip1 ? gather_axis(a, 1, mj, x, [&](int p) {
+    return strip1 ? gather_axis<kW>(a, 1, mj, x, [&](int p) {
       return v2(plane + static_cast<uint32_t>(p) * a.S2);
     }) : x;
   };
   const T x = v1(g + static_cast<int64_t>(i) * a.plane);
-  return strip0 ? gather_axis(a, 0, mi, x, [&](int p) {
+  return strip0 ? gather_axis<kW>(a, 0, mi, x, [&](int p) {
     return v1(g + static_cast<int64_t>(p) * a.plane);
   }) : x;
 }
@@ -198,12 +223,12 @@ constexpr int kVectors = 8;  // 16-byte vectors a thread, kThreads apart
 
 // A node of a bulk row (i and j in the bulk's ranges, k interior): g plus
 // axis 2's contributions.
-template <typename T>
+template <int kW, typename T>
 __device__ __forceinline__ T row_node(const T* __restrict__ g, const FoldArgs<T>& a, int i, int j,
                                       int k) {
   const T* row = g + (static_cast<int64_t>(i) * a.plane + static_cast<uint32_t>(j) * a.S2);
   if (k >= a.lo[2] && k < a.hi[2]) return row[k];
-  return gather_axis(a, 2, k - LSM_GHOST, row[k], [&](int p) { return row[p]; });
+  return gather_axis<kW>(a, 2, k - LSM_GHOST, row[k], [&](int p) { return row[p]; });
 }
 
 // flat_blocks of the blocks (interleaved in proportion with the others, so
@@ -213,8 +238,8 @@ __device__ __forceinline__ T row_node(const T* __restrict__ g, const FoldArgs<T>
 // 0 and a node of a bulk row its row_node, node by node; the interior nodes
 // of the strip rows (i and j interior, not both in the bulk's ranges) are
 // left to the other blocks, one thread a node (fold_node). Every node of gf
-// is written once.
-template <typename T>
+// is written once. The weights from kW.
+template <typename T, int kW>
 __global__ void __launch_bounds__(kThreads)
     fold_kernel(const T* __restrict__ g, T* __restrict__ gf, int64_t numel, int vec,
                 FoldArgs<T> a) {
@@ -290,7 +315,7 @@ __global__ void __launch_bounds__(kThreads)
               static_cast<unsigned>(k - LSM_GHOST) >= static_cast<unsigned>(a.n[2]))
             fb[o + q] = T(0);
           else if (in_bulk(i, 0) && in_bulk(j, 1))
-            fb[o + q] = row_node(g, a, i, j, k);
+            fb[o + q] = row_node<kW>(g, a, i, j, k);
         }
         if (++k == static_cast<int>(a.S2)) {
           k = 0;
@@ -328,12 +353,23 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int i = LSM_GHOST + mi, j = LSM_GHOST + mj, k = LSM_GHOST + mk;
   gf[static_cast<int64_t>(i) * a.plane + (static_cast<uint32_t>(j) * a.S2 + k)] =
-      fold_node(g, a, i, j, k);
+      fold_node<kW>(g, a, i, j, k);
 }
 
+// The table (dmax + 1 values a row, refresh_ghosts.cu WeightTable) into a.
+template <typename T>
+void table_args(FoldArgs<T>& a, const void* table, int dmax) {
+  const uint64_t addr = reinterpret_cast<uintptr_t>(table);
+  a.table_lo = static_cast<uint32_t>(addr);
+  a.table_hi = static_cast<uint32_t>(addr >> 32);
+  a.stride = dmax + 1;
+}
+
+// K4's 3D entry; with a table, the table route's instantiation.
 template <typename T>
 int launch_fold(const void* g_, void* gf_, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
-                const int* degrees, const double* weights, void* stream) {
+                const int* degrees, const double* weights, void* stream,
+                const void* table = nullptr, int dmax = 0) {
   const T* g = static_cast<const T*>(g_);
   T* gf = static_cast<T*>(gf_);
   const int64_t n[3] = {n0, n1, n2};
@@ -342,6 +378,7 @@ int launch_fold(const void* g_, void* gf_, int64_t n0, int64_t n1, int64_t n2, c
   // a block's offsets within a plane stay below 2^31
   if (S1 * S2 + kBlock >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
   FoldArgs<T> a;
+  table_args(a, table, dmax);
   a.S1 = static_cast<uint32_t>(S1);
   a.S2 = static_cast<uint32_t>(S2);
   a.plane = static_cast<uint32_t>(S1 * S2);
@@ -376,7 +413,8 @@ int launch_fold(const void* g_, void* gf_, int64_t n0, int64_t n1, int64_t n2, c
   const int vec = (reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(gf)) % 16 == 0;
   const unsigned blocks =
       a.flat_blocks + static_cast<unsigned>((planes + rows + kThreads - 1) / kThreads);
-  fold_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(g, gf, numel, vec, a);
+  const auto kernel = table != nullptr ? fold_kernel<T, kTable> : fold_kernel<T, kArgs>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(g, gf, numel, vec, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -528,7 +566,7 @@ int launch_zero_shells(void* buf, int64_t planes, int64_t rows, int64_t n, int h
 
 // K4's 2D entry: a (the FoldArgs of the 2D axes 0 and 1) gives plane = the
 // buffer's nodes and S2 = its row length; one thread a node.
-template <typename T>
+template <typename T, int kW>
 __global__ void __launch_bounds__(kThreads)
     fold_2d_kernel(const T* __restrict__ g, T* __restrict__ gf, FoldArgs<T> a) {
   const uint32_t t = blockIdx.x * kThreads + threadIdx.x;
@@ -543,22 +581,24 @@ __global__ void __launch_bounds__(kThreads)
     const bool strip1 = j < a.lo[1] || j >= a.hi[1];
     // V1 of row `row` at column j: g plus axis 1's contributions
     const auto v1 = [&](const T* row) {
-      return strip1 ? gather_axis(a, 1, mj, row[j], [&](int p) { return row[p]; }) : row[j];
+      return strip1 ? gather_axis<kW>(a, 1, mj, row[j], [&](int p) { return row[p]; }) : row[j];
     };
     x = v1(g + i * a.S2);
     if (strip0)
-      x = gather_axis(a, 0, mi, x, [&](int p) { return v1(g + static_cast<uint32_t>(p) * a.S2); });
+      x = gather_axis<kW>(a, 0, mi, x, [&](int p) { return v1(g + static_cast<uint32_t>(p) * a.S2); });
   }
   gf[t] = x;
 }
 
 template <typename T>
 int launch_fold_2d(const void* g, void* gf, int64_t n0, int64_t n1, const int* kinds,
-                   const int* degrees, const double* weights, void* stream) {
+                   const int* degrees, const double* weights, void* stream,
+                   const void* table = nullptr, int dmax = 0) {
   const int64_t n[2] = {n0, n1};
   const int64_t S0 = n0 + 2 * LSM_GHOST, S1 = n1 + 2 * LSM_GHOST;
   if (S0 * S1 + kThreads >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
   FoldArgs<T> a{};
+  table_args(a, table, dmax);
   a.S1 = static_cast<uint32_t>(S0);
   a.S2 = static_cast<uint32_t>(S1);
   a.plane = static_cast<uint32_t>(S0 * S1);
@@ -581,9 +621,23 @@ int launch_fold_2d(const void* g, void* gf, int64_t n0, int64_t n1, const int* k
     if (a.hi[axis] < a.lo[axis]) a.hi[axis] = a.lo[axis];
   }
   const unsigned blocks = static_cast<unsigned>((S0 * S1 + kThreads - 1) / kThreads);
-  fold_2d_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = table != nullptr ? fold_2d_kernel<T, kTable> : fold_2d_kernel<T, kArgs>;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(g), static_cast<T*>(gf), a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K4 on the table route (lsm_fold_table_*), 3D or 2D.
+template <typename T>
+int launch_fold_table(const void* g, void* gf, int ndim, int64_t n0, int64_t n1, int64_t n2,
+                      const int* kinds, const int* degrees, const double* weights,
+                      const void* table, int dmax, void* stream) {
+  if (table == nullptr || dmax < 0 || g == gf) return static_cast<int>(cudaErrorInvalidValue);
+  if (ndim == 3)
+    return launch_fold<T>(g, gf, n0, n1, n2, kinds, degrees, weights, stream, table, dmax);
+  if (ndim == 2)
+    return launch_fold_2d<T>(g, gf, n0, n1, kinds, degrees, weights, stream, table, dmax);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -628,4 +682,20 @@ extern "C" int lsm_zero_shells_f32(void* buf, int64_t n0, int64_t n1, int64_t n2
 extern "C" int lsm_zero_shells_f64(void* buf, int64_t n0, int64_t n1, int64_t n2,
                                    void* stream) {
   return launch_zero_shells<double>(buf, n0, n1, n2, LSM_GHOST, stream);
+}
+
+extern "C" int lsm_fold_table_f32(const void* g, void* gf, int ndim, int64_t n0, int64_t n1,
+                                  int64_t n2, const int* kinds, const int* degrees,
+                                  const double* weights, const void* table, int dmax,
+                                  void* stream) {
+  return launch_fold_table<float>(g, gf, ndim, n0, n1, n2, kinds, degrees, weights, table, dmax,
+                                  stream);
+}
+
+extern "C" int lsm_fold_table_f64(const void* g, void* gf, int ndim, int64_t n0, int64_t n1,
+                                  int64_t n2, const int* kinds, const int* degrees,
+                                  const double* weights, const void* table, int dmax,
+                                  void* stream) {
+  return launch_fold_table<double>(g, gf, ndim, n0, n1, n2, kinds, degrees, weights, table, dmax,
+                                   stream);
 }

@@ -193,7 +193,7 @@ int lsm_prog_tables_f64(const LsmTableFill* fill, void* stream);
  * Host arrays, index a = 2*axis + side (side 0 = left, 1 = right):
  *   kinds[6]    LSM_BC_* code;
  *   degrees[6]  extrapolation degree (<= LSM_MAX_DEGREE; a higher one takes
- *     lsm_ghosts_table_*);
+ *     lsm_refresh_table_* / lsm_fold_table_*);
  *   weights[6 * LSM_GHOST * (LSM_MAX_DEGREE+1)]  weight of node j (from the
  *     boundary inward) for the ghost at distance k: weights[(a*3 + k-1)*8 + j]. */
 int lsm_refresh_ghosts_f32(void* P, int64_t n0, int64_t n1, int64_t n2,
@@ -221,28 +221,34 @@ int lsm_refresh_axis_f64(void* P, int64_t n0, int64_t n1, int64_t n2, int axis,
                          const int* kinds, const int* degrees, const double* weights,
                          void* stream);
 
-/* K2, K4 and K7 for an Extrapolation of any degree (csrc/ghost_table.cu):
- * the route of a buffer with a side of degree > LSM_MAX_DEGREE. table: a
- * device array of 6 * LSM_GHOST * (dmax+1) doubles, the weight of node j for
- * the ghost at distance k of side a = 2*axis + side at table[(a*3 + k-1) *
- * (dmax+1) + j]; kinds and degrees host arrays as for K2 (any degree <= dmax).
- * ndim 3 (n0, n1, n2) or 2 (n0, n1; n2 unused). op LSM_TABLE_REFRESH: the
- * phases of axes [axis_lo, axis_hi) of K2's composition on P in place, one
- * launch each in order; flags (int32[2] in device memory, or NULL) gate them
- * as K7's: 3D flags[0] axes 0 and 1, flags[1] axis 2; 2D flags[axis]. op
- * LSM_TABLE_FOLD: P gets K4's fold of g (g != P read only; a copy, a launch
- * an axis last to first, then the shells zeroed); axis_lo, axis_hi and flags
- * are not read. */
-#define LSM_TABLE_REFRESH 0
-#define LSM_TABLE_FOLD 1
-int lsm_ghosts_table_f32(int op, const void* g, void* P, int ndim, int64_t n0, int64_t n1,
-                         int64_t n2, int axis_lo, int axis_hi, const int* kinds,
-                         const int* degrees, const double* table, int dmax, const void* flags,
-                         void* stream);
-int lsm_ghosts_table_f64(int op, const void* g, void* P, int ndim, int64_t n0, int64_t n1,
-                         int64_t n2, int axis_lo, int axis_hi, const int* kinds,
-                         const int* degrees, const double* table, int dmax, const void* flags,
-                         void* stream);
+/* K2, K4 and K7 for an Extrapolation of any degree (the table route): a
+ * buffer with a side of degree > LSM_MAX_DEGREE. The by-value kernels'
+ * thread bodies with the weights read from table (refresh_ghosts.cu
+ * WeightTable): a device array of the buffer's dtype, 2 * ndim * LSM_GHOST
+ * * (dmax+1) values, the
+ * weight of node j for the ghost at distance k of side a = 2*axis + side at
+ * table[(a*3 + k-1) * (dmax+1) + j]; kinds, degrees (any degree <= dmax) and
+ * weights (the by-value rows, zero for a side of higher degree) as for K2.
+ * ndim 3 (n0, n1, n2) or 2 (n0, n1; n2 unused).
+ * lsm_refresh_table_*: in place, axes [axis_lo, axis_hi) = [0, ndim) K2's 3D
+ * or 2D entry, or with flags (int32[2] in device memory, as K7's) K7's, one
+ * launch (3D: three past 32-bit threads, as K2's); [axis, axis + 1), 3D
+ * and no flags, K2's single-axis entry, one launch.
+ * lsm_fold_table_*: gf gets K4's fold of g (g != gf, read only), one launch. */
+int lsm_refresh_table_f32(void* P, int ndim, int64_t n0, int64_t n1, int64_t n2, int axis_lo,
+                          int axis_hi, const int* kinds, const int* degrees,
+                          const double* weights, const void* table, int dmax,
+                          const void* flags, void* stream);
+int lsm_refresh_table_f64(void* P, int ndim, int64_t n0, int64_t n1, int64_t n2, int axis_lo,
+                          int axis_hi, const int* kinds, const int* degrees,
+                          const double* weights, const void* table, int dmax,
+                          const void* flags, void* stream);
+int lsm_fold_table_f32(const void* g, void* gf, int ndim, int64_t n0, int64_t n1, int64_t n2,
+                       const int* kinds, const int* degrees, const double* weights,
+                       const void* table, int dmax, void* stream);
+int lsm_fold_table_f64(const void* g, void* gf, int ndim, int64_t n0, int64_t n1, int64_t n2,
+                       const int* kinds, const int* degrees, const double* weights,
+                       const void* table, int dmax, void* stream);
 
 /* K9: write the ghost-shell blocks of a shard's padded buffer P in place
  * (csrc/shell_blocks.cu). l0, r0: the axis-0 shells (3, n1, n2), rows [0, 3)

@@ -54,6 +54,31 @@
 // on its own (n0+6, n1+6) layout; the TPU kernel ran the 3D refresh on the
 // (1, n0, n1) embedding, whose dummy axis keeps flags[0] on and rewrites the
 // full axis-0 ghost planes at every stage; this layout has none.
+//
+// The table route (lsm_refresh_table_*): a buffer with an Extrapolation of
+// degree above LSM_MAX_DEGREE runs the same threads, one launch an entry
+// (refresh_3d_table_kernel, refresh_2d_table_kernel, band_refresh_3d/2d_
+// table_kernel, refresh_axis_table_kernel), with the BCs of TableBC: the
+// weights read in place from a table of the buffer's type (WeightTable;
+// ops/weno_v2.py `_ghost_table`, built once per BCs, shape, device and dtype:
+// each weight the by-value route's double rounded to T once);
+// a line thread loads an extrapolating side's P + 1 nodes in chunks of
+// kTableChunk, every chunk's loads issued together (table_ghosts), an edge
+// or vertex ghost recomputes the composition from the interior as K2's E
+// threads do (at most (P + 1)^3 reads, at 8 x 27 vertex ghosts). The sums
+// keep ghost_of's order, so the bits are the plain version's. Its first
+// design (one launch a phase, one thread a ghost, each ghost's P + 1 loads
+// in turn, two 64-bit divisions a thread, double weights converted at each
+// use) took 0.36 ms of device time at 512^3 f32 under Extrapolation(8) on an
+// H100, this one 0.098, against 0.107 for the by-value route under
+// Extrapolation(7) (tools/ab_degree.sh). Bound: each ghost written once and
+// its line's P + 1 nodes read once (0.0228 ms at 512^3 f32, P = 8, at 3.35
+// TB/s).
+// A copy of the table in shared memory, made by each block first, gained 4%
+// on K2 and nothing on K4 and cost K7 a quarter (device ms, staged against
+// in place: K2 0.097 / 0.101, K4 0.619 / 0.617, K7 flags on 0.166 / 0.131;
+// tools/shell_variants.py on a staging version of these kernels), and it
+// would cap the degree at shared memory.
 
 #include <cuda_runtime.h>
 
@@ -67,6 +92,71 @@ struct AxisBC {
   int degree[2];
   double w[2][LSM_GHOST][LSM_MAX_DEGREE + 1];  // [side][k-1][j]
 };
+
+// One launch's share of the table: the weight of node j (from the boundary
+// inward) for the ghost at distance k of side s of local axis a at w[((2 a +
+// s) * LSM_GHOST + k - 1) * stride + j]; the kinds and degrees of those
+// sides at kind[2 a + s], degree[2 a + s].
+template <typename T>
+struct WeightTable {
+  const T* w;
+  int stride;  // dmax + 1
+  int kind[6], degree[6];
+};
+
+// The table (dmax + 1 values a row, six rows an axis) of axes [first, first
+// + naxes) of a buffer whose sides have the host arrays' kinds and degrees.
+template <typename T>
+WeightTable<T> weight_table(const void* table, int dmax, const int* kinds, const int* degrees,
+                            int first, int naxes) {
+  WeightTable<T> t;
+  t.stride = dmax + 1;
+  t.w = static_cast<const T*>(table) + static_cast<int64_t>(first) * 2 * LSM_GHOST * t.stride;
+  for (int s = 0; s < 6; ++s) {
+    t.kind[s] = s < 2 * naxes ? kinds[2 * first + s] : 0;
+    t.degree[s] = s < 2 * naxes ? degrees[2 * first + s] : 0;
+  }
+  return t;
+}
+
+// Whether an axis's sides (kinds and degrees at 2 axis, 2 axis + 1) need
+// the table: an extrapolation of degree above LSM_MAX_DEGREE.
+inline bool needs_table(const int* kinds, const int* degrees, int axis) {
+  for (int s = 2 * axis; s < 2 * axis + 2; ++s)
+    if (kinds[s] == LSM_BC_EXTRAPOLATION && degrees[s] > LSM_MAX_DEGREE) return true;
+  return false;
+}
+
+// The boundary conditions of one axis on the table route (WeightTable):
+// kinds and degrees as AxisBC's, the weights of any degree at w[(side * 3 +
+// k - 1) * stride + j] (the axis's rows of the device table).
+template <typename T>
+struct TableBC {
+  int kind[2];
+  int degree[2];
+  const T* w;
+  int stride;
+};
+
+template <typename BC>
+struct IsTable {
+  static constexpr bool value = false;
+};
+template <typename T>
+struct IsTable<TableBC<T>> {
+  static constexpr bool value = true;
+};
+
+// The weights of the ghost at distance k on `side`: [j] is node j's.
+template <typename BC>
+__device__ __forceinline__ auto weight_row(const BC& bc, int side, int k)
+    -> decltype((bc.w[side][k - 1])) {
+  return bc.w[side][k - 1];
+}
+template <typename T>
+__device__ __forceinline__ const T* weight_row(const TableBC<T>& bc, int side, int k) {
+  return bc.w + (side * LSM_GHOST + k - 1) * bc.stride;
+}
 
 constexpr int kThreads = 256;
 
@@ -98,7 +188,9 @@ AxisBC axis_bc(const int* kinds, const int* degrees, const double* weights, int 
 // side 0 or 1 and distance k = 1..3 from the face, with the plain version's
 // arithmetic (0 + w0 x0 + w1 x1 + ..., each product and sum rounded).
 // The 2D entry takes it with K2's double weights and 64-bit indices, the 3D
-// entries with weights in T and 32-bit indices.
+// entries with weights in T and 32-bit indices; the table route with its
+// table's weights (one node loaded at a time, as here: the edge and corner
+// ghosts, whose nodes are themselves such sums).
 template <typename T, typename BC, typename I, typename Node>
 __device__ __forceinline__ T ghost_of(const BC& bc, int side, int k, I n, Node node) {
   switch (bc.kind[side]) {
@@ -107,7 +199,7 @@ __device__ __forceinline__ T ghost_of(const BC& bc, int side, int k, I n, Node n
     case LSM_BC_SYMMETRY:
       return node(side == 0 ? k : n - 1 - k);
     default: {  // LSM_BC_EXTRAPOLATION
-      const auto& w = bc.w[side][k - 1];
+      const auto& w = weight_row(bc, side, k);
       const I m0 = side == 0 ? 0 : n - 1, step = side == 0 ? 1 : -1;
       T val = mul_add_rn(T(0), T(w[0]), node(m0));
       for (int j = 1; j <= bc.degree[side]; ++j) val = mul_add_rn(val, T(w[j]), node(m0 + j * step));
@@ -123,44 +215,45 @@ __device__ __forceinline__ T ghost_of(const BC& bc, int side, int k, I n, Node n
 // corner) reads that row's values: its thread recomputes each from the
 // interior with the axis-0 arithmetic, or with kStored (K7's flags (0, 1),
 // where no thread writes those rows) reads the stored ones, as the plain
-// version does.
-template <typename T, bool kStored>
-__device__ __forceinline__ void ghost_2d(T* __restrict__ P, int64_t n0, int64_t n1,
-                                         const AxisBC& bc0, const AxisBC& bc1, int64_t t) {
-  const int64_t S1 = n1 + 2 * LSM_GHOST;
-  const int64_t cols = 2 * LSM_GHOST * n1;
+// version does. Indices in I: int64_t for K2's and K7's by-value entries,
+// int for the table route's below 2^31 elements (one long a buffer beyond).
+template <typename T, bool kStored, typename BC, typename I>
+__device__ __forceinline__ void ghost_2d(T* __restrict__ P, I n0, I n1, const BC& bc0,
+                                         const BC& bc1, I t) {
+  const I S1 = n1 + 2 * LSM_GHOST;
+  const I cols = 2 * LSM_GHOST * n1;
   // a slot g6 in [0, 6): side g6 / 3, layer g6 % 3 (distance 3 - layer on the
   // left, layer + 1 on the right), at padded index layer or n + 3 + layer
-  const auto slot = [](int g6, int64_t n, int& side, int& k, int64_t& pos) {
+  const auto slot = [](int g6, I n, int& side, int& k, I& pos) {
     side = g6 / LSM_GHOST;
     const int layer = g6 % LSM_GHOST;
     k = side == 0 ? LSM_GHOST - layer : layer + 1;
     pos = side == 0 ? layer : LSM_GHOST + n + layer;
   };
   int side, k;
-  int64_t pos;
+  I pos;
   if (t < cols) {  // an axis-0 ghost of interior column b
-    const int64_t b = t % n1;
+    const I b = t % n1;
     slot(static_cast<int>(t / n1), n0, side, k, pos);
     const T* col = P + LSM_GHOST * S1 + LSM_GHOST + b;  // node (0, b)
-    P[pos * S1 + LSM_GHOST + b] = ghost_of<T>(bc0, side, k, n0, [&](int64_t m) {
+    P[pos * S1 + LSM_GHOST + b] = ghost_of<T>(bc0, side, k, n0, [&](I m) {
       return col[m * S1];
     });
     return;
   }
-  const int64_t r = t - cols, row = r / (2 * LSM_GHOST);
+  const I r = t - cols, row = r / (2 * LSM_GHOST);
   slot(static_cast<int>(r % (2 * LSM_GHOST)), n1, side, k, pos);
   T val;
   if (kStored || (row >= LSM_GHOST && row < LSM_GHOST + n0)) {
     const T* line = P + row * S1 + LSM_GHOST;  // node (row - 3, 0)
-    val = ghost_of<T>(bc1, side, k, n1, [&](int64_t m) { return line[m]; });
+    val = ghost_of<T>(bc1, side, k, n1, [&](I m) { return line[m]; });
   } else {  // a corner: the axis-0 ghost row's values, recomputed from the interior
     int side0, k0;
-    int64_t pos0;
+    I pos0;
     slot(static_cast<int>(row < LSM_GHOST ? row : row - n0), n0, side0, k0, pos0);
     const T* first = P + LSM_GHOST * S1 + LSM_GHOST;  // node (0, 0)
-    val = ghost_of<T>(bc1, side, k, n1, [&](int64_t m) {
-      return ghost_of<T>(bc0, side0, k0, n0, [&](int64_t i) { return first[i * S1 + m]; });
+    val = ghost_of<T>(bc1, side, k, n1, [&](I m) {
+      return ghost_of<T>(bc0, side0, k0, n0, [&](I i) { return first[i * S1 + m]; });
     });
   }
   P[row * S1 + pos] = val;
@@ -253,8 +346,8 @@ __device__ __forceinline__ T extrap_sum(int P, const T* w, const T (&x)[LSM_MAX_
 
 // ghost_of's value; without extrapolation (kExtrap false) a copy of the node
 // a periodic or symmetry ghost takes.
-template <typename T, bool kExtrap, typename Node>
-__device__ __forceinline__ T ghost3(const ShellBC<T>& bc, int side, int k, int n, Node node) {
+template <typename T, bool kExtrap, typename BC, typename Node>
+__device__ __forceinline__ T ghost3(const BC& bc, int side, int k, int n, Node node) {
   if constexpr (kExtrap) {
     return ghost_of<T>(bc, side, k, n, node);
   } else {  // periodic: ghost -k <- node n-1-k, n-1+k <- k; symmetry the mirror
@@ -262,21 +355,57 @@ __device__ __forceinline__ T ghost3(const ShellBC<T>& bc, int side, int k, int n
   }
 }
 
+constexpr int kTableChunk = 8;  // the table route: an extrapolating side's nodes loaded at once
+
+// The table route's extrapolation of any degree P: the ghosts of slots
+// [g_lo, g_hi) on `side` of a line of n nodes node(m) into val, the P + 1
+// nodes in chunks of kTableChunk, each chunk's loads issued together, and
+// each ghost's sum in ghost_of's order (0 + w0 x0 + w1 x1 + ...: chunking
+// keeps it), so the bits are the plain version's.
+template <typename T, typename Node>
+__device__ __forceinline__ void table_ghosts(const TableBC<T>& bc, int side, int n, int g_lo,
+                                             int g_hi, Node node, T (&val)[2 * LSM_GHOST]) {
+  const int P = bc.degree[side];
+  const int m0 = side == 0 ? 0 : n - 1, step = side == 0 ? 1 : -1;
+#pragma unroll
+  for (int g = side * LSM_GHOST; g < (side + 1) * LSM_GHOST; ++g)
+    if (g >= g_lo && g < g_hi) val[g] = T(0);
+#pragma unroll 1
+  for (int c = 0; c <= P; c += kTableChunk) {
+    T x[kTableChunk];
+#pragma unroll
+    for (int j = 0; j < kTableChunk; ++j) x[j] = c + j <= P ? node(m0 + (c + j) * step) : T(0);
+#pragma unroll
+    for (int g = side * LSM_GHOST; g < (side + 1) * LSM_GHOST; ++g) {
+      if (g < g_lo || g >= g_hi) continue;
+      const T* w = weight_row(bc, side, slot_dist(g)) + c;
+#pragma unroll
+      for (int j = 0; j < kTableChunk; ++j)
+        if (c + j <= P) val[g] = mul_add_rn(val[g], w[j], x[j]);
+    }
+  }
+}
+
 // The ghosts of slots [g_lo, g_hi) of a line of n nodes node(m) into val,
-// ghost_of's values; an extrapolating side's nodes loaded once for its ghosts.
-template <typename T, bool kExtrap, typename Node>
-__device__ __forceinline__ void line_ghosts(const ShellBC<T>& bc, int n, int g_lo, int g_hi,
-                                            Node node, T (&val)[2 * LSM_GHOST]) {
+// ghost_of's values; an extrapolating side's nodes loaded once for its ghosts
+// (by value all at once, from a table in chunks).
+template <typename T, bool kExtrap, typename BC, typename Node>
+__device__ __forceinline__ void line_ghosts(const BC& bc, int n, int g_lo, int g_hi, Node node,
+                                            T (&val)[2 * LSM_GHOST]) {
 #pragma unroll
   for (int side = 0; side < 2; ++side) {
     if (g_hi <= side * LSM_GHOST || g_lo >= (side + 1) * LSM_GHOST) continue;
     if (kExtrap && bc.kind[side] == LSM_BC_EXTRAPOLATION) {
-      T x[LSM_MAX_DEGREE + 1];
-      extrap_nodes<T>(bc.degree[side], side, n, node, x);
+      if constexpr (IsTable<BC>::value) {
+        table_ghosts(bc, side, n, g_lo, g_hi, node, val);
+      } else {
+        T x[LSM_MAX_DEGREE + 1];
+        extrap_nodes<T>(bc.degree[side], side, n, node, x);
 #pragma unroll
-      for (int g = side * LSM_GHOST; g < (side + 1) * LSM_GHOST; ++g)
-        if (g >= g_lo && g < g_hi)
-          val[g] = extrap_sum(bc.degree[side], bc.w[side][slot_dist(g) - 1], x);
+        for (int g = side * LSM_GHOST; g < (side + 1) * LSM_GHOST; ++g)
+          if (g >= g_lo && g < g_hi)
+            val[g] = extrap_sum(bc.degree[side], bc.w[side][slot_dist(g) - 1], x);
+      }
     } else {
 #pragma unroll
       for (int g = side * LSM_GHOST; g < (side + 1) * LSM_GHOST; ++g)
@@ -287,9 +416,9 @@ __device__ __forceinline__ void line_ghosts(const ShellBC<T>& bc, int n, int g_l
 
 // The ghost at padded (i, j, k), a ghost of two or three axes: the
 // composition f2(f1(f0)) from the interior, with the BCs bc[3].
-template <typename T, bool kExtrap>
+template <typename T, bool kExtrap, typename BC>
 __device__ __forceinline__ T edge_ghost(const T* __restrict__ P, const Shell3<T>& s,
-                                        const ShellBC<T>* bc, int i, int j, int k) {
+                                        const BC* bc, int i, int j, int k) {
   const int n0 = s.n[0], n1 = s.n[1], n2 = s.n[2];
   const auto inside = [](int p, int n) {
     return static_cast<unsigned>(p - LSM_GHOST) < static_cast<unsigned>(n);
@@ -330,11 +459,28 @@ __device__ __forceinline__ void shell_bcs(ShellBC<T> (&bc)[3], const Shell3<T>& 
   }
 }
 
+// The table route's BCs of a launch's naxes axes into bc (shared memory,
+// as shell_bcs), from t. Every thread of the block calls it; a barrier ends
+// it.
+template <typename T>
+__device__ __forceinline__ void table_bcs(TableBC<T>* bc, int naxes, const WeightTable<T>& t) {
+  if (threadIdx.x < naxes) {
+    TableBC<T>& b = bc[threadIdx.x];
+    for (int side = 0; side < 2; ++side) {
+      b.kind[side] = t.kind[2 * threadIdx.x + side];
+      b.degree[side] = t.degree[2 * threadIdx.x + side];
+    }
+    b.w = t.w + threadIdx.x * 2 * LSM_GHOST * t.stride;
+    b.stride = t.stride;
+  }
+  __syncthreads();
+}
+
 // Thread t of K2's 3D launch, K7's under flags (1, 1): the ghost(s) of
 // class E (first, so that their longer chains start early), then A, B and C.
-template <typename T, bool kExtrap>
-__device__ __forceinline__ void shell_ghost(T* __restrict__ P, const Shell3<T>& s,
-                                            const ShellBC<T>* bc, uint32_t t) {
+template <typename T, bool kExtrap, typename BC>
+__device__ __forceinline__ void shell_ghost(T* __restrict__ P, const Shell3<T>& s, const BC* bc,
+                                            uint32_t t) {
   const int n0 = s.n[0], n1 = s.n[1], n2 = s.n[2];
   constexpr int G2 = 2 * LSM_GHOST;
   const auto at = [&](int i, int j, int k) {
@@ -419,6 +565,20 @@ __global__ void __launch_bounds__(kThreads, 6) refresh_3d_kernel(T* __restrict__
   shell_ghost<T, kExtrap>(P, s, bc, blockIdx.x * kThreads + threadIdx.x);
 }
 
+// K2's 3D entry on the table route: refresh_3d_kernel's threads with the
+// table's weights (s.bc is not read). At 64 registers (four blocks an SM):
+// 0.098-0.101 ms of device time at 512^3 f32 under Extrapolation(8) on an
+// H100, against 0.125-0.138 at K2's 40 (spilling) and 0.140-0.146 at 128
+// (two blocks an SM), and 0.113-0.121 with chunks of 16 nodes
+// (tools/shell_variants.py).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 4)
+    refresh_3d_table_kernel(T* __restrict__ P, Shell3<T> s, WeightTable<T> tab) {
+  __shared__ TableBC<T> bc[3];
+  table_bcs(bc, 3, tab);
+  shell_ghost<T, true>(P, s, bc, blockIdx.x * kThreads + threadIdx.x);
+}
+
 // K7's entries: K2's one-launch kernels gated on the device by flags
 // (int32[2], read once a block): 3D, flags[0] gates axes 0 and 1, flags[1]
 // axis 2; 2D, flags[0] axis 0 and flags[1] axis 1. Each of the four gates
@@ -479,14 +639,11 @@ __device__ __forceinline__ int read_gate(const int* __restrict__ flags) {
   return gate;
 }
 
-template <typename T, bool kExtrap>
-__global__ void __launch_bounds__(kThreads, 4)
-    band_refresh_3d_kernel(T* __restrict__ P, Shell3<T> s, const int* __restrict__ flags) {
-  const int gate = read_gate(flags);
-  if (gate == 0) return;
-  __shared__ ShellBC<T> bc[3];
-  shell_bcs(bc, s);
-  __syncthreads();
+// The gate's work (1, 2 or 3) of K7's 3D launch, each block its share in a
+// grid-stride loop.
+template <typename T, bool kExtrap, typename BC>
+__device__ __forceinline__ void band_walk(T* __restrict__ P, const Shell3<T>& s, const BC* bc,
+                                          int gate) {
   constexpr uint32_t G2 = 2 * LSM_GHOST;
   const int n0 = s.n[0], n2 = s.n[2];
   const uint32_t cnt_e = s.cnt_e1 + s.cnt_e2 + s.cnt_e3;
@@ -520,21 +677,77 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
+template <typename T, bool kExtrap>
+__global__ void __launch_bounds__(kThreads, 4)
+    band_refresh_3d_kernel(T* __restrict__ P, Shell3<T> s, const int* __restrict__ flags) {
+  const int gate = read_gate(flags);
+  if (gate == 0) return;
+  __shared__ ShellBC<T> bc[3];
+  shell_bcs(bc, s);
+  __syncthreads();
+  band_walk<T, kExtrap>(P, s, bc, gate);
+}
+
+// K7's 3D entry on the table route: band_refresh_3d_kernel with the table's
+// weights.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 4)
+    band_refresh_3d_table_kernel(T* __restrict__ P, Shell3<T> s, WeightTable<T> tab,
+                                 const int* __restrict__ flags) {
+  const int gate = read_gate(flags);
+  if (gate == 0) return;
+  __shared__ TableBC<T> bc[3];
+  table_bcs(bc, 3, tab);
+  band_walk<T, true>(P, s, bc, gate);
+}
+
+// The gate's work of K7's 2D launch (ghost_2d's threads), each block its
+// share in a grid-stride loop.
+template <typename T, typename BC, typename I>
+__device__ __forceinline__ void band_walk_2d(T* __restrict__ P, I n0, I n1, const BC& bc0,
+                                             const BC& bc1, int gate) {
+  const I cols = 2 * LSM_GHOST * n1, rows = 2 * LSM_GHOST * (n0 + 2 * LSM_GHOST);
+  const I lo = gate == 2 ? cols : 0, hi = gate == 1 ? cols : cols + rows;
+  for (I t = lo + static_cast<I>(blockIdx.x) * kThreads + threadIdx.x; t < hi;
+       t += static_cast<I>(gridDim.x) * kThreads) {
+    if (gate == 2)
+      ghost_2d<T, true>(P, n0, n1, bc0, bc1, t);
+    else
+      ghost_2d<T, false>(P, n0, n1, bc0, bc1, t);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     band_refresh_2d_kernel(T* __restrict__ P, int64_t n0, int64_t n1, AxisBC bc0, AxisBC bc1,
                            const int* __restrict__ flags) {
   const int gate = read_gate(flags);
   if (gate == 0) return;
-  const int64_t cols = 2 * LSM_GHOST * n1, rows = 2 * LSM_GHOST * (n0 + 2 * LSM_GHOST);
-  const int64_t lo = gate == 2 ? cols : 0, hi = gate == 1 ? cols : cols + rows;
-  for (int64_t t = lo + static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; t < hi;
-       t += static_cast<int64_t>(gridDim.x) * kThreads) {
-    if (gate == 2)
-      ghost_2d<T, true>(P, n0, n1, bc0, bc1, t);
-    else
-      ghost_2d<T, false>(P, n0, n1, bc0, bc1, t);
-  }
+  band_walk_2d(P, n0, n1, bc0, bc1, gate);
+}
+
+// K2's and K7's 2D entries on the table route: refresh_2d_kernel's and
+// band_refresh_2d_kernel's threads with the table's weights, indices in I
+// (int below 2^31 elements: 32-bit divisions).
+template <typename T, typename I>
+__global__ void __launch_bounds__(kThreads)
+    refresh_2d_table_kernel(T* __restrict__ P, I n0, I n1, WeightTable<T> tab) {
+  __shared__ TableBC<T> bc[2];
+  table_bcs(bc, 2, tab);
+  const I t = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= 2 * LSM_GHOST * (n1 + n0 + 2 * LSM_GHOST)) return;
+  ghost_2d<T, false>(P, n0, n1, bc[0], bc[1], t);
+}
+
+template <typename T, typename I>
+__global__ void __launch_bounds__(kThreads)
+    band_refresh_2d_table_kernel(T* __restrict__ P, I n0, I n1, WeightTable<T> tab,
+                                 const int* __restrict__ flags) {
+  const int gate = read_gate(flags);
+  if (gate == 0) return;
+  __shared__ TableBC<T> bc[2];
+  table_bcs(bc, 2, tab);
+  band_walk_2d(P, n0, n1, bc[0], bc[1], gate);
 }
 
 // K2's single-axis entry (lsm_refresh_axis_*, refresh_axis_kernel): one phase
@@ -574,8 +787,8 @@ struct AxisPhase {
 
 // The six ghosts of one line (padded index 0 at `line`, `step` apart) from
 // its interior nodes: every load before the stores.
-template <typename T, bool kExtrap, typename I>
-__device__ __forceinline__ void refresh_line(T* line, I step, const ShellBC<T>& bc, int n) {
+template <typename T, bool kExtrap, typename BC, typename I>
+__device__ __forceinline__ void refresh_line(T* line, I step, const BC& bc, int n) {
   const T* node = line + LSM_GHOST * step;
   T val[2 * LSM_GHOST];
   line_ghosts<T, kExtrap>(bc, n, 0, 2 * LSM_GHOST, [&](int m) { return node[m * step]; }, val);
@@ -593,10 +806,11 @@ __device__ __forceinline__ bool gate_on(const int* __restrict__ gate) {
 
 constexpr int kRowSeams = kThreads / (2 * LSM_GHOST);  // axis 2: seams a block (42)
 
-template <typename T, bool kExtrap, bool kRows>
-__global__ void __launch_bounds__(kThreads)
-    refresh_axis_kernel(T* __restrict__ P, AxisPhase<T> a, const int* __restrict__ gate) {
-  if (gate != nullptr && !gate_on(gate)) return;
+// A thread of the single-axis phase a, with the BCs bc (a.bc's kinds and
+// degrees).
+template <typename T, bool kExtrap, bool kRows, typename BC>
+__device__ __forceinline__ void axis_thread(T* __restrict__ P, const AxisPhase<T>& a,
+                                            const BC& bc) {
   if constexpr (kRows) {
     // seam q between padded rows q - 1 and q (q in [0, rows]): six
     // contiguous elements, a lane each, row q - 1's right ghosts then row q's
@@ -609,7 +823,7 @@ __global__ void __launch_bounds__(kThreads)
     T* line = P + row * a.a_stride;
     const T* node = line + LSM_GHOST;
     T val[2 * LSM_GHOST];
-    line_ghosts<T, kExtrap>(a.bc, a.n, g, g + 1, [&](int m) { return node[m]; }, val);
+    line_ghosts<T, kExtrap>(bc, a.n, g, g + 1, [&](int m) { return node[m]; }, val);
     T v = T(0);
 #pragma unroll
     for (int h = 0; h < 2 * LSM_GHOST; ++h)
@@ -623,9 +837,29 @@ __global__ void __launch_bounds__(kThreads)
     const uint32_t r = static_cast<uint32_t>(t0 - static_cast<int64_t>(i0) * a.n2) + threadIdx.x;
     const uint32_t di = quo(a.div_n2, r);
     refresh_line<T, kExtrap>(
-        P + a.first + static_cast<int64_t>(i0 + di) * a.a_stride + (r - di * a.n2), a.step, a.bc,
+        P + a.first + static_cast<int64_t>(i0 + di) * a.a_stride + (r - di * a.n2), a.step, bc,
         a.n);
   }
+}
+
+template <typename T, bool kExtrap, bool kRows>
+__global__ void __launch_bounds__(kThreads)
+    refresh_axis_kernel(T* __restrict__ P, AxisPhase<T> a, const int* __restrict__ gate) {
+  if (gate != nullptr && !gate_on(gate)) return;
+  axis_thread<T, kExtrap, kRows>(P, a, a.bc);
+}
+
+// The single-axis phase on the table route (an axis with a side of degree
+// above LSM_MAX_DEGREE): refresh_axis_kernel's threads with the axis's
+// weights from the table (a.bc is not read).
+template <typename T, bool kRows>
+__global__ void __launch_bounds__(kThreads)
+    refresh_axis_table_kernel(T* __restrict__ P, AxisPhase<T> a, WeightTable<T> tab,
+                              const int* __restrict__ gate) {
+  if (gate != nullptr && !gate_on(gate)) return;
+  __shared__ TableBC<T> bc;
+  table_bcs(&bc, 1, tab);
+  axis_thread<T, true, kRows>(P, a, bc);
 }
 
 // The boundary conditions of one axis from the host arrays (kinds[2*axis +
@@ -648,11 +882,13 @@ ShellBC<T> shell_bc(const int* kinds, const int* degrees, const double* weights,
 // Axes [axis_lo, axis_hi) in order, one launch each on one stream (the launch
 // order gives the composition's): the whole refresh is [0, 3), one phase of
 // it [axis, axis + 1). With flags (K7's), a phase runs where its flag is set:
-// flags[0] for axes 0 and 1, flags[1] for axis 2.
+// flags[0] for axes 0 and 1, flags[1] for axis 2. With a table (dmax + 1
+// values a row), an axis with a side of degree above LSM_MAX_DEGREE takes
+// refresh_axis_table_kernel.
 template <typename T>
 int launch_refresh(void* P, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
                    const int* degrees, const double* weights, const int* flags, void* stream,
-                   int axis_lo = 0, int axis_hi = 3) {
+                   int axis_lo = 0, int axis_hi = 3, const void* table = nullptr, int dmax = 0) {
   const int64_t n[3] = {n0, n1, n2};
   const int64_t S0 = n0 + 2 * LSM_GHOST, S1 = n1 + 2 * LSM_GHOST, S2 = n2 + 2 * LSM_GHOST;
   const int64_t plane = S1 * S2;
@@ -672,6 +908,17 @@ int launch_refresh(void* P, int64_t n0, int64_t n1, int64_t n2, const int* kinds
     const int64_t blocks = axis == 2 ? a.lines / kRowSeams + 1  // the rows' lines + 1 seams
                                      : (a.lines + kThreads - 1) / kThreads;
     if (blocks >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    const int* gate = flags == nullptr ? nullptr : flags + (axis == 2 ? 1 : 0);
+    if (table != nullptr && needs_table(kinds, degrees, axis)) {
+      const WeightTable<T> tab = weight_table<T>(table, dmax, kinds, degrees, axis, 1);
+      const auto kernel =
+          axis == 2 ? refresh_axis_table_kernel<T, true> : refresh_axis_table_kernel<T, false>;
+      kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<T*>(P), a, tab, gate);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      continue;
+    }
     const bool extrap = kinds[2 * axis] == LSM_BC_EXTRAPOLATION ||
                         kinds[2 * axis + 1] == LSM_BC_EXTRAPOLATION;
     const auto kernel = axis == 2 ? (extrap ? refresh_axis_kernel<T, true, true>
@@ -679,7 +926,7 @@ int launch_refresh(void* P, int64_t n0, int64_t n1, int64_t n2, const int* kinds
                                   : (extrap ? refresh_axis_kernel<T, true, false>
                                             : refresh_axis_kernel<T, false, false>);
     kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<T*>(P), a, flags == nullptr ? nullptr : flags + (axis == 2 ? 1 : 0));
+        static_cast<T*>(P), a, gate);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -719,16 +966,25 @@ bool shell3_args(Shell3<T>& s, int64_t& total, bool& extrap, int64_t n0, int64_t
 }
 
 // K2's 3D entry: one launch when its threads allow 32-bit indices; beyond
-// them the three launches of launch_refresh.
+// them the three launches of launch_refresh. With a table, the table route's
+// kernels.
 template <typename T>
 int launch_refresh_3d(void* P, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
-                      const int* degrees, const double* weights, void* stream) {
+                      const int* degrees, const double* weights, void* stream,
+                      const void* table = nullptr, int dmax = 0) {
   Shell3<T> s;
   int64_t total;
   bool extrap;
   if (!shell3_args(s, total, extrap, n0, n1, n2, kinds, degrees, weights))
-    return launch_refresh<T>(P, n0, n1, n2, kinds, degrees, weights, nullptr, stream);
+    return launch_refresh<T>(P, n0, n1, n2, kinds, degrees, weights, nullptr, stream, 0, 3,
+                             table, dmax);
   const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  if (table != nullptr) {
+    const WeightTable<T> tab = weight_table<T>(table, dmax, kinds, degrees, 0, 3);
+    refresh_3d_table_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<T*>(P), s, tab);
+    return static_cast<int>(cudaGetLastError());
+  }
   const auto kernel = extrap ? refresh_3d_kernel<T, true> : refresh_3d_kernel<T, false>;
   kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<T*>(P), s);
   return static_cast<int>(cudaGetLastError());
@@ -739,15 +995,22 @@ int launch_refresh_3d(void* P, int64_t n0, int64_t n1, int64_t n2, const int* ki
 template <typename T>
 int launch_band_refresh_3d(void* P, int64_t n0, int64_t n1, int64_t n2, const int* kinds,
                            const int* degrees, const double* weights, const int* flags,
-                           void* stream) {
+                           void* stream, const void* table = nullptr, int dmax = 0) {
   Shell3<T> s;
   int64_t total;
   bool extrap;
   if (!shell3_args(s, total, extrap, n0, n1, n2, kinds, degrees, weights))
-    return launch_refresh<T>(P, n0, n1, n2, kinds, degrees, weights, flags, stream);
+    return launch_refresh<T>(P, n0, n1, n2, kinds, degrees, weights, flags, stream, 0, 3, table,
+                             dmax);
   unsigned blocks;
   const cudaError_t err = band_blocks(total, blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (table != nullptr) {
+    const WeightTable<T> tab = weight_table<T>(table, dmax, kinds, degrees, 0, 3);
+    band_refresh_3d_table_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<T*>(P), s, tab, flags);
+    return static_cast<int>(cudaGetLastError());
+  }
   const auto kernel = extrap ? band_refresh_3d_kernel<T, true> : band_refresh_3d_kernel<T, false>;
   kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<T*>(P), s,
                                                                      flags);
@@ -765,6 +1028,59 @@ int launch_band_refresh_2d(void* P, int64_t n0, int64_t n1, const int* kinds, co
       static_cast<T*>(P), n0, n1, axis_bc(kinds, degrees, weights, 0),
       axis_bc(kinds, degrees, weights, 1), flags);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K2's 2D entry (flags null) or K7's on the table route: one launch, int
+// indices below 2^31 elements.
+template <typename T>
+int launch_table_2d(void* P_, int64_t n0, int64_t n1, const WeightTable<T>& tab,
+                    const int* flags, void* stream_) {
+  const int64_t total = 2 * LSM_GHOST * (n1 + n0 + 2 * LSM_GHOST);
+  unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  if (flags != nullptr) {
+    const cudaError_t err = band_blocks(total, blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const bool small = (n0 + 2 * LSM_GHOST) * (n1 + 2 * LSM_GHOST) < (int64_t{1} << 31);
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  T* P = static_cast<T*>(P_);
+  const int m0 = static_cast<int>(n0), m1 = static_cast<int>(n1);
+  if (flags == nullptr && small)
+    refresh_2d_table_kernel<T, int><<<blocks, kThreads, 0, stream>>>(P, m0, m1, tab);
+  else if (flags == nullptr)
+    refresh_2d_table_kernel<T, int64_t><<<blocks, kThreads, 0, stream>>>(P, n0, n1, tab);
+  else if (small)
+    band_refresh_2d_table_kernel<T, int><<<blocks, kThreads, 0, stream>>>(P, m0, m1, tab, flags);
+  else
+    band_refresh_2d_table_kernel<T, int64_t><<<blocks, kThreads, 0, stream>>>(P, n0, n1, tab,
+                                                                             flags);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The table route's refresh (lsm_refresh_table_*): K2's 3D or 2D entry
+// (axes [0, ndim)), K2's single-axis entry ([axis, axis + 1), 3D), or with
+// flags K7's entry (axes [0, ndim)); one launch each but past 32-bit
+// threads in 3D.
+template <typename T>
+int launch_table_refresh(void* P, int ndim, int64_t n0, int64_t n1, int64_t n2, int axis_lo,
+                         int axis_hi, const int* kinds, const int* degrees,
+                         const double* weights, const void* table, int dmax, const int* flags,
+                         void* stream) {
+  const bool whole = axis_lo == 0 && axis_hi == ndim;
+  if (table == nullptr || dmax < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (ndim == 2 && whole)
+    return launch_table_2d<T>(P, n0, n1, weight_table<T>(table, dmax, kinds, degrees, 0, 2),
+                              flags, stream);
+  if (ndim != 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (whole && flags != nullptr)
+    return launch_band_refresh_3d<T>(P, n0, n1, n2, kinds, degrees, weights, flags, stream, table,
+                                     dmax);
+  if (whole)
+    return launch_refresh_3d<T>(P, n0, n1, n2, kinds, degrees, weights, stream, table, dmax);
+  if (axis_lo < 0 || axis_hi != axis_lo + 1 || axis_hi > 3 || flags != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_refresh<T>(P, n0, n1, n2, kinds, degrees, weights, nullptr, stream, axis_lo,
+                           axis_hi, table, dmax);
 }
 
 }  // namespace
@@ -837,4 +1153,23 @@ extern "C" int lsm_refresh_band_ghosts_2d_f64(void* P, int64_t n0, int64_t n1, c
                                               const void* flags, void* stream) {
   return launch_band_refresh_2d<double>(P, n0, n1, kinds, degrees, weights,
                                         static_cast<const int*>(flags), stream);
+}
+
+extern "C" int lsm_refresh_table_f32(void* P, int ndim, int64_t n0, int64_t n1, int64_t n2,
+                                     int axis_lo, int axis_hi, const int* kinds,
+                                     const int* degrees, const double* weights,
+                                     const void* table, int dmax, const void* flags,
+                                     void* stream) {
+  return launch_table_refresh<float>(P, ndim, n0, n1, n2, axis_lo, axis_hi, kinds, degrees,
+                                     weights, table, dmax, static_cast<const int*>(flags), stream);
+}
+
+extern "C" int lsm_refresh_table_f64(void* P, int ndim, int64_t n0, int64_t n1, int64_t n2,
+                                     int axis_lo, int axis_hi, const int* kinds,
+                                     const int* degrees, const double* weights,
+                                     const void* table, int dmax, const void* flags,
+                                     void* stream) {
+  return launch_table_refresh<double>(P, ndim, n0, n1, n2, axis_lo, axis_hi, kinds, degrees,
+                                      weights, table, dmax, static_cast<const int*>(flags),
+                                      stream);
 }

@@ -36,6 +36,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .core.device import dtype_str
 from .core.field import SHARDED_ONLY, MeshField
 from .core.narrowband import NarrowBandField
 from .geometry import queries as geo
@@ -276,5 +277,6 @@ class LevelSetEquation:
             f"  |- phi_t + {term_strs} = 0\n"
             f"  |- integrator: {self.integrator.describe()}\n"
             f"  |- t: {self.t}\n"
-            f"  `- state: {self.state.shape} {self.state.dtype} {self.state.device}"
+            f"  |- state: {self.state.shape} {dtype_str(self.state.dtype)}\n"
+            f"  `- device: {self.state.device}"
         )

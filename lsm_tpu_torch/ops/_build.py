@@ -122,8 +122,8 @@ class Library:
     ``band_refresh_2d``, ``band_retube_2d`` (``_f32/_f64``) and
     ``band_retube_smem_2d``,
     ``general_3d_f32/f64`` (K10), ``general_2d_f32/f64`` (K11),
-    ``ghosts_table_f32/f64`` (K2, K4 and K7 for an extrapolation degree
-    above 7),
+    ``refresh_table_f32/f64`` (K2 and K7 for an extrapolation degree above
+    7) and ``fold_table_f32/f64`` (K4's),
     ``prog_tables_f32/f64`` (the program tables of K1″, K3″ and K6″), ``error_string``,
     plus where it came from (``path``), the build's wall time in seconds
     (``build_seconds``, 0 when it was already built) and nvcc's output
@@ -200,11 +200,14 @@ class Library:
                 fn.argtypes = args
                 fn.restype = ci
                 setattr(self, f"{attr}_{suffix}", fn)
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"lsm_ghosts_table_{suffix}")
-            fn.argtypes = [ci, vp, vp, ci] + [i64] * 3 + [ci, ci, vp, vp, vp, ci, vp, vp]
-            fn.restype = ci
-            setattr(self, f"ghosts_table_{suffix}", fn)
+        table_args = {"refresh_table": [vp, ci] + [i64] * 3 + [ci, ci] + [vp] * 4 + [ci, vp, vp],
+                      "fold_table": [vp, vp, ci] + [i64] * 3 + [vp] * 4 + [ci, vp]}
+        for attr, args in table_args.items():
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"lsm_{attr}_{suffix}")
+                fn.argtypes = args
+                fn.restype = ci
+                setattr(self, f"{attr}_{suffix}", fn)
         for suffix in ("f32", "f64"):
             fn = getattr(lib, f"lsm_prog_tables_{suffix}")
             fn.argtypes = [vp, vp]

@@ -569,7 +569,7 @@ def refresh_band_ghosts_fast(padded: torch.Tensor, bcs, shape, flags: torch.Tens
     so gating needs no host synchronisation. CUDA tensors go to
     ``csrc/refresh_ghosts.cu`` (one launch, 3D or 2D: K2's one-launch kernel
     gated by the flags, a small grid whose blocks exit at once when both are
-    off; a degree above 7: ``csrc/ghost_table.cu``, a gated launch a phase),
+    off; a degree above 7: the same threads on the table route, one launch),
     CPU tensors to :func:`refresh_band_ghosts_plain`. Returns ``padded``.
     """
     shape = tuple(shape)
@@ -583,7 +583,7 @@ def refresh_band_ghosts_fast(padded: torch.Tensor, bcs, shape, flags: torch.Tens
     kinds, degrees, weights = v2._ghost_args(bcs, shape)
     if padded.device.type == "cpu":
         return refresh_band_ghosts_plain(padded, bcs, shape, flags)
-    table = v2._ghost_table(bcs, shape, padded.device)
+    table = v2._ghost_table(bcs, shape, padded.device, padded.dtype)
     if table is not None:
         v2.ghost_table_launch(v2.TABLE_REFRESH, None, padded, bcs, shape, table, flags=flags)
         bump(refresh_band_ghosts_fast, launches=1, launches_2d=len(shape) == 2,

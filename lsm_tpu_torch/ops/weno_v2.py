@@ -206,8 +206,8 @@ def _ghost_args(bcs, shape):
     axis takes ``Extrapolation(0)``: its ghosts are copies of the node),
     Periodic and Symmetry for ``n >= 4``. The weights hold degrees up to
     ``_MAX_DEGREE``; a side of higher degree leaves its row 0 and the
-    launches take :func:`_ghost_table`'s route. Cached per BCs and shape (the
-    arrays are read, never written, by the launches)."""
+    launches take the table route (:func:`_ghost_table`). Cached per BCs and
+    shape (the arrays are read, never written, by the launches)."""
     return _ghost_args_of(tuple(tuple(pair) for pair in bcs), tuple(int(n) for n in shape))
 
 
@@ -243,19 +243,20 @@ def _ghost_args_of(bcs, shape):
     return kinds, degrees, weights
 
 
-def _ghost_table(bcs, shape, device):
-    """The weight table of the route for a degree above ``_MAX_DEGREE``
-    (``csrc/ghost_table.cu``): ``(table, dmax)``, ``table`` a float64 tensor
-    on ``device`` with the weight of node ``j`` for the ghost at distance
-    ``k`` of side ``a = 2 axis + side`` at ``[(a*3 + k-1)*(dmax+1) + j]``;
+def _ghost_table(bcs, shape, device, dtype=torch.float64):
+    """The weight table of the route for a degree above ``_MAX_DEGREE`` (the
+    by-value kernels' thread bodies reading it in place): ``(table, dmax)``,
+    ``table`` a tensor of ``dtype`` on ``device`` with the weight of node
+    ``j`` for the ghost at distance ``k`` of side ``a = 2 axis + side`` at
+    ``[(a*3 + k-1)*(dmax+1) + j]``, the float64 weight rounded once;
     ``None`` when every degree fits the by-value weights. Built once per
-    BCs, shape and device."""
+    BCs, shape, device and dtype."""
     return _ghost_table_of(tuple(tuple(pair) for pair in bcs), tuple(int(n) for n in shape),
-                           torch.device(device))
+                           torch.device(device), dtype)
 
 
 @functools.lru_cache(maxsize=64)
-def _ghost_table_of(bcs, shape, device):
+def _ghost_table_of(bcs, shape, device, dtype):
     dmax = max((b.degree for pair in bcs for b in pair if isinstance(b, _bc.Extrapolation)),
                default=0)
     if dmax <= _MAX_DEGREE:
@@ -268,31 +269,38 @@ def _ghost_table_of(bcs, shape, device):
                 W = _bc._lagrange_extrap_weights(GHOST, b.degree)  # row g <-> k = 3 - g
                 for k in range(1, GHOST + 1):
                     table[2 * ax + side, k - 1, :b.degree + 1] = W[GHOST - k]
-    return torch.as_tensor(table.ravel(), dtype=torch.float64, device=device), dmax
+    return torch.as_tensor(table.ravel()).to(device=device, dtype=dtype), dmax
 
 
-TABLE_REFRESH, TABLE_FOLD = 0, 1  # the ops of lsm_ghosts_table_*
+TABLE_REFRESH, TABLE_FOLD = 0, 1  # the ops of ghost_table_launch
 
 
 def ghost_table_launch(op: int, g: Optional[torch.Tensor], padded: torch.Tensor, bcs, shape,
                        table, axis_lo: int = 0, axis_hi: Optional[int] = None,
                        flags: Optional[torch.Tensor] = None):
-    """One call of the table route on the card (``csrc/ghost_table.cu``):
-    ``TABLE_REFRESH`` the phases ``[axis_lo, axis_hi)`` of K2 on ``padded``
-    in place (gated by K7's ``flags`` when given), ``TABLE_FOLD`` K4's fold
-    of ``g`` into ``padded``. ``table`` is :func:`_ghost_table`'s pair."""
-    kinds, degrees, _ = _ghost_args(bcs, shape)
+    """One launch of the table route on the card: ``TABLE_REFRESH`` K2's
+    axes ``[axis_lo, axis_hi)`` on ``padded`` in place (all of them: its 3D
+    or 2D entry, or with K7's ``flags`` K7's; one: its single-axis entry),
+    ``TABLE_FOLD`` K4's fold of ``g`` into ``padded``. ``table`` is
+    :func:`_ghost_table`'s pair in ``padded``'s dtype."""
+    kinds, degrees, weights = _ghost_args(bcs, shape)
     lib = load_library()
-    fn = lib.ghosts_table_f32 if padded.dtype == torch.float32 else lib.ghosts_table_f64
+    f32 = padded.dtype == torch.float32
     dims = tuple(shape) + (0,) * (3 - len(shape))
     w, dmax = table
+    args = (ctypes.addressof(kinds), ctypes.addressof(degrees), ctypes.addressof(weights),
+            w.data_ptr(), dmax)
     ctx, stream = _on_card(padded)
     with ctx:
-        code = fn(op, None if g is None else g.data_ptr(), padded.data_ptr(), len(shape), *dims,
-                  axis_lo, len(shape) if axis_hi is None else axis_hi, ctypes.addressof(kinds),
-                  ctypes.addressof(degrees), w.data_ptr(), dmax,
-                  None if flags is None else flags.data_ptr(), stream)
-    _raise_on(code, lib, "ghosts_table kernel")
+        if op == TABLE_FOLD:
+            fn = lib.fold_table_f32 if f32 else lib.fold_table_f64
+            code = fn(g.data_ptr(), padded.data_ptr(), len(shape), *dims, *args, stream)
+        else:
+            fn = lib.refresh_table_f32 if f32 else lib.refresh_table_f64
+            code = fn(padded.data_ptr(), len(shape), *dims, axis_lo,
+                      len(shape) if axis_hi is None else axis_hi, *args,
+                      None if flags is None else flags.data_ptr(), stream)
+    _raise_on(code, lib, "fold_table kernel" if op == TABLE_FOLD else "refresh_table kernel")
 
 
 def refresh_ghosts_fast(padded: torch.Tensor, bcs, shape) -> torch.Tensor:
@@ -302,8 +310,8 @@ def refresh_ghosts_fast(padded: torch.Tensor, bcs, shape) -> torch.Tensor:
     ``csrc/refresh_ghosts.cu`` (one launch, 3D or 2D, whose edge and corner
     ghosts recompute the earlier axes' values they read, bit for bit
     ``pad_ghost``'s), CPU tensors to :func:`refresh_ghosts_plain`. An
-    ``Extrapolation`` of degree above 7 takes ``csrc/ghost_table.cu`` (a
-    launch a phase, the weights in a device table; counted in
+    ``Extrapolation`` of degree above 7 takes the table route (the same
+    threads, the weights in a device table; one launch, counted in
     ``table_launches`` too). Returns ``padded``.
     """
     shape = tuple(shape)
@@ -313,7 +321,7 @@ def refresh_ghosts_fast(padded: torch.Tensor, bcs, shape) -> torch.Tensor:
     kinds, degrees, weights = _ghost_args(bcs, shape)
     if padded.device.type == "cpu":
         return refresh_ghosts_plain(padded, bcs, shape)
-    table = _ghost_table(bcs, shape, padded.device)
+    table = _ghost_table(bcs, shape, padded.device, padded.dtype)
     if table is not None:
         ghost_table_launch(TABLE_REFRESH, None, padded, bcs, shape, table)
         bump(refresh_ghosts_fast, launches=1, launches_2d=len(shape) == 2, table_launches=1)
@@ -345,7 +353,8 @@ def refresh_axis_fast(padded: torch.Tensor, bcs, shape, ax: int) -> torch.Tensor
     ``csrc/refresh_ghosts.cu`` (one launch: a thread a line and its six
     ghosts on axes 0 and 1, a lane a ghost along the seams between rows on
     axis 2), CPU tensors to :func:`refresh_axis_plain`; a degree above 7
-    takes the table route (``table_launches``). Returns ``padded``."""
+    takes the table route (one launch, ``table_launches``). Returns
+    ``padded``."""
     shape = tuple(shape)
     if len(shape) != 3 or ax not in (0, 1, 2):
         raise ValueError(f"the ghost refresh is 3D only, got shape {shape} and axis {ax}")
@@ -353,7 +362,7 @@ def refresh_axis_fast(padded: torch.Tensor, bcs, shape, ax: int) -> torch.Tensor
     kinds, degrees, weights = _ghost_args(bcs, shape)
     if padded.device.type == "cpu":
         return refresh_axis_plain(padded, bcs, shape, ax)
-    table = _ghost_table(bcs, shape, padded.device)
+    table = _ghost_table(bcs, shape, padded.device, padded.dtype)
     if table is not None:
         ghost_table_launch(TABLE_REFRESH, None, padded, bcs, shape, table, ax, ax + 1)
         bump(refresh_axis_fast, launches=1, table_launches=1)

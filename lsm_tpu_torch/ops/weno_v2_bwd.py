@@ -151,8 +151,8 @@ def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
     :func:`fold_ghost_cotangent_plain` on a copy. The kernels take what K2
     takes: Periodic and Symmetry on axes of >= 4 nodes, Extrapolation of
     degree <= n - 1 on any axis (one of 1-3 nodes gathers from both faces),
-    else ``ValueError``; a degree above 7 takes ``csrc/ghost_table.cu`` (a
-    copy, a launch an axis, the weights in a device table; counted in
+    else ``ValueError``; a degree above 7 takes the table route (the same
+    threads, the weights in a device table; one launch, counted in
     ``table_launches`` too).
     """
     shape = tuple(shape)
@@ -162,7 +162,7 @@ def fold_ghost_cotangent_fast(g: torch.Tensor, bcs, shape) -> torch.Tensor:
     if g.device.type == "cpu":
         return fold_ghost_cotangent_plain(g.clone(), bcs, shape)
     kinds, degrees, weights = v2._ghost_args(bcs, shape)
-    table = v2._ghost_table(bcs, shape, g.device)
+    table = v2._ghost_table(bcs, shape, g.device, g.dtype)
     if table is not None:
         gf = torch.empty_like(g)
         v2.ghost_table_launch(v2.TABLE_FOLD, g, gf, bcs, shape, table)

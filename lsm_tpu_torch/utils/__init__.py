@@ -1,1 +1,3 @@
 """Checkpointing."""
+
+from .checkpoint import save_checkpoint, load_checkpoint

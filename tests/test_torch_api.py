@@ -1,5 +1,6 @@
 """The port's public surface against the JAX package's: the same 46 names in
-``__all__`` (and ``interp``'s and ``geometry``'s), ``Grid``'s methods with
+``__all__`` (and ``interp``'s and ``geometry``'s; ``core``'s, ``terms``'
+and ``utils``' re-exports), ``Grid``'s methods with
 JAX's semantics, the left- and right-biased WENO5 derivatives, and, in a
 subprocess where ``jax`` and ``lsm_tpu`` cannot be imported, every module of
 ``lsm_tpu_torch`` and ``chip_smoke.py`` importing.
@@ -34,6 +35,26 @@ def test_public_names_match_jax():
         public = {n for n in dir(jm) if not n.startswith("_") and callable(getattr(jm, n))}
         assert public <= set(dir(tm)), public - set(dir(tm))
     assert "SemiImplicitI2OE" in dir(T.integrators)
+
+
+#: what JAX's subpackages re-export that the port does not yet: utils'
+#: profiling names, which come with the port of ``utils/profiling.py``
+NOT_YET = {"utils": {"StepMonitor", "trace", "timed"}}
+
+
+@pytest.mark.parametrize("sub", ["core", "terms", "utils"])
+def test_subpackage_reexports_match_jax(sub):
+    """``from lsm_tpu_torch.<sub> import <name>`` works for every name JAX's
+    ``lsm_tpu.<sub>`` re-exports, apart from :data:`NOT_YET`."""
+    import importlib
+
+    jm = importlib.import_module(f"lsm_tpu.{sub}")
+    tm = importlib.import_module(f"lsm_tpu_torch.{sub}")
+    public = {n for n in dir(jm) if not n.startswith("_")
+              and not isinstance(getattr(jm, n), type(jm))}
+    assert public - set(dir(tm)) == NOT_YET.get(sub, set())
+    for name in public - NOT_YET.get(sub, set()):
+        assert getattr(tm, name) is getattr(T, name, getattr(tm, name))
 
 
 @pytest.mark.parametrize("shape", [(5, 7, 9), (4, 6)])

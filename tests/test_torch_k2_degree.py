@@ -3,13 +3,17 @@ CPU in float64: the plain ghost refresh (K2, its single axis), the gated
 band refresh (K7) under its four gates and the fold (K4) at degrees 8 and
 11, 3D and 2D, mixed with Periodic and Symmetry, against JAX's
 ``pad_ghost`` and its VJP; the device table's weights against JAX's
-Lagrange weights; the wrappers' dispatch of a CUDA-typed buffer to the
-table route (``csrc/ghost_table.cu``, one call a wrapper, counted in
-``table_launches``); and the sharded refresh's edge slabs, deep enough for
-the degree. Every input comes from a numpy seed.
+Lagrange weights, in the buffer's dtype; a model of the table route's line
+threads (chunks of ``kTableChunk`` nodes) against the plain phase; the
+wrappers' dispatch of a CUDA-typed buffer to the table route (the by-value
+kernels' threads reading a table of weights, one launch a wrapper, counted
+in ``table_launches``); and the sharded refresh's edge slabs, deep enough
+for the degree. Every input comes from a numpy seed.
 """
 
 import itertools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -146,6 +150,53 @@ def test_table_holds_jax_weights(name):
                             "cpu") is None
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_table_in_the_buffers_dtype(dtype):
+    """The table the kernels read is the float64 table rounded once to the
+    buffer's dtype (the by-value route rounds each weight the same way), one
+    tensor per BCs, shape, device and dtype."""
+    shape, tb, _, _ = _inputs("mixed")
+    w64, dmax = tv2._ghost_table(tb, shape, "cpu")
+    w, d = tv2._ghost_table(tb, shape, "cpu", dtype)
+    assert d == dmax and w.dtype == dtype and torch.equal(w, w64.to(dtype))
+    assert tv2._ghost_table(tb, shape, "cpu", dtype)[0] is w
+
+
+def _table_chunk():
+    """``kTableChunk``: the nodes an extrapolating line loads at once."""
+    src = (Path(tv2.__file__).parent.parent / "csrc" / "refresh_ghosts.cu").read_text()
+    return int(re.search(r"constexpr int kTableChunk = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("degree", [8, 16, 19])
+def test_chunked_sums_equal_the_plain_ghosts(degree, dtype):
+    """A model of the table route's line threads (``table_ghosts``): the
+    axis-2 ghosts of every row from the table's weights, the P + 1 nodes in
+    chunks of ``kTableChunk``, each ghost's sum from 0 in the nodes' order,
+    equal bit for bit to the plain phase on both sides."""
+    shape = (3, 4, degree + 5)
+    bcs = tbc.normalize_bcs([tbc.Periodic(), tbc.Symmetry(),
+                             (tbc.Extrapolation(degree), tbc.Extrapolation(degree - 1))], 3)
+    P = torch.from_numpy(np.random.default_rng(degree).standard_normal(
+        tv2.padded_shape(shape))).to(dtype)
+    want = tv2.refresh_axis_plain(P.clone(), bcs, shape, 2)
+    w, dmax = tv2._ghost_table(bcs, shape, "cpu", dtype)
+    chunk, n = _table_chunk(), shape[2]
+    got = P.clone()
+    for side in range(2):
+        deg = bcs[2][side].degree
+        nodes = [P[..., G + (j if side == 0 else n - 1 - j)] for j in range(deg + 1)]
+        for k in range(1, G + 1):
+            row = w[((2 * 2 + side) * G + k - 1) * (dmax + 1):][:deg + 1]
+            val = torch.zeros_like(nodes[0])
+            for c in range(0, deg + 1, chunk):
+                for j in range(c, min(c + chunk, deg + 1)):
+                    val = val + row[j] * nodes[j]
+            got[..., G - k if side == 0 else G + n - 1 + k] = val
+    assert torch.equal(got, want)
+
+
 def test_wrappers_take_the_table_route_on_cuda(monkeypatch):
     """A CUDA-typed buffer with a degree above 7 goes to the table route (here
     its launch replaced by the plain version of the op it names): K2 all
@@ -166,7 +217,7 @@ def test_wrappers_take_the_table_route_on_cuda(monkeypatch):
                 tv2.refresh_axis_plain(padded, bcs, shape, ax)
 
     monkeypatch.setattr(tv2, "ghost_table_launch", launch)
-    monkeypatch.setattr(tv2, "_ghost_table", lambda bcs, shape, device: ("table", 11))
+    monkeypatch.setattr(tv2, "_ghost_table", lambda bcs, shape, device, dtype: ("table", 11))
     shape, tb, _, P = _inputs("mixed", seed=3)
     fns = (tv2.refresh_ghosts_fast, tv2.refresh_axis_fast, bd.refresh_band_ghosts_fast,
            tbwd.fold_ghost_cotangent_fast)

@@ -1,14 +1,16 @@
 """Time the ghost-shell kernels of this tree on an H100, each in this process of
 its own (the profiler under-reads device time late in a long process):
 K2's 3D refresh and the fold of a stage output's cotangent (K4) at 512^3 f32
-beside ``g.clone()``, K5 (the shell zeroing) at 512^3 and 4096^2, and K2's
-single-axis phases at the sharded flagship's shard shapes; optionally the
+beside ``g.clone()``, K5 (the shell zeroing) at 512^3 and 4096^2, K2's
+single-axis phases at the sharded flagship's shard shapes; optionally K2,
+K4 and K7 on the route for an ``Extrapolation`` of degree above 7, and the
 cells that run them.
 
 Run from the root of a tree of this repository (its own ``chip_smoke``
 helpers and package):
 
-    python3 tools/ghost_shells.py [label] [--parts k2k4,k5,axis,cells] [--save PATH]
+    python3 tools/ghost_shells.py [label] [--parts k2k4,k5,axis,degree,flagship,cells]
+                                  [--save PATH]
 
 Parts (default ``k2k4,k5,axis``, what ``chip_smoke.py``'s timing reads):
 
@@ -17,12 +19,28 @@ Parts (default ``k2k4,k5,axis``, what ``chip_smoke.py``'s timing reads):
   mixed BCs with ``Extrapolation(7)``. The calls: K2 on the packed state;
   "fold" as the backward runs it (a tree whose K4 folds in place: ``clone``
   and then K4; one whose K4 writes a new buffer: K4 alone); K4 alone;
-  ``g.clone()``.
+  ``g.clone()``; and K4's 2D entry at 4096^2 (Periodic, ``Extrapolation(2)``).
 - ``k5``: K5 on a random cotangent's buffer at 512^3 (``K5``) and at 4096^2
   (``K5_2d``), as the stage backward zeroes ``daux``'s shells.
 - ``axis``: K2's single-axis phase on ``chip_smoke.K9_SETS`` buffers in turn
   (out of the 50 MB L2, as in a stage), Periodic: axis 2 at the (2, 2)
   mesh's shard 256x256x512, axes 1 and 2 at the (4, 1) mesh's 128x512x512.
+- ``degree``: the route for an ``Extrapolation`` of degree above 7 (the
+  table route) at 512^3 f32: K2, K4 and K7 (flags on and off) under
+  ``Extrapolation(8)`` beside the by-value route's ``Extrapolation(7)``, on
+  the same interior and cotangent; ``g.clone()`` of that cotangent (K4's copy
+  floor). ``--save`` adds the SHA-256 of the table route's outputs: K2 (3D,
+  each axis, 2D), K4 (3D, 2D) and K7 (3D, 2D, each gate) under
+  ``chip_smoke.degree_cases`` and ``Extrapolation(19)``, f32 and f64, on
+  scribbled buffers.
+- ``flagship``: the 512^3 Zalesak RK3 ``integrate`` with the rotation
+  in-kernel, under ``Periodic`` and under ``Extrapolation(8)``: ms a step
+  (CUDA-event median of 5 calls of 10 steps, each from the initial state,
+  as ``chip_smoke.py``'s k2_degree times it: a degree-8 extrapolation does
+  not stay finite over hundreds of steps of the rotation), and one profile
+  of 3 steps each: wall, device busy, and the device time by kind of kernel
+  (K1'' the stage, K2 the refresh, the program tables, the rest: the CFL
+  bound's torch kernels, pack and unpack).
 - ``cells``: ms (CUDA-event median) and peak GiB of cell (b) per RK3 step,
   the kinds gradient (grad_kinds) and the 2D gradients (grad2d,
   grad2d_kinds) per ``value_and_grad``, and the sharded 512^3 RK3 flagship
@@ -54,6 +72,7 @@ sys.path.insert(0, os.getcwd())
 import chip_smoke as cs  # noqa: E402
 import lsm_tpu_torch as lsm  # noqa: E402
 from lsm_tpu_torch import parallel as par  # noqa: E402
+from lsm_tpu_torch.ops import band as bd  # noqa: E402
 from lsm_tpu_torch.ops import weno_v2 as v2  # noqa: E402
 from lsm_tpu_torch.ops import weno_v2_bwd as bwd  # noqa: E402
 
@@ -121,6 +140,13 @@ def k2k4(dev, out):
             timed(out, f"{name}_{key}", fn, per_launch=True)
         del P, G, calls, fold, k4, clone, values
         torch.cuda.empty_cache()
+    shape = (cs.N_2D,) * 2  # K4's 2D entry at 4096^2, as the 2D gradients run it
+    for name, bc in (("periodic", lsm.Periodic()), ("extrap2", lsm.Extrapolation(2))):
+        bcs = lsm.normalize_bcs(bc, 2)
+        G = torch.randn(v2.padded_shape(shape),
+                        generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+        timed(out, f"{name}_K4_2d", lambda: bwd.fold_ghost_cotangent_fast(G, bcs, shape))
+        del G
 
 
 def k5(dev, out, sums):
@@ -197,7 +223,89 @@ def sha(t: torch.Tensor) -> str:
     return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8).numpy()).hexdigest()
 
 
-PARTS = {"k2k4": k2k4, "k5": k5, "axis": axis_phases, "cells": cells}
+DEGREE_SUM_SHAPES = ((40, 72, 136), (67, 131))  # every axis at least 20 nodes (degree 19)
+
+
+def degree_sums(dev, sums):
+    """The SHA-256 of the table route's outputs into ``sums``."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    gates = [torch.tensor(f, dtype=torch.int32, device=dev)
+             for f in itertools.product((0, 1), repeat=2)]
+    for dtype, shape in itertools.product((torch.float32, torch.float64), DEGREE_SUM_SHAPES):
+        cases = dict(cs.degree_cases(len(shape)),
+                     extrap19=lsm.normalize_bcs(lsm.Extrapolation(19), len(shape)))
+        for name, bcs in cases.items():
+            key = f"{len(shape)}D_{name}_{str(dtype)[6:]}"
+            vals = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+            P = cs.scribbled(vals, bcs, gen)
+            G = torch.randn(v2.padded_shape(shape), generator=gen, device=dev, dtype=dtype)
+            sums[f"K2_{key}"] = sha(v2.refresh_ghosts_fast(P.clone(), bcs, shape))
+            if len(shape) == 3:
+                for ax in range(3):
+                    sums[f"K2ax{ax}_{key}"] = sha(v2.refresh_axis_fast(P.clone(), bcs, shape, ax))
+            sums[f"K4_{key}"] = sha(bwd.fold_ghost_cotangent_fast(G, bcs, shape))
+            for flags in gates:
+                sums[f"K7_{''.join(map(str, flags.tolist()))}_{key}"] = sha(
+                    bd.refresh_band_ghosts_fast(P.clone(), bcs, shape, flags))
+
+
+def degree(dev, out, sums):
+    shape = (cs.N_MAIN,) * 3
+    gen = torch.Generator(device=dev).manual_seed(21)
+    vals = torch.randn(shape, generator=gen, device=dev)
+    G = torch.randn(v2.padded_shape(shape), generator=gen, device=dev)
+    on = torch.ones(2, dtype=torch.int32, device=dev)
+    off = torch.zeros(2, dtype=torch.int32, device=dev)
+    for label, d in (("degree7", 7), ("degree8", 8)):
+        bcs = lsm.normalize_bcs(lsm.Extrapolation(d), 3)
+        P = v2.pack_padded(vals, bcs)
+        calls = {"K2": lambda: v2.refresh_ghosts_fast(P, bcs, shape),
+                 "K4": lambda: bwd.fold_ghost_cotangent_fast(G, bcs, shape),
+                 "K7on": lambda: bd.refresh_band_ghosts_fast(P, bcs, shape, on),
+                 "K7off": lambda: bd.refresh_band_ghosts_fast(P, bcs, shape, off)}
+        for key, fn in calls.items():
+            timed(out, f"{label}_{key}", fn, per_launch=True)
+        del P, calls
+        torch.cuda.empty_cache()
+    timed(out, "degree_clone", lambda: G.clone(memory_format=torch.contiguous_format))
+    del G
+    torch.cuda.empty_cache()
+    if sums is not None:
+        degree_sums(dev, sums)
+
+
+def kind_of(kernel: str) -> str:
+    """The flagship profile's kind of a kernel, by its name."""
+    for kind, marks in (("K1pp", ("weno_stage", "march", "stage_")), ("K2", ("refresh",)),
+                        ("tables", ("prog_table", "coef_table"))):
+        if any(m in kernel for m in marks):
+            return kind
+    return "rest"
+
+
+def flagship(dev, out):
+    _, phi, _ = cs.zalesak(cs.N_MAIN, dev)
+    term = lsm.AdvectionTerm(cs.rotation)
+    for label, bc in (("periodic", lsm.Periodic()), ("degree8", lsm.Extrapolation(8))):
+        p = lsm.MeshField(phi.values, phi.grid, bc)
+        fresh = lambda: lsm.LevelSetEquation(terms=term, ic=p, integrator=lsm.RK3())
+        fresh().integrate(1.0, max_steps=2)  # warm-up
+        out[f"flagship_{label}_ms_per_step"] = cs.cuda_time(
+            lambda: fresh().integrate(1.0, max_steps=10), warmup=0, reps=5) / 10
+        eq = fresh()
+        kernels = {}
+        wall, busy = cs.profile_window(f"3 RK3 steps at {cs.N_MAIN}^3, {label}",
+                                       lambda: eq.integrate(eq.t + 1.0, max_steps=3), kernels)
+        out[f"flagship_{label}_wall_3steps"], out[f"flagship_{label}_busy_3steps"] = wall, busy
+        for kind in ("K1pp", "K2", "tables", "rest"):
+            out[f"flagship_{label}_{kind}_3steps"] = sum(ms for name, (ms, _) in kernels.items()
+                                                   if kind_of(name) == kind)
+        del eq, p
+        torch.cuda.empty_cache()
+
+
+PARTS = {"k2k4": k2k4, "k5": k5, "axis": axis_phases, "degree": degree, "flagship": flagship,
+         "cells": cells}
 
 
 def main(argv=None) -> None:
@@ -210,7 +318,7 @@ def main(argv=None) -> None:
     out, sums = {}, {} if args.save else None
     for part in args.parts.split(","):
         fn = PARTS[part]
-        if part in ("k5", "axis"):
+        if part in ("k5", "axis", "degree"):
             fn(dev, out, sums)
         else:
             fn(dev, out)

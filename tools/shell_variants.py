@@ -4,7 +4,8 @@ taken out or changed; K7's one launch with other grids; K5 (512^3 and
 4096^2) with other seam layouts and chunks, or its long gaps or seams alone;
 K2's single-axis phases (axis 2 at the (2, 2) mesh's shard, axes 1 and 2 at
 the (4, 1) mesh's, buffers in turn out of L2) with axis 2's rows laid
-otherwise.
+otherwise; K2's and K7's table route (the flagship's field under
+``Extrapolation(8)``) with other register budgets.
 
 Each variant is one source with a text substitution, built by nvcc (the
 port's flags) into a library of its own under `lsm_tpu_torch/_build/`; the
@@ -57,6 +58,9 @@ _K4_FIRST = "  if (blockIdx.x < a.flat_blocks) {\n    const uint32_t before = bl
 _K7_BLOCKS = "constexpr int kBandBlocksPerSM = 4;"
 _K7_CAP = "  blocks = static_cast<unsigned>(need < most ? need : most);\n"
 _K7_BOUNDS = "__global__ void __launch_bounds__(kThreads, 4)\n    band_refresh_3d_kernel("
+_K2T_BOUNDS = "__global__ void __launch_bounds__(kThreads, 4)\n    refresh_3d_table_kernel("
+_K7T_BOUNDS = "__global__ void __launch_bounds__(kThreads, 4)\n    band_refresh_3d_table_kernel("
+_CHUNK = "constexpr int kTableChunk = 8;"
 _K5_LANES = "constexpr int kSeamLanes = 6;"
 _K5_SEAMS = "constexpr int kSeams = 1;"
 _K5_VECTORS = "constexpr int kZeroVectors = 1;"
@@ -72,7 +76,7 @@ _AX_SEAMS = """    const uint32_t dq = threadIdx.x / (2 * LSM_GHOST), e = thread
     T* line = P + row * a.a_stride;
     const T* node = line + LSM_GHOST;
     T val[2 * LSM_GHOST];
-    line_ghosts<T, kExtrap>(a.bc, a.n, g, g + 1, [&](int m) { return node[m]; }, val);
+    line_ghosts<T, kExtrap>(bc, a.n, g, g + 1, [&](int m) { return node[m]; }, val);
     T v = T(0);
 #pragma unroll
     for (int h = 0; h < 2 * LSM_GHOST; ++h)
@@ -83,13 +87,35 @@ _AX_SEAMS = """    const uint32_t dq = threadIdx.x / (2 * LSM_GHOST), e = thread
 # stores (each warp instruction then touches a line a lane)
 _AX_ROW_THREADS = """    const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
     if (row >= a.lines) return;
-    refresh_line<T, kExtrap>(P + row * a.a_stride, 1, a.bc, a.n);
+    refresh_line<T, kExtrap>(P + row * a.a_stride, 1, bc, a.n);
 """
 _AX_BLOCKS = "    const int64_t blocks = axis == 2 ? a.lines / kRowSeams + 1  // the rows' lines + 1 seams\n"
 
 #: name: (what it shows, source, substitutions, kernels it touches)
 VARIANTS = {
-    "as built": ("the kernels", None, [], ("K2", "K4", "K7", "K7 2D", "K5", "K5 2D", "K2ax")),
+    "as built": ("the kernels", None, [], ("K2", "K4", "K7", "K7 2D", "K5", "K5 2D", "K2ax",
+                                           "K2 table", "K4 table", "K7 table")),
+    "K2 table at most 40 registers": ("six blocks an SM, K2's budget", "refresh_ghosts.cu",
+                                      [(_K2T_BOUNDS, _K2T_BOUNDS.replace("(kThreads, 4)",
+                                                                         "(kThreads, 6)"))],
+                                      ("K2 table",)),
+    "K2 table at most 128 registers": ("two blocks an SM", "refresh_ghosts.cu",
+                                       [(_K2T_BOUNDS, _K2T_BOUNDS.replace("(kThreads, 4)",
+                                                                          "(kThreads, 2)"))],
+                                       ("K2 table",)),
+    "K2 table chunks of 16": (
+        "an extrapolation's nodes loaded 16 at once", "refresh_ghosts.cu",
+        [(_CHUNK, _CHUNK.replace("8;", "16;"))], ("K2 table", "K7 table")),
+    "K2 table chunks of 16, at most 128 registers": (
+        "an extrapolation's nodes loaded 16 at once, two blocks an SM", "refresh_ghosts.cu",
+        [(_CHUNK, _CHUNK.replace("8;", "16;")),
+         (_K2T_BOUNDS, _K2T_BOUNDS.replace("(kThreads, 4)", "(kThreads, 2)")),
+         (_K7T_BOUNDS, _K7T_BOUNDS.replace("(kThreads, 4)", "(kThreads, 2)"))],
+        ("K2 table", "K7 table")),
+    "K7 table at most 128 registers": ("two blocks an SM, the grid of four", "refresh_ghosts.cu",
+                                       [(_K7T_BOUNDS, _K7T_BOUNDS.replace("(kThreads, 4)",
+                                                                          "(kThreads, 2)"))],
+                                       ("K7 table",)),
     "K2 axis-2 lines only": ("the interior rows' ends", "refresh_ghosts.cu",
                              [(_LINES_A, "  s.cnt_a = 0;\n"), (_LINES_B, "  s.cnt_b = 0;\n")],
                              ("K2",)),
@@ -213,7 +239,11 @@ class _Lib:
                                  ("zero_shells", "lsm_zero_shells", [vp] + [i64] * 3 + [vp]),
                                  ("zero_shells_2d", "lsm_zero_shells_2d", [vp] + [i64] * 2 + [vp]),
                                  ("refresh_axis", "lsm_refresh_axis",
-                                  [vp] + [i64] * 3 + [ci] + [vp] * 4)):
+                                  [vp] + [i64] * 3 + [ci] + [vp] * 4),
+                                 ("refresh_table", "lsm_refresh_table",
+                                  [vp, ci] + [i64] * 3 + [ci, ci] + [vp] * 4 + [ci, vp, vp]),
+                                 ("fold_table", "lsm_fold_table",
+                                  [vp, vp, ci] + [i64] * 3 + [vp] * 4 + [ci, vp])):
             for suffix in ("f32", "f64"):
                 fn = getattr(lib, f"{name}_{suffix}", None)
                 if fn is None:
@@ -254,7 +284,8 @@ def build(main, names):
         regs = [" ".join(lines[n + 1:n + 3]) for n, line in enumerate(lines)
                 if "Compiling entry" in line and any(
                     k in line for k in ("refresh_3d_kernel", "fold_kernel", "zero_shells_kernel",
-                                        "refresh_axis_kernel"))]
+                                        "refresh_axis_kernel", "refresh_3d_table_kernel",
+                                        "band_refresh_3d_table_kernel"))]
         print(f"BUILD {name}: " + " | ".join(regs), flush=True)
     return libs
 
@@ -284,9 +315,18 @@ def main(only) -> int:
             P, bcs, shape)
         calls[("K4", label)] = lambda G=G, bcs=bcs, shape=shape: bwd.fold_ghost_cotangent_fast(
             G, bcs, shape)
-    del phi, torus, states
     on = torch.ones(2, dtype=torch.int32, device=dev)
     off = torch.zeros(2, dtype=torch.int32, device=dev)
+    degree8 = lsm.normalize_bcs(lsm.Extrapolation(8), 3)  # the table route
+    s8 = tuple(phi.values.shape)
+    P8 = v2.pack_padded(phi.values, degree8)
+    G8 = torch.randn(v2.padded_shape(s8),
+                     generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+    calls[("K2 table", "degree8")] = lambda: v2.refresh_ghosts_fast(P8, degree8, s8)
+    calls[("K4 table", "degree8")] = lambda: bwd.fold_ghost_cotangent_fast(G8, degree8, s8)
+    for label, f in (("on", on), ("off", off)):
+        calls[("K7 table", label)] = lambda f=f: bd.refresh_band_ghosts_fast(P8, degree8, s8, f)
+    del phi, torus, states
     nb = cs.sphere_band(cs.N_MAIN, dev)
     _, nb2, _ = cs.d2b(cs.N_2D, dev)
     for kernel, b in (("K7", nb), ("K7 2D", nb2)):
