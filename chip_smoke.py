@@ -178,6 +178,17 @@ phases (a partial run: no kernel record):
              32^3.
     quadrature — Q: volume and area of a 64^3 sphere from a field on the
              card, its interpolant eager and lazy.
+    io     — the host-side modules on the 512^3 flagship:
+             ``utils.profiling.timed`` around 10 ``FusedStepper.step`` calls
+             against CUDA events (it waits for the card), ``StepMonitor`` as
+             the posthook of ``integrate`` (the general path, K10),
+             ``trace``'s Chrome trace naming K1'' and K2;
+             ``io.marching_tetrahedra`` of a card field equal to its CPU
+             copy's, a 512^3 sphere read back, marched, welded (watertight,
+             area to 1e-3), exported (``export_surface_mesh``,
+             ``write_obj``; ``export_volume_mesh`` at 64^3: its text is
+             about 40 GB at 512^3). No plotting (host-side, tested on the
+             CPU).
 15. timing — CUDA-event medians at 512^3: K1-K5 (K2, K4 and K5 also back
              to back and by device time, K4 beside g.clone(); K2's single-axis
              phases at the shard shapes by device time: tools/ghost_shells.py,
@@ -240,11 +251,15 @@ import contextlib
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+from pathlib import Path
 
+import numpy as np
 import torch
 
 import lsm_tpu_torch as lsm
@@ -262,9 +277,11 @@ from lsm_tpu_torch.ops import stencils as st
 from lsm_tpu_torch.ops import weno_general as wg
 from lsm_tpu_torch.ops import weno_v2 as v2
 from lsm_tpu_torch.ops import weno_v2_bwd as bwd
+from lsm_tpu_torch import io as lio
 from lsm_tpu_torch import parallel as par
 from lsm_tpu_torch.parallel import fused_evolve as sfe
 from lsm_tpu_torch.parallel.dryrun import dryrun_multichip
+from lsm_tpu_torch.utils import profiling
 
 N_MAIN = 512
 N_SMALL = 64  # the gradient checks' small grid
@@ -6034,6 +6051,10 @@ N_SI_SMALL, N_SI_GRAD = 48, 32  # card vs CPU, f64: 3 steps; the gradient throug
 N_NSDF = 256  # NSDF: sphere r 0.5 on [-1, 1]^3, f64, lazy coefficients
 N_NSDF_SMALL = 32  # card vs CPU, eager
 N_QUAD = 64  # Q: the quadrature's sphere
+IO_STEPS = 10  # the io phase: FusedStepper.step calls timed by profiling.timed and by events
+IO_MONITOR_STEPS = 5  # StepMonitor on the general path: integrate's max_steps
+N_IO_VOLUME = 64  # export_volume_mesh's grid: every vertex at %.17g and 6 tets a cell,
+# about 40 GB of text at 512^3
 
 
 def si_run(phi, vel, steps):
@@ -6249,6 +6270,190 @@ def phase_quadrature(dev, res):
         raise AssertionError(f"quadrature: {out}")
 
 
+def trace_kernel_names(run, want, tries=3):
+    """The kernel names in the Chrome trace that ``profiling.trace`` writes
+    around ``run()``, taken again (calling ``run`` again) up to ``tries``
+    times while a pattern of ``want`` names none of them (see
+    :func:`kernel_names`: the profiler drops records now and then)."""
+    for _ in range(tries):
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace(tmp) as logdir:
+                run()
+            files = sorted(Path(logdir).glob("*.json"))
+            events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
+        names = {e["name"] for e in events if e.get("cat") == "kernel"}
+        if all(any(re.search(w, n) for n in names) for w in want.values()):
+            break
+    return files, names
+
+
+def phase_io(dev, res):
+    """The host-side modules on the flagship (512^3 Zalesak, rotation
+    in-kernel, RK3, f32). ``profiling.timed`` around IO_STEPS
+    ``FusedStepper.step`` calls at a fixed dt (no CFL read-back), with CUDA
+    events recorded around the same steps: timed >= 0.95 x events (it waits
+    for the card; the host-only enqueue time beside them); ``StepMonitor`` with a volume
+    observable as the posthook of ``integrate`` (the general path: K10),
+    IO_MONITOR_STEPS steps: its ts those a plain recording posthook sees in
+    the same run, its last volume the final state's; ``profiling.trace``
+    around two fused ``integrate`` steps: its Chrome trace names K1''
+    (``stage_march_prog_kernel``) and K2 (``refresh_3d_kernel``);
+    ``marching_tetrahedra`` of the final state on the card equal to that of
+    its CPU copy; a sphere r 0.5 on [-1, 1]^3 at 512^3 f32 sampled on the
+    card: read back, marched and welded (times, triangles), watertight (every
+    edge of two faces) and its area within 1e-3 of 4 pi r^2;
+    ``export_surface_mesh`` and ``write_obj`` of it, and
+    ``export_volume_mesh`` at N_IO_VOLUME^3 (cut from 512^3: the text would
+    be about 40 GB), into a temporary directory."""
+    out = {}
+    grid, phi, _ = zalesak(N_MAIN, dev)
+    # 1. timed waits for the card
+    stepper = FusedStepper(lsm.AdvectionTerm(rotation), phi, lsm.RK3())
+    dt = 0.25 * grid.min_spacing
+    P0 = stepper.pack(phi.values)
+
+    def block():
+        P = P0
+        for k in range(IO_STEPS):
+            P = stepper.step(P, k * dt, dt)
+        return P
+
+    block()
+    reset_counts()
+    timed_s = {}
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profiling.timed("steps", out=timed_s):
+        t0 = time.perf_counter()
+        a.record()
+        P1 = block()
+        b.record()
+        enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    b.synchronize()
+    launches = read_counts()
+    events_ms, timed_ms = a.elapsed_time(b), 1e3 * timed_s["steps"]
+    k1pp, k2, finite = launches["K1''"], launches["K2"], bool(torch.isfinite(P1).all())
+    log("io", f"{IO_STEPS} FusedStepper.step (RK3, K1'' in-kernel rotation) at {N_MAIN}^3 f32, "
+              f"one run: profiling.timed {timed_ms:.3f} ms, CUDA events around the same steps "
+              f"{events_ms:.3f} ms (ratio {timed_ms / events_ms:.4f}, gate >= 0.95), host-only "
+              f"enqueue {enqueue_ms:.3f} ms; launches K1'' {k1pp} K2 {k2}; finite {finite} "
+              f"[{nvidia_smi()}]")
+    out.update(timed_ms=timed_ms, events_ms=events_ms, enqueue_ms=enqueue_ms)
+    if not (timed_ms >= 0.95 * events_ms and finite and k1pp == k2 == 3 * IO_STEPS):
+        raise AssertionError(f"profiling.timed did not wait for the card: {out}, {launches}")
+    del P0, P1, stepper
+    # 2. StepMonitor on the general path
+    mon = profiling.StepMonitor(observables={"volume": lambda e: e.volume()})
+    seen = []
+
+    def posthook(e):
+        mon(e)
+        seen.append(e.t)
+
+    eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(rotation), ic=phi, integrator=lsm.RK3())
+    reset_counts()
+    eq.integrate(1.0, posthook=posthook, max_steps=IO_MONITOR_STEPS)
+    launches = read_counts()
+    summary = mon.summary()
+    vol = float(eq.volume())
+    rel = abs(summary["volume_final"] - vol) / vol
+    log("io", f"StepMonitor on integrate's general path (posthook), {N_MAIN}^3: nsteps "
+              f"{mon.nsteps}, ts {mon.ts}, volume {mon.records['volume']}, summary {summary}; "
+              f"final volume() {vol:.9e} (rel {rel:.2e}); path {eq.last_fast_path}, launches "
+              f"K10 {launches['K10']} K1 {launches['K1']}")
+    out.update(monitor_nsteps=mon.nsteps, monitor_summary=summary)
+    if not (mon.nsteps == IO_MONITOR_STEPS and mon.ts == seen and rel <= 1e-6
+            and eq.last_fast_path is None and launches["K10"] == 3 * IO_MONITOR_STEPS
+            and launches["K1"] == 0):
+        raise AssertionError(f"StepMonitor on the general path: {out}, {launches}")
+    # 3. trace sees the kernels
+    eq = lsm.LevelSetEquation(terms=lsm.AdvectionTerm(rotation), ic=phi, integrator=lsm.RK3())
+    eq.integrate(1.0, max_steps=1)
+    want = {"K1''": r"\bstage_march_prog_kernel\b", "K2": r"\brefresh_3d_kernel\b"}
+    files, names = trace_kernel_names(lambda: eq.integrate(eq.t + 1.0, max_steps=2), want)
+    found = {k: sorted(n for n in names if re.search(w, n)) for k, w in want.items()}
+    log("io", f"profiling.trace around 2 fused integrate steps: {len(files)} Chrome trace file, "
+              f"{len(names)} kernel names; " + "; ".join(
+                  f"{k}: {v[0][:80] if v else None}" for k, v in found.items()))
+    if not (len(files) == 1 and all(found.values()) and eq.last_fast_path == "fused"):
+        raise AssertionError(f"the trace does not name K1'' and K2: {sorted(names)}")
+    del phi
+    # 4. marching on a card field
+    final = eq.state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tris_card = lio.marching_tetrahedra(final)
+    t_card = time.perf_counter() - t0
+    tris_cpu = lio.marching_tetrahedra(final.with_values(final.values.cpu()))
+    equal = np.array_equal(tris_card, tris_cpu)
+    log("io", f"marching_tetrahedra of the flagship's final {N_MAIN}^3 state: {len(tris_card)} "
+              f"triangles from the card field ({t_card:.2f} s, read-back included), equal to "
+              f"its CPU copy's: {equal}")
+    if not (equal and len(tris_card) > 0):
+        raise AssertionError("marching_tetrahedra: card field and CPU copy differ")
+    del eq, final, tris_card, tris_cpu
+    sph = sphere_field(N_MAIN, dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals = lio.marching.host_values(sph)
+    t_read = time.perf_counter() - t0
+    host = lsm.MeshField(torch.from_numpy(vals), sph.grid, sph.bcs)
+    t0 = time.perf_counter()
+    tris = lio.marching_tetrahedra(host)
+    t_march = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    verts, faces = lio.weld_triangles(tris)
+    t_weld = time.perf_counter() - t0
+    edges = np.sort(np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]]), axis=1)
+    _, counts = np.unique(edges[:, 0].astype(np.int64) * len(verts) + edges[:, 1],
+                          return_counts=True)
+    watertight = bool((counts == 2).all())
+    tri = verts[faces]
+    area = 0.5 * float(np.linalg.norm(np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]),
+                                      axis=1).sum())
+    exact = 4.0 * math.pi * 0.25
+    rel_area = abs(area - exact) / exact
+    log("io", f"sphere r 0.5 at {N_MAIN}^3 f32 on the card: read-back {t_read:.2f} s, march "
+              f"{t_march:.2f} s ({len(tris)} triangles), weld {t_weld:.2f} s ({len(verts)} "
+              f"vertices, {len(faces)} faces); edges {len(counts)}, every edge of two faces "
+              f"{watertight}; area {area:.9f} (rel err {rel_area:.2e}, tol 1e-3) "
+              f"[{nvidia_smi()}]")
+    out.update(read_s=t_read, march_s=t_march, weld_s=t_weld, triangles=len(tris),
+               area_rel_err=rel_area, watertight=watertight)
+    if not (watertight and rel_area <= 1e-3):
+        raise AssertionError(f"the welded {N_MAIN}^3 sphere: {out}")
+    del tris, host, vals
+    # 5. export
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        surf = lio.export_surface_mesh(sph, tmp / "sphere")
+        t_surf = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        obj = lio.write_obj(tmp / "sphere.obj", verts, faces)
+        t_obj = time.perf_counter() - t0
+        small = sphere_field(N_IO_VOLUME, dev, dtype=torch.float32)
+        t0 = time.perf_counter()
+        vol_mesh = lio.export_volume_mesh(small, tmp / "ball")
+        t_vol = time.perf_counter() - t0
+        with open(surf) as f:
+            surf_ok = any(line.startswith("Triangles") for line in f)
+        with open(obj) as f:
+            obj_ok = f.read(2) == "v "
+        with open(vol_mesh) as f:
+            vol_ok = any(line.startswith("Tetrahedra") for line in f)
+        sol_ok = "SolAtVertices" in (tmp / "ball.sol").read_text()
+        sizes = {p.name: p.stat().st_size for p in sorted(tmp.iterdir())}
+    log("io", f"export_surface_mesh {N_MAIN}^3 {t_surf:.2f} s (march, weld and write), "
+              f"write_obj {t_obj:.2f} s, export_volume_mesh {N_IO_VOLUME}^3 {t_vol:.2f} s (cut "
+              f"from {N_MAIN}^3: every vertex at %.17g and 6 tets a cell, about 40 GB of text "
+              f"there); bytes {sizes}; Triangles {surf_ok}, 'v ' {obj_ok}, Tetrahedra {vol_ok}, "
+              f"SolAtVertices {sol_ok}; the directory removed {not tmp.exists()}")
+    out.update(surface_s=t_surf, obj_s=t_obj, volume_s=t_vol, bytes=sizes)
+    res["io"] = out
+    if not (surf_ok and obj_ok and vol_ok and sol_ok and not tmp.exists()):
+        raise AssertionError(f"the exported files: {sizes}")
+
+
 def main(argv=()) -> int:
     """Every phase in order; with phase names in ``argv``, only those (a
     partial run: no kernel record, and a last line that says so)."""
@@ -6295,7 +6500,7 @@ def main(argv=()) -> int:
                       ("grad_2d", phase_grad_2d),
                       ("general_small", phase_general_small),
                       ("semi_implicit", phase_semi_implicit), ("interp_sdf", phase_interp_sdf),
-                      ("quadrature", phase_quadrature), ("k9", phase_k9),
+                      ("quadrature", phase_quadrature), ("io", phase_io), ("k9", phase_k9),
                       ("sharded", phase_sharded), ("sharded_grad", phase_sharded_grad),
                       ("sharded_general", phase_sharded_general), ("dryrun", phase_dryrun),
                       ("timing", phase_timing),

@@ -90,8 +90,8 @@ class BandState(NamedTuple):
 
 
 def unsupported_reason(terms, nb, integrator) -> Optional[str]:
-    """Why ``(terms, nb, integrator)`` cannot take the band stepper, naming
-    the ROADMAP item that would add it; ``None`` when it can."""
+    """Why ``(terms, nb, integrator)`` cannot take the band stepper; ``None``
+    when it can."""
     if not isinstance(nb, NarrowBandField):
         return "the band stepper takes a NarrowBandField"
     terms = tuple(terms) if isinstance(terms, (tuple, list)) else (terms,)

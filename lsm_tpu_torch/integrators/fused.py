@@ -136,9 +136,8 @@ def _fit_programs(entries):
 def term_entry(term, phi: MeshField):
     """``(TermSpec, streams)`` of one term for the fused stage (a callable
     coefficient traced into a program, or kept for the stream route), or the
-    reason, naming its ROADMAP item, why the fused path cannot take it
-    (counterpart of ``lsm_tpu.integrators.fused._term_spec`` with
-    ``allow_update``)."""
+    reason why the fused path cannot take it (counterpart of
+    ``lsm_tpu.integrators.fused._term_spec`` with ``allow_update``)."""
     if isinstance(term, AdvectionTerm):
         if term.scheme != "weno5":
             return f"the {term.scheme!r} advection scheme takes the general path"
@@ -156,8 +155,8 @@ def term_entry(term, phi: MeshField):
 
 
 def unsupported_reason(terms, phi: MeshField, integrator) -> Optional[str]:
-    """Why ``(terms, phi, integrator)`` cannot take the fused stepper, naming
-    the ROADMAP item that would add it; ``None`` when it can."""
+    """Why ``(terms, phi, integrator)`` cannot take the fused stepper;
+    ``None`` when it can."""
     if phi.active_mask is not None:
         return ("the dense fused stepper takes dense fields only; a NarrowBandField "
                 "goes to the band stepper")

@@ -1,1 +1,3 @@
 """Stencils, the padded layout and the CUDA kernel wrappers."""
+
+from . import stencils

@@ -24,6 +24,7 @@ __all__ = [
     "weno5_pair_diffs",
     "weno5m",
     "weno5p",
+    "weno5_pair",
     "weno5_upwind",
     "weno5_upwind_fwd_bwd",
     "safe_sqrt",
@@ -141,6 +142,42 @@ def _weno_combine(s1, s2, s3, eps, d1, d2, d3):
     qsum = q1 + q2 + q3
     w = 1.0 / qsum
     return (q1 * d1 + q2 * d2 + q3 * d3) * w
+
+
+def weno5_pair(dm):
+    """Fused (weno5-, weno5+) from the six shared backward differences ``dm[k]``,
+    ``k = -2..3`` relative to node ``I`` (``dm[j] = D- at I + j - 2``), sharing
+    the first and second difference tables ``e`` and ``c`` between the two
+    biases' Jiang-Shu indicators and using the one-division weight form.
+    Identical in exact arithmetic to ``(_weno_core(dm[0..4]),
+    _weno_core(dm[5], dm[4], dm[3], dm[2], dm[1]))``; JAX's sums in JAX's
+    order. Nothing on the steppers' paths calls it."""
+    dtype = dm[0].dtype
+    c13 = 13.0 / 12.0
+    e = [dm[k + 1] - dm[k] for k in range(5)]
+    c = [e[k + 1] - e[k] for k in range(4)]
+    c_sq = [ck * ck for ck in c]
+    # minus-biased (stencil dm[0..4])
+    s1m = c13 * c_sq[0] + 0.25 * (c[0] + 2.0 * e[1]) ** 2
+    s2m = c13 * c_sq[1] + 0.25 * (e[1] + e[2]) ** 2
+    s3m = c13 * c_sq[2] + 0.25 * (c[2] - 2.0 * e[2]) ** 2
+    # plus-biased (stencil dm[5..1], the reflection)
+    s1p = c13 * c_sq[3] + 0.25 * (c[3] - 2.0 * e[3]) ** 2
+    s2p = c13 * c_sq[2] + 0.25 * (e[2] + e[3]) ** 2
+    s3p = c13 * c_sq[1] + 0.25 * (c[1] + 2.0 * e[2]) ** 2
+    sq = [v * v for v in dm]
+    mid = torch.maximum(torch.maximum(sq[1], sq[2]), torch.maximum(sq[3], sq[4]))  # dm[1..4]
+    eps_m = _weno_eps(torch.maximum(mid, sq[0]), dtype)
+    eps_p = _weno_eps(torch.maximum(mid, sq[5]), dtype)
+    d1m = (1.0 / 3.0) * dm[0] - (7.0 / 6.0) * dm[1] + (11.0 / 6.0) * dm[2]
+    d2m = -(1.0 / 6.0) * dm[1] + (5.0 / 6.0) * dm[2] + (1.0 / 3.0) * dm[3]
+    d3m = (1.0 / 3.0) * dm[2] + (5.0 / 6.0) * dm[3] - (1.0 / 6.0) * dm[4]
+    d1p = (1.0 / 3.0) * dm[5] - (7.0 / 6.0) * dm[4] + (11.0 / 6.0) * dm[3]
+    d2p = -(1.0 / 6.0) * dm[4] + (5.0 / 6.0) * dm[3] + (1.0 / 3.0) * dm[2]
+    d3p = (1.0 / 3.0) * dm[3] + (5.0 / 6.0) * dm[2] - (1.0 / 6.0) * dm[1]
+    minus = _weno_combine(s1m, s2m, s3m, eps_m, d1m, d2m, d3m)
+    plus = _weno_combine(s1p, s2p, s3p, eps_p, d1p, d2p, d3p)
+    return minus, plus
 
 
 def weno5_upwind(dm, u):

@@ -16,7 +16,7 @@ it costs no pass over the grid.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -36,6 +36,10 @@ __all__ = [
     "kind_cfl",
     "is_number",
 ]
+
+#: a scalar coefficient or a velocity: a field, a tensor or a callable ``f(xs, t)``
+#: (a number too, as the module docstring says)
+Coefficient = Union[MeshField, torch.Tensor, Callable]
 
 
 def is_number(f) -> bool:
